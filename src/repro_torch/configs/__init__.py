@@ -1,0 +1,36 @@
+"""Config registry of the port: the paper's own models.
+
+``get_config(name)`` covers ``paper-tiny``, ``paper-gpt2`` and
+``paper-llama3.2-3b`` (``<name>-smoke`` gives the reduced variant), with the
+reference's dataclasses copied in :mod:`repro_torch.configs.base`.
+"""
+
+from repro_torch.configs import paper_models
+from repro_torch.configs.base import (FedConfig, LoRAConfig, ModelConfig,
+                                      TrainConfig, config_dict,
+                                      validate_fed_lora)
+
+CONFIGS = {
+    "paper-gpt2": paper_models.GPT2_SMALL,
+    "paper-llama3.2-3b": paper_models.LLAMA32_3B,
+    "paper-tiny": paper_models.TINY,
+}
+
+
+def get_config(name: str) -> ModelConfig:
+    """Look up a model config; ``<name>-smoke`` returns the reduced variant."""
+    if name.endswith("-smoke"):
+        return get_config(name[: -len("-smoke")]).reduced()
+    try:
+        return CONFIGS[name]
+    except KeyError:
+        raise KeyError(f"model-configs: unknown entry {name!r} "
+                       f"(known: {', '.join(sorted(CONFIGS))})") from None
+
+
+def list_configs():
+    return sorted(CONFIGS)
+
+
+__all__ = ["CONFIGS", "FedConfig", "LoRAConfig", "ModelConfig", "TrainConfig",
+           "config_dict", "get_config", "list_configs", "validate_fed_lora"]

@@ -1,0 +1,147 @@
+"""Federated aggregation operators — the paper's contribution (§4).
+
+Counterpart of the operators of ``repro/core/aggregation.py`` that the
+uniform round close composes. They act on *lists of client adapter trees*
+(every factor leaf ``a: (..., d_in, r)`` / ``b: (..., r, d_out)``, leading
+stacked-layer axes batched by ``torch.matmul``):
+
+* ``fedit``  — FedAvg of the factors (inexact; Eq. 3–4).
+* ``fedex``  — factor averages + residual ΔW_res = Σwᵢaᵢbᵢ − ā b̄
+  (Eq. 11–12); folding scale·ΔW_res into W0 makes aggregation exact.
+
+Optional per-client ``weights`` are normalised to sum 1; ``None`` or an
+all-equal vector takes the ``sum/k`` path, which the engine's uniform close
+reproduces op for op.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+Params = Dict[str, Any]
+
+Weights = Optional[Sequence[float]]
+
+
+def normalize_weights(weights: Weights, k: int) -> Optional[List[float]]:
+    """Validate + normalize client weights to sum 1; ``None`` for the uniform
+    case (including any all-equal vector)."""
+    if weights is None:
+        return None
+    w = [float(x) for x in weights]
+    if len(w) != k:
+        raise ValueError(f"got {len(w)} weights for {k} clients")
+    if any(x < 0 for x in w):
+        raise ValueError(f"negative client weight in {w}")
+    total = sum(w)
+    if total <= 0:
+        raise ValueError(f"client weights sum to {total}; need > 0")
+    w = [x / total for x in w]
+    if all(x == w[0] for x in w):
+        return None  # uniform → legacy path
+    return w
+
+
+def _is_factor(node: Any) -> bool:
+    return isinstance(node, dict) and set(node.keys()) >= {"a", "b"}
+
+
+def _tree_map(fn, *trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *[t[k] for t in trees]) for k in trees[0]}
+    return fn(*trees)
+
+
+def tree_mean(trees: List[Params], weights: Weights = None) -> Params:
+    k = len(trees)
+    w = normalize_weights(weights, k)
+    if w is None:
+        return _tree_map(lambda *xs: sum(x.float() for x in xs) / k, *trees)
+    return _tree_map(lambda *xs: sum(wi * x.float() for wi, x in zip(w, xs)),
+                     *trees)
+
+
+def map_factors(fn, *trees: Params) -> Params:
+    """Apply ``fn(*factor_dicts) → value`` at every {a, b} node."""
+
+    def walk(*nodes):
+        if _is_factor(nodes[0]):
+            return fn(*nodes)
+        if isinstance(nodes[0], dict):
+            return {k: walk(*[n[k] for n in nodes]) for k in nodes[0]}
+        return nodes[0]
+
+    return walk(*trees)
+
+
+def fedit_aggregate(client_loras: List[Params],
+                    weights: Weights = None) -> Params:
+    """FedAvg of A and B independently (Eq. 3). Inexact (Eq. 4)."""
+    return tree_mean(client_loras, weights)
+
+
+def product_mean(client_loras: List[Params], weights: Weights = None) -> Params:
+    """Ideal update per factor: Σwᵢ aᵢ @ bᵢ (uniform default)."""
+    k = len(client_loras)
+    w = normalize_weights(weights, k)
+
+    def fn(*factors):
+        prods = (torch.matmul(f["a"].float(), f["b"].float()) for f in factors)
+        if w is None:
+            return sum(prods) / k
+        return sum(wi * p for wi, p in zip(w, prods))
+
+    return map_factors(fn, *client_loras)
+
+
+def fedex_residual(client_loras: List[Params],
+                   global_lora: Optional[Params] = None,
+                   weights: Weights = None) -> Params:
+    """ΔW_res = Σwᵢ aᵢbᵢ − ā b̄ per factor (Eq. 12; uniform wᵢ=1/k), f32."""
+    if global_lora is None:
+        global_lora = fedit_aggregate(client_loras, weights)
+    k = len(client_loras)
+    w = normalize_weights(weights, k)
+
+    def fn(g, *factors):
+        prods = (torch.matmul(f["a"].float(), f["b"].float()) for f in factors)
+        if w is None:
+            mean_prod = sum(prods) / k
+        else:
+            mean_prod = sum(wi * p for wi, p in zip(w, prods))
+        prod_mean = torch.matmul(g["a"].float(), g["b"].float())
+        return mean_prod - prod_mean
+
+    return map_factors(fn, global_lora, *client_loras)
+
+
+def fedex_aggregate(client_loras: List[Params], weights: Weights = None
+                    ) -> Tuple[Params, Params]:
+    """Returns (global_lora, residual_tree). Eq. 11–12."""
+    global_lora = fedit_aggregate(client_loras, weights)
+    residual = fedex_residual(client_loras, global_lora, weights)
+    return global_lora, residual
+
+
+def apply_residual(params: Params, residual: Params, scale: float) -> Params:
+    """W0 ← W0 + scale·ΔW_res at every adapted kernel (Eq. 14); functional
+    (new W0 tensors, ``params`` untouched)."""
+
+    def walk(p: Any, r: Any) -> Any:
+        if r is None or not isinstance(p, dict):
+            return p
+        out = dict(p)
+        for key, rv in r.items():
+            if key not in p:
+                continue
+            pv = p[key]
+            if isinstance(rv, torch.Tensor):
+                out[key] = dict(pv, kernel=(pv["kernel"].float() + scale * rv
+                                            ).to(pv["kernel"].dtype))
+            elif isinstance(rv, dict):
+                out[key] = walk(pv, rv)
+        return out
+
+    return walk(params, residual)

@@ -1,0 +1,142 @@
+"""Client registry, participation sampler, and straggler latency model.
+
+The port's copy of ``repro/fedsrv/registry.py`` (numpy only): the same
+seeded draws, so sampling, example-count weights and arrival order are the
+reference's bit for bit. The dropout model is not ported (the trainer
+rejects ``dropout_prob > 0``).
+
+Everything here is *deterministic given (seed, round, client)*: random draws
+use ``np.random.default_rng([seed, round, client])`` (SeedSequence spawning),
+which is stable across processes and independent of PYTHONHASHSEED. The
+simulated clock is a plain float accumulator — no wall time anywhere, so a
+scenario replays bit-for-bit.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+
+def purpose_rng(seed: int, round_id: int, client_id: int,
+                *purpose: int) -> np.random.Generator:
+    """The rng stream for one (seed, round, client, purpose…) decision.
+
+    ``purpose`` suffixes isolate decision families from each other: two
+    streams with different suffixes never alias, so draws in one family
+    cannot bleed into another. The latency/straggler stream is the
+    unsuffixed key (the reference's historical layout)."""
+    return np.random.default_rng([seed, round_id, client_id, *purpose])
+
+
+@dataclass(frozen=True)
+class ClientInfo:
+    """One registered client.
+
+    num_examples drives the aggregation weight wᵢ = nᵢ/Σnⱼ over the round's
+    delivered subset; compute_speed scales the straggler model's latency
+    (2.0 → twice as fast as the fleet baseline).
+    """
+
+    client_id: int
+    num_examples: int
+    compute_speed: float = 1.0
+
+
+class SimClock:
+    """Deterministic simulated clock (seconds). Monotone, replayable."""
+
+    def __init__(self, start: float = 0.0):
+        self._t = float(start)
+
+    def now(self) -> float:
+        return self._t
+
+    def advance_to(self, t: float) -> float:
+        self._t = max(self._t, float(t))
+        return self._t
+
+
+@dataclass(frozen=True)
+class StragglerModel:
+    """Seeded per-(round, client) latency draws.
+
+    latency = mean_latency / compute_speed · lognormal(σ=jitter), optionally
+    inflated by straggler_factor with prob straggler_prob.
+    """
+
+    mean_latency: float = 1.0
+    jitter: float = 0.25
+    straggler_prob: float = 0.0
+    straggler_factor: float = 5.0
+    seed: int = 0
+
+    def _rng(self, round_id: int, client_id: int) -> np.random.Generator:
+        return purpose_rng(self.seed, round_id, client_id)
+
+    def draw(self, round_id: int, client: ClientInfo) -> "tuple[float, bool]":
+        """(latency, is_straggler) for one (round, client)."""
+        rng = self._rng(round_id, client.client_id)
+        base = self.mean_latency / max(client.compute_speed, 1e-6)
+        lat = base * float(np.exp(rng.normal(0.0, self.jitter)))
+        straggled = (self.straggler_prob > 0
+                     and rng.random() < self.straggler_prob)
+        if straggled:
+            lat *= self.straggler_factor
+        return lat, straggled
+
+
+class ClientRegistry:
+    """Registered clients + seeded per-round participation sampling."""
+
+    def __init__(self, clients: Optional[Sequence[ClientInfo]] = None,
+                 seed: int = 0):
+        self.seed = seed
+        self._clients: List[ClientInfo] = list(clients or [])
+        ids = [c.client_id for c in self._clients]
+        if len(set(ids)) != len(ids):
+            raise ValueError(f"duplicate client ids in {ids}")
+
+
+    # -- views -------------------------------------------------------------
+    @property
+    def clients(self) -> List[ClientInfo]:
+        return sorted(self._clients, key=lambda c: c.client_id)
+
+    def get(self, client_id: int) -> ClientInfo:
+        for c in self._clients:
+            if c.client_id == client_id:
+                return c
+        raise KeyError(client_id)
+
+    # -- sampling ----------------------------------------------------------
+    def sample_round(self, round_id: int, fraction: float = 1.0,
+                     min_clients: int = 1) -> List[ClientInfo]:
+        """Sample ⌈fraction·k⌉ participants for a round, without replacement.
+
+        Deterministic in (registry seed, round_id). fraction=1.0 returns every
+        client, in client_id order — the trivial synchronous policy.
+        """
+        if not self._clients:
+            raise ValueError("empty registry")
+        if fraction <= 0:
+            raise ValueError(f"participation fraction must be > 0, got {fraction}")
+        k = len(self._clients)
+        if fraction >= 1.0:
+            return self.clients
+        m = min(k, max(min_clients, math.ceil(fraction * k)))
+        rng = np.random.default_rng([self.seed, round_id])
+        idx = sorted(rng.choice(k, size=m, replace=False).tolist())
+        ordered = self.clients
+        return [ordered[i] for i in idx]
+
+    def weights_for(self, client_ids: Sequence[int]) -> List[float]:
+        """Example-count weights wᵢ = nᵢ/Σnⱼ over a participating subset."""
+        ns = [self.get(cid).num_examples for cid in client_ids]
+        total = sum(ns)
+        if total <= 0:
+            raise ValueError(f"participating subset {client_ids} has no examples")
+        return [n / total for n in ns]

@@ -1,0 +1,142 @@
+"""Federated fine-tuning launcher of the port (host mode).
+
+Counterpart of ``repro/launch/train.py --mode host`` for what the port runs:
+FedEx-LoRA rounds (method ``fedex``, assignment ``average``) with
+participation sampling, ``--min-quorum`` and ``--weighting``. Runs on CUDA
+unless ``--device cpu`` is given.
+
+``--data-vocab`` draws the synthetic corpus from a smaller vocabulary than
+the model's (its transition tensor is dense vocab², ~526 GB at 128,256);
+the model keeps its full embedding and unembedding.
+
+Example (CPU, tiny model):
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch paper-tiny --clients 3 --rounds 3 --local-steps 5 --vocab 64
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from dataclasses import replace
+
+import numpy as np
+
+from repro_torch.configs import (FedConfig, LoRAConfig, TrainConfig,
+                                 get_config, validate_fed_lora)
+from repro_torch.core import FederatedTrainer
+from repro_torch.data import ClientLoader, SyntheticLM, dirichlet_partition
+from repro_torch.models import build_model
+from repro_torch.util.device import resolve_device
+
+
+def build_federated_data(vocab: int, num_clients: int, *,
+                         seqs_per_task: int = 120, seq_len: int = 64,
+                         alpha: float = 0.5, seed: int = 0,
+                         batch_size: int = 8, device="cuda"):
+    """Client loaders and eval batches over a synthetic Markov corpus —
+    the reference's ``build_federated_data`` draws, emitted on ``device``."""
+    device = resolve_device(device)
+    ds = SyntheticLM(vocab=vocab, num_tasks=num_clients, seed=seed)
+    seqs, labels = [], []
+    for t in range(num_clients):
+        s = ds.sample(task=t, num_sequences=seqs_per_task, seq_len=seq_len,
+                      seed=seed + t)
+        seqs.append(s)
+        labels += [t] * seqs_per_task
+    seqs = np.concatenate(seqs)
+    parts = dirichlet_partition(np.array(labels), num_clients, alpha=alpha,
+                                seed=seed)
+    loaders = [ClientLoader(seqs[p], batch_size=batch_size, seed=seed + i,
+                            device=device)
+               for i, p in enumerate(parts)]
+    eval_batches = [ds.to_batch(ds.sample(task=t, num_sequences=16,
+                                          seq_len=seq_len,
+                                          seed=seed + 1000 + t), device)
+                    for t in range(num_clients)]
+    return loaders, eval_batches
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu must be asked for)")
+    ap.add_argument("--arch", default="paper-tiny")
+    ap.add_argument("--method", default="fedex", choices=("fedex",))
+    ap.add_argument("--assignment", default="average", choices=("average",))
+    ap.add_argument("--clients", type=int, default=3)
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--local-steps", type=int, default=10)
+    ap.add_argument("--rank", type=int, default=4)
+    ap.add_argument("--alpha", type=float, default=8.0, help="LoRA alpha")
+    ap.add_argument("--lr", type=float, default=5e-3)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--batch-size", type=int, default=8)
+    ap.add_argument("--vocab", type=int, default=0,
+                    help="override the model vocab (small = faster CPU demo)")
+    ap.add_argument("--data-vocab", type=int, default=0,
+                    help="vocabulary of the synthetic corpus (0 = the "
+                         "model's); must stay small, see above")
+    ap.add_argument("--dirichlet-alpha", type=float, default=0.5)
+    ap.add_argument("--include-mlp", action="store_true")
+    ap.add_argument("--participation", type=float, default=1.0,
+                    help="fraction of clients sampled per round")
+    ap.add_argument("--min-quorum", type=int, default=0,
+                    help="deliveries a round needs (0 = one)")
+    ap.add_argument("--weighting", default="uniform",
+                    choices=("uniform", "examples"),
+                    help="client weights: uniform or example counts n_i/Σn_j")
+    ap.add_argument("--engine", default="auto", choices=("auto", "plain"),
+                    help="round close: auto = the CUDA kernels on the GPU, "
+                         "their plain PyTorch versions on the CPU")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", default="float32")
+    ap.add_argument("--out", default="", help="write round history JSON here")
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    lora_cfg = LoRAConfig(rank=args.rank, alpha=args.alpha,
+                          include_mlp=args.include_mlp)
+    fed_cfg = FedConfig(num_clients=args.clients, rounds=args.rounds,
+                        local_steps=args.local_steps, method=args.method,
+                        assignment=args.assignment,
+                        dirichlet_alpha=args.dirichlet_alpha, seed=args.seed,
+                        participation=args.participation,
+                        min_quorum=args.min_quorum, weighting=args.weighting,
+                        engine=args.engine)
+    validate_fed_lora(fed_cfg, lora_cfg)
+    cfg = get_config(args.arch)
+    if args.vocab:
+        cfg = replace(cfg, vocab_size=args.vocab)
+    cfg = replace(cfg, dtype=args.dtype)
+    model = build_model(cfg)
+    loaders, eval_batches = build_federated_data(
+        args.data_vocab or cfg.vocab_size, args.clients, seq_len=args.seq_len,
+        alpha=args.dirichlet_alpha, seed=args.seed,
+        batch_size=args.batch_size, device=device)
+    train_cfg = TrainConfig(learning_rate=args.lr, schedule="constant",
+                            total_steps=args.rounds * args.local_steps)
+    trainer = FederatedTrainer(model=model, lora_cfg=lora_cfg,
+                               fed_cfg=fed_cfg, train_cfg=train_cfg,
+                               client_loaders=loaders,
+                               eval_batches=eval_batches, seed=args.seed,
+                               device=device)
+    history = trainer.run()
+    for rec in history:
+        print(f"round={rec.round} eval_loss={rec.eval_loss:.4f} "
+              f"eval_acc={rec.eval_acc:.4f} "
+              f"div={rec.divergence_scaled:.3e} "
+              f"client_loss={sum(rec.client_losses) / len(rec.client_losses):.4f}")
+    final = history[-1]
+    print(f"\nfinal: method={args.method} eval_loss={final.eval_loss:.4f} "
+          f"eval_acc={final.eval_acc:.4f} "
+          f"divergence={final.divergence_scaled:.3e} "
+          f"(device={device}, close backend={trainer.engine.backend})")
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump([r.__dict__ for r in history], f, indent=2)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,144 @@
+"""Shared model primitives: norms, RoPE, dense (with LoRA hook), embeddings.
+
+Counterpart of ``repro/models/common.py``; same conventions:
+
+* Kernels are stored ``(d_in, d_out)``; activations are ``x @ kernel``.
+* LoRA factors are stored ``a: (d_in, r)``, ``b: (r, d_out)``, so the adapter
+  update is ``ΔW = a @ b`` (the paper's ``B A`` transposed).
+* Norm row statistics, softmax and logits are f32.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+Params = Dict[str, Any]
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def dtype_of(cfg) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+# --------------------------------------------------------------------------
+# initializers (the port's own draws; parity tests bridge the reference's)
+# --------------------------------------------------------------------------
+
+def normal_init(gen: torch.Generator, shape, dtype, device,
+                stddev: float = 0.02) -> torch.Tensor:
+    x = torch.empty(shape, dtype=torch.float32, device=device)
+    x.normal_(0.0, stddev, generator=gen)
+    return x.to(dtype)
+
+
+def make_dense_params(gen, shape_in_out, dtype, device) -> Params:
+    return {"kernel": normal_init(gen, shape_in_out, dtype, device)}
+
+
+# --------------------------------------------------------------------------
+# dense + LoRA
+# --------------------------------------------------------------------------
+
+def dense(x: torch.Tensor, params: Params, lora: Optional[Params] = None,
+          lora_scale: float = 0.0) -> torch.Tensor:
+    """``x @ kernel (+ bias)``, with an optional LoRA adapter branch
+    ``scale * (x @ a) @ b`` — the rank-r intermediate stays tiny."""
+    y = torch.matmul(x, params["kernel"])
+    if lora is not None:
+        a = lora["a"].to(x.dtype)
+        b = lora["b"].to(x.dtype)
+        y = y + lora_scale * torch.matmul(torch.matmul(x, a), b)
+    if "bias" in params:
+        y = y + params["bias"]
+    return y
+
+
+def maybe_lora(lora: Optional[Params], name: str) -> Optional[Params]:
+    if lora is None:
+        return None
+    return lora.get(name)
+
+
+# --------------------------------------------------------------------------
+# norms / activations
+# --------------------------------------------------------------------------
+
+def apply_norm(kind: str, params: Params, x: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """Pre-norm with f32 row statistics and tensor math in ``x.dtype``."""
+    if kind == "rmsnorm":
+        var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
+        inv = torch.rsqrt(var + eps).to(x.dtype)
+        return x * inv * params["scale"].to(x.dtype)
+    raise NotImplementedError(f"norm {kind!r} is not ported (rmsnorm only)")
+
+
+def activation(kind: str, x: torch.Tensor) -> torch.Tensor:
+    if kind == "silu":
+        return F.silu(x)
+    raise NotImplementedError(f"activation {kind!r} is not ported (silu only)")
+
+
+# --------------------------------------------------------------------------
+# rotary embeddings
+# --------------------------------------------------------------------------
+
+def rope_frequencies(head_dim: int, theta: float,
+                     device=None) -> torch.Tensor:
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)  # (head_dim//2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Rotate ``x (..., seq, heads, head_dim)``; ``positions`` is ``(seq,)``."""
+    head_dim = x.shape[-1]
+    freqs = rope_frequencies(head_dim, theta, device=x.device)
+    angles = positions[..., None].float() * freqs  # (seq, hd/2)
+    cos = torch.cos(angles)[..., None, :]  # broadcast over heads
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    rx1 = x1 * cos - x2 * sin
+    rx2 = x2 * cos + x1 * sin
+    return torch.cat([rx1, rx2], dim=-1).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# embeddings / unembedding / loss
+# --------------------------------------------------------------------------
+
+def embed(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embedding"][tokens]
+
+
+def unembed(params: Params, x: torch.Tensor, *,
+            tied_embedding: Optional[torch.Tensor] = None,
+            lora: Optional[Params] = None,
+            lora_scale: float = 0.0) -> torch.Tensor:
+    if tied_embedding is not None:
+        logits = torch.matmul(x, tied_embedding.t().to(x.dtype))
+    else:
+        logits = dense(x, params, lora=lora, lora_scale=lora_scale)
+    return logits.float()
+
+
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token-level CE with optional loss mask. Returns (mean_loss, metrics)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    loss = (nll * mask).sum() / denom
+    acc = ((torch.argmax(logits, -1) == targets).float() * mask).sum() / denom
+    return loss, {"loss": loss, "accuracy": acc, "tokens": denom}

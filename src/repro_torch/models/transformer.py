@@ -1,0 +1,111 @@
+"""Decoder-only stack, dense family: ``make_params`` and the train ``forward``.
+
+Counterpart of the dense branch of ``repro/models/transformer.py``. The
+parameter layout is the reference's: every per-layer leaf is stacked on a
+leading layer axis (``layers/attn/q_proj/kernel`` is ``(L, d, h·hd)``), so a
+flattened port tree lines up one-to-one with the reference's. Where JAX scans
+the stacked parameters, the port runs a Python loop over the layer index. The
+reference's ``remat`` has no counterpart: at the batch sizes the port trains,
+activations fit without recomputation.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models.attention import attention_block
+from repro_torch.models.common import (Params, apply_norm, dtype_of, embed,
+                                       make_dense_params, normal_init, unembed)
+from repro_torch.models.mlp import make_mlp_params, mlp_block
+
+
+def check_supported(cfg) -> None:
+    """Raise ``NotImplementedError`` unless ``cfg`` asks only for the branch
+    the port runs: dense decoder, RoPE, RMSNorm, gated SiLU, no biases,
+    global causal attention, tied or untied unembedding."""
+    unsupported = {
+        "family": cfg.family != "dense",
+        "rope=False": not cfg.rope,
+        "norm": cfg.norm != "rmsnorm",
+        "act": cfg.act != "silu",
+        "qkv_bias": cfg.qkv_bias,
+        "learned_pos_embeddings": cfg.learned_pos_embeddings,
+        "sliding_window": bool(cfg.sliding_window),
+        "local_global_ratio": bool(cfg.local_global_ratio),
+        "mla": cfg.mla,
+        "num_experts": bool(cfg.num_experts),
+    }
+    asked = [k for k, v in unsupported.items() if v]
+    if asked:
+        raise NotImplementedError(
+            f"config {cfg.name!r} asks for {asked}: the port runs only the "
+            "dense RoPE/RMSNorm/SiLU decoder so far")
+
+
+def make_params(gen: torch.Generator, cfg, device) -> Params:
+    """The port's own draws (N(0, 0.02) kernels and embedding, unit norm
+    scales), in the reference's stacked layout."""
+    check_supported(cfg)
+    dtype = dtype_of(cfg)
+    L, d = cfg.num_layers, cfg.d_model
+    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    params: Params = {
+        "embed": {"embedding": normal_init(gen, (cfg.vocab_size, d), dtype,
+                                           device)},
+        "layers": {
+            "attn_norm": {"scale": torch.ones((L, d), dtype=dtype,
+                                              device=device)},
+            "mlp_norm": {"scale": torch.ones((L, d), dtype=dtype,
+                                             device=device)},
+            "attn": {
+                "q_proj": make_dense_params(gen, (L, d, h * hd), dtype, device),
+                "k_proj": make_dense_params(gen, (L, d, kv * hd), dtype,
+                                            device),
+                "v_proj": make_dense_params(gen, (L, d, kv * hd), dtype,
+                                            device),
+                "o_proj": make_dense_params(gen, (L, h * hd, d), dtype, device),
+            },
+            "mlp": make_mlp_params(gen, cfg, dtype, device, lead=(L,)),
+        },
+        "final_norm": {"scale": torch.ones((d,), dtype=dtype, device=device)},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = make_dense_params(gen, (d, cfg.vocab_size), dtype,
+                                              device)
+    return params
+
+
+def _layer_slice(tree, i: int):
+    """Layer ``i`` of a stacked (L, …) tree (views; autograd flows back into
+    the stacked leaves)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _layer_slice(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def forward(cfg, params: Params, tokens: torch.Tensor, *,
+            lora: Optional[Params] = None,
+            lora_scale: float = 0.0) -> torch.Tensor:
+    """Training forward: tokens (B, S) int → logits (B, S, V) f32."""
+    check_supported(cfg)
+    x = embed(params["embed"], tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    lora = lora or {}
+    layers, layers_lora = params["layers"], lora.get("layers")
+    for i in range(cfg.num_layers):
+        p = _layer_slice(layers, i)
+        lo = _layer_slice(layers_lora, i) or {}
+        h_in = apply_norm(cfg.norm, p["attn_norm"], x)
+        x = x + attention_block(cfg, p["attn"], h_in, lora=lo.get("attn"),
+                                lora_scale=lora_scale, positions=positions)
+        m_in = apply_norm(cfg.norm, p["mlp_norm"], x)
+        x = x + mlp_block(cfg, p["mlp"], m_in, lora=lo.get("mlp"),
+                          lora_scale=lora_scale)
+    x = apply_norm(cfg.norm, params["final_norm"], x)
+    tied = params["embed"]["embedding"] if cfg.tie_embeddings else None
+    return unembed(params.get("lm_head", {}), x, tied_embedding=tied,
+                   lora=lora.get("lm_head"), lora_scale=lora_scale)

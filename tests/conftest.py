@@ -16,3 +16,8 @@ def rng():
 
 def f32(cfg):
     return dataclasses.replace(cfg, dtype="float32")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with nvcc (skips elsewhere)")
