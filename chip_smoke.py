@@ -7,35 +7,63 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
 ``sys.path`` itself and runs, each phase raising on failure:
 
 1. environment: torch/CUDA versions and the card's name and power limit;
-   TF32 off for matmuls and cuDNN (the fold's exactness is f32's);
-2. build: ``nvcc`` compiles the kernels into ``build/kernels/``;
-3. kernels: ``fedex_fold`` (both bodies) and ``factor_mean`` (both bodies)
-   against their plain PyTorch versions at the main path's leaf shapes and
-   at edge cases, each timed with CUDA events (median of 20 after warm-up,
-   the 50 MB L2 flushed before each repetition) beside its plain version,
-   its bound on the card and, for ``factor_mean``, ``torch.tensordot``;
-4. main path: the port's ``FederatedTrainer`` at ``paper-llama3.2-3b`` full
-   width (28 layers, d 3072, GQA 24/8, vocab 128,256, float32), LoRA rank 4,
-   α 8 on q/k/v/o, 4 clients, batch 8 × seq 64 on a 512-token data
-   vocabulary: one uniform full-participation round, then two rounds with
-   example weighting at 50% participation. The kernels' launch counters must
-   show every weighted close went through them, and one weighted round is
-   checked against the exact-aggregation identity
-   new_W0 + s·ā b̄ = old_W0 + s·Σ_c w_c a_c b_c on the card;
+   TF32 off for matmuls and cuDNN (the folds' exactness is f32's);
+2. build: one ``nvcc`` per kernel source, all in parallel, into
+   ``build/kernels/``;
+3. kernels: ``fedex_fold`` (both bodies), ``factor_mean`` (both bodies),
+   ``product_fold``, ``perclient_fold`` and ``hetero_fold`` against their
+   plain PyTorch versions at the main path's leaf shapes and at edge cases
+   (odd m, n; one lane at rank 8; 3 live lanes of 8; rank 16; hetero ranks
+   −1, 0 and ragged; masked lanes and rank columns filled with NaN), each
+   timed with CUDA events (median of 20 after warm-up, the 50 MB L2 flushed
+   before each repetition) beside its plain version, its bound on the card
+   and, where one PyTorch call computes the same function,
+   ``torch.tensordot`` (``factor_mean``) or ``torch.baddbmm``
+   (``product_fold``);
+4. main paths: the port's ``FederatedTrainer`` at ``paper-llama3.2-3b``
+   full width (28 layers, d 3072, GQA 24/8, vocab 128,256, float32), LoRA
+   rank 4, α 8 on q/k/v/o, 4 clients, batch 8 × seq 64 on a 512-token data
+   vocabulary, one path after another, each with the launch counters set to
+   0 just before it and read just after, and its trainer freed after it:
+   * fedex: one uniform full-participation round, then two rounds with
+     example weighting at 50% participation (``fedex_fold`` 4 and
+     ``factor_mean`` 8 per weighted close);
+   * reinit, keep_local and fedex_svd (r' = 8): two rounds each at 50%
+     participation with example weighting (``product_fold`` 4; ``
+     perclient_fold`` 4; ``product_fold`` 4 and ``factor_mean`` 8 per close);
+   * hetero with client ranks (4, 2, 1, 3): two rounds (``hetero_fold`` 4
+     per close).
+   The last round of each path is checked against its exactness identity
+   on the card (below), and every path's peak memory is printed;
 5. one JSON line with every ported kernel, then the result line.
+
+Identities, per adapted leaf, on the last round of each path:
+* fedex: new_W0 + s·ā b̄ = old_W0 + s·Σ_c w_c a_c b_c;
+* reinit: new_W0 = old_W0 + s·Σ_c w_c a_c b_c;
+* keep_local, each delivered i: new_W0ᵢ + s·aᵢbᵢ = old_W0ᵢ + s·Σ_j w_j a_j b_j;
+* hetero, each lane i: new_W0ᵢ + s·a′ᵢb′ᵢ = old_W0ᵢ + s·Σ_j w_j (a_j∘mask_j) b_j;
+* fedex_svd: on layer 0 of ``k_proj``, new_W0 − old_W0 equals s times the
+  rank-r' truncation of the residual from a dense float64
+  ``torch.linalg.svd``, and has rank ≤ r'.
 
 Tolerances. ``factor_mean`` rounds each product and sum like separate
 PyTorch ops, in the same slot order, so it must match its plain version
-within 2·C unit roundoffs of Σ|w||x| (in practice bitwise). ``fedex_fold``
-sums the same terms in the same client order as its plain version, but its
+within 2·C unit roundoffs of Σ|w||x| (in practice bitwise). The folds sum
+the same terms in the same lane order as their plain versions, but their
 rank-r dot products are FMA-contracted in another order than
-``torch.matmul``; it is held to ``fold_error_bound``: 2·(C + r + 4) unit
-roundoffs of |W0| + |s|·(Σ|w||a||b| + |ā||b̄|) per element. The identity
-check is held to the same bound.
+``torch.matmul``; each is held to its error bound (``fold_error_bound``,
+``product_error_bound``, ``perclient_error_bound``,
+``hetero_error_bound``): 2·(C + r + 4) unit roundoffs of the magnitudes
+each element carries, e.g. |W0| + |s|·(Σ|w||a||b| + |ā||b̄|) for the fedex
+fold. The identities are held to the same bounds. The fedex_svd check is
+held to the f32 rounding of W0 (2 unit roundoffs of |old W0| + |new W0|,
+in Frobenius norm) plus 1e-4 of the fold's norm: the factored truncation
+squares the Grams and keeps about half of the f32 digits.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -265,37 +293,253 @@ def kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
 
 
 # --------------------------------------------------------------------------
-# phase 4: the main path
+# phase 3b: the per-lane folds (product_fold, perclient_fold, hetero_fold)
 # --------------------------------------------------------------------------
 
-def main_path(torch, device, cfg, *, clients=4, local_steps=2,
-              weighted_rounds=2, batch=8, seq=64, data_vocab=512):
-    """Drive the port's FederatedTrainer: round 0 uniform over every client,
-    then ``weighted_rounds`` rounds with example weights at 50%
-    participation. Returns (trainer, per-round timings, identity check)."""
+def poison(torch, a, b, live, ranks=None):
+    """Fill the lanes outside ``live`` and, with ``ranks``, each lane's
+    rank columns past its rank with NaN: the kernels must never read them."""
+    nan = float("nan")
+    for lane in range(a.shape[0]):
+        if lane not in live:
+            a[lane] = nan
+            b[lane] = nan
+        elif ranks is not None and 0 <= ranks[lane] < a.shape[-1]:
+            a[lane, ..., ranks[lane]:] = nan
+            b[lane, ..., ranks[lane]:, :] = nan
+
+
+def hetero_ranks(c, r, live):
+    """−1 (full), ragged and 0 ranks over the live lanes, 0 elsewhere."""
+    cycle = [-1, max(1, r // 2), 1, 0]
+    ranks = [0] * c
+    for j, lane in enumerate(live):
+        ranks[lane] = cycle[j % len(cycle)]
+    return ranks
+
+
+def lane_case(torch, kernels, device, kind, c, lead, m, n, r, live, ranks,
+              scale, seed):
+    """One kernel call against its plain version; returns (max err, ok)."""
+    w0, a, b, w = make_inputs(torch, device, c, lead, m, n, r, live, seed)
+    poison(torch, a, b, live, ranks if kind == "hetero" else None)
+    if kind == "product":
+        s = w.clone()
+        s[live[0]] = -s[live[0]]  # signed
+        got = [kernels.product_fold(w0, a, b, s, scale)]
+        torch.cuda.synchronize()
+        want = [kernels.product_fold_plain(w0, a, b, s, scale)]
+        bound = [kernels.product_error_bound(w0, a, b, s, scale)]
+    else:
+        lanes = [w0 + 0.001 * i if i in live else None for i in range(c)]
+        if kind == "perclient":
+            args = (lanes, a, b, w)
+            fold, plain, err_bound = (kernels.perclient_fold,
+                                      kernels.perclient_fold_plain,
+                                      kernels.perclient_error_bound)
+        else:
+            g = torch.Generator(device=device)
+            g.manual_seed(seed + 1)
+            oa = torch.empty(*lead, m, r, device=device).normal_(
+                0.0, 0.02, generator=g)
+            ob = torch.empty(*lead, r, n, device=device).normal_(
+                0.0, 0.01, generator=g)
+            rk = torch.tensor(ranks, dtype=torch.int32, device=device)
+            args = (lanes, a, b, w, rk, oa, ob)
+            fold, plain, err_bound = (kernels.hetero_fold,
+                                      kernels.hetero_fold_plain,
+                                      kernels.hetero_error_bound)
+        got = fold(*args, scale)
+        torch.cuda.synchronize()
+        want = plain(*args, scale)
+        bound = err_bound(*args, scale)
+    err, ok = 0.0, True
+    for g_, w_, b_ in zip(got, want, bound):
+        if g_ is None:
+            continue
+        e = (g_ - w_).abs()
+        err = max(err, float(e.max()))
+        ok = ok and bool((e <= b_).all()) and bool(torch.isfinite(g_).all())
+    return err, ok
+
+
+def lane_cost(leaves, kind, c_live, k_live, k_out, r):
+    """Bytes (each input read once, each output written once) and flops of
+    one close's folds over ``leaves``: ``k_live`` / ``k_out`` are the rank
+    columns of the weighted lanes and of the produced lanes' own products."""
+    nbytes = flops = 0
+    for _, L, m, n in leaves:
+        mn, fac = L * m * n, L * (m + n)
+        if kind == "product":
+            nbytes += 8 * mn + 4 * fac * sum(k_live)
+            flops += mn * (sum(2 * k + 2 for k in k_live) + 2)
+        else:
+            nbytes += 8 * len(k_out) * mn + 4 * fac * sum(k_live)
+            flops += mn * (sum(2 * k + 2 for k in k_live)
+                           + sum(2 * k + 3 for k in k_out))
+            if kind == "hetero":
+                nbytes += 4 * fac * r  # A', B'
+    return nbytes, flops
+
+
+def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
+    """The three per-lane folds at the main path's leaf shapes (checked per
+    leaf, then timed over one close's 4 leaves) and at edge cases."""
+    timer = Timer(torch, device)
+    leaves = main_path_leaves(cfg)
+    errs = {"product_fold": 0.0, "perclient_fold": 0.0, "hetero_fold": 0.0}
+    timings = {}
+    # the main paths' bodies: reinit and keep_local at 2 live lanes of 4,
+    # the svd fold (one lane at r' = 8), hetero at ranks (4, 2, 1, 3)
+    bodies = {
+        "product_fold": ("product", 4, r, (0, 1), None),
+        "product_fold[svd]": ("product", 1, 8, (0,), None),
+        "perclient_fold": ("perclient", 4, r, (0, 1), None),
+        "hetero_fold": ("hetero", 4, r, (0, 1, 2, 3), [4, 2, 1, 3]),
+    }
+    for body, (kind, c_b, r_b, live, ranks) in bodies.items():
+        name = body.split("[")[0]
+        for i, (leaf, L, m, n) in enumerate(leaves):
+            err, ok = lane_case(torch, kernels, device, kind, c_b, (L,), m,
+                                n, r_b, live, ranks, scale, seed=10 + i)
+            errs[name] = max(errs[name], err)
+            print(f"  {body} {leaf} ({L},{m},{n}) C={c_b} r={r_b} live="
+                  f"{live}: max_abs_err={err:.3e} within bound={ok}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"{body} {leaf} disagrees with its "
+                                     "plain version")
+            torch.cuda.empty_cache()
+        # timing over one close's leaves
+        bufs = []
+        for i, (_, L, m, n) in enumerate(leaves):
+            w0, a, b, w = make_inputs(torch, device, c_b, (L,), m, n, r_b,
+                                      live, seed=20 + i)
+            lanes = ([w0 + 0.001 * j if j in live else None
+                      for j in range(c_b)] if kind != "product" else None)
+            outs = ([None if x is None else torch.empty_like(x)
+                     for x in lanes] if lanes else torch.empty_like(w0))
+            extra = ()
+            if kind == "hetero":
+                extra = (torch.tensor(ranks, dtype=torch.int32,
+                                      device=device),
+                         a[0].clone(), b[0].clone())
+            bufs.append((w0, a, b, w, lanes, outs, extra))
+
+        def run_kernel():
+            for w0, a, b, w, lanes, outs, extra in bufs:
+                if kind == "product":
+                    kernels.product_fold(w0, a, b, w, scale, out=outs)
+                elif kind == "perclient":
+                    kernels.perclient_fold(lanes, a, b, w, scale, out=outs)
+                else:
+                    kernels.hetero_fold(lanes, a, b, w, *extra, scale,
+                                        out=outs)
+
+        def run_plain():
+            for w0, a, b, w, lanes, outs, extra in bufs:
+                if kind == "product":
+                    kernels.product_fold_plain(w0, a, b, w, scale)
+                elif kind == "perclient":
+                    kernels.perclient_fold_plain(lanes, a, b, w, scale)
+                else:
+                    kernels.hetero_fold_plain(lanes, a, b, w, *extra, scale)
+
+        lib_ms = None
+        if kind == "product":
+            # one PyTorch call for the same function: W0 + s·[σ_c a_c] [b_c]
+            cats = [(w0, torch.cat([w[j] * a[j] for j in live], dim=-1),
+                     torch.cat([b[j] for j in live], dim=-2), outs)
+                    for w0, a, b, w, _, outs, _ in bufs]
+
+            def run_library():
+                for w0, ac, bc, out in cats:
+                    torch.baddbmm(w0, ac, bc, alpha=scale, out=out)
+
+            lib_ms = timer(run_library)
+            del cats
+        k_live = [r_b if ranks is None else (r_b if ranks[j] < 0 else ranks[j])
+                  for j in live]
+        k_out = [] if kind == "product" else k_live
+        t = (timer(run_kernel), timer(run_plain), lib_ms,
+             bound_ms(*lane_cost(leaves, kind, len(live), k_live, k_out,
+                                 r_b)))
+        timings[body] = t
+        ms, plain, lib, (bms, by) = t
+        print(f"  time {body} one close (4 leaves, live {live}): kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, library "
+              f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{bms:.4f} ms ({by})", flush=True)
+        del bufs
+        torch.cuda.empty_cache()
+
+    # edge cases: (C, L, m, n, r, live lanes); NaN in every masked lane and
+    # (hetero) every masked rank column
+    for c_e, L, m, n, r_e, live in [(3, 2, 1000, 777, 4, (0, 1, 2)),
+                                    (1, 2, 512, 640, 8, (0,)),
+                                    (8, 2, 384, 256, 4, (1, 4, 6)),
+                                    (4, 2, 256, 384, 16, (0, 1, 2, 3))]:
+        ranks = hetero_ranks(c_e, r_e, live)
+        for kind in ("product", "perclient", "hetero"):
+            err, ok = lane_case(torch, kernels, device, kind, c_e, (L,), m, n,
+                                r_e, live, ranks, scale, seed=99)
+            errs[kind + "_fold"] = max(errs[kind + "_fold"], err)
+            print(f"  edge {kind}_fold C={c_e} L={L} m={m} n={n} r={r_e} "
+                  f"live={live}{f' ranks={ranks}' if kind == 'hetero' else ''}"
+                  f": err {err:.3e} ok={ok}", flush=True)
+            if not ok:
+                raise AssertionError(f"edge case {kind}_fold C={c_e} m={m} "
+                                     f"n={n} r={r_e} disagrees")
+    return errs, timings
+
+
+# --------------------------------------------------------------------------
+# phase 4: the main paths
+# --------------------------------------------------------------------------
+
+# name → (FedConfig fields, rounds, {kernel: launches per close per leaf})
+PATHS = {
+    "fedex": ({}, 3, {"fedex_fold": 1, "factor_mean": 2}),
+    "reinit": ({"assignment": "reinit", "participation": 0.5,
+                "weighting": "examples"}, 2, {"product_fold": 1}),
+    "keep_local": ({"assignment": "keep_local", "participation": 0.5,
+                    "weighting": "examples"}, 2, {"perclient_fold": 1}),
+    "fedex_svd": ({"method": "fedex_svd", "svd_rank": 8,
+                   "participation": 0.5, "weighting": "examples"}, 2,
+                  {"product_fold": 1, "factor_mean": 2}),
+    "hetero": ({"method": "hetero", "client_ranks": (4, 2, 1, 3)}, 2,
+               {"hetero_fold": 1}),
+}
+
+
+def drive_path(torch, device, cfg, name, *, clients=4, local_steps=2,
+               batch=8, seq=64, data_vocab=512):
+    """Drive one path of the port's FederatedTrainer at full width; the
+    fedex path's round 0 is uniform over every client, its later rounds
+    weighted at 50% participation. Returns (trainer, per-round rows,
+    number of kernel closes, identity check's worst error)."""
     from repro_torch.configs import FedConfig, LoRAConfig, TrainConfig
     from repro_torch.core import FederatedTrainer
     from repro_torch.fedsrv import RoundPolicy
-    from repro_torch.kernels import fold_error_bound
     from repro_torch.launch.train import build_federated_data
     from repro_torch.models import build_model
     from repro_torch.util.tree import count_params
 
-    rounds = 1 + weighted_rounds
+    fed_kw, rounds, _ = PATHS[name]
     t0 = time.perf_counter()
     loaders, evals = build_federated_data(data_vocab, clients, seq_len=seq,
                                           batch_size=batch, device=device)
     trainer = FederatedTrainer(
         model=build_model(cfg), lora_cfg=LoRAConfig(rank=4, alpha=8.0),
         fed_cfg=FedConfig(num_clients=clients, rounds=rounds,
-                          local_steps=local_steps),
+                          local_steps=local_steps, **fed_kw),
         train_cfg=TrainConfig(learning_rate=5e-3, schedule="constant",
                               total_steps=rounds * local_steps),
         client_loaders=loaders, eval_batches=evals, seed=0, device=device)
     torch.cuda.synchronize()
-    print(f"  set-up (data + {count_params(trainer.params) / 1e9:.2f} B "
-          f"params on the card): {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"  [{name}] set-up (data + {count_params(trainer.params) / 1e9:.2f}"
+          f" B params on the card, engine {trainer.engine.method}): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     step_ms, close_ms, eval_ms = [], [], []
 
@@ -311,75 +555,196 @@ def main_path(torch, device, cfg, *, clients=4, local_steps=2,
         return wrapper
 
     trainer.local_step = timed(trainer.local_step, step_ms)
-    trainer.engine.close = timed(trainer.engine.close, close_ms)
+    eng = trainer.engine
+    for fn in ("close", "close_keep_local", "close_hetero"):
+        setattr(eng, fn, timed(getattr(eng, fn), close_ms))
     trainer._evaluate = timed(trainer._evaluate, eval_ms)
-    rows, identity = [], None
+    keys = [s.key for s in eng.specs]
+    rows, identity, kernel_closes = [], None, 0
     for rnd in range(rounds):
-        if rnd == 1:
+        if name == "fedex" and rnd == 1:
             trainer.coordinator.policy = RoundPolicy(participation=0.5,
                                                      weighting="examples")
-        keys = [s.key for s in trainer.engine.specs]
-        old_w0 = None
+        old = None
         if rnd == rounds - 1:  # the exactness identity on the last round
-            old_w0 = {k: _node(trainer.params, k)["kernel"].clone()
-                      for k in keys}
+            bases = trainer.client_params or [trainer.params]
+            old = [{k: _node(p, k)["kernel"].clone() for k in keys}
+                   for p in bases]
         n_steps, n_close = len(step_ms), len(close_ms)
         t = time.perf_counter()
         rec = trainer.run(until=rnd + 1)[rnd]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         out = trainer.outcomes[-1]
+        uniform = name == "fedex" and out.weights is None
+        kernel_closes += not uniform
         rows.append({
-            "round": rnd, "clients": out.client_ids,
+            "path": name, "round": rnd, "clients": out.client_ids,
             "weights": out.weights,
             "step_ms": statistics.median(step_ms[n_steps:]),
             "close_ms": close_ms[n_close:][0], "eval_ms": eval_ms[-1],
-            "round_s": wall,
-            "eval_loss": rec.eval_loss,
+            "round_s": wall, "eval_loss": rec.eval_loss,
             "divergence": float(rec.divergence_scaled),
             "client_losses": rec.client_losses})
         r = rows[-1]
-        print(f"  round {rnd} [{'uniform' if out.weights is None else 'weighted'}"
-              f" clients={out.client_ids}]: client step {r['step_ms']:.1f} ms "
-              f"(median of {len(step_ms) - n_steps}), close "
-              f"{r['close_ms']:.2f} ms, eval {r['eval_ms']:.1f} ms, round "
-              f"{wall:.2f} s, eval_loss "
-              f"{rec.eval_loss:.4f}, divergence {r['divergence']:.3e}",
-              flush=True)
-        if old_w0 is not None:
-            identity = exactness_identity(torch, trainer, out, old_w0,
-                                          fold_error_bound)
-    return trainer, rows, identity
+        print(f"  [{name}] round {rnd} [{'uniform' if uniform else 'kernel'}"
+              f" close, clients={out.client_ids}]: client step "
+              f"{r['step_ms']:.1f} ms (median of {len(step_ms) - n_steps}), "
+              f"close {r['close_ms']:.2f} ms, eval {r['eval_ms']:.1f} ms, "
+              f"round {wall:.2f} s, eval_loss {rec.eval_loss:.4f}, "
+              f"divergence {r['divergence']:.3e}", flush=True)
+        if old is not None:
+            identity = IDENTITIES[name](torch, trainer, out, old, keys)
+            del old
+    return trainer, rows, kernel_closes, identity
 
 
-def exactness_identity(torch, trainer, outcome, old_w0, fold_error_bound):
-    """new_W0 + s·ā b̄ against old_W0 + s·Σ_c w_c a_c b_c per adapted leaf,
-    over the delivered clients' own adapters."""
-    s = trainer.scale
-    w = torch.tensor(outcome.weights, dtype=torch.float32,
-                     device=trainer.device)
-    worst = 0.0
-    for key, w0_old in old_w0.items():
-        a = torch.stack([_node(d.lora, key)["a"] for d in outcome.delivered])
-        b = torch.stack([_node(d.lora, key)["b"] for d in outcome.delivered])
+def _stacks(torch, outcome, key):
+    a = torch.stack([_node(d.lora, key)["a"] for d in outcome.delivered])
+    b = torch.stack([_node(d.lora, key)["b"] for d in outcome.delivered])
+    return a, b
+
+
+def _weights(torch, trainer, outcome):
+    k = len(outcome.delivered)
+    w = outcome.weights or [1.0 / k] * k
+    return torch.tensor(w, dtype=torch.float32, device=trainer.device)
+
+
+def _report(name, key, lhs, rhs, bound, folded):
+    err = (lhs - rhs).abs()
+    ok = bool((err <= bound).all())
+    print(f"  [{name}] identity {key}: max |lhs - rhs| = "
+          f"{float(err.max()):.3e}, max bound {float(bound.max()):.3e}, "
+          f"within bound={ok}; max |update folded into W0| = {folded:.3e}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: exactness identity fails on {key}")
+    return float(err.max())
+
+
+def identity_fedex(torch, trainer, outcome, old, keys):
+    """new_W0 + s·ā b̄ = old_W0 + s·Σ_c w_c a_c b_c."""
+    from repro_torch.kernels import fold_error_bound
+    s, w, worst = trainer.scale, _weights(torch, trainer, outcome), 0.0
+    for key in keys:
+        a, b = _stacks(torch, outcome, key)
         g = _node(trainer.global_lora, key)
-        w0_new = _node(trainer.params, key)["kernel"]
+        w0_old, w0_new = old[0][key], _node(trainer.params, key)["kernel"]
         lhs = w0_new + s * torch.matmul(g["a"], g["b"])
         rhs = w0_old.clone()
         for i in range(a.shape[0]):
             rhs += s * w[i] * torch.matmul(a[i], b[i])
-        bound = fold_error_bound(w0_old, a, b, s, w)
-        err = (lhs - rhs).abs()
-        ok = bool((err <= bound).all())
-        folded = float((w0_new - w0_old).abs().max())
-        print(f"  identity {key}: max |lhs - rhs| = {float(err.max()):.3e}, "
-              f"max bound {float(bound.max()):.3e}, within bound={ok}; "
-              f"max |residual folded into W0| = {folded:.3e}", flush=True)
-        if not ok:
-            raise AssertionError(f"exact-aggregation identity fails on {key}")
-        worst = max(worst, float(err.max()))
-        del w0_new, lhs, rhs, bound, err
+        worst = max(worst, _report(
+            "fedex", key, lhs, rhs, fold_error_bound(w0_old, a, b, s, w),
+            float((w0_new - w0_old).abs().max())))
     return worst
+
+
+def identity_reinit(torch, trainer, outcome, old, keys):
+    """new_W0 = old_W0 + s·Σ_c w_c a_c b_c (the fresh adapters have b = 0)."""
+    from repro_torch.kernels import product_error_bound
+    s, w, worst = trainer.scale, _weights(torch, trainer, outcome), 0.0
+    for key in keys:
+        a, b = _stacks(torch, outcome, key)
+        w0_old, w0_new = old[0][key], _node(trainer.params, key)["kernel"]
+        rhs = w0_old.clone()
+        for i in range(a.shape[0]):
+            rhs += s * w[i] * torch.matmul(a[i], b[i])
+        worst = max(worst, _report(
+            "reinit", key, w0_new, rhs,
+            product_error_bound(w0_old, a, b, w, s),
+            float((w0_new - w0_old).abs().max())))
+        if bool(_node(trainer.global_lora, key)["b"].any()):
+            raise AssertionError("reinit: the fresh adapters' b is not 0")
+    return worst
+
+
+def identity_keep_local(torch, trainer, outcome, old, keys):
+    """For each delivered i: new_W0ᵢ + s·aᵢbᵢ = old_W0ᵢ + s·Σ_j w_j a_j b_j."""
+    from repro_torch.kernels import perclient_error_bound
+    s, w, worst = trainer.scale, _weights(torch, trainer, outcome), 0.0
+    ids = outcome.client_ids
+    for key in keys:
+        a, b = _stacks(torch, outcome, key)
+        ideal = torch.zeros_like(old[0][key])
+        for j in range(a.shape[0]):
+            ideal += w[j] * torch.matmul(a[j], b[j])
+        bounds = perclient_error_bound([old[c][key] for c in ids], a, b, w, s)
+        for j, c in enumerate(ids):
+            w0_new = _node(trainer.client_params[c], key)["kernel"]
+            lhs = w0_new + s * torch.matmul(a[j], b[j])
+            worst = max(worst, _report(
+                "keep_local", f"{key} client {c}", lhs,
+                old[c][key] + s * ideal, bounds[j],
+                float((w0_new - old[c][key]).abs().max())))
+        del ideal, bounds
+    return worst
+
+
+def identity_hetero(torch, trainer, outcome, old, keys):
+    """For each lane i: new_W0ᵢ + s·a′ᵢb′ᵢ = old_W0ᵢ + s·Σ_j w_j (a_j∘mask_j)
+    b_j, with a′ᵢ, b′ᵢ client i's new rank-rᵢ adapters."""
+    from repro_torch.kernels import hetero_error_bound
+    s, w, worst = trainer.scale, _weights(torch, trainer, outcome), 0.0
+    ranks = torch.tensor(trainer.client_ranks, dtype=torch.int32,
+                         device=trainer.device)
+    for key in keys:
+        a, b = _stacks(torch, outcome, key)  # padded to r_max
+        ideal = torch.zeros_like(old[0][key])
+        for j, k in enumerate(trainer.client_ranks):
+            ideal += w[j] * torch.matmul(a[j][..., :k], b[j][..., :k, :])
+        g = _node(trainer.global_lora, key)
+        bounds = hetero_error_bound([o[key] for o in old], a, b, w, ranks,
+                                    g["a"], g["b"], s)
+        for c in outcome.client_ids:
+            mine = _node(trainer._client_lora[c], key)
+            if mine["a"].shape[-1] != trainer.client_ranks[c]:
+                raise AssertionError("hetero: client adapters of the wrong "
+                                     "rank")
+            w0_new = _node(trainer.client_params[c], key)["kernel"]
+            lhs = w0_new + s * torch.matmul(mine["a"], mine["b"])
+            worst = max(worst, _report(
+                "hetero", f"{key} client {c}", lhs, old[c][key] + s * ideal,
+                bounds[c], float((w0_new - old[c][key]).abs().max())))
+        del ideal, bounds
+    return worst
+
+
+def identity_svd(torch, trainer, outcome, old, keys):
+    """On layer 0 of k_proj: new_W0 − old_W0 = s·(rank-r' truncation of the
+    residual by a dense float64 SVD), and has rank ≤ r'."""
+    s, rp = trainer.scale, trainer.engine.svd_rank
+    key = next(k for k in keys if k.endswith("k_proj"))
+    a, b = _stacks(torch, outcome, key)
+    a, b = a[:, 0].double(), b[:, 0].double()
+    w = _weights(torch, trainer, outcome).double()
+    abar = torch.einsum("c,cmr->mr", w, a)
+    bbar = torch.einsum("c,crn->rn", w, b)
+    res = torch.einsum("c,cmr,crn->mn", w, a, b) - abar @ bbar
+    u, sv, vh = torch.linalg.svd(res, full_matrices=False)
+    trunc = s * (u[:, :rp] * sv[:rp]) @ vh[:rp]
+    w0_old = old[0][key][0].double()
+    w0_new = _node(trainer.params, key)["kernel"][0].double()
+    d = w0_new - w0_old
+    floor = float(torch.linalg.norm(2 * U * (w0_old.abs() + w0_new.abs())))
+    tol = floor + 1e-4 * float(torch.linalg.norm(trunc))
+    err = float(torch.linalg.norm(d - trunc))
+    tail = float(torch.linalg.svdvals(d)[rp])
+    ok = err <= tol and tail <= tol
+    print(f"  [fedex_svd] identity {key} layer 0: ||ΔW0 − s·T_r'(res)||_F = "
+          f"{err:.3e}, σ_{rp + 1}(ΔW0) = {tail:.3e}, tolerance {tol:.3e} "
+          f"(rounding floor {floor:.3e}), ||s·T|| = "
+          f"{float(torch.linalg.norm(trunc)):.3e}; within={ok}", flush=True)
+    if not ok:
+        raise AssertionError("fedex_svd: the fold is not the rank-r' "
+                             "truncation of the residual")
+    return err
+
+
+IDENTITIES = {"fedex": identity_fedex, "reinit": identity_reinit,
+              "keep_local": identity_keep_local, "hetero": identity_hetero,
+              "fedex_svd": identity_svd}
 
 
 def _node(tree, key):
@@ -389,6 +754,20 @@ def _node(tree, key):
 
 
 # --------------------------------------------------------------------------
+
+SOURCES = {  # kernel → (CUDA source, the TPU kernel it replaces)
+    "fedex_fold": ("src/repro_torch/kernels/csrc/fedex_fold.cu",
+                   "src/repro/kernels/fedex_residual.py:108"),
+    "factor_mean": ("src/repro_torch/kernels/csrc/factor_mean.cu",
+                    "src/repro/kernels/factor_mean.py:50"),
+    "product_fold": ("src/repro_torch/kernels/csrc/product_fold.cu",
+                     "src/repro/kernels/fedex_residual.py:183"),
+    "perclient_fold": ("src/repro_torch/kernels/csrc/perclient_fold.cu",
+                       "src/repro/kernels/fedex_residual.py:277"),
+    "hetero_fold": ("src/repro_torch/kernels/csrc/hetero_fold.cu",
+                    "src/repro/kernels/fedex_residual.py:349"),
+}
+
 
 def main() -> int:
     import torch
@@ -419,9 +798,10 @@ def main() -> int:
     print(smi, flush=True)
 
     t = time.perf_counter()
-    lib = kbuild.build(verbose=True)
+    libs = kbuild.build(verbose=True)
     kbuild.load_library()
-    print(f"[2/5] build: {lib.relative_to(ROOT)} in "
+    print(f"[2/5] build: {len(libs)} libraries "
+          f"({', '.join(p.name for p in libs)}) in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
 
     cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
@@ -430,46 +810,61 @@ def main() -> int:
           flush=True)
     errs, timings = kernel_phase(torch, kernels, device, cfg, c=c, r=r,
                                  scale=scale)
+    lane_errs, lane_timings = lane_kernel_phase(torch, kernels, device, cfg,
+                                                c=c, r=r, scale=scale)
+    errs.update(lane_errs)
     torch.cuda.empty_cache()
 
-    print(f"[4/5] main path: FederatedTrainer at {cfg.name} full width "
+    print(f"[4/5] main paths: FederatedTrainer at {cfg.name} full width "
           f"({cfg.num_layers} layers, d={cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype})", flush=True)
-    kernels.fedex_fold.launches = 0
-    kernels.factor_mean.launches = 0
-    trainer, rows, identity = main_path(torch, device, cfg)
-    launches = {"fedex_fold": kernels.fedex_fold.launches,
-                "factor_mean": kernels.factor_mean.launches}
-    n_weighted = sum(1 for row in rows if row["weights"] is not None)
-    n_leaves = len(trainer.engine.specs)
-    expected = {"fedex_fold": n_leaves * n_weighted,
-                "factor_mean": 2 * n_leaves * n_weighted}
-    print(f"  launches on the main path: {launches} (expected {expected} for "
-          f"{n_weighted} weighted closes); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB", flush=True)
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches} != {expected}")
-    values = [v for row in rows for v in
-              (row["eval_loss"], row["divergence"], *row["client_losses"])]
-    if not all(math.isfinite(v) for v in values):
-        raise AssertionError(f"non-finite losses or divergence: {rows}")
+    launches = {name: 0 for name in SOURCES}
+    all_rows, identities = [], {}
+    for name, (_, _, per_leaf) in PATHS.items():
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        trainer, rows, closes, identity = drive_path(torch, device, cfg, name)
+        counts = kernels.launch_counts()
+        n_leaves = len(trainer.engine.specs)
+        expected = {k: 0 for k in SOURCES}
+        expected.update({k: v * n_leaves * closes
+                         for k, v in per_leaf.items()})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  [{name}] launches {counts} (expected {expected} for "
+              f"{closes} kernel closes); peak memory {peak:.1f} GiB",
+              flush=True)
+        if counts != expected:
+            raise AssertionError(f"{name}: kernel launches {counts} != "
+                                 f"{expected}")
+        values = [v for row in rows for v in
+                  (row["eval_loss"], row["divergence"],
+                   *row["client_losses"])]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"{name}: non-finite losses or divergence: "
+                                 f"{rows}")
+        for k, v in counts.items():
+            launches[k] += v
+        for row in rows:
+            row["peak_gib"] = peak
+        all_rows += rows
+        identities[name] = identity
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
 
-    main_body = timings["weighted-partial"]
+    main_body = {**timings["weighted-partial"], **lane_timings}
     out = []
-    for name, source, replaces in [
-            ("fedex_fold", "src/repro_torch/kernels/csrc/fedex_fold.cu",
-             "src/repro/kernels/fedex_residual.py:108"),
-            ("factor_mean", "src/repro_torch/kernels/csrc/factor_mean.cu",
-             "src/repro/kernels/factor_mean.py:50")]:
+    for name, (source, replaces) in SOURCES.items():
         ms, plain, lib_ms, (bms, by) = main_body[name]
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
                     "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
-    print(f"[5/5] done in {time.perf_counter() - t_start:.1f} s; identity "
-          f"max err {identity:.3e}; rounds "
-          + json.dumps([{k: v for k, v in row.items() if k != "client_losses"}
-                        for row in rows]), flush=True)
+    print(f"[5/5] done in {time.perf_counter() - t_start:.1f} s; identity max "
+          f"err per path {json.dumps(identities)}; rounds "
+          + json.dumps([{k: v for k, v in row.items()
+                         if k != "client_losses"} for row in all_rows]),
+          flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {

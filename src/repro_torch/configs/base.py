@@ -202,8 +202,9 @@ class FedConfig:
     # --- fused round-close engine (core/engine.py) ---
     # "auto" → the CUDA kernels (fedex_fold + factor_mean) when the tensors
     # lie on a CUDA device, their plain PyTorch versions on the CPU; "plain"
-    # → the plain versions everywhere. The reference's "off" (eager
-    # list-of-trees close) is not ported.
+    # → the plain versions everywhere; "kernels" → the kernel close on any
+    # device (on CPU tensors the wrappers run the plain versions, in place).
+    # The reference's "off" (eager list-of-trees close) is not ported.
     engine: str = "auto"
     # RoundBuffers ring depth: how many rounds' uplink stacks may be in
     # flight at once (2 = classic double buffering; >2 lets FedBuff commits
@@ -267,9 +268,9 @@ class FedConfig:
                     f"{self.local_steps}], got {self.client_local_steps}")
         if self.assignment not in ("average", "keep_local", "reinit"):
             raise ValueError(f"unknown assignment {self.assignment!r}")
-        if self.engine not in ("auto", "plain"):
+        if self.engine not in ("auto", "plain", "kernels"):
             raise ValueError(f"unknown engine {self.engine!r} "
-                             "(auto | plain)")
+                             "(auto | plain | kernels)")
         if self.svd_rank < 0:
             raise ValueError(
                 f"svd_rank must be ≥ 0, got {self.svd_rank} "

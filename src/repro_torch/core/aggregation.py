@@ -8,6 +8,9 @@ stacked-layer axes batched by ``torch.matmul``):
 * ``fedit``  — FedAvg of the factors (inexact; Eq. 3–4).
 * ``fedex``  — factor averages + residual ΔW_res = Σwᵢaᵢbᵢ − ā b̄
   (Eq. 11–12); folding scale·ΔW_res into W0 makes aggregation exact.
+* the assignment strategies of Table 5 (``assign_after_aggregation``):
+  ``keep_local`` (per-client residuals Σwⱼaⱼbⱼ − aᵢbᵢ) and ``reinit``
+  (fresh adapters, the full ideal update folded).
 
 Optional per-client ``weights`` are normalised to sum 1; ``None`` or an
 all-equal vector takes the ``sum/k`` path, which the engine's uniform close
@@ -123,6 +126,100 @@ def fedex_aggregate(client_loras: List[Params], weights: Weights = None
     global_lora = fedit_aggregate(client_loras, weights)
     residual = fedex_residual(client_loras, global_lora, weights)
     return global_lora, residual
+
+
+def _factor_rank(tree: Params) -> int:
+    """Rank r of the first {a, b} factor node found in an adapter tree."""
+    found: List[int] = []
+
+    def fn(factor):
+        if not found:
+            found.append(int(factor["a"].shape[-1]))
+        return None
+
+    map_factors(fn, tree)
+    if not found:
+        raise ValueError("no adapter factors found — empty lora tree?")
+    return found[0]
+
+
+def assign_after_aggregation(strategy: str, client_loras: List[Params],
+                             gen: Optional[torch.Generator] = None,
+                             weights: Weights = None
+                             ) -> Tuple[List[Params], Params]:
+    """Returns (per-client new adapters, residual to fold into W0).
+
+    Every strategy is EXACT: the residual is chosen so that for each client
+    ``W0 + scale·(residual + aᵢ_new bᵢ_new) = W0 + scale·Σwⱼ aⱼbⱼ``.
+    ``keep_local`` returns client 0's residual (the trainer folds each
+    client's own); ``reinit`` draws from ``gen`` (a fresh generator seeded
+    0 on the adapters' device when omitted).
+    """
+    k = len(client_loras)
+    if strategy == "average":  # FedEx-LoRA
+        global_lora, residual = fedex_aggregate(client_loras, weights)
+        return [global_lora] * k, residual
+    if strategy == "keep_local":
+        return (list(client_loras),
+                per_client_residuals(client_loras, weights)[0])
+    if strategy == "reinit":
+        ideal = product_mean(client_loras, weights)
+        if gen is None:
+            device = next(iter(_leaves(client_loras[0]))).device
+            gen = torch.Generator(device=device).manual_seed(0)
+        new = reinit_adapters(client_loras[0], gen)
+        # b = 0 → product 0 → the FULL ideal update goes into the residual
+        return [new] * k, ideal
+    raise ValueError(f"unknown assignment strategy {strategy!r}")
+
+
+def _leaves(tree: Any):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def reinit_adapters(template: Params, gen: torch.Generator) -> Params:
+    """Fresh adapters for the reinit strategy: a ~ N(0, 0.02), b = 0.
+
+    The factors are drawn from ``gen`` one leaf after another in the
+    factor traversal's (insertion) order — the reference's per-leaf counter
+    order. Shared by :func:`assign_after_aggregation` and the engine's
+    reinit close, so both draw identical adapters from generators in the
+    same state. ``gen`` must live on the template's device.
+    """
+
+    def reinit(factor):
+        a = torch.empty(factor["a"].shape, dtype=torch.float32,
+                        device=factor["a"].device)
+        a.normal_(0.0, 0.02, generator=gen)
+        return {"a": a, "b": torch.zeros(factor["b"].shape,
+                                         dtype=torch.float32,
+                                         device=factor["b"].device)}
+
+    return map_factors(reinit, template)
+
+
+def per_client_residuals(client_loras: List[Params],
+                         weights: Weights = None) -> List[Params]:
+    """keep_local residuals, eager oracle: residual_i = Σwⱼaⱼbⱼ − aᵢ bᵢ.
+
+    One dense residual tree per client; the engine's uniform keep_local
+    close composes it, its weighted close runs the ``perclient_fold``
+    kernel and never builds this list.
+    """
+    ideal = product_mean(client_loras, weights)
+    out = []
+    for i in range(len(client_loras)):
+        def fn(factor, ideal_leaf):
+            own = torch.matmul(factor["a"].float(), factor["b"].float())
+            return ideal_leaf - own
+        # the walk is keyed on the FACTOR tree (first arg); the ideal tree
+        # has plain tensor leaves at the factor positions
+        out.append(map_factors(fn, client_loras[i], ideal))
+    return out
 
 
 def apply_residual(params: Params, residual: Params, scale: float) -> Params:

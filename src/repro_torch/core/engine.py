@@ -1,7 +1,9 @@
-"""The weighted round close over stacked client buffers (stacked mode, fedex).
+"""The weighted round close over stacked client buffers (stacked mode).
 
-Counterpart of ``repro/core/engine.py`` for the ``fedex`` method (average
-assignment) in stacked mode:
+Counterpart of ``repro/core/engine.py`` in stacked mode, for every engine
+method: ``fedex`` (average assignment), ``fedex_svd`` (rank-r' truncated
+residual), ``reinit`` and ``keep_local`` (Table 5's assignments) and
+``hetero`` (heterogeneous client ranks):
 
 * :class:`RoundBuffers` — preallocated ``(C_max, …)`` device stacks per
   adapter leaf in a ring of ``depth`` rotating sets: ``begin_round`` opens a
@@ -12,20 +14,27 @@ assignment) in stacked mode:
   device scalar; the host sync happens only in :meth:`~DeferredDivergence.
   resolve`, which the trainer calls at the next round boundary.
 * :func:`make_close_fn` / :class:`RoundCloseEngine` — the close. Uniform
-  full-participation rounds compose the aggregation operators of
-  :mod:`repro_torch.core.aggregation` exactly as the reference's
-  ``_uniform_close`` does (its bitwise contract). Weighted and partial rounds
-  go through the weight vector, zeros masking non-delivered lanes: on CUDA
-  tensors through the ``factor_mean`` and ``fedex_fold`` kernels (the
-  counterpart of ``_weighted_close_pallas``), on the CPU through the same
-  close on the kernels' plain PyTorch versions (the counterpart of
-  ``_weighted_close_jnp``).
+  full-participation fedex, reinit, keep_local and hetero rounds compose the
+  eager operators (:mod:`repro_torch.core.aggregation`,
+  :mod:`repro_torch.core.hetero`) exactly as the reference's uniform
+  branches do (their bitwise contract). Weighted, partial and ragged-rank
+  rounds, and every fedex_svd round, go through the weight vector, zeros
+  masking non-delivered lanes: on CUDA tensors through the kernels
+  (``factor_mean``, ``fedex_fold``, ``product_fold``, ``perclient_fold``,
+  ``hetero_fold``; the counterpart of the reference's ``pallas`` backend),
+  on the CPU through the same closes on the kernels' plain PyTorch versions
+  (its ``jnp`` backend).
+* the factored machinery of the fedex_svd and hetero closes
+  (:func:`factored_truncated_residual`, :func:`factored_truncated_product`):
+  Eckart–Young truncations from two (C·r)² Grams, the dense m×n matrix
+  never formed.
 
 JAX donates the W0 leaves and stacks to its close program; here the kernel
-close writes the fold into W0's own storage instead, so a caller must treat
-the ``params`` it passes to :meth:`RoundCloseEngine.close` as consumed.
-The other engine methods (fedex_svd, reinit, keep_local, hetero) and the
-chunked streaming mode are not ported yet and raise ``NotImplementedError``.
+closes write the fold into W0's own storage instead, so a caller must treat
+the ``params`` it passes to :meth:`RoundCloseEngine.close` (and the bases of
+the delivered clients it passes to ``close_keep_local`` / ``close_hetero``)
+as consumed: clients must not share W0 leaves. The chunked streaming mode is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -39,12 +48,16 @@ import torch
 
 from repro_torch.core import aggregation as agg
 from repro_torch.kernels import (factor_mean, factor_mean_plain, fedex_fold,
-                                 fedex_fold_plain)
+                                 fedex_fold_plain, hetero_fold,
+                                 hetero_fold_plain, perclient_fold,
+                                 perclient_fold_plain, product_fold,
+                                 product_fold_plain)
 from repro_torch.util.tree import flatten_with_paths, unflatten_from_paths
 
 Params = Dict[str, Any]
 
 BACKENDS = ("auto", "plain", "kernels")
+ENGINE_METHODS = ("fedex", "fedex_svd", "reinit", "keep_local", "hetero")
 
 
 class DeferredDivergence:
@@ -165,7 +178,10 @@ class RoundBuffers:
       reused, so an in-flight close never sees the next round's writes;
     * opening more than ``depth`` rounds raises (never a silent overwrite);
     * a lane is written at most once per round (a duplicate is dropped);
-      lanes nobody wrote stay zero, and the weight vector masks them.
+      lanes nobody wrote stay zero, and the weight vector masks them;
+    * each round keeps a per-slot int32 rank vector: the true adapter rank
+      a hetero uplink declared at :meth:`write` (its payload zero-padded to
+      the template rank), −1 where none was declared (full rank).
     """
 
     def __init__(self, lora_template: Params, c_max: int, depth: int = 2,
@@ -178,6 +194,7 @@ class RoundBuffers:
         self.depth = depth
         flat = flatten_with_paths(lora_template)
         self._shapes = {p: tuple(x.shape) for p, x in flat.items()}
+        self.r_max = agg._factor_rank(lora_template)  # the template rank
         self.device = (next(iter(flat.values())).device if device is None
                        else device)
         # round_id → {"slots": cid→lane, "written": cid→lane, "stacks": dict}
@@ -218,7 +235,8 @@ class RoundBuffers:
                 f"{list(self._open)}) — take() the oldest before opening "
                 "another")
         self._open[round_id] = {"slots": dict(slots), "written": {},
-                                "stacks": self._alloc()}
+                                "stacks": self._alloc(),
+                                "ranks": np.full(self.c_max, -1, np.int32)}
         return round_id
 
     def evict(self, round_id) -> Dict[int, int]:
@@ -229,11 +247,16 @@ class RoundBuffers:
         return dict(e["written"])
 
     def write_flat(self, client_id: int, flat: Dict[str, torch.Tensor],
-                   round_id=None) -> bool:
+                   round_id=None, *, rank: Optional[int] = None) -> bool:
         """Copy one client's adapter leaves (path → tensor) into its lane of
         the named (default: oldest) open round. Returns ``False`` (and writes
-        nothing) for a duplicate (client, round) write."""
+        nothing) for a duplicate (client, round) write. ``rank`` is the
+        uplink's true adapter rank (a hetero payload zero-padded to the
+        template rank); ``None`` means full rank."""
         _, e = self._entry(round_id)
+        if rank is not None and not 1 <= rank <= self.r_max:
+            raise ValueError(f"uplink rank {rank} outside "
+                             f"[1, r_max={self.r_max}]")
         if client_id in e["written"]:
             return False
         if flat.keys() != self._shapes.keys():
@@ -250,11 +273,18 @@ class RoundBuffers:
             for p in self._shapes:
                 e["stacks"][p][slot].copy_(flat[p])
         e["written"][client_id] = slot
+        if rank is not None:
+            e["ranks"][slot] = rank
         return True
 
-    def write(self, client_id: int, lora_tree: Params, round_id=None) -> bool:
+    def write(self, client_id: int, lora_tree: Params, round_id=None, *,
+              rank: Optional[int] = None) -> bool:
         return self.write_flat(client_id, flatten_with_paths(lora_tree),
-                               round_id)
+                               round_id, rank=rank)
+
+    def ranks_in(self, round_id=None) -> np.ndarray:
+        """The round's per-slot rank vector (−1 = none declared)."""
+        return self._entry(round_id)[1]["ranks"].copy()
 
     @property
     def open_rounds(self) -> List[Any]:
@@ -285,9 +315,12 @@ def _stacked_residual_factors(a_stack: torch.Tensor, b_stack: torch.Tensor,
                               u: torch.Tensor
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Σ_c u_c·a_c b_c − ā b̄ = L @ R with L = [u_0·a_0 | … ] (…, m, C·r) and
-    R = [b_0 − b̄ ; …] (…, C·r, n), b̄ = Σ_c u_c·b_c."""
-    a, b = a_stack.float(), b_stack.float()
-    c = a.shape[0]
+    R = [b_0 − b̄ ; …] (…, C·r, n), b̄ = Σ_c u_c·b_c. Lanes with u_c = 0 are
+    selected away (zeroed) first, so whatever they hold adds exactly 0."""
+    c = a_stack.shape[0]
+    live = (u != 0).reshape((c,) + (1,) * (a_stack.ndim - 1))
+    a = torch.where(live, a_stack.float(), 0.0)
+    b = torch.where(live, b_stack.float(), 0.0)
     bbar = torch.einsum("c,c...rn->...rn", u, b)
     L = torch.cat([u[i] * a[i] for i in range(c)], dim=-1)
     R = torch.cat([b[i] - bbar for i in range(c)], dim=-2)
@@ -306,15 +339,123 @@ def _dev_fro_scaled(a_stack: torch.Tensor, b_stack: torch.Tensor,
     return torch.sqrt(fro_sq) / math.sqrt(m * n)
 
 
+def _safe_inv_sqrt(lam: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(λ^{-1/2}, λ^{1/2}) with pseudo-inverse semantics: eigenvalues below
+    the rank-detection floor (masked lanes, redundant factors) map to 0."""
+    tol = lam.max(dim=-1, keepdim=True).values * (lam.shape[-1] * 1e-7)
+    pos = lam > tol
+    safe = torch.where(pos, lam, 1.0)
+    return (torch.where(pos, torch.rsqrt(safe), 0.0),
+            torch.where(pos, torch.sqrt(safe), 0.0))
+
+
+def _gram_core(L: torch.Tensor, R: torch.Tensor):
+    """The SVD of ΔW = L @ R through two (P, P) Grams: returns (left, u, s,
+    vt, right) with ΔW = (L @ left @ u) diag(s) (vt @ right @ R), left =
+    E_L Λ_L^{-1/2} and right = Λ_R^{-1/2} E_Rᵀ. Every intermediate is
+    (m, P), (P, n) or (P, P); the (m, n) matrix never exists."""
+    gl = torch.einsum("...mi,...mj->...ij", L, L)
+    gr = torch.einsum("...in,...jn->...ij", R, R)
+    el, vl = torch.linalg.eigh(gl)
+    er, vr = torch.linalg.eigh(gr)
+    il, sl = _safe_inv_sqrt(el)
+    ir, sr = _safe_inv_sqrt(er)
+    core = (sl[..., :, None] * (vl.transpose(-1, -2) @ vr)
+            * sr[..., None, :])
+    u, s, vt = torch.linalg.svd(core, full_matrices=False)
+    return (vl * il[..., None, :], u, s, vt,
+            (vr * ir[..., None, :]).transpose(-1, -2))
+
+
+def factored_truncated_residual(a_stack: torch.Tensor, b_stack: torch.Tensor,
+                                weights: torch.Tensor, rank: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eckart–Young-optimal rank-``rank`` factors of the weighted residual
+    Σ_c w_c a_c b_c − ā b̄ = L @ R (Eq. 15–16), without the dense (m, n)
+    matrix: eigendecompose G_L = LᵀL and G_R = R Rᵀ, take the SVD of the
+    P×P core Λ_L^{1/2} E_Lᵀ E_R Λ_R^{1/2}, and return
+
+        A' = L E_L Λ_L^{-1/2} U_{:r'} Σ_{:r'}   (…, m, r')
+        B' = V_{:r'}ᵀ Λ_R^{-1/2} E_Rᵀ R          (…, r', n)
+
+    The Gram squaring costs about half the f32 digits: A' B' matches a dense
+    SVD truncation to ~1e-5 relative. Eigenvector signs differ between
+    LAPACK and cuSOLVER, so compare A' B', never A' or B' alone."""
+    L, R = _stacked_residual_factors(a_stack, b_stack, weights)
+    left, u, s, vt, right = _gram_core(L, R)
+    aprime = L @ (left @ u[..., :, :rank]) * s[..., None, :rank]
+    bprime = (vt[..., :rank, :] @ right) @ R
+    return aprime, bprime
+
+
+def factored_truncated_product(L: torch.Tensor, R: torch.Tensor, rank: int
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eckart–Young-optimal rank-``rank`` factors of the UNCENTERED product
+    L @ R — the hetero close's truncation, shared with the eager oracle
+    (:mod:`repro_torch.core.hetero`). The same Gram machinery as
+    :func:`factored_truncated_residual`, with the balanced split
+    A' = Q_L U √Σ, B' = √Σ Vᵀ Q_Rᵀ R, so the leading-r' slice of the factors
+    is the optimal rank-r' truncation for every r' ≤ rank. Zero (padded)
+    columns of L and rows of R give zero Gram eigenvalues, floored away."""
+    left, u, s, vt, right = _gram_core(L, R)
+    sq = torch.sqrt(torch.clamp(s[..., :rank], min=0.0))
+    aprime = L @ (left @ u[..., :, :rank]) * sq[..., None, :]
+    bprime = sq[..., :, None] * ((vt[..., :rank, :] @ right) @ R)
+    return aprime, bprime
+
+
+def _rank_mask(ranks: torch.Tensor, r: int) -> torch.Tensor:
+    """(C,) int rank vector → (C, r) bool mask: column j of lane c is live
+    iff j < ranks[c]. Negative ranks mean "unmasked" (full r)."""
+    rk = torch.where(ranks < 0, r, ranks)
+    return torch.arange(r, device=ranks.device)[None, :] < rk[:, None]
+
+
+def _mask_factor_stacks(a: torch.Tensor, b: torch.Tensor, ranks: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero the rank-padded columns of a (C, …, m, r) stack and the matching
+    rows of its (C, …, r, n) twin. Selected, not multiplied by a 0/1 mask,
+    so a masked column adds exactly 0 whatever it holds (0·NaN is NaN)."""
+    c, r = a.shape[0], a.shape[-1]
+    mask = _rank_mask(ranks, r)
+    ma = mask.reshape((c,) + (1,) * (a.ndim - 2) + (r,))
+    mb = mask.reshape((c,) + (1,) * (b.ndim - 3) + (r, 1))
+    return torch.where(ma, a, 0.0), torch.where(mb, b, 0.0)
+
+
+# --------------------------------------------------------------------------
+# the closes (one per engine method)
+# --------------------------------------------------------------------------
+
 def _slice_client_trees(specs, stacks, c_max) -> List[Params]:
     return [{s.key: {"a": stacks[s.key + "/a"][c],
                      "b": stacks[s.key + "/b"][c]} for s in specs}
             for c in range(c_max)]
 
 
+def _fold_leaf(fold, w0: torch.Tensor, dtype) -> torch.Tensor:
+    """Run ``fold(w0_f32, out)`` into W0's own storage when W0 is float32
+    and contiguous (the in-place close), else on a float32 copy."""
+    if w0.dtype == torch.float32 and w0.is_contiguous():
+        return fold(w0, w0)
+    return fold(w0.float().contiguous(), None).to(dtype)
+
+
+def _fold_lanes(fold, lanes: List[Optional[torch.Tensor]], dtype
+                ) -> List[Optional[torch.Tensor]]:
+    """:func:`_fold_leaf` for a per-lane fold: into every produced lane's
+    own W0 when all are float32 and contiguous, else on float32 copies."""
+    if all(t is None or (t.dtype == torch.float32 and t.is_contiguous())
+           for t in lanes):
+        return fold(lanes, lanes)
+    res = fold([None if t is None else t.float().contiguous()
+                for t in lanes], None)
+    return [None if x is None else x.to(dtype) for x in res]
+
+
 def _uniform_close(specs, scale, w0_leaves, stacks, c_max):
-    """Full-participation uniform close: literally the aggregation operators
-    over the stack lanes."""
+    """Full-participation uniform close: literally the aggregation
+    operators over the stack lanes."""
     client_trees = _slice_client_trees(specs, stacks, c_max)
     g = agg.fedit_aggregate(client_trees)
     res = agg.fedex_residual(client_trees, g)
@@ -341,12 +482,146 @@ def _weighted_close(specs, scale, w0_leaves, stacks, w, *, kernels: bool):
                                              ).to(s.w0_dtype)
             continue
         glob[s.key] = {"a": factor_mean(a, w), "b": factor_mean(b, w)}
-        if w0.dtype == torch.float32 and w0.is_contiguous():
-            new_w0[s.key] = fedex_fold(w0, a, b, scale, weights=w, out=w0)
-        else:
-            new_w0[s.key] = fedex_fold(w0.float().contiguous(), a, b, scale,
-                                       weights=w).to(s.w0_dtype)
+        new_w0[s.key] = _fold_leaf(
+            lambda x, out: fedex_fold(x, a, b, scale, weights=w, out=out),
+            w0, s.w0_dtype)
     return new_w0, glob
+
+
+def _svd_close(specs, scale, svd_rank, w0_leaves, stacks, w, *,
+               kernels: bool):
+    """Truncated-SVD close: the factored Eckart–Young residual (never
+    dense), folded into W0 as the rank-r' product A' @ B' — on the kernel
+    path through ``product_fold`` with A' as a one-lane (1, L, m, r') stack
+    and sign vector [1]."""
+    new_w0, glob = {}, {}
+    for s in specs:
+        a = stacks[s.key + "/a"]
+        b = stacks[s.key + "/b"]
+        ap, bp = factored_truncated_residual(a, b, w, svd_rank)
+        w0 = w0_leaves[s.key]
+        if kernels:
+            glob[s.key] = {"a": factor_mean(a, w), "b": factor_mean(b, w)}
+            one = torch.ones(1, dtype=torch.float32, device=w.device)
+            new_w0[s.key] = _fold_leaf(
+                lambda x, out: product_fold(x, ap.unsqueeze(0),
+                                            bp.unsqueeze(0), one, scale,
+                                            out=out), w0, s.w0_dtype)
+        else:
+            glob[s.key] = {"a": factor_mean_plain(a, w),
+                           "b": factor_mean_plain(b, w)}
+            new_w0[s.key] = (w0.float() + scale * torch.matmul(ap, bp)
+                             ).to(s.w0_dtype)
+    return new_w0, glob
+
+
+def _reinit_close(specs, scale, w0_leaves, stacks, w, c_max, uniform, *,
+                  kernels: bool):
+    """Reinit close (Table 5): the FULL ideal update Σ_c w_c a_c b_c folds
+    into W0 (the fresh adapters carry b = 0). The uniform branch composes
+    ``product_mean`` over the stack lanes (bitwise the operators); the
+    others run ``product_fold`` with s = w."""
+    if uniform:
+        ideal = agg.product_mean(_slice_client_trees(specs, stacks, c_max))
+        return {s.key: (w0_leaves[s.key].float() + scale * ideal[s.key]
+                        ).to(s.w0_dtype) for s in specs}
+    new_w0 = {}
+    for s in specs:
+        a = stacks[s.key + "/a"]
+        b = stacks[s.key + "/b"]
+        w0 = w0_leaves[s.key]
+        if kernels:
+            new_w0[s.key] = _fold_leaf(
+                lambda x, out: product_fold(x, a, b, w, scale, out=out), w0,
+                s.w0_dtype)
+        else:
+            new_w0[s.key] = product_fold_plain(w0, a, b, w, scale
+                                               ).to(s.w0_dtype)
+    return new_w0
+
+
+def _keep_local_close(specs, scale, w0_lanes, stacks, w, c_max, uniform, *,
+                      kernels: bool):
+    """Keep_local close (Table 5): every delivered lane's OWN base gets its
+    residual Σ_j w_j a_j b_j − a_c b_c. ``w0_lanes[key]`` lists each lane's
+    W0 leaf (None for a lane not produced); the result is listed likewise.
+    The uniform branch composes ``per_client_residuals`` over the stack
+    lanes (bitwise the operators); the others run ``perclient_fold``."""
+    if uniform:
+        residuals = agg.per_client_residuals(
+            _slice_client_trees(specs, stacks, c_max))
+        return {s.key: [None if w0 is None else
+                        (w0.float() + scale * residuals[c][s.key]
+                         ).to(s.w0_dtype)
+                        for c, w0 in enumerate(w0_lanes[s.key])]
+                for s in specs}
+    new_w0 = {}
+    for s in specs:
+        a = stacks[s.key + "/a"]
+        b = stacks[s.key + "/b"]
+        lanes = w0_lanes[s.key]
+        if kernels:
+            new_w0[s.key] = _fold_lanes(
+                lambda xs, out: perclient_fold(xs, a, b, w, scale, out=out),
+                lanes, s.w0_dtype)
+        else:
+            new_w0[s.key] = [None if x is None else x.to(s.w0_dtype) for x
+                             in perclient_fold_plain(lanes, a, b, w, scale)]
+    return new_w0
+
+
+def _hetero_close(specs, scale, w0_lanes, stacks, w, ranks, c_max, uniform,
+                  *, kernels: bool):
+    """Heterogeneous-rank close (:mod:`repro_torch.core.hetero`'s scheme,
+    engine-side): the ideal update Δ̄ = Σ_c w_c (a_c∘mask_c) b_c is
+    truncated ONCE at the template rank r_max by
+    :func:`factored_truncated_product`; lane c's adapters are the leading-rᵢ
+    slice of that truncation and its residual Δ̄ − a'ᵢb'ᵢ folds into its OWN
+    W0 (``w0_lanes`` as in :func:`_keep_local_close`), so W0_c + ΔW_c +
+    a'_c b'_c = W0_c + Δ̄ for every lane. Ragged lanes ride zero-padded to
+    r_max with the (C_max,) int32 rank vector ``ranks``. The uniform branch
+    (full participation, uniform weights, every rank r_max) composes the
+    eager oracle's op sequence; the others run ``hetero_fold``.
+
+    Returns ``(new_w0_lanes, glob, masked_stacks)`` with ``glob[key] =
+    {"a": A'(r_max), "b": B'(r_max)}`` and the rank-masked stacks for the
+    divergence."""
+    new_w0, glob, masked = {}, {}, {}
+    for s in specs:
+        a = stacks[s.key + "/a"].float()  # (C, …, m, r_max)
+        b = stacks[s.key + "/b"].float()  # (C, …, r_max, n)
+        r = s.a_shape[-1]
+        lanes = w0_lanes[s.key]
+        if uniform:
+            am, bm = a, b  # every lane at full rank: no masking
+            L = torch.cat([a[i] / c_max for i in range(c_max)], dim=-1)
+        else:
+            am, bm = _mask_factor_stacks(a, b, ranks)
+            L = torch.cat([w[i] * am[i] for i in range(c_max)], dim=-1)
+        R = torch.cat([bm[i] for i in range(c_max)], dim=-2)
+        ap, bp = factored_truncated_product(L, R, r)
+        if kernels and not uniform:
+            new_w0[s.key] = _fold_lanes(
+                lambda xs, out: hetero_fold(xs, a, b, w, ranks, ap, bp, scale,
+                                            out=out), lanes, s.w0_dtype)
+        else:
+            ideal = L @ R
+            if uniform:
+                own_full = ap @ bp
+                owns = [own_full] * c_max
+            else:
+                mask = _rank_mask(ranks, r)
+                owns = [None if lanes[c] is None else
+                        torch.where(mask[c], ap, 0.0) @ bp
+                        for c in range(c_max)]
+            new_w0[s.key] = [None if w0 is None else
+                             (w0.float() + scale * (ideal - owns[c])
+                              ).to(s.w0_dtype)
+                             for c, w0 in enumerate(lanes)]
+        glob[s.key] = {"a": ap, "b": bp}
+        masked[s.key + "/a"] = am
+        masked[s.key + "/b"] = bm
+    return new_w0, glob, masked
 
 
 def _resolve_backend(backend: str, device: torch.device) -> str:
@@ -359,40 +634,79 @@ def _resolve_backend(backend: str, device: torch.device) -> str:
 
 
 def make_close_fn(specs: Sequence[FactorSpec], *, scale: float, c_max: int,
-                  method: str = "fedex", backend: str = "plain"):
+                  method: str = "fedex", svd_rank: int = 0,
+                  backend: str = "plain"):
     """The close for one engine method: ``close(w0_leaves, stacks, weights,
     mask, *, uniform) → (new_w0_leaves, global_factors, divergence)``.
 
-    ``uniform=True`` is the full-participation branch composed of the
-    aggregation operators; otherwise ``weights`` is the (C_max,) f32 device
-    vector with zeros on non-delivered lanes and ``mask`` its 0/1 indicator
-    (the divergence is uniform over the delivered lanes). ``backend`` is
-    ``"kernels"`` (factor_mean + fedex_fold) or ``"plain"``.
+    ``weights`` is the (C_max,) f32 device vector with zeros on
+    non-delivered lanes and ``mask`` its 0/1 indicator (the divergence is
+    uniform over the delivered lanes); ``uniform=True`` marks a full,
+    uniformly weighted round. ``backend`` is ``"kernels"`` or ``"plain"``.
+
+    * ``fedex`` — the uniform branch composes the aggregation operators;
+      otherwise ``factor_mean`` + ``fedex_fold``.
+    * ``fedex_svd`` — the factored rank-``svd_rank`` truncated close (needs
+      ``svd_rank ≥ 1``); every round goes through the weight vector.
+    * ``reinit`` — as fedex but folds the full ideal update; ``glob={}``
+      (the engine draws the fresh adapters).
+    * ``keep_local`` — ``w0_leaves[key]`` lists each lane's own W0 leaf
+      (None for a lane not produced), and so does the result; ``glob={}``.
+    * ``hetero`` — lanes as keep_local, and the ``mask`` slot carries the
+      (C_max,) int32 rank vector (0 masks a lane, −1 = full rank); ``glob``
+      holds the shared rank-r_max truncation factors per spec.
     """
-    if method != "fedex":
-        raise NotImplementedError(
-            f"engine method {method!r} is not ported (fedex only)")
+    if method not in ENGINE_METHODS:
+        raise ValueError(f"unknown engine method {method!r} "
+                         f"(expected one of {ENGINE_METHODS})")
+    if method == "fedex_svd" and svd_rank < 1:
+        raise ValueError(f"fedex_svd close needs svd_rank ≥ 1, got {svd_rank}"
+                         " (svd_rank=0 means exact — use the fedex close)")
     if backend not in ("plain", "kernels"):
         raise ValueError(f"backend must be 'plain' or 'kernels', got "
                          f"{backend!r}")
     specs = list(specs)
+    kernels = backend == "kernels"
 
     @torch.no_grad()
     def close(w0_leaves, stacks, weights, mask, *, uniform: bool):
+        glob: Params = {}
+        div_stacks = stacks
+        if method == "fedex":
+            if uniform:
+                new_w0, glob = _uniform_close(specs, scale, w0_leaves,
+                                              stacks, c_max)
+            else:
+                new_w0, glob = _weighted_close(specs, scale, w0_leaves,
+                                               stacks, weights,
+                                               kernels=kernels)
+        elif method == "fedex_svd":
+            new_w0, glob = _svd_close(specs, scale, svd_rank, w0_leaves,
+                                      stacks, weights, kernels=kernels)
+        elif method == "reinit":
+            new_w0 = _reinit_close(specs, scale, w0_leaves, stacks, weights,
+                                   c_max, uniform, kernels=kernels)
+        elif method == "keep_local":
+            new_w0 = _keep_local_close(specs, scale, w0_leaves, stacks,
+                                       weights, c_max, uniform,
+                                       kernels=kernels)
+        else:  # hetero
+            new_w0, glob, div_stacks = _hetero_close(
+                specs, scale, w0_leaves, stacks, weights, mask, c_max,
+                uniform, kernels=kernels)
         if uniform:
-            new_w0, glob = _uniform_close(specs, scale, w0_leaves, stacks,
-                                          c_max)
             u = torch.full((c_max,), 1.0 / c_max, dtype=torch.float32,
                            device=weights.device)
+        elif method == "hetero":
+            # a lane counts iff it delivered weight AND a non-empty rank
+            live = ((mask > 0) & (weights > 0)).float()
+            u = live / torch.clamp(live.sum(), min=1.0)
         else:
-            new_w0, glob = _weighted_close(specs, scale, w0_leaves, stacks,
-                                           weights,
-                                           kernels=backend == "kernels")
             u = mask / torch.clamp(mask.sum(), min=1.0)
-        parts = [_dev_fro_scaled(stacks[s.key + "/a"], stacks[s.key + "/b"],
-                                 u).reshape(-1) for s in specs]
-        div = torch.cat(parts).mean()
-        return new_w0, glob, div
+        parts = [_dev_fro_scaled(div_stacks[s.key + "/a"],
+                                 div_stacks[s.key + "/b"], u).reshape(-1)
+                 for s in specs]
+        return new_w0, glob, torch.cat(parts).mean()
 
     return close
 
@@ -405,26 +719,46 @@ class RoundCloseEngine:
     any device: on CPU tensors the wrappers run the plain versions, which
     lets the CPU tests drive the kernel close's plumbing).
 
-    ``buffers`` is the coordinator's delivery sink; :meth:`close` closes the
-    oldest open round over whatever subset arrived, with any weighting. The
-    C_max padding contract: stacks are always ``(C_max, …)``, a round's
-    candidates get lanes in client-id order, and zero weights mask the rest.
+    ``buffers`` is the coordinator's delivery sink; :meth:`close` (fedex,
+    fedex_svd, reinit), :meth:`close_keep_local` and :meth:`close_hetero`
+    close the oldest open round over whatever subset arrived, with any
+    weighting. The C_max padding contract: stacks are always ``(C_max, …)``,
+    a round's candidates get lanes in client-id order, and zero weights mask
+    the rest. ``client_ranks`` (hetero) holds every client's true adapter
+    rank (index = client id); the lora template is built at the largest,
+    r_max.
     """
 
     def __init__(self, params: Params, lora_template: Params, *,
                  c_max: int, scale: float, method: str = "fedex",
-                 backend: str = "auto", depth: int = 2):
+                 svd_rank: int = 0, backend: str = "auto", depth: int = 2,
+                 client_ranks: Optional[Sequence[int]] = None):
         self.specs = build_factor_specs(params, lora_template)
         self.c_max = c_max
+        if client_ranks is not None:
+            rmax = self.specs[0].a_shape[-1]
+            client_ranks = tuple(int(r) for r in client_ranks)
+            if len(client_ranks) != c_max:
+                raise ValueError(f"client_ranks has {len(client_ranks)} "
+                                 f"entries for c_max={c_max}")
+            bad = [r for r in client_ranks if not 1 <= r <= rmax]
+            if bad:
+                raise ValueError(
+                    f"client_ranks {bad} outside [1, r_max={rmax}] — the "
+                    "lora template must be built at the LARGEST client rank")
+        self.client_ranks = client_ranks
         self.scale = scale
         self.method = method
+        self.svd_rank = svd_rank
         device = _get_path(params, self.specs[0].key)["kernel"].device
         self.device = device
         self.backend = _resolve_backend(backend, device)
         self.buffers = RoundBuffers(lora_template, c_max, depth=depth,
                                     device=device)
+        self._lora_template = lora_template
         self._close = make_close_fn(self.specs, scale=scale, c_max=c_max,
-                                    method=method, backend=self.backend)
+                                    method=method, svd_rank=svd_rank,
+                                    backend=self.backend)
 
     def weight_vector(self, client_ids: Sequence[int],
                       weights: Optional[Sequence[float]],
@@ -443,13 +777,8 @@ class RoundCloseEngine:
                 w[s] = wi
         return w, mask, uniform
 
-    def close(self, params: Params, client_ids: Sequence[int],
-              weights: Optional[Sequence[float]] = None, *, round_id=None
-              ) -> Tuple[Params, Params, DeferredDivergence]:
-        """Close the round over the delivered subset. Returns
-        ``(global_lora, new_params, divergence)``. ``params`` is consumed:
-        on the kernel path its W0 leaves are overwritten with the fold. No
-        host sync happens here; the divergence is a device scalar."""
+    def _open_round(self, client_ids: Sequence[int], round_id):
+        """The oldest open round by default; checks the deliveries."""
         if round_id is None and self.buffers.open_rounds:
             round_id = self.buffers.open_rounds[0]  # oldest — same as take()
         if not client_ids:
@@ -459,16 +788,167 @@ class RoundCloseEngine:
         if missing:
             raise ValueError(f"clients {missing} were never written to the "
                              "round buffers")
+        return round_id
+
+    def _device(self, x: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(x).to(self.device)
+
+    def close(self, params: Params, client_ids: Sequence[int],
+              weights: Optional[Sequence[float]] = None, *, round_id=None,
+              rng: Optional[torch.Generator] = None
+              ) -> Tuple[Params, Params, DeferredDivergence]:
+        """Close the round over the delivered subset (fedex, fedex_svd and
+        reinit; keep_local and hetero close per-client bases through
+        :meth:`close_keep_local` / :meth:`close_hetero`). Returns
+        ``(global_lora, new_params, divergence)``. ``params`` is consumed:
+        on the kernel path its W0 leaves are overwritten with the fold. No
+        host sync happens here; the divergence is a device scalar. reinit
+        needs the round's ``rng`` (a generator on the engine's device) and
+        returns fresh adapters drawn from it as the new global."""
+        if self.method in ("keep_local", "hetero"):
+            raise ValueError(f"the {self.method} engine closes per-client "
+                             f"bases — use close_{self.method}()")
+        if self.method == "reinit" and rng is None:
+            raise ValueError("reinit close needs the round's rng")
+        round_id = self._open_round(client_ids, round_id)
         w, mask, uniform = self.weight_vector(client_ids, weights, round_id)
         w0_leaves = collect_w0_leaves(self.specs, params)
         stacks = self.buffers.take(round_id)
-        new_w0, glob, div = self._close(
-            w0_leaves, stacks, torch.from_numpy(w).to(self.device),
-            torch.from_numpy(mask).to(self.device), uniform=uniform)
+        new_w0, glob, div = self._close(w0_leaves, stacks, self._device(w),
+                                        self._device(mask), uniform=uniform)
         new_params = fold_back_w0(self.specs, params, new_w0)
+        if self.method == "reinit":
+            global_lora = agg.reinit_adapters(self._lora_template, rng)
+        else:
+            global_lora = self._glob_tree(glob)
+        return global_lora, new_params, DeferredDivergence(div, round_id)
+
+    def _glob_tree(self, glob) -> Params:
         flat = {}
         for s in self.specs:
             flat[s.key + "/a"] = glob[s.key]["a"]
             flat[s.key + "/b"] = glob[s.key]["b"]
-        return (unflatten_from_paths(flat), new_params,
-                DeferredDivergence(div, round_id))
+        return unflatten_from_paths(flat)
+
+    def _lane_bases(self, client_params, client_ids, lanes):
+        """key → each lane's W0 leaf: the delivered clients' own bases, None
+        on the other lanes (not produced)."""
+        delivered = set(client_ids)
+        lane_to_cid = {lane: cid for cid, lane in lanes.items()
+                       if cid in delivered}
+        return {s.key: [None if lane not in lane_to_cid else
+                        _get_path(client_params[lane_to_cid[lane]],
+                                  s.key)["kernel"]
+                        for lane in range(self.c_max)]
+                for s in self.specs}
+
+    def close_keep_local(self, client_params: Sequence[Params],
+                         client_ids: Sequence[int],
+                         weights: Optional[Sequence[float]] = None, *,
+                         round_id=None
+                         ) -> Tuple[Dict[int, Params], DeferredDivergence]:
+        """Close a keep_local round: every DELIVERED client's own base gets
+        its residual Σ_j w_j·a_j b_j − a_i b_i folded in, one
+        ``perclient_fold`` per adapted leaf over all lanes. ``client_params``
+        is the trainer's per-client params list (indexed by client id); the
+        delivered clients' bases are consumed (folded in place on the kernel
+        path), so no two clients may share a W0 leaf. Returns
+        ``({client_id: new_params}, divergence)`` for the delivered subset.
+        """
+        if self.method != "keep_local":
+            raise ValueError(f"engine method is {self.method!r}, "
+                             "not keep_local")
+        round_id = self._open_round(client_ids, round_id)
+        w, mask, uniform = self.weight_vector(client_ids, weights, round_id)
+        lanes = self.buffers.lanes(round_id)
+        w0_lanes = self._lane_bases(client_params, client_ids, lanes)
+        stacks = self.buffers.take(round_id)
+        new_lanes, _, div = self._close(w0_lanes, stacks, self._device(w),
+                                        self._device(mask), uniform=uniform)
+        out = {cid: self._writeback_lane(client_params, cid, new_lanes,
+                                         lanes[cid]) for cid in client_ids}
+        return out, DeferredDivergence(div, round_id)
+
+    def close_hetero(self, client_params: Sequence[Params],
+                     client_ids: Sequence[int],
+                     weights: Optional[Sequence[float]] = None, *,
+                     round_id=None
+                     ) -> Tuple[Dict[int, Params], Dict[int, Params], Params,
+                                DeferredDivergence]:
+        """Close a rank-heterogeneous round: ONE shared rank-r_max
+        Eckart–Young truncation of the weighted factored mean (from
+        (C·r_max)² Grams), then every DELIVERED client's own base absorbs
+        ΔW_i = Δ̄ − a'_i b'_i, with (a'_i, b'_i) the leading rank-r_i slice
+        of the shared factors, so W0_i + ΔW_i + a'_i b'_i = W0_i + Δ̄.
+
+        Ranks come from ``client_ranks`` (template r_max when unset); a rank
+        an uplink declared at ``buffers.write`` must agree with it. Bases as
+        :meth:`close_keep_local`. Returns ``({cid: new_params}, {cid: rank-r_i
+        lora}, global_lora, divergence)``; the global is the shared r_max
+        truncation."""
+        if self.method != "hetero":
+            raise ValueError(f"engine method is {self.method!r}, "
+                             "not hetero")
+        round_id = self._open_round(client_ids, round_id)
+        w, _, uniform = self.weight_vector(client_ids, weights, round_id)
+        lanes = self.buffers.lanes(round_id)
+        ranks = self._rank_vector(client_ids, lanes)
+        declared = self.buffers.ranks_in(round_id)
+        for cid in client_ids:
+            lane = lanes[cid]
+            if declared[lane] >= 0 and declared[lane] != ranks[lane]:
+                raise ValueError(
+                    f"client {cid} uplinked rank {declared[lane]}, "
+                    f"registered rank {ranks[lane]}")
+        rmax = self.specs[0].a_shape[-1]
+        # the operator-composition branch also needs every lane at r_max
+        uniform = uniform and bool(np.all(ranks == rmax))
+        w0_lanes = self._lane_bases(client_params, client_ids, lanes)
+        stacks = self.buffers.take(round_id)
+        new_lanes, glob, div = self._close(w0_lanes, stacks, self._device(w),
+                                           self._device(ranks),
+                                           uniform=uniform)
+        out = {cid: self._writeback_lane(client_params, cid, new_lanes,
+                                         lanes[cid]) for cid in client_ids}
+        global_lora = self._glob_tree(glob)
+        client_loras = self._hetero_loras(glob, client_ids, ranks, lanes)
+        return out, client_loras, global_lora, DeferredDivergence(div,
+                                                                  round_id)
+
+    # -- hetero helpers --------------------------------------------------
+    def _client_rank(self, cid: int) -> int:
+        """Client ``cid``'s true adapter rank (template r_max when no
+        per-client ranks were registered)."""
+        if self.client_ranks is None:
+            return self.specs[0].a_shape[-1]
+        return int(self.client_ranks[cid])
+
+    def _rank_vector(self, client_ids, lanes) -> np.ndarray:
+        """(C_max,) int32 slot-indexed rank vector for the delivered set: 0
+        on non-delivered lanes (fully masked), the true rank on delivered
+        ones. Rides in the close's ``mask`` slot."""
+        ranks = np.zeros(self.c_max, np.int32)
+        for cid in client_ids:
+            ranks[lanes[cid]] = self._client_rank(cid)
+        return ranks
+
+    def _writeback_lane(self, client_params, cid, new_lanes, lane) -> Params:
+        """Client ``cid``'s params with lane ``lane`` of the per-lane W0
+        results folded back in (spine copy)."""
+        return fold_back_w0(self.specs, client_params[cid],
+                            {s.key: new_lanes[s.key][lane]
+                             for s in self.specs})
+
+    def _hetero_loras(self, glob, client_ids, ranks, lanes
+                      ) -> Dict[int, Params]:
+        """Per-client rank-r_i adapters: the LEADING slices of the shared
+        r_max truncation factors."""
+        out: Dict[int, Params] = {}
+        for cid in client_ids:
+            r_i = int(ranks[lanes[cid]])
+            flat = {}
+            for s in self.specs:
+                flat[s.key + "/a"] = glob[s.key]["a"][..., :, :r_i]
+                flat[s.key + "/b"] = glob[s.key]["b"][..., :r_i, :]
+            out[cid] = unflatten_from_paths(flat)
+        return out

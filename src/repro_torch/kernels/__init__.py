@@ -5,6 +5,13 @@
   kernel ``fedex_residual_apply``.
 * :func:`factor_mean` (``factor_mean.py``, ``csrc/factor_mean.cu``) — the
   weighted client mean of stacked factors; replaces ``lora_factor_mean``.
+* :func:`product_fold` (``csrc/product_fold.cu``) — W0 + scale·Σ s_c a_c b_c
+  with signed s (reinit, fedex_svd); replaces ``product_fold_apply``.
+* :func:`perclient_fold` (``csrc/perclient_fold.cu``) — every delivered
+  lane's own W0_c + scale·(Σ w_j a_j b_j − a_c b_c) (keep_local); replaces
+  ``perclient_fold_apply``.
+* :func:`hetero_fold` (``csrc/hetero_fold.cu``) — the rank-masked per-lane
+  fold of the hetero close; replaces ``hetero_fold_apply``.
 
 Each wrapper launches its kernel for CUDA tensors (and counts the launch in
 its ``launches`` attribute) and takes the plain version only for CPU
@@ -13,7 +20,31 @@ tensors. The kernels build with ``nvcc`` on first use (``build.py``).
 
 from repro_torch.kernels.factor_mean import factor_mean, factor_mean_plain
 from repro_torch.kernels.fedex_residual import (fedex_fold, fedex_fold_plain,
-                                                fold_error_bound)
+                                                fold_error_bound, hetero_error_bound,
+                                                hetero_fold, hetero_fold_plain,
+                                                perclient_error_bound,
+                                                perclient_fold,
+                                                perclient_fold_plain,
+                                                product_error_bound,
+                                                product_fold, product_fold_plain)
 
-__all__ = ["factor_mean", "factor_mean_plain", "fedex_fold",
-           "fedex_fold_plain", "fold_error_bound"]
+KERNELS = (fedex_fold, factor_mean, product_fold, perclient_fold, hetero_fold)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel wrapper's launch counter to 0."""
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """Kernel name → launches since the last reset."""
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+__all__ = ["KERNELS", "factor_mean", "factor_mean_plain", "fedex_fold",
+           "fedex_fold_plain", "fold_error_bound", "hetero_error_bound",
+           "hetero_fold", "hetero_fold_plain", "launch_counts",
+           "perclient_error_bound", "perclient_fold", "perclient_fold_plain",
+           "product_error_bound", "product_fold", "product_fold_plain",
+           "reset_launch_counts"]

@@ -1,12 +1,14 @@
-"""Build and load the port's CUDA kernels (nvcc → one shared library → ctypes).
+"""Build and load the port's CUDA kernels (nvcc → shared libraries → ctypes).
 
-All ``csrc/*.cu`` sources compile with one ``nvcc`` call into
-``build/kernels/librepro_torch_kernels-<hash>.so`` under the checkout root,
-on first use, and load with ``ctypes``. The hash covers the sources and the
-flags, so an edited source never loads a stale library. The sources expose a
-plain C interface (no PyTorch headers), which keeps the build to seconds.
-Nothing here runs at import time: the CPU tests import every module on a
-machine without ``nvcc``.
+Each ``csrc/<name>.cu`` compiles on first use, with its own ``nvcc``
+process (all started together), into
+``build/kernels/lib<name>-<hash>.so`` under the checkout root, and exports
+``<name>_launch``; the libraries load with ``ctypes``. The hash covers the
+source, the shared ``csrc/*.cuh`` headers and the flags, so an edited source
+never loads a stale library. The sources expose a plain C interface (no
+PyTorch headers), which keeps each build to seconds. Nothing here runs at
+import time: the CPU tests import every module on a machine without
+``nvcc``.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
+from typing import List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -27,10 +31,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _VP, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+# <name>_launch lives in csrc/<name>.cu
 SIGNATURES = {
     "factor_mean_launch": (_VP, _VP, _VP, _I, _I64, _I64, _VP),
     "fedex_fold_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                           _I64, _I64, _I64, _I64, _F, _VP),
+    "product_fold_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                            _I64, _I64, _I64, _I64, _F, _VP),
+    "perclient_fold_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                              _I64, _I64, _I64, _I64, _F, _VP),
+    "hetero_fold_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
+                           _I, _I, _I, _I64, _I64, _I64, _I64, _I64, _I64,
+                           _F, _VP),
 }
 
 
@@ -45,50 +57,64 @@ def _nvcc() -> str:
                        "kernels build on a machine with the CUDA toolkit")
 
 
-def library_path() -> Path:
-    sources = sorted(CSRC.glob("*.cu"))
+def library_path(source: Path) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"librepro_torch_kernels-{h.hexdigest()[:12]}.so"
+    for f in [source, *sorted(CSRC.glob("*.cuh"))]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{source.stem}-{h.hexdigest()[:12]}.so"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the library if it is not built yet; returns its path."""
-    lib = library_path()
-    if lib.exists():
-        return lib
+def build(verbose: bool = False) -> List[Path]:
+    """Compile every library that is not built yet, one ``nvcc`` per
+    source, all in parallel; returns the libraries' paths."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    sources = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    # build into a private temp name, then rename: a concurrent or cut-off
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *sources]
+    libs = [library_path(src) for src in sorted(CSRC.glob("*.cu"))]
+    jobs = []
+    for src, lib in zip(sorted(CSRC.glob("*.cu")), libs):
+        if lib.exists():
+            continue
+        # build into a private temp name, then rename: a concurrent or cut-off
+        # build never leaves a half-written library under the final name
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, str(src)]
+        jobs.append((cmd, tmp, lib, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
-                           f"\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(f"nvcc: {time.perf_counter() - t0:.1f} s\n{proc.stderr}",
-              flush=True)
-    os.replace(tmp, lib)
-    return lib
+    errors = []
+    for cmd, tmp, lib, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
+                          f"\n{out}\n{err}")
+            continue
+        if verbose:
+            print(f"nvcc {lib.name}:\n{err}", flush=True)
+        os.replace(tmp, lib)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    if verbose and jobs:
+        print(f"nvcc: {len(jobs)} sources in parallel, "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return libs
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library once per process."""
-    lib = ctypes.CDLL(str(build()))
+def load_library() -> SimpleNamespace:
+    """Build (if needed) and load the kernel libraries once per process;
+    returns a namespace of the ``<name>_launch`` functions."""
+    libs = {lib.name.split("-")[0][3:]: ctypes.CDLL(str(lib))
+            for lib in build()}
+    fns = {}
     for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
+        fn = getattr(libs[name[:-len("_launch")]], name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
-    return lib
+        fns[name] = fn
+    return SimpleNamespace(**fns)
 
 
 def check_launch(name: str, code: int) -> None:

@@ -1,17 +1,23 @@
 """Federated fine-tuning launcher of the port (host mode).
 
 Counterpart of ``repro/launch/train.py --mode host`` for what the port runs:
-FedEx-LoRA rounds (method ``fedex``, assignment ``average``) with
-participation sampling, ``--min-quorum`` and ``--weighting``. Runs on CUDA
-unless ``--device cpu`` is given.
+the engine closes — ``--method fedex`` with ``--assignment average``,
+``keep_local`` or ``reinit``, ``--method fedex_svd --svd-rank r'`` and
+``--method hetero`` / ``--client-ranks`` — with participation sampling,
+``--min-quorum`` and ``--weighting``. Runs on CUDA unless ``--device cpu``
+is given.
 
 ``--data-vocab`` draws the synthetic corpus from a smaller vocabulary than
 the model's (its transition tensor is dense vocab², ~526 GB at 128,256);
 the model keeps its full embedding and unembedding.
 
-Example (CPU, tiny model):
+Examples (CPU, tiny model):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch paper-tiny --clients 3 --rounds 3 --local-steps 5 --vocab 64
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --vocab 64 --assignment keep_local
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --vocab 64 --method hetero --client-ranks 4,2,1
 """
 
 from __future__ import annotations
@@ -63,12 +69,22 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu must be asked for)")
     ap.add_argument("--arch", default="paper-tiny")
-    ap.add_argument("--method", default="fedex", choices=("fedex",))
-    ap.add_argument("--assignment", default="average", choices=("average",))
+    ap.add_argument("--method", default="fedex",
+                    choices=("fedex", "fedex_svd", "hetero"))
+    ap.add_argument("--assignment", default="average",
+                    choices=("average", "keep_local", "reinit"),
+                    help="fedex: what clients start the next round from "
+                         "(Table 5)")
     ap.add_argument("--clients", type=int, default=3)
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--local-steps", type=int, default=10)
     ap.add_argument("--rank", type=int, default=4)
+    ap.add_argument("--svd-rank", type=int, default=0,
+                    help="fedex_svd: truncation rank r' (0 = exact)")
+    ap.add_argument("--client-ranks", default="",
+                    help="comma-separated per-client ranks, e.g. 4,2,1 — "
+                         "non-empty (or --method hetero) runs the ragged-rank "
+                         "close; adapters pad to --rank = r_max")
     ap.add_argument("--alpha", type=float, default=8.0, help="LoRA alpha")
     ap.add_argument("--lr", type=float, default=5e-3)
     ap.add_argument("--seq-len", type=int, default=64)
@@ -100,7 +116,9 @@ def main(argv=None) -> None:
                           include_mlp=args.include_mlp)
     fed_cfg = FedConfig(num_clients=args.clients, rounds=args.rounds,
                         local_steps=args.local_steps, method=args.method,
-                        assignment=args.assignment,
+                        assignment=args.assignment, svd_rank=args.svd_rank,
+                        client_ranks=tuple(int(x) for x in
+                                           args.client_ranks.split(",") if x),
                         dirichlet_alpha=args.dirichlet_alpha, seed=args.seed,
                         participation=args.participation,
                         min_quorum=args.min_quorum, weighting=args.weighting,

@@ -122,3 +122,164 @@ def test_launch_counters_and_refusals(cuda):
     with pytest.raises(TypeError):
         factor_mean(a.double(), None)
     assert (fedex_fold.launches, factor_mean.launches) == (f0 + 1, m0 + 1)
+
+
+# --------------------------------------------------------------------------
+# product_fold, perclient_fold, hetero_fold
+#
+# Tolerances: each kernel sums the same lanes in the same order as its plain
+# version but contracts its rank-k dot products into FMAs in another order
+# than torch.matmul, so it is held to its error bound (product_error_bound,
+# perclient_error_bound, hetero_error_bound: 2·(C + r + 4) unit roundoffs of
+# the magnitudes each element carries).
+# --------------------------------------------------------------------------
+
+from repro_torch.kernels import (hetero_error_bound, hetero_fold,  # noqa: E402
+                                 hetero_fold_plain, perclient_error_bound,
+                                 perclient_fold, perclient_fold_plain,
+                                 product_error_bound, product_fold,
+                                 product_fold_plain)
+
+LANE_CASES = [
+    # (C, L, m, n, r, zero-weight lanes)
+    (4, 3, 256, 384, 4, ()),
+    (3, 2, 1000, 777, 4, ()),        # tile-indivisible m and n
+    (1, 2, 64, 128, 8, ()),          # one lane (the svd fold at r' = 8)
+    (8, 2, 96, 200, 4, (0, 2, 5, 7, 3)),  # 3 live lanes of 8
+    (4, 2, 128, 256, 16, ()),
+    (3, 0, 70, 130, 64, ()),         # 2-D w0, > 48 KB shared memory
+]
+
+
+def _within(got, want, bound):
+    return bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("case", LANE_CASES, ids=str)
+def test_product_fold_matches_plain(cuda, case):
+    c, layers, m, n, r, zero = case
+    w0, a, b, w = _inputs(cuda, c, layers, m, n, r, zero_lanes=zero)
+    s = w.clone()
+    s[0] = -s[0]  # signed
+    got = product_fold(w0, a, b, s, 2.0)
+    torch.cuda.synchronize()
+    want = product_fold_plain(w0, a, b, s, 2.0)
+    assert _within(got, want, product_error_bound(w0, a, b, s, 2.0))
+
+
+def _lanes(w0, c, produced):
+    return [w0 + 0.001 * i if i in produced else None for i in range(c)]
+
+
+@pytest.mark.parametrize("case", LANE_CASES, ids=str)
+def test_perclient_fold_matches_plain(cuda, case):
+    c, layers, m, n, r, zero = case
+    w0, a, b, w = _inputs(cuda, c, layers, m, n, r, zero_lanes=zero)
+    produced = [i for i in range(c) if i not in zero] or [0]
+    lanes = _lanes(w0, c, produced)
+    got = perclient_fold(lanes, a, b, w, 2.0)
+    torch.cuda.synchronize()
+    want = perclient_fold_plain(lanes, a, b, w, 2.0)
+    bound = perclient_error_bound(lanes, a, b, w, 2.0)
+    for i in range(c):
+        assert (got[i] is None) == (i not in produced)
+        if got[i] is not None:
+            assert _within(got[i], want[i], bound[i]), i
+
+
+@pytest.mark.parametrize("case", LANE_CASES, ids=str)
+def test_hetero_fold_matches_plain(cuda, case):
+    c, layers, m, n, r, zero = case
+    w0, a, b, w = _inputs(cuda, c, layers, m, n, r, zero_lanes=zero)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    ranks = torch.randint(1, r + 1, (c,), generator=g, dtype=torch.int32)
+    ranks[0] = -1
+    if c > 2:
+        ranks[1] = 0
+    ranks = ranks.to(cuda)
+    lead = (layers,) if layers else ()
+    oa = torch.randn(*lead, m, r, generator=g).to(cuda) * 0.02
+    ob = torch.randn(*lead, r, n, generator=g).to(cuda) * 0.01
+    produced = list(range(c))
+    lanes = _lanes(w0, c, produced)
+    got = hetero_fold(lanes, a, b, w, ranks, oa, ob, 2.0)
+    torch.cuda.synchronize()
+    want = hetero_fold_plain(lanes, a, b, w, ranks, oa, ob, 2.0)
+    bound = hetero_error_bound(lanes, a, b, w, ranks, oa, ob, 2.0)
+    for i in produced:
+        assert _within(got[i], want[i], bound[i]), i
+
+
+def test_masked_lanes_and_columns_are_never_read(cuda):
+    """NaN and Inf in zero-weight lanes, in rank-0 lanes and in rank columns
+    past a lane's rank change no result, bit for bit."""
+    c, r = 4, 8
+    w0, a, b, w = _inputs(cuda, c, 2, 96, 200, r, zero_lanes=(1,))
+    ranks = torch.tensor([3, 8, -1, 0], dtype=torch.int32, device=cuda)
+    oa = torch.randn(2, 96, r, device=cuda) * 0.02
+    ob = torch.randn(2, r, 200, device=cuda) * 0.01
+    lanes = [w0, None, w0 + 1.0, w0 - 1.0]
+    clean = (product_fold(w0, a, b, w, 2.0),
+             perclient_fold(lanes, a, b, w, 2.0),
+             hetero_fold(lanes, a, b, w, ranks, oa, ob, 2.0))
+    a[1] = float("nan")             # lane 1 has weight 0
+    b[1] = float("inf")
+    dirty = [product_fold(w0, a, b, w, 2.0),
+             perclient_fold(lanes, a, b, w, 2.0)]
+    a[0, ..., 3:] = float("nan")    # lane 0 has rank 3
+    b[0, :, 3:, :] = float("inf")
+    a[3] = float("nan")             # lane 3 has rank 0
+    b[3] = float("nan")
+    dirty.append(hetero_fold(lanes, a, b, w, ranks, oa, ob, 2.0))
+    torch.cuda.synchronize()
+    assert torch.equal(dirty[0], clean[0])
+    for got_lanes, want_lanes in zip(dirty[1:], clean[1:]):
+        for got, want in zip(got_lanes, want_lanes):
+            assert (got is None) == (want is None)
+            if got is not None:
+                assert torch.equal(got, want)
+
+
+def test_perclient_and_hetero_fold_in_place_into_lane_pointers(cuda):
+    """Each delivered lane folds into its own, separately allocated W0; a
+    lane not produced is left untouched; overlapping outputs are refused."""
+    c = 3
+    w0, a, b, w = _inputs(cuda, c, 2, 64, 256, 4, zero_lanes=(2,))
+    bases = [w0.clone() + i for i in range(c)]
+    keep = bases[2].clone()
+    lanes = [bases[0], bases[1], None]
+    want = perclient_fold_plain(lanes, a, b, w, 2.0)
+    bound = perclient_error_bound(lanes, a, b, w, 2.0)
+    out = perclient_fold(lanes, a, b, w, 2.0, out=lanes)
+    torch.cuda.synchronize()
+    assert out[0] is bases[0] and out[1] is bases[1] and out[2] is None
+    for i in (0, 1):
+        assert _within(bases[i], want[i], bound[i])
+    assert torch.equal(bases[2], keep)
+    ranks = torch.tensor([2, -1, 0], dtype=torch.int32, device=cuda)
+    oa, ob = a[0].clone(), b[0].clone()
+    lanes = [bases[0], bases[1], None]
+    want = hetero_fold_plain(lanes, a, b, w, ranks, oa, ob, 2.0)
+    bound = hetero_error_bound(lanes, a, b, w, ranks, oa, ob, 2.0)
+    hetero_fold(lanes, a, b, w, ranks, oa, ob, 2.0, out=lanes)
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        assert _within(bases[i], want[i], bound[i])
+    shared = [bases[0], bases[0], None]
+    with pytest.raises(ValueError, match="overlaps"):
+        perclient_fold(shared, a, b, w, 2.0, out=shared)
+
+
+def test_new_kernel_counters_count_launches_only(cuda):
+    w0, a, b, w = _inputs(cuda, 2, 2, 32, 128, 4)
+    ranks = torch.tensor([4, 2], dtype=torch.int32, device=cuda)
+    before = (product_fold.launches, perclient_fold.launches,
+              hetero_fold.launches)
+    product_fold(w0, a, b, w, 1.0)
+    perclient_fold([w0, w0], a, b, w, 1.0)
+    hetero_fold([w0, None], a, b, w, ranks, a[0], b[0], 1.0)
+    product_fold_plain(w0, a, b, w, 1.0)
+    assert (product_fold.launches, perclient_fold.launches,
+            hetero_fold.launches) == tuple(x + 1 for x in before)
+    with pytest.raises(ValueError):
+        hetero_fold([w0, None], a, b, w, ranks.long(), a[0], b[0], 1.0)

@@ -208,10 +208,15 @@ def test_round_buffers_ring():
 
 
 def test_unported_methods_raise():
+    """Every engine method is ported; what is not an engine method (the
+    eager fedit), fedex_svd without a truncation rank, and the reference's
+    Pallas backend name are refused."""
     params, clients = _problem(2)
     tp = params_from_numpy(params, CPU)
     tl = params_from_numpy(clients[0], CPU)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
+        make_close_fn([], scale=1.0, c_max=2, method="fedit")
+    with pytest.raises(ValueError):
         make_close_fn([], scale=1.0, c_max=2, method="fedex_svd")
     with pytest.raises(ValueError):
         RoundCloseEngine(tp, tl, c_max=2, scale=1.0, backend="pallas")
