@@ -19,7 +19,9 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    before each repetition) beside its plain version, its bound on the card
    and, where one PyTorch call computes the same function,
    ``torch.tensordot`` (``factor_mean``) or ``torch.baddbmm``
-   (``product_fold``);
+   (``product_fold``, ``perclient_fold``, ``hetero_fold``: each produced
+   lane one batch over its concatenated factors), which must agree with the
+   kernel within twice its error bound;
 4. main paths: the port's ``FederatedTrainer`` at ``paper-llama3.2-3b``
    full width (28 layers, d 3072, GQA 24/8, vocab 128,256, float32), LoRA
    rank 4, α 8 on q/k/v/o, 4 clients, batch 8 × seq 64 on a 512-token data
@@ -28,9 +30,11 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    * fedex: one uniform full-participation round, then two rounds with
      example weighting at 50% participation (``fedex_fold`` 4 and
      ``factor_mean`` 8 per weighted close);
-   * reinit, keep_local and fedex_svd (r' = 8): two rounds each at 50%
-     participation with example weighting (``product_fold`` 4; ``
-     perclient_fold`` 4; ``product_fold`` 4 and ``factor_mean`` 8 per close);
+   * reinit and keep_local: two rounds each at 50% participation with
+     example weighting (``product_fold`` 4; ``perclient_fold`` 4 per close);
+   * fedex_svd (r' = 8): two rounds of all 4 clients with example weighting,
+     so the residual's rank (up to 12) exceeds r' (``product_fold`` 4 and
+     ``factor_mean`` 8 per close);
    * hetero with client ranks (4, 2, 1, 3): two rounds (``hetero_fold`` 4
      per close).
    The last round of each path is checked against its exactness identity
@@ -44,7 +48,8 @@ Identities, per adapted leaf, on the last round of each path:
 * hetero, each lane i: new_W0ᵢ + s·a′ᵢb′ᵢ = old_W0ᵢ + s·Σ_j w_j (a_j∘mask_j) b_j;
 * fedex_svd: on layer 0 of ``k_proj``, new_W0 − old_W0 equals s times the
   rank-r' truncation of the residual from a dense float64
-  ``torch.linalg.svd``, and has rank ≤ r'.
+  ``torch.linalg.svd``, and has rank ≤ r'; the part the cut drops exceeds
+  10 × the check's tolerance.
 
 Tolerances. ``factor_mean`` rounds each product and sum like separate
 PyTorch ops, in the same slot order, so it must match its plain version
@@ -382,6 +387,63 @@ def lane_cost(leaves, kind, c_live, k_live, k_out, r):
     return nbytes, flops
 
 
+def lane_timing_buffers(torch, kernels, device, kind, c, L, m, n, r, live,
+                        ranks, k_live, scale, seed):
+    """One leaf's inputs for timing a per-lane fold: its kernel call (into
+    ``out``), plain version and error bound as closures, and the inputs of
+    one ``torch.baddbmm`` that computes the same function. For perclient
+    and hetero the produced lanes' W0 and outputs are views of one
+    (C_out, L, m, n) stack each, so that call needs no copy: lane c's batch
+    is W0_c + s·[w_0 a_0 | … | −a_c] [b_0; …; b_c], each lane's factors cut
+    to its rank k_j, the own term (A′ for hetero) zero-padded to r."""
+    w0, a, b, w = make_inputs(torch, device, c, (L,), m, n, r, live, seed)
+    wa = [w[j] * a[j][..., :k] for j, k in zip(live, k_live)]
+    bs = [b[j][..., :k, :] for j, k in zip(live, k_live)]
+    if kind == "product":
+        out = torch.empty_like(w0)
+        return {"kernel": lambda out: kernels.product_fold(w0, a, b, w, scale,
+                                                           out=out),
+                "plain": lambda: kernels.product_fold_plain(w0, a, b, w,
+                                                            scale),
+                "bound": lambda: kernels.product_error_bound(w0, a, b, w,
+                                                             scale),
+                "out": out,
+                "library": (w0, torch.cat(wa, dim=-1), torch.cat(bs, dim=-2),
+                            out)}
+    offsets = torch.tensor([0.001 * j for j in live], device=device)
+    stack = w0 + offsets.view(-1, 1, 1, 1)
+    ostack = torch.empty_like(stack)
+    del w0
+    lanes, outs = [None] * c, [None] * c
+    for p, j in enumerate(live):
+        lanes[j], outs[j] = stack[p], ostack[p]
+    if kind == "perclient":
+        args = (lanes, a, b, w)
+        fold, plain, err_bound = (kernels.perclient_fold,
+                                  kernels.perclient_fold_plain,
+                                  kernels.perclient_error_bound)
+        own = [(-a[j], b[j]) for j in live]
+    else:
+        rk = torch.tensor(ranks, dtype=torch.int32, device=device)
+        oa, ob = a[0].clone(), b[0].clone()
+        args = (lanes, a, b, w, rk, oa, ob)
+        fold, plain, err_bound = (kernels.hetero_fold,
+                                  kernels.hetero_fold_plain,
+                                  kernels.hetero_error_bound)
+        own = [(torch.nn.functional.pad(-oa[..., :k], (0, r - k)), ob)
+               for k in k_live]
+    ac = torch.stack([torch.cat(wa + [x], dim=-1) for x, _ in own])
+    bc = torch.stack([torch.cat(bs + [y], dim=-2) for _, y in own])
+    return {"kernel": lambda out: fold(*args, scale, out=out),
+            "plain": lambda: plain(*args, scale),
+            "bound": lambda: torch.stack([
+                x for x in err_bound(*args, scale) if x is not None
+            ]).view(-1, m, n),
+            "out": outs,
+            "library": (stack.view(-1, m, n), ac.view(-1, m, ac.shape[-1]),
+                        bc.view(-1, bc.shape[-2], n), ostack.view(-1, m, n))}
+
+
 def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
     """The three per-lane folds at the main path's leaf shapes (checked per
     leaf, then timed over one close's 4 leaves) and at edge cases."""
@@ -411,55 +473,36 @@ def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
                                      "plain version")
             torch.cuda.empty_cache()
         # timing over one close's leaves
-        bufs = []
-        for i, (_, L, m, n) in enumerate(leaves):
-            w0, a, b, w = make_inputs(torch, device, c_b, (L,), m, n, r_b,
-                                      live, seed=20 + i)
-            lanes = ([w0 + 0.001 * j if j in live else None
-                      for j in range(c_b)] if kind != "product" else None)
-            outs = ([None if x is None else torch.empty_like(x)
-                     for x in lanes] if lanes else torch.empty_like(w0))
-            extra = ()
-            if kind == "hetero":
-                extra = (torch.tensor(ranks, dtype=torch.int32,
-                                      device=device),
-                         a[0].clone(), b[0].clone())
-            bufs.append((w0, a, b, w, lanes, outs, extra))
-
-        def run_kernel():
-            for w0, a, b, w, lanes, outs, extra in bufs:
-                if kind == "product":
-                    kernels.product_fold(w0, a, b, w, scale, out=outs)
-                elif kind == "perclient":
-                    kernels.perclient_fold(lanes, a, b, w, scale, out=outs)
-                else:
-                    kernels.hetero_fold(lanes, a, b, w, *extra, scale,
-                                        out=outs)
-
-        def run_plain():
-            for w0, a, b, w, lanes, outs, extra in bufs:
-                if kind == "product":
-                    kernels.product_fold_plain(w0, a, b, w, scale)
-                elif kind == "perclient":
-                    kernels.perclient_fold_plain(lanes, a, b, w, scale)
-                else:
-                    kernels.hetero_fold_plain(lanes, a, b, w, *extra, scale)
-
-        lib_ms = None
-        if kind == "product":
-            # one PyTorch call for the same function: W0 + s·[σ_c a_c] [b_c]
-            cats = [(w0, torch.cat([w[j] * a[j] for j in live], dim=-1),
-                     torch.cat([b[j] for j in live], dim=-2), outs)
-                    for w0, a, b, w, _, outs, _ in bufs]
-
-            def run_library():
-                for w0, ac, bc, out in cats:
-                    torch.baddbmm(w0, ac, bc, alpha=scale, out=out)
-
-            lib_ms = timer(run_library)
-            del cats
         k_live = [r_b if ranks is None else (r_b if ranks[j] < 0 else ranks[j])
                   for j in live]
+        bufs = [lane_timing_buffers(torch, kernels, device, kind, c_b, L, m,
+                                    n, r_b, live, ranks, k_live, scale,
+                                    seed=20 + i)
+                for i, (_, L, m, n) in enumerate(leaves)]
+
+        def run_kernel(sel=bufs):
+            for buf in sel:
+                buf["kernel"](out=buf["out"])
+
+        def run_plain():
+            for buf in bufs:
+                buf["plain"]()
+
+        def run_library():
+            for buf in bufs:
+                inp, ac, bc, out = buf["library"]
+                torch.baddbmm(inp, ac, bc, alpha=scale, out=out)
+
+        lib_ms = timer(run_library)
+        # the library call's result against the kernel's, on the first leaf
+        inp, ac, bc, out = bufs[0]["library"]
+        lib_out = torch.baddbmm(inp, ac, bc, alpha=scale)
+        run_kernel(bufs[:1])
+        lib_err = float((lib_out - out).abs().max())
+        if not bool(((lib_out - out).abs() <= 2 * bufs[0]["bound"]()).all()):
+            raise AssertionError(f"{body}: the library call disagrees with "
+                                 "the kernel")
+        del lib_out
         k_out = [] if kind == "product" else k_live
         t = (timer(run_kernel), timer(run_plain), lib_ms,
              bound_ms(*lane_cost(leaves, kind, len(live), k_live, k_out,
@@ -467,8 +510,8 @@ def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
         timings[body] = t
         ms, plain, lib, (bms, by) = t
         print(f"  time {body} one close (4 leaves, live {live}): kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, library "
-              f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms "
+              f"(baddbmm, max |library − kernel| {lib_err:.3e}), bound "
               f"{bms:.4f} ms ({by})", flush=True)
         del bufs
         torch.cuda.empty_cache()
@@ -504,8 +547,10 @@ PATHS = {
                 "weighting": "examples"}, 2, {"product_fold": 1}),
     "keep_local": ({"assignment": "keep_local", "participation": 0.5,
                     "weighting": "examples"}, 2, {"perclient_fold": 1}),
+    # all 4 clients: the residual has rank up to 3r = 12, so r' = 8 cuts it
+    # (at 2 clients it has rank ≤ r = 4 and the cut would change nothing)
     "fedex_svd": ({"method": "fedex_svd", "svd_rank": 8,
-                   "participation": 0.5, "weighting": "examples"}, 2,
+                   "weighting": "examples"}, 2,
                   {"product_fold": 1, "factor_mean": 2}),
     "hetero": ({"method": "hetero", "client_ranks": (4, 2, 1, 3)}, 2,
                {"hetero_fold": 1}),
@@ -713,7 +758,9 @@ def identity_hetero(torch, trainer, outcome, old, keys):
 
 def identity_svd(torch, trainer, outcome, old, keys):
     """On layer 0 of k_proj: new_W0 − old_W0 = s·(rank-r' truncation of the
-    residual by a dense float64 SVD), and has rank ≤ r'."""
+    residual by a dense float64 SVD), and has rank ≤ r'. The part of the
+    residual the cut drops, s·‖σ_{r'+1…}‖, must exceed 10 × the tolerance:
+    otherwise the check could not tell the truncation from no cut at all."""
     s, rp = trainer.scale, trainer.engine.svd_rank
     key = next(k for k in keys if k.endswith("k_proj"))
     a, b = _stacks(torch, outcome, key)
@@ -731,14 +778,22 @@ def identity_svd(torch, trainer, outcome, old, keys):
     tol = floor + 1e-4 * float(torch.linalg.norm(trunc))
     err = float(torch.linalg.norm(d - trunc))
     tail = float(torch.linalg.svdvals(d)[rp])
+    cut = s * float(torch.linalg.norm(sv[rp:]))
     ok = err <= tol and tail <= tol
     print(f"  [fedex_svd] identity {key} layer 0: ||ΔW0 − s·T_r'(res)||_F = "
           f"{err:.3e}, σ_{rp + 1}(ΔW0) = {tail:.3e}, tolerance {tol:.3e} "
           f"(rounding floor {floor:.3e}), ||s·T|| = "
-          f"{float(torch.linalg.norm(trunc)):.3e}; within={ok}", flush=True)
+          f"{float(torch.linalg.norm(trunc)):.3e}; the cut drops s·σ_{rp + 1}"
+          f"(res) = {s * float(sv[rp]):.3e}, s·||σ_{rp + 1}..(res)|| = "
+          f"{cut:.3e} (residual rank {int((sv > sv[0] * 1e-6).sum())}); "
+          f"within={ok}", flush=True)
     if not ok:
         raise AssertionError("fedex_svd: the fold is not the rank-r' "
                              "truncation of the residual")
+    if cut <= 10 * tol:
+        raise AssertionError(f"fedex_svd: the rank-{rp} cut drops only "
+                             f"{cut:.3e} of the residual, not above 10 × the "
+                             f"tolerance {tol:.3e}: the check cannot see it")
     return err
 
 

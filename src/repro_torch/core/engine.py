@@ -500,9 +500,9 @@ def _svd_close(specs, scale, svd_rank, w0_leaves, stacks, w, *,
         b = stacks[s.key + "/b"]
         ap, bp = factored_truncated_residual(a, b, w, svd_rank)
         w0 = w0_leaves[s.key]
+        one = torch.ones(1, dtype=torch.float32, device=w.device)
         if kernels:
             glob[s.key] = {"a": factor_mean(a, w), "b": factor_mean(b, w)}
-            one = torch.ones(1, dtype=torch.float32, device=w.device)
             new_w0[s.key] = _fold_leaf(
                 lambda x, out: product_fold(x, ap.unsqueeze(0),
                                             bp.unsqueeze(0), one, scale,
@@ -510,8 +510,9 @@ def _svd_close(specs, scale, svd_rank, w0_leaves, stacks, w, *,
         else:
             glob[s.key] = {"a": factor_mean_plain(a, w),
                            "b": factor_mean_plain(b, w)}
-            new_w0[s.key] = (w0.float() + scale * torch.matmul(ap, bp)
-                             ).to(s.w0_dtype)
+            new_w0[s.key] = product_fold_plain(
+                w0, ap.unsqueeze(0), bp.unsqueeze(0), one, scale
+            ).to(s.w0_dtype)
     return new_w0, glob
 
 
@@ -600,24 +601,19 @@ def _hetero_close(specs, scale, w0_lanes, stacks, w, ranks, c_max, uniform,
             L = torch.cat([w[i] * am[i] for i in range(c_max)], dim=-1)
         R = torch.cat([bm[i] for i in range(c_max)], dim=-2)
         ap, bp = factored_truncated_product(L, R, r)
-        if kernels and not uniform:
+        if uniform:
+            ideal, own = L @ R, ap @ bp
+            new_w0[s.key] = [None if w0 is None else
+                             (w0.float() + scale * (ideal - own)
+                              ).to(s.w0_dtype) for w0 in lanes]
+        elif kernels:
             new_w0[s.key] = _fold_lanes(
                 lambda xs, out: hetero_fold(xs, a, b, w, ranks, ap, bp, scale,
                                             out=out), lanes, s.w0_dtype)
         else:
-            ideal = L @ R
-            if uniform:
-                own_full = ap @ bp
-                owns = [own_full] * c_max
-            else:
-                mask = _rank_mask(ranks, r)
-                owns = [None if lanes[c] is None else
-                        torch.where(mask[c], ap, 0.0) @ bp
-                        for c in range(c_max)]
-            new_w0[s.key] = [None if w0 is None else
-                             (w0.float() + scale * (ideal - owns[c])
-                              ).to(s.w0_dtype)
-                             for c, w0 in enumerate(lanes)]
+            new_w0[s.key] = [None if x is None else x.to(s.w0_dtype) for x in
+                             hetero_fold_plain(lanes, a, b, w, ranks, ap, bp,
+                                               scale)]
         glob[s.key] = {"a": ap, "b": bp}
         masked[s.key + "/a"] = am
         masked[s.key + "/b"] = bm

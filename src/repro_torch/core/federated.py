@@ -147,7 +147,8 @@ class FederatedTrainer:
     device: Any = "cuda"
     params: Optional[Dict] = None
     global_lora: Optional[Dict] = None
-    # hetero: each client's initial rank-rᵢ adapters (default: own draws)
+    # hetero: each client's initial rank-rᵢ adapters (default: own draws).
+    # It exists for the parity tests, which hand it the reference's draws.
     client_loras: Optional[List[Dict]] = None
 
     def __post_init__(self):
