@@ -11,17 +11,20 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
 2. build: one ``nvcc`` per kernel source, all in parallel, into
    ``build/kernels/``;
 3. kernels: ``fedex_fold`` (both bodies), ``factor_mean`` (both bodies),
-   ``product_fold``, ``perclient_fold`` and ``hetero_fold`` against their
-   plain PyTorch versions at the main path's leaf shapes and at edge cases
-   (odd m, n; one lane at rank 8; 3 live lanes of 8; rank 16; hetero ranks
-   −1, 0 and ragged; masked lanes and rank columns filled with NaN), each
-   timed with CUDA events (median of 20 after warm-up, the 50 MB L2 flushed
-   before each repetition) beside its plain version, its bound on the card
-   and, where one PyTorch call computes the same function,
-   ``torch.tensordot`` (``factor_mean``) or ``torch.baddbmm``
-   (``product_fold``, ``perclient_fold``, ``hetero_fold``: each produced
-   lane one batch over its concatenated factors), which must agree with the
-   kernel within twice its error bound;
+   ``product_fold``, ``perclient_fold``, ``hetero_fold`` and
+   ``product_accum`` against their plain PyTorch versions at the main
+   path's leaf shapes and at edge cases (odd m, n; one lane at rank 8; 3
+   live lanes of 8; rank 16; hetero ranks −1, 0 and ragged; a trailing
+   chunk with 2 of 4 rows written; masked lanes, unwritten rows and rank
+   columns filled with NaN), each timed with CUDA events (median of 20
+   after warm-up, the 50 MB L2 flushed before each repetition) beside its
+   plain version, its bound on the card and one PyTorch call that computes
+   the same function: ``torch.tensordot`` (``factor_mean``), or
+   ``torch.baddbmm`` over concatenated factors (``fedex_fold``, given ā and
+   b̄: W0 + s·[w_0 a_0 | … | −ā] [b_0; …; b̄]; ``product_fold``; each produced
+   lane one batch for ``perclient_fold`` and ``hetero_fold``;
+   ``acc.baddbmm_`` in place for ``product_accum``), which must agree with
+   the kernel within twice its error bound;
 4. main paths: the port's ``FederatedTrainer`` at ``paper-llama3.2-3b``
    full width (28 layers, d 3072, GQA 24/8, vocab 128,256, float32), LoRA
    rank 4, α 8 on q/k/v/o, 4 clients, batch 8 × seq 64 on a 512-token data
@@ -36,9 +39,21 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
      so the residual's rank (up to 12) exceeds r' (``product_fold`` 4 and
      ``factor_mean`` 8 per close);
    * hetero with client ranks (4, 2, 1, 3): two rounds (``hetero_fold`` 4
-     per close).
+     per close);
+   * the chunked streaming closes (``close_chunk=4``, 6 clients, every
+     client each round, example weights, 3 local steps so that the first
+     round's A factors differ between clients): fedex (two rounds), then
+     reinit,
+     keep_local, fedex_svd (r' = 8; the residual has rank up to 20) and
+     hetero (ranks 4, 2, 1, 3, 4, 2), one round each. Chunk 0 (slots 0–3)
+     and chunk 1 (slots 4 and 5, 2 of its 4 rows written) each fold at
+     ingest once their uplinks are in: ``factor_mean`` 16 and
+     ``product_accum`` 8 per round (fedex_svd: ``product_accum`` 0), no
+     stacked fold kernel. Each fold is timed (eager at ingest, or flushed
+     in the close).
    The last round of each path is checked against its exactness identity
-   on the card (below), and every path's peak memory is printed;
+   (below), and every path's peak memory is printed, the stacked and the
+   chunked path of each method side by side;
 5. one JSON line with every ported kernel, then the result line.
 
 Identities, per adapted leaf, on the last round of each path:
@@ -48,8 +63,11 @@ Identities, per adapted leaf, on the last round of each path:
 * hetero, each lane i: new_W0ᵢ + s·a′ᵢb′ᵢ = old_W0ᵢ + s·Σ_j w_j (a_j∘mask_j) b_j;
 * fedex_svd: on layer 0 of ``k_proj``, new_W0 − old_W0 equals s times the
   rank-r' truncation of the residual from a dense float64
-  ``torch.linalg.svd``, and has rank ≤ r'; the part the cut drops exceeds
-  10 × the check's tolerance.
+  ``torch.linalg.svd`` on the host, and has rank ≤ r'; the part the cut
+  drops exceeds 10 × the check's tolerance;
+* the chunked paths: the same identities against a float64 computation on
+  the host from the round's uplinks and normalised raw weights
+  (``identity_host``).
 
 Tolerances. ``factor_mean`` rounds each product and sum like separate
 PyTorch ops, in the same slot order, so it must match its plain version
@@ -60,7 +78,8 @@ rank-r dot products are FMA-contracted in another order than
 ``product_error_bound``, ``perclient_error_bound``,
 ``hetero_error_bound``): 2·(C + r + 4) unit roundoffs of the magnitudes
 each element carries, e.g. |W0| + |s|·(Σ|w||a||b| + |ā||b̄|) for the fedex
-fold. The identities are held to the same bounds. The fedex_svd check is
+fold. The identities are held to the same bounds (``product_accum``'s is
+``product_error_bound`` with acc as W0). The fedex_svd check is
 held to the f32 rounding of W0 (2 unit roundoffs of |old W0| + |new W0|,
 in Frobenius norm) plus 1e-4 of the fold's norm: the factored truncation
 squares the Grams and keeps about half of the f32 digits.
@@ -231,44 +250,71 @@ def kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
                                          "disagrees with its plain version")
             print(f"  factor_mean[{body}] {name} a/b: bitwise={same}",
                   flush=True)
-            bufs.append((w0, a, b, wts, torch.empty_like(w0)))
+            # B1's function as one library call, given ā and b̄:
+            # W0 + s·[w_0 a_0 | … | −ā] [b_0; …; b̄]
+            wl = (wts if wts is not None
+                  else torch.full((c,), 1.0 / c, device=device))
+            abar = kernels.factor_mean_plain(a, wl)
+            bbar = kernels.factor_mean_plain(b, wl)
+            lib_a = torch.cat([wl[j] * a[j] for j in live] + [-abar], dim=-1)
+            lib_b = torch.cat([b[j] for j in live] + [bbar], dim=-2)
+            bufs.append((w0, a, b, wts, torch.empty_like(w0), lib_a, lib_b))
+            del abar, bbar
+
+        # the library call's result against the kernel's, on the first leaf
+        w0, a, b, wts, out, lib_a, lib_b = bufs[0]
+        lib_out = torch.baddbmm(w0, lib_a, lib_b, alpha=scale)
+        kernels.fedex_fold(w0, a, b, scale, weights=wts, out=out)
+        lib_diff = (lib_out - out).abs()
+        if not bool((lib_diff <= 2 * kernels.fold_error_bound(
+                w0, a, b, scale, wts)).all()):
+            raise AssertionError(f"fedex_fold[{body}]: the library call "
+                                 "disagrees with the kernel")
+        print(f"  fedex_fold[{body}] baddbmm vs kernel: max diff "
+              f"{float(lib_diff.max()):.3e}", flush=True)
+        del lib_out, lib_diff
+
+        def fold_library():
+            for w0, _, _, _, out, lib_a, lib_b in bufs:
+                torch.baddbmm(w0, lib_a, lib_b, alpha=scale, out=out)
 
         def fold_kernel():
-            for w0, a, b, wts, out in bufs:
+            for w0, a, b, wts, out, _, _ in bufs:
                 kernels.fedex_fold(w0, a, b, scale, weights=wts, out=out)
 
         def fold_plain():
-            for w0, a, b, wts, _ in bufs:
+            for w0, a, b, wts, *_ in bufs:
                 kernels.fedex_fold_plain(w0, a, b, scale, wts)
 
         def mean_kernel():
-            for _, a, b, wts, _ in bufs:
+            for _, a, b, wts, *_ in bufs:
                 kernels.factor_mean(a, wts)
                 kernels.factor_mean(b, wts)
 
         def mean_plain():
-            for _, a, b, wts, _ in bufs:
+            for _, a, b, wts, *_ in bufs:
                 kernels.factor_mean_plain(a, wts)
                 kernels.factor_mean_plain(b, wts)
 
         def mean_library():
-            for _, a, b, wts, _ in bufs:
+            for _, a, b, wts, *_ in bufs:
                 wl = (wts if wts is not None
                       else torch.full((c,), 1.0 / c, device=device))
                 torch.tensordot(wl, a, dims=1)
                 torch.tensordot(wl, b, dims=1)
 
         c_live = len(live)
-        t = {"fedex_fold": (timer(fold_kernel), timer(fold_plain), None,
+        t = {"fedex_fold": (timer(fold_kernel), timer(fold_plain),
+                            timer(fold_library),
                             bound_ms(*fold_cost(leaves, c_live, r))),
              "factor_mean": (timer(mean_kernel), timer(mean_plain),
                              timer(mean_library),
                              bound_ms(*mean_cost(leaves, c_live, r)))}
         for name, (ms, plain, lib, (bms, by)) in t.items():
             print(f"  time {name}[{body}] one close (4 leaves): kernel "
-                  f"{ms:.4f} ms, plain {plain:.4f} ms, library "
-                  f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound "
-                  f"{bms:.4f} ms ({by})", flush=True)
+                  f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms "
+                  f"({'baddbmm' if name == 'fedex_fold' else 'tensordot'}), "
+                  f"bound {bms:.4f} ms ({by})", flush=True)
         timings[body] = t
         del bufs
         torch.cuda.empty_cache()
@@ -323,12 +369,28 @@ def hetero_ranks(c, r, live):
     return ranks
 
 
+def raw_weights(torch, device, c, live):
+    """The chunk's raw ingest weights: example counts 40, 65, 90, … on the
+    live lanes (written rows), 0 elsewhere."""
+    s = torch.zeros(c, device=device)
+    for j in live:
+        s[j] = 40.0 + 25.0 * j
+    return s
+
+
 def lane_case(torch, kernels, device, kind, c, lead, m, n, r, live, ranks,
               scale, seed):
     """One kernel call against its plain version; returns (max err, ok)."""
     w0, a, b, w = make_inputs(torch, device, c, lead, m, n, r, live, seed)
     poison(torch, a, b, live, ranks if kind == "hetero" else None)
-    if kind == "product":
+    if kind == "accum":  # w0 plays the accumulator, s the raw ingest weights
+        s = raw_weights(torch, device, c, live)
+        acc = w0.clone()
+        got = [kernels.product_accum(acc, a, b, s, 1.0)]
+        torch.cuda.synchronize()
+        want = [kernels.product_accum_plain(w0, a, b, s, 1.0)]
+        bound = [kernels.product_accum_error_bound(w0, a, b, s, 1.0)]
+    elif kind == "product":
         s = w.clone()
         s[live[0]] = -s[live[0]]  # signed
         got = [kernels.product_fold(w0, a, b, s, scale)]
@@ -375,7 +437,7 @@ def lane_cost(leaves, kind, c_live, k_live, k_out, r):
     nbytes = flops = 0
     for _, L, m, n in leaves:
         mn, fac = L * m * n, L * (m + n)
-        if kind == "product":
+        if kind in ("product", "accum"):
             nbytes += 8 * mn + 4 * fac * sum(k_live)
             flops += mn * (sum(2 * k + 2 for k in k_live) + 2)
         else:
@@ -389,27 +451,50 @@ def lane_cost(leaves, kind, c_live, k_live, k_out, r):
 
 def lane_timing_buffers(torch, kernels, device, kind, c, L, m, n, r, live,
                         ranks, k_live, scale, seed):
-    """One leaf's inputs for timing a per-lane fold: its kernel call (into
-    ``out``), plain version and error bound as closures, and the inputs of
-    one ``torch.baddbmm`` that computes the same function. For perclient
-    and hetero the produced lanes' W0 and outputs are views of one
-    (C_out, L, m, n) stack each, so that call needs no copy: lane c's batch
-    is W0_c + s·[w_0 a_0 | … | −a_c] [b_0; …; b_c], each lane's factors cut
-    to its rank k_j, the own term (A′ for hetero) zero-padded to r."""
+    """One leaf's inputs for timing a per-lane fold, as closures: ``kernel``
+    (into preallocated outputs), ``plain``, ``library`` (one
+    ``torch.baddbmm`` that computes the same function) and ``check``, which
+    returns (library result, kernel result, the fold's error bound) from
+    fresh calls. For perclient and hetero the produced lanes' W0 and outputs
+    are views of one (C_out, L, m, n) stack each, so the library call needs
+    no copy: lane c's batch is W0_c + s·[w_0 a_0 | … | −a_c] [b_0; …; b_c],
+    each lane's factors cut to its rank k_j, the own term (A′ for hetero)
+    zero-padded to r. For accum (``product_accum``) the kernel and the
+    library call each accumulate into their own copy of acc, in place:
+    acc.baddbmm_([s_0 a_0 | …], [b_0; …]) with s the raw ingest weights."""
     w0, a, b, w = make_inputs(torch, device, c, (L,), m, n, r, live, seed)
+    if kind == "accum":
+        w = raw_weights(torch, device, c, live)
     wa = [w[j] * a[j][..., :k] for j, k in zip(live, k_live)]
     bs = [b[j][..., :k, :] for j, k in zip(live, k_live)]
+    ac, bc = torch.cat(wa, dim=-1), torch.cat(bs, dim=-2)
+    if kind == "accum":
+        acc, acc_lib = w0.clone(), w0.clone()
+
+        def check():
+            x = kernels.product_accum(w0.clone(), a, b, w, 1.0)
+            return (w0.clone().baddbmm_(ac, bc), x,
+                    kernels.product_accum_error_bound(w0, a, b, w, 1.0))
+
+        return {"kernel": lambda: kernels.product_accum(acc, a, b, w, 1.0),
+                "plain": lambda: kernels.product_accum_plain(w0, a, b, w,
+                                                             1.0),
+                "library": lambda: acc_lib.baddbmm_(ac, bc), "check": check}
     if kind == "product":
         out = torch.empty_like(w0)
-        return {"kernel": lambda out: kernels.product_fold(w0, a, b, w, scale,
-                                                           out=out),
+
+        def check():
+            lib = torch.baddbmm(w0, ac, bc, alpha=scale)
+            kernels.product_fold(w0, a, b, w, scale, out=out)
+            return lib, out, kernels.product_error_bound(w0, a, b, w, scale)
+
+        return {"kernel": lambda: kernels.product_fold(w0, a, b, w, scale,
+                                                       out=out),
                 "plain": lambda: kernels.product_fold_plain(w0, a, b, w,
                                                             scale),
-                "bound": lambda: kernels.product_error_bound(w0, a, b, w,
-                                                             scale),
-                "out": out,
-                "library": (w0, torch.cat(wa, dim=-1), torch.cat(bs, dim=-2),
-                            out)}
+                "library": lambda: torch.baddbmm(w0, ac, bc, alpha=scale,
+                                                 out=out),
+                "check": check}
     offsets = torch.tensor([0.001 * j for j in live], device=device)
     stack = w0 + offsets.view(-1, 1, 1, 1)
     ostack = torch.empty_like(stack)
@@ -432,16 +517,23 @@ def lane_timing_buffers(torch, kernels, device, kind, c, L, m, n, r, live,
                                   kernels.hetero_error_bound)
         own = [(torch.nn.functional.pad(-oa[..., :k], (0, r - k)), ob)
                for k in k_live]
-    ac = torch.stack([torch.cat(wa + [x], dim=-1) for x, _ in own])
-    bc = torch.stack([torch.cat(bs + [y], dim=-2) for _, y in own])
-    return {"kernel": lambda out: fold(*args, scale, out=out),
+    acs = torch.stack([torch.cat(wa + [x], dim=-1) for x, _ in own])
+    bcs = torch.stack([torch.cat(bs + [y], dim=-2) for _, y in own])
+    inp, ao = stack.view(-1, m, n), ostack.view(-1, m, n)
+    acs, bcs = acs.view(-1, m, acs.shape[-1]), bcs.view(-1, bcs.shape[-2], n)
+
+    def check():
+        lib = torch.baddbmm(inp, acs, bcs, alpha=scale)
+        fold(*args, scale, out=outs)
+        bound = torch.stack([x for x in err_bound(*args, scale)
+                             if x is not None]).view(-1, m, n)
+        return lib, ao, bound
+
+    return {"kernel": lambda: fold(*args, scale, out=outs),
             "plain": lambda: plain(*args, scale),
-            "bound": lambda: torch.stack([
-                x for x in err_bound(*args, scale) if x is not None
-            ]).view(-1, m, n),
-            "out": outs,
-            "library": (stack.view(-1, m, n), ac.view(-1, m, ac.shape[-1]),
-                        bc.view(-1, bc.shape[-2], n), ostack.view(-1, m, n))}
+            "library": lambda: torch.baddbmm(inp, acs, bcs, alpha=scale,
+                                             out=ao),
+            "check": check}
 
 
 def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
@@ -449,15 +541,18 @@ def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
     leaf, then timed over one close's 4 leaves) and at edge cases."""
     timer = Timer(torch, device)
     leaves = main_path_leaves(cfg)
-    errs = {"product_fold": 0.0, "perclient_fold": 0.0, "hetero_fold": 0.0}
+    errs = {"product_fold": 0.0, "perclient_fold": 0.0, "hetero_fold": 0.0,
+            "product_accum": 0.0}
     timings = {}
     # the main paths' bodies: reinit and keep_local at 2 live lanes of 4,
-    # the svd fold (one lane at r' = 8), hetero at ranks (4, 2, 1, 3)
+    # the svd fold (one lane at r' = 8), hetero at ranks (4, 2, 1, 3), and
+    # the chunked closes' partial fold of a full chunk of 4 uplinks
     bodies = {
         "product_fold": ("product", 4, r, (0, 1), None),
         "product_fold[svd]": ("product", 1, 8, (0,), None),
         "perclient_fold": ("perclient", 4, r, (0, 1), None),
         "hetero_fold": ("hetero", 4, r, (0, 1, 2, 3), [4, 2, 1, 3]),
+        "product_accum": ("accum", 4, r, (0, 1, 2, 3), None),
     }
     for body, (kind, c_b, r_b, live, ranks) in bodies.items():
         name = body.split("[")[0]
@@ -480,31 +575,22 @@ def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
                                     seed=20 + i)
                 for i, (_, L, m, n) in enumerate(leaves)]
 
-        def run_kernel(sel=bufs):
-            for buf in sel:
-                buf["kernel"](out=buf["out"])
+        def run(part):
+            def fn():
+                for buf in bufs:
+                    buf[part]()
+            return fn
 
-        def run_plain():
-            for buf in bufs:
-                buf["plain"]()
-
-        def run_library():
-            for buf in bufs:
-                inp, ac, bc, out = buf["library"]
-                torch.baddbmm(inp, ac, bc, alpha=scale, out=out)
-
-        lib_ms = timer(run_library)
+        lib_ms = timer(run("library"))
         # the library call's result against the kernel's, on the first leaf
-        inp, ac, bc, out = bufs[0]["library"]
-        lib_out = torch.baddbmm(inp, ac, bc, alpha=scale)
-        run_kernel(bufs[:1])
-        lib_err = float((lib_out - out).abs().max())
-        if not bool(((lib_out - out).abs() <= 2 * bufs[0]["bound"]()).all()):
+        lib_out, kern_out, bound = bufs[0]["check"]()
+        lib_err = float((lib_out - kern_out).abs().max())
+        if not bool(((lib_out - kern_out).abs() <= 2 * bound).all()):
             raise AssertionError(f"{body}: the library call disagrees with "
                                  "the kernel")
-        del lib_out
-        k_out = [] if kind == "product" else k_live
-        t = (timer(run_kernel), timer(run_plain), lib_ms,
+        del lib_out, kern_out, bound
+        k_out = [] if kind in ("product", "accum") else k_live
+        t = (timer(run("kernel")), timer(run("plain")), lib_ms,
              bound_ms(*lane_cost(leaves, kind, len(live), k_live, k_out,
                                  r_b)))
         timings[body] = t
@@ -533,6 +619,20 @@ def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
             if not ok:
                 raise AssertionError(f"edge case {kind}_fold C={c_e} m={m} "
                                      f"n={n} r={r_e} disagrees")
+    # product_accum: odd m, n; rank 16; a trailing chunk with 2 of its 4
+    # rows written (NaN in the other two); one lane
+    for c_e, L, m, n, r_e, live in [(4, 2, 1000, 777, 4, (0, 1, 2, 3)),
+                                    (4, 2, 256, 384, 16, (0, 1, 2, 3)),
+                                    (4, 2, 384, 256, 4, (0, 1)),
+                                    (1, 2, 512, 640, 4, (0,))]:
+        err, ok = lane_case(torch, kernels, device, "accum", c_e, (L,), m, n,
+                            r_e, live, None, scale, seed=99)
+        errs["product_accum"] = max(errs["product_accum"], err)
+        print(f"  edge product_accum C={c_e} L={L} m={m} n={n} r={r_e} "
+              f"written={live}: err {err:.3e} ok={ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"edge case product_accum C={c_e} m={m} "
+                                 f"n={n} r={r_e} disagrees")
     return errs, timings
 
 
@@ -540,29 +640,51 @@ def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
 # phase 4: the main paths
 # --------------------------------------------------------------------------
 
-# name → (FedConfig fields, rounds, {kernel: launches per close per leaf})
+# name → (FedConfig fields, rounds, clients, local steps,
+#          {kernel: launches per close per leaf})
+CHUNKED = {"close_chunk": 4, "weighting": "examples"}
+# a chunked round of 6 clients folds 2 chunks: per leaf 2 factor_mean (a, b)
+# and 1 product_accum each
+CHUNK_FOLDS = {"factor_mean": 4, "product_accum": 2}
 PATHS = {
-    "fedex": ({}, 3, {"fedex_fold": 1, "factor_mean": 2}),
+    "fedex": ({}, 3, 4, 2, {"fedex_fold": 1, "factor_mean": 2}),
     "reinit": ({"assignment": "reinit", "participation": 0.5,
-                "weighting": "examples"}, 2, {"product_fold": 1}),
+                "weighting": "examples"}, 2, 4, 2, {"product_fold": 1}),
     "keep_local": ({"assignment": "keep_local", "participation": 0.5,
-                    "weighting": "examples"}, 2, {"perclient_fold": 1}),
+                    "weighting": "examples"}, 2, 4, 2, {"perclient_fold": 1}),
     # all 4 clients: the residual has rank up to 3r = 12, so r' = 8 cuts it
     # (at 2 clients it has rank ≤ r = 4 and the cut would change nothing)
     "fedex_svd": ({"method": "fedex_svd", "svd_rank": 8,
-                   "weighting": "examples"}, 2,
+                   "weighting": "examples"}, 2, 4, 2,
                   {"product_fold": 1, "factor_mean": 2}),
-    "hetero": ({"method": "hetero", "client_ranks": (4, 2, 1, 3)}, 2,
+    "hetero": ({"method": "hetero", "client_ranks": (4, 2, 1, 3)}, 2, 4, 2,
                {"hetero_fold": 1}),
+    # the chunked streaming closes: 6 clients, chunks of 4 (the second
+    # holds slots 4 and 5, 2 of its 4 rows written), example weights. 3
+    # local steps: the schedule's step 0 has lr 0 and b starts at 0, so in a
+    # path's first round the A factors move only from step 2 on, and with 2
+    # steps every client would uplink the same A (a zero residual)
+    "fedex[chunked]": (CHUNKED, 2, 6, 3, CHUNK_FOLDS),
+    "reinit[chunked]": ({"assignment": "reinit", **CHUNKED}, 1, 6, 3,
+                        CHUNK_FOLDS),
+    "keep_local[chunked]": ({"assignment": "keep_local", **CHUNKED}, 1, 6, 3,
+                            CHUNK_FOLDS),
+    # 6 clients: the residual has rank up to 5r = 20, so r' = 8 cuts it
+    "fedex_svd[chunked]": ({"method": "fedex_svd", "svd_rank": 8,
+                            **CHUNKED}, 1, 6, 3, {"factor_mean": 4}),
+    "hetero[chunked]": ({"method": "hetero", "client_ranks": (4, 2, 1, 3, 4,
+                                                              2),
+                         "close_chunk": 4}, 1, 6, 3, CHUNK_FOLDS),
 }
 
 
-def drive_path(torch, device, cfg, name, *, clients=4, local_steps=2,
-               batch=8, seq=64, data_vocab=512):
+def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
     """Drive one path of the port's FederatedTrainer at full width; the
     fedex path's round 0 is uniform over every client, its later rounds
-    weighted at 50% participation. Returns (trainer, per-round rows,
-    number of kernel closes, identity check's worst error)."""
+    weighted at 50% participation. A chunked path times each chunk fold
+    (eager during ingest, or a flush inside the close). Returns (trainer,
+    per-round rows, number of kernel closes, identity check's worst
+    error)."""
     from repro_torch.configs import FedConfig, LoRAConfig, TrainConfig
     from repro_torch.core import FederatedTrainer
     from repro_torch.fedsrv import RoundPolicy
@@ -570,7 +692,7 @@ def drive_path(torch, device, cfg, name, *, clients=4, local_steps=2,
     from repro_torch.models import build_model
     from repro_torch.util.tree import count_params
 
-    fed_kw, rounds, _ = PATHS[name]
+    fed_kw, rounds, clients, local_steps, _ = PATHS[name]
     t0 = time.perf_counter()
     loaders, evals = build_federated_data(data_vocab, clients, seq_len=seq,
                                           batch_size=batch, device=device)
@@ -601,8 +723,31 @@ def drive_path(torch, device, cfg, name, *, clients=4, local_steps=2,
 
     trainer.local_step = timed(trainer.local_step, step_ms)
     eng = trainer.engine
+    fold_ms, in_close = [], [False]  # (ms, folded inside the close?)
+
+    def flagged(fn):
+        def wrapper(*args, **kw):
+            in_close[0] = True
+            try:
+                return fn(*args, **kw)
+            finally:
+                in_close[0] = False
+        return wrapper
+
     for fn in ("close", "close_keep_local", "close_hetero"):
-        setattr(eng, fn, timed(getattr(eng, fn), close_ms))
+        setattr(eng, fn, timed(flagged(getattr(eng, fn)), close_ms))
+    if eng.chunk:
+        fold = eng.buffers.on_chunk
+
+        def timed_fold(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fold(*args)
+            torch.cuda.synchronize()
+            fold_ms.append(((time.perf_counter() - t) * 1e3, in_close[0]))
+            return out
+
+        eng.buffers.on_chunk = timed_fold
     trainer._evaluate = timed(trainer._evaluate, eval_ms)
     keys = [s.key for s in eng.specs]
     rows, identity, kernel_closes = [], None, 0
@@ -615,11 +760,13 @@ def drive_path(torch, device, cfg, name, *, clients=4, local_steps=2,
             bases = trainer.client_params or [trainer.params]
             old = [{k: _node(p, k)["kernel"].clone() for k in keys}
                    for p in bases]
-        n_steps, n_close = len(step_ms), len(close_ms)
+        n_steps, n_close, n_fold = len(step_ms), len(close_ms), len(fold_ms)
         t = time.perf_counter()
         rec = trainer.run(until=rnd + 1)[rnd]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
+        # the path's peak before any identity check's own temporaries
+        run_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         out = trainer.outcomes[-1]
         uniform = name == "fedex" and out.weights is None
         kernel_closes += not uniform
@@ -628,10 +775,20 @@ def drive_path(torch, device, cfg, name, *, clients=4, local_steps=2,
             "weights": out.weights,
             "step_ms": statistics.median(step_ms[n_steps:]),
             "close_ms": close_ms[n_close:][0], "eval_ms": eval_ms[-1],
-            "round_s": wall, "eval_loss": rec.eval_loss,
+            "round_s": wall, "run_peak_gib": run_peak,
+            "eval_loss": rec.eval_loss,
             "divergence": float(rec.divergence_scaled),
             "client_losses": rec.client_losses})
         r = rows[-1]
+        if eng.chunk:
+            folds = fold_ms[n_fold:]
+            r["eager_fold_ms"] = [ms for ms, closing in folds if not closing]
+            r["flush_fold_ms"] = [ms for ms, closing in folds if closing]
+            eager = ", ".join(f"{x:.2f}" for x in r["eager_fold_ms"])
+            flush = ", ".join(f"{x:.2f}" for x in r["flush_fold_ms"])
+            print(f"  [{name}] round {rnd} chunk folds: eager (at ingest) "
+                  f"{eager or 'none'} ms; flushed in the close "
+                  f"{flush or 'none'} ms", flush=True)
         print(f"  [{name}] round {rnd} [{'uniform' if uniform else 'kernel'}"
               f" close, clients={out.client_ids}]: client step "
               f"{r['step_ms']:.1f} ms (median of {len(step_ms) - n_steps}), "
@@ -639,7 +796,10 @@ def drive_path(torch, device, cfg, name, *, clients=4, local_steps=2,
               f"round {wall:.2f} s, eval_loss {rec.eval_loss:.4f}, "
               f"divergence {r['divergence']:.3e}", flush=True)
         if old is not None:
+            t = time.perf_counter()
             identity = IDENTITIES[name](torch, trainer, out, old, keys)
+            print(f"  [{name}] identity check {time.perf_counter() - t:.1f} s",
+                  flush=True)
             del old
     return trainer, rows, kernel_closes, identity
 
@@ -756,6 +916,93 @@ def identity_hetero(torch, trainer, outcome, old, keys):
     return worst
 
 
+def identity_host(torch, trainer, outcome, old, keys):
+    """A chunked round against a float64 computation on the host from the
+    round's uplinks and the normalised raw ingest weights ŵ (example counts,
+    or 1 each), per adapted leaf:
+    * fedex: new_W0 + s·ā b̄ = old_W0 + s·Σ ŵ_c a_c b_c;
+    * reinit: new_W0 = old_W0 + s·Σ ŵ_c a_c b_c;
+    * keep_local, each delivered i: new_W0ᵢ + s·aᵢbᵢ = old_W0ᵢ + s·Σ ŵ a b;
+    * hetero, each i: new_W0ᵢ + s·a′ᵢb′ᵢ = old_W0ᵢ + s·Σ ŵ a b (the uplinks
+      are zero-padded past each rank, so Σ ŵ a b is the masked sum).
+    Held to 2·(C + r + 4) unit roundoffs of M = |old_W0| + |s|·(Σ ŵ |a| |b|
+    + |the subtracted product|), the bound of the stacked folds: the f32
+    close passes each term through at most C + r + 6 roundings. Computed
+    one stacked layer at a time in preallocated float64 buffers, the
+    product terms as one matmul each: (new − old) + s·[a′ | −ŵ_0 a_0 | …]
+    [b′; b_0; …] and |old| + |s|·[|a′| | ŵ_0 |a_0| | …] [|b′|; |b_0|; …]."""
+    method, s = trainer.engine.method, trainer.scale
+    cpu, f64 = torch.device("cpu"), torch.float64
+
+    def host(x):
+        return x.to(cpu, f64)
+
+    raw = [float(d.client.num_examples) if outcome.weights else 1.0
+           for d in outcome.delivered]
+    w = torch.tensor(raw, dtype=f64)
+    w = w / w.sum()
+    ids = outcome.client_ids
+    k = 2 * (len(ids) + trainer.lora_cfg.rank + 4) * U
+    worst = 0.0
+    for key in keys:
+        a, b = (host(x) for x in _stacks(torch, outcome, key))
+        wa = torch.cat([w[j] * a[j] for j in range(len(ids))], dim=-1)
+        bb = torch.cat(list(b), dim=-2)
+        if method in ("fedex", "reinit"):
+            own = None
+            if method == "fedex":
+                g = _node(trainer.global_lora, key)
+                own = (host(g["a"]), host(g["b"]))
+            lanes = [(key, old[0][key], _node(trainer.params, key)["kernel"],
+                      own)]
+        else:
+            lanes = []
+            for j, c in enumerate(ids):
+                if method == "hetero":
+                    mine = _node(trainer._client_lora[c], key)
+                    own = (host(mine["a"]), host(mine["b"]))
+                else:
+                    own = (a[j], b[j])
+                lanes.append((f"{key} client {c}", old[c][key],
+                              _node(trainer.client_params[c], key)["kernel"],
+                              own))
+        m, n = a.shape[-2], b.shape[-1]
+        stage = torch.empty((m, n), pin_memory=torch.cuda.is_available())
+        diff, prod, bound = (torch.empty((m, n), dtype=f64) for _ in range(3))
+        for label, w0_old, w0_new, own in lanes:
+            la = wa if own is None else torch.cat([own[0], -wa], dim=-1)
+            rb = bb if own is None else torch.cat([own[1], bb], dim=-2)
+            la_abs, rb_abs = la.abs(), rb.abs()
+            if own is None:
+                la = -la
+            err_max = bound_max = folded = 0.0
+            ok = True
+            for l in range(a.shape[1]):
+                stage.copy_(w0_new[l])
+                diff.copy_(stage)
+                stage.copy_(w0_old[l])
+                bound.copy_(stage)
+                diff.sub_(bound)                      # new − old
+                folded = max(folded, float(diff.max()), -float(diff.min()))
+                bound.abs_()                          # |old|
+                torch.matmul(la[l], rb[l], out=prod)  # own − Σ ŵ a b
+                diff.add_(prod, alpha=s).abs_()       # |lhs − rhs|
+                torch.matmul(la_abs[l], rb_abs[l], out=prod)
+                bound.add_(prod, alpha=abs(s)).mul_(k)
+                err_max = max(err_max, float(diff.max()))
+                bound_max = max(bound_max, float(bound.max()))
+                ok = ok and bool(diff.le_(bound).all())
+            print(f"  [{method}[chunked]] identity {label} (float64, host): "
+                  f"max |lhs - rhs| = {err_max:.3e}, max bound "
+                  f"{bound_max:.3e}, within bound={ok}; max |update folded "
+                  f"into W0| = {folded:.3e}", flush=True)
+            if not ok:
+                raise AssertionError(f"{method}[chunked]: exactness identity "
+                                     f"fails on {label}")
+            worst = max(worst, err_max)
+    return worst
+
+
 def identity_svd(torch, trainer, outcome, old, keys):
     """On layer 0 of k_proj: new_W0 − old_W0 = s·(rank-r' truncation of the
     residual by a dense float64 SVD), and has rank ≤ r'. The part of the
@@ -763,16 +1010,17 @@ def identity_svd(torch, trainer, outcome, old, keys):
     otherwise the check could not tell the truncation from no cut at all."""
     s, rp = trainer.scale, trainer.engine.svd_rank
     key = next(k for k in keys if k.endswith("k_proj"))
+    cpu = torch.device("cpu")
     a, b = _stacks(torch, outcome, key)
-    a, b = a[:, 0].double(), b[:, 0].double()
-    w = _weights(torch, trainer, outcome).double()
+    a, b = a[:, 0].to(cpu, torch.float64), b[:, 0].to(cpu, torch.float64)
+    w = _weights(torch, trainer, outcome).to(cpu, torch.float64)
     abar = torch.einsum("c,cmr->mr", w, a)
     bbar = torch.einsum("c,crn->rn", w, b)
     res = torch.einsum("c,cmr,crn->mn", w, a, b) - abar @ bbar
     u, sv, vh = torch.linalg.svd(res, full_matrices=False)
     trunc = s * (u[:, :rp] * sv[:rp]) @ vh[:rp]
-    w0_old = old[0][key][0].double()
-    w0_new = _node(trainer.params, key)["kernel"][0].double()
+    w0_old = old[0][key][0].to(cpu, torch.float64)
+    w0_new = _node(trainer.params, key)["kernel"][0].to(cpu, torch.float64)
     d = w0_new - w0_old
     floor = float(torch.linalg.norm(2 * U * (w0_old.abs() + w0_new.abs())))
     tol = floor + 1e-4 * float(torch.linalg.norm(trunc))
@@ -799,7 +1047,10 @@ def identity_svd(torch, trainer, outcome, old, keys):
 
 IDENTITIES = {"fedex": identity_fedex, "reinit": identity_reinit,
               "keep_local": identity_keep_local, "hetero": identity_hetero,
-              "fedex_svd": identity_svd}
+              "fedex_svd": identity_svd,
+              **{f"{m}[chunked]": identity_host
+                 for m in ("fedex", "reinit", "keep_local", "hetero")},
+              "fedex_svd[chunked]": identity_svd}
 
 
 def _node(tree, key):
@@ -821,6 +1072,8 @@ SOURCES = {  # kernel → (CUDA source, the TPU kernel it replaces)
                        "src/repro/kernels/fedex_residual.py:277"),
     "hetero_fold": ("src/repro_torch/kernels/csrc/hetero_fold.cu",
                     "src/repro/kernels/fedex_residual.py:349"),
+    "product_accum": ("src/repro_torch/kernels/csrc/product_fold.cu",
+                      "src/repro/kernels/fedex_residual.py:215"),
 }
 
 
@@ -874,8 +1127,8 @@ def main() -> int:
           f"({cfg.num_layers} layers, d={cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype})", flush=True)
     launches = {name: 0 for name in SOURCES}
-    all_rows, identities = [], {}
-    for name, (_, _, per_leaf) in PATHS.items():
+    all_rows, identities, peaks = [], {}, {}
+    for name, (*_, per_leaf) in PATHS.items():
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         trainer, rows, closes, identity = drive_path(torch, device, cfg, name)
@@ -901,12 +1154,23 @@ def main() -> int:
             launches[k] += v
         for row in rows:
             row["peak_gib"] = peak
+        peaks[name] = rows[-1]["run_peak_gib"]
         all_rows += rows
         identities[name] = identity
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
 
+    acc_gib = sum(4 * L * m * n for _, L, m, n in main_path_leaves(cfg)
+                  ) / 2 ** 30
+    print("  peak memory of training and closes (the snapshots for the "
+          "identity checks included, their temporaries not), stacked "
+          "against chunked (GiB): "
+          + ", ".join(f"{m} {peaks[m]:.2f} / {peaks[m + '[chunked]']:.2f}"
+                      for m in ("fedex", "reinit", "keep_local", "fedex_svd",
+                                "hetero"))
+          + f"; the chunked product accumulator is {acc_gib:.2f} GiB",
+          flush=True)
     main_body = {**timings["weighted-partial"], **lane_timings}
     out = []
     for name, (source, replaces) in SOURCES.items():

@@ -1,9 +1,10 @@
-"""The weighted round close over stacked client buffers (stacked mode).
+"""The weighted round close over stacked client buffers, and its chunked
+streaming mode.
 
-Counterpart of ``repro/core/engine.py`` in stacked mode, for every engine
-method: ``fedex`` (average assignment), ``fedex_svd`` (rank-r' truncated
-residual), ``reinit`` and ``keep_local`` (Table 5's assignments) and
-``hetero`` (heterogeneous client ranks):
+Counterpart of ``repro/core/engine.py`` for every engine method: ``fedex``
+(average assignment), ``fedex_svd`` (rank-r' truncated residual),
+``reinit`` and ``keep_local`` (Table 5's assignments) and ``hetero``
+(heterogeneous client ranks):
 
 * :class:`RoundBuffers` — preallocated ``(C_max, …)`` device stacks per
   adapter leaf in a ring of ``depth`` rotating sets: ``begin_round`` opens a
@@ -24,6 +25,12 @@ residual), ``reinit`` and ``keep_local`` (Table 5's assignments) and
   ``hetero_fold``; the counterpart of the reference's ``pallas`` backend),
   on the CPU through the same closes on the kernels' plain PyTorch versions
   (its ``jnp`` backend).
+* chunked streaming mode (``chunk > 0``): rounds of more than ``chunk``
+  candidates stage uplinks chunk by chunk and fold each chunk, in slot
+  order, into running accumulators at ingest (``factor_mean`` and
+  ``product_accum`` on the kernel backend); the close normalises them and
+  finishes in plain PyTorch, folding into W0 (or each delivered client's
+  own base) in place;
 * the factored machinery of the fedex_svd and hetero closes
   (:func:`factored_truncated_residual`, :func:`factored_truncated_product`):
   Eckart–Young truncations from two (C·r)² Grams, the dense m×n matrix
@@ -33,8 +40,8 @@ JAX donates the W0 leaves and stacks to its close program; here the kernel
 closes write the fold into W0's own storage instead, so a caller must treat
 the ``params`` it passes to :meth:`RoundCloseEngine.close` (and the bases of
 the delivered clients it passes to ``close_keep_local`` / ``close_hetero``)
-as consumed: clients must not share W0 leaves. The chunked streaming mode is
-not ported yet.
+as consumed: clients must not share W0 leaves. Checkpointing a chunked
+round's state is not ported.
 """
 
 from __future__ import annotations
@@ -50,7 +57,8 @@ from repro_torch.core import aggregation as agg
 from repro_torch.kernels import (factor_mean, factor_mean_plain, fedex_fold,
                                  fedex_fold_plain, hetero_fold,
                                  hetero_fold_plain, perclient_fold,
-                                 perclient_fold_plain, product_fold,
+                                 perclient_fold_plain, product_accum,
+                                 product_accum_plain, product_fold,
                                  product_fold_plain)
 from repro_torch.util.tree import flatten_with_paths, unflatten_from_paths
 
@@ -182,27 +190,55 @@ class RoundBuffers:
     * each round keeps a per-slot int32 rank vector: the true adapter rank
       a hetero uplink declared at :meth:`write` (its payload zero-padded to
       the template rank), −1 where none was declared (full rank).
+
+    Chunked mode (``chunk > 0``): a round with more than ``chunk`` candidate
+    lanes stages its uplinks in ``(chunk, …)`` stacks, one per chunk of
+    consecutive slots, together with each uplink's RAW ingest weight. Each
+    chunk that fills, and is next in SLOT order, folds at once into the
+    round's running accumulators through ``on_chunk(acc, chunk_stacks,
+    raw_weights, round_id, k)``, while later uplinks keep arriving. Chunk k
+    never folds before chunks < k, so the fold sequence, and with it every
+    accumulator bit, depends on the slot assignment and the payloads, never
+    on the arrival order. :meth:`take_chunked` folds the chunks that never
+    filled (unwritten rows hold zeros and zero weight) and hands over the
+    accumulators. ``retain_chunks`` keeps the folded chunks for closes that
+    read them again (keep_local, fedex_svd, hetero). A round that fits in one
+    chunk takes the stacked path (the "auto" rule ``0 < chunk <
+    len(slots)``). The reference stages chunks in host numpy so that a
+    round's state can be checkpointed; checkpointing is not ported, and
+    this ring stages each chunk on its device (one chunk of paper-llama3.2-3b
+    uplinks is 4 × 9.18 MB).
     """
 
     def __init__(self, lora_template: Params, c_max: int, depth: int = 2,
-                 device: Optional[torch.device] = None):
+                 device: Optional[torch.device] = None, *, chunk: int = 0,
+                 on_chunk=None, retain_chunks: bool = False):
         if c_max < 1:
             raise ValueError("c_max must be ≥ 1")
         if depth < 1:
             raise ValueError("depth must be ≥ 1")
+        if chunk < 0:
+            raise ValueError(f"chunk must be ≥ 0, got {chunk}")
+        if chunk > 0 and on_chunk is None:
+            raise ValueError("a chunked ring needs an on_chunk fold callback")
         self.c_max = c_max
         self.depth = depth
+        self.chunk = chunk
+        self.on_chunk = on_chunk
+        self.retain_chunks = retain_chunks
+        self.partial_folds = 0  # eager (mid-round) chunk folds, all rounds
         flat = flatten_with_paths(lora_template)
         self._shapes = {p: tuple(x.shape) for p, x in flat.items()}
         self.r_max = agg._factor_rank(lora_template)  # the template rank
         self.device = (next(iter(flat.values())).device if device is None
                        else device)
-        # round_id → {"slots": cid→lane, "written": cid→lane, "stacks": dict}
+        # round_id → {"slots": cid→lane, "written": cid→lane, "chunked": bool,
+        #             "ranks": per-slot int32, then "stacks" or chunk state}
         self._open: "OrderedDict[Any, Dict[str, Any]]" = OrderedDict()
         self._auto = 0
 
-    def _alloc(self) -> Dict[str, torch.Tensor]:
-        return {p: torch.zeros((self.c_max,) + s, dtype=torch.float32,
+    def _alloc(self, lanes: int) -> Dict[str, torch.Tensor]:
+        return {p: torch.zeros((lanes,) + s, dtype=torch.float32,
                                device=self.device)
                 for p, s in self._shapes.items()}
 
@@ -234,9 +270,24 @@ class RoundBuffers:
                 f"all {self.depth} buffer sets are in flight (open rounds: "
                 f"{list(self._open)}) — take() the oldest before opening "
                 "another")
-        self._open[round_id] = {"slots": dict(slots), "written": {},
-                                "stacks": self._alloc(),
-                                "ranks": np.full(self.c_max, -1, np.int32)}
+        chunked = 0 < self.chunk < len(slots)
+        entry: Dict[str, Any] = {"slots": dict(slots), "written": {},
+                                 "chunked": chunked}
+        if chunked:
+            num_chunks = max(slots.values()) // self.chunk + 1
+            expected = [0] * num_chunks
+            for lane in slots.values():
+                expected[lane // self.chunk] += 1
+            nslots = num_chunks * self.chunk
+            entry.update(chunks={}, retained={}, acc=None,
+                         w=np.zeros(nslots, np.float32),
+                         ranks=np.full(nslots, -1, np.int32), next_chunk=0,
+                         num_chunks=num_chunks, expected=expected,
+                         filled=[0] * num_chunks)
+        else:
+            entry.update(stacks=self._alloc(self.c_max),
+                         ranks=np.full(self.c_max, -1, np.int32))
+        self._open[round_id] = entry
         return round_id
 
     def evict(self, round_id) -> Dict[int, int]:
@@ -247,13 +298,19 @@ class RoundBuffers:
         return dict(e["written"])
 
     def write_flat(self, client_id: int, flat: Dict[str, torch.Tensor],
-                   round_id=None, *, rank: Optional[int] = None) -> bool:
+                   round_id=None, *, weight: Optional[float] = None,
+                   rank: Optional[int] = None) -> bool:
         """Copy one client's adapter leaves (path → tensor) into its lane of
         the named (default: oldest) open round. Returns ``False`` (and writes
-        nothing) for a duplicate (client, round) write. ``rank`` is the
-        uplink's true adapter rank (a hetero payload zero-padded to the
-        template rank); ``None`` means full rank."""
-        _, e = self._entry(round_id)
+        nothing) for a duplicate (client, round) write.
+
+        ``weight`` is the uplink's RAW (unnormalised) aggregation weight,
+        1.0 when omitted: a chunked round folds it in at ingest, so the
+        caller must stream the weighting it will close with (the close
+        checks and raises on a mismatch); a stacked round ignores it.
+        ``rank`` is the uplink's true adapter rank (a hetero payload
+        zero-padded to the template rank); ``None`` means full rank."""
+        rid, e = self._entry(round_id)
         if rank is not None and not 1 <= rank <= self.r_max:
             raise ValueError(f"uplink rank {rank} outside "
                              f"[1, r_max={self.r_max}]")
@@ -269,22 +326,71 @@ class RoundBuffers:
                 raise ValueError(f"{p}: shape {tuple(flat[p].shape)} != "
                                  f"template {shape}")
         slot = e["slots"][client_id]
+        if e["chunked"]:
+            k, row = divmod(slot, self.chunk)
+            if k not in e["chunks"]:
+                e["chunks"][k] = self._alloc(self.chunk)
+            stacks = e["chunks"][k]
+            e["w"][slot] = 1.0 if weight is None else weight
+            e["filled"][k] += 1
+        else:
+            stacks, row = e["stacks"], slot
         with torch.no_grad():
             for p in self._shapes:
-                e["stacks"][p][slot].copy_(flat[p])
+                stacks[p][row].copy_(flat[p])
         e["written"][client_id] = slot
         if rank is not None:
             e["ranks"][slot] = rank
+        if e["chunked"]:
+            self._cascade(rid, e)
         return True
 
     def write(self, client_id: int, lora_tree: Params, round_id=None, *,
+              weight: Optional[float] = None,
               rank: Optional[int] = None) -> bool:
         return self.write_flat(client_id, flatten_with_paths(lora_tree),
-                               round_id, rank=rank)
+                               round_id, weight=weight, rank=rank)
 
     def ranks_in(self, round_id=None) -> np.ndarray:
-        """The round's per-slot rank vector (−1 = none declared)."""
-        return self._entry(round_id)[1]["ranks"].copy()
+        """The round's (C_max,) per-slot rank vector (−1 = none declared)."""
+        ranks = self._entry(round_id)[1]["ranks"]
+        out = np.full(self.c_max, -1, np.int32)
+        n = min(self.c_max, len(ranks))
+        out[:n] = ranks[:n]
+        return out
+
+    def chunk_ranks(self, round_id, k: int) -> np.ndarray:
+        """Chunk k's per-slot rank vector (−1 = full rank) of a chunked
+        round: the hetero partial fold masks padded columns with it."""
+        ranks = self._entry(round_id)[1]["ranks"]
+        return ranks[k * self.chunk:(k + 1) * self.chunk].copy()
+
+    # -- chunked fold cascade ----------------------------------------------
+    def _cascade(self, rid, e) -> None:
+        """Fold every complete chunk that is next in slot order; a full
+        chunk whose predecessor is not folded yet waits its turn."""
+        while (e["next_chunk"] < e["num_chunks"]
+               and e["filled"][e["next_chunk"]]
+               == e["expected"][e["next_chunk"]]):
+            self._fold_next(rid, e, eager=True)
+
+    def _fold_next(self, rid, e, *, eager: bool) -> None:
+        k = e["next_chunk"]
+        stacks = e["chunks"].pop(k, None)
+        if stacks is None:
+            # nothing of this chunk was delivered: zero rows with zero
+            # weights fold as an exact no-op
+            stacks = self._alloc(self.chunk)
+        w = e["w"][k * self.chunk:(k + 1) * self.chunk].copy()
+        e["acc"] = self.on_chunk(e["acc"], stacks, w, rid, k)
+        if self.retain_chunks:
+            e["retained"][k] = stacks
+        e["next_chunk"] = k + 1
+        if eager:
+            self.partial_folds += 1
+
+    def is_chunked(self, round_id=None) -> bool:
+        return bool(self._entry(round_id)[1]["chunked"])
 
     @property
     def open_rounds(self) -> List[Any]:
@@ -303,8 +409,25 @@ class RoundBuffers:
     def take(self, round_id=None) -> Dict[str, torch.Tensor]:
         """Pop the oldest (or named) open round and hand over its stacks."""
         rid, e = self._entry(round_id)
+        if e["chunked"]:
+            raise RuntimeError(f"round {rid!r} streams in chunks — close it "
+                               "via take_chunked()")
         del self._open[rid]
         return e["stacks"]
+
+    def take_chunked(self, round_id=None) -> Tuple[Any, Dict[str, Any]]:
+        """Fold the remaining chunks in slot order, pop the round and return
+        ``(round_id, entry)``: the entry holds the accumulators (``acc``),
+        the raw ingest weights (``w``), the retained chunks and the
+        delivery bookkeeping."""
+        rid, e = self._entry(round_id)
+        if not e["chunked"]:
+            raise RuntimeError(f"round {rid!r} is stacked — close it via "
+                               "take()")
+        while e["next_chunk"] < e["num_chunks"]:
+            self._fold_next(rid, e, eager=False)
+        del self._open[rid]
+        return rid, e
 
 
 # --------------------------------------------------------------------------
@@ -354,8 +477,12 @@ def _gram_core(L: torch.Tensor, R: torch.Tensor):
     vt, right) with ΔW = (L @ left @ u) diag(s) (vt @ right @ R), left =
     E_L Λ_L^{-1/2} and right = Λ_R^{-1/2} E_Rᵀ. Every intermediate is
     (m, P), (P, n) or (P, P); the (m, n) matrix never exists."""
-    gl = torch.einsum("...mi,...mj->...ij", L, L)
-    gr = torch.einsum("...in,...jn->...ij", R, R)
+    return _core_of_grams(torch.einsum("...mi,...mj->...ij", L, L),
+                          torch.einsum("...in,...jn->...ij", R, R))
+
+
+def _core_of_grams(gl: torch.Tensor, gr: torch.Tensor):
+    """:func:`_gram_core` from the Grams G_L = LᵀL and G_R = R Rᵀ."""
     el, vl = torch.linalg.eigh(gl)
     er, vr = torch.linalg.eigh(gr)
     il, sl = _safe_inv_sqrt(el)
@@ -421,6 +548,56 @@ def _mask_factor_stacks(a: torch.Tensor, b: torch.Tensor, ranks: torch.Tensor
     ma = mask.reshape((c,) + (1,) * (a.ndim - 2) + (r,))
     mb = mask.reshape((c,) + (1,) * (b.ndim - 3) + (r, 1))
     return torch.where(ma, a, 0.0), torch.where(mb, b, 0.0)
+
+
+# --------------------------------------------------------------------------
+# chunked closes: one chunk's L / R blocks and the in-place fold
+# --------------------------------------------------------------------------
+
+def _lane_mask(w: torch.Tensor, ndim: int) -> torch.Tensor:
+    return (w != 0).reshape((-1,) + (1,) * (ndim - 1))
+
+
+def _l_block(a_chunk: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(chunk, …, m, r) → (…, m, chunk·r): one chunk's weighted L columns,
+    lane-major — the columns :func:`_stacked_residual_factors` gives these
+    lanes, so chunk-pair Gram blocks tile the stacked (C·r)² Gram. Lanes
+    with w = 0 are selected away (zeroed) first."""
+    live = _lane_mask(w, a_chunk.ndim)
+    la = w.reshape(live.shape) * torch.where(live, a_chunk, 0.0)
+    la = torch.movedim(la, 0, -2)  # (…, m, chunk, r)
+    return la.reshape(la.shape[:-2] + (-1,))
+
+
+def _r_block(b_chunk: torch.Tensor, bbar: torch.Tensor, w: torch.Tensor
+             ) -> torch.Tensor:
+    """(chunk, …, r, n) → (…, chunk·r, n): one chunk's centred R rows b_c −
+    b̄, lane-major (b_c zeroed first on lanes with w = 0)."""
+    rb = torch.where(_lane_mask(w, b_chunk.ndim), b_chunk, 0.0) - bbar
+    rb = torch.movedim(rb, 0, -3)  # (…, chunk, r, n)
+    return rb.reshape(rb.shape[:-3] + (-1, rb.shape[-1]))
+
+
+def _fold_update(w0: torch.Tensor, upd: torch.Tensor, scale: float, dtype,
+                 in_place: bool) -> torch.Tensor:
+    """W0 + scale·upd, rounded as two ops (the reference's order). ``upd``
+    is consumed (scaled in place); with ``in_place`` the sum goes into W0's
+    own storage when W0 is float32 and contiguous."""
+    upd.mul_(scale)
+    if in_place and w0.dtype == torch.float32 and w0.is_contiguous():
+        return w0.add_(upd)
+    return (w0.float() + upd).to(dtype)
+
+
+def _residual(ideal: torch.Tensor, ga: torch.Tensor, gb: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ideal − ga gb, its ‖·‖_F / √(mn) per stacked layer, flattened): the
+    residual and the divergence parts of a chunked close."""
+    res = torch.matmul(ga, gb)
+    torch.sub(ideal, res, out=res)
+    m, n = res.shape[-2:]
+    return res, (torch.linalg.vector_norm(res, dim=(-2, -1))
+                 / math.sqrt(m * n)).reshape(-1)
 
 
 # --------------------------------------------------------------------------
@@ -723,12 +900,23 @@ class RoundCloseEngine:
     the rest. ``client_ranks`` (hetero) holds every client's true adapter
     rank (index = client id); the lora template is built at the largest,
     r_max.
+
+    ``chunk > 0`` streams rounds of more than ``chunk`` candidates in chunks
+    (:class:`RoundBuffers`' chunked mode): each chunk folds at ingest into
+    running float32 accumulators, Σŵa and Σŵb through ``factor_mean`` and,
+    for every method but fedex_svd, Σŵ·ab through ``product_accum``, and the
+    close normalises them by the total raw ingest weight and finishes in
+    plain PyTorch. The full (C_max, …) stacks never exist, but the product
+    accumulator has the shape of the adapted W0 leaves, so at C = 6 the
+    chunked close holds more memory than the stacked one; it pays off only
+    where a round's uplinks outweigh one copy of the adapted W0 leaves.
     """
 
     def __init__(self, params: Params, lora_template: Params, *,
                  c_max: int, scale: float, method: str = "fedex",
                  svd_rank: int = 0, backend: str = "auto", depth: int = 2,
-                 client_ranks: Optional[Sequence[int]] = None):
+                 client_ranks: Optional[Sequence[int]] = None,
+                 chunk: int = 0):
         self.specs = build_factor_specs(params, lora_template)
         self.c_max = c_max
         if client_ranks is not None:
@@ -749,8 +937,14 @@ class RoundCloseEngine:
         device = _get_path(params, self.specs[0].key)["kernel"].device
         self.device = device
         self.backend = _resolve_backend(backend, device)
-        self.buffers = RoundBuffers(lora_template, c_max, depth=depth,
-                                    device=device)
+        self.chunk = int(chunk)
+        # keep_local folds each lane's own base, and fedex_svd / hetero
+        # stream the chunks' L / R blocks again: they retain the chunks
+        self.buffers = RoundBuffers(
+            lora_template, c_max, depth=depth, device=device,
+            chunk=self.chunk,
+            on_chunk=self._fold_chunk if self.chunk else None,
+            retain_chunks=method in ("keep_local", "fedex_svd", "hetero"))
         self._lora_template = lora_template
         self._close = make_close_fn(self.specs, scale=scale, c_max=c_max,
                                     method=method, svd_rank=svd_rank,
@@ -807,6 +1001,9 @@ class RoundCloseEngine:
         if self.method == "reinit" and rng is None:
             raise ValueError("reinit close needs the round's rng")
         round_id = self._open_round(client_ids, round_id)
+        if self.buffers.is_chunked(round_id):
+            return self._close_chunked(params, client_ids, weights, round_id,
+                                       rng)
         w, mask, uniform = self.weight_vector(client_ids, weights, round_id)
         w0_leaves = collect_w0_leaves(self.specs, params)
         stacks = self.buffers.take(round_id)
@@ -855,6 +1052,9 @@ class RoundCloseEngine:
             raise ValueError(f"engine method is {self.method!r}, "
                              "not keep_local")
         round_id = self._open_round(client_ids, round_id)
+        if self.buffers.is_chunked(round_id):
+            return self._close_lanes_chunked(client_params, client_ids,
+                                             weights, round_id)
         w, mask, uniform = self.weight_vector(client_ids, weights, round_id)
         lanes = self.buffers.lanes(round_id)
         w0_lanes = self._lane_bases(client_params, client_ids, lanes)
@@ -896,6 +1096,9 @@ class RoundCloseEngine:
                 raise ValueError(
                     f"client {cid} uplinked rank {declared[lane]}, "
                     f"registered rank {ranks[lane]}")
+        if self.buffers.is_chunked(round_id):
+            return self._close_lanes_chunked(client_params, client_ids,
+                                             weights, round_id)
         rmax = self.specs[0].a_shape[-1]
         # the operator-composition branch also needs every lane at r_max
         uniform = uniform and bool(np.all(ranks == rmax))
@@ -948,3 +1151,240 @@ class RoundCloseEngine:
                 flat[s.key + "/b"] = glob[s.key]["b"][..., :r_i, :]
             out[cid] = unflatten_from_paths(flat)
         return out
+
+    # -- chunked mode ------------------------------------------------------
+    def _init_acc(self) -> Dict[str, torch.Tensor]:
+        """Fresh float32 accumulators: the weighted factor sums Σŵa / Σŵb for
+        every method, plus the product accumulator Σŵ·ab, shaped like the
+        adapted W0 leaf, for the methods whose close needs the dense ideal
+        update (fedex_svd works from Gram blocks of the retained chunks)."""
+        acc: Dict[str, torch.Tensor] = {}
+        for s in self.specs:
+            acc["ga/" + s.key] = torch.zeros(s.a_shape, device=self.device)
+            acc["gb/" + s.key] = torch.zeros(s.b_shape, device=self.device)
+            if self.method != "fedex_svd":
+                acc["prod/" + s.key] = torch.zeros(
+                    s.a_shape[:-1] + s.b_shape[-1:], device=self.device)
+        return acc
+
+    @torch.no_grad()
+    def _fold_chunk(self, acc, stacks, w: np.ndarray, round_id, k: int):
+        """The ring's ``on_chunk`` callback: acc += Σ_lanes ŵ·(a, b, a b)
+        over one chunk, ŵ its raw ingest weights. On the kernel backend the
+        factor sums go through ``factor_mean`` and the product through
+        ``product_accum``, in place; a zero-weight lane (an unwritten row)
+        is never read by either. A hetero chunk is rank-masked first (by
+        selection) and retained masked."""
+        if acc is None:
+            acc = self._init_acc()
+        wd = torch.from_numpy(w).to(self.device)
+        if self.method == "hetero":
+            ranks = torch.from_numpy(
+                self.buffers.chunk_ranks(round_id, k)).to(self.device)
+            for s in self.specs:
+                pa, pb = s.key + "/a", s.key + "/b"
+                stacks[pa], stacks[pb] = _mask_factor_stacks(stacks[pa],
+                                                             stacks[pb], ranks)
+        kernels = self.backend == "kernels"
+        mean = factor_mean if kernels else factor_mean_plain
+        for s in self.specs:
+            a, b = stacks[s.key + "/a"], stacks[s.key + "/b"]
+            acc["ga/" + s.key].add_(mean(a, wd))
+            acc["gb/" + s.key].add_(mean(b, wd))
+            prod = "prod/" + s.key
+            if prod not in acc:
+                continue
+            if kernels:
+                product_accum(acc[prod], a, b, wd, 1.0)
+            else:
+                acc[prod] = product_accum_plain(acc[prod], a, b, wd, 1.0)
+        return acc
+
+    @staticmethod
+    def _check_ingest_weights(entry, w: np.ndarray, round_id) -> float:
+        """A chunked round weights at INGEST: check that the streamed raw
+        weights normalise to the close's weight vector and return their sum.
+        A mismatch means the chunks folded under another weighting (or
+        another delivered set) than the close asks for; the accumulators are
+        already wrong, so this raises."""
+        raw = entry["w"].astype(np.float64)
+        wsum = float(raw.sum())
+        if wsum <= 0.0:
+            raise ValueError("chunked close: total ingest weight is 0")
+        for cid, slot in entry["written"].items():
+            want = float(w[slot]) if slot < len(w) else 0.0
+            got = raw[slot] / wsum
+            if not np.isclose(got, want, rtol=1e-4, atol=1e-6):
+                raise ValueError(
+                    f"chunked close of round {round_id!r}: client {cid}'s "
+                    f"ingest weight normalises to {got:.6g} but the close "
+                    f"was given {want:.6g} — stream and close must use the "
+                    "same weighting (and the same delivered set)")
+        return wsum
+
+    def _take_chunked(self, client_ids, weights, round_id):
+        """Flush and pop a chunked round; returns (round id, entry, the
+        close's (C_max,) weight vector, 1/Σ raw ingest weights in f32)."""
+        w, _, _ = self.weight_vector(client_ids, weights, round_id)
+        rid, entry = self.buffers.take_chunked(round_id)
+        wsum = self._check_ingest_weights(entry, w, rid)
+        return rid, entry, w, float(np.float32(1.0) / np.float32(wsum))
+
+    def _slot_weights(self, entry, w: np.ndarray) -> torch.Tensor:
+        """The close's normalised weights over every slot of the round's
+        chunks (a round's chunks may pad past C_max)."""
+        wn = np.zeros(entry["num_chunks"] * self.buffers.chunk, np.float32)
+        n = min(len(w), len(wn))
+        wn[:n] = w[:n]
+        return torch.from_numpy(wn).to(self.device)
+
+    def _chunk_truncation(self, entry, key: str, wn: torch.Tensor,
+                          bbar: torch.Tensor, rank: int):
+        """The rank-``rank`` Eckart–Young truncation of L @ R from the
+        retained chunks of one spec: chunk-pair Gram blocks G_L[i, j] =
+        L_iᵀ L_j and G_R[i, j] = R_i R_jᵀ (j ≤ i, the rest mirrored) tile the
+        stacked (C·r)² Grams; the eigh/eigh/SVD core of
+        :func:`factored_truncated_residual` runs on them, and every chunk
+        streams through the projections in slot order. Returns (A′₀, the
+        top singular values, B′₀, G_L, G_R) with the stacked close's A′ =
+        A′₀·diag(s); the dense (m, n) matrix never exists. ``bbar`` centres
+        R (zeros for the hetero close's uncentred product)."""
+        chunk, nk = self.buffers.chunk, entry["num_chunks"]
+        ls, rs = [], []
+        for k in range(nk):
+            stacks, wk = entry["retained"][k], wn[k * chunk:(k + 1) * chunk]
+            ls.append(_l_block(stacks[key + "/a"], wk))
+            rs.append(_r_block(stacks[key + "/b"], bbar, wk))
+        gl_blocks, gr_blocks = {}, {}
+        for i in range(nk):
+            for j in range(i + 1):
+                gl_blocks[i, j] = torch.einsum("...mi,...mj->...ij", ls[i],
+                                               ls[j])
+                gr_blocks[i, j] = torch.einsum("...in,...jn->...ij", rs[i],
+                                               rs[j])
+
+        def assemble(blocks):
+            return torch.cat([torch.cat(
+                [blocks[i, j] if j <= i else blocks[j, i].transpose(-1, -2)
+                 for j in range(nk)], dim=-1) for i in range(nk)], dim=-2)
+
+        gl, gr = assemble(gl_blocks), assemble(gr_blocks)
+        left, u, sv, vt, right = _core_of_grams(gl, gr)
+        projl = left @ u[..., :, :rank]
+        projr = vt[..., :rank, :] @ right
+        cr = ls[0].shape[-1]
+        ap = torch.zeros(ls[0].shape[:-1] + (projl.shape[-1],),
+                         device=self.device)
+        bp = torch.zeros(projr.shape[:-1] + rs[0].shape[-1:],
+                         device=self.device)
+        for k in range(nk):
+            ap = ap + ls[k] @ projl[..., k * cr:(k + 1) * cr, :]
+            bp = bp + projr[..., :, k * cr:(k + 1) * cr] @ rs[k]
+        return ap, sv[..., :rank], bp, gl, gr
+
+    @torch.no_grad()
+    def _close_chunked(self, params: Params, client_ids, weights, round_id,
+                       rng) -> Tuple[Params, Params, DeferredDivergence]:
+        """Chunked fedex / fedex_svd / reinit close: flush the trailing
+        chunks in slot order, normalise the accumulators by the total raw
+        ingest weight W, and fold. fedex / reinit: ideal = Σŵ·ab / W and
+        residual = ideal − ā b̄ (one dense temp per leaf), W0 + s·residual
+        (fedex) or W0 + s·ideal (reinit); the divergence ‖residual‖_F/√(mn)
+        under the INGEST weights. fedex_svd: the truncation from chunk-pair
+        Gram blocks (:meth:`_chunk_truncation`), its divergence off the
+        Grams. The kernel backend folds into W0's own storage."""
+        rid, entry, w, winv = self._take_chunked(client_ids, weights,
+                                                 round_id)
+        acc, in_place = entry["acc"], self.backend == "kernels"
+        w0_leaves = collect_w0_leaves(self.specs, params)
+        wn = self._slot_weights(entry, w)
+        new_w0, glob, parts = {}, {}, []
+        for s in self.specs:
+            w0 = w0_leaves[s.key]
+            ga = acc["ga/" + s.key].mul_(winv)
+            gb = acc["gb/" + s.key].mul_(winv)
+            if self.method == "fedex_svd":
+                ap, sv, bp, gl, gr = self._chunk_truncation(
+                    entry, s.key, wn, gb, self.svd_rank)
+                new_w0[s.key] = _fold_update(
+                    w0, torch.matmul(ap * sv[..., None, :], bp), self.scale,
+                    s.w0_dtype, in_place)
+                fro_sq = torch.clamp(torch.einsum("...ij,...ij->...", gl, gr),
+                                     min=0.0)
+                mn = s.a_shape[-2] * s.b_shape[-1]
+                parts.append((torch.sqrt(fro_sq) / math.sqrt(mn)).reshape(-1))
+            else:
+                ideal = acc["prod/" + s.key].mul_(winv)
+                res, part = _residual(ideal, ga, gb)
+                parts.append(part)
+                upd = ideal if self.method == "reinit" else res
+                new_w0[s.key] = _fold_update(w0, upd, self.scale,
+                                             s.w0_dtype, in_place)
+                del res, upd
+            glob[s.key] = {"a": ga, "b": gb}
+        new_params = fold_back_w0(self.specs, params, new_w0)
+        if self.method == "reinit":
+            global_lora = agg.reinit_adapters(self._lora_template, rng)
+        else:
+            global_lora = self._glob_tree(glob)
+        return global_lora, new_params, DeferredDivergence(
+            torch.cat(parts).mean(), rid)
+
+    @torch.no_grad()
+    def _close_lanes_chunked(self, client_params, client_ids, weights,
+                             round_id):
+        """Chunked keep_local / hetero close: the ideal update Σŵ·ab / W and
+        the divergence from the accumulators, then every delivered lane, in
+        slot order, folds W0_c + s·(ideal − own_c) into its OWN base, one
+        dense temp at a time: own_c = a_c b_c from the retained chunk
+        (keep_local), or the leading rank-r_c slice of the shared
+        r_max truncation (hetero, from uncentred chunk-pair Grams). Returns
+        what :meth:`close_keep_local` / :meth:`close_hetero` return."""
+        hetero = self.method == "hetero"
+        lanes = self.buffers.lanes(round_id)
+        lane_to_cid = {lane: cid for cid, lane in lanes.items()}
+        delivered = set(client_ids)
+        ranks = self._rank_vector(client_ids, lanes)
+        rid, entry, w, winv = self._take_chunked(client_ids, weights,
+                                                 round_id)
+        acc, in_place = entry["acc"], self.backend == "kernels"
+        wn = self._slot_weights(entry, w)
+        ideal, glob, parts = {}, {}, []
+        for s in self.specs:
+            ga = acc["ga/" + s.key].mul_(winv)
+            gb = acc["gb/" + s.key].mul_(winv)
+            ideal[s.key] = acc["prod/" + s.key].mul_(winv)
+            parts.append(_residual(ideal[s.key], ga, gb)[1])
+            if hetero:
+                ap, sv, bp, _, _ = self._chunk_truncation(
+                    entry, s.key, wn, torch.zeros_like(gb), s.a_shape[-1])
+                sq = torch.sqrt(torch.clamp(sv, min=0.0))
+                glob[s.key] = {"a": ap * sq[..., None, :],
+                               "b": sq[..., :, None] * bp}
+        chunk = self.buffers.chunk
+        new_lanes = {s.key: [None] * self.c_max for s in self.specs}
+        for lane in range(entry["num_chunks"] * chunk):
+            cid = lane_to_cid.get(lane)
+            if cid is None or cid not in delivered:
+                continue
+            stacks = entry["retained"][lane // chunk]
+            for s in self.specs:
+                if hetero:
+                    k, g = int(ranks[lane]), glob[s.key]
+                    own = torch.matmul(g["a"][..., :k], g["b"][..., :k, :])
+                else:
+                    row = lane % chunk
+                    own = torch.matmul(stacks[s.key + "/a"][row],
+                                       stacks[s.key + "/b"][row])
+                torch.sub(ideal[s.key], own, out=own)
+                w0 = _get_path(client_params[cid], s.key)["kernel"]
+                new_lanes[s.key][lane] = _fold_update(w0, own, self.scale,
+                                                      s.w0_dtype, in_place)
+                del own
+        out = {cid: self._writeback_lane(client_params, cid, new_lanes,
+                                         lanes[cid]) for cid in client_ids}
+        div = DeferredDivergence(torch.cat(parts).mean(), rid)
+        if not hetero:
+            return out, div
+        return (out, self._hetero_loras(glob, client_ids, ranks, lanes),
+                self._glob_tree(glob), div)

@@ -16,6 +16,11 @@ then the server's close through
   zero-padded to r_max = ``lora.rank`` and the close hands it the leading
   rᵢ slice of one shared truncation, its own base absorbing the rest (§6).
 
+``close_chunk > 0`` closes rounds of more than that many clients in the
+engine's chunked streaming mode: uplinks fold into running accumulators
+chunk by chunk as they arrive, weighted by their raw weights (example
+counts under ``weighting="examples"``).
+
 Rounds are orchestrated by :class:`~repro_torch.fedsrv.RoundCoordinator`
 (sampling, arrival order, weighting), whose uplinks stream into the
 engine's ring; hetero rounds run every client and write straight into the
@@ -108,7 +113,6 @@ def _check_supported(fed: FedConfig) -> None:
         "dropout_prob": fed.dropout_prob > 0,
         "async_buffer": fed.async_buffer > 0,
         "quantize_uplink": fed.quantize_uplink != "none",
-        "close_chunk": fed.close_chunk > 0,
         "obs": fed.obs != "off",
         "faults": bool(fed.faults),
         "uplink_max_norm": fed.uplink_max_norm > 0,
@@ -119,8 +123,8 @@ def _check_supported(fed: FedConfig) -> None:
         raise NotImplementedError(
             f"FedConfig asks for {asked}, which the port does not run yet "
             "(the engine methods fedex with any assignment, fedex_svd and "
-            "hetero, with participation sampling, min_quorum and example "
-            "weighting only)")
+            "hetero, stacked or chunked, with participation sampling, "
+            "min_quorum and example weighting only)")
 
 
 def engine_method(fed: FedConfig) -> str:
@@ -192,7 +196,7 @@ class FederatedTrainer:
             self.params, self.global_lora, c_max=k, scale=self.scale,
             method=method, svd_rank=fc.svd_rank if method == "fedex_svd" else 0,
             backend=fc.engine, depth=fc.ring_depth,
-            client_ranks=self.client_ranks)
+            client_ranks=self.client_ranks, chunk=fc.close_chunk)
         # keep_local and hetero: one base per client, each with its OWN
         # adapted W0 leaves — the kernel closes fold into them in place, so
         # no two clients (and not self.params) may share one

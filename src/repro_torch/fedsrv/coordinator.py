@@ -99,11 +99,14 @@ class RoundCoordinator:
                 {cid: i for i, cid in enumerate(sorted(candidates))},
                 round_id=round_id)
 
-    def _uplink(self, lora: Any, round_id: int, client_id: int) -> bool:
+    def _uplink(self, lora: Any, round_id: int, client_id: int, *,
+                weight: float = 1.0) -> bool:
+        """Validate one uplink and write it into the sink with its raw
+        weight (a chunked ring folds it in at ingest)."""
         if self.validate and not _finite(lora):
             return False
         if self.sink is not None:
-            self.sink.write(client_id, lora, round_id=round_id)
+            self.sink.write(client_id, lora, round_id=round_id, weight=weight)
         return True
 
     def run_round(self, round_id: int, train_fn: TrainFn, global_lora: Any
@@ -125,7 +128,10 @@ class RoundCoordinator:
         quarantined: List[Tuple[int, str]] = []
         for t, c in arrivals:
             lora_c = train_fn(c, global_lora, round_id)
-            ok = self._uplink(lora_c, round_id, c.client_id)
+            ok = self._uplink(lora_c, round_id, c.client_id,
+                              weight=(float(c.num_examples)
+                                      if pol.weighting == "examples"
+                                      else 1.0))
             self.clock.advance_to(t)
             if ok:
                 delivered.append(Delivery(client=c, lora=lora_c,

@@ -7,6 +7,9 @@
   weighted client mean of stacked factors; replaces ``lora_factor_mean``.
 * :func:`product_fold` (``csrc/product_fold.cu``) — W0 + scale·Σ s_c a_c b_c
   with signed s (reinit, fedex_svd); replaces ``product_fold_apply``.
+* :func:`product_accum` (``csrc/product_fold.cu``, entry
+  ``product_accum_launch``) — acc ← acc + scale·Σ_c s_c a_c b_c in place,
+  the chunked closes' partial fold; replaces ``product_accum_apply``.
 * :func:`perclient_fold` (``csrc/perclient_fold.cu``) — every delivered
   lane's own W0_c + scale·(Σ w_j a_j b_j − a_c b_c) (keep_local); replaces
   ``perclient_fold_apply``.
@@ -25,10 +28,14 @@ from repro_torch.kernels.fedex_residual import (fedex_fold, fedex_fold_plain,
                                                 perclient_error_bound,
                                                 perclient_fold,
                                                 perclient_fold_plain,
+                                                product_accum,
+                                                product_accum_error_bound,
+                                                product_accum_plain,
                                                 product_error_bound,
                                                 product_fold, product_fold_plain)
 
-KERNELS = (fedex_fold, factor_mean, product_fold, perclient_fold, hetero_fold)
+KERNELS = (fedex_fold, factor_mean, product_fold, product_accum,
+           perclient_fold, hetero_fold)
 
 
 def reset_launch_counts() -> None:
@@ -46,5 +53,6 @@ __all__ = ["KERNELS", "factor_mean", "factor_mean_plain", "fedex_fold",
            "fedex_fold_plain", "fold_error_bound", "hetero_error_bound",
            "hetero_fold", "hetero_fold_plain", "launch_counts",
            "perclient_error_bound", "perclient_fold", "perclient_fold_plain",
+           "product_accum", "product_accum_error_bound", "product_accum_plain",
            "product_error_bound", "product_fold", "product_fold_plain",
            "reset_launch_counts"]

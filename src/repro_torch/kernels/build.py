@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` compiles on first use, with its own ``nvcc``
 process (all started together), into
 ``build/kernels/lib<name>-<hash>.so`` under the checkout root, and exports
-``<name>_launch``; the libraries load with ``ctypes``. The hash covers the
+``<name>_launch`` (``product_fold.cu`` also ``product_accum_launch``); the
+libraries load with ``ctypes``. The hash covers the
 source, the shared ``csrc/*.cuh`` headers and the flags, so an edited source
 never loads a stale library. The sources expose a plain C interface (no
 PyTorch headers), which keeps each build to seconds. Nothing here runs at
@@ -31,19 +32,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _VP, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-# <name>_launch lives in csrc/<name>.cu
+# <name>_launch lives in csrc/<name>.cu, except where SOURCE_OF says
 SIGNATURES = {
     "factor_mean_launch": (_VP, _VP, _VP, _I, _I64, _I64, _VP),
     "fedex_fold_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                           _I64, _I64, _I64, _I64, _F, _VP),
     "product_fold_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                             _I64, _I64, _I64, _I64, _F, _VP),
+    "product_accum_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                             _I64, _I64, _I64, _I64, _F, _VP),
     "perclient_fold_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                               _I64, _I64, _I64, _I64, _F, _VP),
     "hetero_fold_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                            _I, _I, _I, _I64, _I64, _I64, _I64, _I64, _I64,
                            _F, _VP),
 }
+SOURCE_OF = {"product_accum_launch": "product_fold"}
 
 
 def _nvcc() -> str:
@@ -110,7 +114,8 @@ def load_library() -> SimpleNamespace:
             for lib in build()}
     fns = {}
     for name, argtypes in SIGNATURES.items():
-        fn = getattr(libs[name[:-len("_launch")]], name)
+        lib = libs[SOURCE_OF.get(name, name[:-len("_launch")])]
+        fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         fns[name] = fn

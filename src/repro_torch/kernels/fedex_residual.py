@@ -5,6 +5,8 @@ keeps their TPU bodies side by side:
 * :func:`fedex_fold` — W0 + scale·(Σ_c w_c a_c b_c − ā b̄) (fedex close);
 * :func:`product_fold` — W0 + scale·Σ_c s_c a_c b_c, s signed (reinit and
   fedex_svd closes);
+* :func:`product_accum` — acc ← acc + scale·Σ_c s_c a_c b_c in place (the
+  chunked closes' partial fold);
 * :func:`perclient_fold` — W0_c + scale·(Σ_j w_j a_j b_j − a_c b_c) per lane
   (keep_local close);
 * :func:`hetero_fold` — W0_c + scale·(Σ_j w_j (a_j∘mask_j) b_j −
@@ -33,11 +35,12 @@ the reference's ``apply_residual_fused`` path.
   (counting ``fedex_fold.launches``), raises on a failed launch, and takes
   the plain version only for CPU tensors.
 
-The three per-lane folds below follow the same pattern (kernels
-``csrc/product_fold.cu``, ``csrc/perclient_fold.cu``,
-``csrc/hetero_fold.cu``). Their plain versions never multiply a masked lane
-or rank column by zero: they leave it out (the reference's 0·x turns NaN
-into NaN), which on finite data gives the same sums.
+The per-lane folds below follow the same pattern (kernels
+``csrc/product_fold.cu``, which also holds ``product_accum``'s entry,
+``csrc/perclient_fold.cu``, ``csrc/hetero_fold.cu``). Their plain versions
+never multiply a masked lane or rank column by zero: they leave it out (the
+reference's 0·x turns NaN into NaN), which on finite data gives the same
+sums.
 """
 
 from __future__ import annotations
@@ -365,6 +368,77 @@ def product_error_bound(w0: torch.Tensor, a_stack: torch.Tensor,
     mag = w0.float().abs() + abs(scale) * _product_sum(
         a_stack.float().abs(), b_stack.float().abs(), signs.abs())
     return 2 * (c + r + 4) * U * mag
+
+
+# --------------------------------------------------------------------------
+# accumulating product fold (chunked closes): acc += scale·Σ_c s_c a_c b_c
+# --------------------------------------------------------------------------
+
+def product_accum_plain(acc: torch.Tensor, a_stack: torch.Tensor,
+                        b_stack: torch.Tensor, signs: torch.Tensor,
+                        scale: float) -> torch.Tensor:
+    """acc + scale·Σ_c s_c a_c b_c as a new tensor: the lanes summed in slot
+    order first, the sum then added to acc; lanes with s_c = 0 are not
+    read. The function of :func:`product_fold_plain` with acc as W0."""
+    return product_fold_plain(acc, a_stack, b_stack, signs, scale)
+
+
+def _extent(t: torch.Tensor):
+    """[first, last + 1) byte addresses a (possibly strided) tensor spans."""
+    start = t.data_ptr()
+    if t.numel() == 0:
+        return start, start
+    last = sum((size - 1) * stride
+               for size, stride in zip(t.shape, t.stride()))
+    return start, start + (last + 1) * t.element_size()
+
+
+def product_accum(acc: torch.Tensor, a_stack: torch.Tensor,
+                  b_stack: torch.Tensor, signs: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    """acc ← acc + scale·Σ_c s_c·a_c b_c IN PLACE, and returns acc: the
+    chunked close's partial fold of one chunk into its product accumulator.
+    acc is (m, n) or (L, m, n), float32 and contiguous, and shares no
+    storage with the client-leading a_stack (C, [L,] m, r) / b_stack
+    (C, [L,] r, n); ``signs`` is a (C,) float32 vector (zeros mask lanes,
+    which are never read). Replaces the TPU kernel ``product_accum_apply``
+    (CUDA: ``product_accum_launch`` in ``csrc/product_fold.cu``)."""
+    name = "product_accum"
+    c, m, n, r = _check(name, acc, a_stack, b_stack, signs)
+    if not acc.is_contiguous():
+        raise ValueError(f"{name}: acc must be contiguous")
+    lo, hi = _extent(acc)
+    for arg, t in (("a_stack", a_stack), ("b_stack", b_stack)):
+        tlo, thi = _extent(t)
+        if lo < thi and tlo < hi:
+            raise ValueError(f"{name}: acc overlaps the storage of {arg}")
+    if acc.device.type == "cpu":
+        return acc.copy_(product_accum_plain(acc, a_stack, b_stack, signs,
+                                             scale))
+    _check_cuda_layout(name, acc, a_stack, b_stack, (signs,))
+    layers, sa_l, sb_l = _layer_strides(acc, a_stack, b_stack)
+    lib = load_library()
+    with torch.cuda.device(acc.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.product_accum_launch(
+            acc.data_ptr(), a_stack.data_ptr(), b_stack.data_ptr(),
+            signs.data_ptr(), c, layers, m, n, r, a_stack.stride(0), sa_l,
+            b_stack.stride(0), sb_l, float(scale), stream)
+    check_launch(name, code)
+    product_accum.launches += 1
+    return acc
+
+
+product_accum.launches = 0
+
+
+def product_accum_error_bound(acc: torch.Tensor, a_stack: torch.Tensor,
+                              b_stack: torch.Tensor, signs: torch.Tensor,
+                              scale: float) -> torch.Tensor:
+    """Elementwise bound on how far two f32 evaluations of one partial fold
+    may differ: :func:`product_error_bound` with acc as W0,
+    2·(C + r + 4)·u·(|acc| + |scale|·Σ_c |s_c| |a_c| |b_c|)."""
+    return product_error_bound(acc, a_stack, b_stack, signs, scale)
 
 
 # --------------------------------------------------------------------------

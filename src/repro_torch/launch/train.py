@@ -4,8 +4,8 @@ Counterpart of ``repro/launch/train.py --mode host`` for what the port runs:
 the engine closes — ``--method fedex`` with ``--assignment average``,
 ``keep_local`` or ``reinit``, ``--method fedex_svd --svd-rank r'`` and
 ``--method hetero`` / ``--client-ranks`` — with participation sampling,
-``--min-quorum`` and ``--weighting``. Runs on CUDA unless ``--device cpu``
-is given.
+``--min-quorum``, ``--weighting`` and ``--close-chunk`` (the chunked
+streaming close). Runs on CUDA unless ``--device cpu`` is given.
 
 ``--data-vocab`` draws the synthetic corpus from a smaller vocabulary than
 the model's (its transition tensor is dense vocab², ~526 GB at 128,256);
@@ -18,6 +18,8 @@ Examples (CPU, tiny model):
       --vocab 64 --assignment keep_local
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --vocab 64 --method hetero --client-ranks 4,2,1
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --vocab 64 --clients 6 --close-chunk 4 --weighting examples
 """
 
 from __future__ import annotations
@@ -103,6 +105,11 @@ def main(argv=None) -> None:
     ap.add_argument("--weighting", default="uniform",
                     choices=("uniform", "examples"),
                     help="client weights: uniform or example counts n_i/Σn_j")
+    ap.add_argument("--close-chunk", type=int, default=0,
+                    help="chunked streaming round closes: uplinks fold into "
+                         "running accumulators N clients at a time as they "
+                         "arrive (0 = the stacked close; a round of at most "
+                         "N clients always takes the stacked close)")
     ap.add_argument("--engine", default="auto", choices=("auto", "plain"),
                     help="round close: auto = the CUDA kernels on the GPU, "
                          "their plain PyTorch versions on the CPU")
@@ -122,7 +129,7 @@ def main(argv=None) -> None:
                         dirichlet_alpha=args.dirichlet_alpha, seed=args.seed,
                         participation=args.participation,
                         min_quorum=args.min_quorum, weighting=args.weighting,
-                        engine=args.engine)
+                        close_chunk=args.close_chunk, engine=args.engine)
     validate_fed_lora(fed_cfg, lora_cfg)
     cfg = get_config(args.arch)
     if args.vocab:

@@ -283,3 +283,58 @@ def test_new_kernel_counters_count_launches_only(cuda):
             hetero_fold.launches) == tuple(x + 1 for x in before)
     with pytest.raises(ValueError):
         hetero_fold([w0, None], a, b, w, ranks.long(), a[0], b[0], 1.0)
+
+
+# --------------------------------------------------------------------------
+# product_accum (the chunked closes' partial fold)
+#
+# Tolerance: product_accum_error_bound (the kernel sums the same lanes in
+# the same order as its plain version, its rank-k dot products contracted
+# into FMAs in another order than torch.matmul's).
+# --------------------------------------------------------------------------
+
+from repro_torch.kernels import (product_accum,  # noqa: E402
+                                 product_accum_error_bound,
+                                 product_accum_plain)
+
+ACCUM_CASES = [
+    # (C, L, m, n, r, zero-weight lanes)
+    (4, 3, 256, 384, 4, ()),
+    (4, 2, 1000, 777, 16, ()),       # tile-indivisible m and n, rank 16
+    (4, 2, 96, 200, 4, (2, 3)),      # a trailing chunk: 2 rows of 4 written
+    (1, 2, 64, 128, 4, ()),          # one lane
+    (3, 0, 70, 130, 64, ()),         # 2-D acc, > 48 KB shared memory
+]
+
+
+@pytest.mark.parametrize("case", ACCUM_CASES, ids=str)
+def test_product_accum_matches_plain_in_place(cuda, case):
+    c, layers, m, n, r, zero = case
+    acc, a, b, w = _inputs(cuda, c, layers, m, n, r, zero_lanes=zero)
+    s = w * 100.0  # raw ingest weights
+    a[list(zero)] = float("nan")     # unwritten rows: never read
+    b[list(zero)] = float("nan")
+    want = product_accum_plain(acc, a, b, s, 1.0)
+    bound = product_accum_error_bound(acc, a, b, s, 1.0)
+    buf = acc.clone()
+    before = product_accum.launches
+    out = product_accum(buf, a, b, s, 1.0)
+    torch.cuda.synchronize()
+    assert out is buf and product_accum.launches == before + 1
+    assert bool(torch.isfinite(buf).all())
+    assert _within(buf, want, bound)
+
+
+def test_product_accum_refusals_launch_nothing(cuda):
+    acc, a, b, w = _inputs(cuda, 2, 2, 32, 128, 4)
+    before = product_accum.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        product_accum(acc.transpose(-1, -2).contiguous().transpose(-1, -2),
+                      a, b, w, 1.0)
+    with pytest.raises(TypeError):
+        product_accum(acc.double(), a, b, w, 1.0)
+    sq = torch.zeros(2, 2, 16, 16, device=cuda)
+    with pytest.raises(ValueError, match="overlaps"):
+        product_accum(sq[0], sq, torch.zeros(2, 2, 16, 16, device=cuda),
+                      torch.ones(2, device=cuda), 1.0)
+    assert product_accum.launches == before

@@ -153,7 +153,7 @@ def test_nonfinite_uplink_is_quarantined():
 @pytest.mark.parametrize("field,value", [
     ("method", "fedit"), ("method", "ffa"), ("round_deadline", 1.0),
     ("dropout_prob", 0.1), ("async_buffer", 2), ("quantize_uplink", "int8"),
-    ("close_chunk", 2), ("obs", "basic"), ("faults", "nan@0.5"),
+    ("obs", "basic"), ("faults", "nan@0.5"),
     ("checkpoint_dir", "ckpt"), ("dp_clip", 1.0),
 ])
 def test_unported_federation_features_raise(field, value):
