@@ -24,7 +24,17 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    b̄: W0 + s·[w_0 a_0 | … | −ā] [b_0; …; b̄]; ``product_fold``; each produced
    lane one batch for ``perclient_fold`` and ``hetero_fold``;
    ``acc.baddbmm_`` in place for ``product_accum``), which must agree with
-   the kernel within twice its error bound;
+   the kernel within twice its error bound; then the serving kernels:
+   ``lora_matmul`` at one layer's q/k/v/o at prefill (M = 8 × 512) and
+   decode (M = 8) shapes, at M 7 and 1000 with K 777, N 333, r 1 and 16,
+   and at scale 0 against x@w, each within ``lora_matmul_error_bound``
+   (library: ``torch.addmm(x @ w, x @ a, b, alpha=s)``, which must agree
+   within the bound too); ``flash_swa`` through ``swa_attention`` at the
+   prefill shape (B 8, S 512, GQA 24/8, d 128, causal), at S 500 and 333,
+   windows 64, 200 and 1000 (> S) and non-causal, each within rtol 2e-5,
+   atol 4e-5 of ``swa_attention_plain`` at unit-scale inputs (library:
+   ``scaled_dot_product_attention`` in f32 with ``enable_gqa``, an explicit
+   boolean mask for windows; its difference is printed);
 4. main paths: the port's ``FederatedTrainer`` at ``paper-llama3.2-3b``
    full width (28 layers, d 3072, GQA 24/8, vocab 128,256, float32), LoRA
    rank 4, α 8 on q/k/v/o, 4 clients, batch 8 × seq 64 on a 512-token data
@@ -54,7 +64,18 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    The last round of each path is checked against its exactness identity
    (below), and every path's peak memory is printed, the stacked and the
    chunked path of each method side by side;
-5. one JSON line with every ported kernel, then the result line.
+5. serving (``serve_phase``): ``paper-llama3.2-3b`` at full width in
+   float32 with a non-zero rank-4 adapter, batch 8, a 512-token
+   ``make_batch_for`` prompt over the full vocabulary, a bf16 cache of 1024
+   positions: per-step launch counts (one prefill: ``lora_matmul`` 112,
+   ``flash_swa`` 28; one decode step: ``lora_matmul`` 112), the kernel path
+   against the plain path, teacher forcing against the training forward,
+   the adapter's effect (its docstring has the tolerances); then the main
+   path, ``serve()`` with 32 greedy decode steps and the counters set to 0
+   just before, printing prefill ms, decode ms/token, tokens/s and peak
+   memory, and a ``torch.profiler`` breakdown of one prefill and one decode
+   step (device time by kernel, busy share);
+6. one JSON line with every ported kernel, then the result line.
 
 Identities, per adapted leaf, on the last round of each path:
 * fedex: new_W0 + s·ā b̄ = old_W0 + s·Σ_c w_c a_c b_c;
@@ -637,6 +658,184 @@ def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
 
 
 # --------------------------------------------------------------------------
+# phase 3c: the serving kernels (lora_matmul, flash_swa)
+# --------------------------------------------------------------------------
+
+def serving_projections(cfg):
+    """(name, K, N) of the adapted projections of one layer."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    return [("q_proj", d, cfg.num_heads * hd),
+            ("k_proj", d, cfg.num_kv_heads * hd),
+            ("v_proj", d, cfg.num_kv_heads * hd),
+            ("o_proj", cfg.num_heads * hd, d)]
+
+
+def lora_inputs(torch, device, m, k, n, r, seed):
+    """Unit-scale x, w, a, b (N(0, 1), as the reference's kernel tests)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return [torch.randn(*shape, device=device, generator=g)
+            for shape in ((m, k), (k, n), (k, r), (r, n))]
+
+
+def lora_cost(shapes, r):
+    """Bytes (each input read once, the output written once) and flops of
+    lora_matmul over (M, K, N) shapes."""
+    nbytes = flops = 0
+    for m, k, n in shapes:
+        nbytes += 4 * (m * k + k * n + k * r + r * n + m * n)
+        flops += 2 * m * n * k + 2 * m * r * (k + n) + 2 * m * n
+    return nbytes, flops
+
+
+def lora_case(torch, kernels, timer, bufs, scale, label):
+    """Check lora_matmul on each (x, w, a, b) of ``bufs`` against its plain
+    version (and the library call against the kernel) within
+    lora_matmul_error_bound, then time all of them together: kernel, plain,
+    library (``torch.addmm(x @ w, x @ a, b, alpha=s)``, cuBLAS, TF32 off)
+    and the bound. Returns (max error, (ms, plain, library, bound))."""
+    err = 0.0
+    for x, w, a, b in bufs:
+        got = kernels.lora_matmul(x, w, a, b, scale)
+        torch.cuda.synchronize()
+        want = kernels.lora_matmul_plain(x, w, a, b, scale)
+        lib = torch.addmm(x @ w, x @ a, b, alpha=scale)
+        bound = kernels.lora_matmul_error_bound(x, w, a, b, scale)
+        e = (got - want).abs()
+        err = max(err, float(e.max()))
+        ok = bool((e <= bound).all()) and bool(
+            ((lib - got).abs() <= bound).all())
+        if not ok:
+            raise AssertionError(f"lora_matmul {label} {tuple(x.shape)} x "
+                                 f"{tuple(w.shape)} r={a.shape[1]}: disagrees "
+                                 f"with its plain version or the library "
+                                 f"call (max err {err:.3e})")
+        del got, want, lib, bound, e
+    r = bufs[0][2].shape[1]
+    t = (timer(lambda: [kernels.lora_matmul(*buf, scale) for buf in bufs]),
+         timer(lambda: [kernels.lora_matmul_plain(*buf, scale)
+                        for buf in bufs]),
+         timer(lambda: [torch.addmm(x @ w, x @ a, b, alpha=scale)
+                        for x, w, a, b in bufs]),
+         bound_ms(*lora_cost([(x.shape[0], x.shape[1], w.shape[1])
+                              for x, w, _, _ in bufs], r)))
+    ms, plain, lib, (bms, by) = t
+    print(f"  lora_matmul[{label}] max_abs_err={err:.3e} within bound; time "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms "
+          f"(addmm), bound {bms:.4f} ms ({by})", flush=True)
+    return err, t
+
+
+def visible_pairs(torch, device, sq, sk, causal, window):
+    qpos = torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= qpos - kpos < window
+    return mask, int(mask.sum())
+
+
+def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
+               seed):
+    """swa_attention (B, S, H, D) against swa_attention_plain within the
+    reference's f32 tolerance (rtol 2e-5, atol 4e-5) at unit-scale inputs;
+    timed beside the plain version, the bound (4·d flops per visible pair)
+    and ``scaled_dot_product_attention`` in f32 (is_causal, enable_gqa;
+    an explicit boolean mask for windows). Returns (max error, timings)."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    q = torch.randn(b, s, h, d, device=device, generator=g)
+    k = torch.randn(b, s, kvh, d, device=device, generator=g)
+    v = torch.randn(b, s, kvh, d, device=device, generator=g)
+    got = kernels.swa_attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    want = kernels.swa_attention_plain(q, k, v, causal, window)
+    e = (got - want).abs()
+    err = float(e.max())
+    mask, pairs = visible_pairs(torch, device, s, s, causal, window)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    if window:
+        kw = {"attn_mask": mask}
+    else:
+        kw = {"is_causal": causal}
+    lib = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)
+    label = (f"B={b} S={s} H={h}/{kvh} d={d} "
+             f"{'causal' if causal else 'non-causal'} window={window}")
+    # the library call is a yardstick only: its difference is printed
+    lib_err = float((lib.transpose(1, 2) - got).abs().max())
+    if not bool((e <= 4e-5 + 2e-5 * want.abs()).all()):
+        raise AssertionError(f"flash_swa {label}: max err {err:.3e} vs the "
+                             "plain version")
+    del got, want, e, lib
+    nbytes = 4 * (2 * b * s * h * d + 2 * b * s * kvh * d)
+    flops = 4 * d * pairs * b * h
+    t = (timer(lambda: kernels.swa_attention(q, k, v, causal, window)),
+         timer(lambda: kernels.swa_attention_plain(q, k, v, causal, window)),
+         timer(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      enable_gqa=True, **kw)),
+         bound_ms(nbytes, flops))
+    ms, plain, libt, (bms, by) = t
+    print(f"  flash_swa[{label}] max_abs_err={err:.3e} (SDPA {lib_err:.3e}); "
+          f"time kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+          f"{libt:.4f} ms (SDPA), bound {bms:.4f} ms ({by})", flush=True)
+    return err, t
+
+
+def serving_kernel_phase(torch, kernels, device, cfg, *, batch, prompt, r,
+                         scale):
+    """B3 at one layer's four projections at prefill (M = batch·prompt) and
+    decode (M = batch) shapes, odd sizes at r 1 and 16, and scale 0 against
+    the base product; B8 at the prefill shape (GQA through
+    ``swa_attention``) and at S 500 and 333, windows 64, 200 and one larger
+    than S, and non-causal. Each case checked and timed."""
+    timer = Timer(torch, device)
+    projs = serving_projections(cfg)
+    errs = {"lora_matmul": 0.0, "flash_swa": 0.0}
+    timings = {}
+    for label, m in (("prefill", batch * prompt), ("decode", batch)):
+        bufs = [lora_inputs(torch, device, m, k, n, r, seed=30 + i)
+                for i, (_, k, n) in enumerate(projs)]
+        err, timings[f"lora_matmul[{label}]"] = lora_case(
+            torch, kernels, timer, bufs,
+            scale, f"{label} layer: q/k/v/o at M={m}")
+        errs["lora_matmul"] = max(errs["lora_matmul"], err)
+        del bufs
+    for m, k, n, r_e in [(7, 777, 333, 1), (7, 777, 333, 16),
+                         (1000, 777, 333, 16)]:
+        bufs = [lora_inputs(torch, device, m, k, n, r_e, seed=m + r_e)]
+        err, _ = lora_case(torch, kernels, timer, bufs, scale,
+                           f"odd M={m} K={k} N={n} r={r_e}")
+        errs["lora_matmul"] = max(errs["lora_matmul"], err)
+    x, w, a, b = lora_inputs(torch, device, 4096, 3072, 1024, r, seed=5)
+    got = kernels.lora_matmul(x, w, a, b, 0.0)
+    base = torch.matmul(x, w)
+    e = (got - base).abs()
+    if not bool((e <= kernels.lora_matmul_error_bound(x, w, a, b, 0.0)).all()):
+        raise AssertionError("lora_matmul at scale 0 is not the base product")
+    print(f"  lora_matmul[scale 0] vs x@w: max diff {float(e.max()):.3e} "
+          "within bound", flush=True)
+    del x, w, a, b, got, base, e
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    cases = {"prefill": (batch, prompt, h, kvh, hd, True, 0),
+             "S500": (4, 500, h, kvh, hd, True, 0),
+             "S333": (4, 333, h, kvh, hd, True, 0),
+             "window64": (4, 512, h, kvh, hd, True, 64),
+             "window200": (4, 500, h, kvh, hd, True, 200),
+             "window1000": (4, 500, h, kvh, hd, True, 1000),
+             "non-causal": (4, 333, h, kvh, hd, False, 0)}
+    for i, (label, case) in enumerate(cases.items()):
+        err, t = flash_case(torch, kernels, timer, device, *case,
+                            seed=40 + i)
+        errs["flash_swa"] = max(errs["flash_swa"], err)
+        timings[f"flash_swa[{label}]"] = t
+    torch.cuda.empty_cache()
+    return errs, timings
+
+
+# --------------------------------------------------------------------------
 # phase 4: the main paths
 # --------------------------------------------------------------------------
 
@@ -1060,6 +1259,275 @@ def _node(tree, key):
 
 
 # --------------------------------------------------------------------------
+# phase 5: the serving path
+# --------------------------------------------------------------------------
+
+SERVE = {"batch": 8, "prompt": 512, "steps": 32, "max_len": 1024}
+P_TOL = (1e-4, 1e-4)  # (rtol, atol): kernel path vs plain path, f32 alike
+D_TOL = (5e-3, 8e-3)  # teacher-forced decode vs the training forward
+
+
+class plain_ops:
+    """Within the block the serving path runs the kernels' plain versions
+    on the card (``lora_dense_plain``, ``swa_attention_plain``) in place of
+    the kernel wrappers."""
+
+    def __init__(self, kernels):
+        from repro_torch.models import attention, common
+        self.patches = [(common, "lora_dense", kernels.lora_dense_plain),
+                        (attention, "swa_attention",
+                         kernels.swa_attention_plain)]
+
+    def __enter__(self):
+        self.saved = [getattr(mod, name) for mod, name, _ in self.patches]
+        for mod, name, fn in self.patches:
+            setattr(mod, name, fn)
+
+    def __exit__(self, *exc):
+        for (mod, name, _), fn in zip(self.patches, self.saved):
+            setattr(mod, name, fn)
+
+
+def _expect(kernels, name, want):
+    counts = kernels.launch_counts()
+    expected = {k: 0 for k in SOURCES}
+    expected.update(want)
+    print(f"  [serve] launches {name}: {counts}", flush=True)
+    if counts != expected:
+        raise AssertionError(f"serve {name}: kernel launches {counts} != "
+                             f"{expected}")
+
+
+def _allclose(a, b, rtol, atol):
+    err = (a - b).abs()
+    return bool((err <= atol + rtol * b.abs()).all()), float(err.max())
+
+
+def profile_serving(torch, model, params, lora, prefill, decode, batch,
+                    bsz, prompt, max_len, res):
+    """Device time by kernel of one prefill and of one decode step
+    (``torch.profiler``, CUDA activity; the second of two profiled decode
+    steps after three warm ones), and each one's device busy share: device
+    time over the unprofiled host-clock time of ``serve()``'s prefill and
+    mean decode step. Prints the five kernels that take the most device
+    time; returns the device times and busy shares."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_ms(prof, top):
+        # kernels only: an operator's self device time repeats its kernels'
+        rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0]
+        total = sum(ms for _, ms, _ in rows)
+        for name, ms, n in sorted(rows, key=lambda r: -r[1])[:top]:
+            print(f"    {ms:9.3f} ms  {100 * ms / total:5.1f}%  x{n:<5d} "
+                  f"{name[:90]}", flush=True)
+        return total
+
+    with torch.inference_mode():
+        cache = model.init_cache(bsz, max_len, device=params["embed"][
+            "embedding"].device)
+        with profile(activities=[ProfilerActivity.CUDA]) as p_pre:
+            logits, cache = prefill(params, lora, batch, cache)
+            torch.cuda.synchronize()
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        for i in range(3):
+            tok, _, cache = decode(params, lora, tok, cache, prompt + i)
+        with profile(activities=[ProfilerActivity.CUDA]) as p_dec:
+            for i in range(2):
+                tok, _, cache = decode(params, lora, tok, cache,
+                                       prompt + 3 + i)
+            torch.cuda.synchronize()
+        del cache, logits
+    print("  [serve] profile of one prefill, device time by kernel:",
+          flush=True)
+    pre_ms = device_ms(p_pre, 5)
+    print("  [serve] profile of two decode steps, device time by kernel:",
+          flush=True)
+    dec_ms = device_ms(p_dec, 5) / 2
+    out = {"prefill_device_ms": pre_ms,
+           "prefill_busy": pre_ms / res.prefill_ms,
+           "decode_device_ms_per_step": dec_ms,
+           "decode_busy": dec_ms / res.ms_per_token}
+    print(f"  [serve] device time: prefill {pre_ms:.1f} ms "
+          f"({100 * out['prefill_busy']:.0f}% of serve()'s {res.prefill_ms:.1f}"
+          f" ms), decode {dec_ms:.2f} ms a step "
+          f"({100 * out['decode_busy']:.0f}% of {res.ms_per_token:.2f} ms): "
+          f"idle share {100 * (1 - out['prefill_busy']):.0f}% / "
+          f"{100 * (1 - out['decode_busy']):.0f}%", flush=True)
+    return out
+
+
+def serve_phase(torch, kernels, device, cfg):
+    """Serve ``cfg`` at full width with a non-zero adapter (b drawn N(0,
+    0.05²) from a seeded generator; a fresh adapter's b is 0). First the
+    checks, each with the counters set to 0 just before it:
+    * one prefill (``lora_matmul`` 4·L, ``flash_swa`` L launches) and one
+      decode step of the last prompt token (``lora_matmul`` 4·L, no
+      ``flash_swa``);
+    * the prefill's last-position logits against the plain path's on the
+      card (plain projections and ``swa_attention_plain``; no launch),
+      rtol / atol ``P_TOL``;
+    * teacher forcing: prefill(t[:−1]) + decode(t[−1]) against the training
+      forward over t, rtol / atol ``D_TOL`` (the reference's
+      ``tests/test_models_smoke.py``), and the argmax agrees on every row
+      whose top-2 margin exceeds twice that tolerance. Held with an f32
+      cache: with the reference's bf16 cache (what ``serve()`` runs) the
+      decode logits drift from the f32 forward by ≈ 0.12 at this depth and
+      width (2% of the logit scale; the plain path and the adapter-free
+      model drift alike: bf16 K/V entries are off by up to 1.6e-2), far past
+      a tolerance made for 2-layer smoke models. That drift is printed;
+      the CPU tests hold the bf16 cache's casts against the reference;
+    * the adapter moves the prefill logits by more than that tolerance.
+    Then the main path, ``serve()`` itself, with the counters set to 0 just
+    before and read just after. Returns (stats, launches)."""
+    from repro_torch.configs import LoRAConfig
+    from repro_torch.core.lora import init_lora
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+
+    bsz, prompt, steps, max_len = (SERVE[k] for k in
+                                   ("batch", "prompt", "steps", "max_len"))
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    lcfg = LoRAConfig(rank=4, alpha=8.0)
+    with torch.inference_mode():
+        params = model.init(gen, device)
+        lora = init_lora(gen, params, cfg, lcfg)
+        for leaf in lora["layers"]["attn"].values():
+            leaf["b"].normal_(0.0, 0.05, generator=gen)
+    torch.cuda.synchronize()
+    print(f"  [serve] set-up ({cfg.name}, params and a rank-{lcfg.rank} "
+          f"adapter on the card): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    prefill = make_prefill_step(model, lcfg)
+    decode = make_decode_step(model, lcfg)
+    batch = make_batch_for(cfg, bsz, prompt, seed=0, device=device)
+    full = torch.cat([batch["tokens"], batch["targets"][:, -1:]], dim=1)
+
+    with torch.inference_mode():
+        decs, kv = {}, {}
+        for dtype in (torch.float32, torch.bfloat16):
+            kernels.reset_launch_counts()
+            cache = model.init_cache(bsz, max_len, dtype, device=device)
+            pre, cache = prefill(params, lora, batch, cache)
+            torch.cuda.synchronize()
+            _expect(kernels, "one prefill", {"lora_matmul": 4 * L,
+                                             "flash_swa": L})
+            kernels.reset_launch_counts()
+            _, decs[dtype], cache = decode(params, lora, full[:, -1:], cache,
+                                           prompt)
+            torch.cuda.synchronize()
+            _expect(kernels, "one decode step", {"lora_matmul": 4 * L})
+            kv[dtype] = cache["layers"]
+            del cache
+        # the bf16 cache's rounding of the prompt's K/V (the same f32 values
+        # in both; the decode step's own entry has drifted already)
+        kv_diff = max(float((kv[torch.float32][n][:, :, :prompt]
+                             - kv[torch.bfloat16][n][:, :, :prompt]
+                             .float()).abs().max()) for n in ("k", "v"))
+        kv_max = max(float(kv[torch.float32][n].abs().max())
+                     for n in ("k", "v"))
+        print(f"  [serve] bf16 cache vs f32 cache: max |prompt K/V entry diff| "
+              f"{kv_diff:.3e} (max |entry| {kv_max:.3e})", flush=True)
+        del kv
+
+        kernels.reset_launch_counts()
+        with plain_ops(kernels):
+            cache = model.init_cache(bsz, max_len, device=device)
+            pre_plain, cache = prefill(params, lora, batch, cache)
+            del cache
+        torch.cuda.synchronize()
+        _expect(kernels, "the plain path", {})
+        ok, err_plain = _allclose(pre, pre_plain, *P_TOL)
+        print(f"  [serve] prefill last-position logits, kernels vs plain "
+              f"path: max |diff| {err_plain:.3e} (rtol, atol {P_TOL}): "
+              f"ok={ok}", flush=True)
+        if not ok:
+            raise AssertionError("serve: the kernel path's prefill logits "
+                                 "disagree with the plain path's")
+
+        train = model.apply(params, {"tokens": full}, lora=lora,
+                            lora_scale=lcfg.scale)[:, -1].clone()
+        torch.cuda.synchronize()
+        top2 = torch.topk(train, 2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        sure = margin > 2 * (D_TOL[1] + D_TOL[0] * top2[:, 0].abs())
+        errs_tf = {}
+        for dtype, dec in decs.items():
+            got = dec[:, -1]
+            ok, errs_tf[dtype] = _allclose(got, train, *D_TOL)
+            same = got.argmax(-1) == train.argmax(-1)
+            agree = bool(same[sure].all())
+            print(f"  [serve] teacher-forced decode ({dtype} cache) vs the "
+                  f"training forward: max |diff| {errs_tf[dtype]:.3e} (rtol, "
+                  f"atol {D_TOL}): within={ok}; argmax agrees on "
+                  f"{int(same.sum())} of {bsz} rows, on the {int(sure.sum())} "
+                  f"rows whose top-2 margin exceeds 2 x tol: {agree} (margins "
+                  f"{[round(float(x), 4) for x in margin]}; logit scale "
+                  f"{float(train.abs().max()):.3f})", flush=True)
+            if dtype == torch.float32 and not (ok and agree):
+                raise AssertionError("serve: prefill + decode disagree with "
+                                     "the training forward")
+        err_tf, err_tf_bf16 = errs_tf[torch.float32], errs_tf[torch.bfloat16]
+
+        cache = model.init_cache(bsz, max_len, device=device)
+        pre_none, cache = prefill(params, None, batch, cache)
+        del cache
+        moved = float((pre - pre_none).abs().max())
+        tol = D_TOL[1] + D_TOL[0] * float(pre_none.abs().max())
+        print(f"  [serve] the adapter moves the prefill logits by {moved:.3e} "
+              f"(tolerance {tol:.3e})", flush=True)
+        if moved <= tol:
+            raise AssertionError("serve: the adapter does not move the logits "
+                                 "past the tolerance")
+        del pre, pre_plain, pre_none, decs, dec, train, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    res = serve(cfg.name, batch_size=bsz, prompt_len=prompt, steps=steps,
+                max_len=max_len, device=device, params=params, lora=lora)
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    _expect(kernels, f"serve() (1 prefill + {steps} decode steps)",
+            {"lora_matmul": 4 * L * (1 + steps), "flash_swa": L})
+    toks = res.tokens
+    if toks.shape != (bsz, steps + 1) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"serve: bad tokens {toks.shape}")
+    prof = profile_serving(torch, model, params, lora, prefill, decode, batch,
+                           bsz, prompt, max_len, res)
+    stats = {"prefill_ms": res.prefill_ms, "decode_ms_per_token":
+             res.ms_per_token, "decode_tokens_per_s":
+             bsz * steps / (res.decode_ms / 1e3),
+             "prefill_tokens_per_s": bsz * prompt / (res.prefill_ms / 1e3),
+             "peak_gib": peak, "err_plain": err_plain,
+             "err_teacher_forced": err_tf,
+             "err_teacher_forced_bf16_cache": err_tf_bf16,
+             "kv_entry_diff_bf16": kv_diff, "adapter_moves": moved, **prof}
+    print(f"  [serve] {cfg.name} batch {bsz}, prompt {prompt}, {steps} "
+          f"decode steps, bf16 cache of {max_len}: prefill "
+          f"{res.prefill_ms:.1f} ms ({stats['prefill_tokens_per_s']:.0f} "
+          f"tokens/s), decode {res.ms_per_token:.2f} ms/token "
+          f"({stats['decode_tokens_per_s']:.1f} tokens/s over the batch), "
+          f"peak {peak:.2f} GiB; first row {toks[0, :8].tolist()}",
+          flush=True)
+    del params, lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
+# --------------------------------------------------------------------------
 
 SOURCES = {  # kernel → (CUDA source, the TPU kernel it replaces)
     "fedex_fold": ("src/repro_torch/kernels/csrc/fedex_fold.cu",
@@ -1074,6 +1542,10 @@ SOURCES = {  # kernel → (CUDA source, the TPU kernel it replaces)
                     "src/repro/kernels/fedex_residual.py:349"),
     "product_accum": ("src/repro_torch/kernels/csrc/product_fold.cu",
                       "src/repro/kernels/fedex_residual.py:215"),
+    "lora_matmul": ("src/repro_torch/kernels/csrc/lora_matmul.cu",
+                    "src/repro/kernels/lora_matmul.py:46"),
+    "flash_swa": ("src/repro_torch/kernels/csrc/flash_swa.cu",
+                  "src/repro/kernels/flash_swa.py:80"),
 }
 
 
@@ -1099,7 +1571,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
-    print(f"[1/5] environment: python {sys.version.split()[0]}, torch "
+    print(f"[1/6] environment: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           "TF32 off", flush=True)
@@ -1108,22 +1580,26 @@ def main() -> int:
     t = time.perf_counter()
     libs = kbuild.build(verbose=True)
     kbuild.load_library()
-    print(f"[2/5] build: {len(libs)} libraries "
+    print(f"[2/6] build: {len(libs)} libraries "
           f"({', '.join(p.name for p in libs)}) in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
 
     cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
     c, r, scale = 4, 4, 8.0 / 4
-    print(f"[3/5] kernels vs plain versions (C={c}, r={r}, scale={scale})",
+    print(f"[3/6] kernels vs plain versions (C={c}, r={r}, scale={scale})",
           flush=True)
     errs, timings = kernel_phase(torch, kernels, device, cfg, c=c, r=r,
                                  scale=scale)
     lane_errs, lane_timings = lane_kernel_phase(torch, kernels, device, cfg,
                                                 c=c, r=r, scale=scale)
     errs.update(lane_errs)
+    serve_errs, serve_timings = serving_kernel_phase(
+        torch, kernels, device, cfg, batch=SERVE["batch"],
+        prompt=SERVE["prompt"], r=r, scale=scale)
+    errs.update(serve_errs)
     torch.cuda.empty_cache()
 
-    print(f"[4/5] main paths: FederatedTrainer at {cfg.name} full width "
+    print(f"[4/6] main paths: FederatedTrainer at {cfg.name} full width "
           f"({cfg.num_layers} layers, d={cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype})", flush=True)
     launches = {name: 0 for name in SOURCES}
@@ -1171,7 +1647,14 @@ def main() -> int:
                                 "hetero"))
           + f"; the chunked product accumulator is {acc_gib:.2f} GiB",
           flush=True)
-    main_body = {**timings["weighted-partial"], **lane_timings}
+    print(f"[5/6] serving: {cfg.name} at full width, prefill + KV-cache "
+          "greedy decode with a LoRA adapter", flush=True)
+    serve_stats, serve_launches = serve_phase(torch, kernels, device, cfg)
+    for k in ("lora_matmul", "flash_swa"):
+        launches[k] += serve_launches[k]
+    main_body = {**timings["weighted-partial"], **lane_timings,
+                 "lora_matmul": serve_timings["lora_matmul[prefill]"],
+                 "flash_swa": serve_timings["flash_swa[prefill]"]}
     out = []
     for name, (source, replaces) in SOURCES.items():
         ms, plain, lib_ms, (bms, by) = main_body[name]
@@ -1179,8 +1662,9 @@ def main() -> int:
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
                     "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
-    print(f"[5/5] done in {time.perf_counter() - t_start:.1f} s; identity max "
-          f"err per path {json.dumps(identities)}; rounds "
+    print(f"[6/6] done in {time.perf_counter() - t_start:.1f} s; identity max "
+          f"err per path {json.dumps(identities)}; serving "
+          f"{json.dumps(serve_stats)}; rounds "
           + json.dumps([{k: v for k, v in row.items()
                          if k != "client_losses"} for row in all_rows]),
           flush=True)

@@ -19,6 +19,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.util.device import resolve_device
+
 
 def to_batch(seqs: np.ndarray, device: torch.device) -> Dict[str, torch.Tensor]:
     """(N, seq_len + 1) token ids → tokens / targets / loss_mask tensors."""
@@ -69,3 +71,17 @@ class SyntheticLM:
     def to_batch(self, seqs: np.ndarray,
                  device: torch.device) -> Dict[str, torch.Tensor]:
         return to_batch(seqs, device)
+
+
+def make_batch_for(cfg, batch_size: int, seq_len: int, seed: int = 0,
+                   device="cuda") -> Dict[str, torch.Tensor]:
+    """Random batch of the dense family (smoke tests, serving prompts): the
+    reference's ``make_batch_for`` draws — ``integers(0, vocab)`` over
+    (batch, seq_len + 1) — so the token values are the reference's bit for
+    bit, as int64 tensors on ``device``."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"make_batch_for: family {cfg.family!r} is "
+                                  "not ported (dense only)")
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab_size, size=(batch_size, seq_len + 1))
+    return to_batch(toks, resolve_device(device))

@@ -15,6 +15,12 @@
   ``perclient_fold_apply``.
 * :func:`hetero_fold` (``csrc/hetero_fold.cu``) — the rank-masked per-lane
   fold of the hetero close; replaces ``hetero_fold_apply``.
+* :func:`lora_matmul` (``lora_matmul.py``, ``csrc/lora_matmul.cu``) — the
+  fused LoRA projection x@W + scale·(x@a)@b of serving (via
+  :func:`lora_dense`); replaces ``lora_matmul``.
+* :func:`flash_swa` (``flash_swa.py``, ``csrc/flash_swa.cu``) — causal /
+  sliding-window flash attention forward, the prefill attention of serving
+  (via :func:`swa_attention`, GQA in place); replaces ``flash_swa``.
 
 Each wrapper launches its kernel for CUDA tensors (and counts the launch in
 its ``launches`` attribute) and takes the plain version only for CPU
@@ -33,9 +39,15 @@ from repro_torch.kernels.fedex_residual import (fedex_fold, fedex_fold_plain,
                                                 product_accum_plain,
                                                 product_error_bound,
                                                 product_fold, product_fold_plain)
+from repro_torch.kernels.flash_swa import (flash_swa, flash_swa_plain,
+                                           swa_attention, swa_attention_plain)
+from repro_torch.kernels.lora_matmul import (lora_dense, lora_dense_plain,
+                                             lora_matmul,
+                                             lora_matmul_error_bound,
+                                             lora_matmul_plain)
 
 KERNELS = (fedex_fold, factor_mean, product_fold, product_accum,
-           perclient_fold, hetero_fold)
+           perclient_fold, hetero_fold, lora_matmul, flash_swa)
 
 
 def reset_launch_counts() -> None:
@@ -50,9 +62,11 @@ def launch_counts() -> dict:
 
 
 __all__ = ["KERNELS", "factor_mean", "factor_mean_plain", "fedex_fold",
-           "fedex_fold_plain", "fold_error_bound", "hetero_error_bound",
-           "hetero_fold", "hetero_fold_plain", "launch_counts",
-           "perclient_error_bound", "perclient_fold", "perclient_fold_plain",
+           "fedex_fold_plain", "flash_swa", "flash_swa_plain",
+           "fold_error_bound", "hetero_error_bound", "hetero_fold",
+           "hetero_fold_plain", "launch_counts", "lora_dense",
+           "lora_dense_plain", "lora_matmul", "lora_matmul_error_bound",
+           "lora_matmul_plain", "perclient_error_bound", "perclient_fold", "perclient_fold_plain",
            "product_accum", "product_accum_error_bound", "product_accum_plain",
            "product_error_bound", "product_fold", "product_fold_plain",
-           "reset_launch_counts"]
+           "reset_launch_counts", "swa_attention", "swa_attention_plain"]

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` compiles on first use, with its own ``nvcc``
 process (all started together), into
 ``build/kernels/lib<name>-<hash>.so`` under the checkout root, and exports
 ``<name>_launch`` (``product_fold.cu`` also ``product_accum_launch``); the
-libraries load with ``ctypes``. The hash covers the
+libraries load with ``ctypes``. Seven sources: the five fold sources,
+``lora_matmul.cu`` and ``flash_swa.cu``. The hash covers the
 source, the shared ``csrc/*.cuh`` headers and the flags, so an edited source
 never loads a stale library. The sources expose a plain C interface (no
 PyTorch headers), which keeps each build to seconds. Nothing here runs at
@@ -46,6 +47,11 @@ SIGNATURES = {
     "hetero_fold_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                            _I, _I, _I, _I64, _I64, _I64, _I64, _I64, _I64,
                            _F, _VP),
+    "lora_matmul_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F,
+                           _I, _I, _I, _VP),
+    # the 12 (batch, position, head) strides go as a host int64 array
+    "flash_swa_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _I,
+                         _I, _F, _I, _VP),
 }
 SOURCE_OF = {"product_accum_launch": "product_fold"}
 

@@ -1,0 +1,137 @@
+"""Batched serving of the port: prefill + greedy decode with the KV
+cache, of a LoRA-adapted model.
+
+Counterpart of ``repro/launch/serve.py``. The served adapter can be a
+fresh one (``init_lora``: b = 0, a no-op), or what a ``FederatedTrainer``
+aggregated: pass its folded W0 (``params=trainer.params``) and global
+adapter (``lora=trainer.global_lora``). The adapted q/k/v/o projections of
+prefill and decode run the fused LoRA kernel (B3) and the prefill attention
+the flash attention kernel (B8); both take float32 only, so the model runs
+in float32. Runs on CUDA unless ``--device cpu`` is given (the CPU runs the
+kernels' plain versions).
+
+``--pull-from`` (fetch the federation server's current adapter) waits for
+the port of the HTTP client (ROADMAP item 11).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch paper-tiny --batch-size 2 --prompt-len 32 --steps 8
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass, replace
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs import LoRAConfig, get_config
+from repro_torch.core.lora import init_lora
+from repro_torch.data import make_batch_for
+from repro_torch.launch.steps import make_decode_step, make_prefill_step
+from repro_torch.models import build_model
+from repro_torch.util.device import resolve_device
+
+
+@dataclass
+class ServeResult:
+    tokens: np.ndarray   # (batch, steps + 1) int32: the prefill's token first
+    prefill_ms: float    # host clock around the prefill step, synchronised
+    decode_ms: float     # host clock around all decode steps, synchronised
+    steps: int
+
+    @property
+    def ms_per_token(self) -> float:
+        return self.decode_ms / max(self.steps, 1)
+
+
+def serve(arch: str, *, batch_size: int = 2, prompt_len: int = 32,
+          steps: int = 8, max_len: int = 128, rank: int = 4,
+          use_lora: bool = True, seed: int = 0, device="cuda",
+          params: Optional[dict] = None,
+          lora: Optional[dict] = None) -> ServeResult:
+    """Prefill a ``make_batch_for`` prompt of ``prompt_len`` tokens, then
+    ``steps`` greedy decode steps against a bf16 cache of ``max_len``
+    positions. ``params`` / ``lora`` default to the port's own draws from
+    ``seed`` (``lora``: ``init_lora`` from ``seed + 1`` unless
+    ``use_lora=False``; a given ``lora`` is served as it is)."""
+    dev = resolve_device(device)
+    cfg = replace(get_config(arch), dtype="float32")
+    model = build_model(cfg)
+    if params is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = model.init(gen, dev)
+    lora_cfg = LoRAConfig(rank=rank)
+    if lora is None and use_lora:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed + 1)
+        lora = init_lora(gen, params, cfg, lora_cfg)
+    if prompt_len + steps > max_len:
+        raise ValueError(f"serve: prompt {prompt_len} + {steps} steps exceed "
+                         f"the cache's {max_len} positions")
+    batch = make_batch_for(cfg, batch_size, prompt_len, seed=seed, device=dev)
+    cache = model.init_cache(batch_size, max_len, device=dev)
+    prefill = make_prefill_step(model, lora_cfg)
+    decode = make_decode_step(model, lora_cfg)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, lora, batch, cache)
+        next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        sync()
+        t_prefill = time.perf_counter() - t0
+        generated = [next_tok]
+        t0 = time.perf_counter()
+        for i in range(steps):
+            next_tok, logits, cache = decode(params, lora, next_tok, cache,
+                                             prompt_len + i)
+            generated.append(next_tok)
+        sync()
+        t_decode = time.perf_counter() - t0
+        tokens = torch.cat(generated, dim=1).cpu().numpy()
+    return ServeResult(tokens=tokens, prefill_ms=1e3 * t_prefill,
+                       decode_ms=1e3 * t_decode, steps=steps)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; cpu must be asked for)")
+    ap.add_argument("--arch", default="paper-tiny",
+                    help="a registered config of the port (dense family)")
+    ap.add_argument("--batch-size", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--rank", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--no-lora", action="store_true")
+    ap.add_argument("--pull-from", default="",
+                    help="federation server URL (not ported: ROADMAP item 11)")
+    args = ap.parse_args(argv)
+    if args.pull_from:
+        raise NotImplementedError(
+            "--pull-from needs the federation HTTP client, which the port "
+            "does not have yet (ROADMAP item 11)")
+    res = serve(args.arch, batch_size=args.batch_size,
+                prompt_len=args.prompt_len, steps=args.steps,
+                max_len=args.max_len, rank=args.rank,
+                use_lora=not args.no_lora, seed=args.seed, device=args.device)
+    print(f"arch={args.arch} device={args.device} prefill="
+          f"{res.prefill_ms:.1f} ms decode={res.decode_ms:.1f} ms "
+          f"({res.ms_per_token:.2f} ms/token)")
+    print("generated token ids:\n", res.tokens)
+
+
+if __name__ == "__main__":
+    main()

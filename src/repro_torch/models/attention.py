@@ -1,23 +1,32 @@
-"""Attention: GQA with RoPE, blockwise flash attention with its own backward.
+"""Attention: GQA with RoPE, blockwise flash attention with its own backward,
+and the KV cache of serving.
 
-Counterpart of ``repro/models/attention.py``, training path only. The
+Counterpart of ``repro/models/attention.py`` (dense self-attention). The
 reference's ``flash_attention`` is a jnp ``custom_vjp`` (not a Pallas kernel):
 a scan over KV blocks with an online-softmax carry forward, and a backward
 that recomputes the probabilities per block from (q, k, v, lse) instead of
 saving them. Here the same two blockwise functions are plain PyTorch inside a
-``torch.autograd.Function``, with the same GQA grouping, masks and LSE. The
-reference's sharding constraints have no counterpart (one device), and the
-port never routes attention to a library kernel.
+``torch.autograd.Function``, with the same GQA grouping, masks and LSE; the
+training path runs them and :func:`dense`. The serving path (a ``cache``
+given: prefill, or decode with ``decode_position``) runs forward only: its
+adapted projections go through the fused LoRA kernel (``lora_dense``, B3)
+and the prefill attention through the flash attention kernel
+(``swa_attention``, B8); decode attends against the cache with
+:func:`decode_attention`, in plain PyTorch as the reference does in jnp.
+The reference's sharding constraints have no counterpart (one device), and
+the port never routes attention to a library kernel.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.common import Params, apply_rope, dense, maybe_lora
+from repro_torch.kernels.flash_swa import swa_attention
+from repro_torch.models.common import Params, apply_rope, maybe_lora, project
+from repro_torch.util.device import resolve_device
 
 NEG_INF = -1e30
 
@@ -137,25 +146,127 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  block_size)
 
 
+# --------------------------------------------------------------------------
+# KV cache
+# --------------------------------------------------------------------------
+
+def init_kv_cache(batch: int, length: int, kv_heads: int, head_dim: int,
+                  dtype=torch.bfloat16, device="cuda") -> Params:
+    """Zero K/V buffers (batch, length, kv_heads, head_dim) and ``pos``
+    (length,) int32 = −1: the absolute position each slot holds (−1 =
+    empty), so full and ring caches share one code path."""
+    dev = resolve_device(device)
+    return {
+        "k": torch.zeros((batch, length, kv_heads, head_dim), dtype=dtype,
+                         device=dev),
+        "v": torch.zeros((batch, length, kv_heads, head_dim), dtype=dtype,
+                         device=dev),
+        "pos": torch.full((length,), -1, dtype=torch.int32, device=dev),
+    }
+
+
+def cache_write(cache: Params, k_new: torch.Tensor, v_new: torch.Tensor,
+                position: int) -> Params:
+    """Write one step (Sq = 1) at slot ``position % length`` — in place (the
+    reference returns a new cache; the port saves the copy) — and return
+    the cache."""
+    position = int(position)
+    slot = position % cache["k"].shape[1]
+    cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+    cache["pos"][slot] = position
+    return cache
+
+
+def _prefill_cache(cache: Params, k: torch.Tensor, v: torch.Tensor,
+                   positions: torch.Tensor) -> Params:
+    """Fill the cache with the prompt's K/V, left-aligned (the last
+    ``length`` positions if the prompt is longer), zeros and pos −1 past
+    it — in place (reference :401–413)."""
+    length = cache["k"].shape[1]
+    kk, vv, ppos = k[:, -length:], v[:, -length:], positions[-length:]
+    n = kk.shape[1]
+    cache["k"][:, :n] = kk.to(cache["k"].dtype)
+    cache["v"][:, :n] = vv.to(cache["v"].dtype)
+    cache["k"][:, n:] = 0
+    cache["v"][:, n:] = 0
+    cache["pos"][:n] = ppos.to(torch.int32)
+    cache["pos"][n:] = -1
+    return cache
+
+
+def decode_attention(q: torch.Tensor, cache: Params, position: int,
+                     window: int = 0) -> torch.Tensor:
+    """Single-query attention against a (possibly ring) cache, with the
+    reference's casts: q (B, 1, H, Dk) scaled in its own dtype, scores in
+    f32 against K, the softmax's p cast to V's dtype, the PV product summed
+    in f32 and returned in V's dtype, (B, 1, H, Dv)."""
+    b, _, h, dk = q.shape
+    kvh = cache["k"].shape[2]
+    group = h // kvh
+    position = int(position)
+    pos = cache["pos"]
+    valid = (pos >= 0) & (pos <= position)
+    if window:
+        valid = valid & (pos > position - window)
+    qg = q.reshape(b, kvh, group, dk) * dk ** -0.5
+    s = torch.einsum("bkgd,bckd->bkgc", qg.float(), cache["k"].float())
+    s = s.masked_fill(~valid[None, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    vdt = cache["v"].dtype
+    out = torch.einsum("bkgc,bckd->bkgd", p.to(vdt).float(),
+                       cache["v"].float())
+    return out.reshape(b, 1, h, cache["v"].shape[-1]).to(vdt)
+
+
+# --------------------------------------------------------------------------
+# attention block
+# --------------------------------------------------------------------------
+
 def attention_block(cfg, params: Params, x: torch.Tensor, *,
                     lora: Optional[Params] = None, lora_scale: float = 0.0,
-                    positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Causal self-attention over ``x (B, S, d_model)``, training path."""
+                    positions: Optional[torch.Tensor] = None,
+                    cache: Optional[Params] = None,
+                    decode_position: Optional[Union[int, torch.Tensor]] = None
+                    ):
+    """Causal self-attention over ``x (B, S, d_model)``; returns
+    ``(output, cache)`` as the reference does.
+
+    Training: ``cache=None``. Serving: prefill (``cache`` given) fills the
+    cache in place and runs the flash attention kernel; decode
+    (``decode_position`` given, S = 1) writes the step into the cache and
+    attends against it. Serving's adapted projections run the fused LoRA
+    kernel.
+    """
     b, sq, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kvh = cfg.num_heads, cfg.num_kv_heads
-    q = dense(x, params["q_proj"], maybe_lora(lora, "q_proj"), lora_scale)
-    k = dense(x, params["k_proj"], maybe_lora(lora, "k_proj"), lora_scale)
-    v = dense(x, params["v_proj"], maybe_lora(lora, "v_proj"), lora_scale)
-    q = q.reshape(b, sq, h, hd)
-    k = k.reshape(b, sq, kvh, hd)
-    v = v.reshape(b, sq, kvh, hd)
-    if positions is None:
+    serving = cache is not None
+    if decode_position is not None and not serving:
+        raise ValueError("attention_block: decode needs a cache")
+
+    def proj(inp, name):
+        return project(inp, params[name], maybe_lora(lora, name), lora_scale,
+                       serving)
+
+    q = proj(x, "q_proj").reshape(b, sq, h, hd)
+    k = proj(x, "k_proj").reshape(b, sq, kvh, hd)
+    v = proj(x, "v_proj").reshape(b, sq, kvh, hd)
+    if decode_position is not None:
+        # torch.full, not torch.tensor: no blocking host-to-device copy
+        positions = torch.full((1,), int(decode_position), device=x.device)
+    elif positions is None:
         positions = torch.arange(sq, device=x.device)
     if cfg.rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    out = flash_attention(q, k, v)
+    if decode_position is not None:
+        cache_write(cache, k, v, decode_position)
+        out = decode_attention(q, cache, decode_position)
+    elif serving:
+        _prefill_cache(cache, k, v, positions)
+        out = swa_attention(q, k, v, causal=True, window=0)
+    else:
+        out = flash_attention(q, k, v)
     out = out.reshape(b, sq, h * hd).to(x.dtype)
-    out = dense(out, params["o_proj"], maybe_lora(lora, "o_proj"), lora_scale)
-    return out.to(x.dtype)
+    return proj(out, "o_proj").to(x.dtype), cache

@@ -15,6 +15,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.lora_matmul import lora_dense
+
 Params = Dict[str, Any]
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -52,6 +54,19 @@ def dense(x: torch.Tensor, params: Params, lora: Optional[Params] = None,
         a = lora["a"].to(x.dtype)
         b = lora["b"].to(x.dtype)
         y = y + lora_scale * torch.matmul(torch.matmul(x, a), b)
+    if "bias" in params:
+        y = y + params["bias"]
+    return y
+
+
+def project(x: torch.Tensor, params: Params, lora: Optional[Params],
+            lora_scale: float, fused: bool) -> torch.Tensor:
+    """:func:`dense`, or with ``fused`` and an adapter the fused LoRA
+    projection (``kernels.lora_dense``: the B3 kernel on the card, forward
+    only) — the serving path's projections."""
+    if not (fused and lora is not None):
+        return dense(x, params, lora, lora_scale)
+    y = lora_dense(x, params["kernel"], lora["a"], lora["b"], lora_scale)
     if "bias" in params:
         y = y + params["bias"]
     return y

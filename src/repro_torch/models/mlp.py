@@ -6,8 +6,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.common import (Params, activation, dense,
-                                       make_dense_params, maybe_lora)
+from repro_torch.models.common import (Params, activation,
+                                       make_dense_params, maybe_lora, project)
 
 
 def make_mlp_params(gen, cfg, dtype, device, lead=()) -> Params:
@@ -20,11 +20,13 @@ def make_mlp_params(gen, cfg, dtype, device, lead=()) -> Params:
 
 
 def mlp_block(cfg, params: Params, x: torch.Tensor, *,
-              lora: Optional[Params] = None,
-              lora_scale: float = 0.0) -> torch.Tensor:
-    up = dense(x, params["up_proj"], maybe_lora(lora, "up_proj"), lora_scale)
-    gate = dense(x, params["gate_proj"], maybe_lora(lora, "gate_proj"),
-                 lora_scale)
-    h = activation(cfg.act, gate) * up
-    return dense(h, params["down_proj"], maybe_lora(lora, "down_proj"),
-                 lora_scale)
+              lora: Optional[Params] = None, lora_scale: float = 0.0,
+              fused: bool = False) -> torch.Tensor:
+    """``fused`` (serving): adapted projections (``include_mlp``) run the
+    fused LoRA kernel."""
+    def proj(inp, name):
+        return project(inp, params[name], maybe_lora(lora, name), lora_scale,
+                       fused)
+
+    h = activation(cfg.act, proj(x, "gate_proj")) * proj(x, "up_proj")
+    return proj(h, "down_proj")

@@ -1,14 +1,19 @@
-"""Model API: ``build_model(cfg) → Model`` (dense family, training path).
+"""Model API: ``build_model(cfg) → Model`` (dense family).
 
 Counterpart of ``repro/models/model.py``: a namespace of functions closed
 over the config — ``init(gen, device) → params``, ``apply(params, batch,
-lora=…) → logits`` and ``loss(params, batch, lora=…) → (scalar, metrics)``.
+lora=…) → logits``, ``loss(params, batch, lora=…) → (scalar, metrics)``, and
+for serving ``init_cache(batch_size, cache_len, dtype, device) → cache``,
+``prefill(params, batch, cache, lora=…) → (logits, cache)`` and
+``decode_step(params, tokens, cache, position, lora=…) → (logits, cache)``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Any, Callable
+
+import torch
 
 from repro_torch.models import transformer
 from repro_torch.models.common import cross_entropy
@@ -20,6 +25,9 @@ class Model:
     init: Callable
     apply: Callable
     loss: Callable
+    init_cache: Callable
+    prefill: Callable
+    decode_step: Callable
 
 
 def build_model(cfg) -> Model:
@@ -40,4 +48,22 @@ def build_model(cfg) -> Model:
         metrics["total_loss"] = ce
         return ce, metrics
 
-    return Model(cfg=cfg, init=init, apply=apply, loss=loss)
+    def init_cache(batch_size, cache_len, dtype=torch.bfloat16,
+                   device="cuda"):
+        return transformer.init_cache(cfg, batch_size, cache_len, dtype,
+                                      device)
+
+    def prefill(params, batch, cache, lora=None, lora_scale=0.0):
+        return transformer.forward(cfg, params, batch["tokens"], lora=lora,
+                                   lora_scale=lora_scale, mode="prefill",
+                                   cache=cache)
+
+    def decode_step(params, tokens, cache, position, lora=None,
+                    lora_scale=0.0):
+        return transformer.forward(cfg, params, tokens, lora=lora,
+                                   lora_scale=lora_scale, mode="decode",
+                                   cache=cache, position=position)
+
+    return Model(cfg=cfg, init=init, apply=apply, loss=loss,
+                 init_cache=init_cache, prefill=prefill,
+                 decode_step=decode_step)

@@ -1,4 +1,5 @@
-"""Decoder-only stack, dense family: ``make_params`` and the train ``forward``.
+"""Decoder-only stack, dense family: ``make_params``, ``init_cache`` and
+``forward`` (train, prefill and decode).
 
 Counterpart of the dense branch of ``repro/models/transformer.py``. The
 parameter layout is the reference's: every per-layer leaf is stacked on a
@@ -15,10 +16,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.attention import attention_block
+from repro_torch.models.attention import attention_block, init_kv_cache
 from repro_torch.models.common import (Params, apply_norm, dtype_of, embed,
                                        make_dense_params, normal_init, unembed)
 from repro_torch.models.mlp import make_mlp_params, mlp_block
+
+MODES = ("train", "prefill", "decode")
 
 
 def check_supported(cfg) -> None:
@@ -87,25 +90,60 @@ def _layer_slice(tree, i: int):
     return tree[i]
 
 
-def forward(cfg, params: Params, tokens: torch.Tensor, *,
-            lora: Optional[Params] = None,
-            lora_scale: float = 0.0) -> torch.Tensor:
-    """Training forward: tokens (B, S) int → logits (B, S, V) f32."""
+def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
+               device="cuda") -> Params:
+    """KV cache mirroring the stacked layer layout: ``{"layers": {"k", "v":
+    (L, batch, cache_len, KVH, hd), "pos": (L, cache_len)}}`` (the dense
+    branch of the reference's ``init_cache``; windowed ring caches are
+    refused with the windows by :func:`check_supported`)."""
     check_supported(cfg)
+    one = init_kv_cache(batch, cache_len, cfg.num_kv_heads,
+                        cfg.resolved_head_dim, dtype, device)
+    return {"layers": {k: torch.stack([v] * cfg.num_layers)
+                       for k, v in one.items()}}
+
+
+def forward(cfg, params: Params, tokens: torch.Tensor, *,
+            lora: Optional[Params] = None, lora_scale: float = 0.0,
+            mode: str = "train", cache: Optional[Params] = None,
+            position=None):
+    """tokens (B, S) int → logits (B, S, V) f32.
+
+    ``mode="train"`` returns the logits. ``"prefill"`` (prompt tokens, a
+    cache from :func:`init_cache`) and ``"decode"`` (one token a row, its
+    absolute ``position``) return ``(logits, cache)``; they run forward only,
+    through the serving kernels, and update the cache in place.
+    """
+    check_supported(cfg)
+    if mode not in MODES:
+        raise ValueError(f"forward: mode {mode!r} not in {MODES}")
+    if (mode == "train") != (cache is None):
+        raise ValueError(f"forward: mode {mode!r} "
+                         f"{'takes no' if mode == 'train' else 'needs a'} "
+                         "cache")
+    if (mode == "decode") != (position is not None):
+        raise ValueError("forward: a decode position goes with mode='decode' "
+                         "only")
     x = embed(params["embed"], tokens)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    positions = (None if mode == "decode"
+                 else torch.arange(tokens.shape[1], device=tokens.device))
     lora = lora or {}
     layers, layers_lora = params["layers"], lora.get("layers")
+    layers_cache = None if cache is None else cache["layers"]
     for i in range(cfg.num_layers):
         p = _layer_slice(layers, i)
         lo = _layer_slice(layers_lora, i) or {}
         h_in = apply_norm(cfg.norm, p["attn_norm"], x)
-        x = x + attention_block(cfg, p["attn"], h_in, lora=lo.get("attn"),
-                                lora_scale=lora_scale, positions=positions)
+        attn, _ = attention_block(cfg, p["attn"], h_in, lora=lo.get("attn"),
+                                  lora_scale=lora_scale, positions=positions,
+                                  cache=_layer_slice(layers_cache, i),
+                                  decode_position=position)
+        x = x + attn
         m_in = apply_norm(cfg.norm, p["mlp_norm"], x)
         x = x + mlp_block(cfg, p["mlp"], m_in, lora=lo.get("mlp"),
-                          lora_scale=lora_scale)
+                          lora_scale=lora_scale, fused=cache is not None)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     tied = params["embed"]["embedding"] if cfg.tie_embeddings else None
-    return unembed(params.get("lm_head", {}), x, tied_embedding=tied,
-                   lora=lora.get("lm_head"), lora_scale=lora_scale)
+    logits = unembed(params.get("lm_head", {}), x, tied_embedding=tied,
+                     lora=lora.get("lm_head"), lora_scale=lora_scale)
+    return logits if cache is None else (logits, cache)

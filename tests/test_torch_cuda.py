@@ -338,3 +338,163 @@ def test_product_accum_refusals_launch_nothing(cuda):
         product_accum(sq[0], sq, torch.zeros(2, 2, 16, 16, device=cuda),
                       torch.ones(2, device=cuda), 1.0)
     assert product_accum.launches == before
+
+
+# --------------------------------------------------------------------------
+# lora_matmul (B3) and flash_swa (B8), the serving kernels
+#
+# Tolerances: lora_matmul sums K in another order than torch.matmul (blocked
+# or split K, FMA-contracted), so it is held to lora_matmul_error_bound:
+# 2·(K + r + 4) unit roundoffs of |x|@|w| + |s|·(|x|@|a|)@|b|. flash_swa is
+# held to the reference's own f32 kernel tolerance (tests/test_kernels.py):
+# rtol 2e-5, atol 4e-5, at unit-scale inputs.
+# --------------------------------------------------------------------------
+
+from repro_torch.kernels import (flash_swa, flash_swa_plain,  # noqa: E402
+                                 lora_matmul, lora_matmul_error_bound,
+                                 lora_matmul_plain, swa_attention,
+                                 swa_attention_plain)
+
+LORA_MM_CASES = [
+    # (M, K, N, r)
+    (256, 384, 512, 4),      # tiled, aligned
+    (1000, 777, 333, 16),    # tiled, odd K and N (scalar loads)
+    (300, 64, 130, 64),      # tiled, r 64: > 48 KB shared memory
+    (8, 3072, 1024, 4),      # split-K, the decode k/v_proj shape
+    (7, 777, 333, 1),        # split-K, odd
+    (7, 777, 333, 16),
+    (16, 100, 50, 64),       # split-K at its largest M
+    (1, 8, 8, 1),
+]
+
+
+def _lora_inputs(dev, m, k, n, r, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return [torch.randn(*s, generator=g).to(dev)
+            for s in ((m, k), (k, n), (k, r), (r, n))]
+
+
+@pytest.mark.parametrize("case", LORA_MM_CASES, ids=str)
+def test_lora_matmul_matches_plain(cuda, case):
+    x, w, a, b = _lora_inputs(cuda, *case)
+    before = lora_matmul.launches
+    got = lora_matmul(x, w, a, b, 0.7)
+    torch.cuda.synchronize()
+    assert lora_matmul.launches == before + 1
+    want = lora_matmul_plain(x, w, a, b, 0.7)
+    assert _within(got, want, lora_matmul_error_bound(x, w, a, b, 0.7))
+
+
+def test_lora_matmul_scale_zero_and_refusals(cuda):
+    x, w, a, b = _lora_inputs(cuda, 64, 96, 80, 4)
+    got = lora_matmul(x, w, a, b, 0.0)
+    want = torch.matmul(x, w)
+    assert _within(got, want, lora_matmul_error_bound(x, w, a, b, 0.0))
+    before = lora_matmul.launches
+    with pytest.raises(ValueError, match="rank"):
+        lora_matmul(x, w, torch.ones(96, 65, device=cuda),
+                    torch.ones(65, 80, device=cuda), 1.0)
+    with pytest.raises(TypeError):
+        lora_matmul(x.half(), w, a, b, 1.0)
+    with pytest.raises(ValueError, match="grad"):
+        lora_matmul(x, w.requires_grad_(True), a, b, 1.0)
+    assert lora_matmul.launches == before
+
+
+def _close_f32(got, want):
+    return bool(((got - want).abs() <= 4e-5 + 2e-5 * want.abs()).all())
+
+
+FLASH_CASES = [
+    # (BH, S, d, causal, window)
+    (4, 256, 64, True, 0),
+    (4, 500, 128, True, 0),      # S not a multiple of the 64-row tiles
+    (2, 333, 128, True, 64),
+    (2, 333, 128, True, 200),
+    (2, 500, 128, True, 1000),   # window larger than S
+    (2, 256, 128, False, 0),
+    (2, 100, 32, False, 30),
+    (2, 70, 50, True, 0),        # d not a multiple of 4: scalar loads
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_swa_matches_plain(cuda, case):
+    bh, s, d, causal, window = case
+    g = torch.Generator(device="cpu").manual_seed(s + d)
+    q, k, v = (torch.randn(bh, s, d, generator=g).to(cuda) for _ in range(3))
+    before = flash_swa.launches
+    got = flash_swa(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert flash_swa.launches == before + 1
+    assert _close_f32(got, flash_swa_plain(q, k, v, causal, window))
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d", [(2, 512, 24, 8, 128),
+                                         (2, 100, 6, 3, 64)])
+def test_swa_attention_gqa_reads_kv_heads_in_place(cuda, b, s, h, kvh, d):
+    g = torch.Generator(device="cpu").manual_seed(h)
+    q = torch.randn(b, s, h, d, generator=g).to(cuda)
+    k, v = (torch.randn(b, s, kvh, d, generator=g).to(cuda) for _ in range(2))
+    got = swa_attention(q, k, v, causal=True, window=0)
+    torch.cuda.synchronize()
+    assert _close_f32(got, swa_attention_plain(q, k, v, True, 0))
+    # the same as flash_swa over the repeated heads in (BH, S, D) layout
+    rep = h // kvh
+    flat = [t.transpose(1, 2).reshape(b * h, s, d).contiguous() for t in
+            (q, k.repeat_interleave(rep, 2), v.repeat_interleave(rep, 2))]
+    ref = flash_swa_plain(*flat).reshape(b, h, s, d).transpose(1, 2)
+    assert _close_f32(got, ref)
+
+
+def test_serving_kernel_path_matches_plain_path(cuda, monkeypatch):
+    """paper-tiny prefill + one decode step through the kernels (16 + 16
+    lora_matmul and 4 flash_swa launches) against the same run with the
+    plain versions patched in: prefill logits rtol / atol 1e-4; decode
+    logits rtol 5e-3, atol 8e-3, since a K/V entry whose f32 value differs
+    in the last bits can round to the bf16 cache the other way."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import init_lora
+    from repro_torch.data import make_batch_for
+    from repro_torch.models import attention, build_model
+    from repro_torch.models import common as model_common
+
+    cfg = dataclasses.replace(get_config("paper-tiny"), dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init(gen, cuda)
+    lora = init_lora(gen, params, cfg, LoRAConfig())
+    for leaf in lora["layers"]["attn"].values():
+        leaf["b"].normal_(0.0, 0.02, generator=gen)
+    batch = make_batch_for(cfg, 2, 40, seed=0, device=cuda)
+
+    def run(adapter=lora):
+        cache = model.init_cache(2, 64, device=cuda)
+        with torch.inference_mode():
+            pre, cache = model.prefill(params, batch, cache, lora=adapter,
+                                       lora_scale=2.0)
+            dec, _ = model.decode_step(params, batch["targets"][:, -1:],
+                                       cache, 40, lora=adapter,
+                                       lora_scale=2.0)
+        torch.cuda.synchronize()
+        return pre, dec
+
+    kernels.reset_launch_counts()
+    pre, dec = run()
+    counts = kernels.launch_counts()
+    assert (counts["lora_matmul"], counts["flash_swa"]) == (32, 4)
+    # the adapter moves the logits past the comparisons' tolerances
+    pre_none, dec_none = run(None)
+    assert float((pre - pre_none).abs().max()) > 1e-4 + 1e-4 * float(
+        pre_none.abs().max())
+    assert float((dec - dec_none).abs().max()) > 8e-3 + 5e-3 * float(
+        dec_none.abs().max())
+    monkeypatch.setattr(model_common, "lora_dense", kernels.lora_dense_plain)
+    monkeypatch.setattr(attention, "swa_attention",
+                        kernels.swa_attention_plain)
+    pre_p, dec_p = run()
+    torch.testing.assert_close(pre, pre_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dec, dec_p, rtol=5e-3, atol=8e-3)
