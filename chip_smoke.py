@@ -24,7 +24,15 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    b̄: W0 + s·[w_0 a_0 | … | −ā] [b_0; …; b̄]; ``product_fold``; each produced
    lane one batch for ``perclient_fold`` and ``hetero_fold``;
    ``acc.baddbmm_`` in place for ``product_accum``), which must agree with
-   the kernel within twice its error bound; then the serving kernels:
+   the kernel within twice its error bound. ``product_accum`` (B5) must
+   also equal its old body (``product_fold`` with acc as W0 and out)
+   bitwise at every checked shape: the main chunk (4 uplinks, r 4), the
+   chunk of 64 uplinks at r = 8 that docs/benchmarks.md documents, 16
+   lanes at r 64, an a stack off 16-byte alignment (r 3, odd m), zero
+   lanes in the middle slots and no lane written (acc unchanged, −0 → +0,
+   one launch); both chunks are timed in turns against the old body
+   (``prior_ms``) and ``acc.baddbmm_``, the plain version at the main
+   chunk only; then the serving kernels:
    ``lora_matmul`` at one layer's q/k/v/o at prefill (M = 8 × 512) and
    decode (M = 8) shapes, at M 7 and 1000 with K 777, N 333, r 1 and 16,
    and at scale 0 against x@w, each within ``lora_matmul_error_bound``
@@ -399,18 +407,41 @@ def raw_weights(torch, device, c, live):
     return s
 
 
+def bits(torch, x):
+    return x.contiguous().view(torch.int32)
+
+
 def lane_case(torch, kernels, device, kind, c, lead, m, n, r, live, ranks,
-              scale, seed):
-    """One kernel call against its plain version; returns (max err, ok)."""
-    w0, a, b, w = make_inputs(torch, device, c, lead, m, n, r, live, seed)
+              scale, seed, a_offset=0):
+    """One kernel call against its plain version; returns (max err, ok).
+    ``a_offset`` > 0 hands the kernel a view of a larger a stack that starts
+    that many lanes in (a base that need not be 16-byte aligned)."""
+    w0, a, b, w = make_inputs(torch, device, c + a_offset, lead, m, n, r,
+                              live, seed)
+    a, b = a[a_offset:], b[:c]
     poison(torch, a, b, live, ranks if kind == "hetero" else None)
     if kind == "accum":  # w0 plays the accumulator, s the raw ingest weights
         s = raw_weights(torch, device, c, live)
-        acc = w0.clone()
-        got = [kernels.product_accum(acc, a, b, s, 1.0)]
+        if not live:  # signed zeros: the fold turns -0 into +0, nothing else
+            w0[..., 0, :5] = -0.0
+        before = kernels.product_accum.launches
+        acc, prior = w0.clone(), w0.clone()
+        kernels.product_accum(acc, a, b, s, 1.0)
+        kernels.product_fold(prior, a, b, s, 1.0, out=prior)  # the old body
         torch.cuda.synchronize()
         want = [kernels.product_accum_plain(w0, a, b, s, 1.0)]
         bound = [kernels.product_accum_error_bound(w0, a, b, s, 1.0)]
+        # bitwise the old body's result, in one launch; acc + 0 when no
+        # lane is written
+        exact = (torch.equal(bits(torch, acc), bits(torch, prior))
+                 and kernels.product_accum.launches == before + 1
+                 and (bool(live) or torch.equal(bits(torch, acc),
+                                                bits(torch, w0 + 0.0))))
+        if not exact:
+            print(f"  product_accum C={c} m={m} n={n} r={r} differs from the "
+                  "old body's bits or did not launch once", flush=True)
+            return float((acc - want[0]).abs().max()), False
+        got = [acc]
     elif kind == "product":
         s = w.clone()
         s[live[0]] = -s[live[0]]  # signed
@@ -480,7 +511,8 @@ def lane_timing_buffers(torch, kernels, device, kind, c, L, m, n, r, live,
     are views of one (C_out, L, m, n) stack each, so the library call needs
     no copy: lane c's batch is W0_c + s·[w_0 a_0 | … | −a_c] [b_0; …; b_c],
     each lane's factors cut to its rank k_j, the own term (A′ for hetero)
-    zero-padded to r. For accum (``product_accum``) the kernel and the
+    zero-padded to r. For accum (``product_accum``) the kernel, the old
+    body (``prior``: ``product_fold`` with acc as W0 and out) and the
     library call each accumulate into their own copy of acc, in place:
     acc.baddbmm_([s_0 a_0 | …], [b_0; …]) with s the raw ingest weights."""
     w0, a, b, w = make_inputs(torch, device, c, (L,), m, n, r, live, seed)
@@ -490,7 +522,7 @@ def lane_timing_buffers(torch, kernels, device, kind, c, L, m, n, r, live,
     bs = [b[j][..., :k, :] for j, k in zip(live, k_live)]
     ac, bc = torch.cat(wa, dim=-1), torch.cat(bs, dim=-2)
     if kind == "accum":
-        acc, acc_lib = w0.clone(), w0.clone()
+        acc, acc_prior, acc_lib = w0.clone(), w0.clone(), w0.clone()
 
         def check():
             x = kernels.product_accum(w0.clone(), a, b, w, 1.0)
@@ -498,6 +530,8 @@ def lane_timing_buffers(torch, kernels, device, kind, c, L, m, n, r, live,
                     kernels.product_accum_error_bound(w0, a, b, w, 1.0))
 
         return {"kernel": lambda: kernels.product_accum(acc, a, b, w, 1.0),
+                "prior": lambda: kernels.product_fold(acc_prior, a, b, w, 1.0,
+                                                      out=acc_prior),
                 "plain": lambda: kernels.product_accum_plain(w0, a, b, w,
                                                              1.0),
                 "library": lambda: acc_lib.baddbmm_(ac, bc), "check": check}
@@ -558,22 +592,26 @@ def lane_timing_buffers(torch, kernels, device, kind, c, L, m, n, r, live,
 
 
 def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
-    """The three per-lane folds at the main path's leaf shapes (checked per
-    leaf, then timed over one close's 4 leaves) and at edge cases."""
+    """The per-lane folds at the main path's leaf shapes (checked per leaf,
+    then timed over one close's 4 leaves) and at edge cases. Returns the
+    max errors, the timings (kernel, plain, library, bound) of each body,
+    and ``product_accum``'s old-body times (``prior``) of each accum body."""
     timer = Timer(torch, device)
     leaves = main_path_leaves(cfg)
     errs = {"product_fold": 0.0, "perclient_fold": 0.0, "hetero_fold": 0.0,
             "product_accum": 0.0}
-    timings = {}
+    timings, prior = {}, {}
     # the main paths' bodies: reinit and keep_local at 2 live lanes of 4,
-    # the svd fold (one lane at r' = 8), hetero at ranks (4, 2, 1, 3), and
-    # the chunked closes' partial fold of a full chunk of 4 uplinks
+    # the svd fold (one lane at r' = 8), hetero at ranks (4, 2, 1, 3), the
+    # chunked closes' partial fold of a full chunk of 4 uplinks, and of the
+    # chunk of 64 uplinks at r = 8 that docs/benchmarks.md documents
     bodies = {
         "product_fold": ("product", 4, r, (0, 1), None),
         "product_fold[svd]": ("product", 1, 8, (0,), None),
         "perclient_fold": ("perclient", 4, r, (0, 1), None),
         "hetero_fold": ("hetero", 4, r, (0, 1, 2, 3), [4, 2, 1, 3]),
         "product_accum": ("accum", 4, r, (0, 1, 2, 3), None),
+        "product_accum[C64r8]": ("accum", 64, 8, tuple(range(64)), None),
     }
     for body, (kind, c_b, r_b, live, ranks) in bodies.items():
         name = body.split("[")[0]
@@ -582,8 +620,10 @@ def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
                                 n, r_b, live, ranks, scale, seed=10 + i)
             errs[name] = max(errs[name], err)
             print(f"  {body} {leaf} ({L},{m},{n}) C={c_b} r={r_b} live="
-                  f"{live}: max_abs_err={err:.3e} within bound={ok}",
-                  flush=True)
+                  f"{live if len(live) < 8 else f'{len(live)} lanes'}: "
+                  f"max_abs_err={err:.3e} within bound"
+                  f"{' and bitwise equal to the old body' if kind == 'accum' else ''}"
+                  f"={ok}", flush=True)
             if not ok:
                 raise AssertionError(f"{body} {leaf} disagrees with its "
                                      "plain version")
@@ -602,7 +642,18 @@ def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
                     buf[part]()
             return fn
 
-        lib_ms = timer(run("library"))
+        if kind == "accum":
+            # in turns: B5, the old body, the library call, (the plain
+            # version at the main shape only), the old body, B5
+            t1, p1, lib_ms = (timer(run("kernel")), timer(run("prior")),
+                              timer(run("library")))
+            plain = timer(run("plain")) if c_b == c else None
+            p2, t2 = timer(run("prior")), timer(run("kernel"))
+            ms, prior[body] = (t1 + t2) / 2, (p1 + p2) / 2
+            print(f"  time {body}: B5 {t1:.4f} / {t2:.4f} ms, old body "
+                  f"{p1:.4f} / {p2:.4f} ms", flush=True)
+        else:
+            lib_ms = timer(run("library"))
         # the library call's result against the kernel's, on the first leaf
         lib_out, kern_out, bound = bufs[0]["check"]()
         lib_err = float((lib_out - kern_out).abs().max())
@@ -610,16 +661,19 @@ def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
             raise AssertionError(f"{body}: the library call disagrees with "
                                  "the kernel")
         del lib_out, kern_out, bound
+        if kind != "accum":
+            ms, plain = timer(run("kernel")), timer(run("plain"))
         k_out = [] if kind in ("product", "accum") else k_live
-        t = (timer(run("kernel")), timer(run("plain")), lib_ms,
-             bound_ms(*lane_cost(leaves, kind, len(live), k_live, k_out,
-                                 r_b)))
-        timings[body] = t
-        ms, plain, lib, (bms, by) = t
-        print(f"  time {body} one close (4 leaves, live {live}): kernel "
-              f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms "
-              f"(baddbmm, max |library − kernel| {lib_err:.3e}), bound "
-              f"{bms:.4f} ms ({by})", flush=True)
+        bms, by = bound_ms(*lane_cost(leaves, kind, len(live), k_live, k_out,
+                                      r_b))
+        timings[body] = (ms, plain, lib_ms, (bms, by))
+        print(f"  time {body} one close (4 leaves, {len(live)} live): kernel "
+              f"{ms:.4f} ms"
+              + (f", old body {prior[body]:.4f} ms" if body in prior else "")
+              + (f", plain {plain:.4f} ms" if plain is not None else "")
+              + f", library {lib_ms:.4f} ms (baddbmm, max |library − kernel| "
+              f"{lib_err:.3e}), bound {bms:.4f} ms ({by}, {bms / ms:.0%} of "
+              "it reached)", flush=True)
         del bufs
         torch.cuda.empty_cache()
 
@@ -640,21 +694,32 @@ def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
             if not ok:
                 raise AssertionError(f"edge case {kind}_fold C={c_e} m={m} "
                                      f"n={n} r={r_e} disagrees")
-    # product_accum: odd m, n; rank 16; a trailing chunk with 2 of its 4
-    # rows written (NaN in the other two); one lane
-    for c_e, L, m, n, r_e, live in [(4, 2, 1000, 777, 4, (0, 1, 2, 3)),
-                                    (4, 2, 256, 384, 16, (0, 1, 2, 3)),
-                                    (4, 2, 384, 256, 4, (0, 1)),
-                                    (1, 2, 512, 640, 4, (0,))]:
+    # product_accum, each also bitwise against the old body: odd m, n (the
+    # 4-byte copy variant); rank 16; a trailing chunk with 2 of its 4 rows
+    # written; one lane; 16 lanes at rank 64 (32 slabs of the K axis); an a
+    # stack that starts one lane into its storage (r = 3, odd m: a base off
+    # 16-byte alignment); zero lanes in the middle slots (1, 3); no lane
+    # written (acc unchanged but -0 -> +0). NaN in every unwritten row.
+    for c_e, L, m, n, r_e, live, off in [
+            (4, 2, 1000, 777, 4, (0, 1, 2, 3), 0),
+            (4, 2, 256, 384, 16, (0, 1, 2, 3), 0),
+            (4, 2, 384, 256, 4, (0, 1), 0),
+            (1, 2, 512, 640, 4, (0,), 0),
+            (16, 2, 256, 384, 64, tuple(range(16)), 0),
+            (4, 3, 255, 384, 3, (0, 1, 2, 3), 1),
+            (4, 2, 384, 256, 4, (0, 2), 0),
+            (4, 2, 256, 384, 4, (), 0)]:
         err, ok = lane_case(torch, kernels, device, "accum", c_e, (L,), m, n,
-                            r_e, live, None, scale, seed=99)
+                            r_e, live, None, scale, seed=99, a_offset=off)
         errs["product_accum"] = max(errs["product_accum"], err)
         print(f"  edge product_accum C={c_e} L={L} m={m} n={n} r={r_e} "
-              f"written={live}: err {err:.3e} ok={ok}", flush=True)
+              f"written={live}{f' a offset {off} lane' if off else ''}: err "
+              f"{err:.3e} ok (bound, bitwise old body, one launch)={ok}",
+              flush=True)
         if not ok:
             raise AssertionError(f"edge case product_accum C={c_e} m={m} "
                                  f"n={n} r={r_e} disagrees")
-    return errs, timings
+    return errs, timings, prior
 
 
 # --------------------------------------------------------------------------
@@ -1540,7 +1605,7 @@ SOURCES = {  # kernel → (CUDA source, the TPU kernel it replaces)
                        "src/repro/kernels/fedex_residual.py:277"),
     "hetero_fold": ("src/repro_torch/kernels/csrc/hetero_fold.cu",
                     "src/repro/kernels/fedex_residual.py:349"),
-    "product_accum": ("src/repro_torch/kernels/csrc/product_fold.cu",
+    "product_accum": ("src/repro_torch/kernels/csrc/product_accum.cu",
                       "src/repro/kernels/fedex_residual.py:215"),
     "lora_matmul": ("src/repro_torch/kernels/csrc/lora_matmul.cu",
                     "src/repro/kernels/lora_matmul.py:46"),
@@ -1590,8 +1655,8 @@ def main() -> int:
           flush=True)
     errs, timings = kernel_phase(torch, kernels, device, cfg, c=c, r=r,
                                  scale=scale)
-    lane_errs, lane_timings = lane_kernel_phase(torch, kernels, device, cfg,
-                                                c=c, r=r, scale=scale)
+    lane_errs, lane_timings, lane_prior = lane_kernel_phase(
+        torch, kernels, device, cfg, c=c, r=r, scale=scale)
     errs.update(lane_errs)
     serve_errs, serve_timings = serving_kernel_phase(
         torch, kernels, device, cfg, batch=SERVE["batch"],
@@ -1662,6 +1727,14 @@ def main() -> int:
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
                     "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+    # B5 beside its old body (product_fold in place), and at the chunk of
+    # 64 uplinks at r = 8 that docs/benchmarks.md documents
+    ms, _, lib_ms, (bms, by) = lane_timings["product_accum[C64r8]"]
+    out[list(SOURCES).index("product_accum")].update({
+        "prior_ms": lane_prior["product_accum"], "C64r8_ms": ms,
+        "C64r8_prior_ms": lane_prior["product_accum[C64r8]"],
+        "C64r8_library_ms": lib_ms, "C64r8_bound_ms": bms,
+        "C64r8_bound_by": by})
     print(f"[6/6] done in {time.perf_counter() - t_start:.1f} s; identity max "
           f"err per path {json.dumps(identities)}; serving "
           f"{json.dumps(serve_stats)}; rounds "

@@ -7,9 +7,9 @@
   weighted client mean of stacked factors; replaces ``lora_factor_mean``.
 * :func:`product_fold` (``csrc/product_fold.cu``) — W0 + scale·Σ s_c a_c b_c
   with signed s (reinit, fedex_svd); replaces ``product_fold_apply``.
-* :func:`product_accum` (``csrc/product_fold.cu``, entry
-  ``product_accum_launch``) — acc ← acc + scale·Σ_c s_c a_c b_c in place,
-  the chunked closes' partial fold; replaces ``product_accum_apply``.
+* :func:`product_accum` (``csrc/product_accum.cu``) — acc ← acc +
+  scale·Σ_c s_c a_c b_c in place, the chunked closes' partial fold;
+  replaces ``product_accum_apply``.
 * :func:`perclient_fold` (``csrc/perclient_fold.cu``) — every delivered
   lane's own W0_c + scale·(Σ w_j a_j b_j − a_c b_c) (keep_local); replaces
   ``perclient_fold_apply``.

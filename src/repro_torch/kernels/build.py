@@ -3,11 +3,10 @@
 Each ``csrc/<name>.cu`` compiles on first use, with its own ``nvcc``
 process (all started together), into
 ``build/kernels/lib<name>-<hash>.so`` under the checkout root, and exports
-``<name>_launch`` (``product_fold.cu`` also ``product_accum_launch``); the
-libraries load with ``ctypes``. Seven sources: the five fold sources,
-``lora_matmul.cu`` and ``flash_swa.cu``. The hash covers the
-source, the shared ``csrc/*.cuh`` headers and the flags, so an edited source
-never loads a stale library. The sources expose a plain C interface (no
+``<name>_launch``; the libraries load with ``ctypes``. Eight sources, one
+per TPU kernel: ``factor_mean.cu``, the five fold sources,
+``lora_matmul.cu`` and ``flash_swa.cu``. The hash covers the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source never loads a stale library. The sources expose a plain C interface (no
 PyTorch headers), which keeps each build to seconds. Nothing here runs at
 import time: the CPU tests import every module on a machine without
 ``nvcc``.
@@ -33,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _VP, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-# <name>_launch lives in csrc/<name>.cu, except where SOURCE_OF says
+# <name>_launch lives in csrc/<name>.cu
 SIGNATURES = {
     "factor_mean_launch": (_VP, _VP, _VP, _I, _I64, _I64, _VP),
     "fedex_fold_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
@@ -53,7 +52,6 @@ SIGNATURES = {
     "flash_swa_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _I,
                          _I, _F, _I, _VP),
 }
-SOURCE_OF = {"product_accum_launch": "product_fold"}
 
 
 def _nvcc() -> str:
@@ -120,8 +118,7 @@ def load_library() -> SimpleNamespace:
             for lib in build()}
     fns = {}
     for name, argtypes in SIGNATURES.items():
-        lib = libs[SOURCE_OF.get(name, name[:-len("_launch")])]
-        fn = getattr(lib, name)
+        fn = getattr(libs[name[:-len("_launch")]], name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         fns[name] = fn

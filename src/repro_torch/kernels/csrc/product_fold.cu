@@ -1,5 +1,4 @@
-// Signed product fold into W0, and its accumulating twin, for Hopper
-// (sm_90a).
+// Signed product fold into W0, for Hopper (sm_90a).
 //
 // product_fold_launch replaces the TPU kernel
 // kernels/fedex_residual.py::product_fold_apply (body _kernel_product;
@@ -10,16 +9,10 @@
 //
 // with a SIGNED per-lane vector s and no mean subtraction: the reinit close
 // folds the ideal update (s = w), the fedex_svd close one factored rank-r'
-// residual (one lane, s = [1]).
-//
-// product_accum_launch replaces kernels/fedex_residual.py::
-// product_accum_apply (the same body with input_output_aliases={1: 0};
-// wrapper ops.product_accum): acc = acc + scale * sum_c s_c (a_c @ b_c),
-// in place, the running accumulator in W0's role. The chunked round close
-// folds each chunk of uplinks into its (L, m, n) product accumulator with
-// it (scale 1, s = the chunk's raw ingest weights). Per output element the
-// lanes are summed in slot order first and the sum is then added to acc,
-// the reference's association.
+// residual (one lane, s = [1]). Per output element the lanes are summed in
+// slot order first and the sum is then added to W0, the reference's
+// association. (The accumulating twin, product_accum_apply, has its own
+// body in product_accum.cu, which rounds as this one does.)
 //
 // Layout: W0 / out are (L, m, n) contiguous; a is (C, L, m, r) and b is
 // (C, L, r, n) addressed through their client and layer strides, trailing
@@ -97,8 +90,7 @@ product_fold_kernel(const float* w0, float* out, const float* __restrict__ a,
 
 }  // namespace
 
-// Both entries launch on `stream` and return cudaGetLastError() (0 =
-// launched).
+// Launches on `stream` and returns cudaGetLastError() (0 = launched).
 extern "C" int product_fold_launch(const float* w0, float* out, const float* a,
                                    const float* b, const float* s,
                                    int num_clients, int num_layers, int m,
@@ -113,15 +105,4 @@ extern "C" int product_fold_launch(const float* w0, float* out, const float* a,
                         static_cast<cudaStream_t>(stream)>>>(
       w0, out, a, b, s, num_clients, m, n, r, sa_c, sa_l, sb_c, sb_l, scale);
   return (int)cudaGetLastError();
-}
-
-// acc += scale * sum_c s_c (a_c @ b_c) in place: product_fold_kernel with
-// acc as both W0 and out (each element is read, then written, by one thread).
-extern "C" int product_accum_launch(float* acc, const float* a, const float* b,
-                                    const float* s, int num_clients,
-                                    int num_layers, int m, int n, int r,
-                                    int64_t sa_c, int64_t sa_l, int64_t sb_c,
-                                    int64_t sb_l, float scale, void* stream) {
-  return product_fold_launch(acc, acc, a, b, s, num_clients, num_layers, m, n,
-                             r, sa_c, sa_l, sb_c, sb_l, scale, stream);
 }

@@ -36,7 +36,7 @@ the reference's ``apply_residual_fused`` path.
   the plain version only for CPU tensors.
 
 The per-lane folds below follow the same pattern (kernels
-``csrc/product_fold.cu``, which also holds ``product_accum``'s entry,
+``csrc/product_fold.cu``, ``csrc/product_accum.cu``,
 ``csrc/perclient_fold.cu``, ``csrc/hetero_fold.cu``). Their plain versions
 never multiply a masked lane or rank column by zero: they leave it out (the
 reference's 0·x turns NaN into NaN), which on finite data gives the same
@@ -402,7 +402,8 @@ def product_accum(acc: torch.Tensor, a_stack: torch.Tensor,
     storage with the client-leading a_stack (C, [L,] m, r) / b_stack
     (C, [L,] r, n); ``signs`` is a (C,) float32 vector (zeros mask lanes,
     which are never read). Replaces the TPU kernel ``product_accum_apply``
-    (CUDA: ``product_accum_launch`` in ``csrc/product_fold.cu``)."""
+    (CUDA: ``csrc/product_accum.cu``, bitwise equal to
+    :func:`product_fold` with ``out=acc``)."""
     name = "product_accum"
     c, m, n, r = _check(name, acc, a_stack, b_stack, signs)
     if not acc.is_contiguous():

@@ -340,6 +340,48 @@ def test_product_accum_refusals_launch_nothing(cuda):
     assert product_accum.launches == before
 
 
+# product_accum has its own body (csrc/product_accum.cu) that rounds as the
+# old one did, product_fold with acc as W0 and out: the two must agree
+# bitwise, whatever the lanes, slabs and alignment.
+ACCUM_BITWISE_CASES = [
+    # (C, L, m, n, r, zero-weight lanes, a offset in lanes)
+    (4, 3, 256, 384, 4, (), 0),
+    (4, 2, 1000, 777, 4, (), 0),        # n % 4 != 0: the 4-byte copies
+    (16, 2, 256, 384, 64, (), 0),       # 32 slabs of the K axis
+    (4, 3, 255, 384, 3, (), 1),         # a's base off 16-byte alignment
+    (4, 2, 384, 256, 4, (1, 3), 0),     # zero lanes in the middle slots
+    (4, 2, 256, 384, 4, (0, 1, 2, 3), 0),  # no lane written
+    (64, 1, 192, 256, 8, (), 0),        # the documented chunk of 64 at r 8
+    (300, 1, 64, 256, 1, tuple(range(1, 300, 3)), 0),  # > 256 signs
+]
+
+
+@pytest.mark.parametrize("case", ACCUM_BITWISE_CASES, ids=str)
+def test_product_accum_bitwise_equals_old_body(cuda, case):
+    c, layers, m, n, r, zero, off = case
+    acc, a, b, w = _inputs(cuda, c + off, layers, m, n, r)
+    a, b, s = a[off:], b[:c], w[:c] * 100.0
+    s[list(zero)] = 0.0
+    a[list(zero)] = float("nan")     # unwritten rows: never read
+    b[list(zero)] = float("nan")
+    acc[..., 0, :3] = -0.0
+    old = acc.clone()
+    product_fold(old, a, b, s, 1.0, out=old)
+    buf = acc.clone()
+    before = product_accum.launches
+    product_accum(buf, a, b, s, 1.0)
+    torch.cuda.synchronize()
+    assert product_accum.launches == before + 1
+    assert torch.equal(buf.view(torch.int32), old.view(torch.int32))
+    assert bool(torch.isfinite(buf).all())
+    if len(zero) == c:  # acc + 0: only -0 turns into +0
+        assert torch.equal(buf.view(torch.int32),
+                           (acc + 0.0).view(torch.int32))
+    else:
+        assert _within(buf, product_accum_plain(acc, a, b, s, 1.0),
+                       product_accum_error_bound(acc, a, b, s, 1.0))
+
+
 # --------------------------------------------------------------------------
 # lora_matmul (B3) and flash_swa (B8), the serving kernels
 #
