@@ -9,7 +9,9 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
 1. environment: torch/CUDA versions and the card's name and power limit;
    TF32 off for matmuls and cuDNN (the folds' exactness is f32's);
 2. build: one ``nvcc`` per kernel source, all in parallel, into
-   ``build/kernels/``;
+   ``build/kernels/``, with ``-Xptxas -v``; the registers, spills and
+   static shared memory of ``lora_matmul``'s kernels (the tiled body, its
+   x@a prepasses, the split-K grids) are summed up on lines of their own;
 3. kernels: ``fedex_fold`` (both bodies), ``factor_mean`` (both bodies),
    ``product_fold``, ``perclient_fold``, ``hetero_fold`` and
    ``product_accum`` against their plain PyTorch versions at the main
@@ -35,7 +37,10 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    chunk only; then the serving kernels:
    ``lora_matmul`` at one layer's q/k/v/o at prefill (M = 8 × 512) and
    decode (M = 8) shapes, at M 7 and 1000 with K 777, N 333, r 1 and 16,
-   and at scale 0 against x@w, each within ``lora_matmul_error_bound``
+   at the tiled body's edges (M 17 and 4095; r 64 and 0 at the prefill
+   q_proj shape; an x view one row into its storage with K 777, so not
+   16-byte aligned) and at scale 0 against x@w, each within
+   ``lora_matmul_error_bound``
    (library: ``torch.addmm(x @ w, x @ a, b, alpha=s)``, which must agree
    within the bound too); ``flash_swa`` through ``swa_attention`` at the
    prefill shape (B 8, S 512, GQA 24/8, d 128, causal), at S 500 and 333,
@@ -83,7 +88,10 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    just before, printing prefill ms, decode ms/token, tokens/s and peak
    memory, and a ``torch.profiler`` breakdown of one prefill and one decode
    step (device time by kernel, busy share);
-6. one JSON line with every ported kernel, then the result line.
+6. one JSON line with every ported kernel (B3's row also carries its
+   decode body's time, library time and bound at one decode layer:
+   ``decode_ms``, ``decode_library_ms``, ``decode_bound_ms``), then the
+   result line.
 
 Identities, per adapted leaf, on the last round of each path:
 * fedex: new_W0 + s·ā b̄ = old_W0 + s·Σ_c w_c a_c b_c;
@@ -116,9 +124,12 @@ squares the Grams and keeps about half of the f32 digits.
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -131,6 +142,37 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12    # H100 SXM data sheet, f32 outside the tensor cores
 U = 2.0 ** -24
 REPS, WARMUP = 20, 3
+
+
+def ptxas_summary(text: str, prefix: str) -> list:
+    """One line per kernel whose name starts with ``prefix``, from ``nvcc
+    -Xptxas -v`` output: registers, spill stores/loads and static shared
+    memory."""
+    lines, out = text.splitlines(), []
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line:
+            continue
+        fn = line.split("'")[1]
+        # the mangled name: the identifier (lower case) ends at the template
+        # arguments (I Lb1E Li16E ... E) or at the nested name's end (E)
+        found = re.search(re.escape(prefix) + r"[a-z0-9_]*", fn)
+        if found is None:
+            continue
+        name, rest = found.group(0), fn[found.end():]
+        if rest.startswith("I"):
+            args = [("true" if t == "Lb1" else "false") if t[:2] == "Lb"
+                    else t[2:] for t in rest[1:rest.index("EE") + 1].split("E")
+                    if t]
+            name += f"<{', '.join(args)}>"
+        props = " ".join(lines[i + 1:i + 4])
+        regs = props.split("Used ")[1].split(" registers")[0]
+        stores = props.split(" bytes spill stores")[0].rsplit(" ", 1)[-1]
+        loads = props.split(" bytes spill loads")[0].rsplit(" ", 1)[-1]
+        smem = (props.split(" bytes smem")[0].rsplit(" ", 1)[-1]
+                if " bytes smem" in props else "0")
+        out.append(f"{name}: {regs} registers, spill stores {stores} B, "
+                   f"spill loads {loads} B, static shared memory {smem} B")
+    return out
 
 
 def smi_line() -> str:
@@ -852,10 +894,12 @@ def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
 def serving_kernel_phase(torch, kernels, device, cfg, *, batch, prompt, r,
                          scale):
     """B3 at one layer's four projections at prefill (M = batch·prompt) and
-    decode (M = batch) shapes, odd sizes at r 1 and 16, and scale 0 against
-    the base product; B8 at the prefill shape (GQA through
-    ``swa_attention``) and at S 500 and 333, windows 64, 200 and one larger
-    than S, and non-causal. Each case checked and timed."""
+    decode (M = batch) shapes, odd sizes at r 1 and 16, the tiled body's
+    edges (M 17 and 4095, r 64 and 0 at the prefill q_proj shape, an x view
+    off 16-byte alignment), and scale 0 against the base product; B8 at the
+    prefill shape (GQA through ``swa_attention``) and at S 500 and 333,
+    windows 64, 200 and one larger than S, and non-causal. Each case checked
+    and timed."""
     timer = Timer(torch, device)
     projs = serving_projections(cfg)
     errs = {"lora_matmul": 0.0, "flash_swa": 0.0}
@@ -868,12 +912,29 @@ def serving_kernel_phase(torch, kernels, device, cfg, *, batch, prompt, r,
             scale, f"{label} layer: q/k/v/o at M={m}")
         errs["lora_matmul"] = max(errs["lora_matmul"], err)
         del bufs
+    # odd sizes on both bodies, and the tiled body's edges: its first M
+    # (17), rows ragged against its 128-row tile (4095), r 64 and r 0 (x@w
+    # alone) at the prefill q_proj shape
+    d, nq = projs[0][1], projs[0][2]
     for m, k, n, r_e in [(7, 777, 333, 1), (7, 777, 333, 16),
-                         (1000, 777, 333, 16)]:
+                         (1000, 777, 333, 16), (17, d, nq, r),
+                         (4095, d, projs[1][2], r), (batch * prompt, d, nq, 64),
+                         (batch * prompt, d, nq, 0)]:
         bufs = [lora_inputs(torch, device, m, k, n, r_e, seed=m + r_e)]
         err, _ = lora_case(torch, kernels, timer, bufs, scale,
-                           f"odd M={m} K={k} N={n} r={r_e}")
+                           f"edge M={m} K={k} N={n} r={r_e}")
         errs["lora_matmul"] = max(errs["lora_matmul"], err)
+        del bufs
+    # x one row into its storage with an odd K: not 16-byte aligned, so the
+    # tiled body takes its 4-byte copies
+    x, w, a, b = lora_inputs(torch, device, 1001, 777, 333, r, seed=9)
+    view = [x[1:], w, a, b]
+    if view[0].data_ptr() % 16 == 0:
+        raise AssertionError("the misaligned case is 16-byte aligned")
+    err, _ = lora_case(torch, kernels, timer, [view], scale,
+                       "x view one row in, M=1000 K=777 N=333")
+    errs["lora_matmul"] = max(errs["lora_matmul"], err)
+    del x, w, a, b, view
     x, w, a, b = lora_inputs(torch, device, 4096, 3072, 1024, r, seed=5)
     got = kernels.lora_matmul(x, w, a, b, 0.0)
     base = torch.matmul(x, w)
@@ -1643,11 +1704,18 @@ def main() -> int:
     print(smi, flush=True)
 
     t = time.perf_counter()
-    libs = kbuild.build(verbose=True)
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        libs = kbuild.build(verbose=True)
+    print(log.getvalue(), end="", flush=True)
     kbuild.load_library()
     print(f"[2/6] build: {len(libs)} libraries "
           f"({', '.join(p.name for p in libs)}) in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
+    b3 = ptxas_summary(log.getvalue().split("nvcc liblora_matmul")[-1]
+                       .split("\nnvcc ")[0], "lora_mm_")
+    for line in b3 or ["lora_matmul: library already built, no ptxas report"]:
+        print(f"  ptxas {line}", flush=True)
 
     cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
     c, r, scale = 4, 4, 8.0 / 4
@@ -1727,6 +1795,11 @@ def main() -> int:
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
                     "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+    # B3's decode body (split-K) at one decode layer's q/k/v/o
+    ms, _, lib_ms, (bms, _) = serve_timings["lora_matmul[decode]"]
+    out[list(SOURCES).index("lora_matmul")].update({
+        "decode_ms": ms, "decode_library_ms": lib_ms,
+        "decode_bound_ms": bms})
     # B5 beside its old body (product_fold in place), and at the chunk of
     # 64 uplinks at r = 8 that docs/benchmarks.md documents
     ms, _, lib_ms, (bms, by) = lane_timings["product_accum[C64r8]"]

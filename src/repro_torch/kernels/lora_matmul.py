@@ -6,12 +6,14 @@ Replaces the TPU kernel ``repro/kernels/lora_matmul.py::lora_matmul`` (body
 projection through :func:`lora_dense`: 4 launches a layer.
 
 * CUDA kernel: ``csrc/lora_matmul.cu``. IEEE f32 on CUDA cores (TF32 stays
-  off). For M > 16 a register-tiled SIMT GEMM (128 × 128 block tiles, K
-  streamed through shared memory, the rank-r x@a partial kept on chip and
-  folded in with b at the end); bound by operations at prefill shapes. For
-  M ≤ 16 (decode) a split-K body whose grid fills the card (chunks of K
-  sized by :func:`_split_plan`) and a second grid that sums the partials in
-  chunk order and adds the adapter term; bound by bytes (W read once).
+  off). For M > 16 a prepass grid writes x@a (M × r) into a work buffer,
+  then a register-tiled SIMT GEMM (128 × 128 block tiles, K streamed in
+  slices of 64 through a 2-stage cp.async ring in shared memory) adds
+  scale·(x@a)@b in its epilogue; bound by operations at prefill shapes.
+  For M ≤ 16 (decode) a split-K body whose grid fills the card (chunks of
+  K sized by :func:`_split_plan`) and a second grid that sums the partials
+  in chunk order and adds the adapter term; bound by bytes (W read once).
+  :func:`_work_floats` sizes either body's work buffer.
 * Plain version :func:`lora_matmul_plain`: the reference oracle
   ``ref.lora_matmul_ref``'s order, ``x@w + scale·((x@a)@b)`` in f32. The CPU
   path and the tests use it; nothing on the card's main path does.
@@ -105,6 +107,13 @@ def _split_plan(n: int, k: int, sms: int):
     return -(-k // kc), kc
 
 
+def _work_floats(m: int, n: int, r: int, splits: int) -> int:
+    """Floats of the kernel's work buffer: the split-K body's partial
+    products and x@a per chunk (splits·M·(N + r)), or the tiled body's x@a
+    (M·r; none at r = 0)."""
+    return splits * m * (n + r) if splits else m * r
+
+
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, scale: float) -> torch.Tensor:
     """x (M, K) @ w (K, N) + scale·(x @ a (K, r)) @ b (r, N) → a new (M, N)
@@ -130,8 +139,9 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     if m <= SKINNY_ROWS:
         sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         splits, kc = _split_plan(n, k, sms)
-        work = torch.empty(splits * m * (n + r), dtype=torch.float32,
-                           device=x.device)
+    nwork = _work_floats(m, n, r, splits)
+    if nwork:
+        work = torch.empty(nwork, dtype=torch.float32, device=x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream

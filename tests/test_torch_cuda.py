@@ -402,6 +402,20 @@ LORA_MM_CASES = [
     (256, 384, 512, 4),      # tiled, aligned
     (1000, 777, 333, 16),    # tiled, odd K and N (scalar loads)
     (300, 64, 130, 64),      # tiled, r 64: > 48 KB shared memory
+    # the tiled body's edges: its first M, rows ragged against its 128-row
+    # tile, K shorter than one 64-deep slice or ragged against it, odd N,
+    # and r 0 (x@w alone), 1, 3 and 64 at the prefill width
+    (17, 3072, 3072, 4),
+    (4095, 3072, 1024, 4),
+    (1000, 3072, 3072, 4),
+    (300, 5, 130, 4),
+    (256, 3076, 512, 4),
+    (1000, 777, 512, 4),
+    (512, 3072, 333, 4),
+    (4096, 3072, 3072, 0),
+    (4096, 3072, 3072, 1),
+    (4096, 3072, 1024, 3),
+    (4096, 3072, 3072, 64),
     (8, 3072, 1024, 4),      # split-K, the decode k/v_proj shape
     (7, 777, 333, 1),        # split-K, odd
     (7, 777, 333, 16),
@@ -419,6 +433,21 @@ def _lora_inputs(dev, m, k, n, r, seed=0):
 @pytest.mark.parametrize("case", LORA_MM_CASES, ids=str)
 def test_lora_matmul_matches_plain(cuda, case):
     x, w, a, b = _lora_inputs(cuda, *case)
+    before = lora_matmul.launches
+    got = lora_matmul(x, w, a, b, 0.7)
+    torch.cuda.synchronize()
+    assert lora_matmul.launches == before + 1
+    want = lora_matmul_plain(x, w, a, b, 0.7)
+    assert _within(got, want, lora_matmul_error_bound(x, w, a, b, 0.7))
+
+
+@pytest.mark.parametrize("m,k,n", [(1000, 777, 333), (4096, 3071, 1024)])
+def test_lora_matmul_misaligned_x_view(cuda, m, k, n):
+    """x one row into its storage with an odd K: not 16-byte aligned, so the
+    tiled body takes its 4-byte copies."""
+    base, w, a, b = _lora_inputs(cuda, m + 1, k, n, 4, seed=k)
+    x = base[1:]
+    assert x.data_ptr() % 16 != 0
     before = lora_matmul.launches
     got = lora_matmul(x, w, a, b, 0.7)
     torch.cuda.synchronize()
