@@ -2,6 +2,8 @@
 """Chip smoke run of the PyTorch/CUDA port on one NVIDIA GPU (Hopper, sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --launch-cost SRC   # the launch-path costs only
+    python3 chip_smoke.py --decode-sweep      # B3's split-K plans
 
 Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
 ``sys.path`` itself and runs, each phase raising on failure:
@@ -10,18 +12,24 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    TF32 off for matmuls and cuDNN (the folds' exactness is f32's);
 2. build: one ``nvcc`` per kernel source, all in parallel, into
    ``build/kernels/``, with ``-Xptxas -v``; the registers, spills and
-   static shared memory of ``lora_matmul``'s kernels (the tiled body, its
-   x@a prepasses, the split-K grids) are summed up on lines of their own;
+   static shared memory of ``factor_mean``'s grouped kernel and of
+   ``lora_matmul``'s kernels (the tiled body, its x@a prepasses, the
+   split-K body) are summed up on lines of their own;
 3. kernels: ``fedex_fold`` (both bodies), ``factor_mean`` (both bodies),
    ``product_fold``, ``perclient_fold``, ``hetero_fold`` and
    ``product_accum`` against their plain PyTorch versions at the main
    path's leaf shapes and at edge cases (odd m, n; one lane at rank 8; 3
    live lanes of 8; rank 16; hetero ranks −1, 0 and ragged; a trailing
    chunk with 2 of 4 rows written; masked lanes, unwritten rows and rank
-   columns filled with NaN), each timed with CUDA events (median of 20
-   after warm-up, the 50 MB L2 flushed before each repetition) beside its
-   plain version, its bound on the card and one PyTorch call that computes
-   the same function: ``torch.tensordot`` (``factor_mean``), or
+   columns filled with NaN), each timed (:class:`Timer`: host-inclusive
+   CUDA-event medians of 20 after warm-up, and for the main body the
+   device time that ``torch.profiler`` records, the 50 MB L2 flushed
+   before each repetition) beside its plain version, its bound on the card
+   and one PyTorch call that computes the same function: 8
+   ``torch.tensordot`` calls against one grouped ``factor_mean`` launch over
+   a close's a and b stacks (bitwise the plain version, also over a group
+   that mixes 16-byte and 4-byte tensors with NaN / Inf in its zero-weight
+   lanes, uniform, and in accumulate mode), or
    ``torch.baddbmm`` over concatenated factors (``fedex_fold``, given ā and
    b̄: W0 + s·[w_0 a_0 | … | −ā] [b_0; …; b̄]; ``product_fold``; each produced
    lane one batch for ``perclient_fold`` and ``hetero_fold``;
@@ -36,11 +44,12 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    (``prior_ms``) and ``acc.baddbmm_``, the plain version at the main
    chunk only; then the serving kernels:
    ``lora_matmul`` at one layer's q/k/v/o at prefill (M = 8 × 512) and
-   decode (M = 8) shapes, at M 7 and 1000 with K 777, N 333, r 1 and 16,
+   decode (M = 8) shapes, the split-K body at M 1, 7, 9 and 16 and r 0,
+   16 and 64, at M 7, 9, 16 and 1000 with K 777, N 333, r 1, 16 and 64,
    at the tiled body's edges (M 17 and 4095; r 64 and 0 at the prefill
    q_proj shape; an x view one row into its storage with K 777, so not
    16-byte aligned) and at scale 0 against x@w, each within
-   ``lora_matmul_error_bound``
+   ``lora_matmul_error_bound`` and each run twice, bitwise equal
    (library: ``torch.addmm(x @ w, x @ a, b, alpha=s)``, which must agree
    within the bound too); ``flash_swa`` through ``swa_attention`` at the
    prefill shape (B 8, S 512, GQA 24/8, d 128, causal), at S 500 and 333,
@@ -55,12 +64,13 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    0 just before it and read just after, and its trainer freed after it:
    * fedex: one uniform full-participation round, then two rounds with
      example weighting at 50% participation (``fedex_fold`` 4 and
-     ``factor_mean`` 8 per weighted close);
+     ``factor_mean`` 1 per weighted close: one grouped launch over the a
+     and b stacks of the 4 leaves);
    * reinit and keep_local: two rounds each at 50% participation with
      example weighting (``product_fold`` 4; ``perclient_fold`` 4 per close);
    * fedex_svd (r' = 8): two rounds of all 4 clients with example weighting,
      so the residual's rank (up to 12) exceeds r' (``product_fold`` 4 and
-     ``factor_mean`` 8 per close);
+     ``factor_mean`` 1 per close);
    * hetero with client ranks (4, 2, 1, 3): two rounds (``hetero_fold`` 4
      per close);
    * the chunked streaming closes (``close_chunk=4``, 6 clients, every
@@ -70,7 +80,8 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
      keep_local, fedex_svd (r' = 8; the residual has rank up to 20) and
      hetero (ranks 4, 2, 1, 3, 4, 2), one round each. Chunk 0 (slots 0–3)
      and chunk 1 (slots 4 and 5, 2 of its 4 rows written) each fold at
-     ingest once their uplinks are in: ``factor_mean`` 16 and
+     ingest once their uplinks are in: ``factor_mean`` 2 (one grouped
+     launch a chunk, accumulating into the running sums) and
      ``product_accum`` 8 per round (fedex_svd: ``product_accum`` 0), no
      stacked fold kernel. Each fold is timed (eager at ingest, or flushed
      in the close).
@@ -88,10 +99,19 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    just before, printing prefill ms, decode ms/token, tokens/s and peak
    memory, and a ``torch.profiler`` breakdown of one prefill and one decode
    step (device time by kernel, busy share);
-6. one JSON line with every ported kernel (B3's row also carries its
-   decode body's time, library time and bound at one decode layer:
-   ``decode_ms``, ``decode_library_ms``, ``decode_bound_ms``), then the
-   result line.
+6. one JSON line with every ported kernel: ``ms`` and ``library_ms``
+   host-inclusive, ``device_ms`` and ``library_device_ms`` the profiler's
+   device time, at the main body; B2's row adds one close's launch path
+   (``close_wall_us``, ``close_enqueue_us``: :func:`launch_cost`), B3's
+   its decode body at one decode layer (``decode_ms``,
+   ``decode_library_ms``, ``decode_bound_ms``, ``decode_device_ms``,
+   ``decode_library_device_ms``, ``decode_wall_us``,
+   ``decode_enqueue_us``); then the result line.
+
+``--launch-cost SRC`` runs :func:`launch_cost` alone on the port found
+under ``SRC`` (another tree's ``src`` too, to compare two trees in one
+call) and prints it as one JSON line; ``--decode-sweep`` times B3's
+split-K body at every plan (:func:`decode_sweep`).
 
 Identities, per adapted leaf, on the last round of each path:
 * fedex: new_W0 + s·ā b̄ = old_W0 + s·Σ_c w_c a_c b_c;
@@ -108,7 +128,8 @@ Identities, per adapted leaf, on the last round of each path:
 
 Tolerances. ``factor_mean`` rounds each product and sum like separate
 PyTorch ops, in the same slot order, so it must match its plain version
-within 2·C unit roundoffs of Σ|w||x| (in practice bitwise). The folds sum
+within 2·C unit roundoffs of Σ|w||x| at every leaf, and bitwise over a
+close's group and the group edge cases. The folds sum
 the same terms in the same lane order as their plain versions, but their
 rank-r dot products are FMA-contracted in another order than
 ``torch.matmul``; each is held to its error bound (``fold_error_bound``,
@@ -126,6 +147,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import importlib
 import io
 import json
 import math
@@ -189,13 +211,22 @@ def smi_line() -> str:
 # --------------------------------------------------------------------------
 
 class Timer:
-    """Median device time of ``fn`` over REPS repetitions (after WARMUP),
-    each bracketed by its own CUDA events with the L2 flushed just before."""
+    """Two clocks for ``fn`` on the card, each over REPS repetitions after
+    WARMUP, the L2 flushed before each repetition:
+    * ``timer(fn)``: host-inclusive ms, the median of CUDA-event pairs
+      around each repetition (the events are queued by the host, so for a
+      launch-bound job this is the host's launch path);
+    * ``timer.device(fn)``: device ms, the CUDA activity that
+      ``torch.profiler`` records for the repetitions (kernels, copies,
+      fills), the flush's own kernels left out, over REPS. The same method
+      for a kernel and for a library call."""
 
     def __init__(self, torch, device):
         self.torch = torch
         self.flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8,
                                  device=device)
+        # the names of the flush's own device activity, to leave out
+        self.flush_names = set(self._activity(lambda: None, reps=2))
 
     def __call__(self, fn) -> float:
         torch = self.torch
@@ -212,6 +243,33 @@ class Timer:
             pairs.append((start, end))
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+    def _activity(self, fn, reps) -> dict:
+        """Device activity name → total ms over ``reps`` of flush + fn."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+                out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total / 1e3
+        return out
+
+    def device(self, fn) -> float:
+        for _ in range(WARMUP):
+            fn()
+        act = self._activity(fn, REPS)
+        ms = sum(v for k, v in act.items() if k not in self.flush_names)
+        if ms <= 0:
+            raise AssertionError(f"the profiler saw no device activity of "
+                                 f"the timed function: {act}")
+        return ms / REPS
 
 
 # --------------------------------------------------------------------------
@@ -357,10 +415,21 @@ def kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
             for w0, a, b, wts, *_ in bufs:
                 kernels.fedex_fold_plain(w0, a, b, scale, wts)
 
+        # one close's means: a and b of the 4 leaves, one grouped launch
+        group = [x for _, a, b, *_ in bufs for x in (a, b)]
+        got = kernels.factor_mean_group(group, wts)
+        torch.cuda.synchronize()
+        if not all(torch.equal(bits(torch, g), bits(
+                torch, kernels.factor_mean_plain(x, wts)))
+                   for g, x in zip(got, group)):
+            raise AssertionError(f"factor_mean[{body}]: one close's grouped "
+                                 "means are not bitwise the plain version")
+        print(f"  factor_mean[{body}] one grouped launch over the close's "
+              f"{len(group)} stacks: bitwise=True", flush=True)
+        del got
+
         def mean_kernel():
-            for _, a, b, wts, *_ in bufs:
-                kernels.factor_mean(a, wts)
-                kernels.factor_mean(b, wts)
+            kernels.factor_mean_group(group, wts)
 
         def mean_plain():
             for _, a, b, wts, *_ in bufs:
@@ -375,17 +444,26 @@ def kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
                 torch.tensordot(wl, b, dims=1)
 
         c_live = len(live)
+        # device times at the main path's body (2 live lanes of 4) only
+        main = body == "weighted-partial"
         t = {"fedex_fold": (timer(fold_kernel), timer(fold_plain),
                             timer(fold_library),
-                            bound_ms(*fold_cost(leaves, c_live, r))),
+                            bound_ms(*fold_cost(leaves, c_live, r)),
+                            timer.device(fold_kernel) if main else None,
+                            timer.device(fold_library) if main else None),
              "factor_mean": (timer(mean_kernel), timer(mean_plain),
                              timer(mean_library),
-                             bound_ms(*mean_cost(leaves, c_live, r)))}
-        for name, (ms, plain, lib, (bms, by)) in t.items():
-            print(f"  time {name}[{body}] one close (4 leaves): kernel "
-                  f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms "
-                  f"({'baddbmm' if name == 'fedex_fold' else 'tensordot'}), "
-                  f"bound {bms:.4f} ms ({by})", flush=True)
+                             bound_ms(*mean_cost(leaves, c_live, r)),
+                             timer.device(mean_kernel) if main else None,
+                             timer.device(mean_library) if main else None)}
+        for name, (ms, plain, lib, (bms, by), dev, dev_lib) in t.items():
+            print(f"  time {name}[{body}] one close (4 leaves"
+                  f"{', one grouped launch' if name == 'factor_mean' else ''}"
+                  f"): kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+                  f"{lib:.4f} ms ({'baddbmm' if name == 'fedex_fold' else '8 tensordot'}), "
+                  f"bound {bms:.4f} ms ({by})"
+                  + (f"; device time kernel {dev:.4f} ms, library "
+                     f"{dev_lib:.4f} ms" if main else ""), flush=True)
         timings[body] = t
         del bufs
         torch.cuda.empty_cache()
@@ -411,7 +489,51 @@ def kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
             if not (ok and ok2 and ok3):
                 raise AssertionError(f"edge case C={c_e} m={m} n={n} r={r_e} "
                                      f"[{body}] disagrees")
+    mean_group_edges(torch, kernels, device)
     return errs, timings
+
+
+def mean_group_edges(torch, kernels, device):
+    """``factor_mean_group`` bitwise against ``factor_mean_plain`` in one
+    launch each: a group mixing 16-byte and 4-byte tensors (odd counts; a
+    stack one lane into its storage with an odd lane stride) with NaN / Inf
+    in its zero-weight lanes (weighted), the same group uniform, and
+    accumulate mode (acc + mean, as the chunked fold's acc.add_)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(7)
+    c = 6
+    shapes = [(c, 28, 3072, 4), (c, 28, 4, 1024), (c, 3, 1000, 3),
+              (c, 3, 3, 777), (c + 1, 2, 33, 5)]
+    stacks = [torch.randn(*sh, device=device, generator=g) for sh in shapes]
+    stacks[-1] = stacks[-1][1:]  # base 660 bytes in, lane stride 165
+    w = torch.rand(c, device=device, generator=g) + 0.1
+    w[1] = w[4] = 0.0
+    w = w / w.sum()
+    clean = [x.clone() for x in stacks]
+    for x in stacks:
+        x[1] = float("nan")
+        x[4] = float("inf")
+    cases = [("weighted, NaN/Inf lanes", stacks, w, False),
+             ("uniform", clean, None, False),
+             ("accumulate, NaN/Inf lanes", stacks, w, True)]
+    for label, group, wts, acc in cases:
+        priors = [torch.randn(*x.shape[1:], device=device, generator=g)
+                  for x in group]
+        out = [p.clone() for p in priors] if acc else None
+        before = kernels.factor_mean.launches
+        got = kernels.factor_mean_group(group, wts, out=out, accumulate=acc)
+        torch.cuda.synchronize()
+        ok = kernels.factor_mean.launches == before + 1
+        for x, o, p in zip(clean, got, priors):
+            want = kernels.factor_mean_plain(x, wts)
+            ok = ok and torch.equal(bits(torch, o), bits(
+                torch, p + want if acc else want))
+        print(f"  factor_mean group edge [{label}] over {len(group)} stacks "
+              "(16-byte and 4-byte tensors): one launch and bitwise the "
+              f"plain version={ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"factor_mean group edge [{label}] "
+                                 "disagrees")
 
 
 # --------------------------------------------------------------------------
@@ -708,14 +830,16 @@ def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
         k_out = [] if kind in ("product", "accum") else k_live
         bms, by = bound_ms(*lane_cost(leaves, kind, len(live), k_live, k_out,
                                       r_b))
-        timings[body] = (ms, plain, lib_ms, (bms, by))
+        dev, dev_lib = timer.device(run("kernel")), timer.device(run("library"))
+        timings[body] = (ms, plain, lib_ms, (bms, by), dev, dev_lib)
         print(f"  time {body} one close (4 leaves, {len(live)} live): kernel "
               f"{ms:.4f} ms"
               + (f", old body {prior[body]:.4f} ms" if body in prior else "")
               + (f", plain {plain:.4f} ms" if plain is not None else "")
               + f", library {lib_ms:.4f} ms (baddbmm, max |library − kernel| "
               f"{lib_err:.3e}), bound {bms:.4f} ms ({by}, {bms / ms:.0%} of "
-              "it reached)", flush=True)
+              f"it reached); device time kernel {dev:.4f} ms, library "
+              f"{dev_lib:.4f} ms", flush=True)
         del bufs
         torch.cuda.empty_cache()
 
@@ -795,15 +919,19 @@ def lora_cost(shapes, r):
     return nbytes, flops
 
 
-def lora_case(torch, kernels, timer, bufs, scale, label):
+def lora_case(torch, kernels, timer, bufs, scale, label, device_times=False):
     """Check lora_matmul on each (x, w, a, b) of ``bufs`` against its plain
     version (and the library call against the kernel) within
-    lora_matmul_error_bound, then time all of them together: kernel, plain,
-    library (``torch.addmm(x @ w, x @ a, b, alpha=s)``, cuBLAS, TF32 off)
-    and the bound. Returns (max error, (ms, plain, library, bound))."""
+    lora_matmul_error_bound, and a second run bitwise against the first,
+    then time all of them together: kernel, plain, library
+    (``torch.addmm(x @ w, x @ a, b, alpha=s)``, cuBLAS, TF32 off) and the
+    bound; with ``device_times`` also the kernel's and the library call's
+    device time. Returns (max error, (ms, plain, library, bound, device ms,
+    library device ms))."""
     err = 0.0
     for x, w, a, b in bufs:
         got = kernels.lora_matmul(x, w, a, b, scale)
+        again = kernels.lora_matmul(x, w, a, b, scale)
         torch.cuda.synchronize()
         want = kernels.lora_matmul_plain(x, w, a, b, scale)
         lib = torch.addmm(x @ w, x @ a, b, alpha=scale)
@@ -817,19 +945,35 @@ def lora_case(torch, kernels, timer, bufs, scale, label):
                                  f"{tuple(w.shape)} r={a.shape[1]}: disagrees "
                                  f"with its plain version or the library "
                                  f"call (max err {err:.3e})")
-        del got, want, lib, bound, e
+        if not torch.equal(bits(torch, got), bits(torch, again)):
+            raise AssertionError(f"lora_matmul {label} {tuple(x.shape)} x "
+                                 f"{tuple(w.shape)}: two runs differ")
+        del got, again, want, lib, bound, e
+
+    def kernel():
+        for buf in bufs:
+            kernels.lora_matmul(*buf, scale)
+
+    def library():
+        for x, w, a, b in bufs:
+            torch.addmm(x @ w, x @ a, b, alpha=scale)
+
     r = bufs[0][2].shape[1]
-    t = (timer(lambda: [kernels.lora_matmul(*buf, scale) for buf in bufs]),
+    t = (timer(kernel),
          timer(lambda: [kernels.lora_matmul_plain(*buf, scale)
                         for buf in bufs]),
-         timer(lambda: [torch.addmm(x @ w, x @ a, b, alpha=scale)
-                        for x, w, a, b in bufs]),
+         timer(library),
          bound_ms(*lora_cost([(x.shape[0], x.shape[1], w.shape[1])
-                              for x, w, _, _ in bufs], r)))
-    ms, plain, lib, (bms, by) = t
-    print(f"  lora_matmul[{label}] max_abs_err={err:.3e} within bound; time "
-          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms "
-          f"(addmm), bound {bms:.4f} ms ({by})", flush=True)
+                              for x, w, _, _ in bufs], r)),
+         timer.device(kernel) if device_times else None,
+         timer.device(library) if device_times else None)
+    ms, plain, lib, (bms, by), dev, dev_lib = t
+    print(f"  lora_matmul[{label}] max_abs_err={err:.3e} within bound, two "
+          f"runs bitwise equal; time kernel {ms:.4f} ms, plain {plain:.4f} "
+          f"ms, library {lib:.4f} ms (addmm), bound {bms:.4f} ms ({by})"
+          + (f"; device time kernel {dev:.4f} ms ({bms / dev:.0%} of the "
+             f"bound), library {dev_lib:.4f} ms" if device_times else ""),
+          flush=True)
     return err, t
 
 
@@ -845,7 +989,7 @@ def visible_pairs(torch, device, sq, sk, causal, window):
 
 
 def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
-               seed):
+               seed, device_times=False):
     """swa_attention (B, S, H, D) against swa_attention_plain within the
     reference's f32 tolerance (rtol 2e-5, atol 4e-5) at unit-scale inputs;
     timed beside the plain version, the bound (4·d flops per visible pair)
@@ -879,15 +1023,24 @@ def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
     del got, want, e, lib
     nbytes = 4 * (2 * b * s * h * d + 2 * b * s * kvh * d)
     flops = 4 * d * pairs * b * h
-    t = (timer(lambda: kernels.swa_attention(q, k, v, causal, window)),
+
+    def kernel():
+        kernels.swa_attention(q, k, v, causal, window)
+
+    def library():
+        F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)
+
+    t = (timer(kernel),
          timer(lambda: kernels.swa_attention_plain(q, k, v, causal, window)),
-         timer(lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                      enable_gqa=True, **kw)),
-         bound_ms(nbytes, flops))
-    ms, plain, libt, (bms, by) = t
+         timer(library), bound_ms(nbytes, flops),
+         timer.device(kernel) if device_times else None,
+         timer.device(library) if device_times else None)
+    ms, plain, libt, (bms, by), dev, dev_lib = t
     print(f"  flash_swa[{label}] max_abs_err={err:.3e} (SDPA {lib_err:.3e}); "
           f"time kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
-          f"{libt:.4f} ms (SDPA), bound {bms:.4f} ms ({by})", flush=True)
+          f"{libt:.4f} ms (SDPA), bound {bms:.4f} ms ({by})"
+          + (f"; device time kernel {dev:.4f} ms, library {dev_lib:.4f} ms"
+             if device_times else ""), flush=True)
     return err, t
 
 
@@ -909,16 +1062,21 @@ def serving_kernel_phase(torch, kernels, device, cfg, *, batch, prompt, r,
                 for i, (_, k, n) in enumerate(projs)]
         err, timings[f"lora_matmul[{label}]"] = lora_case(
             torch, kernels, timer, bufs,
-            scale, f"{label} layer: q/k/v/o at M={m}")
+            scale, f"{label} layer: q/k/v/o at M={m}", device_times=True)
         errs["lora_matmul"] = max(errs["lora_matmul"], err)
         del bufs
-    # odd sizes on both bodies, and the tiled body's edges: its first M
-    # (17), rows ragged against its 128-row tile (4095), r 64 and r 0 (x@w
+    # odd sizes on both bodies; the split-K body at M 1, 7, 9 and 16 and r
+    # 0, 16 and 64 at the decode widths; the tiled body's edges: its first
+    # M (17), rows ragged against its 128-row tile (4095), r 64 and r 0 (x@w
     # alone) at the prefill q_proj shape
-    d, nq = projs[0][1], projs[0][2]
+    d, nq, nkv = projs[0][1], projs[0][2], projs[1][2]
     for m, k, n, r_e in [(7, 777, 333, 1), (7, 777, 333, 16),
+                         (9, 777, 333, 16), (16, 777, 333, 64),
+                         (1, d, nq, r), (7, d, nkv, r), (9, d, nkv, r),
+                         (16, d, nq, r), (batch, d, nkv, 0),
+                         (batch, d, nkv, 16), (batch, d, nq, 64),
                          (1000, 777, 333, 16), (17, d, nq, r),
-                         (4095, d, projs[1][2], r), (batch * prompt, d, nq, 64),
+                         (4095, d, nkv, r), (batch * prompt, d, nq, 64),
                          (batch * prompt, d, nq, 0)]:
         bufs = [lora_inputs(torch, device, m, k, n, r_e, seed=m + r_e)]
         err, _ = lora_case(torch, kernels, timer, bufs, scale,
@@ -954,7 +1112,7 @@ def serving_kernel_phase(torch, kernels, device, cfg, *, batch, prompt, r,
              "non-causal": (4, 333, h, kvh, hd, False, 0)}
     for i, (label, case) in enumerate(cases.items()):
         err, t = flash_case(torch, kernels, timer, device, *case,
-                            seed=40 + i)
+                            seed=40 + i, device_times=label == "prefill")
         errs["flash_swa"] = max(errs["flash_swa"], err)
         timings[f"flash_swa[{label}]"] = t
     torch.cuda.empty_cache()
@@ -966,40 +1124,41 @@ def serving_kernel_phase(torch, kernels, device, cfg, *, batch, prompt, r,
 # --------------------------------------------------------------------------
 
 # name → (FedConfig fields, rounds, clients, local steps,
-#          {kernel: launches per close per leaf})
+#          {kernel: launches per close per leaf}, {kernel: launches per close})
 CHUNKED = {"close_chunk": 4, "weighting": "examples"}
-# a chunked round of 6 clients folds 2 chunks: per leaf 2 factor_mean (a, b)
-# and 1 product_accum each
-CHUNK_FOLDS = {"factor_mean": 4, "product_accum": 2}
+# a chunked round of 6 clients folds 2 chunks: per chunk one grouped
+# factor_mean launch (a and b of every leaf) and per leaf one product_accum
+CHUNK_FOLDS = ({"product_accum": 2}, {"factor_mean": 2})
 PATHS = {
-    "fedex": ({}, 3, 4, 2, {"fedex_fold": 1, "factor_mean": 2}),
+    "fedex": ({}, 3, 4, 2, {"fedex_fold": 1}, {"factor_mean": 1}),
     "reinit": ({"assignment": "reinit", "participation": 0.5,
-                "weighting": "examples"}, 2, 4, 2, {"product_fold": 1}),
+                "weighting": "examples"}, 2, 4, 2, {"product_fold": 1}, {}),
     "keep_local": ({"assignment": "keep_local", "participation": 0.5,
-                    "weighting": "examples"}, 2, 4, 2, {"perclient_fold": 1}),
+                    "weighting": "examples"}, 2, 4, 2, {"perclient_fold": 1},
+                   {}),
     # all 4 clients: the residual has rank up to 3r = 12, so r' = 8 cuts it
     # (at 2 clients it has rank ≤ r = 4 and the cut would change nothing)
     "fedex_svd": ({"method": "fedex_svd", "svd_rank": 8,
                    "weighting": "examples"}, 2, 4, 2,
-                  {"product_fold": 1, "factor_mean": 2}),
+                  {"product_fold": 1}, {"factor_mean": 1}),
     "hetero": ({"method": "hetero", "client_ranks": (4, 2, 1, 3)}, 2, 4, 2,
-               {"hetero_fold": 1}),
+               {"hetero_fold": 1}, {}),
     # the chunked streaming closes: 6 clients, chunks of 4 (the second
     # holds slots 4 and 5, 2 of its 4 rows written), example weights. 3
     # local steps: the schedule's step 0 has lr 0 and b starts at 0, so in a
     # path's first round the A factors move only from step 2 on, and with 2
     # steps every client would uplink the same A (a zero residual)
-    "fedex[chunked]": (CHUNKED, 2, 6, 3, CHUNK_FOLDS),
+    "fedex[chunked]": (CHUNKED, 2, 6, 3, *CHUNK_FOLDS),
     "reinit[chunked]": ({"assignment": "reinit", **CHUNKED}, 1, 6, 3,
-                        CHUNK_FOLDS),
+                        *CHUNK_FOLDS),
     "keep_local[chunked]": ({"assignment": "keep_local", **CHUNKED}, 1, 6, 3,
-                            CHUNK_FOLDS),
+                            *CHUNK_FOLDS),
     # 6 clients: the residual has rank up to 5r = 20, so r' = 8 cuts it
     "fedex_svd[chunked]": ({"method": "fedex_svd", "svd_rank": 8,
-                            **CHUNKED}, 1, 6, 3, {"factor_mean": 4}),
+                            **CHUNKED}, 1, 6, 3, {}, {"factor_mean": 2}),
     "hetero[chunked]": ({"method": "hetero", "client_ranks": (4, 2, 1, 3, 4,
                                                               2),
-                         "close_chunk": 4}, 1, 6, 3, CHUNK_FOLDS),
+                         "close_chunk": 4}, 1, 6, 3, *CHUNK_FOLDS),
 }
 
 
@@ -1017,7 +1176,7 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
     from repro_torch.models import build_model
     from repro_torch.util.tree import count_params
 
-    fed_kw, rounds, clients, local_steps, _ = PATHS[name]
+    fed_kw, rounds, clients, local_steps, *_ = PATHS[name]
     t0 = time.perf_counter()
     loaders, evals = build_federated_data(data_vocab, clients, seq_len=seq,
                                           batch_size=batch, device=device)
@@ -1675,9 +1834,157 @@ SOURCES = {  # kernel → (CUDA source, the TPU kernel it replaces)
 }
 
 
+def launch_cost(torch, kernels, device, cfg, calls=1000) -> dict:
+    """The host's share of the two launch-bound calls, at the main path's
+    shapes: ``factor_mean`` over one close's a and b stacks (4 leaves, 2
+    live lanes of 4; one grouped call where the package has
+    ``factor_mean_group``, else 8 calls) and ``lora_matmul`` over one decode
+    layer's q/k/v/o (4 calls, M = 8). For each, µs a close or a layer:
+    ``wall_us``, perf_counter over ``calls`` of them synchronised at the end
+    (the device's time included), ``enqueue_us``, the median of 200
+    perf_counter spans around one of them after a synchronise (the host's
+    launch path alone), and ``device_ms`` (:meth:`Timer.device`)."""
+    stacks = []
+    for i, (_, L, m, n) in enumerate(main_path_leaves(cfg)):
+        _, a, b, w = make_inputs(torch, device, 4, (L,), m, n, 4, (0, 1),
+                                 seed=i)
+        stacks += [a, b]
+    bufs = [lora_inputs(torch, device, SERVE["batch"], k, n, 4, seed=30 + i)
+            for i, (_, k, n) in enumerate(serving_projections(cfg))]
+
+    def b2():
+        if hasattr(kernels, "factor_mean_group"):
+            kernels.factor_mean_group(stacks, w)
+        else:
+            for x in stacks:
+                kernels.factor_mean(x, w)
+
+    def b3():
+        for buf in bufs:
+            kernels.lora_matmul(*buf, 2.0)
+
+    out, timer = {}, Timer(torch, device)
+    for name, fn in (("factor_mean", b2), ("lora_matmul", b3)):
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) / calls * 1e6
+        spans = []
+        for _ in range(200):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            spans.append(time.perf_counter() - t)
+        torch.cuda.synchronize()
+        out[name] = {"wall_us": wall,
+                     "enqueue_us": statistics.median(spans) * 1e6,
+                     "device_ms": timer.device(fn)}
+    return out
+
+
+def decode_sweep(torch, kernels, device, cfg) -> list:
+    """B3's split-K body at every plan (K chunks 1, 2, 4, 8 × column blocks
+    of 32, 64, 128) at M = 8 and r = 4, at one decode layer's two shapes
+    (q/o_proj and k/v_proj) and at K = 64 (where the launch's fixed part
+    shows): device time a launch (:meth:`Timer.device`), checked against
+    the plain version within the error bound. The plan that
+    ``_split_plan`` picks is marked. Returns the rows."""
+    lm = importlib.import_module("repro_torch.kernels.lora_matmul")
+    lib = kernels.build.load_library()
+    timer, rows = Timer(torch, device), []
+    d, nq = cfg.d_model, cfg.num_heads * cfg.resolved_head_dim
+    nkv = cfg.num_kv_heads * cfg.resolved_head_dim
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for k, n in ((d, nq), (d, nkv), (64, nkv)):
+        x, w, a, b = lora_inputs(torch, device, SERVE["batch"], k, n, 4, 3)
+        y = torch.empty(SERVE["batch"], n, device=device)
+        want = kernels.lora_matmul_plain(x, w, a, b, 2.0)
+        bound = kernels.lora_matmul_error_bound(x, w, a, b, 2.0)
+        picked = lm._split_plan(n, k, sms)
+        for splits in (1, 2, 4, 8):
+            if splits > 1 and (splits - 1) * -(-k // splits) >= k:
+                continue
+            for bn in (32, 64, 128):
+                plan = (splits, -(-k // splits), bn)
+
+                def run():
+                    code = lib.lora_matmul_launch(
+                        x.data_ptr(), w.data_ptr(), a.data_ptr(),
+                        b.data_ptr(), y.data_ptr(), None, x.shape[0], n, k,
+                        4, 2.0, *plan, int(n % 4 == 0),
+                        torch.cuda.current_stream().cuda_stream)
+                    kernels.build.check_launch("lora_matmul", code)
+
+                run()
+                torch.cuda.synchronize()
+                if not bool(((y - want).abs() <= bound).all()):
+                    raise AssertionError(f"decode sweep K={k} N={n} plan "
+                                         f"{plan} disagrees")
+                ms = timer.device(run)
+                blocks = -(-n // bn) * splits
+                rows.append({"K": k, "N": n, "splits": splits, "bn": bn,
+                             "blocks": blocks, "device_ms": ms,
+                             "picked": plan == picked})
+                print(f"  decode sweep K={k} N={n} splits={splits} bn={bn} "
+                      f"({blocks} blocks): {ms * 1e3:.2f} us"
+                      f"{'  <- _split_plan' if plan == picked else ''}",
+                      flush=True)
+    return rows
+
+
+def launch_cost_main(src: str) -> int:
+    """``--launch-cost SRC``: :func:`launch_cost` of the port found under
+    ``SRC`` (this checkout's ``src`` or another tree's, to compare two
+    trees in one call), printed as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(src).resolve()))
+    from dataclasses import replace
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
+    cost = launch_cost(torch, kernels, torch.device("cuda", 0), cfg)
+    print(smi_line(), flush=True)
+    print(json.dumps({"src": src, "launch_cost": cost}), flush=True)
+    return 0
+
+
+def decode_sweep_main() -> int:
+    """``--decode-sweep``: :func:`decode_sweep` on this checkout's port."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from dataclasses import replace
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
+    print(smi_line(), flush=True)
+    rows = decode_sweep(torch, kernels, torch.device("cuda", 0), cfg)
+    print(json.dumps({"decode_sweep": rows}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--launch-cost":
+        return launch_cost_main(sys.argv[2])
+    if len(sys.argv) == 2 and sys.argv[1] == "--decode-sweep":
+        return decode_sweep_main()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script runs the port on the "
               "card", file=sys.stderr)
@@ -1712,10 +2019,13 @@ def main() -> int:
     print(f"[2/6] build: {len(libs)} libraries "
           f"({', '.join(p.name for p in libs)}) in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
-    b3 = ptxas_summary(log.getvalue().split("nvcc liblora_matmul")[-1]
-                       .split("\nnvcc ")[0], "lora_mm_")
-    for line in b3 or ["lora_matmul: library already built, no ptxas report"]:
-        print(f"  ptxas {line}", flush=True)
+    for lib, prefix in (("factor_mean", "factor_mean_"),
+                        ("lora_matmul", "lora_mm_")):
+        report = ptxas_summary(log.getvalue().split(f"nvcc lib{lib}")[-1]
+                               .split("\nnvcc ")[0], prefix)
+        for line in report or [f"{lib}: library already built, no ptxas "
+                               "report"]:
+            print(f"  ptxas {line}", flush=True)
 
     cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
     c, r, scale = 4, 4, 8.0 / 4
@@ -1730,6 +2040,8 @@ def main() -> int:
         torch, kernels, device, cfg, batch=SERVE["batch"],
         prompt=SERVE["prompt"], r=r, scale=scale)
     errs.update(serve_errs)
+    cost = launch_cost(torch, kernels, device, cfg)
+    print(f"  launch path: {json.dumps(cost)}", flush=True)
     torch.cuda.empty_cache()
 
     print(f"[4/6] main paths: FederatedTrainer at {cfg.name} full width "
@@ -1737,7 +2049,7 @@ def main() -> int:
           f"{cfg.vocab_size}, {cfg.dtype})", flush=True)
     launches = {name: 0 for name in SOURCES}
     all_rows, identities, peaks = [], {}, {}
-    for name, (*_, per_leaf) in PATHS.items():
+    for name, (*_, per_leaf, per_close) in PATHS.items():
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
         trainer, rows, closes, identity = drive_path(torch, device, cfg, name)
@@ -1746,6 +2058,7 @@ def main() -> int:
         expected = {k: 0 for k in SOURCES}
         expected.update({k: v * n_leaves * closes
                          for k, v in per_leaf.items()})
+        expected.update({k: v * closes for k, v in per_close.items()})
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         print(f"  [{name}] launches {counts} (expected {expected} for "
               f"{closes} kernel closes); peak memory {peak:.1f} GiB",
@@ -1790,19 +2103,28 @@ def main() -> int:
                  "flash_swa": serve_timings["flash_swa[prefill]"]}
     out = []
     for name, (source, replaces) in SOURCES.items():
-        ms, plain, lib_ms, (bms, by) = main_body[name]
+        ms, plain, lib_ms, (bms, by), dev, dev_lib = main_body[name]
         out.append({"name": name, "route": "cuda", "source": source,
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
-                    "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+                    "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+                    "device_ms": dev, "library_device_ms": dev_lib})
+    # B2's launch path: one close's means (µs, host clock)
+    out[list(SOURCES).index("factor_mean")].update({
+        "close_wall_us": cost["factor_mean"]["wall_us"],
+        "close_enqueue_us": cost["factor_mean"]["enqueue_us"]})
     # B3's decode body (split-K) at one decode layer's q/k/v/o
-    ms, _, lib_ms, (bms, _) = serve_timings["lora_matmul[decode]"]
+    ms, _, lib_ms, (bms, _), dev, dev_lib = serve_timings[
+        "lora_matmul[decode]"]
     out[list(SOURCES).index("lora_matmul")].update({
         "decode_ms": ms, "decode_library_ms": lib_ms,
-        "decode_bound_ms": bms})
+        "decode_bound_ms": bms, "decode_device_ms": dev,
+        "decode_library_device_ms": dev_lib,
+        "decode_wall_us": cost["lora_matmul"]["wall_us"],
+        "decode_enqueue_us": cost["lora_matmul"]["enqueue_us"]})
     # B5 beside its old body (product_fold in place), and at the chunk of
     # 64 uplinks at r = 8 that docs/benchmarks.md documents
-    ms, _, lib_ms, (bms, by) = lane_timings["product_accum[C64r8]"]
+    ms, _, lib_ms, (bms, by), *_ = lane_timings["product_accum[C64r8]"]
     out[list(SOURCES).index("product_accum")].update({
         "prior_ms": lane_prior["product_accum"], "C64r8_ms": ms,
         "C64r8_prior_ms": lane_prior["product_accum[C64r8]"],

@@ -27,8 +27,8 @@ Counterpart of ``repro/core/engine.py`` for every engine method: ``fedex``
   (its ``jnp`` backend).
 * chunked streaming mode (``chunk > 0``): rounds of more than ``chunk``
   candidates stage uplinks chunk by chunk and fold each chunk, in slot
-  order, into running accumulators at ingest (``factor_mean`` and
-  ``product_accum`` on the kernel backend); the close normalises them and
+  order, into running accumulators at ingest (one grouped ``factor_mean``
+  launch a chunk and ``product_accum`` on the kernel backend); the close normalises them and
   finishes in plain PyTorch, folding into W0 (or each delivered client's
   own base) in place;
 * the factored machinery of the fedex_svd and hetero closes
@@ -54,8 +54,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import aggregation as agg
-from repro_torch.kernels import (factor_mean, factor_mean_plain, fedex_fold,
-                                 fedex_fold_plain, hetero_fold,
+from repro_torch.kernels import (factor_mean_group, factor_mean_plain,
+                                 fedex_fold, fedex_fold_plain, hetero_fold,
                                  hetero_fold_plain, perclient_fold,
                                  perclient_fold_plain, product_accum,
                                  product_accum_plain, product_fold,
@@ -642,23 +642,34 @@ def _uniform_close(specs, scale, w0_leaves, stacks, c_max):
     return new_w0, glob
 
 
+def _factor_means(specs, stacks, w, *, kernels: bool):
+    """ā and b̄ of every adapted leaf: with ``kernels`` one grouped
+    ``factor_mean`` launch over all their stacks, otherwise the plain
+    version per stack."""
+    keys = [s.key + f for s in specs for f in ("/a", "/b")]
+    if kernels:
+        means = factor_mean_group([stacks[k] for k in keys], w)
+    else:
+        means = [factor_mean_plain(stacks[k], w) for k in keys]
+    return {s.key: {"a": means[2 * i], "b": means[2 * i + 1]}
+            for i, s in enumerate(specs)}
+
+
 def _weighted_close(specs, scale, w0_leaves, stacks, w, *, kernels: bool):
     """Weighted/masked close: two factor means and one fold per adapted
     leaf; zero-weight lanes vanish from every sum. With ``kernels`` the
     wrappers run (the CUDA kernels on CUDA tensors) and the fold is written
     into W0's own storage; otherwise the kernels' plain PyTorch versions."""
-    new_w0, glob = {}, {}
+    new_w0 = {}
+    glob = _factor_means(specs, stacks, w, kernels=kernels)
     for s in specs:
         a = stacks[s.key + "/a"]  # (C, L, m, r), read in place
         b = stacks[s.key + "/b"]
         w0 = w0_leaves[s.key]
         if not kernels:
-            glob[s.key] = {"a": factor_mean_plain(a, w),
-                           "b": factor_mean_plain(b, w)}
             new_w0[s.key] = fedex_fold_plain(w0, a, b, scale, w
                                              ).to(s.w0_dtype)
             continue
-        glob[s.key] = {"a": factor_mean(a, w), "b": factor_mean(b, w)}
         new_w0[s.key] = _fold_leaf(
             lambda x, out: fedex_fold(x, a, b, scale, weights=w, out=out),
             w0, s.w0_dtype)
@@ -671,7 +682,8 @@ def _svd_close(specs, scale, svd_rank, w0_leaves, stacks, w, *,
     dense), folded into W0 as the rank-r' product A' @ B' — on the kernel
     path through ``product_fold`` with A' as a one-lane (1, L, m, r') stack
     and sign vector [1]."""
-    new_w0, glob = {}, {}
+    new_w0 = {}
+    glob = _factor_means(specs, stacks, w, kernels=kernels)
     for s in specs:
         a = stacks[s.key + "/a"]
         b = stacks[s.key + "/b"]
@@ -679,14 +691,11 @@ def _svd_close(specs, scale, svd_rank, w0_leaves, stacks, w, *,
         w0 = w0_leaves[s.key]
         one = torch.ones(1, dtype=torch.float32, device=w.device)
         if kernels:
-            glob[s.key] = {"a": factor_mean(a, w), "b": factor_mean(b, w)}
             new_w0[s.key] = _fold_leaf(
                 lambda x, out: product_fold(x, ap.unsqueeze(0),
                                             bp.unsqueeze(0), one, scale,
                                             out=out), w0, s.w0_dtype)
         else:
-            glob[s.key] = {"a": factor_mean_plain(a, w),
-                           "b": factor_mean_plain(b, w)}
             new_w0[s.key] = product_fold_plain(
                 w0, ap.unsqueeze(0), bp.unsqueeze(0), one, scale
             ).to(s.w0_dtype)
@@ -1186,11 +1195,16 @@ class RoundCloseEngine:
                 stacks[pa], stacks[pb] = _mask_factor_stacks(stacks[pa],
                                                              stacks[pb], ranks)
         kernels = self.backend == "kernels"
-        mean = factor_mean if kernels else factor_mean_plain
+        if kernels:  # one grouped launch: acc ← acc + Σ ŵ x, in place
+            factor_mean_group(
+                [stacks[s.key + f] for s in self.specs for f in ("/a", "/b")],
+                wd, out=[acc[g + s.key] for s in self.specs
+                         for g in ("ga/", "gb/")], accumulate=True)
         for s in self.specs:
             a, b = stacks[s.key + "/a"], stacks[s.key + "/b"]
-            acc["ga/" + s.key].add_(mean(a, wd))
-            acc["gb/" + s.key].add_(mean(b, wd))
+            if not kernels:
+                acc["ga/" + s.key].add_(factor_mean_plain(a, wd))
+                acc["gb/" + s.key].add_(factor_mean_plain(b, wd))
             prod = "prod/" + s.key
             if prod not in acc:
                 continue

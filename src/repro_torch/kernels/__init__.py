@@ -3,8 +3,10 @@
 * :func:`fedex_fold` (``fedex_residual.py``, ``csrc/fedex_fold.cu``) — the
   exact residual fold W0 + scale·(Σ w_c a_c b_c − ā b̄); replaces the TPU
   kernel ``fedex_residual_apply``.
-* :func:`factor_mean` (``factor_mean.py``, ``csrc/factor_mean.cu``) — the
-  weighted client mean of stacked factors; replaces ``lora_factor_mean``.
+* :func:`factor_mean_group` (``factor_mean.py``, ``csrc/factor_mean.cu``) —
+  the weighted client mean of a group of stacked factors in one launch
+  (:func:`factor_mean` is its one-tensor case); replaces
+  ``lora_factor_mean``.
 * :func:`product_fold` (``csrc/product_fold.cu``) — W0 + scale·Σ s_c a_c b_c
   with signed s (reinit, fedex_svd); replaces ``product_fold_apply``.
 * :func:`product_accum` (``csrc/product_accum.cu``) — acc ← acc +
@@ -27,7 +29,8 @@ its ``launches`` attribute) and takes the plain version only for CPU
 tensors. The kernels build with ``nvcc`` on first use (``build.py``).
 """
 
-from repro_torch.kernels.factor_mean import factor_mean, factor_mean_plain
+from repro_torch.kernels.factor_mean import (factor_mean, factor_mean_group,
+                                             factor_mean_plain)
 from repro_torch.kernels.fedex_residual import (fedex_fold, fedex_fold_plain,
                                                 fold_error_bound, hetero_error_bound,
                                                 hetero_fold, hetero_fold_plain,
@@ -61,8 +64,8 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
 
 
-__all__ = ["KERNELS", "factor_mean", "factor_mean_plain", "fedex_fold",
-           "fedex_fold_plain", "flash_swa", "flash_swa_plain",
+__all__ = ["KERNELS", "factor_mean", "factor_mean_group", "factor_mean_plain",
+           "fedex_fold", "fedex_fold_plain", "flash_swa", "flash_swa_plain",
            "fold_error_bound", "hetero_error_bound", "hetero_fold",
            "hetero_fold_plain", "launch_counts", "lora_dense",
            "lora_dense_plain", "lora_matmul", "lora_matmul_error_bound",

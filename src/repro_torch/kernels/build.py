@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _VP, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 # <name>_launch lives in csrc/<name>.cu
 SIGNATURES = {
-    "factor_mean_launch": (_VP, _VP, _VP, _I, _I64, _I64, _VP),
+    # the group's table goes as a host int64 array, 6 entries a tensor
+    "factor_mean_launch": (_VP, _I, _VP, _I, _I, _VP),
     "fedex_fold_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                           _I64, _I64, _I64, _I64, _F, _VP),
     "product_fold_launch": (_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
@@ -47,7 +48,7 @@ SIGNATURES = {
                            _I, _I, _I, _I64, _I64, _I64, _I64, _I64, _I64,
                            _F, _VP),
     "lora_matmul_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F,
-                           _I, _I, _I, _VP),
+                           _I, _I, _I, _I, _VP),
     # the 12 (batch, position, head) strides go as a host int64 array
     "flash_swa_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _I,
                          _I, _F, _I, _VP),

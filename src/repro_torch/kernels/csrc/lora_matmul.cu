@@ -40,21 +40,31 @@
 //     are 16-byte aligned.
 //   Bound on the card: operations, 2*M*N*K + 2*M*r*(K + N) f32 FLOPs
 //   (prefill q_proj at M = 4096: 77 GFLOP, 1.15 ms at 67 TFLOP/s).
-// * split-K (decode, M <= 16): the tiled body at M = 8 would run 24-48
-//   blocks on 132 SMs and 16x the needed FMAs. Here each block takes 128
-//   columns and one K chunk (the caller sizes the chunks so the grid fills
-//   the card), keeps the chunk of x in shared memory and streams W's rows
-//   once, coalesced, one column per thread with all M rows in registers;
-//   the blocks of column block 0 also write their chunk's partial x@a. A
-//   second grid sums the partials in chunk order and adds scale*(x@a)@b.
+// * split-K (decode, M <= 16), one grid: the tiled body at M = 8 would run
+//   24-48 blocks on 132 SMs and 16x the needed FMAs. A block streams one K
+//   chunk of W's rows for bn columns once, each thread 16 rows of 16 bytes
+//   in flight through a private cp.async ring in shared memory (64 KB a
+//   block, no registers), with all M rows of x as FMA operands; a warp of
+//   its own streams a's r columns of the same rows, so the chunk's x@a
+//   comes with W's. The K chunks (at most 8) of a column block are one
+//   thread-block cluster: the blocks fold their partials in chunk order
+//   through distributed shared memory and add scale*(x@a)@b, so nothing
+//   goes out to device memory but y. The caller picks the fewest chunks and
+//   the widest columns that put blocks on half the SMs (decode q/o_proj:
+//   4 chunks x 24 column blocks of 128; k/v_proj: 8 x 8).
 //   Bound on the card: bytes, 4*(K*N + M*K + K*r + r*N + M*N) (decode q_proj:
-//   37.8 MB, 11.3 us at 3.35 TB/s); the partials add 2*4*splits*M*N bytes.
+//   37.8 MB, 11.3 us at 3.35 TB/s). `python3 chip_smoke.py --decode-sweep`
+//   times the body at every plan of splits and bn; PERF.md has what it
+//   measured and what holds the body back.
 //
 // Both bodies sum in another order than torch.matmul; the wrapper's
 // lora_matmul_error_bound states how far two evaluations may differ.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -435,99 +445,264 @@ __global__ void __launch_bounds__(XA_THREADS)
 }
 
 // -------------------------------------------------------------- split-K
-constexpr int SK_THREADS = 128;
+// One grid a call. Block (column block cb, K chunk s) streams W[chunk, cb's
+// bn columns] once: SK_W threads, each 4 columns (a 16-byte cp.async where
+// N % 4 == 0 and W is aligned, four 4-byte ones otherwise) of its own rows
+// of the chunk (row lanes: bn / 4 threads share a row). Each thread keeps
+// its next D rows in flight in a private ring of shared memory (16 bytes a
+// slot; it reads back only what it copied, so the ring needs no barrier):
+// D * 16 bytes in flight a thread without registers, refilled one row at a
+// time. All MR rows of x are FMA operands per row, read as float4 from the
+// chunk of x that cp.async stages transposed in shared memory. A 9th warp
+// streams a's r columns of the same rows the same way (4 columns a lane,
+// the rows split over the lanes), so the chunk's x@a comes with W's
+// stream. The K chunks of a column block form a thread-block cluster: each
+// block sums its row lanes in order, then folds a slice of the column
+// block's outputs over the cluster's partials in chunk order through
+// distributed shared memory and adds scale * (x@a) @ b (b's panel staged
+// with x). No work buffer, no second grid; the order of every sum is
+// fixed, so two runs are bitwise equal.
+constexpr int SK_W = 256;              // threads that stream W
+constexpr int SK_THREADS = SK_W + 32;  // and one warp that streams a
+constexpr int SK_MAX_CLUSTER = 8;      // portable cluster size: K chunks
+constexpr int SK_RED = 4 * SK_W;       // row lanes x columns of a block
+constexpr int SK_D = 16;               // rows in flight a thread
 
-// partial products of one K chunk: P[s] = x[:, chunk] @ W[chunk, :], and
-// (column block 0) XA[s] = x[:, chunk] @ a[chunk, :]
-template <int MR>
-__global__ void __launch_bounds__(SK_THREADS)
-    lora_mm_partial(const float* __restrict__ x, const float* __restrict__ w,
-                    const float* __restrict__ a, float* __restrict__ P,
-                    float* __restrict__ XA, int M, int N, int K, int r,
-                    int kc) {
-  extern __shared__ float4 smem4[];
-  float* xs = reinterpret_cast<float*>(smem4);  // [MR][kc], zero-padded
-  const int s = blockIdx.y, k0 = s * kc;
-  const int klen = min(kc, K - k0);
-  for (int i = threadIdx.x; i < MR * kc; i += SK_THREADS) {
-    const int m = i / kc, kk = i - m * kc;
-    xs[i] = (m < M && kk < klen) ? x[(size_t)m * K + k0 + kk] : 0.f;
+// rows of x staged at once: at most 32 KB of them
+__host__ __device__ constexpr int sk_xk(int mr, int kc) {
+  return kc < 8192 / mr ? kc : 8192 / mr;
+}
+
+// shared memory, floats: the ring (then the W row lanes' sums), staged x,
+// b's panel, the a lanes' sums, this chunk's x@a and the whole K's
+__host__ __device__ constexpr size_t sk_ring(int mr) {
+  return (size_t)SK_D * 4 * SK_THREADS > (size_t)SK_RED * mr
+             ? (size_t)SK_D * 4 * SK_THREADS
+             : (size_t)SK_RED * mr;
+}
+
+size_t splitk_smem(int mr, int kc, int M, int r, int bn) {
+  return sizeof(float) * (sk_ring(mr) + (size_t)sk_xk(mr, kc) * mr +
+                          (size_t)r * bn + 128 * (size_t)mr + 2 * (size_t)M * r);
+}
+
+// copies 4 consecutive columns [c, c + 4) of a row into a 16-byte slot,
+// zero past `ncol`
+template <bool kVec>
+__device__ __forceinline__ void copy4(float* slot, const float* p, int c,
+                                      int ncol) {
+  if (kVec) {
+    cp_async16(slot, p, c < ncol ? 16 : 0);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) cp_async4(slot + i, p + i, c + i < ncol ? 4 : 0);
   }
-  __syncthreads();
+}
 
-  const int n = blockIdx.x * SK_THREADS + threadIdx.x;
-  if (n < N) {
-    float acc[MR];
+// acc[m][c] += x[m] * v[c] for the MR rows of one staged x row
+template <int MR>
+__device__ __forceinline__ void fma_row(float (&acc)[MR][4], const float* xr,
+                                        float4 v) {
 #pragma unroll
-    for (int m = 0; m < MR; ++m) acc[m] = 0.f;
-    const float* wp = w + (size_t)k0 * N + n;
-    int kk = 0;
-    for (; kk + 8 <= klen; kk += 8) {
-      float wv[8];
+  for (int m4 = 0; m4 < MR; m4 += 4) {
+    const float4 xv = *reinterpret_cast<const float4*>(xr + m4);
+    const float xm[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
-      for (int u = 0; u < 8; ++u) wv[u] = __ldg(wp + (size_t)(kk + u) * N);
+    for (int i = 0; i < 4; ++i) {
+      acc[m4 + i][0] = fmaf(xm[i], v.x, acc[m4 + i][0]);
+      acc[m4 + i][1] = fmaf(xm[i], v.y, acc[m4 + i][1]);
+      acc[m4 + i][2] = fmaf(xm[i], v.z, acc[m4 + i][2]);
+      acc[m4 + i][3] = fmaf(xm[i], v.w, acc[m4 + i][3]);
+    }
+  }
+}
+
+template <int MR, bool kVec>
+__global__ void __launch_bounds__(SK_THREADS, MR == 8 ? 2 : 1)
+    lora_mm_splitk(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ a, const float* __restrict__ b,
+                   float* __restrict__ y, int M, int N, int K, int r,
+                   float scale, int kc, int bn) {
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float4 smem4[];
+  const int xk = sk_xk(MR, kc);
+  float* ring = reinterpret_cast<float*>(smem4);  // [SK_D][SK_THREADS][4]
+  float* red = ring;  // after the stream: [RL][MR][bn], then [MR][bn]
+  float* xs = ring + sk_ring(MR);          // [xk][MR], x transposed
+  float* bs = xs + (size_t)xk * MR;        // [r][bn], b's panel
+  float* reda = bs + (size_t)r * bn;       // [RLa][MR][4 GA]
+  float* xa = reda + 128 * MR;             // [M * r], this chunk's x@a
+  float* xat = xa + M * r;                 // [M * r], the whole K's
+  const int tid = threadIdx.x;
+  const bool wthread = tid < SK_W;
+  const int G = bn >> 2, RL = SK_W / G;   // W: column groups, row lanes
+  // a: GA (a power of two) groups of 4 of its r columns, RLa row lanes
+  int GA = 1;
+  while (4 * GA < r) GA <<= 1;
+  const int RLA = 32 / GA;
+  const int lane_a = tid - SK_W;
+  const int q = wthread ? tid / G : lane_a / GA;  // row lane
+  const int g = wthread ? tid - q * G : lane_a - q * GA;  // column group
+  const int rl = wthread ? RL : RLA;
+  const int s = blockIdx.y, k0 = s * kc, klen = min(kc, K - k0);
+  const int n0 = blockIdx.x * bn;
+  const int c = wthread ? n0 + 4 * g : 4 * g;  // first column of the group
+  const int ncol = wthread ? N : r;
+  const size_t ld = wthread ? (size_t)N : (size_t)r;
+  const float* base = wthread ? w + n0 + 4 * g : a + 4 * g;
+  const bool active = wthread || 4 * g < r;
+  const bool vec = wthread && kVec;
+  float* slot0 = ring + 4 * tid;  // slot d at slot0 + d * 4 * SK_THREADS
+  const int npair = M * r;
+
+  float acc[MR][4];
 #pragma unroll
-      for (int m = 0; m < MR; ++m) {
-        const float4 x0 = *reinterpret_cast<const float4*>(xs + m * kc + kk);
-        const float4 x1 = *reinterpret_cast<const float4*>(xs + m * kc + kk + 4);
-        float t = acc[m];
-        t = fmaf(x0.x, wv[0], t); t = fmaf(x0.y, wv[1], t);
-        t = fmaf(x0.z, wv[2], t); t = fmaf(x0.w, wv[3], t);
-        t = fmaf(x1.x, wv[4], t); t = fmaf(x1.y, wv[5], t);
-        t = fmaf(x1.z, wv[6], t); t = fmaf(x1.w, wv[7], t);
-        acc[m] = t;
+  for (int m = 0; m < MR; ++m)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[m][i] = 0.f;
+
+  for (int sub = 0; sub < klen; sub += xk) {
+    const int len = min(xk, klen - sub);
+    if (sub > 0) __syncthreads();  // the previous rows of x are read
+    // group 0: x's rows (and, once, b's panel)
+    for (int i = tid; i < MR * len; i += SK_THREADS) {
+      const int m = i / len, kk = i - m * len;
+      const bool ok = m < M;
+      cp_async4(xs + kk * MR + m, ok ? x + (size_t)m * K + k0 + sub + kk : x,
+                ok ? 4 : 0);
+    }
+    if (sub == 0) {
+      for (int i = tid; i < r * bn; i += SK_THREADS) {
+        const int j = i / bn, nn = n0 + i - j * bn;
+        cp_async4(bs + i, nn < N ? b + (size_t)j * N + nn : b, nn < N ? 4 : 0);
       }
     }
-    for (; kk < klen; ++kk) {
-      const float wk = __ldg(wp + (size_t)kk * N);
+    cp_async_commit();
+    // groups 1..D: this thread's first D rows
+    const int nrows = active && q < len ? (len - q + rl - 1) / rl : 0;
+    const float* p = base + (size_t)(k0 + sub + q) * ld;
+    const size_t step = (size_t)rl * ld;
 #pragma unroll
-      for (int m = 0; m < MR; ++m) acc[m] = fmaf(xs[m * kc + kk], wk, acc[m]);
+    for (int d = 0; d < SK_D; ++d) {
+      if (d < nrows) {
+        if (vec)
+          copy4<true>(slot0 + d * 4 * SK_THREADS, p + d * step, c, ncol);
+        else
+          copy4<false>(slot0 + d * 4 * SK_THREADS, p + d * step, c, ncol);
+      }
+      cp_async_commit();
     }
+    cp_async_wait<SK_D>();  // x's group
+    __syncthreads();
+    const float* xr = xs + q * MR;
+    for (int i = 0; i < nrows; ++i) {
+      cp_async_wait<SK_D - 1>();  // row i's group
+      float* slot = slot0 + (i % SK_D) * 4 * SK_THREADS;
+      const float4 v = *reinterpret_cast<const float4*>(slot);
+      fma_row<MR>(acc, xr, v);
+      xr += rl * MR;
+      if (i + SK_D < nrows) {
+        if (vec)
+          copy4<true>(slot, p + (size_t)(i + SK_D) * step, c, ncol);
+        else
+          copy4<false>(slot, p + (size_t)(i + SK_D) * step, c, ncol);
+      }
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every thread's stream is done: the ring is free
+  // every lane's sums, in shared memory
+  float* rp = wthread ? red + (size_t)q * MR * bn + 4 * g
+                      : reda + (size_t)q * MR * 4 * GA + 4 * g;
+  const int rs = wthread ? bn : 4 * GA;
+  if (active) {
 #pragma unroll
     for (int m = 0; m < MR; ++m)
-      if (m < M) P[((size_t)s * M + m) * N + n] = acc[m];
-  }
-  if (blockIdx.x == 0) {
-    for (int i = threadIdx.x; i < M * r; i += SK_THREADS) {
-      const int m = i / r, j = i - m * r;
-      float t = 0.f;
-      for (int kk = 0; kk < klen; ++kk)
-        t = fmaf(xs[m * kc + kk], __ldg(a + (size_t)(k0 + kk) * r + j), t);
-      XA[((size_t)s * M + m) * r + j] = t;
-    }
-  }
-}
-
-constexpr int FOLD_THREADS = 256;
-
-// y[m, n] = sum_s P[s, m, n] + scale * sum_j (sum_s XA[s, m, j]) b[j, n]
-__global__ void __launch_bounds__(FOLD_THREADS)
-    lora_mm_fold(const float* __restrict__ P, const float* __restrict__ XA,
-                 const float* __restrict__ b, float* __restrict__ y, int M,
-                 int N, int r, int splits, float scale) {
-  __shared__ float xa[kMaxRank];
-  const int m = blockIdx.y;
-  if (threadIdx.x < r) {
-    float t = 0.f;
-    for (int s = 0; s < splits; ++s)
-      t += XA[((size_t)s * M + m) * r + threadIdx.x];
-    xa[threadIdx.x] = t;
+      *reinterpret_cast<float4*>(rp + (size_t)m * rs) =
+          make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
   }
   __syncthreads();
-  const int n = blockIdx.x * FOLD_THREADS + threadIdx.x;
-  if (n >= N) return;
-  float base = 0.f;
-  for (int s = 0; s < splits; ++s) base += P[((size_t)s * M + m) * N + n];
-  float ad = 0.f;
-  for (int q = 0; q < r; ++q) ad = fmaf(xa[q], __ldg(b + (size_t)q * N + n), ad);
-  y[(size_t)m * N + n] = base + scale * ad;
+  // the block's partial, row lanes summed in order: into red[0], and this
+  // chunk's x@a
+  const int outs = M * bn;
+  for (int o = tid; o < outs; o += SK_THREADS) {
+    float t = red[o];
+    for (int l = 1; l < RL; ++l) t += red[(size_t)l * MR * bn + o];
+    red[o] = t;
+  }
+  for (int pr = tid; pr < npair; pr += SK_THREADS) {
+    const int m = pr / r, j = pr - m * r;
+    float t = reda[m * 4 * GA + j];
+    for (int l = 1; l < RLA; ++l) t += reda[((size_t)l * MR + m) * 4 * GA + j];
+    xa[pr] = t;
+  }
+  cluster.sync();  // every chunk's partial and x@a is in place
+
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  for (int pr = tid; pr < npair; pr += SK_THREADS) {  // x@a over the whole K
+    float t = cluster.map_shared_rank(xa, 0)[pr];
+    for (int cc = 1; cc < cs; ++cc) t += cluster.map_shared_rank(xa, cc)[pr];
+    xat[pr] = t;
+  }
+  __syncthreads();
+  // this block's slice of the column block's outputs, summed over the
+  // chunks in order, plus scale * (x@a) @ b
+  const int per = (outs + cs - 1) / cs, o_end = min(outs, (rank + 1) * per);
+  for (int o = rank * per + tid; o < o_end; o += SK_THREADS) {
+    const int m = o / bn, col = o - m * bn, nn = n0 + col;
+    if (nn >= N) continue;
+    float sum = cluster.map_shared_rank(red, 0)[o];
+    for (int cc = 1; cc < cs; ++cc) sum += cluster.map_shared_rank(red, cc)[o];
+    float ad = 0.f;
+    for (int j = 0; j < r; ++j) ad = fmaf(xat[m * r + j], bs[j * bn + col], ad);
+    y[(size_t)m * N + nn] = sum + scale * ad;
+  }
+  cluster.sync();  // no block leaves while another reads its shared memory
 }
 
-template <typename F>
-cudaError_t allow_smem(F* kernel, size_t bytes) {
+// Lets `kernel` take `bytes` of dynamic shared memory above 48 KB; the
+// attribute is set once per kernel, device and size (a static table per
+// kernel), not once per launch.
+template <auto kKernel>
+cudaError_t allow_smem(size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)bytes);
+  constexpr int kDevices = 64;
+  static int granted[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && granted[dev] >= (int)bytes) return cudaSuccess;
+  err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess && dev < kDevices) granted[dev] = (int)bytes;
+  return err;
+}
+
+template <int MR, bool kVec>
+cudaError_t launch_splitk(const float* x, const float* w, const float* a,
+                          const float* b, float* y, int M, int N, int K, int r,
+                          float scale, int splits, int kc, int bn,
+                          cudaStream_t st) {
+  const size_t smem = splitk_smem(MR, kc, M, r, bn);
+  cudaError_t err = allow_smem<lora_mm_splitk<MR, kVec>>(smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((N + bn - 1) / bn), (unsigned)splits);
+  cfg.blockDim = dim3(SK_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = (unsigned)splits;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, lora_mm_splitk<MR, kVec>, x, w, a, b, y, M,
+                           N, K, r, scale, kc, bn);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -535,15 +710,16 @@ cudaError_t allow_smem(F* kernel, size_t bytes) {
 // Launches on `stream`; returns a cudaError_t (0 = launched).
 //
 // splits == 0 -> the tiled body, `work` holding M * r floats (x@a; unused
-// and may be null when r == 0). splits > 0 -> the split-K body with K
-// chunks of kc rows (kc a multiple of 8, splits * kc >= K, M <= 16) and
-// `work` holding splits * M * (N + r) floats.
-// vec != 0 promises K % 4 == 0, N % 4 == 0 and 16-byte aligned x and w.
+// and may be null when r == 0); vec != 0 promises K % 4 == 0, N % 4 == 0
+// and 16-byte aligned x and w. splits > 0 -> the split-K body (M <= 16):
+// a cluster of `splits` <= 8 K chunks of kc rows (splits * kc >= K, no
+// empty chunk) per column block of bn (32, 64 or 128) columns, no `work`;
+// vec != 0 promises N % 4 == 0 and a 16-byte aligned w.
 extern "C" int lora_matmul_launch(const float* x, const float* w,
                                   const float* a, const float* b, float* y,
                                   float* work, int M, int N, int K, int r,
-                                  float scale, int splits, int kc, int vec,
-                                  void* stream) {
+                                  float scale, int splits, int kc, int bn,
+                                  int vec, void* stream) {
   if (M <= 0 || N <= 0) return 0;
   if (K <= 0 || r < 0 || r > kMaxRank) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -575,34 +751,28 @@ extern "C" int lora_matmul_launch(const float* x, const float* w,
     cfg.attrs = pdl;
     cfg.numAttrs = r > 0 ? 1 : 0;
     if (vec) {
-      if ((err = allow_smem(lora_mm_tiled<true>, smem)) != cudaSuccess) return (int)err;
+      if ((err = allow_smem<lora_mm_tiled<true>>(smem)) != cudaSuccess) return (int)err;
       err = cudaLaunchKernelEx(&cfg, lora_mm_tiled<true>, x, w,
                                (const float*)work, b, y, M, N, K, r, scale);
     } else {
-      if ((err = allow_smem(lora_mm_tiled<false>, smem)) != cudaSuccess) return (int)err;
+      if ((err = allow_smem<lora_mm_tiled<false>>(smem)) != cudaSuccess) return (int)err;
       err = cudaLaunchKernelEx(&cfg, lora_mm_tiled<false>, x, w,
                                (const float*)work, b, y, M, N, K, r, scale);
     }
     if (err != cudaSuccess) return (int)err;
     return (int)cudaGetLastError();
   }
-  if (M > 16 || kc <= 0 || kc % 8 != 0 || (long long)splits * kc < K ||
-      (long long)(splits - 1) * kc >= K)
+  if (M > 16 || splits > SK_MAX_CLUSTER || kc <= 0 ||
+      (long long)splits * kc < K || (long long)(splits - 1) * kc >= K ||
+      (bn != 32 && bn != 64 && bn != 128))
     return (int)cudaErrorInvalidValue;
-  float* P = work;
-  float* XA = work + (size_t)splits * M * N;
-  const dim3 grid((N + SK_THREADS - 1) / SK_THREADS, splits);
-  if (M <= 8) {
-    const size_t smem = sizeof(float) * 8 * (size_t)kc;
-    if ((err = allow_smem(lora_mm_partial<8>, smem)) != cudaSuccess) return (int)err;
-    lora_mm_partial<8><<<grid, SK_THREADS, smem, st>>>(x, w, a, P, XA, M, N, K, r, kc);
-  } else {
-    const size_t smem = sizeof(float) * 16 * (size_t)kc;
-    if ((err = allow_smem(lora_mm_partial<16>, smem)) != cudaSuccess) return (int)err;
-    lora_mm_partial<16><<<grid, SK_THREADS, smem, st>>>(x, w, a, P, XA, M, N, K, r, kc);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const dim3 fgrid((N + FOLD_THREADS - 1) / FOLD_THREADS, M);
-  lora_mm_fold<<<fgrid, FOLD_THREADS, 0, st>>>(P, XA, b, y, M, N, r, splits, scale);
-  return (int)cudaGetLastError();
+  if (M <= 8)
+    return (int)(vec ? launch_splitk<8, true>(x, w, a, b, y, M, N, K, r, scale,
+                                               splits, kc, bn, st)
+                     : launch_splitk<8, false>(x, w, a, b, y, M, N, K, r, scale,
+                                                splits, kc, bn, st));
+  return (int)(vec ? launch_splitk<16, true>(x, w, a, b, y, M, N, K, r, scale,
+                                              splits, kc, bn, st)
+                   : launch_splitk<16, false>(x, w, a, b, y, M, N, K, r, scale,
+                                               splits, kc, bn, st));
 }

@@ -10,17 +10,24 @@ projection through :func:`lora_dense`: 4 launches a layer.
   then a register-tiled SIMT GEMM (128 × 128 block tiles, K streamed in
   slices of 64 through a 2-stage cp.async ring in shared memory) adds
   scale·(x@a)@b in its epilogue; bound by operations at prefill shapes.
-  For M ≤ 16 (decode) a split-K body whose grid fills the card (chunks of
-  K sized by :func:`_split_plan`) and a second grid that sums the partials
-  in chunk order and adds the adapter term; bound by bytes (W read once).
-  :func:`_work_floats` sizes either body's work buffer.
+  For M ≤ 16 (decode) one grid of split-K blocks: each streams W's rows of
+  one K chunk for bn columns (16-byte loads, 4 rows a thread in flight), a
+  warp of its own computes the chunk's x@a, and the ≤ 8 chunks of a column
+  block, one thread-block cluster, fold their partials in chunk order
+  through distributed shared memory and add the adapter term; bound by
+  bytes (W read once). :func:`_split_plan` sizes the chunks and bn (cached
+  per shape and SM count), :func:`_work_floats` the tiled body's work
+  buffer (the split-K body needs none).
 * Plain version :func:`lora_matmul_plain`: the reference oracle
   ``ref.lora_matmul_ref``'s order, ``x@w + scale·((x@a)@b)`` in f32. The CPU
   path and the tests use it; nothing on the card's main path does.
 * :func:`lora_matmul` is the wrapper (2-D operands): it launches the kernel
   for CUDA tensors (counting ``lora_matmul.launches``, one per call: the
-  split-K body's two grids are one launch of the kernel), raises on a
-  failed launch, and takes the plain version only for CPU tensors.
+  tiled body's prepass and GEMM grids are one launch of the kernel),
+  raises on a failed launch, and takes the plain version only for CPU
+  tensors. Its launch path is lean, since decode calls it 112 times a step
+  at paper-llama3.2-3b depth: the checks are one combined test, the plan
+  and the SM count are cached, and no work buffer is allocated for decode.
   :func:`lora_dense` flattens leading dims around it, as ``ops.lora_dense``.
 
 Forward only (the reference's kernel has no VJP): an input that requires
@@ -30,6 +37,8 @@ ported (ROADMAP).
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import math
 
 import torch
@@ -72,7 +81,7 @@ def lora_matmul_error_bound(x: torch.Tensor, w: torch.Tensor,
     return 2 * (k + r + 4) * _U * mag
 
 
-def _check(x, w, a, b) -> None:
+def _refuse(x, w, a, b) -> None:
     for arg, t in (("x", x), ("w", w), ("a", a), ("b", b)):
         if t.dtype != torch.float32:
             raise TypeError(f"lora_matmul: {arg} must be float32, got "
@@ -86,6 +95,16 @@ def _check(x, w, a, b) -> None:
         if t.ndim != 2:
             raise ValueError(f"lora_matmul: {arg} must be 2-D, got "
                              f"{tuple(t.shape)}")
+
+
+def _check(x, w, a, b) -> None:
+    dev, f32 = x.device, torch.float32
+    if not (x.dtype == w.dtype == a.dtype == b.dtype == f32
+            and w.device == dev and a.device == dev and b.device == dev
+            and not (x.requires_grad or w.requires_grad or a.requires_grad
+                     or b.requires_grad)
+            and x.ndim == w.ndim == a.ndim == b.ndim == 2):
+        _refuse(x, w, a, b)
     (m, k), (k2, n), (k3, r), (r2, n2) = x.shape, w.shape, a.shape, b.shape
     if not (k == k2 == k3 and r == r2 and n == n2):
         raise ValueError(f"lora_matmul: shapes disagree: x {tuple(x.shape)}, "
@@ -93,25 +112,51 @@ def _check(x, w, a, b) -> None:
                          f"b {tuple(b.shape)}")
 
 
+MAX_SPLITS = 8      # K chunks of a column block: one portable cluster
+_MIN_CHUNK = 64     # rows of a K chunk, at least
+
+
+@functools.lru_cache(maxsize=256)
 def _split_plan(n: int, k: int, sms: int):
-    """(splits, kc) of the split-K body: K chunks of kc rows (a multiple of
-    8, at most 256), halved from 256 until the grid of ⌈N/128⌉ column
-    blocks × splits holds at least two blocks per SM (or kc reaches 32).
-    Larger chunks cost fewer partial bytes: 2·4·splits·M·N against W's
-    4·K·N."""
-    col_blocks = -(-n // 128)
-    kc = 256
-    while kc > 32 and col_blocks * -(-k // kc) < 2 * sms:
-        kc //= 2
-    kc = min(kc, 8 * -(-k // 8))
-    return -(-k // kc), kc
+    """(splits, kc, bn) of the split-K body. ``splits`` K chunks of kc rows
+    (none empty), one cluster per column block of bn columns: the fewest
+    chunks, a power of two up to 8 (and at most one for every 64 rows of
+    K), that give a grid of ⌈N/128⌉ × splits blocks on at least half the
+    ``sms`` SMs; then bn halved from 128 (to no less than 32) while the
+    grid at the halved width stays within half the SMs. Each block keeps
+    64 KB of W in flight, so half the SMs already stream W at the card's
+    rate, and fewer, wider blocks leave fewer partials to fold. At
+    K = 3072 this picks 4 × 24 blocks of 128 columns at N = 3072 and 8 × 8
+    at N = 1024, the fastest plans (or within 0.1 µs of it) that
+    ``chip_smoke.py --decode-sweep`` timed on an H100 80GB HBM3 at
+    700 W."""
+    half = max(1, sms // 2)
+    most = max(1, min(MAX_SPLITS, k // _MIN_CHUNK))
+    splits = 1
+    while splits * 2 <= most and -(-n // 128) * splits < half:
+        splits *= 2
+    kc = -(-k // splits)
+    bn = 128
+    while bn > 32 and -(-n // (bn // 2)) * splits <= half:
+        bn //= 2
+    return splits, kc, bn
 
 
 def _work_floats(m: int, n: int, r: int, splits: int) -> int:
-    """Floats of the kernel's work buffer: the split-K body's partial
-    products and x@a per chunk (splits·M·(N + r)), or the tiled body's x@a
-    (M·r; none at r = 0)."""
-    return splits * m * (n + r) if splits else m * r
+    """Floats of the kernel's work buffer: the tiled body's x@a (M·r; none
+    at r = 0); the split-K body (``splits`` > 0) needs none."""
+    return 0 if splits else m * r
+
+
+_SMS = {}  # device index → SM count
+
+
+def _sm_count(index: int) -> int:
+    sms = _SMS.get(index)
+    if sms is None:
+        sms = _SMS[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return sms
 
 
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
@@ -119,36 +164,41 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     """x (M, K) @ w (K, N) + scale·(x @ a (K, r)) @ b (r, N) → a new (M, N)
     float32 tensor. Any M, N, K; r ≤ 64 on the card."""
     _check(x, w, a, b)
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         return lora_matmul_plain(x, w, a, b, scale)
-    if x.device.type != "cuda":
-        raise ValueError(f"lora_matmul: unsupported device {x.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"lora_matmul: unsupported device {dev}")
     m, k = x.shape
     n, r = w.shape[1], a.shape[1]
     if r > MAX_RANK:
         raise ValueError(f"lora_matmul: rank {r} > {MAX_RANK} (shared memory)")
-    x, w, a, b = (t.contiguous() for t in (x, w, a, b))
-    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    x, w, a, b = (t if t.is_contiguous() else t.contiguous()
+                  for t in (x, w, a, b))
+    y = torch.empty((m, n), dtype=torch.float32, device=dev)
     if m == 0 or n == 0:
         return y
     if k == 0:
         return y.zero_()
-    vec = int(k % 4 == 0 and n % 4 == 0 and x.data_ptr() % 16 == 0
-              and w.data_ptr() % 16 == 0)
-    splits, kc, work = 0, 0, None
+    work = None
     if m <= SKINNY_ROWS:
-        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-        splits, kc = _split_plan(n, k, sms)
-    nwork = _work_floats(m, n, r, splits)
-    if nwork:
-        work = torch.empty(nwork, dtype=torch.float32, device=x.device)
+        splits, kc, bn = _split_plan(n, k, _sm_count(dev.index))
+        vec = int(n % 4 == 0 and w.data_ptr() % 16 == 0)
+    else:
+        splits = kc = bn = 0
+        vec = int(k % 4 == 0 and n % 4 == 0 and x.data_ptr() % 16 == 0
+                  and w.data_ptr() % 16 == 0)
+        if r:
+            work = torch.empty(_work_floats(m, n, r, 0), dtype=torch.float32,
+                               device=dev)
     lib = load_library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    switch = dev.index != torch.cuda.current_device()
+    with torch.cuda.device(dev) if switch else contextlib.nullcontext():
         code = lib.lora_matmul_launch(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             y.data_ptr(), None if work is None else work.data_ptr(),
-            m, n, k, r, float(scale), splits, kc, vec, stream)
+            m, n, k, r, float(scale), splits, kc, bn, vec,
+            torch._C._cuda_getCurrentRawStream(dev.index))
     check_launch("lora_matmul", code)
     lora_matmul.launches += 1
     return y

@@ -15,7 +15,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import (factor_mean, factor_mean_plain,  # noqa: E402
+from repro_torch.kernels import (factor_mean,  # noqa: E402
+                                 factor_mean_group, factor_mean_plain,
                                  fedex_fold, fedex_fold_plain)
 from repro_torch.kernels.fedex_residual import fold_error_bound  # noqa: E402
 
@@ -112,16 +113,64 @@ def test_factor_mean_bitwise(cuda, shape, weighted):
 
 
 def test_launch_counters_and_refusals(cuda):
+    """factor_mean counts grouped launches: one for a stack, one for a
+    group of stacks, one per table of 32 tensors past that."""
     w0, a, b, w = _inputs(cuda, 2, 2, 32, 128, 4)
     f0, m0 = fedex_fold.launches, factor_mean.launches
     fedex_fold(w0, a, b, 1.0, weights=w)
     factor_mean(a, w)
     assert (fedex_fold.launches, factor_mean.launches) == (f0 + 1, m0 + 1)
+    factor_mean_group([a, b, a, b], w)
+    assert factor_mean.launches == m0 + 2
+    factor_mean_group([a, b] * 17, w)  # 34 tensors: two tables
+    assert factor_mean.launches == m0 + 4
     with pytest.raises(ValueError):
         fedex_fold(w0.transpose(-1, -2), a, b.transpose(-1, -2), 1.0)
     with pytest.raises(TypeError):
         factor_mean(a.double(), None)
-    assert (fedex_fold.launches, factor_mean.launches) == (f0 + 1, m0 + 1)
+    with pytest.raises(ValueError):
+        factor_mean_group([a, b], w, accumulate=True)
+    assert (fedex_fold.launches, factor_mean.launches) == (f0 + 1, m0 + 4)
+
+
+def _bits(x):
+    return x.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("accumulate", [False, True], ids=["write", "acc"])
+@pytest.mark.parametrize("weighted", [True, False], ids=["weighted", "uniform"])
+def test_factor_mean_group_bitwise(cuda, weighted, accumulate):
+    """One grouped launch over a and b of three leaves, aligned and not (odd
+    counts; a stack one lane into its storage with an odd lane stride, so
+    16-byte loads are off for it alone), NaN in the zero-weight lanes:
+    bitwise the plain version of the clean stacks, and with ``accumulate``
+    bitwise acc + that."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    c = 5
+    shapes = [(c, 3, 96, 4), (c, 3, 4, 256), (c, 2, 33, 3), (c, 2, 3, 17),
+              (c + 1, 2, 7, 5), (c, 28, 3072, 4)]
+    stacks = [torch.randn(*s, generator=g).to(cuda) for s in shapes]
+    stacks[4] = stacks[4][1:]  # one lane in: base off 16 bytes
+    w = torch.rand(c, generator=g) + 0.1
+    w[1] = w[3] = 0.0
+    w = (w / w.sum()).to(cuda)
+    clean = [s.clone() for s in stacks]
+    if weighted:
+        for s in stacks:
+            s[1] = float("nan")
+            s[3] = float("inf")
+    wts = w if weighted else None
+    priors = [torch.randn(*s.shape[1:], generator=g).to(cuda) for s in stacks]
+    out = [p.clone() for p in priors] if accumulate else None
+    before = factor_mean.launches
+    got = factor_mean_group(stacks, wts, out=out, accumulate=accumulate)
+    torch.cuda.synchronize()
+    assert factor_mean.launches == before + 1
+    for x, o, p in zip(clean, got, priors):
+        want = factor_mean_plain(x, wts)
+        if accumulate:
+            want = p + want
+        assert torch.equal(_bits(o), _bits(want))
 
 
 # --------------------------------------------------------------------------
@@ -422,6 +471,47 @@ LORA_MM_CASES = [
     (16, 100, 50, 64),       # split-K at its largest M
     (1, 8, 8, 1),
 ]
+
+# the split-K body (M <= 16): the four decode projections of
+# paper-llama3.2-3b at batch 8, M 1, 7, 8, 9 and 16, odd K and N (scalar
+# loads), r 0, 1, 16 and 64, K past one staging of x (> 1024 rows a chunk)
+DECODE_CASES = [
+    (8, 3072, 3072, 4), (8, 3072, 1024, 4), (8, 3072, 1024, 4),
+    (8, 3072, 3072, 4),
+    (1, 3072, 3072, 4), (7, 3072, 1024, 4), (9, 3072, 1024, 4),
+    (16, 3072, 3072, 4),
+    (8, 777, 333, 4), (9, 777, 333, 16), (16, 777, 333, 64),
+    (8, 3072, 1024, 0), (8, 3072, 1024, 1), (8, 3072, 1024, 16),
+    (8, 3072, 1024, 64), (16, 3072, 3072, 64),
+    (8, 12000, 256, 4), (16, 9000, 200, 3), (3, 40, 7, 2),
+]
+
+
+@pytest.mark.parametrize("case", DECODE_CASES, ids=str)
+def test_lora_matmul_decode_body(cuda, case):
+    """Within the error bound of the plain version, one launch, and two
+    runs bitwise equal (the chunks fold in a fixed order)."""
+    x, w, a, b = _lora_inputs(cuda, *case, seed=case[0] + case[2])
+    before = lora_matmul.launches
+    got = lora_matmul(x, w, a, b, 0.7)
+    again = lora_matmul(x, w, a, b, 0.7)
+    torch.cuda.synchronize()
+    assert lora_matmul.launches == before + 2
+    assert torch.equal(_bits(got), _bits(again))
+    want = lora_matmul_plain(x, w, a, b, 0.7)
+    assert _within(got, want, lora_matmul_error_bound(x, w, a, b, 0.7))
+
+
+def test_lora_matmul_decode_misaligned_w(cuda):
+    """W one element into its storage: the split-K body's 4-byte loads."""
+    x, w, a, b = _lora_inputs(cuda, 8, 512, 1028, 4, seed=11)
+    wv = w.flatten()[1:1 + 512 * 1024].view(512, 1024)
+    assert wv.data_ptr() % 16 != 0
+    got = lora_matmul(x, wv, a, b[:, :1024], 0.7)
+    torch.cuda.synchronize()
+    want = lora_matmul_plain(x, wv, a, b[:, :1024], 0.7)
+    assert _within(got, want, lora_matmul_error_bound(x, wv, a, b[:, :1024],
+                                                      0.7))
 
 
 def _lora_inputs(dev, m, k, n, r, seed=0):

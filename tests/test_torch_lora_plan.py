@@ -1,7 +1,8 @@
 """The launch plan of the port's ``lora_matmul`` (B3) that lives in Python:
-which body a shape takes, the split-K body's K chunks, and the size of the
-work buffer either body is handed. Pure arithmetic, so it runs on the CPU;
-the kernel itself runs only on the card (tests/test_torch_cuda.py).
+which body a shape takes, the split-K body's K chunks and column-block
+width, and the size of the work buffer either body is handed. Pure
+arithmetic, so it runs on the CPU; the kernel itself runs only on the card
+(tests/test_torch_cuda.py).
 """
 
 import pytest
@@ -9,8 +10,8 @@ import pytest
 pytest.importorskip("torch")
 
 from repro_torch.kernels.lora_matmul import (MAX_RANK,  # noqa: E402
-                                             SKINNY_ROWS, _split_plan,
-                                             _work_floats)
+                                             MAX_SPLITS, SKINNY_ROWS,
+                                             _split_plan, _work_floats)
 
 H100_SMS = 132
 
@@ -36,12 +37,49 @@ def test_tiled_body_gets_x_at_a_work(case):
 
 @pytest.mark.parametrize("case", SPLIT, ids=str)
 def test_split_plan_meets_the_c_entry_checks(case):
-    """The split-K plan passes lora_matmul_launch's checks (kc a multiple of
-    8, splits·kc ≥ K, no empty chunk) and its work buffer holds every
-    chunk's partial product and partial x@a."""
+    """The split-K plan passes lora_matmul_launch's checks: one cluster of
+    at most 8 K chunks (splits·kc ≥ K, no empty chunk), a column-block
+    width of 32, 64 or 128, and no work buffer (the chunks fold through
+    distributed shared memory)."""
     m, k, n, r = case
     assert m <= SKINNY_ROWS
-    splits, kc = _split_plan(n, k, H100_SMS)
-    assert splits > 0 and kc > 0 and kc % 8 == 0
+    splits, kc, bn = _split_plan(n, k, H100_SMS)
+    assert 1 <= splits <= MAX_SPLITS and kc > 0
     assert splits * kc >= k and (splits - 1) * kc < k
-    assert _work_floats(m, n, r, splits) == splits * m * (n + r)
+    assert bn in (32, 64, 128)
+    assert _work_floats(m, n, r, splits) == 0
+
+
+@pytest.mark.parametrize("n,k,plan", [
+    (3072, 3072, (4, 768, 128)), (1024, 3072, (8, 384, 128)),
+    (333, 777, (8, 98, 64)), (200, 9000, (8, 1125, 32)),
+    (8192, 3072, (2, 1536, 128)), (1024, 100, (1, 100, 32))],
+    ids=["q_o_proj", "k_v_proj", "odd", "narrow", "wide", "short"])
+def test_split_plan_fills_half_the_card(n, k, plan):
+    """The fewest K chunks (a power of two, at most 8 and one per 64 rows)
+    whose grid of 128-column blocks covers half of the 132 SMs, then
+    narrower column blocks while the grid at half the width stays within
+    half of them: at paper-llama3.2-3b's decode projections (K = 3072)
+    4 × 24 blocks at N = 3072 and 8 × 8 at N = 1024."""
+    splits, kc, bn = got = _split_plan(n, k, H100_SMS)
+    assert got == plan
+    half, most = H100_SMS // 2, max(1, min(MAX_SPLITS, k // 64))
+    nb = -(-n // 128)
+    assert nb * splits >= half or splits * 2 > most
+    assert splits == 1 or nb * (splits // 2) < half
+    assert bn == 32 or -(-n // (bn // 2)) * splits > half
+
+
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 300, 511, 512, 513, 777, 3072,
+                               100_000])
+def test_split_plan_chunks_hold_at_least_64_rows(k):
+    splits, kc, _ = _split_plan(64, k, H100_SMS)
+    assert splits & (splits - 1) == 0 and splits <= max(1, k // 64)
+    assert kc >= min(k, 64) and (splits - 1) * kc < k <= splits * kc
+
+
+def test_split_plan_is_cached():
+    _split_plan.cache_clear()
+    _split_plan(1024, 3072, H100_SMS)
+    _split_plan(1024, 3072, H100_SMS)
+    assert _split_plan.cache_info().hits == 1
