@@ -12,9 +12,10 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    TF32 off for matmuls and cuDNN (the folds' exactness is f32's);
 2. build: one ``nvcc`` per kernel source, all in parallel, into
    ``build/kernels/``, with ``-Xptxas -v``; the registers, spills and
-   static shared memory of ``factor_mean``'s grouped kernel and of
+   static shared memory of ``factor_mean``'s grouped kernel, of
    ``lora_matmul``'s kernels (the tiled body, its x@a prepasses, the
-   split-K body) are summed up on lines of their own;
+   split-K body) and of ``flash_swa``'s kernel are summed up on lines of
+   their own;
 3. kernels: ``fedex_fold`` (both bodies), ``factor_mean`` (both bodies),
    ``product_fold``, ``perclient_fold``, ``hetero_fold`` and
    ``product_accum`` against their plain PyTorch versions at the main
@@ -53,8 +54,10 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    (library: ``torch.addmm(x @ w, x @ a, b, alpha=s)``, which must agree
    within the bound too); ``flash_swa`` through ``swa_attention`` at the
    prefill shape (B 8, S 512, GQA 24/8, d 128, causal), at S 500 and 333,
-   windows 64, 200 and 1000 (> S) and non-causal, each within rtol 2e-5,
-   atol 4e-5 of ``swa_attention_plain`` at unit-scale inputs (library:
+   windows 64, 200 and 1000 (> S), non-causal, and at S 4096 (batch 1)
+   causal and with a window of 1024, each run twice and bitwise equal, and
+   within rtol 2e-5, atol 4e-5 of ``swa_attention_plain`` at unit-scale
+   inputs (library:
    ``scaled_dot_product_attention`` in f32 with ``enable_gqa``, an explicit
    boolean mask for windows; its difference is printed);
 4. main paths: the port's ``FederatedTrainer`` at ``paper-llama3.2-3b``
@@ -106,7 +109,10 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    its decode body at one decode layer (``decode_ms``,
    ``decode_library_ms``, ``decode_bound_ms``, ``decode_device_ms``,
    ``decode_library_device_ms``, ``decode_wall_us``,
-   ``decode_enqueue_us``); then the result line.
+   ``decode_enqueue_us``), B8's the S 4096 cases (``S4096_*`` causal,
+   ``W1024_*`` with the window: ``ms``, ``plain_ms``, ``library_ms``,
+   ``bound_ms``, ``device_ms``, ``library_device_ms``); then the result
+   line.
 
 ``--launch-cost SRC`` runs :func:`launch_cost` alone on the port found
 under ``SRC`` (another tree's ``src`` too, to compare two trees in one
@@ -991,10 +997,11 @@ def visible_pairs(torch, device, sq, sk, causal, window):
 def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
                seed, device_times=False):
     """swa_attention (B, S, H, D) against swa_attention_plain within the
-    reference's f32 tolerance (rtol 2e-5, atol 4e-5) at unit-scale inputs;
-    timed beside the plain version, the bound (4·d flops per visible pair)
-    and ``scaled_dot_product_attention`` in f32 (is_causal, enable_gqa;
-    an explicit boolean mask for windows). Returns (max error, timings)."""
+    reference's f32 tolerance (rtol 2e-5, atol 4e-5) at unit-scale inputs,
+    and a second run bitwise against the first; timed beside the plain
+    version, the bound (4·d flops per visible pair) and
+    ``scaled_dot_product_attention`` in f32 (is_causal, enable_gqa; an
+    explicit boolean mask for windows). Returns (max error, timings)."""
     import torch.nn.functional as F
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -1002,7 +1009,12 @@ def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
     k = torch.randn(b, s, kvh, d, device=device, generator=g)
     v = torch.randn(b, s, kvh, d, device=device, generator=g)
     got = kernels.swa_attention(q, k, v, causal, window)
+    again = kernels.swa_attention(q, k, v, causal, window)
     torch.cuda.synchronize()
+    if not torch.equal(bits(torch, got), bits(torch, again)):
+        raise AssertionError(f"flash_swa B={b} S={s} window={window}: two "
+                             "runs differ")
+    del again
     want = kernels.swa_attention_plain(q, k, v, causal, window)
     e = (got - want).abs()
     err = float(e.max())
@@ -1036,11 +1048,13 @@ def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
          timer.device(kernel) if device_times else None,
          timer.device(library) if device_times else None)
     ms, plain, libt, (bms, by), dev, dev_lib = t
-    print(f"  flash_swa[{label}] max_abs_err={err:.3e} (SDPA {lib_err:.3e}); "
-          f"time kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
-          f"{libt:.4f} ms (SDPA), bound {bms:.4f} ms ({by})"
-          + (f"; device time kernel {dev:.4f} ms, library {dev_lib:.4f} ms"
-             if device_times else ""), flush=True)
+    print(f"  flash_swa[{label}] max_abs_err={err:.3e} (SDPA {lib_err:.3e}), "
+          f"two runs bitwise equal; time kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, library {libt:.4f} ms (SDPA), bound {bms:.4f} ms "
+          f"({by})"
+          + (f"; device time kernel {dev:.4f} ms ({bms / dev:.0%} of the "
+             f"bound), library {dev_lib:.4f} ms" if device_times else ""),
+          flush=True)
     return err, t
 
 
@@ -1051,8 +1065,9 @@ def serving_kernel_phase(torch, kernels, device, cfg, *, batch, prompt, r,
     edges (M 17 and 4095, r 64 and 0 at the prefill q_proj shape, an x view
     off 16-byte alignment), and scale 0 against the base product; B8 at the
     prefill shape (GQA through ``swa_attention``) and at S 500 and 333,
-    windows 64, 200 and one larger than S, and non-causal. Each case checked
-    and timed."""
+    windows 64, 200 and one larger than S, non-causal, and at S 4096 (batch
+    1) causal and with a window of 1024. Each case checked and timed (the
+    prefill and S 4096 cases also in device time)."""
     timer = Timer(torch, device)
     projs = serving_projections(cfg)
     errs = {"lora_matmul": 0.0, "flash_swa": 0.0}
@@ -1109,10 +1124,13 @@ def serving_kernel_phase(torch, kernels, device, cfg, *, batch, prompt, r,
              "window64": (4, 512, h, kvh, hd, True, 64),
              "window200": (4, 500, h, kvh, hd, True, 200),
              "window1000": (4, 500, h, kvh, hd, True, 1000),
-             "non-causal": (4, 333, h, kvh, hd, False, 0)}
+             "non-causal": (4, 333, h, kvh, hd, False, 0),
+             "S4096": (1, 4096, h, kvh, hd, True, 0),
+             "S4096-window1024": (1, 4096, h, kvh, hd, True, 1024)}
     for i, (label, case) in enumerate(cases.items()):
         err, t = flash_case(torch, kernels, timer, device, *case,
-                            seed=40 + i, device_times=label == "prefill")
+                            seed=40 + i, device_times=label in (
+                                "prefill", "S4096", "S4096-window1024"))
         errs["flash_swa"] = max(errs["flash_swa"], err)
         timings[f"flash_swa[{label}]"] = t
     torch.cuda.empty_cache()
@@ -2020,7 +2038,8 @@ def main() -> int:
           f"({', '.join(p.name for p in libs)}) in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     for lib, prefix in (("factor_mean", "factor_mean_"),
-                        ("lora_matmul", "lora_mm_")):
+                        ("lora_matmul", "lora_mm_"),
+                        ("flash_swa", "flash_swa_tile")):
         report = ptxas_summary(log.getvalue().split(f"nvcc lib{lib}")[-1]
                                .split("\nnvcc ")[0], prefix)
         for line in report or [f"{lib}: library already built, no ptxas "
@@ -2122,6 +2141,14 @@ def main() -> int:
         "decode_library_device_ms": dev_lib,
         "decode_wall_us": cost["lora_matmul"]["wall_us"],
         "decode_enqueue_us": cost["lora_matmul"]["enqueue_us"]})
+    # B8 at S 4096 (batch 1), causal and with a window of 1024
+    for label, key in (("S4096", "S4096"), ("S4096-window1024", "W1024")):
+        ms, plain, lib_ms, (bms, _), dev, dev_lib = serve_timings[
+            f"flash_swa[{label}]"]
+        out[list(SOURCES).index("flash_swa")].update({
+            f"{key}_ms": ms, f"{key}_plain_ms": plain,
+            f"{key}_library_ms": lib_ms, f"{key}_bound_ms": bms,
+            f"{key}_device_ms": dev, f"{key}_library_device_ms": dev_lib})
     # B5 beside its old body (product_fold in place), and at the chunk of
     # 64 uplinks at r = 8 that docs/benchmarks.md documents
     ms, _, lib_ms, (bms, by), *_ = lane_timings["product_accum[C64r8]"]

@@ -51,7 +51,7 @@ SIGNATURES = {
                            _I, _I, _I, _I, _VP),
     # the 12 (batch, position, head) strides go as a host int64 array
     "flash_swa_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _I,
-                         _I, _F, _I, _VP),
+                         _I, _F, _I, _I, _VP),
 }
 
 

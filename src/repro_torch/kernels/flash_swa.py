@@ -5,12 +5,18 @@ Replaces the TPU kernel ``repro/kernels/flash_swa.py::flash_swa`` (body
 (``models/attention.py``) runs every layer's attention through
 :func:`swa_attention` with ``causal=True, window=0``: one launch a layer.
 
-* CUDA kernel: ``csrc/flash_swa.cu``. One block per (batch·head, 64 query
-  rows); K/V tiles of 64 positions through shared memory, online softmax
-  with m and l per row, IEEE f32 FMAs on CUDA cores, scale d^-½ applied to
-  q in f32, masked scores −1e30, l clamped at 1e-30. KV tiles outside the
-  causal ∩ window band are skipped. Rows and columns past S are masked,
-  so any S runs the kernel (the reference wrapper falls back to
+* CUDA kernel: ``csrc/flash_swa.cu``. One block of 4 warps per
+  (batch·head, 64 query rows), two blocks an SM; K/V tiles of 64 positions
+  stream through a cp.async ring of two shared-memory slots (K's and V's),
+  two block barriers a tile; 8 rows × 4 keys a thread for Q·Kᵀ and 8 rows
+  × 8 columns for P·V; online softmax with m and l per row in registers,
+  IEEE f32 FMAs on CUDA cores, scale d^-½ applied to q in f32, masked
+  scores −1e30, l clamped at 1e-30. KV tiles outside the causal ∩ window
+  band are never loaded, and only tiles that straddle the band's edge are
+  masked, where blocks of 8 rows compute only the key groups they see
+  (:func:`_kv_band`, :func:`_interior`, :func:`_rows_masked` and
+  :func:`_key_groups` mirror the kernel's rules). Rows and columns past S
+  are masked, so any S runs the kernel (the reference wrapper falls back to
   ``ref.flash_swa_ref`` when S cannot be tiled; the port has no fallback).
   Bound on the card: operations, 4·d FLOPs per visible (query, key) pair.
 * Plain versions: :func:`flash_swa_plain` is the materialised oracle
@@ -37,7 +43,68 @@ import torch
 from repro_torch.kernels.build import check_launch, load_library
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128  # shared memory: Q, K/V tiles of 64 × d f32
+MAX_HEAD_DIM = 128  # shared memory: two blocks of 64 query rows an SM
+BQ = 64             # query rows of a block
+BKV = 64            # keys of a KV tile
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may take (sm_90)
+
+
+def _smem_bytes(dp: int) -> int:
+    """Dynamic shared memory of one block at padded head dim ``dp`` (64 or
+    128; ``smem_bytes`` in the kernel), f32: the scaled Q tile [64][dp]
+    (+ 4 floats between its even and odd rows), the K and the V slot, each
+    [64][dp] (+ 4 floats between its 8 row groups), and the P tile [64][64]
+    (+ 16 floats between its even and odd rows)."""
+    return 4 * (BQ * dp + 4 + 2 * (BKV * dp + 28) + BQ * BKV + 16)
+
+
+# The kernel's band rules, as csrc/flash_swa.cu applies them (the CPU tests
+# hold them against the mask by brute force; nothing here calls them).
+
+def _kv_band(q0: int, sq: int, sk: int, causal: bool, window: int):
+    """(lo, hi): the KV tiles that the query tile at row q0 loads, lo > hi
+    for none. Its real rows [q0, q_last] see the keys [key_lo, key_hi]
+    (``key_lo`` / ``key_hi``), every one of them from some row."""
+    q_last = min(q0 + BQ - 1, sq - 1)
+    key_lo = max(0, q0 - window + 1) if window > 0 else 0
+    key_hi = min(q_last, sk - 1) if causal else sk - 1
+    if key_lo > key_hi:
+        return 1, 0
+    return key_lo // BKV, key_hi // BKV
+
+
+def _interior(q0: int, q_last: int, k0: int, sk: int, causal: bool,
+              window: int) -> bool:
+    """Every pair of rows [q0, q_last] × keys [k0, k0 + 64) is visible: the
+    tile runs unmasked (``interior``)."""
+    return (k0 + BKV <= sk and (not causal or k0 + BKV - 1 <= q0)
+            and (window <= 0 or q_last - k0 < window))
+
+
+def _rows_masked(r0: int, k0: int, sk: int, causal: bool,
+                 window: int) -> bool:
+    """No row of [r0, r0 + 8) sees a key of [k0, k0 + 64), k0 < sk
+    (``rows_masked``)."""
+    return ((causal and k0 > r0 + 7)
+            or (window > 0 and r0 - min(k0 + BKV - 1, sk - 1) >= window))
+
+
+def _key_groups(r0: int, k0: int, sq: int, sk: int, causal: bool,
+                window: int, masked: bool, seen: bool) -> int:
+    """The key groups kg + 16j, j < result, of a tile that the rows
+    [r0, r0 + 8) compute (``key_groups``): none past Sq; in a masked tile
+    none once the rows have all seen a key (``seen``) and see none here;
+    under a causal mask not those past the last row, once the rows have
+    seen a key or each sees its own position in the tile."""
+    if r0 >= sq:
+        return 0
+    if not masked:
+        return 4
+    if seen and _rows_masked(r0, k0, sk, causal, window):
+        return 0
+    if causal and (seen or (k0 <= r0 and r0 + 7 < min(k0 + BKV, sk))):
+        return min(4, (r0 + 7 - k0) // 16 + 1)
+    return 4
 
 
 def _mask(sq: int, sk: int, causal: bool, window: int,
@@ -119,7 +186,8 @@ def _launch(name, q, k, v, out, b, h, kvh, strides, causal, window):
         code = lib.flash_swa_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
             kvh, sq, sk, d, st, int(bool(causal)), int(window),
-            float(d ** -0.5), vec, stream)
+            float(d ** -0.5), vec, _smem_bytes(64 if d <= 64 else 128),
+            stream)
     check_launch(name, code)
     flash_swa.launches += 1
     return out

@@ -567,7 +567,8 @@ def _close_f32(got, want):
 
 
 FLASH_CASES = [
-    # (BH, S, d, causal, window)
+    # (BH, S, d, causal, window[, Sk, q offset]): Sk defaults to S; a q
+    # offset of 1 puts q one element into its storage (not 16-byte aligned)
     (4, 256, 64, True, 0),
     (4, 500, 128, True, 0),      # S not a multiple of the 64-row tiles
     (2, 333, 128, True, 64),
@@ -576,23 +577,57 @@ FLASH_CASES = [
     (2, 256, 128, False, 0),
     (2, 100, 32, False, 30),
     (2, 70, 50, True, 0),        # d not a multiple of 4: scalar loads
+    # the edges of the 128- and 64-row query tiles and the 64-key KV tiles
+    (2, 1, 128, True, 0),
+    (2, 63, 128, True, 0),
+    (2, 65, 128, True, 0),
+    (2, 127, 128, True, 0),
+    (2, 129, 128, True, 0),
+    (200, 129, 128, True, 0),    # enough heads for 128-row query tiles
+    (200, 333, 128, True, 64),
+    # Sq != Sk
+    (2, 200, 128, True, 0, 333),
+    (2, 333, 128, True, 0, 200),
+    (2, 300, 64, False, 0, 129),
+    (2, 200, 128, True, 64, 333),
+    # windows that cut inside a tile at S 4096
+    (2, 4096, 128, True, 1),
+    (2, 4096, 128, True, 1024),
+    # head dims 64 and 50 (scalar loads)
+    (2, 333, 64, True, 0),
+    (2, 333, 50, True, 64),
+    # q not 16-byte aligned: scalar loads
+    (2, 300, 128, True, 0, 300, 1),
+    (2, 129, 64, False, 0, 129, 1),
+    # rows whose first KV tile is wholly masked (window < the tile's reach)
+    (2, 512, 128, True, 100),
+    (200, 512, 128, True, 100),
+    (2, 256, 64, False, 70),
 ]
 
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=str)
 def test_flash_swa_matches_plain(cuda, case):
-    bh, s, d, causal, window = case
+    """Within the reference's f32 tolerance of the plain version, one
+    launch a call, and two runs bitwise equal."""
+    bh, s, d, causal, window, sk, offset = case + (case[1], 0)[len(case) - 5:]
     g = torch.Generator(device="cpu").manual_seed(s + d)
-    q, k, v = (torch.randn(bh, s, d, generator=g).to(cuda) for _ in range(3))
+    base = torch.randn(bh * s * d + offset, generator=g).to(cuda)
+    q = base[offset:].view(bh, s, d)
+    assert (q.data_ptr() % 16 == 0) == (offset == 0)
+    k, v = (torch.randn(bh, sk, d, generator=g).to(cuda) for _ in range(2))
     before = flash_swa.launches
     got = flash_swa(q, k, v, causal, window)
+    again = flash_swa(q, k, v, causal, window)
     torch.cuda.synchronize()
-    assert flash_swa.launches == before + 1
+    assert flash_swa.launches == before + 2
+    assert torch.equal(_bits(got), _bits(again))
     assert _close_f32(got, flash_swa_plain(q, k, v, causal, window))
 
 
 @pytest.mark.parametrize("b,s,h,kvh,d", [(2, 512, 24, 8, 128),
-                                         (2, 100, 6, 3, 64)])
+                                         (2, 100, 6, 3, 64),
+                                         (1, 4096, 24, 8, 128)])
 def test_swa_attention_gqa_reads_kv_heads_in_place(cuda, b, s, h, kvh, d):
     g = torch.Generator(device="cpu").manual_seed(h)
     q = torch.randn(b, s, h, d, generator=g).to(cuda)

@@ -1,0 +1,122 @@
+"""The shared memory and the band rules of the port's ``flash_swa`` (B8).
+
+The wrapper computes a launch's shared memory; the band rules (which KV
+tiles a query tile loads, which of them run unmasked, which key groups of a
+tile a block of 8 query rows computes) run on the card, and
+``kernels/flash_swa.py`` keeps a copy of each as the CUDA source applies
+it. Here every rule is held against the attention mask by brute force at a
+spread of (Sq, Sk, causal, window). Pure arithmetic on the CPU; the kernel
+itself runs only on the card (tests/test_torch_cuda.py).
+"""
+
+import numpy as np
+import pytest
+
+pytest.importorskip("torch")
+
+from repro_torch.kernels.flash_swa import (BKV, BQ,  # noqa: E402
+                                           SMEM_LIMIT, _interior, _key_groups,
+                                           _kv_band, _rows_masked, _smem_bytes)
+
+SM_SHARED = 233_472  # shared memory of one SM (228 KB), 1 KB kept per block
+LENGTHS = [1, 63, 64, 65, 127, 128, 129, 333, 500, 512]
+WINDOWS = [0, 1, 64, 200, 1000, 1024]
+
+# (Sq, Sk, causal, window)
+CASES = ([(s, s, True, w) for s in LENGTHS for w in WINDOWS]
+         + [(s, s, False, w) for s in LENGTHS for w in (0, 1, 64, 200)]
+         + [(4096, 4096, True, w) for w in (0, 1, 1024)]
+         + [(4096, 4096, False, 1000)]
+         + [(sq, sk, c, w) for sq, sk in ((200, 333), (333, 200), (300, 129),
+                                          (65, 500), (500, 65))
+            for c in (True, False) for w in (0, 64, 200)])
+
+
+def _visible(sq, sk, causal, window):
+    q = np.arange(sq)[:, None]
+    k = np.arange(sk)[None, :]
+    mask = np.ones((sq, sk), dtype=bool)
+    if causal:
+        mask &= k <= q
+    if window:
+        mask &= q - k < window
+    return mask
+
+
+def _tiles(mask):
+    """(query tile, KV tile) → any visible pair, over the real rows."""
+    sq, sk = mask.shape
+    nq, nk = -(-sq // BQ), -(-sk // BKV)
+    padded = np.zeros((nq * BQ, nk * BKV), dtype=bool)
+    padded[:sq, :sk] = mask
+    return padded.reshape(nq, BQ, nk, BKV).any(axis=(1, 3))
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_band_schedules_exactly_the_visible_tiles(case):
+    """A query tile loads every KV tile that holds a visible pair of one of
+    its real rows, and no other."""
+    sq, sk, causal, window = case
+    visible = _tiles(_visible(sq, sk, causal, window))
+    for qt in range(visible.shape[0]):
+        lo, hi = _kv_band(qt * BQ, sq, sk, causal, window)
+        scheduled = np.zeros(visible.shape[1], dtype=bool)
+        scheduled[lo:hi + 1] = True
+        assert (scheduled == visible[qt]).all(), (qt, lo, hi)
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_interior_tiles_hold_no_masked_pair(case):
+    """A tile flagged interior runs unmasked: all its keys are real and
+    every real row of the query tile sees every one of them."""
+    sq, sk, causal, window = case
+    mask = _visible(sq, sk, causal, window)
+    interior = 0
+    for q0 in range(0, sq, BQ):
+        q_last = min(q0 + BQ - 1, sq - 1)
+        lo, hi = _kv_band(q0, sq, sk, causal, window)
+        for kt in range(lo, hi + 1):
+            k0 = kt * BKV
+            if _interior(q0, q_last, k0, sk, causal, window):
+                interior += 1
+                assert k0 + BKV <= sk
+                assert mask[q0:q_last + 1, k0:k0 + BKV].all(), (q0, k0)
+    if sq == sk >= 4 * BKV and (not window or window >= 4 * BKV):
+        assert interior > 0  # the long cases do run unmasked tiles
+
+
+@pytest.mark.parametrize("case", CASES, ids=str)
+def test_row_blocks_skip_and_trim_only_masked_keys(case):
+    """The key groups that a block of 8 query rows leaves out of a scheduled
+    tile are masked for all its real rows; where it leaves out all of them
+    it has no visible pair there; and where it leaves some out without
+    having seen a key, each of its rows sees one in the tile (so no row's
+    p = 1 wash-out is cut short). Blocks past Sq compute nothing."""
+    sq, sk, causal, window = case
+    mask = _visible(sq, sk, causal, window)
+    for q0 in range(0, sq, BQ):
+        lo, hi = _kv_band(q0, sq, sk, causal, window)
+        for kt in range(lo, hi + 1):
+            k0 = kt * BKV
+            masked = not _interior(q0, min(q0 + BQ - 1, sq - 1), k0, sk,
+                                   causal, window)
+            for r0 in range(q0, q0 + BQ, 8):
+                rows = mask[r0:r0 + 8, k0:k0 + BKV]
+                if _rows_masked(r0, k0, sk, causal, window):
+                    assert not rows.any(), (r0, k0)
+                for seen in (True, False):
+                    nj = _key_groups(r0, k0, sq, sk, causal, window, masked,
+                                     seen)
+                    assert 0 <= nj <= 4
+                    assert (nj == 0) == (r0 >= sq) or seen
+                    assert not rows[:, 16 * nj:].any(), (r0, k0, nj)
+                    if 0 < nj < 4 and not seen:
+                        assert rows.any(axis=1).all(), (r0, k0, nj)
+
+
+@pytest.mark.parametrize("dp", [64, 128])
+def test_shared_memory_fits_two_blocks_an_sm(dp):
+    """A block's shared memory fits the limit, twice over an SM."""
+    smem = _smem_bytes(dp)
+    assert smem <= SMEM_LIMIT
+    assert 2 * (smem + 1024) <= SM_SHARED
