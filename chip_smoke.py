@@ -88,6 +88,16 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
      ``product_accum`` 8 per round (fedex_svd: ``product_accum`` 0), no
      stacked fold kernel. Each fold is timed (eager at ingest, or flushed
      in the close).
+   * the paper's baselines, which build no engine: fedit and ffa (two
+     rounds each at 50% participation with example weighting, 3 local
+     steps) with their eager closes, and centralized (two rounds, one
+     worker on client ``round % 4``'s data, no close); no kernel launch;
+   * fedex+dp: fedex with every upload's delta clipped to 1 and noised at
+     σ = 1e-3 (two rounds at 50% participation with example weighting;
+     ``fedex_fold`` 4 and ``factor_mean`` 1 per close);
+   * fedex[eager]: the fedex path's weighted rounds with ``engine="off"``,
+     the eager close (its §6 divergence included in its time), no kernel
+     launch; its close ms is printed beside the kernel close's.
    The last round of each path is checked against its exactness identity
    (below), and every path's peak memory is printed, the stacked and the
    chunked path of each method side by side;
@@ -130,7 +140,16 @@ Identities, per adapted leaf, on the last round of each path:
   drops exceeds 10 × the check's tolerance;
 * the chunked paths: the same identities against a float64 computation on
   the host from the round's uplinks and normalised raw weights
-  (``identity_host``).
+  (``identity_host``);
+* fedex+dp and fedex[eager]: the fedex identity, over the privatized
+  uploads for fedex+dp (the residual absorbs whatever the clients sent);
+* fedit: global a and b = Σ_c w_c a_c and Σ_c w_c b_c against float64 on
+  the card, within 2·(C + 2) unit roundoffs of Σ_c |w_c| |x_c| (the weight's
+  rounding to f32, C products and C − 1 additions); W0 bitwise as at the
+  path's start; the divergence > 0;
+* ffa: every upload's a bitwise equal to the others'; global b as fedit's;
+  W0 bitwise as at the path's start; the divergence < 1e-6;
+* centralized: W0 bitwise as at the path's start and every divergence 0.
 
 Tolerances. ``factor_mean`` rounds each product and sum like separate
 PyTorch ops, in the same slot order, so it must match its plain version
@@ -1147,6 +1166,7 @@ CHUNKED = {"close_chunk": 4, "weighting": "examples"}
 # a chunked round of 6 clients folds 2 chunks: per chunk one grouped
 # factor_mean launch (a and b of every leaf) and per leaf one product_accum
 CHUNK_FOLDS = ({"product_accum": 2}, {"factor_mean": 2})
+PARTIAL = {"participation": 0.5, "weighting": "examples"}
 PATHS = {
     "fedex": ({}, 3, 4, 2, {"fedex_fold": 1}, {"factor_mean": 1}),
     "reinit": ({"assignment": "reinit", "participation": 0.5,
@@ -1177,6 +1197,18 @@ PATHS = {
     "hetero[chunked]": ({"method": "hetero", "client_ranks": (4, 2, 1, 3, 4,
                                                               2),
                          "close_chunk": 4}, 1, 6, 3, *CHUNK_FOLDS),
+    # the paper's baselines: no engine, an eager close (centralized: none).
+    # 3 local steps for fedit and ffa, so that the first round's A factors
+    # differ between clients (see the chunked paths)
+    "fedit": ({"method": "fedit", **PARTIAL}, 2, 4, 3, {}, {}),
+    "ffa": ({"method": "ffa", **PARTIAL}, 2, 4, 3, {}, {}),
+    "centralized": ({"method": "centralized"}, 2, 4, 2, {}, {}),
+    # DP uploads through the kernel close. σ 1e-3: the q/k/v/o adapters hold
+    # ≈ 2.3 M entries, so the noise has norm ≈ 1.5 against the clip of 1
+    "fedex+dp": ({"dp_clip": 1.0, "dp_noise_multiplier": 1e-3, **PARTIAL}, 2,
+                 4, 2, {"fedex_fold": 1}, {"factor_mean": 1}),
+    # the eager close of the fedex path's weighted rounds
+    "fedex[eager]": ({"engine": "off", **PARTIAL}, 2, 4, 2, {}, {}),
 }
 
 
@@ -1192,7 +1224,7 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
     from repro_torch.fedsrv import RoundPolicy
     from repro_torch.launch.train import build_federated_data
     from repro_torch.models import build_model
-    from repro_torch.util.tree import count_params
+    from repro_torch.util.tree import count_params, flatten_with_paths
 
     fed_kw, rounds, clients, local_steps, *_ = PATHS[name]
     t0 = time.perf_counter()
@@ -1206,8 +1238,10 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
                               total_steps=rounds * local_steps),
         client_loaders=loaders, eval_batches=evals, seed=0, device=device)
     torch.cuda.synchronize()
+    eng = trainer.engine
     print(f"  [{name}] set-up (data + {count_params(trainer.params) / 1e9:.2f}"
-          f" B params on the card, engine {trainer.engine.method}): "
+          f" B params on the card, engine "
+          f"{eng.method if eng else 'none: eager close'}): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     step_ms, close_ms, eval_ms = [], [], []
@@ -1224,7 +1258,6 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
         return wrapper
 
     trainer.local_step = timed(trainer.local_step, step_ms)
-    eng = trainer.engine
     fold_ms, in_close = [], [False]  # (ms, folded inside the close?)
 
     def flagged(fn):
@@ -1236,9 +1269,12 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
                 in_close[0] = False
         return wrapper
 
-    for fn in ("close", "close_keep_local", "close_hetero"):
-        setattr(eng, fn, timed(flagged(getattr(eng, fn)), close_ms))
-    if eng.chunk:
+    if eng is None:  # the eager close, its divergence included
+        trainer._close_round = timed(trainer._close_round, close_ms)
+    else:
+        for fn in ("close", "close_keep_local", "close_hetero"):
+            setattr(eng, fn, timed(flagged(getattr(eng, fn)), close_ms))
+    if eng is not None and eng.chunk:
         fold = eng.buffers.on_chunk
 
         def timed_fold(*args):
@@ -1251,14 +1287,18 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
 
         eng.buffers.on_chunk = timed_fold
     trainer._evaluate = timed(trainer._evaluate, eval_ms)
-    keys = [s.key for s in eng.specs]
+    keys = ([s.key for s in eng.specs] if eng else
+            [k[:-2] for k in flatten_with_paths(trainer.global_lora)
+             if k.endswith("/a")])
     rows, identity, kernel_closes = [], None, 0
+    # the baselines fold nothing: their W0 is held to the path's start
+    frozen = trainer.method in ("fedit", "ffa", "centralized")
     for rnd in range(rounds):
         if name == "fedex" and rnd == 1:
             trainer.coordinator.policy = RoundPolicy(participation=0.5,
                                                      weighting="examples")
-        old = None
-        if rnd == rounds - 1:  # the exactness identity on the last round
+        if rnd == (0 if frozen else rounds - 1):
+            # the exactness identity on the last round
             bases = trainer.client_params or [trainer.params]
             old = [{k: _node(p, k)["kernel"].clone() for k in keys}
                    for p in bases]
@@ -1269,20 +1309,24 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
         wall = time.perf_counter() - t
         # the path's peak before any identity check's own temporaries
         run_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        out = trainer.outcomes[-1]
+        out = trainer.outcomes[-1] if trainer.outcomes else None
         uniform = name == "fedex" and out.weights is None
-        kernel_closes += not uniform
+        kernel_closes += eng is not None and not uniform
+        kind = ("uniform" if uniform else "kernel" if eng
+                else "eager" if out else "no")
         rows.append({
-            "path": name, "round": rnd, "clients": out.client_ids,
-            "weights": out.weights,
+            "path": name, "round": rnd,
+            "clients": out.client_ids if out else [rnd % clients],
+            "weights": out.weights if out else None,
             "step_ms": statistics.median(step_ms[n_steps:]),
-            "close_ms": close_ms[n_close:][0], "eval_ms": eval_ms[-1],
+            "close_ms": (close_ms[n_close:] or [None])[0],
+            "eval_ms": eval_ms[-1],
             "round_s": wall, "run_peak_gib": run_peak,
             "eval_loss": rec.eval_loss,
             "divergence": float(rec.divergence_scaled),
             "client_losses": rec.client_losses})
         r = rows[-1]
-        if eng.chunk:
+        if eng is not None and eng.chunk:
             folds = fold_ms[n_fold:]
             r["eager_fold_ms"] = [ms for ms, closing in folds if not closing]
             r["flush_fold_ms"] = [ms for ms, closing in folds if closing]
@@ -1291,13 +1335,15 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
             print(f"  [{name}] round {rnd} chunk folds: eager (at ingest) "
                   f"{eager or 'none'} ms; flushed in the close "
                   f"{flush or 'none'} ms", flush=True)
-        print(f"  [{name}] round {rnd} [{'uniform' if uniform else 'kernel'}"
-              f" close, clients={out.client_ids}]: client step "
+        close = ("none" if r["close_ms"] is None
+                 else f"{r['close_ms']:.2f} ms")
+        print(f"  [{name}] round {rnd} [{kind} close, clients="
+              f"{r['clients']}]: client step "
               f"{r['step_ms']:.1f} ms (median of {len(step_ms) - n_steps}), "
-              f"close {r['close_ms']:.2f} ms, eval {r['eval_ms']:.1f} ms, "
+              f"close {close}, eval {r['eval_ms']:.1f} ms, "
               f"round {wall:.2f} s, eval_loss {rec.eval_loss:.4f}, "
               f"divergence {r['divergence']:.3e}", flush=True)
-        if old is not None:
+        if rnd == rounds - 1:
             t = time.perf_counter()
             identity = IDENTITIES[name](torch, trainer, out, old, keys)
             print(f"  [{name}] identity check {time.perf_counter() - t:.1f} s",
@@ -1547,12 +1593,83 @@ def identity_svd(torch, trainer, outcome, old, keys):
     return err
 
 
+def _unchanged(torch, name, trainer, old, keys):
+    """W0 bitwise as it was at the path's start (nothing folds into it)."""
+    for key in keys:
+        if not torch.equal(_node(trainer.params, key)["kernel"], old[0][key]):
+            raise AssertionError(f"{name}: W0 of {key} moved")
+
+
+def identity_mean(torch, trainer, outcome, old, keys, factors=("a", "b")):
+    """Each global factor f = Σ_c w_c f_c (FedAvg), against float64 on the
+    card within 2·(C + 2) unit roundoffs of Σ_c |w_c| |f_c|; W0 bitwise
+    unchanged."""
+    name, worst = trainer.method, 0.0
+    w = _weights(torch, trainer, outcome).double()
+    bound_k = 2 * (len(outcome.delivered) + 2) * U
+    for key in keys:
+        g = _node(trainer.global_lora, key)
+        for f in factors:
+            x = torch.stack([_node(d.lora, key)[f].double()
+                             for d in outcome.delivered])
+            want = torch.einsum("c,c...->...", w, x)
+            bound = bound_k * torch.einsum("c,c...->...", w.abs(), x.abs())
+            worst = max(worst, _report(name, f"{key}/{f}", g[f].double(),
+                                       want, bound, 0.0))
+    _unchanged(torch, name, trainer, old, keys)
+    return worst
+
+
+def identity_fedit(torch, trainer, outcome, old, keys):
+    """FedAvg of both factors, W0 unchanged, the round's divergence > 0."""
+    worst = identity_mean(torch, trainer, outcome, old, keys)
+    div = float(trainer.history[-1].divergence_scaled)
+    print(f"  [fedit] divergence {div:.3e} (> 0: FedIT is inexact)",
+          flush=True)
+    if not div > 0:
+        raise AssertionError(f"fedit: divergence {div} is not > 0")
+    return worst
+
+
+def identity_ffa(torch, trainer, outcome, old, keys):
+    """Every delivered a bitwise equal to the others (FFA-LoRA zeroes the
+    a-gradients, weight decay moves a the same on every client); b the
+    FedAvg of the b's; W0 unchanged; the divergence below 1e-6."""
+    for key in keys:
+        a = [_node(d.lora, key)["a"] for d in outcome.delivered]
+        if not all(torch.equal(x, a[0]) for x in a):
+            raise AssertionError(f"ffa: the uploads' a of {key} differ")
+    print(f"  [ffa] the {len(outcome.delivered)} uploads' a factors are "
+          "bitwise equal at every leaf", flush=True)
+    worst = identity_mean(torch, trainer, outcome, old, keys, factors=("b",))
+    div = float(trainer.history[-1].divergence_scaled)
+    print(f"  [ffa] divergence {div:.3e} (< 1e-6: FFA-LoRA is exact)",
+          flush=True)
+    if not div < 1e-6:
+        raise AssertionError(f"ffa: divergence {div} is not < 1e-6")
+    return worst
+
+
+def identity_centralized(torch, trainer, outcome, old, keys):
+    """W0 unchanged and no divergence (one worker, no aggregation)."""
+    _unchanged(torch, "centralized", trainer, old, keys)
+    divs = [h.divergence_scaled for h in trainer.history]
+    print(f"  [centralized] W0 bitwise as at the start, divergences {divs}",
+          flush=True)
+    if any(d != 0.0 for d in divs):
+        raise AssertionError(f"centralized: divergences {divs} are not 0")
+    return 0.0
+
+
 IDENTITIES = {"fedex": identity_fedex, "reinit": identity_reinit,
               "keep_local": identity_keep_local, "hetero": identity_hetero,
               "fedex_svd": identity_svd,
               **{f"{m}[chunked]": identity_host
                  for m in ("fedex", "reinit", "keep_local", "hetero")},
-              "fedex_svd[chunked]": identity_svd}
+              "fedex_svd[chunked]": identity_svd,
+              "fedit": identity_fedit, "ffa": identity_ffa,
+              "centralized": identity_centralized,
+              "fedex+dp": identity_fedex, "fedex[eager]": identity_fedex}
 
 
 def _node(tree, key):
@@ -2073,7 +2190,7 @@ def main() -> int:
         kernels.reset_launch_counts()
         trainer, rows, closes, identity = drive_path(torch, device, cfg, name)
         counts = kernels.launch_counts()
-        n_leaves = len(trainer.engine.specs)
+        n_leaves = len(main_path_leaves(cfg))
         expected = {k: 0 for k in SOURCES}
         expected.update({k: v * n_leaves * closes
                          for k, v in per_leaf.items()})
@@ -2112,6 +2229,12 @@ def main() -> int:
                                 "hetero"))
           + f"; the chunked product accumulator is {acc_gib:.2f} GiB",
           flush=True)
+    closes = {row["path"]: row["close_ms"] for row in all_rows}
+    print("  close ms of the last weighted round, 2 of 4 clients: fedex "
+          f"kernel close {closes['fedex']:.2f}, fedex eager close "
+          f"{closes['fedex[eager]']:.2f} (its §6 divergence included), "
+          f"fedex+dp kernel close {closes['fedex+dp']:.2f}, fedit "
+          f"{closes['fedit']:.2f}, ffa {closes['ffa']:.2f}", flush=True)
     print(f"[5/6] serving: {cfg.name} at full width, prefill + KV-cache "
           "greedy decode with a LoRA adapter", flush=True)
     serve_stats, serve_launches = serve_phase(torch, kernels, device, cfg)

@@ -203,8 +203,9 @@ class FedConfig:
     # "auto" → the CUDA kernels (fedex_fold + factor_mean) when the tensors
     # lie on a CUDA device, their plain PyTorch versions on the CPU; "plain"
     # → the plain versions everywhere; "kernels" → the kernel close on any
-    # device (on CPU tensors the wrappers run the plain versions, in place).
-    # The reference's "off" (eager list-of-trees close) is not ported.
+    # device (on CPU tensors the wrappers run the plain versions, in place);
+    # "off" → no engine: the eager list-of-trees close of
+    # core/aggregation.py (fedit, ffa and centralized never build one).
     engine: str = "auto"
     # RoundBuffers ring depth: how many rounds' uplink stacks may be in
     # flight at once (2 = classic double buffering; >2 lets FedBuff commits
@@ -268,9 +269,9 @@ class FedConfig:
                     f"{self.local_steps}], got {self.client_local_steps}")
         if self.assignment not in ("average", "keep_local", "reinit"):
             raise ValueError(f"unknown assignment {self.assignment!r}")
-        if self.engine not in ("auto", "plain", "kernels"):
+        if self.engine not in ("auto", "plain", "kernels", "off"):
             raise ValueError(f"unknown engine {self.engine!r} "
-                             "(auto | plain | kernels)")
+                             "(auto | plain | kernels | off)")
         if self.svd_rank < 0:
             raise ValueError(
                 f"svd_rank must be ≥ 0, got {self.svd_rank} "

@@ -8,6 +8,10 @@ stacked-layer axes batched by ``torch.matmul``):
 * ``fedit``  — FedAvg of the factors (inexact; Eq. 3–4).
 * ``fedex``  — factor averages + residual ΔW_res = Σwᵢaᵢbᵢ − ā b̄
   (Eq. 11–12); folding scale·ΔW_res into W0 makes aggregation exact.
+* ``fedex_svd`` — FedEx with the residual's Eckart–Young rank-r'
+  truncation (Eq. 15–16), the dense oracle of the engine's svd close.
+* ``ffa``    — FFA-LoRA: a frozen at init, b averaged (exact by
+  construction).
 * the assignment strategies of Table 5 (``assign_after_aggregation``):
   ``keep_local`` (per-client residuals Σwⱼaⱼbⱼ − aᵢbᵢ) and ``reinit``
   (fresh adapters, the full ideal update folded).
@@ -141,6 +145,45 @@ def _factor_rank(tree: Params) -> int:
     if not found:
         raise ValueError("no adapter factors found — empty lora tree?")
     return found[0]
+
+
+def fedex_svd_aggregate(client_loras: List[Params], svd_rank: int,
+                        weights: Weights = None) -> Tuple[Params, Params]:
+    """FedEx with rank-r' truncated residual (Eq. 15–16, Eckart–Young optimal).
+
+    ``svd_rank`` must satisfy 1 ≤ r' ≤ k·r (the residual's rank bound —
+    ΔW_res = Σwᵢaᵢ(bᵢ − b̄) has at most k·r nonzero singular values).
+    The config-level meaning of ``FedConfig.svd_rank = 0`` ("exact") is
+    resolved by the caller to the plain fedex close, never down here.
+    Stacked-layer leaves go through one batched ``torch.linalg.svd``.
+    """
+    k = len(client_loras)
+    r = _factor_rank(client_loras[0])
+    if svd_rank < 1:
+        raise ValueError(
+            f"fedex_svd_aggregate needs svd_rank ≥ 1, got {svd_rank} "
+            "(svd_rank=0 means 'exact' at the config level — callers "
+            "resolve that to fedex_aggregate, which never truncates)")
+    if svd_rank > k * r:
+        raise ValueError(
+            f"svd_rank={svd_rank} exceeds the residual rank bound "
+            f"k·r = {k}·{r} = {k * r}; ranks past it only pad the transmit")
+    global_lora, residual = fedex_aggregate(client_loras, weights)
+
+    def trunc(res):
+        u, s, vt = torch.linalg.svd(res, full_matrices=False)
+        return ((u[..., :, :svd_rank] * s[..., None, :svd_rank])
+                @ vt[..., :svd_rank, :])
+
+    return global_lora, _tree_map(trunc, residual)
+
+
+def ffa_aggregate(client_loras: List[Params],
+                  weights: Weights = None) -> Params:
+    """FFA-LoRA: a is frozen (identical across clients) → average b only.
+    Averaging a too keeps the code uniform; aggregation is exact (for any
+    weights) because Σwᵢ a bᵢ = a Σwᵢbᵢ."""
+    return tree_mean(client_loras, weights)
 
 
 def assign_after_aggregation(strategy: str, client_loras: List[Params],

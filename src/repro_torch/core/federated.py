@@ -1,8 +1,8 @@
 """Federated fine-tuning trainer (paper §4.2 pipeline, host-orchestrated).
 
-Counterpart of ``repro/core/federated.py`` for the engine methods: k
-clients, each taking ``local_steps`` AdamW steps on its LoRA factors only,
-then the server's close through
+Counterpart of ``repro/core/federated.py``: k clients, each taking
+``local_steps`` AdamW steps on its LoRA factors only, then the server's
+close. The engine methods close through
 :class:`~repro_torch.core.engine.RoundCloseEngine`:
 
 * ``fedex`` with the ``average`` assignment — weighted factor means plus
@@ -16,6 +16,16 @@ then the server's close through
   zero-padded to r_max = ``lora.rank`` and the close hands it the leading
   rᵢ slice of one shared truncation, its own base absorbing the rest (§6).
 
+The paper's baselines build no engine and close eagerly over the list of
+delivered adapter trees (``repro_torch.core.aggregation``): ``fedit``
+(FedAvg of the factors), ``ffa`` (FFA-LoRA: the a-gradients are zeroed, so
+a moves only by weight decay, identically on every client) and
+``centralized`` (one worker, client ``round % k``'s data, no coordinator
+round). ``engine="off"`` closes every engine method eagerly the same way,
+its divergence the eager §6 ``mean_deviation`` of the delivered adapters.
+``dp_clip > 0`` clips and noises each coordinated client's adapter delta
+before it is uploaded (``repro_torch.core.privacy``).
+
 ``close_chunk > 0`` closes rounds of more than that many clients in the
 engine's chunked streaming mode: uplinks fold into running accumulators
 chunk by chunk as they arrive, weighted by their raw weights (example
@@ -23,14 +33,14 @@ counts under ``weighting="examples"``).
 
 Rounds are orchestrated by :class:`~repro_torch.fedsrv.RoundCoordinator`
 (sampling, arrival order, weighting), whose uplinks stream into the
-engine's ring; hetero rounds run every client and write straight into the
-ring, as the reference's engine branch does. keep_local and hetero keep one
-base per client, each with its own copy of the adapted W0 leaves, because
-the kernel closes fold in place.
+engine's ring when there is one; hetero rounds run every client, as the
+reference's do. keep_local and hetero keep one base per client; under the
+engine each has its own copy of the adapted W0 leaves, because the kernel
+closes fold in place (the eager closes make new tensors).
 
-The close returns its divergence as a device scalar, resolved at the next
-round boundary, so the close runs on the device while the next round's
-clients start. The trainer takes optional initial ``params`` /
+The engine close returns its divergence as a device scalar, resolved at the
+next round boundary, so the close runs on the device while the next
+round's clients start. The trainer takes optional initial ``params`` /
 ``global_lora`` trees and per-client ``client_loras`` (the parity tests
 hand it the reference's draws); without them it draws its own on its
 device.
@@ -45,9 +55,12 @@ import torch
 
 from repro_torch.configs.base import (FedConfig, LoRAConfig, TrainConfig,
                                       validate_fed_lora)
+from repro_torch.core import aggregation as agg
+from repro_torch.core import privacy
+from repro_torch.core.divergence import mean_deviation
 from repro_torch.core.engine import (DeferredDivergence, RoundCloseEngine,
                                      collect_w0_leaves, fold_back_w0)
-from repro_torch.core.hetero import pad_adapters
+from repro_torch.core.hetero import hetero_fedex_aggregate, pad_adapters
 from repro_torch.core.lora import init_lora
 from repro_torch.fedsrv import (ClientInfo, ClientRegistry, RoundCoordinator,
                                 RoundPolicy, StragglerModel)
@@ -58,11 +71,17 @@ from repro_torch.util.device import resolve_device
 from repro_torch.util.tree import flatten_with_paths, unflatten_from_paths
 
 
-def make_local_step(model, lora_scale: float,
-                    train_cfg: TrainConfig) -> Callable:
+def _freeze_a(grads):
+    return agg.map_factors(
+        lambda f: {"a": torch.zeros_like(f["a"]), "b": f["b"]}, grads)
+
+
+def make_local_step(model, lora_scale: float, train_cfg: TrainConfig,
+                    freeze_a: bool = False) -> Callable:
     """One local step: LoRA-only gradients through autograd, global-norm
     clipping, AdamW. ``step(params, lora, opt_state, batch, lr) → (lora,
-    opt_state, loss, gnorm)``; the frozen params get no gradient."""
+    opt_state, loss, gnorm)``; the frozen params get no gradient.
+    ``freeze_a`` (FFA-LoRA) zeroes the a-gradients before the clipping."""
 
     def step(params, lora, opt_state, batch, lr):
         flat = {p: x.detach().requires_grad_(True)
@@ -71,6 +90,8 @@ def make_local_step(model, lora_scale: float,
                              lora_scale=lora_scale)
         grads = torch.autograd.grad(loss, list(flat.values()))
         grads = unflatten_from_paths(dict(zip(flat, grads)))
+        if freeze_a:
+            grads = _freeze_a(grads)
         grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
         new_lora, opt_state = adamw_update(
             grads, opt_state, unflatten_from_paths(
@@ -103,12 +124,20 @@ class RoundRecord:
     lr: float
 
 
+RING_DEPTH = FedConfig.__dataclass_fields__["ring_depth"].default
+
+
+def _hetero(fed: FedConfig) -> bool:
+    """Client i trains at rank rᵢ (``method="hetero"`` without ranks: every
+    client at ``lora.rank``); this takes precedence over ``method``."""
+    return bool(fed.client_ranks) or fed.method == "hetero"
+
+
 def _check_supported(fed: FedConfig) -> None:
     """Raise ``NotImplementedError`` for any federation feature the port has
-    not taken up yet — none is ignored silently."""
+    not taken up yet, and ``ValueError`` for a setting the run would ignore
+    (the reference ignores these silently; the port ignores none)."""
     unsupported = {
-        "method": fed.method in ("fedit", "ffa", "centralized"),
-        "dp_clip": fed.dp_clip > 0,
         "round_deadline": fed.round_deadline > 0,
         "dropout_prob": fed.dropout_prob > 0,
         "async_buffer": fed.async_buffer > 0,
@@ -122,21 +151,37 @@ def _check_supported(fed: FedConfig) -> None:
     if asked:
         raise NotImplementedError(
             f"FedConfig asks for {asked}, which the port does not run yet "
-            "(the engine methods fedex with any assignment, fedex_svd and "
-            "hetero, stacked or chunked, with participation sampling, "
-            "min_quorum and example weighting only)")
+            "(every method and assignment, stacked, chunked or eager, with "
+            "participation sampling, min_quorum, example weighting and DP "
+            "uploads only)")
+    if fed.dp_clip > 0 and (_hetero(fed) or fed.method == "centralized"):
+        method = "hetero" if _hetero(fed) else "centralized"
+        raise ValueError(f"dp_clip={fed.dp_clip} under {method}, whose "
+                         "uploads are never privatized")
+    if engine_method(fed) is None:
+        why = ("engine='off'" if fed.engine == "off"
+               else f"method={fed.method!r}")
+        ignored = {"close_chunk": fed.close_chunk > 0,
+                   "ring_depth": fed.ring_depth != RING_DEPTH}
+        asked = [k for k, v in ignored.items() if v]
+        if asked:
+            raise ValueError(f"FedConfig sets {asked}, which only the engine "
+                             f"close uses, and {why} builds no engine")
 
 
-def engine_method(fed: FedConfig) -> str:
-    """The engine close a config runs (the reference's selection)."""
-    if fed.client_ranks or fed.method == "hetero":
+def engine_method(fed: FedConfig) -> Optional[str]:
+    """The engine close a config runs (the reference's selection); ``None``
+    for the eager closes (``engine="off"``, fedit, ffa, centralized)."""
+    if fed.engine == "off":
+        return None
+    if _hetero(fed):
         return "hetero"
-    if fed.method == "fedex_svd" and fed.svd_rank:
-        return "fedex_svd"
+    if fed.method == "fedex_svd":
+        return "fedex_svd" if fed.svd_rank else "fedex"  # 0 means exact
     if fed.method == "fedex":
         return {"average": "fedex", "keep_local": "keep_local",
                 "reinit": "reinit"}[fed.assignment]
-    return "fedex"  # fedex_svd with svd_rank = 0 means exact
+    return None
 
 
 @dataclass
@@ -172,7 +217,8 @@ class FederatedTrainer:
         self.scale = self.lora_cfg.scale
         self.method = self.fed_cfg.method
         self.local_step = make_local_step(self.model, self.scale,
-                                          self.train_cfg)
+                                          self.train_cfg,
+                                          freeze_a=self.method == "ffa")
         self.eval_fn = make_eval_fn(self.model, self.scale)
         self.history: List[RoundRecord] = []
         # RoundOutcome per round; adapter payloads are kept only on the last
@@ -183,7 +229,9 @@ class FederatedTrainer:
         fc = self.fed_cfg
         k = fc.num_clients
         method = engine_method(fc)
-        self.hetero = method == "hetero"
+        self.hetero = _hetero(fc)
+        self.keep_local = (self.method == "fedex"
+                           and fc.assignment == "keep_local")
         self.client_ranks = None
         if self.hetero:  # no explicit ranks: every client at lora.rank
             self.client_ranks = (list(fc.client_ranks)
@@ -192,23 +240,30 @@ class FederatedTrainer:
             ClientInfo(client_id=i, num_examples=len(
                 self.client_loaders[i % len(self.client_loaders)].sequences))
             for i in range(k)]
-        self.engine = RoundCloseEngine(
-            self.params, self.global_lora, c_max=k, scale=self.scale,
-            method=method, svd_rank=fc.svd_rank if method == "fedex_svd" else 0,
-            backend=fc.engine, depth=fc.ring_depth,
-            client_ranks=self.client_ranks, chunk=fc.close_chunk)
-        # keep_local and hetero: one base per client, each with its OWN
-        # adapted W0 leaves — the kernel closes fold into them in place, so
-        # no two clients (and not self.params) may share one
+        self.engine = None
+        if method is not None:
+            self.engine = RoundCloseEngine(
+                self.params, self.global_lora, c_max=k, scale=self.scale,
+                method=method,
+                svd_rank=fc.svd_rank if method == "fedex_svd" else 0,
+                backend=fc.engine, depth=fc.ring_depth,
+                client_ranks=self.client_ranks, chunk=fc.close_chunk)
+        # keep_local and hetero: one base per client. The kernel closes fold
+        # into them in place, so under the engine each has its OWN adapted
+        # W0 leaves (no two clients, and not self.params, may share one);
+        # the eager closes make new tensors and may start from shared ones
         self.client_params: Optional[List[Dict]] = None
         self._client_lora: Optional[List[Dict]] = None
-        if method in ("keep_local", "hetero"):
-            specs = self.engine.specs
-            self.client_params = [
-                fold_back_w0(specs, self.params, {
-                    key: leaf.clone() for key, leaf in
-                    collect_w0_leaves(specs, self.params).items()})
-                for _ in range(k)]
+        if self.keep_local or self.hetero:
+            if self.engine is None:
+                self.client_params = [self.params] * k
+            else:
+                specs = self.engine.specs
+                self.client_params = [
+                    fold_back_w0(specs, self.params, {
+                        key: leaf.clone() for key, leaf in
+                        collect_w0_leaves(specs, self.params).items()})
+                    for _ in range(k)]
             self._client_lora = [self.global_lora] * k
         if self.hetero:
             if self.client_loras is None:
@@ -228,7 +283,8 @@ class FederatedTrainer:
                            jitter=fc.latency_jitter,
                            straggler_prob=fc.straggler_prob,
                            straggler_factor=fc.straggler_factor, seed=fc.seed),
-            sink=self.engine.buffers, validate=fc.uplink_validation)
+            sink=self.engine.buffers if self.engine else None,
+            validate=fc.uplink_validation)
 
     # ------------------------------------------------------------------
     def _client_round(self, client: int, params, lora):
@@ -275,8 +331,10 @@ class FederatedTrainer:
 
     # ------------------------------------------------------------------
     def _close_round(self, rnd: int, outcome) -> Any:
-        """The engine close of a coordinated round; returns its divergence."""
+        """The close of a coordinated round; returns its divergence."""
         eng, rid = self.engine, outcome.round_id
+        if eng is None:
+            return self._eager_close(rnd, outcome)
         if eng.method == "keep_local":
             new_cp, div = eng.close_keep_local(
                 self.client_params, outcome.client_ids, outcome.weights,
@@ -296,20 +354,65 @@ class FederatedTrainer:
             rng=rng)
         return div
 
+    def _eager_close(self, rnd: int, outcome) -> float:
+        """The reference's eager close over the delivered adapter trees; the
+        divergence is the §6 deviation of those trees, taken before it."""
+        loras = [d.lora for d in outcome.delivered]
+        weights = outcome.weights
+        div = mean_deviation(loras)
+        method, assignment = self.method, self.fed_cfg.assignment
+        if method == "fedit":
+            self.global_lora = agg.fedit_aggregate(loras, weights)
+        elif method == "ffa":
+            self.global_lora = agg.ffa_aggregate(loras, weights)
+        elif method == "fedex_svd":
+            # clamp to the delivered subset's rank bound k_d·r (config-time
+            # validation bounds r' by k·r only; 0 means exact)
+            bound = self.lora_cfg.rank * len(loras)
+            self.global_lora, residual = agg.fedex_svd_aggregate(
+                loras, min(self.fed_cfg.svd_rank or bound, bound), weights)
+            self.params = agg.apply_residual(self.params, residual,
+                                             self.scale)
+        elif assignment == "average":
+            self.global_lora, residual = agg.fedex_aggregate(loras, weights)
+            self.params = agg.apply_residual(self.params, residual,
+                                             self.scale)
+        elif assignment == "reinit":
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(self.seed + rnd)
+            new_loras, residual = agg.assign_after_aggregation(
+                "reinit", loras, gen, weights)
+            self.global_lora = new_loras[0]
+            self.params = agg.apply_residual(self.params, residual,
+                                             self.scale)
+        else:  # keep_local
+            residuals = agg.per_client_residuals(loras, weights)
+            for cid, lora_i, res_i in zip(outcome.client_ids, loras,
+                                          residuals):
+                self._client_lora[cid] = lora_i
+                self.client_params[cid] = agg.apply_residual(
+                    self.client_params[cid], res_i, self.scale)
+            self.global_lora = loras[0]
+        return div
+
     def _hetero_round(self, rnd: int):
         """Every client trains at its rank rᵢ; its uplink is zero-padded to
-        r_max and written straight into the ring with its true rank; the
-        close folds each client's residual into its own base."""
-        k = self.fed_cfg.num_clients
-        rid = self.engine.buffers.begin_round({c: c for c in range(k)}, rnd)
-        client_losses, delivered = [], []
+        r_max (and, under the engine, written straight into the ring with
+        its true rank); the close folds each client's residual into its own
+        base."""
+        k, eng = self.fed_cfg.num_clients, self.engine
+        rid = (eng.buffers.begin_round({c: c for c in range(k)}, rnd)
+               if eng else rnd)
+        client_losses, delivered, uplinks = [], [], []
         for c in range(k):
             lora_c, losses = self._client_round(c, self.client_params[c],
                                                 self._client_lora[c])
             client_losses.append(losses[-1])
             padded = pad_adapters(lora_c, self.lora_cfg.rank)
-            self.engine.buffers.write(c, padded, round_id=rid,
-                                      rank=self.client_ranks[c])
+            if eng:
+                eng.buffers.write(c, padded, round_id=rid,
+                                  rank=self.client_ranks[c])
+            uplinks.append(lora_c)
             delivered.append(Delivery(client=self.coordinator.registry.get(c),
                                       lora=padded, launched_at=0.0,
                                       arrived_at=0.0))
@@ -318,17 +421,59 @@ class FederatedTrainer:
             weights=None, opened_at=0.0, closed_at=0.0))
         # round boundary: the previous round's divergence resolves only now
         self._resolve_divergences()
-        new_cp, new_loras, self.global_lora, div = self.engine.close_hetero(
+        if eng is None:
+            return client_losses, self._eager_hetero_close(uplinks)
+        new_cp, new_loras, self.global_lora, div = eng.close_hetero(
             self.client_params, list(range(k)), round_id=rid)
         for c in range(k):
             self.client_params[c] = new_cp[c]
             self._client_lora[c] = new_loras[c]
         return client_losses, div
 
+    def _eager_hetero_close(self, loras: List[Dict]) -> float:
+        """``hetero_fedex_aggregate`` over the rank-rᵢ uplinks; the
+        divergence is the dispersion of client 0's product around the
+        clients' mean product (the uplinks' ranks differ, so the factor
+        deviation is undefined), summed over the adapted leaves."""
+        k = len(loras)
+        new_loras, residuals = hetero_fedex_aggregate(
+            loras, list(self.client_ranks), r_max=self.lora_cfg.rank)
+        self._client_lora = new_loras
+        self.client_params = [agg.apply_residual(p, r_i, self.scale)
+                              for p, r_i in zip(self.client_params, residuals)]
+        self.global_lora = new_loras[0]
+        prods = [flatten_with_paths(agg.product_mean([x])) for x in loras]
+        return sum(float(torch.sqrt(torch.mean(torch.square(
+            x - sum(p[key] for p in prods) / k))))
+            for key, x in prods[0].items())
+
+    def _train_fn(self, round_losses: Dict[int, float]) -> Callable:
+        """One coordinated client's local steps (from its own adapters and
+        base under keep_local), its upload privatized when ``dp_clip > 0``;
+        its last loss lands in ``round_losses``."""
+        fc = self.fed_cfg
+
+        def train_fn(client, start_lora, round_id):
+            c = client.client_id
+            base = self.client_params[c] if self.keep_local else self.params
+            start = self._client_lora[c] if self.keep_local else start_lora
+            lora_c, losses = self._client_round(c, base, start)
+            if fc.dp_clip > 0:
+                gen = torch.Generator(device=self.device)
+                # the reference's integer, so a seed names the same streams
+                gen.manual_seed(hash((self.seed, round_id, c)) % 2 ** 31)
+                lora_c = privacy.privatize_upload(
+                    gen, lora_c, start, clip=fc.dp_clip,
+                    noise_multiplier=fc.dp_noise_multiplier)
+            round_losses[c] = losses[-1]
+            return lora_c
+
+        return train_fn
+
     def run(self, until: Optional[int] = None) -> List[RoundRecord]:
         """Run rounds ``[_start_round, until)`` (default: all configured)."""
         stop = self.fed_cfg.rounds if until is None else until
-        keep_local = self.engine.method == "keep_local"
+        k = self.fed_cfg.num_clients
         for rnd in range(self._start_round, stop):
             lr_now = lr_at(self._global_step,
                            base_lr=self.train_cfg.learning_rate,
@@ -337,21 +482,15 @@ class FederatedTrainer:
                            warmup_ratio=self.train_cfg.warmup_ratio)
             if self.hetero:
                 client_losses, div = self._hetero_round(rnd)
+            elif self.method == "centralized":
+                # one worker sees every client's stream round-robin
+                self.global_lora, losses = self._client_round(
+                    rnd % k, self.params, self.global_lora)
+                client_losses, div = [losses[-1]], 0.0
             else:
                 round_losses: Dict[int, float] = {}
-
-                def train_fn(client, start_lora, round_id,
-                             _losses=round_losses):
-                    c = client.client_id
-                    base = (self.client_params[c] if keep_local
-                            else self.params)
-                    start = self._client_lora[c] if keep_local else start_lora
-                    lora_c, losses = self._client_round(c, base, start)
-                    _losses[c] = losses[-1]
-                    return lora_c
-
-                outcome = self.coordinator.run_round(rnd, train_fn,
-                                                     self.global_lora)
+                outcome = self.coordinator.run_round(
+                    rnd, self._train_fn(round_losses), self.global_lora)
                 # round boundary: the previous round's divergence resolves
                 # only after this round's clients ran, so its close
                 # overlapped them

@@ -13,21 +13,23 @@ import numpy as np
 import torch
 
 from repro_torch.data.synthetic import to_batch
+from repro_torch.util.device import resolve_device
 
 
 class ClientLoader:
     """Infinite shuffled batch iterator over one client's sequences.
 
     sequences: (N, seq_len + 1) int32 — inputs are [:, :-1], targets [:, 1:].
+    Batches land on ``device`` (default CUDA; the CPU must be asked for).
     """
 
     def __init__(self, sequences: np.ndarray, batch_size: int, seed: int = 0,
-                 device: torch.device = torch.device("cpu")):
+                 device="cuda"):
         if len(sequences) == 0:
             raise ValueError("empty client shard")
         self.sequences = sequences
         self.batch_size = batch_size
-        self.device = device
+        self.device = resolve_device(device)
         self.rng = np.random.default_rng(seed)
         self._order = self.rng.permutation(len(sequences))
         self._cursor = 0

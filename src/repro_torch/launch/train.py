@@ -1,11 +1,13 @@
 """Federated fine-tuning launcher of the port (host mode).
 
 Counterpart of ``repro/launch/train.py --mode host`` for what the port runs:
-the engine closes — ``--method fedex`` with ``--assignment average``,
-``keep_local`` or ``reinit``, ``--method fedex_svd --svd-rank r'`` and
-``--method hetero`` / ``--client-ranks`` — with participation sampling,
-``--min-quorum``, ``--weighting`` and ``--close-chunk`` (the chunked
-streaming close). Runs on CUDA unless ``--device cpu`` is given.
+every method — ``--method fedex`` with ``--assignment average``,
+``keep_local`` or ``reinit``, ``--method fedex_svd --svd-rank r'``,
+``--method hetero`` / ``--client-ranks``, and the paper's baselines
+``--method fedit|ffa|centralized`` — with participation sampling,
+``--min-quorum``, ``--weighting``, ``--close-chunk`` (the chunked streaming
+close), ``--engine off`` (the eager close) and DP uploads (``--dp-clip``,
+``--dp-noise``). Runs on CUDA unless ``--device cpu`` is given.
 
 ``--data-vocab`` draws the synthetic corpus from a smaller vocabulary than
 the model's (its transition tensor is dense vocab², ~526 GB at 128,256);
@@ -20,6 +22,8 @@ Examples (CPU, tiny model):
       --vocab 64 --method hetero --client-ranks 4,2,1
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --vocab 64 --clients 6 --close-chunk 4 --weighting examples
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --vocab 64 --method fedit --dp-clip 1.0 --dp-noise 0.1
 """
 
 from __future__ import annotations
@@ -72,7 +76,8 @@ def main(argv=None) -> None:
                     help="torch device (default cuda; cpu must be asked for)")
     ap.add_argument("--arch", default="paper-tiny")
     ap.add_argument("--method", default="fedex",
-                    choices=("fedex", "fedex_svd", "hetero"))
+                    choices=("fedex", "fedit", "ffa", "fedex_svd", "hetero",
+                             "centralized"))
     ap.add_argument("--assignment", default="average",
                     choices=("average", "keep_local", "reinit"),
                     help="fedex: what clients start the next round from "
@@ -110,9 +115,16 @@ def main(argv=None) -> None:
                          "running accumulators N clients at a time as they "
                          "arrive (0 = the stacked close; a round of at most "
                          "N clients always takes the stacked close)")
-    ap.add_argument("--engine", default="auto", choices=("auto", "plain"),
+    ap.add_argument("--engine", default="auto",
+                    choices=("auto", "plain", "off"),
                     help="round close: auto = the CUDA kernels on the GPU, "
-                         "their plain PyTorch versions on the CPU")
+                         "their plain PyTorch versions on the CPU; off = "
+                         "the eager close over the list of client adapters")
+    ap.add_argument("--dp-clip", type=float, default=0.0,
+                    help="DP: L2 clip on each client's adapter delta "
+                         "(0 = off)")
+    ap.add_argument("--dp-noise", type=float, default=0.0,
+                    help="DP: Gaussian noise multiplier σ (std = σ · clip)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", default="float32")
     ap.add_argument("--out", default="", help="write round history JSON here")
@@ -129,7 +141,9 @@ def main(argv=None) -> None:
                         dirichlet_alpha=args.dirichlet_alpha, seed=args.seed,
                         participation=args.participation,
                         min_quorum=args.min_quorum, weighting=args.weighting,
-                        close_chunk=args.close_chunk, engine=args.engine)
+                        close_chunk=args.close_chunk, engine=args.engine,
+                        dp_clip=args.dp_clip,
+                        dp_noise_multiplier=args.dp_noise)
     validate_fed_lora(fed_cfg, lora_cfg)
     cfg = get_config(args.arch)
     if args.vocab:
@@ -157,7 +171,8 @@ def main(argv=None) -> None:
     print(f"\nfinal: method={args.method} eval_loss={final.eval_loss:.4f} "
           f"eval_acc={final.eval_acc:.4f} "
           f"divergence={final.divergence_scaled:.3e} "
-          f"(device={device}, close backend={trainer.engine.backend})")
+          f"(device={device}, close backend="
+          f"{trainer.engine.backend if trainer.engine else 'eager'})")
     if args.out:
         with open(args.out, "w") as f:
             json.dump([r.__dict__ for r in history], f, indent=2)

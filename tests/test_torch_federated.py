@@ -43,6 +43,7 @@ from repro_torch.bridge import params_from_numpy, to_numpy  # noqa: E402
 from repro_torch.configs import (FedConfig, LoRAConfig,  # noqa: E402
                                  TrainConfig, get_config)
 from repro_torch.core import FederatedTrainer  # noqa: E402
+from repro_torch.data import ClientLoader  # noqa: E402
 from repro_torch.launch import train as port_train  # noqa: E402
 from repro_torch.launch.train import build_federated_data  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
@@ -150,21 +151,62 @@ def test_nonfinite_uplink_is_quarantined():
                for x in flatten_with_paths(pt.global_lora).values())
 
 
-@pytest.mark.parametrize("field,value", [
-    ("method", "fedit"), ("method", "ffa"), ("round_deadline", 1.0),
-    ("dropout_prob", 0.1), ("async_buffer", 2), ("quantize_uplink", "int8"),
-    ("obs", "basic"), ("faults", "nan@0.5"),
-    ("checkpoint_dir", "ckpt"), ("dp_clip", 1.0),
-])
-def test_unported_federation_features_raise(field, value):
+def _tiny(fed_kw):
     cfg = dataclasses.replace(get_config("paper-tiny"), vocab_size=32,
                               num_layers=1, dtype="float32")
     loaders, _ = build_federated_data(32, 2, seqs_per_task=8, device=CPU)
-    with pytest.raises(NotImplementedError):
-        FederatedTrainer(model=build_model(cfg), lora_cfg=LoRAConfig(),
-                         fed_cfg=FedConfig(num_clients=2, **{field: value}),
-                         train_cfg=TrainConfig(), client_loaders=loaders,
-                         device=CPU)
+    return FederatedTrainer(model=build_model(cfg), lora_cfg=LoRAConfig(),
+                            fed_cfg=FedConfig(num_clients=2, **fed_kw),
+                            train_cfg=TrainConfig(), client_loaders=loaders,
+                            device=CPU)
+
+
+@pytest.mark.parametrize("fed_kw,error", [
+    ({"round_deadline": 1.0}, NotImplementedError),
+    ({"dropout_prob": 0.1}, NotImplementedError),
+    ({"async_buffer": 2}, NotImplementedError),
+    ({"quantize_uplink": "int8"}, NotImplementedError),
+    ({"obs": "basic"}, NotImplementedError),
+    ({"faults": "nan@0.5"}, NotImplementedError),
+    ({"checkpoint_dir": "ckpt"}, NotImplementedError),
+    ({"uplink_max_norm": 1.0}, NotImplementedError),
+    ({"method": "hetero", "dp_clip": 1.0}, ValueError),
+    ({"method": "centralized", "dp_clip": 1.0}, ValueError),
+], ids=lambda x: "-".join(f"{k}={v}" for k, v in x.items())
+    if isinstance(x, dict) else x.__name__)
+def test_unported_federation_features_raise(fed_kw, error):
+    """A feature not ported yet raises ``NotImplementedError``; a setting
+    the run would ignore (DP under a method whose uploads are never
+    privatized) raises ``ValueError`` naming it."""
+    with pytest.raises(error, match="|".join(fed_kw)):
+        _tiny(fed_kw)
+
+
+@pytest.mark.parametrize("fed_kw", [
+    {"engine": "off", "close_chunk": 2},
+    {"engine": "off", "ring_depth": 3},
+    {"method": "fedit", "close_chunk": 2},
+    {"method": "ffa", "ring_depth": 1},
+    {"method": "centralized", "close_chunk": 1},
+    {"method": "hetero", "engine": "off", "close_chunk": 2},
+], ids=lambda x: "-".join(f"{k}={v}" for k, v in x.items()))
+def test_settings_only_the_engine_uses_raise_without_one(fed_kw):
+    key = "close_chunk" if "close_chunk" in fed_kw else "ring_depth"
+    with pytest.raises(ValueError, match=key):
+        _tiny(fed_kw)
+
+
+@pytest.mark.parametrize("fed_kw", [
+    {"method": "fedit"}, {"method": "ffa"}, {"method": "centralized"},
+    {"engine": "off"}, {"dp_clip": 1.0, "dp_noise_multiplier": 0.1},
+    {"method": "fedit", "dp_clip": 1.0},
+    {"engine": "off", "assignment": "keep_local", "dp_clip": 0.5},
+], ids=lambda x: "-".join(f"{k}={v}" for k, v in x.items()))
+def test_baselines_dp_and_the_eager_close_are_accepted(fed_kw):
+    pt = _tiny(fed_kw)
+    eager = fed_kw.get("engine") == "off" or "method" in fed_kw
+    assert (pt.engine is None) == eager
+    assert (pt.coordinator.sink is None) == eager
 
 
 def test_cuda_without_a_card_raises():
@@ -183,6 +225,16 @@ def test_cuda_without_a_card_raises():
                          train_cfg=TrainConfig(), client_loaders=loaders)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_train.main(["--clients", "2", "--rounds", "1"])
+
+
+def test_client_loader_needs_cuda_unless_asked():
+    seqs = np.zeros((4, 9), np.int32)
+    assert ClientLoader(seqs, 2, device="cpu").next_batch()[
+        "tokens"].device == CPU
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ClientLoader(seqs, 2)
 
 
 def test_launcher_runs_on_cpu_when_asked(tmp_path, capsys):
