@@ -59,7 +59,14 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    within rtol 2e-5, atol 4e-5 of ``swa_attention_plain`` at unit-scale
    inputs (library:
    ``scaled_dot_product_attention`` in f32 with ``enable_gqa``, an explicit
-   boolean mask for windows; its difference is printed);
+   boolean mask for windows; its difference is printed); then
+   ``paper-gpt2``'s shapes (:func:`gpt2_kernel_phase`): ``fedex_fold`` and
+   ``factor_mean`` over a weighted close's 4 leaves of (12, 768, 768) at 2
+   live lanes of 4, ``lora_matmul`` at one layer's q/k/v/o at prefill
+   (M = 8 × 512, K = N = 768) and decode (M = 8), ``flash_swa`` at B 8,
+   S 512, MHA 12/12, d 64, causal, and ``lora_matmul`` at the serve
+   launcher's default prompt (batch 2 × prompt 32, M 64) for both models,
+   each checked as above and timed in device time too;
 4. main paths: the port's ``FederatedTrainer`` at ``paper-llama3.2-3b``
    full width (28 layers, d 3072, GQA 24/8, vocab 128,256, float32), LoRA
    rank 4, α 8 on q/k/v/o, 4 clients, batch 8 × seq 64 on a 512-token data
@@ -97,12 +104,21 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
      ``fedex_fold`` 4 and ``factor_mean`` 1 per close);
    * fedex[eager]: the fedex path's weighted rounds with ``engine="off"``,
      the eager close (its §6 divergence included in its time), no kernel
-     launch; its close ms is printed beside the kernel close's.
+     launch; its close ms is printed beside the kernel close's;
+   * gpt2-fedex: the fedex path at ``paper-gpt2`` full width (12 layers,
+     d 768, MHA 12/12, vocab 50,257, LayerNorm, tanh-GELU MLP, biases,
+     learned positions, float32), its biases drawn N(0, 0.02²) from a
+     seeded generator (their init is 0): ``fedex_fold`` 4 and
+     ``factor_mean`` 1 per weighted close, and every leaf that is not
+     adapted (biases, norms, learned positions, the tied embedding)
+     bitwise as at the path's start.
    The last round of each path is checked against its exactness identity
    (below), and every path's peak memory is printed, the stacked and the
    chunked path of each method side by side;
-5. serving (``serve_phase``): ``paper-llama3.2-3b`` at full width in
-   float32 with a non-zero rank-4 adapter, batch 8, a 512-token
+5. serving (``serve_phase``), first ``paper-llama3.2-3b``, then
+   ``paper-gpt2`` (``lora_matmul`` 48 a prefill and a decode step,
+   ``flash_swa`` 12 a prefill, its biases drawn as in phase 4), each at
+   full width in float32 with a non-zero rank-4 adapter, batch 8, a 512-token
    ``make_batch_for`` prompt over the full vocabulary, a bf16 cache of 1024
    positions: per-step launch counts (one prefill: ``lora_matmul`` 112,
    ``flash_swa`` 28; one decode step: ``lora_matmul`` 112), the kernel path
@@ -121,8 +137,11 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    ``decode_library_device_ms``, ``decode_wall_us``,
    ``decode_enqueue_us``), B8's the S 4096 cases (``S4096_*`` causal,
    ``W1024_*`` with the window: ``ms``, ``plain_ms``, ``library_ms``,
-   ``bound_ms``, ``device_ms``, ``library_device_ms``); then the result
-   line.
+   ``bound_ms``, ``device_ms``, ``library_device_ms``); the same six
+   fields at ``paper-gpt2``'s shapes as ``gpt2_*`` on the rows of B1, B2,
+   B3 (prefill layer; ``gpt2_decode_*`` the decode layer) and B8, and at
+   the serve launcher's default prompt as ``M64_*`` (paper-llama3.2-3b)
+   and ``gpt2_M64_*`` on B3's row; then the result line.
 
 ``--launch-cost SRC`` runs :func:`launch_cost` alone on the port found
 under ``SRC`` (another tree's ``src`` too, to compare two trees in one
@@ -141,8 +160,9 @@ Identities, per adapted leaf, on the last round of each path:
 * the chunked paths: the same identities against a float64 computation on
   the host from the round's uplinks and normalised raw weights
   (``identity_host``);
-* fedex+dp and fedex[eager]: the fedex identity, over the privatized
-  uploads for fedex+dp (the residual absorbs whatever the clients sent);
+* fedex+dp, fedex[eager] and gpt2-fedex: the fedex identity, over the
+  privatized uploads for fedex+dp (the residual absorbs whatever the
+  clients sent);
 * fedit: global a and b = Σ_c w_c a_c and Σ_c w_c b_c against float64 on
   the card, within 2·(C + 2) unit roundoffs of Σ_c |w_c| |x_c| (the weight's
   rounding to f32, C products and C − 1 additions); W0 bitwise as at the
@@ -373,16 +393,20 @@ def bound_ms(nbytes, flops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
+def kernel_phase(torch, kernels, device, cfg, *, c, r, scale,
+                 bodies=("weighted-partial", "weighted-full", "uniform"),
+                 edges=True):
     """Both bodies of both kernels against their plain versions at the main
-    path's shapes and at edge cases; timings at the main path's shapes."""
+    path's shapes (``bodies``: the live lanes of a close) and, with
+    ``edges``, at edge cases; timings at the main path's shapes."""
     timer = Timer(torch, device)
     leaves = main_path_leaves(cfg)
     errs = {"fedex_fold": 0.0, "factor_mean": 0.0}
     timings = {}
     live_sets = {"weighted-partial": (0, 1), "weighted-full": tuple(range(c)),
                  "uniform": tuple(range(c))}
-    for body, live in live_sets.items():
+    for body in bodies:
+        live = live_sets[body]
         weighted = body != "uniform"
         bufs = []
         for i, (name, L, m, n) in enumerate(leaves):
@@ -391,7 +415,8 @@ def kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
             wts = w if weighted else None
             err, ok = check_fold(torch, kernels, w0, a, b, scale, wts)
             errs["fedex_fold"] = max(errs["fedex_fold"], err)
-            print(f"  fedex_fold[{body}] {name} ({L},{m},{n}) C={c} r={r}: "
+            print(f"  fedex_fold[{body}] {cfg.name} {name} ({L},{m},{n}) "
+                  f"C={c} r={r}: "
                   f"max_abs_err={err:.3e} within bound={ok}", flush=True)
             if not ok:
                 raise AssertionError(f"fedex_fold[{body}] {name} disagrees "
@@ -482,7 +507,7 @@ def kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
                              timer.device(mean_kernel) if main else None,
                              timer.device(mean_library) if main else None)}
         for name, (ms, plain, lib, (bms, by), dev, dev_lib) in t.items():
-            print(f"  time {name}[{body}] one close (4 leaves"
+            print(f"  time {name}[{body}] {cfg.name} one close (4 leaves"
                   f"{', one grouped launch' if name == 'factor_mean' else ''}"
                   f"): kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
                   f"{lib:.4f} ms ({'baddbmm' if name == 'fedex_fold' else '8 tensordot'}), "
@@ -494,11 +519,11 @@ def kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
         torch.cuda.empty_cache()
 
     # edge cases, both bodies: (C, L, m, n, r, live lanes)
-    for c_e, L, m, n, r_e, live in [(3, 2, 1000, 777, 4, (0, 1, 2)),
-                                    (1, 2, 512, 640, 4, (0,)),
-                                    (8, 2, 384, 256, 4, (1, 4, 6)),
-                                    (4, 2, 256, 384, 16, (0, 1, 2, 3)),
-                                    (20, 2, 96, 200, 4, tuple(range(17)))]:
+    edge_cases = [(3, 2, 1000, 777, 4, (0, 1, 2)), (1, 2, 512, 640, 4, (0,)),
+                  (8, 2, 384, 256, 4, (1, 4, 6)),
+                  (4, 2, 256, 384, 16, (0, 1, 2, 3)),
+                  (20, 2, 96, 200, 4, tuple(range(17)))]
+    for c_e, L, m, n, r_e, live in edge_cases if edges else []:
         w0, a, b, w = make_inputs(torch, device, c_e, (L,), m, n, r_e, live,
                                   seed=99)
         for wts in (w, None):
@@ -514,7 +539,8 @@ def kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
             if not (ok and ok2 and ok3):
                 raise AssertionError(f"edge case C={c_e} m={m} n={n} r={r_e} "
                                      f"[{body}] disagrees")
-    mean_group_edges(torch, kernels, device)
+    if edges:
+        mean_group_edges(torch, kernels, device)
     return errs, timings
 
 
@@ -1156,6 +1182,55 @@ def serving_kernel_phase(torch, kernels, device, cfg, *, batch, prompt, r,
     return errs, timings
 
 
+def short_prompt_rows():
+    """M of the serve launcher's default prompt (batch_size × prompt_len
+    of ``repro_torch.launch.serve.serve``: 2 × 32)."""
+    import inspect
+
+    from repro_torch.launch.serve import serve
+    params = inspect.signature(serve).parameters
+    return params["batch_size"].default * params["prompt_len"].default
+
+
+def gpt2_kernel_phase(torch, kernels, device, cfg, gcfg, *, batch, prompt, r,
+                      scale):
+    """B3 and B8 at ``gcfg``'s (paper-gpt2's) serving shapes, held and
+    timed as :func:`serving_kernel_phase` holds the main model's: B3 at one
+    layer's q/k/v/o at prefill (M = batch·prompt) and decode (M = batch),
+    B8 at the prefill shape (MHA, d 64); then B3 at the serve launcher's
+    default prompt (M 64) for ``gcfg`` and ``cfg``. Every case in device
+    time too. Returns (max errors, timings)."""
+    timer = Timer(torch, device)
+    errs = {"lora_matmul": 0.0, "flash_swa": 0.0}
+    timings = {}
+    m64 = short_prompt_rows()
+    for key, mcfg, m in (("gpt2", gcfg, batch * prompt),
+                         ("gpt2_decode", gcfg, batch),
+                         ("gpt2_M64", gcfg, m64), ("M64", cfg, m64)):
+        bufs = [lora_inputs(torch, device, m, k, n, r, seed=50 + i)
+                for i, (_, k, n) in enumerate(serving_projections(mcfg))]
+        err, timings[key] = lora_case(
+            torch, kernels, timer, bufs, scale,
+            f"{mcfg.name} layer: q/k/v/o at M={m}", device_times=True)
+        errs["lora_matmul"] = max(errs["lora_matmul"], err)
+        del bufs
+    err, timings["flash_gpt2"] = flash_case(
+        torch, kernels, timer, device, batch, prompt, gcfg.num_heads,
+        gcfg.num_kv_heads, gcfg.resolved_head_dim, True, 0, seed=60,
+        device_times=True)
+    errs["flash_swa"] = err
+    torch.cuda.empty_cache()
+    return errs, timings
+
+
+def timing_fields(prefix, t):
+    """A timing tuple as the kernels line's ``<prefix>_*`` fields."""
+    ms, plain, lib_ms, (bms, _), dev, dev_lib = t
+    return {f"{prefix}_ms": ms, f"{prefix}_plain_ms": plain,
+            f"{prefix}_library_ms": lib_ms, f"{prefix}_bound_ms": bms,
+            f"{prefix}_device_ms": dev, f"{prefix}_library_device_ms": dev_lib}
+
+
 # --------------------------------------------------------------------------
 # phase 4: the main paths
 # --------------------------------------------------------------------------
@@ -1209,16 +1284,39 @@ PATHS = {
                  4, 2, {"fedex_fold": 1}, {"factor_mean": 1}),
     # the eager close of the fedex path's weighted rounds
     "fedex[eager]": ({"engine": "off", **PARTIAL}, 2, 4, 2, {}, {}),
+    # the fedex path at paper-gpt2's width (GPT2_PATHS)
+    "gpt2-fedex": ({}, 3, 4, 2, {"fedex_fold": 1}, {"factor_mean": 1}),
 }
+GPT2_PATHS = ("gpt2-fedex",)  # run at paper-gpt2, the others at the main cfg
+# round 0 uniform over every client, later rounds weighted at 50%
+STAGED = ("fedex", "gpt2-fedex")
+
+
+def frozen_leaves(torch, params, keys, gen):
+    """Every leaf of ``params`` that no close may move (all but the adapted
+    kernels: biases, norms, learned positions, the tied embedding), its
+    biases first drawn N(0, 0.02²) from ``gen`` (the init's zeros would
+    leave the bias terms untested); returns clones to compare against."""
+    from repro_torch.util.tree import flatten_with_paths
+    adapted = {f"{k}/kernel" for k in keys}
+    out = {}
+    for k, leaf in flatten_with_paths(params).items():
+        if k in adapted:
+            continue
+        if k.endswith("/bias"):
+            leaf.normal_(0.0, 0.02, generator=gen)
+        out[k] = leaf.clone()
+    return out
 
 
 def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
-    """Drive one path of the port's FederatedTrainer at full width; the
-    fedex path's round 0 is uniform over every client, its later rounds
-    weighted at 50% participation. A chunked path times each chunk fold
-    (eager during ingest, or a flush inside the close). Returns (trainer,
-    per-round rows, number of kernel closes, identity check's worst
-    error)."""
+    """Drive one path of the port's FederatedTrainer at full width; a
+    ``STAGED`` path's round 0 is uniform over every client, its later
+    rounds weighted at 50% participation; a ``GPT2_PATHS`` path holds its
+    leaves that are not adapted bitwise (:func:`frozen_leaves`). A chunked
+    path times each chunk fold (eager during ingest, or a flush inside the
+    close). Returns (trainer, per-round rows, number of kernel closes,
+    identity check's worst error)."""
     from repro_torch.configs import FedConfig, LoRAConfig, TrainConfig
     from repro_torch.core import FederatedTrainer
     from repro_torch.fedsrv import RoundPolicy
@@ -1290,14 +1388,19 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
     keys = ([s.key for s in eng.specs] if eng else
             [k[:-2] for k in flatten_with_paths(trainer.global_lora)
              if k.endswith("/a")])
+    frozen = None
+    if name in GPT2_PATHS:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(1)
+        frozen = frozen_leaves(torch, trainer.params, keys, gen)
     rows, identity, kernel_closes = [], None, 0
     # the baselines fold nothing: their W0 is held to the path's start
-    frozen = trainer.method in ("fedit", "ffa", "centralized")
+    baseline = trainer.method in ("fedit", "ffa", "centralized")
     for rnd in range(rounds):
-        if name == "fedex" and rnd == 1:
+        if name in STAGED and rnd == 1:
             trainer.coordinator.policy = RoundPolicy(participation=0.5,
                                                      weighting="examples")
-        if rnd == (0 if frozen else rounds - 1):
+        if rnd == (0 if baseline else rounds - 1):
             # the exactness identity on the last round
             bases = trainer.client_params or [trainer.params]
             old = [{k: _node(p, k)["kernel"].clone() for k in keys}
@@ -1310,7 +1413,7 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
         # the path's peak before any identity check's own temporaries
         run_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         out = trainer.outcomes[-1] if trainer.outcomes else None
-        uniform = name == "fedex" and out.weights is None
+        uniform = name in STAGED and out.weights is None
         kernel_closes += eng is not None and not uniform
         kind = ("uniform" if uniform else "kernel" if eng
                 else "eager" if out else "no")
@@ -1349,6 +1452,14 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
             print(f"  [{name}] identity check {time.perf_counter() - t:.1f} s",
                   flush=True)
             del old
+    if frozen is not None:
+        now = flatten_with_paths(trainer.params)
+        moved = [k for k, x in frozen.items() if not torch.equal(now[k], x)]
+        print(f"  [{name}] the {len(frozen)} leaves not adapted (biases, "
+              f"norms, learned positions, the tied embedding) bitwise as at "
+              f"the path's start: {not moved}", flush=True)
+        if moved:
+            raise AssertionError(f"{name}: leaves not adapted moved: {moved}")
     return trainer, rows, kernel_closes, identity
 
 
@@ -1669,7 +1780,8 @@ IDENTITIES = {"fedex": identity_fedex, "reinit": identity_reinit,
               "fedex_svd[chunked]": identity_svd,
               "fedit": identity_fedit, "ffa": identity_ffa,
               "centralized": identity_centralized,
-              "fedex+dp": identity_fedex, "fedex[eager]": identity_fedex}
+              "fedex+dp": identity_fedex, "fedex[eager]": identity_fedex,
+              "gpt2-fedex": identity_fedex}
 
 
 def _node(tree, key):
@@ -1782,7 +1894,8 @@ def profile_serving(torch, model, params, lora, prefill, decode, batch,
 
 def serve_phase(torch, kernels, device, cfg):
     """Serve ``cfg`` at full width with a non-zero adapter (b drawn N(0,
-    0.05²) from a seeded generator; a fresh adapter's b is 0). First the
+    0.05²) from a seeded generator; a fresh adapter's b is 0) and any
+    biases drawn N(0, 0.02²) (their init is 0). First the
     checks, each with the counters set to 0 just before it:
     * one prefill (``lora_matmul`` 4·L, ``flash_swa`` L launches) and one
       decode step of the last prompt token (``lora_matmul`` 4·L, no
@@ -1809,6 +1922,7 @@ def serve_phase(torch, kernels, device, cfg):
     from repro_torch.launch.serve import serve
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import build_model
+    from repro_torch.util.tree import flatten_with_paths
 
     bsz, prompt, steps, max_len = (SERVE[k] for k in
                                    ("batch", "prompt", "steps", "max_len"))
@@ -1823,6 +1937,10 @@ def serve_phase(torch, kernels, device, cfg):
         lora = init_lora(gen, params, cfg, lcfg)
         for leaf in lora["layers"]["attn"].values():
             leaf["b"].normal_(0.0, 0.05, generator=gen)
+        # biases (paper-gpt2's) drawn away from the init's zeros
+        for k, leaf in flatten_with_paths(params).items():
+            if k.endswith("/bias"):
+                leaf.normal_(0.0, 0.02, generator=gen)
     torch.cuda.synchronize()
     print(f"  [serve] set-up ({cfg.name}, params and a rank-{lcfg.rank} "
           f"adapter on the card): {time.perf_counter() - t0:.1f} s",
@@ -2176,21 +2294,34 @@ def main() -> int:
         torch, kernels, device, cfg, batch=SERVE["batch"],
         prompt=SERVE["prompt"], r=r, scale=scale)
     errs.update(serve_errs)
+    gcfg = replace(get_config("paper-gpt2"), dtype="float32")
+    gpt2_fold_errs, gpt2_fold = kernel_phase(
+        torch, kernels, device, gcfg, c=c, r=r, scale=scale,
+        bodies=("weighted-partial",), edges=False)
+    gpt2_errs, gpt2_timings = gpt2_kernel_phase(
+        torch, kernels, device, cfg, gcfg, batch=SERVE["batch"],
+        prompt=SERVE["prompt"], r=r, scale=scale)
+    for k, v in (*gpt2_fold_errs.items(), *gpt2_errs.items()):
+        errs[k] = max(errs[k], v)
     cost = launch_cost(torch, kernels, device, cfg)
     print(f"  launch path: {json.dumps(cost)}", flush=True)
     torch.cuda.empty_cache()
 
     print(f"[4/6] main paths: FederatedTrainer at {cfg.name} full width "
           f"({cfg.num_layers} layers, d={cfg.d_model}, vocab "
-          f"{cfg.vocab_size}, {cfg.dtype})", flush=True)
+          f"{cfg.vocab_size}, {cfg.dtype}); {', '.join(GPT2_PATHS)} at "
+          f"{gcfg.name} ({gcfg.num_layers} layers, d={gcfg.d_model}, vocab "
+          f"{gcfg.vocab_size})", flush=True)
     launches = {name: 0 for name in SOURCES}
     all_rows, identities, peaks = [], {}, {}
     for name, (*_, per_leaf, per_close) in PATHS.items():
+        pcfg = gcfg if name in GPT2_PATHS else cfg
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()
-        trainer, rows, closes, identity = drive_path(torch, device, cfg, name)
+        trainer, rows, closes, identity = drive_path(torch, device, pcfg,
+                                                     name)
         counts = kernels.launch_counts()
-        n_leaves = len(main_path_leaves(cfg))
+        n_leaves = len(main_path_leaves(pcfg))
         expected = {k: 0 for k in SOURCES}
         expected.update({k: v * n_leaves * closes
                          for k, v in per_leaf.items()})
@@ -2234,12 +2365,17 @@ def main() -> int:
           f"kernel close {closes['fedex']:.2f}, fedex eager close "
           f"{closes['fedex[eager]']:.2f} (its §6 divergence included), "
           f"fedex+dp kernel close {closes['fedex+dp']:.2f}, fedit "
-          f"{closes['fedit']:.2f}, ffa {closes['ffa']:.2f}", flush=True)
-    print(f"[5/6] serving: {cfg.name} at full width, prefill + KV-cache "
-          "greedy decode with a LoRA adapter", flush=True)
-    serve_stats, serve_launches = serve_phase(torch, kernels, device, cfg)
-    for k in ("lora_matmul", "flash_swa"):
-        launches[k] += serve_launches[k]
+          f"{closes['fedit']:.2f}, ffa {closes['ffa']:.2f}; "
+          f"{gcfg.name} fedex kernel close {closes['gpt2-fedex']:.2f}",
+          flush=True)
+    serve_stats = {}
+    for scfg in (cfg, gcfg):
+        print(f"[5/6] serving: {scfg.name} at full width, prefill + KV-cache "
+              "greedy decode with a LoRA adapter", flush=True)
+        serve_stats[scfg.name], serve_launches = serve_phase(
+            torch, kernels, device, scfg)
+        for k in ("lora_matmul", "flash_swa"):
+            launches[k] += serve_launches[k]
     main_body = {**timings["weighted-partial"], **lane_timings,
                  "lora_matmul": serve_timings["lora_matmul[prefill]"],
                  "flash_swa": serve_timings["flash_swa[prefill]"]}
@@ -2266,12 +2402,20 @@ def main() -> int:
         "decode_enqueue_us": cost["lora_matmul"]["enqueue_us"]})
     # B8 at S 4096 (batch 1), causal and with a window of 1024
     for label, key in (("S4096", "S4096"), ("S4096-window1024", "W1024")):
-        ms, plain, lib_ms, (bms, _), dev, dev_lib = serve_timings[
-            f"flash_swa[{label}]"]
-        out[list(SOURCES).index("flash_swa")].update({
-            f"{key}_ms": ms, f"{key}_plain_ms": plain,
-            f"{key}_library_ms": lib_ms, f"{key}_bound_ms": bms,
-            f"{key}_device_ms": dev, f"{key}_library_device_ms": dev_lib})
+        out[list(SOURCES).index("flash_swa")].update(timing_fields(
+            key, serve_timings[f"flash_swa[{label}]"]))
+    # paper-gpt2's shapes: B1 and B2 over a weighted close's 4 leaves, B3 at
+    # one prefill and one decode layer, B8 at one prefill launch; B3 at the
+    # serve launcher's default prompt (M 64) for both models
+    for name, key, t in (("fedex_fold", "gpt2", gpt2_fold[
+                              "weighted-partial"]["fedex_fold"]),
+                         ("factor_mean", "gpt2", gpt2_fold[
+                             "weighted-partial"]["factor_mean"]),
+                         *(("lora_matmul", key, gpt2_timings[key])
+                           for key in ("gpt2", "gpt2_decode", "gpt2_M64",
+                                       "M64")),
+                         ("flash_swa", "gpt2", gpt2_timings["flash_gpt2"])):
+        out[list(SOURCES).index(name)].update(timing_fields(key, t))
     # B5 beside its old body (product_fold in place), and at the chunk of
     # 64 uplinks at r = 8 that docs/benchmarks.md documents
     ms, _, lib_ms, (bms, by), *_ = lane_timings["product_accum[C64r8]"]

@@ -1,11 +1,13 @@
-"""Config registry of the port: the paper's own models.
+"""Config registry of the port: the paper's own models, and the reference
+serve's default arch.
 
-``get_config(name)`` covers ``paper-tiny``, ``paper-gpt2`` and
-``paper-llama3.2-3b`` (``<name>-smoke`` gives the reduced variant), with the
-reference's dataclasses copied in :mod:`repro_torch.configs.base`.
+``get_config(name)`` covers ``paper-tiny``, ``paper-gpt2``,
+``paper-llama3.2-3b`` and ``qwen2.5-3b`` (``<name>-smoke`` gives the reduced
+variant), with the reference's dataclasses copied in
+:mod:`repro_torch.configs.base`.
 """
 
-from repro_torch.configs import paper_models
+from repro_torch.configs import paper_models, qwen2_5_3b
 from repro_torch.configs.base import (FedConfig, LoRAConfig, ModelConfig,
                                       TrainConfig, config_dict,
                                       validate_fed_lora)
@@ -14,6 +16,7 @@ CONFIGS = {
     "paper-gpt2": paper_models.GPT2_SMALL,
     "paper-llama3.2-3b": paper_models.LLAMA32_3B,
     "paper-tiny": paper_models.TINY,
+    "qwen2.5-3b": qwen2_5_3b.CONFIG,
 }
 
 

@@ -154,6 +154,11 @@ def _check_supported(fed: FedConfig) -> None:
             "(every method and assignment, stacked, chunked or eager, with "
             "participation sampling, min_quorum, example weighting and DP "
             "uploads only)")
+    if fed.dp_noise_multiplier > 0 and fed.dp_clip <= 0:
+        raise ValueError(f"dp_noise_multiplier={fed.dp_noise_multiplier} "
+                         f"with dp_clip={fed.dp_clip}: uploads are "
+                         "privatized only under a clip, so the noise would "
+                         "never be added")
     if fed.dp_clip > 0 and (_hetero(fed) or fed.method == "centralized"):
         method = "hetero" if _hetero(fed) else "centralized"
         raise ValueError(f"dp_clip={fed.dp_clip} under {method}, whose "

@@ -164,19 +164,28 @@ def _check(name: str, q, k, v, ndim: int) -> None:
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
 
 
+def _plan(name: str, b: int, h: int, d: int):
+    """(padded head dim, dynamic shared memory) of a launch over ``b``
+    batches of ``h`` query heads of dim ``d``; raises for a shape the
+    kernel refuses."""
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} > {MAX_HEAD_DIM} (shared "
+                         "memory)")
+    if b * h > 65535:
+        raise ValueError(f"{name}: batch·heads {b * h} > 65535 (grid)")
+    dp = 64 if d <= 64 else 128
+    return dp, _smem_bytes(dp)
+
+
 def _launch(name, q, k, v, out, b, h, kvh, strides, causal, window):
     """One kernel launch; ``strides`` are the (batch, position, head)
     element strides of q, k, v and out."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     sq, d, sk = q.shape[1], q.shape[-1], k.shape[1]
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {d} > {MAX_HEAD_DIM} (shared "
-                         "memory)")
+    _, smem = _plan(name, b, h, d)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError(f"{name}: the head dim must be contiguous")
-    if b * h > 65535:
-        raise ValueError(f"{name}: batch·heads {b * h} > 65535 (grid)")
     vec = int(d % 4 == 0 and all(s % 4 == 0 for s in strides)
               and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
     lib = load_library()
@@ -186,8 +195,7 @@ def _launch(name, q, k, v, out, b, h, kvh, strides, causal, window):
         code = lib.flash_swa_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
             kvh, sq, sk, d, st, int(bool(causal)), int(window),
-            float(d ** -0.5), vec, _smem_bytes(64 if d <= 64 else 128),
-            stream)
+            float(d ** -0.5), vec, smem, stream)
     check_launch(name, code)
     flash_swa.launches += 1
     return out

@@ -11,10 +11,12 @@ in float32. Runs on CUDA unless ``--device cpu`` is given (the CPU runs the
 kernels' plain versions).
 
 ``--pull-from`` (fetch the federation server's current adapter) waits for
-the port of the HTTP client (ROADMAP item 11).
+the port of the HTTP client (ROADMAP Queue 1 item 4).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch paper-tiny --batch-size 2 --prompt-len 32 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch paper-gpt2-smoke --batch-size 2 --prompt-len 32 --steps 8
 """
 
 from __future__ import annotations
@@ -117,12 +119,13 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-lora", action="store_true")
     ap.add_argument("--pull-from", default="",
-                    help="federation server URL (not ported: ROADMAP item 11)")
+                    help="federation server URL (not ported: ROADMAP Queue 1 "
+                         "item 4)")
     args = ap.parse_args(argv)
     if args.pull_from:
         raise NotImplementedError(
             "--pull-from needs the federation HTTP client, which the port "
-            "does not have yet (ROADMAP item 11)")
+            "does not have yet (ROADMAP Queue 1 item 4)")
     res = serve(args.arch, batch_size=args.batch_size,
                 prompt_len=args.prompt_len, steps=args.steps,
                 max_len=args.max_len, rank=args.rank,

@@ -10,8 +10,9 @@ close), ``--engine off`` (the eager close) and DP uploads (``--dp-clip``,
 ``--dp-noise``). Runs on CUDA unless ``--device cpu`` is given.
 
 ``--data-vocab`` draws the synthetic corpus from a smaller vocabulary than
-the model's (its transition tensor is dense vocab², ~526 GB at 128,256);
-the model keeps its full embedding and unembedding.
+the model's (its transition tensor is dense vocab², ~526 GB at 128,256 and
+~20 GB a task at paper-gpt2's 50,257); the model keeps its full embedding
+and unembedding.
 
 Examples (CPU, tiny model):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
@@ -24,6 +25,8 @@ Examples (CPU, tiny model):
       --vocab 64 --clients 6 --close-chunk 4 --weighting examples
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --vocab 64 --method fedit --dp-clip 1.0 --dp-noise 0.1
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch paper-gpt2-smoke --vocab 64 --rounds 2 --local-steps 3
 """
 
 from __future__ import annotations

@@ -37,8 +37,27 @@ def normal_init(gen: torch.Generator, shape, dtype, device,
     return x.to(dtype)
 
 
-def make_dense_params(gen, shape_in_out, dtype, device) -> Params:
-    return {"kernel": normal_init(gen, shape_in_out, dtype, device)}
+def make_dense_params(gen, shape_in_out, dtype, device, *,
+                      bias: bool = False) -> Params:
+    """``kernel`` of ``shape_in_out`` = ``(*lead, d_in, d_out)`` drawn
+    N(0, 0.02²); with ``bias`` a zero ``bias`` of ``(*lead, d_out)``."""
+    p = {"kernel": normal_init(gen, shape_in_out, dtype, device)}
+    if bias:
+        p["bias"] = torch.zeros((*shape_in_out[:-2], shape_in_out[-1]),
+                                dtype=dtype, device=device)
+    return p
+
+
+def make_norm_params(kind: str, shape, dtype, device) -> Params:
+    """Unit ``scale`` of ``shape`` (``(*lead, d)``); LayerNorm adds a zero
+    ``bias``."""
+    ones = torch.ones(shape, dtype=dtype, device=device)
+    if kind == "rmsnorm":
+        return {"scale": ones}
+    if kind == "layernorm":
+        return {"scale": ones,
+                "bias": torch.zeros(shape, dtype=dtype, device=device)}
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 # --------------------------------------------------------------------------
@@ -84,18 +103,32 @@ def maybe_lora(lora: Optional[Params], name: str) -> Optional[Params]:
 
 def apply_norm(kind: str, params: Params, x: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
-    """Pre-norm with f32 row statistics and tensor math in ``x.dtype``."""
+    """Pre-norm with f32 row statistics and tensor math in ``x.dtype``,
+    op for op the reference's (not ``F.layer_norm``, whose op order gives
+    another bf16 function). LayerNorm's variance is the population one, as
+    ``jnp.var``'s."""
     if kind == "rmsnorm":
         var = torch.mean(torch.square(x.float()), dim=-1, keepdim=True)
         inv = torch.rsqrt(var + eps).to(x.dtype)
         return x * inv * params["scale"].to(x.dtype)
-    raise NotImplementedError(f"norm {kind!r} is not ported (rmsnorm only)")
+    if kind == "layernorm":
+        xf = x.float()
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+        inv = torch.rsqrt(var + eps)
+        y = (x - mu.to(x.dtype)) * inv.to(x.dtype)
+        return y * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
+    raise ValueError(f"unknown norm {kind!r}")
 
 
 def activation(kind: str, x: torch.Tensor) -> torch.Tensor:
+    """``silu``, or ``gelu`` in its tanh form (``jax.nn.gelu``'s default
+    ``approximate=True``; torch's default is the erf form)."""
     if kind == "silu":
         return F.silu(x)
-    raise NotImplementedError(f"activation {kind!r} is not ported (silu only)")
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(f"unknown activation {kind!r}")
 
 
 # --------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Feed-forward block: the gated SiLU (SwiGLU) branch of ``repro/models/mlp.py``."""
+"""Feed-forward block: the gated (SwiGLU) and plain 2-layer MLPs of
+``repro/models/mlp.py``."""
 
 from __future__ import annotations
 
@@ -11,22 +12,34 @@ from repro_torch.models.common import (Params, activation,
 
 
 def make_mlp_params(gen, cfg, dtype, device, lead=()) -> Params:
+    """Gated iff ``cfg.act == "silu"``; up/down carry biases iff
+    ``cfg.qkv_bias`` and LayerNorm (the reference's conditions)."""
     d, ff = cfg.d_model, cfg.d_ff
-    return {
-        "up_proj": make_dense_params(gen, (*lead, d, ff), dtype, device),
-        "down_proj": make_dense_params(gen, (*lead, ff, d), dtype, device),
-        "gate_proj": make_dense_params(gen, (*lead, d, ff), dtype, device),
+    bias = cfg.qkv_bias and cfg.norm == "layernorm"
+    p = {
+        "up_proj": make_dense_params(gen, (*lead, d, ff), dtype, device,
+                                     bias=bias),
+        "down_proj": make_dense_params(gen, (*lead, ff, d), dtype, device,
+                                       bias=bias),
     }
+    if cfg.act == "silu":
+        p["gate_proj"] = make_dense_params(gen, (*lead, d, ff), dtype, device)
+    return p
 
 
 def mlp_block(cfg, params: Params, x: torch.Tensor, *,
               lora: Optional[Params] = None, lora_scale: float = 0.0,
               fused: bool = False) -> torch.Tensor:
-    """``fused`` (serving): adapted projections (``include_mlp``) run the
-    fused LoRA kernel."""
+    """``down(act(gate(x)) · up(x))``, or ``down(act(up(x)))`` without a
+    gate. ``fused`` (serving): adapted projections (``include_mlp``) run
+    the fused LoRA kernel."""
     def proj(inp, name):
         return project(inp, params[name], maybe_lora(lora, name), lora_scale,
                        fused)
 
-    h = activation(cfg.act, proj(x, "gate_proj")) * proj(x, "up_proj")
+    up = proj(x, "up_proj")
+    if "gate_proj" in params:
+        h = activation(cfg.act, proj(x, "gate_proj")) * up
+    else:
+        h = activation(cfg.act, up)
     return proj(h, "down_proj")

@@ -18,7 +18,8 @@ import torch
 
 from repro_torch.models.attention import attention_block, init_kv_cache
 from repro_torch.models.common import (Params, apply_norm, dtype_of, embed,
-                                       make_dense_params, normal_init, unembed)
+                                       make_dense_params, make_norm_params,
+                                       normal_init, unembed)
 from repro_torch.models.mlp import make_mlp_params, mlp_block
 
 MODES = ("train", "prefill", "decode")
@@ -26,15 +27,12 @@ MODES = ("train", "prefill", "decode")
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` asks only for the branch
-    the port runs: dense decoder, RoPE, RMSNorm, gated SiLU, no biases,
-    global causal attention, tied or untied unembedding."""
+    the port runs: the dense decoder with global causal attention — RoPE
+    or learned positions, RMSNorm or LayerNorm, gated SiLU or plain GELU
+    MLP, with or without q/k/v (and, under LayerNorm, MLP) biases, tied or
+    untied unembedding."""
     unsupported = {
         "family": cfg.family != "dense",
-        "rope=False": not cfg.rope,
-        "norm": cfg.norm != "rmsnorm",
-        "act": cfg.act != "silu",
-        "qkv_bias": cfg.qkv_bias,
-        "learned_pos_embeddings": cfg.learned_pos_embeddings,
         "sliding_window": bool(cfg.sliding_window),
         "local_global_ratio": bool(cfg.local_global_ratio),
         "mla": cfg.mla,
@@ -44,36 +42,39 @@ def check_supported(cfg) -> None:
     if asked:
         raise NotImplementedError(
             f"config {cfg.name!r} asks for {asked}: the port runs only the "
-            "dense RoPE/RMSNorm/SiLU decoder so far")
+            "dense decoder with global attention so far")
 
 
 def make_params(gen: torch.Generator, cfg, device) -> Params:
-    """The port's own draws (N(0, 0.02) kernels and embedding, unit norm
-    scales), in the reference's stacked layout."""
+    """The port's own draws (N(0, 0.02) kernels and embeddings, unit norm
+    scales, zero biases), in the reference's stacked layout."""
     check_supported(cfg)
     dtype = dtype_of(cfg)
     L, d = cfg.num_layers, cfg.d_model
     hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    bias = cfg.qkv_bias
     params: Params = {
         "embed": {"embedding": normal_init(gen, (cfg.vocab_size, d), dtype,
                                            device)},
-        "layers": {
-            "attn_norm": {"scale": torch.ones((L, d), dtype=dtype,
-                                              device=device)},
-            "mlp_norm": {"scale": torch.ones((L, d), dtype=dtype,
-                                             device=device)},
-            "attn": {
-                "q_proj": make_dense_params(gen, (L, d, h * hd), dtype, device),
-                "k_proj": make_dense_params(gen, (L, d, kv * hd), dtype,
-                                            device),
-                "v_proj": make_dense_params(gen, (L, d, kv * hd), dtype,
-                                            device),
-                "o_proj": make_dense_params(gen, (L, h * hd, d), dtype, device),
-            },
-            "mlp": make_mlp_params(gen, cfg, dtype, device, lead=(L,)),
-        },
-        "final_norm": {"scale": torch.ones((d,), dtype=dtype, device=device)},
     }
+    if cfg.learned_pos_embeddings:
+        params["pos_embed"] = {"embedding": normal_init(
+            gen, (cfg.max_position_embeddings, d), dtype, device)}
+    params["layers"] = {
+        "attn_norm": make_norm_params(cfg.norm, (L, d), dtype, device),
+        "mlp_norm": make_norm_params(cfg.norm, (L, d), dtype, device),
+        "attn": {
+            "q_proj": make_dense_params(gen, (L, d, h * hd), dtype, device,
+                                        bias=bias),
+            "k_proj": make_dense_params(gen, (L, d, kv * hd), dtype, device,
+                                        bias=bias),
+            "v_proj": make_dense_params(gen, (L, d, kv * hd), dtype, device,
+                                        bias=bias),
+            "o_proj": make_dense_params(gen, (L, h * hd, d), dtype, device),
+        },
+        "mlp": make_mlp_params(gen, cfg, dtype, device, lead=(L,)),
+    }
+    params["final_norm"] = make_norm_params(cfg.norm, (d,), dtype, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = make_dense_params(gen, (d, cfg.vocab_size), dtype,
                                               device)
@@ -103,6 +104,21 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
                        for k, v in one.items()}}
 
 
+def _learned_positions(cfg, table: torch.Tensor, seq: int,
+                       position) -> torch.Tensor:
+    """The rows of the learned position table to add to the embeddings:
+    ``table[:seq]`` (train, prefill), or at a decode ``position`` row
+    ``min(position, max_position_embeddings − 1)`` (the reference's clamp;
+    the cache write and the decode mask keep the position itself)."""
+    n = cfg.max_position_embeddings
+    if position is not None:
+        return table[min(int(position), n - 1)]
+    if seq > n:
+        raise ValueError(f"a sequence of {seq} tokens exceeds the learned "
+                         f"position table: max_position_embeddings={n}")
+    return table[:seq]
+
+
 def forward(cfg, params: Params, tokens: torch.Tensor, *,
             lora: Optional[Params] = None, lora_scale: float = 0.0,
             mode: str = "train", cache: Optional[Params] = None,
@@ -127,6 +143,9 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
     x = embed(params["embed"], tokens)
     positions = (None if mode == "decode"
                  else torch.arange(tokens.shape[1], device=tokens.device))
+    if cfg.learned_pos_embeddings:
+        x = x + _learned_positions(cfg, params["pos_embed"]["embedding"],
+                                   tokens.shape[1], position)
     lora = lora or {}
     layers, layers_lora = params["layers"], lora.get("layers")
     layers_cache = None if cache is None else cache["layers"]

@@ -172,12 +172,13 @@ def _tiny(fed_kw):
     ({"uplink_max_norm": 1.0}, NotImplementedError),
     ({"method": "hetero", "dp_clip": 1.0}, ValueError),
     ({"method": "centralized", "dp_clip": 1.0}, ValueError),
+    ({"dp_noise_multiplier": 0.1, "dp_clip": 0.0}, ValueError),
 ], ids=lambda x: "-".join(f"{k}={v}" for k, v in x.items())
     if isinstance(x, dict) else x.__name__)
 def test_unported_federation_features_raise(fed_kw, error):
     """A feature not ported yet raises ``NotImplementedError``; a setting
     the run would ignore (DP under a method whose uploads are never
-    privatized) raises ``ValueError`` naming it."""
+    privatized, DP noise without a clip) raises ``ValueError`` naming it."""
     with pytest.raises(error, match="|".join(fed_kw)):
         _tiny(fed_kw)
 

@@ -16,7 +16,8 @@ pytest.importorskip("torch")
 
 from repro_torch.kernels.flash_swa import (BKV, BQ,  # noqa: E402
                                            SMEM_LIMIT, _interior, _key_groups,
-                                           _kv_band, _rows_masked, _smem_bytes)
+                                           _kv_band, _plan, _rows_masked,
+                                           _smem_bytes)
 
 SM_SHARED = 233_472  # shared memory of one SM (228 KB), 1 KB kept per block
 LENGTHS = [1, 63, 64, 65, 127, 128, 129, 333, 500, 512]
@@ -120,3 +121,35 @@ def test_shared_memory_fits_two_blocks_an_sm(dp):
     smem = _smem_bytes(dp)
     assert smem <= SMEM_LIMIT
     assert 2 * (smem + 1024) <= SM_SHARED
+
+
+# (B, S, H, KVH, d): the serving prefill of paper-gpt2 (MHA 12/12, d 64)
+# and of paper-llama3.2-3b (GQA 24/8, d 128), causal, no window
+PREFILLS = [(8, 512, 12, 12, 64), (8, 512, 24, 8, 128)]
+
+
+@pytest.mark.parametrize("case", PREFILLS, ids=["paper-gpt2",
+                                                "paper-llama3.2-3b"])
+def test_prefill_shapes_plan_a_launch(case):
+    """The wrapper plans these launches (no refusal): head dim padded to
+    64 or 128, shared memory for two blocks an SM, batch·heads within the
+    grid, whole groups of query heads a KV head; query tile t loads KV
+    tiles 0..t, and only the diagonal tile is masked."""
+    b, s, h, kvh, d = case
+    dp, smem = _plan("swa_attention", b, h, d)
+    assert dp == (64 if d <= 64 else 128) and smem == _smem_bytes(dp)
+    assert 2 * (smem + 1024) <= SM_SHARED and b * h <= 65535
+    assert h % kvh == 0
+    for t in range(-(-s // BQ)):
+        q0 = t * BQ
+        assert _kv_band(q0, s, s, True, 0) == (0, t)
+        q_last = min(q0 + BQ - 1, s - 1)
+        assert [_interior(q0, q_last, j * BKV, s, True, 0)
+                for j in range(t + 1)] == [True] * t + [False]
+
+
+def test_plan_refuses_what_the_kernel_cannot_hold():
+    with pytest.raises(ValueError, match="head dim"):
+        _plan("swa_attention", 1, 8, 256)
+    with pytest.raises(ValueError, match="grid"):
+        _plan("swa_attention", 4096, 32, 64)

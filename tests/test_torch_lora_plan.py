@@ -16,13 +16,19 @@ from repro_torch.kernels.lora_matmul import (MAX_RANK,  # noqa: E402
 H100_SMS = 132
 
 # (M, K, N, r): the prefill layer of paper-llama3.2-3b (M = 8 × 512) and
-# the tiled body's edges; the decode layer (M = 8) and split-K edges
+# the tiled body's edges; paper-gpt2's prefill layer (K = N = 768, the MLP's
+# 768 × 3072 and 3072 × 768 with include_mlp) and both models at the serve
+# launcher's default prompt (M = 2 × 32); the decode layers (M = 8) of both
+# models and split-K edges
 TILED = [(4096, 3072, 3072, 4), (4096, 3072, 1024, 4), (17, 3072, 3072, 4),
          (4095, 3072, 1024, 4), (1000, 777, 333, 16), (300, 5, 130, 4),
          (256, 3076, 512, 4), (4096, 3072, 3072, 0), (4096, 3072, 3072, 1),
-         (4096, 3072, 1024, 3), (4096, 3072, 3072, 64)]
+         (4096, 3072, 1024, 3), (4096, 3072, 3072, 64),
+         (4096, 768, 768, 4), (4096, 768, 3072, 4), (4096, 3072, 768, 4),
+         (64, 768, 768, 4), (64, 3072, 3072, 4), (64, 3072, 1024, 4)]
 SPLIT = [(8, 3072, 3072, 4), (8, 3072, 1024, 4), (7, 777, 333, 1),
-         (7, 777, 333, 16), (16, 100, 50, 64), (1, 8, 8, 1), (8, 3072, 3072, 0)]
+         (7, 777, 333, 16), (16, 100, 50, 64), (1, 8, 8, 1), (8, 3072, 3072, 0),
+         (8, 768, 768, 4), (8, 768, 3072, 4), (8, 3072, 768, 4)]
 
 
 @pytest.mark.parametrize("case", TILED, ids=str)
@@ -53,14 +59,18 @@ def test_split_plan_meets_the_c_entry_checks(case):
 @pytest.mark.parametrize("n,k,plan", [
     (3072, 3072, (4, 768, 128)), (1024, 3072, (8, 384, 128)),
     (333, 777, (8, 98, 64)), (200, 9000, (8, 1125, 32)),
-    (8192, 3072, (2, 1536, 128)), (1024, 100, (1, 100, 32))],
-    ids=["q_o_proj", "k_v_proj", "odd", "narrow", "wide", "short"])
+    (8192, 3072, (2, 1536, 128)), (1024, 100, (1, 100, 32)),
+    (768, 768, (8, 96, 128)), (3072, 768, (4, 192, 128)),
+    (768, 3072, (8, 384, 128))],
+    ids=["q_o_proj", "k_v_proj", "odd", "narrow", "wide", "short",
+         "gpt2_qkvo_proj", "gpt2_up_proj", "gpt2_down_proj"])
 def test_split_plan_fills_half_the_card(n, k, plan):
     """The fewest K chunks (a power of two, at most 8 and one per 64 rows)
     whose grid of 128-column blocks covers half of the 132 SMs, then
     narrower column blocks while the grid at half the width stays within
     half of them: at paper-llama3.2-3b's decode projections (K = 3072)
-    4 × 24 blocks at N = 3072 and 8 × 8 at N = 1024."""
+    4 × 24 blocks at N = 3072 and 8 × 8 at N = 1024; at paper-gpt2's
+    (K = N = 768) 8 chunks of 96 rows × 6 column blocks."""
     splits, kc, bn = got = _split_plan(n, k, H100_SMS)
     assert got == plan
     half, most = H100_SMS // 2, max(1, min(MAX_SPLITS, k // 64))

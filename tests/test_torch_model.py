@@ -76,8 +76,9 @@ def _port_cfg(jcfg):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("name", ["paper-tiny", "paper-gpt2",
-                                  "paper-llama3.2-3b",
-                                  "paper-llama3.2-3b-smoke"])
+                                  "paper-gpt2-smoke", "paper-llama3.2-3b",
+                                  "paper-llama3.2-3b-smoke", "qwen2.5-3b",
+                                  "qwen2.5-3b-smoke"])
 def test_configs_are_the_references(name):
     assert (dataclasses.asdict(get_config(name))
             == dataclasses.asdict(jax_get_config(name)))
@@ -93,8 +94,9 @@ def test_config_dataclass_defaults_match():
 
 
 def test_unsupported_branch_raises():
-    with pytest.raises(NotImplementedError):
-        build_model(get_config("paper-gpt2"))
+    windowed = dataclasses.replace(get_config("paper-tiny"), sliding_window=64)
+    with pytest.raises(NotImplementedError, match="sliding_window"):
+        build_model(windowed)
 
 
 def test_param_paths_line_up_with_the_reference():

@@ -360,8 +360,9 @@ def test_forward_modes_check_their_arguments(state):
     with pytest.raises(ValueError, match="position"):
         transformer.forward(pm.cfg, tp, toks[:, :1], mode="decode",
                             cache=cache)
-    with pytest.raises(NotImplementedError):
-        transformer.init_cache(get_config("paper-gpt2"), 1, 8, device=CPU)
+    windowed = dataclasses.replace(get_config("paper-tiny"), sliding_window=64)
+    with pytest.raises(NotImplementedError, match="sliding_window"):
+        transformer.init_cache(windowed, 1, 8, device=CPU)
 
 
 # --------------------------------------------------------------------------
@@ -411,7 +412,7 @@ def test_serve_cli_on_the_cpu_and_its_refusals(capsys):
     serve_mod.main(["--device", "cpu", "--batch-size", "1", "--prompt-len",
                     "8", "--steps", "2", "--max-len", "16"])
     assert "generated token ids" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         serve_mod.main(["--device", "cpu", "--pull-from", "http://localhost:1"])
     with pytest.raises(ValueError, match="exceed"):
         serve_mod.serve("paper-tiny", prompt_len=30, steps=8, max_len=32,
