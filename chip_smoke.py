@@ -105,6 +105,22 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    * fedex[eager]: the fedex path's weighted rounds with ``engine="off"``,
      the eager close (its §6 divergence included in its time), no kernel
      launch; its close ms is printed beside the kernel close's;
+   * the coordinator's policies and the uplink transport
+     (:class:`TransportProbe`; the ring's fresh lanes hold NaN, and every
+     lane opened but never written must still hold only NaN at its close):
+     fedex+deadline (a deadline of 1 sim-second, ``min_quorum`` 2,
+     dropout 0.25, stragglers 0.25, example weights, 2 rounds: seed 0's
+     draws drop one client out and cut one at the deadline each round),
+     fedbuff (FedBuff commits of 2, ``staleness_alpha`` 0.5, ring depth 3,
+     example weights, 3 commits, some at staleness 1; the identity at every
+     commit, the weights n·(1 + s)^(−α) renormalised, exactly) and
+     fedex+int8 (int8 uplinks under ``uplink_max_norm`` 1 at 50%
+     participation with example weights, 2 rounds; round 0's first uplink
+     scaled × 100 and quarantined; the identity over the decoded uplinks;
+     the ledger's uplink bytes params + 4 × leaves; the card's int8 codes
+     and scales, and fp16 bits, bitwise the CPU's): ``fedex_fold`` 4 and
+     ``factor_mean`` 1 a close, and the codec's ms per uplink on the card
+     (encode, decode, validation) for each codec;
    * gpt2-fedex: the fedex path at ``paper-gpt2`` full width (12 layers,
      d 768, MHA 12/12, vocab 50,257, LayerNorm, tanh-GELU MLP, biases,
      learned positions, float32), its biases drawn N(0, 0.02²) from a
@@ -160,9 +176,10 @@ Identities, per adapted leaf, on the last round of each path:
 * the chunked paths: the same identities against a float64 computation on
   the host from the round's uplinks and normalised raw weights
   (``identity_host``);
-* fedex+dp, fedex[eager] and gpt2-fedex: the fedex identity, over the
-  privatized uploads for fedex+dp (the residual absorbs whatever the
-  clients sent);
+* fedex+dp, fedex[eager], gpt2-fedex and the coordinator paths: the
+  fedex identity over the delivered subset, over the privatized uploads
+  for fedex+dp and the decoded uploads for fedex+int8 (the residual
+  absorbs whatever the clients sent);
 * fedit: global a and b = Σ_c w_c a_c and Σ_c w_c b_c against float64 on
   the card, within 2·(C + 2) unit roundoffs of Σ_c |w_c| |x_c| (the weight's
   rounding to f32, C products and C − 1 additions); W0 bitwise as at the
@@ -194,6 +211,7 @@ import contextlib
 import gc
 import importlib
 import io
+import itertools
 import json
 import math
 import re
@@ -1284,10 +1302,28 @@ PATHS = {
                  4, 2, {"fedex_fold": 1}, {"factor_mean": 1}),
     # the eager close of the fedex path's weighted rounds
     "fedex[eager]": ({"engine": "off", **PARTIAL}, 2, 4, 2, {}, {}),
+    # the coordinator's policies and the uplink transport (TransportProbe).
+    # Seed 0's draws at a deadline of 1 sim-second: each round one client
+    # drops out and one arrives after the deadline with the quorum met
+    "fedex+deadline": ({"round_deadline": 1.0, "min_quorum": 2,
+                        "dropout_prob": 0.25, "straggler_prob": 0.25,
+                        "weighting": "examples"}, 2, 4, 2,
+                       {"fedex_fold": 1}, {"factor_mean": 1}),
+    # FedBuff: commits of 2, the rest in flight across commits
+    "fedbuff": ({"async_buffer": 2, "staleness_alpha": 0.5, "ring_depth": 3,
+                 "weighting": "examples"}, 3, 4, 2,
+                {"fedex_fold": 1}, {"factor_mean": 1}),
+    # int8 uplinks under a norm ceiling of 1 (the honest adapters' ∞-norm
+    # is ≈ 0.1: a ~ N(0, 0.02²)); round 0's first uplink is scaled × 100
+    "fedex+int8": ({"quantize_uplink": "int8", "uplink_max_norm": 1.0,
+                    **PARTIAL}, 2, 4, 2, {"fedex_fold": 1},
+                   {"factor_mean": 1}),
     # the fedex path at paper-gpt2's width (GPT2_PATHS)
     "gpt2-fedex": ({}, 3, 4, 2, {"fedex_fold": 1}, {"factor_mean": 1}),
 }
 GPT2_PATHS = ("gpt2-fedex",)  # run at paper-gpt2, the others at the main cfg
+TRANSPORT_PATHS = ("fedex+deadline", "fedbuff", "fedex+int8")
+EVERY_ROUND = ("fedbuff",)  # the identity checked at every commit
 # round 0 uniform over every client, later rounds weighted at 50%
 STAGED = ("fedex", "gpt2-fedex")
 
@@ -1307,6 +1343,264 @@ def frozen_leaves(torch, params, keys, gen):
             leaf.normal_(0.0, 0.02, generator=gen)
         out[k] = leaf.clone()
     return out
+
+
+class TransportProbe:
+    """The checks of the coordinator paths (``TRANSPORT_PATHS``), hooked
+    into one trainer:
+
+    * the ring's fresh stacks hold NaN instead of zeros, and before every
+      close each lane that was opened but never written (cut at the
+      deadline, or quarantined) must still hold only NaN: a lane the
+      close read would put NaN into W0, which the identity check refuses;
+    * fedex+deadline: some round drops a client out and some round cuts
+      one at the deadline;
+    * fedbuff: some commit has staleness ≥ 1, and every commit's weights
+      are n·(1 + s)^(−α) renormalised, exactly;
+    * fedex+int8: round 0's first uplink is scaled × 100 past
+      ``uplink_max_norm`` and must be quarantined (ledger direction
+      ``quarantined``, its lane unwritten); every delivered payload's
+      ledger bytes are params + 4 × leaves; the first uplink's int8 codes
+      and scales, and its fp16 bits, encoded on the card equal bitwise
+      those encoded on the CPU from the same tensors;
+    * every path: the codec's ms per uplink on the card (encode, the
+      dequantizing decode, the validation with its one host sync; medians
+      of 20 after warm-up, synchronised), beside the other codecs'.
+    """
+
+    def __init__(self, torch, trainer, name):
+        self.torch, self.trainer, self.name = torch, trainer, name
+        self.first = None    # the first honest uplink's adapter tree
+        self.first_client = None
+        self.unread = 0      # unwritten lanes checked before a close
+        self.scaled = None   # the client whose uplink was scaled
+        eng, codec = trainer.engine, trainer.coordinator.codec
+        buffers = eng.buffers
+
+        def nan_alloc(lanes):
+            return {p: torch.full((lanes,) + shp, float("nan"),
+                                  device=buffers.device)
+                    for p, shp in buffers._shapes.items()}
+
+        buffers._alloc = nan_alloc
+        encode = codec.encode
+
+        def keep_first(tree, **kw):
+            scaled = (kw["round_id"], kw["client_id"]) == (0, self.scaled)
+            if (self.first is None and not scaled
+                    and kw.get("direction", "uplink") == "uplink"):
+                self.first, self.first_client = tree, kw["client_id"]
+            return encode(tree, **kw)
+
+        codec.encode = keep_first
+        close = eng.close
+
+        def checked_close(params, client_ids, weights=None, *, round_id=None,
+                          rng=None):
+            written = buffers.delivered_in(round_id)
+            stacks = buffers._open[round_id]["stacks"]
+            for cid, lane in buffers.lanes(round_id).items():
+                if cid in written:
+                    continue
+                if not all(bool(torch.isnan(st[lane]).all())
+                           for st in stacks.values()):
+                    raise AssertionError(f"{name}: client {cid}'s lane "
+                                         "was written")
+                self.unread += 1
+            return close(params, client_ids, weights, round_id=round_id,
+                         rng=rng)
+
+        eng.close = checked_close
+        if name == "fedex+int8":
+            make = trainer._train_fn
+
+            def scaled_train_fn(round_losses):
+                fn = make(round_losses)
+
+                def train_fn(client, start, round_id):
+                    lora = fn(client, start, round_id)
+                    if round_id == 0 and self.scaled is None:
+                        self.scaled = client.client_id
+                        lora = _scaled(lora, 100.0)
+                    return lora
+
+                return train_fn
+
+            trainer._train_fn = scaled_train_fn
+
+    def round_line(self, out):
+        print(f"  [{self.name}] round {out.round_id}: sampled {out.sampled}, "
+              f"delivered {out.client_ids}, dropped out {out.dropped_out}, "
+              f"cut at the deadline {out.dropped_deadline}, quarantined "
+              f"{out.quarantined}, staleness "
+              f"{[d.staleness for d in out.delivered]}, weights "
+              f"{out.weights}", flush=True)
+
+    def finish(self, rows):
+        torch, trainer, name = self.torch, self.trainer, self.name
+        outs = trainer.outcomes
+        if name == "fedex+deadline":
+            if not (any(o.dropped_out for o in outs)
+                    and any(o.dropped_deadline for o in outs)):
+                raise AssertionError(f"{name}: no dropout or no deadline "
+                                     "drop in the run")
+        if name == "fedbuff":
+            alpha = trainer.fed_cfg.staleness_alpha
+            for o in outs:
+                raw = [d.client.num_examples * (1.0 + d.staleness) ** -alpha
+                       for d in o.delivered]
+                if o.weights != [x / sum(raw) for x in raw]:
+                    raise AssertionError(f"{name}: commit {o.round_id}'s "
+                                         f"weights {o.weights} are not "
+                                         "the discounted example counts")
+            if not any(d.staleness >= 1 for o in outs for d in o.delivered):
+                raise AssertionError(f"{name}: no commit with staleness ≥ 1")
+        if name == "fedex+int8":
+            self._int8_checks(outs)
+        need_unread = name != "fedbuff"
+        print(f"  [{name}] {self.unread} lanes opened and never written, "
+              "each still all NaN at its close (W0 finite after it)",
+              flush=True)
+        if need_unread and not self.unread:
+            raise AssertionError(f"{name}: no lane was left unwritten")
+        self._codec_times(rows)
+
+    def _int8_checks(self, outs):
+        from repro_torch.fedsrv import AdapterCodec
+        torch, trainer, name = self.torch, self.trainer, self.name
+        ledger = trainer.ledger.entries
+        q0 = outs[0].quarantined
+        quarantined = [(e.round_id, e.client_id) for e in ledger
+                       if e.direction == "quarantined"]
+        if q0 != [(self.scaled, "norm")] or quarantined != [(0,
+                                                             self.scaled)]:
+            raise AssertionError(f"{name}: the scaled uplink of client "
+                                 f"{self.scaled} was not quarantined "
+                                 f"({q0}, ledger {quarantined})")
+        ups = [e for e in ledger if e.direction == "uplink"]
+        n_leaves = len(_flat(self.first))
+        bad = [e for e in ups if e.nbytes != e.params + 4 * n_leaves]
+        delivered = sum(len(o.delivered) for o in outs)
+        print(f"  [{name}] ledger: {len(ups)} delivered uplinks of "
+              f"{ups[0].params} params and {ups[0].nbytes} B each "
+              f"(params + 4 × {n_leaves} leaves), client {self.scaled}'s "
+              f"scaled uplink quarantined (ledger round 0: "
+              f"{trainer.ledger.round_totals(0)})", flush=True)
+        if bad or len(ups) != delivered:
+            raise AssertionError(f"{name}: uplink ledger entries {bad} "
+                                 f"({len(ups)} for {delivered} deliveries)")
+        cpu = torch.device("cpu")
+        host = {p: x.to(cpu) for p, x in _flat(self.first).items()}
+        for codec in ("int8", "fp16"):
+            on_card = AdapterCodec(codec).encode(self.first, round_id=0,
+                                                 client_id=0).tensors
+            on_cpu = AdapterCodec(codec).encode(_unflat(host), round_id=0,
+                                                client_id=0).tensors
+            same = all(torch.equal(on_card[p].data.to(cpu), on_cpu[p].data)
+                       for p in on_cpu)
+            if codec == "int8":
+                same = same and all(
+                    float(on_card[p].scale) == float(on_cpu[p].scale)
+                    for p in on_cpu)
+            print(f"  [{name}] {codec} encode of client "
+                  f"{self.first_client}'s uplink "
+                  f"({sum(x.numel() for x in host.values())} entries): card "
+                  f"== CPU bitwise ({'codes and scales' if codec == 'int8' else 'bits'}): "
+                  f"{same}", flush=True)
+            if not same:
+                raise AssertionError(f"{name}: {codec} codes on the card "
+                                     "differ from the CPU's")
+        verdicts = self._verdicts(host)
+        print(f"  [{name}] defended decode, the same uplink with one entry "
+              f"changed, card verdict == CPU verdict for every codec: "
+              f"{json.dumps(verdicts)}", flush=True)
+
+    def _verdicts(self, host):
+        """Each codec's verdict (the quarantine reason, or "ok"), with no
+        norm ceiling and with the path's, on the card and on the CPU for
+        copies of one uplink with one entry set to NaN, +inf, 7e4 (past
+        fp16's range) or 5 (past the ceiling)."""
+        from repro_torch.fedsrv import (AdapterCodec, TransportError,
+                                        ValidationPolicy)
+        torch, device = self.torch, self.trainer.device
+        max_norm = self.trainer.fed_cfg.uplink_max_norm
+        first = next(iter(host))
+        out = {}
+        for label, value in (("nan", float("nan")), ("inf", float("inf")),
+                             ("7e4", 7e4), ("5", 5.0)):
+            bad = dict(host)
+            bad[first] = host[first].clone()
+            bad[first].view(-1)[bad[first].numel() // 2] = value
+            for codec, limit in itertools.product(("none", "fp16", "int8"),
+                                                  (0.0, max_norm)):
+                got = []
+                for dev in (device, torch.device("cpu")):
+                    c = AdapterCodec(codec, validation=ValidationPolicy(
+                        max_norm=limit))
+                    tree = _unflat({p: x.to(dev) for p, x in bad.items()})
+                    c.register_spec(tree)
+                    try:
+                        c.decode(c.encode(tree, round_id=0, client_id=0))
+                        got.append("ok")
+                    except TransportError as e:
+                        got.append(e.reason)
+                if got[0] != got[1]:
+                    raise AssertionError(f"{self.name}: {codec} verdict on "
+                                         f"an uplink with {label}: card "
+                                         f"{got[0]}, CPU {got[1]}")
+                out[f"{label}/{codec}/max_norm={limit:g}"] = got[0]
+        return out
+
+    def _codec_times(self, rows):
+        from repro_torch.fedsrv import AdapterCodec, ValidationPolicy
+        torch, trainer = self.torch, self.trainer
+        max_norm = trainer.fed_cfg.uplink_max_norm
+        main = trainer.fed_cfg.quantize_uplink
+        times = {}
+        for codec_name in dict.fromkeys((main, "none", "fp16", "int8")):
+            codec = AdapterCodec(codec_name, validation=ValidationPolicy(
+                max_norm=max_norm))
+            codec.register_spec(self.first)
+            payload = codec.encode(self.first, round_id=0, client_id=0)
+            flat = codec._decode_flat(payload)
+
+            def med(fn):
+                for _ in range(3):
+                    fn()
+                ts = []
+                for _ in range(20):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    ts.append((time.perf_counter() - t) * 1e3)
+                return statistics.median(ts)
+
+            times[codec_name] = {
+                "encode_ms": med(lambda: codec.encode(
+                    self.first, round_id=0, client_id=0)),
+                "decode_ms": med(lambda: codec._decode_flat(payload)),
+                "validate_ms": med(lambda: codec._validate_flat(payload,
+                                                                flat)),
+                "wire_bytes": payload.nbytes}
+        rows[-1]["codec"] = times
+        print(f"  [{self.name}] codec per uplink on the card (ms, median of "
+              f"20; this path's codec first; validation with max_norm "
+              f"{max_norm}): {json.dumps(times)}", flush=True)
+
+
+def _flat(tree):
+    from repro_torch.util.tree import flatten_with_paths
+    return flatten_with_paths(tree)
+
+
+def _unflat(flat):
+    from repro_torch.util.tree import unflatten_from_paths
+    return unflatten_from_paths(flat)
+
+
+def _scaled(tree, factor):
+    return _unflat({p: x * factor for p, x in _flat(tree).items()})
 
 
 def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
@@ -1385,6 +1679,9 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
 
         eng.buffers.on_chunk = timed_fold
     trainer._evaluate = timed(trainer._evaluate, eval_ms)
+    # after the timing wrappers, so that its checks stay out of the times
+    probe = (TransportProbe(torch, trainer, name) if name in TRANSPORT_PATHS
+             else None)
     keys = ([s.key for s in eng.specs] if eng else
             [k[:-2] for k in flatten_with_paths(trainer.global_lora)
              if k.endswith("/a")])
@@ -1400,8 +1697,9 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
         if name in STAGED and rnd == 1:
             trainer.coordinator.policy = RoundPolicy(participation=0.5,
                                                      weighting="examples")
-        if rnd == (0 if baseline else rounds - 1):
-            # the exactness identity on the last round
+        check = rnd == rounds - 1 or name in EVERY_ROUND
+        if rnd == (0 if baseline else rounds - 1) or name in EVERY_ROUND:
+            # the exactness identity on the last round (every commit)
             bases = trainer.client_params or [trainer.params]
             old = [{k: _node(p, k)["kernel"].clone() for k in keys}
                    for p in bases]
@@ -1414,7 +1712,8 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
         run_peak = torch.cuda.max_memory_allocated() / 2 ** 30
         out = trainer.outcomes[-1] if trainer.outcomes else None
         uniform = name in STAGED and out.weights is None
-        kernel_closes += eng is not None and not uniform
+        kernel_closes += (eng is not None and not uniform
+                          and bool(out.delivered) and not out.degraded)
         kind = ("uniform" if uniform else "kernel" if eng
                 else "eager" if out else "no")
         rows.append({
@@ -1446,12 +1745,17 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
               f"close {close}, eval {r['eval_ms']:.1f} ms, "
               f"round {wall:.2f} s, eval_loss {rec.eval_loss:.4f}, "
               f"divergence {r['divergence']:.3e}", flush=True)
-        if rnd == rounds - 1:
+        if probe is not None:
+            probe.round_line(out)
+        if check:
             t = time.perf_counter()
-            identity = IDENTITIES[name](torch, trainer, out, old, keys)
+            worst = IDENTITIES[name](torch, trainer, out, old, keys)
+            identity = worst if identity is None else max(identity, worst)
             print(f"  [{name}] identity check {time.perf_counter() - t:.1f} s",
                   flush=True)
             del old
+    if probe is not None:
+        probe.finish(rows)
     if frozen is not None:
         now = flatten_with_paths(trainer.params)
         moved = [k for k, x in frozen.items() if not torch.equal(now[k], x)]
@@ -1781,7 +2085,8 @@ IDENTITIES = {"fedex": identity_fedex, "reinit": identity_reinit,
               "fedit": identity_fedit, "ffa": identity_ffa,
               "centralized": identity_centralized,
               "fedex+dp": identity_fedex, "fedex[eager]": identity_fedex,
-              "gpt2-fedex": identity_fedex}
+              "gpt2-fedex": identity_fedex,
+              **{name: identity_fedex for name in TRANSPORT_PATHS}}
 
 
 def _node(tree, key):

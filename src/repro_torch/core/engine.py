@@ -10,7 +10,9 @@ Counterpart of ``repro/core/engine.py`` for every engine method: ``fedex``
   adapter leaf in a ring of ``depth`` rotating sets: ``begin_round`` opens a
   fresh zero set (sets are never reused across rounds), ``write_flat`` copies
   one client's uplink into its lane, ``take`` pops the oldest open round for
-  its close. At most ``depth`` rounds may be open.
+  its close. At most ``depth`` rounds may be open; a full ring evicts the
+  rounds whose deadline has passed, and drops late, replayed and
+  duplicate writes.
 * :class:`DeferredDivergence` — the §6 divergence leaves the close as a
   device scalar; the host sync happens only in :meth:`~DeferredDivergence.
   resolve`, which the trainer calls at the next round boundary.
@@ -65,6 +67,7 @@ from repro_torch.util.tree import flatten_with_paths, unflatten_from_paths
 Params = Dict[str, Any]
 
 BACKENDS = ("auto", "plain", "kernels")
+RING_MEMORY = 64  # evicted and closed round ids the ring remembers
 ENGINE_METHODS = ("fedex", "fedex_svd", "reinit", "keep_local", "hetero")
 
 
@@ -184,8 +187,15 @@ class RoundBuffers:
 
     * every ``begin_round`` allocates a fresh zero set — a set is never
       reused, so an in-flight close never sees the next round's writes;
-    * opening more than ``depth`` rounds raises (never a silent overwrite);
-    * a lane is written at most once per round (a duplicate is dropped);
+    * opening more than ``depth`` rounds raises (never a silent overwrite),
+      unless open rounds carry a ``deadline`` that has passed at the
+      caller's ``now`` (sim-seconds for the sync coordinator, commit
+      versions for FedBuff): those are evicted first;
+    * a write is routed by its round id and lands at most once: a write
+      for an evicted round (``stale_drops``), for a closed one
+      (``replay_drops``) or a second write of a (client, round) lane
+      (``duplicate_drops``) returns ``False`` and writes nothing; the ring
+      remembers the last 64 evicted and 64 closed round ids;
       lanes nobody wrote stay zero, and the weight vector masks them;
     * each round keeps a per-slot int32 rank vector: the true adapter rank
       a hetero uplink declared at :meth:`write` (its payload zero-padded to
@@ -232,9 +242,18 @@ class RoundBuffers:
         self.r_max = agg._factor_rank(lora_template)  # the template rank
         self.device = (next(iter(flat.values())).device if device is None
                        else device)
-        # round_id → {"slots": cid→lane, "written": cid→lane, "chunked": bool,
-        #             "ranks": per-slot int32, then "stacks" or chunk state}
+        # round_id → {"slots": cid→lane, "written": cid→lane, "deadline",
+        #             "chunked": bool, "ranks": per-slot int32, then
+        #             "stacks" or chunk state}
         self._open: "OrderedDict[Any, Dict[str, Any]]" = OrderedDict()
+        # the last RING_MEMORY evicted (id → reason) and closed round ids: a
+        # late or replayed uplink for one of them is dropped, not an error
+        self._evicted: "OrderedDict[Any, str]" = OrderedDict()
+        self._closed: "OrderedDict[Any, bool]" = OrderedDict()
+        self.evictions = 0
+        self.stale_drops = 0      # writes for an evicted round
+        self.replay_drops = 0     # writes for a closed round
+        self.duplicate_drops = 0  # second write of a (client, round) lane
         self._auto = 0
 
     def _alloc(self, lanes: int) -> Dict[str, torch.Tensor]:
@@ -253,9 +272,18 @@ class RoundBuffers:
                            f"(open: {list(self._open)})")
         return round_id, self._open[round_id]
 
-    def begin_round(self, slots: Dict[int, int], round_id=None):
+    def begin_round(self, slots: Dict[int, int], round_id=None, *,
+                    deadline: Optional[float] = None,
+                    now: Optional[float] = None):
         """Open a round: ``slots`` maps client_id → lane over the round's
-        candidates. Returns the round id (auto-assigned when omitted)."""
+        candidates. Returns the round id (auto-assigned when omitted).
+
+        ``deadline`` marks when this round becomes evictable and ``now`` is
+        the current value, on the caller's monotonic scale: a full ring
+        first evicts the open rounds whose deadline is ≤ ``now``; without
+        ``now``, or with nothing expired, a full ring raises. Reopening a
+        remembered id makes it a fresh round (its evicted/closed memory is
+        forgotten)."""
         if len(slots) > self.c_max:
             raise ValueError(f"{len(slots)} candidates > C_max={self.c_max}")
         if any(not 0 <= s < self.c_max for s in slots.values()):
@@ -265,14 +293,22 @@ class RoundBuffers:
             self._auto += 1
         if round_id in self._open:
             raise ValueError(f"round {round_id!r} is already open")
+        self._evicted.pop(round_id, None)
+        self._closed.pop(round_id, None)
+        if len(self._open) >= self.depth and now is not None:
+            for rid in [r for r, e in self._open.items()
+                        if e["deadline"] is not None and e["deadline"] <= now]:
+                self.evict(rid, reason=f"deadline {self._open[rid]['deadline']}"
+                                       f" ≤ now {now}")
         if len(self._open) >= self.depth:
             raise RuntimeError(
                 f"all {self.depth} buffer sets are in flight (open rounds: "
                 f"{list(self._open)}) — take() the oldest before opening "
-                "another")
+                "another, or give open rounds a deadline so a full ring can "
+                "evict them")
         chunked = 0 < self.chunk < len(slots)
         entry: Dict[str, Any] = {"slots": dict(slots), "written": {},
-                                 "chunked": chunked}
+                                 "deadline": deadline, "chunked": chunked}
         if chunked:
             num_chunks = max(slots.values()) // self.chunk + 1
             expected = [0] * num_chunks
@@ -290,19 +326,36 @@ class RoundBuffers:
         self._open[round_id] = entry
         return round_id
 
-    def evict(self, round_id) -> Dict[int, int]:
-        """Drop an open round without closing it; returns its delivered
-        {client_id: lane} map."""
+    @staticmethod
+    def _remember(memory: "OrderedDict[Any, Any]", rid, value) -> None:
+        memory[rid] = value
+        while len(memory) > RING_MEMORY:
+            memory.popitem(last=False)
+
+    def evict(self, round_id, reason: str = "explicit") -> Dict[int, int]:
+        """Drop an open round without closing it (its stacks are
+        discarded, and a late uplink for it is dropped); returns its
+        delivered {client_id: lane} map."""
         rid, e = self._entry(round_id)
         del self._open[rid]
+        self._remember(self._evicted, rid, reason)
+        self.evictions += 1
         return dict(e["written"])
+
+    def _close(self, rid) -> Dict[str, Any]:
+        self._remember(self._closed, rid, True)
+        return self._open.pop(rid)
 
     def write_flat(self, client_id: int, flat: Dict[str, torch.Tensor],
                    round_id=None, *, weight: Optional[float] = None,
                    rank: Optional[int] = None) -> bool:
         """Copy one client's adapter leaves (path → tensor) into its lane of
-        the named (default: oldest) open round. Returns ``False`` (and writes
-        nothing) for a duplicate (client, round) write.
+        the named round (default: the oldest open round with a lane for
+        this client). Returns ``False``, and writes nothing, for a round
+        that was evicted or closed and for a duplicate (client, round)
+        write; an id the ring never saw (or forgot) raises ``KeyError``.
+        Only an explicit ``round_id`` lets a late uplink be recognised:
+        the coordinators route every write by its payload's round.
 
         ``weight`` is the uplink's RAW (unnormalised) aggregation weight,
         1.0 when omitted: a chunked round folds it in at ingest, so the
@@ -310,11 +363,25 @@ class RoundBuffers:
         checks and raises on a mismatch); a stacked round ignores it.
         ``rank`` is the uplink's true adapter rank (a hetero payload
         zero-padded to the template rank); ``None`` means full rank."""
+        if round_id is None:
+            round_id = next((r for r, e in self._open.items()
+                             if client_id in e["slots"]), None)
+            if round_id is None:
+                raise KeyError(f"client {client_id} has no lane in any open "
+                               f"round (open: {list(self._open)})")
+        if round_id not in self._open:
+            if round_id in self._evicted:
+                self.stale_drops += 1
+                return False
+            if round_id in self._closed:
+                self.replay_drops += 1
+                return False
         rid, e = self._entry(round_id)
         if rank is not None and not 1 <= rank <= self.r_max:
             raise ValueError(f"uplink rank {rank} outside "
                              f"[1, r_max={self.r_max}]")
         if client_id in e["written"]:
+            self.duplicate_drops += 1
             return False
         if flat.keys() != self._shapes.keys():
             raise ValueError(
@@ -412,8 +479,7 @@ class RoundBuffers:
         if e["chunked"]:
             raise RuntimeError(f"round {rid!r} streams in chunks — close it "
                                "via take_chunked()")
-        del self._open[rid]
-        return e["stacks"]
+        return self._close(rid)["stacks"]
 
     def take_chunked(self, round_id=None) -> Tuple[Any, Dict[str, Any]]:
         """Fold the remaining chunks in slot order, pop the round and return
@@ -426,8 +492,7 @@ class RoundBuffers:
                                "take()")
         while e["next_chunk"] < e["num_chunks"]:
             self._fold_next(rid, e, eager=False)
-        del self._open[rid]
-        return rid, e
+        return rid, self._close(rid)
 
 
 # --------------------------------------------------------------------------

@@ -32,9 +32,18 @@ chunk by chunk as they arrive, weighted by their raw weights (example
 counts under ``weighting="examples"``).
 
 Rounds are orchestrated by :class:`~repro_torch.fedsrv.RoundCoordinator`
-(sampling, arrival order, weighting), whose uplinks stream into the
-engine's ring when there is one; hetero rounds run every client, as the
-reference's do. keep_local and hetero keep one base per client; under the
+(sampling, dropout, arrival order, the deadline cut under ``min_quorum``,
+weighting) or, with ``async_buffer > 0``, by the FedBuff
+:class:`~repro_torch.fedsrv.AsyncBufferCoordinator` (each round one commit
+of the earliest arrivals, trained from their launch-version snapshot and
+weighted n·(1 + staleness)^(−α)). Every uplink crosses the
+:class:`~repro_torch.fedsrv.AdapterCodec` (``quantize_uplink`` none, fp16
+or int8; validation with the ``uplink_max_norm`` ceiling quarantines a
+lane) and streams into the engine's ring when there is one; every payload,
+and the analytic downlink of the factored residual, lands in
+``self.ledger``. Hetero and centralized rounds never run through the
+coordinator, as the reference's do not, so the coordinator's settings are
+refused under them. keep_local and hetero keep one base per client; under the
 engine each has its own copy of the adapted W0 leaves, because the kernel
 closes fold in place (the eager closes make new tensors).
 
@@ -48,6 +57,7 @@ device.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Optional
 
@@ -57,13 +67,17 @@ from repro_torch.configs.base import (FedConfig, LoRAConfig, TrainConfig,
                                       validate_fed_lora)
 from repro_torch.core import aggregation as agg
 from repro_torch.core import privacy
+from repro_torch.core.decompose import (factored_residual_params,
+                                        truncated_residual_params)
 from repro_torch.core.divergence import mean_deviation
 from repro_torch.core.engine import (DeferredDivergence, RoundCloseEngine,
                                      collect_w0_leaves, fold_back_w0)
 from repro_torch.core.hetero import hetero_fedex_aggregate, pad_adapters
 from repro_torch.core.lora import init_lora
-from repro_torch.fedsrv import (ClientInfo, ClientRegistry, RoundCoordinator,
-                                RoundPolicy, StragglerModel)
+from repro_torch.fedsrv import (AdapterCodec, AsyncBufferCoordinator,
+                                BytesLedger, ClientInfo, ClientRegistry,
+                                RoundCoordinator, RoundPolicy, StragglerModel,
+                                ValidationPolicy)
 from repro_torch.fedsrv.coordinator import Delivery, RoundOutcome
 from repro_torch.optim import (adamw_update, clip_by_global_norm, init_adamw,
                                lr_at)
@@ -138,13 +152,8 @@ def _check_supported(fed: FedConfig) -> None:
     not taken up yet, and ``ValueError`` for a setting the run would ignore
     (the reference ignores these silently; the port ignores none)."""
     unsupported = {
-        "round_deadline": fed.round_deadline > 0,
-        "dropout_prob": fed.dropout_prob > 0,
-        "async_buffer": fed.async_buffer > 0,
-        "quantize_uplink": fed.quantize_uplink != "none",
         "obs": fed.obs != "off",
         "faults": bool(fed.faults),
-        "uplink_max_norm": fed.uplink_max_norm > 0,
         "checkpoint_dir": bool(fed.checkpoint_dir),
     }
     asked = [k for k, v in unsupported.items() if v]
@@ -152,8 +161,24 @@ def _check_supported(fed: FedConfig) -> None:
         raise NotImplementedError(
             f"FedConfig asks for {asked}, which the port does not run yet "
             "(every method and assignment, stacked, chunked or eager, with "
-            "participation sampling, min_quorum, example weighting and DP "
-            "uploads only)")
+            "the coordinator's policies, FedBuff, the uplink codecs and "
+            "validation, and DP uploads; no fault injection, obs or "
+            "checkpointing)")
+    if _hetero(fed) or fed.method == "centralized":
+        method = "hetero" if _hetero(fed) else "centralized"
+        coordinated = {
+            "participation": fed.participation < 1,
+            "min_quorum": fed.min_quorum > 0,
+            "round_deadline": fed.round_deadline > 0,
+            "dropout_prob": fed.dropout_prob > 0,
+            "async_buffer": fed.async_buffer > 0,
+            "quantize_uplink": fed.quantize_uplink != "none",
+            "uplink_max_norm": fed.uplink_max_norm > 0,
+        }
+        asked = [k for k, v in coordinated.items() if v]
+        if asked:
+            raise ValueError(f"FedConfig sets {asked} under {method}, whose "
+                             "rounds never run through the coordinator")
     if fed.dp_noise_multiplier > 0 and fed.dp_clip <= 0:
         raise ValueError(f"dp_noise_multiplier={fed.dp_noise_multiplier} "
                          f"with dp_clip={fed.dp_clip}: uploads are "
@@ -280,16 +305,57 @@ class FederatedTrainer:
                 raise ValueError(f"{len(self.client_loras)} client_loras for "
                                  f"{k} clients")
             self._client_lora = list(self.client_loras)
-        self.coordinator = RoundCoordinator(
-            ClientRegistry(clients, seed=fc.seed),
-            RoundPolicy(participation=fc.participation,
-                        min_quorum=fc.min_quorum, weighting=fc.weighting),
-            StragglerModel(mean_latency=fc.mean_latency,
-                           jitter=fc.latency_jitter,
-                           straggler_prob=fc.straggler_prob,
-                           straggler_factor=fc.straggler_factor, seed=fc.seed),
-            sink=self.engine.buffers if self.engine else None,
-            validate=fc.uplink_validation)
+        self.ledger = BytesLedger()
+        self.coordinator = self._build_coordinator(clients)
+
+    def _build_coordinator(self, clients: List[ClientInfo]):
+        """The coordinator of ``fed_cfg`` (the reference's selection): its
+        policy, straggler and dropout model, the uplink codec with its
+        validation, ``self.ledger``, and the engine's ring as its sink."""
+        fc = self.fed_cfg
+        registry = ClientRegistry(clients, seed=fc.seed)
+        policy = RoundPolicy(participation=fc.participation,
+                             min_quorum=fc.min_quorum,
+                             deadline=fc.round_deadline,
+                             weighting=fc.weighting)
+        stragglers = StragglerModel(
+            mean_latency=fc.mean_latency, jitter=fc.latency_jitter,
+            dropout_prob=fc.dropout_prob, straggler_prob=fc.straggler_prob,
+            straggler_factor=fc.straggler_factor, seed=fc.seed)
+        codec = AdapterCodec(fc.quantize_uplink, validation=ValidationPolicy(
+            enabled=fc.uplink_validation, max_norm=fc.uplink_max_norm))
+        common = dict(sink=self.engine.buffers if self.engine else None,
+                      uplink_retries=fc.uplink_retries,
+                      retry_backoff=fc.retry_backoff)
+        if fc.async_buffer > 0:
+            return AsyncBufferCoordinator(
+                registry, policy, stragglers, codec, self.ledger,
+                buffer_size=fc.async_buffer,
+                staleness_alpha=fc.staleness_alpha,
+                max_version_lag=fc.ring_max_lag, **common)
+        return RoundCoordinator(registry, policy, stragglers, codec,
+                                self.ledger, **common)
+
+    def _ledger_residual(self, rnd: int, k_delivered: int, leaf_shapes,
+                         truncated_rank: int = 0) -> None:
+        """Ledger the server → client residual broadcast analytically, in
+        the factored form of :mod:`repro_torch.core.decompose` (never the
+        dense m×n matrix), to each of the ``k_delivered`` clients."""
+        per_client = 0
+        for shape in leaf_shapes:
+            if len(shape) < 2:
+                continue
+            copies = math.prod(shape[:-2])
+            m, n = int(shape[-2]), int(shape[-1])
+            if truncated_rank:
+                per_client += copies * truncated_residual_params(
+                    m, n, truncated_rank)
+            else:
+                per_client += copies * factored_residual_params(
+                    m, n, self.lora_cfg.rank, k_delivered)
+        self.ledger.record_analytic(rnd, "downlink",
+                                    per_client * k_delivered,
+                                    note="factored-residual broadcast")
 
     # ------------------------------------------------------------------
     def _client_round(self, client: int, params, lora):
@@ -357,6 +423,12 @@ class FederatedTrainer:
         self.global_lora, self.params, div = eng.close(
             self.params, outcome.client_ids, outcome.weights, round_id=rid,
             rng=rng)
+        # the truncation rank clamped to the delivered subset's bound k_d·r
+        k_d = len(outcome.client_ids)
+        self._ledger_residual(
+            rnd, k_d, [s.w0_shape for s in eng.specs],
+            truncated_rank=(min(eng.svd_rank, self.lora_cfg.rank * k_d)
+                            if eng.method == "fedex_svd" else 0))
         return div
 
     def _eager_close(self, rnd: int, outcome) -> float:
@@ -366,6 +438,7 @@ class FederatedTrainer:
         weights = outcome.weights
         div = mean_deviation(loras)
         method, assignment = self.method, self.fed_cfg.assignment
+        residual, truncated = None, 0
         if method == "fedit":
             self.global_lora = agg.fedit_aggregate(loras, weights)
         elif method == "ffa":
@@ -374,8 +447,9 @@ class FederatedTrainer:
             # clamp to the delivered subset's rank bound k_d·r (config-time
             # validation bounds r' by k·r only; 0 means exact)
             bound = self.lora_cfg.rank * len(loras)
+            truncated = min(self.fed_cfg.svd_rank or bound, bound)
             self.global_lora, residual = agg.fedex_svd_aggregate(
-                loras, min(self.fed_cfg.svd_rank or bound, bound), weights)
+                loras, truncated, weights)
             self.params = agg.apply_residual(self.params, residual,
                                              self.scale)
         elif assignment == "average":
@@ -398,6 +472,11 @@ class FederatedTrainer:
                 self.client_params[cid] = agg.apply_residual(
                     self.client_params[cid], res_i, self.scale)
             self.global_lora = loras[0]
+        if residual is not None:
+            self._ledger_residual(
+                rnd, len(loras), [x.shape for x in
+                                  flatten_with_paths(residual).values()],
+                truncated_rank=truncated)
         return div
 
     def _hetero_round(self, rnd: int):
@@ -423,7 +502,8 @@ class FederatedTrainer:
                                       arrived_at=0.0))
         self._record_outcome(RoundOutcome(
             round_id=rid, sampled=list(range(k)), delivered=delivered,
-            weights=None, opened_at=0.0, closed_at=0.0))
+            dropped_out=[], dropped_deadline=[], weights=None,
+            opened_at=0.0, closed_at=0.0))
         # round boundary: the previous round's divergence resolves only now
         self._resolve_divergences()
         if eng is None:

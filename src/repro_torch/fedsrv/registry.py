@@ -1,15 +1,19 @@
-"""Client registry, participation sampler, and straggler latency model.
+"""Client registry, participation sampler, and straggler/dropout models.
 
 The port's copy of ``repro/fedsrv/registry.py`` (numpy only): the same
-seeded draws, so sampling, example-count weights and arrival order are the
-reference's bit for bit. The dropout model is not ported (the trainer
-rejects ``dropout_prob > 0``).
+seeded draws, so sampling, example-count weights, arrival order and dropout
+are the reference's bit for bit.
 
 Everything here is *deterministic given (seed, round, client)*: random draws
 use ``np.random.default_rng([seed, round, client])`` (SeedSequence spawning),
 which is stable across processes and independent of PYTHONHASHSEED. The
 simulated clock is a plain float accumulator — no wall time anywhere, so a
 scenario replays bit-for-bit.
+
+Per-purpose rng streams: latency/straggler draws use the bare
+``[seed, round, client]`` stream and dropout the :data:`DROPOUT_STREAM`
+suffix, so consuming (or not consuming) one family's draw never shifts
+another's.
 """
 
 from __future__ import annotations
@@ -19,6 +23,10 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+# SeedSequence key suffixes, one per decision family (the reference's; the
+# fault stream, suffix 2, belongs to fault injection, not ported yet)
+DROPOUT_STREAM = 1
 
 
 def purpose_rng(seed: int, round_id: int, client_id: int,
@@ -59,17 +67,25 @@ class SimClock:
         self._t = max(self._t, float(t))
         return self._t
 
+    def advance(self, dt: float) -> float:
+        if dt < 0:
+            raise ValueError(f"clock cannot run backwards (dt={dt})")
+        self._t = self.now() + float(dt)
+        return self._t
+
 
 @dataclass(frozen=True)
 class StragglerModel:
-    """Seeded per-(round, client) latency draws.
+    """Seeded per-(round, client) latency and dropout draws.
 
     latency = mean_latency / compute_speed · lognormal(σ=jitter), optionally
-    inflated by straggler_factor with prob straggler_prob.
+    inflated by straggler_factor with prob straggler_prob. dropout_prob models
+    a client that accepts the round but never reports back.
     """
 
     mean_latency: float = 1.0
     jitter: float = 0.25
+    dropout_prob: float = 0.0
     straggler_prob: float = 0.0
     straggler_factor: float = 5.0
     seed: int = 0
@@ -87,6 +103,18 @@ class StragglerModel:
         if straggled:
             lat *= self.straggler_factor
         return lat, straggled
+
+    def latency(self, round_id: int, client: ClientInfo) -> float:
+        return self.draw(round_id, client)[0]
+
+    def dropped(self, round_id: int, client: ClientInfo) -> bool:
+        """Whether the client never reports back this round (its own
+        stream, so dropout and latency never alias)."""
+        if self.dropout_prob <= 0:
+            return False
+        rng = purpose_rng(self.seed, round_id, client.client_id,
+                          DROPOUT_STREAM)
+        return bool(rng.random() < self.dropout_prob)
 
 
 class ClientRegistry:

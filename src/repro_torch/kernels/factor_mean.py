@@ -17,7 +17,9 @@ and b stacks of every adapted leaf of a close, or of a chunk fold.
 * Plain version :func:`factor_mean_plain`: the same arithmetic in PyTorch
   ops (slot-order sum; the kernel rounds every product and sum like separate
   PyTorch ops, so the two agree bitwise on finite inputs). The CPU path and
-  the tests use it; nothing on the card's main path does.
+  the tests use it; nothing on the card's main path does. Like the kernel
+  it never reads a zero-weight lane: the lane's term is selected away
+  (the reference's 0·x would turn a NaN in an unwritten lane into NaN).
 * :func:`factor_mean_group` is the wrapper: it launches the kernel for CUDA
   tensors (counting ``factor_mean.launches``, one per grouped launch),
   raises on a failed launch, and takes the plain version only for CPU
@@ -56,7 +58,7 @@ def factor_mean_plain(stack: torch.Tensor,
         return acc / torch.tensor(float(c), device=x.device)
     acc = torch.zeros_like(x[0])
     for i in range(c):
-        acc = acc + weights[i] * x[i]
+        acc = acc + torch.where(weights[i] != 0, weights[i] * x[i], 0.0)
     return acc
 
 

@@ -29,8 +29,9 @@ the reference's ``apply_residual_fused`` path.
   ``(C, L, r, n)`` layout through their strides; the fold may write into
   W0's own storage (``out=w0``). A zero-weight lane is never read.
 * Plain version :func:`fedex_fold_plain`: the same op order in PyTorch
-  (``torch.matmul`` for the rank-r products). The CPU path and the tests use
-  it; nothing on the card's main path does.
+  (``torch.matmul`` for the rank-r products), a zero-weight lane selected
+  away as the kernel leaves it unread. The CPU path and the tests use it;
+  nothing on the card's main path does.
 * :func:`fedex_fold` is the wrapper: it launches the kernel for CUDA tensors
   (counting ``fedex_fold.launches``), raises on a failed launch, and takes
   the plain version only for CPU tensors.
@@ -75,11 +76,12 @@ def fedex_fold_plain(w0: torch.Tensor, a_stack: torch.Tensor,
                                 device=w0.device)
         abar = torch.zeros_like(a[0])
         bbar = torch.zeros_like(b[0])
-        for i in range(c):
-            wc = weights[i]
-            mean_prod = mean_prod + wc * torch.matmul(a[i], b[i])
-            abar = abar + wc * a[i]
-            bbar = bbar + wc * b[i]
+        for i in range(c):  # a zero-weight lane is selected away, unread
+            wc, live = weights[i], weights[i] != 0
+            mean_prod = mean_prod + torch.where(
+                live, wc * torch.matmul(a[i], b[i]), 0.0)
+            abar = abar + torch.where(live, wc * a[i], 0.0)
+            bbar = bbar + torch.where(live, wc * b[i], 0.0)
     residual = mean_prod - torch.matmul(abar, bbar)
     return w0.float() + scale * residual
 

@@ -6,8 +6,12 @@ every method — ``--method fedex`` with ``--assignment average``,
 ``--method hetero`` / ``--client-ranks``, and the paper's baselines
 ``--method fedit|ffa|centralized`` — with participation sampling,
 ``--min-quorum``, ``--weighting``, ``--close-chunk`` (the chunked streaming
-close), ``--engine off`` (the eager close) and DP uploads (``--dp-clip``,
-``--dp-noise``). Runs on CUDA unless ``--device cpu`` is given.
+close), ``--engine off`` (the eager close), DP uploads (``--dp-clip``,
+``--dp-noise``), the coordinator's policies (``--deadline``,
+``--stragglers``, ``--dropout-prob``), FedBuff commits (``--async-buffer``,
+``--ring-depth``) and the uplink transport (``--quantize-uplink``,
+``--uplink-max-norm``); the measured bytes ledger is printed after the run.
+Runs on CUDA unless ``--device cpu`` is given.
 
 ``--data-vocab`` draws the synthetic corpus from a smaller vocabulary than
 the model's (its transition tensor is dense vocab², ~526 GB at 128,256 and
@@ -27,6 +31,13 @@ Examples (CPU, tiny model):
       --vocab 64 --method fedit --dp-clip 1.0 --dp-noise 0.1
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch paper-gpt2-smoke --vocab 64 --rounds 2 --local-steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --vocab 64 --clients 4 --rounds 3 --deadline 1.0 --min-quorum 2 \\
+      --dropout-prob 0.25 --stragglers 0.25 --weighting examples
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --vocab 64 --rounds 3 --async-buffer 2 --weighting examples
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --vocab 64 --rounds 2 --quantize-uplink int8 --uplink-max-norm 1.0
 """
 
 from __future__ import annotations
@@ -110,9 +121,28 @@ def main(argv=None) -> None:
                     help="fraction of clients sampled per round")
     ap.add_argument("--min-quorum", type=int, default=0,
                     help="deliveries a round needs (0 = one)")
+    ap.add_argument("--deadline", type=float, default=0.0,
+                    help="round deadline in sim-seconds (0 = wait for all)")
     ap.add_argument("--weighting", default="uniform",
                     choices=("uniform", "examples"),
                     help="client weights: uniform or example counts n_i/Σn_j")
+    ap.add_argument("--stragglers", type=float, default=0.0,
+                    help="straggler probability per (round, client); latency "
+                         "is inflated ×5 for stragglers")
+    ap.add_argument("--dropout-prob", type=float, default=0.0,
+                    help="P(client accepts the round but never reports back)")
+    ap.add_argument("--async-buffer", type=int, default=0,
+                    help=">0 → FedBuff-style buffered commits of this size")
+    ap.add_argument("--quantize-uplink", default="none",
+                    choices=("none", "fp16", "int8"),
+                    help="uplink adapter codec (fedsrv transport)")
+    ap.add_argument("--uplink-max-norm", type=float, default=0.0,
+                    help="quarantine uplinks whose ∞-norm exceeds this "
+                         "(0 = off)")
+    ap.add_argument("--ring-depth", type=int, default=2,
+                    help="rounds whose uplink stacks may be in flight at "
+                         "once (2 = double buffering; >2 pipelines FedBuff "
+                         "commits deeper, with deadline eviction)")
     ap.add_argument("--close-chunk", type=int, default=0,
                     help="chunked streaming round closes: uplinks fold into "
                          "running accumulators N clients at a time as they "
@@ -144,6 +174,13 @@ def main(argv=None) -> None:
                         dirichlet_alpha=args.dirichlet_alpha, seed=args.seed,
                         participation=args.participation,
                         min_quorum=args.min_quorum, weighting=args.weighting,
+                        round_deadline=args.deadline,
+                        straggler_prob=args.stragglers,
+                        dropout_prob=args.dropout_prob,
+                        async_buffer=args.async_buffer,
+                        quantize_uplink=args.quantize_uplink,
+                        uplink_max_norm=args.uplink_max_norm,
+                        ring_depth=args.ring_depth,
                         close_chunk=args.close_chunk, engine=args.engine,
                         dp_clip=args.dp_clip,
                         dp_noise_multiplier=args.dp_noise)
@@ -176,6 +213,10 @@ def main(argv=None) -> None:
           f"divergence={final.divergence_scaled:.3e} "
           f"(device={device}, close backend="
           f"{trainer.engine.backend if trainer.engine else 'eager'})")
+    if trainer.ledger.entries:
+        print("comm ledger (measured, fedsrv transport):")
+        for line in trainer.ledger.summary_lines():
+            print("  " + line)
     if args.out:
         with open(args.out, "w") as f:
             json.dump([r.__dict__ for r in history], f, indent=2)

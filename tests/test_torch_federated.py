@@ -161,26 +161,50 @@ def _tiny(fed_kw):
                             device=CPU)
 
 
+# the coordinator's settings, each ignored by the reference under hetero and
+# centralized (neither runs a round through its coordinator)
+COORDINATED = [{"participation": 0.5}, {"min_quorum": 1},
+               {"round_deadline": 1.0}, {"dropout_prob": 0.1},
+               {"async_buffer": 2}, {"quantize_uplink": "int8"},
+               {"uplink_max_norm": 1.0}]
+
+
 @pytest.mark.parametrize("fed_kw,error", [
-    ({"round_deadline": 1.0}, NotImplementedError),
-    ({"dropout_prob": 0.1}, NotImplementedError),
-    ({"async_buffer": 2}, NotImplementedError),
-    ({"quantize_uplink": "int8"}, NotImplementedError),
     ({"obs": "basic"}, NotImplementedError),
     ({"faults": "nan@0.5"}, NotImplementedError),
     ({"checkpoint_dir": "ckpt"}, NotImplementedError),
-    ({"uplink_max_norm": 1.0}, NotImplementedError),
     ({"method": "hetero", "dp_clip": 1.0}, ValueError),
     ({"method": "centralized", "dp_clip": 1.0}, ValueError),
     ({"dp_noise_multiplier": 0.1, "dp_clip": 0.0}, ValueError),
+    *(({"method": m, **kw}, ValueError)
+      for m in ("hetero", "centralized") for kw in COORDINATED),
+    ({"client_ranks": (4, 2), "round_deadline": 1.0}, ValueError),
 ], ids=lambda x: "-".join(f"{k}={v}" for k, v in x.items())
     if isinstance(x, dict) else x.__name__)
 def test_unported_federation_features_raise(fed_kw, error):
     """A feature not ported yet raises ``NotImplementedError``; a setting
     the run would ignore (DP under a method whose uploads are never
-    privatized, DP noise without a clip) raises ``ValueError`` naming it."""
-    with pytest.raises(error, match="|".join(fed_kw)):
+    privatized, DP noise without a clip, a coordinator setting under hetero
+    or centralized) raises ``ValueError`` naming it."""
+    names = [k for k in fed_kw if k not in ("method", "client_ranks")]
+    with pytest.raises(error, match="|".join(names)):
         _tiny(fed_kw)
+
+
+@pytest.mark.parametrize("fed_kw", [
+    {"round_deadline": 1.0}, {"dropout_prob": 0.1}, {"async_buffer": 2},
+    {"quantize_uplink": "int8"}, {"uplink_max_norm": 1.0},
+], ids=lambda x: "-".join(f"{k}={v}" for k, v in x.items()))
+def test_ported_federation_features_run(fed_kw):
+    """The coordinator's policies, FedBuff and the uplink transport, which
+    earlier slices refused, train a round and ledger its uplinks."""
+    pt = _tiny(fed_kw)
+    rec = pt.run(until=1)[0]
+    assert np.isfinite(rec.eval_loss) or not pt.eval_batches
+    out = pt.outcomes[0]
+    ups = pt.ledger.round_totals(0)["uplink_params"]
+    assert ups == len(out.client_ids) * sum(
+        x.numel() for x in flatten_with_paths(pt.global_lora).values())
 
 
 @pytest.mark.parametrize("fed_kw", [
