@@ -3,11 +3,10 @@
 The port's own copy of ``repro/configs/base.py`` (the port imports nothing of
 the JAX package): the same fields, defaults and validation, so a config built
 here reads exactly like the reference's. The port runs only the dense
-RoPE/RMSNorm/SiLU branch of :class:`ModelConfig` so far; ``build_model``
-raises ``NotImplementedError`` for any other branch. Federation features the
-port has not taken up yet (faults, deadlines, quantized codecs, async
-buffering, …) are rejected by the trainer, not here, so the dataclass stays a
-faithful copy.
+branch of :class:`ModelConfig` so far; ``build_model`` raises
+``NotImplementedError`` for any other branch. Federation features the port
+has not taken up yet (obs) are rejected by the trainer, not here, so the
+dataclass stays a faithful copy.
 """
 
 from __future__ import annotations
@@ -300,6 +299,11 @@ class FedConfig:
         if self.checkpoint_every < 1:
             raise ValueError(
                 f"checkpoint_every must be ≥ 1, got {self.checkpoint_every}")
+        if self.faults:
+            # parse up front, so a bad plan fails at config time (imported
+            # here: the configs import nothing of fedsrv at module level)
+            from repro_torch.fedsrv.faults import FaultPlan
+            FaultPlan.parse(self.faults, seed=self.seed)
 
 
 def validate_fed_lora(fed: "FedConfig", lora: "LoRAConfig") -> None:

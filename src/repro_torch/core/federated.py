@@ -41,9 +41,12 @@ weighted n·(1 + staleness)^(−α)). Every uplink crosses the
 or int8; validation with the ``uplink_max_norm`` ceiling quarantines a
 lane) and streams into the engine's ring when there is one; every payload,
 and the analytic downlink of the factored residual, lands in
-``self.ledger``. Hetero and centralized rounds never run through the
-coordinator, as the reference's do not, so the coordinator's settings are
-refused under them. keep_local and hetero keep one base per client; under the
+``self.ledger``. A fault plan (``faults``; ``repro_torch.fedsrv.faults``)
+corrupts, drops, duplicates or delays uplinks between encode and delivery,
+and the close runs over the clients that delivered. Hetero and centralized
+rounds never run through the coordinator, as the reference's do not, so the
+coordinator's settings are refused under them; under a fault plan a hetero
+round's uplinks cross its defended path all the same. keep_local and hetero keep one base per client; under the
 engine each has its own copy of the adapted W0 leaves, because the kernel
 closes fold in place (the eager closes make new tensors).
 
@@ -76,8 +79,8 @@ from repro_torch.core.hetero import hetero_fedex_aggregate, pad_adapters
 from repro_torch.core.lora import init_lora
 from repro_torch.fedsrv import (AdapterCodec, AsyncBufferCoordinator,
                                 BytesLedger, ClientInfo, ClientRegistry,
-                                RoundCoordinator, RoundPolicy, StragglerModel,
-                                ValidationPolicy)
+                                FaultInjector, FaultPlan, RoundCoordinator,
+                                RoundPolicy, StragglerModel, ValidationPolicy)
 from repro_torch.fedsrv.coordinator import Delivery, RoundOutcome
 from repro_torch.optim import (adamw_update, clip_by_global_norm, init_adamw,
                                lr_at)
@@ -153,7 +156,6 @@ def _check_supported(fed: FedConfig) -> None:
     (the reference ignores these silently; the port ignores none)."""
     unsupported = {
         "obs": fed.obs != "off",
-        "faults": bool(fed.faults),
         "checkpoint_dir": bool(fed.checkpoint_dir),
     }
     asked = [k for k, v in unsupported.items() if v]
@@ -162,7 +164,7 @@ def _check_supported(fed: FedConfig) -> None:
             f"FedConfig asks for {asked}, which the port does not run yet "
             "(every method and assignment, stacked, chunked or eager, with "
             "the coordinator's policies, FedBuff, the uplink codecs and "
-            "validation, and DP uploads; no fault injection, obs or "
+            "validation, DP uploads and fault injection; no obs or "
             "checkpointing)")
     if _hetero(fed) or fed.method == "centralized":
         method = "hetero" if _hetero(fed) else "centralized"
@@ -188,6 +190,12 @@ def _check_supported(fed: FedConfig) -> None:
         method = "hetero" if _hetero(fed) else "centralized"
         raise ValueError(f"dp_clip={fed.dp_clip} under {method}, whose "
                          "uploads are never privatized")
+    if fed.faults and (fed.method == "centralized"
+                       or (_hetero(fed) and fed.engine == "off")):
+        method = "centralized" if fed.method == "centralized" else (
+            "the eager hetero close")
+        raise ValueError(f"faults={fed.faults!r} under {method}, whose "
+                         "uploads never cross the uplink path")
     if engine_method(fed) is None:
         why = ("engine='off'" if fed.engine == "off"
                else f"method={fed.method!r}")
@@ -311,7 +319,9 @@ class FederatedTrainer:
     def _build_coordinator(self, clients: List[ClientInfo]):
         """The coordinator of ``fed_cfg`` (the reference's selection): its
         policy, straggler and dropout model, the uplink codec with its
-        validation, ``self.ledger``, and the engine's ring as its sink."""
+        validation, ``self.ledger``, the fault plan's injector
+        (``self.fault_injector``, None without a plan) and the engine's ring
+        as its sink."""
         fc = self.fed_cfg
         registry = ClientRegistry(clients, seed=fc.seed)
         policy = RoundPolicy(participation=fc.participation,
@@ -324,7 +334,10 @@ class FederatedTrainer:
             straggler_factor=fc.straggler_factor, seed=fc.seed)
         codec = AdapterCodec(fc.quantize_uplink, validation=ValidationPolicy(
             enabled=fc.uplink_validation, max_norm=fc.uplink_max_norm))
+        self.fault_injector = (FaultInjector(FaultPlan.parse(
+            fc.faults, seed=fc.seed)) if fc.faults else None)
         common = dict(sink=self.engine.buffers if self.engine else None,
+                      faults=self.fault_injector,
                       uplink_retries=fc.uplink_retries,
                       retry_backoff=fc.retry_backoff)
         if fc.async_buffer > 0:
@@ -483,34 +496,48 @@ class FederatedTrainer:
         """Every client trains at its rank rᵢ; its uplink is zero-padded to
         r_max (and, under the engine, written straight into the ring with
         its true rank); the close folds each client's residual into its own
-        base."""
+        base. Under a fault plan each padded uplink instead crosses the
+        coordinator's defended path with its true rank, and the close runs
+        over the clients it delivered: a quarantined or dropped lane is
+        never written and contributes nothing."""
         k, eng = self.fed_cfg.num_clients, self.engine
+        coord = self.coordinator
         rid = (eng.buffers.begin_round({c: c for c in range(k)}, rnd)
                if eng else rnd)
-        client_losses, delivered, uplinks = [], [], []
+        if self.fault_injector is not None:
+            coord._ensure_spec(self.global_lora)
+        client_losses, delivered, uplinks, quarantined = [], [], [], []
         for c in range(k):
             lora_c, losses = self._client_round(c, self.client_params[c],
                                                 self._client_lora[c])
             client_losses.append(losses[-1])
             padded = pad_adapters(lora_c, self.lora_cfg.rank)
-            if eng:
+            if self.fault_injector is not None:
+                res = coord._uplink(padded, rid, c,
+                                    rank=self.client_ranks[c])
+                if not res.ok:
+                    quarantined.append((c, res.reason))
+                    continue
+                padded = res.tree
+            elif eng:
                 eng.buffers.write(c, padded, round_id=rid,
                                   rank=self.client_ranks[c])
             uplinks.append(lora_c)
-            delivered.append(Delivery(client=self.coordinator.registry.get(c),
+            delivered.append(Delivery(client=coord.registry.get(c),
                                       lora=padded, launched_at=0.0,
                                       arrived_at=0.0))
         self._record_outcome(RoundOutcome(
             round_id=rid, sampled=list(range(k)), delivered=delivered,
             dropped_out=[], dropped_deadline=[], weights=None,
-            opened_at=0.0, closed_at=0.0))
+            opened_at=0.0, closed_at=0.0, quarantined=quarantined))
         # round boundary: the previous round's divergence resolves only now
         self._resolve_divergences()
         if eng is None:
             return client_losses, self._eager_hetero_close(uplinks)
+        ids = self.outcomes[-1].client_ids
         new_cp, new_loras, self.global_lora, div = eng.close_hetero(
-            self.client_params, list(range(k)), round_id=rid)
-        for c in range(k):
+            self.client_params, ids, round_id=rid)
+        for c in ids:
             self.client_params[c] = new_cp[c]
             self._client_lora[c] = new_loras[c]
         return client_losses, div

@@ -1,7 +1,6 @@
 """Round coordinators: open → collect → close (weighted, exact).
 
-Counterpart of ``repro/fedsrv/coordinator.py`` without fault injection and
-observability.
+Counterpart of ``repro/fedsrv/coordinator.py`` without observability.
 
 Synchronous mode (:class:`RoundCoordinator`): a round samples its
 participants, draws each one's dropout and arrival time from the seeded
@@ -24,7 +23,11 @@ straight into the sink's lane (:class:`~repro_torch.core.engine.
 RoundBuffers`) when there is one, and lands in the
 :class:`~repro_torch.fedsrv.transport.BytesLedger`: a payload that fails
 validation is quarantined (its lane stays unread), one the ring refuses is
-dropped. Every federation decision comes from the numpy ``purpose_rng``
+dropped. A :class:`~repro_torch.fedsrv.faults.FaultInjector` (``faults``)
+corrupts each encoded uplink before delivery: a crash, and a replay with no
+ring to refuse it, drop the uplink; a duplicate is delivered twice and the
+ring drops the copy; a transient decode error is retried with backoff on
+the clock. Every federation decision comes from the numpy ``purpose_rng``
 streams, so outcomes replay the reference's exactly.
 """
 
@@ -97,6 +100,7 @@ class UplinkResult:
     ok: bool
     tree: Any = None     # the decoded tree when ok
     reason: str = ""     # quarantine/drop reason when not ok
+    status: str = "delivered"  # delivered | quarantined | dropped
     retries: int = 0
 
 
@@ -112,6 +116,7 @@ class RoundCoordinator:
                  ledger: Optional[BytesLedger] = None,
                  clock: Optional[SimClock] = None,
                  sink: Optional[Any] = None,
+                 faults: Optional[Any] = None,
                  uplink_retries: int = 2,
                  retry_backoff: float = 0.05):
         self.registry = registry
@@ -122,6 +127,7 @@ class RoundCoordinator:
         self.codec = codec or AdapterCodec("none")
         self.ledger = ledger or BytesLedger()
         self.clock = clock or SimClock()
+        self.faults = faults  # a FaultInjector, or None
         # transient decode failures: bounded retries, backing off
         # retry_backoff · 2^attempt sim-seconds
         if uplink_retries < 0:
@@ -151,6 +157,11 @@ class RoundCoordinator:
         attempt = 0
         while True:
             try:
+                if self.faults is not None:
+                    # a transient failure belongs to this delivery attempt,
+                    # not to the (frozen) payload
+                    self.faults.check_transient(payload.round_id,
+                                                payload.client_id)
                 if self.sink is not None:
                     return self.codec.decode_into(payload, self.sink,
                                                   weight=weight), attempt
@@ -172,24 +183,50 @@ class RoundCoordinator:
         was transmitted. ``weight`` is the client's raw aggregation weight
         at delivery (a chunked sink folds it in at ingest, so it must
         normalise to the close's weighting). A validation failure
-        quarantines the uplink (ledger direction ``quarantined``), a ring
-        refusal drops it (``dropped``)."""
+        quarantines the uplink (ledger direction ``quarantined``); a ring
+        refusal, a crash, or a replay with no ring drops it (``dropped``).
+        ``rank`` declares a ragged (hetero) uplink's true rank."""
         payload = self.codec.encode(lora, round_id=round_id,
                                     client_id=client_id, direction="uplink",
                                     rank=rank)
+        kinds: List[str] = []
+        if self.faults is not None:
+            payload, applied = self.faults.corrupt(payload)
+            kinds = [s.kind for s in applied]
+        if "crash" in kinds:
+            # the client died mid-uplink: nothing reaches the server
+            self.ledger.record(payload, note="fault:crash",
+                               direction="dropped")
+            self._note_undelivered(round_id, client_id, "dropped")
+            return UplinkResult(ok=False, reason="crash", status="dropped")
+        if payload.round_id != round_id and self.sink is None:
+            # a replayed address with no ring to refuse it
+            self.ledger.record(payload, note="drop:replay",
+                               direction="dropped")
+            self._note_undelivered(round_id, client_id, "dropped")
+            return UplinkResult(ok=False, reason="replay", status="dropped")
         try:
             tree, retries = self._deliver(payload, weight)
         except StaleUplinkError as e:
             self.ledger.record(payload, note=f"drop:{e.reason}",
                                direction="dropped")
             self._note_undelivered(round_id, client_id, "dropped")
-            return UplinkResult(ok=False, reason=e.reason)
+            return UplinkResult(ok=False, reason=e.reason, status="dropped")
         except TransportError as e:
             self.ledger.record(payload, note=f"quarantine:{e.reason}",
                                direction="quarantined")
             self._note_undelivered(round_id, client_id, "quarantined")
-            return UplinkResult(ok=False, reason=e.reason)
+            return UplinkResult(ok=False, reason=e.reason,
+                                status="quarantined")
         self.ledger.record(payload)
+        if "duplicate" in kinds:
+            # the copy costs wire bytes, and the ring refuses its write
+            try:
+                self._deliver(payload)
+            except StaleUplinkError:
+                pass
+            self.ledger.record(payload, note="fault:duplicate",
+                               direction="dropped")
         return UplinkResult(ok=True, tree=tree, retries=retries)
 
     def _note_undelivered(self, round_id: int, client_id: int,
@@ -323,10 +360,12 @@ class AsyncBufferCoordinator(RoundCoordinator):
                  staleness_alpha: float = 0.5,
                  max_version_lag: int = 1,
                  sink: Optional[Any] = None,
+                 faults: Optional[Any] = None,
                  uplink_retries: int = 2,
                  retry_backoff: float = 0.05):
         super().__init__(registry, policy, stragglers, codec, ledger, clock,
-                         sink=sink, uplink_retries=uplink_retries,
+                         sink=sink, faults=faults,
+                         uplink_retries=uplink_retries,
                          retry_backoff=retry_backoff)
         if buffer_size < 1:
             raise ValueError("buffer_size must be ≥ 1")

@@ -11,9 +11,9 @@ simulated clock is a plain float accumulator — no wall time anywhere, so a
 scenario replays bit-for-bit.
 
 Per-purpose rng streams: latency/straggler draws use the bare
-``[seed, round, client]`` stream and dropout the :data:`DROPOUT_STREAM`
-suffix, so consuming (or not consuming) one family's draw never shifts
-another's.
+``[seed, round, client]`` stream, dropout the :data:`DROPOUT_STREAM` suffix
+and fault injection the :data:`FAULT_STREAM` suffix, so consuming (or not
+consuming) one family's draw never shifts another's.
 """
 
 from __future__ import annotations
@@ -24,9 +24,9 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-# SeedSequence key suffixes, one per decision family (the reference's; the
-# fault stream, suffix 2, belongs to fault injection, not ported yet)
+# SeedSequence key suffixes, one per decision family (the reference's)
 DROPOUT_STREAM = 1
+FAULT_STREAM = 2
 
 
 def purpose_rng(seed: int, round_id: int, client_id: int,

@@ -171,7 +171,8 @@ COORDINATED = [{"participation": 0.5}, {"min_quorum": 1},
 
 @pytest.mark.parametrize("fed_kw,error", [
     ({"obs": "basic"}, NotImplementedError),
-    ({"faults": "nan@0.5"}, NotImplementedError),
+    ({"method": "centralized", "faults": "nan@0.5"}, ValueError),
+    ({"method": "hetero", "engine": "off", "faults": "nan@0.5"}, ValueError),
     ({"checkpoint_dir": "ckpt"}, NotImplementedError),
     ({"method": "hetero", "dp_clip": 1.0}, ValueError),
     ({"method": "centralized", "dp_clip": 1.0}, ValueError),
@@ -185,7 +186,8 @@ def test_unported_federation_features_raise(fed_kw, error):
     """A feature not ported yet raises ``NotImplementedError``; a setting
     the run would ignore (DP under a method whose uploads are never
     privatized, DP noise without a clip, a coordinator setting under hetero
-    or centralized) raises ``ValueError`` naming it."""
+    or centralized, a fault plan where no upload crosses the uplink path)
+    raises ``ValueError`` naming it."""
     names = [k for k in fed_kw if k not in ("method", "client_ranks")]
     with pytest.raises(error, match="|".join(names)):
         _tiny(fed_kw)
@@ -194,10 +196,12 @@ def test_unported_federation_features_raise(fed_kw, error):
 @pytest.mark.parametrize("fed_kw", [
     {"round_deadline": 1.0}, {"dropout_prob": 0.1}, {"async_buffer": 2},
     {"quantize_uplink": "int8"}, {"uplink_max_norm": 1.0},
+    {"faults": "crash@1(clients=1)"},
 ], ids=lambda x: "-".join(f"{k}={v}" for k, v in x.items()))
 def test_ported_federation_features_run(fed_kw):
-    """The coordinator's policies, FedBuff and the uplink transport, which
-    earlier slices refused, train a round and ledger its uplinks."""
+    """The coordinator's policies, FedBuff, the uplink transport and fault
+    injection, which earlier slices refused, train a round and ledger the
+    uplinks that were delivered."""
     pt = _tiny(fed_kw)
     rec = pt.run(until=1)[0]
     assert np.isfinite(rec.eval_loss) or not pt.eval_batches

@@ -399,9 +399,9 @@ def test_async_coordinator_matches_reference(case):
 
 
 def test_transient_uplink_errors_retry_then_quarantine():
-    """The retry path (faults are not ported, so a fake transient error):
-    one failure costs one backoff on the clock; a client that keeps failing
-    is quarantined once the retries run out. Both as the reference."""
+    """The retry path, driven by a fake transient decode error: one
+    failure costs one backoff on the clock; a client that keeps failing is
+    quarantined once the retries run out. Both as the reference."""
     outs = []
     for flaky in ({1: 1}, {1: 5}):
         jcoord, pcoord = _pair([100] * 3, stragglers={"jitter": 0.0})
