@@ -42,8 +42,7 @@ JAX donates the W0 leaves and stacks to its close program; here the kernel
 closes write the fold into W0's own storage instead, so a caller must treat
 the ``params`` it passes to :meth:`RoundCloseEngine.close` (and the bases of
 the delivered clients it passes to ``close_keep_local`` / ``close_hetero``)
-as consumed: clients must not share W0 leaves. Checkpointing a chunked
-round's state is not ported.
+as consumed: clients must not share W0 leaves.
 """
 
 from __future__ import annotations
@@ -214,10 +213,10 @@ class RoundBuffers:
     accumulators. ``retain_chunks`` keeps the folded chunks for closes that
     read them again (keep_local, fedex_svd, hetero). A round that fits in one
     chunk takes the stacked path (the "auto" rule ``0 < chunk <
-    len(slots)``). The reference stages chunks in host numpy so that a
-    round's state can be checkpointed; checkpointing is not ported, and
-    this ring stages each chunk on its device (one chunk of paper-llama3.2-3b
-    uplinks is 4 × 9.18 MB).
+    len(slots)``). The reference stages chunks in host numpy; this ring
+    stages each chunk on its device (one chunk of paper-llama3.2-3b uplinks
+    is 4 × 9.18 MB), and :meth:`state_dict` copies a round's device state
+    to the host for a checkpoint.
     """
 
     def __init__(self, lora_template: Params, c_max: int, depth: int = 2,
@@ -493,6 +492,107 @@ class RoundBuffers:
         while e["next_chunk"] < e["num_chunks"]:
             self._fold_next(rid, e, eager=False)
         return rid, self._close(rid)
+
+    # -- checkpoint / resume -----------------------------------------------
+    def state_dict(self) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
+        """``(meta, arrays)``: the ring's JSON-able bookkeeping (open
+        rounds' slots, deliveries, deadlines and fold-cascade positions, the
+        evicted / closed memories, the drop counters) and host copies of its
+        open rounds' arrays, keyed ``ring/{round}/…``: a stacked round's
+        stacks, a chunked round's staged and retained chunks, running
+        accumulators and raw ingest weights, and every round's rank vector.
+        At a round boundary the ring is normally empty."""
+        meta: Dict[str, Any] = {
+            "open": [], "evicted": list(self._evicted.items()),
+            "closed": list(self._closed), "evictions": self.evictions,
+            "stale_drops": self.stale_drops,
+            "replay_drops": self.replay_drops,
+            "duplicate_drops": self.duplicate_drops,
+            "partial_folds": self.partial_folds, "auto": self._auto}
+        arrays: Dict[str, np.ndarray] = {}
+
+        def put(key: str, x) -> None:
+            arrays[key] = (x.detach().cpu().numpy().copy()
+                           if torch.is_tensor(x) else np.array(x))
+
+        for rid, e in self._open.items():
+            entry = {"round": rid, "deadline": e["deadline"],
+                     "chunked": e["chunked"],
+                     "slots": [[c, s] for c, s in e["slots"].items()],
+                     "written": [[c, s] for c, s in e["written"].items()]}
+            put(f"ring/{rid}/_ranks", e["ranks"])
+            if e["chunked"]:
+                entry.update(next_chunk=e["next_chunk"],
+                             num_chunks=e["num_chunks"],
+                             expected=list(e["expected"]),
+                             filled=list(e["filled"]),
+                             pending_chunks=sorted(e["chunks"]),
+                             retained_chunks=sorted(e["retained"]),
+                             acc_keys=sorted(e["acc"] or {}))
+                put(f"ring/{rid}/_w", e["w"])
+                for prefix, bufs in (("_chunk", e["chunks"]),
+                                     ("_ret", e["retained"])):
+                    for k, buf in bufs.items():
+                        for p, x in buf.items():
+                            put(f"ring/{rid}/{prefix}{k}/{p}", x)
+                for name, x in (e["acc"] or {}).items():
+                    put(f"ring/{rid}/_acc/{name}", x)
+            else:
+                for p, x in e["stacks"].items():
+                    put(f"ring/{rid}/{p}", x)
+            meta["open"].append(entry)
+        return meta, arrays
+
+    def load_state(self, meta: Dict[str, Any], arrays: Dict[str, Any]
+                   ) -> None:
+        """Restore a :meth:`state_dict` snapshot (its arrays numpy or
+        tensors on any device): the open rounds' arrays are copied onto this
+        ring's device in float32, so the remaining writes, folds and the
+        close replay exactly as they would have."""
+        def dev(key: str) -> torch.Tensor:
+            x = arrays[key]
+            t = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+            return t.to(device=self.device, dtype=torch.float32, copy=True)
+
+        def host(key: str, dtype) -> np.ndarray:
+            x = arrays[key]
+            return np.array(x.cpu() if torch.is_tensor(x) else x, dtype=dtype)
+
+        self._open = OrderedDict()
+        for entry in meta["open"]:
+            rid = entry["round"]
+            e: Dict[str, Any] = {
+                "slots": {int(c): int(s) for c, s in entry["slots"]},
+                "written": {int(c): int(s) for c, s in entry["written"]},
+                "deadline": entry["deadline"], "chunked": entry["chunked"],
+                "ranks": host(f"ring/{rid}/_ranks", np.int32)}
+            if e["chunked"]:
+                def bufs(prefix, ks):
+                    return {int(k): {p: dev(f"ring/{rid}/{prefix}{k}/{p}")
+                                     for p in self._shapes} for k in ks}
+
+                e.update(chunks=bufs("_chunk", entry["pending_chunks"]),
+                         retained=bufs("_ret", entry["retained_chunks"]),
+                         acc={name: dev(f"ring/{rid}/_acc/{name}")
+                              for name in entry["acc_keys"]} or None,
+                         w=host(f"ring/{rid}/_w", np.float32),
+                         next_chunk=int(entry["next_chunk"]),
+                         num_chunks=int(entry["num_chunks"]),
+                         expected=[int(x) for x in entry["expected"]],
+                         filled=[int(x) for x in entry["filled"]])
+            else:
+                e["stacks"] = {p: dev(f"ring/{rid}/{p}")
+                               for p in self._shapes}
+            self._open[rid] = e
+        self._evicted = OrderedDict((rid, reason)
+                                    for rid, reason in meta["evicted"])
+        self._closed = OrderedDict((rid, True) for rid in meta["closed"])
+        self.evictions = int(meta["evictions"])
+        self.stale_drops = int(meta["stale_drops"])
+        self.replay_drops = int(meta["replay_drops"])
+        self.duplicate_drops = int(meta["duplicate_drops"])
+        self.partial_folds = int(meta["partial_folds"])
+        self._auto = int(meta["auto"])
 
 
 # --------------------------------------------------------------------------

@@ -52,7 +52,15 @@ closes fold in place (the eager closes make new tensors).
 
 The engine close returns its divergence as a device scalar, resolved at the
 next round boundary, so the close runs on the device while the next
-round's clients start. The trainer takes optional initial ``params`` /
+round's clients start.
+
+With ``checkpoint_dir`` the trainer snapshots its round state every
+``checkpoint_every`` round boundaries (:meth:`FederatedTrainer.save_state`,
+``repro_torch.checkpoint``); a fresh trainer of the same configs that
+:meth:`~FederatedTrainer.load_state`s the snapshot runs the remaining rounds
+bitwise as the uninterrupted run. Every draw keys off ``(seed, round[,
+client])`` (reinit's and DP's generators, the coordinator's and the fault
+plan's numpy streams), so no generator state is saved. The trainer takes optional initial ``params`` /
 ``global_lora`` trees and per-client ``client_loras`` (the parity tests
 hand it the reference's draws); without them it draws its own on its
 device.
@@ -61,11 +69,13 @@ device.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass, field, replace
+from dataclasses import asdict, dataclass, field, replace
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from repro_torch.checkpoint import (load_checkpoint, round_state_path,
+                                    save_checkpoint)
 from repro_torch.configs.base import (FedConfig, LoRAConfig, TrainConfig,
                                       validate_fed_lora)
 from repro_torch.core import aggregation as agg
@@ -154,18 +164,13 @@ def _check_supported(fed: FedConfig) -> None:
     """Raise ``NotImplementedError`` for any federation feature the port has
     not taken up yet, and ``ValueError`` for a setting the run would ignore
     (the reference ignores these silently; the port ignores none)."""
-    unsupported = {
-        "obs": fed.obs != "off",
-        "checkpoint_dir": bool(fed.checkpoint_dir),
-    }
-    asked = [k for k, v in unsupported.items() if v]
-    if asked:
+    if fed.obs != "off":
         raise NotImplementedError(
-            f"FedConfig asks for {asked}, which the port does not run yet "
-            "(every method and assignment, stacked, chunked or eager, with "
-            "the coordinator's policies, FedBuff, the uplink codecs and "
-            "validation, DP uploads and fault injection; no obs or "
-            "checkpointing)")
+            f"FedConfig asks for obs={fed.obs!r}, which the port does not run "
+            "yet (every method and assignment, stacked, chunked or eager, "
+            "with the coordinator's policies, FedBuff, the uplink codecs and "
+            "validation, DP uploads, fault injection and round-state "
+            "checkpoints; no obs)")
     if _hetero(fed) or fed.method == "centralized":
         method = "hetero" if _hetero(fed) else "centralized"
         coordinated = {
@@ -625,6 +630,80 @@ class FederatedTrainer:
             self.history.append(RoundRecord(
                 round=rnd, client_losses=client_losses, eval_loss=ev_loss,
                 eval_acc=ev_acc, divergence_scaled=div, lr=lr_now))
+            fc = self.fed_cfg
+            if fc.checkpoint_dir and (rnd + 1) % fc.checkpoint_every == 0:
+                self.save_state(round_state_path(fc.checkpoint_dir))
             self._start_round = rnd + 1
         self._resolve_divergences()
         return self.history
+
+    # ------------------------------------------------------------------
+    def save_state(self, path: str) -> None:
+        """Snapshot the round boundary to ``path``: params, the global
+        adapter, every client's base and adapter (keep_local, hetero), the
+        clock, the ledger, the loaders, the history, the step counter, the
+        ring (its open rounds through the host) and FedBuff's version,
+        in-flight launches and launch snapshots. Resolves the deferred
+        divergences first, as a round boundary does."""
+        self._resolve_divergences()
+        tree: Dict[str, Any] = {"params": self.params,
+                                "global": self.global_lora}
+        if self.client_params is not None:
+            tree["cparams"] = {str(i): p
+                               for i, p in enumerate(self.client_params)}
+            tree["clora"] = {str(i): x
+                             for i, x in enumerate(self._client_lora)}
+        meta: Dict[str, Any] = {
+            "next_round": len(self.history),
+            "global_step": self._global_step,
+            # the reference's key: the last round's divergence (not restored:
+            # each close computes its own)
+            "last_div": (float(self.history[-1].divergence_scaled)
+                         if self.history else 0.0),
+            "clock": self.coordinator.clock.state_dict(),
+            "ledger": self.ledger.state_dict(),
+            "loaders": [ld.state_dict() for ld in self.client_loaders],
+            "history": [asdict(r) for r in self.history],
+        }
+        if self.engine is not None:
+            meta["ring"], ring_arrays = self.engine.buffers.state_dict()
+            if ring_arrays:
+                tree["ringarr"] = ring_arrays
+        co = self.coordinator
+        if isinstance(co, AsyncBufferCoordinator):
+            meta["async"] = {
+                "version": co._version,
+                "inflight": [[c.client_id, t, v] for t, c, v in co._inflight],
+                "snapshot_versions": sorted(co._snapshots)}
+            tree["snap"] = {str(v): x for v, x in co._snapshots.items()}
+        save_checkpoint(path, tree, meta)
+
+    def load_state(self, path: str) -> None:
+        """Restore a :meth:`save_state` snapshot into a freshly built trainer
+        of the same configs (its engine, ring and coordinator already built)
+        onto its device; :meth:`run` then continues at the saved boundary.
+        ``outcomes`` restarts empty."""
+        tree, meta = load_checkpoint(path, self.device)
+        self.params, self.global_lora = tree["params"], tree["global"]
+        if "cparams" in tree:
+            n = len(tree["cparams"])
+            self.client_params = [tree["cparams"][str(i)] for i in range(n)]
+            self._client_lora = [tree["clora"][str(i)] for i in range(n)]
+        self._start_round = int(meta["next_round"])
+        self._global_step = int(meta["global_step"])
+        self.coordinator.clock.load_state(meta["clock"])
+        self.ledger.load_state(meta["ledger"])
+        for ld, st in zip(self.client_loaders, meta["loaders"]):
+            ld.load_state(st)
+        self.history = [RoundRecord(**r) for r in meta["history"]]
+        self.outcomes = []
+        if self.engine is not None:
+            self.engine.buffers.load_state(
+                meta["ring"], flatten_with_paths(tree.get("ringarr", {})))
+        if "async" in meta:
+            co, st = self.coordinator, meta["async"]
+            co._version = int(st["version"])
+            co._inflight = [(float(t), co.registry.get(int(cid)), int(v))
+                            for cid, t, v in st["inflight"]]
+            co._snapshots = {int(v): tree["snap"][str(v)]
+                             for v in st["snapshot_versions"]}

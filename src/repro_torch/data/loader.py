@@ -49,3 +49,14 @@ class ClientLoader:
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         while True:
             yield self.next_batch()
+
+    def state_dict(self) -> Dict:
+        """JSON-able iterator state: a resumed loader draws the same batch
+        sequence as an uninterrupted one."""
+        return {"rng": self.rng.bit_generator.state,
+                "order": self._order.tolist(), "cursor": self._cursor}
+
+    def load_state(self, state: Dict) -> None:
+        self.rng.bit_generator.state = state["rng"]
+        self._order = np.asarray(state["order"], dtype=np.int64)
+        self._cursor = int(state["cursor"])

@@ -73,6 +73,12 @@ class SimClock:
         self._t = self.now() + float(dt)
         return self._t
 
+    def state_dict(self) -> dict:
+        return {"t": self._t}
+
+    def load_state(self, state: dict) -> None:
+        self._t = float(state["t"])
+
 
 @dataclass(frozen=True)
 class StragglerModel:

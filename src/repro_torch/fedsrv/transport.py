@@ -34,7 +34,7 @@ client), and the coordinator quarantines the uplink: its lane stays unread.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -441,6 +441,12 @@ class BytesLedger:
                               "match": measured == expected}
         out["ok"] = all(out[d]["match"] for d in ("uplink", "downlink"))
         return out
+
+    def state_dict(self) -> List[Dict[str, Any]]:
+        return [asdict(e) for e in self.entries]
+
+    def load_state(self, state: List[Dict[str, Any]]) -> None:
+        self.entries = [LedgerEntry(**d) for d in state]
 
     def summary_lines(self) -> List[str]:
         rounds = sorted({e.round_id for e in self.entries})

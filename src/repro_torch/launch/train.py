@@ -9,8 +9,12 @@ every method — ``--method fedex`` with ``--assignment average``,
 close), ``--engine off`` (the eager close), DP uploads (``--dp-clip``,
 ``--dp-noise``), the coordinator's policies (``--deadline``,
 ``--stragglers``, ``--dropout-prob``), FedBuff commits (``--async-buffer``,
-``--ring-depth``) and the uplink transport (``--quantize-uplink``,
-``--uplink-max-norm``); the measured bytes ledger is printed after the run.
+``--ring-depth``), the uplink transport (``--quantize-uplink``,
+``--uplink-max-norm``, ``--no-uplink-validation``, ``--uplink-retries``),
+seeded fault injection (``--faults``) and round-state checkpoints
+(``--checkpoint-dir``, ``--checkpoint-every``, ``--resume``); the measured
+bytes ledger is printed after the run, with its quarantined and dropped
+buckets and each round's quarantined or dropped (client, reason) pairs.
 Runs on CUDA unless ``--device cpu`` is given.
 
 ``--data-vocab`` draws the synthetic corpus from a smaller vocabulary than
@@ -38,6 +42,13 @@ Examples (CPU, tiny model):
       --vocab 64 --rounds 3 --async-buffer 2 --weighting examples
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --vocab 64 --rounds 2 --quantize-uplink int8 --uplink-max-norm 1.0
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --vocab 64 --clients 4 --rounds 2 \\
+      --faults 'nan@1(clients=1);truncate@1(clients=2);crash@0.5(rounds=1)'
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --vocab 64 --rounds 1 --checkpoint-dir /tmp/ck   # killed after round 1
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --vocab 64 --rounds 3 --checkpoint-dir /tmp/ck --resume
 """
 
 from __future__ import annotations
@@ -48,6 +59,7 @@ from dataclasses import replace
 
 import numpy as np
 
+from repro_torch.checkpoint import round_state_path
 from repro_torch.configs import (FedConfig, LoRAConfig, TrainConfig,
                                  get_config, validate_fed_lora)
 from repro_torch.core import FederatedTrainer
@@ -158,6 +170,25 @@ def main(argv=None) -> None:
                          "(0 = off)")
     ap.add_argument("--dp-noise", type=float, default=0.0,
                     help="DP: Gaussian noise multiplier σ (std = σ · clip)")
+    ap.add_argument("--faults", default="",
+                    help="seeded fault plan, e.g. "
+                         "'nan@0.2;truncate@1(clients=2,rounds=0+1)': "
+                         "corrupts uplinks between encode and delivery; the "
+                         "validation quarantines them, the close stays exact "
+                         "over the survivors")
+    ap.add_argument("--no-uplink-validation", action="store_true",
+                    help="turn off the defended decode (finite, shape and "
+                         "spec checks on every uplink)")
+    ap.add_argument("--uplink-retries", type=int, default=2,
+                    help="retries of a transient decode failure")
+    ap.add_argument("--checkpoint-dir", default="",
+                    help="snapshot the round state here at round boundaries "
+                         "('' = off)")
+    ap.add_argument("--checkpoint-every", type=int, default=1,
+                    help="snapshot every N round boundaries")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from --checkpoint-dir's snapshot (the run "
+                         "continues bitwise as if never interrupted)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", default="float32")
     ap.add_argument("--out", default="", help="write round history JSON here")
@@ -183,8 +214,15 @@ def main(argv=None) -> None:
                         ring_depth=args.ring_depth,
                         close_chunk=args.close_chunk, engine=args.engine,
                         dp_clip=args.dp_clip,
-                        dp_noise_multiplier=args.dp_noise)
+                        dp_noise_multiplier=args.dp_noise,
+                        faults=args.faults,
+                        uplink_validation=not args.no_uplink_validation,
+                        uplink_retries=args.uplink_retries,
+                        checkpoint_dir=args.checkpoint_dir,
+                        checkpoint_every=args.checkpoint_every)
     validate_fed_lora(fed_cfg, lora_cfg)
+    if args.resume and not args.checkpoint_dir:
+        ap.error("--resume requires --checkpoint-dir")
     cfg = get_config(args.arch)
     if args.vocab:
         cfg = replace(cfg, vocab_size=args.vocab)
@@ -201,6 +239,8 @@ def main(argv=None) -> None:
                                client_loaders=loaders,
                                eval_batches=eval_batches, seed=args.seed,
                                device=device)
+    if args.resume:
+        trainer.load_state(round_state_path(args.checkpoint_dir))
     history = trainer.run()
     for rec in history:
         print(f"round={rec.round} eval_loss={rec.eval_loss:.4f} "
@@ -217,6 +257,15 @@ def main(argv=None) -> None:
         print("comm ledger (measured, fedsrv transport):")
         for line in trainer.ledger.summary_lines():
             print("  " + line)
+        tot = trainer.ledger.totals()
+        for bucket in ("quarantined", "dropped"):
+            if f"{bucket}_params" in tot:
+                print(f"  {bucket}: {tot[bucket + '_params']} params, "
+                      f"{tot[bucket + '_bytes']} B")
+    for out in trainer.outcomes:
+        if out.quarantined:
+            print(f"round={out.round_id} quarantined or dropped "
+                  f"(client, reason): {out.quarantined}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump([r.__dict__ for r in history], f, indent=2)

@@ -20,6 +20,7 @@ agreeing to 1e-9); the Frobenius bound holds the bulk.
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -173,7 +174,6 @@ COORDINATED = [{"participation": 0.5}, {"min_quorum": 1},
     ({"obs": "basic"}, NotImplementedError),
     ({"method": "centralized", "faults": "nan@0.5"}, ValueError),
     ({"method": "hetero", "engine": "off", "faults": "nan@0.5"}, ValueError),
-    ({"checkpoint_dir": "ckpt"}, NotImplementedError),
     ({"method": "hetero", "dp_clip": 1.0}, ValueError),
     ({"method": "centralized", "dp_clip": 1.0}, ValueError),
     ({"dp_noise_multiplier": 0.1, "dp_clip": 0.0}, ValueError),
@@ -196,14 +196,18 @@ def test_unported_federation_features_raise(fed_kw, error):
 @pytest.mark.parametrize("fed_kw", [
     {"round_deadline": 1.0}, {"dropout_prob": 0.1}, {"async_buffer": 2},
     {"quantize_uplink": "int8"}, {"uplink_max_norm": 1.0},
-    {"faults": "crash@1(clients=1)"},
+    {"faults": "crash@1(clients=1)"}, {"checkpoint_dir": "ckpt"},
 ], ids=lambda x: "-".join(f"{k}={v}" for k, v in x.items()))
-def test_ported_federation_features_run(fed_kw):
-    """The coordinator's policies, FedBuff, the uplink transport and fault
-    injection, which earlier slices refused, train a round and ledger the
-    uplinks that were delivered."""
+def test_ported_federation_features_run(fed_kw, tmp_path):
+    """The coordinator's policies, FedBuff, the uplink transport, fault
+    injection and round-state checkpoints, which earlier slices refused,
+    train a round and ledger the uplinks that were delivered."""
+    ckpt = str(tmp_path / "ckpt")
+    if "checkpoint_dir" in fed_kw:
+        fed_kw = {**fed_kw, "checkpoint_dir": ckpt}
     pt = _tiny(fed_kw)
     rec = pt.run(until=1)[0]
+    assert os.path.exists(ckpt) == ("checkpoint_dir" in fed_kw)
     assert np.isfinite(rec.eval_loss) or not pt.eval_batches
     out = pt.outcomes[0]
     ups = pt.ledger.round_totals(0)["uplink_params"]
