@@ -127,7 +127,34 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
      seeded generator (their init is 0): ``fedex_fold`` 4 and
      ``factor_mean`` 1 per weighted close, and every leaf that is not
      adapted (biases, norms, learned positions, the tied embedding)
-     bitwise as at the path's start.
+     bitwise as at the path's start;
+   * the fault paths, each against its crash twin (the same seed, the
+     faulted clients crashed; the ring's fresh lanes hold NaN, and every
+     lane opened and never written must still hold only NaN at its close):
+     fedex+faults (6 clients, 3 local steps, 2 rounds of every client,
+     example weights; ``FAULT_PLAN``: client 1's uplink poisoned with NaN
+     and client 3's truncated, both quarantined, client 5's replayed to the
+     round before and dropped by the ring, client 0's first two decodes
+     failing and retried, client 2's uplink delivered twice and the copy
+     dropped; ``fedex_fold`` 4 and ``factor_mean`` 1 a close) and
+     hetero+faults (ranks 4, 2, 1, 3, 4, 2 local steps, one round; NaN on
+     client 1, truncation on client 3; ``hetero_fold`` 4): the global
+     adapter and the adapted W0 leaves (hetero: each surviving client's
+     base and rank-rᵢ adapter) bitwise equal to the twin's;
+   * the resume paths: ring-snapshot (a chunked fedex ring at the main
+     path's adapter shapes, drawn adapters, 6 lanes in chunks of 2 with raw
+     weights, snapshotted after 3 writes, chunk 0 folded at ingest through
+     ``factor_mean`` and ``product_accum`` and chunk 1 half written, through
+     ``repro_torch.checkpoint`` to a temporary directory under ``build/``,
+     loaded into a fresh engine and finished: its close bitwise the
+     uninterrupted one's; ``factor_mean`` 6 and ``product_accum`` 24) and
+     gpt2-resume (fedex at ``paper-gpt2``'s full width, 3 clients, 2 local
+     steps, 3 rounds at 50%, example weights, a cosine schedule, client 1's
+     round-1 uplink poisoned; killed after round 1 and resumed in a fresh
+     trainer from its snapshot: history, params and global adapter bitwise
+     the uninterrupted run's, the quarantine replayed; ``fedex_fold`` 4 and
+     ``factor_mean`` 1 a close), each printing the snapshot's bytes and its
+     save and load seconds.
    The last round of each path is checked against its exactness identity
    (below), and every path's peak memory is printed, the stacked and the
    chunked path of each method side by side;
@@ -176,8 +203,9 @@ Identities, per adapted leaf, on the last round of each path:
 * the chunked paths: the same identities against a float64 computation on
   the host from the round's uplinks and normalised raw weights
   (``identity_host``);
-* fedex+dp, fedex[eager], gpt2-fedex and the coordinator paths: the
-  fedex identity over the delivered subset, over the privatized uploads
+* fedex+dp, fedex[eager], gpt2-fedex, the coordinator paths and the
+  fault paths: the fedex (hetero+faults: the hetero) identity over the
+  delivered subset, over the privatized uploads
   for fedex+dp and the decoded uploads for fedex+int8 (the residual
   absorbs whatever the clients sent);
 * fedit: global a and b = Σ_c w_c a_c and Σ_c w_c b_c against float64 on
@@ -1260,6 +1288,11 @@ CHUNKED = {"close_chunk": 4, "weighting": "examples"}
 # factor_mean launch (a and b of every leaf) and per leaf one product_accum
 CHUNK_FOLDS = ({"product_accum": 2}, {"factor_mean": 2})
 PARTIAL = {"participation": 0.5, "weighting": "examples"}
+# client 0's first two decodes fail (two retries), client 2's uplink is
+# delivered twice (the ring drops the copy); 1, 3 and 5 never land
+FAULT_PLAN = ("nan@1(clients=1);truncate@1(clients=3);replay@1(clients=5);"
+              "decode_error@1(clients=0,count=2);duplicate@1(clients=2)")
+HETERO_FAULT_RANKS = (4, 2, 1, 3, 4)
 PATHS = {
     "fedex": ({}, 3, 4, 2, {"fedex_fold": 1}, {"factor_mean": 1}),
     "reinit": ({"assignment": "reinit", "participation": 0.5,
@@ -1320,9 +1353,32 @@ PATHS = {
                    {"factor_mean": 1}),
     # the fedex path at paper-gpt2's width (GPT2_PATHS)
     "gpt2-fedex": ({}, 3, 4, 2, {"fedex_fold": 1}, {"factor_mean": 1}),
+    # fault plans against their crash twins (FAULT_TWINS): every round the
+    # faulted clients' uplinks are quarantined or dropped, and the close
+    # must equal the twin's, in which they crashed, bit for bit
+    "fedex+faults": ({"faults": FAULT_PLAN, "weighting": "examples"}, 2, 6,
+                     3, {"fedex_fold": 1}, {"factor_mean": 1}),
+    "fedex+faults[twin]": ({"faults": "crash@1(clients=1+3+5)",
+                            "weighting": "examples"}, 2, 6, 3,
+                           {"fedex_fold": 1}, {"factor_mean": 1}),
+    "hetero+faults": ({"method": "hetero", "client_ranks": HETERO_FAULT_RANKS,
+                       "faults": "nan@1(clients=1);truncate@1(clients=3)"},
+                      1, 5, 2, {"hetero_fold": 1}, {}),
+    "hetero+faults[twin]": ({"method": "hetero",
+                             "client_ranks": HETERO_FAULT_RANKS,
+                             "faults": "crash@1(clients=1+3)"}, 1, 5, 2,
+                            {"hetero_fold": 1}, {}),
 }
 GPT2_PATHS = ("gpt2-fedex",)  # run at paper-gpt2, the others at the main cfg
 TRANSPORT_PATHS = ("fedex+deadline", "fedbuff", "fedex+int8")
+# faulty path → its crash twin, and what each faulted client must become
+FAULT_TWINS = {"fedex+faults": "fedex+faults[twin]",
+               "hetero+faults": "hetero+faults[twin]"}
+FAULTED = {"fedex+faults": {1: ("nonfinite",), 3: ("bytes",),
+                            5: ("unroutable", "stale")},
+           "fedex+faults[twin]": {c: ("crash",) for c in (1, 3, 5)},
+           "hetero+faults": {1: ("nonfinite",), 3: ("bytes",)},
+           "hetero+faults[twin]": {c: ("crash",) for c in (1, 3)}}
 EVERY_ROUND = ("fedbuff",)  # the identity checked at every commit
 # round 0 uniform over every client, later rounds weighted at 50%
 STAGED = ("fedex", "gpt2-fedex")
@@ -1343,6 +1399,42 @@ def frozen_leaves(torch, params, keys, gen):
             leaf.normal_(0.0, 0.02, generator=gen)
         out[k] = leaf.clone()
     return out
+
+
+def watch_unwritten_lanes(torch, trainer, name):
+    """Fill the trainer's ring's fresh stacks with NaN instead of zeros and,
+    before every stacked close, check that each lane opened and never
+    written (cut at the deadline, quarantined, dropped, crashed) still holds
+    only NaN: a lane the close read would put NaN into W0. Returns a
+    one-element list that counts the lanes checked."""
+    eng = trainer.engine
+    buffers, unread = eng.buffers, [0]
+
+    def nan_alloc(lanes):
+        return {p: torch.full((lanes,) + shp, float("nan"),
+                              device=buffers.device)
+                for p, shp in buffers._shapes.items()}
+
+    buffers._alloc = nan_alloc
+
+    def checked(close):
+        def wrapper(*args, round_id=None, **kw):
+            written = buffers.delivered_in(round_id)
+            stacks = buffers._open[round_id]["stacks"]
+            for cid, lane in buffers.lanes(round_id).items():
+                if cid in written:
+                    continue
+                if not all(bool(torch.isnan(st[lane]).all())
+                           for st in stacks.values()):
+                    raise AssertionError(f"{name}: client {cid}'s lane "
+                                         "was written")
+                unread[0] += 1
+            return close(*args, round_id=round_id, **kw)
+        return wrapper
+
+    for fn in ("close", "close_hetero"):
+        setattr(eng, fn, checked(getattr(eng, fn)))
+    return unread
 
 
 class TransportProbe:
@@ -1372,17 +1464,10 @@ class TransportProbe:
         self.torch, self.trainer, self.name = torch, trainer, name
         self.first = None    # the first honest uplink's adapter tree
         self.first_client = None
-        self.unread = 0      # unwritten lanes checked before a close
         self.scaled = None   # the client whose uplink was scaled
-        eng, codec = trainer.engine, trainer.coordinator.codec
-        buffers = eng.buffers
-
-        def nan_alloc(lanes):
-            return {p: torch.full((lanes,) + shp, float("nan"),
-                                  device=buffers.device)
-                    for p, shp in buffers._shapes.items()}
-
-        buffers._alloc = nan_alloc
+        codec = trainer.coordinator.codec
+        # unwritten lanes checked before a close
+        self.unread = watch_unwritten_lanes(torch, trainer, name)
         encode = codec.encode
 
         def keep_first(tree, **kw):
@@ -1393,24 +1478,6 @@ class TransportProbe:
             return encode(tree, **kw)
 
         codec.encode = keep_first
-        close = eng.close
-
-        def checked_close(params, client_ids, weights=None, *, round_id=None,
-                          rng=None):
-            written = buffers.delivered_in(round_id)
-            stacks = buffers._open[round_id]["stacks"]
-            for cid, lane in buffers.lanes(round_id).items():
-                if cid in written:
-                    continue
-                if not all(bool(torch.isnan(st[lane]).all())
-                           for st in stacks.values()):
-                    raise AssertionError(f"{name}: client {cid}'s lane "
-                                         "was written")
-                self.unread += 1
-            return close(params, client_ids, weights, round_id=round_id,
-                         rng=rng)
-
-        eng.close = checked_close
         if name == "fedex+int8":
             make = trainer._train_fn
 
@@ -1458,10 +1525,10 @@ class TransportProbe:
         if name == "fedex+int8":
             self._int8_checks(outs)
         need_unread = name != "fedbuff"
-        print(f"  [{name}] {self.unread} lanes opened and never written, "
+        print(f"  [{name}] {self.unread[0]} lanes opened and never written, "
               "each still all NaN at its close (W0 finite after it)",
               flush=True)
-        if need_unread and not self.unread:
+        if need_unread and not self.unread[0]:
             raise AssertionError(f"{name}: no lane was left unwritten")
         self._codec_times(rows)
 
@@ -1682,6 +1749,8 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
     # after the timing wrappers, so that its checks stay out of the times
     probe = (TransportProbe(torch, trainer, name) if name in TRANSPORT_PATHS
              else None)
+    unread = (watch_unwritten_lanes(torch, trainer, name) if name in FAULTED
+              else None)
     keys = ([s.key for s in eng.specs] if eng else
             [k[:-2] for k in flatten_with_paths(trainer.global_lora)
              if k.endswith("/a")])
@@ -1756,6 +1825,8 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
             del old
     if probe is not None:
         probe.finish(rows)
+    if unread is not None:
+        fault_checks(trainer, name, unread[0])
     if frozen is not None:
         now = flatten_with_paths(trainer.params)
         moved = [k for k, x in frozen.items() if not torch.equal(now[k], x)]
@@ -1765,6 +1836,244 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
         if moved:
             raise AssertionError(f"{name}: leaves not adapted moved: {moved}")
     return trainer, rows, kernel_closes, identity
+
+
+def fault_checks(trainer, name, unread):
+    """A fault path's outcomes: every round each client of ``FAULTED[name]``
+    is quarantined or dropped for its reason, the others delivered, and its
+    lane left unwritten (all NaN) and unread; under ``FAULT_PLAN`` client 0
+    is delivered after 2 retries and the ring drops client 2's duplicate
+    copy once a round."""
+    want = FAULTED[name]
+    k, bufs = trainer.fed_cfg.num_clients, trainer.engine.buffers
+    outs = trainer.outcomes
+    for out in outs:
+        got = dict(out.quarantined)
+        print(f"  [faults] {name} round {out.round_id}: delivered "
+              f"{out.client_ids}, quarantined or dropped {out.quarantined}, "
+              f"retries {out.retries}", flush=True)
+        ok = (got.keys() == want.keys()
+              and all(got[c] in want[c] for c in got)
+              and out.client_ids == [c for c in range(k) if c not in want])
+        if name == "fedex+faults":
+            ok = ok and out.retries == 2
+        if not ok:
+            raise AssertionError(f"{name}: round {out.round_id}'s outcome "
+                                 f"is not the plan's")
+    buckets = {d: sorted({e.client_id for e in trainer.ledger.entries
+                          if e.direction == d and e.client_id in want})
+               for d in ("quarantined", "dropped")}
+    print(f"  [faults] {name}: ring drops duplicate {bufs.duplicate_drops}, "
+          f"replay {bufs.replay_drops}, stale {bufs.stale_drops}; ledger "
+          f"buckets of the faulted clients {buckets}; {unread} lanes opened "
+          "and never written, each still all NaN at its close", flush=True)
+    dups = len(outs) if name == "fedex+faults" else 0
+    if bufs.duplicate_drops != dups or unread != len(outs) * len(want):
+        raise AssertionError(f"{name}: {bufs.duplicate_drops} duplicate "
+                             f"drops (want {dups}), {unread} unwritten lanes")
+
+
+def twin_leaves(trainer):
+    """What a crash twin must reproduce bit for bit: the global adapter and
+    the adapted W0 leaves, or (keep_local, hetero) each delivered client's
+    own base and adapter."""
+    keys = [s.key for s in trainer.engine.specs]
+    out = {f"global {p}": x for p, x in _flat(trainer.global_lora).items()}
+    if trainer.client_params is None:
+        out.update({f"W0 {k}": _node(trainer.params, k)["kernel"]
+                    for k in keys})
+        return out
+    for c in trainer.outcomes[-1].client_ids:
+        out.update({f"client {c} W0 {k}": _node(trainer.client_params[c],
+                                                k)["kernel"] for k in keys})
+        out.update({f"client {c} lora {p}": x for p, x in
+                    _flat(trainer._client_lora[c]).items()})
+    return out
+
+
+def ring_snapshot_phase(torch, device, cfg):
+    """``ring-snapshot``: a chunked fedex ring at ``cfg``'s adapter shapes
+    (drawn adapters, no training): 6 lanes in chunks of 2, raw weights 30,
+    50, …, 130. A twin written 3 of 6 uplinks (chunk 0 folded at ingest
+    through B2 and B5, chunk 1 half written) is snapshotted through
+    ``repro_torch.checkpoint`` to disk, loaded into a fresh engine and
+    finished; its close must equal the uninterrupted one bit for bit.
+    Returns the snapshot's stats and the launches to expect."""
+    import tempfile
+
+    from repro_torch.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.core.engine import RoundCloseEngine
+
+    c, chunk, r, written = 6, 2, 4, 3
+    raw_w = [30.0, 50.0, 70.0, 90.0, 110.0, 130.0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(23)
+
+    def randn(*shape, std):
+        return torch.empty(shape, device=device).normal_(0.0, std,
+                                                         generator=gen)
+
+    leaves = main_path_leaves(cfg)
+    w0 = {k: randn(L, m, n, std=0.02) for k, L, m, n in leaves}
+    loras = [{k: {"a": randn(L, m, r, std=0.02), "b": randn(L, r, n,
+                                                          std=0.01)}
+              for k, L, m, n in leaves} for _ in range(c)]
+
+    def base():  # the kernel close folds into W0 in place
+        return {k: {"kernel": x.clone()} for k, x in w0.items()}
+
+    def make():
+        eng = RoundCloseEngine({k: {"kernel": x} for k, x in w0.items()},
+                               loras[0], c_max=c, scale=2.0, chunk=chunk)
+        eng.buffers.begin_round({i: i for i in range(c)}, round_id=0)
+        return eng
+
+    def write(eng, i):
+        eng.buffers.write(i, loras[i], round_id=0, weight=raw_w[i])
+
+    whole, crashed = make(), make()
+    for i in range(c):
+        write(whole, i)
+        if i < written:
+            write(crashed, i)
+    torch.cuda.synchronize()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        path = str(Path(tmp) / "ring.npz")
+        t = time.perf_counter()
+        meta, arrays = crashed.buffers.state_dict()
+        save_checkpoint(path, {"ring": arrays}, meta)
+        save_s = time.perf_counter() - t
+        nbytes = Path(path).stat().st_size
+        del crashed, arrays
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        tree, meta = load_checkpoint(path, device)
+        resumed = make()
+        resumed.buffers.load_state(meta, _flat(tree["ring"]))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        del tree
+    for i in range(written, c):
+        write(resumed, i)
+    outs = []
+    for eng in (whole, resumed):
+        glob, params, div = eng.close(base(), list(range(c)), raw_w)
+        outs.append(({**{f"global {p}": x for p, x in _flat(glob).items()},
+                      **{f"W0 {p}": x for p, x in _flat(params).items()}},
+                     div.resolve()))
+    (want, want_div), (got, got_div) = outs
+    same = (want.keys() == got.keys() and got_div == want_div
+            and all(torch.equal(want[k], got[k]) for k in want))
+    entry = meta["open"][0]
+    print(f"  [resume] ring-snapshot ({c} lanes of {cfg.name}'s 4 adapted "
+          f"leaves, chunks of {chunk}, raw weights): snapshot after "
+          f"{written} writes (next chunk {entry['next_chunk']}, chunk 1 "
+          f"filled {entry['filled'][1]} of {chunk}, accumulators "
+          f"{len(entry['acc_keys'])}): {nbytes} B on disk, save "
+          f"{save_s:.3f} s (device → host → disk), load {load_s:.3f} s "
+          f"(disk → device); the resumed close == the uninterrupted one "
+          f"bitwise (global adapter, W0, divergence {got_div:.6e}): {same}",
+          flush=True)
+    if not (same and entry["next_chunk"] == 1 and entry["acc_keys"]):
+        raise AssertionError("ring-snapshot: the resumed close differs")
+    # chunk folds: 3 uninterrupted, 1 before the snapshot, 2 after it; one
+    # grouped factor_mean and a product_accum a leaf each
+    folds = 3 + 1 + 2
+    stats = {"snapshot_bytes": nbytes, "save_s": save_s, "load_s": load_s}
+    return stats, {"factor_mean": folds,
+                   "product_accum": folds * len(leaves)}
+
+
+def gpt2_resume_phase(torch, device, gcfg, *, batch=8, seq=64,
+                      data_vocab=512):
+    """``gpt2-resume``: fedex at ``gcfg``'s full width, 3 clients, 2 local
+    steps, 3 rounds at 50% participation, example weights, a cosine
+    schedule and the plan ``nan@1(clients=1,rounds=1)``. A run killed after
+    round 1 (its snapshot on disk) and resumed in a fresh trainer must equal
+    the uninterrupted run bit for bit: history, params, global adapter, the
+    same quarantine replayed. Returns the snapshot's stats and the launches
+    to expect."""
+    import tempfile
+
+    from repro_torch.checkpoint import round_state_path
+    from repro_torch.configs import FedConfig, LoRAConfig, TrainConfig
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.launch.train import build_federated_data
+    from repro_torch.models import build_model
+
+    rounds, local_steps = 3, 2
+
+    def make(checkpoint_dir=""):
+        loaders, evals = build_federated_data(
+            data_vocab, 3, seq_len=seq, batch_size=batch, device=device)
+        return FederatedTrainer(
+            model=build_model(gcfg), lora_cfg=LoRAConfig(rank=4, alpha=8.0),
+            fed_cfg=FedConfig(num_clients=3, rounds=rounds,
+                              local_steps=local_steps, participation=0.5,
+                              weighting="examples",
+                              faults="nan@1(clients=1,rounds=1)",
+                              checkpoint_dir=checkpoint_dir),
+            train_cfg=TrainConfig(learning_rate=5e-3, schedule="cosine",
+                                  total_steps=rounds * local_steps),
+            client_loaders=loaders, eval_batches=evals, seed=0, device=device)
+
+    def closes(trainer):
+        return sum(bool(o.delivered) and not o.degraded
+                   for o in trainer.outcomes)
+
+    t = time.perf_counter()
+    full = make()
+    full.run()
+    full_s = time.perf_counter() - t
+    want = {**{f"params {p}": x for p, x in _flat(full.params).items()},
+            **{f"global {p}": x for p, x in _flat(full.global_lora).items()}}
+    history, quarantined = full.history, full.outcomes[1].quarantined
+    n_closes = closes(full)
+    del full
+    gc.collect()
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        killed = make(tmp)
+        save_s = []
+        save = killed.save_state
+
+        def timed_save(path):
+            t = time.perf_counter()
+            save(path)
+            save_s.append(time.perf_counter() - t)
+
+        killed.save_state = timed_save
+        killed.run(until=1)
+        n_closes += closes(killed)
+        nbytes = Path(round_state_path(tmp)).stat().st_size
+        del killed
+        gc.collect()
+        resumed = make(tmp)
+        t = time.perf_counter()
+        resumed.load_state(round_state_path(tmp))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+        resumed.run()
+    got = {**{f"params {p}": x for p, x in _flat(resumed.params).items()},
+           **{f"global {p}": x for p, x in _flat(resumed.global_lora).items()}}
+    n_closes += closes(resumed)
+    same = (resumed.history == history and want.keys() == got.keys()
+            and all(torch.equal(want[k], got[k]) for k in want))
+    replayed = resumed.outcomes[0].quarantined
+    print(f"  [resume] gpt2-resume ({gcfg.name}, {rounds} rounds at 50%, "
+          f"example weights, cosine; uninterrupted {full_s:.1f} s): killed "
+          f"after round 1, snapshot {nbytes} B on disk, save "
+          f"{save_s[0]:.3f} s, load {load_s:.3f} s; round 1's quarantine "
+          f"{quarantined} replayed as {replayed}; history, params and "
+          f"global adapter ({len(want)} leaves) == the uninterrupted run's "
+          f"bitwise: {same}", flush=True)
+    if not (same and quarantined == replayed == [(1, "nonfinite")]):
+        raise AssertionError("gpt2-resume: the resumed run differs")
+    del resumed, want, got
+    stats = {"snapshot_bytes": nbytes, "save_s": save_s[0], "load_s": load_s,
+             "uninterrupted_s": full_s}
+    return stats, {"fedex_fold": 4 * n_closes, "factor_mean": n_closes}
 
 
 def _stacks(torch, outcome, key):
@@ -1851,21 +2160,24 @@ def identity_keep_local(torch, trainer, outcome, old, keys):
 
 
 def identity_hetero(torch, trainer, outcome, old, keys):
-    """For each lane i: new_W0ᵢ + s·a′ᵢb′ᵢ = old_W0ᵢ + s·Σ_j w_j (a_j∘mask_j)
-    b_j, with a′ᵢ, b′ᵢ client i's new rank-rᵢ adapters."""
+    """For each delivered lane i: new_W0ᵢ + s·a′ᵢb′ᵢ = old_W0ᵢ + s·Σ_j w_j
+    (a_j∘mask_j) b_j over the delivered j, with a′ᵢ, b′ᵢ client i's new
+    rank-rᵢ adapters."""
     from repro_torch.kernels import hetero_error_bound
     s, w, worst = trainer.scale, _weights(torch, trainer, outcome), 0.0
-    ranks = torch.tensor(trainer.client_ranks, dtype=torch.int32,
-                         device=trainer.device)
+    ids = outcome.client_ids
+    ranks = [trainer.client_ranks[c] for c in ids]
     for key in keys:
         a, b = _stacks(torch, outcome, key)  # padded to r_max
         ideal = torch.zeros_like(old[0][key])
-        for j, k in enumerate(trainer.client_ranks):
+        for j, k in enumerate(ranks):
             ideal += w[j] * torch.matmul(a[j][..., :k], b[j][..., :k, :])
         g = _node(trainer.global_lora, key)
-        bounds = hetero_error_bound([o[key] for o in old], a, b, w, ranks,
-                                    g["a"], g["b"], s)
-        for c in outcome.client_ids:
+        bounds = hetero_error_bound(
+            [old[c][key] for c in ids], a, b, w,
+            torch.tensor(ranks, dtype=torch.int32, device=trainer.device),
+            g["a"], g["b"], s)
+        for j, c in enumerate(ids):
             mine = _node(trainer._client_lora[c], key)
             if mine["a"].shape[-1] != trainer.client_ranks[c]:
                 raise AssertionError("hetero: client adapters of the wrong "
@@ -1874,7 +2186,7 @@ def identity_hetero(torch, trainer, outcome, old, keys):
             lhs = w0_new + s * torch.matmul(mine["a"], mine["b"])
             worst = max(worst, _report(
                 "hetero", f"{key} client {c}", lhs, old[c][key] + s * ideal,
-                bounds[c], float((w0_new - old[c][key]).abs().max())))
+                bounds[j], float((w0_new - old[c][key]).abs().max())))
         del ideal, bounds
     return worst
 
@@ -2086,13 +2398,111 @@ IDENTITIES = {"fedex": identity_fedex, "reinit": identity_reinit,
               "centralized": identity_centralized,
               "fedex+dp": identity_fedex, "fedex[eager]": identity_fedex,
               "gpt2-fedex": identity_fedex,
-              **{name: identity_fedex for name in TRANSPORT_PATHS}}
+              **{name: identity_fedex for name in TRANSPORT_PATHS},
+              **{name: identity_hetero if name.startswith("hetero")
+                 else identity_fedex for name in FAULTED}}
 
 
 def _node(tree, key):
     for part in key.split("/"):
         tree = tree[part]
     return tree
+
+
+def check_launches(kernels, name, want, note=""):
+    """The launch counts since the last reset against ``want`` (0 for every
+    kernel it leaves out); raises on a difference, returns the counts."""
+    counts = kernels.launch_counts()
+    expected = {k: 0 for k in SOURCES}
+    expected.update(want)
+    print(f"  [{name}] launches {counts} (expected {expected}){note}",
+          flush=True)
+    if counts != expected:
+        raise AssertionError(f"{name}: kernel launches {counts} != "
+                             f"{expected}")
+    return counts
+
+
+def train_paths(torch, kernels, device, cfg, gcfg, names):
+    """Phase 4's training paths ``names`` (of ``PATHS``), one after another,
+    each with the launch counters set to 0 just before it and read just
+    after, its trainer freed after it; a faulty path's leaves are kept for
+    its crash twin (``FAULT_TWINS``), which must equal them bit for bit.
+    Returns (launches, rows, identity errors, peaks)."""
+    launches = {name: 0 for name in SOURCES}
+    all_rows, identities, peaks, kept = [], {}, {}, {}
+    for name in names:
+        *_, per_leaf, per_close = PATHS[name]
+        pcfg = gcfg if name in GPT2_PATHS else cfg
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        trainer, rows, closes, identity = drive_path(torch, device, pcfg,
+                                                     name)
+        n_leaves = len(main_path_leaves(pcfg))
+        want = {k: v * n_leaves * closes for k, v in per_leaf.items()}
+        want.update({k: v * closes for k, v in per_close.items()})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        counts = check_launches(kernels, name, want,
+                                f" for {closes} kernel closes; peak memory "
+                                f"{peak:.1f} GiB")
+        values = [v for row in rows for v in
+                  (row["eval_loss"], row["divergence"],
+                   *row["client_losses"])]
+        if not all(math.isfinite(v) for v in values):
+            raise AssertionError(f"{name}: non-finite losses or divergence: "
+                                 f"{rows}")
+        for k, v in counts.items():
+            launches[k] += v
+        for row in rows:
+            row["peak_gib"] = peak
+        peaks[name] = rows[-1]["run_peak_gib"]
+        all_rows += rows
+        identities[name] = identity
+        if name in FAULT_TWINS:  # keep the leaves, free the trainer
+            kept[name] = twin_leaves(trainer)
+        faulty = next((f for f, t in FAULT_TWINS.items() if t == name), None)
+        if faulty is not None:
+            want, got = kept.pop(faulty), twin_leaves(trainer)
+            same = want.keys() == got.keys() and all(
+                torch.equal(want[k], got[k]) for k in want)
+            what = ("the global adapter and W0" if trainer.client_params is
+                    None else "the global adapter and the bases and adapters "
+                    f"of clients {trainer.outcomes[-1].client_ids}")
+            print(f"  [faults] {faulty} == {name} bitwise over {len(want)} "
+                  f"leaves ({what}): {same}", flush=True)
+            if not same:
+                raise AssertionError(f"{faulty} differs from its crash twin")
+            del want, got
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, all_rows, identities, peaks
+
+
+def resume_paths(torch, kernels, device, cfg, gcfg):
+    """Phase 4's resume paths: ``ring-snapshot`` at ``cfg``'s adapter
+    shapes, ``gpt2-resume`` at ``gcfg``'s width, each with the launch
+    counters set to 0 just before it and read just after. Returns
+    (launches, stats)."""
+    launches = {name: 0 for name in SOURCES}
+    resume = {}
+    for name, phase, pcfg in (("ring-snapshot", ring_snapshot_phase, cfg),
+                              ("gpt2-resume", gpt2_resume_phase, gcfg)):
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        stats, want = phase(torch, device, pcfg)
+        stats.update(seconds=time.perf_counter() - t,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+        counts = check_launches(kernels, name, want,
+                                f"; {stats['seconds']:.1f} s, peak memory "
+                                f"{stats['peak_gib']:.1f} GiB")
+        for k, v in counts.items():
+            launches[k] += v
+        resume[name] = stats
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, resume
 
 
 # --------------------------------------------------------------------------
@@ -2617,44 +3027,11 @@ def main() -> int:
           f"{cfg.vocab_size}, {cfg.dtype}); {', '.join(GPT2_PATHS)} at "
           f"{gcfg.name} ({gcfg.num_layers} layers, d={gcfg.d_model}, vocab "
           f"{gcfg.vocab_size})", flush=True)
-    launches = {name: 0 for name in SOURCES}
-    all_rows, identities, peaks = [], {}, {}
-    for name, (*_, per_leaf, per_close) in PATHS.items():
-        pcfg = gcfg if name in GPT2_PATHS else cfg
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        trainer, rows, closes, identity = drive_path(torch, device, pcfg,
-                                                     name)
-        counts = kernels.launch_counts()
-        n_leaves = len(main_path_leaves(pcfg))
-        expected = {k: 0 for k in SOURCES}
-        expected.update({k: v * n_leaves * closes
-                         for k, v in per_leaf.items()})
-        expected.update({k: v * closes for k, v in per_close.items()})
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        print(f"  [{name}] launches {counts} (expected {expected} for "
-              f"{closes} kernel closes); peak memory {peak:.1f} GiB",
-              flush=True)
-        if counts != expected:
-            raise AssertionError(f"{name}: kernel launches {counts} != "
-                                 f"{expected}")
-        values = [v for row in rows for v in
-                  (row["eval_loss"], row["divergence"],
-                   *row["client_losses"])]
-        if not all(math.isfinite(v) for v in values):
-            raise AssertionError(f"{name}: non-finite losses or divergence: "
-                                 f"{rows}")
-        for k, v in counts.items():
-            launches[k] += v
-        for row in rows:
-            row["peak_gib"] = peak
-        peaks[name] = rows[-1]["run_peak_gib"]
-        all_rows += rows
-        identities[name] = identity
-        del trainer
-        gc.collect()
-        torch.cuda.empty_cache()
-
+    launches, all_rows, identities, peaks = train_paths(
+        torch, kernels, device, cfg, gcfg, PATHS)
+    resume_launches, resume = resume_paths(torch, kernels, device, cfg, gcfg)
+    for k, v in resume_launches.items():
+        launches[k] += v
     acc_gib = sum(4 * L * m * n for _, L, m, n in main_path_leaves(cfg)
                   ) / 2 ** 30
     print("  peak memory of training and closes (the snapshots for the "
@@ -2730,7 +3107,8 @@ def main() -> int:
         "C64r8_library_ms": lib_ms, "C64r8_bound_ms": bms,
         "C64r8_bound_by": by})
     print(f"[6/6] done in {time.perf_counter() - t_start:.1f} s; identity max "
-          f"err per path {json.dumps(identities)}; serving "
+          f"err per path {json.dumps(identities)}; resume "
+          f"{json.dumps(resume)}; serving "
           f"{json.dumps(serve_stats)}; rounds "
           + json.dumps([{k: v for k, v in row.items()
                          if k != "client_losses"} for row in all_rows]),

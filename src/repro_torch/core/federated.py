@@ -46,9 +46,10 @@ corrupts, drops, duplicates or delays uplinks between encode and delivery,
 and the close runs over the clients that delivered. Hetero and centralized
 rounds never run through the coordinator, as the reference's do not, so the
 coordinator's settings are refused under them; under a fault plan a hetero
-round's uplinks cross its defended path all the same. keep_local and hetero keep one base per client; under the
-engine each has its own copy of the adapted W0 leaves, because the kernel
-closes fold in place (the eager closes make new tensors).
+round's uplinks cross its defended path all the same. keep_local and
+hetero keep one base per client; under the engine each has its own copy of
+the adapted W0 leaves, because the kernel closes fold in place (the eager
+closes make new tensors).
 
 The engine close returns its divergence as a device scalar, resolved at the
 next round boundary, so the close runs on the device while the next
@@ -60,10 +61,11 @@ With ``checkpoint_dir`` the trainer snapshots its round state every
 :meth:`~FederatedTrainer.load_state`s the snapshot runs the remaining rounds
 bitwise as the uninterrupted run. Every draw keys off ``(seed, round[,
 client])`` (reinit's and DP's generators, the coordinator's and the fault
-plan's numpy streams), so no generator state is saved. The trainer takes optional initial ``params`` /
-``global_lora`` trees and per-client ``client_loras`` (the parity tests
-hand it the reference's draws); without them it draws its own on its
-device.
+plan's numpy streams), so no generator state is saved.
+
+The trainer takes optional initial ``params`` / ``global_lora`` trees and
+per-client ``client_loras`` (the parity tests hand it the reference's
+draws); without them it draws its own on its device.
 """
 
 from __future__ import annotations
