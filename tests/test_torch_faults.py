@@ -577,3 +577,13 @@ def test_faults_refused_where_uploads_never_cross_the_uplink():
                                **kw), clients=2)
     with pytest.raises(NotImplementedError, match="obs"):
         _trainer(FedConfig(num_clients=2, rounds=1, obs="basic"), clients=2)
+
+
+def test_hetero_round_with_no_delivery_raises_as_the_reference():
+    """A hetero round whose every uplink is quarantined has nothing to
+    close; the reference's engine raises, and so does the port's."""
+    tr = _trainer(FedConfig(num_clients=2, rounds=1, local_steps=1,
+                            method="hetero", client_ranks=(4, 2),
+                            faults="nan@1"), clients=2)
+    with pytest.raises(ValueError, match="no deliveries"):
+        tr.run()
