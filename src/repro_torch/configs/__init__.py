@@ -9,7 +9,7 @@ variant), with the reference's dataclasses copied in
 
 from repro_torch.configs import paper_models, qwen2_5_3b
 from repro_torch.configs.base import (FedConfig, LoRAConfig, ModelConfig,
-                                      TrainConfig, config_dict,
+                                      ServeConfig, TrainConfig, config_dict,
                                       validate_fed_lora)
 
 CONFIGS = {
@@ -35,5 +35,6 @@ def list_configs():
     return sorted(CONFIGS)
 
 
-__all__ = ["CONFIGS", "FedConfig", "LoRAConfig", "ModelConfig", "TrainConfig",
-           "config_dict", "get_config", "list_configs", "validate_fed_lora"]
+__all__ = ["CONFIGS", "FedConfig", "LoRAConfig", "ModelConfig", "ServeConfig",
+           "TrainConfig", "config_dict", "get_config", "list_configs",
+           "validate_fed_lora"]

@@ -4,9 +4,9 @@ The port's own copy of ``repro/configs/base.py`` (the port imports nothing of
 the JAX package): the same fields, defaults and validation, so a config built
 here reads exactly like the reference's. The port runs only the dense
 branch of :class:`ModelConfig` so far; ``build_model`` raises
-``NotImplementedError`` for any other branch. Federation features the port
-has not taken up yet (obs) are rejected by the trainer, not here, so the
-dataclass stays a faithful copy.
+``NotImplementedError`` for any other branch. :class:`ServeConfig` holds
+the HTTP federation service's socket settings
+(:mod:`repro_torch.fedsrv.server`).
 """
 
 from __future__ import annotations
@@ -221,8 +221,7 @@ class FedConfig:
     # fits in one chunk still takes the stacked close, preserving the
     # stacked path's bitwise contract for small rounds.
     close_chunk: int = 0
-    # observability mode (the reference's repro.obs; the port accepts only
-    # "off" so far): "off" → shared zero-overhead no-op
+    # observability mode (repro_torch.obs): "off" → shared zero-overhead no-op
     # recorder, "basic" → metrics + per-round records, "trace" → spans too
     # (Chrome trace-event export). The launcher's --trace/--metrics-out
     # flags imply trace/basic respectively.
@@ -304,6 +303,35 @@ class FedConfig:
             # here: the configs import nothing of fedsrv at module level)
             from repro_torch.fedsrv.faults import FaultPlan
             FaultPlan.parse(self.faults, seed=self.seed)
+
+
+@dataclass(frozen=True)
+class ServeConfig:
+    """The HTTP federation service's socket surface
+    (:mod:`repro_torch.fedsrv.server`). Everything federation-semantic
+    (clients, rounds, quorum, deadline, weighting, codec, engine) stays in
+    :class:`FedConfig`, so a served deployment and an in-process run are
+    configured by the same dataclass and close identically."""
+
+    host: str = "127.0.0.1"
+    port: int = 8077  # 0 → ephemeral (the bound port is reported)
+    # concurrent uplink decodes admitted; more POSTs get 429 + Retry-After
+    max_concurrent: int = 16
+    # POSTs a (client, round) may make before 429 (quota)
+    quota_per_round: int = 4
+    # shared bearer token: "" disables auth; otherwise every POST carries
+    # "Authorization: Bearer <token>"
+    token: str = ""
+
+    def __post_init__(self):
+        if not 0 <= self.port <= 65535:
+            raise ValueError(f"port must be in [0, 65535], got {self.port}")
+        if self.max_concurrent < 1:
+            raise ValueError(
+                f"max_concurrent must be ≥ 1, got {self.max_concurrent}")
+        if self.quota_per_round < 1:
+            raise ValueError(
+                f"quota_per_round must be ≥ 1, got {self.quota_per_round}")
 
 
 def validate_fed_lora(fed: "FedConfig", lora: "LoRAConfig") -> None:

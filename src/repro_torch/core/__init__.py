@@ -19,13 +19,15 @@ from repro_torch.core.engine import (DeferredDivergence, RoundBuffers,
                                      RoundCloseEngine, make_close_fn)
 from repro_torch.core.federated import (FederatedTrainer, make_eval_fn,
                                         make_local_step)
-from repro_torch.core.lora import init_lora, merge_lora, resolve_targets
+from repro_torch.core.lora import (init_global_state, init_lora, merge_lora,
+                                   resolve_targets)
 
 __all__ = ["DeferredDivergence", "FederatedTrainer", "RoundBuffers",
            "RoundCloseEngine", "apply_residual", "assign_after_aggregation",
            "deviation_tree", "factored_residual_params", "fedex_aggregate",
            "fedex_residual", "fedex_svd_aggregate", "fedit_aggregate",
-           "ffa_aggregate", "flatten_deviations", "init_lora",
+           "ffa_aggregate", "flatten_deviations", "init_global_state",
+           "init_lora",
            "make_close_fn", "make_eval_fn", "make_local_step", "map_factors",
            "mean_deviation", "merge_lora", "normalize_weights",
            "per_client_residuals", "product_mean", "reconstruct",

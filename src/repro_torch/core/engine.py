@@ -43,11 +43,34 @@ closes write the fold into W0's own storage instead, so a caller must treat
 the ``params`` it passes to :meth:`RoundCloseEngine.close` (and the bases of
 the delivered clients it passes to ``close_keep_local`` / ``close_hetero``)
 as consumed: clients must not share W0 leaves.
+
+Observability (``recorder``, :mod:`repro_torch.obs`): the close's host
+launches are the ``close.dispatch`` span (``close_dispatch_us``), the wait
+for the device is the ``divergence.resolve`` span in
+:meth:`DeferredDivergence.resolve` (``close_block_us``), and the ring
+records its begin / write / take / evict, its drops and the chunked ring's
+partial folds. ``peak_bytes`` is the reference's analytic model of a
+close's live device bytes (inputs, outputs and materialised intermediates),
+the same formula on every backend. The reference also counts its
+compiled-program cache (``engine.compile_*``, ``close.compile_evicted``,
+``engine.compile_cache_size`` and the rounds' ``compile_miss``); the port
+compiles no close program, so these have no counterpart here. Nothing
+recorded waits for the device: the close makes no host sync with obs on or
+off.
+
+The ring is locked (an ``RLock``): the HTTP service
+(:mod:`repro_torch.fedsrv.server`) decodes uplinks on its handler threads,
+so a write races ``begin_round`` / ``evict`` / ``take``; decode and
+validation stay parallel, and only the lane copy and the round bookkeeping
+serialise.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import threading
+import time
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -61,6 +84,7 @@ from repro_torch.kernels import (factor_mean_group, factor_mean_plain,
                                  perclient_fold_plain, product_accum,
                                  product_accum_plain, product_fold,
                                  product_fold_plain)
+from repro_torch.obs import NULL
 from repro_torch.util.tree import flatten_with_paths, unflatten_from_paths
 
 Params = Dict[str, Any]
@@ -72,14 +96,17 @@ ENGINE_METHODS = ("fedex", "fedex_svd", "reinit", "keep_local", "hetero")
 
 class DeferredDivergence:
     """§6 divergence as a device scalar with the host sync deferred to
-    :meth:`resolve` (or ``float()``), which caches the value."""
+    :meth:`resolve` (or ``float()``), which caches the value. With a live
+    ``recorder`` the resolution is the ``divergence.resolve`` span: the
+    close's wait for the device (``close_block_us``)."""
 
-    __slots__ = ("_raw", "_value", "round_id")
+    __slots__ = ("_raw", "_value", "round_id", "_recorder")
 
-    def __init__(self, raw: torch.Tensor, round_id=None):
+    def __init__(self, raw: torch.Tensor, round_id=None, recorder=None):
         self._raw = raw
         self._value: Optional[float] = None
         self.round_id = round_id
+        self._recorder = recorder
 
     @property
     def resolved(self) -> bool:
@@ -88,7 +115,20 @@ class DeferredDivergence:
     def resolve(self) -> float:
         """Block on the device value (the only host sync) and cache it."""
         if self._value is None:
-            self._value = float(self._raw)
+            rec = self._recorder
+            if rec is not None and rec.enabled:
+                t0 = time.perf_counter_ns()
+                with rec.span("divergence.resolve", cat="engine",
+                              round=self.round_id):
+                    self._value = float(self._raw)
+                block_us = (time.perf_counter_ns() - t0) / 1e3
+                rec.hist("engine.close_block_us").observe(block_us)
+                if self.round_id is not None:
+                    rec.round_set(self.round_id,
+                                  close_block_us=round(block_us, 1),
+                                  divergence=self._value)
+            else:
+                self._value = float(self._raw)
             self._raw = None  # drop the device reference
         return self._value
 
@@ -180,6 +220,17 @@ def fold_back_w0(specs: Sequence[FactorSpec], params: Params,
 # streaming round buffers (depth-2 ring)
 # --------------------------------------------------------------------------
 
+def _ring_locked(fn):
+    """Serialise a :class:`RoundBuffers` method on the ring's ``RLock``
+    (re-entrant: ``begin_round`` evicts under its own lock, and a chunk
+    fold reads the ring back)."""
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        with self._ring_lock:
+            return fn(self, *args, **kwargs)
+    return wrapper
+
+
 class RoundBuffers:
     """Preallocated ``(C_max, …)`` f32 device stacks, one per adapter leaf,
     written lane by lane, in a ring of at most ``depth`` open rounds.
@@ -221,7 +272,7 @@ class RoundBuffers:
 
     def __init__(self, lora_template: Params, c_max: int, depth: int = 2,
                  device: Optional[torch.device] = None, *, chunk: int = 0,
-                 on_chunk=None, retain_chunks: bool = False):
+                 on_chunk=None, retain_chunks: bool = False, recorder=None):
         if c_max < 1:
             raise ValueError("c_max must be ≥ 1")
         if depth < 1:
@@ -254,6 +305,8 @@ class RoundBuffers:
         self.replay_drops = 0     # writes for a closed round
         self.duplicate_drops = 0  # second write of a (client, round) lane
         self._auto = 0
+        self.rec = recorder if recorder is not None else NULL
+        self._ring_lock = threading.RLock()
 
     def _alloc(self, lanes: int) -> Dict[str, torch.Tensor]:
         return {p: torch.zeros((lanes,) + s, dtype=torch.float32,
@@ -271,6 +324,7 @@ class RoundBuffers:
                            f"(open: {list(self._open)})")
         return round_id, self._open[round_id]
 
+    @_ring_locked
     def begin_round(self, slots: Dict[int, int], round_id=None, *,
                     deadline: Optional[float] = None,
                     now: Optional[float] = None):
@@ -318,11 +372,16 @@ class RoundBuffers:
                          w=np.zeros(nslots, np.float32),
                          ranks=np.full(nslots, -1, np.int32), next_chunk=0,
                          num_chunks=num_chunks, expected=expected,
-                         filled=[0] * num_chunks)
+                         filled=[0] * num_chunks, eager_folds=0)
         else:
             entry.update(stacks=self._alloc(self.c_max),
                          ranks=np.full(self.c_max, -1, np.int32))
         self._open[round_id] = entry
+        if self.rec.enabled:
+            self.rec.event("ring.begin", cat="ring", round=round_id,
+                           lanes=len(slots), deadline=deadline,
+                           chunked=chunked)
+            self.rec.gauge("ring.occupancy").set(len(self._open))
         return round_id
 
     @staticmethod
@@ -331,6 +390,7 @@ class RoundBuffers:
         while len(memory) > RING_MEMORY:
             memory.popitem(last=False)
 
+    @_ring_locked
     def evict(self, round_id, reason: str = "explicit") -> Dict[int, int]:
         """Drop an open round without closing it (its stacks are
         discarded, and a late uplink for it is dropped); returns its
@@ -339,12 +399,33 @@ class RoundBuffers:
         del self._open[rid]
         self._remember(self._evicted, rid, reason)
         self.evictions += 1
+        if self.rec.enabled:
+            self.rec.counter("ring.evictions").inc()
+            self.rec.event("ring.evict", cat="ring", round=rid, reason=reason,
+                           delivered=len(e["written"]), lanes=len(e["slots"]))
+            self.rec.gauge("ring.occupancy").set(len(self._open))
         return dict(e["written"])
 
-    def _close(self, rid) -> Dict[str, Any]:
+    def _close(self, rid, **args) -> Dict[str, Any]:
         self._remember(self._closed, rid, True)
-        return self._open.pop(rid)
+        e = self._open.pop(rid)
+        if self.rec.enabled:
+            self.rec.event("ring.take", cat="ring", round=rid,
+                           delivered=len(e["written"]), lanes=len(e["slots"]),
+                           **args)
+            self.rec.gauge("ring.occupancy").set(len(self._open))
+        return e
 
+    def _drop(self, kind: str, round_id, client_id: int) -> bool:
+        """Count (and record) a refused write; returns ``False``."""
+        setattr(self, kind + "_drops", getattr(self, kind + "_drops") + 1)
+        if self.rec.enabled:
+            self.rec.counter(f"ring.{kind}_drops").inc()
+            self.rec.event(f"ring.{kind}_drop", cat="ring", round=round_id,
+                           client=client_id)
+        return False
+
+    @_ring_locked
     def write_flat(self, client_id: int, flat: Dict[str, torch.Tensor],
                    round_id=None, *, weight: Optional[float] = None,
                    rank: Optional[int] = None) -> bool:
@@ -370,18 +451,15 @@ class RoundBuffers:
                                f"round (open: {list(self._open)})")
         if round_id not in self._open:
             if round_id in self._evicted:
-                self.stale_drops += 1
-                return False
+                return self._drop("stale", round_id, client_id)
             if round_id in self._closed:
-                self.replay_drops += 1
-                return False
+                return self._drop("replay", round_id, client_id)
         rid, e = self._entry(round_id)
         if rank is not None and not 1 <= rank <= self.r_max:
             raise ValueError(f"uplink rank {rank} outside "
                              f"[1, r_max={self.r_max}]")
         if client_id in e["written"]:
-            self.duplicate_drops += 1
-            return False
+            return self._drop("duplicate", round_id, client_id)
         if flat.keys() != self._shapes.keys():
             raise ValueError(
                 f"uplink tree mismatch (missing="
@@ -392,18 +470,22 @@ class RoundBuffers:
                 raise ValueError(f"{p}: shape {tuple(flat[p].shape)} != "
                                  f"template {shape}")
         slot = e["slots"][client_id]
-        if e["chunked"]:
-            k, row = divmod(slot, self.chunk)
-            if k not in e["chunks"]:
-                e["chunks"][k] = self._alloc(self.chunk)
-            stacks = e["chunks"][k]
-            e["w"][slot] = 1.0 if weight is None else weight
-            e["filled"][k] += 1
-        else:
-            stacks, row = e["stacks"], slot
-        with torch.no_grad():
-            for p in self._shapes:
-                stacks[p][row].copy_(flat[p])
+        # the overlap invariant's witness: round N+1's writes land inside
+        # round N's close window
+        with self.rec.span("ring.write", cat="ring", round=rid,
+                           client=client_id):
+            if e["chunked"]:
+                k, row = divmod(slot, self.chunk)
+                if k not in e["chunks"]:
+                    e["chunks"][k] = self._alloc(self.chunk)
+                stacks = e["chunks"][k]
+                e["w"][slot] = 1.0 if weight is None else weight
+                e["filled"][k] += 1
+            else:
+                stacks, row = e["stacks"], slot
+            with torch.no_grad():
+                for p in self._shapes:
+                    stacks[p][row].copy_(flat[p])
         e["written"][client_id] = slot
         if rank is not None:
             e["ranks"][slot] = rank
@@ -417,6 +499,7 @@ class RoundBuffers:
         return self.write_flat(client_id, flatten_with_paths(lora_tree),
                                round_id, weight=weight, rank=rank)
 
+    @_ring_locked
     def ranks_in(self, round_id=None) -> np.ndarray:
         """The round's (C_max,) per-slot rank vector (−1 = none declared)."""
         ranks = self._entry(round_id)[1]["ranks"]
@@ -425,6 +508,7 @@ class RoundBuffers:
         out[:n] = ranks[:n]
         return out
 
+    @_ring_locked
     def chunk_ranks(self, round_id, k: int) -> np.ndarray:
         """Chunk k's per-slot rank vector (−1 = full rank) of a chunked
         round: the hetero partial fold masks padded columns with it."""
@@ -448,30 +532,47 @@ class RoundBuffers:
             # weights fold as an exact no-op
             stacks = self._alloc(self.chunk)
         w = e["w"][k * self.chunk:(k + 1) * self.chunk].copy()
-        e["acc"] = self.on_chunk(e["acc"], stacks, w, rid, k)
+        t0 = time.perf_counter_ns()
+        # eager folds are the chunked ring's overlap witnesses; a close's
+        # flush of the trailing chunks has a span name of its own
+        span = "close.partial_fold" if eager else "close.chunk_flush"
+        with self.rec.span(span, cat="engine", round=rid, chunk=k):
+            e["acc"] = self.on_chunk(e["acc"], stacks, w, rid, k)
         if self.retain_chunks:
             e["retained"][k] = stacks
         e["next_chunk"] = k + 1
         if eager:
+            e["eager_folds"] += 1
             self.partial_folds += 1
+        if self.rec.enabled:
+            self.rec.hist("close.chunk_flush_us").observe(
+                (time.perf_counter_ns() - t0) / 1e3)
+            if eager:
+                self.rec.counter("close.partial_folds").inc()
 
+    @_ring_locked
     def is_chunked(self, round_id=None) -> bool:
         return bool(self._entry(round_id)[1]["chunked"])
 
     @property
+    @_ring_locked
     def open_rounds(self) -> List[Any]:
         return list(self._open)
 
+    @_ring_locked
     def delivered_in(self, round_id=None) -> Dict[int, int]:
         return dict(self._entry(round_id)[1]["written"])
 
+    @_ring_locked
     def lanes(self, round_id=None) -> Dict[int, int]:
         """client_id → lane for all of a round's candidates."""
         return dict(self._entry(round_id)[1]["slots"])
 
+    @_ring_locked
     def slot_of(self, client_id: int, round_id=None) -> int:
         return self._entry(round_id)[1]["slots"][client_id]
 
+    @_ring_locked
     def take(self, round_id=None) -> Dict[str, torch.Tensor]:
         """Pop the oldest (or named) open round and hand over its stacks."""
         rid, e = self._entry(round_id)
@@ -480,6 +581,7 @@ class RoundBuffers:
                                "via take_chunked()")
         return self._close(rid)["stacks"]
 
+    @_ring_locked
     def take_chunked(self, round_id=None) -> Tuple[Any, Dict[str, Any]]:
         """Fold the remaining chunks in slot order, pop the round and return
         ``(round_id, entry)``: the entry holds the accumulators (``acc``),
@@ -491,9 +593,11 @@ class RoundBuffers:
                                "take()")
         while e["next_chunk"] < e["num_chunks"]:
             self._fold_next(rid, e, eager=False)
-        return rid, self._close(rid)
+        return rid, self._close(rid, chunked=True,
+                                partial_folds=e["eager_folds"])
 
     # -- checkpoint / resume -----------------------------------------------
+    @_ring_locked
     def state_dict(self) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
         """``(meta, arrays)``: the ring's JSON-able bookkeeping (open
         rounds' slots, deliveries, deadlines and fold-cascade positions, the
@@ -526,6 +630,7 @@ class RoundBuffers:
                              num_chunks=e["num_chunks"],
                              expected=list(e["expected"]),
                              filled=list(e["filled"]),
+                             eager_folds=e["eager_folds"],
                              pending_chunks=sorted(e["chunks"]),
                              retained_chunks=sorted(e["retained"]),
                              acc_keys=sorted(e["acc"] or {}))
@@ -543,6 +648,7 @@ class RoundBuffers:
             meta["open"].append(entry)
         return meta, arrays
 
+    @_ring_locked
     def load_state(self, meta: Dict[str, Any], arrays: Dict[str, Any]
                    ) -> None:
         """Restore a :meth:`state_dict` snapshot (its arrays numpy or
@@ -579,7 +685,8 @@ class RoundBuffers:
                          next_chunk=int(entry["next_chunk"]),
                          num_chunks=int(entry["num_chunks"]),
                          expected=[int(x) for x in entry["expected"]],
-                         filled=[int(x) for x in entry["filled"]])
+                         filled=[int(x) for x in entry["filled"]],
+                         eager_folds=int(entry.get("eager_folds", 0)))
             else:
                 e["stacks"] = {p: dev(f"ring/{rid}/{p}")
                                for p in self._shapes}
@@ -1090,7 +1197,7 @@ class RoundCloseEngine:
                  c_max: int, scale: float, method: str = "fedex",
                  svd_rank: int = 0, backend: str = "auto", depth: int = 2,
                  client_ranks: Optional[Sequence[int]] = None,
-                 chunk: int = 0):
+                 chunk: int = 0, recorder=None):
         self.specs = build_factor_specs(params, lora_template)
         self.c_max = c_max
         if client_ranks is not None:
@@ -1112,17 +1219,127 @@ class RoundCloseEngine:
         self.device = device
         self.backend = _resolve_backend(backend, device)
         self.chunk = int(chunk)
+        self.rec = recorder if recorder is not None else NULL
+        # the analytic peak of each in-flight close's live device bytes
+        self._peak: Dict[Any, int] = {}
+        self.last_peak_bytes = 0
         # keep_local folds each lane's own base, and fedex_svd / hetero
         # stream the chunks' L / R blocks again: they retain the chunks
         self.buffers = RoundBuffers(
             lora_template, c_max, depth=depth, device=device,
             chunk=self.chunk,
             on_chunk=self._fold_chunk if self.chunk else None,
-            retain_chunks=method in ("keep_local", "fedex_svd", "hetero"))
+            retain_chunks=method in ("keep_local", "fedex_svd", "hetero"),
+            recorder=self.rec)
         self._lora_template = lora_template
         self._close = make_close_fn(self.specs, scale=scale, c_max=c_max,
                                     method=method, svd_rank=svd_rank,
                                     backend=self.backend)
+
+    # -- obs: the close's dispatch and its analytic peak ------------------
+    def _dispatch(self, w0_leaves, stacks, w, mask, uniform: bool, round_id,
+                  w0_bytes: int):
+        """Run the close under the ``close.dispatch`` span, which times the
+        host's launches only (the device wait is the divergence's
+        resolution), and stamp the round's close fields."""
+        self._note_peak(round_id, w0_bytes + self._stack_bytes(self.c_max)
+                        + self._div_temp_bytes(self.c_max))
+        rec = self.rec
+        if not rec.enabled:
+            return self._close(w0_leaves, stacks, self._device(w),
+                               self._device(mask), uniform=uniform)
+        t0 = time.perf_counter_ns()
+        with rec.span("close.dispatch", cat="engine", round=round_id,
+                      method=self.method, uniform=uniform):
+            out = self._close(w0_leaves, stacks, self._device(w),
+                              self._device(mask), uniform=uniform)
+        self._close_obs(round_id, t0)
+        return out
+
+    def _close_obs(self, round_id, t0: int, entry=None) -> None:
+        """The close's dispatch time and the ring's counts on its round
+        record (``entry``: a chunked round's, with its eager folds)."""
+        rec = self.rec
+        if not rec.enabled:
+            return
+        dispatch_us = (time.perf_counter_ns() - t0) / 1e3
+        rec.hist("engine.close_dispatch_us").observe(dispatch_us)
+        if round_id is None:
+            return
+        b = self.buffers
+        chunked = ({} if entry is None else
+                   {"chunked": 1, "partial_folds": entry["eager_folds"]})
+        rec.round_set(round_id, method=self.method, **chunked,
+                      close_dispatch_us=round(dispatch_us, 1),
+                      ring_occupancy=len(b.open_rounds),
+                      ring_evictions=b.evictions, stale_drops=b.stale_drops,
+                      replay_drops=b.replay_drops,
+                      duplicate_drops=b.duplicate_drops)
+
+    def _deferred(self, div: torch.Tensor, round_id) -> DeferredDivergence:
+        return DeferredDivergence(
+            div, round_id, recorder=self.rec if self.rec.enabled else None)
+
+    def _note_peak(self, round_id, nbytes: int) -> None:
+        if nbytes > self._peak.get(round_id, 0):
+            self._peak[round_id] = nbytes
+            while len(self._peak) > RING_MEMORY:  # abandoned rounds
+                self._peak.pop(next(iter(self._peak)))
+
+    def _finish_peak(self, round_id) -> int:
+        peak = self._peak.pop(round_id, 0)
+        self.last_peak_bytes = peak
+        if self.rec.enabled:
+            self.rec.gauge("close.peak_bytes").set(peak)
+            if round_id is not None:
+                self.rec.round_set(round_id, peak_bytes=peak)
+        return peak
+
+    def peak_close_bytes(self, round_id) -> int:
+        """The noted peak of a round still accumulating (chunked)."""
+        return self._peak.get(round_id, 0)
+
+    def _w0_bytes(self, copies: int = 1) -> int:
+        """Bytes of ``copies`` of the adapted W0 leaves, in their dtype."""
+        return copies * sum(math.prod(s.w0_shape) * s.w0_dtype.itemsize
+                            for s in self.specs)
+
+    def _stack_bytes(self, lanes: int) -> int:
+        """Bytes of ``lanes`` float32 lanes of every factor leaf."""
+        return 4 * lanes * sum(math.prod(s.a_shape) + math.prod(s.b_shape)
+                               for s in self.specs)
+
+    def _prod_temp_bytes(self) -> int:
+        """Bytes of one dense (…, m, n) float32 temp per spec."""
+        return 4 * sum(math.prod(s.a_shape[:-1]) * s.b_shape[-1]
+                       for s in self.specs)
+
+    def _acc_bytes(self) -> int:
+        """Bytes of a chunked round's accumulators (:meth:`_init_acc`)."""
+        prod = self._prod_temp_bytes() if self.method != "fedex_svd" else 0
+        return self._stack_bytes(1) + prod
+
+    def _div_temp_bytes(self, c: int) -> int:
+        """The stacked divergence's intermediates: per spec the L (…, m,
+        C·r) and R (…, C·r, n) factors and two (C·r)² Grams."""
+        total = 0
+        for s in self.specs:
+            lead = math.prod(s.a_shape[:-2])
+            m, r, n = s.a_shape[-2], s.a_shape[-1], s.b_shape[-1]
+            p = c * r
+            total += 4 * lead * (m * p + p * n + 2 * p * p)
+        return total
+
+    def _gram_bytes(self, slots: int) -> int:
+        """The two (P, P) Grams per spec, P = ``slots`` · r."""
+        return sum(2 * 4 * math.prod(s.a_shape[:-2])
+                   * (slots * s.a_shape[-1]) ** 2 for s in self.specs)
+
+    def _factor_bytes(self, rank: int) -> int:
+        """Bytes of rank-``rank`` factors A′ (…, m, rank), B′ (…, rank, n)."""
+        return 4 * rank * sum(math.prod(s.a_shape[:-1])
+                              + math.prod(s.b_shape[:-2]) * s.b_shape[-1]
+                              for s in self.specs)
 
     def weight_vector(self, client_ids: Sequence[int],
                       weights: Optional[Sequence[float]],
@@ -1181,14 +1398,16 @@ class RoundCloseEngine:
         w, mask, uniform = self.weight_vector(client_ids, weights, round_id)
         w0_leaves = collect_w0_leaves(self.specs, params)
         stacks = self.buffers.take(round_id)
-        new_w0, glob, div = self._close(w0_leaves, stacks, self._device(w),
-                                        self._device(mask), uniform=uniform)
+        new_w0, glob, div = self._dispatch(w0_leaves, stacks, w, mask,
+                                           uniform, round_id,
+                                           self._w0_bytes())
+        self._finish_peak(round_id)
         new_params = fold_back_w0(self.specs, params, new_w0)
         if self.method == "reinit":
             global_lora = agg.reinit_adapters(self._lora_template, rng)
         else:
             global_lora = self._glob_tree(glob)
-        return global_lora, new_params, DeferredDivergence(div, round_id)
+        return global_lora, new_params, self._deferred(div, round_id)
 
     def _glob_tree(self, glob) -> Params:
         flat = {}
@@ -1233,11 +1452,13 @@ class RoundCloseEngine:
         lanes = self.buffers.lanes(round_id)
         w0_lanes = self._lane_bases(client_params, client_ids, lanes)
         stacks = self.buffers.take(round_id)
-        new_lanes, _, div = self._close(w0_lanes, stacks, self._device(w),
-                                        self._device(mask), uniform=uniform)
+        new_lanes, _, div = self._dispatch(w0_lanes, stacks, w, mask,
+                                           uniform, round_id,
+                                           self._w0_bytes(self.c_max))
+        self._finish_peak(round_id)
         out = {cid: self._writeback_lane(client_params, cid, new_lanes,
                                          lanes[cid]) for cid in client_ids}
-        return out, DeferredDivergence(div, round_id)
+        return out, self._deferred(div, round_id)
 
     def close_hetero(self, client_params: Sequence[Params],
                      client_ids: Sequence[int],
@@ -1278,15 +1499,15 @@ class RoundCloseEngine:
         uniform = uniform and bool(np.all(ranks == rmax))
         w0_lanes = self._lane_bases(client_params, client_ids, lanes)
         stacks = self.buffers.take(round_id)
-        new_lanes, glob, div = self._close(w0_lanes, stacks, self._device(w),
-                                           self._device(ranks),
-                                           uniform=uniform)
+        new_lanes, glob, div = self._dispatch(w0_lanes, stacks, w, ranks,
+                                              uniform, round_id,
+                                              self._w0_bytes(self.c_max))
+        self._finish_peak(round_id)
         out = {cid: self._writeback_lane(client_params, cid, new_lanes,
                                          lanes[cid]) for cid in client_ids}
         global_lora = self._glob_tree(glob)
         client_loras = self._hetero_loras(glob, client_ids, ranks, lanes)
-        return out, client_loras, global_lora, DeferredDivergence(div,
-                                                                  round_id)
+        return out, client_loras, global_lora, self._deferred(div, round_id)
 
     # -- hetero helpers --------------------------------------------------
     def _client_rank(self, cid: int) -> int:
@@ -1377,6 +1598,8 @@ class RoundCloseEngine:
                 product_accum(acc[prod], a, b, wd, 1.0)
             else:
                 acc[prod] = product_accum_plain(acc[prod], a, b, wd, 1.0)
+        self._note_peak(round_id, self._stack_bytes(self.buffers.chunk)
+                        + self._acc_bytes() + 4 * self.buffers.chunk)
         return acc
 
     @staticmethod
@@ -1474,9 +1697,36 @@ class RoundCloseEngine:
         Grams. The kernel backend folds into W0's own storage."""
         rid, entry, w, winv = self._take_chunked(client_ids, weights,
                                                  round_id)
+        t0 = time.perf_counter_ns()
+        with self.rec.span("close.dispatch", cat="engine", round=rid,
+                           method=self.method, uniform=False, chunked=True):
+            new_w0, glob, parts = self._finish_chunked(params, entry, w,
+                                                       winv, rid)
+        self._close_obs(rid, t0, entry)
+        self._finish_peak(rid)
+        new_params = fold_back_w0(self.specs, params, new_w0)
+        if self.method == "reinit":
+            global_lora = agg.reinit_adapters(self._lora_template, rng)
+        else:
+            global_lora = self._glob_tree(glob)
+        return global_lora, new_params, self._deferred(
+            torch.cat(parts).mean(), rid)
+
+    def _finish_chunked(self, params, entry, w, winv, rid):
+        """The body of :meth:`_close_chunked`: (new W0 leaves, glob, the
+        divergence's parts)."""
         acc, in_place = entry["acc"], self.backend == "kernels"
         w0_leaves = collect_w0_leaves(self.specs, params)
         wn = self._slot_weights(entry, w)
+        acc_bytes = self._acc_bytes()
+        if self.method == "fedex_svd":
+            gram = self._gram_bytes(entry["num_chunks"] * self.buffers.chunk)
+            self._note_peak(rid, 2 * gram + acc_bytes)
+            self._note_peak(rid, gram + self._factor_bytes(self.svd_rank)
+                            + self._w0_bytes() + acc_bytes)
+        else:
+            self._note_peak(rid, self._w0_bytes() + acc_bytes
+                            + self._prod_temp_bytes())
         new_w0, glob, parts = {}, {}, []
         for s in self.specs:
             w0 = w0_leaves[s.key]
@@ -1501,13 +1751,7 @@ class RoundCloseEngine:
                                              s.w0_dtype, in_place)
                 del res, upd
             glob[s.key] = {"a": ga, "b": gb}
-        new_params = fold_back_w0(self.specs, params, new_w0)
-        if self.method == "reinit":
-            global_lora = agg.reinit_adapters(self._lora_template, rng)
-        else:
-            global_lora = self._glob_tree(glob)
-        return global_lora, new_params, DeferredDivergence(
-            torch.cat(parts).mean(), rid)
+        return new_w0, glob, parts
 
     @torch.no_grad()
     def _close_lanes_chunked(self, client_params, client_ids, weights,
@@ -1521,13 +1765,44 @@ class RoundCloseEngine:
         what :meth:`close_keep_local` / :meth:`close_hetero` return."""
         hetero = self.method == "hetero"
         lanes = self.buffers.lanes(round_id)
-        lane_to_cid = {lane: cid for cid, lane in lanes.items()}
-        delivered = set(client_ids)
         ranks = self._rank_vector(client_ids, lanes)
         rid, entry, w, winv = self._take_chunked(client_ids, weights,
                                                  round_id)
+        t0 = time.perf_counter_ns()
+        with self.rec.span("close.dispatch", cat="engine", round=rid,
+                           method=self.method, uniform=False, chunked=True):
+            out, glob, parts = self._finish_lanes_chunked(
+                client_params, client_ids, lanes, ranks, entry, w, winv, rid)
+        self._close_obs(rid, t0, entry)
+        self._finish_peak(rid)
+        div = self._deferred(torch.cat(parts).mean(), rid)
+        if not hetero:
+            return out, div
+        return (out, self._hetero_loras(glob, client_ids, ranks, lanes),
+                self._glob_tree(glob), div)
+
+    def _finish_lanes_chunked(self, client_params, client_ids, lanes, ranks,
+                              entry, w, winv, rid):
+        """The body of :meth:`_close_lanes_chunked`: ({cid: new params},
+        glob, the divergence's parts)."""
+        hetero = self.method == "hetero"
+        lane_to_cid = {lane: cid for cid, lane in lanes.items()}
+        delivered = set(client_ids)
         acc, in_place = entry["acc"], self.backend == "kernels"
         wn = self._slot_weights(entry, w)
+        chunk, acc_bytes = self.buffers.chunk, self._acc_bytes()
+        # the reference's per-chunk peak: one chunk of per-lane W0s beside
+        # the dense ideal, and the retained chunk (keep_local) or the
+        # shared truncation's factors (hetero)
+        lane_peak = (self._prod_temp_bytes() + self._w0_bytes(chunk)
+                     + acc_bytes)
+        if hetero:
+            self._note_peak(rid, 2 * self._gram_bytes(
+                entry["num_chunks"] * chunk) + acc_bytes)
+            lane_peak += self._factor_bytes(self.specs[0].a_shape[-1])
+        else:
+            lane_peak += self._stack_bytes(chunk)
+        self._note_peak(rid, lane_peak)
         ideal, glob, parts = {}, {}, []
         for s in self.specs:
             ga = acc["ga/" + s.key].mul_(winv)
@@ -1540,7 +1815,6 @@ class RoundCloseEngine:
                 sq = torch.sqrt(torch.clamp(sv, min=0.0))
                 glob[s.key] = {"a": ap * sq[..., None, :],
                                "b": sq[..., :, None] * bp}
-        chunk = self.buffers.chunk
         new_lanes = {s.key: [None] * self.c_max for s in self.specs}
         for lane in range(entry["num_chunks"] * chunk):
             cid = lane_to_cid.get(lane)
@@ -1562,8 +1836,4 @@ class RoundCloseEngine:
                 del own
         out = {cid: self._writeback_lane(client_params, cid, new_lanes,
                                          lanes[cid]) for cid in client_ids}
-        div = DeferredDivergence(torch.cat(parts).mean(), rid)
-        if not hetero:
-            return out, div
-        return (out, self._hetero_loras(glob, client_ids, ranks, lanes),
-                self._glob_tree(glob), div)
+        return out, glob, parts

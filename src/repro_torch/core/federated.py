@@ -55,6 +55,17 @@ The engine close returns its divergence as a device scalar, resolved at the
 next round boundary, so the close runs on the device while the next
 round's clients start.
 
+``FedConfig.obs`` (``off`` | ``basic`` | ``trace``) builds the trainer's
+``recorder`` (:mod:`repro_torch.obs`; ``off`` is the shared no-op
+:data:`~repro_torch.obs.NULL`), shared with the engine, the coordinator, the
+codec and the fault injector. Each round gets the ``round.close`` and
+``round.eval`` spans, its ``eval_loss`` / ``eval_acc``, the ledger's totals
+and, where the analytic table applies, ``comm_match``: the measured ledger
+against :func:`repro_torch.core.comm.round_comm_params` at the delivered
+count (:meth:`FederatedTrainer._reconcile_comm`); under a fault plan also
+``global_finite``. The recorder adds no host sync to a round: the
+divergence still resolves at the next round boundary.
+
 With ``checkpoint_dir`` the trainer snapshots its round state every
 ``checkpoint_every`` round boundaries (:meth:`FederatedTrainer.save_state`,
 ``repro_torch.checkpoint``); a fresh trainer of the same configs that
@@ -82,22 +93,25 @@ from repro_torch.configs.base import (FedConfig, LoRAConfig, TrainConfig,
                                       validate_fed_lora)
 from repro_torch.core import aggregation as agg
 from repro_torch.core import privacy
+from repro_torch.core.comm import adapted_matrices, round_comm_params
 from repro_torch.core.decompose import (factored_residual_params,
                                         truncated_residual_params)
 from repro_torch.core.divergence import mean_deviation
 from repro_torch.core.engine import (DeferredDivergence, RoundCloseEngine,
                                      collect_w0_leaves, fold_back_w0)
 from repro_torch.core.hetero import hetero_fedex_aggregate, pad_adapters
-from repro_torch.core.lora import init_lora
+from repro_torch.core.lora import init_global_state, init_lora
 from repro_torch.fedsrv import (AdapterCodec, AsyncBufferCoordinator,
                                 BytesLedger, ClientInfo, ClientRegistry,
                                 FaultInjector, FaultPlan, RoundCoordinator,
                                 RoundPolicy, StragglerModel, ValidationPolicy)
 from repro_torch.fedsrv.coordinator import Delivery, RoundOutcome
+from repro_torch.obs import make_recorder
 from repro_torch.optim import (adamw_update, clip_by_global_norm, init_adamw,
                                lr_at)
 from repro_torch.util.device import resolve_device
-from repro_torch.util.tree import flatten_with_paths, unflatten_from_paths
+from repro_torch.util.tree import (count_params, flatten_with_paths,
+                                   unflatten_from_paths)
 
 
 def _freeze_a(grads):
@@ -163,16 +177,8 @@ def _hetero(fed: FedConfig) -> bool:
 
 
 def _check_supported(fed: FedConfig) -> None:
-    """Raise ``NotImplementedError`` for any federation feature the port has
-    not taken up yet, and ``ValueError`` for a setting the run would ignore
-    (the reference ignores these silently; the port ignores none)."""
-    if fed.obs != "off":
-        raise NotImplementedError(
-            f"FedConfig asks for obs={fed.obs!r}, which the port does not run "
-            "yet (every method and assignment, stacked, chunked or eager, "
-            "with the coordinator's policies, FedBuff, the uplink codecs and "
-            "validation, DP uploads, fault injection and round-state "
-            "checkpoints; no obs)")
+    """Raise ``ValueError`` for a setting the run would ignore (the
+    reference ignores these silently; the port ignores none)."""
     if _hetero(fed) or fed.method == "centralized":
         method = "hetero" if _hetero(fed) else "centralized"
         coordinated = {
@@ -244,19 +250,23 @@ class FederatedTrainer:
     # hetero: each client's initial rank-rᵢ adapters (default: own draws).
     # It exists for the parity tests, which hand it the reference's draws.
     client_loras: Optional[List[Dict]] = None
+    # the obs recorder; None → built from fed_cfg.obs (pass a shared one to
+    # collect several runs, each under its own set_run label)
+    recorder: Any = None
 
     def __post_init__(self):
         _check_supported(self.fed_cfg)
         validate_fed_lora(self.fed_cfg, self.lora_cfg)
         self.device = resolve_device(self.device)
+        if self.recorder is None:
+            self.recorder = make_recorder(self.fed_cfg.obs, self.device)
         if (self.params is None) != (self.global_lora is None):
             raise ValueError("pass both params and global_lora, or neither")
         gen = torch.Generator(device=self.device)
         gen.manual_seed(self.seed)
         if self.params is None:
-            self.params = self.model.init(gen, self.device)
-            self.global_lora = init_lora(gen, self.params, self.model.cfg,
-                                         self.lora_cfg)
+            self.params, self.global_lora = init_global_state(
+                self.model, self.lora_cfg, device=self.device, generator=gen)
         if not self.global_lora:
             raise ValueError("no LoRA targets matched — check target_modules")
         self.scale = self.lora_cfg.scale
@@ -292,7 +302,8 @@ class FederatedTrainer:
                 method=method,
                 svd_rank=fc.svd_rank if method == "fedex_svd" else 0,
                 backend=fc.engine, depth=fc.ring_depth,
-                client_ranks=self.client_ranks, chunk=fc.close_chunk)
+                client_ranks=self.client_ranks, chunk=fc.close_chunk,
+                recorder=self.recorder)
         # keep_local and hetero: one base per client. The kernel closes fold
         # into them in place, so under the engine each has its OWN adapted
         # W0 leaves (no two clients, and not self.params, may share one);
@@ -342,11 +353,12 @@ class FederatedTrainer:
         codec = AdapterCodec(fc.quantize_uplink, validation=ValidationPolicy(
             enabled=fc.uplink_validation, max_norm=fc.uplink_max_norm))
         self.fault_injector = (FaultInjector(FaultPlan.parse(
-            fc.faults, seed=fc.seed)) if fc.faults else None)
+            fc.faults, seed=fc.seed), recorder=self.recorder)
+            if fc.faults else None)
         common = dict(sink=self.engine.buffers if self.engine else None,
                       faults=self.fault_injector,
                       uplink_retries=fc.uplink_retries,
-                      retry_backoff=fc.retry_backoff)
+                      retry_backoff=fc.retry_backoff, recorder=self.recorder)
         if fc.async_buffer > 0:
             return AsyncBufferCoordinator(
                 registry, policy, stragglers, codec, self.ledger,
@@ -376,6 +388,52 @@ class FederatedTrainer:
         self.ledger.record_analytic(rnd, "downlink",
                                     per_client * k_delivered,
                                     note="factored-residual broadcast")
+
+    def _stamp_comm(self, rnd: int) -> Dict[str, int]:
+        """The ledger's totals of round ``rnd`` on its round record."""
+        tot = self.ledger.round_totals(rnd)
+        self.recorder.round_set(
+            rnd, uplink_params=tot["uplink_params"],
+            uplink_bytes=tot["uplink_bytes"],
+            downlink_params=tot["downlink_params"],
+            downlink_bytes=tot["downlink_bytes"])
+        return tot
+
+    def _reconcile_comm(self, rnd: int, outcome) -> None:
+        """Stamp the round's measured ledger totals and, where the analytic
+        table applies (fedex with the average assignment, fedit, fedex_svd
+        over a decoder config whose adapters are the table's matrices),
+        ``comm_match``: the measured parameter counts against
+        :func:`~repro_torch.core.comm.round_comm_params` at the observed
+        delivered count — two independent accountings of one round."""
+        rec = self.recorder
+        self._stamp_comm(rnd)
+        k_d = len(outcome.delivered)
+        method = self.method
+        if (k_d == 0 or method not in ("fedex", "fedit", "fedex_svd")
+                or (method == "fedex"
+                    and self.fed_cfg.assignment != "average")):
+            return
+        try:
+            mats = adapted_matrices(self.model.cfg, self.lora_cfg)
+        except (AttributeError, TypeError):
+            return  # no decoder-style config: no analytic twin
+        r = self.lora_cfg.rank
+        if count_params(self.global_lora) != sum(ms.m * r + r * ms.n
+                                                 for ms in mats):
+            return  # the adapters are not the table's matrix set
+        svd = self.fed_cfg.svd_rank
+        eff = "fedex" if method == "fedex_svd" and not svd else method
+        analytic = round_comm_params(
+            eff, mats, r, self.fed_cfg.num_clients,
+            svd_rank=min(svd, r * k_d) if svd else 0, participants=k_d)
+        recon = self.ledger.reconcile(rnd, analytic)
+        rec.round_set(rnd, comm_match=int(recon["ok"]))
+        rec.counter(f"comm.reconcile_{'ok' if recon['ok'] else 'mismatch'}"
+                    ).inc()
+        if not recon["ok"]:
+            rec.event("comm.mismatch", cat="trainer", round=rnd,
+                      uplink=recon["uplink"], downlink=recon["downlink"])
 
     # ------------------------------------------------------------------
     def _client_round(self, client: int, params, lora):
@@ -542,11 +600,17 @@ class FederatedTrainer:
         if eng is None:
             return client_losses, self._eager_hetero_close(uplinks)
         ids = self.outcomes[-1].client_ids
-        new_cp, new_loras, self.global_lora, div = eng.close_hetero(
-            self.client_params, ids, round_id=rid)
+        with self.recorder.span("round.close", cat="trainer", round=rnd,
+                                engine=True):
+            new_cp, new_loras, self.global_lora, div = eng.close_hetero(
+                self.client_params, ids, round_id=rid)
         for c in ids:
             self.client_params[c] = new_cp[c]
             self._client_lora[c] = new_loras[c]
+        if self.recorder.enabled:
+            # a faulty round's uplinks crossed the codec; otherwise nothing
+            # measurable was sent
+            self._stamp_comm(rnd)
         return client_losses, div
 
     def _eager_hetero_close(self, loras: List[Dict]) -> float:
@@ -621,14 +685,31 @@ class FederatedTrainer:
                     if not client_losses:
                         client_losses = [float("nan")]
                 else:
-                    div = self._close_round(rnd, outcome)
+                    with self.recorder.span("round.close", cat="trainer",
+                                            round=rnd,
+                                            engine=self.engine is not None):
+                        div = self._close_round(rnd, outcome)
+                if self.recorder.enabled:
+                    self._reconcile_comm(rnd, outcome)
             self._global_step += self.fed_cfg.local_steps
             if self.client_params is not None:
-                ev_loss, ev_acc = self._evaluate(self.client_params[0],
-                                                 self._client_lora[0])
+                eval_params, eval_lora = (self.client_params[0],
+                                          self._client_lora[0])
             else:
-                ev_loss, ev_acc = self._evaluate(self.params,
-                                                 self.global_lora)
+                eval_params, eval_lora = self.params, self.global_lora
+            with self.recorder.span("round.eval", cat="trainer", round=rnd,
+                                    batches=len(self.eval_batches)):
+                ev_loss, ev_acc = self._evaluate(eval_params, eval_lora)
+            if self.recorder.enabled:
+                self.recorder.round_set(rnd, eval_loss=round(ev_loss, 6),
+                                        eval_acc=round(ev_acc, 6))
+                if self.fault_injector is not None:
+                    # the quarantine held: no poisoned uplink reached the
+                    # served adapter (after the eval, which synced already)
+                    finite = torch.stack([
+                        torch.isfinite(x).all() for x in
+                        flatten_with_paths(eval_lora).values()]).all()
+                    self.recorder.round_set(rnd, global_finite=int(finite))
             self.history.append(RoundRecord(
                 round=rnd, client_losses=client_losses, eval_loss=ev_loss,
                 eval_acc=ev_acc, divergence_scaled=div, lr=lr_now))

@@ -15,6 +15,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import LoRAConfig, ModelConfig
+from repro_torch.util.device import resolve_device
 
 Params = Dict[str, Any]
 
@@ -94,3 +95,21 @@ def merge_lora(params: Params, lora: Params, scale: float) -> Params:
         return out
 
     return walk(params, lora)
+
+
+def init_global_state(model, lora_cfg: LoRAConfig, seed: int = 0,
+                      device="cuda", *,
+                      generator: Optional[torch.Generator] = None
+                      ) -> Tuple[Params, Params]:
+    """(params, global_lora) from one seed: one ``torch.Generator`` on the
+    device seeded with ``seed``, ``model.init`` then :func:`init_lora` — the
+    trainer's recipe, so that a federation server and its twin derive the
+    same state from (arch, lora_cfg, seed). A given ``generator`` is drawn
+    from instead (the trainer goes on drawing from it)."""
+    dev = resolve_device(device)
+    gen = generator
+    if gen is None:
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+    params = model.init(gen, dev)
+    return params, init_lora(gen, params, model.cfg, lora_cfg)

@@ -1,6 +1,6 @@
 """Round coordinators: open → collect → close (weighted, exact).
 
-Counterpart of ``repro/fedsrv/coordinator.py`` without observability.
+Counterpart of ``repro/fedsrv/coordinator.py``.
 
 Synchronous mode (:class:`RoundCoordinator`): a round samples its
 participants, draws each one's dropout and arrival time from the seeded
@@ -29,6 +29,12 @@ ring to refuse it, drop the uplink; a duplicate is delivered twice and the
 ring drops the copy; a transient decode error is retried with backoff on
 the clock. Every federation decision comes from the numpy ``purpose_rng``
 streams, so outcomes replay the reference's exactly.
+
+With a live ``recorder`` (:mod:`repro_torch.obs`, handed down to the codec)
+a round records nested spans (``round.collect`` or ``commit.collect`` →
+``client.train`` → ``client.uplink`` → codec and ring), its open, dropout,
+deadline-drop, retry, quarantine and degraded events and counters, and its
+client counts on its round record.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from repro_torch.fedsrv.transport import (AdapterCodec, BytesLedger,
                                           StaleUplinkError,
                                           TransientTransportError,
                                           TransportError)
+from repro_torch.obs import NULL
 from repro_torch.util.tree import count_params
 
 TrainFn = Callable[[ClientInfo, Any, int], Any]
@@ -118,7 +125,8 @@ class RoundCoordinator:
                  sink: Optional[Any] = None,
                  faults: Optional[Any] = None,
                  uplink_retries: int = 2,
-                 retry_backoff: float = 0.05):
+                 retry_backoff: float = 0.05,
+                 recorder: Optional[Any] = None):
         self.registry = registry
         self.policy = policy or RoundPolicy()
         if self.policy.weighting not in ("uniform", "examples"):
@@ -135,6 +143,9 @@ class RoundCoordinator:
                              f"{uplink_retries}")
         self.uplink_retries = uplink_retries
         self.retry_backoff = retry_backoff
+        self.rec = recorder if recorder is not None else NULL
+        if self.rec.enabled and not self.codec.rec.enabled:
+            self.codec.rec = self.rec
         self.sink = sink
         self._downlink_params: Optional[int] = None  # adapter tree is static
 
@@ -175,6 +186,11 @@ class RoundCoordinator:
                         reason="retries_exhausted") from e
                 self.clock.advance(self.retry_backoff * (2 ** attempt))
                 attempt += 1
+                if self.rec.enabled:
+                    self.rec.counter("uplink.retries").inc()
+                    self.rec.event("uplink.retry", cat="fedsrv",
+                                   round=payload.round_id,
+                                   client=payload.client_id, attempt=attempt)
 
     def _uplink(self, lora: Any, round_id: int, client_id: int, *,
                 weight: float = 1.0,
@@ -186,6 +202,12 @@ class RoundCoordinator:
         quarantines the uplink (ledger direction ``quarantined``); a ring
         refusal, a crash, or a replay with no ring drops it (``dropped``).
         ``rank`` declares a ragged (hetero) uplink's true rank."""
+        with self.rec.span("client.uplink", cat="fedsrv", round=round_id,
+                           client=client_id):
+            return self._uplink_body(lora, round_id, client_id, weight, rank)
+
+    def _uplink_body(self, lora, round_id, client_id, weight, rank
+                     ) -> UplinkResult:
         payload = self.codec.encode(lora, round_id=round_id,
                                     client_id=client_id, direction="uplink",
                                     rank=rank)
@@ -197,25 +219,26 @@ class RoundCoordinator:
             # the client died mid-uplink: nothing reaches the server
             self.ledger.record(payload, note="fault:crash",
                                direction="dropped")
-            self._note_undelivered(round_id, client_id, "dropped")
+            self._note_undelivered(round_id, client_id, "crash", "dropped")
             return UplinkResult(ok=False, reason="crash", status="dropped")
         if payload.round_id != round_id and self.sink is None:
             # a replayed address with no ring to refuse it
             self.ledger.record(payload, note="drop:replay",
                                direction="dropped")
-            self._note_undelivered(round_id, client_id, "dropped")
+            self._note_undelivered(round_id, client_id, "replay", "dropped")
             return UplinkResult(ok=False, reason="replay", status="dropped")
         try:
             tree, retries = self._deliver(payload, weight)
         except StaleUplinkError as e:
             self.ledger.record(payload, note=f"drop:{e.reason}",
                                direction="dropped")
-            self._note_undelivered(round_id, client_id, "dropped")
+            self._note_undelivered(round_id, client_id, e.reason, "dropped")
             return UplinkResult(ok=False, reason=e.reason, status="dropped")
         except TransportError as e:
             self.ledger.record(payload, note=f"quarantine:{e.reason}",
                                direction="quarantined")
-            self._note_undelivered(round_id, client_id, "quarantined")
+            self._note_undelivered(round_id, client_id, e.reason,
+                                   "quarantined")
             return UplinkResult(ok=False, reason=e.reason,
                                 status="quarantined")
         self.ledger.record(payload)
@@ -229,12 +252,26 @@ class RoundCoordinator:
                                direction="dropped")
         return UplinkResult(ok=True, tree=tree, retries=retries)
 
-    def _note_undelivered(self, round_id: int, client_id: int,
+    def _note_undelivered(self, round_id: int, client_id: int, reason: str,
                           status: str) -> None:
         """The downlink that fed an undelivered uplink never became
-        aggregate input: re-bucket it as ``dropped``."""
+        aggregate input: re-bucket it as ``dropped``; count the uplink as
+        ``uplink.{status}[{reason}]``."""
         self.ledger.reclassify(round_id, client_id, "downlink", "dropped",
                                note=f"fed a {status} uplink")
+        if self.rec.enabled:
+            self.rec.counter(f"uplink.{status}[{reason}]").inc()
+            self.rec.event("uplink.quarantine" if status == "quarantined"
+                           else "uplink.drop", cat="fedsrv", round=round_id,
+                           client=client_id, reason=reason)
+
+    def _note_degraded(self, round_id: int, delivered: int, quorum: int,
+                       quarantined: int) -> None:
+        if self.rec.enabled:
+            self.rec.counter("round.degraded").inc()
+        self.rec.event("round.degraded", cat="fedsrv", round=round_id,
+                       delivered=delivered, quorum=quorum,
+                       quarantined=quarantined)
 
     def _ensure_spec(self, global_lora: Any) -> None:
         """Register the global adapter's (path → shape) spec with the codec
@@ -268,16 +305,22 @@ class RoundCoordinator:
         participants = self.registry.sample_round(round_id, pol.participation,
                                                   max(1, pol.min_quorum))
         opened = self.clock.now()
+        self.rec.event("round.open", cat="fedsrv", round=round_id,
+                       sampled=len(participants))
 
         # the event queue: dropout draws, then arrival times
         dropped_out: List[int] = []
+        stragglers = 0
         arrivals: List[Tuple[float, ClientInfo]] = []
         for c in participants:
             if self.stragglers.dropped(round_id, c):
                 dropped_out.append(c.client_id)
+                self.rec.event("client.dropout", cat="fedsrv", round=round_id,
+                               client=c.client_id)
                 continue
-            arrivals.append((opened + self.stragglers.latency(round_id, c),
-                             c))
+            lat, straggled = self.stragglers.draw(round_id, c)
+            stragglers += int(straggled)
+            arrivals.append((opened + lat, c))
         arrivals.sort(key=lambda tc: (tc[0], tc[1].client_id))
 
         # deliveries required before the deadline may cut late arrivals
@@ -296,25 +339,33 @@ class RoundCoordinator:
         dropped_deadline: List[int] = []
         quarantined: List[Tuple[int, str]] = []
         retries = 0
-        for t, c in arrivals:
-            late = pol.deadline > 0 and t > opened + pol.deadline
-            if late and len(delivered) >= quorum:
-                dropped_deadline.append(c.client_id)
-                continue
-            self._record_downlink(global_lora, round_id, c.client_id)
-            lora_c = train_fn(c, global_lora, round_id)
-            res = self._uplink(lora_c, round_id, c.client_id,
-                               weight=(float(c.num_examples)
-                                       if pol.weighting == "examples"
-                                       else 1.0))
-            # the arrival consumed sim-time whether or not it delivered
-            self.clock.advance_to(t)
-            retries += res.retries
-            if res.ok:
-                delivered.append(Delivery(client=c, lora=res.tree,
-                                          launched_at=opened, arrived_at=t))
-            else:
-                quarantined.append((c.client_id, res.reason))
+        with self.rec.span("round.collect", cat="fedsrv", round=round_id,
+                           candidates=len(arrivals), quorum=quorum):
+            for t, c in arrivals:
+                late = pol.deadline > 0 and t > opened + pol.deadline
+                if late and len(delivered) >= quorum:
+                    dropped_deadline.append(c.client_id)
+                    self.rec.event("client.deadline_drop", cat="fedsrv",
+                                   round=round_id, client=c.client_id,
+                                   arrived_at=t)
+                    continue
+                self._record_downlink(global_lora, round_id, c.client_id)
+                with self.rec.span("client.train", cat="fedsrv",
+                                   round=round_id, client=c.client_id):
+                    lora_c = train_fn(c, global_lora, round_id)
+                res = self._uplink(lora_c, round_id, c.client_id,
+                                   weight=(float(c.num_examples)
+                                           if pol.weighting == "examples"
+                                           else 1.0))
+                # the arrival consumed sim-time whether or not it delivered
+                self.clock.advance_to(t)
+                retries += res.retries
+                if res.ok:
+                    delivered.append(Delivery(client=c, lora=res.tree,
+                                              launched_at=opened,
+                                              arrived_at=t))
+                else:
+                    quarantined.append((c.client_id, res.reason))
 
         closed = self.clock.now()  # the last arrival this round
         delivered.sort(key=lambda d: d.client.client_id)
@@ -325,11 +376,23 @@ class RoundCoordinator:
         if degraded:
             self._evict_sink_round(round_id, "degraded: quorum failed after "
                                    "quarantine")
+            self._note_degraded(round_id, len(delivered), quorum,
+                                len(quarantined))
 
         weights = None
         if pol.weighting == "examples" and delivered:
             weights = self.registry.weights_for(
                 [d.client.client_id for d in delivered])
+        if self.rec.enabled:
+            self.rec.round_set(round_id, sampled=len(participants),
+                               delivered=len(delivered),
+                               stragglers=stragglers,
+                               dropped_out=len(dropped_out),
+                               deadline_drops=len(dropped_deadline),
+                               quarantined=len(quarantined),
+                               retries=retries, degraded=int(degraded),
+                               opened_at=round(opened, 3),
+                               closed_at=round(closed, 3))
         return RoundOutcome(
             round_id=round_id, sampled=[c.client_id for c in participants],
             delivered=delivered, dropped_out=dropped_out,
@@ -362,11 +425,12 @@ class AsyncBufferCoordinator(RoundCoordinator):
                  sink: Optional[Any] = None,
                  faults: Optional[Any] = None,
                  uplink_retries: int = 2,
-                 retry_backoff: float = 0.05):
+                 retry_backoff: float = 0.05,
+                 recorder: Optional[Any] = None):
         super().__init__(registry, policy, stragglers, codec, ledger, clock,
                          sink=sink, faults=faults,
                          uplink_retries=uplink_retries,
-                         retry_backoff=retry_backoff)
+                         retry_backoff=retry_backoff, recorder=recorder)
         if buffer_size < 1:
             raise ValueError("buffer_size must be ≥ 1")
         if max_version_lag < 1:
@@ -390,6 +454,8 @@ class AsyncBufferCoordinator(RoundCoordinator):
         self._ensure_spec(global_lora)
         opened = self.clock.now()
         self._snapshots[self._version] = global_lora
+        self.rec.event("commit.open", cat="fedsrv", round=round_id,
+                       version=self._version, inflight=len(self._inflight))
 
         # launch newly sampled clients at the current version
         participants = self.registry.sample_round(round_id, pol.participation,
@@ -397,14 +463,18 @@ class AsyncBufferCoordinator(RoundCoordinator):
         sampled = [c.client_id for c in participants]
         dropped_out: List[int] = []
         busy = {c.client_id for _, c, _ in self._inflight}
+        launched = 0
         for c in participants:
             if c.client_id in busy:
                 continue  # still running an older version's assignment
             if self.stragglers.dropped(round_id, c):
                 dropped_out.append(c.client_id)
+                self.rec.event("client.dropout", cat="fedsrv", round=round_id,
+                               client=c.client_id)
                 continue
             t = opened + self.stragglers.latency(round_id, c)
             self._inflight.append((t, c, self._version))
+            launched += 1
         self._inflight.sort(key=lambda e: (e[0], e[1].client_id))
 
         take = min(self.buffer_size, len(self._inflight))
@@ -424,22 +494,28 @@ class AsyncBufferCoordinator(RoundCoordinator):
         delivered: List[Delivery] = []
         quarantined: List[Tuple[int, str]] = []
         retries = 0
-        for t, c, v in batch:
-            start = self._snapshots[v]
-            self._record_downlink(start, round_id, c.client_id)
-            lora_c = train_fn(c, start, round_id)
-            # the raw weight streams at uplink: commits drain after the
-            # version they discount against, so the staleness is known
-            res = self._uplink(lora_c, round_id, c.client_id,
-                               weight=self._raw_weight(c, self._version - v))
-            self.clock.advance_to(t)
-            retries += res.retries
-            if res.ok:
-                delivered.append(Delivery(client=c, lora=res.tree,
-                                          launched_at=t, arrived_at=t,
-                                          staleness=self._version - v))
-            else:
-                quarantined.append((c.client_id, res.reason))
+        with self.rec.span("commit.collect", cat="fedsrv", round=round_id,
+                           version=self._version, take=take):
+            for t, c, v in batch:
+                start = self._snapshots[v]
+                self._record_downlink(start, round_id, c.client_id)
+                with self.rec.span("client.train", cat="fedsrv",
+                                   round=round_id, client=c.client_id,
+                                   launch_version=v):
+                    lora_c = train_fn(c, start, round_id)
+                # the raw weight streams at uplink: commits drain after the
+                # version they discount against, so the staleness is known
+                res = self._uplink(lora_c, round_id, c.client_id,
+                                   weight=self._raw_weight(
+                                       c, self._version - v))
+                self.clock.advance_to(t)
+                retries += res.retries
+                if res.ok:
+                    delivered.append(Delivery(client=c, lora=res.tree,
+                                              launched_at=t, arrived_at=t,
+                                              staleness=self._version - v))
+                else:
+                    quarantined.append((c.client_id, res.reason))
         delivered.sort(key=lambda d: d.client.client_id)
 
         if not delivered:
@@ -447,6 +523,7 @@ class AsyncBufferCoordinator(RoundCoordinator):
             # evict the set, carry the global forward
             self._evict_sink_round(round_id, "degraded: commit buffer fully "
                                    "quarantined")
+            self._note_degraded(round_id, 0, take, len(quarantined))
             return RoundOutcome(
                 round_id=round_id, sampled=sampled, delivered=[],
                 dropped_out=dropped_out, dropped_deadline=[], weights=None,
@@ -468,6 +545,21 @@ class AsyncBufferCoordinator(RoundCoordinator):
             if v not in live and v != self._version - 1:
                 del self._snapshots[v]
 
+        stale = [d.staleness for d in delivered]
+        if self.rec.enabled:
+            self.rec.hist("fedsrv.commit_staleness").observe(max(stale))
+            self.rec.round_set(round_id, sampled=len(participants),
+                               delivered=len(delivered),
+                               dropped_out=len(dropped_out),
+                               quarantined=len(quarantined),
+                               retries=retries, launched=launched,
+                               inflight=len(self._inflight),
+                               version=self._version,
+                               staleness_max=max(stale),
+                               staleness_mean=round(
+                                   sum(stale) / len(stale), 3),
+                               opened_at=round(opened, 3),
+                               closed_at=round(self.clock.now(), 3))
         return RoundOutcome(
             round_id=round_id, sampled=sampled, delivered=delivered,
             dropped_out=dropped_out, dropped_deadline=[], weights=weights,

@@ -53,6 +53,7 @@ import torch
 
 from repro_torch.fedsrv.registry import FAULT_STREAM, purpose_rng
 from repro_torch.fedsrv.transport import Payload, TransientTransportError
+from repro_torch.obs import NULL
 
 FAULT_KINDS = ("nan", "inf", "bitflip", "truncate", "scale", "replay",
                "duplicate", "crash", "decode_error")
@@ -170,11 +171,13 @@ class FaultInjector:
     :meth:`check_transient` on every decode attempt. Every decision is a
     function of ``(plan.seed, round, client, spec index)`` alone.
     ``injected`` logs every fault applied, as ``{"round", "client",
-    "kind"}`` (a replay under its original round).
+    "kind"}`` (a replay under its original round); a live ``recorder``
+    counts them as ``fault.injected[kind]``.
     """
 
-    def __init__(self, plan: FaultPlan):
+    def __init__(self, plan: FaultPlan, recorder=None):
         self.plan = plan
+        self.rec = recorder if recorder is not None else NULL
         self.injected: List[Dict[str, Any]] = []
         # (round, client) → transient decode failures still owed
         self._transient: Dict[Tuple[int, int], int] = {}
@@ -226,7 +229,13 @@ class FaultInjector:
                 "round": payload.round_id + (spec.offset if spec.kind
                                              == "replay" else 0),
                 "client": payload.client_id, "kind": spec.kind})
+            self._note(self.injected[-1])
         return payload, applied
+
+    def _note(self, fault: Dict[str, Any]) -> None:
+        if self.rec.enabled:
+            self.rec.counter(f"fault.injected[{fault['kind']}]").inc()
+            self.rec.event("fault.inject", cat="faults", **fault)
 
     def corrupt_lane(self, round_id: int, client_id: int,
                      leaves: Dict[str, torch.Tensor]
@@ -251,6 +260,7 @@ class FaultInjector:
             applied.append(spec)
             self.injected.append({"round": round_id, "client": client_id,
                                   "kind": spec.kind})
+            self._note(self.injected[-1])
         return leaves, applied
 
     def check_transient(self, round_id: int, client_id: int) -> None:

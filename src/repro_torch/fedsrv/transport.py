@@ -1,7 +1,7 @@
 """Adapter transport: uplink quantization, validation and the bytes ledger.
 
-The port's copy of the in-process half of ``repro/fedsrv/transport.py``
-(no HTTP). Every uplink crosses :class:`AdapterCodec`, so an fp16 or int8
+The port's copy of ``repro/fedsrv/transport.py``; the HTTP framing is
+:mod:`repro_torch.fedsrv.wire`. Every uplink crosses :class:`AdapterCodec`, so an fp16 or int8
 uplink changes the numbers the server aggregates, and every payload lands in
 the :class:`BytesLedger`, whose per-round parameter counts reconcile against
 ``repro_torch.core.comm.round_comm_params``.
@@ -29,16 +29,24 @@ the registered spec, a finite check and an optional ∞-norm ceiling) stacks
 every leaf's float64 sum and absmax and moves them to the host together.
 A failure raises a :class:`TransportError` with the payload's (round,
 client), and the coordinator quarantines the uplink: its lane stays unread.
+
+With a live recorder the codec records the ``codec.encode`` /
+``codec.decode`` spans, ``transport.{direction}_bytes`` and ``_payloads``,
+and the ``uplink.ingest_bytes_per_s`` gauge (wire bytes landed in the sink
+over the wall time since the first one); none of them waits for the device.
 """
 
 from __future__ import annotations
 
 import math
+import threading
+import time
 from dataclasses import asdict, dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
+from repro_torch.obs import NULL
 from repro_torch.util.tree import flatten_with_paths, unflatten_from_paths
 
 CODECS = ("none", "fp16", "int8")
@@ -153,12 +161,19 @@ class AdapterCodec:
     (``none``: 4 B a parameter; ``fp16``: 2 B; ``int8``: 1 B plus a 4 B
     scale a leaf). Decoding is defended: see the module docstring."""
 
-    def __init__(self, quantize: str = "none",
+    def __init__(self, quantize: str = "none", recorder=None,
                  validation: Optional[ValidationPolicy] = None):
         if quantize not in CODECS:
             raise ValueError(f"quantize must be one of {CODECS}, got "
                              f"{quantize!r}")
         self.quantize = quantize
+        # the coordinator hands its own recorder down
+        self.rec = recorder if recorder is not None else NULL
+        # wire bytes landed by decode_into and the time of the first (the
+        # HTTP service's handler threads share them: own lock)
+        self._ingest_bytes = 0
+        self._ingest_t0: Optional[int] = None
+        self._ingest_lock = threading.Lock()
         self.validation = (validation if validation is not None
                            else ValidationPolicy())
         # path → expected decoded leaf shape (register_spec)
@@ -174,17 +189,25 @@ class AdapterCodec:
                direction: str = "uplink",
                rank: Optional[int] = None) -> Payload:
         codec = self.quantize if direction == "uplink" else "none"
-        flat = flatten_with_paths(tree)
-        if codec == "none":  # each leaf itself when float32
-            tensors = {p: EncodedTensor(x.float()) for p, x in flat.items()}
-        elif codec == "fp16":
-            tensors = {p: EncodedTensor(x.to(torch.float16))
-                       for p, x in flat.items()}
-        else:
-            tensors = dict(zip(flat, _int8_encode(list(flat.values()))))
-        return Payload(round_id=round_id, client_id=client_id,
-                       direction=direction, codec=codec, tensors=tensors,
-                       rank=None if rank is None else int(rank))
+        with self.rec.span("codec.encode", cat="transport", round=round_id,
+                           client=client_id, codec=codec):
+            flat = flatten_with_paths(tree)
+            if codec == "none":  # each leaf itself when float32
+                tensors = {p: EncodedTensor(x.float())
+                           for p, x in flat.items()}
+            elif codec == "fp16":
+                tensors = {p: EncodedTensor(x.to(torch.float16))
+                           for p, x in flat.items()}
+            else:
+                tensors = dict(zip(flat, _int8_encode(list(flat.values()))))
+        payload = Payload(round_id=round_id, client_id=client_id,
+                          direction=direction, codec=codec, tensors=tensors,
+                          rank=None if rank is None else int(rank))
+        if self.rec.enabled:
+            self.rec.counter(f"transport.{direction}_bytes").inc(
+                payload.nbytes)
+            self.rec.counter(f"transport.{direction}_payloads").inc()
+        return payload
 
     @staticmethod
     def _decode_flat(payload: Payload) -> Dict[str, torch.Tensor]:
@@ -325,22 +348,36 @@ class AdapterCodec:
         (raises :class:`TransportError`); a payload the ring refuses
         raises :class:`StaleUplinkError`. ``weight`` is the client's raw
         aggregation weight, which a chunked ring folds in at ingest."""
-        flat = self._decode_flat(payload)
-        self._validate_flat(payload, flat)
-        flat = self._pad_ragged(payload, flat)
-        rank_kw = {} if payload.rank is None else {"rank": payload.rank}
-        ctx = dict(round_id=payload.round_id, client_id=payload.client_id)
-        try:
-            landed = buffers.write_flat(payload.client_id, flat,
-                                        round_id=payload.round_id,
-                                        weight=weight, **rank_kw)
-        except KeyError as e:
-            raise StaleUplinkError(f"unroutable round_id: {e}",
-                                   reason="unroutable", **ctx) from e
-        if not landed:
-            raise StaleUplinkError(
-                "ring refused the write (stale/evicted round or duplicate "
-                "lane)", reason="stale", **ctx)
+        with self.rec.span("codec.decode", cat="transport",
+                           round=payload.round_id, client=payload.client_id,
+                           codec=payload.codec, nbytes=payload.nbytes):
+            flat = self._decode_flat(payload)
+            self._validate_flat(payload, flat)
+            flat = self._pad_ragged(payload, flat)
+            rank_kw = {} if payload.rank is None else {"rank": payload.rank}
+            ctx = dict(round_id=payload.round_id,
+                       client_id=payload.client_id)
+            try:
+                landed = buffers.write_flat(payload.client_id, flat,
+                                            round_id=payload.round_id,
+                                            weight=weight, **rank_kw)
+            except KeyError as e:
+                raise StaleUplinkError(f"unroutable round_id: {e}",
+                                       reason="unroutable", **ctx) from e
+            if not landed:
+                raise StaleUplinkError(
+                    "ring refused the write (stale/evicted round or "
+                    "duplicate lane)", reason="stale", **ctx)
+        now = time.perf_counter_ns()
+        with self._ingest_lock:
+            if self._ingest_t0 is None:
+                self._ingest_t0 = now
+            self._ingest_bytes += payload.nbytes
+            ingest_bytes, t0 = self._ingest_bytes, self._ingest_t0
+        if self.rec.enabled:
+            elapsed_s = max((now - t0) / 1e9, 1e-9)
+            self.rec.gauge("uplink.ingest_bytes_per_s").set(
+                round(ingest_bytes / elapsed_s, 1))
         return unflatten_from_paths(flat)
 
 

@@ -1,6 +1,8 @@
-"""Federated fine-tuning launcher of the port (host mode).
+"""Federated fine-tuning launcher of the port: host mode and the HTTP
+federation service.
 
-Counterpart of ``repro/launch/train.py --mode host`` for what the port runs:
+Counterpart of ``repro/launch/train.py``. ``--mode host`` (the default)
+runs what the port runs:
 every method — ``--method fedex`` with ``--assignment average``,
 ``keep_local`` or ``reinit``, ``--method fedex_svd --svd-rank r'``,
 ``--method hetero`` / ``--client-ranks``, and the paper's baselines
@@ -11,11 +13,22 @@ close), ``--engine off`` (the eager close), DP uploads (``--dp-clip``,
 ``--stragglers``, ``--dropout-prob``), FedBuff commits (``--async-buffer``,
 ``--ring-depth``), the uplink transport (``--quantize-uplink``,
 ``--uplink-max-norm``, ``--no-uplink-validation``, ``--uplink-retries``),
-seeded fault injection (``--faults``) and round-state checkpoints
-(``--checkpoint-dir``, ``--checkpoint-every``, ``--resume``); the measured
-bytes ledger is printed after the run, with its quarantined and dropped
-buckets and each round's quarantined or dropped (client, reason) pairs.
-Runs on CUDA unless ``--device cpu`` is given.
+seeded fault injection (``--faults``), round-state checkpoints
+(``--checkpoint-dir``, ``--checkpoint-every``, ``--resume``) and
+observability (``--obs off|basic|trace``; ``--trace t.json`` writes a
+Chrome trace and implies ``--obs trace``, ``--metrics-out m.jsonl`` writes
+the JSONL stream ``scripts/obs_report.py`` reads and implies ``--obs
+basic``); the measured bytes ledger is printed after the run, with its
+quarantined and dropped buckets and each round's quarantined or dropped
+(client, reason) pairs. Runs on CUDA unless ``--device cpu`` is given.
+
+``--mode serve`` boots the HTTP federation service
+(:mod:`repro_torch.fedsrv.server`) with ``--host``, ``--port`` (0 =
+ephemeral), ``--serve-token``, ``--max-concurrent`` and ``--quota``, prints
+``SERVING http://host:port`` when it is ready, closes rounds as clients POST
+their deltas (``--deadline`` in wall seconds), keeps answering GETs for
+``--linger`` seconds after the last close, and prints the ledger measured
+over HTTP. ``--mode mesh`` is not ported (ROADMAP Queue 1 item 5).
 
 ``--data-vocab`` draws the synthetic corpus from a smaller vocabulary than
 the model's (its transition tensor is dense vocab², ~526 GB at 128,256 and
@@ -49,20 +62,27 @@ Examples (CPU, tiny model):
       --vocab 64 --rounds 1 --checkpoint-dir /tmp/ck   # killed after round 1
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --vocab 64 --rounds 3 --checkpoint-dir /tmp/ck --resume
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --vocab 64 --rounds 3 --participation 0.5 --weighting examples \\
+      --obs trace --trace t.json --metrics-out m.jsonl
+  python scripts/obs_report.py m.jsonl --trace t.json --check
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --vocab 64 --mode serve --port 0 --clients 3 --rounds 2 --linger 5
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import time
 from dataclasses import replace
 
 import numpy as np
 
 from repro_torch.checkpoint import round_state_path
-from repro_torch.configs import (FedConfig, LoRAConfig, TrainConfig,
-                                 get_config, validate_fed_lora)
-from repro_torch.core import FederatedTrainer
+from repro_torch.configs import (FedConfig, LoRAConfig, ServeConfig,
+                                 TrainConfig, get_config, validate_fed_lora)
+from repro_torch.core import FederatedTrainer, init_global_state
 from repro_torch.data import ClientLoader, SyntheticLM, dirichlet_partition
 from repro_torch.models import build_model
 from repro_torch.util.device import resolve_device
@@ -95,11 +115,71 @@ def build_federated_data(vocab: int, num_clients: int, *,
     return loaders, eval_batches
 
 
+def write_obs(rec, args) -> None:
+    """Print the recorder's summary and write ``--trace`` /
+    ``--metrics-out``."""
+    if not rec.enabled:
+        return
+    for line in rec.summary_lines():
+        print(line)
+    if args.trace:
+        rec.write_trace(args.trace)
+        print(f"trace → {args.trace} (Perfetto / chrome://tracing)")
+    if args.metrics_out:
+        rec.write_metrics(args.metrics_out)
+        print(f"metrics JSONL → {args.metrics_out} (scripts/obs_report.py)")
+
+
+def run_serve(args, model, lora_cfg, fed_cfg, device) -> None:
+    """``--mode serve``: boot the HTTP federation service and block until
+    every round closed (or Ctrl-C). The clients train in their own
+    processes; this one ingests deltas, closes rounds and serves the global
+    adapter."""
+    from repro_torch.fedsrv.server import FederationServer, start_http_server
+
+    serve_cfg = ServeConfig(host=args.host, port=args.port,
+                            max_concurrent=args.max_concurrent,
+                            quota_per_round=args.quota,
+                            token=args.serve_token)
+    params, global_lora = init_global_state(model, lora_cfg, seed=args.seed,
+                                            device=device)
+    fed = FederationServer(params, global_lora, scale=lora_cfg.scale,
+                           fed_cfg=fed_cfg, serve_cfg=serve_cfg)
+    httpd = start_http_server(fed, host=serve_cfg.host, port=serve_cfg.port)
+    host, port = httpd.server_address[:2]
+    print(f"SERVING http://{host}:{port}", flush=True)  # the readiness line
+    try:
+        while not fed.done:
+            time.sleep(0.05)
+            fed.tick()  # a passed deadline closes without a POST
+        # the clients still pull the final adapter and the metrics
+        time.sleep(args.linger)
+    except KeyboardInterrupt:
+        print(f"interrupted after {fed.version} close(s)")
+    httpd.shutdown()
+    httpd.server_close()
+    fed.finalize()  # the last divergence, before the metrics are written
+    write_obs(fed.rec, args)
+    if fed.ledger.entries:
+        print("comm ledger (measured over HTTP):")
+        for line in fed.ledger.summary_lines():
+            print("  " + line)
+    print(f"served {fed.version}/{fed_cfg.rounds} round close(s) "
+          f"(C={fed_cfg.num_clients}, method={fed_cfg.method}, "
+          f"device={device})")
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu must be asked for)")
+    ap.add_argument("--mode", default="host",
+                    choices=("host", "serve", "mesh"),
+                    help="host = the coordinator's simulation; serve = the "
+                         "HTTP federation service (clients POST deltas; "
+                         "--deadline means wall seconds); mesh is not "
+                         "ported")
     ap.add_argument("--arch", default="paper-tiny")
     ap.add_argument("--method", default="fedex",
                     choices=("fedex", "fedit", "ffa", "fedex_svd", "hetero",
@@ -189,10 +269,42 @@ def main(argv=None) -> None:
     ap.add_argument("--resume", action="store_true",
                     help="resume from --checkpoint-dir's snapshot (the run "
                          "continues bitwise as if never interrupted)")
+    ap.add_argument("--host", default="127.0.0.1",
+                    help="serve mode: bind address")
+    ap.add_argument("--port", type=int, default=8077,
+                    help="serve mode: bind port (0 = ephemeral, printed)")
+    ap.add_argument("--serve-token", default="",
+                    help="serve mode: shared bearer token ('' = no auth)")
+    ap.add_argument("--max-concurrent", type=int, default=16,
+                    help="serve mode: concurrent uplink decodes before POSTs "
+                         "get 429")
+    ap.add_argument("--quota", type=int, default=4,
+                    help="serve mode: POSTs per (client, round) before 429")
+    ap.add_argument("--linger", type=float, default=15.0,
+                    help="serve mode: seconds to keep answering GETs after "
+                         "the last close")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", default="float32")
     ap.add_argument("--out", default="", help="write round history JSON here")
+    ap.add_argument("--obs", default="", choices=("", "off", "basic", "trace"),
+                    help="observability mode (default off; --trace / "
+                         "--metrics-out imply trace / basic)")
+    ap.add_argument("--trace", default="",
+                    help="write a Chrome trace-event JSON here (Perfetto); "
+                         "implies --obs trace")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the metrics / round-record JSONL stream here "
+                         "(scripts/obs_report.py reads it); implies --obs "
+                         "basic")
     args = ap.parse_args(argv)
+    obs_mode = args.obs or ("trace" if args.trace
+                            else ("basic" if args.metrics_out else "off"))
+    if args.trace and obs_mode != "trace":
+        ap.error(f"--trace requires --obs trace (got --obs {obs_mode})")
+    if args.mode == "mesh":
+        raise NotImplementedError(
+            "--mode mesh (co-scheduled client lanes) is not ported yet "
+            "(ROADMAP Queue 1 item 5)")
 
     device = resolve_device(args.device)
     lora_cfg = LoRAConfig(rank=args.rank, alpha=args.alpha,
@@ -219,7 +331,7 @@ def main(argv=None) -> None:
                         uplink_validation=not args.no_uplink_validation,
                         uplink_retries=args.uplink_retries,
                         checkpoint_dir=args.checkpoint_dir,
-                        checkpoint_every=args.checkpoint_every)
+                        checkpoint_every=args.checkpoint_every, obs=obs_mode)
     validate_fed_lora(fed_cfg, lora_cfg)
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume requires --checkpoint-dir")
@@ -228,6 +340,9 @@ def main(argv=None) -> None:
         cfg = replace(cfg, vocab_size=args.vocab)
     cfg = replace(cfg, dtype=args.dtype)
     model = build_model(cfg)
+    if args.mode == "serve":
+        run_serve(args, model, lora_cfg, fed_cfg, device)
+        return
     loaders, eval_batches = build_federated_data(
         args.data_vocab or cfg.vocab_size, args.clients, seq_len=args.seq_len,
         alpha=args.dirichlet_alpha, seed=args.seed,
@@ -266,6 +381,7 @@ def main(argv=None) -> None:
         if out.quarantined:
             print(f"round={out.round_id} quarantined or dropped "
                   f"(client, reason): {out.quarantined}")
+    write_obs(trainer.recorder, args)
     if args.out:
         with open(args.out, "w") as f:
             json.dump([r.__dict__ for r in history], f, indent=2)

@@ -575,8 +575,6 @@ def test_faults_refused_where_uploads_never_cross_the_uplink():
         with pytest.raises(ValueError, match="faults"):
             _trainer(FedConfig(num_clients=2, rounds=1, faults="nan@1",
                                **kw), clients=2)
-    with pytest.raises(NotImplementedError, match="obs"):
-        _trainer(FedConfig(num_clients=2, rounds=1, obs="basic"), clients=2)
 
 
 def test_hetero_round_with_no_delivery_raises_as_the_reference():

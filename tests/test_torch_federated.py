@@ -171,7 +171,6 @@ COORDINATED = [{"participation": 0.5}, {"min_quorum": 1},
 
 
 @pytest.mark.parametrize("fed_kw,error", [
-    ({"obs": "basic"}, NotImplementedError),
     ({"method": "centralized", "faults": "nan@0.5"}, ValueError),
     ({"method": "hetero", "engine": "off", "faults": "nan@0.5"}, ValueError),
     ({"method": "hetero", "dp_clip": 1.0}, ValueError),
