@@ -55,12 +55,23 @@ class ClientInfo:
 
 
 class SimClock:
-    """Deterministic simulated clock (seconds). Monotone, replayable."""
+    """Deterministic simulated clock (seconds). Monotone, replayable.
 
-    def __init__(self, start: float = 0.0):
+    ``now_fn`` (e.g. ``time.monotonic``) pins the clock to wall time:
+    :meth:`now` returns the real seconds elapsed since construction, so the
+    HTTP service's round deadlines (``deadline = now() + round_deadline``)
+    run on the coordinator's arithmetic in real seconds. ``advance`` /
+    ``advance_to`` raise the monotone floor in both modes."""
+
+    def __init__(self, start: float = 0.0, now_fn=None):
         self._t = float(start)
+        self._now_fn = now_fn
+        # maps now_fn()'s epoch onto the clock's axis (the floor _t stays)
+        self._wall0 = None if now_fn is None else float(now_fn()) - self._t
 
     def now(self) -> float:
+        if self._now_fn is not None:
+            self._t = max(self._t, float(self._now_fn()) - self._wall0)
         return self._t
 
     def advance_to(self, t: float) -> float:
@@ -74,10 +85,14 @@ class SimClock:
         return self._t
 
     def state_dict(self) -> dict:
-        return {"t": self._t}
+        return {"t": self.now()}
 
     def load_state(self, state: dict) -> None:
+        """Restore the exact float; in wall mode it becomes the new origin
+        (elapsed time accrues on top)."""
         self._t = float(state["t"])
+        if self._now_fn is not None:
+            self._wall0 = float(self._now_fn()) - self._t
 
 
 @dataclass(frozen=True)

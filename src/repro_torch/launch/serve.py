@@ -10,13 +10,18 @@ the flash attention kernel (B8); both take float32 only, so the model runs
 in float32. Runs on CUDA unless ``--device cpu`` is given (the CPU runs the
 kernels' plain versions).
 
-``--pull-from`` (fetch the federation server's current adapter) waits for
-the port of the HTTP client (ROADMAP Queue 1 item 4).
+``--pull-from URL`` fetches the global adapter a running federation server
+(``repro_torch.launch.train --mode serve``) holds now, through
+:meth:`~repro_torch.fedsrv.client.FedClient.pull_latest`, and generates with
+it on the model's own drawn base, as the reference does (the arch and rank
+must match the server's).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch paper-tiny --batch-size 2 --prompt-len 32 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch paper-gpt2-smoke --batch-size 2 --prompt-len 32 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch paper-tiny --pull-from http://127.0.0.1:8077
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 from repro_torch.configs import LoRAConfig, get_config
 from repro_torch.core.lora import init_lora
 from repro_torch.data import make_batch_for
+from repro_torch.fedsrv.client import FedClient
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import build_model
 from repro_torch.util.device import resolve_device
@@ -53,12 +59,14 @@ def serve(arch: str, *, batch_size: int = 2, prompt_len: int = 32,
           steps: int = 8, max_len: int = 128, rank: int = 4,
           use_lora: bool = True, seed: int = 0, device="cuda",
           params: Optional[dict] = None,
-          lora: Optional[dict] = None) -> ServeResult:
+          lora: Optional[dict] = None, pull_from: str = "") -> ServeResult:
     """Prefill a ``make_batch_for`` prompt of ``prompt_len`` tokens, then
     ``steps`` greedy decode steps against a bf16 cache of ``max_len``
     positions. ``params`` / ``lora`` default to the port's own draws from
     ``seed`` (``lora``: ``init_lora`` from ``seed + 1`` unless
-    ``use_lora=False``; a given ``lora`` is served as it is)."""
+    ``use_lora=False``; a given ``lora`` is served as it is).
+    ``pull_from`` (a federation server's URL) serves the global adapter
+    pulled from it instead."""
     dev = resolve_device(device)
     cfg = replace(get_config(arch), dtype="float32")
     model = build_model(cfg)
@@ -67,6 +75,11 @@ def serve(arch: str, *, batch_size: int = 2, prompt_len: int = 32,
         gen.manual_seed(seed)
         params = model.init(gen, dev)
     lora_cfg = LoRAConfig(rank=rank)
+    if pull_from:
+        pulled = FedClient(pull_from, client_id=-1, device=dev).pull_latest()
+        lora = pulled.lora
+        print(f"pulled global adapter v{pulled.version} from {pull_from} "
+              f"(W0 digest {pulled.w0_digest[:12]}…)")
     if lora is None and use_lora:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed + 1)
@@ -119,17 +132,14 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--no-lora", action="store_true")
     ap.add_argument("--pull-from", default="",
-                    help="federation server URL (not ported: ROADMAP Queue 1 "
-                         "item 4)")
+                    help="serve the global adapter of the federation server "
+                         "at this URL (train --mode serve)")
     args = ap.parse_args(argv)
-    if args.pull_from:
-        raise NotImplementedError(
-            "--pull-from needs the federation HTTP client, which the port "
-            "does not have yet (ROADMAP Queue 1 item 4)")
     res = serve(args.arch, batch_size=args.batch_size,
                 prompt_len=args.prompt_len, steps=args.steps,
                 max_len=args.max_len, rank=args.rank,
-                use_lora=not args.no_lora, seed=args.seed, device=args.device)
+                use_lora=not args.no_lora, seed=args.seed, device=args.device,
+                pull_from=args.pull_from)
     print(f"arch={args.arch} device={args.device} prefill="
           f"{res.prefill_ms:.1f} ms decode={res.decode_ms:.1f} ms "
           f"({res.ms_per_token:.2f} ms/token)")
