@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --launch-cost SRC   # the launch-path costs only
     python3 chip_smoke.py --decode-sweep      # B3's split-K plans
+    python3 chip_smoke.py --obs-http          # phase 6 alone
 
 Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
 ``sys.path`` itself and runs, each phase raising on failure:
@@ -171,7 +172,37 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    just before, printing prefill ms, decode ms/token, tokens/s and peak
    memory, and a ``torch.profiler`` breakdown of one prefill and one decode
    step (device time by kernel, busy share);
-6. one JSON line with every ported kernel: ``ms`` and ``library_ms``
+6. obs and the HTTP federation service at ``paper-llama3.2-3b``'s full width
+   (:func:`obs_http_phase`, ``[obs]`` / ``[http]`` lines), each path with
+   the counters set to 0 just before it and read just after:
+   * fedex+obs: the fedex path (4 clients, 2 local steps, 1 uniform round
+     then 2 at 50% with example weights) with ``obs="trace"`` and again
+     with ``obs="off"``: the global adapter and the 4 adapted W0 leaves
+     bitwise equal, ``fedex_fold`` 4 and ``factor_mean`` 1 a weighted
+     close in both, the same number of synchronising calls in the last
+     weighted close (``torch.cuda.set_sync_debug_mode("warn")``), every
+     round ``comm_match`` 1, each round's ``close_dispatch_us`` and
+     ``close_block_us`` printed, and ``scripts/obs_report.py --check
+     --trace`` (a subprocess) on the streams, written under ``build/``;
+   * serve-http: a ``FederationServer`` on 127.0.0.1 (an ephemeral port),
+     fedex, 4 clients, 2 rounds, example weights, ``obs="trace"``; four
+     ``FedClient`` threads POST seeded deltas at the adapter's shapes (b ≠
+     0; 9.2 MB each); ``pull_latest``'s adapter and ``X-Fed-W0-Digest``
+     bitwise equal to an in-process twin engine (its own W0) fed the same
+     payloads through ``decode_into``; ``fedex_fold`` 4 and ``factor_mean``
+     1 a close; statuses 401, 403, 400, 409, 422, 429 and 410 probed once
+     each; the server's metrics through ``obs_report.py --check``; the POST
+     latency, the close's dispatch / block split, the digest seconds and
+     the HTTP and overhead bytes printed;
+   * pull-serve: ``serve(pull_from=url)`` (batch 2, prompt 32, 4 steps;
+     ``lora_matmul`` 112 a prefill and a decode step, ``flash_swa`` 28) on
+     the still-running server generates the tokens of ``serve`` given the
+     twin's adapter;
+   * serve-http-hetero: a hetero server (client ranks 4, 2, 1, 3, 1 round)
+     fed ragged POSTs that carry their rank, after the first server is
+     freed: every client's base and rank-rᵢ adapter and the hetero digest
+     bitwise the twin's; ``hetero_fold`` 4;
+7. one JSON line with every ported kernel: ``ms`` and ``library_ms``
    host-inclusive, ``device_ms`` and ``library_device_ms`` the profiler's
    device time, at the main body; B2's row adds one close's launch path
    (``close_wall_us``, ``close_enqueue_us``: :func:`launch_cost`), B3's
@@ -189,7 +220,8 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
 ``--launch-cost SRC`` runs :func:`launch_cost` alone on the port found
 under ``SRC`` (another tree's ``src`` too, to compare two trees in one
 call) and prints it as one JSON line; ``--decode-sweep`` times B3's
-split-K body at every plan (:func:`decode_sweep`).
+split-K body at every plan (:func:`decode_sweep`); ``--obs-http`` runs
+phase 6 alone (:func:`obs_http_phase`).
 
 Identities, per adapted leaf, on the last round of each path:
 * fedex: new_W0 + s·ā b̄ = old_W0 + s·Σ_c w_c a_c b_c;
@@ -355,7 +387,12 @@ class Timer:
     def device(self, fn) -> float:
         for _ in range(WARMUP):
             fn()
-        act = self._activity(fn, REPS)
+        # a profiling window that records no device activity at all (not
+        # even the flush's) is taken again, at most twice
+        for _ in range(3):
+            act = self._activity(fn, REPS)
+            if act:
+                break
         ms = sum(v for k, v in act.items() if k not in self.flush_names)
         if ms <= 0:
             raise AssertionError(f"the profiler saw no device activity of "
@@ -2781,6 +2818,587 @@ def serve_phase(torch, kernels, device, cfg):
 
 
 # --------------------------------------------------------------------------
+# phase 6: obs and the HTTP federation service
+# --------------------------------------------------------------------------
+
+OBS_RUN = {"clients": 4, "rounds": 3, "local_steps": 2}
+HTTP_RUN = {"clients": 4, "rounds": 2}
+HTTP_EXAMPLES = (120, 40, 200, 80)  # the clients' X-Fed-Examples
+HTTP_HETERO_RANKS = (4, 2, 1, 3)
+PULL_SERVE = {"batch_size": 2, "prompt_len": 32, "steps": 4}
+
+
+def _sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _free(torch, device):
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def obs_report(paths, *flags):
+    """``scripts/obs_report.py`` on ``paths`` (metrics, trace) as a
+    subprocess; raises unless it exits 0; returns its last line."""
+    metrics, trace = paths
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "scripts" / "obs_report.py"),
+         str(metrics), "--trace", str(trace), *flags],
+        capture_output=True, text=True, timeout=300)
+    last = (proc.stdout.strip().splitlines() or [""])[-1]
+    if proc.returncode != 0:
+        raise AssertionError(f"obs_report.py {' '.join(flags)} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}")
+    return last
+
+
+def write_obs(rec, tmp: Path, name: str):
+    """The recorder's JSONL stream and Chrome trace under ``tmp``."""
+    paths = (tmp / f"{name}_metrics.jsonl", tmp / f"{name}_trace.json")
+    rec.write_metrics(str(paths[0]))
+    rec.write_trace(str(paths[1]))
+    return paths
+
+
+def obs_trainer_run(torch, device, cfg, obs, syncs, *, batch=8, seq=64,
+                    data_vocab=512):
+    """The fedex path's setup (``OBS_RUN``: round 0 uniform over every
+    client, later rounds at 50% with example weights, changed inside one
+    ``run()`` so that every divergence resolves at the next round's
+    boundary) with ``obs``. The last weighted close runs under
+    ``torch.cuda.set_sync_debug_mode("warn")``: the (file, line) of each of
+    its synchronising calls goes into ``syncs``. Returns the trainer."""
+    import warnings
+
+    from repro_torch.configs import FedConfig, LoRAConfig, TrainConfig
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.fedsrv import RoundPolicy
+    from repro_torch.launch.train import build_federated_data
+    from repro_torch.models import build_model
+
+    k, rounds, steps = (OBS_RUN[x] for x in ("clients", "rounds",
+                                             "local_steps"))
+    loaders, evals = build_federated_data(data_vocab, k, seq_len=seq,
+                                          batch_size=batch, device=device)
+    trainer = FederatedTrainer(
+        model=build_model(cfg), lora_cfg=LoRAConfig(rank=4, alpha=8.0),
+        fed_cfg=FedConfig(num_clients=k, rounds=rounds, local_steps=steps,
+                          obs=obs),
+        train_cfg=TrainConfig(learning_rate=5e-3, schedule="constant",
+                              total_steps=rounds * steps),
+        client_loaders=loaders, eval_batches=evals, seed=0, device=device)
+    coord, eng = trainer.coordinator, trainer.engine
+    run_round, close = coord.run_round, eng.close
+
+    def staged(round_id, *args, **kw):
+        if round_id >= 1:
+            coord.policy = RoundPolicy(participation=0.5,
+                                       weighting="examples")
+        return run_round(round_id, *args, **kw)
+
+    def counted(*args, **kw):
+        if kw.get("round_id") != rounds - 1 or device.type != "cuda":
+            return close(*args, **kw)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return close(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                syncs.extend(f"{Path(w.filename).name}:{w.lineno}"
+                             for w in caught
+                             if "synchroniz" in str(w.message))
+
+    coord.run_round, eng.close = staged, counted
+    trainer.run()
+    _sync(torch, device)
+    return trainer
+
+
+def obs_path(torch, kernels, device, cfg, tmp: Path, check=check_launches):
+    """``fedex+obs``: the fedex path with ``obs="trace"`` against the same
+    run with ``obs="off"``, each with the counters set to 0 just before it:
+    the global adapter and the adapted W0 leaves bitwise equal, the same
+    launches (``fedex_fold`` 4 and ``factor_mean`` 1 a weighted close), the
+    same synchronising calls in the last weighted close, every closed round
+    ``comm_match`` 1, and ``scripts/obs_report.py --check --trace`` on the
+    streams. Returns (launches, stats)."""
+    from repro_torch.core.engine import collect_w0_leaves
+
+    import warnings
+
+    n_leaves = len(main_path_leaves(cfg))
+    weighted = OBS_RUN["rounds"] - 1
+    want = {"fedex_fold": n_leaves * weighted, "factor_mean": weighted}
+    launches = {name: 0 for name in SOURCES}
+    out, leaves, syncs, secs = {}, {}, {}, {}
+    if device.type == "cuda":
+        # the process's first sync-debug window counts one call more,
+        # whichever run comes first (a one-time effect, not obs's)
+        with warnings.catch_warnings(record=True):
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            torch.zeros(1).to(device)
+            torch.cuda.set_sync_debug_mode("default")
+    for obs in ("trace", "off"):
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        syncs[obs] = []
+        trainer = obs_trainer_run(torch, device, cfg, obs, syncs[obs])
+        secs[obs] = time.perf_counter() - t
+        counts = check(kernels, f"fedex+obs[{obs}]", want,
+                       f"; {secs[obs]:.1f} s")
+        for key, v in counts.items():
+            launches[key] += v
+        leaves[obs] = {**{f"global {p}": x for p, x in
+                          _flat(trainer.global_lora).items()},
+                       **{f"W0 {key}": x for key, x in collect_w0_leaves(
+                           trainer.engine.specs, trainer.params).items()}}
+        if obs == "trace":
+            rec = trainer.recorder
+            recs = rec.round_records()
+            closed = [r for r in recs if "close_dispatch_us" in r]
+            out["rounds"] = [{key: r.get(key) for key in (
+                "round", "delivered", "close_dispatch_us", "close_block_us",
+                "peak_bytes", "comm_match")} for r in recs]
+            for r in out["rounds"]:
+                print(f"  [obs] fedex+obs round {r['round']}: delivered "
+                      f"{r['delivered']}, close_dispatch_us "
+                      f"{r['close_dispatch_us']}, close_block_us "
+                      f"{r['close_block_us']}, peak_bytes {r['peak_bytes']}, "
+                      f"comm_match {r['comm_match']}", flush=True)
+            if len(closed) != OBS_RUN["rounds"] or any(
+                    r.get("comm_match") != 1 for r in closed):
+                raise AssertionError(f"fedex+obs: closed rounds {closed}")
+            paths = write_obs(rec, tmp, "fedex_obs")
+            out["obs_report"] = obs_report(paths, "--check")
+            out["spans"] = len(rec.tracer.spans)
+            print(f"  [obs] obs_report.py --check --trace: "
+                  f"{out['obs_report']} ({out['spans']} spans)", flush=True)
+        del trainer
+        _free(torch, device)
+    same = leaves["trace"].keys() == leaves["off"].keys() and all(
+        torch.equal(x, leaves["off"][k]) for k, x in leaves["trace"].items())
+    print(f"  [obs] obs=trace == obs=off bitwise over "
+          f"{len(leaves['trace'])} leaves (the global adapter and W0): "
+          f"{same}; synchronising calls in the last weighted close: trace "
+          f"{syncs['trace']}, off {syncs['off']}; run seconds trace "
+          f"{secs['trace']:.1f}, off {secs['off']:.1f}", flush=True)
+    if not same:
+        raise AssertionError("fedex+obs: obs=trace differs from obs=off")
+    if syncs["trace"] != syncs["off"]:
+        raise AssertionError(f"fedex+obs: obs=trace syncs {syncs['trace']} "
+                             f"!= obs=off {syncs['off']}")
+    out.update(syncs_trace=syncs["trace"], syncs_off=syncs["off"],
+               seconds_trace=secs["trace"], seconds_off=secs["off"])
+    return launches, out
+
+
+def http_deltas(torch, glob, rnd: int, cid: int, rank=None):
+    """Client ``cid``'s seeded round-``rnd`` delta at the adapter's shapes
+    (a and b ~ N(0, 0.02²), so b ≠ 0; a ragged client's leading ``rank``
+    columns / rows)."""
+    from repro_torch.util.tree import flatten_with_paths
+
+    flat = flatten_with_paths(glob)
+    gen = torch.Generator(device=next(iter(flat.values())).device)
+    gen.manual_seed(1000 * rnd + cid)
+    out = {}
+    for p, x in flat.items():
+        shape = list(x.shape)
+        if rank is not None:
+            shape[-1 if p.endswith("/a") else -2] = rank
+        out[p] = torch.empty(shape, device=x.device).normal_(
+            0.0, 0.02, generator=gen)
+    return _unflat(out)
+
+
+def w0_gb(specs) -> float:
+    """GB of one copy of the adapted W0 leaves (what a digest hashes)."""
+    return sum(4 * math.prod(s.w0_shape) for s in specs) / 1e9
+
+
+def post_round(clients, deltas, rnd, ranks=None):
+    """Every client POSTs its delta from its own thread, all started behind
+    one barrier; returns the POSTs' seconds (host clock)."""
+    import threading
+
+    secs, errors = [None] * len(clients), []
+    barrier = threading.Barrier(len(clients))
+
+    def go(i):
+        try:
+            barrier.wait()
+            t = time.perf_counter()
+            resp = clients[i].submit_delta(
+                deltas[i], round_id=rnd,
+                rank=None if ranks is None else ranks[i])
+            secs[i] = time.perf_counter() - t
+            if resp["status"] != "accepted":
+                errors.append(resp)
+        except Exception as e:  # raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(clients))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(s is None for s in secs):
+        raise AssertionError(f"round {rnd} POSTs failed: {errors}")
+    return secs
+
+
+def http_server(torch, device, cfg, fed_kw, token=""):
+    """A ``FederationServer`` at ``cfg``'s full width on 127.0.0.1 (an
+    ephemeral port) over ``init_global_state``'s seed-0 draws, and the
+    twin's params: the same leaves with the adapted W0 leaves cloned.
+    Returns (server, httpd, url, twin params, global template)."""
+    from repro_torch.configs import FedConfig, LoRAConfig, ServeConfig
+    from repro_torch.core.engine import (build_factor_specs,
+                                         collect_w0_leaves, fold_back_w0)
+    from repro_torch.core.lora import init_global_state
+    from repro_torch.fedsrv.server import FederationServer, start_http_server
+    from repro_torch.models import build_model
+
+    lcfg = LoRAConfig(rank=4, alpha=8.0)
+    params, glob = init_global_state(build_model(cfg), lcfg, seed=0,
+                                     device=device)
+    specs = build_factor_specs(params, glob)
+    twin_params = fold_back_w0(specs, params, {
+        k: x.clone() for k, x in collect_w0_leaves(specs, params).items()})
+    srv = FederationServer(params, glob, scale=lcfg.scale,
+                           fed_cfg=FedConfig(obs="trace", **fed_kw),
+                           serve_cfg=ServeConfig(port=0, token=token,
+                                                 quota_per_round=2))
+    httpd = start_http_server(srv, port=0)
+    _sync(torch, device)
+    return (srv, httpd, f"http://127.0.0.1:{httpd.server_address[1]}",
+            twin_params, glob)
+
+
+def http_probe(name, want, fn):
+    """One status probe: ``fn`` must raise the transport error with
+    ``want``'s (type, reason)."""
+    from repro_torch.fedsrv import StaleUplinkError, TransportError
+
+    try:
+        fn()
+    except (StaleUplinkError, TransportError) as e:
+        got = (type(e).__name__, e.reason)
+    else:
+        got = ("accepted", "")
+    print(f"  [http] probe {name}: {got}", flush=True)
+    if got != want:
+        raise AssertionError(f"probe {name}: {got} != {want}")
+
+
+def http_status_probes(torch, srv, url, glob, phase):
+    """``phase`` "open" (round 0 open): 401, 403, 400 (the payload's round
+    is not the path's), 422 (a NaN uplink); "closed" (round 0 closed):
+    409 (a round-0 POST), 429 (client 0's third round-0 POST); "done":
+    410."""
+    import urllib.error
+    import urllib.request
+
+    from repro_torch.fedsrv import AdapterCodec, FedClient
+    from repro_torch.fedsrv.wire import payload_to_wire
+
+    dev = srv.device
+
+    def client(cid, **kw):
+        return FedClient(url, cid, token=kw.pop("token", "tok"), retries=0,
+                         device=dev, **kw)
+
+    delta = http_deltas(torch, glob, 0, 0)
+    if phase == "open":
+        http_probe("401 bad token", ("TransportError", "auth"),
+                   lambda: client(0, token="wrong").submit_delta(
+                       delta, round_id=0))
+        http_probe("403 unknown client", ("TransportError",
+                                          "unknown_client"),
+                   lambda: client(99).submit_delta(delta, round_id=0))
+        body = payload_to_wire(AdapterCodec("none").encode(
+            delta, round_id=1, client_id=0))
+        req = urllib.request.Request(
+            f"{url}/v1/rounds/0/deltas", data=body, method="POST",
+            headers={"Authorization": "Bearer tok"})
+        try:
+            urllib.request.urlopen(req, timeout=120)
+            code = 200
+        except urllib.error.HTTPError as e:
+            code = e.code
+        print(f"  [http] probe 400 payload round 1 on path round 0: {code}",
+              flush=True)
+        if code != 400:
+            raise AssertionError(f"probe 400: HTTP {code}")
+        nan = http_deltas(torch, glob, 0, 3)
+        next(iter(_flat(nan).values())).view(-1)[0] = float("nan")
+        http_probe("422 NaN uplink", ("TransportError", "nonfinite"),
+                   lambda: client(3).submit_delta(nan, round_id=0))
+    elif phase == "closed":
+        http_probe("409 round-0 POST after its close",
+                   ("StaleUplinkError", "stale"),
+                   lambda: client(0).submit_delta(delta, round_id=0))
+        http_probe("429 quota", ("TransportError", "retries_exhausted"),
+                   lambda: client(0).submit_delta(delta, round_id=0))
+    else:
+        http_probe("410 after the last close", ("StaleUplinkError", "done"),
+                   lambda: client(0).submit_delta(delta, round_id=2))
+
+
+def twin_feed(twin, codec, deltas, rnd, ranks=None):
+    """The twin's round ``rnd``: every client's payload (the codec's encode
+    of the same delta) through ``decode_into``, as the server's ingest."""
+    twin.buffers.begin_round({i: i for i in range(len(deltas))},
+                             round_id=rnd)
+    for i, d in enumerate(deltas):
+        codec.decode_into(codec.encode(
+            d, round_id=rnd, client_id=i,
+            rank=None if ranks is None else ranks[i]), twin.buffers)
+
+
+def digest_beside(fn, pull):
+    """``pull()`` (the server hashes its W0 in its handler thread) while
+    ``fn()`` hashes the twin's here; hashlib releases the GIL. Returns
+    (pull result, fn result, fn's seconds)."""
+    import threading
+
+    box = {}
+    th = threading.Thread(target=lambda: box.update(pull=pull()))
+    th.start()
+    t = time.perf_counter()
+    mine = fn()
+    secs = time.perf_counter() - t
+    th.join(timeout=600)
+    if "pull" not in box:
+        raise AssertionError("pull_latest failed")
+    return box["pull"], mine, secs
+
+
+def http_path(torch, kernels, device, cfg, tmp: Path, check=check_launches):
+    """``serve-http`` then ``pull-serve``: a fedex server over 2 rounds of
+    4 clients' POSTs (example weights, obs trace) against an in-process
+    twin engine fed the same payloads, every status probed once, the
+    server's metrics through ``obs_report.py --check``; then
+    ``serve(pull_from=url)`` against ``serve`` given the twin's adapter.
+    Returns (launches, stats)."""
+    from repro_torch.configs import LoRAConfig
+    from repro_torch.core.engine import RoundCloseEngine
+    from repro_torch.fedsrv import AdapterCodec, FedClient
+    from repro_torch.fedsrv.server import w0_digest
+    from repro_torch.launch.serve import serve
+
+    k, rounds = HTTP_RUN["clients"], HTTP_RUN["rounds"]
+    n_leaves = len(main_path_leaves(cfg))
+    launches = {name: 0 for name in SOURCES}
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    srv, httpd, url, twin_params, glob = http_server(
+        torch, device, cfg, dict(num_clients=k, rounds=rounds,
+                                 weighting="examples"), token="tok")
+    stats = {"setup_s": time.perf_counter() - t0}
+    clients = [FedClient(url, i, token="tok", num_examples=HTTP_EXAMPLES[i],
+                         device=device) for i in range(k)]
+    deltas = [[http_deltas(torch, glob, rnd, i) for i in range(k)]
+              for rnd in range(rounds)]
+    post_s = []
+    try:
+        http_status_probes(torch, srv, url, glob, "open")
+        for rnd in range(rounds):
+            post_s += post_round(clients, deltas[rnd], rnd)
+            if rnd == 0:
+                http_status_probes(torch, srv, url, glob, "closed")
+        _sync(torch, device)
+        counts = check(kernels, "serve-http", {
+            "fedex_fold": n_leaves * rounds, "factor_mean": rounds},
+            f" ({rounds} closes)")
+        for key, v in counts.items():
+            launches[key] += v
+        http_status_probes(torch, srv, url, glob, "done")
+        # the twin: its own W0, the same payloads through decode_into
+        twin = RoundCloseEngine(twin_params, glob, c_max=k,
+                                scale=srv.engine.scale)
+        codec = AdapterCodec("none")
+        tparams, tglob = twin_params, None
+        ns = [float(n) for n in HTTP_EXAMPLES]
+        for rnd in range(rounds):
+            twin_feed(twin, codec, deltas[rnd], rnd)
+            tglob, tparams, div = twin.close(
+                tparams, list(range(k)), [n / sum(ns) for n in ns],
+                round_id=rnd)
+            div.resolve()
+        pull, twin_digest, twin_digest_s = digest_beside(
+            lambda: w0_digest(twin.specs, tparams), clients[0].pull_latest)
+        same = all(torch.equal(x, _flat(tglob)[p])
+                   for p, x in _flat(pull.lora).items())
+        print(f"  [http] pull_latest v{pull.version} == twin's global "
+              f"adapter bitwise: {same}; X-Fed-W0-Digest "
+              f"{pull.w0_digest[:16]}… == twin's: "
+              f"{pull.w0_digest == twin_digest} (server digest "
+              f"{srv.digest_s:.2f} s, twin's {twin_digest_s:.2f} s, "
+              f"{w0_gb(twin.specs):.2f} GB each)", flush=True)
+        if not same or pull.w0_digest != twin_digest or pull.version != 2:
+            raise AssertionError("serve-http differs from its twin")
+        srv.finalize()
+        rec = srv.rec
+        recs = rec.round_records()
+        counters = rec.metrics.snapshot()["counters"]
+        stats.update(
+            post_ms_median=1e3 * statistics.median(post_s),
+            post_ms_max=1e3 * max(post_s),
+            close_ms=[(r["close_dispatch_us"] + r["close_block_us"]) / 1e3
+                      for r in recs],
+            close_dispatch_us=[r["close_dispatch_us"] for r in recs],
+            close_block_us=[r["close_block_us"] for r in recs],
+            digest_s=srv.digest_s, twin_digest_s=twin_digest_s,
+            http_bytes=counters["uplink.http_bytes"],
+            http_overhead_bytes=counters["uplink.http_overhead_bytes"],
+            uplink_bytes=srv.ledger.totals()["uplink_bytes"],
+            payload_bytes=4 * sum(x.numel() for x in _flat(glob).values()),
+            pull_nbytes=pull.nbytes)
+        stats["obs_report"] = obs_report(write_obs(rec, tmp, "serve_http"),
+                                         "--check")
+        print(f"  [http] serve-http: POST latency median "
+              f"{stats['post_ms_median']:.1f} ms, max "
+              f"{stats['post_ms_max']:.1f} ms ({len(post_s)} honest POSTs of "
+              f"{stats['payload_bytes']} B from {k} threads); close ms "
+              f"{[round(x, 2) for x in stats['close_ms']]} (dispatch us "
+              f"{stats['close_dispatch_us']}, block us "
+              f"{stats['close_block_us']}); HTTP bytes "
+              f"{stats['http_bytes']}, overhead {stats['http_overhead_bytes']}"
+              f", uplink payload bytes {stats['uplink_bytes']}; "
+              f"obs_report.py --check: {stats['obs_report']}", flush=True)
+        # pull-serve: serve() on its own drawn base with the pulled adapter
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        pulled = serve(cfg.name, device=device, pull_from=url, rank=4,
+                       seed=0, **PULL_SERVE)
+        stats["pull_serve_s"] = time.perf_counter() - t
+        L = cfg.num_layers
+        counts = check(kernels, "pull-serve", {
+            "lora_matmul": 4 * L * (1 + PULL_SERVE["steps"]),
+            "flash_swa": L}, f"; {stats['pull_serve_s']:.1f} s")
+        for key, v in counts.items():
+            launches[key] += v
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    direct = serve(cfg.name, device=device, lora=tglob, rank=4, seed=0,
+                   **PULL_SERVE)
+    same = bool((pulled.tokens == direct.tokens).all())
+    print(f"  [http] pull-serve tokens == serve with the twin's adapter: "
+          f"{same} (first row {pulled.tokens[0].tolist()})", flush=True)
+    if not same:
+        raise AssertionError("pull-serve tokens differ from the twin's")
+    del srv, twin, tparams, twin_params, glob, tglob, deltas, pull, clients
+    _free(torch, device)
+    return launches, stats
+
+
+def http_hetero_path(torch, kernels, device, cfg, check=check_launches):
+    """``serve-http-hetero``: a hetero server (ranks ``HTTP_HETERO_RANKS``,
+    1 round), ragged POSTs carrying their rank, against an in-process twin:
+    every client's base and rank-rᵢ adapter and the hetero digest bitwise
+    the twin's; ``hetero_fold`` 4. Returns (launches, stats)."""
+    from repro_torch.core.engine import (RoundCloseEngine, collect_w0_leaves,
+                                         fold_back_w0)
+    from repro_torch.fedsrv import AdapterCodec, FedClient
+    from repro_torch.fedsrv.server import hetero_w0_digest
+
+    k, ranks = len(HTTP_HETERO_RANKS), HTTP_HETERO_RANKS
+    launches = {name: 0 for name in SOURCES}
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    srv, httpd, url, twin_params, glob = http_server(
+        torch, device, cfg, dict(num_clients=k, rounds=1, method="hetero",
+                                 client_ranks=ranks))
+    stats = {"setup_s": time.perf_counter() - t0}
+    deltas = [http_deltas(torch, glob, 0, i, ranks[i]) for i in range(k)]
+    try:
+        clients = [FedClient(url, i, device=device) for i in range(k)]
+        post_s = post_round(clients, deltas, 0, ranks)
+        _sync(torch, device)
+        counts = check(kernels, "serve-http-hetero",
+                       {"hetero_fold": len(main_path_leaves(cfg))})
+        for key, v in counts.items():
+            launches[key] += v
+        specs = srv.engine.specs
+        twin = RoundCloseEngine(twin_params, glob, c_max=k,
+                                scale=srv.engine.scale, method="hetero",
+                                client_ranks=list(ranks))
+        bases = [fold_back_w0(specs, twin_params, {
+            key: x.clone() for key, x in
+            collect_w0_leaves(specs, twin_params).items()}) for _ in ranks]
+        codec = AdapterCodec("none")
+        codec.register_spec(glob)  # pads the ragged payloads, as the server
+        twin_feed(twin, codec, deltas, 0, ranks)
+        new_cp, loras, tglob, div = twin.close_hetero(bases, list(range(k)),
+                                                      round_id=0)
+        div.resolve()
+        bases = [new_cp[i] for i in range(k)]
+        pull, twin_digest, twin_digest_s = digest_beside(
+            lambda: hetero_w0_digest(specs, bases), clients[0].pull_latest)
+        same = {
+            "global": all(torch.equal(x, _flat(tglob)[p])
+                          for p, x in _flat(pull.lora).items()),
+            "bases": all(torch.equal(w, collect_w0_leaves(
+                specs, bases[i])[key]) for i in range(k) for key, w in
+                collect_w0_leaves(specs, srv.client_params[i]).items()),
+            "adapters": all(torch.equal(x, _flat(loras[i])[p])
+                            for i in range(k) for p, x in
+                            _flat(srv.client_loras[i]).items()),
+            "digest": pull.w0_digest == twin_digest}
+        widths = {i: tuple(_flat(srv.client_loras[i]).values())[0].shape[-1]
+                  for i in range(k)}
+        print(f"  [http] serve-http-hetero (ranks {list(ranks)}, adapter "
+              f"widths {widths}): bitwise the twin's {same} (server digest "
+              f"{srv.digest_s:.2f} s, twin's {twin_digest_s:.2f} s, "
+              f"{k} × {w0_gb(specs):.2f} GB); POSTs {[round(1e3 * s, 1) for s in post_s]}"
+              f" ms", flush=True)
+        if not all(same.values()) or widths != dict(enumerate(ranks)):
+            raise AssertionError(f"serve-http-hetero differs: {same}")
+        srv.finalize()
+        stats.update(post_ms=[1e3 * s for s in post_s],
+                     digest_s=srv.digest_s, twin_digest_s=twin_digest_s)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    del srv, twin, bases, new_cp, loras, tglob, twin_params, glob, deltas
+    _free(torch, device)
+    return launches, stats
+
+
+def obs_http_phase(torch, kernels, device, cfg, check=check_launches):
+    """Phase 6: ``fedex+obs``, ``serve-http`` with ``pull-serve``, then
+    ``serve-http-hetero`` (after the first server is freed: each hetero
+    client's W0 copy is 2.82 GB at ``paper-llama3.2-3b``). Streams go to a
+    temporary directory under ``build/``. Returns (launches, stats)."""
+    import tempfile
+
+    launches = {name: 0 for name in SOURCES}
+    stats = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        for name, fn in (("fedex+obs", lambda: obs_path(
+                              torch, kernels, device, cfg, Path(tmp), check)),
+                         ("serve-http", lambda: http_path(
+                             torch, kernels, device, cfg, Path(tmp), check)),
+                         ("serve-http-hetero", lambda: http_hetero_path(
+                             torch, kernels, device, cfg, check))):
+            t = time.perf_counter()
+            got, stats[name] = fn()
+            stats[name]["seconds"] = time.perf_counter() - t
+            for key, v in got.items():
+                launches[key] += v
+    return launches, stats
+
+
+# --------------------------------------------------------------------------
 
 SOURCES = {  # kernel → (CUDA source, the TPU kernel it replaces)
     "fedex_fold": ("src/repro_torch/kernels/csrc/fedex_fold.cu",
@@ -2946,6 +3564,33 @@ def decode_sweep_main() -> int:
     return 0
 
 
+def obs_http_main() -> int:
+    """``--obs-http``: phase 6 alone (:func:`obs_http_phase`) on this
+    checkout's port, its stats as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from dataclasses import replace
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build as kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
+    print(smi_line(), flush=True)
+    kbuild.load_library()  # every kernel built before the phase
+    t = time.perf_counter()
+    launches, stats = obs_http_phase(torch, kernels, torch.device("cuda", 0),
+                                     cfg)
+    print(json.dumps({"obs_http": stats, "launches": launches,
+                      "seconds": time.perf_counter() - t}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2953,6 +3598,8 @@ def main() -> int:
         return launch_cost_main(sys.argv[2])
     if len(sys.argv) == 2 and sys.argv[1] == "--decode-sweep":
         return decode_sweep_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--obs-http":
+        return obs_http_main()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script runs the port on the "
               "card", file=sys.stderr)
@@ -2972,7 +3619,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
-    print(f"[1/6] environment: python {sys.version.split()[0]}, torch "
+    print(f"[1/7] environment: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           "TF32 off", flush=True)
@@ -2984,7 +3631,7 @@ def main() -> int:
         libs = kbuild.build(verbose=True)
     print(log.getvalue(), end="", flush=True)
     kbuild.load_library()
-    print(f"[2/6] build: {len(libs)} libraries "
+    print(f"[2/7] build: {len(libs)} libraries "
           f"({', '.join(p.name for p in libs)}) in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     for lib, prefix in (("factor_mean", "factor_mean_"),
@@ -2998,7 +3645,7 @@ def main() -> int:
 
     cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
     c, r, scale = 4, 4, 8.0 / 4
-    print(f"[3/6] kernels vs plain versions (C={c}, r={r}, scale={scale})",
+    print(f"[3/7] kernels vs plain versions (C={c}, r={r}, scale={scale})",
           flush=True)
     errs, timings = kernel_phase(torch, kernels, device, cfg, c=c, r=r,
                                  scale=scale)
@@ -3022,7 +3669,7 @@ def main() -> int:
     print(f"  launch path: {json.dumps(cost)}", flush=True)
     torch.cuda.empty_cache()
 
-    print(f"[4/6] main paths: FederatedTrainer at {cfg.name} full width "
+    print(f"[4/7] main paths: FederatedTrainer at {cfg.name} full width "
           f"({cfg.num_layers} layers, d={cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}); {', '.join(GPT2_PATHS)} at "
           f"{gcfg.name} ({gcfg.num_layers} layers, d={gcfg.d_model}, vocab "
@@ -3052,12 +3699,18 @@ def main() -> int:
           flush=True)
     serve_stats = {}
     for scfg in (cfg, gcfg):
-        print(f"[5/6] serving: {scfg.name} at full width, prefill + KV-cache "
+        print(f"[5/7] serving: {scfg.name} at full width, prefill + KV-cache "
               "greedy decode with a LoRA adapter", flush=True)
         serve_stats[scfg.name], serve_launches = serve_phase(
             torch, kernels, device, scfg)
         for k in ("lora_matmul", "flash_swa"):
             launches[k] += serve_launches[k]
+    print(f"[6/7] obs and the HTTP federation service at {cfg.name} full "
+          "width: fedex+obs, serve-http, pull-serve, serve-http-hetero",
+          flush=True)
+    obs_launches, obs_stats = obs_http_phase(torch, kernels, device, cfg)
+    for k, v in obs_launches.items():
+        launches[k] += v
     main_body = {**timings["weighted-partial"], **lane_timings,
                  "lora_matmul": serve_timings["lora_matmul[prefill]"],
                  "flash_swa": serve_timings["flash_swa[prefill]"]}
@@ -3106,10 +3759,11 @@ def main() -> int:
         "C64r8_prior_ms": lane_prior["product_accum[C64r8]"],
         "C64r8_library_ms": lib_ms, "C64r8_bound_ms": bms,
         "C64r8_bound_by": by})
-    print(f"[6/6] done in {time.perf_counter() - t_start:.1f} s; identity max "
+    print(f"[7/7] done in {time.perf_counter() - t_start:.1f} s; identity max "
           f"err per path {json.dumps(identities)}; resume "
           f"{json.dumps(resume)}; serving "
-          f"{json.dumps(serve_stats)}; rounds "
+          f"{json.dumps(serve_stats)}; obs and http "
+          f"{json.dumps(obs_stats)}; rounds "
           + json.dumps([{k: v for k, v in row.items()
                          if k != "client_losses"} for row in all_rows]),
           flush=True)

@@ -1222,7 +1222,6 @@ class RoundCloseEngine:
         self.rec = recorder if recorder is not None else NULL
         # the analytic peak of each in-flight close's live device bytes
         self._peak: Dict[Any, int] = {}
-        self.last_peak_bytes = 0
         # keep_local folds each lane's own base, and fedex_svd / hetero
         # stream the chunks' L / R blocks again: they retain the chunks
         self.buffers = RoundBuffers(
@@ -1286,18 +1285,12 @@ class RoundCloseEngine:
             while len(self._peak) > RING_MEMORY:  # abandoned rounds
                 self._peak.pop(next(iter(self._peak)))
 
-    def _finish_peak(self, round_id) -> int:
+    def _finish_peak(self, round_id) -> None:
         peak = self._peak.pop(round_id, 0)
-        self.last_peak_bytes = peak
         if self.rec.enabled:
             self.rec.gauge("close.peak_bytes").set(peak)
             if round_id is not None:
                 self.rec.round_set(round_id, peak_bytes=peak)
-        return peak
-
-    def peak_close_bytes(self, round_id) -> int:
-        """The noted peak of a round still accumulating (chunked)."""
-        return self._peak.get(round_id, 0)
 
     def _w0_bytes(self, copies: int = 1) -> int:
         """Bytes of ``copies`` of the adapted W0 leaves, in their dtype."""

@@ -389,7 +389,7 @@ class FederatedTrainer:
                                     per_client * k_delivered,
                                     note="factored-residual broadcast")
 
-    def _stamp_comm(self, rnd: int) -> Dict[str, int]:
+    def _stamp_comm(self, rnd: int) -> None:
         """The ledger's totals of round ``rnd`` on its round record."""
         tot = self.ledger.round_totals(rnd)
         self.recorder.round_set(
@@ -397,12 +397,11 @@ class FederatedTrainer:
             uplink_bytes=tot["uplink_bytes"],
             downlink_params=tot["downlink_params"],
             downlink_bytes=tot["downlink_bytes"])
-        return tot
 
     def _reconcile_comm(self, rnd: int, outcome) -> None:
         """Stamp the round's measured ledger totals and, where the analytic
-        table applies (fedex with the average assignment, fedit, fedex_svd
-        over a decoder config whose adapters are the table's matrices),
+        table applies (fedex with the average assignment, fedit, fedex_svd,
+        when the adapters are the table's matrices),
         ``comm_match``: the measured parameter counts against
         :func:`~repro_torch.core.comm.round_comm_params` at the observed
         delivered count — two independent accountings of one round."""
@@ -414,10 +413,7 @@ class FederatedTrainer:
                 or (method == "fedex"
                     and self.fed_cfg.assignment != "average")):
             return
-        try:
-            mats = adapted_matrices(self.model.cfg, self.lora_cfg)
-        except (AttributeError, TypeError):
-            return  # no decoder-style config: no analytic twin
+        mats = adapted_matrices(self.model.cfg, self.lora_cfg)
         r = self.lora_cfg.rank
         if count_params(self.global_lora) != sum(ms.m * r + r * ms.n
                                                  for ms in mats):

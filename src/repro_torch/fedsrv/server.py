@@ -85,7 +85,7 @@ def w0_digest(specs, params) -> str:
     for s in specs:
         leaf = leaves[s.key].detach().float()
         for part in (leaf if leaf.ndim > 2 else [leaf]):
-            h.update(part.contiguous().cpu().numpy().tobytes())
+            h.update(part.contiguous().cpu().numpy())
     return h.hexdigest()
 
 

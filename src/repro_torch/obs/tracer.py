@@ -4,10 +4,12 @@ The port's copy of ``repro/obs/tracer.py``. Spans are measured with
 ``time.perf_counter_ns`` (monotonic, ns resolution) and tagged with the
 recording thread, so the HTTP service's handler threads render as separate
 tracks. With ``device_annotations`` (the recorder's ``trace`` mode) every
-host span also enters a ``torch.profiler.record_function`` range, so a
-``torch.profiler`` trace of the card shows the same names (``close.dispatch``
-around the ``fedex_fold`` launches) — the reference nests its spans in
-``jax.profiler.TraceAnnotation`` the same way.
+host span entered while a ``torch.profiler`` is recording also enters a
+``torch.profiler.record_function`` range, so the profiler's trace of the
+card shows the same names (``close.dispatch`` around the ``fedex_fold``
+launches) — the reference nests its spans in
+``jax.profiler.TraceAnnotation`` the same way. With no profiler recording
+no range is entered (it would cost host time and show nowhere).
 
 Export targets, in the reference's formats:
 
@@ -53,7 +55,8 @@ class Span:
         self._ann = None
 
     def __enter__(self) -> "Span":
-        if self._tracer.device_annotations:
+        if (self._tracer.device_annotations
+                and torch.autograd._profiler_enabled()):
             self._ann = torch.profiler.record_function(self.name)
             self._ann.__enter__()
         self._start = self._tracer._now()

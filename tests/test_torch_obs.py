@@ -229,6 +229,15 @@ def test_tracer_nesting_threads_and_chrome_export():
     assert _shape(chrome) == _shape(ref.to_chrome())
     assert chrome["displayTimeUnit"] == "ms"
     assert {e["ph"] for e in chrome["traceEvents"]} == {"M", "X", "i"}
+    # a span is a profiler range only while a profiler records
+    span = port.span("close.dispatch")
+    with span:
+        assert span._ann is None
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with port.span("close.dispatch", round=2):
+            torch.ones(3).sum()
+    assert "close.dispatch" in {e.key for e in prof.key_averages()}
 
 
 def test_obs_off_is_the_shared_null(runs):
