@@ -71,6 +71,16 @@ ACCUM_CASES = {
 }
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Run the port's CPU ops on one thread (see tests/test_torch_baselines.
+    py: many-threaded small ops crawl under the suite's parallel workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _accum_inputs(c, lead, m, n, r, zero, seed=0):
     rng = np.random.default_rng(seed)
     acc = rng.standard_normal((*lead, m, n)).astype(np.float32)

@@ -57,6 +57,16 @@ LR, STEPS, CLIENTS, ROUNDS, VOCAB = 5e-3, 3, 3, 2, 64
 TRAIN = dict(learning_rate=LR, schedule="constant", total_steps=ROUNDS * STEPS)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Run the port's CPU ops on one thread (see tests/test_torch_baselines.
+    py: many-threaded small ops crawl under the suite's parallel workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fed(**fed_kw):
     return dict(num_clients=CLIENTS, rounds=ROUNDS, local_steps=STEPS, **fed_kw)
 
@@ -196,12 +206,11 @@ def test_unported_federation_features_raise(fed_kw, error):
     {"round_deadline": 1.0}, {"dropout_prob": 0.1}, {"async_buffer": 2},
     {"quantize_uplink": "int8"}, {"uplink_max_norm": 1.0},
     {"faults": "crash@1(clients=1)"}, {"checkpoint_dir": "ckpt"},
-    {"obs": "basic"}, {"obs": "trace"},
 ], ids=lambda x: "-".join(f"{k}={v}" for k, v in x.items()))
 def test_ported_federation_features_run(fed_kw, tmp_path):
     """The coordinator's policies, FedBuff, the uplink transport, fault
-    injection, round-state checkpoints and obs, which earlier slices
-    refused, train a round and ledger the uplinks that were delivered."""
+    injection and round-state checkpoints, which earlier slices refused,
+    train a round and ledger the uplinks that were delivered."""
     ckpt = str(tmp_path / "ckpt")
     if "checkpoint_dir" in fed_kw:
         fed_kw = {**fed_kw, "checkpoint_dir": ckpt}
@@ -213,8 +222,6 @@ def test_ported_federation_features_run(fed_kw, tmp_path):
     ups = pt.ledger.round_totals(0)["uplink_params"]
     assert ups == len(out.client_ids) * sum(
         x.numel() for x in flatten_with_paths(pt.global_lora).values())
-    if "obs" in fed_kw:  # the round record stamps the same ledger
-        assert pt.recorder.round_records()[0]["uplink_params"] == ups
 
 
 @pytest.mark.parametrize("fed_kw", [

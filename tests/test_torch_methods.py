@@ -49,6 +49,16 @@ TRAIN = dict(learning_rate=LR, schedule="constant", total_steps=ROUNDS * STEPS)
 PARTIAL = dict(weighting="examples", participation=0.5)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """Run the port's CPU ops on one thread (see tests/test_torch_baselines.
+    py: many-threaded small ops crawl under the suite's parallel workers)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(tree):
     return jax.tree.map(np.asarray, tree)
 

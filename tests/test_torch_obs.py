@@ -152,13 +152,18 @@ def _port(clients, fed_kw, start, obs="trace"):
 @pytest.fixture(scope="module")
 def runs():
     """name → (reference trainer, port trainer, start draws), both run under
-    trace."""
-    out = {}
-    for name, (clients, kw) in CASES.items():
-        jt, start = _jax_run(clients, kw)
-        pt = _port(clients, kw, start)
-        pt.run()
-        out[name] = (jt, pt, start)
+    trace. Set up before the function-scoped ``_one_torch_thread``, so it
+    pins torch to one thread itself."""
+    out, n = {}, torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for name, (clients, kw) in CASES.items():
+            jt, start = _jax_run(clients, kw)
+            pt = _port(clients, kw, start)
+            pt.run()
+            out[name] = (jt, pt, start)
+    finally:
+        torch.set_num_threads(n)
     return out
 
 

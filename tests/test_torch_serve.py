@@ -48,6 +48,7 @@ from repro.models import build_model as jax_build_model  # noqa: E402
 from repro_torch.bridge import params_from_numpy  # noqa: E402
 from repro_torch.configs import LoRAConfig, get_config  # noqa: E402
 from repro_torch.data import make_batch_for  # noqa: E402
+from repro_torch.fedsrv import TransientTransportError  # noqa: E402
 from repro_torch.kernels import (flash_swa, flash_swa_plain,  # noqa: E402
                                  launch_counts, lora_dense, lora_matmul,
                                  lora_matmul_error_bound, lora_matmul_plain,
@@ -412,7 +413,8 @@ def test_serve_cli_on_the_cpu_and_its_refusals(capsys):
     serve_mod.main(["--device", "cpu", "--batch-size", "1", "--prompt-len",
                     "8", "--steps", "2", "--max-len", "16"])
     assert "generated token ids" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    # --pull-from is ported: a server that does not answer is refused
+    with pytest.raises(TransientTransportError, match="connect"):
         serve_mod.main(["--device", "cpu", "--pull-from", "http://localhost:1"])
     with pytest.raises(ValueError, match="exceed"):
         serve_mod.serve("paper-tiny", prompt_len=30, steps=8, max_len=32,
