@@ -5,6 +5,7 @@
     python3 chip_smoke.py --launch-cost SRC   # the launch-path costs only
     python3 chip_smoke.py --decode-sweep      # B3's split-K plans
     python3 chip_smoke.py --obs-http          # phase 6 alone
+    python3 chip_smoke.py --mesh              # phase 7 alone
 
 Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
 ``sys.path`` itself and runs, each phase raising on failure:
@@ -202,7 +203,33 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
      fed ragged POSTs that carry their rank, after the first server is
      freed: every client's base and rank-rᵢ adapter and the hetero digest
      bitwise the twin's; ``hetero_fold`` 4;
-7. one JSON line with every ported kernel: ``ms`` and ``library_ms``
+7. mesh mode (``mesh_phase``) at ``paper-llama3.2-3b``'s full width: the
+   port's ``MeshFederatedTrainer``, 4 lanes of batch 8 × seq 64 stacked
+   into one forward and backward, from one draw of the weights that the
+   paths share (each its own copy of the adapted W0 leaves); every round's
+   training timed, every close's lanes left out of the round filled with
+   NaN before it, its launches counted (``factor_mean`` 1 and
+   ``fedex_fold`` 4, ``product_fold`` 4 under fedex_svd: the same in
+   every round), its identity checked over the round's lanes and its
+   outputs finite:
+   * mesh-fedex: 3 rounds at 50% participation with example weights;
+   * mesh-fedex[host-twin]: 2 full uniform rounds against the host
+     ``FederatedTrainer`` at the same seed, draws and data (its uniform
+     close launches nothing): client and eval losses within rtol 1e-5,
+     divergences rtol 1e-3 / atol 1e-7, W0 and the global adapter within
+     1e-2 relative Frobenius and the AdamW separation bound; the stacked
+     round's ms printed beside the host's 8 client steps;
+   * mesh-budgets: ``client_local_steps`` (1, 2, 2, 1), 2 rounds; in round
+     1 (round 0's only live step has lr 0) the budget-1 lanes' losses
+     repeat and their adapters equal, bit for bit, an unmasked 1-step
+     round's from the same start and batches;
+   * mesh-fedex_svd: r' 8, all lanes, example weights, 3 local steps (so
+     round 0's lanes differ in a), 2 rounds, ``identity_svd`` at each
+     close;
+   * mesh+faults: ``nan@1(clients=1,rounds=1)``, 2 rounds: lane 1
+     quarantined as ``nonfinite`` and zeroed in round 1 only, the global
+     adapter finite, the identity over the survivors;
+8. one JSON line with every ported kernel: ``ms`` and ``library_ms``
    host-inclusive, ``device_ms`` and ``library_device_ms`` the profiler's
    device time, at the main body; B2's row adds one close's launch path
    (``close_wall_us``, ``close_enqueue_us``: :func:`launch_cost`), B3's
@@ -221,7 +248,8 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
 under ``SRC`` (another tree's ``src`` too, to compare two trees in one
 call) and prints it as one JSON line; ``--decode-sweep`` times B3's
 split-K body at every plan (:func:`decode_sweep`); ``--obs-http`` runs
-phase 6 alone (:func:`obs_http_phase`).
+phase 6 alone (:func:`obs_http_phase`), ``--mesh`` phase 7
+(:func:`mesh_phase`).
 
 Identities, per adapted leaf, on the last round of each path:
 * fedex: new_W0 + s·ā b̄ = old_W0 + s·Σ_c w_c a_c b_c;
@@ -3399,6 +3427,317 @@ def obs_http_phase(torch, kernels, device, cfg, check=check_launches):
 
 
 # --------------------------------------------------------------------------
+# phase 7: mesh mode
+
+MESH_RUN = {"clients": 4, "batch": 8, "seq": 64, "data_vocab": 512}
+# name → (FedConfig settings, rounds, local steps). Step 0 of a run has lr 0
+# (the warm-up), so a path's first round moves only b at its later steps
+# and every lane's a stays equal: mesh-fedex_svd takes 3 steps, so that
+# round 0's residual has rank above r' = 8 (its cut is visible), and
+# mesh-budgets and the host twin run 2 rounds, whose second moves every
+# factor from its first step on
+MESH_PATHS = {
+    "mesh-fedex": ({"participation": 0.5, "weighting": "examples"}, 3, 2),
+    "mesh-fedex[host-twin]": ({}, 2, 2),
+    "mesh-budgets": ({"client_local_steps": (1, 2, 2, 1)}, 2, 2),
+    "mesh-fedex_svd": ({"method": "fedex_svd", "svd_rank": 8,
+                        "weighting": "examples"}, 2, 3),
+    "mesh+faults": ({"faults": "nan@1(clients=1,rounds=1)"}, 2, 2),
+}
+MESH_QUARANTINED = {"mesh+faults": [[], [(1, "nonfinite")]]}
+
+
+def own_w0(base):
+    """(params, global_lora) of the shared draw ``base``, with a copy of the
+    adapted W0 leaves of its own (the kernel close folds into them in
+    place) and the other leaves shared."""
+    from repro_torch.core.engine import (build_factor_specs,
+                                         collect_w0_leaves, fold_back_w0)
+
+    params, glob = base
+    specs = build_factor_specs(params, glob)
+    return fold_back_w0(specs, params, {
+        k: w.clone() for k, w in collect_w0_leaves(specs, params).items()}
+    ), glob
+
+
+def mesh_configs(cfg, fed_kw, rounds, steps):
+    from repro_torch.configs import FedConfig, LoRAConfig, TrainConfig
+    from repro_torch.models import build_model
+
+    return dict(model=build_model(cfg),
+                lora_cfg=LoRAConfig(rank=4, alpha=8.0),
+                fed_cfg=FedConfig(num_clients=MESH_RUN["clients"],
+                                  rounds=rounds, local_steps=steps, **fed_kw),
+                train_cfg=TrainConfig(learning_rate=5e-3,
+                                      schedule="constant",
+                                      total_steps=rounds * steps),
+                seed=0)
+
+
+def mesh_data(device):
+    from repro_torch.launch.train import build_federated_data
+
+    loaders, evals = build_federated_data(
+        MESH_RUN["data_vocab"], MESH_RUN["clients"], seq_len=MESH_RUN["seq"],
+        batch_size=MESH_RUN["batch"], device=device)
+    return dict(client_loaders=loaders, eval_batches=evals)
+
+
+def mesh_twin(torch, kernels, device, cfg, base, mesh, rows, check):
+    """``mesh-fedex[host-twin]``'s other half: the host FederatedTrainer at
+    the same seed, draws and data (a full uniform round closes without a
+    kernel). Its client losses, eval losses and divergences within the CPU
+    parity tolerances of the mesh run's, its W0 and global adapter within
+    1e-2 relative Frobenius and the AdamW separation bound. Returns the
+    host rounds' client-step ms."""
+    from repro_torch.core import FederatedTrainer
+
+    kw = mesh_configs(cfg, *MESH_PATHS["mesh-fedex[host-twin]"])
+    params, glob = own_w0(base)
+    host = FederatedTrainer(**kw, **mesh_data(device), device=device,
+                            params=params, global_lora=glob)
+    step_ms, local_step = [], host.local_step
+
+    def timed(*args):
+        _sync(torch, device)
+        t = time.perf_counter()
+        out = local_step(*args)
+        _sync(torch, device)
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    host.local_step = timed
+    kernels.reset_launch_counts()
+    hist = host.run()
+    check(kernels, "mesh-fedex[host-twin] host", {},
+          " (full uniform rounds: the uniform close)")
+    fc = kw["fed_cfg"]
+    sep = 2 * kw["train_cfg"].learning_rate * fc.local_steps * fc.num_clients
+    worst = {"loss": 0.0, "eval": 0.0, "div": 0.0, "fro": 0.0, "abs": 0.0}
+    for h, m in zip(hist, mesh.history):
+        for key, a, b in (("loss", h.client_losses, m.client_losses),
+                          ("eval", [h.eval_loss], [m.eval_loss])):
+            for x, y in zip(a, b):
+                worst[key] = max(worst[key], abs(x - y) / abs(x))
+        d = abs(h.divergence_scaled - m.divergence_scaled)
+        if d > 1e-3 * abs(h.divergence_scaled) + 1e-7:
+            raise AssertionError(f"host twin: divergence {h.divergence_scaled}"
+                                 f" vs mesh {m.divergence_scaled}")
+        worst["div"] = max(worst["div"], d / abs(h.divergence_scaled))
+    specs = mesh.closer.specs
+    pairs = [(f"{s.key}/kernel", _node(host.params, s.key)["kernel"],
+              _node(mesh.params, s.key)["kernel"]) for s in specs]
+    pairs += [(k, x, _flat(mesh.global_lora)[k])
+              for k, x in _flat(host.global_lora).items()]
+    for k, x, y in pairs:
+        diff = (x - y).float()
+        fro = float(torch.linalg.norm(diff)) / max(
+            float(torch.linalg.norm(x.float())), 1e-30)
+        worst["fro"] = max(worst["fro"], fro)
+        worst["abs"] = max(worst["abs"], float(diff.abs().max()))
+    ok = (worst["loss"] <= 1e-5 and worst["eval"] <= 1e-5
+          and worst["fro"] <= 1e-2 and worst["abs"] <= sep)
+    steps = fc.local_steps * fc.num_clients
+    host_ms = [sum(step_ms[i * steps:(i + 1) * steps])
+               for i in range(fc.rounds)]
+    print(f"  [mesh-fedex[host-twin]] against the host trainer: max rel "
+          f"client loss {worst['loss']:.3e}, eval loss {worst['eval']:.3e} "
+          f"(rtol 1e-5), divergence {worst['div']:.3e} (rtol 1e-3, atol "
+          f"1e-7); W0 and global adapter max rel Frobenius "
+          f"{worst['fro']:.3e} (≤ 1e-2), max |Δ| {worst['abs']:.3e} (≤ "
+          f"{sep:.3e}); within={ok}", flush=True)
+    for rnd, (row, ms) in enumerate(zip(rows, host_ms)):
+        median = statistics.median(step_ms[rnd * steps:(rnd + 1) * steps])
+        print(f"  [mesh-fedex[host-twin]] round {rnd}: mesh training round "
+              f"{row['train_ms']:.1f} ms (4 lanes × {fc.local_steps} steps "
+              f"in one stacked round) vs the host's {steps} client steps "
+              f"{ms:.1f} ms (median step {median:.1f} ms)", flush=True)
+    if not ok:
+        raise AssertionError(f"mesh-fedex[host-twin]: mesh and host trainers "
+                             f"differ: {worst}")
+    return {"host_round_ms": host_ms, "host_step_ms": step_ms, **worst}
+
+
+def mesh_path(torch, kernels, device, cfg, base, name, check=check_launches):
+    """One path of ``MESH_PATHS``: the port's MeshFederatedTrainer at full
+    width on its own copy of the adapted W0 leaves of ``base``. Its round
+    function and close are wrapped: each training round is timed (device
+    syncs around it), each close fills the lanes its round left out with
+    NaN, is timed, its launches counted (the same every round) and its
+    identity checked over the round's lanes (``identity_fedex``, or
+    ``identity_svd``), its outputs finite. Returns (launches, stats)."""
+    from types import SimpleNamespace
+
+    from repro_torch.launch.mesh_train import (MeshFederatedTrainer,
+                                               make_mesh_round_fn)
+
+    fed_kw, rounds, steps = MESH_PATHS[name]
+    kw = mesh_configs(cfg, fed_kw, rounds, steps)
+    params, glob = own_w0(base)
+    trainer = MeshFederatedTrainer(**kw, **mesh_data(device), device=device,
+                                   params=params, global_lora=glob)
+    closer, c = trainer.closer, kw["fed_cfg"].num_clients
+    svd = closer.method == "fedex_svd"
+    keys = [s.key for s in closer.specs]
+    per_close = {"factor_mean": 1,
+                 "product_fold" if svd else "fedex_fold": len(keys)}
+    identity = identity_svd if svd else identity_fedex
+    rows, round_fn, close = [], trainer.round_fn, closer.close
+
+    def timed_round(params, lora_stack, batches, lrs, *budgets):
+        _sync(torch, device)
+        t = time.perf_counter()
+        out = round_fn(params, lora_stack, batches, lrs, *budgets)
+        _sync(torch, device)
+        rows.append({"round": len(rows),
+                     "train_ms": (time.perf_counter() - t) * 1e3,
+                     "losses": out[1].tolist(), "lr0": lrs[0]})
+        if budgets and lrs[0] > 0:  # the budget lanes against 1 step
+            one, _ = make_mesh_round_fn(trainer.model, trainer.scale,
+                                        kw["train_cfg"])(
+                params, lora_stack, {k: v[:, :1] for k, v in
+                                     batches.items()}, lrs[:1])
+            lanes = [i for i, b in enumerate(budgets[0]) if b == 1]
+            got, want = _flat(out[0]), _flat(one)
+            same = all(torch.equal(got[k][i], want[k][i])
+                       for k in got for i in lanes)
+            repeat = all(out[1][i, 0] == out[1][i, -1] for i in lanes)
+            print(f"  [{name}] round {len(rows) - 1}: budget-1 lanes "
+                  f"{lanes} bitwise an unmasked 1-step round from the same "
+                  f"start and batches: {same}; their losses repeat: "
+                  f"{repeat}", flush=True)
+            if not (same and repeat):
+                raise AssertionError(f"{name}: the frozen lanes moved")
+            rows[-1]["budget_lanes_bitwise"] = same
+        return out
+
+    def checked_close(params, stacks, ids, weights=None, *, round_id=None):
+        row = rows[-1]
+        out_lanes = [i for i in range(c) if i not in ids]
+        row["zeroed"] = [i for i in out_lanes
+                         if all(not x[i].any() for x in stacks.values())]
+        for x in stacks.values():
+            x[out_lanes] = float("nan")
+        old = {k: _node(params, k)["kernel"].clone() for k in keys}
+        before = kernels.launch_counts()
+        _sync(torch, device)
+        t = time.perf_counter()
+        new_glob, new_params, div = close(params, stacks, ids, weights,
+                                          round_id=round_id)
+        _sync(torch, device)
+        row["close_ms"] = (time.perf_counter() - t) * 1e3
+        after = kernels.launch_counts()
+        row["launches"] = {k: after[k] - before[k] for k in after
+                           if after[k] != before[k]}
+        if device.type == "cuda" and row["launches"] != per_close:
+            raise AssertionError(f"{name}: a close launched "
+                                 f"{row['launches']}, not {per_close}")
+        w, _ = closer.weight_vector(ids, weights)
+        outcome = SimpleNamespace(
+            delivered=[SimpleNamespace(lora=_unflat(
+                {p: x[i] for p, x in stacks.items()})) for i in ids],
+            weights=[float(w[i]) for i in ids])
+        view = SimpleNamespace(scale=trainer.scale, global_lora=new_glob,
+                               params=new_params, device=device,
+                               engine=SimpleNamespace(
+                                   svd_rank=kw["fed_cfg"].svd_rank))
+        row.update(ids=list(ids), identity=identity(torch, view, outcome,
+                                                    [old], keys))
+        bad = [k for k, x in (*_flat(new_glob).items(),
+                              *((k, _node(new_params, k)["kernel"])
+                                for k in keys))
+               if not bool(torch.isfinite(x).all())]
+        if bad:
+            raise AssertionError(f"{name}: the close's outputs are not "
+                                 f"finite at {bad} (NaN in lanes "
+                                 f"{out_lanes})")
+        return new_glob, new_params, div
+
+    trainer.round_fn, closer.close = timed_round, checked_close
+    t = time.perf_counter()
+    hist = trainer.run()
+    _sync(torch, device)
+    wall = time.perf_counter() - t
+    cuda = device.type == "cuda"
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else 0.0
+    closes = sum(1 for row in rows if "close_ms" in row)
+    counts = check(kernels, name, {k: v * closes for k, v in
+                                   per_close.items()},
+                   f" for {closes} closes; peak memory {peak:.1f} GiB")
+    values = [v for h in hist for v in (h.eval_loss, h.divergence_scaled,
+                                        *h.client_losses)]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{name}: non-finite losses or divergence")
+    for row, h in zip(rows, hist):
+        nan = [i for i in range(c) if i not in row.get("ids", ())]
+        print(f"  [{name}] round {row['round']} [lanes {row.get('ids')}, "
+              f"NaN-filled {nan}]: training round {row['train_ms']:.1f} ms, "
+              "close "
+              f"{row.get('close_ms', float('nan')):.2f} ms (launches "
+              f"{row.get('launches')}), eval_loss {h.eval_loss:.4f}, "
+              f"divergence {h.divergence_scaled:.3e}", flush=True)
+    want_q = MESH_QUARANTINED.get(name, [[] for _ in range(rounds)])
+    got_q = [[tuple(p) for p in q] for q in trainer.quarantined]
+    zeroed = [row.get("zeroed", []) for row in rows]
+    if got_q != want_q or any(
+            [cid for cid, _ in q if cid not in z] for q, z in
+            zip(got_q, zeroed)):
+        raise AssertionError(f"{name}: quarantined {got_q} (zeroed lanes "
+                             f"{zeroed}), expected {want_q}")
+    if name in MESH_QUARANTINED:
+        print(f"  [{name}] quarantined (client, reason) per round {got_q}, "
+              f"each zeroed before the close ({zeroed}); the global adapter "
+              "finite, the identity held over the survivors", flush=True)
+    stats = {"rounds": [{k: v for k, v in row.items() if k != "losses"}
+                        for row in rows],
+             "peak_gib": peak, "wall_s": wall,
+             "eval_loss": [h.eval_loss for h in hist],
+             "divergence": [h.divergence_scaled for h in hist]}
+    if name == "mesh-fedex[host-twin]":
+        stats["host"] = mesh_twin(torch, kernels, device, cfg, base, trainer,
+                                  rows, check)
+    return counts, stats
+
+
+def mesh_phase(torch, kernels, device, cfg, check=check_launches):
+    """Phase 7: ``MESH_PATHS`` in turn, from one draw of ``cfg``'s weights
+    (seed 0, the host trainer's recipe), each path with the launch counters
+    set to 0 just before it and read just after. Returns (launches,
+    stats)."""
+    from repro_torch.configs import LoRAConfig
+    from repro_torch.core import init_global_state
+    from repro_torch.models import build_model
+    from repro_torch.util.tree import count_params
+
+    t = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    base = init_global_state(build_model(cfg), LoRAConfig(rank=4, alpha=8.0),
+                             device=device, generator=gen)
+    _sync(torch, device)
+    print(f"  [mesh] one draw of {cfg.name} ({count_params(base[0]) / 1e9:.2f}"
+          f" B params), shared by the paths, each on its own copy of the "
+          f"adapted W0 leaves: {time.perf_counter() - t:.1f} s; "
+          f"{MESH_RUN['clients']} lanes of batch {MESH_RUN['batch']} × seq "
+          f"{MESH_RUN['seq']}", flush=True)
+    launches = {name: 0 for name in SOURCES}
+    stats = {}
+    for name in MESH_PATHS:
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        got, stats[name] = mesh_path(torch, kernels, device, cfg, base, name,
+                                     check)
+        stats[name]["seconds"] = time.perf_counter() - t
+        for key, v in got.items():
+            launches[key] += v
+        _free(torch, device)
+    return launches, stats
+
+
+# --------------------------------------------------------------------------
 
 SOURCES = {  # kernel → (CUDA source, the TPU kernel it replaces)
     "fedex_fold": ("src/repro_torch/kernels/csrc/fedex_fold.cu",
@@ -3591,6 +3930,32 @@ def obs_http_main() -> int:
     return 0
 
 
+def mesh_main() -> int:
+    """``--mesh``: phase 7 alone (:func:`mesh_phase`) on this checkout's
+    port, its stats as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from dataclasses import replace
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build as kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
+    print(smi_line(), flush=True)
+    kbuild.load_library()  # every kernel built before the phase
+    t = time.perf_counter()
+    launches, stats = mesh_phase(torch, kernels, torch.device("cuda", 0), cfg)
+    print(json.dumps({"mesh": stats, "launches": launches,
+                      "seconds": time.perf_counter() - t}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3600,6 +3965,8 @@ def main() -> int:
         return decode_sweep_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--obs-http":
         return obs_http_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--mesh":
+        return mesh_main()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script runs the port on the "
               "card", file=sys.stderr)
@@ -3619,7 +3986,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
-    print(f"[1/7] environment: python {sys.version.split()[0]}, torch "
+    print(f"[1/8] environment: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           "TF32 off", flush=True)
@@ -3631,7 +3998,7 @@ def main() -> int:
         libs = kbuild.build(verbose=True)
     print(log.getvalue(), end="", flush=True)
     kbuild.load_library()
-    print(f"[2/7] build: {len(libs)} libraries "
+    print(f"[2/8] build: {len(libs)} libraries "
           f"({', '.join(p.name for p in libs)}) in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     for lib, prefix in (("factor_mean", "factor_mean_"),
@@ -3645,7 +4012,7 @@ def main() -> int:
 
     cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
     c, r, scale = 4, 4, 8.0 / 4
-    print(f"[3/7] kernels vs plain versions (C={c}, r={r}, scale={scale})",
+    print(f"[3/8] kernels vs plain versions (C={c}, r={r}, scale={scale})",
           flush=True)
     errs, timings = kernel_phase(torch, kernels, device, cfg, c=c, r=r,
                                  scale=scale)
@@ -3669,7 +4036,7 @@ def main() -> int:
     print(f"  launch path: {json.dumps(cost)}", flush=True)
     torch.cuda.empty_cache()
 
-    print(f"[4/7] main paths: FederatedTrainer at {cfg.name} full width "
+    print(f"[4/8] main paths: FederatedTrainer at {cfg.name} full width "
           f"({cfg.num_layers} layers, d={cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}); {', '.join(GPT2_PATHS)} at "
           f"{gcfg.name} ({gcfg.num_layers} layers, d={gcfg.d_model}, vocab "
@@ -3699,17 +4066,22 @@ def main() -> int:
           flush=True)
     serve_stats = {}
     for scfg in (cfg, gcfg):
-        print(f"[5/7] serving: {scfg.name} at full width, prefill + KV-cache "
+        print(f"[5/8] serving: {scfg.name} at full width, prefill + KV-cache "
               "greedy decode with a LoRA adapter", flush=True)
         serve_stats[scfg.name], serve_launches = serve_phase(
             torch, kernels, device, scfg)
         for k in ("lora_matmul", "flash_swa"):
             launches[k] += serve_launches[k]
-    print(f"[6/7] obs and the HTTP federation service at {cfg.name} full "
+    print(f"[6/8] obs and the HTTP federation service at {cfg.name} full "
           "width: fedex+obs, serve-http, pull-serve, serve-http-hetero",
           flush=True)
     obs_launches, obs_stats = obs_http_phase(torch, kernels, device, cfg)
     for k, v in obs_launches.items():
+        launches[k] += v
+    print(f"[7/8] mesh mode at {cfg.name} full width: "
+          f"{', '.join(MESH_PATHS)}", flush=True)
+    mesh_launches, mesh_stats = mesh_phase(torch, kernels, device, cfg)
+    for k, v in mesh_launches.items():
         launches[k] += v
     main_body = {**timings["weighted-partial"], **lane_timings,
                  "lora_matmul": serve_timings["lora_matmul[prefill]"],
@@ -3759,11 +4131,11 @@ def main() -> int:
         "C64r8_prior_ms": lane_prior["product_accum[C64r8]"],
         "C64r8_library_ms": lib_ms, "C64r8_bound_ms": bms,
         "C64r8_bound_by": by})
-    print(f"[7/7] done in {time.perf_counter() - t_start:.1f} s; identity max "
+    print(f"[8/8] done in {time.perf_counter() - t_start:.1f} s; identity max "
           f"err per path {json.dumps(identities)}; resume "
           f"{json.dumps(resume)}; serving "
           f"{json.dumps(serve_stats)}; obs and http "
-          f"{json.dumps(obs_stats)}; rounds "
+          f"{json.dumps(obs_stats)}; mesh {json.dumps(mesh_stats)}; rounds "
           + json.dumps([{k: v for k, v in row.items()
                          if k != "client_losses"} for row in all_rows]),
           flush=True)

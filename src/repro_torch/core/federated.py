@@ -156,6 +156,28 @@ def make_eval_fn(model, lora_scale: float) -> Callable:
     return ev
 
 
+def evaluate_on_batches(eval_fn, params, lora, batches) -> tuple[float, float]:
+    """Mean (loss, accuracy) of ``eval_fn`` over ``batches`` (NaNs when
+    empty). Shared by the host and mesh trainers."""
+    if not batches:
+        return float("nan"), float("nan")
+    ls, accs = [], []
+    for b in batches:
+        l, a = eval_fn(params, lora, b)
+        ls.append(float(l))
+        accs.append(float(a))
+    return sum(ls) / len(ls), sum(accs) / len(accs)
+
+
+def resolve_divergences(history) -> None:
+    """Round boundary: swap every :class:`DeferredDivergence` of the
+    history for its value (the trainers' only wait on a close). Shared by
+    the host and mesh trainers."""
+    for rec in history:
+        if isinstance(rec.divergence_scaled, DeferredDivergence):
+            rec.divergence_scaled = rec.divergence_scaled.resolve()
+
+
 @dataclass
 class RoundRecord:
     round: int
@@ -452,20 +474,11 @@ class FederatedTrainer:
         return lora, losses
 
     def _evaluate(self, params, lora) -> tuple[float, float]:
-        """Mean (loss, accuracy) over the eval batches (NaNs when empty)."""
-        if not self.eval_batches:
-            return float("nan"), float("nan")
-        ls, accs = [], []
-        for b in self.eval_batches:
-            l, a = self.eval_fn(params, lora, b)
-            ls.append(float(l))
-            accs.append(float(a))
-        return sum(ls) / len(ls), sum(accs) / len(accs)
+        return evaluate_on_batches(self.eval_fn, params, lora,
+                                   self.eval_batches)
 
     def _resolve_divergences(self) -> None:
-        for rec in self.history:
-            if isinstance(rec.divergence_scaled, DeferredDivergence):
-                rec.divergence_scaled = rec.divergence_scaled.resolve()
+        resolve_divergences(self.history)
 
     def _record_outcome(self, outcome) -> None:
         """Keep the round's outcome; adapter payloads only of the last."""

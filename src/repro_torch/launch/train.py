@@ -1,12 +1,13 @@
-"""Federated fine-tuning launcher of the port: host mode and the HTTP
-federation service.
+"""Federated fine-tuning launcher of the port: host mode, mesh mode and the
+HTTP federation service.
 
 Counterpart of ``repro/launch/train.py``. ``--mode host`` (the default)
 runs what the port runs:
 every method — ``--method fedex`` with ``--assignment average``,
 ``keep_local`` or ``reinit``, ``--method fedex_svd --svd-rank r'``,
 ``--method hetero`` / ``--client-ranks``, and the paper's baselines
-``--method fedit|ffa|centralized`` — with participation sampling,
+``--method fedit|ffa|centralized`` — with per-client step budgets
+(``--client-local-steps``), participation sampling,
 ``--min-quorum``, ``--weighting``, ``--close-chunk`` (the chunked streaming
 close), ``--engine off`` (the eager close), DP uploads (``--dp-clip``,
 ``--dp-noise``), the coordinator's policies (``--deadline``,
@@ -28,7 +29,18 @@ ephemeral), ``--serve-token``, ``--max-concurrent`` and ``--quota``, prints
 ``SERVING http://host:port`` when it is ready, closes rounds as clients POST
 their deltas (``--deadline`` in wall seconds), keeps answering GETs for
 ``--linger`` seconds after the last close, and prints the ledger measured
-over HTTP. ``--mode mesh`` is not ported (ROADMAP Queue 1 item 5).
+over HTTP.
+
+``--mode mesh`` co-schedules the clients
+(:mod:`repro_torch.launch.mesh_train`): every client is a lane of one
+stacked training round, and every round closes through the engine's
+weighted close (the kernels on the GPU), for ``--method fedex`` and
+``fedex_svd``, with ``--participation``, ``--weighting``,
+``--client-local-steps`` (lane c freezes after its budget), ``--faults`` of
+the value kinds (nan, inf, scale), ``--uplink-max-norm`` and ``--obs``. A
+setting it cannot honour (the host-only flags: the coordinator's policies,
+the transport's codec and retries, DP, client ranks, ``--engine``, the
+ring, checkpoints) raises ``ValueError`` naming it.
 
 ``--data-vocab`` draws the synthetic corpus from a smaller vocabulary than
 the model's (its transition tensor is dense vocab², ~526 GB at 128,256 and
@@ -67,6 +79,9 @@ Examples (CPU, tiny model):
       --obs trace --trace t.json --metrics-out m.jsonl
   python scripts/obs_report.py m.jsonl --trace t.json --check
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch paper-tiny --mode mesh --participation 0.5 \\
+      --weighting examples --clients 4 --rounds 2 --local-steps 3 --vocab 32
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --vocab 64 --mode serve --port 0 --clients 3 --rounds 2 --linger 5
 """
 
@@ -84,6 +99,7 @@ from repro_torch.configs import (FedConfig, LoRAConfig, ServeConfig,
                                  TrainConfig, get_config, validate_fed_lora)
 from repro_torch.core import FederatedTrainer, init_global_state
 from repro_torch.data import ClientLoader, SyntheticLM, dirichlet_partition
+from repro_torch.launch.mesh_train import MeshFederatedTrainer
 from repro_torch.models import build_model
 from repro_torch.util.device import resolve_device
 
@@ -128,6 +144,24 @@ def write_obs(rec, args) -> None:
     if args.metrics_out:
         rec.write_metrics(args.metrics_out)
         print(f"metrics JSONL → {args.metrics_out} (scripts/obs_report.py)")
+
+
+def print_ledger(trainer) -> None:
+    """The host trainer's measured bytes ledger, its quarantined and
+    dropped buckets, and each round's quarantined or dropped pairs."""
+    if trainer.ledger.entries:
+        print("comm ledger (measured, fedsrv transport):")
+        for line in trainer.ledger.summary_lines():
+            print("  " + line)
+        tot = trainer.ledger.totals()
+        for bucket in ("quarantined", "dropped"):
+            if f"{bucket}_params" in tot:
+                print(f"  {bucket}: {tot[bucket + '_params']} params, "
+                      f"{tot[bucket + '_bytes']} B")
+    for out in trainer.outcomes:
+        if out.quarantined:
+            print(f"round={out.round_id} quarantined or dropped "
+                  f"(client, reason): {out.quarantined}")
 
 
 def run_serve(args, model, lora_cfg, fed_cfg, device) -> None:
@@ -176,10 +210,12 @@ def main(argv=None) -> None:
                     help="torch device (default cuda; cpu must be asked for)")
     ap.add_argument("--mode", default="host",
                     choices=("host", "serve", "mesh"),
-                    help="host = the coordinator's simulation; serve = the "
-                         "HTTP federation service (clients POST deltas; "
-                         "--deadline means wall seconds); mesh is not "
-                         "ported")
+                    help="host = the coordinator's simulation; mesh = the "
+                         "clients co-scheduled as lanes of one stacked "
+                         "round, closed by the weighted kernel close (fedex, "
+                         "fedex_svd); serve = the HTTP federation service "
+                         "(clients POST deltas; --deadline means wall "
+                         "seconds)")
     ap.add_argument("--arch", default="paper-tiny")
     ap.add_argument("--method", default="fedex",
                     choices=("fedex", "fedit", "ffa", "fedex_svd", "hetero",
@@ -198,6 +234,11 @@ def main(argv=None) -> None:
                     help="comma-separated per-client ranks, e.g. 4,2,1 — "
                          "non-empty (or --method hetero) runs the ragged-rank "
                          "close; adapters pad to --rank = r_max")
+    ap.add_argument("--client-local-steps", default="",
+                    help="comma-separated per-client local step budgets, "
+                         "e.g. 1,2,2,1 ('' = every client runs "
+                         "--local-steps; mesh mode freezes a lane after its "
+                         "budget)")
     ap.add_argument("--alpha", type=float, default=8.0, help="LoRA alpha")
     ap.add_argument("--lr", type=float, default=5e-3)
     ap.add_argument("--seq-len", type=int, default=64)
@@ -301,10 +342,9 @@ def main(argv=None) -> None:
                             else ("basic" if args.metrics_out else "off"))
     if args.trace and obs_mode != "trace":
         ap.error(f"--trace requires --obs trace (got --obs {obs_mode})")
-    if args.mode == "mesh":
-        raise NotImplementedError(
-            "--mode mesh (co-scheduled client lanes) is not ported yet "
-            "(ROADMAP Queue 1 item 5)")
+    if args.mode == "mesh" and args.resume:
+        raise ValueError("--resume under --mode mesh, which takes no "
+                         "checkpoints")
 
     device = resolve_device(args.device)
     lora_cfg = LoRAConfig(rank=args.rank, alpha=args.alpha,
@@ -314,6 +354,9 @@ def main(argv=None) -> None:
                         assignment=args.assignment, svd_rank=args.svd_rank,
                         client_ranks=tuple(int(x) for x in
                                            args.client_ranks.split(",") if x),
+                        client_local_steps=tuple(
+                            int(x) for x in args.client_local_steps.split(",")
+                            if x),
                         dirichlet_alpha=args.dirichlet_alpha, seed=args.seed,
                         participation=args.participation,
                         min_quorum=args.min_quorum, weighting=args.weighting,
@@ -349,13 +392,21 @@ def main(argv=None) -> None:
         batch_size=args.batch_size, device=device)
     train_cfg = TrainConfig(learning_rate=args.lr, schedule="constant",
                             total_steps=args.rounds * args.local_steps)
-    trainer = FederatedTrainer(model=model, lora_cfg=lora_cfg,
-                               fed_cfg=fed_cfg, train_cfg=train_cfg,
-                               client_loaders=loaders,
-                               eval_batches=eval_batches, seed=args.seed,
-                               device=device)
-    if args.resume:
-        trainer.load_state(round_state_path(args.checkpoint_dir))
+    if args.mode == "mesh":
+        trainer = MeshFederatedTrainer(
+            model=model, lora_cfg=lora_cfg, fed_cfg=fed_cfg,
+            train_cfg=train_cfg, client_loaders=loaders,
+            eval_batches=eval_batches, seed=args.seed, device=device)
+        backend = trainer.closer.backend
+    else:
+        trainer = FederatedTrainer(model=model, lora_cfg=lora_cfg,
+                                   fed_cfg=fed_cfg, train_cfg=train_cfg,
+                                   client_loaders=loaders,
+                                   eval_batches=eval_batches, seed=args.seed,
+                                   device=device)
+        backend = trainer.engine.backend if trainer.engine else "eager"
+        if args.resume:
+            trainer.load_state(round_state_path(args.checkpoint_dir))
     history = trainer.run()
     for rec in history:
         print(f"round={rec.round} eval_loss={rec.eval_loss:.4f} "
@@ -366,21 +417,13 @@ def main(argv=None) -> None:
     print(f"\nfinal: method={args.method} eval_loss={final.eval_loss:.4f} "
           f"eval_acc={final.eval_acc:.4f} "
           f"divergence={final.divergence_scaled:.3e} "
-          f"(device={device}, close backend="
-          f"{trainer.engine.backend if trainer.engine else 'eager'})")
-    if trainer.ledger.entries:
-        print("comm ledger (measured, fedsrv transport):")
-        for line in trainer.ledger.summary_lines():
-            print("  " + line)
-        tot = trainer.ledger.totals()
-        for bucket in ("quarantined", "dropped"):
-            if f"{bucket}_params" in tot:
-                print(f"  {bucket}: {tot[bucket + '_params']} params, "
-                      f"{tot[bucket + '_bytes']} B")
-    for out in trainer.outcomes:
-        if out.quarantined:
-            print(f"round={out.round_id} quarantined or dropped "
-                  f"(client, reason): {out.quarantined}")
+          f"(device={device}, mode={args.mode}, close backend={backend})")
+    if args.mode == "mesh":
+        for rnd, pairs in enumerate(trainer.quarantined):
+            if pairs:
+                print(f"round={rnd} quarantined (client, reason): {pairs}")
+    else:
+        print_ledger(trainer)
     write_obs(trainer.recorder, args)
     if args.out:
         with open(args.out, "w") as f:

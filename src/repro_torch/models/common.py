@@ -67,12 +67,21 @@ def make_norm_params(kind: str, shape, dtype, device) -> Params:
 def dense(x: torch.Tensor, params: Params, lora: Optional[Params] = None,
           lora_scale: float = 0.0) -> torch.Tensor:
     """``x @ kernel (+ bias)``, with an optional LoRA adapter branch
-    ``scale * (x @ a) @ b`` — the rank-r intermediate stays tiny."""
+    ``scale * (x @ a) @ b`` — the rank-r intermediate stays tiny.
+
+    Lane-stacked adapters ``a (C, m, r)``, ``b (C, r, n)`` (mesh mode's
+    co-scheduled clients) split x's rows into C equal blocks, lane-major:
+    lane c's factors apply to the c-th block only."""
     y = torch.matmul(x, params["kernel"])
     if lora is not None:
         a = lora["a"].to(x.dtype)
         b = lora["b"].to(x.dtype)
-        y = y + lora_scale * torch.matmul(torch.matmul(x, a), b)
+        if a.ndim == 3:
+            lanes = x.reshape(a.shape[0], -1, x.shape[-1])
+            y = y + lora_scale * torch.bmm(torch.bmm(lanes, a), b).reshape(
+                y.shape)
+        else:
+            y = y + lora_scale * torch.matmul(torch.matmul(x, a), b)
     if "bias" in params:
         y = y + params["bias"]
     return y

@@ -2,8 +2,10 @@
 
 Counterpart of ``repro/models/model.py``: a namespace of functions closed
 over the config — ``init(gen, device) → params``, ``apply(params, batch,
-lora=…) → logits``, ``loss(params, batch, lora=…) → (scalar, metrics)``, and
-for serving ``init_cache(batch_size, cache_len, dtype, device) → cache``,
+lora=…) → logits``, ``loss(params, batch, lora=…) → (scalar, metrics)``,
+``lane_loss(params, batch, lora=…) → (C,)`` for lane-stacked adapters
+(mesh mode), and for serving ``init_cache(batch_size, cache_len, dtype, device) →
+cache``,
 ``prefill(params, batch, cache, lora=…) → (logits, cache)`` and
 ``decode_step(params, tokens, cache, position, lora=…) → (logits, cache)``.
 """
@@ -17,6 +19,7 @@ import torch
 
 from repro_torch.models import transformer
 from repro_torch.models.common import cross_entropy
+from repro_torch.util.tree import flatten_with_paths, unflatten_from_paths
 
 
 @dataclass(frozen=True)
@@ -25,6 +28,7 @@ class Model:
     init: Callable
     apply: Callable
     loss: Callable
+    lane_loss: Callable
     init_cache: Callable
     prefill: Callable
     decode_step: Callable
@@ -48,6 +52,28 @@ def build_model(cfg) -> Model:
         metrics["total_loss"] = ce
         return ce, metrics
 
+    def lane_loss(params, batch, lora, lora_scale=0.0):
+        """Each lane's mean loss, (C,), from one forward over the folded
+        batch: ``lora`` holds lane-stacked factors in the engine's layout
+        (``(C, L, m, r)`` under ``layers``, ``(C, m, r)`` elsewhere) and
+        lane c owns batch rows ``[c·B, (c+1)·B)``."""
+        c = next(iter(flatten_with_paths(lora).values())).shape[0]
+        by_layer = dict(lora)
+        if "layers" in lora:  # layer i must slice (C, m, r)
+            by_layer["layers"] = unflatten_from_paths({
+                p: x.movedim(0, 1)
+                for p, x in flatten_with_paths(lora["layers"]).items()})
+        logits = apply(params, batch, lora=by_layer, lora_scale=lora_scale)
+        logits = logits.reshape(c, -1, *logits.shape[1:])
+        targets = batch["targets"].reshape(c, -1, *batch["targets"].shape[1:])
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = mask.reshape(c, -1, *mask.shape[1:])
+        return torch.stack([
+            cross_entropy(logits[i], targets[i],
+                          None if mask is None else mask[i])[0]
+            for i in range(c)])
+
     def init_cache(batch_size, cache_len, dtype=torch.bfloat16,
                    device="cuda"):
         return transformer.init_cache(cfg, batch_size, cache_len, dtype,
@@ -65,5 +91,5 @@ def build_model(cfg) -> Model:
                                    cache=cache, position=position)
 
     return Model(cfg=cfg, init=init, apply=apply, loss=loss,
-                 init_cache=init_cache, prefill=prefill,
+                 lane_loss=lane_loss, init_cache=init_cache, prefill=prefill,
                  decode_step=decode_step)

@@ -69,3 +69,18 @@ def clip_by_global_norm(grads: Any, max_norm: float
     scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     clipped = {p: (g.float() * scale).to(g.dtype) for p, g in flat.items()}
     return unflatten_from_paths(clipped), gnorm
+
+
+@torch.no_grad()
+def clip_by_lane_norm(grads: Any, max_norm: float
+                      ) -> Tuple[Any, torch.Tensor]:
+    """:func:`clip_by_global_norm` of every lane of a lane-stacked tree
+    (leaves ``(C, …)``) by that lane's own norm over all leaves, as the
+    reference's clip under ``vmap``. Returns (clipped tree, (C,) norms)."""
+    flat = flatten_with_paths(grads)
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()).flatten(1), 1)
+                           for g in flat.values()))
+    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
+    clipped = {p: (g.float() * scale.reshape((-1,) + (1,) * (g.ndim - 1))
+                   ).to(g.dtype) for p, g in flat.items()}
+    return unflatten_from_paths(clipped), gnorm
