@@ -11,7 +11,8 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
 ``sys.path`` itself and runs, each phase raising on failure:
 
 1. environment: torch/CUDA versions and the card's name and power limit;
-   TF32 off for matmuls and cuDNN (the folds' exactness is f32's);
+   TF32 off for matmuls and cuDNN (the folds' exactness is f32's), the
+   settings read back;
 2. build: one ``nvcc`` per kernel source, all in parallel, into
    ``build/kernels/``, with ``-Xptxas -v``; the registers, spills and
    static shared memory of ``factor_mean``'s grouped kernel, of
@@ -37,8 +38,9 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    b̄: W0 + s·[w_0 a_0 | … | −ā] [b_0; …; b̄]; ``product_fold``; each produced
    lane one batch for ``perclient_fold`` and ``hetero_fold``;
    ``acc.baddbmm_`` in place for ``product_accum``), which must agree with
-   the kernel within twice its error bound. ``product_accum`` (B5) must
-   also equal its old body (``product_fold`` with acc as W0 and out)
+   the kernel within twice its error bound. A ``fedex_fold`` check that
+   fails says what it saw (:func:`fold_disagreement`). ``product_accum``
+   (B5) must also equal its old body (``product_fold`` with acc as W0 and out)
    bitwise at every checked shape: the main chunk (4 uplinks, r 4), the
    chunk of 64 uplinks at r = 8 that docs/benchmarks.md documents, 16
    lanes at r 64, an a stack off 16-byte alignment (r 3, odd m), zero
@@ -457,13 +459,50 @@ def make_inputs(torch, device, c, lead, m, n, r, live, seed):
 
 
 def check_fold(torch, kernels, w0, a, b, scale, w):
+    """(max err, ok, what a failure saw: "" when ok)."""
     got = kernels.fedex_fold(w0, a, b, scale, weights=w)
     torch.cuda.synchronize()
     want = kernels.fedex_fold_plain(w0, a, b, scale, w)
     bound = kernels.fold_error_bound(w0, a, b, scale, w)
     err = (got - want).abs()
     ok = bool((err <= bound).all())
-    return float(err.max()), ok
+    seen = "" if ok else fold_disagreement(torch, kernels, (w0, a, b, scale,
+                                                            w), got, want,
+                                           bound)
+    return float(err.max()), ok, seen
+
+
+def fold_disagreement(torch, kernels, args, got, want, bound) -> str:
+    """What a failed ``fedex_fold`` check saw, for its error message: the
+    elements outside the bound, the non-finite counts, the worst element,
+    whether a second launch and a second plain evaluation repeat the first
+    bit for bit, and the card's ECC error counts, clock and temperature."""
+    w0, a, b, scale, w = args
+    bad = ~((got - want).abs() <= bound)
+    worst = torch.where(bad, (got - want).abs().nan_to_num(math.inf), -1.0)
+    at = tuple(int(i) for i in torch.unravel_index(worst.argmax(),
+                                                   worst.shape))
+    again = kernels.fedex_fold(w0, a, b, scale, weights=w)
+    torch.cuda.synchronize()
+    plain_again = kernels.fedex_fold_plain(w0, a, b, scale, w)
+    try:
+        smi = " | ".join(subprocess.run(
+            ["nvidia-smi", "--query-gpu=ecc.errors.corrected.volatile.total,"
+             "ecc.errors.uncorrected.volatile.total,clocks.sm,temperature.gpu",
+             "--format=csv"], capture_output=True, text=True,
+            timeout=60).stdout.strip().splitlines())
+    except (OSError, subprocess.SubprocessError) as e:
+        smi = f"not read ({e})"
+    return (f"{int(bad.sum())} of {bad.numel()} elements outside the bound; "
+            f"non-finite: kernel {int((~got.isfinite()).sum())}, plain "
+            f"{int((~want.isfinite()).sum())}, bound "
+            f"{int((~bound.isfinite()).sum())}; worst at {at}: kernel "
+            f"{float(got[at])!r}, plain {float(want[at])!r}, bound "
+            f"{float(bound[at])!r}; a second launch bitwise the first: "
+            f"{bool(torch.equal(bits(torch, again), bits(torch, got)))}; a "
+            "second plain evaluation bitwise the first: "
+            f"{bool(torch.equal(bits(torch, plain_again), bits(torch, want)))}"
+            f"; nvidia-smi: {smi}")
 
 
 def check_mean(torch, kernels, x, w):
@@ -524,14 +563,14 @@ def kernel_phase(torch, kernels, device, cfg, *, c, r, scale,
             w0, a, b, w = make_inputs(torch, device, c, (L,), m, n, r, live,
                                       seed=i)
             wts = w if weighted else None
-            err, ok = check_fold(torch, kernels, w0, a, b, scale, wts)
+            err, ok, seen = check_fold(torch, kernels, w0, a, b, scale, wts)
             errs["fedex_fold"] = max(errs["fedex_fold"], err)
             print(f"  fedex_fold[{body}] {cfg.name} {name} ({L},{m},{n}) "
                   f"C={c} r={r}: "
                   f"max_abs_err={err:.3e} within bound={ok}", flush=True)
             if not ok:
                 raise AssertionError(f"fedex_fold[{body}] {name} disagrees "
-                                     "with its plain version")
+                                     f"with its plain version: {seen}")
             for fac in (a, b):
                 err, ok, same = check_mean(torch, kernels, fac, wts)
                 errs["factor_mean"] = max(errs["factor_mean"], err)
@@ -638,7 +677,7 @@ def kernel_phase(torch, kernels, device, cfg, *, c, r, scale,
         w0, a, b, w = make_inputs(torch, device, c_e, (L,), m, n, r_e, live,
                                   seed=99)
         for wts in (w, None):
-            err, ok = check_fold(torch, kernels, w0, a, b, scale, wts)
+            err, ok, seen = check_fold(torch, kernels, w0, a, b, scale, wts)
             errs["fedex_fold"] = max(errs["fedex_fold"], err)
             e2, ok2, _ = check_mean(torch, kernels, a, wts)
             e3, ok3, _ = check_mean(torch, kernels, b, wts)
@@ -649,7 +688,7 @@ def kernel_phase(torch, kernels, device, cfg, *, c, r, scale,
                   f"{ok2 and ok3}", flush=True)
             if not (ok and ok2 and ok3):
                 raise AssertionError(f"edge case C={c_e} m={m} n={n} r={r_e} "
-                                     f"[{body}] disagrees")
+                                     f"[{body}] disagrees: {seen}")
     if edges:
         mean_group_edges(torch, kernels, device)
     return errs, timings
@@ -3989,7 +4028,9 @@ def main() -> int:
     print(f"[1/8] environment: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
-          "TF32 off", flush=True)
+          f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+          f"{torch.backends.cudnn.allow_tf32}, f32 matmul precision "
+          f"{torch.get_float32_matmul_precision()}", flush=True)
     print(smi, flush=True)
 
     t = time.perf_counter()
