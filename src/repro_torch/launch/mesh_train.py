@@ -248,9 +248,10 @@ def check_mesh_supported(fed: FedConfig) -> None:
     """Raise ``ValueError`` for a setting mesh mode cannot honour (the
     reference warns and ignores them): the host-orchestrated methods, the
     coordinator's and the transport's settings, DP, client ranks, the
-    engine's tuning, checkpoints, and fault kinds outside
+    engine's tuning, checkpoints, fault kinds outside
     :data:`~repro_torch.fedsrv.faults.MESH_KINDS` (co-scheduled lanes cross
-    no wire)."""
+    no wire), and a norm ceiling without a fault plan (the reference screens
+    the lanes only under a plan)."""
     if fed.method not in MESH_METHODS:
         raise ValueError(f"--mode mesh supports {MESH_METHODS}, "
                          f"got method={fed.method!r}")
@@ -272,6 +273,7 @@ def check_mesh_supported(fed: FedConfig) -> None:
         "uplink_retries": fed.uplink_retries != RETRIES,
         "checkpoint_dir": bool(fed.checkpoint_dir),
         "checkpoint_every": fed.checkpoint_every != EVERY,
+        "uplink_max_norm": fed.uplink_max_norm > 0 and not fed.faults,
     }
     asked = [k for k, v in host_only.items() if v]
     if asked:
@@ -293,7 +295,7 @@ class MeshFederatedTrainer:
     """Mesh-mode rounds: each round samples a seeded subset, trains every
     lane from the global adapter in one stacked round
     (:func:`make_mesh_round_fn`), screens the sampled lanes under a fault
-    plan or a norm ceiling, and closes through :class:`MeshRoundCloser`.
+    plan (against the norm ceiling too, where one is set), and closes through :class:`MeshRoundCloser`.
     The records are the host trainer's :class:`RoundRecord`.
 
     ``params`` / ``global_lora`` default to the host trainer's draws at
@@ -430,7 +432,7 @@ class MeshFederatedTrainer:
     def run(self) -> List[RoundRecord]:
         fc, rec = self.fed_cfg, self.recorder
         c = fc.num_clients
-        screen = self.fault_injector is not None or fc.uplink_max_norm > 0
+        screen = self.fault_injector is not None
         step0 = 0
         for rnd in range(fc.rounds):
             lrs = [lr_at(step0 + s, base_lr=self.train_cfg.learning_rate,

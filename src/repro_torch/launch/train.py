@@ -37,10 +37,12 @@ stacked training round, and every round closes through the engine's
 weighted close (the kernels on the GPU), for ``--method fedex`` and
 ``fedex_svd``, with ``--participation``, ``--weighting``,
 ``--client-local-steps`` (lane c freezes after its budget), ``--faults`` of
-the value kinds (nan, inf, scale), ``--uplink-max-norm`` and ``--obs``. A
-setting it cannot honour (the host-only flags: the coordinator's policies,
-the transport's codec and retries, DP, client ranks, ``--engine``, the
-ring, checkpoints) raises ``ValueError`` naming it.
+the value kinds (nan, inf, scale), ``--uplink-max-norm`` with such a plan,
+and ``--obs``. A setting it cannot honour (the host-only flags: the
+coordinator's policies, the transport's codec and retries, DP, client
+ranks, ``--engine``, the ring, checkpoints, and a norm ceiling without a
+fault plan, which the reference's mesh mode ignores) raises ``ValueError``
+naming it.
 
 ``--data-vocab`` draws the synthetic corpus from a smaller vocabulary than
 the model's (its transition tensor is dense vocab², ~526 GB at 128,256 and

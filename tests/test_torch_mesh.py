@@ -82,6 +82,10 @@ CONFIGS = {
     "budgets": dict(client_local_steps=(1, 2, 2, 1)),
     "fedex_svd": dict(method="fedex_svd", svd_rank=2),
     "faults": dict(faults="nan@1(clients=1)"),
+    # the plan's byzantine lane lands over the ceiling: both trainers screen
+    # it as "norm" (the reference screens only under a plan)
+    "faults+ceiling": dict(faults="scale@1(clients=2,factor=20,rounds=1)",
+                           uplink_max_norm=0.5),
 }
 TIMINGS = {"close_dispatch_us", "close_block_us", "compile_miss"}
 
@@ -417,13 +421,14 @@ def _capture(trainer, sink, convert):
     trainer.closer.close = wrapped
 
 
-def _port_trainer(pm, name, start, obs="trace", seqs=None, ev=None):
+def _port_trainer(pm, name, start, obs="trace", seqs=None, ev=None, **kw):
     pl = [ClientLoader(s, batch_size=BATCH, seed=t, device=CPU)
           for t, s in enumerate(seqs)]
     return MeshFederatedTrainer(
         model=pm, lora_cfg=LoRAConfig(rank=4, alpha=8),
         fed_cfg=FedConfig(num_clients=CLIENTS, rounds=ROUNDS,
-                          local_steps=STEPS, obs=obs, **CONFIGS[name]),
+                          local_steps=STEPS, obs=obs,
+                          **{**CONFIGS[name], **kw}),
         train_cfg=TrainConfig(**TRAIN), client_loaders=pl,
         eval_batches=[{k: torch.from_numpy(v.copy()) for k, v in ev.items()}],
         seed=0, device=CPU, params=params_from_numpy(start[0], CPU),
@@ -501,6 +506,8 @@ def test_trainer_matches_reference_round_by_round(runs, name):
     assert pt.quarantined == _quarantined(jt)
     if name == "faults":
         assert pt.quarantined == [[(1, "nonfinite")]] * ROUNDS
+    if name == "faults+ceiling":
+        assert pt.quarantined == [[], [(2, "norm")]]
     if name == "examples-50%":
         assert all(len(r.client_losses) == 2 for r in pt.history)
 
@@ -641,6 +648,23 @@ def test_value_faults_and_a_norm_ceiling_are_accepted():
     check_mesh_supported(FedConfig(num_clients=4, faults=(
         "nan@1(clients=1);inf@0.5;scale@1(clients=2,factor=10)"),
         uplink_max_norm=1.0, participation=0.5, weighting="examples"))
+
+
+def test_a_norm_ceiling_without_a_fault_plan_is_refused(tmp_path):
+    """The reference's mesh trainer screens lanes only under a fault plan,
+    so a ceiling alone would close over a lane the port quarantines: the
+    port refuses it, through the class and through the launcher."""
+    with pytest.raises(ValueError, match="uplink_max_norm"):
+        check_mesh_supported(FedConfig(num_clients=4, uplink_max_norm=1.0))
+    _, pm, params, lora = _models()
+    seqs, ev = _data()
+    with pytest.raises(ValueError, match="uplink_max_norm"):
+        _port_trainer(pm, "faults+ceiling", (params, lora), seqs=seqs,
+                      ev=ev, faults="")
+    with pytest.raises(ValueError, match="uplink_max_norm"):
+        port_train.main(LAUNCH + ["--mode", "mesh", "--uplink-max-norm",
+                                  "1", "--out", str(tmp_path / "h.json")])
+    assert not (tmp_path / "h.json").exists()
 
 
 def test_client_local_steps_flag_in_host_mode(tmp_path):
