@@ -6,6 +6,8 @@
     python3 chip_smoke.py --decode-sweep      # B3's split-K plans
     python3 chip_smoke.py --obs-http          # phase 6 alone
     python3 chip_smoke.py --mesh              # phase 7 alone
+    python3 chip_smoke.py --zoo               # phase 8 alone
+    python3 chip_smoke.py --fold-check        # phase 3's fedex_fold checks
 
 Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
 ``sys.path`` itself and runs, each phase raising on failure:
@@ -231,7 +233,29 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    * mesh+faults: ``nan@1(clients=1,rounds=1)``, 2 rounds: lane 1
      quarantined as ``nonfinite`` and zeroed in round 1 only, the global
      adapter finite, the identity over the survivors;
-8. one JSON line with every ported kernel: ``ms`` and ``library_ms``
+8. the rest of the dense zoo (``zoo_phase``, ``[zoo]`` lines; ``python3
+   chip_smoke.py --zoo`` runs it alone), f32 at full width and depth: first
+   the kernels at gemma3-12b's shapes — ``flash_swa`` at head dim 256
+   (batch 2, prompt 2048, GQA 16/8) without a window and with its window
+   of 1024, ``lora_matmul`` at one layer's q/k/v/o at prefill (M 4096) and
+   decode (M 2), ``fedex_fold`` and ``factor_mean`` over a weighted
+   close's 8 leaves — each against its plain version and timed beside its
+   bound and library call; then gemma3-12b (48 layers, 8 periods of 5
+   local layers at window 1024 and 1 global, d 3840, vocab 262,144),
+   granite-8b (36 layers, d 4096) and starcoder2-15b (40 layers, d 6144),
+   one at a time, each trained (the trainer at batch 8 × seq 64 on the
+   512-token data vocabulary, 4 clients: gemma3 1 uniform + 2 rounds at
+   50% with example weights, 2 local steps; the others one such weighted
+   round of 3 local steps; ``fedex_fold`` one a leaf — 8 at gemma3, q/k/v/o
+   of its local and global layers — and ``factor_mean`` 1 a weighted close;
+   the folded W0 against its plain fold on the first and the last layer of
+   each leaf, :func:`identity_sampled`), then served from its folded W0 and
+   global adapter on an f32 cache (:func:`zoo_serve`: gemma3 batch 2 ×
+   prompt 2048, the others batch 8 × prompt 512, 32 greedy steps;
+   teacher forcing against the training forward; ``flash_swa`` one a layer
+   a prefill, gemma3's 40 at window 1024 and 8 global), with its seconds
+   and peak memory, and the phase's;
+9. one JSON line with every ported kernel: ``ms`` and ``library_ms``
    host-inclusive, ``device_ms`` and ``library_device_ms`` the profiler's
    device time, at the main body; B2's row adds one close's launch path
    (``close_wall_us``, ``close_enqueue_us``: :func:`launch_cost`), B3's
@@ -244,14 +268,19 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    fields at ``paper-gpt2``'s shapes as ``gpt2_*`` on the rows of B1, B2,
    B3 (prefill layer; ``gpt2_decode_*`` the decode layer) and B8, and at
    the serve launcher's default prompt as ``M64_*`` (paper-llama3.2-3b)
-   and ``gpt2_M64_*`` on B3's row; then the result line.
+   and ``gpt2_M64_*`` on B3's row; at gemma3-12b's shapes (phase 8) as
+   ``gemma3_*`` on the rows of B1, B2, B3 (prefill layer;
+   ``gemma3_decode_*`` the decode layer) and B8 (``gemma3_W1024_*`` with
+   the window); then the result line.
 
 ``--launch-cost SRC`` runs :func:`launch_cost` alone on the port found
 under ``SRC`` (another tree's ``src`` too, to compare two trees in one
 call) and prints it as one JSON line; ``--decode-sweep`` times B3's
 split-K body at every plan (:func:`decode_sweep`); ``--obs-http`` runs
 phase 6 alone (:func:`obs_http_phase`), ``--mesh`` phase 7
-(:func:`mesh_phase`).
+(:func:`mesh_phase`), ``--zoo`` phase 8 (:func:`zoo_phase`), and
+``--fold-check`` phase 3's main-shape ``fedex_fold`` checks
+(:func:`fold_check_main`).
 
 Identities, per adapted leaf, on the last round of each path:
 * fedex: new_W0 + s·ā b̄ = old_W0 + s·Σ_c w_c a_c b_c;
@@ -265,6 +294,8 @@ Identities, per adapted leaf, on the last round of each path:
 * the chunked paths: the same identities against a float64 computation on
   the host from the round's uplinks and normalised raw weights
   (``identity_host``);
+* the zoo paths: the folded W0 against the plain fold on the first and
+  the last layer of each adapted leaf (``identity_sampled``);
 * fedex+dp, fedex[eager], gpt2-fedex, the coordinator paths and the
   fault paths: the fedex (hetero+faults: the hetero) identity over the
   delivered subset, over the privatized uploads
@@ -435,12 +466,21 @@ class Timer:
 # --------------------------------------------------------------------------
 
 def main_path_leaves(cfg):
-    """(name, L, m, n) of the adapted leaves of the main path."""
+    """(name, L, m, n) of the adapted leaves of the main path; a
+    local/global config's (gemma3's) local and global leaves apart, each
+    with its stacked layers flattened into L, as the folds take them."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
-    return [("q_proj", cfg.num_layers, d, cfg.num_heads * hd),
-            ("k_proj", cfg.num_layers, d, cfg.num_kv_heads * hd),
-            ("v_proj", cfg.num_layers, d, cfg.num_kv_heads * hd),
-            ("o_proj", cfg.num_layers, cfg.num_heads * hd, d)]
+    shapes = [("q_proj", d, cfg.num_heads * hd),
+              ("k_proj", d, cfg.num_kv_heads * hd),
+              ("v_proj", d, cfg.num_kv_heads * hd),
+              ("o_proj", cfg.num_heads * hd, d)]
+    stacks = [("", cfg.num_layers)]
+    if cfg.local_global_ratio:
+        nper = cfg.num_layers // (cfg.local_global_ratio + 1)
+        stacks = [("local/", nper * cfg.local_global_ratio),
+                  ("global/", nper)]
+    return [(prefix + name, L, m, n) for prefix, L in stacks
+            for name, m, n in shapes]
 
 
 def make_inputs(torch, device, c, lead, m, n, r, live, seed):
@@ -657,7 +697,8 @@ def kernel_phase(torch, kernels, device, cfg, *, c, r, scale,
                              timer.device(mean_kernel) if main else None,
                              timer.device(mean_library) if main else None)}
         for name, (ms, plain, lib, (bms, by), dev, dev_lib) in t.items():
-            print(f"  time {name}[{body}] {cfg.name} one close (4 leaves"
+            print(f"  time {name}[{body}] {cfg.name} one close "
+                  f"({len(leaves)} leaves"
                   f"{', one grouped launch' if name == 'factor_mean' else ''}"
                   f"): kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
                   f"{lib:.4f} ms ({'baddbmm' if name == 'fedex_fold' else '8 tensordot'}), "
@@ -1485,7 +1526,19 @@ FAULTED = {"fedex+faults": {1: ("nonfinite",), 3: ("bytes",),
            "hetero+faults[twin]": {c: ("crash",) for c in (1, 3)}}
 EVERY_ROUND = ("fedbuff",)  # the identity checked at every commit
 # round 0 uniform over every client, later rounds weighted at 50%
-STAGED = ("fedex", "gpt2-fedex")
+STAGED = ("fedex", "gpt2-fedex", "gemma3-fedex")
+# phase 8's training paths, each at its model's full width and depth (the
+# zoo's weighted closes fold 8 leaves at gemma3: q/k/v/o of its local and
+# its global layers; 4 at the others). The one-round paths take 3 local
+# steps: with 2, every client of a first round uplinks the same A (see the
+# chunked paths) and the fold's residual is 0
+ZOO_PATHS = {
+    "gemma3-fedex": ({}, 3, 4, 2, {"fedex_fold": 1}, {"factor_mean": 1}),
+    "granite-fedex": (PARTIAL, 1, 4, 3, {"fedex_fold": 1},
+                      {"factor_mean": 1}),
+    "starcoder2-fedex": (PARTIAL, 1, 4, 3, {"fedex_fold": 1},
+                         {"factor_mean": 1}),
+}
 
 
 def frozen_leaves(torch, params, keys, gen):
@@ -1774,6 +1827,23 @@ def _scaled(tree, factor):
     return _unflat({p: x * factor for p, x in _flat(tree).items()})
 
 
+def _end_layers(w0):
+    """The first and the last stacked layer of a (*L, m, n) leaf, as
+    indices."""
+    lead = w0.shape[:-2]
+    return [tuple(0 for _ in lead), tuple(n - 1 for n in lead)]
+
+
+def _snapshot(w0, name):
+    """W0's copy for the identity check: the whole leaf, or for a
+    ``ZOO_PATHS`` path its first and last layer (:func:`identity_sampled`),
+    since the whole adapted leaves of a 15 B model would not fit beside
+    it."""
+    if name in ZOO_PATHS:
+        return {idx: w0[idx].clone() for idx in _end_layers(w0)}
+    return w0.clone()
+
+
 def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
     """Drive one path of the port's FederatedTrainer at full width; a
     ``STAGED`` path's round 0 is uniform over every client, its later
@@ -1789,7 +1859,7 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
     from repro_torch.models import build_model
     from repro_torch.util.tree import count_params, flatten_with_paths
 
-    fed_kw, rounds, clients, local_steps, *_ = PATHS[name]
+    fed_kw, rounds, clients, local_steps, *_ = {**PATHS, **ZOO_PATHS}[name]
     t0 = time.perf_counter()
     loaders, evals = build_federated_data(data_vocab, clients, seq_len=seq,
                                           batch_size=batch, device=device)
@@ -1874,7 +1944,7 @@ def drive_path(torch, device, cfg, name, *, batch=8, seq=64, data_vocab=512):
         if rnd == (0 if baseline else rounds - 1) or name in EVERY_ROUND:
             # the exactness identity on the last round (every commit)
             bases = trainer.client_params or [trainer.params]
-            old = [{k: _node(p, k)["kernel"].clone() for k in keys}
+            old = [{k: _snapshot(_node(p, k)["kernel"], name) for k in keys}
                    for p in bases]
         n_steps, n_close, n_fold = len(step_ms), len(close_ms), len(fold_ms)
         t = time.perf_counter()
@@ -2222,6 +2292,26 @@ def identity_fedex(torch, trainer, outcome, old, keys):
     return worst
 
 
+def identity_sampled(torch, trainer, outcome, old, keys):
+    """The zoo's weighted close on the first and the last stacked layer of
+    each adapted leaf (gemma3's local leaves: (0, 0) and (nper − 1, ratio −
+    1)): the folded W0 against the plain fold of the round's uplinks and
+    weights from the round's old W0, within ``fold_error_bound``."""
+    from repro_torch.kernels import fedex_fold_plain, fold_error_bound
+    s, w, worst = trainer.scale, _weights(torch, trainer, outcome), 0.0
+    for key in keys:
+        a, b = _stacks(torch, outcome, key)
+        new = _node(trainer.params, key)["kernel"]
+        for idx, w0_old in old[0][key].items():
+            ai, bi = a[(slice(None), *idx)], b[(slice(None), *idx)]
+            worst = max(worst, _report(
+                "zoo-fold", f"{key}{list(idx)}", new[idx],
+                fedex_fold_plain(w0_old, ai, bi, s, w),
+                fold_error_bound(w0_old, ai, bi, s, w),
+                float((new[idx] - w0_old).abs().max())))
+    return worst
+
+
 def identity_reinit(torch, trainer, outcome, old, keys):
     """new_W0 = old_W0 + s·Σ_c w_c a_c b_c (the fresh adapters have b = 0)."""
     from repro_torch.kernels import product_error_bound
@@ -2504,7 +2594,8 @@ IDENTITIES = {"fedex": identity_fedex, "reinit": identity_reinit,
               "gpt2-fedex": identity_fedex,
               **{name: identity_fedex for name in TRANSPORT_PATHS},
               **{name: identity_hetero if name.startswith("hetero")
-                 else identity_fedex for name in FAULTED}}
+                 else identity_fedex for name in FAULTED},
+              **{name: identity_sampled for name in ZOO_PATHS}}
 
 
 def _node(tree, key):
@@ -3777,6 +3868,269 @@ def mesh_phase(torch, kernels, device, cfg, check=check_launches):
 
 
 # --------------------------------------------------------------------------
+# phase 8: the rest of the dense zoo
+# --------------------------------------------------------------------------
+
+# model → (its training path, serving batch, prompt, greedy decode steps).
+# gemma3's prompt is twice its window: the reference fills a ring cache
+# left-aligned with the prompt's tail, so a prompt longer than the window
+# and not a multiple of it has its first decode steps overwrite keys still
+# inside the window (tests/test_torch_window.py holds the port to that)
+ZOO = {"gemma3-12b": ("gemma3-fedex", 2, 2048, 32),
+       "granite-8b": ("granite-fedex", 8, 512, 32),
+       "starcoder2-15b": ("starcoder2-fedex", 8, 512, 32)}
+
+
+class window_log:
+    """Within the block, the window of every prefill attention call
+    (``swa_attention``, passed through to the kernel wrapper) goes into
+    ``windows``."""
+
+    def __init__(self):
+        from repro_torch.models import attention
+        self.mod, self.windows = attention, []
+
+    def __enter__(self):
+        self.saved = self.mod.swa_attention
+
+        def logged(q, k, v, causal=True, window=0):
+            self.windows.append(window)
+            return self.saved(q, k, v, causal, window)
+
+        self.mod.swa_attention = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.swa_attention = self.saved
+
+
+def prefill_windows(cfg) -> dict:
+    """window → prefill attention launches of ``cfg`` (0: global)."""
+    if cfg.local_global_ratio:
+        nper = cfg.num_layers // (cfg.local_global_ratio + 1)
+        return {cfg.local_window: nper * cfg.local_global_ratio, 0: nper}
+    return {cfg.sliding_window: cfg.num_layers}
+
+
+def zoo_kernel_phase(torch, kernels, device, cfg, *, r, scale):
+    """At gemma3's shapes: B8 at its prefill (batch 2, prompt 2048, GQA
+    16/8, head dim 256) without a window and with its window of 1024, each
+    against its plain version with SDPA beside it (:func:`flash_case`); B3
+    at one layer's q/k/v/o at prefill (M 4096) and decode (M 2)
+    (:func:`lora_case`); B1 and B2 over a weighted close's 8 leaves at 2
+    live lanes of 4 (:func:`kernel_phase`). Every case in device time too.
+    Returns (max errors, timings)."""
+    _, bsz, prompt, _ = ZOO[cfg.name]
+    timer = Timer(torch, device)
+    errs = {"flash_swa": 0.0, "lora_matmul": 0.0}
+    timings = {}
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    for i, (key, window) in enumerate((("gemma3", 0),
+                                       ("gemma3_W1024", cfg.local_window))):
+        err, timings[f"flash_{key}"] = flash_case(
+            torch, kernels, timer, device, bsz, prompt, h, kvh, hd, True,
+            window, seed=70 + i, device_times=True)
+        errs["flash_swa"] = max(errs["flash_swa"], err)
+    for key, m in (("gemma3", bsz * prompt), ("gemma3_decode", bsz)):
+        bufs = [lora_inputs(torch, device, m, k, n, r, seed=80 + i)
+                for i, (_, k, n) in enumerate(serving_projections(cfg))]
+        err, timings[key] = lora_case(
+            torch, kernels, timer, bufs, scale,
+            f"{cfg.name} layer: q/k/v/o at M={m}", device_times=True)
+        errs["lora_matmul"] = max(errs["lora_matmul"], err)
+        del bufs
+    fold_errs, fold = kernel_phase(torch, kernels, device, cfg, c=4, r=r,
+                                   scale=scale, bodies=("weighted-partial",),
+                                   edges=False)
+    errs.update(fold_errs)
+    timings.update(fold["weighted-partial"])
+    torch.cuda.empty_cache()
+    return errs, timings
+
+
+def zoo_serve(torch, kernels, device, cfg, params, lora, *, batch, prompt,
+              steps):
+    """Serve ``cfg`` from ``params`` / ``lora`` (a trainer's folded W0 and
+    global adapter) on an f32 cache of prompt + steps positions (a windowed
+    layer's: a ring of ``min(window, prompt + steps)``). First teacher
+    forcing, with the counters set to 0 just before each step: one prefill
+    of the prompt (``lora_matmul`` 4·L, ``flash_swa`` L, their windows
+    :func:`prefill_windows`) and one decode step of the next token
+    (``lora_matmul`` 4·L) against the training forward over prompt + 1
+    within ``D_TOL``, its argmax agreeing on every row whose top-2 margin
+    exceeds twice that. Then the main path, ``serve()`` with 1 prefill and
+    ``steps`` greedy decode steps, the counters set to 0 just before and
+    read just after. Returns (stats, launches)."""
+    from repro_torch.configs import LoRAConfig
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+
+    L, lcfg = cfg.num_layers, LoRAConfig(rank=4, alpha=8.0)
+    model = build_model(cfg)
+    max_len = prompt + steps
+    data = make_batch_for(cfg, batch, prompt, seed=0, device=device)
+    full = torch.cat([data["tokens"], data["targets"][:, -1:]], dim=1)
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        cache = model.init_cache(batch, max_len, torch.float32, device=device)
+        with window_log() as log:
+            _, cache = make_prefill_step(model, lcfg)(params, lora, data,
+                                                      cache)
+        torch.cuda.synchronize()
+        _expect(kernels, f"{cfg.name} one prefill",
+                {"lora_matmul": 4 * L, "flash_swa": L})
+        windows = {w: log.windows.count(w) for w in sorted(set(log.windows))}
+        print(f"  [serve] {cfg.name} prefill attention launches by window "
+              f"(0: global): {windows}", flush=True)
+        if windows != prefill_windows(cfg):
+            raise AssertionError(f"serve {cfg.name}: prefill windows "
+                                 f"{windows} != {prefill_windows(cfg)}")
+        kernels.reset_launch_counts()
+        _, dec, cache = make_decode_step(model, lcfg)(
+            params, lora, full[:, -1:], cache, prompt)
+        torch.cuda.synchronize()
+        _expect(kernels, f"{cfg.name} one decode step", {"lora_matmul": 4 * L})
+        del cache
+        got = dec[:, -1]
+        train = model.apply(params, {"tokens": full}, lora=lora,
+                            lora_scale=lcfg.scale)[:, -1].clone()
+        torch.cuda.synchronize()
+        ok, err_tf = _allclose(got, train, *D_TOL)
+        top2 = torch.topk(train, 2, dim=-1).values
+        sure = top2[:, 0] - top2[:, 1] > 2 * (D_TOL[1]
+                                              + D_TOL[0] * top2[:, 0].abs())
+        same = got.argmax(-1) == train.argmax(-1)
+        agree = bool(same[sure].all())
+        print(f"  [serve] {cfg.name} teacher-forced decode (f32 cache) vs the "
+              f"training forward: max |diff| {err_tf:.3e} (rtol, atol "
+              f"{D_TOL}): within={ok}; argmax agrees on {int(same.sum())} of "
+              f"{batch} rows, on the {int(sure.sum())} rows whose top-2 "
+              f"margin exceeds 2 x tol: {agree}; logit scale "
+              f"{float(train.abs().max()):.3f}", flush=True)
+        if not (ok and agree):
+            raise AssertionError(f"serve {cfg.name}: prefill + decode "
+                                 "disagree with the training forward")
+        del dec, got, train, top2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kernels.reset_launch_counts()
+    res = serve(cfg.name, batch_size=batch, prompt_len=prompt, steps=steps,
+                max_len=max_len, device=device, params=params, lora=lora,
+                cache_dtype=torch.float32)
+    launches = kernels.launch_counts()
+    _expect(kernels, f"{cfg.name} serve() (1 prefill + {steps} decode steps)",
+            {"lora_matmul": 4 * L * (1 + steps), "flash_swa": L})
+    toks = res.tokens
+    if toks.shape != (batch, steps + 1) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"serve {cfg.name}: bad tokens {toks.shape}")
+    stats = {"prefill_ms": res.prefill_ms,
+             "decode_ms_per_token": res.ms_per_token,
+             "decode_tokens_per_s": batch * steps / (res.decode_ms / 1e3),
+             "prefill_tokens_per_s": batch * prompt / (res.prefill_ms / 1e3),
+             "err_teacher_forced": err_tf}
+    print(f"  [serve] {cfg.name} batch {batch}, prompt {prompt}, {steps} "
+          f"decode steps, f32 cache of {max_len}: prefill "
+          f"{res.prefill_ms:.1f} ms ({stats['prefill_tokens_per_s']:.0f} "
+          f"tokens/s), decode {res.ms_per_token:.2f} ms/token "
+          f"({stats['decode_tokens_per_s']:.1f} tokens/s over the batch); "
+          f"first row {toks[0, :8].tolist()}", flush=True)
+    return stats, launches
+
+
+def zoo_model(torch, kernels, device, name):
+    """One zoo model at full width and depth in float32: its training path
+    (``ZOO_PATHS`` through :func:`drive_path`, the counters set to 0 just
+    before it and read just after: ``factor_mean`` 1 and ``fedex_fold`` one
+    a leaf per weighted close), then :func:`zoo_serve` of the trained W0
+    and global adapter; its peak memory over both. Returns (stats,
+    launches)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.util.tree import count_params
+
+    path, bsz, prompt, steps = ZOO[name]
+    cfg = replace(get_config(name), dtype="float32")
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    trainer, rows, closes, identity = drive_path(torch, device, cfg, path)
+    n_leaves = len(trainer.engine.specs)
+    if n_leaves != len(main_path_leaves(cfg)):
+        raise AssertionError(f"{path}: {n_leaves} adapted leaves, expected "
+                             f"{len(main_path_leaves(cfg))}")
+    *_, per_leaf, per_close = ZOO_PATHS[path]
+    want = {k: v * n_leaves * closes for k, v in per_leaf.items()}
+    want.update({k: v * closes for k, v in per_close.items()})
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(check_launches(
+        kernels, path, want, f" for {closes} kernel closes of {n_leaves} "
+        f"leaves; peak memory {train_peak:.1f} GiB"))
+    values = [v for row in rows for v in
+              (row["eval_loss"], row["divergence"], *row["client_losses"])]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{path}: non-finite losses or divergence: "
+                             f"{rows}")
+    last = rows[-1]
+    stats = {"params_b": count_params(trainer.params) / 1e9,
+             "layers": cfg.num_layers, "train_s": time.perf_counter() - t,
+             "client_step_ms": last["step_ms"], "close_ms": last["close_ms"],
+             "train_peak_gib": train_peak, "fold_err": identity,
+             "rounds": [{k: v for k, v in row.items()
+                         if k != "client_losses"} for row in rows]}
+    t = time.perf_counter()
+    served, got = zoo_serve(torch, kernels, device, cfg, trainer.params,
+                            trainer.global_lora, batch=bsz, prompt=prompt,
+                            steps=steps)
+    for k, v in got.items():
+        launches[k] += v
+    stats.update(served, serve_s=time.perf_counter() - t,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"  [zoo] {name}: {stats['params_b']:.2f} B params, "
+          f"{cfg.num_layers} layers; train {stats['train_s']:.1f} s (client "
+          f"step {last['step_ms']:.1f} ms, weighted close "
+          f"{last['close_ms']:.2f} ms), serve {stats['serve_s']:.1f} s; "
+          f"peak {stats['peak_gib']:.2f} GiB", flush=True)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, launches
+
+
+def zoo_phase(torch, kernels, device):
+    """Phase 8: the kernels at gemma3's shapes (:func:`zoo_kernel_phase`),
+    then each model of ``ZOO`` trained and served (:func:`zoo_model`), one
+    at a time, each freed before the next. Returns (max errors, timings,
+    launches, stats)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    gcfg = replace(get_config(next(iter(ZOO))), dtype="float32")  # gemma3
+    errs, timings = zoo_kernel_phase(torch, kernels, device, gcfg, r=4,
+                                     scale=2.0)
+    stats = {"kernels_s": time.perf_counter() - t,
+             "kernels_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    launches = {name: 0 for name in SOURCES}
+    for name in ZOO:
+        stats[name], got = zoo_model(torch, kernels, device, name)
+        for k, v in got.items():
+            launches[k] += v
+    stats["seconds"] = time.perf_counter() - t
+    stats["peak_gib"] = max([stats["kernels_peak_gib"]]
+                            + [stats[n]["peak_gib"] for n in ZOO])
+    print(f"  [zoo] phase 8 in {stats['seconds']:.1f} s, peak memory "
+          f"{stats['peak_gib']:.2f} GiB", flush=True)
+    return errs, timings, launches, stats
+
+
+# --------------------------------------------------------------------------
 
 SOURCES = {  # kernel → (CUDA source, the TPU kernel it replaces)
     "fedex_fold": ("src/repro_torch/kernels/csrc/fedex_fold.cu",
@@ -3995,6 +4349,96 @@ def mesh_main() -> int:
     return 0
 
 
+def build_kernels(kbuild, label):
+    """Build every kernel library (one ``nvcc`` a source, in parallel) and
+    load it; print the build and the ptxas summaries of the kernels that
+    ``ptxas_summary`` reads."""
+    t = time.perf_counter()
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        libs = kbuild.build(verbose=True)
+    print(log.getvalue(), end="", flush=True)
+    kbuild.load_library()
+    print(f"{label} build: {len(libs)} libraries "
+          f"({', '.join(p.name for p in libs)}) in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    for lib, prefix in (("factor_mean", "factor_mean_"),
+                        ("lora_matmul", "lora_mm_"),
+                        ("flash_swa", "flash_swa_tile")):
+        report = ptxas_summary(log.getvalue().split(f"nvcc lib{lib}")[-1]
+                               .split("\nnvcc ")[0], prefix)
+        for line in report or [f"{lib}: library already built, no ptxas "
+                               "report"]:
+            print(f"  ptxas {line}", flush=True)
+
+
+def fold_check_main() -> int:
+    """``--fold-check``: phase 3's main-shape ``fedex_fold`` checks alone,
+    in this process (after the build, TF32 off): the 4 leaves of a
+    weighted close at paper-llama3.2-3b's shapes under each body (2 and 4
+    live lanes of 4 weighted, uniform), each against its plain version
+    within ``fold_error_bound``. Prints one JSON line with the checks, the
+    failures and what each failure saw (:func:`fold_disagreement`); exits
+    1 if any failed. Run it in many fresh processes to count how often a
+    check fails."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from dataclasses import replace
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build as kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kbuild.load_library()
+    device = torch.device("cuda", 0)
+    cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
+    c = 4
+    failed, checks, worst = [], 0, 0.0
+    for body, live in (("weighted-partial", (0, 1)),
+                       ("weighted-full", tuple(range(c))),
+                       ("uniform", tuple(range(c)))):
+        for i, (name, L, m, n) in enumerate(main_path_leaves(cfg)):
+            w0, a, b, w = make_inputs(torch, device, c, (L,), m, n, 4, live,
+                                      seed=i)
+            err, ok, seen = check_fold(torch, kernels, w0, a, b, 2.0,
+                                       None if body == "uniform" else w)
+            checks += 1
+            worst = max(worst, err)
+            if not ok:
+                failed.append({"check": f"{body} {name}", "seen": seen})
+            del w0, a, b, w
+    print(json.dumps({"fold_checks": checks, "failed": failed,
+                      "max_abs_err": worst}), flush=True)
+    return 1 if failed else 0
+
+
+def zoo_main() -> int:
+    """``--zoo``: phase 8 alone (:func:`zoo_phase`) on this checkout's port,
+    after the build and its ptxas summaries, its stats as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch import kernels
+    from repro_torch.kernels import build as kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi_line(), flush=True)
+    build_kernels(kbuild, "[zoo]")
+    errs, _, launches, stats = zoo_phase(torch, kernels,
+                                         torch.device("cuda", 0))
+    print(json.dumps({"zoo": stats, "launches": launches,
+                      "max_abs_err": errs}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4006,6 +4450,10 @@ def main() -> int:
         return obs_http_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--mesh":
         return mesh_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--zoo":
+        return zoo_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--fold-check":
+        return fold_check_main()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device — this script runs the port on the "
               "card", file=sys.stderr)
@@ -4025,7 +4473,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
-    print(f"[1/8] environment: python {sys.version.split()[0]}, torch "
+    print(f"[1/9] environment: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
@@ -4033,27 +4481,11 @@ def main() -> int:
           f"{torch.get_float32_matmul_precision()}", flush=True)
     print(smi, flush=True)
 
-    t = time.perf_counter()
-    log = io.StringIO()
-    with contextlib.redirect_stdout(log):
-        libs = kbuild.build(verbose=True)
-    print(log.getvalue(), end="", flush=True)
-    kbuild.load_library()
-    print(f"[2/8] build: {len(libs)} libraries "
-          f"({', '.join(p.name for p in libs)}) in "
-          f"{time.perf_counter() - t:.1f} s", flush=True)
-    for lib, prefix in (("factor_mean", "factor_mean_"),
-                        ("lora_matmul", "lora_mm_"),
-                        ("flash_swa", "flash_swa_tile")):
-        report = ptxas_summary(log.getvalue().split(f"nvcc lib{lib}")[-1]
-                               .split("\nnvcc ")[0], prefix)
-        for line in report or [f"{lib}: library already built, no ptxas "
-                               "report"]:
-            print(f"  ptxas {line}", flush=True)
+    build_kernels(kbuild, "[2/9]")
 
     cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
     c, r, scale = 4, 4, 8.0 / 4
-    print(f"[3/8] kernels vs plain versions (C={c}, r={r}, scale={scale})",
+    print(f"[3/9] kernels vs plain versions (C={c}, r={r}, scale={scale})",
           flush=True)
     errs, timings = kernel_phase(torch, kernels, device, cfg, c=c, r=r,
                                  scale=scale)
@@ -4077,7 +4509,7 @@ def main() -> int:
     print(f"  launch path: {json.dumps(cost)}", flush=True)
     torch.cuda.empty_cache()
 
-    print(f"[4/8] main paths: FederatedTrainer at {cfg.name} full width "
+    print(f"[4/9] main paths: FederatedTrainer at {cfg.name} full width "
           f"({cfg.num_layers} layers, d={cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}); {', '.join(GPT2_PATHS)} at "
           f"{gcfg.name} ({gcfg.num_layers} layers, d={gcfg.d_model}, vocab "
@@ -4107,22 +4539,30 @@ def main() -> int:
           flush=True)
     serve_stats = {}
     for scfg in (cfg, gcfg):
-        print(f"[5/8] serving: {scfg.name} at full width, prefill + KV-cache "
+        print(f"[5/9] serving: {scfg.name} at full width, prefill + KV-cache "
               "greedy decode with a LoRA adapter", flush=True)
         serve_stats[scfg.name], serve_launches = serve_phase(
             torch, kernels, device, scfg)
         for k in ("lora_matmul", "flash_swa"):
             launches[k] += serve_launches[k]
-    print(f"[6/8] obs and the HTTP federation service at {cfg.name} full "
+    print(f"[6/9] obs and the HTTP federation service at {cfg.name} full "
           "width: fedex+obs, serve-http, pull-serve, serve-http-hetero",
           flush=True)
     obs_launches, obs_stats = obs_http_phase(torch, kernels, device, cfg)
     for k, v in obs_launches.items():
         launches[k] += v
-    print(f"[7/8] mesh mode at {cfg.name} full width: "
+    print(f"[7/9] mesh mode at {cfg.name} full width: "
           f"{', '.join(MESH_PATHS)}", flush=True)
     mesh_launches, mesh_stats = mesh_phase(torch, kernels, device, cfg)
     for k, v in mesh_launches.items():
+        launches[k] += v
+    print(f"[8/9] the rest of the dense zoo at full width: "
+          f"{', '.join(ZOO)}, each trained and served", flush=True)
+    zoo_errs, zoo_timings, zoo_launches, zoo_stats = zoo_phase(
+        torch, kernels, device)
+    for k, v in zoo_errs.items():
+        errs[k] = max(errs[k], v)
+    for k, v in zoo_launches.items():
         launches[k] += v
     main_body = {**timings["weighted-partial"], **lane_timings,
                  "lora_matmul": serve_timings["lora_matmul[prefill]"],
@@ -4164,6 +4604,19 @@ def main() -> int:
                                        "M64")),
                          ("flash_swa", "gpt2", gpt2_timings["flash_gpt2"])):
         out[list(SOURCES).index(name)].update(timing_fields(key, t))
+    # gemma3-12b's shapes (phase 8): B8 at head dim 256 without and with
+    # its window of 1024, B3 at one prefill and one decode layer, B1 and B2
+    # over a weighted close's 8 leaves
+    for name, key, t in (("flash_swa", "gemma3", zoo_timings["flash_gemma3"]),
+                         ("flash_swa", "gemma3_W1024",
+                          zoo_timings["flash_gemma3_W1024"]),
+                         ("lora_matmul", "gemma3", zoo_timings["gemma3"]),
+                         ("lora_matmul", "gemma3_decode",
+                          zoo_timings["gemma3_decode"]),
+                         ("fedex_fold", "gemma3", zoo_timings["fedex_fold"]),
+                         ("factor_mean", "gemma3",
+                          zoo_timings["factor_mean"])):
+        out[list(SOURCES).index(name)].update(timing_fields(key, t))
     # B5 beside its old body (product_fold in place), and at the chunk of
     # 64 uplinks at r = 8 that docs/benchmarks.md documents
     ms, _, lib_ms, (bms, by), *_ = lane_timings["product_accum[C64r8]"]
@@ -4172,11 +4625,12 @@ def main() -> int:
         "C64r8_prior_ms": lane_prior["product_accum[C64r8]"],
         "C64r8_library_ms": lib_ms, "C64r8_bound_ms": bms,
         "C64r8_bound_by": by})
-    print(f"[8/8] done in {time.perf_counter() - t_start:.1f} s; identity max "
+    print(f"[9/9] done in {time.perf_counter() - t_start:.1f} s; identity max "
           f"err per path {json.dumps(identities)}; resume "
           f"{json.dumps(resume)}; serving "
           f"{json.dumps(serve_stats)}; obs and http "
-          f"{json.dumps(obs_stats)}; mesh {json.dumps(mesh_stats)}; rounds "
+          f"{json.dumps(obs_stats)}; mesh {json.dumps(mesh_stats)}; zoo "
+          f"{json.dumps(zoo_stats)}; rounds "
           + json.dumps([{k: v for k, v in row.items()
                          if k != "client_losses"} for row in all_rows]),
           flush=True)

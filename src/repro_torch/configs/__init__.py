@@ -1,22 +1,26 @@
-"""Config registry of the port: the paper's own models, and the reference
-serve's default arch.
+"""Config registry of the port: the paper's own models and every dense
+model of the reference's registry.
 
 ``get_config(name)`` covers ``paper-tiny``, ``paper-gpt2``,
-``paper-llama3.2-3b`` and ``qwen2.5-3b`` (``<name>-smoke`` gives the reduced
-variant), with the reference's dataclasses copied in
-:mod:`repro_torch.configs.base`.
+``paper-llama3.2-3b``, ``qwen2.5-3b``, ``granite-8b``, ``starcoder2-15b``
+and ``gemma3-12b`` (``<name>-smoke`` gives the reduced variant), with the
+reference's dataclasses copied in :mod:`repro_torch.configs.base`.
 """
 
-from repro_torch.configs import paper_models, qwen2_5_3b
+from repro_torch.configs import (gemma3_12b, granite_8b, paper_models,
+                                 qwen2_5_3b, starcoder2_15b)
 from repro_torch.configs.base import (FedConfig, LoRAConfig, ModelConfig,
                                       ServeConfig, TrainConfig, config_dict,
                                       validate_fed_lora)
 
 CONFIGS = {
+    "gemma3-12b": gemma3_12b.CONFIG,
+    "granite-8b": granite_8b.CONFIG,
     "paper-gpt2": paper_models.GPT2_SMALL,
     "paper-llama3.2-3b": paper_models.LLAMA32_3B,
     "paper-tiny": paper_models.TINY,
     "qwen2.5-3b": qwen2_5_3b.CONFIG,
+    "starcoder2-15b": starcoder2_15b.CONFIG,
 }
 
 

@@ -12,8 +12,9 @@
 // q, o (B, Sq, H, d) and k, v (B, Sk, KVH, d), f32, each addressed through
 // its own (batch, position, head) strides with a contiguous last dim, so
 // the GQA heads read their K/V head in place (no repeated copy) and the
-// (BH, S, d) layout is the case H = KVH = 1. d <= 128; any Sq, Sk: rows and
-// columns past the ends are zero-filled on load and masked.
+// (BH, S, d) layout is the case H = KVH = 1. d <= 256 (padded to DP = 64,
+// 128 or 256); any Sq, Sk: rows and columns past the ends are zero-filled on
+// load and masked.
 //
 // Bound on the card: operations, 4*d FLOPs per visible (query, key) pair
 // (prefill at B 8, H 24, S 512, d 128, causal: 12.9 GFLOP, 0.19 ms at
@@ -24,6 +25,11 @@
 // * One block of 4 warps per (b*h, 64 query rows), two blocks an SM (115 KB
 //   of shared memory and at most 255 registers a thread each), so that one
 //   block's barriers, softmax and start are covered by the other's FMAs.
+//   At DP 256 (gemma3's head dim) the same tile runs one block an SM: the
+//   K/V ring alone is 2 x 64 x 256 x 4 = 131 KB, so no query tile lets two
+//   blocks share an SM's 227 KB, and 64 query rows (not 32) keep each K/V
+//   tile's reuse and the band rules those of DP 64 and 128. A thread's
+//   accumulators double to 8 x 16; the ptxas report shows what spills.
 //   Blocks run the later (heavier, under a causal mask) query tiles first:
 //   blockIdx.y counts the query tiles down, blockIdx.x the heads.
 // * KV tiles of 64 positions stream through a ring of two shared-memory
@@ -94,7 +100,7 @@ __host__ __device__ constexpr int k_slot(int dp) {
   return 8 * k_group(dp) - 4;
 }
 constexpr int P_HALF = BQ / 2 * BKV + 16;
-// 114,992 bytes at d 128: two blocks an SM
+// 114,992 bytes at d 128: two blocks an SM; 213,296 at d 256: one
 constexpr size_t smem_bytes(int dp) {
   return sizeof(float) * ((size_t)(q_half(dp) + BQ / 2 * dp) +
                           2 * (size_t)k_slot(dp) + (P_HALF + BQ / 2 * BKV));
@@ -132,29 +138,45 @@ __device__ __forceinline__ void cp_async_wait() {
 // u * STEP at one column: the source advances by STEP rows a copy, and the
 // destination offsets are constants (row0 < STEP or STEP % 8 == 0, so row0
 // and u * STEP never carry into each other's group bits).
+// A row is COLS copies (float4s or floats); a thread takes PER columns'
+// worth of them, CREP passes across the row where a row has more copies
+// than the block has threads (the 4-byte copies at DP 256).
+template <int DP, bool kVec>
+struct RowCopies {
+  static constexpr int COLS = kVec ? DP / 4 : DP;
+  static constexpr int PER = COLS < NT ? COLS : NT;
+  static constexpr int CREP = COLS / PER, STEP = NT / PER;
+};
+
 template <int DP, bool kVec>
 __device__ __forceinline__ void copy_tile(float* slot,
                                           const float* __restrict__ src,
                                           int64_t stride, int k0, int Sk,
                                           int d) {
-  constexpr int PER = kVec ? DP / 4 : DP, STEP = NT / PER;
-  static_assert(NT % PER == 0 && BKV % STEP == 0 &&
+  using RC = RowCopies<DP, kVec>;
+  constexpr int PER = RC::PER, STEP = RC::STEP;
+  static_assert(NT % PER == 0 && RC::COLS % PER == 0 && BKV % STEP == 0 &&
                     (STEP < 8 || STEP % 8 == 0),
                 "the copies tile a slot");
-  const int row0 = threadIdx.x / PER, c = (threadIdx.x % PER) * (kVec ? 4 : 1);
-  const bool c_ok = c < d;
-  const float* p = src + (int64_t)(k0 + row0) * stride + c;
-  float* dst = slot + (row0 & 7) * k_group(DP) + (row0 >> 3) * DP + c;
+  const int row0 = threadIdx.x / PER;
   const int rows_left = Sk - k0 - row0;  // row0 + u * STEP is real below it
 #pragma unroll
-  for (int u = 0; u < BKV / STEP; ++u) {
-    const bool ok = c_ok && u * STEP < rows_left;
-    float* to = dst + ((u * STEP) & 7) * k_group(DP) + ((u * STEP) >> 3) * DP;
-    if (kVec)
-      cp_async16(to, ok ? p : src, ok ? 16 : 0);
-    else
-      cp_async4(to, ok ? p : src, ok ? 4 : 0);
-    p += STEP * stride;
+  for (int cr = 0; cr < RC::CREP; ++cr) {
+    const int c = (threadIdx.x % PER + cr * PER) * (kVec ? 4 : 1);
+    const bool c_ok = c < d;
+    const float* p = src + (int64_t)(k0 + row0) * stride + c;
+    float* dst = slot + (row0 & 7) * k_group(DP) + (row0 >> 3) * DP + c;
+#pragma unroll
+    for (int u = 0; u < BKV / STEP; ++u) {
+      const bool ok = c_ok && u * STEP < rows_left;
+      float* to =
+          dst + ((u * STEP) & 7) * k_group(DP) + ((u * STEP) >> 3) * DP;
+      if (kVec)
+        cp_async16(to, ok ? p : src, ok ? 16 : 0);
+      else
+        cp_async4(to, ok ? p : src, ok ? 4 : 0);
+      p += STEP * stride;
+    }
   }
 }
 
@@ -164,22 +186,26 @@ template <int DP, bool kVec>
 __device__ __forceinline__ void load_q(float* Qs, const float* __restrict__ q,
                                        int64_t stride, int q0, int Sq, int d,
                                        float scale) {
-  constexpr int PER = kVec ? DP / 4 : DP, STEP = NT / PER;
+  using RC = RowCopies<DP, kVec>;
+  constexpr int PER = RC::PER, STEP = RC::STEP;
   static_assert(NT % PER == 0 && BQ % STEP == 0, "the loads tile Q");
-  const int c = (threadIdx.x % PER) * (kVec ? 4 : 1);
 #pragma unroll
-  for (int u = 0; u < BQ / STEP; ++u) {
-    const int row = threadIdx.x / PER + u * STEP;
-    const bool ok = q0 + row < Sq && c < d;
-    const float* p = q + (int64_t)(q0 + row) * stride + c;
-    float* dst = Qs + (row & 1) * q_half(DP) + (row >> 1) * DP + c;
-    if (kVec) {
-      float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (ok) t = *reinterpret_cast<const float4*>(p);
-      t.x *= scale; t.y *= scale; t.z *= scale; t.w *= scale;
-      *reinterpret_cast<float4*>(dst) = t;
-    } else {
-      *dst = ok ? *p * scale : 0.f;
+  for (int cr = 0; cr < RC::CREP; ++cr) {
+    const int c = (threadIdx.x % PER + cr * PER) * (kVec ? 4 : 1);
+#pragma unroll
+    for (int u = 0; u < BQ / STEP; ++u) {
+      const int row = threadIdx.x / PER + u * STEP;
+      const bool ok = q0 + row < Sq && c < d;
+      const float* p = q + (int64_t)(q0 + row) * stride + c;
+      float* dst = Qs + (row & 1) * q_half(DP) + (row >> 1) * DP + c;
+      if (kVec) {
+        float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ok) t = *reinterpret_cast<const float4*>(p);
+        t.x *= scale; t.y *= scale; t.z *= scale; t.w *= scale;
+        *reinterpret_cast<float4*>(dst) = t;
+      } else {
+        *dst = ok ? *p * scale : 0.f;
+      }
     }
   }
 }
@@ -320,8 +346,14 @@ __device__ __forceinline__ void pv(float (&acc)[8][4 * CH],
   }
 }
 
+// Blocks an SM: two at DP 64 and 128; at DP 256 the Q tile, the K/V ring
+// and P take 213,296 bytes of shared memory, so one.
+__host__ __device__ constexpr int blocks_per_sm(int dp) {
+  return dp > 128 ? 1 : 2;
+}
+
 template <int DP, bool kVec>
-__global__ void __launch_bounds__(NT, 2)
+__global__ void __launch_bounds__(NT, blocks_per_sm(DP))
     flash_swa_tile(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, float* __restrict__ o, int H,
                    int KVH, int Sq, int Sk, int d, int64_t qsb, int64_t qss,
@@ -517,7 +549,8 @@ cudaError_t allow_smem(size_t bytes) {
   if (dev < kDevices && granted[dev] >= (int)bytes) return cudaSuccess;
   err = cudaFuncSetAttribute(kKernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)bytes);
-  // all of the SM's 228 KB as shared memory: two blocks fit an SM
+  // all of the SM's 228 KB as shared memory: two blocks fit an SM at DP
+  // <= 128, one at DP 256
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(kKernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
@@ -546,30 +579,29 @@ cudaError_t launch(const float* q, const float* k, const float* v, float* o,
 // Launches on `stream`; returns a cudaError_t (0 = launched). `strides`
 // holds 12 int64: (batch, position, head) strides of q, k, v and o, in
 // elements. vec != 0 promises d % 4 == 0, every stride % 4 == 0 and
-// 16-byte aligned pointers. d <= 128, H % KVH == 0. `smem` is the dynamic
+// 16-byte aligned pointers. d <= 256, H % KVH == 0. `smem` is the dynamic
 // shared memory in bytes that the caller computed for the launch: it must
-// equal this file's smem_bytes.
+// equal this file's smem_bytes at the padded head dim (64, 128 or 256).
 extern "C" int flash_swa_launch(const float* q, const float* k, const float* v,
                                 float* o, int B, int H, int KVH, int Sq,
                                 int Sk, int d, const int64_t* strides,
                                 int causal, int window, float scale, int vec,
                                 int smem, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
-  if (Sk <= 0 || d <= 0 || d > 128 || KVH <= 0 || H % KVH != 0 ||
+  const int dp = d <= 64 ? 64 : d <= 128 ? 128 : 256;
+  if (Sk <= 0 || d <= 0 || d > 256 || KVH <= 0 || H % KVH != 0 ||
       B * H > 65535 || (Sq + BQ - 1) / BQ > 65535 ||
-      (size_t)smem != smem_bytes(d <= 64 ? 64 : 128))
+      (size_t)smem != smem_bytes(dp))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (d <= 64)
-    err = vec ? launch<64, true>(q, k, v, o, B, H, KVH, Sq, Sk, d, strides,
-                                 causal, window, scale, s)
-              : launch<64, false>(q, k, v, o, B, H, KVH, Sq, Sk, d, strides,
-                                  causal, window, scale, s);
-  else
-    err = vec ? launch<128, true>(q, k, v, o, B, H, KVH, Sq, Sk, d, strides,
-                                  causal, window, scale, s)
-              : launch<128, false>(q, k, v, o, B, H, KVH, Sq, Sk, d, strides,
-                                   causal, window, scale, s);
+#define FLASH_SWA_LAUNCH(DP)                                                  \
+  (vec ? launch<DP, true>(q, k, v, o, B, H, KVH, Sq, Sk, d, strides, causal, \
+                          window, scale, s)                                  \
+       : launch<DP, false>(q, k, v, o, B, H, KVH, Sq, Sk, d, strides,        \
+                           causal, window, scale, s))
+  const cudaError_t err = dp == 64    ? FLASH_SWA_LAUNCH(64)
+                          : dp == 128 ? FLASH_SWA_LAUNCH(128)
+                                      : FLASH_SWA_LAUNCH(256);
+#undef FLASH_SWA_LAUNCH
   return (int)err;
 }

@@ -46,6 +46,7 @@ sums.
 
 from __future__ import annotations
 
+import math
 from typing import List, Optional, Sequence
 
 import torch
@@ -92,8 +93,8 @@ def _check(name, w0, a, b, weights):
             raise TypeError(f"{name}: {arg} must be float32, got {t.dtype}")
         if t.device != w0.device:
             raise ValueError(f"{name}: {arg} on {t.device}, w0 on {w0.device}")
-    if w0.ndim not in (2, 3):
-        raise ValueError(f"{name}: w0 must be (m, n) or (L, m, n), got "
+    if w0.ndim < 2:
+        raise ValueError(f"{name}: w0 must be (m, n) or (*L, m, n), got "
                          f"{tuple(w0.shape)}")
     lead, (m, n) = tuple(w0.shape[:-2]), tuple(w0.shape[-2:])
     if a.ndim != w0.ndim + 1 or b.ndim != w0.ndim + 1:
@@ -144,18 +145,33 @@ def _out_like(name, w0, out):
     return out
 
 
-def _layer_strides(w0, a, b):
-    """(layers, a's layer stride, b's layer stride) for a 2-D or 3-D w0."""
-    if w0.ndim == 3:
-        return w0.shape[0], a.stride(1), b.stride(1)
-    return 1, 0, 0
+def _layer_stride(name, t, layers):
+    """The stride of one flattened layer axis over the stacked axes of
+    ``t`` (lead, *L, x, y): they must nest, as in a view."""
+    try:
+        return t.view(t.shape[0], layers, *t.shape[-2:]).stride(1)
+    except RuntimeError:
+        raise ValueError(f"{name}: the stacked layer axes of a "
+                         f"{tuple(t.shape)} tensor with strides {t.stride()} "
+                         "do not flatten into one") from None
+
+
+def _layer_strides(w0, a, b, name):
+    """(layers, a's layer stride, b's layer stride): w0's stacked axes *L
+    (gemma3's (nper, ratio) too) taken as one layer axis, in row-major
+    order; 1 layer for a 2-D w0. W0 itself is contiguous."""
+    if w0.ndim == 2:
+        return 1, 0, 0
+    layers = math.prod(w0.shape[:-2])
+    return (layers, _layer_stride(name, a, layers),
+            _layer_stride(name, b, layers))
 
 
 def fedex_fold(w0: torch.Tensor, a_stack: torch.Tensor, b_stack: torch.Tensor,
                scale: float, *, weights: Optional[torch.Tensor] = None,
                out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """W0 + scale·ΔW_res for w0 (m, n) or (L, m, n), client-leading
-    a_stack (C, [L,] m, r) and b_stack (C, [L,] r, n), float32.
+    """W0 + scale·ΔW_res for w0 (m, n) or (*L, m, n), client-leading
+    a_stack (C, [*L,] m, r) and b_stack (C, [*L,] r, n), float32.
 
     ``weights`` — optional (C,) normalised weights (zeros mask lanes);
     ``None`` → the uniform body. ``out`` may be ``w0`` itself (in-place
@@ -167,7 +183,7 @@ def fedex_fold(w0: torch.Tensor, a_stack: torch.Tensor, b_stack: torch.Tensor,
         return res if out is None else out.copy_(res)
     _check_cuda_layout("fedex_fold", w0, a_stack, b_stack, (weights,))
     out = _out_like("fedex_fold", w0, out)
-    layers, sa_l, sb_l = _layer_strides(w0, a_stack, b_stack)
+    layers, sa_l, sb_l = _layer_strides(w0, a_stack, b_stack, "fedex_fold")
     lib = load_library()
     with torch.cuda.device(w0.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -331,8 +347,8 @@ def product_fold_plain(w0: torch.Tensor, a_stack: torch.Tensor,
 def product_fold(w0: torch.Tensor, a_stack: torch.Tensor,
                  b_stack: torch.Tensor, signs: torch.Tensor, scale: float, *,
                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """W0 + scale·Σ_c s_c·a_c b_c for w0 (m, n) or (L, m, n), client-leading
-    a_stack (C, [L,] m, r) and b_stack (C, [L,] r, n), a signed (C,) float32
+    """W0 + scale·Σ_c s_c·a_c b_c for w0 (m, n) or (*L, m, n), client-leading
+    a_stack (C, [*L,] m, r) and b_stack (C, [*L,] r, n), a signed (C,) float32
     ``signs`` (zeros mask lanes), all float32. Replaces the TPU kernel
     ``product_fold_apply`` (CUDA: ``csrc/product_fold.cu``). ``out`` may be
     ``w0`` itself (in-place fold)."""
@@ -342,7 +358,8 @@ def product_fold(w0: torch.Tensor, a_stack: torch.Tensor,
         return res if out is None else out.copy_(res)
     _check_cuda_layout("product_fold", w0, a_stack, b_stack, (signs,))
     out = _out_like("product_fold", w0, out)
-    layers, sa_l, sb_l = _layer_strides(w0, a_stack, b_stack)
+    layers, sa_l, sb_l = _layer_strides(w0, a_stack, b_stack,
+                                        "product_fold")
     lib = load_library()
     with torch.cuda.device(w0.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -400,9 +417,9 @@ def product_accum(acc: torch.Tensor, a_stack: torch.Tensor,
                   scale: float) -> torch.Tensor:
     """acc ← acc + scale·Σ_c s_c·a_c b_c IN PLACE, and returns acc: the
     chunked close's partial fold of one chunk into its product accumulator.
-    acc is (m, n) or (L, m, n), float32 and contiguous, and shares no
-    storage with the client-leading a_stack (C, [L,] m, r) / b_stack
-    (C, [L,] r, n); ``signs`` is a (C,) float32 vector (zeros mask lanes,
+    acc is (m, n) or (*L, m, n), float32 and contiguous, and shares no
+    storage with the client-leading a_stack (C, [*L,] m, r) / b_stack
+    (C, [*L,] r, n); ``signs`` is a (C,) float32 vector (zeros mask lanes,
     which are never read). Replaces the TPU kernel ``product_accum_apply``
     (CUDA: ``csrc/product_accum.cu``, bitwise equal to
     :func:`product_fold` with ``out=acc``)."""
@@ -419,7 +436,7 @@ def product_accum(acc: torch.Tensor, a_stack: torch.Tensor,
         return acc.copy_(product_accum_plain(acc, a_stack, b_stack, signs,
                                              scale))
     _check_cuda_layout(name, acc, a_stack, b_stack, (signs,))
-    layers, sa_l, sb_l = _layer_strides(acc, a_stack, b_stack)
+    layers, sa_l, sb_l = _layer_strides(acc, a_stack, b_stack, name)
     lib = load_library()
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -467,9 +484,9 @@ def perclient_fold(w0_lanes: Sequence[Optional[torch.Tensor]],
                    out: Optional[Sequence[Optional[torch.Tensor]]] = None
                    ) -> List[Optional[torch.Tensor]]:
     """The keep_local fold of every produced lane in one pass. ``w0_lanes``
-    holds C entries: lane c's own (m, n) or (L, m, n) float32 W0, or None
-    for a lane not produced (its output is None too). a_stack (C, [L,] m, r)
-    and b_stack (C, [L,] r, n) are client-leading; ``weights`` (C,) float32
+    holds C entries: lane c's own (m, n) or (*L, m, n) float32 W0, or None
+    for a lane not produced (its output is None too). a_stack (C, [*L,] m, r)
+    and b_stack (C, [*L,] r, n) are client-leading; ``weights`` (C,) float32
     (zeros mask lanes). ``out`` may give each lane's own W0 (in-place fold
     into every delivered client's base); lanes must not share storage.
     Replaces the TPU kernel ``perclient_fold_apply`` (CUDA:
@@ -485,7 +502,8 @@ def perclient_fold(w0_lanes: Sequence[Optional[torch.Tensor]],
     if any(t is not None and not t.is_contiguous() for t in lanes):
         raise ValueError("perclient_fold: W0 lanes must be contiguous")
     ptrs = _lane_pointers((lanes, outs), ref.device)
-    layers, sa_l, sb_l = _layer_strides(ref, a_stack, b_stack)
+    layers, sa_l, sb_l = _layer_strides(ref, a_stack, b_stack,
+                                        "perclient_fold")
     lib = load_library()
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -547,7 +565,7 @@ def hetero_fold(w0_lanes: Sequence[Optional[torch.Tensor]],
     """The hetero fold of every produced lane in one pass. Lanes, stacks,
     ``weights`` and ``out`` as :func:`perclient_fold`; ``ranks`` is the (C,)
     int32 true-rank vector (−1 = full rank, 0 masks a lane), and ``own_a``
-    ([L,] m, r) / ``own_b`` ([L,] r, n) the shared rank-r truncation factors
+    ([*L,] m, r) / ``own_b`` ([*L,] r, n) the shared rank-r truncation factors
     each lane masks down to its own rank. Replaces the TPU kernel
     ``hetero_fold_apply`` (CUDA: ``csrc/hetero_fold.cu``)."""
     name = "hetero_fold"
@@ -577,9 +595,11 @@ def hetero_fold(w0_lanes: Sequence[Optional[torch.Tensor]],
         raise ValueError(f"{name}: W0 lanes and the trailing dims of own_a / "
                          "own_b must be contiguous")
     ptrs = _lane_pointers((lanes, outs), ref.device)
-    layers, sa_l, sb_l = _layer_strides(ref, a_stack, b_stack)
-    so_a = own_a.stride(0) if ref.ndim == 3 else 0
-    so_b = own_b.stride(0) if ref.ndim == 3 else 0
+    layers, sa_l, sb_l = _layer_strides(ref, a_stack, b_stack, name)
+    so_a = so_b = 0
+    if ref.ndim > 2:  # own_a / own_b: (*L, m, r) / (*L, r, n)
+        so_a = _layer_stride(name, own_a[None], layers)
+        so_b = _layer_stride(name, own_b[None], layers)
     lib = load_library()
     with torch.cuda.device(ref.device):
         stream = torch.cuda.current_stream().cuda_stream

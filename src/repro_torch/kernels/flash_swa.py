@@ -3,11 +3,14 @@
 Replaces the TPU kernel ``repro/kernels/flash_swa.py::flash_swa`` (body
 ``_kernel``; wrapper ``ops.swa_attention``). The serving path's prefill
 (``models/attention.py``) runs every layer's attention through
-:func:`swa_attention` with ``causal=True, window=0``: one launch a layer.
+:func:`swa_attention`, causal, with the layer's window (0 for a global
+layer): one launch a layer.
 
 * CUDA kernel: ``csrc/flash_swa.cu``. One block of 4 warps per
-  (batch·head, 64 query rows), two blocks an SM; K/V tiles of 64 positions
-  stream through a cp.async ring of two shared-memory slots (K's and V's),
+  (batch·head, 64 query rows), two blocks an SM at head dim ≤ 128 and one
+  at head dim ≤ 256 (gemma3's; the padded dim ``DP`` is 64, 128 or 256,
+  and the tile and its band rules are the same at every DP); K/V tiles of
+  64 positions stream through a cp.async ring of two shared-memory slots (K's and V's),
   two block barriers a tile; 8 rows × 4 keys a thread for Q·Kᵀ and 8 rows
   × 8 columns for P·V; online softmax with m and l per row in registers,
   IEEE f32 FMAs on CUDA cores, scale d^-½ applied to q in f32, masked
@@ -31,7 +34,7 @@ Replaces the TPU kernel ``repro/kernels/flash_swa.py::flash_swa`` (body
   ``jnp.repeat`` map with no copy of K and V.
 
 Forward only: an input that requires grad is refused. f32 only (the JAX
-kernel also takes bf16, not ported).
+kernel also takes bf16, not ported); head dim ≤ 256.
 """
 
 from __future__ import annotations
@@ -43,15 +46,15 @@ import torch
 from repro_torch.kernels.build import check_launch, load_library
 
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128  # shared memory: two blocks of 64 query rows an SM
+MAX_HEAD_DIM = 256  # shared memory: one block of 64 query rows an SM
 BQ = 64             # query rows of a block
 BKV = 64            # keys of a KV tile
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may take (sm_90)
 
 
 def _smem_bytes(dp: int) -> int:
-    """Dynamic shared memory of one block at padded head dim ``dp`` (64 or
-    128; ``smem_bytes`` in the kernel), f32: the scaled Q tile [64][dp]
+    """Dynamic shared memory of one block at padded head dim ``dp`` (64,
+    128 or 256; ``smem_bytes`` in the kernel), f32: the scaled Q tile [64][dp]
     (+ 4 floats between its even and odd rows), the K and the V slot, each
     [64][dp] (+ 4 floats between its 8 row groups), and the P tile [64][64]
     (+ 16 floats between its even and odd rows)."""
@@ -173,7 +176,7 @@ def _plan(name: str, b: int, h: int, d: int):
                          "memory)")
     if b * h > 65535:
         raise ValueError(f"{name}: batch·heads {b * h} > 65535 (grid)")
-    dp = 64 if d <= 64 else 128
+    dp = 64 if d <= 64 else 128 if d <= 128 else 256
     return dp, _smem_bytes(dp)
 
 

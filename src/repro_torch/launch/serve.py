@@ -21,6 +21,9 @@ must match the server's).
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch paper-gpt2-smoke --batch-size 2 --prompt-len 32 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch gemma3-12b-smoke --batch-size 2 --prompt-len 128 --steps 8 \\
+      --max-len 160
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch paper-tiny --pull-from http://127.0.0.1:8077
 """
 
@@ -59,10 +62,12 @@ def serve(arch: str, *, batch_size: int = 2, prompt_len: int = 32,
           steps: int = 8, max_len: int = 128, rank: int = 4,
           use_lora: bool = True, seed: int = 0, device="cuda",
           params: Optional[dict] = None,
-          lora: Optional[dict] = None, pull_from: str = "") -> ServeResult:
+          lora: Optional[dict] = None, pull_from: str = "",
+          cache_dtype: torch.dtype = torch.bfloat16) -> ServeResult:
     """Prefill a ``make_batch_for`` prompt of ``prompt_len`` tokens, then
-    ``steps`` greedy decode steps against a bf16 cache of ``max_len``
-    positions. ``params`` / ``lora`` default to the port's own draws from
+    ``steps`` greedy decode steps against a cache of ``max_len`` positions
+    (a windowed layer's ring: ``min(window, max_len)``) in ``cache_dtype``
+    (bf16, the reference's, by default). ``params`` / ``lora`` default to the port's own draws from
     ``seed`` (``lora``: ``init_lora`` from ``seed + 1`` unless
     ``use_lora=False``; a given ``lora`` is served as it is).
     ``pull_from`` (a federation server's URL) serves the global adapter
@@ -88,7 +93,7 @@ def serve(arch: str, *, batch_size: int = 2, prompt_len: int = 32,
         raise ValueError(f"serve: prompt {prompt_len} + {steps} steps exceed "
                          f"the cache's {max_len} positions")
     batch = make_batch_for(cfg, batch_size, prompt_len, seed=seed, device=dev)
-    cache = model.init_cache(batch_size, max_len, device=dev)
+    cache = model.init_cache(batch_size, max_len, cache_dtype, device=dev)
     prefill = make_prefill_step(model, lora_cfg)
     decode = make_decode_step(model, lora_cfg)
 

@@ -63,6 +63,9 @@ Examples (CPU, tiny model):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch paper-gpt2-smoke --vocab 64 --rounds 2 --local-steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch gemma3-12b-smoke --method fedex --vocab 64 --rounds 2 \\
+      --seq-len 96 --weighting examples --participation 0.5
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --vocab 64 --clients 4 --rounds 3 --deadline 1.0 --min-quorum 2 \\
       --dropout-prob 0.25 --stragglers 0.25 --weighting examples
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\

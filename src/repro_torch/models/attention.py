@@ -13,6 +13,8 @@ adapted projections go through the fused LoRA kernel (``lora_dense``, B3)
 and the prefill attention through the flash attention kernel
 (``swa_attention``, B8); decode attends against the cache with
 :func:`decode_attention`, in plain PyTorch as the reference does in jnp.
+A sliding window (``window`` > 0) masks all three modes alike, and its
+layers' caches are rings of ``min(window, cache_len)`` slots.
 The reference's sharding constraints have no counterpart (one device), and
 the port never routes attention to a library kernel.
 """
@@ -226,15 +228,19 @@ def decode_attention(q: torch.Tensor, cache: Params, position: int,
 def attention_block(cfg, params: Params, x: torch.Tensor, *,
                     lora: Optional[Params] = None, lora_scale: float = 0.0,
                     positions: Optional[torch.Tensor] = None,
+                    window: int = 0,
                     cache: Optional[Params] = None,
                     decode_position: Optional[Union[int, torch.Tensor]] = None
                     ):
     """Causal self-attention over ``x (B, S, d_model)``; returns
-    ``(output, cache)`` as the reference does.
+    ``(output, cache)`` as the reference does. ``window`` > 0 limits each
+    query to the ``window`` latest positions (query − key < window) in all
+    three modes.
 
     Training: ``cache=None``. Serving: prefill (``cache`` given) fills the
-    cache in place and runs the flash attention kernel; decode
-    (``decode_position`` given, S = 1) writes the step into the cache and
+    cache in place (a ring cache shorter than the prompt keeps its tail)
+    and runs the flash attention kernel; decode (``decode_position`` given,
+    S = 1) writes the step into the cache at ``position % length`` and
     attends against it. Serving's adapted projections run the fused LoRA
     kernel.
     """
@@ -262,11 +268,11 @@ def attention_block(cfg, params: Params, x: torch.Tensor, *,
         k = apply_rope(k, positions, cfg.rope_theta)
     if decode_position is not None:
         cache_write(cache, k, v, decode_position)
-        out = decode_attention(q, cache, decode_position)
+        out = decode_attention(q, cache, decode_position, window=window)
     elif serving:
         _prefill_cache(cache, k, v, positions)
-        out = swa_attention(q, k, v, causal=True, window=0)
+        out = swa_attention(q, k, v, causal=True, window=window)
     else:
-        out = flash_attention(q, k, v)
+        out = flash_attention(q, k, v, window=window)
     out = out.reshape(b, sq, h * hd).to(x.dtype)
     return proj(out, "o_proj").to(x.dtype), cache

@@ -34,6 +34,15 @@ class Model:
     decode_step: Callable
 
 
+# leading stacked layer axes of an adapter leaf under each prefix
+STACKED_AXES = {"layers/": 1, "periods/local/": 2, "periods/global/": 1}
+
+
+def _stacked_axes(path: str) -> int:
+    return next((n for prefix, n in STACKED_AXES.items()
+                 if path.startswith(prefix)), 0)
+
+
 def build_model(cfg) -> Model:
     transformer.check_supported(cfg)
 
@@ -55,14 +64,16 @@ def build_model(cfg) -> Model:
     def lane_loss(params, batch, lora, lora_scale=0.0):
         """Each lane's mean loss, (C,), from one forward over the folded
         batch: ``lora`` holds lane-stacked factors in the engine's layout
-        (``(C, L, m, r)`` under ``layers``, ``(C, m, r)`` elsewhere) and
-        lane c owns batch rows ``[c·B, (c+1)·B)``."""
-        c = next(iter(flatten_with_paths(lora).values())).shape[0]
-        by_layer = dict(lora)
-        if "layers" in lora:  # layer i must slice (C, m, r)
-            by_layer["layers"] = unflatten_from_paths({
-                p: x.movedim(0, 1)
-                for p, x in flatten_with_paths(lora["layers"]).items()})
+        (``(C, L, m, r)`` under ``layers``, ``(C, nper, ratio, m, r)`` and
+        ``(C, nper, m, r)`` under ``periods/local`` and ``periods/global``,
+        ``(C, m, r)`` elsewhere) and lane c owns batch rows
+        ``[c·B, (c+1)·B)``."""
+        flat = flatten_with_paths(lora)
+        c = next(iter(flat.values())).shape[0]
+        # the lane axis goes behind the stacked layer axes, so that a layer
+        # slices (C, m, r)
+        by_layer = unflatten_from_paths({
+            p: x.movedim(0, _stacked_axes(p)) for p, x in flat.items()})
         logits = apply(params, batch, lora=by_layer, lora_scale=lora_scale)
         logits = logits.reshape(c, -1, *logits.shape[1:])
         targets = batch["targets"].reshape(c, -1, *batch["targets"].shape[1:])

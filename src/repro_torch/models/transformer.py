@@ -4,10 +4,16 @@
 Counterpart of the dense branch of ``repro/models/transformer.py``. The
 parameter layout is the reference's: every per-layer leaf is stacked on a
 leading layer axis (``layers/attn/q_proj/kernel`` is ``(L, d, h·hd)``), so a
-flattened port tree lines up one-to-one with the reference's. Where JAX scans
-the stacked parameters, the port runs a Python loop over the layer index. The
-reference's ``remat`` has no counterpart: at the batch sizes the port trains,
-activations fit without recomputation.
+flattened port tree lines up one-to-one with the reference's. A config with
+``local_global_ratio`` (gemma3) stacks its layers by period instead:
+``periods/local/…`` is ``(nper, ratio, …)`` and ``periods/global/…``
+``(nper, …)``, nper = L // (ratio + 1); each period runs its ``ratio`` local
+layers at ``local_window``, then its global layer. ``sliding_window``
+windows every layer of the plain stack. Windowed layers keep ring caches of
+``min(window, cache_len)`` slots. Where JAX scans the stacked parameters,
+the port runs a Python loop over the layer (and period) index. The
+reference's ``remat`` has no counterpart: at the batch sizes the port
+trains, activations fit without recomputation.
 """
 
 from __future__ import annotations
@@ -27,14 +33,13 @@ MODES = ("train", "prefill", "decode")
 
 def check_supported(cfg) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` asks only for the branch
-    the port runs: the dense decoder with global causal attention — RoPE
-    or learned positions, RMSNorm or LayerNorm, gated SiLU or plain GELU
-    MLP, with or without q/k/v (and, under LayerNorm, MLP) biases, tied or
-    untied unembedding."""
+    the port runs: the dense decoder — RoPE or learned positions, RMSNorm or
+    LayerNorm, gated SiLU or plain GELU MLP, with or without q/k/v (and,
+    under LayerNorm, MLP) biases, tied or untied unembedding, global
+    attention, a sliding window on every layer, or periods of local
+    (windowed) and global layers."""
     unsupported = {
         "family": cfg.family != "dense",
-        "sliding_window": bool(cfg.sliding_window),
-        "local_global_ratio": bool(cfg.local_global_ratio),
         "mla": cfg.mla,
         "num_experts": bool(cfg.num_experts),
     }
@@ -42,7 +47,34 @@ def check_supported(cfg) -> None:
     if asked:
         raise NotImplementedError(
             f"config {cfg.name!r} asks for {asked}: the port runs only the "
-            "dense decoder with global attention so far")
+            "dense decoder so far")
+
+
+def _periods(cfg):
+    """(periods, local layers a period) of a local/global config."""
+    ratio = cfg.local_global_ratio
+    return cfg.num_layers // (ratio + 1), ratio
+
+
+def _layer_params(gen, cfg, lead, dtype, device) -> Params:
+    """One decoder layer's leaves, stacked on the ``lead`` axes."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv, bias = cfg.num_heads, cfg.num_kv_heads, cfg.qkv_bias
+    return {
+        "attn_norm": make_norm_params(cfg.norm, (*lead, d), dtype, device),
+        "mlp_norm": make_norm_params(cfg.norm, (*lead, d), dtype, device),
+        "attn": {
+            "q_proj": make_dense_params(gen, (*lead, d, h * hd), dtype,
+                                        device, bias=bias),
+            "k_proj": make_dense_params(gen, (*lead, d, kv * hd), dtype,
+                                        device, bias=bias),
+            "v_proj": make_dense_params(gen, (*lead, d, kv * hd), dtype,
+                                        device, bias=bias),
+            "o_proj": make_dense_params(gen, (*lead, h * hd, d), dtype,
+                                        device),
+        },
+        "mlp": make_mlp_params(gen, cfg, dtype, device, lead=lead),
+    }
 
 
 def make_params(gen: torch.Generator, cfg, device) -> Params:
@@ -50,9 +82,7 @@ def make_params(gen: torch.Generator, cfg, device) -> Params:
     scales, zero biases), in the reference's stacked layout."""
     check_supported(cfg)
     dtype = dtype_of(cfg)
-    L, d = cfg.num_layers, cfg.d_model
-    hd, h, kv = cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
-    bias = cfg.qkv_bias
+    d = cfg.d_model
     params: Params = {
         "embed": {"embedding": normal_init(gen, (cfg.vocab_size, d), dtype,
                                            device)},
@@ -60,20 +90,15 @@ def make_params(gen: torch.Generator, cfg, device) -> Params:
     if cfg.learned_pos_embeddings:
         params["pos_embed"] = {"embedding": normal_init(
             gen, (cfg.max_position_embeddings, d), dtype, device)}
-    params["layers"] = {
-        "attn_norm": make_norm_params(cfg.norm, (L, d), dtype, device),
-        "mlp_norm": make_norm_params(cfg.norm, (L, d), dtype, device),
-        "attn": {
-            "q_proj": make_dense_params(gen, (L, d, h * hd), dtype, device,
-                                        bias=bias),
-            "k_proj": make_dense_params(gen, (L, d, kv * hd), dtype, device,
-                                        bias=bias),
-            "v_proj": make_dense_params(gen, (L, d, kv * hd), dtype, device,
-                                        bias=bias),
-            "o_proj": make_dense_params(gen, (L, h * hd, d), dtype, device),
-        },
-        "mlp": make_mlp_params(gen, cfg, dtype, device, lead=(L,)),
-    }
+    if cfg.local_global_ratio:
+        nper, ratio = _periods(cfg)
+        params["periods"] = {
+            "local": _layer_params(gen, cfg, (nper, ratio), dtype, device),
+            "global": _layer_params(gen, cfg, (nper,), dtype, device),
+        }
+    else:
+        params["layers"] = _layer_params(gen, cfg, (cfg.num_layers,), dtype,
+                                         device)
     params["final_norm"] = make_norm_params(cfg.norm, (d,), dtype, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = make_dense_params(gen, (d, cfg.vocab_size), dtype,
@@ -81,27 +106,37 @@ def make_params(gen: torch.Generator, cfg, device) -> Params:
     return params
 
 
-def _layer_slice(tree, i: int):
-    """Layer ``i`` of a stacked (L, …) tree (views; autograd flows back into
-    the stacked leaves)."""
+def _layer_slice(tree, *idx):
+    """The layer at index ``idx`` (one index a stacked axis) of a stacked
+    tree (views; autograd flows back into the stacked leaves)."""
     if tree is None:
         return None
     if isinstance(tree, dict):
-        return {k: _layer_slice(v, i) for k, v in tree.items()}
-    return tree[i]
+        return {k: _layer_slice(v, *idx) for k, v in tree.items()}
+    return tree[idx]
 
 
 def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
                device="cuda") -> Params:
-    """KV cache mirroring the stacked layer layout: ``{"layers": {"k", "v":
-    (L, batch, cache_len, KVH, hd), "pos": (L, cache_len)}}`` (the dense
-    branch of the reference's ``init_cache``; windowed ring caches are
-    refused with the windows by :func:`check_supported`)."""
+    """KV cache mirroring the stacked layer layout (the dense branch of the
+    reference's ``init_cache``): ``{"layers": {"k", "v": (L, batch, length,
+    KVH, hd), "pos": (L, length)}}``, or for a local/global config
+    ``{"local": …(nper, ratio, …), "global": …(nper, …)}``. A windowed
+    layer's ``length`` is ``min(window, cache_len)`` (a ring), a global
+    layer's ``cache_len``."""
     check_supported(cfg)
-    one = init_kv_cache(batch, cache_len, cfg.num_kv_heads,
-                        cfg.resolved_head_dim, dtype, device)
-    return {"layers": {k: torch.stack([v] * cfg.num_layers)
-                       for k, v in one.items()}}
+
+    def stacked(lead, window):
+        length = min(window, cache_len) if window else cache_len
+        one = init_kv_cache(batch, length, cfg.num_kv_heads,
+                            cfg.resolved_head_dim, dtype, device)
+        return {k: v.expand(*lead, *v.shape).clone() for k, v in one.items()}
+
+    if cfg.local_global_ratio:
+        nper, ratio = _periods(cfg)
+        return {"local": stacked((nper, ratio), cfg.local_window),
+                "global": stacked((nper,), 0)}
+    return {"layers": stacked((cfg.num_layers,), cfg.sliding_window)}
 
 
 def _learned_positions(cfg, table: torch.Tensor, seq: int,
@@ -147,20 +182,39 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
         x = x + _learned_positions(cfg, params["pos_embed"]["embedding"],
                                    tokens.shape[1], position)
     lora = lora or {}
-    layers, layers_lora = params["layers"], lora.get("layers")
-    layers_cache = None if cache is None else cache["layers"]
-    for i in range(cfg.num_layers):
-        p = _layer_slice(layers, i)
-        lo = _layer_slice(layers_lora, i) or {}
+
+    def layer(x, stack, stack_lora, stack_cache, idx, window):
+        """The layer at ``idx`` of a stacked tree, with its adapter and
+        cache."""
+        p = _layer_slice(stack, *idx)
+        lo = _layer_slice(stack_lora, *idx) or {}
         h_in = apply_norm(cfg.norm, p["attn_norm"], x)
         attn, _ = attention_block(cfg, p["attn"], h_in, lora=lo.get("attn"),
                                   lora_scale=lora_scale, positions=positions,
-                                  cache=_layer_slice(layers_cache, i),
+                                  window=window,
+                                  cache=_layer_slice(stack_cache, *idx),
                                   decode_position=position)
         x = x + attn
         m_in = apply_norm(cfg.norm, p["mlp_norm"], x)
-        x = x + mlp_block(cfg, p["mlp"], m_in, lora=lo.get("mlp"),
-                          lora_scale=lora_scale, fused=cache is not None)
+        return x + mlp_block(cfg, p["mlp"], m_in, lora=lo.get("mlp"),
+                             lora_scale=lora_scale, fused=cache is not None)
+
+    def part(tree, key):
+        return None if tree is None else tree.get(key)
+
+    if cfg.local_global_ratio:  # the reference's period_body, unrolled
+        nper, ratio = _periods(cfg)
+        per, per_lora = params["periods"], lora.get("periods")
+        for i in range(nper):
+            for j in range(ratio):
+                x = layer(x, per["local"], part(per_lora, "local"),
+                          part(cache, "local"), (i, j), cfg.local_window)
+            x = layer(x, per["global"], part(per_lora, "global"),
+                      part(cache, "global"), (i,), 0)
+    else:
+        for i in range(cfg.num_layers):
+            x = layer(x, params["layers"], lora.get("layers"),
+                      part(cache, "layers"), (i,), cfg.sliding_window)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     tied = params["embed"]["embedding"] if cfg.tie_embeddings else None
     logits = unembed(params.get("lm_head", {}), x, tied_embedding=tied,

@@ -84,6 +84,27 @@ def test_fedex_fold_strided_and_in_place(cuda):
     assert bool(((buf - want).abs() <= bound).all())
 
 
+def test_folds_take_two_stacked_layer_axes(cuda):
+    """gemma3's local leaves, W0 (nper, ratio, m, n) with (C, nper, ratio,
+    m, r) stacks: the fedex fold (in place) and the product fold launch once
+    over the flattened layers, as over the (nper·ratio, m, n) view."""
+    w0, a, b, w = _inputs(cuda, 4, 6, 96, 200, 4)
+    w4, a4, b4 = (w0.view(2, 3, 96, 200), a.view(4, 2, 3, 96, 4),
+                  b.view(4, 2, 3, 4, 200))
+    want = fedex_fold_plain(w0, a, b, 2.0, w).view(2, 3, 96, 200)
+    bound = fold_error_bound(w4, a4, b4, 2.0, w)
+    buf = w4.clone()
+    fedex_fold(buf, a4, b4, 2.0, weights=w, out=buf)
+    flat = fedex_fold(w0, a, b, 2.0, weights=w)
+    torch.cuda.synchronize()
+    assert bool(((buf - want).abs() <= bound).all())
+    assert torch.equal(buf, flat.view(2, 3, 96, 200))
+    from repro_torch.kernels import product_fold
+    got = product_fold(w4, a4, b4, w, 2.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, product_fold(w0, a, b, w, 2.0).view_as(got))
+
+
 def test_zero_weight_lane_is_never_read(cuda):
     w0, a, b, w = _inputs(cuda, 3, 2, 64, 128, 4, zero_lanes=(2,))
     clean = fedex_fold(w0, a, b, 2.0, weights=w)
@@ -603,6 +624,13 @@ FLASH_CASES = [
     (2, 512, 128, True, 100),
     (200, 512, 128, True, 100),
     (2, 256, 64, False, 70),
+    # head dims above 128 (padded to 256, one block an SM): gemma3's prefill
+    # with its window of 1024 and without, d 200 (padded), scalar loads
+    (2, 2048, 256, True, 1024),
+    (2, 2048, 256, True, 0),
+    (2, 333, 200, True, 64),
+    (2, 129, 256, False, 0),
+    (2, 300, 256, True, 0, 300, 1),
 ]
 
 
@@ -627,7 +655,8 @@ def test_flash_swa_matches_plain(cuda, case):
 
 @pytest.mark.parametrize("b,s,h,kvh,d", [(2, 512, 24, 8, 128),
                                          (2, 100, 6, 3, 64),
-                                         (1, 4096, 24, 8, 128)])
+                                         (1, 4096, 24, 8, 128),
+                                         (2, 2048, 16, 8, 256)])
 def test_swa_attention_gqa_reads_kv_heads_in_place(cuda, b, s, h, kvh, d):
     g = torch.Generator(device="cpu").manual_seed(h)
     q = torch.randn(b, s, h, d, generator=g).to(cuda)
@@ -694,3 +723,56 @@ def test_serving_kernel_path_matches_plain_path(cuda, monkeypatch):
     pre_p, dec_p = run()
     torch.testing.assert_close(pre, pre_p, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(dec, dec_p, rtol=5e-3, atol=8e-3)
+
+
+def test_windowed_serving_kernel_path_matches_plain_path(cuda, monkeypatch):
+    """gemma3-12b-smoke (1 local layer at window 64 + 1 global layer, head
+    dim 64): a prompt of 128 (twice the window) and one decode step through
+    the kernels (8 + 8 lora_matmul and 2 flash_swa launches, the local one
+    windowed, its ring cache of 64 slots) against the plain versions, and
+    the decode step against the training forward, on an f32 cache."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import init_lora
+    from repro_torch.models import attention, build_model
+    from repro_torch.models import common as model_common
+
+    cfg = dataclasses.replace(get_config("gemma3-12b-smoke"),
+                              dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init(gen, cuda)
+    lora = init_lora(gen, params, cfg, LoRAConfig())
+    for part in lora["periods"].values():
+        for leaf in part["attn"].values():
+            leaf["b"].normal_(0.0, 0.02, generator=gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), device=cuda,
+                         generator=gen)
+
+    def run():
+        cache = model.init_cache(2, 160, torch.float32, device=cuda)
+        assert cache["local"]["k"].shape[3] == 64
+        with torch.inference_mode():
+            pre, cache = model.prefill(params, {"tokens": toks[:, :128]},
+                                       cache, lora=lora, lora_scale=2.0)
+            dec, _ = model.decode_step(params, toks[:, 128:], cache, 128,
+                                       lora=lora, lora_scale=2.0)
+        torch.cuda.synchronize()
+        return pre, dec
+
+    kernels.reset_launch_counts()
+    pre, dec = run()
+    counts = kernels.launch_counts()
+    assert (counts["lora_matmul"], counts["flash_swa"]) == (16, 2)
+    with torch.inference_mode():
+        full = model.apply(params, {"tokens": toks}, lora=lora,
+                           lora_scale=2.0)
+    torch.testing.assert_close(dec[:, -1], full[:, -1], rtol=1e-4, atol=1e-4)
+    monkeypatch.setattr(model_common, "lora_dense", kernels.lora_dense_plain)
+    monkeypatch.setattr(attention, "swa_attention",
+                        kernels.swa_attention_plain)
+    pre_p, dec_p = run()
+    torch.testing.assert_close(pre, pre_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dec, dec_p, rtol=1e-4, atol=1e-4)

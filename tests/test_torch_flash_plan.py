@@ -6,7 +6,9 @@ tile a block of 8 query rows computes) run on the card, and
 ``kernels/flash_swa.py`` keeps a copy of each as the CUDA source applies
 it. Here every rule is held against the attention mask by brute force at a
 spread of (Sq, Sk, causal, window). Pure arithmetic on the CPU; the kernel
-itself runs only on the card (tests/test_torch_cuda.py).
+itself runs only on the card (tests/test_torch_cuda.py). The tile (64
+query rows, 64 keys) and so the rules are the same at every padded head dim
+(64, 128, 256); only the shared memory differs.
 """
 
 import numpy as np
@@ -27,6 +29,7 @@ WINDOWS = [0, 1, 64, 200, 1000, 1024]
 CASES = ([(s, s, True, w) for s in LENGTHS for w in WINDOWS]
          + [(s, s, False, w) for s in LENGTHS for w in (0, 1, 64, 200)]
          + [(4096, 4096, True, w) for w in (0, 1, 1024)]
+         + [(2048, 2048, True, w) for w in (0, 1024)]  # gemma3's prefill
          + [(4096, 4096, False, 1000)]
          + [(sq, sk, c, w) for sq, sk in ((200, 333), (333, 200), (300, 129),
                                           (65, 500), (500, 65))
@@ -148,8 +151,44 @@ def test_prefill_shapes_plan_a_launch(case):
                 for j in range(t + 1)] == [True] * t + [False]
 
 
+def test_shared_memory_at_head_dim_256_fits_one_block_an_sm():
+    """At DP 256 the kernel's 64-row tile takes 213,296 bytes: within the
+    limit, one block an SM (the source's ``blocks_per_sm``)."""
+    smem = _smem_bytes(256)
+    assert smem == 213_296 <= SMEM_LIMIT
+    assert 2 * (smem + 1024) > SM_SHARED
+    # the K/V ring alone rules out two blocks, whatever the query tile
+    assert 2 * 2 * BKV * 256 * 4 > SM_SHARED // 2
+
+
+@pytest.mark.parametrize("d", [129, 192, 255, 256])
+def test_head_dims_above_128_pad_to_256(d):
+    assert _plan("swa_attention", 2, 16, d) == (256, _smem_bytes(256))
+
+
+@pytest.mark.parametrize("window", [0, 1024], ids=["global", "local"])
+def test_gemma3_prefill_plans_a_launch(window):
+    """gemma3-12b's prefill on the card (B 2, S 2048, GQA 16/8, d 256):
+    query tile t loads the KV tiles of its band, [t − 16, t] under the
+    window of 1024 and [0, t] without; the tiles below the diagonal run
+    unmasked except the band's first one under the window."""
+    b, s, h, kvh, d = 2, 2048, 16, 8, 256
+    dp, smem = _plan("swa_attention", b, h, d)
+    assert (dp, smem) == (256, 213_296) and h % kvh == 0
+    span = window // BKV if window else None
+    for t in range(s // BQ):
+        q0, q_last = t * BQ, t * BQ + BQ - 1
+        lo = max(0, t - span) if span else 0
+        assert _kv_band(q0, s, s, True, window) == (lo, t)
+        flags = [_interior(q0, q_last, j * BKV, s, True, window)
+                 for j in range(lo, t + 1)]
+        first_masked = bool(span) and t >= span
+        assert flags == ([not first_masked] + [True] * (t - lo - 1)
+                         + [False] if t > lo else [False])
+
+
 def test_plan_refuses_what_the_kernel_cannot_hold():
     with pytest.raises(ValueError, match="head dim"):
-        _plan("swa_attention", 1, 8, 256)
+        _plan("swa_attention", 1, 8, 257)
     with pytest.raises(ValueError, match="grid"):
         _plan("swa_attention", 4096, 32, 64)

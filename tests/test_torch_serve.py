@@ -361,9 +361,9 @@ def test_forward_modes_check_their_arguments(state):
     with pytest.raises(ValueError, match="position"):
         transformer.forward(pm.cfg, tp, toks[:, :1], mode="decode",
                             cache=cache)
-    windowed = dataclasses.replace(get_config("paper-tiny"), sliding_window=64)
-    with pytest.raises(NotImplementedError, match="sliding_window"):
-        transformer.init_cache(windowed, 1, 8, device=CPU)
+    moe = dataclasses.replace(get_config("paper-tiny"), num_experts=4)
+    with pytest.raises(NotImplementedError, match="num_experts"):
+        transformer.init_cache(moe, 1, 8, device=CPU)
 
 
 # --------------------------------------------------------------------------
