@@ -7,6 +7,7 @@
     python3 chip_smoke.py --obs-http          # phase 6 alone
     python3 chip_smoke.py --mesh              # phase 7 alone
     python3 chip_smoke.py --zoo               # phase 8 alone
+    python3 chip_smoke.py --bf16              # phase 9 alone
     python3 chip_smoke.py --fold-check        # phase 3's fedex_fold checks
 
 Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
@@ -14,7 +15,8 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
 
 1. environment: torch/CUDA versions and the card's name and power limit;
    TF32 off for matmuls and cuDNN (the folds' exactness is f32's), the
-   settings read back;
+   settings read back, and cuBLAS's bf16 reduced-precision reduction read
+   back (left at PyTorch's default);
 2. build: one ``nvcc`` per kernel source, all in parallel, into
    ``build/kernels/``, with ``-Xptxas -v``; the registers, spills and
    static shared memory of ``factor_mean``'s grouped kernel, of
@@ -173,7 +175,8 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    ``flash_swa`` 28; one decode step: ``lora_matmul`` 112), the kernel path
    against the plain path, teacher forcing against the training forward,
    the adapter's effect (its docstring has the tolerances); then the main
-   path, ``serve()`` with 32 greedy decode steps and the counters set to 0
+   path, ``serve(dtype=torch.float32)`` with 32 greedy decode steps and the
+   counters set to 0
    just before, printing prefill ms, decode ms/token, tokens/s and peak
    memory, and a ``torch.profiler`` breakdown of one prefill and one decode
    step (device time by kernel, busy share);
@@ -255,7 +258,26 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    teacher forcing against the training forward; ``flash_swa`` one a layer
    a prefill, gemma3's 40 at window 1024 and 8 global), with its seconds
    and peak memory, and the phase's;
-9. one JSON line with every ported kernel: ``ms`` and ``library_ms``
+9. serving in bf16, the reference's default dtype (``bf16_phase``,
+   ``[bf16]`` lines; ``python3 chip_smoke.py --bf16`` runs it alone):
+   first B3 and B8 in bf16 against their bf16 plain versions within their
+   bounds (``lora_matmul_error_bound`` and ``swa_error_bound``, bf16 terms
+   included), each run twice and bitwise equal, timed beside the plain
+   version, the library call in bf16 (``torch.addmm``, whose bf16 output
+   differs by more than the bound and is printed, not held; SDPA with
+   ``enable_gqa``) and the bound at HBM's rate and the bf16 tensor-core
+   peak (989 TFLOP/s): B3 at paper-llama3.2-3b's q/k/v/o at M 4096, 8 and
+   64, at r 1, 3 and 64, odd K and N and an x view off 16-byte alignment;
+   B8 at d 64 (paper-gpt2), 128 (paper-llama3.2-3b, GQA 24/8) and 256
+   (gemma3-12b, no window and window 1024); then ``serve()`` with no
+   ``dtype`` (the config's bf16) at full width and depth,
+   paper-llama3.2-3b and paper-gpt2 at phase 5's shape and gemma3-12b at
+   phase 8's (:func:`bf16_serve`: bf16 launches counted apart, the kernel
+   path against the bf16 plain path and both against the f32 serving
+   prefill over the same weights, teacher forcing against the bf16
+   training forward within ``TF_BF16``, prefill ms, decode ms/token, peak
+   GiB and a profile);
+10. one JSON line with every ported kernel: ``ms`` and ``library_ms``
    host-inclusive, ``device_ms`` and ``library_device_ms`` the profiler's
    device time, at the main body; B2's row adds one close's launch path
    (``close_wall_us``, ``close_enqueue_us``: :func:`launch_cost`), B3's
@@ -271,14 +293,19 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    and ``gpt2_M64_*`` on B3's row; at gemma3-12b's shapes (phase 8) as
    ``gemma3_*`` on the rows of B1, B2, B3 (prefill layer;
    ``gemma3_decode_*`` the decode layer) and B8 (``gemma3_W1024_*`` with
-   the window); then the result line.
+   the window); in bf16 (phase 9) as ``bf16_*`` on B3's row (prefill
+   layer; ``bf16_decode_*``, ``bf16_M64_*``) and on B8's (Llama's prefill;
+   ``bf16_gpt2_*``, ``bf16_gemma3_*``, ``bf16_gemma3_W1024_*``), with
+   ``bf16_launches`` (phase 9's ``serve()`` runs) and ``bf16_max_abs_err``
+   (``max_abs_err`` stays the f32 checks'); then the result line.
 
 ``--launch-cost SRC`` runs :func:`launch_cost` alone on the port found
 under ``SRC`` (another tree's ``src`` too, to compare two trees in one
 call) and prints it as one JSON line; ``--decode-sweep`` times B3's
 split-K body at every plan (:func:`decode_sweep`); ``--obs-http`` runs
 phase 6 alone (:func:`obs_http_phase`), ``--mesh`` phase 7
-(:func:`mesh_phase`), ``--zoo`` phase 8 (:func:`zoo_phase`), and
+(:func:`mesh_phase`), ``--zoo`` phase 8 (:func:`zoo_phase`), ``--bf16``
+phase 9 (:func:`bf16_phase`), and
 ``--fold-check`` phase 3's main-shape ``fedex_fold`` checks
 (:func:`fold_check_main`).
 
@@ -346,8 +373,33 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12    # H100 SXM data sheet, f32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, bf16 dense tensor cores
 U = 2.0 ** -24
 REPS, WARMUP = 20, 3
+
+
+def template_args(mangled: str) -> list:
+    """The template arguments at the start of ``mangled`` (what follows a
+    kernel name's ``I``, up to its ``E``): literals ``Lb1E`` (true),
+    ``Li16E`` (16), builtin types (``f``: float) and length-prefixed names
+    (``13__nv_bfloat16``: bf16)."""
+    args, i = [], 0
+    while i < len(mangled) and mangled[i] != "E":
+        if mangled[i] == "L":
+            j = mangled.index("E", i)
+            lit = mangled[i + 1:j]
+            args.append({"b0": "false", "b1": "true"}.get(lit, lit[1:]))
+            i = j + 1
+        elif mangled[i].isdigit():
+            n = re.match(r"\d+", mangled[i:]).group(0)
+            start = i + len(n)
+            ident = mangled[start:start + int(n)]
+            args.append("bf16" if "bfloat16" in ident else ident)
+            i = start + int(n)
+        else:
+            args.append({"f": "float"}.get(mangled[i], mangled[i]))
+            i += 1
+    return args
 
 
 def ptxas_summary(text: str, prefix: str) -> list:
@@ -366,10 +418,7 @@ def ptxas_summary(text: str, prefix: str) -> list:
             continue
         name, rest = found.group(0), fn[found.end():]
         if rest.startswith("I"):
-            args = [("true" if t == "Lb1" else "false") if t[:2] == "Lb"
-                    else t[2:] for t in rest[1:rest.index("EE") + 1].split("E")
-                    if t]
-            name += f"<{', '.join(args)}>"
+            name += f"<{', '.join(template_args(rest[1:]))}>"
         props = " ".join(lines[i + 1:i + 4])
         regs = props.split("Used ")[1].split(" registers")[0]
         stores = props.split(" bytes spill stores")[0].rsplit(" ", 1)[-1]
@@ -577,9 +626,12 @@ def mean_cost(leaves, c_live, r):
     return nbytes, flops
 
 
-def bound_ms(nbytes, flops):
+def bound_ms(nbytes, flops, peak=F32_FLOPS_PER_S):
+    """The least time of a call (ms) and what sets it: its bytes at HBM's
+    rate or its operations at ``peak`` (f32's; bf16 work: the tensor
+    cores' ``BF16_FLOPS_PER_S``, the least time the card could take)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -814,7 +866,8 @@ def raw_weights(torch, device, c, live):
 
 
 def bits(torch, x):
-    return x.contiguous().view(torch.int32)
+    x = x.contiguous()
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
 
 
 def lane_case(torch, kernels, device, kind, c, lead, m, n, r, live, ranks,
@@ -1151,12 +1204,12 @@ def lora_inputs(torch, device, m, k, n, r, seed):
             for shape in ((m, k), (k, n), (k, r), (r, n))]
 
 
-def lora_cost(shapes, r):
-    """Bytes (each input read once, the output written once) and flops of
-    lora_matmul over (M, K, N) shapes."""
+def lora_cost(shapes, r, elem=4):
+    """Bytes (each input read once at ``elem`` bytes an element, the f32
+    output written once) and flops of lora_matmul over (M, K, N) shapes."""
     nbytes = flops = 0
     for m, k, n in shapes:
-        nbytes += 4 * (m * k + k * n + k * r + r * n + m * n)
+        nbytes += elem * (m * k + k * n + k * r + r * n) + 4 * m * n
         flops += 2 * m * n * k + 2 * m * r * (k + n) + 2 * m * n
     return nbytes, flops
 
@@ -1168,9 +1221,14 @@ def lora_case(torch, kernels, timer, bufs, scale, label, device_times=False):
     then time all of them together: kernel, plain, library
     (``torch.addmm(x @ w, x @ a, b, alpha=s)``, cuBLAS, TF32 off) and the
     bound; with ``device_times`` also the kernel's and the library call's
-    device time. Returns (max error, (ms, plain, library, bound, device ms,
-    library device ms))."""
-    err = 0.0
+    device time. bf16 operands: the bound has its bf16 term; the library
+    call runs in bf16 on the tensor cores and rounds x@w, x@a and its
+    output to bf16, so its difference is printed, not held; bytes at 2 an
+    input element, the bound's operations at the bf16 tensor-core peak.
+    Returns (max error, (ms, plain, library, bound, device ms, library
+    device ms))."""
+    low = bufs[0][0].dtype == torch.bfloat16
+    err = lib_err = 0.0
     for x, w, a, b in bufs:
         got = kernels.lora_matmul(x, w, a, b, scale)
         again = kernels.lora_matmul(x, w, a, b, scale)
@@ -1180,8 +1238,9 @@ def lora_case(torch, kernels, timer, bufs, scale, label, device_times=False):
         bound = kernels.lora_matmul_error_bound(x, w, a, b, scale)
         e = (got - want).abs()
         err = max(err, float(e.max()))
-        ok = bool((e <= bound).all()) and bool(
-            ((lib - got).abs() <= bound).all())
+        lib_err = max(lib_err, float((lib.float() - got).abs().max()))
+        ok = bool((e <= bound).all()) and (low or bool(
+            ((lib - got).abs() <= bound).all()))
         if not ok:
             raise AssertionError(f"lora_matmul {label} {tuple(x.shape)} x "
                                  f"{tuple(w.shape)} r={a.shape[1]}: disagrees "
@@ -1206,13 +1265,16 @@ def lora_case(torch, kernels, timer, bufs, scale, label, device_times=False):
                         for buf in bufs]),
          timer(library),
          bound_ms(*lora_cost([(x.shape[0], x.shape[1], w.shape[1])
-                              for x, w, _, _ in bufs], r)),
+                              for x, w, _, _ in bufs], r, 2 if low else 4),
+                  BF16_FLOPS_PER_S if low else F32_FLOPS_PER_S),
          timer.device(kernel) if device_times else None,
          timer.device(library) if device_times else None)
     ms, plain, lib, (bms, by), dev, dev_lib = t
-    print(f"  lora_matmul[{label}] max_abs_err={err:.3e} within bound, two "
-          f"runs bitwise equal; time kernel {ms:.4f} ms, plain {plain:.4f} "
-          f"ms, library {lib:.4f} ms (addmm), bound {bms:.4f} ms ({by})"
+    print(f"  lora_matmul[{label}] max_abs_err={err:.3e} within bound"
+          + (f" (bf16; addmm bf16 {lib_err:.3e} off)" if low else "")
+          + f", two runs bitwise equal; time kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, library {lib:.4f} ms (addmm), bound {bms:.4f} "
+          f"ms ({by})"
           + (f"; device time kernel {dev:.4f} ms ({bms / dev:.0%} of the "
              f"bound), library {dev_lib:.4f} ms" if device_times else ""),
           flush=True)
@@ -1231,19 +1293,25 @@ def visible_pairs(torch, device, sq, sk, causal, window):
 
 
 def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
-               seed, device_times=False):
+               seed, device_times=False, dtype=None):
     """swa_attention (B, S, H, D) against swa_attention_plain within the
     reference's f32 tolerance (rtol 2e-5, atol 4e-5) at unit-scale inputs,
     and a second run bitwise against the first; timed beside the plain
     version, the bound (4·d flops per visible pair) and
     ``scaled_dot_product_attention`` in f32 (is_causal, enable_gqa; an
-    explicit boolean mask for windows). Returns (max error, timings)."""
+    explicit boolean mask for windows). ``dtype`` bf16: the inputs rounded
+    to bf16, held to ``swa_error_bound`` (its bf16 terms), SDPA in bf16,
+    bytes at 2 an element and the bound's operations at the bf16
+    tensor-core peak. Returns (max error, timings)."""
     import torch.nn.functional as F
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     q = torch.randn(b, s, h, d, device=device, generator=g)
     k = torch.randn(b, s, kvh, d, device=device, generator=g)
     v = torch.randn(b, s, kvh, d, device=device, generator=g)
+    low = dtype == torch.bfloat16
+    if low:
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     got = kernels.swa_attention(q, k, v, causal, window)
     again = kernels.swa_attention(q, k, v, causal, window)
     torch.cuda.synchronize()
@@ -1252,8 +1320,10 @@ def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
                              "runs differ")
     del again
     want = kernels.swa_attention_plain(q, k, v, causal, window)
-    e = (got - want).abs()
+    e = (got.float() - want.float()).abs()
     err = float(e.max())
+    tol = (kernels.swa_error_bound(q, k, v, causal, window) if low
+           else 4e-5 + 2e-5 * want.abs())
     mask, pairs = visible_pairs(torch, device, s, s, causal, window)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     if window:
@@ -1264,12 +1334,13 @@ def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
     label = (f"B={b} S={s} H={h}/{kvh} d={d} "
              f"{'causal' if causal else 'non-causal'} window={window}")
     # the library call is a yardstick only: its difference is printed
-    lib_err = float((lib.transpose(1, 2) - got).abs().max())
-    if not bool((e <= 4e-5 + 2e-5 * want.abs()).all()):
+    lib_err = float((lib.transpose(1, 2).float() - got.float()).abs().max())
+    if not bool((e <= tol).all()):
         raise AssertionError(f"flash_swa {label}: max err {err:.3e} vs the "
                              "plain version")
-    del got, want, e, lib
-    nbytes = 4 * (2 * b * s * h * d + 2 * b * s * kvh * d)
+    del got, want, e, lib, tol
+    elem = 2 if low else 4
+    nbytes = elem * (2 * b * s * h * d + 2 * b * s * kvh * d)
     flops = 4 * d * pairs * b * h
 
     def kernel():
@@ -1280,11 +1351,13 @@ def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
 
     t = (timer(kernel),
          timer(lambda: kernels.swa_attention_plain(q, k, v, causal, window)),
-         timer(library), bound_ms(nbytes, flops),
+         timer(library),
+         bound_ms(nbytes, flops, BF16_FLOPS_PER_S if low else F32_FLOPS_PER_S),
          timer.device(kernel) if device_times else None,
          timer.device(library) if device_times else None)
     ms, plain, libt, (bms, by), dev, dev_lib = t
-    print(f"  flash_swa[{label}] max_abs_err={err:.3e} (SDPA {lib_err:.3e}), "
+    print(f"  flash_swa[{label}{' bf16' if low else ''}] max_abs_err="
+          f"{err:.3e} (SDPA {lib_err:.3e}), "
           f"two runs bitwise equal; time kernel {ms:.4f} ms, plain "
           f"{plain:.4f} ms, library {libt:.4f} ms (SDPA), bound {bms:.4f} ms "
           f"({by})"
@@ -2943,7 +3016,8 @@ def serve_phase(torch, kernels, device, cfg):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     res = serve(cfg.name, batch_size=bsz, prompt_len=prompt, steps=steps,
-                max_len=max_len, device=device, params=params, lora=lora)
+                max_len=max_len, device=device, params=params, lora=lora,
+                dtype=torch.float32)
     launches = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     _expect(kernels, f"serve() (1 prefill + {steps} decode steps)",
@@ -2983,7 +3057,7 @@ OBS_RUN = {"clients": 4, "rounds": 3, "local_steps": 2}
 HTTP_RUN = {"clients": 4, "rounds": 2}
 HTTP_EXAMPLES = (120, 40, 200, 80)  # the clients' X-Fed-Examples
 HTTP_HETERO_RANKS = (4, 2, 1, 3)
-PULL_SERVE = {"batch_size": 2, "prompt_len": 32, "steps": 4}
+PULL_SERVE = {"batch_size": 2, "prompt_len": 32, "steps": 4}  # f32
 
 
 def _sync(torch, device):
@@ -3435,7 +3509,7 @@ def http_path(torch, kernels, device, cfg, tmp: Path, check=check_launches):
         kernels.reset_launch_counts()
         t = time.perf_counter()
         pulled = serve(cfg.name, device=device, pull_from=url, rank=4,
-                       seed=0, **PULL_SERVE)
+                       seed=0, dtype=torch.float32, **PULL_SERVE)
         stats["pull_serve_s"] = time.perf_counter() - t
         L = cfg.num_layers
         counts = check(kernels, "pull-serve", {
@@ -3447,7 +3521,7 @@ def http_path(torch, kernels, device, cfg, tmp: Path, check=check_launches):
         httpd.shutdown()
         httpd.server_close()
     direct = serve(cfg.name, device=device, lora=tglob, rank=4, seed=0,
-                   **PULL_SERVE)
+                   dtype=torch.float32, **PULL_SERVE)
     same = bool((pulled.tokens == direct.tokens).all())
     print(f"  [http] pull-serve tokens == serve with the twin's adapter: "
           f"{same} (first row {pulled.tokens[0].tolist()})", flush=True)
@@ -4019,7 +4093,7 @@ def zoo_serve(torch, kernels, device, cfg, params, lora, *, batch, prompt,
     kernels.reset_launch_counts()
     res = serve(cfg.name, batch_size=batch, prompt_len=prompt, steps=steps,
                 max_len=max_len, device=device, params=params, lora=lora,
-                cache_dtype=torch.float32)
+                dtype=torch.float32, cache_dtype=torch.float32)
     launches = kernels.launch_counts()
     _expect(kernels, f"{cfg.name} serve() (1 prefill + {steps} decode steps)",
             {"lora_matmul": 4 * L * (1 + steps), "flash_swa": L})
@@ -4128,6 +4202,287 @@ def zoo_phase(torch, kernels, device):
     print(f"  [zoo] phase 8 in {stats['seconds']:.1f} s, peak memory "
           f"{stats['peak_gib']:.2f} GiB", flush=True)
     return errs, timings, launches, stats
+
+
+# --------------------------------------------------------------------------
+# phase 9: serving in bf16, the reference's default dtype
+# --------------------------------------------------------------------------
+
+# name → (batch, prompt, decode steps, cache length): phase 5's shape for
+# paper-llama3.2-3b and paper-gpt2, phase 8's for gemma3-12b
+BF16_SERVE = {"paper-llama3.2-3b": (8, 512, 32, 1024),
+              "paper-gpt2": (8, 512, 32, 1024),
+              "gemma3-12b": (2, 2048, 32, 2080)}
+# teacher-forced decode (bf16 cache) against the bf16 training forward:
+# at most this share of the training forward's largest |logit|, stated
+# before the first run (phase 5 saw 2% at f32 weights with a bf16 cache)
+TF_BF16 = 0.1
+
+
+def bf16_kernel_phase(torch, kernels, device):
+    """B3 and B8 in bf16 against their bf16 plain versions, each within its
+    bound (``lora_matmul_error_bound`` / ``swa_error_bound``, bf16 terms),
+    two runs bitwise equal, timed beside the plain version, the library
+    call in bf16 (``torch.addmm`` / SDPA with ``enable_gqa``) and the bound
+    at the bf16 tensor-core peak (:func:`lora_case`, :func:`flash_case`):
+    B3 at paper-llama3.2-3b's q/k/v/o at prefill (M 4096), decode (M 8)
+    and the serve launcher's M 64, then r 1, 4 and 64 and odd K and N (the
+    scalar paths) and an x view off 16-byte alignment; B8 at d 64
+    (paper-gpt2, B 8, S 512, MHA 12/12), d 128 (paper-llama3.2-3b, B 8, S
+    512, GQA 24/8) and d 256 (gemma3-12b, B 2, S 2048, GQA 16/8, no window
+    and window 1024). Returns (max errors, timings)."""
+    from repro_torch.configs import get_config
+    timer = Timer(torch, device)
+    low = torch.bfloat16
+    cfg = get_config("paper-llama3.2-3b")
+    r, scale = 4, 2.0
+    errs = {"lora_matmul": 0.0, "flash_swa": 0.0}
+    timings = {}
+
+    def bf16(bufs):
+        return [t.to(low) for t in bufs]
+
+    projs = serving_projections(cfg)
+    for key, m in (("bf16", 8 * 512), ("bf16_decode", 8),
+                   ("bf16_M64", short_prompt_rows())):
+        bufs = [bf16(lora_inputs(torch, device, m, k, n, r, seed=90 + i))
+                for i, (_, k, n) in enumerate(projs)]
+        err, timings[key] = lora_case(
+            torch, kernels, timer, bufs, scale,
+            f"bf16 {cfg.name} layer: q/k/v/o at M={m}", device_times=True)
+        errs["lora_matmul"] = max(errs["lora_matmul"], err)
+        del bufs
+    d, nq, nkv = projs[0][1], projs[0][2], projs[1][2]
+    for m, k, n, r_e in [(4096, d, nq, 1), (4096, d, nq, 64), (8, d, nq, 1),
+                         (8, d, nkv, 64), (7, 777, 333, 1), (9, 777, 333, 16),
+                         (16, 777, 333, 64), (1000, 777, 333, 4),
+                         (17, d, nq, 3)]:
+        bufs = [bf16(lora_inputs(torch, device, m, k, n, r_e, seed=m + r_e))]
+        err, _ = lora_case(torch, kernels, timer, bufs, scale,
+                           f"bf16 edge M={m} K={k} N={n} r={r_e}")
+        errs["lora_matmul"] = max(errs["lora_matmul"], err)
+        del bufs
+    x, w, a, b = bf16(lora_inputs(torch, device, 1001, 777, 333, r, seed=9))
+    if x[1:].data_ptr() % 16 == 0:
+        raise AssertionError("the misaligned bf16 case is 16-byte aligned")
+    err, _ = lora_case(torch, kernels, timer, [[x[1:], w, a, b]], scale,
+                       "bf16 x view one row in, M=1000 K=777 N=333")
+    errs["lora_matmul"] = max(errs["lora_matmul"], err)
+    del x, w, a, b
+    gcfg, g3 = get_config("paper-gpt2"), get_config("gemma3-12b")
+    for i, (key, c, bsz, s, window) in enumerate((
+            ("flash_bf16_gpt2", gcfg, 8, 512, 0),
+            ("flash_bf16", cfg, 8, 512, 0),
+            ("flash_bf16_gemma3", g3, 2, 2048, 0),
+            ("flash_bf16_gemma3_W1024", g3, 2, 2048, g3.local_window))):
+        err, timings[key] = flash_case(
+            torch, kernels, timer, device, bsz, s, c.num_heads,
+            c.num_kv_heads, c.resolved_head_dim, True, window, seed=100 + i,
+            device_times=True, dtype=low)
+        errs["flash_swa"] = max(errs["flash_swa"], err)
+    torch.cuda.empty_cache()
+    return errs, timings
+
+
+def _expect_bf16(kernels, name, want):
+    """The launch counts are ``want`` (every other kernel 0), and every one
+    of them a bf16 launch."""
+    _expect(kernels, name, want)
+    got = kernels.bf16_launch_counts()
+    expected = {k: want.get(k, 0) for k in got}
+    if got != expected:
+        raise AssertionError(f"serve {name}: bf16 launches {got} != "
+                             f"{expected}")
+
+
+def bf16_serve(torch, kernels, device, name):
+    """Serve ``name`` in bf16 (its config's dtype) at full width and depth,
+    the shape of ``BF16_SERVE``, from the port's own bf16 draws and a
+    rank-4 adapter in f32 with b drawn N(0, 0.05²) (biases N(0, 0.02²)).
+    Each check with the counters set to 0 just before it:
+    * one prefill (``lora_matmul`` 4·L, ``flash_swa`` L launches, all bf16)
+      and one teacher-forced decode step (``lora_matmul`` 4·L bf16);
+    * the kernel path's prefill logits against the bf16 plain path's (no
+      launch): printed, and held by the next check;
+    * teacher forcing: the decode step's logits against the bf16 training
+      forward within ``TF_BF16`` of its largest |logit|, the argmax agreeing
+      on every row whose top-2 margin exceeds twice that;
+    Then the main path, ``serve()`` with no ``dtype`` (so the config's
+    bf16, as the reference), 1 prefill and the decode steps, the counters
+    set to 0 just before and read just after (all bf16), with its prefill
+    ms, decode ms/token and peak GiB, and a ``torch.profiler`` breakdown of
+    one prefill and one decode step (:func:`profile_serving`). Last, the
+    f32 answer: the same
+    weights widened to f32 (the bf16 copy freed) and the f32 serving
+    prefill; the kernel path's bf16 logits must be no further from its
+    logits than twice the bf16 plain path's are, plus one bf16 rounding at
+    the logit scale (2⁻⁸·max|f32 logit|), and no further from the plain
+    path's than three times that distance plus the same floor. Returns
+    (stats, launches of the main path, its bf16 launches)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import init_lora
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.util.tree import flatten_with_paths, unflatten_from_paths
+
+    bsz, prompt, steps, max_len = BF16_SERVE[name]
+    cfg = get_config(name)
+    if cfg.dtype != "bfloat16":
+        raise AssertionError(f"{name}: config dtype {cfg.dtype}")
+    L = cfg.num_layers
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    lcfg = LoRAConfig(rank=4, alpha=8.0)
+    with torch.inference_mode():
+        params = model.init(gen, device)
+        lora = init_lora(gen, params, cfg, lcfg)
+        for k, leaf in flatten_with_paths(lora).items():
+            if k.endswith("/b"):
+                leaf.normal_(0.0, 0.05, generator=gen)
+        for k, leaf in flatten_with_paths(params).items():
+            if k.endswith("/bias"):
+                leaf.normal_(0.0, 0.02, generator=gen)
+    dtypes = {str(v.dtype) for v in flatten_with_paths(params).values()}
+    if dtypes != {"torch.bfloat16"}:
+        raise AssertionError(f"{name}: params in {dtypes}")
+    prefill = make_prefill_step(model, lcfg)
+    decode = make_decode_step(model, lcfg)
+    batch = make_batch_for(cfg, bsz, prompt, seed=0, device=device)
+    full = torch.cat([batch["tokens"], batch["targets"][:, -1:]], dim=1)
+    torch.cuda.synchronize()
+    print(f"  [bf16] {name}: params and adapter on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        cache = model.init_cache(bsz, max_len, device=device)
+        pre, cache = prefill(params, lora, batch, cache)
+        torch.cuda.synchronize()
+        _expect_bf16(kernels, f"{name} bf16 one prefill",
+                     {"lora_matmul": 4 * L, "flash_swa": L})
+        kernels.reset_launch_counts()
+        _, dec, cache = decode(params, lora, full[:, -1:], cache, prompt)
+        torch.cuda.synchronize()
+        _expect_bf16(kernels, f"{name} bf16 one decode step",
+                     {"lora_matmul": 4 * L})
+        del cache
+        kernels.reset_launch_counts()
+        with plain_ops(kernels):
+            cache = model.init_cache(bsz, max_len, device=device)
+            pre_plain, cache = prefill(params, lora, batch, cache)
+            del cache
+        torch.cuda.synchronize()
+        _expect(kernels, f"{name} bf16 plain path", {})
+        train = model.apply(params, {"tokens": full}, lora=lora,
+                            lora_scale=lcfg.scale)[:, -1].clone()
+        torch.cuda.synchronize()
+        got = dec[:, -1]
+        tf_scale = float(train.abs().max())
+        tol = TF_BF16 * tf_scale
+        err_tf = float((got - train).abs().max())
+        top2 = torch.topk(train, 2, dim=-1).values
+        sure = top2[:, 0] - top2[:, 1] > 2 * tol
+        same = got.argmax(-1) == train.argmax(-1)
+        agree = bool(same[sure].all())
+        print(f"  [bf16] {name} teacher-forced decode (bf16 cache) vs the bf16 "
+              f"training forward: max |diff| {err_tf:.4e} (bound {tol:.4e} = "
+              f"{TF_BF16} x logit scale {tf_scale:.3f}); argmax agrees on "
+              f"{int(same.sum())} of {bsz} rows, on the {int(sure.sum())} "
+              f"rows past 2 x bound: {agree}", flush=True)
+        if not (err_tf <= tol and agree):
+            raise AssertionError(f"bf16 serve {name}: prefill + decode "
+                                 "disagree with the training forward")
+        del dec, got, train, top2
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kernels.reset_launch_counts()
+    res = serve(name, batch_size=bsz, prompt_len=prompt, steps=steps,
+                max_len=max_len, device=device, params=params, lora=lora)
+    launches, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"lora_matmul": 4 * L * (1 + steps), "flash_swa": L}
+    _expect_bf16(kernels, f"{name} bf16 serve() (1 prefill + {steps} decode "
+                 "steps)", want)
+    toks = res.tokens
+    if toks.shape != (bsz, steps + 1) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"bf16 serve {name}: bad tokens {toks.shape}")
+    prof = profile_serving(torch, model, params, lora, prefill, decode, batch,
+                           bsz, prompt, max_len, res)
+
+    # the f32 answer over the same weights
+    flat = flatten_with_paths(params)
+    del params
+    for k in list(flat):
+        flat[k] = flat[k].float()
+    wide = unflatten_from_paths(flat)
+    del flat
+    f32 = build_model(replace(cfg, dtype="float32"))
+    with torch.inference_mode():
+        cache = f32.init_cache(bsz, max_len, device=device)
+        pre32, cache = make_prefill_step(f32, lcfg)(wide, lora, batch, cache)
+        del cache
+    torch.cuda.synchronize()
+    floor = 2.0 ** -8 * float(pre32.abs().max())
+    err_k = float((pre - pre32).abs().max())
+    err_p = float((pre_plain - pre32).abs().max())
+    err_kp = float((pre - pre_plain).abs().max())
+    ok = err_k <= 2 * err_p + floor and err_kp <= 3 * err_p + floor
+    print(f"  [bf16] {name} prefill last-position logits: kernel path vs f32 "
+          f"{err_k:.4e}, bf16 plain path vs f32 {err_p:.4e} (bound 2 x that "
+          f"+ {floor:.4e} = {2 * err_p + floor:.4e}), kernel vs plain path "
+          f"{err_kp:.4e} (bound {3 * err_p + floor:.4e}); logit scale "
+          f"{float(pre32.abs().max()):.3f}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError(f"bf16 serve {name}: the kernel path's logits "
+                             "are further from the f32 answer than allowed")
+    stats = {"prefill_ms": res.prefill_ms,
+             "decode_ms_per_token": res.ms_per_token,
+             "decode_tokens_per_s": bsz * steps / (res.decode_ms / 1e3),
+             "prefill_tokens_per_s": bsz * prompt / (res.prefill_ms / 1e3),
+             "peak_gib": peak, "err_vs_f32": err_k,
+             "err_plain_vs_f32": err_p, "err_kernel_vs_plain": err_kp,
+             "err_teacher_forced": err_tf, "tf_bound": tol, **prof,
+             "seconds": time.perf_counter() - t0}
+    print(f"  [bf16] {name} batch {bsz}, prompt {prompt}, {steps} decode "
+          f"steps, bf16 model and cache of {max_len}: prefill "
+          f"{res.prefill_ms:.1f} ms ({stats['prefill_tokens_per_s']:.0f} "
+          f"tokens/s), decode {res.ms_per_token:.2f} ms/token "
+          f"({stats['decode_tokens_per_s']:.1f} tokens/s over the batch), "
+          f"peak {peak:.2f} GiB; {stats['seconds']:.1f} s; first row "
+          f"{toks[0, :8].tolist()}", flush=True)
+    del wide, lora, pre, pre_plain, pre32, f32, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, launches, bf16
+
+
+def bf16_phase(torch, kernels, device):
+    """Phase 9: the bf16 kernels (:func:`bf16_kernel_phase`), then
+    :func:`bf16_serve` of each model of ``BF16_SERVE``, one at a time.
+    Returns (max errors, timings, launches, bf16 launches, stats)."""
+    t = time.perf_counter()
+    errs, timings = bf16_kernel_phase(torch, kernels, device)
+    stats = {"kernels_s": time.perf_counter() - t}
+    launches = {name: 0 for name in SOURCES}
+    bf16 = {"lora_matmul": 0, "flash_swa": 0}
+    for name in BF16_SERVE:
+        stats[name], got, got_bf16 = bf16_serve(torch, kernels, device, name)
+        for k, v in got.items():
+            launches[k] += v
+        for k, v in got_bf16.items():
+            bf16[k] += v
+    stats["seconds"] = time.perf_counter() - t
+    print(f"  [bf16] phase 9 in {stats['seconds']:.1f} s", flush=True)
+    return errs, timings, launches, bf16, stats
 
 
 # --------------------------------------------------------------------------
@@ -4439,6 +4794,36 @@ def zoo_main() -> int:
     return 0
 
 
+def bf16_main() -> int:
+    """``--bf16``: phase 9 alone (:func:`bf16_phase`) on this checkout's
+    port, after the build and its ptxas summaries, its stats as one JSON
+    line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch import kernels
+    from repro_torch.kernels import build as kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi_line(), flush=True)
+    print("bf16 reduced-precision reduction (cuBLAS): "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}",
+          flush=True)
+    build_kernels(kbuild, "[bf16]")
+    errs, timings, launches, bf16, stats = bf16_phase(
+        torch, kernels, torch.device("cuda", 0))
+    fields = {}
+    for key, t in timings.items():
+        fields.update(timing_fields(key, t))
+    print(json.dumps({"bf16": stats, "launches": launches,
+                      "bf16_launches": bf16, "max_abs_err": errs,
+                      "timings": fields}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -4452,6 +4837,8 @@ def main() -> int:
         return mesh_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--zoo":
         return zoo_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--bf16":
+        return bf16_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--fold-check":
         return fold_check_main()
     if not torch.cuda.is_available():
@@ -4473,19 +4860,22 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
-    print(f"[1/9] environment: python {sys.version.split()[0]}, torch "
+    print(f"[1/10] environment: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
           f"{torch.backends.cudnn.allow_tf32}, f32 matmul precision "
-          f"{torch.get_float32_matmul_precision()}", flush=True)
+          f"{torch.get_float32_matmul_precision()}, bf16 reduced-precision "
+          "reduction "
+          f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}",
+          flush=True)
     print(smi, flush=True)
 
-    build_kernels(kbuild, "[2/9]")
+    build_kernels(kbuild, "[2/10]")
 
     cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
     c, r, scale = 4, 4, 8.0 / 4
-    print(f"[3/9] kernels vs plain versions (C={c}, r={r}, scale={scale})",
+    print(f"[3/10] kernels vs plain versions (C={c}, r={r}, scale={scale})",
           flush=True)
     errs, timings = kernel_phase(torch, kernels, device, cfg, c=c, r=r,
                                  scale=scale)
@@ -4509,7 +4899,7 @@ def main() -> int:
     print(f"  launch path: {json.dumps(cost)}", flush=True)
     torch.cuda.empty_cache()
 
-    print(f"[4/9] main paths: FederatedTrainer at {cfg.name} full width "
+    print(f"[4/10] main paths: FederatedTrainer at {cfg.name} full width "
           f"({cfg.num_layers} layers, d={cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}); {', '.join(GPT2_PATHS)} at "
           f"{gcfg.name} ({gcfg.num_layers} layers, d={gcfg.d_model}, vocab "
@@ -4539,30 +4929,37 @@ def main() -> int:
           flush=True)
     serve_stats = {}
     for scfg in (cfg, gcfg):
-        print(f"[5/9] serving: {scfg.name} at full width, prefill + KV-cache "
+        print(f"[5/10] serving: {scfg.name} at full width, prefill + KV-cache "
               "greedy decode with a LoRA adapter", flush=True)
         serve_stats[scfg.name], serve_launches = serve_phase(
             torch, kernels, device, scfg)
         for k in ("lora_matmul", "flash_swa"):
             launches[k] += serve_launches[k]
-    print(f"[6/9] obs and the HTTP federation service at {cfg.name} full "
+    print(f"[6/10] obs and the HTTP federation service at {cfg.name} full "
           "width: fedex+obs, serve-http, pull-serve, serve-http-hetero",
           flush=True)
     obs_launches, obs_stats = obs_http_phase(torch, kernels, device, cfg)
     for k, v in obs_launches.items():
         launches[k] += v
-    print(f"[7/9] mesh mode at {cfg.name} full width: "
+    print(f"[7/10] mesh mode at {cfg.name} full width: "
           f"{', '.join(MESH_PATHS)}", flush=True)
     mesh_launches, mesh_stats = mesh_phase(torch, kernels, device, cfg)
     for k, v in mesh_launches.items():
         launches[k] += v
-    print(f"[8/9] the rest of the dense zoo at full width: "
+    print(f"[8/10] the rest of the dense zoo at full width: "
           f"{', '.join(ZOO)}, each trained and served", flush=True)
     zoo_errs, zoo_timings, zoo_launches, zoo_stats = zoo_phase(
         torch, kernels, device)
     for k, v in zoo_errs.items():
         errs[k] = max(errs[k], v)
     for k, v in zoo_launches.items():
+        launches[k] += v
+    print(f"[9/10] serving in bf16, the reference's default dtype: B3 and B8 "
+          f"in bf16, then {', '.join(BF16_SERVE)} served at full width and "
+          "depth", flush=True)
+    bf16_errs, bf16_timings, bf16_main_launches, bf16_launches, bf16_stats = \
+        bf16_phase(torch, kernels, device)
+    for k, v in bf16_main_launches.items():
         launches[k] += v
     main_body = {**timings["weighted-partial"], **lane_timings,
                  "lora_matmul": serve_timings["lora_matmul[prefill]"],
@@ -4617,6 +5014,24 @@ def main() -> int:
                          ("factor_mean", "gemma3",
                           zoo_timings["factor_mean"])):
         out[list(SOURCES).index(name)].update(timing_fields(key, t))
+    # bf16 (phase 9): B3 at one prefill layer, one decode layer and the
+    # serve launcher's M 64; B8 at d 128 (Llama), 64 (GPT-2) and 256
+    # (gemma3, no window and window 1024); the bf16 launches of phase 9's
+    # serve() runs and the largest bf16 kernel-vs-plain error
+    for name, key, t in (
+            ("lora_matmul", "bf16", bf16_timings["bf16"]),
+            ("lora_matmul", "bf16_decode", bf16_timings["bf16_decode"]),
+            ("lora_matmul", "bf16_M64", bf16_timings["bf16_M64"]),
+            ("flash_swa", "bf16", bf16_timings["flash_bf16"]),
+            ("flash_swa", "bf16_gpt2", bf16_timings["flash_bf16_gpt2"]),
+            ("flash_swa", "bf16_gemma3", bf16_timings["flash_bf16_gemma3"]),
+            ("flash_swa", "bf16_gemma3_W1024",
+             bf16_timings["flash_bf16_gemma3_W1024"])):
+        out[list(SOURCES).index(name)].update(timing_fields(key, t))
+    for name in ("lora_matmul", "flash_swa"):
+        out[list(SOURCES).index(name)].update({
+            "bf16_launches": bf16_launches[name],
+            "bf16_max_abs_err": bf16_errs[name]})
     # B5 beside its old body (product_fold in place), and at the chunk of
     # 64 uplinks at r = 8 that docs/benchmarks.md documents
     ms, _, lib_ms, (bms, by), *_ = lane_timings["product_accum[C64r8]"]
@@ -4625,12 +5040,12 @@ def main() -> int:
         "C64r8_prior_ms": lane_prior["product_accum[C64r8]"],
         "C64r8_library_ms": lib_ms, "C64r8_bound_ms": bms,
         "C64r8_bound_by": by})
-    print(f"[9/9] done in {time.perf_counter() - t_start:.1f} s; identity max "
+    print(f"[10/10] done in {time.perf_counter() - t_start:.1f} s; identity max "
           f"err per path {json.dumps(identities)}; resume "
           f"{json.dumps(resume)}; serving "
           f"{json.dumps(serve_stats)}; obs and http "
           f"{json.dumps(obs_stats)}; mesh {json.dumps(mesh_stats)}; zoo "
-          f"{json.dumps(zoo_stats)}; rounds "
+          f"{json.dumps(zoo_stats)}; bf16 {json.dumps(bf16_stats)}; rounds "
           + json.dumps([{k: v for k, v in row.items()
                          if k != "client_losses"} for row in all_rows]),
           flush=True)

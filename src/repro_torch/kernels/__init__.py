@@ -26,7 +26,8 @@
 
 Each wrapper launches its kernel for CUDA tensors (and counts the launch in
 its ``launches`` attribute) and takes the plain version only for CPU
-tensors. The kernels build with ``nvcc`` on first use (``build.py``).
+tensors. The serving kernels (``lora_matmul``, ``flash_swa``) take float32
+or bfloat16 operands (never a mix); the folds float32. The kernels build with ``nvcc`` on first use (``build.py``).
 """
 
 from repro_torch.kernels.factor_mean import (factor_mean, factor_mean_group,
@@ -43,7 +44,8 @@ from repro_torch.kernels.fedex_residual import (fedex_fold, fedex_fold_plain,
                                                 product_error_bound,
                                                 product_fold, product_fold_plain)
 from repro_torch.kernels.flash_swa import (flash_swa, flash_swa_plain,
-                                           swa_attention, swa_attention_plain)
+                                           swa_attention, swa_attention_plain,
+                                           swa_error_bound)
 from repro_torch.kernels.lora_matmul import (lora_dense, lora_dense_plain,
                                              lora_matmul,
                                              lora_matmul_error_bound,
@@ -53,10 +55,15 @@ KERNELS = (fedex_fold, factor_mean, product_fold, product_accum,
            perclient_fold, hetero_fold, lora_matmul, flash_swa)
 
 
+BF16_KERNELS = (lora_matmul, flash_swa)  # those that take bf16 operands
+
+
 def reset_launch_counts() -> None:
-    """Set every kernel wrapper's launch counter to 0."""
+    """Set every kernel wrapper's launch counters to 0."""
     for fn in KERNELS:
         fn.launches = 0
+    for fn in BF16_KERNELS:
+        fn.bf16_launches = 0
 
 
 def launch_counts() -> dict:
@@ -64,7 +71,13 @@ def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
 
 
-__all__ = ["KERNELS", "factor_mean", "factor_mean_group", "factor_mean_plain",
+def bf16_launch_counts() -> dict:
+    """Kernel name → its bf16 launches since the last reset (a share of
+    :func:`launch_counts`)."""
+    return {fn.__name__: fn.bf16_launches for fn in BF16_KERNELS}
+
+
+__all__ = ["BF16_KERNELS", "KERNELS", "bf16_launch_counts", "factor_mean", "factor_mean_group", "factor_mean_plain",
            "fedex_fold", "fedex_fold_plain", "flash_swa", "flash_swa_plain",
            "fold_error_bound", "hetero_error_bound", "hetero_fold",
            "hetero_fold_plain", "launch_counts", "lora_dense",
@@ -72,4 +85,5 @@ __all__ = ["KERNELS", "factor_mean", "factor_mean_group", "factor_mean_plain",
            "lora_matmul_plain", "perclient_error_bound", "perclient_fold", "perclient_fold_plain",
            "product_accum", "product_accum_error_bound", "product_accum_plain",
            "product_error_bound", "product_fold", "product_fold_plain",
-           "reset_launch_counts", "swa_attention", "swa_attention_plain"]
+           "reset_launch_counts", "swa_attention", "swa_attention_plain",
+           "swa_error_bound"]

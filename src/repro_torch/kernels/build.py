@@ -47,11 +47,12 @@ SIGNATURES = {
     "hetero_fold_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I,
                            _I, _I, _I, _I64, _I64, _I64, _I64, _I64, _I64,
                            _F, _VP),
+    # the last int before the stream: the operands are bf16 (1) or f32 (0)
     "lora_matmul_launch": (_VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _F,
-                           _I, _I, _I, _I, _VP),
+                           _I, _I, _I, _I, _I, _VP),
     # the 12 (batch, position, head) strides go as a host int64 array
     "flash_swa_launch": (_VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _I,
-                         _I, _F, _I, _I, _VP),
+                         _I, _F, _I, _I, _I, _VP),
 }
 
 

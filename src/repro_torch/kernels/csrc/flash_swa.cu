@@ -9,7 +9,8 @@
 //   mask: j < Sk; causal -> j <= i; window w > 0 -> i - j < w; masked
 //   scores are -1e30 (the reference's NEG_INF), l is clamped at 1e-30.
 //
-// q, o (B, Sq, H, d) and k, v (B, Sk, KVH, d), f32, each addressed through
+// q, o (B, Sq, H, d) and k, v (B, Sk, KVH, d), all f32 or all bf16 (o in
+// q's dtype, as the TPU kernel's out_shape), each addressed through
 // its own (batch, position, head) strides with a contiguous last dim, so
 // the GQA heads read their K/V head in place (no repeated copy) and the
 // (BH, S, d) layout is the case H = KVH = 1. d <= 256 (padded to DP = 64,
@@ -71,14 +72,58 @@
 // * KV tiles wholly outside the causal-and-window band of the query tile
 //   are never loaded. expf and IEEE division, as the reference.
 //
+// bf16 (the reference's serving dtype): the kernel is a template on the
+// element type T, and follows the TPU kernel's casts. q and k are widened
+// to f32 (exact) as they are staged, q scaled in f32 after; scores, the
+// online softmax, l and the PV sums stay f32. P is rounded to bf16 (v's
+// dtype, round to nearest even, kept as f32) where it is written to shared
+// memory, while l sums the unrounded p, as the reference's l_ref does; the
+// output acc / l is rounded to bf16 once. Shared memory and the tiles are
+// f32's: cp.async copies bytes and cannot widen, so bf16 K/V tiles are
+// loaded through registers (8 rows a batch, 8 bytes or one element a
+// copy) into the same f32 slots, and their copies are not asynchronous.
+// The TPU kernel rounds p relative to the running max of its 256-key
+// blocks, this one relative to that of its 64-key tiles, so the two agree
+// to within the p-rounding term of the wrapper's bound, not bitwise.
+//
 // The band rules (the tile range, the interior test and the row blocks'
 // key groups) are mirrored in Python in kernels/flash_swa.py, where the CPU
 // tests hold them against the mask by brute force.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+template <typename T>
+constexpr bool kF32 = std::is_same<T, float>::value;
+
+// bf16 bit patterns widened to f32 (exact): the element at the lower
+// address of a 32-bit word is its low half
+__device__ __forceinline__ float4 widen4(uint2 u) {
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float widen1(const bf16* p) {
+  return __uint_as_float(
+      (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// v rounded to T (P's cast to v's dtype), kept as f32
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (kF32<T>)
+    return v;
+  else
+    return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 constexpr int BQ = 64;   // query rows of a block
 constexpr int NT = 128;  // threads of a block: 4 warps, 16 rows each
@@ -180,10 +225,63 @@ __device__ __forceinline__ void copy_tile(float* slot,
   }
 }
 
+// The same tile from bf16 rows, widened into the f32 slot through
+// registers: 8 rows a batch (loads first, then stores), so that a batch's
+// loads are in flight together and no more than 8 are held at a time.
+template <int DP, bool kVec>
+__device__ __forceinline__ void copy_tile(float* slot,
+                                          const bf16* __restrict__ src,
+                                          int64_t stride, int k0, int Sk,
+                                          int d) {
+  using RC = RowCopies<DP, kVec>;
+  constexpr int PER = RC::PER, STEP = RC::STEP, U = BKV / STEP;
+  constexpr int NB = U < 8 ? U : 8;
+  static_assert(U % NB == 0, "the batches tile a slot");
+  const int row0 = threadIdx.x / PER;
+  const int rows_left = Sk - k0 - row0;
+#pragma unroll
+  for (int cr = 0; cr < RC::CREP; ++cr) {
+    const int c = (threadIdx.x % PER + cr * PER) * (kVec ? 4 : 1);
+    const bool c_ok = c < d;
+    const bf16* p = src + (int64_t)(k0 + row0) * stride + c;
+    float* dst = slot + (row0 & 7) * k_group(DP) + (row0 >> 3) * DP + c;
+#pragma unroll 1
+    for (int u0 = 0; u0 < U; u0 += NB) {
+      if constexpr (kVec) {
+        uint2 t[NB];
+#pragma unroll
+        for (int u = 0; u < NB; ++u)
+          t[u] = c_ok && (u0 + u) * STEP < rows_left
+                     ? __ldg(reinterpret_cast<const uint2*>(
+                           p + (int64_t)(u0 + u) * STEP * stride))
+                     : make_uint2(0u, 0u);
+#pragma unroll
+        for (int u = 0; u < NB; ++u) {
+          const int uu = (u0 + u) * STEP;
+          *reinterpret_cast<float4*>(dst + (uu & 7) * k_group(DP) +
+                                     (uu >> 3) * DP) = widen4(t[u]);
+        }
+      } else {
+        float t[NB];
+#pragma unroll
+        for (int u = 0; u < NB; ++u)
+          t[u] = c_ok && (u0 + u) * STEP < rows_left
+                     ? widen1(p + (int64_t)(u0 + u) * STEP * stride)
+                     : 0.f;
+#pragma unroll
+        for (int u = 0; u < NB; ++u) {
+          const int uu = (u0 + u) * STEP;
+          dst[(uu & 7) * k_group(DP) + (uu >> 3) * DP] = t[u];
+        }
+      }
+    }
+  }
+}
+
 // Q's row `row` = q[q0 + row] * scale (even rows, then odd ones), zeros past
 // Sq or d
-template <int DP, bool kVec>
-__device__ __forceinline__ void load_q(float* Qs, const float* __restrict__ q,
+template <typename T, int DP, bool kVec>
+__device__ __forceinline__ void load_q(float* Qs, const T* __restrict__ q,
                                        int64_t stride, int q0, int Sq, int d,
                                        float scale) {
   using RC = RowCopies<DP, kVec>;
@@ -196,15 +294,24 @@ __device__ __forceinline__ void load_q(float* Qs, const float* __restrict__ q,
     for (int u = 0; u < BQ / STEP; ++u) {
       const int row = threadIdx.x / PER + u * STEP;
       const bool ok = q0 + row < Sq && c < d;
-      const float* p = q + (int64_t)(q0 + row) * stride + c;
+      const T* p = q + (int64_t)(q0 + row) * stride + c;
       float* dst = Qs + (row & 1) * q_half(DP) + (row >> 1) * DP + c;
-      if (kVec) {
+      if constexpr (kF32<T>) {
+        if (kVec) {
+          float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (ok) t = *reinterpret_cast<const float4*>(p);
+          t.x *= scale; t.y *= scale; t.z *= scale; t.w *= scale;
+          *reinterpret_cast<float4*>(dst) = t;
+        } else {
+          *dst = ok ? *p * scale : 0.f;
+        }
+      } else if (kVec) {  // 4 bf16, widened, then scaled in f32
         float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (ok) t = *reinterpret_cast<const float4*>(p);
+        if (ok) t = widen4(__ldg(reinterpret_cast<const uint2*>(p)));
         t.x *= scale; t.y *= scale; t.z *= scale; t.w *= scale;
         *reinterpret_cast<float4*>(dst) = t;
       } else {
-        *dst = ok ? *p * scale : 0.f;
+        *dst = ok ? widen1(p) * scale : 0.f;
       }
     }
   }
@@ -352,10 +459,10 @@ __host__ __device__ constexpr int blocks_per_sm(int dp) {
   return dp > 128 ? 1 : 2;
 }
 
-template <int DP, bool kVec>
+template <typename T, int DP, bool kVec>
 __global__ void __launch_bounds__(NT, blocks_per_sm(DP))
-    flash_swa_tile(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, float* __restrict__ o, int H,
+    flash_swa_tile(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, T* __restrict__ o, int H,
                    int KVH, int Sq, int Sk, int d, int64_t qsb, int64_t qss,
                    int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
                    int64_t vsb, int64_t vss, int64_t vsh, int64_t osb,
@@ -376,9 +483,9 @@ __global__ void __launch_bounds__(NT, blocks_per_sm(DP))
   const int bh = blockIdx.x, bi = bh / H, h = bh - bi * H;
   const int kh = h / (H / KVH);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const float* qb = q + bi * qsb + h * qsh;
-  const float* kb = k + bi * ksb + kh * ksh;
-  const float* vb = v + bi * vsb + kh * vsh;
+  const T* qb = q + bi * qsb + h * qsh;
+  const T* kb = k + bi * ksb + kh * ksh;
+  const T* vb = v + bi * vsb + kh * vsh;
   const float* Qa = Qs + rg * q_half(DP) + 4 * ba * DP;
   const float* Qb = Qs + rg * q_half(DP) + 4 * bb * DP;
   float* Pa = Ps + rg * P_HALF + 4 * ba * BKV;
@@ -401,7 +508,7 @@ __global__ void __launch_bounds__(NT, blocks_per_sm(DP))
   };
   if (steps > 0) issue(0);
   cp_async_commit();
-  load_q<DP, kVec>(Qs, qb, qss, q0, Sq, d, scale);
+  load_q<T, DP, kVec>(Qs, qb, qss, q0, Sq, d, scale);
 
   float m_i[8], l_i[8], acc[8][4 * CH];
 #pragma unroll
@@ -496,9 +603,10 @@ __global__ void __launch_bounds__(NT, blocks_per_sm(DP))
         l_i[r] = l_i[r] * corr[r] + red[r];
 #pragma unroll
         for (int c = 0; c < 4 * CH; ++c) acc[r][c] *= corr[r];
+        // P in v's dtype (bf16: rounded; l above summed it unrounded)
         float* pr = (r < 4 ? Pa : Pb) + (r & 3) * BKV + kg;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) pr[16 * j] = s[r][j];
+        for (int j = 0; j < 4; ++j) pr[16 * j] = round_to<T>(s[r][j]);
       }
     } else if (nja == 4 && njb == 4) {
       // ---- acc += P V on the thread's 8 rows x 4*CH columns
@@ -517,19 +625,35 @@ __global__ void __launch_bounds__(NT, blocks_per_sm(DP))
     const int qrow = q0 + row(r);
     if (qrow >= Sq) continue;
     const float l = fmaxf(l_i[r], 1e-30f);
-    float* out = o + bi * osb + h * osh + (int64_t)qrow * oss;
+    T* out = o + bi * osb + h * osh + (int64_t)qrow * oss;
 #pragma unroll
     for (int ch = 0; ch < CH; ++ch) {
       const int col = 64 * ch + kg * 4;
       const float* a = acc[r] + 4 * ch;
-      if (kVec) {
-        if (col < d)
-          *reinterpret_cast<float4*>(out + col) =
-              make_float4(a[0] / l, a[1] / l, a[2] / l, a[3] / l);
+      if constexpr (kF32<T>) {
+        if (kVec) {
+          if (col < d)
+            *reinterpret_cast<float4*>(out + col) =
+                make_float4(a[0] / l, a[1] / l, a[2] / l, a[3] / l);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (col + c < d) out[col + c] = a[c] / l;
+        }
+      } else if (kVec) {  // 4 bf16 in one 8-byte store
+        if (col < d) {
+          unsigned short e[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            e[c] = __bfloat16_as_ushort(__float2bfloat16_rn(a[c] / l));
+          *reinterpret_cast<uint2*>(out + col) =
+              make_uint2(e[0] | ((unsigned)e[1] << 16),
+                         e[2] | ((unsigned)e[3] << 16));
+        }
       } else {
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          if (col + c < d) out[col + c] = a[c] / l;
+          if (col + c < d) out[col + c] = __float2bfloat16_rn(a[c] / l);
       }
     }
   }
@@ -559,34 +683,53 @@ cudaError_t allow_smem(size_t bytes) {
   return err;
 }
 
-template <int DP, bool kVec>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   int B, int H, int KVH, int Sq, int Sk, int d,
-                   const int64_t* st, int causal, int window, float scale,
-                   cudaStream_t stream) {
+template <typename T, int DP, bool kVec>
+cudaError_t launch(const T* q, const T* k, const T* v, T* o, int B, int H,
+                   int KVH, int Sq, int Sk, int d, const int64_t* st,
+                   int causal, int window, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes(DP);
-  cudaError_t err = allow_smem<flash_swa_tile<DP, kVec>>(smem);
+  cudaError_t err = allow_smem<flash_swa_tile<T, DP, kVec>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Sq + BQ - 1) / BQ);
-  flash_swa_tile<DP, kVec><<<grid, NT, smem, stream>>>(
+  flash_swa_tile<T, DP, kVec><<<grid, NT, smem, stream>>>(
       q, k, v, o, H, KVH, Sq, Sk, d, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11], causal, window, scale);
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t run(const T* q, const T* k, const T* v, T* o, int B, int H,
+                int KVH, int Sq, int Sk, int d, const int64_t* strides,
+                int causal, int window, float scale, int vec,
+                cudaStream_t s) {
+  const int dp = d <= 64 ? 64 : d <= 128 ? 128 : 256;
+#define FLASH_SWA_LAUNCH(DP)                                                  \
+  (vec ? launch<T, DP, true>(q, k, v, o, B, H, KVH, Sq, Sk, d, strides,      \
+                             causal, window, scale, s)                       \
+       : launch<T, DP, false>(q, k, v, o, B, H, KVH, Sq, Sk, d, strides,     \
+                              causal, window, scale, s))
+  const cudaError_t err = dp == 64    ? FLASH_SWA_LAUNCH(64)
+                          : dp == 128 ? FLASH_SWA_LAUNCH(128)
+                                      : FLASH_SWA_LAUNCH(256);
+#undef FLASH_SWA_LAUNCH
+  return err;
+}
+
 }  // namespace
 
-// Launches on `stream`; returns a cudaError_t (0 = launched). `strides`
+// Launches on `stream`; returns a cudaError_t (0 = launched). q, k, v, o
+// are float (is_bf16 == 0) or __nv_bfloat16 (is_bf16 != 0). `strides`
 // holds 12 int64: (batch, position, head) strides of q, k, v and o, in
 // elements. vec != 0 promises d % 4 == 0, every stride % 4 == 0 and
-// 16-byte aligned pointers. d <= 256, H % KVH == 0. `smem` is the dynamic
-// shared memory in bytes that the caller computed for the launch: it must
-// equal this file's smem_bytes at the padded head dim (64, 128 or 256).
-extern "C" int flash_swa_launch(const float* q, const float* k, const float* v,
-                                float* o, int B, int H, int KVH, int Sq,
+// 16-byte (f32) or 8-byte (bf16) aligned pointers. d <= 256, H % KVH == 0.
+// `smem` is the dynamic shared memory in bytes that the caller computed for
+// the launch: it must equal this file's smem_bytes at the padded head dim
+// (64, 128 or 256), for either dtype.
+extern "C" int flash_swa_launch(const void* q, const void* k, const void* v,
+                                void* o, int B, int H, int KVH, int Sq,
                                 int Sk, int d, const int64_t* strides,
                                 int causal, int window, float scale, int vec,
-                                int smem, void* stream) {
+                                int smem, int is_bf16, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   const int dp = d <= 64 ? 64 : d <= 128 ? 128 : 256;
   if (Sk <= 0 || d <= 0 || d > 256 || KVH <= 0 || H % KVH != 0 ||
@@ -594,14 +737,11 @@ extern "C" int flash_swa_launch(const float* q, const float* k, const float* v,
       (size_t)smem != smem_bytes(dp))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_SWA_LAUNCH(DP)                                                  \
-  (vec ? launch<DP, true>(q, k, v, o, B, H, KVH, Sq, Sk, d, strides, causal, \
-                          window, scale, s)                                  \
-       : launch<DP, false>(q, k, v, o, B, H, KVH, Sq, Sk, d, strides,        \
-                           causal, window, scale, s))
-  const cudaError_t err = dp == 64    ? FLASH_SWA_LAUNCH(64)
-                          : dp == 128 ? FLASH_SWA_LAUNCH(128)
-                                      : FLASH_SWA_LAUNCH(256);
-#undef FLASH_SWA_LAUNCH
-  return (int)err;
+  if (is_bf16)
+    return (int)run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v), static_cast<bf16*>(o), B, H,
+                    KVH, Sq, Sk, d, strides, causal, window, scale, vec, s);
+  return (int)run(static_cast<const float*>(q), static_cast<const float*>(k),
+                  static_cast<const float*>(v), static_cast<float*>(o), B, H,
+                  KVH, Sq, Sk, d, strides, causal, window, scale, vec, s);
 }

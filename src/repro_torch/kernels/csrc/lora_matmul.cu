@@ -4,12 +4,28 @@
 // wrapper ops.lora_dense) of the JAX package. The serving path runs every
 // adapted q/k/v/o projection of prefill and decode through it.
 //
-// x (M, K), W (K, N), a (K, r), b (r, N), y (M, N): f32, row-major and
-// contiguous; r <= 64. Any M, N, K: ragged tiles are zero-filled on load
-// and masked on store (the TPU kernel zero-pads to its tiles).
+// x (M, K), W (K, N), a (K, r), b (r, N): all f32 or all bf16, row-major
+// and contiguous; y (M, N) f32 (the TPU kernel's out_shape); r <= 64. Any
+// M, N, K: ragged tiles are zero-filled on load and masked on store (the TPU
+// kernel zero-pads to its tiles).
 //
 // Arithmetic: IEEE f32 FMAs on CUDA cores. Hopper's tensor cores take f32
 // only as TF32, which the port keeps off, so this is a SIMT GEMM.
+//
+// bf16 (the reference's serving dtype): every kernel is a template on the
+// element type T. A bf16 x bf16 product is exact in f32, so bf16 operands
+// are widened to f32 as they are staged and the shared-memory layouts, FMA
+// loops and sums are f32's. As the TPU kernel, x@a is summed in f32 over
+// the whole K and rounded once to bf16 (b's dtype, round to nearest even)
+// before the epilogue multiplies it by b: in the tiled body where the
+// prepass writes it, in the split-K body after the cluster has folded the
+// chunks' partials. cp.async copies bytes and has no 2-byte form, so bf16
+// stages through registers where f32 uses cp.async (16-byte loads of 8 bf16
+// converted to two float4 in the tiled body; single elements elsewhere),
+// except for the split-K body's W and a streams, which cp.async 8 bytes (4
+// bf16) into the same 16-byte ring slots and widen them when a slot is
+// read. So bf16 keeps f32's shared memory (tiled_smem, splitk_smem) and
+// the wrapper's plan; the tiled body's bf16 loads are not asynchronous.
 //
 // Two bodies, picked by the caller from M:
 //
@@ -61,12 +77,56 @@
 // lora_matmul_error_bound states how far two evaluations may differ.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+template <typename T>
+constexpr bool kF32 = std::is_same<T, float>::value;
+
+// bf16 bit patterns widened to f32 (exact): the low and the high half of a
+// 32-bit word, which hold the element at the lower and the higher address
+__device__ __forceinline__ float bf16_lo(unsigned u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+__device__ __forceinline__ float4 widen4(uint2 u) {
+  return make_float4(bf16_lo(u.x), bf16_hi(u.x), bf16_lo(u.y), bf16_hi(u.y));
+}
+
+// one element, read through the read-only cache, as f32
+__device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg1(const bf16* p) {
+  return __uint_as_float(
+      (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
+// 4 consecutive elements (16-byte aligned f32, 8-byte aligned bf16) as f32
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float4 ldg4(const bf16* p) {
+  return widen4(__ldg(reinterpret_cast<const uint2*>(p)));
+}
+
+// v rounded to T (x@a's cast to b's dtype), kept as f32
+template <typename T>
+__device__ __forceinline__ float round_to(float v) {
+  if constexpr (kF32<T>)
+    return v;
+  else
+    return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 constexpr int kMaxRank = 64;
 
@@ -111,37 +171,61 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// 8 bytes (4 bf16) into the first half of a 16-byte slot; src_bytes 0
+// fills it with zeros and reads nothing
+__device__ __forceinline__ void cp_async8(float* dst, const bf16* src,
+                                          int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// One element into f32 shared memory, zero where !ok: f32 by a 4-byte
+// cp.async (`any` a valid address to name when !ok), bf16 through a
+// register, widened
+__device__ __forceinline__ void stage1(float* dst, const float* src,
+                                       const float* any, bool ok) {
+  cp_async4(dst, ok ? src : any, ok ? 4 : 0);
+}
+__device__ __forceinline__ void stage1(float* dst, const bf16* src,
+                                       const bf16*, bool ok) {
+  *dst = ok ? ldg1(src) : 0.f;
+}
+
 // The copies that fill one ring stage with a K slice: x rows [m0, m0+BM)
 // and W columns [n0, n0+BN). Each thread keeps two running source pointers
 // (advanced one slice a call) and its fixed shared-memory offsets, so a
 // copy costs an address add, not a 64-bit product: the loop's registers go
-// to the accumulators.
-template <bool kVec>
+// to the accumulators. A copy moves E elements: 16 bytes where kVec (4 f32
+// by cp.async; 8 bf16 by one load, widened into two float4), else one.
+template <typename T, bool kVec>
 struct SliceLoader {
-  // x: XV copies a row (16 or 4 bytes each), XR rows a pass, XU passes;
-  // W: WV copies a row, WR rows a pass, WU passes
-  static constexpr int XV = kVec ? BK / 4 : BK;
+  static constexpr int E = kVec ? 16 / (int)sizeof(T) : 1;
+  // x: XV copies a row, XR rows a pass, XU passes; W: WV copies a row, WR
+  // rows a pass, WU passes
+  static constexpr int XV = BK / E;
   static constexpr int XR = NT / XV, XU = BM / XR;
-  static constexpr int WV = kVec ? BN / 4 : BN;
+  static constexpr int WV = BN / E;
   static constexpr int WR = NT / WV, WU = BK / WR;
   static_assert(NT % XV == 0 && BM % XR == 0 && NT % WV == 0 && BK % WR == 0,
                 "the copies tile the stage exactly");
 
-  const float* __restrict__ x;
-  const float* xp;  // x + (m0 + xrow) * K + k0 + xk
-  const float* wp;  // w + (k0 + wrow) * N + n0 + wn
+  const T* __restrict__ x;
+  const T* xp;  // x + (m0 + xrow) * K + k0 + xk
+  const T* wp;  // w + (k0 + wrow) * N + n0 + wn
   int rows_left;    // M - m0 - xrow: pass u has a row iff u * XR < it
   int xk, wrow, xo, wo, K, N;
   bool wn_ok;
 
-  __device__ SliceLoader(const float* x_, const float* w, int M, int N_,
-                         int K_, int m0, int n0)
+  __device__ SliceLoader(const T* x_, const T* w, int M, int N_, int K_,
+                         int m0, int n0)
       : x(x_), K(K_), N(N_) {
     const int tid = threadIdx.x;
     const int xrow = tid / XV;
-    xk = (tid % XV) * (kVec ? 4 : 1);
+    xk = (tid % XV) * E;
     wrow = tid / WV;
-    const int wn = (tid % WV) * (kVec ? 4 : 1);
+    const int wn = (tid % WV) * E;
     xp = x + (size_t)(m0 + xrow) * K + xk;
     wp = w + (size_t)wrow * N + n0 + wn;
     rows_left = M - m0 - xrow;
@@ -150,12 +234,18 @@ struct SliceLoader {
     wo = wrow * BN + wn;
   }
 
-  __device__ __forceinline__ void copy(float* dst, const float* src,
+  __device__ __forceinline__ void copy(float* dst, const T* src,
                                        bool ok) const {
-    if (kVec)
+    if constexpr (kF32<T> && kVec) {
       cp_async16(dst, ok ? src : x, ok ? 16 : 0);
-    else
-      cp_async4(dst, ok ? src : x, ok ? 4 : 0);
+    } else if constexpr (kVec) {  // 8 bf16: two float4
+      uint4 u = make_uint4(0u, 0u, 0u, 0u);
+      if (ok) u = __ldg(reinterpret_cast<const uint4*>(src));
+      *reinterpret_cast<float4*>(dst) = widen4(make_uint2(u.x, u.y));
+      *reinterpret_cast<float4*>(dst + 4) = widen4(make_uint2(u.z, u.w));
+    } else {
+      stage1(dst, src, x, ok);
+    }
   }
 
   // slice k0 into stage; slices come in order, k0 = 0, BK, 2 BK, ...
@@ -175,10 +265,10 @@ struct SliceLoader {
 };
 
 // y = x @ w + scale * xa @ b, xa = x @ a from the prepass (unread if r = 0)
-template <bool kVec>
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(NT, 1)
-    lora_mm_tiled(const float* __restrict__ x, const float* __restrict__ w,
-                  const float* __restrict__ xa, const float* __restrict__ b,
+    lora_mm_tiled(const T* __restrict__ x, const T* __restrict__ w,
+                  const float* __restrict__ xa, const T* __restrict__ b,
                   float* __restrict__ y, int M, int N, int K, int r,
                   float scale) {
   extern __shared__ float4 smem4[];
@@ -210,11 +300,10 @@ __global__ void __launch_bounds__(NT, 1)
   if (r > 0) {  // b's panel, with the first slice's copies
     for (int idx = tid; idx < r * BN; idx += NT) {
       const int n = n0 + (idx & (BN - 1));
-      const bool ok = n < N;
-      cp_async4(bs + idx, ok ? b + (size_t)(idx / BN) * N + n : b, ok ? 4 : 0);
+      stage1(bs + idx, b + (size_t)(idx / BN) * N + n, b, n < N);
     }
   }
-  SliceLoader<kVec> load(x, w, M, N, K, m0, n0);
+  SliceLoader<T, kVec> load(x, w, M, N, K, m0, n0);
   const int nk = (K + BK - 1) / BK;
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
@@ -318,8 +407,9 @@ constexpr int XA_THREADS = 256;
 // for all 16 rows, so the block reads each x row in 4 KB runs and the grid
 // reads x once at close to the card's memory rate. No barrier until the
 // sums over the warp's lanes (butterfly) and the 8 warps (shared memory).
+template <typename T>
 __global__ void __launch_bounds__(XA_THREADS)
-    lora_mm_xa4(const float* __restrict__ x, const float* __restrict__ a,
+    lora_mm_xa4(const T* __restrict__ x, const T* __restrict__ a,
                 float* __restrict__ xa, int M, int K, int r) {
   constexpr int RB = 16, RC = 4;
   // the GEMM grid may launch now: it reads x@a only after griddepcontrol.wait
@@ -339,12 +429,11 @@ __global__ void __launch_bounds__(XA_THREADS)
     for (int q = 0; q < 4; ++q)
 #pragma unroll
       for (int c = 0; c < RC; ++c)
-        av[q][c] = c < r ? __ldg(a + (size_t)(k + q) * r + c) : 0.f;
+        av[q][c] = c < r ? ldg1(a + (size_t)(k + q) * r + c) : 0.f;
 #pragma unroll
     for (int i = 0; i < RB; ++i) {
       float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (i < rows)
-        t = __ldg(reinterpret_cast<const float4*>(x + (size_t)(m0 + i) * K + k));
+      if (i < rows) t = ldg4(x + (size_t)(m0 + i) * K + k);
       const float xv[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
       for (int q = 0; q < 4; ++q)
@@ -368,7 +457,7 @@ __global__ void __launch_bounds__(XA_THREADS)
       float t = 0.f;
 #pragma unroll
       for (int w8 = 0; w8 < XA_THREADS / 32; ++w8) t += part[w8][tid];
-      xa[(size_t)(m0 + i) * r + c] = t;
+      xa[(size_t)(m0 + i) * r + c] = round_to<T>(t);
     }
   }
 }
@@ -381,8 +470,9 @@ __global__ void __launch_bounds__(XA_THREADS)
 // x and 8 of a, read without bank conflicts, for 32 FMAs.
 constexpr int XW_ROWS = 32, XW_KC = 32, XW_XP = XW_KC + 4;
 
+template <typename T>
 __global__ void __launch_bounds__(XA_THREADS)
-    lora_mm_xa64(const float* __restrict__ x, const float* __restrict__ a,
+    lora_mm_xa64(const T* __restrict__ x, const T* __restrict__ a,
                  float* __restrict__ xa, int M, int K, int r) {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
   __shared__ __align__(16) float xs[2][XW_ROWS * XW_XP];
@@ -394,16 +484,14 @@ __global__ void __launch_bounds__(XA_THREADS)
     for (int u = 0; u < XW_ROWS * XW_KC / XA_THREADS; ++u) {
       const int idx = tid + u * XA_THREADS, row = idx / XW_KC,
                 kk = idx % XW_KC, m = m0 + row, k = k0 + kk;
-      const bool ok = m < M && k < K;
-      cp_async4(&xs[s][row * XW_XP + kk], ok ? x + (size_t)m * K + k : x,
-                ok ? 4 : 0);
+      stage1(&xs[s][row * XW_XP + kk], x + (size_t)m * K + k, x,
+             m < M && k < K);
     }
 #pragma unroll
     for (int u = 0; u < XW_KC * kMaxRank / XA_THREADS; ++u) {
       const int idx = tid + u * XA_THREADS, kk = idx / kMaxRank,
                 c = idx % kMaxRank, k = k0 + kk;
-      const bool ok = c < r && k < K;
-      cp_async4(&as[s][idx], ok ? a + (size_t)k * r + c : a, ok ? 4 : 0);
+      stage1(&as[s][idx], a + (size_t)k * r + c, a, c < r && k < K);
     }
     cp_async_commit();
   };
@@ -439,7 +527,7 @@ __global__ void __launch_bounds__(XA_THREADS)
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = (j < 4 ? 4 * g : 32 + 4 * g) + (j & 3);
-      if (c < r) xa[(size_t)m * r + c] = acc[j];
+      if (c < r) xa[(size_t)m * r + c] = round_to<T>(acc[j]);
     }
   }
 }
@@ -487,7 +575,9 @@ size_t splitk_smem(int mr, int kc, int M, int r, int bn) {
 }
 
 // copies 4 consecutive columns [c, c + 4) of a row into a 16-byte slot,
-// zero past `ncol`
+// zero past `ncol`: f32 as it is (one 16-byte or four 4-byte cp.async), bf16
+// as its 8 bytes in the slot's first half (one 8-byte cp.async, or four
+// 2-byte loads through registers)
 template <bool kVec>
 __device__ __forceinline__ void copy4(float* slot, const float* p, int c,
                                       int ncol) {
@@ -497,6 +587,29 @@ __device__ __forceinline__ void copy4(float* slot, const float* p, int c,
 #pragma unroll
     for (int i = 0; i < 4; ++i) cp_async4(slot + i, p + i, c + i < ncol ? 4 : 0);
   }
+}
+template <bool kVec>
+__device__ __forceinline__ void copy4(float* slot, const bf16* p, int c,
+                                      int ncol) {
+  if (kVec) {
+    cp_async8(slot, p, c < ncol ? 8 : 0);
+  } else {
+    const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+    unsigned e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = c + i < ncol ? __ldg(h + i) : 0u;
+    *reinterpret_cast<uint2*>(slot) =
+        make_uint2(e[0] | (e[1] << 16), e[2] | (e[3] << 16));
+  }
+}
+
+// a ring slot's 4 columns as f32
+template <typename T>
+__device__ __forceinline__ float4 read_slot(const float* slot) {
+  if constexpr (kF32<T>)
+    return *reinterpret_cast<const float4*>(slot);
+  else
+    return widen4(*reinterpret_cast<const uint2*>(slot));
 }
 
 // acc[m][c] += x[m] * v[c] for the MR rows of one staged x row
@@ -517,12 +630,14 @@ __device__ __forceinline__ void fma_row(float (&acc)[MR][4], const float* xr,
   }
 }
 
-template <int MR, bool kVec>
+// avec (bf16 only; false for f32, whose a warp takes 4-byte copies): a's
+// rows take 8-byte copies (r % 4 == 0, a 8-byte aligned)
+template <typename T, int MR, bool kVec>
 __global__ void __launch_bounds__(SK_THREADS, MR == 8 ? 2 : 1)
-    lora_mm_splitk(const float* __restrict__ x, const float* __restrict__ w,
-                   const float* __restrict__ a, const float* __restrict__ b,
+    lora_mm_splitk(const T* __restrict__ x, const T* __restrict__ w,
+                   const T* __restrict__ a, const T* __restrict__ b,
                    float* __restrict__ y, int M, int N, int K, int r,
-                   float scale, int kc, int bn) {
+                   float scale, int kc, int bn, bool avec) {
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 smem4[];
   const int xk = sk_xk(MR, kc);
@@ -549,9 +664,9 @@ __global__ void __launch_bounds__(SK_THREADS, MR == 8 ? 2 : 1)
   const int c = wthread ? n0 + 4 * g : 4 * g;  // first column of the group
   const int ncol = wthread ? N : r;
   const size_t ld = wthread ? (size_t)N : (size_t)r;
-  const float* base = wthread ? w + n0 + 4 * g : a + 4 * g;
+  const T* base = wthread ? w + n0 + 4 * g : a + 4 * g;
   const bool active = wthread || 4 * g < r;
-  const bool vec = wthread && kVec;
+  const bool vec = wthread ? kVec : avec;
   float* slot0 = ring + 4 * tid;  // slot d at slot0 + d * 4 * SK_THREADS
   const int npair = M * r;
 
@@ -567,20 +682,18 @@ __global__ void __launch_bounds__(SK_THREADS, MR == 8 ? 2 : 1)
     // group 0: x's rows (and, once, b's panel)
     for (int i = tid; i < MR * len; i += SK_THREADS) {
       const int m = i / len, kk = i - m * len;
-      const bool ok = m < M;
-      cp_async4(xs + kk * MR + m, ok ? x + (size_t)m * K + k0 + sub + kk : x,
-                ok ? 4 : 0);
+      stage1(xs + kk * MR + m, x + (size_t)m * K + k0 + sub + kk, x, m < M);
     }
     if (sub == 0) {
       for (int i = tid; i < r * bn; i += SK_THREADS) {
         const int j = i / bn, nn = n0 + i - j * bn;
-        cp_async4(bs + i, nn < N ? b + (size_t)j * N + nn : b, nn < N ? 4 : 0);
+        stage1(bs + i, b + (size_t)j * N + nn, b, nn < N);
       }
     }
     cp_async_commit();
     // groups 1..D: this thread's first D rows
     const int nrows = active && q < len ? (len - q + rl - 1) / rl : 0;
-    const float* p = base + (size_t)(k0 + sub + q) * ld;
+    const T* p = base + (size_t)(k0 + sub + q) * ld;
     const size_t step = (size_t)rl * ld;
 #pragma unroll
     for (int d = 0; d < SK_D; ++d) {
@@ -598,7 +711,7 @@ __global__ void __launch_bounds__(SK_THREADS, MR == 8 ? 2 : 1)
     for (int i = 0; i < nrows; ++i) {
       cp_async_wait<SK_D - 1>();  // row i's group
       float* slot = slot0 + (i % SK_D) * 4 * SK_THREADS;
-      const float4 v = *reinterpret_cast<const float4*>(slot);
+      const float4 v = read_slot<T>(slot);
       fma_row<MR>(acc, xr, v);
       xr += rl * MR;
       if (i + SK_D < nrows) {
@@ -643,7 +756,7 @@ __global__ void __launch_bounds__(SK_THREADS, MR == 8 ? 2 : 1)
   for (int pr = tid; pr < npair; pr += SK_THREADS) {  // x@a over the whole K
     float t = cluster.map_shared_rank(xa, 0)[pr];
     for (int cc = 1; cc < cs; ++cc) t += cluster.map_shared_rank(xa, cc)[pr];
-    xat[pr] = t;
+    xat[pr] = round_to<T>(t);  // once, after the whole K
   }
   __syncthreads();
   // this block's slice of the column block's outputs, summed over the
@@ -679,13 +792,13 @@ cudaError_t allow_smem(size_t bytes) {
   return err;
 }
 
-template <int MR, bool kVec>
-cudaError_t launch_splitk(const float* x, const float* w, const float* a,
-                          const float* b, float* y, int M, int N, int K, int r,
-                          float scale, int splits, int kc, int bn,
+template <typename T, int MR, bool kVec>
+cudaError_t launch_splitk(const T* x, const T* w, const T* a, const T* b,
+                          float* y, int M, int N, int K, int r, float scale,
+                          int splits, int kc, int bn, bool avec,
                           cudaStream_t st) {
   const size_t smem = splitk_smem(MR, kc, M, r, bn);
-  cudaError_t err = allow_smem<lora_mm_splitk<MR, kVec>>(smem);
+  cudaError_t err = allow_smem<lora_mm_splitk<T, MR, kVec>>(smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)((N + bn - 1) / bn), (unsigned)splits);
@@ -699,43 +812,30 @@ cudaError_t launch_splitk(const float* x, const float* w, const float* a,
   cluster[0].val.clusterDim.z = 1;
   cfg.attrs = cluster;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, lora_mm_splitk<MR, kVec>, x, w, a, b, y, M,
-                           N, K, r, scale, kc, bn);
+  err = cudaLaunchKernelEx(&cfg, lora_mm_splitk<T, MR, kVec>, x, w, a, b, y,
+                           M, N, K, r, scale, kc, bn, avec);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Launches on `stream`; returns a cudaError_t (0 = launched).
-//
-// splits == 0 -> the tiled body, `work` holding M * r floats (x@a; unused
-// and may be null when r == 0); vec != 0 promises K % 4 == 0, N % 4 == 0
-// and 16-byte aligned x and w. splits > 0 -> the split-K body (M <= 16):
-// a cluster of `splits` <= 8 K chunks of kc rows (splits * kc >= K, no
-// empty chunk) per column block of bn (32, 64 or 128) columns, no `work`;
-// vec != 0 promises N % 4 == 0 and a 16-byte aligned w.
-extern "C" int lora_matmul_launch(const float* x, const float* w,
-                                  const float* a, const float* b, float* y,
-                                  float* work, int M, int N, int K, int r,
-                                  float scale, int splits, int kc, int bn,
-                                  int vec, void* stream) {
-  if (M <= 0 || N <= 0) return 0;
-  if (K <= 0 || r < 0 || r > kMaxRank) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+template <typename T>
+cudaError_t run(const T* x, const T* w, const T* a, const T* b, float* y,
+                float* work, int M, int N, int K, int r, float scale,
+                int splits, int kc, int bn, int vec, cudaStream_t st) {
   cudaError_t err;
   if (splits == 0) {
-    if (r > 0 && work == nullptr) return (int)cudaErrorInvalidValue;
+    if (r > 0 && work == nullptr) return cudaErrorInvalidValue;
     const long long tiles =
         (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-    if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
     if (r > 0) {
       if (r <= 4 && vec)
-        lora_mm_xa4<<<(M + 15) / 16, XA_THREADS, 0, st>>>(x, a, work, M, K, r);
+        lora_mm_xa4<T><<<(M + 15) / 16, XA_THREADS, 0, st>>>(x, a, work, M, K,
+                                                             r);
       else
-        lora_mm_xa64<<<(M + XW_ROWS - 1) / XW_ROWS, XA_THREADS, 0, st>>>(
+        lora_mm_xa64<T><<<(M + XW_ROWS - 1) / XW_ROWS, XA_THREADS, 0, st>>>(
             x, a, work, M, K, r);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      if ((err = cudaGetLastError()) != cudaSuccess) return err;
     }
     // the GEMM grid may start while the prepass runs (it waits for x@a with
     // griddepcontrol.wait near its end); without r there is no prepass
@@ -751,28 +851,61 @@ extern "C" int lora_matmul_launch(const float* x, const float* w,
     cfg.attrs = pdl;
     cfg.numAttrs = r > 0 ? 1 : 0;
     if (vec) {
-      if ((err = allow_smem<lora_mm_tiled<true>>(smem)) != cudaSuccess) return (int)err;
-      err = cudaLaunchKernelEx(&cfg, lora_mm_tiled<true>, x, w,
+      if ((err = allow_smem<lora_mm_tiled<T, true>>(smem)) != cudaSuccess) return err;
+      err = cudaLaunchKernelEx(&cfg, lora_mm_tiled<T, true>, x, w,
                                (const float*)work, b, y, M, N, K, r, scale);
     } else {
-      if ((err = allow_smem<lora_mm_tiled<false>>(smem)) != cudaSuccess) return (int)err;
-      err = cudaLaunchKernelEx(&cfg, lora_mm_tiled<false>, x, w,
+      if ((err = allow_smem<lora_mm_tiled<T, false>>(smem)) != cudaSuccess) return err;
+      err = cudaLaunchKernelEx(&cfg, lora_mm_tiled<T, false>, x, w,
                                (const float*)work, b, y, M, N, K, r, scale);
     }
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
   }
   if (M > 16 || splits > SK_MAX_CLUSTER || kc <= 0 ||
       (long long)splits * kc < K || (long long)(splits - 1) * kc >= K ||
       (bn != 32 && bn != 64 && bn != 128))
-    return (int)cudaErrorInvalidValue;
+    return cudaErrorInvalidValue;
+  const bool avec = !kF32<T> && (vec & 2);
   if (M <= 8)
-    return (int)(vec ? launch_splitk<8, true>(x, w, a, b, y, M, N, K, r, scale,
-                                               splits, kc, bn, st)
-                     : launch_splitk<8, false>(x, w, a, b, y, M, N, K, r, scale,
-                                                splits, kc, bn, st));
-  return (int)(vec ? launch_splitk<16, true>(x, w, a, b, y, M, N, K, r, scale,
-                                              splits, kc, bn, st)
-                   : launch_splitk<16, false>(x, w, a, b, y, M, N, K, r, scale,
-                                               splits, kc, bn, st));
+    return (vec & 1) ? launch_splitk<T, 8, true>(x, w, a, b, y, M, N, K, r,
+                                                 scale, splits, kc, bn, avec, st)
+                     : launch_splitk<T, 8, false>(x, w, a, b, y, M, N, K, r,
+                                                  scale, splits, kc, bn, avec, st);
+  return (vec & 1) ? launch_splitk<T, 16, true>(x, w, a, b, y, M, N, K, r,
+                                                scale, splits, kc, bn, avec, st)
+                   : launch_splitk<T, 16, false>(x, w, a, b, y, M, N, K, r,
+                                                 scale, splits, kc, bn, avec, st);
+}
+
+}  // namespace
+
+// Launches on `stream`; returns a cudaError_t (0 = launched). x, w, a, b
+// are float (is_bf16 == 0) or __nv_bfloat16 (is_bf16 != 0); y and work f32.
+//
+// splits == 0 -> the tiled body, `work` holding M * r floats (x@a; unused
+// and may be null when r == 0); vec != 0 promises 16-byte aligned x and w
+// and K % 4 == 0, N % 4 == 0 (f32) or K % 8 == 0, N % 8 == 0 (bf16).
+// splits > 0 -> the split-K body (M <= 16): a cluster of `splits` <= 8 K
+// chunks of kc rows (splits * kc >= K, no empty chunk) per column block of
+// bn (32, 64 or 128) columns, no `work`; bit 0 of vec promises N % 4 == 0
+// and a 16-byte (f32) or 8-byte (bf16) aligned w; bit 1 (bf16 only) r % 4
+// == 0 and an 8-byte aligned a.
+extern "C" int lora_matmul_launch(const void* x, const void* w, const void* a,
+                                  const void* b, float* y, float* work, int M,
+                                  int N, int K, int r, float scale, int splits,
+                                  int kc, int bn, int vec, int is_bf16,
+                                  void* stream) {
+  if (M <= 0 || N <= 0) return 0;
+  if (K <= 0 || r < 0 || r > kMaxRank) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return (int)run(static_cast<const __nv_bfloat16*>(x),
+                    static_cast<const __nv_bfloat16*>(w),
+                    static_cast<const __nv_bfloat16*>(a),
+                    static_cast<const __nv_bfloat16*>(b), y, work, M, N, K, r,
+                    scale, splits, kc, bn, vec, st);
+  return (int)run(static_cast<const float*>(x), static_cast<const float*>(w),
+                  static_cast<const float*>(a), static_cast<const float*>(b), y,
+                  work, M, N, K, r, scale, splits, kc, bn, vec, st);
 }

@@ -24,17 +24,26 @@ layer): one launch a layer.
   Bound on the card: operations, 4·d FLOPs per visible (query, key) pair.
 * Plain versions: :func:`flash_swa_plain` is the materialised oracle
   ``ref.flash_swa_ref`` (softmax in f32); :func:`swa_attention_plain` the
-  same per GQA group on (B, S, H, D). The CPU path and the tests use them;
-  nothing on the card's main path does.
+  same per GQA group on (B, S, H, D). In bf16 both follow the TPU kernel's
+  casts: q widened and scaled in f32, p = exp(s − row max) rounded to v's
+  dtype before the PV product while l sums it unrounded, the output
+  rounded to q's dtype. The CPU path and the tests use them; nothing on
+  the card's main path does. :func:`swa_error_bound` states how far two
+  evaluations may differ.
 * :func:`flash_swa` (BH, S, D) and :func:`swa_attention` (B, S, H, D) are
   the wrappers: each launches the kernel for CUDA tensors (counting
-  ``flash_swa.launches``), raises on a failed launch, and takes the plain
-  version only for CPU tensors. :func:`swa_attention` reads query head h's
+  ``flash_swa.launches``, the bf16 ones also in ``bf16_launches``),
+  raises on a failed launch, and takes the plain version only for CPU
+  tensors. :func:`swa_attention` reads query head h's
   K/V head h // (H/KVH) in place through strides — the reference's
   ``jnp.repeat`` map with no copy of K and V.
 
-Forward only: an input that requires grad is refused. f32 only (the JAX
-kernel also takes bf16, not ported); head dim ≤ 256.
+Forward only: an input that requires grad is refused. q, k and v are all
+float32 or all bfloat16 (the reference's serving dtype), the output in
+their dtype (the TPU kernel's out_shape is q's); a mix, which the JAX
+kernel also takes, is refused (ROADMAP), as is any other dtype. Head dim
+≤ 256. bf16 tiles are widened to f32 on their way into shared memory, so
+the kernel's tiles, shared memory and band rules are f32's.
 """
 
 from __future__ import annotations
@@ -50,6 +59,9 @@ MAX_HEAD_DIM = 256  # shared memory: one block of 64 query rows an SM
 BQ = 64             # query rows of a block
 BKV = 64            # keys of a KV tile
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may take (sm_90)
+DTYPES = (torch.float32, torch.bfloat16)
+F32_TOL = (2e-5, 4e-5)  # (rtol, atol): two f32 evaluations, unit-scale inputs
+BF16_ULP = 2.0 ** -7    # a bf16 ulp relative to the value, at most
 
 
 def _smem_bytes(dp: int) -> int:
@@ -125,7 +137,11 @@ def _mask(sq: int, sk: int, causal: bool, window: int,
 def flash_swa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """Materialised attention oracle (``ref.flash_swa_ref``): q, k, v
-    (BH, S, D) → (BH, Sq, D) f32."""
+    (BH, S, D) → (BH, Sq, D) f32; bf16 inputs give the bf16 kernel's
+    function (:func:`swa_attention_plain`), in bf16."""
+    if q.dtype == torch.bfloat16:
+        return swa_attention_plain(q[:, :, None], k[:, :, None],
+                                   v[:, :, None], causal, window)[:, :, 0]
     sq, d = q.shape[1], q.shape[2]
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * d ** -0.5
     s = s.masked_fill(~_mask(sq, k.shape[1], causal, window, q.device)[None],
@@ -137,9 +153,22 @@ def flash_swa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def swa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0) -> torch.Tensor:
     """:func:`flash_swa_plain` per GQA group: q (B, Sq, H, D), k, v
-    (B, Sk, KVH, D) → (B, Sq, H, D) in q's dtype."""
+    (B, Sk, KVH, D) → (B, Sq, H, D) in q's dtype. With bf16 inputs the TPU
+    kernel's casts: q widened and scaled in f32, p = exp(s − m) (m the
+    row's max) rounded to v's dtype before PV, l the sum of the unrounded
+    p clamped at 1e-30, out = (p @ v) / l rounded to q's dtype."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
+    if q.dtype == torch.bfloat16:
+        qg = (q.float() * d ** -0.5).reshape(b, sq, kvh, h // kvh, d)
+        s = torch.einsum("bqkgd,bckd->bkgqc", qg, k.float())
+        s = s.masked_fill(~_mask(sq, sk, causal, window, q.device), NEG_INF)
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        l = torch.clamp(p.sum(dim=-1), min=1e-30)
+        out = torch.einsum("bkgqc,bckd->bqkgd", p.to(v.dtype).float(),
+                           v.float())
+        out = out / l.permute(0, 3, 1, 2)[..., None]
+        return out.reshape(b, sq, h, d).to(q.dtype)
     qg = q.float().reshape(b, sq, kvh, h // kvh, d)
     s = torch.einsum("bqkgd,bckd->bkgqc", qg, k.float()) * d ** -0.5
     s = s.masked_fill(~_mask(sq, sk, causal, window, q.device), NEG_INF)
@@ -148,11 +177,47 @@ def swa_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
+def swa_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Elementwise bound (B, Sq, H, D), f32, on how far two evaluations of
+    :func:`swa_attention` (q (B, Sq, H, D), k, v (B, Sk, KVH, D)) may
+    differ: the kernel and its plain version, or either and the TPU kernel.
+
+    With A = P@|v| (P the f32 softmax; A ≥ |out|): f32 inputs
+    ``atol + rtol·A`` (``F32_TOL``, the reference's f32 tolerance, which
+    the f32 checks state as atol + rtol·|want|). bf16 inputs add
+    * P's rounding: each evaluation rounds every p to bf16, off by at most
+      half an ulp ≤ 2⁻⁸·p, relative to its own running max (64-key tiles
+      here, 256-key blocks in the TPU kernel, the row's max in the plain
+      version); dividing by l makes it 2⁻⁸·P@|v| in each, 2·2⁻⁸·A
+      between two;
+    * the output's rounding: two f32 outputs that differ in the last bits
+      may round to neighbouring bf16 values, one ulp ≤ 2⁻⁷·A apart.
+    So ``atol + (rtol + 2⁻⁶)·A`` in bf16. q and k are exact in f32 and
+    their products too, so the scores add no term."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, kvh, h // kvh, d)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg, k.float()) * d ** -0.5
+    s = s.masked_fill(~_mask(sq, sk, causal, window, q.device), NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    mag = torch.einsum("bkgqc,bckd->bqkgd", p, v.float().abs())
+    mag = mag.reshape(b, sq, h, d)
+    rtol, atol = F32_TOL
+    if q.dtype == torch.bfloat16:
+        rtol += 2 * BF16_ULP
+    return atol + rtol * mag
+
+
 def _check(name: str, q, k, v, ndim: int) -> None:
     for arg, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} must be float32, got {t.dtype} "
-                            "(the bf16 variant is not ported)")
+        if t.dtype not in DTYPES:
+            raise TypeError(f"{name}: {arg} must be float32 or bfloat16, "
+                            f"got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: {arg} is {t.dtype}, q is {q.dtype}: "
+                            "q, k and v share one dtype (a mix is not "
+                            "ported)")
         if t.device != q.device:
             raise ValueError(f"{name}: {arg} on {t.device}, q on {q.device}")
         if t.requires_grad:
@@ -189,8 +254,10 @@ def _launch(name, q, k, v, out, b, h, kvh, strides, causal, window):
     _, smem = _plan(name, b, h, d)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError(f"{name}: the head dim must be contiguous")
+    low = q.dtype == torch.bfloat16
+    align = 8 if low else 16  # bytes of a 4-element copy
     vec = int(d % 4 == 0 and all(s % 4 == 0 for s in strides)
-              and all(t.data_ptr() % 16 == 0 for t in (q, k, v, out)))
+              and all(t.data_ptr() % align == 0 for t in (q, k, v, out)))
     lib = load_library()
     st = (ctypes.c_int64 * 12)(*strides)
     with torch.cuda.device(q.device):
@@ -198,19 +265,22 @@ def _launch(name, q, k, v, out, b, h, kvh, strides, causal, window):
         code = lib.flash_swa_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
             kvh, sq, sk, d, st, int(bool(causal)), int(window),
-            float(d ** -0.5), vec, smem, stream)
+            float(d ** -0.5), vec, smem, int(low), stream)
     check_launch(name, code)
     flash_swa.launches += 1
+    if low:
+        flash_swa.bf16_launches += 1
     return out
 
 
 def flash_swa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q, k, v (BH, S, D) f32 → a new (BH, Sq, D) f32 attention output."""
+    """q, k, v (BH, S, D), all f32 or all bf16 → a new (BH, Sq, D)
+    attention output in their dtype."""
     _check("flash_swa", q, k, v, 3)
     if q.device.type == "cpu":
         return flash_swa_plain(q, k, v, causal, window)
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = (q.stride(0), q.stride(1), 0, k.stride(0), k.stride(1), 0,
                v.stride(0), v.stride(1), 0, out.stride(0), out.stride(1), 0)
     return _launch("flash_swa", q, k, v, out, q.shape[0], 1, 1, strides,
@@ -219,8 +289,9 @@ def flash_swa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q (B, Sq, H, D), k, v (B, Sk, KVH, D) f32 → a new (B, Sq, H, D) f32
-    output; query head h attends with K/V head h // (H/KVH)."""
+    """q (B, Sq, H, D), k, v (B, Sk, KVH, D), all f32 or all bf16 → a new
+    (B, Sq, H, D) output in their dtype; query head h attends with K/V head
+    h // (H/KVH)."""
     _check("swa_attention", q, k, v, 4)
     b, _, h, _ = q.shape
     kvh = k.shape[2]
@@ -228,7 +299,7 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"swa_attention: {h} query heads over {kvh} KV heads")
     if q.device.type == "cpu":
         return swa_attention_plain(q, k, v, causal, window)
-    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                *out.stride()[:3])
     return _launch("swa_attention", q, k, v, out, b, h, kvh, strides, causal,
@@ -236,3 +307,4 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_swa.launches = 0
+flash_swa.bf16_launches = 0  # the bf16 share of ``launches``

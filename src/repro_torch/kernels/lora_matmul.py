@@ -17,22 +17,30 @@ projection through :func:`lora_dense`: 4 launches a layer.
   through distributed shared memory and add the adapter term; bound by
   bytes (W read once). :func:`_split_plan` sizes the chunks and bn (cached
   per shape and SM count), :func:`_work_floats` the tiled body's work
-  buffer (the split-K body needs none).
+  buffer (the split-K body needs none). bf16 operands (serving's dtype) are
+  widened to f32 as they are staged, into the same shared memory and
+  plan; x@a is rounded to bf16 once, after the whole K, as the TPU kernel
+  casts it to b's dtype.
 * Plain version :func:`lora_matmul_plain`: the reference oracle
-  ``ref.lora_matmul_ref``'s order, ``x@w + scale·((x@a)@b)`` in f32. The CPU
-  path and the tests use it; nothing on the card's main path does.
+  ``ref.lora_matmul_ref``'s order, ``x@w + scale·((x@a)@b)`` in f32; with
+  bf16 operands the TPU kernel's casts (x@a rounded once to b's dtype
+  before the product with b; every sum in f32). The CPU path and the tests
+  use it; nothing on the card's main path does.
 * :func:`lora_matmul` is the wrapper (2-D operands): it launches the kernel
   for CUDA tensors (counting ``lora_matmul.launches``, one per call: the
   tiled body's prepass and GEMM grids are one launch of the kernel),
   raises on a failed launch, and takes the plain version only for CPU
-  tensors. Its launch path is lean, since decode calls it 112 times a step
+  tensors (``lora_matmul.bf16_launches`` counts the bf16 ones among
+  them). Its launch path is lean, since decode calls it 112 times a step
   at paper-llama3.2-3b depth: the checks are one combined test, the plan
   and the SM count are cached, and no work buffer is allocated for decode.
   :func:`lora_dense` flattens leading dims around it, as ``ops.lora_dense``.
 
 Forward only (the reference's kernel has no VJP): an input that requires
-grad is refused. f32 only: the JAX kernel also takes bf16, which is not
-ported (ROADMAP).
+grad is refused. The operands are all float32 or all bfloat16 (the
+reference's serving dtype; the output is float32 either way, as the TPU
+kernel's); a mix of the two, which the JAX kernel also takes, is refused
+(ROADMAP), as is any other dtype.
 """
 
 from __future__ import annotations
@@ -48,15 +56,23 @@ from repro_torch.kernels.build import check_launch, load_library
 MAX_RANK = 64       # shared memory: the tiled body keeps (128, r) x@a
 SKINNY_ROWS = 16    # M at or below → the split-K body
 _U = 2.0 ** -24     # f32 unit roundoff
+BF16_ULP = 2.0 ** -7  # a bf16 ulp relative to the value, at most
+DTYPES = (torch.float32, torch.bfloat16)
 
 
 def lora_matmul_plain(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                       b: torch.Tensor, scale: float) -> torch.Tensor:
     """x (M, K), w (K, N), a (K, r), b (r, N) → (M, N) f32:
-    ``x@w + scale·((x@a)@b)`` (``ref.lora_matmul_ref``)."""
+    ``x@w + scale·((x@a)@b)`` (``ref.lora_matmul_ref``); for a bf16 ``b``
+    x@a is rounded to bf16 first, as the TPU kernel casts it to b's
+    dtype."""
+    low = b.dtype == torch.bfloat16
     x, w, a, b = x.float(), w.float(), a.float(), b.float()
     base = torch.matmul(x, w)
-    adapter = torch.matmul(torch.matmul(x, a), b)
+    xa = torch.matmul(x, a)
+    if low:
+        xa = xa.to(torch.bfloat16).float()
+    adapter = torch.matmul(xa, b)
     return base + scale * adapter
 
 
@@ -72,20 +88,35 @@ def lora_matmul_error_bound(x: torch.Tensor, w: torch.Tensor,
     is within (K + r + 4)·u·M of the exact value, with
     M = |x|@|w| + |scale|·(|x|@|a|)@|b|. Two evaluations are within twice
     that (as the folds' bounds in ``fedex_residual.py``).
+
+    bf16 operands add one term. Their products are exact in f32, so the f32
+    terms stand; but each evaluation rounds its f32 x@a (t) to bf16 once,
+    off by at most half an ulp, and an ulp is at most 2⁻⁷·|t|. Two
+    evaluations whose t differ in the last f32 bits may round to
+    neighbouring bf16 values, so their rounded x@a differ by up to
+    2·½·2⁻⁷·|t| plus the f32 difference, with |t| ≤ |x|@|a|; times |b| and
+    |scale|: ``|scale|·2⁻⁷·(|x|@|a|)@|b|``.
     """
     xa, wa, aa, ba = x.float().abs(), w.float().abs(), a.float().abs(), \
         b.float().abs()
-    mag = torch.matmul(xa, wa) + abs(scale) * torch.matmul(
-        torch.matmul(xa, aa), ba)
+    adapter = torch.matmul(torch.matmul(xa, aa), ba)
+    mag = torch.matmul(xa, wa) + abs(scale) * adapter
     k, r = x.shape[-1], a.shape[-1]
-    return 2 * (k + r + 4) * _U * mag
+    bound = 2 * (k + r + 4) * _U * mag
+    if b.dtype == torch.bfloat16:
+        bound = bound + abs(scale) * BF16_ULP * adapter
+    return bound
 
 
 def _refuse(x, w, a, b) -> None:
     for arg, t in (("x", x), ("w", w), ("a", a), ("b", b)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"lora_matmul: {arg} must be float32, got "
-                            f"{t.dtype} (the bf16 variant is not ported)")
+        if t.dtype not in DTYPES:
+            raise TypeError(f"lora_matmul: {arg} must be float32 or "
+                            f"bfloat16, got {t.dtype}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"lora_matmul: {arg} is {t.dtype}, x is "
+                            f"{x.dtype}: the operands share one dtype (a "
+                            "mix is not ported)")
         if t.device != x.device:
             raise ValueError(f"lora_matmul: {arg} on {t.device}, x on "
                              f"{x.device}")
@@ -98,8 +129,9 @@ def _refuse(x, w, a, b) -> None:
 
 
 def _check(x, w, a, b) -> None:
-    dev, f32 = x.device, torch.float32
-    if not (x.dtype == w.dtype == a.dtype == b.dtype == f32
+    dev, dt = x.device, x.dtype
+    if not ((dt is torch.float32 or dt is torch.bfloat16)
+            and w.dtype is dt and a.dtype is dt and b.dtype is dt
             and w.device == dev and a.device == dev and b.device == dev
             and not (x.requires_grad or w.requires_grad or a.requires_grad
                      or b.requires_grad)
@@ -162,7 +194,8 @@ def _sm_count(index: int) -> int:
 def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                 b: torch.Tensor, scale: float) -> torch.Tensor:
     """x (M, K) @ w (K, N) + scale·(x @ a (K, r)) @ b (r, N) → a new (M, N)
-    float32 tensor. Any M, N, K; r ≤ 64 on the card."""
+    float32 tensor; the operands all float32 or all bfloat16. Any M, N, K;
+    r ≤ 64 on the card."""
     _check(x, w, a, b)
     dev = x.device
     if dev.type == "cpu":
@@ -181,12 +214,18 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     if k == 0:
         return y.zero_()
     work = None
+    low = x.dtype is torch.bfloat16
     if m <= SKINNY_ROWS:
         splits, kc, bn = _split_plan(n, k, _sm_count(dev.index))
-        vec = int(n % 4 == 0 and w.data_ptr() % 16 == 0)
+        # bit 0: W's rows by 16-byte (f32) or 8-byte (bf16) copies; bit 1
+        # (bf16): a's rows by 8-byte copies
+        vec = int(n % 4 == 0 and w.data_ptr() % (8 if low else 16) == 0)
+        if low and r % 4 == 0 and a.data_ptr() % 8 == 0:
+            vec |= 2
     else:
         splits = kc = bn = 0
-        vec = int(k % 4 == 0 and n % 4 == 0 and x.data_ptr() % 16 == 0
+        e = 8 if low else 4  # elements of a 16-byte load
+        vec = int(k % e == 0 and n % e == 0 and x.data_ptr() % 16 == 0
                   and w.data_ptr() % 16 == 0)
         if r:
             work = torch.empty(_work_floats(m, n, r, 0), dtype=torch.float32,
@@ -197,14 +236,17 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         code = lib.lora_matmul_launch(
             x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
             y.data_ptr(), None if work is None else work.data_ptr(),
-            m, n, k, r, float(scale), splits, kc, bn, vec,
+            m, n, k, r, float(scale), splits, kc, bn, vec, int(low),
             torch._C._cuda_getCurrentRawStream(dev.index))
     check_launch("lora_matmul", code)
     lora_matmul.launches += 1
+    if low:
+        lora_matmul.bf16_launches += 1
     return y
 
 
 lora_matmul.launches = 0
+lora_matmul.bf16_launches = 0  # the bf16 share of ``launches``
 
 
 def lora_dense(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,

@@ -4,11 +4,15 @@ cache, of a LoRA-adapted model.
 Counterpart of ``repro/launch/serve.py``. The served adapter can be a
 fresh one (``init_lora``: b = 0, a no-op), or what a ``FederatedTrainer``
 aggregated: pass its folded W0 (``params=trainer.params``) and global
-adapter (``lora=trainer.global_lora``). The adapted q/k/v/o projections of
-prefill and decode run the fused LoRA kernel (B3) and the prefill attention
-the flash attention kernel (B8); both take float32 only, so the model runs
-in float32. Runs on CUDA unless ``--device cpu`` is given (the CPU runs the
-kernels' plain versions).
+adapter (``lora=trainer.global_lora``). The model runs in its config's
+dtype, as the reference serves it: bfloat16 for every registered config
+(``ModelConfig.dtype``'s default); :func:`serve`'s ``dtype`` keyword picks
+another (float32). The adapted q/k/v/o projections of prefill and decode
+run the fused LoRA kernel (B3) and the prefill attention the flash
+attention kernel (B8), each in that dtype; an f32 adapter (``init_lora``'s,
+a trainer's, a pulled one) is cast to it where it is applied, as the
+reference's ``dense`` casts it. Runs on CUDA unless ``--device cpu`` is
+given (the CPU runs the kernels' plain versions).
 
 ``--pull-from URL`` fetches the global adapter a running federation server
 (``repro_torch.launch.train --mode serve``) holds now, through
@@ -43,7 +47,9 @@ from repro_torch.data import make_batch_for
 from repro_torch.fedsrv.client import FedClient
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.models import build_model
+from repro_torch.models.common import DTYPES, dtype_of
 from repro_torch.util.device import resolve_device
+from repro_torch.util.tree import flatten_with_paths, unflatten_from_paths
 
 
 @dataclass
@@ -63,6 +69,7 @@ def serve(arch: str, *, batch_size: int = 2, prompt_len: int = 32,
           use_lora: bool = True, seed: int = 0, device="cuda",
           params: Optional[dict] = None,
           lora: Optional[dict] = None, pull_from: str = "",
+          dtype: Optional[torch.dtype] = None,
           cache_dtype: torch.dtype = torch.bfloat16) -> ServeResult:
     """Prefill a ``make_batch_for`` prompt of ``prompt_len`` tokens, then
     ``steps`` greedy decode steps against a cache of ``max_len`` positions
@@ -71,14 +78,27 @@ def serve(arch: str, *, batch_size: int = 2, prompt_len: int = 32,
     ``seed`` (``lora``: ``init_lora`` from ``seed + 1`` unless
     ``use_lora=False``; a given ``lora`` is served as it is).
     ``pull_from`` (a federation server's URL) serves the global adapter
-    pulled from it instead."""
+    pulled from it instead. The model runs in ``dtype`` (None: the
+    config's own, bf16 as the reference's); given ``params`` in another
+    floating dtype are served cast to it."""
     dev = resolve_device(device)
-    cfg = replace(get_config(arch), dtype="float32")
+    cfg = get_config(arch)
+    if dtype is not None:
+        names = {t: n for n, t in DTYPES.items()}
+        if dtype not in names:
+            raise ValueError(f"serve: dtype {dtype} is not one of "
+                             f"{sorted(DTYPES)}")
+        cfg = replace(cfg, dtype=names[dtype])
     model = build_model(cfg)
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         params = model.init(gen, dev)
+    else:
+        mdt = dtype_of(cfg)
+        params = unflatten_from_paths({
+            k: v.to(mdt) if v.is_floating_point() else v
+            for k, v in flatten_with_paths(params).items()})
     lora_cfg = LoRAConfig(rank=rank)
     if pull_from:
         pulled = FedClient(pull_from, client_id=-1, device=dev).pull_latest()

@@ -1,7 +1,10 @@
 """Serving step functions: the counterparts of ``make_prefill_step`` and
 ``make_decode_step`` in ``repro/launch/steps.py`` (the port's training step
 is ``core/federated.py::make_local_step``). Eager PyTorch: there is no jit;
-call them under ``torch.inference_mode()``."""
+call them under ``torch.inference_mode()``. They run in the dtype the
+params hold (the model's: bf16 by default, as the reference serves), the
+serving kernels in that dtype too; the logits come back in float32, as the
+reference's unembedding returns them."""
 
 from __future__ import annotations
 

@@ -8,10 +8,11 @@ that recomputes the probabilities per block from (q, k, v, lse) instead of
 saving them. Here the same two blockwise functions are plain PyTorch inside a
 ``torch.autograd.Function``, with the same GQA grouping, masks and LSE; the
 training path runs them and :func:`dense`. The serving path (a ``cache``
-given: prefill, or decode with ``decode_position``) runs forward only: its
-adapted projections go through the fused LoRA kernel (``lora_dense``, B3)
-and the prefill attention through the flash attention kernel
-(``swa_attention``, B8); decode attends against the cache with
+given: prefill, or decode with ``decode_position``) runs forward only, in
+the params' dtype (bf16 as the reference serves, or f32): its adapted
+projections go through the fused LoRA kernel (``lora_dense``, B3) and the
+prefill attention through the flash attention kernel (``swa_attention``,
+B8), each in that dtype; decode attends against the cache with
 :func:`decode_attention`, in plain PyTorch as the reference does in jnp.
 A sliding window (``window`` > 0) masks all three modes alike, and its
 layers' caches are rings of ``min(window, cache_len)`` slots.

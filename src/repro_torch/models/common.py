@@ -91,10 +91,13 @@ def project(x: torch.Tensor, params: Params, lora: Optional[Params],
             lora_scale: float, fused: bool) -> torch.Tensor:
     """:func:`dense`, or with ``fused`` and an adapter the fused LoRA
     projection (``kernels.lora_dense``: the B3 kernel on the card, forward
-    only) — the serving path's projections."""
+    only) — the serving path's projections. The adapter's factors are cast
+    to x's dtype first, as :func:`dense` casts them (an f32 adapter on a
+    bf16 model runs the bf16 kernel)."""
     if not (fused and lora is not None):
         return dense(x, params, lora, lora_scale)
-    y = lora_dense(x, params["kernel"], lora["a"], lora["b"], lora_scale)
+    y = lora_dense(x, params["kernel"], lora["a"].to(x.dtype),
+                   lora["b"].to(x.dtype), lora_scale)
     if "bias" in params:
         y = y + params["bias"]
     return y

@@ -776,3 +776,134 @@ def test_windowed_serving_kernel_path_matches_plain_path(cuda, monkeypatch):
     pre_p, dec_p = run()
     torch.testing.assert_close(pre, pre_p, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(dec, dec_p, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# bf16 (serving's dtype): B3's two bodies and B8 at every DP, each against
+# its bf16 plain version within its bound (``lora_matmul_error_bound`` and
+# ``swa_error_bound`` with their bf16 terms), two runs bitwise equal; a
+# mix of dtypes raises before any launch
+# --------------------------------------------------------------------------
+
+from repro_torch.kernels import swa_error_bound  # noqa: E402
+
+BF16_LORA_CASES = [
+    # (M, K, N, r): the tiled body with 16-byte loads (K % 8, N % 8), its
+    # x@a prepass at r ≤ 4 and at r 64; the split-K body with 8-byte
+    # copies of W (N % 4) and of a (r % 4) at the decode widths
+    (4096, 3072, 3072, 4), (4096, 3072, 1024, 64), (17, 3072, 3072, 16),
+    (64, 3072, 3072, 4), (8, 3072, 3072, 4), (8, 3072, 1024, 64),
+    (16, 3072, 3072, 16), (1, 3072, 1024, 4),
+    # scalar paths: K or N not a multiple of 8 (tiled), N not a multiple
+    # of 4 or r odd (split-K: W's or a's 2-byte loads), r 1
+    (1000, 777, 333, 1), (100, 776, 332, 4), (8, 777, 333, 1),
+    (9, 777, 333, 3), (16, 3072, 1026, 64), (7, 3072, 1024, 1),
+]
+
+
+def _bf16_inputs(dev, m, k, n, r, seed=0):
+    return [t.to(torch.bfloat16) for t in _lora_inputs(dev, m, k, n, r, seed)]
+
+
+@pytest.mark.parametrize("case", BF16_LORA_CASES, ids=str)
+def test_lora_matmul_bf16_matches_plain(cuda, case):
+    x, w, a, b = _bf16_inputs(cuda, *case, seed=sum(case))
+    before = (lora_matmul.launches, lora_matmul.bf16_launches)
+    got = lora_matmul(x, w, a, b, 0.7)
+    again = lora_matmul(x, w, a, b, 0.7)
+    torch.cuda.synchronize()
+    assert (lora_matmul.launches, lora_matmul.bf16_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert got.dtype == torch.float32
+    assert torch.equal(_bits(got), _bits(again))
+    want = lora_matmul_plain(x, w, a, b, 0.7)
+    assert _within(got, want, lora_matmul_error_bound(x, w, a, b, 0.7))
+
+
+def test_lora_matmul_bf16_misaligned_views(cuda):
+    """x one row into its storage (odd K: the tiled body's 2-byte loads)
+    and W one element into its storage (the split-K body's)."""
+    base, w, a, b = _bf16_inputs(cuda, 1001, 777, 333, 4, seed=3)
+    x = base[1:]
+    assert x.data_ptr() % 16 != 0
+    got = lora_matmul(x, w, a, b, 0.7)
+    x8, w8, a8, b8 = _bf16_inputs(cuda, 8, 512, 1028, 4, seed=4)
+    wv = w8.flatten()[1:1 + 512 * 1024].view(512, 1024)
+    assert wv.data_ptr() % 8 != 0
+    got8 = lora_matmul(x8, wv, a8, b8[:, :1024], 0.7)
+    torch.cuda.synchronize()
+    assert _within(got, lora_matmul_plain(x, w, a, b, 0.7),
+                   lora_matmul_error_bound(x, w, a, b, 0.7))
+    assert _within(got8, lora_matmul_plain(x8, wv, a8, b8[:, :1024], 0.7),
+                   lora_matmul_error_bound(x8, wv, a8, b8[:, :1024], 0.7))
+
+
+BF16_FLASH_CASES = [
+    # (B, S, H, KVH, d, causal, window): paper-gpt2 (d 64, MHA),
+    # paper-llama3.2-3b (d 128, GQA 24/8), gemma3-12b (d 256, GQA 16/8,
+    # window 1024 and none); ragged S, windows, non-causal, d 50 (scalar)
+    (2, 512, 12, 12, 64, True, 0), (2, 512, 24, 8, 128, True, 0),
+    (1, 2048, 16, 8, 256, True, 1024), (1, 2048, 16, 8, 256, True, 0),
+    (2, 333, 8, 4, 128, True, 64), (2, 500, 8, 2, 128, True, 1000),
+    (2, 256, 4, 4, 128, False, 0), (2, 129, 4, 2, 256, False, 70),
+    (2, 300, 4, 4, 50, True, 0), (2, 65, 4, 4, 200, True, 0),
+]
+
+
+@pytest.mark.parametrize("case", BF16_FLASH_CASES, ids=str)
+def test_swa_attention_bf16_matches_plain(cuda, case):
+    b, s, h, kvh, d, causal, window = case
+    g = torch.Generator(device="cpu").manual_seed(s + d + h)
+    q = torch.randn(b, s, h, d, generator=g).to(cuda, torch.bfloat16)
+    k, v = (torch.randn(b, s, kvh, d, generator=g).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    before = (flash_swa.launches, flash_swa.bf16_launches)
+    got = swa_attention(q, k, v, causal, window)
+    again = swa_attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert (flash_swa.launches, flash_swa.bf16_launches) == (
+        before[0] + 2, before[1] + 2)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(_bits(got.float()), _bits(again.float()))
+    want = swa_attention_plain(q, k, v, causal, window)
+    assert _within(got.float(), want.float(),
+                   swa_error_bound(q, k, v, causal, window))
+
+
+def test_flash_swa_bf16_misaligned_q(cuda):
+    """q one element into its storage: the scalar loads."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    base = torch.randn(2 * 300 * 128 + 1, generator=g).to(cuda,
+                                                           torch.bfloat16)
+    q = base[1:].view(2, 300, 128)
+    k, v = (torch.randn(2, 300, 128, generator=g).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    got = flash_swa(q, k, v, True, 0)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    bound = swa_error_bound(q[:, :, None], k[:, :, None], v[:, :, None])
+    assert _within(got.float(), flash_swa_plain(q, k, v).float(),
+                   bound[:, :, 0])
+
+
+def test_bf16_mixes_raise_and_launch_nothing(cuda):
+    """A bf16 operand beside f32 ones (either way round) is a TypeError, on
+    the card as on the CPU: never computed by the plain version."""
+    x, w, a, b = _lora_inputs(cuda, 64, 96, 80, 4)
+    q = torch.randn(1, 64, 4, 64, device=cuda)
+    kv = torch.randn(1, 64, 2, 64, device=cuda)
+    before = (lora_matmul.launches, flash_swa.launches)
+    for i in range(4):
+        args = [x, w, a, b]
+        args[i] = args[i].bfloat16()
+        with pytest.raises(TypeError):
+            lora_matmul(*args, 1.0)
+        with pytest.raises(TypeError):
+            lora_matmul(*[t.bfloat16() if j != i else t
+                          for j, t in enumerate((x, w, a, b))], 1.0)
+    for i in range(3):
+        args = [q, kv, kv]
+        args[i] = args[i].bfloat16()
+        with pytest.raises(TypeError):
+            swa_attention(*args)
+    assert (lora_matmul.launches, flash_swa.launches) == before

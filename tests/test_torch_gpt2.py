@@ -514,7 +514,8 @@ def test_serve_end_to_end_matches_the_reference_greedy_loop(arch):
     res = serve_mod.serve(arch, batch_size=2, prompt_len=PROMPT,
                           steps=DECODE, max_len=MAX_LEN, seed=0, device="cpu",
                           params=params_from_numpy(p, CPU),
-                          lora=params_from_numpy(l, CPU))
+                          lora=params_from_numpy(l, CPU),
+                          dtype=torch.float32)
     assert res.tokens.shape == (2, DECODE + 1)
     lcfg = JLoRAConfig()
     jm = jax_build_model(jcfg)

@@ -387,7 +387,8 @@ def test_serve_end_to_end_matches_the_reference_greedy_loop(state):
     res = serve_mod.serve("paper-tiny", batch_size=2, prompt_len=PROMPT,
                           steps=STEPS, max_len=MAX_LEN, seed=0, device="cpu",
                           params=params_from_numpy(p, CPU),
-                          lora=params_from_numpy(l, CPU))
+                          lora=params_from_numpy(l, CPU),
+                          dtype=torch.float32)
     assert res.tokens.shape == (2, STEPS + 1) and res.tokens.dtype == np.int32
     assert res.prefill_ms > 0 and res.decode_ms > 0
     lcfg = JLoRAConfig()
