@@ -31,8 +31,8 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    chunk with 2 of 4 rows written; masked lanes, unwritten rows and rank
    columns filled with NaN), each timed (:class:`Timer`: host-inclusive
    CUDA-event medians of 20 after warm-up, and for the main body the
-   device time that ``torch.profiler`` records, the 50 MB L2 flushed
-   before each repetition) beside its plain version, its bound on the card
+   device time, the same with the repetitions queued behind a spin kernel,
+   the 50 MB L2 flushed before each repetition) beside its plain version, its bound on the card
    and one PyTorch call that computes the same function: 8
    ``torch.tensordot`` calls against one grouped ``factor_mean`` launch over
    a close's a and b stacks (bitwise the plain version, also over a group
@@ -266,10 +266,14 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    version, the library call in bf16 (``torch.addmm``, whose bf16 output
    differs by more than the bound and is printed, not held; SDPA with
    ``enable_gqa``) and the bound at HBM's rate and the bf16 tensor-core
-   peak (989 TFLOP/s): B3 at paper-llama3.2-3b's q/k/v/o at M 4096, 8 and
-   64, at r 1, 3 and 64, odd K and N and an x view off 16-byte alignment;
-   B8 at d 64 (paper-gpt2), 128 (paper-llama3.2-3b, GQA 24/8) and 256
-   (gemma3-12b, no window and window 1024); then ``serve()`` with no
+   peak (989 TFLOP/s): B3 at each served model's q/k/v/o at its prefill
+   and decode rows (paper-llama3.2-3b and paper-gpt2 M 4096 and 8,
+   gemma3-12b 4096 and 2; Llama's also at 64), at r 1, 3 and 64, odd K and
+   N and an x view off 16-byte alignment; B8 at d 64 (paper-gpt2), 128
+   (paper-llama3.2-3b, GQA 24/8) and 256 (gemma3-12b, no window and window
+   1024); both on the exact-rounding probes (``kernels/probes.py``,
+   :func:`bf16_probes`) at those shapes, bitwise their plain versions and
+   apart from every faulty variant; then ``serve()`` with no
    ``dtype`` (the config's bf16) at full width and depth,
    paper-llama3.2-3b and paper-gpt2 at phase 5's shape and gemma3-12b at
    phase 8's (:func:`bf16_serve`: bf16 launches counted apart, the kernel
@@ -278,8 +282,8 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    training forward within ``TF_BF16``, prefill ms, decode ms/token, peak
    GiB and a profile);
 10. one JSON line with every ported kernel: ``ms`` and ``library_ms``
-   host-inclusive, ``device_ms`` and ``library_device_ms`` the profiler's
-   device time, at the main body; B2's row adds one close's launch path
+   host-inclusive, ``device_ms`` and ``library_device_ms`` device time
+   (:meth:`Timer.device`), at the main body; B2's row adds one close's launch path
    (``close_wall_us``, ``close_enqueue_us``: :func:`launch_cost`), B3's
    its decode body at one decode layer (``decode_ms``,
    ``decode_library_ms``, ``decode_bound_ms``, ``decode_device_ms``,
@@ -293,8 +297,10 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    and ``gpt2_M64_*`` on B3's row; at gemma3-12b's shapes (phase 8) as
    ``gemma3_*`` on the rows of B1, B2, B3 (prefill layer;
    ``gemma3_decode_*`` the decode layer) and B8 (``gemma3_W1024_*`` with
-   the window); in bf16 (phase 9) as ``bf16_*`` on B3's row (prefill
-   layer; ``bf16_decode_*``, ``bf16_M64_*``) and on B8's (Llama's prefill;
+   the window); in bf16 (phase 9) as ``bf16_*`` on B3's row (Llama's
+   prefill layer; ``bf16_decode_*``, ``bf16_M64_*``, ``gpt2_bf16_*``,
+   ``gpt2_bf16_decode_*``, ``gemma3_bf16_*``, ``gemma3_bf16_decode_*``)
+   and on B8's (Llama's prefill;
    ``bf16_gpt2_*``, ``bf16_gemma3_*``, ``bf16_gemma3_W1024_*``), with
    ``bf16_launches`` (phase 9's ``serve()`` runs) and ``bf16_max_abs_err``
    (``max_abs_err`` stays the f32 checks'); then the result line.
@@ -449,17 +455,26 @@ class Timer:
     * ``timer(fn)``: host-inclusive ms, the median of CUDA-event pairs
       around each repetition (the events are queued by the host, so for a
       launch-bound job this is the host's launch path);
-    * ``timer.device(fn)``: device ms, the CUDA activity that
-      ``torch.profiler`` records for the repetitions (kernels, copies,
-      fills), the flush's own kernels left out, over REPS. The same method
-      for a kernel and for a library call."""
+    * ``timer.device(fn, floor_ms)``: device ms, the median of CUDA-event
+      pairs around each repetition with every repetition queued behind a
+      spin kernel (``torch.cuda._sleep``), so the device runs them back to
+      back and no launch gap of the host's lands between a pair. The same
+      method for a kernel and for a library call. The spin lasts twice the
+      host's time to queue the repetitions (from the warm-up's), and the
+      time counts only when the spin still ran after the last one was
+      queued (one retry with a spin four times as long) and is not below
+      ``floor_ms`` (the bound of the work: less is not possible); else it
+      is None, printed as not measured. A function whose launch path waits
+      for the device (a synchronous copy) cannot be timed so.
+      ``torch.profiler`` dropped records in long runs (a flush recorded 19
+      times of 20, a kernel 5 times of 20), so it is not used here."""
+
+    CYCLES_PER_S = 2e9  # above the H100's 1.98 GHz boost clock
 
     def __init__(self, torch, device):
         self.torch = torch
         self.flush = torch.empty(128 * 2 ** 20, dtype=torch.uint8,
                                  device=device)
-        # the names of the flush's own device activity, to leave out
-        self.flush_names = set(self._activity(lambda: None, reps=2))
 
     def __call__(self, fn) -> float:
         torch = self.torch
@@ -477,37 +492,51 @@ class Timer:
         torch.cuda.synchronize()
         return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
-    def _activity(self, fn, reps) -> dict:
-        """Device activity name → total ms over ``reps`` of flush + fn."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+    def device(self, fn, floor_ms=0.0):
         torch = self.torch
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                self.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        out = {}
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-                out[e.key] = out.get(e.key, 0.0) + e.self_device_time_total / 1e3
-        return out
-
-    def device(self, fn) -> float:
+        t = time.perf_counter()
         for _ in range(WARMUP):
+            self.flush.zero_()
             fn()
-        # a profiling window that records no device activity at all (not
-        # even the flush's) is taken again, at most twice
-        for _ in range(3):
-            act = self._activity(fn, REPS)
-            if act:
+        host_s = (time.perf_counter() - t) * REPS / WARMUP
+        spin_s = min(2 * host_s + 2e-3, 0.2)
+        why = "the spin ended before the last repetition was queued"
+        for _ in range(2):
+            torch.cuda.synchronize()
+            torch.cuda._sleep(int(spin_s * self.CYCLES_PER_S))
+            gate = torch.cuda.Event()
+            gate.record()
+            pairs = []
+            for _ in range(REPS):
+                self.flush.zero_()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                pairs.append((start, end))
+            queued = not gate.query()
+            torch.cuda.synchronize()
+            if queued:
+                ms = statistics.median(s.elapsed_time(e) for s, e in pairs)
+                if ms >= floor_ms:
+                    return ms
+                why = f"{ms:.4f} ms < bound {floor_ms:.4f} ms"
                 break
-        ms = sum(v for k, v in act.items() if k not in self.flush_names)
-        if ms <= 0:
-            raise AssertionError(f"the profiler saw no device activity of "
-                                 f"the timed function: {act}")
-        return ms / REPS
+            spin_s *= 4
+        print(f"  device time not measured ({why})", flush=True)
+        return None
+
+
+def fmt_ms(v) -> str:
+    """A time of :meth:`Timer.device` as printed: ms, or not measured."""
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def share(bound, v) -> str:
+    """`` (x% of the bound)`` for a measured device time, else nothing."""
+    return "" if v is None else f" ({bound / v:.0%} of the bound)"
 
 
 # --------------------------------------------------------------------------
@@ -738,16 +767,18 @@ def kernel_phase(torch, kernels, device, cfg, *, c, r, scale,
         c_live = len(live)
         # device times at the main path's body (2 live lanes of 4) only
         main = body == "weighted-partial"
+        fb = bound_ms(*fold_cost(leaves, c_live, r))
+        mb = bound_ms(*mean_cost(leaves, c_live, r))
         t = {"fedex_fold": (timer(fold_kernel), timer(fold_plain),
-                            timer(fold_library),
-                            bound_ms(*fold_cost(leaves, c_live, r)),
-                            timer.device(fold_kernel) if main else None,
-                            timer.device(fold_library) if main else None),
+                            timer(fold_library), fb,
+                            timer.device(fold_kernel, fb[0]) if main else None,
+                            timer.device(fold_library, fb[0]) if main
+                            else None),
              "factor_mean": (timer(mean_kernel), timer(mean_plain),
-                             timer(mean_library),
-                             bound_ms(*mean_cost(leaves, c_live, r)),
-                             timer.device(mean_kernel) if main else None,
-                             timer.device(mean_library) if main else None)}
+                             timer(mean_library), mb,
+                             timer.device(mean_kernel, mb[0]) if main else None,
+                             timer.device(mean_library, mb[0]) if main
+                             else None)}
         for name, (ms, plain, lib, (bms, by), dev, dev_lib) in t.items():
             print(f"  time {name}[{body}] {cfg.name} one close "
                   f"({len(leaves)} leaves"
@@ -755,8 +786,8 @@ def kernel_phase(torch, kernels, device, cfg, *, c, r, scale,
                   f"): kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
                   f"{lib:.4f} ms ({'baddbmm' if name == 'fedex_fold' else '8 tensordot'}), "
                   f"bound {bms:.4f} ms ({by})"
-                  + (f"; device time kernel {dev:.4f} ms, library "
-                     f"{dev_lib:.4f} ms" if main else ""), flush=True)
+                  + (f"; device time kernel {fmt_ms(dev)}, library "
+                     f"{fmt_ms(dev_lib)}" if main else ""), flush=True)
         timings[body] = t
         del bufs
         torch.cuda.empty_cache()
@@ -1125,7 +1156,8 @@ def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
         k_out = [] if kind in ("product", "accum") else k_live
         bms, by = bound_ms(*lane_cost(leaves, kind, len(live), k_live, k_out,
                                       r_b))
-        dev, dev_lib = timer.device(run("kernel")), timer.device(run("library"))
+        dev, dev_lib = (timer.device(run("kernel"), bms),
+                        timer.device(run("library"), bms))
         timings[body] = (ms, plain, lib_ms, (bms, by), dev, dev_lib)
         print(f"  time {body} one close (4 leaves, {len(live)} live): kernel "
               f"{ms:.4f} ms"
@@ -1133,8 +1165,8 @@ def lane_kernel_phase(torch, kernels, device, cfg, *, c, r, scale):
               + (f", plain {plain:.4f} ms" if plain is not None else "")
               + f", library {lib_ms:.4f} ms (baddbmm, max |library − kernel| "
               f"{lib_err:.3e}), bound {bms:.4f} ms ({by}, {bms / ms:.0%} of "
-              f"it reached); device time kernel {dev:.4f} ms, library "
-              f"{dev_lib:.4f} ms", flush=True)
+              f"it reached); device time kernel {fmt_ms(dev)}, library "
+              f"{fmt_ms(dev_lib)}", flush=True)
         del bufs
         torch.cuda.empty_cache()
 
@@ -1260,23 +1292,23 @@ def lora_case(torch, kernels, timer, bufs, scale, label, device_times=False):
             torch.addmm(x @ w, x @ a, b, alpha=scale)
 
     r = bufs[0][2].shape[1]
+    bound = bound_ms(*lora_cost([(x.shape[0], x.shape[1], w.shape[1])
+                                 for x, w, _, _ in bufs], r, 2 if low else 4),
+                     BF16_FLOPS_PER_S if low else F32_FLOPS_PER_S)
     t = (timer(kernel),
          timer(lambda: [kernels.lora_matmul_plain(*buf, scale)
                         for buf in bufs]),
-         timer(library),
-         bound_ms(*lora_cost([(x.shape[0], x.shape[1], w.shape[1])
-                              for x, w, _, _ in bufs], r, 2 if low else 4),
-                  BF16_FLOPS_PER_S if low else F32_FLOPS_PER_S),
-         timer.device(kernel) if device_times else None,
-         timer.device(library) if device_times else None)
+         timer(library), bound,
+         timer.device(kernel, bound[0]) if device_times else None,
+         timer.device(library, bound[0]) if device_times else None)
     ms, plain, lib, (bms, by), dev, dev_lib = t
     print(f"  lora_matmul[{label}] max_abs_err={err:.3e} within bound"
           + (f" (bf16; addmm bf16 {lib_err:.3e} off)" if low else "")
           + f", two runs bitwise equal; time kernel {ms:.4f} ms, plain "
           f"{plain:.4f} ms, library {lib:.4f} ms (addmm), bound {bms:.4f} "
           f"ms ({by})"
-          + (f"; device time kernel {dev:.4f} ms ({bms / dev:.0%} of the "
-             f"bound), library {dev_lib:.4f} ms" if device_times else ""),
+          + (f"; device time kernel {fmt_ms(dev)}{share(bms, dev)}, "
+             f"library {fmt_ms(dev_lib)}" if device_times else ""),
           flush=True)
     return err, t
 
@@ -1349,20 +1381,21 @@ def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
     def library():
         F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)
 
+    bound = bound_ms(nbytes, flops,
+                     BF16_FLOPS_PER_S if low else F32_FLOPS_PER_S)
     t = (timer(kernel),
          timer(lambda: kernels.swa_attention_plain(q, k, v, causal, window)),
-         timer(library),
-         bound_ms(nbytes, flops, BF16_FLOPS_PER_S if low else F32_FLOPS_PER_S),
-         timer.device(kernel) if device_times else None,
-         timer.device(library) if device_times else None)
+         timer(library), bound,
+         timer.device(kernel, bound[0]) if device_times else None,
+         timer.device(library, bound[0]) if device_times else None)
     ms, plain, libt, (bms, by), dev, dev_lib = t
     print(f"  flash_swa[{label}{' bf16' if low else ''}] max_abs_err="
           f"{err:.3e} (SDPA {lib_err:.3e}), "
           f"two runs bitwise equal; time kernel {ms:.4f} ms, plain "
           f"{plain:.4f} ms, library {libt:.4f} ms (SDPA), bound {bms:.4f} ms "
           f"({by})"
-          + (f"; device time kernel {dev:.4f} ms ({bms / dev:.0%} of the "
-             f"bound), library {dev_lib:.4f} ms" if device_times else ""),
+          + (f"; device time kernel {fmt_ms(dev)}{share(bms, dev)}, "
+             f"library {fmt_ms(dev_lib)}" if device_times else ""),
           flush=True)
     return err, t
 
@@ -4215,7 +4248,13 @@ BF16_SERVE = {"paper-llama3.2-3b": (8, 512, 32, 1024),
               "gemma3-12b": (2, 2048, 32, 2080)}
 # teacher-forced decode (bf16 cache) against the bf16 training forward:
 # at most this share of the training forward's largest |logit|, stated
-# before the first run (phase 5 saw 2% at f32 weights with a bf16 cache)
+# before the first run (phase 5 saw 2% at f32 weights with a bf16 cache).
+# It and bf16_serve's limits against the f32 prefill are smoke checks: they
+# catch a broken path (a missed layer, a wrong cast), not a rounding at
+# another place, which the kernel checks pin (each kernel within its bound
+# at every served shape, and bitwise on the probes). On an H100 sound runs
+# read 1.2-6.4% here and the kernel path 1.01-1.04x the plain path's
+# distance from the f32 answer.
 TF_BF16 = 0.1
 
 
@@ -4225,12 +4264,14 @@ def bf16_kernel_phase(torch, kernels, device):
     two runs bitwise equal, timed beside the plain version, the library
     call in bf16 (``torch.addmm`` / SDPA with ``enable_gqa``) and the bound
     at the bf16 tensor-core peak (:func:`lora_case`, :func:`flash_case`):
-    B3 at paper-llama3.2-3b's q/k/v/o at prefill (M 4096), decode (M 8)
-    and the serve launcher's M 64, then r 1, 4 and 64 and odd K and N (the
+    B3 at each served model's q/k/v/o at prefill (batch · prompt rows) and
+    decode (batch rows), paper-llama3.2-3b's also at the serve launcher's
+    M 64, then r 1, 4 and 64 and odd K and N (the
     scalar paths) and an x view off 16-byte alignment; B8 at d 64
     (paper-gpt2, B 8, S 512, MHA 12/12), d 128 (paper-llama3.2-3b, B 8, S
     512, GQA 24/8) and d 256 (gemma3-12b, B 2, S 2048, GQA 16/8, no window
-    and window 1024). Returns (max errors, timings)."""
+    and window 1024); then both on the exact-rounding probes
+    (:func:`bf16_probes`). Returns (max errors, timings)."""
     from repro_torch.configs import get_config
     timer = Timer(torch, device)
     low = torch.bfloat16
@@ -4242,16 +4283,23 @@ def bf16_kernel_phase(torch, kernels, device):
     def bf16(bufs):
         return [t.to(low) for t in bufs]
 
+    # each served model's q/k/v/o at its prefill rows (batch · prompt) and
+    # its decode rows (batch), and Llama's at the serve launcher's M 64
+    gcfg, g3 = get_config("paper-gpt2"), get_config("gemma3-12b")
+    for prefix, c in (("", cfg), ("gpt2_", gcfg), ("gemma3_", g3)):
+        bsz, prompt = BF16_SERVE[c.name][:2]
+        rows = [("bf16", bsz * prompt), ("bf16_decode", bsz)]
+        if c is cfg:
+            rows.append(("bf16_M64", short_prompt_rows()))
+        for key, m in rows:
+            bufs = [bf16(lora_inputs(torch, device, m, k, n, r, seed=90 + i))
+                    for i, (_, k, n) in enumerate(serving_projections(c))]
+            err, timings[prefix + key] = lora_case(
+                torch, kernels, timer, bufs, scale,
+                f"bf16 {c.name} layer: q/k/v/o at M={m}", device_times=True)
+            errs["lora_matmul"] = max(errs["lora_matmul"], err)
+            del bufs
     projs = serving_projections(cfg)
-    for key, m in (("bf16", 8 * 512), ("bf16_decode", 8),
-                   ("bf16_M64", short_prompt_rows())):
-        bufs = [bf16(lora_inputs(torch, device, m, k, n, r, seed=90 + i))
-                for i, (_, k, n) in enumerate(projs)]
-        err, timings[key] = lora_case(
-            torch, kernels, timer, bufs, scale,
-            f"bf16 {cfg.name} layer: q/k/v/o at M={m}", device_times=True)
-        errs["lora_matmul"] = max(errs["lora_matmul"], err)
-        del bufs
     d, nq, nkv = projs[0][1], projs[0][2], projs[1][2]
     for m, k, n, r_e in [(4096, d, nq, 1), (4096, d, nq, 64), (8, d, nq, 1),
                          (8, d, nkv, 64), (7, 777, 333, 1), (9, 777, 333, 16),
@@ -4269,7 +4317,6 @@ def bf16_kernel_phase(torch, kernels, device):
                        "bf16 x view one row in, M=1000 K=777 N=333")
     errs["lora_matmul"] = max(errs["lora_matmul"], err)
     del x, w, a, b
-    gcfg, g3 = get_config("paper-gpt2"), get_config("gemma3-12b")
     for i, (key, c, bsz, s, window) in enumerate((
             ("flash_bf16_gpt2", gcfg, 8, 512, 0),
             ("flash_bf16", cfg, 8, 512, 0),
@@ -4281,7 +4328,86 @@ def bf16_kernel_phase(torch, kernels, device):
             device_times=True, dtype=low)
         errs["flash_swa"] = max(errs["flash_swa"], err)
     torch.cuda.empty_cache()
+    bf16_probes(torch, kernels, device, (cfg, gcfg, g3))
     return errs, timings
+
+
+def bf16_probes(torch, kernels, device, cfgs):
+    """B3 and B8 on the exact-rounding probes of ``kernels/probes.py``, at
+    each model of ``cfgs``' served shapes (``BF16_SERVE``): B3 at every
+    q/k/v/o at the decode rows (the split-K body, each at its plan's K
+    chunks) and the prefill rows (the tiled body), then at odd K and N (the
+    scalar paths) and at K 64 (one chunk); B8 at each model's prefill
+    (causal), non-causal and at d 66 (the scalar loads). Each result must
+    equal the plain version bit for bit (B3: and the exact answer), and
+    differ from every faulty
+    variant (x@a unrounded or rounded per K chunk; p unrounded, or l summing
+    the rounded p) in some element. Launches here are not the main path's
+    (the counters are reset before it)."""
+    from repro_torch.kernels import probes
+    from repro_torch.kernels.lora_matmul import (SKINNY_ROWS, _sm_count,
+                                                 _split_plan)
+
+    sms = _sm_count(device.index or 0)
+    cases = []
+    for c in cfgs:
+        bsz, prompt = BF16_SERVE[c.name][:2]
+        for _, k, n in serving_projections(c):
+            cases += [(c.name, bsz, k, n, 4), (c.name, bsz * prompt, k, n, 4)]
+    cases += [("odd", 9, 777, 333, 3), ("odd", 1, 200, 512, 64),
+              ("one chunk", 4, 64, 256, 4),
+              ("odd", 17, 777, 333, 3), ("odd", 1000, 776, 333, 64)]
+    seen, plans = {}, set()
+    for i, (label, m, k, n, r) in enumerate(cases):
+        plan = _split_plan(n, k, sms) if m <= SKINNY_ROWS else None
+        chunk = plan[1] if plan else 64
+        x, w, a, b, scale, want, faults = probes.lora_probe(
+            m, k, n, r, chunk=chunk, device=device, seed=i)
+        got = kernels.lora_matmul(x, w, a, b, scale)
+        plain = kernels.lora_matmul_plain(x, w, a, b, scale)
+        torch.cuda.synchronize()
+        diff = probes.differing(got, faults)
+        if not (torch.equal(got, plain) and torch.equal(got, want)
+                and min(diff.values()) > 0):
+            raise AssertionError(
+                f"lora_matmul bf16 probe {label} M={m} K={k} N={n} r={r} "
+                f"(plan {plan}): kernel == plain {torch.equal(got, plain)}, "
+                f"== exact {torch.equal(got, want)} (max |kernel - exact| "
+                f"{float((got - want).abs().max()):.3e}); elements apart from "
+                f"the faults {diff}")
+        plans.add(plan[0] if plan else "tiled")
+        for name, v in diff.items():
+            seen[name] = seen.get(name, 0) + v
+        del x, w, a, b, want, faults, got, plain
+    print(f"  lora_matmul bf16 probes: {len(cases)} cases (split-K at "
+          f"{sorted(p for p in plans if p != 'tiled')} K chunks and the tiled "
+          f"body) bitwise the plain version and the exact answer; elements "
+          f"apart from the faulty variants {seen}", flush=True)
+    seen = {}
+    flash = [(c.name, *BF16_SERVE[c.name][:2], c.num_heads, c.num_kv_heads,
+              c.resolved_head_dim, True) for c in cfgs]
+    flash += [("non-causal", 2, 300, 4, 2, 128, False),
+              ("d 66", 2, 130, 4, 4, 66, True)]
+    for label, b, s, h, kvh, d, causal in flash:
+        q, k, v, faults = probes.swa_probe(b, s, h, kvh, d, causal=causal,
+                                           device=device, seed=s + d)
+        got = kernels.swa_attention(q, k, v, causal, 0)
+        plain = kernels.swa_attention_plain(q, k, v, causal, 0)
+        torch.cuda.synchronize()
+        diff = probes.differing(got, faults)
+        same = torch.equal(bits(torch, got.float()), bits(torch, plain.float()))
+        if not (same and min(diff.values()) > 0):
+            raise AssertionError(
+                f"flash_swa bf16 probe {label} B={b} S={s} H={h}/{kvh} d={d}: "
+                f"kernel == plain {same} ({int((got != plain).sum())} "
+                f"elements differ); elements apart from the faults {diff}")
+        for name, n in diff.items():
+            seen[name] = seen.get(name, 0) + n
+        del q, k, v, faults, got, plain
+    print(f"  flash_swa bf16 probes: {len(flash)} cases bitwise the plain "
+          f"version; elements apart from the faulty variants {seen}",
+          flush=True)
+    torch.cuda.empty_cache()
 
 
 def _expect_bf16(kernels, name, want):
@@ -4588,7 +4714,7 @@ def decode_sweep(torch, kernels, device, cfg) -> list:
                     code = lib.lora_matmul_launch(
                         x.data_ptr(), w.data_ptr(), a.data_ptr(),
                         b.data_ptr(), y.data_ptr(), None, x.shape[0], n, k,
-                        4, 2.0, *plan, int(n % 4 == 0),
+                        4, 2.0, *plan, int(n % 4 == 0), 0,
                         torch.cuda.current_stream().cuda_stream)
                     kernels.build.check_launch("lora_matmul", code)
 
@@ -4603,8 +4729,10 @@ def decode_sweep(torch, kernels, device, cfg) -> list:
                              "blocks": blocks, "device_ms": ms,
                              "picked": plan == picked})
                 print(f"  decode sweep K={k} N={n} splits={splits} bn={bn} "
-                      f"({blocks} blocks): {ms * 1e3:.2f} us"
-                      f"{'  <- _split_plan' if plan == picked else ''}",
+                      f"({blocks} blocks): "
+                      + ("not measured" if ms is None else
+                         f"{ms * 1e3:.2f} us")
+                      + ("  <- _split_plan" if plan == picked else ""),
                       flush=True)
     return rows
 
@@ -5014,14 +5142,15 @@ def main() -> int:
                          ("factor_mean", "gemma3",
                           zoo_timings["factor_mean"])):
         out[list(SOURCES).index(name)].update(timing_fields(key, t))
-    # bf16 (phase 9): B3 at one prefill layer, one decode layer and the
-    # serve launcher's M 64; B8 at d 128 (Llama), 64 (GPT-2) and 256
-    # (gemma3, no window and window 1024); the bf16 launches of phase 9's
-    # serve() runs and the largest bf16 kernel-vs-plain error
+    # bf16 (phase 9): B3 at one prefill and one decode layer of each served
+    # model and Llama's at the serve launcher's M 64; B8 at d 128 (Llama),
+    # 64 (GPT-2) and 256 (gemma3, no window and window 1024); the bf16
+    # launches of phase 9's serve() runs and the largest bf16
+    # kernel-vs-plain error
     for name, key, t in (
-            ("lora_matmul", "bf16", bf16_timings["bf16"]),
-            ("lora_matmul", "bf16_decode", bf16_timings["bf16_decode"]),
-            ("lora_matmul", "bf16_M64", bf16_timings["bf16_M64"]),
+            *(("lora_matmul", key, bf16_timings[key]) for key in (
+                "bf16", "bf16_decode", "bf16_M64", "gpt2_bf16",
+                "gpt2_bf16_decode", "gemma3_bf16", "gemma3_bf16_decode")),
             ("flash_swa", "bf16", bf16_timings["flash_bf16"]),
             ("flash_swa", "bf16_gpt2", bf16_timings["flash_bf16_gpt2"]),
             ("flash_swa", "bf16_gemma3", bf16_timings["flash_bf16_gemma3"]),

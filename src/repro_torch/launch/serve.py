@@ -10,8 +10,9 @@ dtype, as the reference serves it: bfloat16 for every registered config
 another (float32). The adapted q/k/v/o projections of prefill and decode
 run the fused LoRA kernel (B3) and the prefill attention the flash
 attention kernel (B8), each in that dtype; an f32 adapter (``init_lora``'s,
-a trainer's, a pulled one) is cast to it where it is applied, as the
-reference's ``dense`` casts it. Runs on CUDA unless ``--device cpu`` is
+a trainer's, a pulled one) is cast to it once before the prefill (the
+reference's ``dense`` casts it where it is applied, to the same values).
+Runs on CUDA unless ``--device cpu`` is
 given (the CPU runs the kernels' plain versions).
 
 ``--pull-from URL`` fetches the global adapter a running federation server
@@ -64,6 +65,13 @@ class ServeResult:
         return self.decode_ms / max(self.steps, 1)
 
 
+def _cast(tree: dict, dtype: torch.dtype) -> dict:
+    """``tree`` with its floating leaves in ``dtype`` (a new tree)."""
+    return unflatten_from_paths({
+        k: v.to(dtype) if v.is_floating_point() else v
+        for k, v in flatten_with_paths(tree).items()})
+
+
 def serve(arch: str, *, batch_size: int = 2, prompt_len: int = 32,
           steps: int = 8, max_len: int = 128, rank: int = 4,
           use_lora: bool = True, seed: int = 0, device="cuda",
@@ -79,8 +87,8 @@ def serve(arch: str, *, batch_size: int = 2, prompt_len: int = 32,
     ``use_lora=False``; a given ``lora`` is served as it is).
     ``pull_from`` (a federation server's URL) serves the global adapter
     pulled from it instead. The model runs in ``dtype`` (None: the
-    config's own, bf16 as the reference's); given ``params`` in another
-    floating dtype are served cast to it."""
+    config's own, bf16 as the reference's); ``params`` and the adapter,
+    given, drawn or pulled, are served cast to it."""
     dev = resolve_device(device)
     cfg = get_config(arch)
     if dtype is not None:
@@ -90,15 +98,13 @@ def serve(arch: str, *, batch_size: int = 2, prompt_len: int = 32,
                              f"{sorted(DTYPES)}")
         cfg = replace(cfg, dtype=names[dtype])
     model = build_model(cfg)
+    mdt = dtype_of(cfg)
     if params is None:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         params = model.init(gen, dev)
     else:
-        mdt = dtype_of(cfg)
-        params = unflatten_from_paths({
-            k: v.to(mdt) if v.is_floating_point() else v
-            for k, v in flatten_with_paths(params).items()})
+        params = _cast(params, mdt)
     lora_cfg = LoRAConfig(rank=rank)
     if pull_from:
         pulled = FedClient(pull_from, client_id=-1, device=dev).pull_latest()
@@ -109,6 +115,9 @@ def serve(arch: str, *, batch_size: int = 2, prompt_len: int = 32,
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed + 1)
         lora = init_lora(gen, params, cfg, lora_cfg)
+    if lora is not None:
+        # once here, so that the projections' cast to x's dtype is a no-op
+        lora = _cast(lora, mdt)
     if prompt_len + steps > max_len:
         raise ValueError(f"serve: prompt {prompt_len} + {steps} steps exceed "
                          f"the cache's {max_len} positions")

@@ -52,7 +52,8 @@ from repro_torch.configs import LoRAConfig, get_config  # noqa: E402
 from repro_torch.kernels import (flash_swa, flash_swa_plain,  # noqa: E402
                                  lora_dense, lora_matmul,
                                  lora_matmul_error_bound, lora_matmul_plain,
-                                 swa_attention, swa_error_bound)
+                                 probes, swa_attention, swa_error_bound)
+from repro_torch.kernels.lora_matmul import _split_plan  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
@@ -174,6 +175,32 @@ def test_lora_matmul_plain_bf16_rounds_x_at_once():
     assert not torch.equal(got, xa.sum(-1, keepdim=True).expand(16, 8))
 
 
+@pytest.mark.parametrize("m,k,n,r", [
+    (8, 768, 768, 4), (1, 3072, 1024, 1), (16, 300, 96, 16),  # split-K rows
+    (4, 64, 256, 4),                                          # one K chunk
+    (64, 256, 128, 16), (17, 777, 333, 3),                    # tiled rows
+])
+def test_lora_probe_pins_where_x_at_a_is_rounded(m, k, n, r):
+    """On the probe's integer inputs every sum is exact, so the plain
+    version (and the wrapper on the CPU) equals the exact answer bit for
+    bit, as the Pallas kernel in interpret mode does; x@a left unrounded or
+    rounded per K chunk (the split-K body's, for an H100's 132 SMs, or 64
+    rows; none where one chunk takes the whole K) gives another answer in
+    many elements."""
+    chunk = _split_plan(n, k, 132)[1] if m <= 16 else 64
+    x, w, a, b, scale, want, faults = probes.lora_probe(m, k, n, r,
+                                                        chunk=chunk, seed=m)
+    assert torch.equal(lora_matmul_plain(x, w, a, b, scale), want)
+    assert torch.equal(lora_matmul(x, w, a, b, scale), want)
+    ref = np.asarray(jax_lora_matmul(
+        *(jnp.asarray(to_numpy(t), BF16) for t in (x, w, a, b)), scale=scale,
+        bm=min(128, m), bn=min(128, n), bk=min(128, k), interpret=True))
+    np.testing.assert_array_equal(ref, want.numpy())
+    seen = probes.differing(want, faults)
+    assert len(seen) == 1 + (chunk < k)
+    assert min(seen.values()) > want.numel() // 10, seen
+
+
 def test_lora_dense_bf16_returns_x_dtype():
     rng = np.random.default_rng(4)
     x, w, a, b = (_bf16(rng, 2, 5, 64), _bf16(rng, 64, 48), _bf16(rng, 64, 4),
@@ -242,6 +269,32 @@ def test_swa_attention_bf16_gqa_matches_the_reference(s, h, kvh, causal,
     assert got.dtype == torch.bfloat16 and got.shape == (2, s, h, 32)
     bound = swa_error_bound(tq, tk, tv, causal, window)
     assert (np.abs(got.float().numpy() - _f32(want)) <= bound.numpy()).all()
+
+
+@pytest.mark.parametrize("b,s,h,kvh,d,causal", [
+    (2, 130, 4, 2, 64, True), (1, 70, 2, 1, 66, False),
+    (1, 100, 3, 3, 128, True), (1, 96, 2, 1, 256, True)])
+def test_swa_probe_pins_where_p_is_rounded(b, s, h, kvh, d, causal):
+    """On the probe's inputs only key 0 (p = 1, v = 0) and one key j* of
+    each row survive, in the first KV tile, so the plain version equals
+    the Pallas kernel in interpret mode bit for bit; p left unrounded, or l
+    summing the rounded p, gives another answer in many elements."""
+    q, k, v, faults = probes.swa_probe(b, s, h, kvh, d, causal=causal,
+                                       seed=s + d)
+    got = swa_attention(q, k, v, causal, 0)
+
+    def heads(t):  # (B, S, H', D) → (B·H, S, D), KV heads repeated
+        t = t.repeat_interleave(h // t.shape[2], dim=2)
+        return jnp.asarray(to_numpy(t.transpose(1, 2).reshape(b * h, s, d)),
+                           BF16)
+
+    ref = jax_flash_swa(heads(q), heads(k), heads(v), causal=causal,
+                        window=0, bq=s, bk=s, interpret=True)
+    ref = _f32(ref).reshape(b, h, s, d).transpose(0, 2, 1, 3)
+    np.testing.assert_array_equal(got.float().numpy(), ref)
+    assert bool((got != 0).any())
+    seen = probes.differing(got, faults)
+    assert len(seen) == 2 and min(seen.values()) > 100, seen
 
 
 def test_swa_attention_refuses_mixed_dtypes():

@@ -886,6 +886,62 @@ def test_flash_swa_bf16_misaligned_q(cuda):
                    bound[:, :, 0])
 
 
+from repro_torch.kernels import probes  # noqa: E402
+from repro_torch.kernels.lora_matmul import _sm_count, _split_plan  # noqa: E402
+
+BF16_PROBE_LORA = [
+    # (M, K, N, r): the split-K body at 1, 2, 4 and 8 K chunks of an H100
+    # (132 SMs: K 200 → 2 chunks, 3072 × 3072 → 4, 3072 × 1024 and
+    # paper-gpt2's 768 × 768 → 8), W's and a's 2-byte paths (N 333, r 3);
+    # the tiled body's two prepasses (r ≤ 4, r 64) at prefill rows, and its
+    # scalar path (odd K, N)
+    (8, 3072, 3072, 4), (16, 3072, 1024, 64), (2, 768, 768, 4),
+    (1, 200, 512, 1), (9, 777, 333, 3), (1, 64, 256, 4),
+    (4096, 3072, 3072, 4), (64, 3072, 1024, 64), (17, 777, 333, 3),
+    (1000, 3840, 2048, 16),
+]
+
+
+@pytest.mark.parametrize("case", BF16_PROBE_LORA, ids=str)
+def test_lora_matmul_bf16_rounds_x_at_a_once(cuda, case):
+    """The probe's exact inputs (``kernels/probes.py``): the kernel equals
+    its plain version and the exact answer bit for bit, which rounding
+    x@a per K chunk of the body's plan, or not at all, would not."""
+    m, k, n, r = case
+    chunk = _split_plan(n, k, _sm_count(0))[1] if m <= 16 else 64
+    x, w, a, b, scale, want, faults = probes.lora_probe(
+        m, k, n, r, chunk=chunk, device=cuda, seed=m + k)
+    got = lora_matmul(x, w, a, b, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(got, lora_matmul_plain(x, w, a, b, scale))
+    assert torch.equal(got, want)
+    assert min(probes.differing(got, faults).values()) > 0
+
+
+BF16_PROBE_FLASH = [
+    # (B, S, H, KVH, d, causal): DP 64 (paper-gpt2's MHA), 128 (Llama's GQA
+    # 24/8), 256 (gemma3's GQA 16/8) at their prefill lengths, non-causal,
+    # and d 66 (the scalar loads)
+    (2, 512, 12, 12, 64, True), (2, 512, 24, 8, 128, True),
+    (1, 2048, 16, 8, 256, True), (2, 300, 4, 2, 128, False),
+    (2, 130, 4, 4, 66, True),
+]
+
+
+@pytest.mark.parametrize("case", BF16_PROBE_FLASH, ids=str)
+def test_swa_attention_bf16_rounds_p_before_pv(cuda, case):
+    """The probe's inputs: the kernel equals its plain version bit for bit,
+    which leaving p unrounded, or l summing the rounded p, would not."""
+    b, s, h, kvh, d, causal = case
+    q, k, v, faults = probes.swa_probe(b, s, h, kvh, d, causal=causal,
+                                       device=cuda, seed=s + d)
+    got = swa_attention(q, k, v, causal, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got.float()),
+                       _bits(swa_attention_plain(q, k, v, causal, 0).float()))
+    assert min(probes.differing(got, faults).values()) > 0
+
+
 def test_bf16_mixes_raise_and_launch_nothing(cuda):
     """A bf16 operand beside f32 ones (either way round) is a TypeError, on
     the card as on the CPU: never computed by the plain version."""
