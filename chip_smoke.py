@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --launch-cost SRC   # the launch-path costs only
     python3 chip_smoke.py --decode-sweep      # B3's split-K plans
+    python3 chip_smoke.py --prefill-sweep     # B3's bf16 prefill body
     python3 chip_smoke.py --obs-http          # phase 6 alone
     python3 chip_smoke.py --mesh              # phase 7 alone
     python3 chip_smoke.py --zoo               # phase 8 alone
@@ -21,8 +22,8 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    ``build/kernels/``, with ``-Xptxas -v``; the registers, spills and
    static shared memory of ``factor_mean``'s grouped kernel, of
    ``lora_matmul``'s kernels (the tiled body, its x@a prepasses, the
-   split-K body) and of ``flash_swa``'s kernel are summed up on lines of
-   their own;
+   tensor-core body, the split-K body) and of ``flash_swa``'s kernel are
+   summed up on lines of their own;
 3. kernels: ``fedex_fold`` (both bodies), ``factor_mean`` (both bodies),
    ``product_fold``, ``perclient_fold``, ``hetero_fold`` and
    ``product_accum`` against their plain PyTorch versions at the main
@@ -260,7 +261,8 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    and peak memory, and the phase's;
 9. serving in bf16, the reference's default dtype (``bf16_phase``,
    ``[bf16]`` lines; ``python3 chip_smoke.py --bf16`` runs it alone):
-   first B3 and B8 in bf16 against their bf16 plain versions within their
+   B3's tensor-core body's ptxas line (registers, spills), then B3 and B8
+   in bf16 against their bf16 plain versions within their
    bounds (``lora_matmul_error_bound`` and ``swa_error_bound``, bf16 terms
    included), each run twice and bitwise equal, timed beside the plain
    version, the library call in bf16 (``torch.addmm``, whose bf16 output
@@ -268,15 +270,19 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    ``enable_gqa``) and the bound at HBM's rate and the bf16 tensor-core
    peak (989 TFLOP/s): B3 at each served model's q/k/v/o at its prefill
    and decode rows (paper-llama3.2-3b and paper-gpt2 M 4096 and 8,
-   gemma3-12b 4096 and 2; Llama's also at 64), at r 1, 3 and 64, odd K and
-   N and an x view off 16-byte alignment; B8 at d 64 (paper-gpt2), 128
+   gemma3-12b 4096 and 2; each also at 64; every prefill and M 64 call
+   through the tensor-core body, each shape's largest error printed as a
+   share of its bound), at r 1, 3 and 64, odd K and N and an x view off
+   16-byte alignment (the tiled body); B8 at d 64 (paper-gpt2), 128
    (paper-llama3.2-3b, GQA 24/8) and 256 (gemma3-12b, no window and window
    1024); both on the exact-rounding probes (``kernels/probes.py``,
    :func:`bf16_probes`) at those shapes, bitwise their plain versions and
    apart from every faulty variant; then ``serve()`` with no
    ``dtype`` (the config's bf16) at full width and depth,
    paper-llama3.2-3b and paper-gpt2 at phase 5's shape and gemma3-12b at
-   phase 8's (:func:`bf16_serve`: bf16 launches counted apart, the kernel
+   phase 8's (:func:`bf16_serve`: bf16 launches counted apart, B3's 4·L
+   of a prefill all through its tensor-core body and none of a decode
+   step (``lora_matmul.bf16_tc_launches``), the kernel
    path against the bf16 plain path and both against the f32 serving
    prefill over the same weights, teacher forcing against the bf16
    training forward within ``TF_BF16``, prefill ms, decode ms/token, peak
@@ -299,16 +305,21 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    ``gemma3_decode_*`` the decode layer) and B8 (``gemma3_W1024_*`` with
    the window); in bf16 (phase 9) as ``bf16_*`` on B3's row (Llama's
    prefill layer; ``bf16_decode_*``, ``bf16_M64_*``, ``gpt2_bf16_*``,
-   ``gpt2_bf16_decode_*``, ``gemma3_bf16_*``, ``gemma3_bf16_decode_*``)
+   ``gpt2_bf16_decode_*``, ``gpt2_bf16_M64_*``, ``gemma3_bf16_*``,
+   ``gemma3_bf16_decode_*``, ``gemma3_bf16_M64_*``)
    and on B8's (Llama's prefill;
    ``bf16_gpt2_*``, ``bf16_gemma3_*``, ``bf16_gemma3_W1024_*``), with
-   ``bf16_launches`` (phase 9's ``serve()`` runs) and ``bf16_max_abs_err``
-   (``max_abs_err`` stays the f32 checks'); then the result line.
+   ``bf16_launches`` (phase 9's ``serve()`` runs; B3's row also
+   ``bf16_tc_launches``, those through its tensor-core body) and
+   ``bf16_max_abs_err`` (``max_abs_err`` stays the f32 checks'); then the
+   result line.
 
 ``--launch-cost SRC`` runs :func:`launch_cost` alone on the port found
 under ``SRC`` (another tree's ``src`` too, to compare two trees in one
 call) and prints it as one JSON line; ``--decode-sweep`` times B3's
-split-K body at every plan (:func:`decode_sweep`); ``--obs-http`` runs
+split-K body at every plan (:func:`decode_sweep`); ``--prefill-sweep``
+times B3's bf16 tensor-core body one projection at a time, at r 0 to 64,
+beside cuBLAS's bare bf16 x@W (:func:`prefill_sweep`); ``--obs-http`` runs
 phase 6 alone (:func:`obs_http_phase`), ``--mesh`` phase 7
 (:func:`mesh_phase`), ``--zoo`` phase 8 (:func:`zoo_phase`), ``--bf16``
 phase 9 (:func:`bf16_phase`), and
@@ -1257,10 +1268,11 @@ def lora_case(torch, kernels, timer, bufs, scale, label, device_times=False):
     call runs in bf16 on the tensor cores and rounds x@w, x@a and its
     output to bf16, so its difference is printed, not held; bytes at 2 an
     input element, the bound's operations at the bf16 tensor-core peak.
-    Returns (max error, (ms, plain, library, bound, device ms, library
-    device ms))."""
+    Prints the largest error as a share of the bound. Returns (max
+    error, (ms, plain, library, bound, device ms, library device ms)).
+    """
     low = bufs[0][0].dtype == torch.bfloat16
-    err = lib_err = 0.0
+    err = lib_err = worst = 0.0
     for x, w, a, b in bufs:
         got = kernels.lora_matmul(x, w, a, b, scale)
         again = kernels.lora_matmul(x, w, a, b, scale)
@@ -1270,6 +1282,8 @@ def lora_case(torch, kernels, timer, bufs, scale, label, device_times=False):
         bound = kernels.lora_matmul_error_bound(x, w, a, b, scale)
         e = (got - want).abs()
         err = max(err, float(e.max()))
+        worst = max(worst, float((e / bound.clamp_min(
+            torch.finfo(torch.float32).tiny)).max()))
         lib_err = max(lib_err, float((lib.float() - got).abs().max()))
         ok = bool((e <= bound).all()) and (low or bool(
             ((lib - got).abs() <= bound).all()))
@@ -1302,7 +1316,8 @@ def lora_case(torch, kernels, timer, bufs, scale, label, device_times=False):
          timer.device(kernel, bound[0]) if device_times else None,
          timer.device(library, bound[0]) if device_times else None)
     ms, plain, lib, (bms, by), dev, dev_lib = t
-    print(f"  lora_matmul[{label}] max_abs_err={err:.3e} within bound"
+    print(f"  lora_matmul[{label}] max_abs_err={err:.3e} within bound "
+          f"(largest error {worst:.3e} of it)"
           + (f" (bf16; addmm bf16 {lib_err:.3e} off)" if low else "")
           + f", two runs bitwise equal; time kernel {ms:.4f} ms, plain "
           f"{plain:.4f} ms, library {lib:.4f} ms (addmm), bound {bms:.4f} "
@@ -4258,6 +4273,19 @@ BF16_SERVE = {"paper-llama3.2-3b": (8, 512, 32, 1024),
 TF_BF16 = 0.1
 
 
+def tc_calls(torch, kernels, bufs, scale, label, want):
+    """Run ``lora_matmul`` once on each of ``bufs`` and require ``want``
+    of the calls to take the tensor-core body (``bf16_tc_launches``)."""
+    before = kernels.lora_matmul.bf16_tc_launches
+    for buf in bufs:
+        kernels.lora_matmul(*buf, scale)
+    torch.cuda.synchronize()
+    got = kernels.lora_matmul.bf16_tc_launches - before
+    if got != want:
+        raise AssertionError(f"lora_matmul {label}: {got} of {len(bufs)} "
+                             f"calls took the tensor-core body, not {want}")
+
+
 def bf16_kernel_phase(torch, kernels, device):
     """B3 and B8 in bf16 against their bf16 plain versions, each within its
     bound (``lora_matmul_error_bound`` / ``swa_error_bound``, bf16 terms),
@@ -4265,14 +4293,17 @@ def bf16_kernel_phase(torch, kernels, device):
     call in bf16 (``torch.addmm`` / SDPA with ``enable_gqa``) and the bound
     at the bf16 tensor-core peak (:func:`lora_case`, :func:`flash_case`):
     B3 at each served model's q/k/v/o at prefill (batch · prompt rows) and
-    decode (batch rows), paper-llama3.2-3b's also at the serve launcher's
-    M 64, then r 1, 4 and 64 and odd K and N (the
+    decode (batch rows) and at the serve launcher's M 64 (every prefill
+    and M 64 call through the tensor-core body, every
+    decode call through split-K: :func:`tc_calls`), then r 1, 4 and 64 and
+    odd K and N (the
     scalar paths) and an x view off 16-byte alignment; B8 at d 64
     (paper-gpt2, B 8, S 512, MHA 12/12), d 128 (paper-llama3.2-3b, B 8, S
     512, GQA 24/8) and d 256 (gemma3-12b, B 2, S 2048, GQA 16/8, no window
     and window 1024); then both on the exact-rounding probes
     (:func:`bf16_probes`). Returns (max errors, timings)."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.lora_matmul import SKINNY_ROWS
     timer = Timer(torch, device)
     low = torch.bfloat16
     cfg = get_config("paper-llama3.2-3b")
@@ -4283,17 +4314,18 @@ def bf16_kernel_phase(torch, kernels, device):
     def bf16(bufs):
         return [t.to(low) for t in bufs]
 
-    # each served model's q/k/v/o at its prefill rows (batch · prompt) and
-    # its decode rows (batch), and Llama's at the serve launcher's M 64
+    # each served model's q/k/v/o at its prefill rows (batch · prompt), its
+    # decode rows (batch) and the serve launcher's M 64
     gcfg, g3 = get_config("paper-gpt2"), get_config("gemma3-12b")
     for prefix, c in (("", cfg), ("gpt2_", gcfg), ("gemma3_", g3)):
         bsz, prompt = BF16_SERVE[c.name][:2]
-        rows = [("bf16", bsz * prompt), ("bf16_decode", bsz)]
-        if c is cfg:
-            rows.append(("bf16_M64", short_prompt_rows()))
+        rows = [("bf16", bsz * prompt), ("bf16_decode", bsz),
+                ("bf16_M64", short_prompt_rows())]
         for key, m in rows:
             bufs = [bf16(lora_inputs(torch, device, m, k, n, r, seed=90 + i))
                     for i, (_, k, n) in enumerate(serving_projections(c))]
+            tc_calls(torch, kernels, bufs, scale, f"bf16 {c.name} M={m}",
+                     len(bufs) if m > SKINNY_ROWS else 0)
             err, timings[prefix + key] = lora_case(
                 torch, kernels, timer, bufs, scale,
                 f"bf16 {c.name} layer: q/k/v/o at M={m}", device_times=True)
@@ -4336,8 +4368,11 @@ def bf16_probes(torch, kernels, device, cfgs):
     """B3 and B8 on the exact-rounding probes of ``kernels/probes.py``, at
     each model of ``cfgs``' served shapes (``BF16_SERVE``): B3 at every
     q/k/v/o at the decode rows (the split-K body, each at its plan's K
-    chunks) and the prefill rows (the tiled body), then at odd K and N (the
-    scalar paths) and at K 64 (one chunk); B8 at each model's prefill
+    chunks) and the prefill rows (the tensor-core body), then at odd K and
+    N (the tiled body's scalar paths), at K 64 (one chunk) and at the
+    tensor-core body's other plans (r 1, 12, 17, 33 and 64: x@a as
+    m64nNAk16 at NA 8, 16, 32 and 64; ragged M, K and N; no second W box);
+    B8 at each model's prefill
     (causal), non-causal and at d 66 (the scalar loads). Each result must
     equal the plain version bit for bit (B3: and the exact answer), and
     differ from every faulty
@@ -4345,8 +4380,8 @@ def bf16_probes(torch, kernels, device, cfgs):
     the rounded p) in some element. Launches here are not the main path's
     (the counters are reset before it)."""
     from repro_torch.kernels import probes
-    from repro_torch.kernels.lora_matmul import (SKINNY_ROWS, _sm_count,
-                                                 _split_plan)
+    from repro_torch.kernels.lora_matmul import (SKINNY_ROWS, _adapter_rows,
+                                                 _sm_count, _split_plan)
 
     sms = _sm_count(device.index or 0)
     cases = []
@@ -4356,14 +4391,19 @@ def bf16_probes(torch, kernels, device, cfgs):
             cases += [(c.name, bsz, k, n, 4), (c.name, bsz * prompt, k, n, 4)]
     cases += [("odd", 9, 777, 333, 3), ("odd", 1, 200, 512, 64),
               ("one chunk", 4, 64, 256, 4),
-              ("odd", 17, 777, 333, 3), ("odd", 1000, 776, 333, 64)]
-    seen, plans = {}, set()
+              ("odd", 17, 777, 333, 3), ("odd", 1000, 776, 333, 64),
+              ("tc", 4095, 3072, 1024, 1), ("tc", 300, 3072, 40, 17),
+              ("tc", 1000, 3840, 2048, 33), ("tc", 17, 776, 1000, 64),
+              ("tc", 129, 3072, 1024, 12)]
+    seen, plans, padded = {}, set(), set()
     for i, (label, m, k, n, r) in enumerate(cases):
         plan = _split_plan(n, k, sms) if m <= SKINNY_ROWS else None
         chunk = plan[1] if plan else 64
         x, w, a, b, scale, want, faults = probes.lora_probe(
             m, k, n, r, chunk=chunk, device=device, seed=i)
+        tc = kernels.lora_matmul.bf16_tc_launches
         got = kernels.lora_matmul(x, w, a, b, scale)
+        tc = kernels.lora_matmul.bf16_tc_launches - tc
         plain = kernels.lora_matmul_plain(x, w, a, b, scale)
         torch.cuda.synchronize()
         diff = probes.differing(got, faults)
@@ -4375,14 +4415,18 @@ def bf16_probes(torch, kernels, device, cfgs):
                 f"== exact {torch.equal(got, want)} (max |kernel - exact| "
                 f"{float((got - want).abs().max()):.3e}); elements apart from "
                 f"the faults {diff}")
-        plans.add(plan[0] if plan else "tiled")
+        plans.add(plan[0] if plan else "tensor-core" if tc else "tiled")
+        if tc:
+            padded.add(_adapter_rows(r))
         for name, v in diff.items():
             seen[name] = seen.get(name, 0) + v
         del x, w, a, b, want, faults, got, plain
+    if not {"tensor-core", "tiled"} <= plans:
+        raise AssertionError(f"lora_matmul bf16 probes: bodies {plans}")
     print(f"  lora_matmul bf16 probes: {len(cases)} cases (split-K at "
-          f"{sorted(p for p in plans if p != 'tiled')} K chunks and the tiled "
-          f"body) bitwise the plain version and the exact answer; elements "
-          f"apart from the faulty variants {seen}", flush=True)
+          f"{sorted(p for p in plans if isinstance(p, int))} K chunks, the "
+          f"tensor-core body with x@a at N {sorted(padded)}, the tiled body) bitwise the plain version and the exact answer; "
+          f"elements apart from the faulty variants {seen}", flush=True)
     seen = {}
     flash = [(c.name, *BF16_SERVE[c.name][:2], c.num_heads, c.num_kv_heads,
               c.resolved_head_dim, True) for c in cfgs]
@@ -4410,15 +4454,20 @@ def bf16_probes(torch, kernels, device, cfgs):
     torch.cuda.empty_cache()
 
 
-def _expect_bf16(kernels, name, want):
-    """The launch counts are ``want`` (every other kernel 0), and every one
-    of them a bf16 launch."""
+def _expect_bf16(kernels, name, want, tc):
+    """The launch counts are ``want`` (every other kernel 0), every one of
+    them a bf16 launch, ``tc`` of B3's through its tensor-core body (every
+    prefill projection; no decode one)."""
     _expect(kernels, name, want)
     got = kernels.bf16_launch_counts()
     expected = {k: want.get(k, 0) for k in got}
     if got != expected:
         raise AssertionError(f"serve {name}: bf16 launches {got} != "
                              f"{expected}")
+    if kernels.lora_matmul.bf16_tc_launches != tc:
+        raise AssertionError(f"serve {name}: lora_matmul's tensor-core "
+                             f"launches {kernels.lora_matmul.bf16_tc_launches}"
+                             f" != {tc}")
 
 
 def bf16_serve(torch, kernels, device, name):
@@ -4444,7 +4493,8 @@ def bf16_serve(torch, kernels, device, name):
     logits than twice the bf16 plain path's are, plus one bf16 rounding at
     the logit scale (2⁻⁸·max|f32 logit|), and no further from the plain
     path's than three times that distance plus the same floor. Returns
-    (stats, launches of the main path, its bf16 launches)."""
+    (stats, launches of the main path, its bf16 launches, B3's tensor-core
+    launches)."""
     from dataclasses import replace
 
     from repro_torch.configs import LoRAConfig, get_config
@@ -4492,12 +4542,12 @@ def bf16_serve(torch, kernels, device, name):
         pre, cache = prefill(params, lora, batch, cache)
         torch.cuda.synchronize()
         _expect_bf16(kernels, f"{name} bf16 one prefill",
-                     {"lora_matmul": 4 * L, "flash_swa": L})
+                     {"lora_matmul": 4 * L, "flash_swa": L}, tc=4 * L)
         kernels.reset_launch_counts()
         _, dec, cache = decode(params, lora, full[:, -1:], cache, prompt)
         torch.cuda.synchronize()
         _expect_bf16(kernels, f"{name} bf16 one decode step",
-                     {"lora_matmul": 4 * L})
+                     {"lora_matmul": 4 * L}, tc=0)
         del cache
         kernels.reset_launch_counts()
         with plain_ops(kernels):
@@ -4533,10 +4583,11 @@ def bf16_serve(torch, kernels, device, name):
     res = serve(name, batch_size=bsz, prompt_len=prompt, steps=steps,
                 max_len=max_len, device=device, params=params, lora=lora)
     launches, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
+    tc = kernels.lora_matmul.bf16_tc_launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = {"lora_matmul": 4 * L * (1 + steps), "flash_swa": L}
     _expect_bf16(kernels, f"{name} bf16 serve() (1 prefill + {steps} decode "
-                 "steps)", want)
+                 "steps)", want, tc=4 * L)
     toks = res.tokens
     if toks.shape != (bsz, steps + 1) or not (
             (toks >= 0) & (toks < cfg.vocab_size)).all():
@@ -4588,24 +4639,31 @@ def bf16_serve(torch, kernels, device, name):
     del wide, lora, pre, pre_plain, pre32, f32, model
     gc.collect()
     torch.cuda.empty_cache()
-    return stats, launches, bf16
+    return stats, launches, bf16, tc
 
 
 def bf16_phase(torch, kernels, device):
-    """Phase 9: the bf16 kernels (:func:`bf16_kernel_phase`), then
-    :func:`bf16_serve` of each model of ``BF16_SERVE``, one at a time.
-    Returns (max errors, timings, launches, bf16 launches, stats)."""
+    """Phase 9: the ptxas summary of B3's tensor-core body (from the last
+    :func:`build_kernels`), the bf16 kernels (:func:`bf16_kernel_phase`),
+    then :func:`bf16_serve` of each model of ``BF16_SERVE``, one at a time.
+    Returns (max errors, timings, launches, bf16 launches, stats); the bf16
+    launches hold ``lora_matmul_tc``, B3's tensor-core launches."""
     t = time.perf_counter()
+    for line in PTXAS:
+        if line.startswith(("lora_mm_tc", "lora_mm_at")):
+            print(f"  [bf16] ptxas {line}", flush=True)
     errs, timings = bf16_kernel_phase(torch, kernels, device)
     stats = {"kernels_s": time.perf_counter() - t}
     launches = {name: 0 for name in SOURCES}
-    bf16 = {"lora_matmul": 0, "flash_swa": 0}
+    bf16 = {"lora_matmul": 0, "flash_swa": 0, "lora_matmul_tc": 0}
     for name in BF16_SERVE:
-        stats[name], got, got_bf16 = bf16_serve(torch, kernels, device, name)
+        stats[name], got, got_bf16, tc = bf16_serve(torch, kernels, device,
+                                                    name)
         for k, v in got.items():
             launches[k] += v
         for k, v in got_bf16.items():
             bf16[k] += v
+        bf16["lora_matmul_tc"] += tc
     stats["seconds"] = time.perf_counter() - t
     print(f"  [bf16] phase 9 in {stats['seconds']:.1f} s", flush=True)
     return errs, timings, launches, bf16, stats
@@ -4737,6 +4795,52 @@ def decode_sweep(torch, kernels, device, cfg) -> list:
     return rows
 
 
+def prefill_sweep(torch, kernels, device) -> list:
+    """B3's bf16 prefill body (the tensor-core body) one projection at a
+    time, at each served model's prefill rows (``BF16_SERVE``) and q, k
+    and o shapes (v's is k's), at r 0, 4, 16 and 64: device time a launch
+    (:meth:`Timer.device`) and its TFLOP/s, beside the bare bf16 product
+    ``torch.matmul(x, w)`` (cuBLAS, bf16 out, no adapter) at r 0 — what the
+    adapter adds to x@W, and how far the body's x@W is from cuBLAS's. Each
+    case is checked against the plain version within the error bound and
+    must take the tensor-core body. Returns the rows."""
+    from repro_torch.configs import get_config
+    timer, rows = Timer(torch, device), []
+    for name, (bsz, prompt, *_) in BF16_SERVE.items():
+        m = bsz * prompt
+        for proj, k, n in serving_projections(get_config(name)):
+            if proj == "v_proj":
+                continue
+            for r in (0, 4, 16, 64):
+                x, w, a, b = (t.bfloat16() for t in lora_inputs(
+                    torch, device, m, k, n, r, seed=r + k))
+                label = f"{name} {proj} M={m} K={k} N={n} r={r}"
+                tc_calls(torch, kernels, [[x, w, a, b]], 2.0, label, 1)
+                got = kernels.lora_matmul(x, w, a, b, 2.0)
+                bound = kernels.lora_matmul_error_bound(x, w, a, b, 2.0)
+                if not bool(((got - kernels.lora_matmul_plain(
+                        x, w, a, b, 2.0)).abs() <= bound).all()):
+                    raise AssertionError(f"prefill sweep {label} disagrees")
+                del got, bound
+                flops = 2 * m * n * k + 2 * m * r * (k + n)
+                ms = timer.device(lambda: kernels.lora_matmul(x, w, a, b,
+                                                              2.0))
+                mm = timer.device(lambda: torch.matmul(x, w)) if r == 0 \
+                    else None
+                rows.append({"model": name, "proj": proj, "M": m, "K": k,
+                             "N": n, "r": r, "device_ms": ms,
+                             "matmul_device_ms": mm})
+                print(f"  prefill sweep {label}: kernel {fmt_ms(ms)}"
+                      + ("" if ms is None else
+                         f" ({flops / ms / 1e9:.0f} TFLOP/s)")
+                      + ("" if r else f", torch.matmul bf16 {fmt_ms(mm)}"
+                         + ("" if mm is None else
+                            f" ({2 * m * n * k / mm / 1e9:.0f} TFLOP/s)")),
+                      flush=True)
+                del x, w, a, b
+    return rows
+
+
 def launch_cost_main(src: str) -> int:
     """``--launch-cost SRC``: :func:`launch_cost` of the port found under
     ``SRC`` (this checkout's ``src`` or another tree's, to compare two
@@ -4776,6 +4880,23 @@ def decode_sweep_main() -> int:
     print(smi_line(), flush=True)
     rows = decode_sweep(torch, kernels, torch.device("cuda", 0), cfg)
     print(json.dumps({"decode_sweep": rows}), flush=True)
+    return 0
+
+
+def prefill_sweep_main() -> int:
+    """``--prefill-sweep``: :func:`prefill_sweep` on this checkout's
+    port."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch import kernels
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(smi_line(), flush=True)
+    rows = prefill_sweep(torch, kernels, torch.device("cuda", 0))
+    print(json.dumps({"prefill_sweep": rows}), flush=True)
     return 0
 
 
@@ -4832,10 +4953,13 @@ def mesh_main() -> int:
     return 0
 
 
+PTXAS = []  # the ptxas summary lines of the last build_kernels
+
+
 def build_kernels(kbuild, label):
     """Build every kernel library (one ``nvcc`` a source, in parallel) and
     load it; print the build and the ptxas summaries of the kernels that
-    ``ptxas_summary`` reads."""
+    ``ptxas_summary`` reads (kept in ``PTXAS``)."""
     t = time.perf_counter()
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
@@ -4852,6 +4976,7 @@ def build_kernels(kbuild, label):
                                .split("\nnvcc ")[0], prefix)
         for line in report or [f"{lib}: library already built, no ptxas "
                                "report"]:
+            PTXAS.append(line)
             print(f"  ptxas {line}", flush=True)
 
 
@@ -4959,6 +5084,8 @@ def main() -> int:
         return launch_cost_main(sys.argv[2])
     if len(sys.argv) == 2 and sys.argv[1] == "--decode-sweep":
         return decode_sweep_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--prefill-sweep":
+        return prefill_sweep_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--obs-http":
         return obs_http_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--mesh":
@@ -5143,14 +5270,15 @@ def main() -> int:
                           zoo_timings["factor_mean"])):
         out[list(SOURCES).index(name)].update(timing_fields(key, t))
     # bf16 (phase 9): B3 at one prefill and one decode layer of each served
-    # model and Llama's at the serve launcher's M 64; B8 at d 128 (Llama),
+    # model and at the serve launcher's M 64; B8 at d 128 (Llama),
     # 64 (GPT-2) and 256 (gemma3, no window and window 1024); the bf16
     # launches of phase 9's serve() runs and the largest bf16
     # kernel-vs-plain error
     for name, key, t in (
             *(("lora_matmul", key, bf16_timings[key]) for key in (
                 "bf16", "bf16_decode", "bf16_M64", "gpt2_bf16",
-                "gpt2_bf16_decode", "gemma3_bf16", "gemma3_bf16_decode")),
+                "gpt2_bf16_decode", "gpt2_bf16_M64", "gemma3_bf16",
+                "gemma3_bf16_decode", "gemma3_bf16_M64")),
             ("flash_swa", "bf16", bf16_timings["flash_bf16"]),
             ("flash_swa", "bf16_gpt2", bf16_timings["flash_bf16_gpt2"]),
             ("flash_swa", "bf16_gemma3", bf16_timings["flash_bf16_gemma3"]),
@@ -5161,6 +5289,9 @@ def main() -> int:
         out[list(SOURCES).index(name)].update({
             "bf16_launches": bf16_launches[name],
             "bf16_max_abs_err": bf16_errs[name]})
+    # B3's tensor-core body (bf16 prefill): its launches in phase 9's serve()
+    out[list(SOURCES).index("lora_matmul")]["bf16_tc_launches"] = \
+        bf16_launches["lora_matmul_tc"]
     # B5 beside its old body (product_fold in place), and at the chunk of
     # 64 uplinks at r = 8 that docs/benchmarks.md documents
     ms, _, lib_ms, (bms, by), *_ = lane_timings["product_accum[C64r8]"]

@@ -19,7 +19,8 @@
   fold of the hetero close; replaces ``hetero_fold_apply``.
 * :func:`lora_matmul` (``lora_matmul.py``, ``csrc/lora_matmul.cu``) — the
   fused LoRA projection x@W + scale·(x@a)@b of serving (via
-  :func:`lora_dense`); replaces ``lora_matmul``.
+  :func:`lora_dense`; bf16 prefill on the tensor cores, counted in
+  ``lora_matmul.bf16_tc_launches``); replaces ``lora_matmul``.
 * :func:`flash_swa` (``flash_swa.py``, ``csrc/flash_swa.cu``) — causal /
   sliding-window flash attention forward, the prefill attention of serving
   (via :func:`swa_attention`, GQA in place); replaces ``flash_swa``.
@@ -64,6 +65,7 @@ def reset_launch_counts() -> None:
         fn.launches = 0
     for fn in BF16_KERNELS:
         fn.bf16_launches = 0
+    lora_matmul.bf16_tc_launches = 0
 
 
 def launch_counts() -> dict:

@@ -9,32 +9,36 @@
 // M, N, K: ragged tiles are zero-filled on load and masked on store (the TPU
 // kernel zero-pads to its tiles).
 //
-// Arithmetic: IEEE f32 FMAs on CUDA cores. Hopper's tensor cores take f32
-// only as TF32, which the port keeps off, so this is a SIMT GEMM.
+// Arithmetic: f32 operands run IEEE f32 FMAs on CUDA cores (Hopper's
+// tensor cores take f32 only as TF32, which the port keeps off): SIMT
+// bodies. bf16 operands (the reference's serving dtype) at M > 16 run on
+// the tensor cores (the tensor-core body below) where TMA can describe x
+// and W; elsewhere the SIMT bodies take them too.
 //
-// bf16 (the reference's serving dtype): every kernel is a template on the
-// element type T. A bf16 x bf16 product is exact in f32, so bf16 operands
-// are widened to f32 as they are staged and the shared-memory layouts, FMA
-// loops and sums are f32's. As the TPU kernel, x@a is summed in f32 over
-// the whole K and rounded once to bf16 (b's dtype, round to nearest even)
-// before the epilogue multiplies it by b: in the tiled body where the
-// prepass writes it, in the split-K body after the cluster has folded the
-// chunks' partials. cp.async copies bytes and has no 2-byte form, so bf16
-// stages through registers where f32 uses cp.async (16-byte loads of 8 bf16
-// converted to two float4 in the tiled body; single elements elsewhere),
+// bf16 in the SIMT bodies: every kernel is a template on the element type
+// T. A bf16 x bf16 product is exact in f32, so bf16 operands are widened to
+// f32 as they are staged and the shared-memory layouts, FMA loops and sums
+// are f32's. cp.async copies bytes and has no 2-byte form, so bf16 stages
+// through registers where f32 uses cp.async (single elements in the tiled
+// body, which bf16 reaches only with odd K or N or an unaligned x or W),
 // except for the split-K body's W and a streams, which cp.async 8 bytes (4
 // bf16) into the same 16-byte ring slots and widen them when a slot is
-// read. So bf16 keeps f32's shared memory (tiled_smem, splitk_smem) and
-// the wrapper's plan; the tiled body's bf16 loads are not asynchronous.
+// read. So bf16 keeps f32's shared memory (tiled_smem, splitk_smem) and the
+// wrapper's plan. In every body, as the TPU kernel, x@a is summed in f32
+// over the whole K and rounded once to bf16 (b's dtype, round to nearest
+// even) before it is multiplied by b: where the prepass writes it (the
+// tiled body), after the tensor-core body's K loop, in the split-K body
+// after the cluster has folded the chunks' partials.
 //
-// Two bodies, picked by the caller from M:
+// Three bodies, picked by the caller from M, the dtype and alignment:
 //
-// * tiled (prefill, M > 16), two grids.
+// * tiled (f32 prefill, M > 16; bf16 where TMA cannot describe x or W),
+//   two grids.
 //   - A prepass writes xa = x@a (M x r) into the caller's work buffer, so
 //     the GEMM's K loop holds no adapter work. At r <= 4 with float4-
-//     aligned x rows (prefill) lora_mm_xa4 reads x once, streaming (50 MB
-//     at prefill q_proj: 15 us at 3.35 TB/s); otherwise lora_mm_xa64 stages
-//     x and a through shared memory, 32 rows of x a block.
+//     aligned f32 x rows (prefill) lora_mm_xa4 reads x once, streaming (50
+//     MB at prefill q_proj: 15 us at 3.35 TB/s); otherwise lora_mm_xa64
+//     stages x and a through shared memory, 32 rows of x a block.
 //   - The GEMM (lora_mm_tiled) runs one block of 256 threads per 128 x 128
 //     output tile, tiles grouped by 8 row panels so that the blocks in
 //     flight share W's column panels and x's row panels in L2. K streams
@@ -56,6 +60,45 @@
 //     are 16-byte aligned.
 //   Bound on the card: operations, 2*M*N*K + 2*M*r*(K + N) f32 FLOPs
 //   (prefill q_proj at M = 4096: 77 GFLOP, 1.15 ms at 67 TFLOP/s).
+// * tensor-core (bf16 prefill, M > 16, K % 8 == 0, N % 8 == 0, x and W
+//   16-byte aligned: what TMA can describe), two grids: lora_mm_at writes
+//   a^T zero-padded to NA rows (NA = r rounded up to 8, 16, 32 or 64) into
+//   the work buffer (NA * K bf16: 48 KB at Llama's r 4, against the 25 MB
+//   of x a prepass reads), then lora_mm_tc. The SIMT body widened bf16 to
+//   f32 through registers and ran on f32 CUDA cores, 4% of the bf16 bound
+//   (5.24 ms for a Llama prefill layer against 0.21); the bound is the
+//   tensor cores' 989 TFLOP/s, so the products have to run there and
+//   their operands have to arrive without threads. A persistent grid (one
+//   block of three warpgroups an SM) walks the 128 x 128 output tiles. The
+//   producer warpgroup (40 registers after setmaxnreg) has one thread
+//   stream K in slices of 64 through a ring of 4-5 shared-memory stages
+//   with TMA: x's 128 x 64 box (K-major), W's two 64 x 64 boxes (N-major:
+//   W is read as it lies, never transposed) and a^T's NA x 64 box
+//   (K-major), all with 128-byte swizzle, each stage's arrival on a `full`
+//   mbarrier; its other three warps stage b's r x 128 panel of the next
+//   tile while the consumers run this one. Two consumer warpgroups (232
+//   registers) each own 64 rows of the tile and issue, per k16 step,
+//   wgmma.mma_async m64n128k16 (x@W, 64 f32 registers a thread; W through
+//   the instruction's transpose bit) and m64nNAk16 (x@a, its own f32
+//   accumulator) straight from the swizzled stages; a slice's products stay
+//   in flight while the next slice's are issued, and a stage goes back to
+//   the producer (`empty` mbarrier) once its products are done. TMA
+//   zero-fills the ragged M, N and K edges; the store masks rows and
+//   columns. Epilogue, in the plain version's order: x@a, summed in f32
+//   over the whole K, is rounded to bf16 once and stored into the tile's
+//   x@a rows (K-major swizzled), and a third wgmma (K = NA, at least 16)
+//   puts (x@a)@b, from b's panel, in its own accumulator; y = acc +
+//   scale * acc2 (no contraction), stored as float2. x@a comes from a
+//   second accumulator in the K loop, not from the tiled body's prepass:
+//   the prepass reads all of x again for every projection and the epilogue
+//   then waits on the tile's x@a rows, while the K loop has the x slices
+//   in shared memory already and pays NA/128 more tensor-core work. Bound on
+//   the card: operations, 2*M*N*K + 2*M*r*(K + N) at 989 TFLOP/s (a Llama
+//   prefill layer: 206 GFLOP, 0.21 ms). The tensor cores sum each k16
+//   step's products in f32 but do not round as IEEE FMAs do; the wrapper's
+//   lora_matmul_error_bound holds them all the same (chip_smoke.py prints
+//   each served shape's largest error as a share of it). Every sum has a
+//   fixed order: two runs are bitwise equal.
 // * split-K (decode, M <= 16), one grid: the tiled body at M = 8 would run
 //   24-48 blocks on 132 SMs and 16x the needed FMAs. A block streams one K
 //   chunk of W's rows for bn columns once, each thread 16 rows of 16 bytes
@@ -73,10 +116,11 @@
 //   times the body at every plan of splits and bn; PERF.md has what it
 //   measured and what holds the body back.
 //
-// Both bodies sum in another order than torch.matmul; the wrapper's
+// Every body sums in another order than torch.matmul; the wrapper's
 // lora_matmul_error_bound states how far two evaluations may differ.
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -111,12 +155,9 @@ __device__ __forceinline__ float ldg1(const bf16* p) {
       (unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
 }
 
-// 4 consecutive elements (16-byte aligned f32, 8-byte aligned bf16) as f32
+// 4 consecutive f32 (16-byte aligned)
 __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
-}
-__device__ __forceinline__ float4 ldg4(const bf16* p) {
-  return widen4(__ldg(reinterpret_cast<const uint2*>(p)));
 }
 
 // v rounded to T (x@a's cast to b's dtype), kept as f32
@@ -197,11 +238,12 @@ __device__ __forceinline__ void stage1(float* dst, const bf16* src,
 // and W columns [n0, n0+BN). Each thread keeps two running source pointers
 // (advanced one slice a call) and its fixed shared-memory offsets, so a
 // copy costs an address add, not a 64-bit product: the loop's registers go
-// to the accumulators. A copy moves E elements: 16 bytes where kVec (4 f32
-// by cp.async; 8 bf16 by one load, widened into two float4), else one.
+// to the accumulators. A copy moves E elements: 4 f32 by a 16-byte cp.async
+// where kVec (f32 only: aligned bf16 takes the tensor-core body), else one.
 template <typename T, bool kVec>
 struct SliceLoader {
-  static constexpr int E = kVec ? 16 / (int)sizeof(T) : 1;
+  static_assert(kF32<T> || !kVec, "aligned bf16 takes the tensor-core body");
+  static constexpr int E = kVec ? 4 : 1;
   // x: XV copies a row, XR rows a pass, XU passes; W: WV copies a row, WR
   // rows a pass, WU passes
   static constexpr int XV = BK / E;
@@ -236,13 +278,8 @@ struct SliceLoader {
 
   __device__ __forceinline__ void copy(float* dst, const T* src,
                                        bool ok) const {
-    if constexpr (kF32<T> && kVec) {
+    if constexpr (kVec) {
       cp_async16(dst, ok ? src : x, ok ? 16 : 0);
-    } else if constexpr (kVec) {  // 8 bf16: two float4
-      uint4 u = make_uint4(0u, 0u, 0u, 0u);
-      if (ok) u = __ldg(reinterpret_cast<const uint4*>(src));
-      *reinterpret_cast<float4*>(dst) = widen4(make_uint2(u.x, u.y));
-      *reinterpret_cast<float4*>(dst + 4) = widen4(make_uint2(u.z, u.w));
     } else {
       stage1(dst, src, x, ok);
     }
@@ -401,15 +438,15 @@ __global__ void __launch_bounds__(NT, 1)
 // --------------------------------------------------------- x@a prepass
 constexpr int XA_THREADS = 256;
 
-// r <= 4 and float4-aligned x rows: xa[m0 + i, c] = sum_k x[m0 + i, k] a[k, c]
-// for the block's 16 rows from m0 = blockIdx.x * 16. Thread t takes
+// f32, r <= 4 and float4-aligned x rows: xa[m0 + i, c] =
+// sum_k x[m0 + i, k] a[k, c] for the block's 16 rows from
+// m0 = blockIdx.x * 16. Thread t takes
 // k = 4t, 4(t + 256), ...: it reads x as float4 and a's 4 rows there once
 // for all 16 rows, so the block reads each x row in 4 KB runs and the grid
 // reads x once at close to the card's memory rate. No barrier until the
 // sums over the warp's lanes (butterfly) and the 8 warps (shared memory).
-template <typename T>
 __global__ void __launch_bounds__(XA_THREADS)
-    lora_mm_xa4(const T* __restrict__ x, const T* __restrict__ a,
+    lora_mm_xa4(const float* __restrict__ x, const float* __restrict__ a,
                 float* __restrict__ xa, int M, int K, int r) {
   constexpr int RB = 16, RC = 4;
   // the GEMM grid may launch now: it reads x@a only after griddepcontrol.wait
@@ -457,7 +494,7 @@ __global__ void __launch_bounds__(XA_THREADS)
       float t = 0.f;
 #pragma unroll
       for (int w8 = 0; w8 < XA_THREADS / 32; ++w8) t += part[w8][tid];
-      xa[(size_t)(m0 + i) * r + c] = round_to<T>(t);
+      xa[(size_t)(m0 + i) * r + c] = t;
     }
   }
 }
@@ -528,6 +565,464 @@ __global__ void __launch_bounds__(XA_THREADS)
     for (int j = 0; j < 8; ++j) {
       const int c = (j < 4 ? 4 * g : 32 + 4 * g) + (j & 3);
       if (c < r) xa[(size_t)m * r + c] = round_to<T>(acc[j]);
+    }
+  }
+}
+
+// -------------------------------------------------------- tensor-core
+// bf16, M > 16, x and W described by TMA (K % 8 == 0, N % 8 == 0, both
+// 16-byte aligned). A persistent grid (at most one block an SM) walks the
+// 128 x 128 output tiles in the tiled body's grouped order. Shared memory,
+// from a 1024-byte aligned base (what the 128-byte swizzle repeats over):
+// the stages of the ring, each [x box 128 rows x 128 B | W box, columns
+// n0.. : 64 K rows x 128 B | W box, columns n0 + 64.. | a^T box NA rows x
+// 128 B]; the tile's x@a rows (128 x 128 B, K-major like x); b's panel
+// (two halves of kMaxRank rows x 128 B, N-major like W); the mbarriers.
+// NA, the adapter's rank padded to 8, 16, 32 or 64 (0: no adapter), is a
+// template argument: the x@a product is m64nNAk16.
+constexpr int TC_BM = 128, TC_BN = 128, TC_BK = 64;
+constexpr int TC_THREADS = 384;  // producer, two consumer warpgroups
+constexpr int TC_X_BYTES = TC_BM * TC_BK * 2;  // 16 KB
+constexpr int TC_W_HALF = TC_BK * 64 * 2;      // 8 KB
+constexpr int TC_XA_BYTES = TC_BM * 128;
+constexpr int TC_B_HALF = kMaxRank * 128;
+constexpr int TC_LOADERS = 96;  // the producer's warps 1-3 stage b's panel
+constexpr long long kWaitCycles = 1LL << 33;  // ~4 s: a lost arrival traps
+
+// K slices in the ring: 5, or 4 where a^T's box is 4-8 KB
+__host__ __device__ constexpr int tc_stages(int na) { return na >= 32 ? 4 : 5; }
+__host__ __device__ constexpr int tc_stage_bytes(int na) {
+  return TC_X_BYTES + 2 * TC_W_HALF + na * 128;
+}
+__host__ __device__ constexpr size_t tc_smem(int na) {
+  return 1024 + (size_t)tc_stages(na) * tc_stage_bytes(na) + TC_XA_BYTES +
+         2 * TC_B_HALF + (2 * tc_stages(na) + 2) * 8;
+}
+static_assert(tc_smem(0) <= 232448 && tc_smem(8) <= 232448 &&
+                  tc_smem(16) <= 232448 && tc_smem(32) <= 232448 &&
+                  tc_smem(64) <= 232448,
+              "one block an SM");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_test(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n\t.reg .pred p;\n\t"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+      "selp.u32 %0, 1, 0, p;\n\t}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// until the phase of `parity` has completed; a wait that outlasts
+// kWaitCycles traps (the launch fails) rather than hang the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_test(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_test(bar, parity))
+    if (clock64() - t0 > kWaitCycles) __trap();
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// TMA: the box of `map` at (c0 innermost, c1) into shared memory at dst,
+// its bytes counted on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// generic-proxy stores to shared memory become visible to wgmma and TMA
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand at `addr`:
+// 8-row groups 1024 bytes apart (SBO); `lbo` bytes between 64-element
+// column blocks of an N-major operand (unused, 16, for a K-major one)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads or writes across the
+// asynchronous products
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] += A[64 x 16] @ B[16 x 128], bf16 in, f32 accumulate; A
+// K-major, B N-major (transpose bit set)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n\t}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d[64 x N] += A[64 x 16] @ B[16 x N], both K-major (x@a: A the x box, B
+// the a^T box), N = 8, 16, 32 or 64
+template <int N>
+__device__ __forceinline__ void wgmma_xa(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_xa<8>(float (&d)[4], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %6, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, 0, 0;\n\t}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_xa<16>(float (&d)[8], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %10, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n\t}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_xa<32>(float (&d)[16], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %18, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n\t}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_xa<64>(float (&d)[32], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n\t}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// the byte offset of element (row, col) of a 128-byte-swizzled box whose
+// rows are 128 bytes (64 bf16): the 16-byte chunk index XORed with row % 8,
+// as TMA writes it
+__device__ __forceinline__ uint32_t sw128_offset(int row, int col) {
+  return (uint32_t)(row * 128 + ((((col >> 3) ^ row) & 7) << 4) +
+                    ((col & 7) << 1));
+}
+
+// (m0, n0) of tile t: groups of GROUP_M row panels, column by column in a
+// group (the tiled body's order)
+__device__ __forceinline__ void tc_tile(int t, int tiles_m, int tiles_n,
+                                        int& m0, int& n0) {
+  const int per_group = GROUP_M * tiles_n;
+  const int group = t / per_group, first = group * GROUP_M;
+  const int rows_in = min(GROUP_M, tiles_m - first);
+  const int in_group = t - group * per_group;
+  m0 = (first + in_group % rows_in) * TC_BM;
+  n0 = (in_group / rows_in) * TC_BN;
+}
+
+// a (K, r) as a^T zero-padded to na rows, (na, K) row-major: the K-major
+// box that TMA gives the x@a product
+__global__ void __launch_bounds__(256)
+    lora_mm_at(const bf16* __restrict__ a, bf16* __restrict__ at, int K,
+               int r, int na) {
+  // the GEMM grid may launch now: its TMA waits with griddepcontrol.wait
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (i >= (long long)na * K) return;
+  const int n = (int)(i / K), k = (int)(i - (long long)n * K);
+  at[i] = n < r ? a[(size_t)k * r + n] : __float2bfloat16_rn(0.f);
+}
+
+// y = x @ w + scale * bf16(x @ a) @ b over the block's tiles; at = a^T
+// padded to NA rows (unread if NA = 0, r = 0)
+template <int NA>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    lora_mm_tc(const __grid_constant__ CUtensorMap tmx,
+               const __grid_constant__ CUtensorMap tmw,
+               const __grid_constant__ CUtensorMap tma,
+               const bf16* __restrict__ b, float* __restrict__ y, int M,
+               int N, int K, int r, float scale) {
+  constexpr int S = tc_stages(NA), SB = tc_stage_bytes(NA);
+  constexpr int KA = NA <= 16 ? 16 : NA;  // the adapter product's K
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
+  unsigned char* gbase = smem_raw + pad;  // the same address, generic
+  const uint32_t base = raw + pad;
+  const uint32_t xa_s = base + S * SB;
+  const uint32_t b_s = xa_s + TC_XA_BYTES;
+  const uint32_t full0 = b_s + 2 * TC_B_HALF;  // full[s] at full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * S;
+  const uint32_t bfull = empty0 + 8 * S, bempty = bfull + 8;
+
+  const int tiles_m = (M + TC_BM - 1) / TC_BM;
+  const int tiles_n = (N + TC_BN - 1) / TC_BN;
+  const int tiles = tiles_m * tiles_n;
+  const int nk = (K + TC_BK - 1) / TC_BK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);   // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, 2);  // one arrival a consumer warpgroup
+    }
+    mbar_init(bfull, TC_LOADERS);  // b's panel staged
+    mbar_init(bempty, 2);          // and read by both consumer warpgroups
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (NA == 8) {  // the x@a rows' columns 8..15: zero for good
+    for (int i = threadIdx.x; i < TC_XA_BYTES / 4; i += TC_THREADS)
+      reinterpret_cast<uint32_t*>(gbase + (xa_s - base))[i] = 0u;
+    fence_async_smem();
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x < 128) {  // producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp == 0) {
+      if (lane == 0) {  // TMA: x, W and a^T, slice by slice
+        // a^T comes from the grid before (a programmatic dependent launch)
+        if (NA > 0) asm volatile("griddepcontrol.wait;\n" ::: "memory");
+        int it = 0;
+        for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+          int m0, n0;
+          tc_tile(t, tiles_m, tiles_n, m0, n0);
+          // W's second box lies past N when N - n0 <= 64: not loaded (its
+          // columns are never stored)
+          const bool second = n0 + 64 < N;
+          const uint32_t bytes =
+              TC_X_BYTES + (second ? 2 : 1) * TC_W_HALF + NA * 128;
+          for (int kt = 0; kt < nk; ++kt, ++it) {
+            const int s = it % S;
+            mbar_wait(empty0 + 8 * s, ((it / S) & 1) ^ 1);
+            mbar_expect_tx(full0 + 8 * s, bytes);
+            const uint32_t st = base + s * SB, bar = full0 + 8 * s;
+            const int k0 = kt * TC_BK;
+            tma_load(st, &tmx, k0, m0, bar);
+            tma_load(st + TC_X_BYTES, &tmw, n0, k0, bar);
+            if (second)
+              tma_load(st + TC_X_BYTES + TC_W_HALF, &tmw, n0 + 64, k0, bar);
+            if (NA > 0)
+              tma_load(st + TC_X_BYTES + 2 * TC_W_HALF, &tma, k0, 0, bar);
+          }
+        }
+      }
+    } else if (NA > 0) {  // warps 1-3: b's r x 128 panel of each tile
+      const int lt = threadIdx.x - 32;
+      int j = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
+        int m0, n0;
+        tc_tile(t, tiles_m, tiles_n, m0, n0);
+        mbar_wait(bempty, (j & 1) ^ 1);
+        // rows [0, KA) (zero past r and past N), N-major swizzled
+        for (int idx = lt; idx < KA * TC_BN; idx += TC_LOADERS) {
+          const int q = idx / TC_BN, n = idx % TC_BN;
+          unsigned short v = 0;
+          if (q < r && n0 + n < N)
+            v = __ldg(reinterpret_cast<const unsigned short*>(b) +
+                      (size_t)q * N + n0 + n);
+          *reinterpret_cast<unsigned short*>(
+              gbase + (b_s - base) + (n >> 6) * TC_B_HALF +
+              sw128_offset(q, n & 63)) = v;
+        }
+        fence_async_smem();
+        mbar_arrive(bfull);
+      }
+    }
+  } else {  // two consumer warpgroups, 64 rows of each tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int ct = threadIdx.x - 128;  // 0..255
+    const int wg = ct >> 7;
+    const int row0 = wg * 64;          // the warpgroup's first row
+    const uint32_t xrow = row0 * 128;  // its rows in the x box
+    // the accumulator fragment: register 4j + 2h + c holds row
+    // 16 (warp in the warpgroup) + lane / 4 + 8h, column 8j + 2 (lane % 4) + c
+    const int fr = ((ct & 127) >> 5) * 16 + (lane >> 2);
+    const int fc = (lane & 3) * 2;
+    int it = 0, j = 0;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++j) {
+      int m0, n0;
+      tc_tile(t, tiles_m, tiles_n, m0, n0);
+      float acc[64];
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+      float xacc[NA > 0 ? NA / 2 : 1];
+#pragma unroll
+      for (int i = 0; i < (NA > 0 ? NA / 2 : 1); ++i) xacc[i] = 0.f;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % S;
+        mbar_wait(full0 + 8 * s, (it / S) & 1);
+        const uint32_t st = base + s * SB;
+        fence_regs(acc);
+        if constexpr (NA > 0) fence_regs(xacc);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < TC_BK / 16; ++kk) {
+          const uint64_t dx = sw128_desc(st + xrow + kk * 32, 16);
+          wgmma_m64n128k16(
+              acc, dx,
+              sw128_desc(st + TC_X_BYTES + kk * 16 * 128, TC_W_HALF));
+          if constexpr (NA > 0)
+            wgmma_xa<NA>(xacc, dx,
+                         sw128_desc(st + TC_X_BYTES + 2 * TC_W_HALF + kk * 32,
+                                    16));
+        }
+        wgmma_commit();
+        fence_regs(acc);
+        if constexpr (NA > 0) fence_regs(xacc);
+        // the previous slice's products are done: its stage goes back
+        wgmma_wait<1>();
+        fence_regs(acc);
+        if constexpr (NA > 0) fence_regs(xacc);
+        if (kt > 0 && (ct & 127) == 0)
+          mbar_arrive(empty0 + 8 * ((it - 1) % S));
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (nk > 0 && (ct & 127) == 0) mbar_arrive(empty0 + 8 * ((it - 1) % S));
+
+      if constexpr (NA > 0) {
+        fence_regs(xacc);
+        // x@a over the whole K, rounded to bf16 once, into the warpgroup's
+        // rows of the x@a box (K-major swizzled)
+#pragma unroll
+        for (int jj = 0; jj < NA / 8; ++jj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const __nv_bfloat162 v = __floats2bfloat162_rn(
+                xacc[4 * jj + 2 * h], xacc[4 * jj + 2 * h + 1]);
+            *reinterpret_cast<__nv_bfloat162*>(
+                gbase + (xa_s - base) +
+                sw128_offset(row0 + fr + 8 * h, 8 * jj + fc)) = v;
+          }
+        fence_async_smem();
+        // the warpgroup's rows are in place (named barrier 1 + wg)
+        asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+        mbar_wait(bfull, j & 1);  // b's panel of this tile
+        float ad[64];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) ad[i] = 0.f;
+        fence_regs(ad);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KA / 16; ++kk)
+          wgmma_m64n128k16(ad, sw128_desc(xa_s + xrow + kk * 32, 16),
+                           sw128_desc(b_s + kk * 16 * 128, TC_B_HALF));
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(ad);
+        if ((ct & 127) == 0) mbar_arrive(bempty);
+        // the plain version's order: base + scale * adapter
+#pragma unroll
+        for (int i = 0; i < 64; ++i)
+          acc[i] = __fadd_rn(acc[i], __fmul_rn(scale, ad[i]));
+      }
+
+      const int rr = m0 + row0 + fr;
+#pragma unroll
+      for (int jj = 0; jj < TC_BN / 8; ++jj) {
+        const int c = n0 + fc + 8 * jj;
+        if (c >= N) continue;  // N is even: c + 1 < N too
+        if (rr < M)
+          *reinterpret_cast<float2*>(y + (size_t)rr * N + c) =
+              make_float2(acc[4 * jj], acc[4 * jj + 1]);
+        if (rr + 8 < M)
+          *reinterpret_cast<float2*>(y + (size_t)(rr + 8) * N + c) =
+              make_float2(acc[4 * jj + 2], acc[4 * jj + 3]);
+      }
     }
   }
 }
@@ -818,20 +1313,154 @@ cudaError_t launch_splitk(const T* x, const T* w, const T* a, const T* b,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query (so the library needs no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+cudaError_t encoder(EncodeTiled* fn) {
+  static EncodeTiled cached = nullptr;
+  if (cached == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || p == nullptr)
+      return cudaErrorNotSupported;
+    cached = reinterpret_cast<EncodeTiled>(p);
+  }
+  *fn = cached;
+  return cudaSuccess;
+}
+
+// a row-major bf16 (rows, cols) matrix as TMA boxes of box_rows x 64
+// columns (128 bytes, 128-byte swizzle), zero-filled past its edges; the
+// caller promises a 16-byte aligned p and cols % 8 == 0
+cudaError_t bf16_map(CUtensorMap* map, const bf16* p, int rows, int cols,
+                     int box_rows) {
+  EncodeTiled encode;
+  cudaError_t err = encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(p), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// SMs of the current device (queried once a device)
+cudaError_t sm_count(int* sms) {
+  constexpr int kDevices = 64;
+  static int count[kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kDevices && count[dev] > 0) {
+    *sms = count[dev];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < kDevices) count[dev] = *sms;
+  return err;
+}
+
+template <int NA>
+cudaError_t launch_tc_grid(const CUtensorMap& tmx, const CUtensorMap& tmw,
+                           const CUtensorMap& tma, const bf16* b, float* y,
+                           int M, int N, int K, int r, float scale,
+                           unsigned grid, cudaStream_t st) {
+  cudaError_t err = allow_smem<lora_mm_tc<NA>>(tc_smem(NA));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(TC_THREADS);
+  cfg.dynamicSmemBytes = tc_smem(NA);
+  cfg.stream = st;
+  // the GEMM grid may start while lora_mm_at runs: its TMA thread waits
+  // for a^T with griddepcontrol.wait
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = pdl;
+  cfg.numAttrs = NA > 0 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, lora_mm_tc<NA>, tmx, tmw, tma, b, y, M, N,
+                           K, r, scale);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// the tensor-core body: a^T (padded to NA rows) into `work`, then the GEMM
+// grid, one block an SM at most
+cudaError_t launch_tc(const bf16* x, const bf16* w, const bf16* a,
+                      const bf16* b, float* y, float* work, int M, int N,
+                      int K, int r, float scale, cudaStream_t st) {
+  const int na = r == 0 ? 0 : r <= 8 ? 8 : r <= 16 ? 16 : r <= 32 ? 32 : 64;
+  CUtensorMap tmx, tmw, tma;
+  cudaError_t err;
+  if ((err = bf16_map(&tmx, x, M, K, TC_BM)) != cudaSuccess) return err;
+  if ((err = bf16_map(&tmw, w, K, N, TC_BK)) != cudaSuccess) return err;
+  tma = tmx;  // unread without an adapter
+  if (na > 0) {
+    bf16* at = reinterpret_cast<bf16*>(work);
+    if (at == nullptr) return cudaErrorInvalidValue;
+    if ((err = bf16_map(&tma, at, na, K, na)) != cudaSuccess) return err;
+    const long long total = (long long)na * K;
+    lora_mm_at<<<(unsigned)((total + 255) / 256), 256, 0, st>>>(a, at, K, r,
+                                                                  na);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  int sms = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
+  const long long tiles =
+      (long long)((M + TC_BM - 1) / TC_BM) * ((N + TC_BN - 1) / TC_BN);
+  const unsigned grid = (unsigned)(tiles < sms ? tiles : sms);
+  switch (na) {
+    case 0:
+      return launch_tc_grid<0>(tmx, tmw, tma, b, y, M, N, K, r, scale, grid, st);
+    case 8:
+      return launch_tc_grid<8>(tmx, tmw, tma, b, y, M, N, K, r, scale, grid, st);
+    case 16:
+      return launch_tc_grid<16>(tmx, tmw, tma, b, y, M, N, K, r, scale, grid, st);
+    case 32:
+      return launch_tc_grid<32>(tmx, tmw, tma, b, y, M, N, K, r, scale, grid, st);
+    default:
+      return launch_tc_grid<64>(tmx, tmw, tma, b, y, M, N, K, r, scale, grid, st);
+  }
+}
+
 template <typename T>
 cudaError_t run(const T* x, const T* w, const T* a, const T* b, float* y,
                 float* work, int M, int N, int K, int r, float scale,
                 int splits, int kc, int bn, int vec, cudaStream_t st) {
   cudaError_t err;
   if (splits == 0) {
-    if (r > 0 && work == nullptr) return cudaErrorInvalidValue;
     const long long tiles =
         (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
     if (tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+    if constexpr (!kF32<T>) {  // aligned bf16: the tensor cores
+      if (vec) return launch_tc(x, w, a, b, y, work, M, N, K, r, scale, st);
+    }
+    if (r > 0 && work == nullptr) return cudaErrorInvalidValue;
     if (r > 0) {
-      if (r <= 4 && vec)
-        lora_mm_xa4<T><<<(M + 15) / 16, XA_THREADS, 0, st>>>(x, a, work, M, K,
-                                                             r);
+      if (kF32<T> && r <= 4 && vec)
+        lora_mm_xa4<<<(M + 15) / 16, XA_THREADS, 0, st>>>(
+            reinterpret_cast<const float*>(x),
+            reinterpret_cast<const float*>(a), work, M, K, r);
       else
         lora_mm_xa64<T><<<(M + XW_ROWS - 1) / XW_ROWS, XA_THREADS, 0, st>>>(
             x, a, work, M, K, r);
@@ -850,12 +1479,18 @@ cudaError_t run(const T* x, const T* w, const T* a, const T* b, float* y,
     pdl[0].val.programmaticStreamSerializationAllowed = 1;
     cfg.attrs = pdl;
     cfg.numAttrs = r > 0 ? 1 : 0;
-    if (vec) {
-      if ((err = allow_smem<lora_mm_tiled<T, true>>(smem)) != cudaSuccess) return err;
-      err = cudaLaunchKernelEx(&cfg, lora_mm_tiled<T, true>, x, w,
-                               (const float*)work, b, y, M, N, K, r, scale);
+    if (kF32<T> && vec) {
+      if ((err = allow_smem<lora_mm_tiled<float, true>>(smem)) != cudaSuccess)
+        return err;
+      err = cudaLaunchKernelEx(&cfg, lora_mm_tiled<float, true>,
+                               reinterpret_cast<const float*>(x),
+                               reinterpret_cast<const float*>(w),
+                               (const float*)work,
+                               reinterpret_cast<const float*>(b), y, M, N, K,
+                               r, scale);
     } else {
-      if ((err = allow_smem<lora_mm_tiled<T, false>>(smem)) != cudaSuccess) return err;
+      if ((err = allow_smem<lora_mm_tiled<T, false>>(smem)) != cudaSuccess)
+        return err;
       err = cudaLaunchKernelEx(&cfg, lora_mm_tiled<T, false>, x, w,
                                (const float*)work, b, y, M, N, K, r, scale);
     }
@@ -881,11 +1516,13 @@ cudaError_t run(const T* x, const T* w, const T* a, const T* b, float* y,
 }  // namespace
 
 // Launches on `stream`; returns a cudaError_t (0 = launched). x, w, a, b
-// are float (is_bf16 == 0) or __nv_bfloat16 (is_bf16 != 0); y and work f32.
+// are float (is_bf16 == 0) or __nv_bfloat16 (is_bf16 != 0); y f32.
 //
 // splits == 0 -> the tiled body, `work` holding M * r floats (x@a; unused
 // and may be null when r == 0); vec != 0 promises 16-byte aligned x and w
-// and K % 4 == 0, N % 4 == 0 (f32) or K % 8 == 0, N % 8 == 0 (bf16).
+// and K % 4 == 0, N % 4 == 0 (f32) or K % 8 == 0, N % 8 == 0 (bf16), and
+// with bf16 takes the tensor-core body, `work` then holding a^T padded to
+// NA rows (NA * K bf16, 16-byte aligned; unused when r == 0).
 // splits > 0 -> the split-K body (M <= 16): a cluster of `splits` <= 8 K
 // chunks of kc rows (splits * kc >= K, no empty chunk) per column block of
 // bn (32, 64 or 128) columns, no `work`; bit 0 of vec promises N % 4 == 0

@@ -5,22 +5,36 @@ Replaces the TPU kernel ``repro/kernels/lora_matmul.py::lora_matmul`` (body
 (``models/attention.py``, prefill and decode) runs every adapted q/k/v/o
 projection through :func:`lora_dense`: 4 launches a layer.
 
-* CUDA kernel: ``csrc/lora_matmul.cu``. IEEE f32 on CUDA cores (TF32 stays
-  off). For M > 16 a prepass grid writes x@a (M × r) into a work buffer,
-  then a register-tiled SIMT GEMM (128 × 128 block tiles, K streamed in
-  slices of 64 through a 2-stage cp.async ring in shared memory) adds
-  scale·(x@a)@b in its epilogue; bound by operations at prefill shapes.
-  For M ≤ 16 (decode) one grid of split-K blocks: each streams W's rows of
-  one K chunk for bn columns (16-byte loads, 4 rows a thread in flight), a
-  warp of its own computes the chunk's x@a, and the ≤ 8 chunks of a column
-  block, one thread-block cluster, fold their partials in chunk order
-  through distributed shared memory and add the adapter term; bound by
-  bytes (W read once). :func:`_split_plan` sizes the chunks and bn (cached
-  per shape and SM count), :func:`_work_floats` the tiled body's work
-  buffer (the split-K body needs none). bf16 operands (serving's dtype) are
-  widened to f32 as they are staged, into the same shared memory and
-  plan; x@a is rounded to bf16 once, after the whole K, as the TPU kernel
-  casts it to b's dtype.
+* CUDA kernel: ``csrc/lora_matmul.cu``, three bodies; :func:`_body` picks
+  one from M, the dtype and alignment alone.
+
+  - tensor-core (bf16, M > 16, K and N multiples of 8, x and W 16-byte
+    aligned: what TMA can describe, every served q/k/v/o; counted in
+    ``lora_matmul.bf16_tc_launches``): a small grid writes a^T padded to
+    NA rows (:func:`_adapter_rows`) into the work buffer, then a persistent
+    grid streams x, W and a^T with TMA into a ring of 4–5 shared-memory
+    stages, two consumer warpgroups run ``wgmma`` m64n128k16 (x@W) and
+    m64nNAk16 (x@a) with f32 accumulators, and a third ``wgmma`` adds
+    scale·bf16(x@a)@b per 128 × 128 tile; bound by operations at prefill
+    shapes.
+  - tiled (f32, and bf16 that TMA cannot describe, M > 16): a prepass grid
+    writes x@a (M × r) into the work buffer, then a register-tiled SIMT
+    GEMM (IEEE f32 on CUDA cores, TF32 stays off; 128 × 128 block tiles,
+    K streamed in slices of 64 through a 2-stage cp.async ring in shared
+    memory) adds scale·(x@a)@b in its epilogue; bound by operations at
+    prefill shapes.
+  - split-K (M ≤ 16, decode): one grid; each block streams W's rows of one
+    K chunk for bn columns (16-byte loads, 4 rows a thread in flight), a
+    warp of its own computes the chunk's x@a, and the ≤ 8 chunks of a
+    column block, one thread-block cluster, fold their partials in chunk
+    order through distributed shared memory and add the adapter term;
+    bound by bytes (W read once).
+
+  :func:`_split_plan` sizes the split-K chunks and bn (cached per shape
+  and SM count), :func:`_work_floats` the other bodies' work buffer. In
+  the SIMT bodies bf16 operands are widened to f32 as they are staged,
+  into the same shared memory and plan. In every body x@a is rounded to
+  bf16 once, after the whole K, as the TPU kernel casts it to b's dtype.
 * Plain version :func:`lora_matmul_plain`: the reference oracle
   ``ref.lora_matmul_ref``'s order, ``x@w + scale·((x@a)@b)`` in f32; with
   bf16 operands the TPU kernel's casts (x@a rounded once to b's dtype
@@ -28,7 +42,7 @@ projection through :func:`lora_dense`: 4 launches a layer.
   use it; nothing on the card's main path does.
 * :func:`lora_matmul` is the wrapper (2-D operands): it launches the kernel
   for CUDA tensors (counting ``lora_matmul.launches``, one per call: the
-  tiled body's prepass and GEMM grids are one launch of the kernel),
+  two grids of the tiled or the tensor-core body are one launch of it),
   raises on a failed launch, and takes the plain version only for CPU
   tensors (``lora_matmul.bf16_launches`` counts the bf16 ones among
   them). Its launch path is lean, since decode calls it 112 times a step
@@ -55,6 +69,8 @@ from repro_torch.kernels.build import check_launch, load_library
 
 MAX_RANK = 64       # shared memory: the tiled body keeps (128, r) x@a
 SKINNY_ROWS = 16    # M at or below → the split-K body
+TC_STAGES = 5       # K slices in the tensor-core body's ring at NA < 32 (csrc's tc_stages)
+SMEM_PER_BLOCK = 232_448  # an H100 block's shared memory, at most
 _U = 2.0 ** -24     # f32 unit roundoff
 BF16_ULP = 2.0 ** -7  # a bf16 ulp relative to the value, at most
 DTYPES = (torch.float32, torch.bfloat16)
@@ -174,10 +190,54 @@ def _split_plan(n: int, k: int, sms: int):
     return splits, kc, bn
 
 
-def _work_floats(m: int, n: int, r: int, splits: int) -> int:
+def _adapter_rows(r: int) -> int:
+    """NA, the rank the tensor-core body pads a's columns to: the N of its
+    x@a product (m64nNAk16), 0 without an adapter."""
+    return 0 if r == 0 else 8 if r <= 8 else 16 if r <= 16 else \
+        32 if r <= 32 else 64
+
+
+def _work_floats(m: int, n: int, r: int, splits: int, tc_k: int = 0) -> int:
     """Floats of the kernel's work buffer: the tiled body's x@a (M·r; none
-    at r = 0); the split-K body (``splits`` > 0) needs none."""
-    return 0 if splits else m * r
+    at r = 0); the tensor-core body at K = ``tc_k`` a^T padded to NA rows
+    (NA·K bf16, none at r = 0); the split-K body (``splits`` > 0) none."""
+    if splits:
+        return 0
+    if tc_k:
+        return -(-_adapter_rows(r) * tc_k // 2)
+    return m * r
+
+
+def _body(m: int, k: int, n: int, low: bool, aligned: bool) -> str:
+    """The body a call takes: ``"split-K"`` for M ≤ 16; for M > 16
+    ``"tensor-core"`` with bf16 (``low``) operands that TMA can describe (K
+    and N multiples of 8, so every row stride is a multiple of 16 bytes,
+    and x and W 16-byte aligned: ``aligned``), else ``"tiled"`` (f32, and
+    bf16 that TMA cannot describe)."""
+    if m <= SKINNY_ROWS:
+        return "split-K"
+    if low and k % 8 == 0 and n % 8 == 0 and aligned:
+        return "tensor-core"
+    return "tiled"
+
+
+def _tc_stages(na: int) -> int:
+    """K slices in the tensor-core body's ring (csrc's ``tc_stages``)."""
+    return 4 if na >= 32 else TC_STAGES
+
+
+def _tc_smem(na: int) -> int:
+    """Bytes of dynamic shared memory of the tensor-core body at NA
+    (:func:`_adapter_rows`; csrc's ``tc_smem``): 1 KB to align its base to
+    the 1024 bytes over which the 128-byte swizzle repeats, the ring's
+    stages of x's 128 × 64 box, W's two 64 × 64 boxes and a^T's NA × 64 box
+    (bf16), the tile's x@a rows (128 rows of 128 bytes), b's panel (two
+    halves of MAX_RANK rows of 128 bytes) and the mbarriers (two a stage,
+    two for b's panel)."""
+    stage = 2 * (128 * 64 + 2 * 64 * 64 + na * 64)
+    stages = _tc_stages(na)
+    return (1024 + stages * stage + 128 * 128 + 2 * MAX_RANK * 128
+            + (2 * stages + 2) * 8)
 
 
 _SMS = {}  # device index → SM count
@@ -224,12 +284,13 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
             vec |= 2
     else:
         splits = kc = bn = 0
-        e = 8 if low else 4  # elements of a 16-byte load
-        vec = int(k % e == 0 and n % e == 0 and x.data_ptr() % 16 == 0
-                  and w.data_ptr() % 16 == 0)
+        aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+        tc = _body(m, k, n, low, aligned) == "tensor-core"
+        # bf16: the tensor-core body; f32: the tiled body's 16-byte copies
+        vec = int(tc or (not low and k % 4 == 0 and n % 4 == 0 and aligned))
         if r:
-            work = torch.empty(_work_floats(m, n, r, 0), dtype=torch.float32,
-                               device=dev)
+            work = torch.empty(_work_floats(m, n, r, 0, k if tc else 0),
+                               dtype=torch.float32, device=dev)
     lib = load_library()
     switch = dev.index != torch.cuda.current_device()
     with torch.cuda.device(dev) if switch else contextlib.nullcontext():
@@ -242,11 +303,14 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     lora_matmul.launches += 1
     if low:
         lora_matmul.bf16_launches += 1
+        if vec and not splits:
+            lora_matmul.bf16_tc_launches += 1
     return y
 
 
 lora_matmul.launches = 0
 lora_matmul.bf16_launches = 0  # the bf16 share of ``launches``
+lora_matmul.bf16_tc_launches = 0  # the tensor-core body's share of those
 
 
 def lora_dense(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,

@@ -786,6 +786,7 @@ def test_windowed_serving_kernel_path_matches_plain_path(cuda, monkeypatch):
 # --------------------------------------------------------------------------
 
 from repro_torch.kernels import swa_error_bound  # noqa: E402
+from repro_torch.kernels.lora_matmul import _body  # noqa: E402
 
 BF16_LORA_CASES = [
     # (M, K, N, r): the tiled body with 16-byte loads (K % 8, N % 8), its
@@ -798,6 +799,21 @@ BF16_LORA_CASES = [
     # of 4 or r odd (split-K: W's or a's 2-byte loads), r 1
     (1000, 777, 333, 1), (100, 776, 332, 4), (8, 777, 333, 1),
     (9, 777, 333, 3), (16, 3072, 1026, 64), (7, 3072, 1024, 1),
+    (4096, 3071, 1024, 4), (1000, 777, 333, 4),
+    # the tensor-core body (M > 16, K and N multiples of 8, x and W
+    # 16-byte aligned): M 17, 64, 4095 and 4096 at paper-llama3.2-3b's K
+    # 3072 and N 1024 / 3072, at r 0 (no adapter), 1, 4 (x@a as m64n8k16)
+    # and 64 (m64n64k16, four k16 steps of the adapter's product); K not
+    # a multiple of the 64-deep slice, K 8 (one ragged slice), N 1000 (the
+    # second 64-column box ragged), N 40 (no second box), r 12, 17 and 33
+    # (x@a as m64n16k16, m64n32k16 and m64n64k16, a's columns zero-padded),
+    # paper-gpt2's 768 and gemma3-12b's 3840 x 4096
+    (17, 3072, 3072, 4), (64, 3072, 3072, 4), (4095, 3072, 1024, 4),
+    (4096, 3072, 1024, 0), (4095, 3072, 3072, 1), (64, 3072, 1024, 64),
+    (17, 3072, 1024, 0), (4096, 3072, 3072, 1), (64, 3072, 3072, 64),
+    (4095, 3072, 1024, 64), (300, 776, 1000, 4), (129, 8, 1024, 4),
+    (200, 3072, 40, 4), (1000, 3072, 1024, 17), (1000, 3072, 3072, 33),
+    (4096, 768, 768, 4), (4096, 3840, 4096, 4), (300, 3072, 1024, 12),
 ]
 
 
@@ -807,13 +823,20 @@ def _bf16_inputs(dev, m, k, n, r, seed=0):
 
 @pytest.mark.parametrize("case", BF16_LORA_CASES, ids=str)
 def test_lora_matmul_bf16_matches_plain(cuda, case):
+    """Within the error bound of the plain version, two runs bitwise
+    equal, both counted as bf16 launches and, where ``_body`` picks the
+    tensor cores, as tensor-core launches (none elsewhere)."""
     x, w, a, b = _bf16_inputs(cuda, *case, seed=sum(case))
-    before = (lora_matmul.launches, lora_matmul.bf16_launches)
+    m, k, n, _ = case
+    tc = 2 * (_body(m, k, n, True, True) == "tensor-core")
+    before = (lora_matmul.launches, lora_matmul.bf16_launches,
+              lora_matmul.bf16_tc_launches)
     got = lora_matmul(x, w, a, b, 0.7)
     again = lora_matmul(x, w, a, b, 0.7)
     torch.cuda.synchronize()
-    assert (lora_matmul.launches, lora_matmul.bf16_launches) == (
-        before[0] + 2, before[1] + 2)
+    assert (lora_matmul.launches, lora_matmul.bf16_launches,
+            lora_matmul.bf16_tc_launches) == (
+        before[0] + 2, before[1] + 2, before[2] + tc)
     assert got.dtype == torch.float32
     assert torch.equal(_bits(got), _bits(again))
     want = lora_matmul_plain(x, w, a, b, 0.7)
@@ -836,6 +859,26 @@ def test_lora_matmul_bf16_misaligned_views(cuda):
                    lora_matmul_error_bound(x, w, a, b, 0.7))
     assert _within(got8, lora_matmul_plain(x8, wv, a8, b8[:, :1024], 0.7),
                    lora_matmul_error_bound(x8, wv, a8, b8[:, :1024], 0.7))
+
+
+def test_lora_matmul_bf16_misaligned_x_takes_simt(cuda):
+    """x one row into its storage at K 3072 (6 KB rows: still 16-byte
+    aligned) takes the tensor cores; 8 bf16 into a row (16 bytes) too; one
+    element in (2 bytes) does not, nor does f32 at a served shape."""
+    base, w, a, b = _bf16_inputs(cuda, 4097, 3072, 1024, 4, seed=5)
+    flat = base.flatten()
+    cases = [(base[1:], 1), (flat[8:8 + 4096 * 3072].view(4096, 3072), 1),
+             (flat[1:1 + 4096 * 3072].view(4096, 3072), 0)]
+    for x, tc in cases:
+        before = lora_matmul.bf16_tc_launches
+        got = lora_matmul(x, w, a, b, 0.7)
+        torch.cuda.synchronize()
+        assert lora_matmul.bf16_tc_launches == before + tc
+        assert _within(got, lora_matmul_plain(x, w, a, b, 0.7),
+                       lora_matmul_error_bound(x, w, a, b, 0.7))
+    before = lora_matmul.bf16_tc_launches
+    lora_matmul(*(t.float() for t in (base[1:], w, a, b)), 0.7)
+    assert lora_matmul.bf16_tc_launches == before
 
 
 BF16_FLASH_CASES = [
@@ -899,6 +942,16 @@ BF16_PROBE_LORA = [
     (1, 200, 512, 1), (9, 777, 333, 3), (1, 64, 256, 4),
     (4096, 3072, 3072, 4), (64, 3072, 1024, 64), (17, 777, 333, 3),
     (1000, 3840, 2048, 16),
+    # the tensor-core body: every served q/k/v/o shape's kind
+    # (paper-llama3.2-3b's K 3072 at N 3072 / 1024, paper-gpt2's 768,
+    # gemma3-12b's 3840 x 4096 / 2048 and 4096 x 3840) at M 4096 and 64, x@a
+    # at every N of its product (r 1 and 4: 8; 12: 16; 17: 32; 64: 64),
+    # ragged M, K and N, no second W box
+    (4096, 3072, 1024, 4), (64, 3072, 3072, 4), (64, 3072, 1024, 4),
+    (4096, 768, 768, 4), (64, 768, 768, 4), (4096, 3840, 4096, 4),
+    (4096, 3840, 2048, 4), (4096, 4096, 3840, 4), (4095, 3072, 1024, 1),
+    (17, 776, 1000, 64), (300, 3072, 40, 17), (1000, 3840, 2048, 64),
+    (129, 3072, 1024, 12),
 ]
 
 
@@ -906,13 +959,20 @@ BF16_PROBE_LORA = [
 def test_lora_matmul_bf16_rounds_x_at_a_once(cuda, case):
     """The probe's exact inputs (``kernels/probes.py``): the kernel equals
     its plain version and the exact answer bit for bit, which rounding
-    x@a per K chunk of the body's plan, or not at all, would not."""
+    x@a per K chunk of the body's plan, or not at all, would not; two runs
+    bitwise equal, counted as tensor-core launches where ``_body`` picks
+    that body."""
     m, k, n, r = case
     chunk = _split_plan(n, k, _sm_count(0))[1] if m <= 16 else 64
     x, w, a, b, scale, want, faults = probes.lora_probe(
         m, k, n, r, chunk=chunk, device=cuda, seed=m + k)
+    tc = 2 * (_body(m, k, n, True, True) == "tensor-core")
+    before = lora_matmul.bf16_tc_launches
     got = lora_matmul(x, w, a, b, scale)
+    again = lora_matmul(x, w, a, b, scale)
     torch.cuda.synchronize()
+    assert lora_matmul.bf16_tc_launches == before + tc
+    assert torch.equal(_bits(got), _bits(again))
     assert torch.equal(got, lora_matmul_plain(x, w, a, b, scale))
     assert torch.equal(got, want)
     assert min(probes.differing(got, faults).values()) > 0

@@ -1,17 +1,25 @@
 """The launch plan of the port's ``lora_matmul`` (B3) that lives in Python:
-which body a shape takes, the split-K body's K chunks and column-block
-width, and the size of the work buffer either body is handed. Pure
+which body a shape takes (split-K, tensor-core or tiled), the split-K
+body's K chunks and column-block width, the tensor-core body's shared
+memory, and the size of the work buffer each body is handed. Pure
 arithmetic, so it runs on the CPU; the kernel itself runs only on the card
 (tests/test_torch_cuda.py).
 """
+
+import re
 
 import pytest
 
 pytest.importorskip("torch")
 
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels.build import CSRC  # noqa: E402
 from repro_torch.kernels.lora_matmul import (MAX_RANK,  # noqa: E402
                                              MAX_SPLITS, SKINNY_ROWS,
-                                             _split_plan, _work_floats)
+                                             SMEM_PER_BLOCK, TC_STAGES,
+                                             _adapter_rows, _body,
+                                             _split_plan, _tc_smem,
+                                             _tc_stages, _work_floats)
 
 H100_SMS = 132
 
@@ -93,3 +101,98 @@ def test_split_plan_is_cached():
     _split_plan(1024, 3072, H100_SMS)
     _split_plan(1024, 3072, H100_SMS)
     assert _split_plan.cache_info().hits == 1
+
+
+def _projections(name):
+    """(projection, K, N) of one layer's adapted q/k/v/o of a served model."""
+    c = get_config(name)
+    d, hd = c.d_model, c.resolved_head_dim
+    return [("q", d, c.num_heads * hd), ("k", d, c.num_kv_heads * hd),
+            ("v", d, c.num_kv_heads * hd), ("o", c.num_heads * hd, d)]
+
+
+# every served q/k/v/o (paper-llama3.2-3b and paper-gpt2 at batch 8 ×
+# prompt 512, gemma3-12b at 2 × 2048: M 4096) at its prefill rows and at
+# the serve launcher's default prompt (M 64)
+SERVED = [(name, proj, m, k, n)
+          for name in ("paper-llama3.2-3b", "paper-gpt2", "gemma3-12b")
+          for proj, k, n in _projections(name) for m in (4096, 64)]
+
+
+@pytest.mark.parametrize("case", SERVED, ids=str)
+def test_served_bf16_prefill_takes_the_tensor_core_body(case):
+    """Every served shape has K and N multiples of 8, so aligned bf16
+    operands go to the tensor cores; f32 operands to the tiled body."""
+    _, _, m, k, n = case
+    assert k % 8 == 0 and n % 8 == 0
+    assert _body(m, k, n, True, True) == "tensor-core"
+    assert _body(m, k, n, False, True) == "tiled"
+
+
+@pytest.mark.parametrize("m,k,n,aligned", [
+    (1000, 777, 333, True), (100, 776, 332, True), (4096, 3071, 1024, True),
+    (4096, 3072, 1020, True), (4096, 3072, 3072, False),
+    (17, 3072, 1024, False)], ids=str)
+def test_what_tma_cannot_describe_takes_the_tiled_body(m, k, n, aligned):
+    """K or N not a multiple of 8 (a row stride that is no multiple of 16
+    bytes), or an x or W off 16-byte alignment: the SIMT tiled body."""
+    assert _body(m, k, n, True, aligned) == "tiled"
+
+
+@pytest.mark.parametrize("m", [1, 8, 16, 17], ids=str)
+def test_decode_rows_take_split_k(m):
+    want = "split-K" if m <= SKINNY_ROWS else "tensor-core"
+    assert _body(m, 3072, 3072, True, True) == want
+    assert _body(m, 777, 333, False, False) == (
+        "split-K" if m <= SKINNY_ROWS else "tiled")
+
+
+@pytest.mark.parametrize("r,na", [(0, 0), (1, 8), (4, 8), (8, 8), (9, 16),
+                                  (16, 16), (17, 32), (32, 32), (33, 64),
+                                  (64, 64)], ids=str)
+def test_adapter_rows_pad_the_rank(r, na):
+    """The x@a product's N: r rounded up to 8, 16, 32 or 64 (wgmma's
+    m64nNk16 takes N in steps of 8; four instantiations)."""
+    assert _adapter_rows(r) == na
+    assert na >= r and na % 8 == 0 and na <= MAX_RANK
+
+
+@pytest.mark.parametrize("na", [0, 8, 16, 32, 64], ids=str)
+def test_tensor_core_shared_memory_fits_one_block(na):
+    """The ring's stages (x 16 KB, W 16 KB, a^T NA × 128 B each), the x@a
+    rows and b's panel (16 KB each) and the mbarriers, after 1 KB of
+    alignment: within the 232,448 bytes a block may have, with at least 4
+    stages in flight."""
+    stages = _tc_stages(na)
+    assert stages >= 4
+    need = stages * (32768 + 128 * na) + 2 * 16384
+    assert need < _tc_smem(na) <= SMEM_PER_BLOCK
+    assert _tc_smem(na) == 1024 + need + (2 * stages + 2) * 8
+
+
+def test_tensor_core_plan_matches_the_source():
+    """The stage counts and the sizes behind ``_tc_smem`` are the CUDA
+    source's (``tc_stages``, ``TC_XA_BYTES``, ``TC_B_HALF``)."""
+    src = (CSRC / "lora_matmul.cu").read_text()
+    stages = re.search(r"tc_stages\(int na\) \{ return na >= (\d+) \? (\d+)"
+                       r" : (\d+); \}", src)
+    assert stages is not None
+    at, few, many = (int(v) for v in stages.groups())
+    assert (many, few) == (TC_STAGES, _tc_stages(64))
+    assert _tc_stages(at) == few and _tc_stages(at // 2) == many
+    assert "constexpr int TC_XA_BYTES = TC_BM * 128;" in src
+    assert "constexpr int TC_B_HALF = kMaxRank * 128;" in src
+    assert "constexpr int kMaxRank = %d;" % MAX_RANK in src
+
+
+@pytest.mark.parametrize("m,k,n,r", [(4096, 3072, 3072, 4),
+                                     (4096, 3840, 4096, 1),
+                                     (64, 768, 768, 12), (17, 776, 1000, 17),
+                                     (4095, 3072, 1024, 64),
+                                     (4096, 3072, 1024, 0)], ids=str)
+def test_tensor_core_work_holds_a_transposed(m, k, n, r):
+    """The tensor-core body's work buffer holds a^T padded to NA rows, NA·K
+    bf16 (two a float), whatever M and N; none without an adapter."""
+    floats = _work_floats(m, n, r, 0, k)
+    assert 2 * floats >= _adapter_rows(r) * k > 2 * (floats - 1)
+    assert (floats == 0) == (r == 0)
