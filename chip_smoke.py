@@ -5,6 +5,7 @@
     python3 chip_smoke.py --launch-cost SRC   # the launch-path costs only
     python3 chip_smoke.py --decode-sweep      # B3's split-K plans
     python3 chip_smoke.py --prefill-sweep     # B3's bf16 prefill body
+    python3 chip_smoke.py --attention-sweep   # B8's bf16 tensor-core body
     python3 chip_smoke.py --obs-http          # phase 6 alone
     python3 chip_smoke.py --mesh              # phase 7 alone
     python3 chip_smoke.py --zoo               # phase 8 alone
@@ -22,8 +23,9 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    ``build/kernels/``, with ``-Xptxas -v``; the registers, spills and
    static shared memory of ``factor_mean``'s grouped kernel, of
    ``lora_matmul``'s kernels (the tiled body, its x@a prepasses, the
-   tensor-core body, the split-K body) and of ``flash_swa``'s kernel are
-   summed up on lines of their own;
+   tensor-core body, the split-K body) and of ``flash_swa``'s kernels (the
+   SIMT body ``flash_swa_tile``, the tensor-core body ``flash_swa_tc``)
+   are summed up on lines of their own;
 3. kernels: ``fedex_fold`` (both bodies), ``factor_mean`` (both bodies),
    ``product_fold``, ``perclient_fold``, ``hetero_fold`` and
    ``product_accum`` against their plain PyTorch versions at the main
@@ -261,8 +263,8 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    and peak memory, and the phase's;
 9. serving in bf16, the reference's default dtype (``bf16_phase``,
    ``[bf16]`` lines; ``python3 chip_smoke.py --bf16`` runs it alone):
-   B3's tensor-core body's ptxas line (registers, spills), then B3 and B8
-   in bf16 against their bf16 plain versions within their
+   B3's and B8's tensor-core bodies' ptxas lines (registers, spills),
+   then B3 and B8 in bf16 against their bf16 plain versions within their
    bounds (``lora_matmul_error_bound`` and ``swa_error_bound``, bf16 terms
    included), each run twice and bitwise equal, timed beside the plain
    version, the library call in bf16 (``torch.addmm``, whose bf16 output
@@ -275,14 +277,18 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    share of its bound), at r 1, 3 and 64, odd K and N and an x view off
    16-byte alignment (the tiled body); B8 at d 64 (paper-gpt2), 128
    (paper-llama3.2-3b, GQA 24/8) and 256 (gemma3-12b, no window and window
-   1024); both on the exact-rounding probes (``kernels/probes.py``,
-   :func:`bf16_probes`) at those shapes, bitwise their plain versions and
-   apart from every faulty variant; then ``serve()`` with no
+   1024), every call through its tensor-core body
+   (``flash_swa.bf16_tc_launches``); both on the exact-rounding probes
+   (``kernels/probes.py``, :func:`bf16_probes`) at those shapes, bitwise
+   their plain versions and apart from every faulty variant; then
+   ``serve()`` with no
    ``dtype`` (the config's bf16) at full width and depth,
    paper-llama3.2-3b and paper-gpt2 at phase 5's shape and gemma3-12b at
    phase 8's (:func:`bf16_serve`: bf16 launches counted apart, B3's 4·L
    of a prefill all through its tensor-core body and none of a decode
-   step (``lora_matmul.bf16_tc_launches``), the kernel
+   step (``lora_matmul.bf16_tc_launches``), B8's L of a prefill all
+   through its tensor-core body (``flash_swa.bf16_tc_launches``: 28, 12
+   and 48 in the three ``serve()`` runs), the kernel
    path against the bf16 plain path and both against the f32 serving
    prefill over the same weights, teacher forcing against the bf16
    training forward within ``TF_BF16``, prefill ms, decode ms/token, peak
@@ -309,8 +315,8 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    ``gemma3_bf16_decode_*``, ``gemma3_bf16_M64_*``)
    and on B8's (Llama's prefill;
    ``bf16_gpt2_*``, ``bf16_gemma3_*``, ``bf16_gemma3_W1024_*``), with
-   ``bf16_launches`` (phase 9's ``serve()`` runs; B3's row also
-   ``bf16_tc_launches``, those through its tensor-core body) and
+   ``bf16_launches`` (phase 9's ``serve()`` runs; B3's and B8's rows
+   also ``bf16_tc_launches``, those through their tensor-core bodies) and
    ``bf16_max_abs_err`` (``max_abs_err`` stays the f32 checks'); then the
    result line.
 
@@ -319,7 +325,10 @@ under ``SRC`` (another tree's ``src`` too, to compare two trees in one
 call) and prints it as one JSON line; ``--decode-sweep`` times B3's
 split-K body at every plan (:func:`decode_sweep`); ``--prefill-sweep``
 times B3's bf16 tensor-core body one projection at a time, at r 0 to 64,
-beside cuBLAS's bare bf16 x@W (:func:`prefill_sweep`); ``--obs-http`` runs
+beside cuBLAS's bare bf16 x@W (:func:`prefill_sweep`);
+``--attention-sweep`` times B8's bf16 tensor-core body beside SDPA in bf16
+at d 64, 128 and 256, windows included, in TFLOP/s and as a share of the
+bound (:func:`attention_sweep`); ``--obs-http`` runs
 phase 6 alone (:func:`obs_http_phase`), ``--mesh`` phase 7
 (:func:`mesh_phase`), ``--zoo`` phase 8 (:func:`zoo_phase`), ``--bf16``
 phase 9 (:func:`bf16_phase`), and
@@ -1340,7 +1349,7 @@ def visible_pairs(torch, device, sq, sk, causal, window):
 
 
 def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
-               seed, device_times=False, dtype=None):
+               seed, device_times=False, dtype=None, tc=False):
     """swa_attention (B, S, H, D) against swa_attention_plain within the
     reference's f32 tolerance (rtol 2e-5, atol 4e-5) at unit-scale inputs,
     and a second run bitwise against the first; timed beside the plain
@@ -1349,7 +1358,8 @@ def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
     explicit boolean mask for windows). ``dtype`` bf16: the inputs rounded
     to bf16, held to ``swa_error_bound`` (its bf16 terms), SDPA in bf16,
     bytes at 2 an element and the bound's operations at the bf16
-    tensor-core peak. Returns (max error, timings)."""
+    tensor-core peak; ``tc``: both runs must take B8's tensor-core body
+    (``bf16_tc_launches``), else neither. Returns (max error, timings)."""
     import torch.nn.functional as F
     g = torch.Generator(device=device)
     g.manual_seed(seed)
@@ -1359,9 +1369,15 @@ def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
     low = dtype == torch.bfloat16
     if low:
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = kernels.flash_swa.bf16_tc_launches
     got = kernels.swa_attention(q, k, v, causal, window)
     again = kernels.swa_attention(q, k, v, causal, window)
     torch.cuda.synchronize()
+    if kernels.flash_swa.bf16_tc_launches - before != 2 * tc:
+        raise AssertionError(f"flash_swa B={b} S={s} d={d}: "
+                             f"{kernels.flash_swa.bf16_tc_launches - before}"
+                             f" of 2 runs took the tensor-core body, not "
+                             f"{2 * tc}")
     if not torch.equal(bits(torch, got), bits(torch, again)):
         raise AssertionError(f"flash_swa B={b} S={s} window={window}: two "
                              "runs differ")
@@ -4300,8 +4316,9 @@ def bf16_kernel_phase(torch, kernels, device):
     scalar paths) and an x view off 16-byte alignment; B8 at d 64
     (paper-gpt2, B 8, S 512, MHA 12/12), d 128 (paper-llama3.2-3b, B 8, S
     512, GQA 24/8) and d 256 (gemma3-12b, B 2, S 2048, GQA 16/8, no window
-    and window 1024); then both on the exact-rounding probes
-    (:func:`bf16_probes`). Returns (max errors, timings)."""
+    and window 1024), each call through its tensor-core body; then both on
+    the exact-rounding probes (:func:`bf16_probes`). Returns (max errors,
+    timings)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.lora_matmul import SKINNY_ROWS
     timer = Timer(torch, device)
@@ -4357,7 +4374,7 @@ def bf16_kernel_phase(torch, kernels, device):
         err, timings[key] = flash_case(
             torch, kernels, timer, device, bsz, s, c.num_heads,
             c.num_kv_heads, c.resolved_head_dim, True, window, seed=100 + i,
-            device_times=True, dtype=low)
+            device_times=True, dtype=low, tc=True)
         errs["flash_swa"] = max(errs["flash_swa"], err)
     torch.cuda.empty_cache()
     bf16_probes(torch, kernels, device, (cfg, gcfg, g3))
@@ -4435,11 +4452,16 @@ def bf16_probes(torch, kernels, device, cfgs):
     for label, b, s, h, kvh, d, causal in flash:
         q, k, v, faults = probes.swa_probe(b, s, h, kvh, d, causal=causal,
                                            device=device, seed=s + d)
+        tc = kernels.flash_swa.bf16_tc_launches
         got = kernels.swa_attention(q, k, v, causal, 0)
+        tc = kernels.flash_swa.bf16_tc_launches - tc
         plain = kernels.swa_attention_plain(q, k, v, causal, 0)
         torch.cuda.synchronize()
         diff = probes.differing(got, faults)
         same = torch.equal(bits(torch, got.float()), bits(torch, plain.float()))
+        if tc != (d % 8 == 0):
+            raise AssertionError(f"flash_swa bf16 probe {label}: {tc} "
+                                 "tensor-core launches")
         if not (same and min(diff.values()) > 0):
             raise AssertionError(
                 f"flash_swa bf16 probe {label} B={b} S={s} H={h}/{kvh} d={d}: "
@@ -4448,26 +4470,33 @@ def bf16_probes(torch, kernels, device, cfgs):
         for name, n in diff.items():
             seen[name] = seen.get(name, 0) + n
         del q, k, v, faults, got, plain
-    print(f"  flash_swa bf16 probes: {len(flash)} cases bitwise the plain "
-          f"version; elements apart from the faulty variants {seen}",
-          flush=True)
+    print(f"  flash_swa bf16 probes: {len(flash)} cases (all but d 66 "
+          f"through the tensor-core body) bitwise the plain version; "
+          f"elements apart from the faulty variants {seen}", flush=True)
     torch.cuda.empty_cache()
+
+
+def tc_launch_counts(kernels) -> dict:
+    """B3's and B8's launches through their tensor-core bodies since the
+    last reset."""
+    return {"lora_matmul": kernels.lora_matmul.bf16_tc_launches,
+            "flash_swa": kernels.flash_swa.bf16_tc_launches}
 
 
 def _expect_bf16(kernels, name, want, tc):
     """The launch counts are ``want`` (every other kernel 0), every one of
-    them a bf16 launch, ``tc`` of B3's through its tensor-core body (every
-    prefill projection; no decode one)."""
+    them a bf16 launch, and the tensor-core bodies' ``tc`` (kernel →
+    launches): B3's every prefill projection and no decode one, B8's every
+    prefill attention."""
     _expect(kernels, name, want)
     got = kernels.bf16_launch_counts()
     expected = {k: want.get(k, 0) for k in got}
     if got != expected:
         raise AssertionError(f"serve {name}: bf16 launches {got} != "
                              f"{expected}")
-    if kernels.lora_matmul.bf16_tc_launches != tc:
-        raise AssertionError(f"serve {name}: lora_matmul's tensor-core "
-                             f"launches {kernels.lora_matmul.bf16_tc_launches}"
-                             f" != {tc}")
+    if tc_launch_counts(kernels) != tc:
+        raise AssertionError(f"serve {name}: tensor-core launches "
+                             f"{tc_launch_counts(kernels)} != {tc}")
 
 
 def bf16_serve(torch, kernels, device, name):
@@ -4493,8 +4522,8 @@ def bf16_serve(torch, kernels, device, name):
     logits than twice the bf16 plain path's are, plus one bf16 rounding at
     the logit scale (2⁻⁸·max|f32 logit|), and no further from the plain
     path's than three times that distance plus the same floor. Returns
-    (stats, launches of the main path, its bf16 launches, B3's tensor-core
-    launches)."""
+    (stats, launches of the main path, its bf16 launches, B3's and B8's
+    tensor-core launches)."""
     from dataclasses import replace
 
     from repro_torch.configs import LoRAConfig, get_config
@@ -4542,12 +4571,14 @@ def bf16_serve(torch, kernels, device, name):
         pre, cache = prefill(params, lora, batch, cache)
         torch.cuda.synchronize()
         _expect_bf16(kernels, f"{name} bf16 one prefill",
-                     {"lora_matmul": 4 * L, "flash_swa": L}, tc=4 * L)
+                     {"lora_matmul": 4 * L, "flash_swa": L},
+                     tc={"lora_matmul": 4 * L, "flash_swa": L})
         kernels.reset_launch_counts()
         _, dec, cache = decode(params, lora, full[:, -1:], cache, prompt)
         torch.cuda.synchronize()
         _expect_bf16(kernels, f"{name} bf16 one decode step",
-                     {"lora_matmul": 4 * L}, tc=0)
+                     {"lora_matmul": 4 * L},
+                     tc={"lora_matmul": 0, "flash_swa": 0})
         del cache
         kernels.reset_launch_counts()
         with plain_ops(kernels):
@@ -4583,11 +4614,11 @@ def bf16_serve(torch, kernels, device, name):
     res = serve(name, batch_size=bsz, prompt_len=prompt, steps=steps,
                 max_len=max_len, device=device, params=params, lora=lora)
     launches, bf16 = kernels.launch_counts(), kernels.bf16_launch_counts()
-    tc = kernels.lora_matmul.bf16_tc_launches
+    tc = tc_launch_counts(kernels)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = {"lora_matmul": 4 * L * (1 + steps), "flash_swa": L}
     _expect_bf16(kernels, f"{name} bf16 serve() (1 prefill + {steps} decode "
-                 "steps)", want, tc=4 * L)
+                 "steps)", want, tc={"lora_matmul": 4 * L, "flash_swa": L})
     toks = res.tokens
     if toks.shape != (bsz, steps + 1) or not (
             (toks >= 0) & (toks < cfg.vocab_size)).all():
@@ -4643,19 +4674,21 @@ def bf16_serve(torch, kernels, device, name):
 
 
 def bf16_phase(torch, kernels, device):
-    """Phase 9: the ptxas summary of B3's tensor-core body (from the last
-    :func:`build_kernels`), the bf16 kernels (:func:`bf16_kernel_phase`),
-    then :func:`bf16_serve` of each model of ``BF16_SERVE``, one at a time.
-    Returns (max errors, timings, launches, bf16 launches, stats); the bf16
-    launches hold ``lora_matmul_tc``, B3's tensor-core launches."""
+    """Phase 9: the ptxas summaries of B3's and B8's tensor-core bodies
+    (from the last :func:`build_kernels`), the bf16 kernels
+    (:func:`bf16_kernel_phase`), then :func:`bf16_serve` of each model of
+    ``BF16_SERVE``, one at a time. Returns (max errors, timings, launches,
+    bf16 launches, stats); the bf16 launches hold ``lora_matmul_tc`` and
+    ``flash_swa_tc``, B3's and B8's tensor-core launches."""
     t = time.perf_counter()
     for line in PTXAS:
-        if line.startswith(("lora_mm_tc", "lora_mm_at")):
+        if line.startswith(("lora_mm_tc", "lora_mm_at", "flash_swa_tc")):
             print(f"  [bf16] ptxas {line}", flush=True)
     errs, timings = bf16_kernel_phase(torch, kernels, device)
     stats = {"kernels_s": time.perf_counter() - t}
     launches = {name: 0 for name in SOURCES}
-    bf16 = {"lora_matmul": 0, "flash_swa": 0, "lora_matmul_tc": 0}
+    bf16 = {"lora_matmul": 0, "flash_swa": 0, "lora_matmul_tc": 0,
+            "flash_swa_tc": 0}
     for name in BF16_SERVE:
         stats[name], got, got_bf16, tc = bf16_serve(torch, kernels, device,
                                                     name)
@@ -4663,7 +4696,8 @@ def bf16_phase(torch, kernels, device):
             launches[k] += v
         for k, v in got_bf16.items():
             bf16[k] += v
-        bf16["lora_matmul_tc"] += tc
+        for k, v in tc.items():
+            bf16[f"{k}_tc"] += v
     stats["seconds"] = time.perf_counter() - t
     print(f"  [bf16] phase 9 in {stats['seconds']:.1f} s", flush=True)
     return errs, timings, launches, bf16, stats
@@ -4841,6 +4875,49 @@ def prefill_sweep(torch, kernels, device) -> list:
     return rows
 
 
+# (B, S, H, KVH, d, window), causal: B8's served bf16 prefills (paper-gpt2,
+# paper-llama3.2-3b, gemma3-12b with and without its window) and S 4096 at
+# batch 1, with and without a window of 1024, at each head dim
+ATTENTION_SWEEP = [
+    (8, 512, 12, 12, 64, 0), (1, 4096, 12, 12, 64, 0),
+    (1, 4096, 12, 12, 64, 1024), (8, 512, 24, 8, 128, 0),
+    (1, 4096, 24, 8, 128, 0), (1, 4096, 24, 8, 128, 1024),
+    (2, 2048, 16, 8, 256, 0), (2, 2048, 16, 8, 256, 1024),
+    (1, 4096, 16, 8, 256, 0), (1, 4096, 16, 8, 256, 1024)]
+
+
+def attention_sweep(torch, kernels, device) -> list:
+    """B8's bf16 tensor-core body at each shape of ``ATTENTION_SWEEP``
+    (:func:`flash_case`: within ``swa_error_bound`` of the plain version,
+    two runs bitwise equal, both through the tensor-core body), its device
+    time (:meth:`Timer.device`) in TFLOP/s (4·d FLOPs a visible pair) and
+    as a share of its bound, beside SDPA in bf16 (``enable_gqa``; an
+    explicit boolean mask for a window). Returns the rows."""
+    timer, rows = Timer(torch, device), []
+    for i, (b, s, h, kvh, d, window) in enumerate(ATTENTION_SWEEP):
+        _, t = flash_case(torch, kernels, timer, device, b, s, h, kvh, d,
+                          True, window, seed=200 + i, device_times=True,
+                          dtype=torch.bfloat16, tc=True)
+        _, pairs = visible_pairs(torch, device, s, s, True, window)
+        flops = 4 * d * pairs * b * h
+        _, _, _, (bms, by), dev, lib = t
+        rows.append({"B": b, "S": s, "H": h, "KVH": kvh, "d": d,
+                     "window": window, "device_ms": dev,
+                     "sdpa_device_ms": lib, "bound_ms": bms, "bound_by": by,
+                     "gflop": flops / 1e9})
+
+        def rate(ms):
+            return "" if ms is None else (
+                f" ({flops / ms / 1e9:.0f} TFLOP/s, {bms / ms:.0%} of the "
+                "bound)")
+        print(f"  attention sweep B={b} S={s} H={h}/{kvh} d={d} "
+              f"window={window}: kernel {fmt_ms(dev)}{rate(dev)}, SDPA bf16 "
+              f"{fmt_ms(lib)}{rate(lib)}; bound {bms:.4f} ms ({by})",
+              flush=True)
+        torch.cuda.empty_cache()
+    return rows
+
+
 def launch_cost_main(src: str) -> int:
     """``--launch-cost SRC``: :func:`launch_cost` of the port found under
     ``SRC`` (this checkout's ``src`` or another tree's, to compare two
@@ -4953,6 +5030,25 @@ def mesh_main() -> int:
     return 0
 
 
+def attention_sweep_main() -> int:
+    """``--attention-sweep``: :func:`attention_sweep` on this checkout's
+    port, after the build and its ptxas summaries."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch import kernels
+    from repro_torch.kernels import build as kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(smi_line(), flush=True)
+    build_kernels(kbuild, "[sweep]")
+    rows = attention_sweep(torch, kernels, torch.device("cuda", 0))
+    print(json.dumps({"attention_sweep": rows}), flush=True)
+    return 0
+
+
 PTXAS = []  # the ptxas summary lines of the last build_kernels
 
 
@@ -4969,11 +5065,12 @@ def build_kernels(kbuild, label):
     print(f"{label} build: {len(libs)} libraries "
           f"({', '.join(p.name for p in libs)}) in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
-    for lib, prefix in (("factor_mean", "factor_mean_"),
-                        ("lora_matmul", "lora_mm_"),
-                        ("flash_swa", "flash_swa_tile")):
-        report = ptxas_summary(log.getvalue().split(f"nvcc lib{lib}")[-1]
-                               .split("\nnvcc ")[0], prefix)
+    for lib, prefixes in (("factor_mean", ("factor_mean_",)),
+                          ("lora_matmul", ("lora_mm_",)),
+                          ("flash_swa", ("flash_swa_tile", "flash_swa_tc"))):
+        text = log.getvalue().split(f"nvcc lib{lib}")[-1].split("\nnvcc ")[0]
+        report = [line for prefix in prefixes
+                  for line in ptxas_summary(text, prefix)]
         for line in report or [f"{lib}: library already built, no ptxas "
                                "report"]:
             PTXAS.append(line)
@@ -5086,6 +5183,8 @@ def main() -> int:
         return decode_sweep_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--prefill-sweep":
         return prefill_sweep_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--attention-sweep":
+        return attention_sweep_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--obs-http":
         return obs_http_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--mesh":
@@ -5289,9 +5388,11 @@ def main() -> int:
         out[list(SOURCES).index(name)].update({
             "bf16_launches": bf16_launches[name],
             "bf16_max_abs_err": bf16_errs[name]})
-    # B3's tensor-core body (bf16 prefill): its launches in phase 9's serve()
-    out[list(SOURCES).index("lora_matmul")]["bf16_tc_launches"] = \
-        bf16_launches["lora_matmul_tc"]
+    # B3's and B8's tensor-core bodies (bf16 prefill): their launches in
+    # phase 9's serve() runs
+    for name in ("lora_matmul", "flash_swa"):
+        out[list(SOURCES).index(name)]["bf16_tc_launches"] = \
+            bf16_launches[f"{name}_tc"]
     # B5 beside its old body (product_fold in place), and at the chunk of
     # 64 uplinks at r = 8 that docs/benchmarks.md documents
     ms, _, lib_ms, (bms, by), *_ = lane_timings["product_accum[C64r8]"]

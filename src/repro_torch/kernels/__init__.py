@@ -23,7 +23,8 @@
   ``lora_matmul.bf16_tc_launches``); replaces ``lora_matmul``.
 * :func:`flash_swa` (``flash_swa.py``, ``csrc/flash_swa.cu``) — causal /
   sliding-window flash attention forward, the prefill attention of serving
-  (via :func:`swa_attention`, GQA in place); replaces ``flash_swa``.
+  (via :func:`swa_attention`, GQA in place; bf16 on the tensor cores,
+  counted in ``flash_swa.bf16_tc_launches``); replaces ``flash_swa``.
 
 Each wrapper launches its kernel for CUDA tensors (and counts the launch in
 its ``launches`` attribute) and takes the plain version only for CPU
@@ -66,6 +67,7 @@ def reset_launch_counts() -> None:
     for fn in BF16_KERNELS:
         fn.bf16_launches = 0
     lora_matmul.bf16_tc_launches = 0
+    flash_swa.bf16_tc_launches = 0
 
 
 def launch_counts() -> dict:

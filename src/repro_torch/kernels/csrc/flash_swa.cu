@@ -17,9 +17,9 @@
 // 128 or 256); any Sq, Sk: rows and columns past the ends are zero-filled on
 // load and masked.
 //
-// Bound on the card: operations, 4*d FLOPs per visible (query, key) pair
-// (prefill at B 8, H 24, S 512, d 128, causal: 12.9 GFLOP, 0.19 ms at
-// 67 TFLOP/s), IEEE f32 FMAs on CUDA cores (TF32 stays off). The bytes (q,
+// The SIMT body (f32, below). Bound on the card: operations, 4*d FLOPs per
+// visible (query, key) pair (prefill at B 8, H 24, S 512, d 128, causal:
+// 12.9 GFLOP, 0.19 ms at 67 TFLOP/s), IEEE f32 FMAs on CUDA cores (TF32 stays off). The bytes (q,
 // k, v, o once: 134 MB there, 0.04 ms) are far below it, so the design is
 // about keeping the FMA pipes fed:
 //
@@ -72,32 +72,107 @@
 // * KV tiles wholly outside the causal-and-window band of the query tile
 //   are never loaded. expf and IEEE division, as the reference.
 //
-// bf16 (the reference's serving dtype): the kernel is a template on the
-// element type T, and follows the TPU kernel's casts. q and k are widened
-// to f32 (exact) as they are staged, q scaled in f32 after; scores, the
-// online softmax, l and the PV sums stay f32. P is rounded to bf16 (v's
-// dtype, round to nearest even, kept as f32) where it is written to shared
-// memory, while l sums the unrounded p, as the reference's l_ref does; the
-// output acc / l is rounded to bf16 once. Shared memory and the tiles are
-// f32's: cp.async copies bytes and cannot widen, so bf16 K/V tiles are
-// loaded through registers (8 rows a batch, 8 bytes or one element a
-// copy) into the same f32 slots, and their copies are not asynchronous.
-// The TPU kernel rounds p relative to the running max of its 256-key
-// blocks, this one relative to that of its 64-key tiles, so the two agree
-// to within the p-rounding term of the wrapper's bound, not bitwise.
+// Two bodies, picked by the caller (kernels/flash_swa.py::_body) from the
+// dtype, the head dim, the strides and the pointers alone.
 //
-// The band rules (the tile range, the interior test and the row blocks'
-// key groups) are mirrored in Python in kernels/flash_swa.py, where the CPU
-// tests hold them against the mask by brute force.
+// * SIMT (f32; and bf16 that TMA cannot describe: a head dim or a stride
+//   that is not a multiple of 8 elements, a pointer off 16 bytes), the
+//   kernel flash_swa_tile above. bf16 there is a template on the element
+//   type T that follows the TPU kernel's casts: q and k are widened to f32
+//   (exact) as they are staged, q scaled in f32 after; scores, the online
+//   softmax, l and the PV sums stay f32. P is rounded to bf16 (v's dtype,
+//   round to nearest even, kept as f32) where it is written to shared
+//   memory, while l sums the unrounded p, as the reference's l_ref does;
+//   the output acc / l is rounded to bf16 once. Shared memory and the tiles
+//   are f32's: cp.async copies bytes and cannot widen, so bf16 K/V tiles
+//   are loaded through registers (8 rows a batch, 8 bytes or one element a
+//   copy) into the same f32 slots, and their copies are not asynchronous.
+// * tensor-core (bf16 where TMA can describe q, k and v: every bf16
+//   prefill attention of serving), the kernel flash_swa_tc. The SIMT body
+//   ran bf16 on f32 CUDA cores at 2-5% of the bf16 bound and up to 19x
+//   behind SDPA (gemma3's d 256: 2.77 ms against 0.14); the bound is the
+//   tensor cores' 989 TFLOP/s (4*d FLOPs a visible pair: gemma3's prefill
+//   69 GFLOP, 0.07 ms) or HBM's rate (paper-llama3.2-3b's: 67 MB, 0.02 ms),
+//   so both products have to run there, fed without threads. The
+//   reference's casts are exactly wgmma's contract: bf16 operands, f32
+//   accumulators, P rounded to bf16 before P.V.
+//   - One block of one or two warpgroups (64 query rows each) per (b*h,
+//     query tile), the later (heavier) query tiles first: two at DP 128
+//     and 256, which share every K/V tile, one block an SM; one at DP 64,
+//     four blocks an SM (see tc_wgs). No producer warpgroup: with 384
+//     threads ptxas held every thread to the launch's 168 registers,
+//     setmaxnreg notwithstanding (DP 256's output accumulator alone is 128
+//     a thread, and it spilled), and 288 threads (a producer warp) gave the
+//     same 168, since warps share the SM's four register files by threes.
+//     With 256 threads every thread may take 255.
+//   - Thread 0 also issues TMA: the Q tile once, then the K and the V
+//     tiles of BKV keys (128 at DP 128, else 64) into two rings of 2
+//     stages, K's and V's, each stage's arrival on a `full` mbarrier. A
+//     warpgroup releases a stage on its `empty` mbarrier when its products
+//     are done with it (K's after Q.K^T, V's after P.V), and thread 0
+//     refills it once both have. The maps are 4-D (d, head, position,
+//     batch), built on the host per launch from the tensors' strides,
+//     64-column boxes with 128-byte swizzle: a GQA head reads its K/V head
+//     h / (H / KVH) in place; columns past d and rows past Sk or Sq arrive
+//     as TMA's zero fill and are masked; column boxes wholly past d are
+//     not loaded (Q's and K's are zeroed once instead: a branch between
+//     the products of Q.K^T made ptxas serialise every wgmma).
+//   - S = Q.K^T is wgmma m64nBKVk16 from shared memory, Q and K both
+//     K-major (as they lie: nothing is transposed), f32. The scale is
+//     applied to the f32 scores, s = acc * d^-1/2: rounding q * d^-1/2 to
+//     bf16 first would put 2^-9 of relative error on every score. The
+//     online softmax runs in the accumulator's fragment (a thread's 2
+//     rows, reduced over the quad by shuffles) in the reference's order
+//     with expf and IEEE division (l sums the unrounded p, and the
+//     exact-rounding probes hold the output bitwise). p is rounded to bf16
+//     straight into the A fragment of P.V, wgmma m64nDPk16 with A from
+//     registers (the score fragment is the A fragment once pairs are
+//     packed) and V N-major through the transpose bit, added to the f32
+//     output accumulator.
+//   - The products overlap the softmax: a tile's turn issues its Q.K^T,
+//     then the previous tile's P.V behind it, and runs its softmax while
+//     the tensor cores do that P.V (a second score buffer, to run the
+//     next tile's Q.K^T under this tile's softmax as well, does not fit
+//     the registers at DP 128; taking turns between the two warpgroups at
+//     issuing products, with the producer's refills put off so as not to
+//     wait on the other warpgroup, measured slower).
+//   - Masking runs only where the warpgroup's rows and the tile straddle
+//     the diagonal, a window edge or Sk (interior with the tile's BKV); a
+//     warpgroup leaves a loaded tile out where none of its rows is real or,
+//     under a causal mask, the tile lies past its last row (tc_skips).
+//   - out = acc / max(l, 1e-30), rounded to bf16 once, written into the
+//     warpgroup's rows of the Q tile in TMA's layout and stored by TMA
+//     (rows past Sq and columns past d clipped), which measured faster than
+//     4-byte stores from the fragment.
+//   - Every mbarrier wait traps after ~4 s (hopper.cuh) rather than hang.
+//   The tensor cores sum each k16 step's products in f32 without rounding
+//   as IEEE FMAs do, and the scale follows the product where the plain
+//   version scales q first; swa_error_bound's f32 terms hold both, and the
+//   probes stay bitwise (chip_smoke.py phase 9). Every sum has a fixed
+//   order: two runs are bitwise equal.
+//
+// Both bodies round p relative to the running max of their KV tiles (64
+// or BKV keys), the TPU kernel relative to that of its 256-key blocks, so
+// they agree to within the p-rounding term of the wrapper's bound, not
+// bitwise.
+//
+// The band rules (the tile range, the interior test, the SIMT row blocks'
+// key groups, the tensor-core warpgroups' skips) are mirrored in Python in
+// kernels/flash_swa.py, where the CPU tests hold them against the mask by
+// brute force for both bodies' tiles.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
+using namespace hopper;
 using bf16 = __nv_bfloat16;
 
 template <typename T>
@@ -330,10 +405,11 @@ __device__ __forceinline__ int key_hi(int q_last, int Sk, int causal) {
   return causal ? min(q_last, Sk - 1) : Sk - 1;
 }
 
-// every (row, key) pair of rows [q0, q_last] x keys [k0, k0 + BKV) visible
+// every (row, key) pair of rows [q0, q_last] x keys [k0, k0 + bkv) visible
 __device__ __forceinline__ bool interior(int q0, int q_last, int k0, int Sk,
-                                         int causal, int window) {
-  return k0 + BKV <= Sk && (!causal || k0 + BKV - 1 <= q0) &&
+                                         int causal, int window,
+                                         int bkv = BKV) {
+  return k0 + bkv <= Sk && (!causal || k0 + bkv - 1 <= q0) &&
          (window <= 0 || q_last - k0 < window);
 }
 
@@ -659,6 +735,346 @@ __global__ void __launch_bounds__(NT, blocks_per_sm(DP))
   }
 }
 
+// ------------------------------------------------------------ tensor-core
+// bf16 where TMA can describe q, k and v (head dim a multiple of 8, every
+// stride a multiple of 8 elements, 16-byte aligned pointers). Shared
+// memory, from a 1024-byte aligned base: the Q tile (DP / 64 boxes of 128
+// rows x 64 columns), TC_STAGES K tiles, TC_STAGES V tiles (each DP / 64
+// boxes of BKV rows x 64 columns), all 128-byte swizzled as TMA writes
+// them; then the mbarriers (Q's, then K's full[s] and empty[s], V's).
+constexpr int TC_STAGES = 2;  // K tiles in their ring, V tiles in theirs
+
+// The tile at each DP, chosen from timings of the alternatives on an H100
+// (PERF.md): warpgroups of a block (64 query rows each), keys of a KV
+// tile, blocks an SM. DP 128 and 256: two warpgroups, which share every
+// K/V tile, one block an SM; 128 keys at DP 128 (faster than 64 at long
+// S), 64 at DP 256, where the output accumulator alone takes 128
+// registers a thread and a 128-key stage 128 KB. DP 64: one warpgroup and
+// 64 keys, four blocks an SM (128 registers a thread), so that blocks'
+// starts and ends run under other blocks' products (faster than one or two
+// blocks of 128 keys). A thread holds DP / 2 + BKV / 2 + BKV / 4
+// registers of operands: 176 at DP 256, 160 at 128, 80 at 64.
+__host__ __device__ constexpr int tc_wgs(int dp) { return dp > 64 ? 2 : 1; }
+__host__ __device__ constexpr int tc_bq(int dp) { return 64 * tc_wgs(dp); }
+__host__ __device__ constexpr int tc_blocks(int dp) { return dp > 64 ? 1 : 4; }
+__host__ __device__ constexpr int tc_bkv(int dp) { return dp == 128 ? 128 : 64; }
+__host__ __device__ constexpr int tc_q_bytes(int dp) { return tc_bq(dp) * dp * 2; }
+__host__ __device__ constexpr int tc_kv_bytes(int dp) {  // K's or V's tile
+  return tc_bkv(dp) * dp * 2;
+}
+__host__ __device__ constexpr size_t tc_smem(int dp) {
+  return 1024 + (size_t)tc_q_bytes(dp) +
+         (size_t)TC_STAGES * 2 * tc_kv_bytes(dp) + (1 + 4 * TC_STAGES) * 8;
+}
+// 42,056 bytes at DP 64, 164,936 at 128, 197,704 at 256
+static_assert(tc_smem(128) <= 232448 && tc_smem(256) <= 232448 &&
+                  tc_blocks(64) * (tc_smem(64) + 1024) <= 233472,
+              "the blocks fit an SM's shared memory");
+
+// A warpgroup (query rows [r0, r_last], r_last the last real one) leaves
+// a loaded KV tile out: none of its rows is real, or under a causal mask
+// the tile lies past its last row. Its rows have then each seen a visible
+// key in an earlier tile (their own position comes first), so computing
+// the tile would change nothing: corr = 1, p = 0. The tiles it computes
+// are a prefix of the block's.
+__device__ __forceinline__ bool tc_skips(int r0, int r_last, int k0, int Sq,
+                                         int causal) {
+  return r0 >= Sq || (causal && k0 > r_last);
+}
+
+// two f32 rounded to bf16 (round to nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(128 * tc_wgs(DP), tc_blocks(DP))
+    flash_swa_tc(const __grid_constant__ CUtensorMap tmq,
+                 const __grid_constant__ CUtensorMap tmk,
+                 const __grid_constant__ CUtensorMap tmv,
+                 const __grid_constant__ CUtensorMap tmo, int H, int KVH,
+                 int Sq, int Sk, int d, int causal, int window,
+                 float scale) {
+  constexpr int BQ = tc_bq(DP), WGS = tc_wgs(DP);
+  constexpr int BK = tc_bkv(DP), S = TC_STAGES;
+  constexpr int QB = tc_q_bytes(DP), KB = tc_kv_bytes(DP);
+  constexpr int NS = BK / 2, NO = DP / 2;  // score and output registers
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* const gq = smem_raw + (q_s - smem_u32(smem_raw));
+  const uint32_t k_s = q_s + QB, v_s = k_s + S * KB;  // stage s at + s KB
+  const uint32_t qbar = v_s + S * KB;
+  const uint32_t kfull = qbar + 8, kempty = kfull + 8 * S;
+  const uint32_t vfull = kempty + 8 * S, vempty = vfull + 8 * S;
+
+  const int bh = blockIdx.x, bi = bh / H, h = bh - bi * H;
+  const int kh = h / (H / KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int q_last = min(q0 + BQ - 1, Sq - 1);
+  const int lo = key_lo(q0, window), hi = key_hi(q_last, Sk, causal);
+  const int kt_lo = lo / BK;
+  const int tiles = lo <= hi ? hi / BK - kt_lo + 1 : 0;
+  const int nc = (d + 63) / 64;  // column boxes that hold real columns
+  const uint32_t tile_bytes = nc * BK * 128;  // a K or a V tile's
+
+  const int tid = threadIdx.x, wg = tid >> 7, lane = tid & 31;
+  const bool lead = (tid & 127) == 0;  // arrives for its warpgroup
+  const bool producer = tid == 0;      // and issues every TMA load
+  // Q's and K's column boxes wholly past d are never loaded: zeros, so that
+  // Q.K^T runs over every box of DP without a branch between its products
+  // (a branch there makes ptxas serialise them)
+  for (int c = nc; c < DP / 64; ++c) {
+    for (int i = tid; i < BQ * 32; i += 128 * WGS)
+      reinterpret_cast<uint32_t*>(gq + c * BQ * 128)[i] = 0u;
+    for (int s = 0; s < S; ++s)
+      for (int i = tid; i < BK * 32; i += 128 * WGS)
+        reinterpret_cast<uint32_t*>(gq + QB + s * KB + c * BK * 128)[i] = 0u;
+  }
+  fence_async_smem();
+  if (producer) {
+    mbar_init(qbar, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(kfull + 8 * s, 1);   // the producer's expect_tx
+      mbar_init(kempty + 8 * s, WGS);  // one arrival a warpgroup
+      mbar_init(vfull + 8 * s, 1);
+      mbar_init(vempty + 8 * s, WGS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // K's (V's) tile t into its stage, its bytes counted on the stage's full
+  // barrier
+  auto load = [&](const CUtensorMap* map, uint32_t ring, uint32_t full,
+                  int t) {
+    const int s = t % S, k0 = (kt_lo + t) * BK;
+    mbar_expect_tx(full + 8 * s, tile_bytes);
+    for (int c = 0; c < nc; ++c)
+      tma_load_4d(ring + s * KB + c * BK * 128, map, 64 * c, kh, k0, bi,
+                  full + 8 * s);
+  };
+  if (producer) {
+    mbar_expect_tx(qbar, nc * BQ * 128);
+    for (int c = 0; c < nc; ++c)
+      tma_load_4d(q_s + c * BQ * 128, &tmq, 64 * c, h, q0, bi, qbar);
+    for (int t = 0; t < min(S, tiles); ++t) {
+      load(&tmk, k_s, kfull, t);
+      load(&tmv, v_s, vfull, t);
+    }
+  }
+  // the warpgroup is done with the K (V) tile t: its lead arrives on the
+  // stage's empty barrier, and the producer refills the stage with tile
+  // t + S once both warpgroups have
+  auto release = [&](const CUtensorMap* map, uint32_t ring, uint32_t full,
+                     uint32_t empty, int t) {
+    const int s = t % S;
+    if (lead) mbar_arrive(empty + 8 * s);
+    if (producer && t + S < tiles) {
+      mbar_wait(empty + 8 * s, (t / S) & 1);
+      load(map, ring, full, t + S);
+    }
+  };
+
+  const int r0 = q0 + 64 * wg, r_last = min(r0 + 63, Sq - 1);
+  int n = 0;  // the tiles the warpgroup computes: a prefix of the block's
+  while (n < tiles && !tc_skips(r0, r_last, (kt_lo + n) * BK, Sq, causal))
+    ++n;
+  // the accumulators' fragment: register 4j + 2hh + c holds row fr + 8 hh
+  // of the warpgroup's 64, column 8j + fc + c
+  const int fr = ((tid & 127) >> 5) * 16 + (lane >> 2), fc = (lane & 3) * 2;
+  const uint32_t qa = q_s + 64 * wg * 128;  // the warpgroup's Q rows
+  float acc[NO], sc[NS], m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
+  float corr[2] = {1.f, 1.f};
+  uint32_t pa[BK / 16][4];  // P's A fragment, one k16 step a row
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) sc[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pa[kk][i] = 0u;
+  mbar_wait(qbar, 0);
+
+  // S(t) = Q K(t)^T into sc (f32), d contracted over DP (boxes past d hold
+  // zeros); issued and committed, not waited for
+  auto scores = [&](int t) {
+    const int s = t % S;
+    mbar_wait(kfull + 8 * s, (t / S) & 1);
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < DP / 64; ++c) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_kk<BK>(sc, sw128_desc(qa + c * BQ * 128 + kk * 32, 16),
+                     sw128_desc(k_s + s * KB + c * BK * 128 + kk * 32, 16),
+                     c | kk);
+    }
+    wgmma_commit();
+  };
+  // the online softmax of tile t on the thread's 2 rows, S(t) in sc, the
+  // reference's order: s = acc d^-1/2 in f32, m_new = max(m, row max),
+  // corr = exp(m - m_new), p = exp(s - m_new) (in sc), l = l corr + sum p
+  auto softmax = [&](int t) {
+    const int k0 = (kt_lo + t) * BK;
+    const bool masked = !interior(r0, r_last, k0, Sk, causal, window, BK);
+    // the visible keys of the thread's row hh in the tile are its columns
+    // 8j + c in [lo[hh], hi[hh]], one compare each with j and c unrolled
+    // (at DP 64, whose 128 registers a thread leave the compiler less room,
+    // each key's position is tested against the mask instead, which
+    // measured faster there and slower at DP 128 and 256)
+    int lo[2], hi[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int qpos = r0 + fr + 8 * hh;
+      hi[hh] = (causal ? min(qpos, Sk - 1) : Sk - 1) - k0 - fc;
+      lo[hh] = window > 0 ? qpos - window + 1 - k0 - fc : -BK;
+    }
+    float red[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& v = sc[4 * j + 2 * hh + c];
+          v = __fmul_rn(v, scale);
+          if (masked) {
+            const int col = 8 * j + c;
+            bool ok;
+            if constexpr (DP == 64) {
+              const int qpos = r0 + fr + 8 * hh, kpos = k0 + fc + col;
+              ok = kpos < Sk;
+              if (causal) ok = ok && kpos <= qpos;
+              if (window > 0) ok = ok && qpos - kpos < window;
+            } else {
+              ok = col <= hi[hh] && col >= lo[hh];
+            }
+            if (!ok) v = kNegInf;
+          }
+          red[hh] = fmaxf(red[hh], v);
+        }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      red[hh] = fmaxf(red[hh], __shfl_xor_sync(0xffffffffu, red[hh], 1));
+      red[hh] = fmaxf(red[hh], __shfl_xor_sync(0xffffffffu, red[hh], 2));
+      const float m_new = fmaxf(m_i[hh], red[hh]);
+      corr[hh] = expf(m_i[hh] - m_new);
+      m_i[hh] = m_new;
+      red[hh] = 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& v = sc[4 * j + 2 * hh + c];
+          v = expf(v - m_i[hh]);
+          red[hh] += v;
+        }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      red[hh] += __shfl_xor_sync(0xffffffffu, red[hh], 1);
+      red[hh] += __shfl_xor_sync(0xffffffffu, red[hh], 2);
+      l_i[hh] = __fadd_rn(__fmul_rn(l_i[hh], corr[hh]), red[hh]);
+    }
+  };
+  // p rounded to bf16 (v's dtype) straight into P's A fragment: the score
+  // fragment's layout, pairs packed
+  auto pack = [&]() {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+  };
+  // acc = acc corr + P(t) V(t), V N-major through the transpose bit;
+  // issued and committed, not waited for
+  auto pv = [&](int t) {
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[4 * j + i] *= corr[i >> 1];
+    const int s = t % S;
+    mbar_wait(vfull + 8 * s, (t / S) & 1);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_rs<DP>(acc, pa[kk],
+                   sw128_desc(v_s + s * KB + kk * 16 * 128, BK * 128));
+    wgmma_commit();
+    fence_regs(acc);
+  };
+
+  // Tile t's turn: Q.K^T of tile t, then P.V of tile t - 1 queued behind
+  // it; tile t's softmax runs while the tensor cores do that P.V.
+  if (n > 0) {
+    scores(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    release(&tmk, k_s, kfull, kempty, 0);
+    softmax(0);
+    pack();
+  }
+  for (int t = 1; t < n; ++t) {
+    scores(t);
+    pv(t - 1);
+    wgmma_wait<1>();  // S(t) is done: K's stage goes back
+    fence_regs(sc);
+    release(&tmk, k_s, kfull, kempty, t);
+    softmax(t);
+    wgmma_wait<0>();  // P.V of tile t - 1 is done: V's stage goes back
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+    release(&tmv, v_s, vfull, vempty, t - 1);
+    pack();
+  }
+  if (n > 0) {
+    pv(n - 1);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(&tmv, v_s, vfull, vempty, n - 1);
+  }
+  for (int t = n; t < tiles; ++t) {  // tiles left out: waited and released
+    mbar_wait(kfull + 8 * (t % S), (t / S) & 1);
+    release(&tmk, k_s, kfull, kempty, t);
+    mbar_wait(vfull + 8 * (t % S), (t / S) & 1);
+    release(&tmv, v_s, vfull, vempty, t);
+  }
+
+  // ---- out = acc / max(l, 1e-30), rounded to bf16 once, into the
+  // warpgroup's rows of the Q tile (which no product reads any more) in
+  // TMA's swizzled layout, then stored by TMA: rows past Sq and columns
+  // past d are clipped
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float l = fmaxf(l_i[hh], 1e-30f);
+    const int row = 64 * wg + fr + 8 * hh;  // in the Q tile
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      const int col = 8 * j + fc;
+      *reinterpret_cast<uint32_t*>(gq + (col >> 6) * BQ * 128 +
+                                   sw128_offset(row, col & 63)) =
+          pack_bf16(__fdiv_rn(acc[4 * j + 2 * hh], l),
+                    __fdiv_rn(acc[4 * j + 2 * hh + 1], l));
+    }
+  }
+  fence_async_smem();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  if (lead && r0 < Sq) {
+    for (int c = 0; c < nc; ++c)
+      tma_store_4d(&tmo, q_s + c * BQ * 128 + 64 * wg * 128, 64 * c, h, r0,
+                   bi);
+    bulk_commit();
+    bulk_wait_read();
+  }
+}
+
 // Lets `kernel` take `bytes` of dynamic shared memory above 48 KB; the
 // attribute is set once per kernel, device and size (a static table per
 // kernel), not once per launch.
@@ -697,6 +1113,65 @@ cudaError_t launch(const T* q, const T* k, const T* v, T* o, int B, int H,
   return cudaGetLastError();
 }
 
+// q, k or v, (batch, position, head) element strides sb, ss, sh with a
+// contiguous last dim, as a 4-D TMA map (d, head, position, batch) of
+// 64-column x box_rows boxes, 128-byte swizzled, zero-filled past d and
+// past the positions; the caller promises a 16-byte aligned p and strides
+// that are multiples of 8 elements wherever the dimension has more than
+// one index (a dimension of one index gets a stride of whole 16 bytes)
+cudaError_t bf16_map4(CUtensorMap* map, const bf16* p, int d, int heads,
+                      int rows, int batch, int64_t sh, int64_t ss,
+                      int64_t sb, int box_rows) {
+  EncodeTiled encode;
+  cudaError_t err = encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t packed = (cuuint64_t)((d * 2 + 15) / 16 * 16);
+  auto bytes = [&](int64_t st, int n) {
+    return n == 1 ? packed : (cuuint64_t)st * sizeof(bf16);
+  };
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {bytes(sh, heads), bytes(ss, rows),
+                                 bytes(sb, batch)};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<bf16*>(p), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// the tensor-core body: q's, k's and v's maps, then one grid
+template <int DP>
+cudaError_t launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                      int B, int H, int KVH, int Sq, int Sk, int d,
+                      const int64_t* st, int causal, int window, float scale,
+                      cudaStream_t stream) {
+  CUtensorMap tmq, tmk, tmv, tmo;
+  cudaError_t err;
+  if ((err = bf16_map4(&tmq, q, d, H, Sq, B, st[2], st[1], st[0],
+                       tc_bq(DP))) !=
+      cudaSuccess)
+    return err;
+  if ((err = bf16_map4(&tmk, k, d, KVH, Sk, B, st[5], st[4], st[3],
+                       tc_bkv(DP))) != cudaSuccess)
+    return err;
+  if ((err = bf16_map4(&tmv, v, d, KVH, Sk, B, st[8], st[7], st[6],
+                       tc_bkv(DP))) != cudaSuccess)
+    return err;
+  if ((err = bf16_map4(&tmo, o, d, H, Sq, B, st[11], st[10], st[9], 64)) !=
+      cudaSuccess)
+    return err;
+  constexpr size_t smem = tc_smem(DP);
+  if ((err = allow_smem<flash_swa_tc<DP>>(smem)) != cudaSuccess) return err;
+  const dim3 grid(B * H, (Sq + tc_bq(DP) - 1) / tc_bq(DP));
+  flash_swa_tc<DP><<<grid, 128 * tc_wgs(DP), smem, stream>>>(
+      tmq, tmk, tmv, tmo, H, KVH, Sq, Sk, d, causal, window, scale);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t run(const T* q, const T* k, const T* v, T* o, int B, int H,
                 int KVH, int Sq, int Sk, int d, const int64_t* strides,
@@ -720,11 +1195,14 @@ cudaError_t run(const T* q, const T* k, const T* v, T* o, int B, int H,
 // Launches on `stream`; returns a cudaError_t (0 = launched). q, k, v, o
 // are float (is_bf16 == 0) or __nv_bfloat16 (is_bf16 != 0). `strides`
 // holds 12 int64: (batch, position, head) strides of q, k, v and o, in
-// elements. vec != 0 promises d % 4 == 0, every stride % 4 == 0 and
-// 16-byte (f32) or 8-byte (bf16) aligned pointers. d <= 256, H % KVH == 0.
-// `smem` is the dynamic shared memory in bytes that the caller computed for
-// the launch: it must equal this file's smem_bytes at the padded head dim
-// (64, 128 or 256), for either dtype.
+// elements. d <= 256, H % KVH == 0. vec == 1 promises d % 4 == 0, every
+// stride % 4 == 0 and 16-byte (f32) or 8-byte (bf16) aligned pointers: the
+// SIMT body's vector copies. vec == 2 (bf16 only) takes the tensor-core
+// body: it promises d % 8 == 0, every stride of a dimension with more than
+// one index % 8 == 0, 16-byte aligned q, k, v and a 4-byte aligned o.
+// `smem` is the dynamic shared memory in bytes that the caller computed
+// for the launch: it must equal this file's smem_bytes (SIMT, either
+// dtype) or tc_smem (tensor-core) at the padded head dim (64, 128 or 256).
 extern "C" int flash_swa_launch(const void* q, const void* k, const void* v,
                                 void* o, int B, int H, int KVH, int Sq,
                                 int Sk, int d, const int64_t* strides,
@@ -732,11 +1210,27 @@ extern "C" int flash_swa_launch(const void* q, const void* k, const void* v,
                                 int smem, int is_bf16, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return 0;
   const int dp = d <= 64 ? 64 : d <= 128 ? 128 : 256;
+  const bool tc = vec == 2;
   if (Sk <= 0 || d <= 0 || d > 256 || KVH <= 0 || H % KVH != 0 ||
       B * H > 65535 || (Sq + BQ - 1) / BQ > 65535 ||
-      (size_t)smem != smem_bytes(dp))
+      (tc && (!is_bf16 || d % 8 != 0)) ||
+      (size_t)smem != (tc ? tc_smem(dp) : smem_bytes(dp)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tc) {
+    const bf16 *bq = static_cast<const bf16*>(q),
+               *bk = static_cast<const bf16*>(k),
+               *bv = static_cast<const bf16*>(v);
+    bf16* bo = static_cast<bf16*>(o);
+    return (int)(dp == 64 ? launch_tc<64>(bq, bk, bv, bo, B, H, KVH, Sq, Sk,
+                                          d, strides, causal, window, scale,
+                                          s)
+                 : dp == 128
+                     ? launch_tc<128>(bq, bk, bv, bo, B, H, KVH, Sq, Sk, d,
+                                      strides, causal, window, scale, s)
+                     : launch_tc<256>(bq, bk, bv, bo, B, H, KVH, Sq, Sk, d,
+                                      strides, causal, window, scale, s));
+  }
   if (is_bf16)
     return (int)run(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), static_cast<bf16*>(o), B, H,

@@ -52,7 +52,8 @@ from repro_torch.configs import LoRAConfig, get_config  # noqa: E402
 from repro_torch.kernels import (flash_swa, flash_swa_plain,  # noqa: E402
                                  lora_dense, lora_matmul,
                                  lora_matmul_error_bound, lora_matmul_plain,
-                                 probes, swa_attention, swa_error_bound)
+                                 probes, swa_attention, swa_attention_plain,
+                                 swa_error_bound)
 from repro_torch.kernels.lora_matmul import _split_plan  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
@@ -295,6 +296,45 @@ def test_swa_probe_pins_where_p_is_rounded(b, s, h, kvh, d, causal):
     assert bool((got != 0).any())
     seen = probes.differing(got, faults)
     assert len(seen) == 2 and min(seen.values()) > 100, seen
+
+
+def _scaled_after(q, k, v, causal):
+    """``swa_attention_plain``'s bf16 function (no window) with the score
+    scaled after the product, fl(q·k)·d^-½, as B8's tensor-core body
+    scales its f32 accumulator, where the plain version and the Pallas
+    kernel scale q first."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, kvh, h // kvh, d)
+    s = torch.einsum("bqkgd,bckd->bkgqc", qg, k.float()) * d ** -0.5
+    if causal:
+        seen = torch.ones(sq, sk, dtype=torch.bool).tril()
+        s = s.masked_fill(~seen, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = torch.clamp(p.sum(dim=-1), min=1e-30)
+    out = torch.einsum("bkgqc,bckd->bqkgd", p.to(torch.bfloat16).float(),
+                       v.float())
+    out = out / l.permute(0, 3, 1, 2)[..., None]
+    return out.reshape(b, sq, h, d).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("b,s,h,kvh,d,causal", [
+    (2, 512, 12, 12, 64, True), (2, 512, 24, 8, 128, True),
+    (1, 256, 16, 8, 256, True), (2, 300, 4, 2, 128, False),
+    (2, 130, 4, 4, 66, True), (1, 100, 3, 3, 128, True)])
+def test_swa_probe_output_holds_under_either_scale_order(b, s, h, kvh, d,
+                                                         causal, seed):
+    """The probe's premise for B8's tensor-core body: on its inputs the
+    plain version's output is bitwise the same whether the score is scaled
+    before the product (q·d^-½, the reference) or after it (the tensor
+    cores' f32 accumulator), so both evaluations must equal it bit for bit.
+    The card tests' shapes (gemma3's at S 256 here) at batch ≤ 2."""
+    q, k, v, _ = probes.swa_probe(b, s, h, kvh, d, causal=causal,
+                                  seed=seed)
+    want = swa_attention_plain(q, k, v, causal, 0)
+    got = _scaled_after(q, k, v, causal)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
 
 
 def test_swa_attention_refuses_mixed_dtypes():

@@ -881,6 +881,8 @@ def test_lora_matmul_bf16_misaligned_x_takes_simt(cuda):
     assert lora_matmul.bf16_tc_launches == before
 
 
+from repro_torch.kernels.flash_swa import _body as _flash_body  # noqa: E402
+
 BF16_FLASH_CASES = [
     # (B, S, H, KVH, d, causal, window): paper-gpt2 (d 64, MHA),
     # paper-llama3.2-3b (d 128, GQA 24/8), gemma3-12b (d 256, GQA 16/8,
@@ -890,22 +892,48 @@ BF16_FLASH_CASES = [
     (2, 333, 8, 4, 128, True, 64), (2, 500, 8, 2, 128, True, 1000),
     (2, 256, 4, 4, 128, False, 0), (2, 129, 4, 2, 256, False, 70),
     (2, 300, 4, 4, 50, True, 0), (2, 65, 4, 4, 200, True, 0),
+    # the tensor-core body's edges: S not a multiple of its 128 query rows
+    # (one row past a tile, one short of it), windows smaller than its KV
+    # tile (128 keys, 64 at DP 256), non-causal at DP 256 with and without
+    # a window, a head dim below 64 and one that leaves a column box of
+    # DP 256 unloaded (d 136: three boxes of four)
+    (2, 129, 8, 4, 128, True, 0), (1, 383, 4, 2, 64, True, 0),
+    (2, 300, 8, 8, 128, True, 100), (1, 700, 4, 2, 256, True, 50),
+    (2, 256, 4, 4, 64, True, 1), (2, 333, 4, 2, 256, False, 0),
+    (1, 500, 8, 4, 256, False, 300), (2, 200, 4, 4, 32, True, 0),
+    (2, 260, 4, 2, 136, True, 0),
 ]
+
+
+def _flash_tc(b, s, h, kvh, d):
+    """Whether a contiguous bf16 (B, S, H, D) launch takes the tensor
+    cores, by the wrapper's plan."""
+    st = (s * h * d, h * d, d, s * kvh * d, kvh * d, d, s * kvh * d,
+          kvh * d, d)
+    return _flash_body(True, d, st, (b, s, h, b, s, kvh, b, s, kvh),
+                       True) == "tensor-core"
 
 
 @pytest.mark.parametrize("case", BF16_FLASH_CASES, ids=str)
 def test_swa_attention_bf16_matches_plain(cuda, case):
+    """Within the error bound of the plain version, two runs bitwise
+    equal, counted as bf16 launches and, where ``_body`` picks the tensor
+    cores (every case but d 50), as tensor-core launches."""
     b, s, h, kvh, d, causal, window = case
     g = torch.Generator(device="cpu").manual_seed(s + d + h)
     q = torch.randn(b, s, h, d, generator=g).to(cuda, torch.bfloat16)
     k, v = (torch.randn(b, s, kvh, d, generator=g).to(cuda, torch.bfloat16)
             for _ in range(2))
-    before = (flash_swa.launches, flash_swa.bf16_launches)
+    tc = 2 * _flash_tc(b, s, h, kvh, d)
+    assert tc == 2 * (d % 8 == 0)
+    before = (flash_swa.launches, flash_swa.bf16_launches,
+              flash_swa.bf16_tc_launches)
     got = swa_attention(q, k, v, causal, window)
     again = swa_attention(q, k, v, causal, window)
     torch.cuda.synchronize()
-    assert (flash_swa.launches, flash_swa.bf16_launches) == (
-        before[0] + 2, before[1] + 2)
+    assert (flash_swa.launches, flash_swa.bf16_launches,
+            flash_swa.bf16_tc_launches) == (
+        before[0] + 2, before[1] + 2, before[2] + tc)
     assert got.dtype == torch.bfloat16
     assert torch.equal(_bits(got.float()), _bits(again.float()))
     want = swa_attention_plain(q, k, v, causal, window)
@@ -913,20 +941,46 @@ def test_swa_attention_bf16_matches_plain(cuda, case):
                    swa_error_bound(q, k, v, causal, window))
 
 
+@pytest.mark.parametrize("sq, sk, causal, window", [
+    (300, 500, True, 0), (500, 300, True, 0), (200, 333, False, 64),
+    (129, 700, True, 256)], ids=str)
+def test_flash_swa_bf16_sk_not_sq(cuda, sq, sk, causal, window):
+    """The (BH, S, D) layout with Sk ≠ Sq through the tensor cores: within
+    the bound of the plain version, two runs bitwise equal."""
+    g = torch.Generator(device="cpu").manual_seed(sq + sk)
+    q = torch.randn(6, sq, 128, generator=g).to(cuda, torch.bfloat16)
+    k, v = (torch.randn(6, sk, 128, generator=g).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    before = flash_swa.bf16_tc_launches
+    got = flash_swa(q, k, v, causal, window)
+    again = flash_swa(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert flash_swa.bf16_tc_launches == before + 2
+    assert torch.equal(_bits(got.float()), _bits(again.float()))
+    bound = swa_error_bound(q[:, :, None], k[:, :, None], v[:, :, None],
+                            causal, window)[:, :, 0]
+    assert _within(got.float(),
+                   flash_swa_plain(q, k, v, causal, window).float(), bound)
+
+
 def test_flash_swa_bf16_misaligned_q(cuda):
-    """q one element into its storage: the scalar loads."""
+    """q one element into its storage: the SIMT body's scalar loads (TMA
+    cannot describe it); q 8 elements in (16 bytes): the tensor cores."""
     g = torch.Generator(device="cpu").manual_seed(1)
-    base = torch.randn(2 * 300 * 128 + 1, generator=g).to(cuda,
+    base = torch.randn(2 * 300 * 128 + 8, generator=g).to(cuda,
                                                            torch.bfloat16)
-    q = base[1:].view(2, 300, 128)
     k, v = (torch.randn(2, 300, 128, generator=g).to(cuda, torch.bfloat16)
             for _ in range(2))
-    got = flash_swa(q, k, v, True, 0)
-    torch.cuda.synchronize()
-    assert got.dtype == torch.bfloat16
-    bound = swa_error_bound(q[:, :, None], k[:, :, None], v[:, :, None])
-    assert _within(got.float(), flash_swa_plain(q, k, v).float(),
-                   bound[:, :, 0])
+    for off, tc in ((1, 0), (8, 1)):
+        q = base[off:off + 2 * 300 * 128].view(2, 300, 128)
+        before = flash_swa.bf16_tc_launches
+        got = flash_swa(q, k, v, True, 0)
+        torch.cuda.synchronize()
+        assert flash_swa.bf16_tc_launches == before + tc
+        assert got.dtype == torch.bfloat16
+        bound = swa_error_bound(q[:, :, None], k[:, :, None], v[:, :, None])
+        assert _within(got.float(), flash_swa_plain(q, k, v).float(),
+                       bound[:, :, 0])
 
 
 from repro_torch.kernels import probes  # noqa: E402
@@ -991,12 +1045,15 @@ BF16_PROBE_FLASH = [
 @pytest.mark.parametrize("case", BF16_PROBE_FLASH, ids=str)
 def test_swa_attention_bf16_rounds_p_before_pv(cuda, case):
     """The probe's inputs: the kernel equals its plain version bit for bit,
-    which leaving p unrounded, or l summing the rounded p, would not."""
+    which leaving p unrounded, or l summing the rounded p, would not; the
+    tensor cores take every case but d 66."""
     b, s, h, kvh, d, causal = case
     q, k, v, faults = probes.swa_probe(b, s, h, kvh, d, causal=causal,
                                        device=cuda, seed=s + d)
+    before = flash_swa.bf16_tc_launches
     got = swa_attention(q, k, v, causal, 0)
     torch.cuda.synchronize()
+    assert flash_swa.bf16_tc_launches == before + _flash_tc(b, s, h, kvh, d)
     assert torch.equal(_bits(got.float()),
                        _bits(swa_attention_plain(q, k, v, causal, 0).float()))
     assert min(probes.differing(got, faults).values()) > 0
