@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --launch-cost SRC   # the launch-path costs only
-    python3 chip_smoke.py --decode-sweep      # B3's split-K plans
+    python3 chip_smoke.py --decode-sweep      # B3's decode bodies and plans
     python3 chip_smoke.py --prefill-sweep     # B3's bf16 prefill body
     python3 chip_smoke.py --attention-sweep   # B8's bf16 tensor-core body
     python3 chip_smoke.py --obs-http          # phase 6 alone
@@ -23,7 +23,8 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    ``build/kernels/``, with ``-Xptxas -v``; the registers, spills and
    static shared memory of ``factor_mean``'s grouped kernel, of
    ``lora_matmul``'s kernels (the tiled body, its x@a prepasses, the
-   tensor-core body, the split-K body) and of ``flash_swa``'s kernels (the
+   tensor-core body, the SIMT and the tensor-core split-K bodies) and of
+   ``flash_swa``'s kernels (the
    SIMT body ``flash_swa_tile``, the tensor-core body ``flash_swa_tc``)
    are summed up on lines of their own;
 3. kernels: ``fedex_fold`` (both bodies), ``factor_mean`` (both bodies),
@@ -323,7 +324,10 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
 ``--launch-cost SRC`` runs :func:`launch_cost` alone on the port found
 under ``SRC`` (another tree's ``src`` too, to compare two trees in one
 call) and prints it as one JSON line; ``--decode-sweep`` times B3's
-split-K body at every plan (:func:`decode_sweep`); ``--prefill-sweep``
+decode bodies: the SIMT split-K body in f32 at every plan, then at each
+served model's bf16 decode shapes the tensor-core split-K body at every
+plan beside the SIMT body and ``addmm`` bf16, and each decode layer
+(:func:`decode_sweep`, :func:`bf16_decode_sweep`); ``--prefill-sweep``
 times B3's bf16 tensor-core body one projection at a time, at r 0 to 64,
 beside cuBLAS's bare bf16 x@W (:func:`prefill_sweep`);
 ``--attention-sweep`` times B8's bf16 tensor-core body beside SDPA in bf16
@@ -2903,7 +2907,8 @@ def profile_serving(torch, model, params, lora, prefill, decode, batch,
         for name, ms, n in sorted(rows, key=lambda r: -r[1])[:top]:
             print(f"    {ms:9.3f} ms  {100 * ms / total:5.1f}%  x{n:<5d} "
                   f"{name[:90]}", flush=True)
-        return total
+        # B3's kernels (every lora_mm_* grid)
+        return total, sum(ms for name, ms, _ in rows if "lora_mm" in name)
 
     with torch.inference_mode():
         cache = model.init_cache(bsz, max_len, device=params["embed"][
@@ -2922,14 +2927,18 @@ def profile_serving(torch, model, params, lora, prefill, decode, batch,
         del cache, logits
     print("  [serve] profile of one prefill, device time by kernel:",
           flush=True)
-    pre_ms = device_ms(p_pre, 5)
+    pre_ms, pre_b3 = device_ms(p_pre, 5)
     print("  [serve] profile of two decode steps, device time by kernel:",
           flush=True)
-    dec_ms = device_ms(p_dec, 5) / 2
+    dec_ms, dec_b3 = (v / 2 for v in device_ms(p_dec, 5))
+    print(f"  [serve] B3 (lora_mm_*) device time: prefill {pre_b3:.3f} ms, "
+          f"decode {dec_b3:.3f} ms a step", flush=True)
     out = {"prefill_device_ms": pre_ms,
            "prefill_busy": pre_ms / res.prefill_ms,
            "decode_device_ms_per_step": dec_ms,
-           "decode_busy": dec_ms / res.ms_per_token}
+           "decode_busy": dec_ms / res.ms_per_token,
+           "prefill_b3_device_ms": pre_b3,
+           "decode_b3_device_ms_per_step": dec_b3}
     print(f"  [serve] device time: prefill {pre_ms:.1f} ms "
           f"({100 * out['prefill_busy']:.0f}% of serve()'s {res.prefill_ms:.1f}"
           f" ms), decode {dec_ms:.2f} ms a step "
@@ -4289,17 +4298,22 @@ BF16_SERVE = {"paper-llama3.2-3b": (8, 512, 32, 1024),
 TF_BF16 = 0.1
 
 
-def tc_calls(torch, kernels, bufs, scale, label, want):
+def tc_calls(torch, kernels, bufs, scale, label, want, decode=False):
     """Run ``lora_matmul`` once on each of ``bufs`` and require ``want``
-    of the calls to take the tensor-core body (``bf16_tc_launches``)."""
-    before = kernels.lora_matmul.bf16_tc_launches
+    of the calls to take the tensor-core body (``bf16_tc_launches``), or
+    with ``decode`` the tensor-core split-K body
+    (``bf16_tc_decode_launches``)."""
+    key = "bf16_tc_decode_launches" if decode else "bf16_tc_launches"
+    before = getattr(kernels.lora_matmul, key)
     for buf in bufs:
         kernels.lora_matmul(*buf, scale)
     torch.cuda.synchronize()
-    got = kernels.lora_matmul.bf16_tc_launches - before
+    got = getattr(kernels.lora_matmul, key) - before
     if got != want:
         raise AssertionError(f"lora_matmul {label}: {got} of {len(bufs)} "
-                             f"calls took the tensor-core body, not {want}")
+                             f"calls took the tensor-core "
+                             f"{'split-K ' if decode else ''}body, not "
+                             f"{want}")
 
 
 def bf16_kernel_phase(torch, kernels, device):
@@ -4310,8 +4324,8 @@ def bf16_kernel_phase(torch, kernels, device):
     at the bf16 tensor-core peak (:func:`lora_case`, :func:`flash_case`):
     B3 at each served model's q/k/v/o at prefill (batch · prompt rows) and
     decode (batch rows) and at the serve launcher's M 64 (every prefill
-    and M 64 call through the tensor-core body, every
-    decode call through split-K: :func:`tc_calls`), then r 1, 4 and 64 and
+    and M 64 call through the tensor-core body, every decode call through
+    the tensor-core split-K body: :func:`tc_calls`), then r 1, 4 and 64 and
     odd K and N (the
     scalar paths) and an x view off 16-byte alignment; B8 at d 64
     (paper-gpt2, B 8, S 512, MHA 12/12), d 128 (paper-llama3.2-3b, B 8, S
@@ -4342,7 +4356,7 @@ def bf16_kernel_phase(torch, kernels, device):
             bufs = [bf16(lora_inputs(torch, device, m, k, n, r, seed=90 + i))
                     for i, (_, k, n) in enumerate(serving_projections(c))]
             tc_calls(torch, kernels, bufs, scale, f"bf16 {c.name} M={m}",
-                     len(bufs) if m > SKINNY_ROWS else 0)
+                     len(bufs), decode=m <= SKINNY_ROWS)
             err, timings[prefix + key] = lora_case(
                 torch, kernels, timer, bufs, scale,
                 f"bf16 {c.name} layer: q/k/v/o at M={m}", device_times=True)
@@ -4398,7 +4412,8 @@ def bf16_probes(torch, kernels, device, cfgs):
     (the counters are reset before it)."""
     from repro_torch.kernels import probes
     from repro_torch.kernels.lora_matmul import (SKINNY_ROWS, _adapter_rows,
-                                                 _sm_count, _split_plan)
+                                                 _body, _sm_count,
+                                                 _split_plan, _tc_split_plan)
 
     sms = _sm_count(device.index or 0)
     cases = []
@@ -4414,13 +4429,22 @@ def bf16_probes(torch, kernels, device, cfgs):
               ("tc", 129, 3072, 1024, 12)]
     seen, plans, padded = {}, set(), set()
     for i, (label, m, k, n, r) in enumerate(cases):
-        plan = _split_plan(n, k, sms) if m <= SKINNY_ROWS else None
+        body = _body(m, k, n, True, True)
+        plan = None if m > SKINNY_ROWS else (
+            _tc_split_plan if body == "tensor-core split-K" else _split_plan)(
+                n, k, sms)
         chunk = plan[1] if plan else 64
         x, w, a, b, scale, want, faults = probes.lora_probe(
             m, k, n, r, chunk=chunk, device=device, seed=i)
-        tc = kernels.lora_matmul.bf16_tc_launches
+        tc, tcd = (kernels.lora_matmul.bf16_tc_launches,
+                   kernels.lora_matmul.bf16_tc_decode_launches)
         got = kernels.lora_matmul(x, w, a, b, scale)
-        tc = kernels.lora_matmul.bf16_tc_launches - tc
+        tc, tcd = (kernels.lora_matmul.bf16_tc_launches - tc,
+                   kernels.lora_matmul.bf16_tc_decode_launches - tcd)
+        if tcd != (body == "tensor-core split-K"):
+            raise AssertionError(f"lora_matmul bf16 probe {label} M={m} "
+                                 f"K={k} N={n}: {tcd} launches of the "
+                                 "tensor-core split-K body")
         plain = kernels.lora_matmul_plain(x, w, a, b, scale)
         torch.cuda.synchronize()
         diff = probes.differing(got, faults)
@@ -4432,7 +4456,9 @@ def bf16_probes(torch, kernels, device, cfgs):
                 f"== exact {torch.equal(got, want)} (max |kernel - exact| "
                 f"{float((got - want).abs().max()):.3e}); elements apart from "
                 f"the faults {diff}")
-        plans.add(plan[0] if plan else "tensor-core" if tc else "tiled")
+        plans.add(("tc-split-K", plan[0]) if tcd else
+                  ("split-K", plan[0]) if plan else
+                  "tensor-core" if tc else "tiled")
         if tc:
             padded.add(_adapter_rows(r))
         for name, v in diff.items():
@@ -4440,10 +4466,14 @@ def bf16_probes(torch, kernels, device, cfgs):
         del x, w, a, b, want, faults, got, plain
     if not {"tensor-core", "tiled"} <= plans:
         raise AssertionError(f"lora_matmul bf16 probes: bodies {plans}")
-    print(f"  lora_matmul bf16 probes: {len(cases)} cases (split-K at "
-          f"{sorted(p for p in plans if isinstance(p, int))} K chunks, the "
-          f"tensor-core body with x@a at N {sorted(padded)}, the tiled body) bitwise the plain version and the exact answer; "
-          f"elements apart from the faulty variants {seen}", flush=True)
+    chunks = {body: sorted(p[1] for p in plans if p[0] == body)
+              for body in ("tc-split-K", "split-K")}
+    print(f"  lora_matmul bf16 probes: {len(cases)} cases (the tensor-core "
+          f"split-K body at {chunks['tc-split-K']} K chunks, the SIMT "
+          f"split-K body at {chunks['split-K']}, the tensor-core body with "
+          f"x@a at N {sorted(padded)}, the tiled body) bitwise the plain "
+          f"version and the exact answer; elements apart from the faulty "
+          f"variants {seen}", flush=True)
     seen = {}
     flash = [(c.name, *BF16_SERVE[c.name][:2], c.num_heads, c.num_kv_heads,
               c.resolved_head_dim, True) for c in cfgs]
@@ -4478,16 +4508,17 @@ def bf16_probes(torch, kernels, device, cfgs):
 
 def tc_launch_counts(kernels) -> dict:
     """B3's and B8's launches through their tensor-core bodies since the
-    last reset."""
+    last reset (B3's decode body apart)."""
     return {"lora_matmul": kernels.lora_matmul.bf16_tc_launches,
+            "lora_matmul_decode": kernels.lora_matmul.bf16_tc_decode_launches,
             "flash_swa": kernels.flash_swa.bf16_tc_launches}
 
 
 def _expect_bf16(kernels, name, want, tc):
     """The launch counts are ``want`` (every other kernel 0), every one of
     them a bf16 launch, and the tensor-core bodies' ``tc`` (kernel →
-    launches): B3's every prefill projection and no decode one, B8's every
-    prefill attention."""
+    launches): B3's every prefill projection (``lora_matmul``) and every
+    decode one (``lora_matmul_decode``), B8's every prefill attention."""
     _expect(kernels, name, want)
     got = kernels.bf16_launch_counts()
     expected = {k: want.get(k, 0) for k in got}
@@ -4572,13 +4603,15 @@ def bf16_serve(torch, kernels, device, name):
         torch.cuda.synchronize()
         _expect_bf16(kernels, f"{name} bf16 one prefill",
                      {"lora_matmul": 4 * L, "flash_swa": L},
-                     tc={"lora_matmul": 4 * L, "flash_swa": L})
+                     tc={"lora_matmul": 4 * L, "lora_matmul_decode": 0,
+                         "flash_swa": L})
         kernels.reset_launch_counts()
         _, dec, cache = decode(params, lora, full[:, -1:], cache, prompt)
         torch.cuda.synchronize()
         _expect_bf16(kernels, f"{name} bf16 one decode step",
                      {"lora_matmul": 4 * L},
-                     tc={"lora_matmul": 0, "flash_swa": 0})
+                     tc={"lora_matmul": 0, "lora_matmul_decode": 4 * L,
+                         "flash_swa": 0})
         del cache
         kernels.reset_launch_counts()
         with plain_ops(kernels):
@@ -4618,7 +4651,9 @@ def bf16_serve(torch, kernels, device, name):
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = {"lora_matmul": 4 * L * (1 + steps), "flash_swa": L}
     _expect_bf16(kernels, f"{name} bf16 serve() (1 prefill + {steps} decode "
-                 "steps)", want, tc={"lora_matmul": 4 * L, "flash_swa": L})
+                 "steps)", want, tc={"lora_matmul": 4 * L,
+                                     "lora_matmul_decode": 4 * L * steps,
+                                     "flash_swa": L})
     toks = res.tokens
     if toks.shape != (bsz, steps + 1) or not (
             (toks >= 0) & (toks < cfg.vocab_size)).all():
@@ -4678,17 +4713,19 @@ def bf16_phase(torch, kernels, device):
     (from the last :func:`build_kernels`), the bf16 kernels
     (:func:`bf16_kernel_phase`), then :func:`bf16_serve` of each model of
     ``BF16_SERVE``, one at a time. Returns (max errors, timings, launches,
-    bf16 launches, stats); the bf16 launches hold ``lora_matmul_tc`` and
-    ``flash_swa_tc``, B3's and B8's tensor-core launches."""
+    bf16 launches, stats); the bf16 launches hold ``lora_matmul_tc``,
+    ``lora_matmul_decode_tc`` and ``flash_swa_tc``, B3's and B8's
+    tensor-core launches."""
     t = time.perf_counter()
     for line in PTXAS:
-        if line.startswith(("lora_mm_tc", "lora_mm_at", "flash_swa_tc")):
+        if line.startswith(("lora_mm_tc", "lora_mm_at", "lora_mm_dec",
+                            "flash_swa_tc")):
             print(f"  [bf16] ptxas {line}", flush=True)
     errs, timings = bf16_kernel_phase(torch, kernels, device)
     stats = {"kernels_s": time.perf_counter() - t}
     launches = {name: 0 for name in SOURCES}
     bf16 = {"lora_matmul": 0, "flash_swa": 0, "lora_matmul_tc": 0,
-            "flash_swa_tc": 0}
+            "lora_matmul_decode_tc": 0, "flash_swa_tc": 0}
     for name in BF16_SERVE:
         stats[name], got, got_bf16, tc = bf16_serve(torch, kernels, device,
                                                     name)
@@ -4730,7 +4767,9 @@ def launch_cost(torch, kernels, device, cfg, calls=1000) -> dict:
     shapes: ``factor_mean`` over one close's a and b stacks (4 leaves, 2
     live lanes of 4; one grouped call where the package has
     ``factor_mean_group``, else 8 calls) and ``lora_matmul`` over one decode
-    layer's q/k/v/o (4 calls, M = 8). For each, µs a close or a layer:
+    layer's q/k/v/o (4 calls, M = 8), in f32 and in bf16
+    (``lora_matmul_bf16``, the serving dtype). For each, µs a close or a
+    layer:
     ``wall_us``, perf_counter over ``calls`` of them synchronised at the end
     (the device's time included), ``enqueue_us``, the median of 200
     perf_counter spans around one of them after a synchronise (the host's
@@ -4750,12 +4789,19 @@ def launch_cost(torch, kernels, device, cfg, calls=1000) -> dict:
             for x in stacks:
                 kernels.factor_mean(x, w)
 
+    bufs16 = [[t.bfloat16() for t in buf] for buf in bufs]
+
     def b3():
         for buf in bufs:
             kernels.lora_matmul(*buf, 2.0)
 
+    def b3_bf16():
+        for buf in bufs16:
+            kernels.lora_matmul(*buf, 2.0)
+
     out, timer = {}, Timer(torch, device)
-    for name, fn in (("factor_mean", b2), ("lora_matmul", b3)):
+    for name, fn in (("factor_mean", b2), ("lora_matmul", b3),
+                     ("lora_matmul_bf16", b3_bf16)):
         for _ in range(20):
             fn()
         torch.cuda.synchronize()
@@ -4778,12 +4824,13 @@ def launch_cost(torch, kernels, device, cfg, calls=1000) -> dict:
 
 
 def decode_sweep(torch, kernels, device, cfg) -> list:
-    """B3's split-K body at every plan (K chunks 1, 2, 4, 8 × column blocks
-    of 32, 64, 128) at M = 8 and r = 4, at one decode layer's two shapes
-    (q/o_proj and k/v_proj) and at K = 64 (where the launch's fixed part
-    shows): device time a launch (:meth:`Timer.device`), checked against
-    the plain version within the error bound. The plan that
-    ``_split_plan`` picks is marked. Returns the rows."""
+    """B3's SIMT split-K body in f32 at every plan (K chunks 1, 2, 4, 8 ×
+    column blocks of 32, 64, 128) at M = 8 and r = 4, at one decode layer's
+    two shapes (q/o_proj and k/v_proj) and at K = 64 (where the launch's
+    fixed part shows): device time a launch (:meth:`Timer.device`), checked
+    against the plain version within the error bound. The plan that
+    ``_split_plan`` picks is marked. Then :func:`bf16_decode_sweep`.
+    Returns the rows."""
     lm = importlib.import_module("repro_torch.kernels.lora_matmul")
     lib = kernels.build.load_library()
     timer, rows = Timer(torch, device), []
@@ -4826,6 +4873,141 @@ def decode_sweep(torch, kernels, device, cfg) -> list:
                          f"{ms * 1e3:.2f} us")
                       + ("  <- _split_plan" if plan == picked else ""),
                       flush=True)
+    return rows + bf16_decode_sweep(torch, kernels, device)
+
+
+def bf16_decode_sweep(torch, kernels, device) -> list:
+    """B3's bf16 decode bodies at each served model's decode rows
+    (``BF16_SERVE``: batch 8, 8, 2) and r 4: the tensor-core split-K body
+    at every plan (K chunks 1-8 × column blocks of 64 and 128, kc a
+    multiple of 64; the one ``_tc_split_plan`` picks marked) at each
+    distinct projection shape (q, k = v, o) and at K = 64 (the launch's
+    fixed part), beside the SIMT split-K body at ``_split_plan``'s plan
+    and ``torch.addmm(x @ w, x @ a, b, alpha=2)`` in bf16, with the bytes
+    bound; then each model's whole decode layer (q/k/v/o), new body, old
+    body and ``addmm`` bf16 in turns. Every case is held to the plain
+    version within ``lora_matmul_error_bound``. Device ms
+    (:meth:`Timer.device`). Returns the rows."""
+    from repro_torch.configs import get_config
+    lm = importlib.import_module("repro_torch.kernels.lora_matmul")
+    lib = kernels.build.load_library()
+    timer, rows = Timer(torch, device), []
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(x, w, a, b, y, plan, vec):
+        m, k = x.shape
+        n, r = w.shape[1], a.shape[1]
+        code = lib.lora_matmul_launch(
+            x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
+            y.data_ptr(), None, m, n, k, r, 2.0, *plan, vec, 1, stream)
+        kernels.build.check_launch("lora_matmul", code)
+
+    def simt(bufs):
+        """The SIMT split-K body's launches over ``bufs`` (its plan and
+        copy widths as the wrapper picks them for bf16), run once and held
+        to the plain version; returns a function that launches them."""
+        calls = []
+        for x, w, a, b in bufs:
+            n, r = w.shape[1], a.shape[1]
+            vec = int(n % 4 == 0) | (2 if r % 4 == 0 else 0)
+            y = torch.empty(x.shape[0], n, device=device)
+            calls.append((x, w, a, b, y, lm._split_plan(n, x.shape[1], sms),
+                          vec))
+            launch(*calls[-1])
+            held(f"SIMT K={x.shape[1]} N={n}", x, w, a, b, y)
+        return lambda: [launch(*c) for c in calls]
+
+    def held(label, x, w, a, b, y):
+        """y within the bound of the plain version."""
+        torch.cuda.synchronize()
+        bound = kernels.lora_matmul_error_bound(x, w, a, b, 2.0)
+        if not bool(((y - kernels.lora_matmul_plain(
+                x, w, a, b, 2.0)).abs() <= bound).all()):
+            raise AssertionError(f"bf16 decode sweep {label} disagrees")
+
+    for name, (bsz, *_) in BF16_SERVE.items():
+        c = get_config(name)
+        projs = serving_projections(c)
+        shapes = list(dict.fromkeys((k, n) for _, k, n in projs))
+        shapes.append((64, projs[1][2]))
+        for k, n in shapes:
+            x, w, a, b = (t.bfloat16() for t in lora_inputs(
+                torch, device, bsz, k, n, 4, seed=k + n))
+            y = torch.empty(bsz, n, device=device)
+            nbytes, _ = lora_cost([(bsz, k, n)], 4, 2)
+            bound = nbytes / HBM_BYTES_PER_S * 1e3
+            picked = lm._tc_split_plan(n, k, sms)
+            slices = -(-k // 64)
+            before = kernels.lora_matmul.bf16_tc_decode_launches
+            got = kernels.lora_matmul(x, w, a, b, 2.0)
+            if kernels.lora_matmul.bf16_tc_decode_launches != before + 1:
+                raise AssertionError(f"bf16 decode sweep {name} K={k} N={n}: "
+                                     "not the tensor-core split-K body")
+            held(f"{name} K={k} N={n}", x, w, a, b, got)
+            old = simt([(x, w, a, b)])
+            old_ms = timer.device(old, bound)
+            lib_ms = timer.device(
+                lambda: torch.addmm(x @ w, x @ a, b, alpha=2.0), bound)
+            plans = {(-(-k // (64 * -(-slices // s))), 64 * -(-slices // s),
+                      lm.DC_BN) for s in range(1, 9)}
+            for plan in sorted(plans):
+                launch(x, w, a, b, y, plan, 4)
+                held(f"{name} K={k} N={n} plan {plan}", x, w, a, b, y)
+                ms = timer.device(lambda: launch(x, w, a, b, y, plan, 4),
+                                  bound)
+                blocks = -(-n // plan[2]) * plan[0]
+                rows.append({"model": name, "M": bsz, "K": k, "N": n,
+                             "splits": plan[0], "kc": plan[1],
+                             "bn": plan[2], "blocks": blocks,
+                             "device_ms": ms, "picked": plan == picked,
+                             "simt_device_ms": old_ms,
+                             "addmm_bf16_device_ms": lib_ms,
+                             "bound_ms": bound})
+                print(f"  bf16 decode sweep {name} M={bsz} K={k} N={n} "
+                      f"splits={plan[0]} kc={plan[1]} bn={plan[2]} "
+                      f"({blocks} blocks): {fmt_ms(ms)}{share(bound, ms)}"
+                      + ("  <- _tc_split_plan" if plan == picked else ""),
+                      flush=True)
+            print(f"  bf16 decode sweep {name} M={bsz} K={k} N={n}: SIMT "
+                  f"split-K {fmt_ms(old_ms)}{share(bound, old_ms)}, addmm "
+                  f"bf16 {fmt_ms(lib_ms)}; bound {bound:.4f} ms (bytes)",
+                  flush=True)
+            del x, w, a, b, y, got
+        # the whole decode layer, the three ways in turns
+        bufs = [[t.bfloat16() for t in lora_inputs(torch, device, bsz, k, n,
+                                                   4, seed=50 + i)]
+                for i, (_, k, n) in enumerate(projs)]
+        nbytes, _ = lora_cost([(bsz, k, n) for _, k, n in projs], 4, 2)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+
+        def new():
+            for buf in bufs:
+                kernels.lora_matmul(*buf, 2.0)
+
+        def library():
+            for x, w, a, b in bufs:
+                torch.addmm(x @ w, x @ a, b, alpha=2.0)
+        old = simt(bufs)
+        layer = {}
+        for key, fn in (("simt", old), ("new", new), ("addmm", library),
+                        ("new2", new), ("simt2", old)):
+            layer[key] = timer.device(fn, bound)
+        rows.append({"model": name, "M": bsz, "layer": True,
+                     "device_ms": layer["new"], "device_ms_2": layer["new2"],
+                     "simt_device_ms": layer["simt"],
+                     "simt_device_ms_2": layer["simt2"],
+                     "addmm_bf16_device_ms": layer["addmm"],
+                     "bound_ms": bound})
+        print(f"  bf16 decode layer {name} M={bsz} (q/k/v/o), in turns: "
+              f"SIMT split-K {fmt_ms(layer['simt'])}, tensor-core split-K "
+              f"{fmt_ms(layer['new'])}{share(bound, layer['new'])}, addmm "
+              f"bf16 {fmt_ms(layer['addmm'])}, tensor-core split-K "
+              f"{fmt_ms(layer['new2'])}, SIMT split-K "
+              f"{fmt_ms(layer['simt2'])}; bound {bound:.4f} ms (bytes)",
+              flush=True)
+        del bufs
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -4952,9 +5134,11 @@ def decode_sweep_main() -> int:
 
     from repro_torch import kernels
     from repro_torch.configs import get_config
+    from repro_torch.kernels import build as kbuild
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
     print(smi_line(), flush=True)
+    build_kernels(kbuild, "[decode-sweep]")
     rows = decode_sweep(torch, kernels, torch.device("cuda", 0), cfg)
     print(json.dumps({"decode_sweep": rows}), flush=True)
     return 0
@@ -5338,7 +5522,9 @@ def main() -> int:
         "decode_bound_ms": bms, "decode_device_ms": dev,
         "decode_library_device_ms": dev_lib,
         "decode_wall_us": cost["lora_matmul"]["wall_us"],
-        "decode_enqueue_us": cost["lora_matmul"]["enqueue_us"]})
+        "decode_enqueue_us": cost["lora_matmul"]["enqueue_us"],
+        "bf16_decode_wall_us": cost["lora_matmul_bf16"]["wall_us"],
+        "bf16_decode_enqueue_us": cost["lora_matmul_bf16"]["enqueue_us"]})
     # B8 at S 4096 (batch 1), causal and with a window of 1024
     for label, key in (("S4096", "S4096"), ("S4096-window1024", "W1024")):
         out[list(SOURCES).index("flash_swa")].update(timing_fields(
@@ -5388,11 +5574,13 @@ def main() -> int:
         out[list(SOURCES).index(name)].update({
             "bf16_launches": bf16_launches[name],
             "bf16_max_abs_err": bf16_errs[name]})
-    # B3's and B8's tensor-core bodies (bf16 prefill): their launches in
-    # phase 9's serve() runs
+    # B3's and B8's tensor-core bodies (bf16 prefill; B3's decode apart):
+    # their launches in phase 9's serve() runs
     for name in ("lora_matmul", "flash_swa"):
         out[list(SOURCES).index(name)]["bf16_tc_launches"] = \
             bf16_launches[f"{name}_tc"]
+    out[list(SOURCES).index("lora_matmul")]["bf16_tc_decode_launches"] = \
+        bf16_launches["lora_matmul_decode_tc"]
     # B5 beside its old body (product_fold in place), and at the chunk of
     # 64 uplinks at r = 8 that docs/benchmarks.md documents
     ms, _, lib_ms, (bms, by), *_ = lane_timings["product_accum[C64r8]"]

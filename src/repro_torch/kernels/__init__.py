@@ -19,8 +19,9 @@
   fold of the hetero close; replaces ``hetero_fold_apply``.
 * :func:`lora_matmul` (``lora_matmul.py``, ``csrc/lora_matmul.cu``) — the
   fused LoRA projection x@W + scale·(x@a)@b of serving (via
-  :func:`lora_dense`; bf16 prefill on the tensor cores, counted in
-  ``lora_matmul.bf16_tc_launches``); replaces ``lora_matmul``.
+  :func:`lora_dense`; bf16 on the tensor cores, prefill counted in
+  ``lora_matmul.bf16_tc_launches``, decode in
+  ``lora_matmul.bf16_tc_decode_launches``); replaces ``lora_matmul``.
 * :func:`flash_swa` (``flash_swa.py``, ``csrc/flash_swa.cu``) — causal /
   sliding-window flash attention forward, the prefill attention of serving
   (via :func:`swa_attention`, GQA in place; bf16 on the tensor cores,
@@ -67,6 +68,7 @@ def reset_launch_counts() -> None:
     for fn in BF16_KERNELS:
         fn.bf16_launches = 0
     lora_matmul.bf16_tc_launches = 0
+    lora_matmul.bf16_tc_decode_launches = 0
     flash_swa.bf16_tc_launches = 0
 
 

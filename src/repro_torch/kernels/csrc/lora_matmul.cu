@@ -11,9 +11,10 @@
 //
 // Arithmetic: f32 operands run IEEE f32 FMAs on CUDA cores (Hopper's
 // tensor cores take f32 only as TF32, which the port keeps off): SIMT
-// bodies. bf16 operands (the reference's serving dtype) at M > 16 run on
-// the tensor cores (the tensor-core body below) where TMA can describe x
-// and W; elsewhere the SIMT bodies take them too.
+// bodies. bf16 operands (the reference's serving dtype) run on the tensor
+// cores where TMA can describe x and W (K % 8 == 0, N % 8 == 0, both
+// 16-byte aligned): the tensor-core body at M > 16, the tensor-core
+// split-K body at M <= 16. The SIMT bodies take the other bf16 calls.
 //
 // bf16 in the SIMT bodies: every kernel is a template on the element type
 // T. A bf16 x bf16 product is exact in f32, so bf16 operands are widened to
@@ -27,10 +28,13 @@
 // wrapper's plan. In every body, as the TPU kernel, x@a is summed in f32
 // over the whole K and rounded once to bf16 (b's dtype, round to nearest
 // even) before it is multiplied by b: where the prepass writes it (the
-// tiled body), after the tensor-core body's K loop, in the split-K body
-// after the cluster has folded the chunks' partials.
+// tiled body), after the tensor-core body's K loop, in the split-K bodies
+// after the chunks' partials are folded.
 //
-// Three bodies, picked by the caller from M, the dtype and alignment:
+// Four bodies, picked by the caller (the wrapper's _body) from M, the
+// dtype and alignment: bf16 that TMA can describe takes a tensor-core body,
+// the tensor-core split-K one at M <= 16 and the tensor-core one above;
+// the rest take the SIMT split-K body at M <= 16 and the tiled one above.
 //
 // * tiled (f32 prefill, M > 16; bf16 where TMA cannot describe x or W),
 //   two grids.
@@ -99,7 +103,8 @@
 //   lora_matmul_error_bound holds them all the same (chip_smoke.py prints
 //   each served shape's largest error as a share of it). Every sum has a
 //   fixed order: two runs are bitwise equal.
-// * split-K (decode, M <= 16), one grid: the tiled body at M = 8 would run
+// * SIMT split-K (f32 decode, and bf16 that TMA cannot describe; M <= 16),
+//   one grid: the tiled body at M = 8 would run
 //   24-48 blocks on 132 SMs and 16x the needed FMAs. A block streams one K
 //   chunk of W's rows for bn columns once, each thread 16 rows of 16 bytes
 //   in flight through a private cp.async ring in shared memory (64 KB a
@@ -115,9 +120,69 @@
 //   37.8 MB, 11.3 us at 3.35 TB/s). `python3 chip_smoke.py --decode-sweep`
 //   times the body at every plan of splits and bn; PERF.md has what it
 //   measured and what holds the body back.
+// * tensor-core split-K (bf16 decode, M <= 16, what TMA can describe), one
+//   grid. The SIMT split-K body ran f32's loop with half the payload (8
+//   bytes in each 16-byte ring slot, a widen and 4 MR FFMA a row of 4
+//   columns): at a Llama decode layer 15% of its bytes bound, slower than
+//   the f32 body on twice the bytes, so the instructions per row set its
+//   pace, not memory. Here no thread spends instructions on W:
+//   - Grid: block = (column block of DC_BN = 64 columns, K chunk of kc rows,
+//     kc a multiple of 64 so that no box of W straddles two chunks); the
+//     <= 8 chunks of a column block are one cluster (portable size). 64
+//     columns is wgmma's M and gives the most blocks; the wrapper's
+//     _tc_split_plan takes the fewest chunks (each <= 1024 rows, one
+//     staging of x) that put >= 1.4 blocks on every SM. Wider blocks (128,
+//     256 columns) and deeper rings (one block an SM) measured slower in
+//     `chip_smoke.py --decode-sweep`'s design runs: fewer blocks, and waves.
+//   - W by TMA: thread 128 streams the chunk's 64 x 64 boxes (N-major,
+//     128-byte swizzle: W read as it lies) through a ring of DC_STAGES = 3
+//     (24 KB a block, four blocks an SM) with full and empty mbarriers. W
+//     is read once a call, so it goes through L2 with an evict-first
+//     policy: its lines leave first and displace neither x nor lines that
+//     another kernel left dirty (without it a decode layer measured 5-6 us
+//     slower). The first slices and x's first staging are issued before the
+//     block barrier.
+//   - x by TMA too: boxes of 64 columns x MP rows (MP 8 or 16; rows past M
+//     and columns past K zero-filled), up to DC_X_BYTES a staging. Both
+//     maps are encoded on the host and cached by (pointer, shape, box): W's
+//     once per weight, x's once per activation buffer the caching
+//     allocator reuses, so a steady decode step encodes none. Copies by
+//     threads (cp.async) stalled the issuing warp on address translation
+//     and held the block barrier back by ~1 us.
+//   - x@W on the tensor cores with A and B swapped: y^T = W^T x^T, wgmma
+//     m64nMPk16 with A = W^T read from W's box through the transpose bit,
+//     B = x^T from x's K-major box, D 64 columns x MP rows in f32 (MP / 2
+//     registers a thread). A stage goes back to the producer as soon as its
+//     products are done: the block waits on memory, not on the tensor
+//     cores. The consumer warpgroup is threads 0-127, a branch ptxas can
+//     see is warpgroup-uniform (else it serialises wgmma: C7518).
+//   - x@a off W's path: warp 5 stages b's panel and a's rows (cp.async) and
+//     runs mma.sync m16n8k16 on the staged x and a (f32 accumulators).
+//   - The fold without a cluster barrier at the end: each chunk stores its
+//     partial y^T (outputs inside M and N) into the shared memory of the
+//     block that folds that share of the column block, and its x@a into
+//     every block's, with st.async, whose bytes complete on the receiver's
+//     mbarrier (expect_tx set at its start): a block folds as soon as its
+//     inputs land, and no block waits for the cluster at its end (a
+//     cluster barrier measured ~0.8 us even for a one-block cluster). A
+//     split cluster barrier at the start (arrive at entry, wait before the
+//     first remote store) makes sure every block of the cluster runs before
+//     anything is written into it. The plain version's order: the chunks
+//     summed in order, x@a rounded to bf16 once (round_to) after the whole
+//     K, y = sum + scale * (x@a)@b with b's panel widened, no contraction.
+//     Every sum has a fixed order: two runs are bitwise equal.
+//   - No overlap across calls: the grid is not a programmatic dependent
+//     launch, so stream order guards W and x. Every mbarrier wait traps
+//     after ~4 s.
+//   Bound on the card: bytes, 2 (K N + M K + K r + r N) + 4 M N (a Llama
+//   decode layer: 50.3 MB, 15.2 us at 3.35 TB/s). What holds it below,
+//   with the numbers, is in PERF.md: a launch's fixed part (start, first
+//   data, fold), which decode pays 4 L times a step.
 //
 // Every body sums in another order than torch.matmul; the wrapper's
-// lora_matmul_error_bound states how far two evaluations may differ.
+// lora_matmul_error_bound states how far two evaluations may differ (the
+// tensor cores' f32 sums, which do not round as IEEE FMAs, are held to it
+// by measurement).
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -125,7 +190,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <array>
+#include <cstring>
+#include <mutex>
 #include <type_traits>
+#include <unordered_map>
 
 #include "hopper.cuh"
 
@@ -1073,6 +1142,330 @@ __global__ void __launch_bounds__(SK_THREADS, MR == 8 ? 2 : 1)
   cluster.sync();  // no block leaves while another reads its shared memory
 }
 
+// ------------------------------------------------- tensor-core split-K
+// bf16, M <= 16, x and W described by TMA (K % 8 == 0, N % 8 == 0, both
+// 16-byte aligned). Block (column block of DC_BN = 64 columns, K chunk s) of
+// 192 threads: warps 0-3 (a warpgroup) run wgmma, warp 4's lane 0 issues
+// every TMA (W's stream, x's boxes), warp 5 stages a and b and computes
+// x@a. Shared memory from a 1024-byte aligned base: the W ring (DC_STAGES
+// boxes of 64 K rows x 64 columns, N-major, 128-byte swizzle), x's staged
+// columns (boxes of 64 columns x MP rows, K-major, swizzled), a's staged
+// rows, b's panel (bf16), the partials of this block's share of the
+// outputs from every chunk [cs][per], every chunk's x@a [cs][M r], the
+// whole K's x@a [M r], the mbarriers.
+constexpr int DC_THREADS = 192;
+constexpr int DC_BN = 64;          // columns of a block: wgmma's M
+constexpr int DC_BOX = 64 * 128;   // one W box (one slice), bytes
+constexpr int DC_STAGES = 3;       // W slices in flight a block
+constexpr int DC_X_BYTES = 16384;  // x's staged columns, at most
+constexpr int DC_A_BYTES = 8192;   // a's staged rows, at most
+
+// columns of x staged at once (a multiple of 64)
+__host__ __device__ constexpr int dc_xk(int mp, int kc) {
+  return kc < DC_X_BYTES / (2 * mp) ? kc : DC_X_BYTES / (2 * mp);
+}
+// rows of a staged at once (a multiple of 64)
+__host__ __device__ constexpr int dc_arows(int r) {
+  return r > 0 ? DC_A_BYTES / (2 * r) / 64 * 64 : 64;
+}
+// the received partials: a chunk's share of MP x 64 outputs, 8 chunks
+__host__ __device__ constexpr int dc_recv(int mp) {
+  return mp * DC_BN + SK_MAX_CLUSTER;
+}
+__host__ __device__ constexpr size_t dc_smem(int mp, int kc, int r) {
+  return 1024 + (size_t)DC_STAGES * DC_BOX + (size_t)dc_xk(mp, kc) * mp * 2 +
+         (r > 0 ? DC_A_BYTES : 0) + (size_t)r * DC_BN * 2 +
+         (size_t)dc_recv(mp) * 4 +
+         (size_t)(SK_MAX_CLUSTER + 1) * mp * r * 4 + (2 * DC_STAGES + 3) * 8;
+}
+static_assert(dc_smem(16, 1 << 20, kMaxRank) <= 232448, "one block an SM");
+
+// `count` bf16 (a multiple of 8) from src into shared memory at dst by one
+// warp, zero at and past `valid`: 16-byte cp.async where src is 16-byte
+// aligned (`vec`), else 2-byte loads through registers
+__device__ __forceinline__ void warp_stage(unsigned short* dst,
+                                           const bf16* src, int count,
+                                           int valid, bool vec, int lane) {
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+  if (vec) {
+    for (int i = lane * 8; i < count; i += 256) {
+      if (i + 8 <= valid || i >= valid) {
+        const bool ok = i < valid;
+        cp_async16(reinterpret_cast<float*>(dst + i),
+                   reinterpret_cast<const float*>(ok ? s + i : s),
+                   ok ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          dst[i + e] = i + e < valid ? __ldg(s + i + e) : (unsigned short)0;
+      }
+    }
+  } else {
+    for (int i = lane; i < count; i += 32)
+      dst[i] = i < valid ? __ldg(s + i) : (unsigned short)0;
+  }
+}
+
+__device__ __forceinline__ uint32_t pack2(unsigned short lo,
+                                          unsigned short hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+// the split arrive / wait of the cluster barrier (every thread of every
+// block arrives, then waits, once)
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// y = x @ w + scale * bf16(x @ a) @ b for M <= MP rows (MP 8 or 16), a
+// cluster of the column block's K chunks; tmx: x as 64-column boxes of MP
+// rows, tmw: W as 64 x 64 boxes
+template <int MP>
+__global__ void __launch_bounds__(DC_THREADS, 1)
+    lora_mm_dec(const __grid_constant__ CUtensorMap tmx,
+                const __grid_constant__ CUtensorMap tmw,
+                const bf16* __restrict__ a, const bf16* __restrict__ b,
+                float* __restrict__ y, int M, int N, int K, int r,
+                float scale, int kc) {
+  constexpr int S = DC_STAGES, BN = DC_BN;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
+  unsigned char* gb = smem_raw + pad;  // the same address, generic
+  const uint32_t base = raw + pad;
+  const int xk = dc_xk(MP, kc), mr = M * r;
+  const uint32_t xs_o = S * DC_BOX;
+  const uint32_t as_o = xs_o + xk * MP * 2;
+  const uint32_t bs_o = as_o + (r > 0 ? DC_A_BYTES : 0);
+  const uint32_t ry_o = bs_o + r * BN * 2;
+  const uint32_t rxa_o = ry_o + dc_recv(MP) * 4;
+  const uint32_t xat_o = rxa_o + SK_MAX_CLUSTER * MP * r * 4;
+  const uint32_t full0 = base + xat_o + MP * r * 4;  // full[s] at + 8 s
+  const uint32_t empty0 = full0 + 8 * S;
+  const uint32_t xfull = empty0 + 8 * S, xempty = xfull + 8;
+  const uint32_t ybar = xempty + 8;  // every chunk's partials have landed
+  float* ry = reinterpret_cast<float*>(gb + ry_o);    // [cs][per]
+  float* rxa = reinterpret_cast<float*>(gb + rxa_o);  // [cs][M r]
+  float* xat = reinterpret_cast<float*>(gb + xat_o);  // [M r]
+  unsigned short* as = reinterpret_cast<unsigned short*>(gb + as_o);
+  unsigned short* bs = reinterpret_cast<unsigned short*>(gb + bs_o);
+
+  const int n0 = blockIdx.x * BN, k0 = blockIdx.y * kc;
+  const int kend = min(K, k0 + kc);
+  const int nk = (kend - k0 + 63) / 64;  // W slices of 64 rows
+  const int ps = xk / 64;                // slices a staging of x
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int per = (M * BN + cs - 1) / cs;  // outputs a block folds
+  // slices that go out before the block barrier: the stages start empty,
+  // and x's first staging covers them
+  const int early = min(min(S, ps), nk);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+
+  // the producer: slice i of W into stage i % S (evict-first: W is read
+  // once), x's staging from column kp (zero past M and past K)
+  const uint64_t once = l2_evict_first();
+  auto slice = [&](int i) {
+    const int s = i % S;
+    mbar_wait(empty0 + 8 * s, ((i / S) & 1) ^ 1);
+    mbar_expect_tx(full0 + 8 * s, DC_BOX);
+    tma_load_hint(base + s * DC_BOX, &tmw, n0, k0 + 64 * i, full0 + 8 * s,
+                  once);
+  };
+  auto stage_x = [&](int kp) {
+    const int boxes = (min(xk, kend - kp) + 63) / 64;
+    mbar_expect_tx(xfull, boxes * MP * 128);
+    for (int j = 0; j < boxes; ++j)
+      tma_load(base + xs_o + j * MP * 128, &tmx, kp + 64 * j, 0, xfull);
+  };
+  if (threadIdx.x == 128) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full0 + 8 * s, 1);   // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, 4);  // one arrival a consumer warp
+    }
+    mbar_init(xfull, 1);  // the producer's expect_tx
+    // the consumer warps (and warp 5, which reads x for x@a) are done
+    mbar_init(xempty, r > 0 ? 5 : 4);
+    mbar_init(ybar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // the first slices and x's first staging go out before the block
+    // barrier (the stages start empty: no wait)
+    slice(0);
+    stage_x(k0);
+    for (int i = 1; i < early; ++i) slice(i);
+    // the bytes every chunk stores here: its partials of this block's share
+    // of the outputs (those inside M and N) and its x@a
+    const int lo = rank * per, hi = min(M * BN, lo + per);
+    const int vc = min(BN, N - n0);
+    int outs = 0;
+    for (int m = 0; m < M; ++m)
+      outs += max(0, min(hi, m * BN + vc) - max(lo, m * BN));
+    mbar_expect_tx(ybar, 4 * cs * (outs + mr));
+  }
+  // every block of the cluster has started before any writes into another
+  // one's shared memory (the wait comes before the first such write)
+  cluster_arrive();
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // x@W on the tensor cores: y^T = W^T x^T
+    float acc[MP / 2];
+#pragma unroll
+    for (int i = 0; i < MP / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < nk; ++i) {
+      const int s = i % S, j = i % ps;
+      if (j == 0) mbar_wait(xfull, (i / ps) & 1);
+      mbar_wait(full0 + 8 * s, (i / S) & 1);
+      const uint32_t wst = base + s * DC_BOX;
+      const uint32_t xb = base + xs_o + j * MP * 128;
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_tn<MP>(acc, sw128_desc(wst + kk * 16 * 128, DC_BOX),
+                     sw128_desc(xb + kk * 32, 16));
+      wgmma_commit();
+      // the slice's products are done: its stage goes back at once (the
+      // block waits on memory, not on the tensor cores)
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) {
+        mbar_arrive(empty0 + 8 * s);
+        if (j == ps - 1 || i == nk - 1) mbar_arrive(xempty);  // staging done
+      }
+    }
+    // the fragment: register 4 jj + 2 h + c holds y^T row (column of y)
+    // 16 warp + lane / 4 + 8 h, column (row of y) 8 jj + 2 (lane % 4) + c;
+    // output o = m BN + n goes to the block folding it (rank o / per), at
+    // this chunk's row of its partials
+    cluster_wait();
+#pragma unroll
+    for (int jj = 0; jj < MP / 8; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int n = 16 * warp + gq + 8 * h, m = 8 * jj + 2 * tq + c;
+          const int o = m * BN + n;
+          if (m < M && n0 + n < N) {
+            const uint32_t dst = o / per;
+            st_async(map_rank(base + ry_o + 4 * (rank * per + o - dst * per),
+                              dst),
+                     acc[4 * jj + 2 * h + c], map_rank(ybar, dst));
+          }
+        }
+  } else if (warp == 4) {  // TMA: the rest of W's stream, x's stagings
+    if (lane == 0) {
+      for (int i = early; i < nk; ++i) {
+        if (i % ps == 0) {  // the next staging of x
+          mbar_wait(xempty, (i / ps - 1) & 1);
+          stage_x(k0 + 64 * i);
+        }
+        slice(i);
+      }
+    }
+    cluster_wait();
+  } else {  // warp 5: b's panel, a's rows and x@a on mma.sync
+    float xacc[8][4];
+#pragma unroll
+    for (int jg = 0; jg < 8; ++jg)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) xacc[jg][c] = 0.f;
+    const int ng = (r + 7) >> 3, arows = dc_arows(r);
+    const bool avec = ((uintptr_t)a & 15) == 0;
+    if (r > 0) {
+      for (int j = 0; j < r; ++j)  // b's r x BN panel, zero past N
+        warp_stage(bs + j * BN, b + (size_t)j * N + n0, BN, min(BN, N - n0),
+                   ((uintptr_t)b & 15) == 0, lane);
+      for (int p = 0, kp = k0; kp < kend; ++p, kp += xk) {
+        const int cols = min(xk, kend - kp);  // columns of K in this staging
+        for (int q0 = 0; q0 < cols; q0 += arows) {
+          const int rows = min(arows, cols - q0);  // a's rows, all below K
+          __syncwarp();  // the last pass's reads of a's rows are done
+          warp_stage(as, a + (size_t)(kp + q0) * r, ((rows + 15) & ~15) * r,
+                     rows * r, avec, lane);
+          cp_async_commit();
+          cp_async_wait<0>();
+          if (q0 == 0) mbar_wait(xfull, p & 1);
+          __syncwarp();
+          for (int kq = 0; kq < rows; kq += 16) {
+            const int c0 = q0 + kq + 2 * tq;  // x's column in this staging
+            const uint32_t xb = xs_o + (c0 >> 6) * MP * 128;
+            uint32_t fa[4];
+            fa[0] = *reinterpret_cast<const uint32_t*>(
+                gb + xb + sw128_offset(gq, c0 & 63));
+            fa[2] = *reinterpret_cast<const uint32_t*>(
+                gb + xb + sw128_offset(gq, (c0 & 63) + 8));
+            if (MP == 16) {
+              fa[1] = *reinterpret_cast<const uint32_t*>(
+                  gb + xb + sw128_offset(gq + 8, c0 & 63));
+              fa[3] = *reinterpret_cast<const uint32_t*>(
+                  gb + xb + sw128_offset(gq + 8, (c0 & 63) + 8));
+            } else {
+              fa[1] = fa[3] = 0u;
+            }
+            const unsigned short* ar = as + (size_t)(kq + 2 * tq) * r;
+#pragma unroll
+            for (int jg = 0; jg < 8; ++jg) {
+              if (jg >= ng) break;
+              const int j = jg * 8 + gq;
+              uint32_t b0 = 0u, b1 = 0u;
+              if (j < r) {
+                b0 = pack2(ar[j], ar[r + j]);
+                b1 = pack2(ar[8 * r + j], ar[9 * r + j]);
+              }
+              mma_m16n8k16(xacc[jg], fa, b0, b1);
+            }
+          }
+        }
+        __syncwarp();  // every lane is done with this staging of x
+        if (lane == 0) mbar_arrive(xempty);
+      }
+    }
+    // the chunk's x@a goes to every block of the cluster, at its row
+    cluster_wait();
+    if (r > 0) {
+#pragma unroll
+      for (int jg = 0; jg < 8; ++jg) {
+        if (jg >= ng) break;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = gq + 8 * (e >> 1), j = jg * 8 + 2 * tq + (e & 1);
+          if (m < M && j < r)
+            for (int cc = 0; cc < cs; ++cc)
+              st_async(map_rank(base + rxa_o + 4 * (rank * mr + m * r + j), cc),
+                       xacc[jg][e], map_rank(ybar, cc));
+        }
+      }
+    }
+  }
+  mbar_wait_cluster(ybar, 0);  // every chunk's partials and x@a are here
+
+  const int tid = threadIdx.x;
+  for (int pr = tid; pr < mr; pr += DC_THREADS) {  // x@a over the whole K
+    float t = rxa[pr];
+    for (int cc = 1; cc < cs; ++cc) t += rxa[cc * mr + pr];
+    xat[pr] = round_to<bf16>(t);  // once, after the whole K
+  }
+  __syncthreads();
+  // this block's share of the column block's outputs, the chunks summed in
+  // order, then the plain version's y = base + scale * adapter
+  for (int i = tid; i < per; i += DC_THREADS) {
+    const int o = rank * per + i, m = o / BN, col = o - m * BN, n = n0 + col;
+    if (m >= M || n >= N) continue;
+    float sum = ry[i];
+    for (int cc = 1; cc < cs; ++cc) sum += ry[cc * per + i];
+    float ad = 0.f;
+    for (int j = 0; j < r; ++j)
+      ad = fmaf(xat[m * r + j],
+                __uint_as_float((unsigned)bs[j * BN + col] << 16), ad);
+    y[(size_t)m * N + n] = __fadd_rn(sum, __fmul_rn(scale, ad));
+  }
+}
+
 // Lets `kernel` take `bytes` of dynamic shared memory above 48 KB; the
 // attribute is set once per kernel, device and size (a static table per
 // kernel), not once per launch.
@@ -1135,6 +1528,90 @@ cudaError_t bf16_map(CUtensorMap* map, const bf16* p, int rows, int cols,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// bf16_map, cached by (pointer, shape, box): a map holds only an address,
+// a shape, strides and a box, so a cached map is right for any tensor at
+// that address. Decode encodes W's map once per weight, not once a call,
+// and x's once per activation buffer the caching allocator hands out.
+cudaError_t cached_bf16_map(CUtensorMap* map, const bf16* p, int rows,
+                            int cols, int box_rows) {
+  struct Key {
+    const void* p;
+    int rows, cols, box;
+    bool operator==(const Key& o) const {
+      return p == o.p && rows == o.rows && cols == o.cols && box == o.box;
+    }
+  };
+  struct Hash {
+    size_t operator()(const Key& k) const {
+      return std::hash<const void*>()(k.p) ^
+             ((size_t)k.rows * 0x9e3779b97f4a7c15ull) ^
+             ((size_t)k.cols << 21) ^ (size_t)k.box;
+    }
+  };
+  using Raw = std::array<unsigned long long, sizeof(CUtensorMap) / 8>;
+  static std::mutex mu;
+  static std::unordered_map<Key, Raw, Hash> maps;
+  const Key key{p, rows, cols, box_rows};
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = maps.find(key);
+  if (it != maps.end()) {
+    std::memcpy(map, it->second.data(), sizeof(CUtensorMap));
+    return cudaSuccess;
+  }
+  const cudaError_t err = bf16_map(map, p, rows, cols, box_rows);
+  if (err != cudaSuccess) return err;
+  if (maps.size() >= 4096) maps.clear();
+  Raw raw;
+  std::memcpy(raw.data(), map, sizeof(CUtensorMap));
+  maps.emplace(key, raw);
+  return cudaSuccess;
+}
+
+template <int MP>
+cudaError_t launch_dec_grid(const CUtensorMap& tmx, const CUtensorMap& tmw,
+                            const bf16* a, const bf16* b, float* y, int M,
+                            int N, int K, int r, float scale, int splits,
+                            int kc, cudaStream_t st) {
+  const size_t smem = dc_smem(MP, kc, r);
+  cudaError_t err = allow_smem<lora_mm_dec<MP>>(smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((N + DC_BN - 1) / DC_BN), (unsigned)splits);
+  cfg.blockDim = dim3(DC_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = (unsigned)splits;
+  cluster[0].val.clusterDim.z = 1;
+  cfg.attrs = cluster;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, lora_mm_dec<MP>, tmx, tmw, a, b, y, M, N, K,
+                           r, scale, kc);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// the tensor-core split-K body: x's and W's maps (cached), then one grid
+cudaError_t launch_dec(const bf16* x, const bf16* w, const bf16* a,
+                       const bf16* b, float* y, int M, int N, int K, int r,
+                       float scale, int splits, int kc, int bn,
+                       cudaStream_t st) {
+  if (K % 8 != 0 || N % 8 != 0 || ((uintptr_t)x & 15) != 0 ||
+      ((uintptr_t)w & 15) != 0 || kc % 64 != 0 || bn != DC_BN)
+    return cudaErrorInvalidValue;
+  const int mp = M <= 8 ? 8 : 16;
+  CUtensorMap tmx, tmw;
+  cudaError_t err = cached_bf16_map(&tmx, x, M, K, mp);
+  if (err != cudaSuccess) return err;
+  if ((err = cached_bf16_map(&tmw, w, K, N, 64)) != cudaSuccess) return err;
+  return mp == 8 ? launch_dec_grid<8>(tmx, tmw, a, b, y, M, N, K, r, scale,
+                                      splits, kc, st)
+                 : launch_dec_grid<16>(tmx, tmw, a, b, y, M, N, K, r, scale,
+                                       splits, kc, st);
 }
 
 // SMs of the current device (queried once a device)
@@ -1272,9 +1749,15 @@ cudaError_t run(const T* x, const T* w, const T* a, const T* b, float* y,
     return cudaGetLastError();
   }
   if (M > 16 || splits > SK_MAX_CLUSTER || kc <= 0 ||
-      (long long)splits * kc < K || (long long)(splits - 1) * kc >= K ||
-      (bn != 32 && bn != 64 && bn != 128))
+      (long long)splits * kc < K || (long long)(splits - 1) * kc >= K)
     return cudaErrorInvalidValue;
+  if (vec & 4) {  // bf16 that TMA can describe: the tensor cores
+    if constexpr (kF32<T>)
+      return cudaErrorInvalidValue;
+    else
+      return launch_dec(x, w, a, b, y, M, N, K, r, scale, splits, kc, bn, st);
+  }
+  if (bn != 32 && bn != 64 && bn != 128) return cudaErrorInvalidValue;
   const bool avec = !kF32<T> && (vec & 2);
   if (M <= 8)
     return (vec & 1) ? launch_splitk<T, 8, true>(x, w, a, b, y, M, N, K, r,
@@ -1301,7 +1784,9 @@ cudaError_t run(const T* x, const T* w, const T* a, const T* b, float* y,
 // chunks of kc rows (splits * kc >= K, no empty chunk) per column block of
 // bn (32, 64 or 128) columns, no `work`; bit 0 of vec promises N % 4 == 0
 // and a 16-byte (f32) or 8-byte (bf16) aligned w; bit 1 (bf16 only) r % 4
-// == 0 and an 8-byte aligned a.
+// == 0 and an 8-byte aligned a. Bit 2 (bf16 only) takes the tensor-core
+// split-K body instead: K % 8 == 0, N % 8 == 0, 16-byte aligned x and w,
+// kc a multiple of 64 and bn 64 or 128 (checked; otherwise an error).
 extern "C" int lora_matmul_launch(const void* x, const void* w, const void* a,
                                   const void* b, float* y, float* work, int M,
                                   int N, int K, int r, float scale, int splits,

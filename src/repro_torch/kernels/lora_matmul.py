@@ -5,36 +5,48 @@ Replaces the TPU kernel ``repro/kernels/lora_matmul.py::lora_matmul`` (body
 (``models/attention.py``, prefill and decode) runs every adapted q/k/v/o
 projection through :func:`lora_dense`: 4 launches a layer.
 
-* CUDA kernel: ``csrc/lora_matmul.cu``, three bodies; :func:`_body` picks
-  one from M, the dtype and alignment alone.
+* CUDA kernel: ``csrc/lora_matmul.cu``, four bodies; :func:`_body` picks
+  one from M, the dtype and alignment alone. bf16 operands that TMA can
+  describe (K and N multiples of 8, x and W 16-byte aligned: every served
+  q/k/v/o) take a tensor-core body, the tensor-core split-K one at M ≤ 16
+  and the tensor-core one above; f32 and the other bf16 take the SIMT
+  split-K body at M ≤ 16 and the tiled one above.
 
-  - tensor-core (bf16, M > 16, K and N multiples of 8, x and W 16-byte
-    aligned: what TMA can describe, every served q/k/v/o; counted in
-    ``lora_matmul.bf16_tc_launches``): a small grid writes a^T padded to
-    NA rows (:func:`_adapter_rows`) into the work buffer, then a persistent
-    grid streams x, W and a^T with TMA into a ring of 4–5 shared-memory
-    stages, two consumer warpgroups run ``wgmma`` m64n128k16 (x@W) and
-    m64nNAk16 (x@a) with f32 accumulators, and a third ``wgmma`` adds
-    scale·bf16(x@a)@b per 128 × 128 tile; bound by operations at prefill
-    shapes.
+  - tensor-core (bf16, M > 16; counted in ``lora_matmul.bf16_tc_launches``):
+    a small grid writes a^T padded to NA rows (:func:`_adapter_rows`) into
+    the work buffer, then a persistent grid streams x, W and a^T with TMA
+    into a ring of 4–5 shared-memory stages, two consumer warpgroups run
+    ``wgmma`` m64n128k16 (x@W) and m64nNAk16 (x@a) with f32 accumulators,
+    and a third ``wgmma`` adds scale·bf16(x@a)@b per 128 × 128 tile; bound
+    by operations at prefill shapes.
+  - tensor-core split-K (bf16, M ≤ 16, decode; counted in
+    ``lora_matmul.bf16_tc_decode_launches``): one grid of 64-column blocks,
+    a cluster of ≤ 8 K chunks each; one thread streams W with TMA (L2
+    evict-first: W is read once) through a 3-stage ring, the warpgroup runs
+    ``wgmma`` m64nMPk16 on W^T and x^T (MP 8 or 16), a warp computes the
+    chunk's x@a on ``mma.sync``, and the chunks' partials reach the block
+    that folds them by ``st.async`` into its shared memory; x's and W's
+    tensor maps are cached by (pointer, shape, box); bound by bytes (W read
+    once).
   - tiled (f32, and bf16 that TMA cannot describe, M > 16): a prepass grid
     writes x@a (M × r) into the work buffer, then a register-tiled SIMT
     GEMM (IEEE f32 on CUDA cores, TF32 stays off; 128 × 128 block tiles,
     K streamed in slices of 64 through a 2-stage cp.async ring in shared
     memory) adds scale·(x@a)@b in its epilogue; bound by operations at
     prefill shapes.
-  - split-K (M ≤ 16, decode): one grid; each block streams W's rows of one
-    K chunk for bn columns (16-byte loads, 4 rows a thread in flight), a
-    warp of its own computes the chunk's x@a, and the ≤ 8 chunks of a
-    column block, one thread-block cluster, fold their partials in chunk
-    order through distributed shared memory and add the adapter term;
-    bound by bytes (W read once).
+  - SIMT split-K (f32, and bf16 that TMA cannot describe, M ≤ 16): one
+    grid; each block streams W's rows of one K chunk for bn columns
+    (16-byte loads, 4 rows a thread in flight), a warp of its own computes
+    the chunk's x@a, and the ≤ 8 chunks of a column block, one
+    thread-block cluster, fold their partials in chunk order through
+    distributed shared memory and add the adapter term; bound by bytes.
 
-  :func:`_split_plan` sizes the split-K chunks and bn (cached per shape
-  and SM count), :func:`_work_floats` the other bodies' work buffer. In
-  the SIMT bodies bf16 operands are widened to f32 as they are staged,
-  into the same shared memory and plan. In every body x@a is rounded to
-  bf16 once, after the whole K, as the TPU kernel casts it to b's dtype.
+  :func:`_tc_split_plan` and :func:`_split_plan` size the split-K bodies'
+  chunks and column blocks (cached per shape and SM count),
+  :func:`_work_floats` the other bodies' work buffer. In the SIMT bodies
+  bf16 operands are widened to f32 as they are staged, into the same
+  shared memory and plan. In every body x@a is rounded to bf16 once, after
+  the whole K, as the TPU kernel casts it to b's dtype.
 * Plain version :func:`lora_matmul_plain`: the reference oracle
   ``ref.lora_matmul_ref``'s order, ``x@w + scale·((x@a)@b)`` in f32; with
   bf16 operands the TPU kernel's casts (x@a rounded once to b's dtype
@@ -47,7 +59,8 @@ projection through :func:`lora_dense`: 4 launches a layer.
   tensors (``lora_matmul.bf16_launches`` counts the bf16 ones among
   them). Its launch path is lean, since decode calls it 112 times a step
   at paper-llama3.2-3b depth: the checks are one combined test, the plan
-  and the SM count are cached, and no work buffer is allocated for decode.
+  and the SM count are cached (x's and W's tensor maps in the library),
+  and no work buffer is allocated for decode.
   :func:`lora_dense` flattens leading dims around it, as ``ops.lora_dense``.
 
 Forward only (the reference's kernel has no VJP): an input that requires
@@ -68,7 +81,7 @@ import torch
 from repro_torch.kernels.build import check_launch, load_library
 
 MAX_RANK = 64       # shared memory: the tiled body keeps (128, r) x@a
-SKINNY_ROWS = 16    # M at or below → the split-K body
+SKINNY_ROWS = 16    # M at or below → a split-K body
 TC_STAGES = 5       # K slices in the tensor-core body's ring at NA < 32 (csrc's tc_stages)
 SMEM_PER_BLOCK = 232_448  # an H100 block's shared memory, at most
 _U = 2.0 ** -24     # f32 unit roundoff
@@ -166,7 +179,8 @@ _MIN_CHUNK = 64     # rows of a K chunk, at least
 
 @functools.lru_cache(maxsize=256)
 def _split_plan(n: int, k: int, sms: int):
-    """(splits, kc, bn) of the split-K body. ``splits`` K chunks of kc rows
+    """(splits, kc, bn) of the SIMT split-K body (f32, and bf16 that TMA
+    cannot describe). ``splits`` K chunks of kc rows
     (none empty), one cluster per column block of bn columns: the fewest
     chunks, a power of two up to 8 (and at most one for every 64 rows of
     K), that give a grid of ⌈N/128⌉ × splits blocks on at least half the
@@ -190,6 +204,56 @@ def _split_plan(n: int, k: int, sms: int):
     return splits, kc, bn
 
 
+DC_BN = 64           # columns of a tensor-core split-K block (wgmma's M)
+DC_SLICE = 64        # K rows of one TMA box of W in that body
+DC_STAGES = 3        # W slices in its ring (csrc's DC_STAGES)
+DC_X_BYTES = 16384   # x's staged columns, at most (csrc's DC_X_BYTES)
+DC_A_BYTES = 8192    # a's staged rows, at most (csrc's DC_A_BYTES)
+
+
+@functools.lru_cache(maxsize=256)
+def _tc_split_plan(n: int, k: int, sms: int):
+    """(splits, kc, bn) of the tensor-core split-K body: column blocks of
+    bn = 64 columns (wgmma's M), then the fewest K chunks, at most 8 (one
+    portable cluster) and one per 64-row slice of K, whose chunks are at
+    most 1024 rows (one staging of x at M ≤ 8) and whose grid of
+    ⌈N/64⌉ × splits blocks puts at least 1.4 blocks on each of the ``sms``
+    SMs; kc a multiple of 64, so that no TMA box of W straddles two chunks,
+    and no chunk empty. A block keeps 24 KB of W in flight and four fit an
+    SM, so such a grid streams W at the card's rate with every SM busy, and
+    fewer, longer chunks leave fewer partials to fold. At K = 3072 this
+    picks 4 × 48 blocks at N = 3072 and 8 × 16 at N = 1024; gemma3-12b's
+    3840 × 4096 takes 4 × 64, 3840 × 2048 6 × 32, 4096 × 3840 4 × 60;
+    paper-gpt2's 768 × 768 6 × 12: each the fastest plan, or within 0.5 µs
+    of it, that ``chip_smoke.py --decode-sweep`` timed on an H100 80GB HBM3
+    at 700 W."""
+    slices = max(1, -(-k // DC_SLICE))
+    cols = -(-n // DC_BN)
+    most = min(MAX_SPLITS, slices)
+    splits = min(most, -(-slices // 16))
+    while splits < most and 5 * cols * splits < 7 * sms:
+        splits += 1
+    kc = DC_SLICE * -(-slices // splits)
+    return -(-k // kc), kc, DC_BN
+
+
+def _dc_smem(mp: int, kc: int, r: int) -> int:
+    """Bytes of dynamic shared memory of the tensor-core split-K body at MP
+    rows (8 or 16), chunks of kc rows and rank r (csrc's ``dc_smem``): 1 KB
+    to align its base to 1024 bytes, the W ring (``DC_STAGES`` boxes of 64
+    rows × 64 columns, 8 KB each), x's staged columns (at most
+    ``DC_X_BYTES``: kc or fewer, a multiple of 64), a's staged rows (at
+    r > 0), b's r × 64 panel (bf16), the partials of the block's share of
+    the outputs from up to 8 chunks (MP × 64 + 8 f32), every chunk's x@a
+    and the whole K's (9 × MP × r f32) and the mbarriers (two a stage,
+    three for x and the partials)."""
+    xk = min(kc, DC_X_BYTES // (2 * mp))
+    return (1024 + DC_STAGES * DC_SLICE * 2 * DC_BN + xk * mp * 2
+            + (DC_A_BYTES if r else 0) + r * DC_BN * 2
+            + (mp * DC_BN + MAX_SPLITS) * 4 + (MAX_SPLITS + 1) * mp * r * 4
+            + (2 * DC_STAGES + 3) * 8)
+
+
 def _adapter_rows(r: int) -> int:
     """NA, the rank the tensor-core body pads a's columns to: the N of its
     x@a product (m64nNAk16), 0 without an adapter."""
@@ -209,16 +273,16 @@ def _work_floats(m: int, n: int, r: int, splits: int, tc_k: int = 0) -> int:
 
 
 def _body(m: int, k: int, n: int, low: bool, aligned: bool) -> str:
-    """The body a call takes: ``"split-K"`` for M ≤ 16; for M > 16
-    ``"tensor-core"`` with bf16 (``low``) operands that TMA can describe (K
-    and N multiples of 8, so every row stride is a multiple of 16 bytes,
-    and x and W 16-byte aligned: ``aligned``), else ``"tiled"`` (f32, and
-    bf16 that TMA cannot describe)."""
+    """The body a call takes. bf16 (``low``) operands that TMA can describe
+    (K and N multiples of 8, so every row stride is a multiple of 16 bytes,
+    and x and W 16-byte aligned: ``aligned``) go to the tensor cores:
+    ``"tensor-core split-K"`` for M ≤ 16, ``"tensor-core"`` above. The rest
+    (f32, and bf16 that TMA cannot describe) take the SIMT bodies:
+    ``"split-K"`` for M ≤ 16, ``"tiled"`` above."""
+    tma = low and k % 8 == 0 and n % 8 == 0 and aligned
     if m <= SKINNY_ROWS:
-        return "split-K"
-    if low and k % 8 == 0 and n % 8 == 0 and aligned:
-        return "tensor-core"
-    return "tiled"
+        return "tensor-core split-K" if tma else "split-K"
+    return "tensor-core" if tma else "tiled"
 
 
 def _tc_stages(na: int) -> int:
@@ -275,16 +339,20 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         return y.zero_()
     work = None
     low = x.dtype is torch.bfloat16
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     if m <= SKINNY_ROWS:
-        splits, kc, bn = _split_plan(n, k, _sm_count(dev.index))
-        # bit 0: W's rows by 16-byte (f32) or 8-byte (bf16) copies; bit 1
-        # (bf16): a's rows by 8-byte copies
-        vec = int(n % 4 == 0 and w.data_ptr() % (8 if low else 16) == 0)
-        if low and r % 4 == 0 and a.data_ptr() % 8 == 0:
-            vec |= 2
+        if _body(m, k, n, low, aligned) == "tensor-core split-K":
+            splits, kc, bn = _tc_split_plan(n, k, _sm_count(dev.index))
+            vec = 4  # bit 2: the tensor-core split-K body
+        else:
+            splits, kc, bn = _split_plan(n, k, _sm_count(dev.index))
+            # bit 0: W's rows by 16-byte (f32) or 8-byte (bf16) copies; bit
+            # 1 (bf16): a's rows by 8-byte copies
+            vec = int(n % 4 == 0 and w.data_ptr() % (8 if low else 16) == 0)
+            if low and r % 4 == 0 and a.data_ptr() % 8 == 0:
+                vec |= 2
     else:
         splits = kc = bn = 0
-        aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
         tc = _body(m, k, n, low, aligned) == "tensor-core"
         # bf16: the tensor-core body; f32: the tiled body's 16-byte copies
         vec = int(tc or (not low and k % 4 == 0 and n % 4 == 0 and aligned))
@@ -305,12 +373,15 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         lora_matmul.bf16_launches += 1
         if vec and not splits:
             lora_matmul.bf16_tc_launches += 1
+        elif vec == 4:
+            lora_matmul.bf16_tc_decode_launches += 1
     return y
 
 
 lora_matmul.launches = 0
 lora_matmul.bf16_launches = 0  # the bf16 share of ``launches``
-lora_matmul.bf16_tc_launches = 0  # the tensor-core body's share of those
+lora_matmul.bf16_tc_launches = 0  # the tensor-core (prefill) body's share
+lora_matmul.bf16_tc_decode_launches = 0  # the tensor-core split-K body's
 
 
 def lora_dense(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,

@@ -54,7 +54,9 @@ from repro_torch.kernels import (flash_swa, flash_swa_plain,  # noqa: E402
                                  lora_matmul_error_bound, lora_matmul_plain,
                                  probes, swa_attention, swa_attention_plain,
                                  swa_error_bound)
-from repro_torch.kernels.lora_matmul import _split_plan  # noqa: E402
+from repro_torch.kernels.lora_matmul import (_body,  # noqa: E402
+                                             _split_plan,
+                                             _tc_split_plan)
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch.steps import (make_decode_step,  # noqa: E402
                                       make_prefill_step)
@@ -185,10 +187,12 @@ def test_lora_probe_pins_where_x_at_a_is_rounded(m, k, n, r):
     """On the probe's integer inputs every sum is exact, so the plain
     version (and the wrapper on the CPU) equals the exact answer bit for
     bit, as the Pallas kernel in interpret mode does; x@a left unrounded or
-    rounded per K chunk (the split-K body's, for an H100's 132 SMs, or 64
-    rows; none where one chunk takes the whole K) gives another answer in
-    many elements."""
-    chunk = _split_plan(n, k, 132)[1] if m <= 16 else 64
+    rounded per K chunk (the chunks of the split-K body the shape takes,
+    tensor-core or SIMT, for an H100's 132 SMs, or 64 rows; none where one
+    chunk takes the whole K) gives another answer in many elements."""
+    plan = _tc_split_plan if _body(m, k, n, True, True) == \
+        "tensor-core split-K" else _split_plan
+    chunk = plan(n, k, 132)[1] if m <= 16 else 64
     x, w, a, b, scale, want, faults = probes.lora_probe(m, k, n, r,
                                                         chunk=chunk, seed=m)
     assert torch.equal(lora_matmul_plain(x, w, a, b, scale), want)

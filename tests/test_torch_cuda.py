@@ -881,6 +881,70 @@ def test_lora_matmul_bf16_misaligned_x_takes_simt(cuda):
     assert lora_matmul.bf16_tc_launches == before
 
 
+# the tensor-core split-K body (bf16, M <= 16, what TMA can describe):
+# every served decode projection (paper-llama3.2-3b and paper-gpt2 at
+# batch 8, gemma3-12b at batch 2, each also at the serve launcher's batch
+# 2), M 1, 7, 9 and 16, r 0, 1, 16 and 64 (x@a over one to eight mma
+# column groups), odd r (a's rows end inside a 16-byte copy), K not a
+# multiple of the chunk or of 64, K 8 (one ragged slice), N ragged to a
+# 64- or 128-column block (1000, 136) or below one box (8), and x staged
+# in several passes (chunks past 2048 / 1024 columns at M 8 / 16)
+BF16_DECODE_CASES = [
+    (8, 3072, 3072, 4), (8, 3072, 1024, 4), (2, 3072, 3072, 4),
+    (2, 3072, 1024, 4), (8, 768, 768, 4), (2, 768, 768, 4),
+    (2, 3840, 4096, 4), (2, 3840, 2048, 4), (2, 4096, 3840, 4),
+    (8, 3840, 2048, 4),
+    (1, 3072, 3072, 4), (7, 3072, 1024, 4), (9, 3072, 1024, 4),
+    (16, 3072, 3072, 4),
+    (8, 3072, 1024, 0), (8, 3072, 1024, 1), (9, 3072, 1024, 16),
+    (16, 3072, 1024, 64), (8, 3072, 3072, 64),
+    (8, 3000, 1000, 4), (16, 776, 1000, 3), (5, 1000, 136, 5),
+    (3, 40, 8, 2), (8, 8, 64, 1),
+    (8, 40000, 64, 4), (16, 20000, 200, 16),
+]
+
+
+@pytest.mark.parametrize("case", BF16_DECODE_CASES, ids=str)
+def test_lora_matmul_bf16_decode_body(cuda, case):
+    """Within the error bound of the plain version, two runs bitwise equal,
+    both counted as launches of the tensor-core split-K body and of no
+    other tensor-core body."""
+    m, k, n, r = case
+    assert _body(m, k, n, True, True) == "tensor-core split-K"
+    x, w, a, b = _bf16_inputs(cuda, *case, seed=sum(case))
+    before = (lora_matmul.launches, lora_matmul.bf16_tc_decode_launches,
+              lora_matmul.bf16_tc_launches)
+    got = lora_matmul(x, w, a, b, 0.7)
+    again = lora_matmul(x, w, a, b, 0.7)
+    torch.cuda.synchronize()
+    assert (lora_matmul.launches, lora_matmul.bf16_tc_decode_launches,
+            lora_matmul.bf16_tc_launches) == (
+        before[0] + 2, before[1] + 2, before[2])
+    assert torch.equal(_bits(got), _bits(again))
+    want = lora_matmul_plain(x, w, a, b, 0.7)
+    assert _within(got, want, lora_matmul_error_bound(x, w, a, b, 0.7))
+
+
+def test_lora_matmul_bf16_decode_misaligned_x_takes_simt(cuda):
+    """A decode x one row into its storage at K 3072 (still 16-byte
+    aligned) takes the tensor-core split-K body; 8 bf16 into a row too; one
+    element in does not, nor does f32 at the same shape."""
+    base, w, a, b = _bf16_inputs(cuda, 9, 3072, 1024, 4, seed=6)
+    flat = base.flatten()
+    cases = [(base[1:], 1), (flat[8:8 + 8 * 3072].view(8, 3072), 1),
+             (flat[1:1 + 8 * 3072].view(8, 3072), 0)]
+    for x, tc in cases:
+        before = lora_matmul.bf16_tc_decode_launches
+        got = lora_matmul(x, w, a, b, 0.7)
+        torch.cuda.synchronize()
+        assert lora_matmul.bf16_tc_decode_launches == before + tc
+        assert _within(got, lora_matmul_plain(x, w, a, b, 0.7),
+                       lora_matmul_error_bound(x, w, a, b, 0.7))
+    before = lora_matmul.bf16_tc_decode_launches
+    lora_matmul(*(t.float() for t in (base[1:], w, a, b)), 0.7)
+    assert lora_matmul.bf16_tc_decode_launches == before
+
+
 from repro_torch.kernels.flash_swa import _body as _flash_body  # noqa: E402
 
 BF16_FLASH_CASES = [
@@ -984,7 +1048,9 @@ def test_flash_swa_bf16_misaligned_q(cuda):
 
 
 from repro_torch.kernels import probes  # noqa: E402
-from repro_torch.kernels.lora_matmul import _sm_count, _split_plan  # noqa: E402
+from repro_torch.kernels.lora_matmul import (_sm_count,  # noqa: E402
+                                             _split_plan,
+                                             _tc_split_plan)
 
 BF16_PROBE_LORA = [
     # (M, K, N, r): the split-K body at 1, 2, 4 and 8 K chunks of an H100
@@ -1006,6 +1072,11 @@ BF16_PROBE_LORA = [
     (4096, 3840, 2048, 4), (4096, 4096, 3840, 4), (4095, 3072, 1024, 1),
     (17, 776, 1000, 64), (300, 3072, 40, 17), (1000, 3840, 2048, 64),
     (129, 3072, 1024, 12),
+    # the tensor-core split-K body at every served decode shape's kind
+    # (gemma3-12b's at batch 2, paper-llama3.2-3b's k/v at batch 8; the
+    # first four above are its too) and with x staged in several passes
+    (2, 3840, 4096, 4), (2, 3840, 2048, 4), (2, 4096, 3840, 4),
+    (8, 3072, 1024, 4), (8, 40000, 64, 4), (16, 20000, 200, 16),
 ]
 
 
@@ -1014,18 +1085,24 @@ def test_lora_matmul_bf16_rounds_x_at_a_once(cuda, case):
     """The probe's exact inputs (``kernels/probes.py``): the kernel equals
     its plain version and the exact answer bit for bit, which rounding
     x@a per K chunk of the body's plan, or not at all, would not; two runs
-    bitwise equal, counted as tensor-core launches where ``_body`` picks
-    that body."""
+    bitwise equal, counted as launches of the tensor-core body that
+    ``_body`` picks (the K chunks of the split-K bodies from their own
+    plans)."""
     m, k, n, r = case
-    chunk = _split_plan(n, k, _sm_count(0))[1] if m <= 16 else 64
+    body = _body(m, k, n, True, True)
+    plan = _tc_split_plan if body == "tensor-core split-K" else _split_plan
+    chunk = plan(n, k, _sm_count(0))[1] if m <= 16 else 64
     x, w, a, b, scale, want, faults = probes.lora_probe(
         m, k, n, r, chunk=chunk, device=cuda, seed=m + k)
-    tc = 2 * (_body(m, k, n, True, True) == "tensor-core")
-    before = lora_matmul.bf16_tc_launches
+    tc = 2 * (body == "tensor-core"), 2 * (body == "tensor-core split-K")
+    before = (lora_matmul.bf16_tc_launches,
+              lora_matmul.bf16_tc_decode_launches)
     got = lora_matmul(x, w, a, b, scale)
     again = lora_matmul(x, w, a, b, scale)
     torch.cuda.synchronize()
-    assert lora_matmul.bf16_tc_launches == before + tc
+    assert (lora_matmul.bf16_tc_launches,
+            lora_matmul.bf16_tc_decode_launches) == (before[0] + tc[0],
+                                                     before[1] + tc[1])
     assert torch.equal(_bits(got), _bits(again))
     assert torch.equal(got, lora_matmul_plain(x, w, a, b, scale))
     assert torch.equal(got, want)

@@ -1,27 +1,39 @@
 """The launch plan of the port's ``lora_matmul`` (B3) that lives in Python:
-which body a shape takes (split-K, tensor-core or tiled), the split-K
-body's K chunks and column-block width, the tensor-core body's shared
-memory, and the size of the work buffer each body is handed. Pure
-arithmetic, so it runs on the CPU; the kernel itself runs only on the card
-(tests/test_torch_cuda.py).
+which body a shape takes (tensor-core split-K, SIMT split-K, tensor-core
+or tiled), the split-K bodies' K chunks and column-block widths, the
+tensor-core bodies' shared memory, and the size of the work buffer each
+body is handed. Pure arithmetic, so it runs on the CPU; the kernel itself
+runs only on the card (tests/test_torch_cuda.py).
 """
 
 import re
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels.build import CSRC  # noqa: E402
-from repro_torch.kernels.lora_matmul import (MAX_RANK,  # noqa: E402
-                                             MAX_SPLITS, SKINNY_ROWS,
-                                             SMEM_PER_BLOCK, TC_STAGES,
-                                             _adapter_rows, _body,
-                                             _split_plan, _tc_smem,
+from repro_torch.kernels.lora_matmul import (DC_A_BYTES,  # noqa: E402
+                                             DC_BN, DC_STAGES, DC_X_BYTES,
+                                             MAX_RANK, MAX_SPLITS,
+                                             SKINNY_ROWS, SMEM_PER_BLOCK,
+                                             TC_STAGES, _adapter_rows,
+                                             _body, _dc_smem, _split_plan,
+                                             _tc_smem, _tc_split_plan,
                                              _tc_stages, _work_floats)
 
 H100_SMS = 132
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread, as in the other port test files (the suite runs
+    several workers on a few cores)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 # (M, K, N, r): the prefill layer of paper-llama3.2-3b (M = 8 × 512) and
 # the tiled body's edges; paper-gpt2's prefill layer (K = N = 768, the MLP's
@@ -139,11 +151,19 @@ def test_what_tma_cannot_describe_takes_the_tiled_body(m, k, n, aligned):
     assert _body(m, k, n, True, aligned) == "tiled"
 
 
+@pytest.mark.parametrize("low,aligned,split", [
+    (True, True, "tensor-core split-K"), (False, True, "split-K"),
+    (True, False, "split-K"), (False, False, "split-K")], ids=str)
 @pytest.mark.parametrize("m", [1, 8, 16, 17], ids=str)
-def test_decode_rows_take_split_k(m):
-    want = "split-K" if m <= SKINNY_ROWS else "tensor-core"
-    assert _body(m, 3072, 3072, True, True) == want
-    assert _body(m, 777, 333, False, False) == (
+def test_decode_rows_take_split_k(m, low, aligned, split):
+    """M ≤ 16 takes a split-K body: the tensor-core one for bf16 that TMA
+    can describe, the SIMT one for f32 and the rest; M > 16 the
+    tensor-core or the tiled body."""
+    tma = low and aligned
+    want = split if m <= SKINNY_ROWS else (
+        "tensor-core" if tma else "tiled")
+    assert _body(m, 3072, 3072, low, aligned) == want
+    assert _body(m, 777, 333, low, aligned) == (
         "split-K" if m <= SKINNY_ROWS else "tiled")
 
 
@@ -196,3 +216,122 @@ def test_tensor_core_work_holds_a_transposed(m, k, n, r):
     floats = _work_floats(m, n, r, 0, k)
     assert 2 * floats >= _adapter_rows(r) * k > 2 * (floats - 1)
     assert (floats == 0) == (r == 0)
+
+
+# every served q/k/v/o at its decode rows (paper-llama3.2-3b and paper-gpt2
+# at batch 8, gemma3-12b at batch 2) and at the serve launcher's batch 2
+SERVED_DECODE = [(name, proj, m, k, n)
+                 for name, rows in (("paper-llama3.2-3b", (8, 2)),
+                                    ("paper-gpt2", (8, 2)),
+                                    ("gemma3-12b", (2,)))
+                 for proj, k, n in _projections(name) for m in rows]
+
+
+@pytest.mark.parametrize("case", SERVED_DECODE, ids=str)
+def test_served_bf16_decode_takes_the_tensor_core_split_k_body(case):
+    """Every served decode projection in bf16 (aligned, as the model's
+    weights and activations are) goes to the tensor-core split-K body; in
+    f32 to the SIMT split-K body."""
+    _, _, m, k, n = case
+    assert _body(m, k, n, True, True) == "tensor-core split-K"
+    assert _body(m, k, n, False, True) == "split-K"
+
+
+@pytest.mark.parametrize("m,k,n,aligned", [
+    (8, 777, 333, True), (8, 776, 332, True), (2, 3071, 1024, True),
+    (16, 3072, 1020, True), (8, 3072, 3072, False), (1, 8, 8, False)],
+    ids=str)
+def test_what_tma_cannot_describe_takes_the_simt_split_k_body(m, k, n,
+                                                              aligned):
+    """At decode rows, K or N not a multiple of 8 or an x or W off 16-byte
+    alignment: the SIMT split-K body and its own plan."""
+    assert _body(m, k, n, True, aligned) == "split-K"
+
+
+# (N, K) of the tensor-core split-K body: the served decode projections,
+# odd and ragged shapes, K under one slice, K past one staging of x
+TC_SPLIT = [(3072, 3072), (1024, 3072), (768, 768), (4096, 3840),
+            (2048, 3840), (3840, 4096), (1000, 3000), (136, 1000), (8, 40),
+            (64, 8), (64, 40000), (200, 20000), (64, 64), (8192, 3072),
+            (256, 100_000)]
+
+
+@pytest.mark.parametrize("n,k", TC_SPLIT, ids=str)
+def test_tc_split_plan_meets_the_c_entry_checks(n, k):
+    """The plan passes lora_matmul_launch's checks for bit 2: one cluster
+    of at most 8 K chunks (splits·kc ≥ K, no empty chunk), kc a multiple of
+    64 (no TMA box of W straddles two chunks), columns in blocks of 64, and
+    shared memory within a block's at any M ≤ 16 and r ≤ 64."""
+    splits, kc, bn = _tc_split_plan(n, k, H100_SMS)
+    assert 1 <= splits <= MAX_SPLITS and kc > 0 and kc % 64 == 0
+    assert splits * kc >= k and (splits - 1) * kc < k
+    assert bn == DC_BN == 64
+    for mp in (8, 16):
+        for r in (0, 1, 4, 64):
+            assert _dc_smem(mp, kc, r) <= SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("n,k,plan", [
+    (3072, 3072, (4, 768, 64)), (1024, 3072, (8, 384, 64)),
+    (768, 768, (6, 128, 64)), (4096, 3840, (4, 960, 64)),
+    (2048, 3840, (6, 640, 64)), (3840, 4096, (4, 1024, 64)),
+    (64, 64, (1, 64, 64)), (64, 40000, (8, 5056, 64))],
+    ids=["llama_q_o", "llama_k_v", "gpt2_qkvo", "gemma3_q", "gemma3_k_v",
+         "gemma3_o", "one_slice", "long_k"])
+def test_tc_split_plan_puts_enough_blocks_on_every_sm(n, k, plan):
+    """The fewest chunks of at most 1024 rows whose grid of 64-column
+    blocks puts at least 1.4 blocks on each of the 132 SMs (at most 8, and
+    no more than K's 64-row slices)."""
+    splits, kc, _ = got = _tc_split_plan(n, k, H100_SMS)
+    assert got == plan
+    slices, cols = -(-k // 64), -(-n // 64)
+    most = min(MAX_SPLITS, slices)
+    # enough blocks, or as many chunks as 8 (or K's slices) allow, after kc
+    # is rounded up to whole slices
+    assert 5 * cols * splits >= 7 * H100_SMS or kc == 64 * -(-slices // most)
+    fewer = splits - 1
+    assert fewer < 1 or 5 * cols * fewer < 7 * H100_SMS \
+        or -(-slices // fewer) > 16
+
+
+def test_tc_split_plan_is_cached():
+    _tc_split_plan.cache_clear()
+    _tc_split_plan(1024, 3072, H100_SMS)
+    _tc_split_plan(1024, 3072, H100_SMS)
+    assert _tc_split_plan.cache_info().hits == 1
+
+
+@pytest.mark.parametrize("case", [c for c in SERVED_DECODE if c[1] != "v"],
+                         ids=str)
+def test_tc_split_shared_memory_fits_four_blocks_an_sm(case):
+    """The plan's premise: at the served decode shapes (M ≤ 8, r 4) four
+    blocks fit an H100 SM's 228 KB (1 KB of it reserved a block), each
+    with its 3 stages of 8 KB of W in flight."""
+    _, _, m, k, n = case
+    _, kc, _ = _tc_split_plan(n, k, H100_SMS)
+    assert m <= 8
+    smem = _dc_smem(8, kc, 4)
+    assert smem >= 1024 + DC_STAGES * 64 * 128
+    assert 4 * (smem + 1024) <= 228 * 1024
+
+
+def test_tc_split_plan_matches_the_source():
+    """The constants behind ``_dc_smem`` and the plan are the CUDA
+    source's (``DC_BN``, ``DC_STAGES``, ``DC_X_BYTES``, ``DC_A_BYTES``, the
+    portable cluster of ``SK_MAX_CLUSTER``), and its shared memory is
+    summed from the same terms."""
+    src = (CSRC / "lora_matmul.cu").read_text()
+    for name, value in (("DC_BN", DC_BN), ("DC_STAGES", DC_STAGES),
+                        ("DC_X_BYTES", DC_X_BYTES),
+                        ("DC_A_BYTES", DC_A_BYTES),
+                        ("SK_MAX_CLUSTER", MAX_SPLITS)):
+        found = re.search(r"constexpr int %s = (\d+);" % name, src)
+        assert found is not None and int(found.group(1)) == value, name
+    body = src[src.index("constexpr size_t dc_smem("):]
+    body = body[:body.index("}")]
+    for term in ("DC_STAGES * DC_BOX", "dc_xk(mp, kc) * mp * 2",
+                 "(r > 0 ? DC_A_BYTES : 0)", "r * DC_BN * 2",
+                 "dc_recv(mp) * 4", "(SK_MAX_CLUSTER + 1) * mp * r * 4",
+                 "(2 * DC_STAGES + 3) * 8"):
+        assert term in body, term
+    assert "constexpr int DC_BOX = 64 * 128;" in src
