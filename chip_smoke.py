@@ -10,6 +10,7 @@
     python3 chip_smoke.py --mesh              # phase 7 alone
     python3 chip_smoke.py --zoo               # phase 8 alone
     python3 chip_smoke.py --bf16              # phase 9 alone
+    python3 chip_smoke.py --moe               # phase 10 alone
     python3 chip_smoke.py --fold-check        # phase 3's fedex_fold checks
 
 Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
@@ -294,7 +295,25 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    prefill over the same weights, teacher forcing against the bf16
    training forward within ``TF_BF16``, prefill ms, decode ms/token, peak
    GiB and a profile);
-10. one JSON line with every ported kernel: ``ms`` and ``library_ms``
+10. the MoE family (``moe_phase``, ``[moe]`` lines; ``python3
+   chip_smoke.py --moe`` runs it alone): ``mixtral-8x22b`` at full width,
+   cut in depth (``MOE_DEPTH``: 4 of its 56 layers in f32, 8 in bf16; a
+   layer is ≈ 10 GB in f32). B1 at the up-proj expert leaf (32 × 6144 ×
+   16384, 3.2·10⁹ elements) against its plain version in chunks of 8
+   matrices, far end included, and B2, B3 and B8 at its shapes, each timed
+   beside its plain version, the bound and the library call; one MoE layer
+   (ragged, plain and through B3) against the dense oracle; fedex training
+   with per-expert adapters (a uniform round, then 50% with example
+   weights: ``factor_mean`` 1, ``fedex_fold`` 7), the fold held on experts
+   0 and 7 of the first and last layer (``moe_snapshot``); ``serve()`` of
+   the folded tree in f32 and of fresh draws in bf16, B3 three launches a
+   non-empty expert group; every comparison of two evaluations replays one
+   routing (``route_log``) and counts the tokens routed to other experts:
+   in f32 at a margin below ``MOE_FLIP_MARGIN``, in bf16 (where roundings
+   accumulate over the layers) the kernel path's prefill logits, routing
+   and teacher-forced decode held against the f32 answer over the same
+   weights, widened a layer at a time, as phase 9 holds its serves;
+11. one JSON line with every ported kernel: ``ms`` and ``library_ms``
    host-inclusive, ``device_ms`` and ``library_device_ms`` device time
    (:meth:`Timer.device`), at the main body; B2's row adds one close's launch path
    (``close_wall_us``, ``close_enqueue_us``: :func:`launch_cost`), B3's
@@ -318,7 +337,16 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    ``bf16_gpt2_*``, ``bf16_gemma3_*``, ``bf16_gemma3_W1024_*``), with
    ``bf16_launches`` (phase 9's ``serve()`` runs; B3's and B8's rows
    also ``bf16_tc_launches``, those through their tensor-core bodies) and
-   ``bf16_max_abs_err`` (``max_abs_err`` stays the f32 checks'); then the
+   ``bf16_max_abs_err`` (``max_abs_err`` stays the f32 checks'); at
+   mixtral-8x22b's shapes (phase 10) as ``mixtral_*`` on the rows of B1
+   (the up-proj expert leaf) and B2 (a close's 14 stacks), on B3's
+   ``mixtral_bf16_*`` and ``mixtral_bf16_decode_*`` (one layer's q/k/v/o),
+   ``mixtral_expert_*`` (f32), ``mixtral_expert_bf16_*`` and
+   ``mixtral_expert_bf16_decode_*`` (the expert projections), on B8's
+   ``mixtral_*`` and ``mixtral_bf16_*``, with ``mixtral_bf16_launches``
+   and ``mixtral_bf16_tc_launches`` (B3's also
+   ``mixtral_bf16_tc_decode_launches``) of its bf16 ``serve()`` run and
+   ``mixtral_bf16_max_abs_err`` (its bf16 kernel checks'); then the
    result line.
 
 ``--launch-cost SRC`` runs :func:`launch_cost` alone on the port found
@@ -335,7 +363,7 @@ at d 64, 128 and 256, windows included, in TFLOP/s and as a share of the
 bound (:func:`attention_sweep`); ``--obs-http`` runs
 phase 6 alone (:func:`obs_http_phase`), ``--mesh`` phase 7
 (:func:`mesh_phase`), ``--zoo`` phase 8 (:func:`zoo_phase`), ``--bf16``
-phase 9 (:func:`bf16_phase`), and
+phase 9 (:func:`bf16_phase`), ``--moe`` phase 10 (:func:`moe_phase`), and
 ``--fold-check`` phase 3's main-shape ``fedex_fold`` checks
 (:func:`fold_check_main`).
 
@@ -2436,13 +2464,14 @@ def identity_fedex(torch, trainer, outcome, old, keys):
 def identity_sampled(torch, trainer, outcome, old, keys):
     """The zoo's weighted close on the first and the last stacked layer of
     each adapted leaf (gemma3's local leaves: (0, 0) and (nper − 1, ratio −
-    1)): the folded W0 against the plain fold of the round's uplinks and
+    1); phase 10's the matrices of :func:`moe_snapshot`, raw expert leaves
+    too): the folded W0 against the plain fold of the round's uplinks and
     weights from the round's old W0, within ``fold_error_bound``."""
     from repro_torch.kernels import fedex_fold_plain, fold_error_bound
     s, w, worst = trainer.scale, _weights(torch, trainer, outcome), 0.0
     for key in keys:
         a, b = _stacks(torch, outcome, key)
-        new = _node(trainer.params, key)["kernel"]
+        new = _w0(_node(trainer.params, key))
         for idx, w0_old in old[0][key].items():
             ai, bi = a[(slice(None), *idx)], b[(slice(None), *idx)]
             worst = max(worst, _report(
@@ -4741,6 +4770,845 @@ def bf16_phase(torch, kernels, device):
 
 
 # --------------------------------------------------------------------------
+# phase 10: the MoE family (mixtral-8x22b)
+# --------------------------------------------------------------------------
+
+MOE = "mixtral-8x22b"
+# Depth cuts, stated as cuts: full depth is 56 layers of ≈ 2.5 B parameters
+# (≈ 10 GB a layer in f32, 5 GB in bf16), which one 80 GB card cannot hold.
+# Training and its f32 serve run 4 layers (≈ 42 GB of weights), the bf16
+# serve 8 (≈ 41 GB); every width is the config's.
+MOE_DEPTH = {"float32": 4, "bfloat16": 8}
+MOE_TRAIN = {"clients": 4, "local_steps": 3, "batch": 8, "seq": 64,
+             "data_vocab": 512}
+MOE_SERVE = {"batch": 8, "prompt": 512, "steps": 32}  # cache prompt + steps
+# one MoE layer, ragged (plain and kernel) against the dense oracle:
+# |diff| ≤ rtol·|dense| + atol·max|dense| (the dense path sums experts and
+# ff in one K of E·ff = 131,072, the ragged one per expert)
+MOE_LAYER_TOL = (1e-4, 1e-4)
+# f32: a routing flip (a token routed to another set of experts by two
+# evaluations of the same function) must sit at a k-th margin no larger
+# than this (f32 rounding moves a probability by ~1e-7). bf16: 2⁻⁵ was
+# stated before the first run and missed — bf16 roundings accumulate over
+# the layers (PERF.md §6, PR 31) — so bf16 flips are held as phase 9 holds
+# the logits: the kernel path's flips against the bf16 plain path no more
+# than twice the plain path's own against the f32 answer.
+MOE_FLIP_MARGIN = {"float32": 1e-5}
+# f32 kernel path against plain path at the prefill's last-position
+# logits: |diff| ≤ rtol·|plain| + atol·max|plain|. The dense phases' P_TOL
+# is absolute; a MoE layer's expert products sum K = 16,384 terms of
+# activations ≈ 20 (the one-layer check's max|y|), so the two f32
+# accumulation orders part by more at the logits (the first run read
+# 1.43e-4 against P_TOL's absolute 1e-4); each B3 call is held to
+# ``lora_matmul_error_bound`` at these shapes by the kernel checks.
+MOE_P_TOL = (1e-4, 1e-4)
+
+
+class route_log:
+    """Within the block every call of the MoE router
+    (``models.moe.router_topk``) logs its top-k expert indices (on the
+    card, read after the block). Unless ``light``, it also logs the
+    tokens whose k-th and (k+1)-th probabilities tie exactly. With
+    ``replay`` (index tensors, one a call, in call order) each call routes
+    as the replayed indices, its weights renormalised over them from its
+    own probabilities, and logs how many of its tokens it would have routed
+    to another set of experts and the largest k-th margin among them: two
+    evaluations then
+    differ by their rounding only, and a flip (a near-tie rounded the
+    other way) is counted, not compared."""
+
+    def __init__(self, replay=None, light=False):
+        from repro_torch.models import moe
+        self.mod, self.replay, self.light = moe, replay, light
+        self.indices, self.ties, self.flips, self.margins = [], [], [], []
+        self.own = []  # with replay: each call's own choice
+
+    def __enter__(self):
+        torch = self.mod.torch
+        self.saved = self.mod.router_topk
+
+        def logged(cfg, rp, x):
+            w, idx, aux = self.saved(cfg, rp, x)
+            if not (self.light and self.replay is None):
+                k = cfg.num_experts_per_tok
+                probs = torch.softmax(torch.matmul(x, rp["kernel"]).float(),
+                                      dim=-1)
+                top = torch.sort(probs, dim=-1, descending=True).values
+                margin = top[:, k - 1] - top[:, k]
+                self.ties.append((margin == 0).sum())
+            if self.replay is not None:
+                forced = self.replay[len(self.indices)]
+                # a flip changes the set of experts; two near-equal top
+                # probabilities swapped within the set change nothing
+                differ = (idx.sort(-1).values
+                          != forced.sort(-1).values).any(-1)
+                self.flips.append(differ.sum())
+                self.margins.append(torch.where(differ, margin, 0.0).max())
+                self.own.append(idx)
+                w = probs.gather(-1, forced)
+                w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
+                idx = forced
+            self.indices.append(idx)
+            return w, idx, aux
+
+        self.mod.router_topk = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.router_topk = self.saved
+
+    def counts(self) -> dict:
+        """calls, exact ties, flips and the largest flip margin."""
+        return {"calls": len(self.indices),
+                "ties": int(sum(int(t) for t in self.ties)),
+                "flips": int(sum(int(f) for f in self.flips)),
+                "flip_margin": max([float(m) for m in self.margins],
+                                   default=0.0)}
+
+    def b3_calls(self, torch, cfg) -> tuple:
+        """(B3 launches of the logged calls' expert groups: 3 a non-empty
+        group, those of groups of more than SKINNY_ROWS rows: the prefill
+        bodies')."""
+        from repro_torch.kernels.lora_matmul import SKINNY_ROWS
+        groups = wide = 0
+        for idx in self.indices:
+            sizes = torch.bincount(idx.flatten(), minlength=cfg.num_experts)
+            groups += int((sizes > 0).sum())
+            wide += int((sizes > SKINNY_ROWS).sum())
+        return 3 * groups, 3 * wide
+
+
+def _held_flips(log, dtype, label):
+    """Print a replayed run's flips; in f32 raise if one sits past the
+    stated margin (a flip there is not rounding)."""
+    got = log.counts()
+    limit = MOE_FLIP_MARGIN.get(dtype)
+    print(f"  [moe] {label}: {got['calls']} router calls replayed, "
+          f"{got['flips']} tokens would route to other experts (largest k-th "
+          f"margin among them {got['flip_margin']:.3e}"
+          + (f", limit {limit:.3e})" if limit else ")"), flush=True)
+    if limit is not None and got["flip_margin"] > limit:
+        raise AssertionError(f"moe {label}: a token flips at margin "
+                             f"{got['flip_margin']:.3e}")
+    return got
+
+
+def _set_flips(lhs, rhs) -> int:
+    """Tokens routed to another set of experts, over the calls of two
+    logs' index lists."""
+    return sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(lhs, rhs))
+
+
+def _joined_routes(torch, prefill, decode, batch):
+    """The routing of a training forward over prompt + 1 tokens, per layer,
+    from a prefill's (B·S, k) and a decode step's (B, k) indices."""
+    return [torch.cat([p.view(batch, -1, p.shape[-1]),
+                       d.view(batch, 1, d.shape[-1])], dim=1).flatten(0, 1)
+            for p, d in zip(prefill, decode)]
+
+
+def _w0(node):
+    """A W0 leaf: a module's kernel or a raw expert tensor."""
+    return node["kernel"] if isinstance(node, dict) else node
+
+
+def moe_kernel_phase(torch, kernels, device, cfg, *, r, scale):
+    """At mixtral's shapes: B1 at the up-proj expert leaf of the f32 depth
+    (L·E stacked matrices of 6144 × 16384, ≈ 3.2·10⁹ elements, past 2³¹),
+    2 live lanes of 4 weighted, against its plain version in chunks of 8
+    matrices (every chunk, the far end of the leaf included) and timed
+    beside ``baddbmm``; B2 over a close's 14 factor stacks (q/k/v/o and
+    the three expert leaves), bitwise; B3 at one layer's q/k/v/o in bf16
+    at the prefill (M 4096) and decode (M 8) rows, each call through its
+    tensor-core body, and at the expert projections (K or N 16,384) at a
+    prefill group of M 1024 (f32 and bf16) and a decode group of M 2
+    (bf16); B8 at the prefill (B 8, S 512, GQA 48/8, d 128, window 4096)
+    in f32 and in bf16 through its tensor-core body. Returns (max errors
+    of the f32 cases, of the bf16 cases, timings)."""
+    timer = Timer(torch, device)
+    L, E = MOE_DEPTH["float32"], cfg.num_experts
+    d, ff = cfg.d_model, cfg.moe_d_ff
+    errs = {"fedex_fold": 0.0, "factor_mean": 0.0, "lora_matmul": 0.0,
+            "flash_swa": 0.0}
+    bf16_errs = {"lora_matmul": 0.0, "flash_swa": 0.0}
+    timings = {}
+    c, live = 4, (0, 1)
+    w0, a, b, w = make_inputs(torch, device, c, (L * E,), d, ff, r, live,
+                              seed=110)
+    out = torch.empty_like(w0)
+    kernels.fedex_fold(w0, a, b, scale, weights=w, out=out)
+    torch.cuda.synchronize()
+    chunk = 8
+    for i in range(0, L * E, chunk):
+        part = slice(i, i + chunk)
+        want = kernels.fedex_fold_plain(w0[part], a[:, part], b[:, part],
+                                        scale, w)
+        bound = kernels.fold_error_bound(w0[part], a[:, part], b[:, part],
+                                         scale, w)
+        err = (out[part] - want).abs()
+        errs["fedex_fold"] = max(errs["fedex_fold"], float(err.max()))
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"fedex_fold at mixtral's up-proj leaf, "
+                                 f"matrices {i}..{i + chunk - 1}: disagrees "
+                                 "with its plain version")
+        del want, bound, err
+    far = out[-1, -1, -1]
+    print(f"  [moe] fedex_fold up-proj leaf ({L * E}, {d}, {ff}) = "
+          f"{w0.numel():,} elements, C={c} r={r}, live {list(live)}: every "
+          f"chunk of {chunk} within bound of the plain version, max_abs_err "
+          f"{errs['fedex_fold']:.3e}; the far end out[{L * E - 1}, {d - 1}, "
+          f"{ff - 1}] = {float(far):.6e}", flush=True)
+    abar = kernels.factor_mean_plain(a, w)
+    bbar = kernels.factor_mean_plain(b, w)
+    lib_a = torch.cat([w[j] * a[j] for j in live] + [-abar], dim=-1)
+    lib_b = torch.cat([b[j] for j in live] + [bbar], dim=-2)
+    del abar, bbar
+    leaf = [("experts/up_proj", L * E, d, ff)]
+    fb = bound_ms(*fold_cost(leaf, len(live), r))
+
+    def fold_kernel():
+        kernels.fedex_fold(w0, a, b, scale, weights=w, out=out)
+
+    def fold_plain():
+        for i in range(0, L * E, chunk):
+            kernels.fedex_fold_plain(w0[i:i + chunk], a[:, i:i + chunk],
+                                     b[:, i:i + chunk], scale, w)
+
+    def fold_library():
+        torch.baddbmm(w0, lib_a, lib_b, alpha=scale, out=out)
+
+    timings["fedex_fold"] = (timer(fold_kernel), timer(fold_plain),
+                             timer(fold_library), fb,
+                             timer.device(fold_kernel, fb[0]),
+                             timer.device(fold_library, fb[0]))
+    ms, plain, lib, (bms, by), dev, dev_lib = timings["fedex_fold"]
+    print(f"  [moe] time fedex_fold up-proj leaf: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms ({(L * E) // chunk} chunks), library {lib:.4f} "
+          f"ms (baddbmm), bound {bms:.4f} ms ({by}); device time kernel "
+          f"{fmt_ms(dev)}{share(bms, dev)}, library {fmt_ms(dev_lib)}",
+          flush=True)
+    del w0, out, a, b, lib_a, lib_b
+    torch.cuda.empty_cache()
+
+    # B2: one weighted close's 14 stacks, the weights of B1's lanes
+    hd = cfg.resolved_head_dim
+    nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    leaves = [("q_proj", L, d, nq), ("k_proj", L, d, nkv),
+              ("v_proj", L, d, nkv), ("o_proj", L, nq, d),
+              ("experts/up_proj", L * E, d, ff),
+              ("experts/gate_proj", L * E, d, ff),
+              ("experts/down_proj", L * E, ff, d)]
+    g = torch.Generator(device=device)
+    g.manual_seed(120)
+    group = []
+    for _, n_l, m, n in leaves:
+        group += [torch.randn(c, n_l, m, r, device=device, generator=g) * 0.02,
+                  torch.randn(c, n_l, r, n, device=device, generator=g) * 0.01]
+    got = kernels.factor_mean_group(group, w)
+    torch.cuda.synchronize()
+    if not all(torch.equal(bits(torch, x), bits(
+            torch, kernels.factor_mean_plain(s, w)))
+               for x, s in zip(got, group)):
+        raise AssertionError("factor_mean: mixtral's grouped means are not "
+                             "bitwise the plain version")
+    del got
+    mb = bound_ms(*mean_cost(leaves, len(live), r))
+    timings["factor_mean"] = (
+        timer(lambda: kernels.factor_mean_group(group, w)),
+        timer(lambda: [kernels.factor_mean_plain(s, w) for s in group]),
+        timer(lambda: [torch.tensordot(w, s, dims=1) for s in group]), mb,
+        timer.device(lambda: kernels.factor_mean_group(group, w), mb[0]),
+        timer.device(lambda: [torch.tensordot(w, s, dims=1) for s in group],
+                     mb[0]))
+    ms, plain, lib, (bms, by), dev, dev_lib = timings["factor_mean"]
+    print(f"  [moe] factor_mean one grouped launch over a close's "
+          f"{len(group)} stacks: bitwise=True; kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, library {lib:.4f} ms ({len(group)} tensordot), "
+          f"bound {bms:.4f} ms ({by}); device time kernel {fmt_ms(dev)}, "
+          f"library {fmt_ms(dev_lib)}", flush=True)
+    del group
+
+    # B3: q/k/v/o in bf16 (prefill and decode rows), the expert projections
+    from repro_torch.kernels.lora_matmul import SKINNY_ROWS
+    low = torch.bfloat16
+    bsz, prompt = MOE_SERVE["batch"], MOE_SERVE["prompt"]
+    attn = serving_projections(cfg)
+    experts = [("up/gate", d, ff), ("down", ff, d)]
+    for key, dtype, m, shapes in (
+            ("mixtral_bf16", low, bsz * prompt, attn),
+            ("mixtral_bf16_decode", low, bsz, attn),
+            ("mixtral_expert", torch.float32, 1024, experts),
+            ("mixtral_expert_bf16", low, 1024, experts),
+            ("mixtral_expert_bf16_decode", low, 2, experts)):
+        bufs = [[t.to(dtype) for t in lora_inputs(torch, device, m, k, n, r,
+                                                  seed=140 + i)]
+                for i, (_, k, n) in enumerate(shapes)]
+        if dtype == low:
+            tc_calls(torch, kernels, bufs, scale, f"{key} M={m}", len(bufs),
+                     decode=m <= SKINNY_ROWS)
+        err, timings[key] = lora_case(
+            torch, kernels, timer, bufs, scale,
+            f"{cfg.name} {key}: {'/'.join(s[0] for s in shapes)} at M={m}",
+            device_times=True)
+        sink = bf16_errs if dtype == low else errs
+        sink["lora_matmul"] = max(sink["lora_matmul"], err)
+        del bufs
+    # B8 at the prefill, f32 (SIMT body) and bf16 (tensor-core body)
+    for i, (key, dtype) in enumerate((("flash_mixtral", None),
+                                      ("flash_mixtral_bf16", low))):
+        err, timings[key] = flash_case(
+            torch, kernels, timer, device, bsz, prompt, cfg.num_heads,
+            cfg.num_kv_heads, hd, True, cfg.sliding_window, seed=150 + i,
+            device_times=True, dtype=dtype, tc=dtype == low)
+        sink = bf16_errs if dtype == low else errs
+        sink["flash_swa"] = max(sink["flash_swa"], err)
+    torch.cuda.empty_cache()
+    return errs, bf16_errs, timings
+
+
+def moe_layer_check(torch, kernels, device, cfg, params, lora, scale):
+    """One MoE layer at full width in f32 (layer 0 of ``params``), batch 8 ×
+    seq 64 of unit-scale inputs, with its per-expert adapters' b drawn
+    N(0, 0.05²): the ragged path, plain (training) and fused (B3 on every
+    non-empty expert group's up, gate and down), against the dense oracle
+    within ``MOE_LAYER_TOL``; the router's aux loss equal. Returns the
+    largest error."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import _layer_slice
+    p = _layer_slice(params["layers"], 0)["mlp"]
+    g = torch.Generator(device=device)
+    g.manual_seed(160)
+    lo = {"experts": {
+        k: {"a": v["a"][0].clone(),
+            "b": torch.randn(v["b"][0].shape, device=device,
+                             generator=g) * 0.05}
+        for k, v in lora["layers"]["mlp"]["experts"].items()}}
+    x = torch.randn(MOE_TRAIN["batch"], MOE_TRAIN["seq"], cfg.d_model,
+                    device=device, generator=g)
+    rtol, atol = MOE_LAYER_TOL
+    worst = 0.0
+    with torch.inference_mode():
+        yd, ad = moe.moe_block(cfg, p, x, lora=lo, lora_scale=scale,
+                               impl="dense")
+        tol = rtol * yd.abs() + atol * float(yd.abs().max())
+        before = kernels.launch_counts()["lora_matmul"]
+        with route_log() as log:
+            yk, ak = moe.moe_block(cfg, p, x, lora=lo, lora_scale=scale,
+                                   fused=True)
+        yr, ar = moe.moe_block(cfg, p, x, lora=lo, lora_scale=scale)
+        torch.cuda.synchronize()
+        calls = kernels.launch_counts()["lora_matmul"] - before
+        want_calls, _ = log.b3_calls(torch, cfg)
+        for label, y, aux in (("ragged", yr, ar), ("ragged+B3", yk, ak)):
+            err = (y - yd).abs()
+            worst = max(worst, float(err.max()))
+            ok = bool((err <= tol).all()) and float(aux) == float(ad)
+            print(f"  [moe] one layer at full width (T {x.shape[0]} x "
+                  f"{x.shape[1]}, E {cfg.num_experts}, top-"
+                  f"{cfg.num_experts_per_tok}, ff {cfg.moe_d_ff}): {label} vs "
+                  f"the dense oracle max |diff| {float(err.max()):.3e} (rtol "
+                  f"{rtol}, atol {atol} x max|y| {float(yd.abs().max()):.3f})"
+                  f", aux {float(aux):.6e} vs {float(ad):.6e}: ok={ok}",
+                  flush=True)
+            if not ok:
+                raise AssertionError(f"moe layer: the {label} path disagrees "
+                                     "with the dense oracle")
+        print(f"  [moe] the fused layer launched lora_matmul {calls} times "
+              f"(3 a non-empty expert group: {want_calls})", flush=True)
+        if calls != want_calls:
+            raise AssertionError("moe layer: B3 launches != 3 a group")
+    return worst
+
+
+def moe_snapshot(trainer):
+    """W0's copy for the identity check: the first and the last layer of
+    each attention leaf; experts 0 and E − 1 of the first and the last
+    layer of each expert leaf."""
+    out = {}
+    for s in trainer.engine.specs:
+        w0 = _w0(_node(trainer.params, s.key))
+        lead = w0.shape[:-2]
+        idx = list(itertools.product(*[(0, n - 1) for n in lead]))
+        out[s.key] = {i: w0[i].clone() for i in idx}
+    return out
+
+
+def moe_train(torch, kernels, device, cfg, scale):
+    """Phase 10's training path at the f32 depth cut: 4 clients, 3 local
+    steps, batch 8 × seq 64 of a 512-token data vocabulary, fedex with
+    per-expert adapters; round 0 uniform over all clients, round 1 at 50%
+    participation with example weights (the weighted close: ``factor_mean``
+    1, ``fedex_fold`` 7: q, k, v, o, up, gate, down), the counters set to 0
+    just before the rounds and read just after, the fold checked by
+    :func:`identity_sampled` on :func:`moe_snapshot`'s matrices. Before it,
+    :func:`moe_layer_check` on the drawn layer 0. Returns (trainer, stats,
+    launches, max layer error)."""
+    from repro_torch.configs import FedConfig, LoRAConfig, TrainConfig
+    from repro_torch.core import FederatedTrainer
+    from repro_torch.fedsrv import RoundPolicy
+    from repro_torch.launch.train import build_federated_data
+    from repro_torch.models import build_model
+    from repro_torch.util.tree import count_params
+
+    t0 = time.perf_counter()
+    run = MOE_TRAIN
+    loaders, evals = build_federated_data(
+        run["data_vocab"], run["clients"], seq_len=run["seq"],
+        batch_size=run["batch"], device=device)
+    trainer = FederatedTrainer(
+        model=build_model(cfg),
+        lora_cfg=LoRAConfig(rank=4, alpha=8.0, lora_experts=True),
+        fed_cfg=FedConfig(num_clients=run["clients"], rounds=2,
+                          local_steps=run["local_steps"]),
+        train_cfg=TrainConfig(learning_rate=5e-3, schedule="constant",
+                              total_steps=2 * run["local_steps"]),
+        client_loaders=loaders, eval_batches=evals, seed=0, device=device)
+    torch.cuda.synchronize()
+    eng = trainer.engine
+    raw = sum(not s.has_kernel for s in eng.specs)
+    print(f"  [moe] {cfg.name} at depth {cfg.num_layers} (a cut of 56), "
+          f"{cfg.dtype}: {count_params(trainer.params) / 1e9:.2f} B params "
+          f"on the card, {len(eng.specs)} adapted leaves ({raw} raw expert "
+          f"stacks); set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    layer_err = moe_layer_check(torch, kernels, device, cfg, trainer.params,
+                                trainer.global_lora, scale)
+    close_ms = []
+    close = eng.close
+
+    def timed_close(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = close(*args, **kw)
+        torch.cuda.synchronize()
+        close_ms.append((time.perf_counter() - t) * 1e3)
+        return res
+
+    eng.close = timed_close
+    step_ms, local_step = [], trainer.local_step
+
+    def timed_step(*args, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = local_step(*args, **kw)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        return res
+
+    trainer.local_step = timed_step
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    rows, old, t1 = [], None, time.perf_counter()
+    for rnd in range(2):
+        if rnd == 1:
+            trainer.coordinator.policy = RoundPolicy(participation=0.5,
+                                                     weighting="examples")
+            old = [moe_snapshot(trainer)]
+        t = time.perf_counter()
+        step_ms.clear()
+        rec = trainer.run(until=rnd + 1)[rnd]
+        torch.cuda.synchronize()
+        out = trainer.outcomes[-1]
+        rows.append({"round": rnd, "clients": out.client_ids,
+                     "step_ms": statistics.median(step_ms),
+                     "weights": out.weights,
+                     "round_s": time.perf_counter() - t,
+                     "close_ms": close_ms[-1] if close_ms else None,
+                     "eval_loss": rec.eval_loss,
+                     "divergence": float(rec.divergence_scaled),
+                     "client_losses": rec.client_losses})
+        kind = "uniform" if out.weights is None else "weighted"
+        print(f"  [moe] round {rnd} [{kind} close, clients="
+              f"{out.client_ids}]: client step {rows[-1]['step_ms']:.1f} ms "
+              f"(median of {len(step_ms)}), round "
+              f"{rows[-1]['round_s']:.2f} s, close "
+              f"{rows[-1]['close_ms']:.2f} ms, eval_loss {rec.eval_loss:.4f}"
+              f", divergence {rows[-1]['divergence']:.3e}", flush=True)
+    train_s = time.perf_counter() - t1
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = dict(check_launches(
+        kernels, "moe-fedex", {"factor_mean": 1, "fedex_fold": len(eng.specs)},
+        f" for 1 weighted close of {len(eng.specs)} leaves; peak "
+        f"{peak:.1f} GiB"))
+    if rows[0]["weights"] is not None or rows[1]["weights"] is None:
+        raise AssertionError("moe-fedex: round 0 must be uniform, round 1 "
+                             "weighted")
+    values = [v for row in rows for v in
+              (row["eval_loss"], row["divergence"], *row["client_losses"])]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"moe-fedex: non-finite values: {rows}")
+    keys = [s.key for s in eng.specs]
+    identity = identity_sampled(torch, trainer, trainer.outcomes[-1], old,
+                                keys)
+    del old
+    stats = {"params_b": count_params(trainer.params) / 1e9,
+             "layers": cfg.num_layers, "train_s": train_s,
+             "train_peak_gib": peak, "fold_err": identity,
+             "layer_err": layer_err, "close_ms": rows[-1]["close_ms"],
+             "rounds": [{k: v for k, v in row.items()
+                         if k != "client_losses"} for row in rows]}
+    return trainer, stats, launches
+
+
+def _moe_expect(kernels, name, b3, flash, dtype, tc=None):
+    """The launch counts of a MoE serving step; bf16 also the bf16 and the
+    tensor-core counts."""
+    want = {"lora_matmul": b3, "flash_swa": flash}
+    want = {k: v for k, v in want.items() if v}
+    if dtype == "bfloat16":
+        _expect_bf16(kernels, name, want, tc)
+    else:
+        _expect(kernels, name, want)
+
+
+def moe_serve(torch, kernels, device, cfg, params, lora, lcfg):
+    """Serve ``cfg`` (f32 or bf16, its dtype) from ``params`` / ``lora`` at
+    ``MOE_SERVE``'s shape, its cache in the model's dtype. With the counters
+    set to 0 just before each: one prefill (``lora_matmul`` 4·L + 3 a
+    non-empty expert group, ``flash_swa`` L; bf16: every B3 call at a
+    prefill group through the tensor-core body, B8's too) and one decode
+    step (4·L + 3 a group; bf16: every one through the tensor-core split-K
+    body); the kernel path's prefill logits against the plain path's (no
+    launch; the kernel path's routing replayed, :class:`route_log`);
+    teacher forcing, the decode step's logits against the training forward
+    over prompt + 1 (the serve runs' routing replayed): f32 within
+    ``D_TOL``, the argmax agreeing on every row whose top-2 margin exceeds
+    twice that (bf16: printed, and held by :func:`moe_bf16`). Then the
+    main path, ``serve()`` (f32: ``dtype`` float32 and an f32 cache; bf16:
+    no ``dtype``, the config's), 1 prefill and the decode steps, the
+    counters set to 0 just before and read just after. Returns (stats,
+    main-path launches, its bf16 launches, B3's and B8's tensor-core
+    launches, and for :func:`moe_bf16` what it compares: the prefill's
+    last-position logits on the kernel and the plain path, the decode
+    step's and the training forward's, the tokens, the serve runs'
+    routing over prompt + 1 and the plain path's own)."""
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+
+    bsz, prompt, steps = (MOE_SERVE[k] for k in ("batch", "prompt", "steps"))
+    max_len, L, dt = prompt + steps, cfg.num_layers, cfg.dtype
+    mdt = torch.float32 if dt == "float32" else torch.bfloat16
+    low = dt == "bfloat16"
+    model = build_model(cfg)
+    prefill, decode = make_prefill_step(model, lcfg), make_decode_step(model,
+                                                                       lcfg)
+    batch = make_batch_for(cfg, bsz, prompt, seed=0, device=device)
+    full = torch.cat([batch["tokens"], batch["targets"][:, -1:]], dim=1)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        cache = model.init_cache(bsz, max_len, mdt, device=device)
+        with route_log() as pre_log:
+            pre, cache = prefill(params, lora, batch, cache)
+        torch.cuda.synchronize()
+        calls, wide = pre_log.b3_calls(torch, cfg)
+        _moe_expect(kernels, f"{cfg.name} {dt} one prefill", 4 * L + calls,
+                    L, dt, tc={"lora_matmul": 4 * L + wide,
+                               "lora_matmul_decode": calls - wide,
+                               "flash_swa": L})
+        ties = pre_log.counts()["ties"]
+        print(f"  [moe] {cfg.name} {dt} prefill: {ties} of "
+              f"{bsz * prompt * L} token-layers with the router's 2nd and "
+              "3rd probabilities exactly tied", flush=True)
+        kernels.reset_launch_counts()
+        with route_log() as dec_log:
+            _, dec, cache = decode(params, lora, full[:, -1:], cache, prompt)
+        torch.cuda.synchronize()
+        dcalls, dwide = dec_log.b3_calls(torch, cfg)
+        _moe_expect(kernels, f"{cfg.name} {dt} one decode step",
+                    4 * L + dcalls, 0, dt,
+                    tc={"lora_matmul": dwide,
+                        "lora_matmul_decode": 4 * L + dcalls - dwide,
+                        "flash_swa": 0})
+        del cache
+        kernels.reset_launch_counts()
+        with plain_ops(kernels), route_log(replay=pre_log.indices) as log:
+            cache = model.init_cache(bsz, max_len, mdt, device=device)
+            pre_plain, cache = prefill(params, lora, batch, cache)
+            del cache
+        torch.cuda.synchronize()
+        _expect(kernels, f"{cfg.name} {dt} plain path", {})
+        plain_flips = _held_flips(log, dt, f"{dt} plain-path prefill")
+        plain_own = log.own
+        err_kp = float((pre - pre_plain).abs().max())
+        if not low:
+            lscale = float(pre_plain.abs().max())
+            ok = bool(((pre - pre_plain).abs() <= MOE_P_TOL[0]
+                       * pre_plain.abs() + MOE_P_TOL[1] * lscale).all())
+            print(f"  [moe] f32 prefill last-position logits, kernel path vs "
+                  f"plain path: max |diff| {err_kp:.3e} (rtol {MOE_P_TOL[0]}"
+                  f", atol {MOE_P_TOL[1]} x logit scale {lscale:.3f}): "
+                  f"within={ok}", flush=True)
+            if not ok:
+                raise AssertionError("moe f32 serve: the kernel path "
+                                     "disagrees with the plain path")
+        routes = _joined_routes(torch, pre_log.indices, dec_log.indices, bsz)
+        with route_log(replay=routes) as log:
+            train = model.apply(params, {"tokens": full}, lora=lora,
+                                lora_scale=lcfg.scale)[:, -1].clone()
+        torch.cuda.synchronize()
+        tf_flips = _held_flips(log, dt, f"{dt} training forward")
+        got = dec[:, -1].clone()
+        scale_tf = float(train.abs().max())
+        err_tf = float((got - train).abs().max())
+        if low:
+            # held against the f32 answer by moe_bf16; TF_BF16, phase 9's
+            # absolute limit, printed beside
+            print(f"  [moe] {cfg.name} bf16 teacher-forced decode vs the bf16 "
+                  f"training forward: max |diff| {err_tf:.4e} = "
+                  f"{err_tf / scale_tf:.3f} of the logit scale {scale_tf:.3f}"
+                  f" (phase 9's TF_BF16 {TF_BF16})", flush=True)
+        else:
+            ok, _ = _allclose(got, train, *D_TOL)
+            margin_tol = D_TOL[1] + D_TOL[0] * scale_tf
+            top2 = torch.topk(train, 2, dim=-1).values
+            sure = top2[:, 0] - top2[:, 1] > 2 * margin_tol
+            same = got.argmax(-1) == train.argmax(-1)
+            agree = bool(same[sure].all())
+            print(f"  [moe] {cfg.name} f32 teacher-forced decode vs the "
+                  f"training forward: max |diff| {err_tf:.4e} (rtol, atol "
+                  f"{D_TOL}; logit scale {scale_tf:.3f}): within={ok}; argmax "
+                  f"agrees on {int(same.sum())} of {bsz} rows, on the "
+                  f"{int(sure.sum())} rows past 2 x tol: {agree}", flush=True)
+            if not (ok and agree):
+                raise AssertionError("moe f32 serve: prefill + decode "
+                                     "disagree with the training forward")
+        cmp = {"pre": pre, "pre_plain": pre_plain, "routes": routes,
+               "plain_own": plain_own, "decode": got, "train": train,
+               "full": full}
+        del dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kernels.reset_launch_counts()
+    with route_log(light=True) as log:
+        res = serve(cfg, batch_size=bsz, prompt_len=prompt, steps=steps,
+                    max_len=max_len, device=device, params=params, lora=lora,
+                    **({} if low else {"dtype": torch.float32,
+                                       "cache_dtype": torch.float32}))
+    launches = kernels.launch_counts()
+    bf16 = kernels.bf16_launch_counts()
+    tc = tc_launch_counts(kernels)
+    calls, wide = log.b3_calls(torch, cfg)
+    _moe_expect(kernels, f"{cfg.name} {dt} serve() (1 prefill + {steps} "
+                "decode steps)", 4 * L * (1 + steps) + calls, L, dt,
+                tc={"lora_matmul": 4 * L + wide,
+                    "lora_matmul_decode": 4 * L * steps + calls - wide,
+                    "flash_swa": L})
+    toks = res.tokens
+    if toks.shape != (bsz, steps + 1) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"moe serve: bad tokens {toks.shape}")
+    stats = {"prefill_ms": res.prefill_ms,
+             "decode_ms_per_token": res.ms_per_token,
+             "decode_tokens_per_s": bsz * steps / (res.decode_ms / 1e3),
+             "prefill_tokens_per_s": bsz * prompt / (res.prefill_ms / 1e3),
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "err_teacher_forced": err_tf, "err_kernel_vs_plain": err_kp,
+             "router_ties": ties, "plain_flips": plain_flips["flips"],
+             "tf_flips": tf_flips["flips"],
+             "b3_expert_calls_serve": calls,
+             "seconds": time.perf_counter() - t0}
+    print(f"  [moe] {cfg.name} {dt} batch {bsz}, prompt {prompt}, {steps} "
+          f"decode steps, cache of {max_len}: prefill {res.prefill_ms:.1f} ms "
+          f"({stats['prefill_tokens_per_s']:.0f} tokens/s), decode "
+          f"{res.ms_per_token:.2f} ms/token "
+          f"({stats['decode_tokens_per_s']:.1f} tokens/s over the batch), peak {stats['peak_gib']:.2f} GiB; "
+          f"B3 on expert groups {calls} of {launches['lora_matmul']}; "
+          f"{stats['seconds']:.1f} s; first row {toks[0, :8].tolist()}",
+          flush=True)
+    return stats, launches, bf16, tc, cmp
+
+
+def moe_f32_answer(torch, cfg, params, lora, lcfg, tokens, replay):
+    """The f32 training forward over ``tokens`` (B, S) and ``params``
+    (bf16), widened one layer at a time (the whole tree in f32 would not fit
+    beside it), the routing ``replay``ed (:class:`route_log`): the logits
+    at the last two positions (the prompt's last, for the prefill; the
+    next token's, for the decode step) and the log."""
+    from dataclasses import replace
+
+    from repro_torch.models import transformer
+    from repro_torch.models.common import apply_norm, embed, unembed
+
+    f32 = replace(cfg, dtype="float32")
+
+    def wide(tree):
+        return _unflat({k: v.float() for k, v in _flat(tree).items()})
+
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    with torch.inference_mode(), route_log(replay=replay) as log:
+        x = embed(wide(params["embed"]), tokens)
+        for i in range(cfg.num_layers):
+            p = wide(transformer._layer_slice(params["layers"], i))
+            x, _ = transformer.decoder_layer(
+                f32, p, x, lora=transformer._layer_slice(lora["layers"], i),
+                lora_scale=lcfg.scale, positions=positions,
+                window=cfg.sliding_window, cache=None, position=None)
+            del p
+        x = apply_norm(cfg.norm, wide(params["final_norm"]), x[:, -2:])
+        logits = unembed(wide(params["lm_head"]), x)
+    return logits, log
+
+
+def moe_bf16(torch, kernels, device, scale):
+    """The bf16 serve at the bf16 depth cut from fresh draws (the port's
+    own bf16 params, a rank-4 f32 adapter with per-expert adapters and b
+    drawn N(0, 0.05²)) through :func:`moe_serve`, then the f32 answer over
+    the same weights and prompt + 1 tokens (:func:`moe_f32_answer`, the
+    serve runs' routing replayed). Held as phase 9 holds its bf16 serves:
+    the kernel path's prefill logits no further from the f32 answer than
+    twice the bf16 plain path's plus one bf16 rounding at the logit scale
+    (2⁻⁸·max|f32 logit|), and from the plain path's no further than three
+    times that distance plus the same floor; teacher forcing likewise, the
+    decode step's logits no further from the f32 answer than twice the
+    bf16 training forward's plus the floor, the argmax agreeing with it on
+    every row whose f32 top-2 margin exceeds twice that bound; the routing
+    likewise, the kernel path's expert sets apart from the plain path's on
+    no more than twice the token-layers the plain path's are apart from the
+    f32 answer's. Returns (stats, launches, bf16 launches, tensor-core
+    launches)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import init_lora
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = replace(get_config(MOE), num_layers=MOE_DEPTH["bfloat16"])
+    if cfg.dtype != "bfloat16":
+        raise AssertionError(f"{MOE}: config dtype {cfg.dtype}")
+    lcfg = LoRAConfig(rank=4, alpha=4 * scale, lora_experts=True)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    with torch.inference_mode():
+        params = build_model(cfg).init(gen, device)
+        lora = init_lora(gen, params, cfg, lcfg)
+        for k, leaf in _flat(lora).items():
+            if k.endswith("/b"):
+                leaf.normal_(0.0, 0.05, generator=gen)
+    torch.cuda.synchronize()
+    print(f"  [moe] {cfg.name} bf16 at depth {cfg.num_layers} (a cut of 56): "
+          f"params and adapter on the card in {time.perf_counter() - t0:.1f}"
+          " s", flush=True)
+    stats, launches, bf16, tc, cmp = moe_serve(torch, kernels, device, cfg,
+                                               params, lora, lcfg)
+    f32, log = moe_f32_answer(torch, cfg, params, lora, lcfg, cmp["full"],
+                              cmp["routes"])
+    torch.cuda.synchronize()
+    f32_flips = _held_flips(log, "bfloat16", "f32 answer (bf16 weights "
+                            "widened)")
+    bsz = cmp["full"].shape[0]
+    prompt_own = [x.view(bsz, -1, x.shape[-1])[:, :-1].flatten(0, 1)
+                  for x in log.own]
+    n_kp = _set_flips([x.view(bsz, -1, x.shape[-1])[:, :-1].flatten(0, 1)
+                       for x in cmp["routes"]], cmp["plain_own"])
+    n_pf = _set_flips(cmp["plain_own"], prompt_own)
+    print(f"  [moe] bf16 prefill routing: the kernel path's expert sets "
+          f"differ from the plain path's on {n_kp} token-layers, the plain "
+          f"path's from the f32 answer's on {n_pf} (limit 2 x that): "
+          f"ok={n_kp <= 2 * n_pf}", flush=True)
+    if n_kp > 2 * n_pf:
+        raise AssertionError("moe bf16 serve: the kernel path routes further "
+                             "from the plain path than bf16 from f32")
+    pre32, next32 = f32[:, 0], f32[:, 1]
+    pre, pre_plain = cmp["pre"][:, -1], cmp["pre_plain"][:, -1]
+    floor = 2.0 ** -8 * float(pre32.abs().max())
+    err_k = float((pre - pre32).abs().max())
+    err_p = float((pre_plain - pre32).abs().max())
+    err_kp = float((pre - pre_plain).abs().max())
+    ok = err_k <= 2 * err_p + floor and err_kp <= 3 * err_p + floor
+    print(f"  [moe] bf16 prefill last-position logits: kernel path vs f32 "
+          f"{err_k:.4e}, bf16 plain path vs f32 {err_p:.4e} (bound 2 x that "
+          f"+ {floor:.4e} = {2 * err_p + floor:.4e}), kernel vs plain path "
+          f"{err_kp:.4e} (bound {3 * err_p + floor:.4e}); logit scale "
+          f"{float(pre32.abs().max()):.3f}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("moe bf16 serve: the kernel path's logits are "
+                             "further from the f32 answer than allowed")
+    floor = 2.0 ** -8 * float(next32.abs().max())
+    err_d = float((cmp["decode"] - next32).abs().max())
+    err_t = float((cmp["train"] - next32).abs().max())
+    bound = 2 * err_t + floor
+    top2 = torch.topk(next32, 2, dim=-1).values
+    sure = top2[:, 0] - top2[:, 1] > 2 * bound
+    same = cmp["decode"].argmax(-1) == next32.argmax(-1)
+    agree = bool(same[sure].all())
+    ok = err_d <= bound and agree
+    print(f"  [moe] bf16 teacher forcing: the decode step vs the f32 answer "
+          f"{err_d:.4e}, the bf16 training forward vs it {err_t:.4e} (bound "
+          f"2 x that + {floor:.4e} = {bound:.4e}); argmax agrees with f32 on "
+          f"{int(same.sum())} of {bsz} rows, on the {int(sure.sum())} rows "
+          f"past 2 x bound: {agree}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("moe bf16 serve: the decode step is further from "
+                             "the f32 answer than allowed")
+    stats.update(err_vs_f32=err_k, err_plain_vs_f32=err_p,
+                 err_decode_vs_f32=err_d, err_train_vs_f32=err_t,
+                 f32_flips=f32_flips["flips"], flips_kernel_plain=n_kp,
+                 flips_plain_f32=n_pf,
+                 seconds=time.perf_counter() - t0,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del params, lora, cmp, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, launches, bf16, tc
+
+
+def moe_phase(torch, kernels, device):
+    """Phase 10: mixtral-8x22b at full width. The kernels at its shapes
+    (:func:`moe_kernel_phase`); training at the f32 depth cut
+    (:func:`moe_train`, after one layer against the dense oracle) and the
+    f32 serve of its folded W0 and global adapter (:func:`moe_serve`); that
+    state freed, the bf16 serve at the bf16 depth cut (:func:`moe_bf16`).
+    Returns (max errors of the f32 cases, of the bf16 cases, timings,
+    launches, bf16 launches, stats)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import LoRAConfig, get_config
+
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = replace(get_config(MOE), num_layers=MOE_DEPTH["float32"],
+                  dtype="float32")
+    r, scale = 4, 2.0
+    errs, bf16_errs, timings = moe_kernel_phase(torch, kernels, device, cfg,
+                                                r=r, scale=scale)
+    stats = {"kernels_s": time.perf_counter() - t,
+             "kernels_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    launches = {name: 0 for name in SOURCES}
+    t1 = time.perf_counter()
+    trainer, stats["train"], got = moe_train(torch, kernels, device, cfg,
+                                             scale)
+    for k, v in got.items():
+        launches[k] += v
+    served, got, *_ = moe_serve(
+        torch, kernels, device, cfg, trainer.params, trainer.global_lora,
+        LoRAConfig(rank=r, alpha=8.0, lora_experts=True))
+    for k, v in got.items():
+        launches[k] += v
+    stats["f32"] = dict(served, seconds=time.perf_counter() - t1)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["bf16"], got, bf16, tc = moe_bf16(torch, kernels, device, scale)
+    for k, v in got.items():
+        launches[k] += v
+    bf16 = dict(bf16, **{f"{k}_tc": v for k, v in tc.items()})
+    stats["seconds"] = time.perf_counter() - t
+    print(f"  [moe] phase 10 in {stats['seconds']:.1f} s; peak memory: "
+          f"kernels {stats['kernels_peak_gib']:.2f} GiB, f32 training "
+          f"{stats['train']['train_peak_gib']:.2f} GiB, f32 serve "
+          f"{stats['f32']['peak_gib']:.2f} GiB, bf16 serve "
+          f"{stats['bf16']['peak_gib']:.2f} GiB", flush=True)
+    return errs, bf16_errs, timings, launches, bf16, stats
+
+
+# --------------------------------------------------------------------------
 
 SOURCES = {  # kernel → (CUDA source, the TPU kernel it replaces)
     "fedex_fold": ("src/repro_torch/kernels/csrc/fedex_fold.cu",
@@ -5358,6 +6226,34 @@ def bf16_main() -> int:
     return 0
 
 
+def moe_main() -> int:
+    """``--moe``: phase 10 alone (:func:`moe_phase`) on this checkout's
+    port, after the build, its stats as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch import kernels
+    from repro_torch.kernels import build as kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi_line(), flush=True)
+    build_kernels(kbuild, "[moe]")
+    errs, bf16_errs, timings, launches, bf16, stats = moe_phase(
+        torch, kernels, torch.device("cuda", 0))
+    fields = {}
+    for key, t in timings.items():
+        fields.update(timing_fields(key, t))
+    print(smi_line(), flush=True)
+    print(json.dumps({"moe": stats, "launches": launches,
+                      "bf16_launches": bf16, "max_abs_err": errs,
+                      "bf16_max_abs_err": bf16_errs, "timings": fields}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -5377,6 +6273,8 @@ def main() -> int:
         return zoo_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--bf16":
         return bf16_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--moe":
+        return moe_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--fold-check":
         return fold_check_main()
     if not torch.cuda.is_available():
@@ -5398,7 +6296,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
-    print(f"[1/10] environment: python {sys.version.split()[0]}, torch "
+    print(f"[1/11] environment: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
@@ -5409,11 +6307,11 @@ def main() -> int:
           flush=True)
     print(smi, flush=True)
 
-    build_kernels(kbuild, "[2/10]")
+    build_kernels(kbuild, "[2/11]")
 
     cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
     c, r, scale = 4, 4, 8.0 / 4
-    print(f"[3/10] kernels vs plain versions (C={c}, r={r}, scale={scale})",
+    print(f"[3/11] kernels vs plain versions (C={c}, r={r}, scale={scale})",
           flush=True)
     errs, timings = kernel_phase(torch, kernels, device, cfg, c=c, r=r,
                                  scale=scale)
@@ -5437,7 +6335,7 @@ def main() -> int:
     print(f"  launch path: {json.dumps(cost)}", flush=True)
     torch.cuda.empty_cache()
 
-    print(f"[4/10] main paths: FederatedTrainer at {cfg.name} full width "
+    print(f"[4/11] main paths: FederatedTrainer at {cfg.name} full width "
           f"({cfg.num_layers} layers, d={cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}); {', '.join(GPT2_PATHS)} at "
           f"{gcfg.name} ({gcfg.num_layers} layers, d={gcfg.d_model}, vocab "
@@ -5467,24 +6365,24 @@ def main() -> int:
           flush=True)
     serve_stats = {}
     for scfg in (cfg, gcfg):
-        print(f"[5/10] serving: {scfg.name} at full width, prefill + KV-cache "
+        print(f"[5/11] serving: {scfg.name} at full width, prefill + KV-cache "
               "greedy decode with a LoRA adapter", flush=True)
         serve_stats[scfg.name], serve_launches = serve_phase(
             torch, kernels, device, scfg)
         for k in ("lora_matmul", "flash_swa"):
             launches[k] += serve_launches[k]
-    print(f"[6/10] obs and the HTTP federation service at {cfg.name} full "
+    print(f"[6/11] obs and the HTTP federation service at {cfg.name} full "
           "width: fedex+obs, serve-http, pull-serve, serve-http-hetero",
           flush=True)
     obs_launches, obs_stats = obs_http_phase(torch, kernels, device, cfg)
     for k, v in obs_launches.items():
         launches[k] += v
-    print(f"[7/10] mesh mode at {cfg.name} full width: "
+    print(f"[7/11] mesh mode at {cfg.name} full width: "
           f"{', '.join(MESH_PATHS)}", flush=True)
     mesh_launches, mesh_stats = mesh_phase(torch, kernels, device, cfg)
     for k, v in mesh_launches.items():
         launches[k] += v
-    print(f"[8/10] the rest of the dense zoo at full width: "
+    print(f"[8/11] the rest of the dense zoo at full width: "
           f"{', '.join(ZOO)}, each trained and served", flush=True)
     zoo_errs, zoo_timings, zoo_launches, zoo_stats = zoo_phase(
         torch, kernels, device)
@@ -5492,12 +6390,21 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in zoo_launches.items():
         launches[k] += v
-    print(f"[9/10] serving in bf16, the reference's default dtype: B3 and B8 "
+    print(f"[9/11] serving in bf16, the reference's default dtype: B3 and B8 "
           f"in bf16, then {', '.join(BF16_SERVE)} served at full width and "
           "depth", flush=True)
     bf16_errs, bf16_timings, bf16_main_launches, bf16_launches, bf16_stats = \
         bf16_phase(torch, kernels, device)
     for k, v in bf16_main_launches.items():
+        launches[k] += v
+    print(f"[10/11] the MoE family: {MOE} at full width, trained and served "
+          f"in f32 at depth {MOE_DEPTH['float32']} and served in bf16 at "
+          f"depth {MOE_DEPTH['bfloat16']} (cuts of 56)", flush=True)
+    (moe_errs, moe_bf16_errs, moe_timings, moe_launches, moe_bf16,
+     moe_stats) = moe_phase(torch, kernels, device)
+    for k, v in moe_errs.items():
+        errs[k] = max(errs[k], v)
+    for k, v in moe_launches.items():
         launches[k] += v
     main_body = {**timings["weighted-partial"], **lane_timings,
                  "lora_matmul": serve_timings["lora_matmul[prefill]"],
@@ -5581,6 +6488,26 @@ def main() -> int:
             bf16_launches[f"{name}_tc"]
     out[list(SOURCES).index("lora_matmul")]["bf16_tc_decode_launches"] = \
         bf16_launches["lora_matmul_decode_tc"]
+    # mixtral-8x22b's shapes (phase 10): B1 at the up-proj expert leaf, B2
+    # over a close's 14 stacks, B3 at one layer's q/k/v/o in bf16 (prefill
+    # and decode) and at the expert projections, B8 at the prefill in f32
+    # and bf16; the bf16 and tensor-core launches of its bf16 serve() run
+    for name, key, t in (
+            ("fedex_fold", "mixtral", moe_timings["fedex_fold"]),
+            ("factor_mean", "mixtral", moe_timings["factor_mean"]),
+            *(("lora_matmul", key, moe_timings[key]) for key in (
+                "mixtral_bf16", "mixtral_bf16_decode", "mixtral_expert",
+                "mixtral_expert_bf16", "mixtral_expert_bf16_decode")),
+            ("flash_swa", "mixtral", moe_timings["flash_mixtral"]),
+            ("flash_swa", "mixtral_bf16", moe_timings["flash_mixtral_bf16"])):
+        out[list(SOURCES).index(name)].update(timing_fields(key, t))
+    for name in ("lora_matmul", "flash_swa"):
+        out[list(SOURCES).index(name)].update({
+            "mixtral_bf16_launches": moe_bf16[name],
+            "mixtral_bf16_tc_launches": moe_bf16[f"{name}_tc"],
+            "mixtral_bf16_max_abs_err": moe_bf16_errs[name]})
+    out[list(SOURCES).index("lora_matmul")][
+        "mixtral_bf16_tc_decode_launches"] = moe_bf16["lora_matmul_decode_tc"]
     # B5 beside its old body (product_fold in place), and at the chunk of
     # 64 uplinks at r = 8 that docs/benchmarks.md documents
     ms, _, lib_ms, (bms, by), *_ = lane_timings["product_accum[C64r8]"]
@@ -5589,12 +6516,14 @@ def main() -> int:
         "C64r8_prior_ms": lane_prior["product_accum[C64r8]"],
         "C64r8_library_ms": lib_ms, "C64r8_bound_ms": bms,
         "C64r8_bound_by": by})
-    print(f"[10/10] done in {time.perf_counter() - t_start:.1f} s; identity max "
+    print(f"[11/11] done in {time.perf_counter() - t_start:.1f} s; identity "
+          "max "
           f"err per path {json.dumps(identities)}; resume "
           f"{json.dumps(resume)}; serving "
           f"{json.dumps(serve_stats)}; obs and http "
           f"{json.dumps(obs_stats)}; mesh {json.dumps(mesh_stats)}; zoo "
-          f"{json.dumps(zoo_stats)}; bf16 {json.dumps(bf16_stats)}; rounds "
+          f"{json.dumps(zoo_stats)}; bf16 {json.dumps(bf16_stats)}; moe "
+          f"{json.dumps(moe_stats)}; rounds "
           + json.dumps([{k: v for k, v in row.items()
                          if k != "client_losses"} for row in all_rows]),
           flush=True)

@@ -1,14 +1,15 @@
-"""Config registry of the port: the paper's own models and every dense
-model of the reference's registry.
+"""Config registry of the port: the paper's own models, every dense
+model of the reference's registry and its first MoE model.
 
 ``get_config(name)`` covers ``paper-tiny``, ``paper-gpt2``,
-``paper-llama3.2-3b``, ``qwen2.5-3b``, ``granite-8b``, ``starcoder2-15b``
-and ``gemma3-12b`` (``<name>-smoke`` gives the reduced variant), with the
-reference's dataclasses copied in :mod:`repro_torch.configs.base`.
+``paper-llama3.2-3b``, ``qwen2.5-3b``, ``granite-8b``, ``starcoder2-15b``,
+``gemma3-12b`` and ``mixtral-8x22b`` (``<name>-smoke`` gives the reduced
+variant), with the reference's dataclasses copied in
+:mod:`repro_torch.configs.base`.
 """
 
-from repro_torch.configs import (gemma3_12b, granite_8b, paper_models,
-                                 qwen2_5_3b, starcoder2_15b)
+from repro_torch.configs import (gemma3_12b, granite_8b, mixtral_8x22b,
+                                 paper_models, qwen2_5_3b, starcoder2_15b)
 from repro_torch.configs.base import (FedConfig, LoRAConfig, ModelConfig,
                                       ServeConfig, TrainConfig, config_dict,
                                       validate_fed_lora)
@@ -16,6 +17,7 @@ from repro_torch.configs.base import (FedConfig, LoRAConfig, ModelConfig,
 CONFIGS = {
     "gemma3-12b": gemma3_12b.CONFIG,
     "granite-8b": granite_8b.CONFIG,
+    "mixtral-8x22b": mixtral_8x22b.CONFIG,
     "paper-gpt2": paper_models.GPT2_SMALL,
     "paper-llama3.2-3b": paper_models.LLAMA32_3B,
     "paper-tiny": paper_models.TINY,

@@ -266,8 +266,9 @@ def per_client_residuals(client_loras: List[Params],
 
 
 def apply_residual(params: Params, residual: Params, scale: float) -> Params:
-    """W0 ← W0 + scale·ΔW_res at every adapted kernel (Eq. 14); functional
-    (new W0 tensors, ``params`` untouched)."""
+    """W0 ← W0 + scale·ΔW_res at every adapted kernel, and at every adapted
+    raw tensor (MoE experts) (Eq. 14); functional (new W0 tensors,
+    ``params`` untouched)."""
 
     def walk(p: Any, r: Any) -> Any:
         if r is None or not isinstance(p, dict):
@@ -277,9 +278,11 @@ def apply_residual(params: Params, residual: Params, scale: float) -> Params:
             if key not in p:
                 continue
             pv = p[key]
-            if isinstance(rv, torch.Tensor):
+            if isinstance(rv, torch.Tensor) and isinstance(pv, dict):
                 out[key] = dict(pv, kernel=(pv["kernel"].float() + scale * rv
                                             ).to(pv["kernel"].dtype))
+            elif isinstance(rv, torch.Tensor):  # a raw expert tensor
+                out[key] = (pv.float() + scale * rv).to(pv.dtype)
             elif isinstance(rv, dict):
                 out[key] = walk(pv, rv)
         return out

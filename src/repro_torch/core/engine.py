@@ -142,12 +142,16 @@ class DeferredDivergence:
 
 class FactorSpec:
     """One adapted matrix: the lora factor node at ``key`` and the W0 leaf
-    ``{key}/kernel`` it updates. Leading axes before the trailing (m, n) are
-    stacked layers."""
+    it updates, at the same path in params: ``{key}/kernel`` for a
+    projection module (``has_kernel``), the raw tensor ``{key}`` for a MoE
+    expert stack. Leading axes before the trailing (m, n) are stacked layers
+    (and experts)."""
 
-    def __init__(self, key: str, w0_shape: Tuple[int, ...], w0_dtype,
-                 a_shape: Tuple[int, ...], b_shape: Tuple[int, ...]):
+    def __init__(self, key: str, has_kernel: bool, w0_shape: Tuple[int, ...],
+                 w0_dtype, a_shape: Tuple[int, ...],
+                 b_shape: Tuple[int, ...]):
         self.key = key
+        self.has_kernel = has_kernel
         self.w0_shape = w0_shape
         self.w0_dtype = w0_dtype
         self.a_shape = a_shape
@@ -160,13 +164,11 @@ def build_factor_specs(params: Params, lora: Params) -> List[FactorSpec]:
 
     def walk(prefix: List[str], p: Any, l: Any) -> None:
         if isinstance(l, dict) and set(l.keys()) >= {"a", "b"}:
-            if not (isinstance(p, dict) and "kernel" in p):
-                raise NotImplementedError(
-                    f"{'/'.join(prefix)}: adapters on raw tensors (MoE "
-                    "experts) are not ported")
-            w0 = p["kernel"]
-            specs.append(FactorSpec("/".join(prefix), tuple(w0.shape),
-                                    w0.dtype, tuple(l["a"].shape),
+            has_kernel = isinstance(p, dict) and "kernel" in p
+            w0 = p["kernel"] if has_kernel else p
+            specs.append(FactorSpec("/".join(prefix), has_kernel,
+                                    tuple(w0.shape), w0.dtype,
+                                    tuple(l["a"].shape),
                                     tuple(l["b"].shape)))
             return
         if isinstance(l, dict):
@@ -199,10 +201,17 @@ def _set_path(tree: Params, path: str, value: Any) -> Params:
     return out
 
 
+def w0_leaf(spec: FactorSpec, params: Params) -> torch.Tensor:
+    """The W0 leaf ``spec`` adapts: the module's ``kernel`` child, or the
+    raw expert tensor."""
+    node = _get_path(params, spec.key)
+    return node["kernel"] if spec.has_kernel else node
+
+
 def collect_w0_leaves(specs: Sequence[FactorSpec],
                       params: Params) -> Dict[str, torch.Tensor]:
-    """key → the adapted W0 leaf (the ``kernel`` child of the module)."""
-    return {s.key: _get_path(params, s.key)["kernel"] for s in specs}
+    """key → the adapted W0 leaf (:func:`w0_leaf`)."""
+    return {s.key: w0_leaf(s, params) for s in specs}
 
 
 def fold_back_w0(specs: Sequence[FactorSpec], params: Params,
@@ -211,7 +220,8 @@ def fold_back_w0(specs: Sequence[FactorSpec], params: Params,
     Inverse of :func:`collect_w0_leaves`."""
     new_params = params
     for s in specs:
-        node = dict(_get_path(params, s.key), kernel=new_w0[s.key])
+        node = (dict(_get_path(params, s.key), kernel=new_w0[s.key])
+                if s.has_kernel else new_w0[s.key])
         new_params = _set_path(new_params, s.key, node)
     return new_params
 
@@ -902,15 +912,35 @@ def _fold_lanes(fold, lanes: List[Optional[torch.Tensor]], dtype
     return [None if x is None else x.to(dtype) for x in res]
 
 
-def _uniform_close(specs, scale, w0_leaves, stacks, c_max):
-    """Full-participation uniform close: literally the aggregation
-    operators over the stack lanes."""
-    client_trees = _slice_client_trees(specs, stacks, c_max)
-    g = agg.fedit_aggregate(client_trees)
-    res = agg.fedex_residual(client_trees, g)
-    new_w0 = {s.key: (w0_leaves[s.key].float() + scale * res[s.key]
-                      ).to(s.w0_dtype) for s in specs}
-    glob = {s.key: g[s.key] for s in specs}
+def _uniform_close(specs, scale, w0_leaves, stacks, c_max, *,
+                   in_place: bool):
+    """Full-participation uniform close: the aggregation operators' ops
+    over the stack lanes (``fedit_aggregate``, then ``fedex_residual``'s
+    Σ_c a_c b_c / C − ā b̄ and ``apply_residual``'s W0 + s·residual), in
+    the same order with the same roundings, so bitwise their composition;
+    one leaf at a time, the residual accumulated in place, so that at most
+    two dense (m, n) f32 temporaries of one leaf are alive (a mixtral
+    expert leaf's is 12.9 GB). With ``in_place`` (the kernel backend) the
+    fold is written into W0's own storage where W0 is float32 and
+    contiguous, as the kernel closes write theirs."""
+    new_w0, glob = {}, {}
+    for s in specs:
+        a, b = stacks[s.key + "/a"], stacks[s.key + "/b"]
+        g = agg.fedit_aggregate([{s.key: {"a": a[c], "b": b[c]}}
+                                 for c in range(c_max)])[s.key]
+        acc = torch.zeros(s.w0_shape, dtype=torch.float32, device=a.device)
+        for c in range(c_max):
+            acc.add_(torch.matmul(a[c].float(), b[c].float()))
+        acc.div_(c_max)
+        acc.sub_(torch.matmul(g["a"].float(), g["b"].float()))
+        acc.mul_(scale)
+        w0 = w0_leaves[s.key]
+        if in_place and w0.dtype == torch.float32 and w0.is_contiguous():
+            new_w0[s.key] = w0.add_(acc)
+        else:
+            new_w0[s.key] = (w0.float() + acc).to(s.w0_dtype)
+        del acc
+        glob[s.key] = g
     return new_w0, glob
 
 
@@ -1129,7 +1159,7 @@ def make_close_fn(specs: Sequence[FactorSpec], *, scale: float, c_max: int,
         if method == "fedex":
             if uniform:
                 new_w0, glob = _uniform_close(specs, scale, w0_leaves,
-                                              stacks, c_max)
+                                              stacks, c_max, in_place=kernels)
             else:
                 new_w0, glob = _weighted_close(specs, scale, w0_leaves,
                                                stacks, weights,
@@ -1215,7 +1245,7 @@ class RoundCloseEngine:
         self.scale = scale
         self.method = method
         self.svd_rank = svd_rank
-        device = _get_path(params, self.specs[0].key)["kernel"].device
+        device = w0_leaf(self.specs[0], params).device
         self.device = device
         self.backend = _resolve_backend(backend, device)
         self.chunk = int(chunk)
@@ -1416,8 +1446,7 @@ class RoundCloseEngine:
         lane_to_cid = {lane: cid for cid, lane in lanes.items()
                        if cid in delivered}
         return {s.key: [None if lane not in lane_to_cid else
-                        _get_path(client_params[lane_to_cid[lane]],
-                                  s.key)["kernel"]
+                        w0_leaf(s, client_params[lane_to_cid[lane]])
                         for lane in range(self.c_max)]
                 for s in self.specs}
 
@@ -1823,7 +1852,7 @@ class RoundCloseEngine:
                     own = torch.matmul(stacks[s.key + "/a"][row],
                                        stacks[s.key + "/b"][row])
                 torch.sub(ideal[s.key], own, out=own)
-                w0 = _get_path(client_params[cid], s.key)["kernel"]
+                w0 = w0_leaf(s, client_params[cid])
                 new_lanes[s.key][lane] = _fold_update(w0, own, self.scale,
                                                       s.w0_dtype, in_place)
                 del own

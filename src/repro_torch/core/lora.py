@@ -3,7 +3,10 @@
 Counterpart of ``repro/core/lora.py`` (same layout: ``a: (..., d_in, r)``,
 ``b: (..., r, d_out)``, ``ΔW = a @ b``; ``a`` ~ N(0, 0.02²), ``b`` = 0, so
 the adapter starts as a no-op). The adapter tree mirrors the parameter tree
-at the target projections, stacked layer axis included. ``init_lora`` makes
+at the target projections, stacked layer axis included; with
+``lora_experts`` also on every raw ≥ 3-D tensor under a MoE layer's
+``experts`` (``{a: (L, E, d_in, r), b: (L, E, r, d_out)}``; ``include_mlp``
+adapts only projection modules, never those). ``init_lora`` makes
 the port's own draws from a ``torch.Generator``; the parity tests carry the
 reference's draws across with :mod:`repro_torch.bridge` instead.
 """
@@ -44,8 +47,6 @@ def resolve_targets(cfg: ModelConfig, lora_cfg: LoRAConfig) -> Tuple[str, ...]:
 def init_lora(gen: torch.Generator, params: Params, cfg: ModelConfig,
               lora_cfg: LoRAConfig) -> Params:
     """Build the adapter tree mirroring ``params`` at target projections."""
-    if lora_cfg.lora_experts:
-        raise NotImplementedError("per-expert adapters are not ported")
     targets = set(resolve_targets(cfg, lora_cfg))
     r = lora_cfg.rank
 
@@ -66,6 +67,12 @@ def init_lora(gen: torch.Generator, params: Params, cfg: ModelConfig,
             if key in targets and isinstance(child, dict) and "kernel" in child:
                 if child["kernel"].ndim >= 2:
                     out[key] = make_factor(child["kernel"])
+            elif (key == "experts" and lora_cfg.lora_experts
+                  and isinstance(child, dict)):
+                sub = {ek: make_factor(ev) for ek, ev in child.items()
+                       if isinstance(ev, torch.Tensor) and ev.ndim >= 3}
+                if sub:
+                    out[key] = sub
             elif isinstance(child, dict):
                 sub = walk(child)
                 if sub:
@@ -76,7 +83,8 @@ def init_lora(gen: torch.Generator, params: Params, cfg: ModelConfig,
 
 
 def merge_lora(params: Params, lora: Params, scale: float) -> Params:
-    """Fold adapters into kernels: W ← W + scale·(a @ b). For eval/export."""
+    """Fold adapters into kernels (and raw expert tensors): W ← W +
+    scale·(a @ b). For eval/export."""
 
     def walk(p: Any, l: Any) -> Any:
         if l is None or not isinstance(p, dict):
@@ -88,8 +96,11 @@ def merge_lora(params: Params, lora: Params, scale: float) -> Params:
             pv = p[key]
             if isinstance(lv, dict) and "a" in lv and "b" in lv:
                 delta = scale * torch.matmul(lv["a"], lv["b"])
-                out[key] = dict(pv, kernel=(pv["kernel"].float() + delta
-                                            ).to(pv["kernel"].dtype))
+                if isinstance(pv, dict):
+                    out[key] = dict(pv, kernel=(pv["kernel"].float() + delta
+                                                ).to(pv["kernel"].dtype))
+                else:  # a raw expert tensor
+                    out[key] = (pv.float() + delta).to(pv.dtype)
             elif isinstance(lv, dict):
                 out[key] = walk(pv, lv)
         return out

@@ -244,14 +244,21 @@ RING_DEPTH, RETRIES, EVERY = (
     for k in ("ring_depth", "uplink_retries", "checkpoint_every"))
 
 
-def check_mesh_supported(fed: FedConfig) -> None:
-    """Raise ``ValueError`` for a setting mesh mode cannot honour (the
+def check_mesh_supported(fed: FedConfig, cfg=None) -> None:
+    """Raise ``NotImplementedError`` for a MoE model config ``cfg``, named:
+    the reference maps each lane's loss, router aux loss included, over the
+    lanes, where the port's one folded forward would pool the aux. Raise
+    ``ValueError`` for a setting mesh mode cannot honour (the
     reference warns and ignores them): the host-orchestrated methods, the
     coordinator's and the transport's settings, DP, client ranks, the
     engine's tuning, checkpoints, fault kinds outside
     :data:`~repro_torch.fedsrv.faults.MESH_KINDS` (co-scheduled lanes cross
     no wire), and a norm ceiling without a fault plan (the reference screens
     the lanes only under a plan)."""
+    if cfg is not None and cfg.family == "moe":
+        raise NotImplementedError(
+            f"--mode mesh does not run the MoE config {cfg.name!r} (each "
+            "lane's router aux loss; host mode trains it)")
     if fed.method not in MESH_METHODS:
         raise ValueError(f"--mode mesh supports {MESH_METHODS}, "
                          f"got method={fed.method!r}")
@@ -317,7 +324,7 @@ class MeshFederatedTrainer:
 
     def __post_init__(self):
         fc = self.fed_cfg
-        check_mesh_supported(fc)
+        check_mesh_supported(fc, self.model.cfg)
         validate_fed_lora(fc, self.lora_cfg)
         self.device = resolve_device(self.device)
         if self.recorder is None:

@@ -29,6 +29,8 @@ must match the server's).
       --arch gemma3-12b-smoke --batch-size 2 --prompt-len 128 --steps 8 \\
       --max-len 160
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch mixtral-8x22b-smoke --batch-size 2 --prompt-len 32 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch paper-tiny --pull-from http://127.0.0.1:8077
 """
 
@@ -42,7 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import LoRAConfig, get_config
+from repro_torch.configs import LoRAConfig, ModelConfig, get_config
 from repro_torch.core.lora import init_lora
 from repro_torch.data import make_batch_for
 from repro_torch.fedsrv.client import FedClient
@@ -72,7 +74,7 @@ def _cast(tree: dict, dtype: torch.dtype) -> dict:
         for k, v in flatten_with_paths(tree).items()})
 
 
-def serve(arch: str, *, batch_size: int = 2, prompt_len: int = 32,
+def serve(arch, *, batch_size: int = 2, prompt_len: int = 32,
           steps: int = 8, max_len: int = 128, rank: int = 4,
           use_lora: bool = True, seed: int = 0, device="cuda",
           params: Optional[dict] = None,
@@ -88,9 +90,11 @@ def serve(arch: str, *, batch_size: int = 2, prompt_len: int = 32,
     ``pull_from`` (a federation server's URL) serves the global adapter
     pulled from it instead. The model runs in ``dtype`` (None: the
     config's own, bf16 as the reference's); ``params`` and the adapter,
-    given, drawn or pulled, are served cast to it."""
+    given, drawn or pulled, are served cast to it. ``arch`` is a
+    registered config's name, or a :class:`ModelConfig` itself (a config
+    cut in depth, say)."""
     dev = resolve_device(device)
-    cfg = get_config(arch)
+    cfg = arch if isinstance(arch, ModelConfig) else get_config(arch)
     if dtype is not None:
         names = {t: n for n, t in DTYPES.items()}
         if dtype not in names:
@@ -157,7 +161,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu must be asked for)")
     ap.add_argument("--arch", default="paper-tiny",
-                    help="a registered config of the port (dense family)")
+                    help="a registered config of the port (dense or MoE "
+                         "family)")
     ap.add_argument("--batch-size", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--steps", type=int, default=8)

@@ -11,10 +11,13 @@ from repro_torch.models.common import (Params, activation,
                                        make_dense_params, maybe_lora, project)
 
 
-def make_mlp_params(gen, cfg, dtype, device, lead=()) -> Params:
-    """Gated iff ``cfg.act == "silu"``; up/down carry biases iff
+def make_mlp_params(gen, cfg, dtype, device, lead=(), *, d_ff: int = 0,
+                    gated: Optional[bool] = None) -> Params:
+    """Hidden width ``d_ff`` (0: ``cfg.d_ff``); gated iff ``gated``, or
+    when it is None iff ``cfg.act == "silu"``; up/down carry biases iff
     ``cfg.qkv_bias`` and LayerNorm (the reference's conditions)."""
-    d, ff = cfg.d_model, cfg.d_ff
+    d, ff = cfg.d_model, d_ff or cfg.d_ff
+    gated = cfg.act == "silu" if gated is None else gated
     bias = cfg.qkv_bias and cfg.norm == "layernorm"
     p = {
         "up_proj": make_dense_params(gen, (*lead, d, ff), dtype, device,
@@ -22,7 +25,7 @@ def make_mlp_params(gen, cfg, dtype, device, lead=()) -> Params:
         "down_proj": make_dense_params(gen, (*lead, ff, d), dtype, device,
                                        bias=bias),
     }
-    if cfg.act == "silu":
+    if gated:
         p["gate_proj"] = make_dense_params(gen, (*lead, d, ff), dtype, device)
     return p
 

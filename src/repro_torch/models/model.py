@@ -1,8 +1,10 @@
-"""Model API: ``build_model(cfg) → Model`` (dense family).
+"""Model API: ``build_model(cfg) → Model`` (dense and MoE families).
 
 Counterpart of ``repro/models/model.py``: a namespace of functions closed
 over the config — ``init(gen, device) → params``, ``apply(params, batch,
-lora=…) → logits``, ``loss(params, batch, lora=…) → (scalar, metrics)``,
+lora=…) → logits`` (``with_aux=True``: ``(logits, aux)``, the reference's
+return), ``loss(params, batch, lora=…) → (scalar, metrics)`` (a MoE
+config's scalar is CE + the router aux loss, with ``metrics["aux_loss"]``),
 ``lane_loss(params, batch, lora=…) → (C,)`` for lane-stacked adapters
 (mesh mode), and for serving ``init_cache(batch_size, cache_len, dtype, device) →
 cache``,
@@ -43,23 +45,33 @@ def _stacked_axes(path: str) -> int:
                  if path.startswith(prefix)), 0)
 
 
-def build_model(cfg) -> Model:
+def build_model(cfg, moe_impl: str = "ragged") -> Model:
+    """``moe_impl``: a MoE config's expert path, ``"ragged"`` (grouped by
+    expert) or ``"dense"`` (every expert on every token, the oracle)."""
     transformer.check_supported(cfg)
+    moe = cfg.family == "moe"
 
     def init(gen, device):
         return transformer.make_params(gen, cfg, device)
 
-    def apply(params, batch, lora=None, lora_scale=0.0):
+    def apply(params, batch, lora=None, lora_scale=0.0, with_aux=False):
         return transformer.forward(cfg, params, batch["tokens"], lora=lora,
-                                   lora_scale=lora_scale)
+                                   lora_scale=lora_scale, moe_impl=moe_impl,
+                                   with_aux=with_aux)
 
     def loss(params, batch, lora=None, lora_scale=0.0):
-        logits = apply(params, batch, lora=lora, lora_scale=lora_scale)
+        out = apply(params, batch, lora=lora, lora_scale=lora_scale,
+                    with_aux=moe)
+        logits = out[0] if moe else out
         ce, metrics = cross_entropy(logits, batch["targets"],
                                     batch.get("loss_mask"))
         metrics = dict(metrics)
-        metrics["total_loss"] = ce
-        return ce, metrics
+        total = ce
+        if moe:
+            total = ce + out[1]
+            metrics["aux_loss"] = out[1]
+        metrics["total_loss"] = total
+        return total, metrics
 
     def lane_loss(params, batch, lora, lora_scale=0.0):
         """Each lane's mean loss, (C,), from one forward over the folded
@@ -67,7 +79,13 @@ def build_model(cfg) -> Model:
         (``(C, L, m, r)`` under ``layers``, ``(C, nper, ratio, m, r)`` and
         ``(C, nper, m, r)`` under ``periods/local`` and ``periods/global``,
         ``(C, m, r)`` elsewhere) and lane c owns batch rows
-        ``[c·B, (c+1)·B)``."""
+        ``[c·B, (c+1)·B)``. A MoE config is refused: the reference maps
+        the loss, its router aux loss included, over the lanes, and one
+        folded forward would pool the aux over all of them."""
+        if moe:
+            raise NotImplementedError(
+                f"config {cfg.name!r}: mesh mode (lane_loss) does not run "
+                "the MoE family (each lane needs its own router aux loss)")
         flat = flatten_with_paths(lora)
         c = next(iter(flat.values())).shape[0]
         # the lane axis goes behind the stacked layer axes, so that a layer
@@ -93,13 +111,14 @@ def build_model(cfg) -> Model:
     def prefill(params, batch, cache, lora=None, lora_scale=0.0):
         return transformer.forward(cfg, params, batch["tokens"], lora=lora,
                                    lora_scale=lora_scale, mode="prefill",
-                                   cache=cache)
+                                   cache=cache, moe_impl=moe_impl)
 
     def decode_step(params, tokens, cache, position, lora=None,
                     lora_scale=0.0):
         return transformer.forward(cfg, params, tokens, lora=lora,
                                    lora_scale=lora_scale, mode="decode",
-                                   cache=cache, position=position)
+                                   cache=cache, position=position,
+                                   moe_impl=moe_impl)
 
     return Model(cfg=cfg, init=init, apply=apply, loss=loss,
                  lane_loss=lane_loss, init_cache=init_cache, prefill=prefill,

@@ -1,8 +1,8 @@
-"""Decoder-only stack, dense family: ``make_params``, ``init_cache`` and
-``forward`` (train, prefill and decode).
+"""Decoder-only stack, dense and MoE families: ``make_params``,
+``init_cache`` and ``forward`` (train, prefill and decode).
 
-Counterpart of the dense branch of ``repro/models/transformer.py``. The
-parameter layout is the reference's: every per-layer leaf is stacked on a
+Counterpart of the dense and MoE branches of
+``repro/models/transformer.py``. The parameter layout is the reference's: every per-layer leaf is stacked on a
 leading layer axis (``layers/attn/q_proj/kernel`` is ``(L, d, h·hd)``), so a
 flattened port tree lines up one-to-one with the reference's. A config with
 ``local_global_ratio`` (gemma3) stacks its layers by period instead:
@@ -10,7 +10,11 @@ flattened port tree lines up one-to-one with the reference's. A config with
 ``(nper, …)``, nper = L // (ratio + 1); each period runs its ``ratio`` local
 layers at ``local_window``, then its global layer. ``sliding_window``
 windows every layer of the plain stack. Windowed layers keep ring caches of
-``min(window, cache_len)`` slots. Where JAX scans the stacked parameters,
+``min(window, cache_len)`` slots. A MoE config (``family="moe"``) stacks
+its MoE layers under ``layers`` (each MLP a router and raw expert stacks,
+:mod:`repro_torch.models.moe`) behind ``first_k_dense`` dense layers under
+``dense_layers`` (MLP width ``dense_d_ff``); its router aux losses sum
+over the layers. Where JAX scans the stacked parameters,
 the port runs a Python loop over the layer (and period) index. The
 reference's ``remat`` has no counterpart: at the batch sizes the port
 trains, activations fit without recomputation.
@@ -27,27 +31,31 @@ from repro_torch.models.common import (Params, apply_norm, dtype_of, embed,
                                        make_dense_params, make_norm_params,
                                        normal_init, unembed)
 from repro_torch.models.mlp import make_mlp_params, mlp_block
+from repro_torch.models.moe import make_moe_params, moe_block
 
 MODES = ("train", "prefill", "decode")
+FAMILIES = ("dense", "moe")
 
 
 def check_supported(cfg) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` asks only for the branch
-    the port runs: the dense decoder — RoPE or learned positions, RMSNorm or
-    LayerNorm, gated SiLU or plain GELU MLP, with or without q/k/v (and,
-    under LayerNorm, MLP) biases, tied or untied unembedding, global
-    attention, a sliding window on every layer, or periods of local
-    (windowed) and global layers."""
+    """Raise ``NotImplementedError`` unless ``cfg`` asks only for the
+    branches the port runs: the dense decoder — RoPE or learned positions,
+    RMSNorm or LayerNorm, gated SiLU or plain GELU MLP, with or without
+    q/k/v (and, under LayerNorm, MLP) biases, tied or untied unembedding,
+    global attention, a sliding window on every layer, or periods of local
+    (windowed) and global layers — and its MoE counterpart (top-k routed
+    experts, shared experts, leading dense layers). As in the reference,
+    the family decides: a dense config with ``num_experts`` builds dense
+    MLPs."""
     unsupported = {
-        "family": cfg.family != "dense",
+        "family": cfg.family not in FAMILIES,
         "mla": cfg.mla,
-        "num_experts": bool(cfg.num_experts),
     }
     asked = [k for k, v in unsupported.items() if v]
     if asked:
         raise NotImplementedError(
             f"config {cfg.name!r} asks for {asked}: the port runs only the "
-            "dense decoder so far")
+            "dense and MoE decoders so far")
 
 
 def _periods(cfg):
@@ -56,8 +64,10 @@ def _periods(cfg):
     return cfg.num_layers // (ratio + 1), ratio
 
 
-def _layer_params(gen, cfg, lead, dtype, device) -> Params:
-    """One decoder layer's leaves, stacked on the ``lead`` axes."""
+def _layer_params(gen, cfg, lead, dtype, device, *, moe: bool = False,
+                  d_ff: int = 0) -> Params:
+    """One decoder layer's leaves, stacked on the ``lead`` axes: a MoE MLP
+    with ``moe``, else a dense one of width ``d_ff`` (0: ``cfg.d_ff``)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv, bias = cfg.num_heads, cfg.num_kv_heads, cfg.qkv_bias
     return {
@@ -73,7 +83,9 @@ def _layer_params(gen, cfg, lead, dtype, device) -> Params:
             "o_proj": make_dense_params(gen, (*lead, h * hd, d), dtype,
                                         device),
         },
-        "mlp": make_mlp_params(gen, cfg, dtype, device, lead=lead),
+        "mlp": (make_moe_params(gen, cfg, dtype, device, lead) if moe
+                else make_mlp_params(gen, cfg, dtype, device, lead=lead,
+                                     d_ff=d_ff)),
     }
 
 
@@ -90,7 +102,15 @@ def make_params(gen: torch.Generator, cfg, device) -> Params:
     if cfg.learned_pos_embeddings:
         params["pos_embed"] = {"embedding": normal_init(
             gen, (cfg.max_position_embeddings, d), dtype, device)}
-    if cfg.local_global_ratio:
+    if cfg.family == "moe":
+        if cfg.first_k_dense:
+            params["dense_layers"] = _layer_params(
+                gen, cfg, (cfg.first_k_dense,), dtype, device,
+                d_ff=cfg.dense_d_ff)
+        params["layers"] = _layer_params(
+            gen, cfg, (cfg.num_layers - cfg.first_k_dense,), dtype, device,
+            moe=True)
+    elif cfg.local_global_ratio:
         nper, ratio = _periods(cfg)
         params["periods"] = {
             "local": _layer_params(gen, cfg, (nper, ratio), dtype, device),
@@ -123,7 +143,9 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
     KVH, hd), "pos": (L, length)}}``, or for a local/global config
     ``{"local": …(nper, ratio, …), "global": …(nper, …)}``. A windowed
     layer's ``length`` is ``min(window, cache_len)`` (a ring), a global
-    layer's ``cache_len``."""
+    layer's ``cache_len``. A MoE config's cache is ``{"layers": …}`` over
+    its MoE layers, with ``{"dense_layers": …}`` over its leading dense
+    ones."""
     check_supported(cfg)
 
     def stacked(lead, window):
@@ -136,6 +158,11 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
         nper, ratio = _periods(cfg)
         return {"local": stacked((nper, ratio), cfg.local_window),
                 "global": stacked((nper,), 0)}
+    if cfg.family == "moe" and cfg.first_k_dense:
+        return {"layers": stacked((cfg.num_layers - cfg.first_k_dense,),
+                                  cfg.sliding_window),
+                "dense_layers": stacked((cfg.first_k_dense,),
+                                        cfg.sliding_window)}
     return {"layers": stacked((cfg.num_layers,), cfg.sliding_window)}
 
 
@@ -154,16 +181,48 @@ def _learned_positions(cfg, table: torch.Tensor, seq: int,
     return table[:seq]
 
 
+def decoder_layer(cfg, p: Params, x: torch.Tensor, *,
+                  lora: Optional[Params], lora_scale: float, positions,
+                  window: int, cache: Optional[Params], position,
+                  moe_impl: str = "ragged"):
+    """One pre-norm layer (the reference's ``_attn_mlp_layer``) of its own
+    leaves ``p``, adapter ``lora`` and cache → ``(x, aux)``: attention,
+    then the dense MLP (aux None) or the MoE block (its router's aux loss).
+    With a cache (serving) the adapted projections run the fused LoRA
+    kernel."""
+    lora = lora or {}
+    fused = cache is not None
+    h_in = apply_norm(cfg.norm, p["attn_norm"], x)
+    attn, _ = attention_block(cfg, p["attn"], h_in, lora=lora.get("attn"),
+                              lora_scale=lora_scale, positions=positions,
+                              window=window, cache=cache,
+                              decode_position=position)
+    x = x + attn
+    m_in = apply_norm(cfg.norm, p["mlp_norm"], x)
+    if "router" in p["mlp"]:
+        m, aux = moe_block(cfg, p["mlp"], m_in, lora=lora.get("mlp"),
+                           lora_scale=lora_scale, impl=moe_impl, fused=fused)
+    else:
+        m = mlp_block(cfg, p["mlp"], m_in, lora=lora.get("mlp"),
+                      lora_scale=lora_scale, fused=fused)
+        aux = None
+    return x + m, aux
+
+
 def forward(cfg, params: Params, tokens: torch.Tensor, *,
             lora: Optional[Params] = None, lora_scale: float = 0.0,
             mode: str = "train", cache: Optional[Params] = None,
-            position=None):
+            position=None, moe_impl: str = "ragged",
+            with_aux: bool = False):
     """tokens (B, S) int → logits (B, S, V) f32.
 
-    ``mode="train"`` returns the logits. ``"prefill"`` (prompt tokens, a
-    cache from :func:`init_cache`) and ``"decode"`` (one token a row, its
-    absolute ``position``) return ``(logits, cache)``; they run forward only,
-    through the serving kernels, and update the cache in place.
+    ``mode="train"`` returns the logits, or with ``with_aux`` ``(logits,
+    aux)``: the router aux losses summed over the layers (f32 0 for a dense
+    config). ``"prefill"`` (prompt tokens, a cache from :func:`init_cache`)
+    and ``"decode"`` (one token a row, its absolute ``position``) return
+    ``(logits, cache)``; they run forward only, through the serving kernels,
+    and update the cache in place. ``moe_impl`` picks the MoE block's path
+    (``"ragged"`` or the ``"dense"`` oracle).
     """
     check_supported(cfg)
     if mode not in MODES:
@@ -175,6 +234,8 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
     if (mode == "decode") != (position is not None):
         raise ValueError("forward: a decode position goes with mode='decode' "
                          "only")
+    if with_aux and mode != "train":
+        raise ValueError("forward: with_aux goes with mode='train' only")
     x = embed(params["embed"], tokens)
     positions = (None if mode == "decode"
                  else torch.arange(tokens.shape[1], device=tokens.device))
@@ -182,22 +243,21 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
         x = x + _learned_positions(cfg, params["pos_embed"]["embedding"],
                                    tokens.shape[1], position)
     lora = lora or {}
+    aux_total = None
 
     def layer(x, stack, stack_lora, stack_cache, idx, window):
         """The layer at ``idx`` of a stacked tree, with its adapter and
         cache."""
-        p = _layer_slice(stack, *idx)
-        lo = _layer_slice(stack_lora, *idx) or {}
-        h_in = apply_norm(cfg.norm, p["attn_norm"], x)
-        attn, _ = attention_block(cfg, p["attn"], h_in, lora=lo.get("attn"),
-                                  lora_scale=lora_scale, positions=positions,
-                                  window=window,
-                                  cache=_layer_slice(stack_cache, *idx),
-                                  decode_position=position)
-        x = x + attn
-        m_in = apply_norm(cfg.norm, p["mlp_norm"], x)
-        return x + mlp_block(cfg, p["mlp"], m_in, lora=lo.get("mlp"),
-                             lora_scale=lora_scale, fused=cache is not None)
+        nonlocal aux_total
+        x, aux = decoder_layer(
+            cfg, _layer_slice(stack, *idx), x,
+            lora=_layer_slice(stack_lora, *idx), lora_scale=lora_scale,
+            positions=positions, window=window,
+            cache=_layer_slice(stack_cache, *idx), position=position,
+            moe_impl=moe_impl)
+        if aux is not None:
+            aux_total = aux if aux_total is None else aux_total + aux
+        return x
 
     def part(tree, key):
         return None if tree is None else tree.get(key)
@@ -212,11 +272,20 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
             x = layer(x, per["global"], part(per_lora, "global"),
                       part(cache, "global"), (i,), 0)
     else:
-        for i in range(cfg.num_layers):
-            x = layer(x, params["layers"], lora.get("layers"),
-                      part(cache, "layers"), (i,), cfg.sliding_window)
+        stacks = (["dense_layers"] if "dense_layers" in params else []
+                  ) + ["layers"]
+        for key in stacks:
+            for i in range(params[key]["attn_norm"]["scale"].shape[0]):
+                x = layer(x, params[key], lora.get(key), part(cache, key),
+                          (i,), cfg.sliding_window)
     x = apply_norm(cfg.norm, params["final_norm"], x)
     tied = params["embed"]["embedding"] if cfg.tie_embeddings else None
     logits = unembed(params.get("lm_head", {}), x, tied_embedding=tied,
                      lora=lora.get("lm_head"), lora_scale=lora_scale)
-    return logits if cache is None else (logits, cache)
+    if cache is not None:
+        return logits, cache
+    if not with_aux:
+        return logits
+    if aux_total is None:
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux_total

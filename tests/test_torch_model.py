@@ -94,10 +94,10 @@ def test_config_dataclass_defaults_match():
 
 
 def test_unsupported_branch_raises():
-    # windowed attention runs in the port; experts do not
-    moe = dataclasses.replace(get_config("paper-tiny"), num_experts=4)
-    with pytest.raises(NotImplementedError, match="num_experts"):
-        build_model(moe)
+    # windowed attention and experts run in the port; MLA does not
+    mla = dataclasses.replace(get_config("paper-tiny"), mla=True)
+    with pytest.raises(NotImplementedError, match="mla"):
+        build_model(mla)
 
 
 def test_param_paths_line_up_with_the_reference():

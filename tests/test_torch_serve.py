@@ -361,9 +361,9 @@ def test_forward_modes_check_their_arguments(state):
     with pytest.raises(ValueError, match="position"):
         transformer.forward(pm.cfg, tp, toks[:, :1], mode="decode",
                             cache=cache)
-    moe = dataclasses.replace(get_config("paper-tiny"), num_experts=4)
-    with pytest.raises(NotImplementedError, match="num_experts"):
-        transformer.init_cache(moe, 1, 8, device=CPU)
+    mla = dataclasses.replace(get_config("paper-tiny"), mla=True)
+    with pytest.raises(NotImplementedError, match="mla"):
+        transformer.init_cache(mla, 1, 8, device=CPU)
 
 
 # --------------------------------------------------------------------------
