@@ -2882,13 +2882,14 @@ D_TOL = (5e-3, 8e-3)  # teacher-forced decode vs the training forward
 class plain_ops:
     """Within the block the serving path runs the kernels' plain versions
     on the card (``lora_dense_plain``, ``swa_attention_plain``) in place of
-    the kernel wrappers."""
+    the kernel wrappers (MLA's prefill attention too)."""
 
     def __init__(self, kernels):
-        from repro_torch.models import attention, common
+        from repro_torch.models import attention, common, mla
         self.patches = [(common, "lora_dense", kernels.lora_dense_plain),
                         (attention, "swa_attention",
-                         kernels.swa_attention_plain)]
+                         kernels.swa_attention_plain),
+                        (mla, "swa_attention", kernels.swa_attention_plain)]
 
     def __enter__(self):
         self.saved = [getattr(mod, name) for mod, name, _ in self.patches]
@@ -4439,12 +4440,6 @@ def bf16_probes(torch, kernels, device, cfgs):
     variant (x@a unrounded or rounded per K chunk; p unrounded, or l summing
     the rounded p) in some element. Launches here are not the main path's
     (the counters are reset before it)."""
-    from repro_torch.kernels import probes
-    from repro_torch.kernels.lora_matmul import (SKINNY_ROWS, _adapter_rows,
-                                                 _body, _sm_count,
-                                                 _split_plan, _tc_split_plan)
-
-    sms = _sm_count(device.index or 0)
     cases = []
     for c in cfgs:
         bsz, prompt = BF16_SERVE[c.name][:2]
@@ -4456,6 +4451,25 @@ def bf16_probes(torch, kernels, device, cfgs):
               ("tc", 4095, 3072, 1024, 1), ("tc", 300, 3072, 40, 17),
               ("tc", 1000, 3840, 2048, 33), ("tc", 17, 776, 1000, 64),
               ("tc", 129, 3072, 1024, 12)]
+    lora_probes(torch, kernels, device, cases, bodies=True)
+    flash = [(c.name, *BF16_SERVE[c.name][:2], c.num_heads, c.num_kv_heads,
+              c.resolved_head_dim, True) for c in cfgs]
+    flash += [("non-causal", 2, 300, 4, 2, 128, False),
+              ("d 66", 2, 130, 4, 4, 66, True)]
+    flash_probes(torch, kernels, device, flash)
+
+
+def lora_probes(torch, kernels, device, cases, bodies=False):
+    """B3 on :func:`~repro_torch.kernels.probes.lora_probe` at each
+    (label, M, K, N, r) of ``cases``, bitwise the plain version and the
+    exact answer and apart from every faulty variant; with ``bodies`` the
+    cases must reach the tensor-core and the tiled body."""
+    from repro_torch.kernels import probes
+    from repro_torch.kernels.lora_matmul import (SKINNY_ROWS, _adapter_rows,
+                                                 _body, _sm_count,
+                                                 _split_plan, _tc_split_plan)
+
+    sms = _sm_count(device.index or 0)
     seen, plans, padded = {}, set(), set()
     for i, (label, m, k, n, r) in enumerate(cases):
         body = _body(m, k, n, True, True)
@@ -4493,7 +4507,7 @@ def bf16_probes(torch, kernels, device, cfgs):
         for name, v in diff.items():
             seen[name] = seen.get(name, 0) + v
         del x, w, a, b, want, faults, got, plain
-    if not {"tensor-core", "tiled"} <= plans:
+    if bodies and not {"tensor-core", "tiled"} <= plans:
         raise AssertionError(f"lora_matmul bf16 probes: bodies {plans}")
     chunks = {body: sorted(p[1] for p in plans if p[0] == body)
               for body in ("tc-split-K", "split-K")}
@@ -4503,11 +4517,16 @@ def bf16_probes(torch, kernels, device, cfgs):
           f"x@a at N {sorted(padded)}, the tiled body) bitwise the plain "
           f"version and the exact answer; elements apart from the faulty "
           f"variants {seen}", flush=True)
+
+
+def flash_probes(torch, kernels, device, flash):
+    """B8 on :func:`~repro_torch.kernels.probes.swa_probe` at each (label,
+    B, S, H, KVH, d, causal) of ``flash``: bitwise the plain version,
+    apart from every faulty variant, through the tensor cores at every
+    head dim that is a multiple of 8."""
+    from repro_torch.kernels import probes
+
     seen = {}
-    flash = [(c.name, *BF16_SERVE[c.name][:2], c.num_heads, c.num_kv_heads,
-              c.resolved_head_dim, True) for c in cfgs]
-    flash += [("non-causal", 2, 300, 4, 2, 128, False),
-              ("d 66", 2, 130, 4, 4, 66, True)]
     for label, b, s, h, kvh, d, causal in flash:
         q, k, v, faults = probes.swa_probe(b, s, h, kvh, d, causal=causal,
                                            device=device, seed=s + d)
@@ -4529,8 +4548,9 @@ def bf16_probes(torch, kernels, device, cfgs):
         for name, n in diff.items():
             seen[name] = seen.get(name, 0) + n
         del q, k, v, faults, got, plain
-    print(f"  flash_swa bf16 probes: {len(flash)} cases (all but d 66 "
-          f"through the tensor-core body) bitwise the plain version; "
+    print(f"  flash_swa bf16 probes: {len(flash)} cases (d "
+          f"{sorted({f[5] for f in flash})}; every d a multiple of 8 through "
+          f"the tensor-core body) bitwise the plain version; "
           f"elements apart from the faulty variants {seen}", flush=True)
     torch.cuda.empty_cache()
 
@@ -4913,6 +4933,106 @@ def _w0(node):
     return node["kernel"] if isinstance(node, dict) else node
 
 
+def expert_fold_case(torch, kernels, timer, device, tag, n_mat, d, ff, c,
+                     live, r, scale, seed):
+    """B1 at an expert leaf of ``n_mat`` stacked (d, ff) matrices, ``live``
+    lanes of ``c`` weighted, against its plain version in chunks of 8
+    matrices (every chunk, the far end of the leaf included), timed beside
+    ``baddbmm``. Returns (max error, timings, the lane weights)."""
+    w0, a, b, w = make_inputs(torch, device, c, (n_mat,), d, ff, r, live,
+                              seed=seed)
+    out = torch.empty_like(w0)
+    kernels.fedex_fold(w0, a, b, scale, weights=w, out=out)
+    torch.cuda.synchronize()
+    chunk, err_max = 8, 0.0
+    for i in range(0, n_mat, chunk):
+        part = slice(i, i + chunk)
+        want = kernels.fedex_fold_plain(w0[part], a[:, part], b[:, part],
+                                        scale, w)
+        bound = kernels.fold_error_bound(w0[part], a[:, part], b[:, part],
+                                         scale, w)
+        err = (out[part] - want).abs()
+        err_max = max(err_max, float(err.max()))
+        if not bool((err <= bound).all()):
+            raise AssertionError(f"fedex_fold at {tag}'s expert leaf, "
+                                 f"matrices {i}..{i + chunk - 1}: disagrees "
+                                 "with its plain version")
+        del want, bound, err
+    far = out[-1, -1, -1]
+    print(f"  [{tag}] fedex_fold up-proj leaf ({n_mat}, {d}, {ff}) = "
+          f"{w0.numel():,} elements, C={c} r={r}, live {list(live)}: every "
+          f"chunk of {chunk} within bound of the plain version, max_abs_err "
+          f"{err_max:.3e}; the far end out[{n_mat - 1}, {d - 1}, "
+          f"{ff - 1}] = {float(far):.6e}", flush=True)
+    abar = kernels.factor_mean_plain(a, w)
+    bbar = kernels.factor_mean_plain(b, w)
+    lib_a = torch.cat([w[j] * a[j] for j in live] + [-abar], dim=-1)
+    lib_b = torch.cat([b[j] for j in live] + [bbar], dim=-2)
+    del abar, bbar
+    fb = bound_ms(*fold_cost([("experts/up_proj", n_mat, d, ff)], len(live),
+                             r))
+
+    def fold_kernel():
+        kernels.fedex_fold(w0, a, b, scale, weights=w, out=out)
+
+    def fold_plain():
+        for i in range(0, n_mat, chunk):
+            kernels.fedex_fold_plain(w0[i:i + chunk], a[:, i:i + chunk],
+                                     b[:, i:i + chunk], scale, w)
+
+    def fold_library():
+        torch.baddbmm(w0, lib_a, lib_b, alpha=scale, out=out)
+
+    t = (timer(fold_kernel), timer(fold_plain), timer(fold_library), fb,
+         timer.device(fold_kernel, fb[0]), timer.device(fold_library, fb[0]))
+    ms, plain, lib, (bms, by), dev, dev_lib = t
+    print(f"  [{tag}] time fedex_fold up-proj leaf: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms ({n_mat // chunk} chunks), library {lib:.4f} "
+          f"ms (baddbmm), bound {bms:.4f} ms ({by}); device time kernel "
+          f"{fmt_ms(dev)}{share(bms, dev)}, library {fmt_ms(dev_lib)}",
+          flush=True)
+    del w0, out, a, b, lib_a, lib_b
+    torch.cuda.empty_cache()
+    return err_max, t, w
+
+
+def group_mean_case(torch, kernels, timer, device, tag, leaves, c, live, r,
+                    w, seed):
+    """B2 in one grouped launch over a close's a and b stacks of
+    ``leaves`` ((name, L, m, n)), weights ``w`` over ``live`` lanes of
+    ``c``: bitwise the plain version, timed beside a ``tensordot`` a
+    stack. Returns the timings."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    group = []
+    for _, n_l, m, n in leaves:
+        group += [torch.randn(c, n_l, m, r, device=device, generator=g) * 0.02,
+                  torch.randn(c, n_l, r, n, device=device, generator=g) * 0.01]
+    got = kernels.factor_mean_group(group, w)
+    torch.cuda.synchronize()
+    if not all(torch.equal(bits(torch, x), bits(
+            torch, kernels.factor_mean_plain(s, w)))
+               for x, s in zip(got, group)):
+        raise AssertionError(f"factor_mean: {tag}'s grouped means are not "
+                             "bitwise the plain version")
+    del got
+    mb = bound_ms(*mean_cost(leaves, len(live), r))
+    t = (timer(lambda: kernels.factor_mean_group(group, w)),
+         timer(lambda: [kernels.factor_mean_plain(s, w) for s in group]),
+         timer(lambda: [torch.tensordot(w, s, dims=1) for s in group]), mb,
+         timer.device(lambda: kernels.factor_mean_group(group, w), mb[0]),
+         timer.device(lambda: [torch.tensordot(w, s, dims=1) for s in group],
+                      mb[0]))
+    ms, plain, lib, (bms, by), dev, dev_lib = t
+    print(f"  [{tag}] factor_mean one grouped launch over a close's "
+          f"{len(group)} stacks: bitwise=True; kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, library {lib:.4f} ms ({len(group)} tensordot), "
+          f"bound {bms:.4f} ms ({by}); device time kernel {fmt_ms(dev)}, "
+          f"library {fmt_ms(dev_lib)}", flush=True)
+    del group
+    return t
+
+
 def moe_kernel_phase(torch, kernels, device, cfg, *, r, scale):
     """At mixtral's shapes: B1 at the up-proj expert leaf of the f32 depth
     (L·E stacked matrices of 6144 × 16384, ≈ 3.2·10⁹ elements, past 2³¹),
@@ -4934,63 +5054,9 @@ def moe_kernel_phase(torch, kernels, device, cfg, *, r, scale):
     bf16_errs = {"lora_matmul": 0.0, "flash_swa": 0.0}
     timings = {}
     c, live = 4, (0, 1)
-    w0, a, b, w = make_inputs(torch, device, c, (L * E,), d, ff, r, live,
-                              seed=110)
-    out = torch.empty_like(w0)
-    kernels.fedex_fold(w0, a, b, scale, weights=w, out=out)
-    torch.cuda.synchronize()
-    chunk = 8
-    for i in range(0, L * E, chunk):
-        part = slice(i, i + chunk)
-        want = kernels.fedex_fold_plain(w0[part], a[:, part], b[:, part],
-                                        scale, w)
-        bound = kernels.fold_error_bound(w0[part], a[:, part], b[:, part],
-                                         scale, w)
-        err = (out[part] - want).abs()
-        errs["fedex_fold"] = max(errs["fedex_fold"], float(err.max()))
-        if not bool((err <= bound).all()):
-            raise AssertionError(f"fedex_fold at mixtral's up-proj leaf, "
-                                 f"matrices {i}..{i + chunk - 1}: disagrees "
-                                 "with its plain version")
-        del want, bound, err
-    far = out[-1, -1, -1]
-    print(f"  [moe] fedex_fold up-proj leaf ({L * E}, {d}, {ff}) = "
-          f"{w0.numel():,} elements, C={c} r={r}, live {list(live)}: every "
-          f"chunk of {chunk} within bound of the plain version, max_abs_err "
-          f"{errs['fedex_fold']:.3e}; the far end out[{L * E - 1}, {d - 1}, "
-          f"{ff - 1}] = {float(far):.6e}", flush=True)
-    abar = kernels.factor_mean_plain(a, w)
-    bbar = kernels.factor_mean_plain(b, w)
-    lib_a = torch.cat([w[j] * a[j] for j in live] + [-abar], dim=-1)
-    lib_b = torch.cat([b[j] for j in live] + [bbar], dim=-2)
-    del abar, bbar
-    leaf = [("experts/up_proj", L * E, d, ff)]
-    fb = bound_ms(*fold_cost(leaf, len(live), r))
-
-    def fold_kernel():
-        kernels.fedex_fold(w0, a, b, scale, weights=w, out=out)
-
-    def fold_plain():
-        for i in range(0, L * E, chunk):
-            kernels.fedex_fold_plain(w0[i:i + chunk], a[:, i:i + chunk],
-                                     b[:, i:i + chunk], scale, w)
-
-    def fold_library():
-        torch.baddbmm(w0, lib_a, lib_b, alpha=scale, out=out)
-
-    timings["fedex_fold"] = (timer(fold_kernel), timer(fold_plain),
-                             timer(fold_library), fb,
-                             timer.device(fold_kernel, fb[0]),
-                             timer.device(fold_library, fb[0]))
-    ms, plain, lib, (bms, by), dev, dev_lib = timings["fedex_fold"]
-    print(f"  [moe] time fedex_fold up-proj leaf: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms ({(L * E) // chunk} chunks), library {lib:.4f} "
-          f"ms (baddbmm), bound {bms:.4f} ms ({by}); device time kernel "
-          f"{fmt_ms(dev)}{share(bms, dev)}, library {fmt_ms(dev_lib)}",
-          flush=True)
-    del w0, out, a, b, lib_a, lib_b
-    torch.cuda.empty_cache()
-
+    errs["fedex_fold"], timings["fedex_fold"], w = expert_fold_case(
+        torch, kernels, timer, device, "moe", L * E, d, ff, c, live, r, scale,
+        seed=110)
     # B2: one weighted close's 14 stacks, the weights of B1's lanes
     hd = cfg.resolved_head_dim
     nq, nkv = cfg.num_heads * hd, cfg.num_kv_heads * hd
@@ -4999,35 +5065,9 @@ def moe_kernel_phase(torch, kernels, device, cfg, *, r, scale):
               ("experts/up_proj", L * E, d, ff),
               ("experts/gate_proj", L * E, d, ff),
               ("experts/down_proj", L * E, ff, d)]
-    g = torch.Generator(device=device)
-    g.manual_seed(120)
-    group = []
-    for _, n_l, m, n in leaves:
-        group += [torch.randn(c, n_l, m, r, device=device, generator=g) * 0.02,
-                  torch.randn(c, n_l, r, n, device=device, generator=g) * 0.01]
-    got = kernels.factor_mean_group(group, w)
-    torch.cuda.synchronize()
-    if not all(torch.equal(bits(torch, x), bits(
-            torch, kernels.factor_mean_plain(s, w)))
-               for x, s in zip(got, group)):
-        raise AssertionError("factor_mean: mixtral's grouped means are not "
-                             "bitwise the plain version")
-    del got
-    mb = bound_ms(*mean_cost(leaves, len(live), r))
-    timings["factor_mean"] = (
-        timer(lambda: kernels.factor_mean_group(group, w)),
-        timer(lambda: [kernels.factor_mean_plain(s, w) for s in group]),
-        timer(lambda: [torch.tensordot(w, s, dims=1) for s in group]), mb,
-        timer.device(lambda: kernels.factor_mean_group(group, w), mb[0]),
-        timer.device(lambda: [torch.tensordot(w, s, dims=1) for s in group],
-                     mb[0]))
-    ms, plain, lib, (bms, by), dev, dev_lib = timings["factor_mean"]
-    print(f"  [moe] factor_mean one grouped launch over a close's "
-          f"{len(group)} stacks: bitwise=True; kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms, library {lib:.4f} ms ({len(group)} tensordot), "
-          f"bound {bms:.4f} ms ({by}); device time kernel {fmt_ms(dev)}, "
-          f"library {fmt_ms(dev_lib)}", flush=True)
-    del group
+    timings["factor_mean"] = group_mean_case(torch, kernels, timer, device,
+                                             "moe", leaves, c, live, r, w,
+                                             seed=120)
 
     # B3: q/k/v/o in bf16 (prefill and decode rows), the expert projections
     from repro_torch.kernels.lora_matmul import SKINNY_ROWS
@@ -5067,7 +5107,8 @@ def moe_kernel_phase(torch, kernels, device, cfg, *, r, scale):
     return errs, bf16_errs, timings
 
 
-def moe_layer_check(torch, kernels, device, cfg, params, lora, scale):
+def moe_layer_check(torch, kernels, device, cfg, params, lora, scale,
+                    tag="moe"):
     """One MoE layer at full width in f32 (layer 0 of ``params``), batch 8 ×
     seq 64 of unit-scale inputs, with its per-expert adapters' b drawn
     N(0, 0.05²): the ragged path, plain (training) and fused (B3 on every
@@ -5104,7 +5145,7 @@ def moe_layer_check(torch, kernels, device, cfg, params, lora, scale):
             err = (y - yd).abs()
             worst = max(worst, float(err.max()))
             ok = bool((err <= tol).all()) and float(aux) == float(ad)
-            print(f"  [moe] one layer at full width (T {x.shape[0]} x "
+            print(f"  [{tag}] one MoE block at full width (T {x.shape[0]} x "
                   f"{x.shape[1]}, E {cfg.num_experts}, top-"
                   f"{cfg.num_experts_per_tok}, ff {cfg.moe_d_ff}): {label} vs "
                   f"the dense oracle max |diff| {float(err.max()):.3e} (rtol "
@@ -5114,7 +5155,7 @@ def moe_layer_check(torch, kernels, device, cfg, params, lora, scale):
             if not ok:
                 raise AssertionError(f"moe layer: the {label} path disagrees "
                                      "with the dense oracle")
-        print(f"  [moe] the fused layer launched lora_matmul {calls} times "
+        print(f"  [{tag}] the fused block launched lora_matmul {calls} times "
               f"(3 a non-empty expert group: {want_calls})", flush=True)
         if calls != want_calls:
             raise AssertionError("moe layer: B3 launches != 3 a group")
@@ -5134,17 +5175,20 @@ def moe_snapshot(trainer):
     return out
 
 
-def moe_train(torch, kernels, device, cfg, scale):
+def moe_train(torch, kernels, device, cfg, scale, tag="moe"):
     """Phase 10's training path at the f32 depth cut: 4 clients, 3 local
     steps, batch 8 × seq 64 of a 512-token data vocabulary, fedex with
     per-expert adapters; round 0 uniform over all clients, round 1 at 50%
     participation with example weights (the weighted close: ``factor_mean``
-    1, ``fedex_fold`` 7: q, k, v, o, up, gate, down), the counters set to 0
-    just before the rounds and read just after, the fold checked by
+    1, ``fedex_fold`` one an adapted leaf: mixtral's 7, q, k, v, o, up,
+    gate, down; deepseek's 15, six MLA projections in each of its two
+    stacks and the three expert leaves), the counters set to 0 just before
+    the rounds and read just after, the fold checked by
     :func:`identity_sampled` on :func:`moe_snapshot`'s matrices. Before it,
-    :func:`moe_layer_check` on the drawn layer 0. Returns (trainer, stats,
-    launches, max layer error)."""
-    from repro_torch.configs import FedConfig, LoRAConfig, TrainConfig
+    :func:`moe_layer_check` on the drawn layer 0 (an MLA config also
+    :func:`mla_layer_check`). Returns (trainer, stats, launches)."""
+    from repro_torch.configs import (FedConfig, LoRAConfig, TrainConfig,
+                                     get_config)
     from repro_torch.core import FederatedTrainer
     from repro_torch.fedsrv import RoundPolicy
     from repro_torch.launch.train import build_federated_data
@@ -5167,12 +5211,17 @@ def moe_train(torch, kernels, device, cfg, scale):
     torch.cuda.synchronize()
     eng = trainer.engine
     raw = sum(not s.has_kernel for s in eng.specs)
-    print(f"  [moe] {cfg.name} at depth {cfg.num_layers} (a cut of 56), "
+    print(f"  [{tag}] {cfg.name} at depth {cfg.num_layers} (a cut of "
+          f"{get_config(cfg.name).num_layers}), "
           f"{cfg.dtype}: {count_params(trainer.params) / 1e9:.2f} B params "
           f"on the card, {len(eng.specs)} adapted leaves ({raw} raw expert "
           f"stacks); set-up {time.perf_counter() - t0:.1f} s", flush=True)
     layer_err = moe_layer_check(torch, kernels, device, cfg, trainer.params,
-                                trainer.global_lora, scale)
+                                trainer.global_lora, scale, tag)
+    if cfg.mla:
+        layer_err = max(layer_err, mla_layer_check(
+            torch, kernels, device, cfg, trainer.params, trainer.global_lora,
+            scale))
     close_ms = []
     close = eng.close
 
@@ -5218,7 +5267,7 @@ def moe_train(torch, kernels, device, cfg, scale):
                      "divergence": float(rec.divergence_scaled),
                      "client_losses": rec.client_losses})
         kind = "uniform" if out.weights is None else "weighted"
-        print(f"  [moe] round {rnd} [{kind} close, clients="
+        print(f"  [{tag}] round {rnd} [{kind} close, clients="
               f"{out.client_ids}]: client step {rows[-1]['step_ms']:.1f} ms "
               f"(median of {len(step_ms)}), round "
               f"{rows[-1]['round_s']:.2f} s, close "
@@ -5227,16 +5276,17 @@ def moe_train(torch, kernels, device, cfg, scale):
     train_s = time.perf_counter() - t1
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     launches = dict(check_launches(
-        kernels, "moe-fedex", {"factor_mean": 1, "fedex_fold": len(eng.specs)},
+        kernels, f"{tag}-fedex",
+        {"factor_mean": 1, "fedex_fold": len(eng.specs)},
         f" for 1 weighted close of {len(eng.specs)} leaves; peak "
         f"{peak:.1f} GiB"))
     if rows[0]["weights"] is not None or rows[1]["weights"] is None:
-        raise AssertionError("moe-fedex: round 0 must be uniform, round 1 "
-                             "weighted")
+        raise AssertionError(f"{tag}-fedex: round 0 must be uniform, round "
+                             "1 weighted")
     values = [v for row in rows for v in
               (row["eval_loss"], row["divergence"], *row["client_losses"])]
     if not all(math.isfinite(v) for v in values):
-        raise AssertionError(f"moe-fedex: non-finite values: {rows}")
+        raise AssertionError(f"{tag}-fedex: non-finite values: {rows}")
     keys = [s.key for s in eng.specs]
     identity = identity_sampled(torch, trainer, trainer.outcomes[-1], old,
                                 keys)
@@ -5425,7 +5475,8 @@ def moe_serve(torch, kernels, device, cfg, params, lora, lcfg):
 
 def moe_f32_answer(torch, cfg, params, lora, lcfg, tokens, replay):
     """The f32 training forward over ``tokens`` (B, S) and ``params``
-    (bf16), widened one layer at a time (the whole tree in f32 would not fit
+    (bf16; leading dense layers first, as the model runs them), widened
+    one layer at a time (the whole tree in f32 would not fit
     beside it), the routing ``replay``ed (:class:`route_log`): the logits
     at the last two positions (the prompt's last, for the prefill; the
     next token's, for the decode step) and the log."""
@@ -5440,15 +5491,17 @@ def moe_f32_answer(torch, cfg, params, lora, lcfg, tokens, replay):
         return _unflat({k: v.float() for k, v in _flat(tree).items()})
 
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    stacks = [k for k in ("dense_layers", "layers") if k in params]
     with torch.inference_mode(), route_log(replay=replay) as log:
         x = embed(wide(params["embed"]), tokens)
-        for i in range(cfg.num_layers):
-            p = wide(transformer._layer_slice(params["layers"], i))
-            x, _ = transformer.decoder_layer(
-                f32, p, x, lora=transformer._layer_slice(lora["layers"], i),
-                lora_scale=lcfg.scale, positions=positions,
-                window=cfg.sliding_window, cache=None, position=None)
-            del p
+        for key in stacks:
+            for i in range(params[key]["attn_norm"]["scale"].shape[0]):
+                p = wide(transformer._layer_slice(params[key], i))
+                x, _ = transformer.decoder_layer(
+                    f32, p, x, lora=transformer._layer_slice(lora.get(key), i),
+                    lora_scale=lcfg.scale, positions=positions,
+                    window=cfg.sliding_window, cache=None, position=None)
+                del p
         x = apply_norm(cfg.norm, wide(params["final_norm"]), x[:, -2:])
         logits = unembed(wide(params["lm_head"]), x)
     return logits, log
@@ -5601,6 +5654,658 @@ def moe_phase(torch, kernels, device):
     bf16 = dict(bf16, **{f"{k}_tc": v for k, v in tc.items()})
     stats["seconds"] = time.perf_counter() - t
     print(f"  [moe] phase 10 in {stats['seconds']:.1f} s; peak memory: "
+          f"kernels {stats['kernels_peak_gib']:.2f} GiB, f32 training "
+          f"{stats['train']['train_peak_gib']:.2f} GiB, f32 serve "
+          f"{stats['f32']['peak_gib']:.2f} GiB, bf16 serve "
+          f"{stats['bf16']['peak_gib']:.2f} GiB", flush=True)
+    return errs, bf16_errs, timings, launches, bf16, stats
+
+
+# --------------------------------------------------------------------------
+# phase 11: Multi-head Latent Attention on the MoE stack (deepseek-v2-236b)
+# --------------------------------------------------------------------------
+
+DS = "deepseek-v2-236b"
+# Depth cuts, stated as cuts: full depth is 60 layers (1 dense + 59 MoE);
+# a MoE layer is ≈ 15.9 GB in f32 (routed experts 15.1, MLA 0.60, shared
+# 0.19), the dense layer ≈ 1.35 GB, embed + lm_head ≈ 4.2 GB, so one 80 GB
+# card holds 4 MoE layers in f32 at most. Training and its f32 serve run 1
+# dense + 2 MoE layers (≈ 37 GB of weights; the uniform close's two
+# temporaries of the 10 GB expert leaf come on top), the bf16 serve 1 + 4
+# (≈ 35 GB, the f32 answer widened a layer at a time beside it); every
+# width is the config's.
+DS_DEPTH = {"float32": 3, "bfloat16": 5}
+DS_SERVE = {"batch": 8, "prompt": 512, "steps": 32}  # cache prompt + steps
+# the rows of a prefill expert group (8 × 512 tokens × top-6 over 160
+# experts: 153.6 on average) and of a decode one (48 slots over 160)
+DS_GROUP_ROWS = {"prefill": 160, "decode": 1}
+
+
+def mla_projections(cfg):
+    """(name, K, N) of one layer's six adapted MLA projections."""
+    d, h, kvr = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    nope, rope, dv = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                      cfg.v_head_dim)
+    return [("q_down", d, cfg.q_lora_rank),
+            ("q_up", cfg.q_lora_rank, h * (nope + rope)),
+            ("kv_down", d, kvr + rope), ("k_up", kvr, h * nope),
+            ("v_up", kvr, h * dv), ("o_proj", h * dv, d)]
+
+
+def mla_flash_case(torch, kernels, timer, device, b, s, h, dk, dv, seed,
+                   dtype=None):
+    """B8 as MLA's prefill runs it: q and k of ``dk`` (nope + rope), v of
+    ``dv`` zero-padded to ``dk``, causal, no window, MHA; the output's
+    padded columns must be exactly 0, the rest within the plain version's
+    tolerance (f32: rtol 2e-5, atol 4e-5; bf16: ``swa_error_bound``), two
+    runs bitwise equal, bf16 through the tensor-core body. Timed beside
+    the plain version, the pad and SDPA on the unpadded v (it takes dv ≠
+    dk: the fair yardstick); the bound counts the function's own bytes
+    (q, k at dk, v and the output at dv) and operations (2·dk + 2·dv a
+    visible pair). Returns (max error, timings)."""
+    import torch.nn.functional as F
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    q = torch.randn(b, s, h, dk, device=device, generator=g)
+    k = torch.randn(b, s, h, dk, device=device, generator=g)
+    v = torch.randn(b, s, h, dv, device=device, generator=g)
+    low = dtype == torch.bfloat16
+    if low:
+        q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    vp = F.pad(v, (0, dk - dv))
+    before = kernels.flash_swa.bf16_tc_launches
+    got = kernels.swa_attention(q, k, vp, True, 0)
+    again = kernels.swa_attention(q, k, vp, True, 0)
+    torch.cuda.synchronize()
+    label = f"MLA B={b} S={s} H={h} dk={dk} dv={dv} (v padded){' bf16' * low}"
+    if kernels.flash_swa.bf16_tc_launches - before != 2 * low:
+        raise AssertionError(f"flash_swa {label}: "
+                             f"{kernels.flash_swa.bf16_tc_launches - before}"
+                             f" of 2 runs took the tensor-core body")
+    if not torch.equal(bits(torch, got), bits(torch, again)):
+        raise AssertionError(f"flash_swa {label}: two runs differ")
+    if not bool((got[..., dv:] == 0).all()):
+        raise AssertionError(f"flash_swa {label}: the padded columns are not "
+                             "0")
+    want = kernels.swa_attention_plain(q, k, vp, True, 0)
+    e = (got.float() - want.float()).abs()
+    err = float(e.max())
+    tol = (kernels.swa_error_bound(q, k, vp, True, 0) if low
+           else 4e-5 + 2e-5 * want.abs())
+    if not bool((e <= tol).all()):
+        raise AssertionError(f"flash_swa {label}: max err {err:.3e} vs the "
+                             "plain version")
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_err = float((lib.transpose(1, 2).float()
+                     - got[..., :dv].float()).abs().max())
+    del got, again, want, e, tol, lib
+    _, pairs = visible_pairs(torch, device, s, s, True, 0)
+    elem = 2 if low else 4
+    nbytes = elem * b * s * h * (2 * dk + 2 * dv)
+    flops = (2 * dk + 2 * dv) * pairs * b * h
+
+    def kernel():
+        kernels.swa_attention(q, k, vp, True, 0)
+
+    def library():
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    bound = bound_ms(nbytes, flops,
+                     BF16_FLOPS_PER_S if low else F32_FLOPS_PER_S)
+    t = (timer(kernel),
+         timer(lambda: kernels.swa_attention_plain(q, k, vp, True, 0)),
+         timer(library), bound, timer.device(kernel, bound[0]),
+         timer.device(library, bound[0]))
+    pad_ms = timer(lambda: F.pad(v, (0, dk - dv)))
+    ms, plain, libt, (bms, by), dev, dev_lib = t
+    print(f"  flash_swa[{label}] max_abs_err={err:.3e} (SDPA on the unpadded "
+          f"v {lib_err:.3e}), padded columns 0, two runs bitwise equal; time "
+          f"kernel {ms:.4f} ms (the pad {pad_ms:.4f} ms more), plain "
+          f"{plain:.4f} ms, library {libt:.4f} ms (SDPA, dv {dv}), bound "
+          f"{bms:.4f} ms ({by}); device time kernel {fmt_ms(dev)}"
+          f"{share(bms, dev)}, library {fmt_ms(dev_lib)}", flush=True)
+    return err, t
+
+
+def mla_kernel_phase(torch, kernels, device, cfg, *, r, scale):
+    """At deepseek-v2-236b's shapes: B1 at the up-proj expert leaf of the
+    f32 depth (2 MoE layers × 160 stacked matrices of 5120 × 1536, ≈ 2.5·10⁹
+    elements), 2 live lanes of 4 weighted, against its plain version in
+    8-matrix chunks and beside ``baddbmm``; B2 over the weighted close's 30
+    stacks (six MLA projections in the dense and the MoE stack, the three
+    expert leaves), bitwise; B3 in f32 and bf16 at the six MLA projections
+    at the prefill rows (M 4096) and at the four a decode step runs (M 8:
+    k_up and v_up are absorbed), and at the expert projections at a
+    prefill group (M 160, f32 and bf16) and a decode group (M 1, bf16),
+    each bf16 call through its tensor-core body; B8 at the MLA prefill (B 8,
+    S 512, 128 heads, dk 192, v padded from 128) in f32 and bf16 (the
+    tensor-core body); then the exact-rounding probes at d 192 and at the
+    MLA projections, bitwise. Returns (max errors of the f32 cases, of the
+    bf16 cases, timings)."""
+    from repro_torch.kernels.lora_matmul import SKINNY_ROWS
+    timer = Timer(torch, device)
+    L, E = DS_DEPTH["float32"] - cfg.first_k_dense, cfg.num_experts
+    d, ff = cfg.d_model, cfg.moe_d_ff
+    errs = {"fedex_fold": 0.0, "factor_mean": 0.0, "lora_matmul": 0.0,
+            "flash_swa": 0.0}
+    bf16_errs = {"lora_matmul": 0.0, "flash_swa": 0.0}
+    timings = {}
+    c, live = 4, (0, 1)
+    errs["fedex_fold"], timings["fedex_fold"], w = expert_fold_case(
+        torch, kernels, timer, device, "mla", L * E, d, ff, c, live, r,
+        scale, seed=210)
+    attn = mla_projections(cfg)
+    leaves = [(f"{stack}/{name}", n_l, k, n)
+              for stack, n_l in (("dense_layers", cfg.first_k_dense),
+                                 ("layers", L))
+              for name, k, n in attn]
+    leaves += [("experts/up_proj", L * E, d, ff),
+               ("experts/gate_proj", L * E, d, ff),
+               ("experts/down_proj", L * E, ff, d)]
+    timings["factor_mean"] = group_mean_case(torch, kernels, timer, device,
+                                             "mla", leaves, c, live, r, w,
+                                             seed=220)
+    low = torch.bfloat16
+    bsz, prompt = DS_SERVE["batch"], DS_SERVE["prompt"]
+    decode = [p for p in attn if p[0] not in ("k_up", "v_up")]
+    experts = [("up/gate", d, ff), ("down", ff, d)]
+    pre, dec = DS_GROUP_ROWS["prefill"], DS_GROUP_ROWS["decode"]
+    for key, dtype, m, shapes in (
+            ("ds", torch.float32, bsz * prompt, attn),
+            ("ds_decode", torch.float32, bsz, decode),
+            ("ds_bf16", low, bsz * prompt, attn),
+            ("ds_bf16_decode", low, bsz, decode),
+            ("ds_expert", torch.float32, pre, experts),
+            ("ds_expert_bf16", low, pre, experts),
+            ("ds_expert_bf16_decode", low, dec, experts)):
+        bufs = [[t.to(dtype) for t in lora_inputs(torch, device, m, k, n, r,
+                                                  seed=240 + i)]
+                for i, (_, k, n) in enumerate(shapes)]
+        if dtype == low:
+            tc_calls(torch, kernels, bufs, scale, f"{key} M={m}", len(bufs),
+                     decode=m <= SKINNY_ROWS)
+        err, timings[key] = lora_case(
+            torch, kernels, timer, bufs, scale,
+            f"{cfg.name} {key}: {'/'.join(s[0] for s in shapes)} at M={m}",
+            device_times=True)
+        sink = bf16_errs if dtype == low else errs
+        sink["lora_matmul"] = max(sink["lora_matmul"], err)
+        del bufs
+        torch.cuda.empty_cache()
+    dk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    for i, (key, dtype) in enumerate((("flash_ds", None),
+                                      ("flash_ds_bf16", low))):
+        err, timings[key] = mla_flash_case(
+            torch, kernels, timer, device, bsz, prompt, cfg.num_heads, dk,
+            cfg.v_head_dim, seed=250 + i, dtype=dtype)
+        sink = bf16_errs if dtype == low else errs
+        sink["flash_swa"] = max(sink["flash_swa"], err)
+    torch.cuda.empty_cache()
+    lora_probes(torch, kernels, device,
+                [("deepseek-v2-236b", m, k, n, 4) for _, k, n in attn
+                 for m in (bsz, bsz * prompt)])
+    flash_probes(torch, kernels, device,
+                 [("deepseek-v2-236b", bsz, prompt, cfg.num_heads,
+                   cfg.num_heads, dk, True),
+                  ("d 192 non-causal", 2, 300, 4, 4, dk, False)])
+    return errs, bf16_errs, timings
+
+
+def mla_layer_check(torch, kernels, device, cfg, params, lora, scale):
+    """One MLA + MoE layer at full width in f32 (layer 0 of the MoE stack of
+    ``params``), a prefill of batch 8 × 512 unit-scale inputs into a fresh
+    f32 cache, every adapter of the layer (its six MLA projections and its
+    expert leaves) with b drawn N(0, 0.05²): the kernel path (B3 on the six
+    projections and on every non-empty expert group, B8 on the attention,
+    counted) against the plain path (the kernels' plain versions, the
+    routing replayed) within ``MOE_P_TOL`` (rtol, and atol of the plain
+    output's largest magnitude); the caches' latents likewise. Returns the
+    largest error."""
+    from repro_torch.models import transformer
+    g = torch.Generator(device=device)
+    g.manual_seed(260)
+    p = transformer._layer_slice(params["layers"], 0)
+    lo = transformer._layer_slice(lora["layers"], 0)
+    lo = _unflat({k: (torch.randn(v.shape, device=device, generator=g) * 0.05
+                      if k.endswith("/b") else v.clone())
+                  for k, v in _flat(lo).items()})
+    bsz, prompt = DS_SERVE["batch"], DS_SERVE["prompt"]
+    x = torch.randn(bsz, prompt, cfg.d_model, device=device, generator=g)
+    positions = torch.arange(prompt, device=device)
+    rtol, atol = MOE_P_TOL
+
+    def run():
+        cache = transformer.init_cache(cfg, bsz, prompt, torch.float32,
+                                       device)
+        cache = transformer._layer_slice(cache["layers"], 0)
+        y, _ = transformer.decoder_layer(
+            cfg, p, x, lora=lo, lora_scale=scale, positions=positions,
+            window=0, cache=cache, position=None)
+        return y, cache
+
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        with route_log() as log:
+            yk, ck = run()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        calls, _ = log.b3_calls(torch, cfg)
+        want = {"lora_matmul": 6 + calls, "flash_swa": 1}
+        if {k: counts[k] for k in want} != want or sum(counts.values()) != (
+                sum(want.values())):
+            raise AssertionError(f"mla layer: launches {counts}, expected "
+                                 f"{want}")
+        with plain_ops(kernels), route_log(replay=log.indices) as plog:
+            yp, cp = run()
+        torch.cuda.synchronize()
+        flips = plog.counts()["flips"]
+        worst = 0.0
+        for label, got, ref in (("layer output", yk, yp),
+                                ("c_kv", ck["c_kv"], cp["c_kv"]),
+                                ("k_rope", ck["k_rope"], cp["k_rope"])):
+            err = (got - ref).abs()
+            scale_ref = float(ref.abs().max())
+            ok = bool((err <= rtol * ref.abs() + atol * scale_ref).all())
+            worst = max(worst, float(err.max()))
+            print(f"  [mla] one MLA + MoE layer at full width (B {bsz}, S "
+                  f"{prompt}, {cfg.num_heads} heads, E {cfg.num_experts} top-"
+                  f"{cfg.num_experts_per_tok}), kernel path vs plain path, "
+                  f"{label}: max |diff| {float(err.max()):.3e} (rtol {rtol}, "
+                  f"atol {atol} x {scale_ref:.3f}): ok={ok}", flush=True)
+            if not ok:
+                raise AssertionError(f"mla layer: the kernel path's {label} "
+                                     "disagrees with the plain path")
+        print(f"  [mla] the layer launched lora_matmul {6 + calls} times (6 "
+              f"MLA projections, 3 a non-empty expert group: {calls}) and "
+              f"flash_swa once; the plain path would route {flips} tokens "
+              "elsewhere", flush=True)
+    del yk, yp, ck, cp, x
+    torch.cuda.empty_cache()
+    return worst
+
+
+def merged_kv_up(torch, params, lora, scale):
+    """(params, lora) with k_up's and v_up's adapters merged into their
+    kernels (W + s·a·b, new leaves) and taken out of the adapter: the
+    function the training forward computes with them live, in a form the
+    absorbed decode reads too (it reads the raw k_up / v_up kernels and
+    never their adapters)."""
+    from repro_torch.core.lora import merge_lora
+    kv = ("k_up", "v_up")
+    sub = {stack: {"attn": {k: lora[stack]["attn"][k] for k in kv}}
+           for stack in ("dense_layers", "layers") if stack in lora}
+    merged = merge_lora(params, sub, scale)
+    rest = _unflat({k: v for k, v in _flat(lora).items()
+                    if k.split("/")[-2] not in kv})
+    return merged, rest
+
+
+def mla_cache_bytes(cache, cfg) -> dict:
+    """The cache's bytes a token (every layer's c_kv and k_rope, over batch
+    × length) beside a 128-head GQA cache at these dims: K of nope + rope
+    and V of v_head_dim a head (the decompressed width), and the
+    reference's own yardstick, K and V of 128 a head."""
+    ckv = [v for k, v in _flat(cache).items() if not k.endswith("pos")]
+    b, length = ckv[0].shape[1], ckv[0].shape[2]
+    per_token = sum(t.numel() * t.element_size() for t in ckv) / (b * length)
+    elem, h, L = ckv[0].element_size(), cfg.num_heads, cfg.num_layers
+    gqa = L * h * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+                   + cfg.v_head_dim) * elem
+    ref = L * h * (128 + 128) * elem
+    return {"bytes_per_token": per_token, "gqa_bytes_per_token": gqa,
+            "ratio": gqa / per_token, "ref_gqa_bytes_per_token": ref,
+            "ref_ratio": ref / per_token}
+
+
+def mla_serve(torch, kernels, device, cfg, params, lora, lcfg):
+    """Serve ``cfg`` (f32 or bf16, its dtype) from ``params`` / ``lora`` at
+    ``DS_SERVE``'s shape, its cache in the model's dtype. With the counters
+    set to 0 just before each: one prefill (``lora_matmul`` 6·L + 3 a
+    non-empty expert group, ``flash_swa`` L; bf16: every B3 call at a
+    prefill group and every attention through the tensor-core bodies) and
+    one decode step (4·L + 3 a group); the kernel path's prefill logits
+    against the plain path's (no launch, the routing replayed); the decode
+    step's parting from the training forward with k_up's and v_up's
+    adapters live, printed (the reference's decode never reads them); then
+    teacher forcing with those adapters merged into W0
+    (:func:`merged_kv_up`): the decode step against the training forward
+    over prompt + 1, f32 within ``D_TOL`` with the argmax agreeing on every
+    row whose top-2 margin exceeds twice that (bf16: held by
+    :func:`mla_bf16`); the cache's bytes a token. Then the main path,
+    ``serve()`` with the live adapter (f32: ``dtype`` float32 and an f32
+    cache; bf16: the config's), the counters set to 0 just before and read
+    just after. Returns (stats, main-path launches, bf16 launches,
+    tensor-core launches, and for :func:`mla_bf16` what it compares)."""
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+
+    bsz, prompt, steps = (DS_SERVE[k] for k in ("batch", "prompt", "steps"))
+    max_len, L, dt = prompt + steps, cfg.num_layers, cfg.dtype
+    n_pre, n_dec = 6 * L, 4 * L  # MLA projections a prefill / decode layer
+    mdt = torch.float32 if dt == "float32" else torch.bfloat16
+    low = dt == "bfloat16"
+    model = build_model(cfg)
+    prefill, decode = make_prefill_step(model, lcfg), make_decode_step(model,
+                                                                       lcfg)
+    batch = make_batch_for(cfg, bsz, prompt, seed=0, device=device)
+    full = torch.cat([batch["tokens"], batch["targets"][:, -1:]], dim=1)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        cache = model.init_cache(bsz, max_len, mdt, device=device)
+        with route_log() as pre_log:
+            pre, cache = prefill(params, lora, batch, cache)
+        torch.cuda.synchronize()
+        calls, wide = pre_log.b3_calls(torch, cfg)
+        _moe_expect(kernels, f"{cfg.name} {dt} one prefill", n_pre + calls,
+                    L, dt, tc={"lora_matmul": n_pre + wide,
+                               "lora_matmul_decode": calls - wide,
+                               "flash_swa": L})
+        ties = pre_log.counts()["ties"]
+        k = cfg.num_experts_per_tok
+        print(f"  [mla] {cfg.name} {dt} prefill: {ties} of "
+              f"{bsz * prompt * (L - cfg.first_k_dense)} token-layers with "
+              f"the router's {k}th and {k + 1}th probabilities exactly tied",
+              flush=True)
+        kernels.reset_launch_counts()
+        with route_log() as dec_log:
+            _, dec, cache = decode(params, lora, full[:, -1:], cache, prompt)
+        torch.cuda.synchronize()
+        dcalls, dwide = dec_log.b3_calls(torch, cfg)
+        _moe_expect(kernels, f"{cfg.name} {dt} one decode step",
+                    n_dec + dcalls, 0, dt,
+                    tc={"lora_matmul": dwide,
+                        "lora_matmul_decode": n_dec + dcalls - dwide,
+                        "flash_swa": 0})
+        cache_bytes = mla_cache_bytes(cache, cfg)
+        del cache
+        kernels.reset_launch_counts()
+        with plain_ops(kernels), route_log(replay=pre_log.indices) as log:
+            cache = model.init_cache(bsz, max_len, mdt, device=device)
+            pre_plain, cache = prefill(params, lora, batch, cache)
+            del cache
+        torch.cuda.synchronize()
+        _expect(kernels, f"{cfg.name} {dt} plain path", {})
+        plain_flips = _held_flips(log, dt, f"{dt} plain-path prefill")
+        plain_own = log.own
+        err_kp = float((pre - pre_plain).abs().max())
+        if not low:
+            lscale = float(pre_plain.abs().max())
+            ok = bool(((pre - pre_plain).abs() <= MOE_P_TOL[0]
+                       * pre_plain.abs() + MOE_P_TOL[1] * lscale).all())
+            print(f"  [mla] f32 prefill last-position logits, kernel path vs "
+                  f"plain path: max |diff| {err_kp:.3e} (rtol {MOE_P_TOL[0]}"
+                  f", atol {MOE_P_TOL[1]} x logit scale {lscale:.3f}): "
+                  f"within={ok}", flush=True)
+            if not ok:
+                raise AssertionError("mla f32 serve: the kernel path "
+                                     "disagrees with the plain path")
+        routes = _joined_routes(torch, pre_log.indices, dec_log.indices, bsz)
+        with route_log(replay=routes):
+            live = model.apply(params, {"tokens": full}, lora=lora,
+                               lora_scale=lcfg.scale)[:, -1].clone()
+        torch.cuda.synchronize()
+        parting = float((dec[:, -1] - live).abs().max())
+        print(f"  [mla] {cfg.name} {dt} k_up / v_up adapters live: the decode "
+              f"step parts from the training forward by {parting:.4e} at a "
+              f"logit scale of {float(live.abs().max()):.3f} (the absorbed "
+              "decode reads the raw kernels, as the reference's)", flush=True)
+        del dec, live
+        mparams, mlora = merged_kv_up(torch, params, lora, lcfg.scale)
+        cache = model.init_cache(bsz, max_len, mdt, device=device)
+        with route_log() as m_pre:
+            _, cache = prefill(mparams, mlora, batch, cache)
+        with route_log() as m_dec:
+            _, dec, cache = decode(mparams, mlora, full[:, -1:], cache,
+                                   prompt)
+        del cache
+        routes_m = _joined_routes(torch, m_pre.indices, m_dec.indices, bsz)
+        with route_log(replay=routes_m) as log:
+            train = model.apply(mparams, {"tokens": full}, lora=mlora,
+                                lora_scale=lcfg.scale)[:, -1].clone()
+        torch.cuda.synchronize()
+        tf_flips = _held_flips(log, dt, f"{dt} training forward (merged)")
+        got = dec[:, -1].clone()
+        scale_tf = float(train.abs().max())
+        err_tf = float((got - train).abs().max())
+        if low:
+            print(f"  [mla] {cfg.name} bf16 teacher-forced decode (k_up / v_up "
+                  f"merged) vs the bf16 training forward: max |diff| "
+                  f"{err_tf:.4e} = {err_tf / scale_tf:.3f} of the logit scale "
+                  f"{scale_tf:.3f}", flush=True)
+        else:
+            ok, _ = _allclose(got, train, *D_TOL)
+            margin_tol = D_TOL[1] + D_TOL[0] * scale_tf
+            top2 = torch.topk(train, 2, dim=-1).values
+            sure = top2[:, 0] - top2[:, 1] > 2 * margin_tol
+            same = got.argmax(-1) == train.argmax(-1)
+            agree = bool(same[sure].all())
+            print(f"  [mla] {cfg.name} f32 teacher-forced decode (k_up / v_up "
+                  f"merged) vs the training forward: max |diff| {err_tf:.4e} "
+                  f"(rtol, atol {D_TOL}; logit scale {scale_tf:.3f}): "
+                  f"within={ok}; argmax agrees on {int(same.sum())} of {bsz} "
+                  f"rows, on the {int(sure.sum())} rows past 2 x tol: {agree}",
+                  flush=True)
+            if not (ok and agree):
+                raise AssertionError("mla f32 serve: prefill + decode "
+                                     "disagree with the training forward")
+        cmp = {"pre": pre, "pre_plain": pre_plain, "routes": routes,
+               "routes_tf": routes_m, "plain_own": plain_own, "decode": got,
+               "train": train, "full": full, "merged": (mparams, mlora)}
+        del dec
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kernels.reset_launch_counts()
+    with route_log(light=True) as log:
+        res = serve(cfg, batch_size=bsz, prompt_len=prompt, steps=steps,
+                    max_len=max_len, device=device, params=params, lora=lora,
+                    **({} if low else {"dtype": torch.float32,
+                                       "cache_dtype": torch.float32}))
+    launches = kernels.launch_counts()
+    bf16 = kernels.bf16_launch_counts()
+    tc = tc_launch_counts(kernels)
+    calls, wide = log.b3_calls(torch, cfg)
+    _moe_expect(kernels, f"{cfg.name} {dt} serve() (1 prefill + {steps} "
+                "decode steps)", n_pre + n_dec * steps + calls, L, dt,
+                tc={"lora_matmul": n_pre + wide,
+                    "lora_matmul_decode": n_dec * steps + calls - wide,
+                    "flash_swa": L})
+    toks = res.tokens
+    if toks.shape != (bsz, steps + 1) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"mla serve: bad tokens {toks.shape}")
+    stats = {"prefill_ms": res.prefill_ms,
+             "decode_ms_per_token": res.ms_per_token,
+             "decode_tokens_per_s": bsz * steps / (res.decode_ms / 1e3),
+             "prefill_tokens_per_s": bsz * prompt / (res.prefill_ms / 1e3),
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "err_teacher_forced": err_tf, "err_kernel_vs_plain": err_kp,
+             "kv_up_parting": parting, "router_ties": ties,
+             "plain_flips": plain_flips["flips"],
+             "tf_flips": tf_flips["flips"],
+             "b3_expert_calls_serve": calls, "cache": cache_bytes,
+             "seconds": time.perf_counter() - t0}
+    print(f"  [mla] {cfg.name} {dt} batch {bsz}, prompt {prompt}, {steps} "
+          f"decode steps, cache of {max_len}: prefill {res.prefill_ms:.1f} ms "
+          f"({stats['prefill_tokens_per_s']:.0f} tokens/s), decode "
+          f"{res.ms_per_token:.2f} ms/token "
+          f"({stats['decode_tokens_per_s']:.1f} tokens/s over the batch), "
+          f"peak {stats['peak_gib']:.2f} GiB; B3 on expert groups {calls} of "
+          f"{launches['lora_matmul']}; the cache "
+          f"{cache_bytes['bytes_per_token']:.0f} B a token over {L} layers "
+          f"against {cache_bytes['gqa_bytes_per_token']:.0f} for a 128-head "
+          f"GQA cache at these dims ({cache_bytes['ratio']:.1f}x; "
+          f"{cache_bytes['ref_ratio']:.1f}x against K and V of 128 a head); "
+          f"{stats['seconds']:.1f} s; first row {toks[0, :8].tolist()}",
+          flush=True)
+    return stats, launches, bf16, tc, cmp
+
+
+def mla_bf16(torch, kernels, device, scale):
+    """The bf16 serve at the bf16 depth cut (1 dense + 4 MoE layers) from
+    fresh draws (the port's own bf16 params, a rank-4 f32 adapter with
+    per-expert adapters and b drawn N(0, 0.05²)) through
+    :func:`mla_serve`, then two f32 answers over the same weights and
+    prompt + 1 tokens (:func:`moe_f32_answer`, a layer widened at a time):
+    over the live tree with the kernel path's routing replayed, for the
+    prefill, and over the merged tree (:func:`merged_kv_up`) with the
+    teacher-forcing run's routing, for the decode step. Held as
+    :func:`moe_bf16` holds mixtral: the kernel path's prefill logits no
+    further from the f32 answer than twice the bf16 plain path's plus one
+    bf16 rounding at the logit scale, and from the plain path's no further
+    than three times that distance plus the floor; the decode step no
+    further from its f32 answer than twice the bf16 training forward's plus
+    the floor, the argmax agreeing on every row whose f32 top-2 margin
+    exceeds twice that bound; the kernel path's expert sets apart from the
+    plain path's on no more than twice the token-layers the plain path's
+    are apart from the f32 answer's. Returns (stats, launches, bf16
+    launches, tensor-core launches)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import init_lora
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = replace(get_config(DS), num_layers=DS_DEPTH["bfloat16"])
+    if cfg.dtype != "bfloat16":
+        raise AssertionError(f"{DS}: config dtype {cfg.dtype}")
+    lcfg = LoRAConfig(rank=4, alpha=4 * scale, lora_experts=True)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    with torch.inference_mode():
+        params = build_model(cfg).init(gen, device)
+        lora = init_lora(gen, params, cfg, lcfg)
+        for k, leaf in _flat(lora).items():
+            if k.endswith("/b"):
+                leaf.normal_(0.0, 0.05, generator=gen)
+    torch.cuda.synchronize()
+    print(f"  [mla] {cfg.name} bf16 at depth {cfg.num_layers} (a cut of "
+          f"{get_config(DS).num_layers}): params and adapter on the card in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    stats, launches, bf16, tc, cmp = mla_serve(torch, kernels, device, cfg,
+                                               params, lora, lcfg)
+    f32, log = moe_f32_answer(torch, cfg, params, lora, lcfg, cmp["full"],
+                              cmp["routes"])
+    torch.cuda.synchronize()
+    f32_flips = _held_flips(log, "bfloat16", "f32 answer, live tree (bf16 "
+                            "weights widened)")
+    bsz = cmp["full"].shape[0]
+    prompt_own = [x.view(bsz, -1, x.shape[-1])[:, :-1].flatten(0, 1)
+                  for x in log.own]
+    n_kp = _set_flips([x.view(bsz, -1, x.shape[-1])[:, :-1].flatten(0, 1)
+                       for x in cmp["routes"]], cmp["plain_own"])
+    n_pf = _set_flips(cmp["plain_own"], prompt_own)
+    print(f"  [mla] bf16 prefill routing: the kernel path's expert sets "
+          f"differ from the plain path's on {n_kp} token-layers, the plain "
+          f"path's from the f32 answer's on {n_pf} (limit 2 x that): "
+          f"ok={n_kp <= 2 * n_pf}", flush=True)
+    if n_kp > 2 * n_pf:
+        raise AssertionError("mla bf16 serve: the kernel path routes further "
+                             "from the plain path than bf16 from f32")
+    pre32 = f32[:, 0]
+    del f32
+    mparams, mlora = cmp.pop("merged")
+    f32m, logm = moe_f32_answer(torch, cfg, mparams, mlora, lcfg, cmp["full"],
+                                cmp["routes_tf"])
+    torch.cuda.synchronize()
+    _held_flips(logm, "bfloat16", "f32 answer, merged tree")
+    next32 = f32m[:, 1]
+    del f32m, mparams, mlora
+    pre, pre_plain = cmp["pre"][:, -1], cmp["pre_plain"][:, -1]
+    floor = 2.0 ** -8 * float(pre32.abs().max())
+    err_k = float((pre - pre32).abs().max())
+    err_p = float((pre_plain - pre32).abs().max())
+    err_kp = float((pre - pre_plain).abs().max())
+    ok = err_k <= 2 * err_p + floor and err_kp <= 3 * err_p + floor
+    print(f"  [mla] bf16 prefill last-position logits: kernel path vs f32 "
+          f"{err_k:.4e}, bf16 plain path vs f32 {err_p:.4e} (bound 2 x that "
+          f"+ {floor:.4e} = {2 * err_p + floor:.4e}), kernel vs plain path "
+          f"{err_kp:.4e} (bound {3 * err_p + floor:.4e}); logit scale "
+          f"{float(pre32.abs().max()):.3f}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("mla bf16 serve: the kernel path's logits are "
+                             "further from the f32 answer than allowed")
+    floor = 2.0 ** -8 * float(next32.abs().max())
+    err_d = float((cmp["decode"] - next32).abs().max())
+    err_t = float((cmp["train"] - next32).abs().max())
+    bound = 2 * err_t + floor
+    top2 = torch.topk(next32, 2, dim=-1).values
+    sure = top2[:, 0] - top2[:, 1] > 2 * bound
+    same = cmp["decode"].argmax(-1) == next32.argmax(-1)
+    agree = bool(same[sure].all())
+    ok = err_d <= bound and agree
+    print(f"  [mla] bf16 teacher forcing (k_up / v_up merged): the decode "
+          f"step vs the f32 answer {err_d:.4e}, the bf16 training forward vs "
+          f"it {err_t:.4e} (bound 2 x that + {floor:.4e} = {bound:.4e}); "
+          f"argmax agrees with f32 on {int(same.sum())} of {bsz} rows, on "
+          f"the {int(sure.sum())} rows past 2 x bound: {agree}: ok={ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError("mla bf16 serve: the decode step is further from "
+                             "the f32 answer than allowed")
+    stats.update(err_vs_f32=err_k, err_plain_vs_f32=err_p,
+                 err_decode_vs_f32=err_d, err_train_vs_f32=err_t,
+                 f32_flips=f32_flips["flips"], flips_kernel_plain=n_kp,
+                 flips_plain_f32=n_pf,
+                 seconds=time.perf_counter() - t0,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del params, lora, cmp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, launches, bf16, tc
+
+
+def mla_phase(torch, kernels, device):
+    """Phase 11: deepseek-v2-236b at full width. The kernels at its shapes
+    (:func:`mla_kernel_phase`); training at the f32 depth cut
+    (:func:`moe_train`: fedex with per-expert adapters, after one MoE block
+    against the dense oracle and one MLA + MoE layer's kernel path against
+    its plain path) and the f32 serve of its folded W0 and global adapter
+    (:func:`mla_serve`); that state freed, the bf16 serve at the bf16
+    depth cut (:func:`mla_bf16`). Returns (max errors of the f32 cases, of
+    the bf16 cases, timings, launches, bf16 launches, stats)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import LoRAConfig, get_config
+
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = replace(get_config(DS), num_layers=DS_DEPTH["float32"],
+                  dtype="float32")
+    r, scale = 4, 2.0
+    errs, bf16_errs, timings = mla_kernel_phase(torch, kernels, device, cfg,
+                                                r=r, scale=scale)
+    stats = {"kernels_s": time.perf_counter() - t,
+             "kernels_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    launches = {name: 0 for name in SOURCES}
+    t1 = time.perf_counter()
+    trainer, stats["train"], got = moe_train(torch, kernels, device, cfg,
+                                             scale, tag="mla")
+    for k, v in got.items():
+        launches[k] += v
+    # only the stats and launches: the rest holds the f32 tree
+    served, got = mla_serve(
+        torch, kernels, device, cfg, trainer.params, trainer.global_lora,
+        LoRAConfig(rank=r, alpha=8.0, lora_experts=True))[:2]
+    for k, v in got.items():
+        launches[k] += v
+    stats["f32"] = dict(served, seconds=time.perf_counter() - t1)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["bf16"], got, bf16, tc = mla_bf16(torch, kernels, device, scale)
+    for k, v in got.items():
+        launches[k] += v
+    bf16 = dict(bf16, **{f"{k}_tc": v for k, v in tc.items()})
+    stats["seconds"] = time.perf_counter() - t
+    print(f"  [mla] phase 11 in {stats['seconds']:.1f} s; peak memory: "
           f"kernels {stats['kernels_peak_gib']:.2f} GiB, f32 training "
           f"{stats['train']['train_peak_gib']:.2f} GiB, f32 serve "
           f"{stats['f32']['peak_gib']:.2f} GiB, bf16 serve "
@@ -6254,6 +6959,34 @@ def moe_main() -> int:
     return 0
 
 
+def mla_main() -> int:
+    """``--mla``: phase 11 alone (:func:`mla_phase`) on this checkout's
+    port, after the build, its stats as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch import kernels
+    from repro_torch.kernels import build as kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi_line(), flush=True)
+    build_kernels(kbuild, "[mla]")
+    errs, bf16_errs, timings, launches, bf16, stats = mla_phase(
+        torch, kernels, torch.device("cuda", 0))
+    fields = {}
+    for key, t in timings.items():
+        fields.update(timing_fields(key, t))
+    print(smi_line(), flush=True)
+    print(json.dumps({"mla": stats, "launches": launches,
+                      "bf16_launches": bf16, "max_abs_err": errs,
+                      "bf16_max_abs_err": bf16_errs, "timings": fields}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -6275,6 +7008,8 @@ def main() -> int:
         return bf16_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--moe":
         return moe_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--mla":
+        return mla_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--fold-check":
         return fold_check_main()
     if not torch.cuda.is_available():
@@ -6296,7 +7031,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
-    print(f"[1/11] environment: python {sys.version.split()[0]}, torch "
+    print(f"[1/12] environment: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
@@ -6307,11 +7042,11 @@ def main() -> int:
           flush=True)
     print(smi, flush=True)
 
-    build_kernels(kbuild, "[2/11]")
+    build_kernels(kbuild, "[2/12]")
 
     cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
     c, r, scale = 4, 4, 8.0 / 4
-    print(f"[3/11] kernels vs plain versions (C={c}, r={r}, scale={scale})",
+    print(f"[3/12] kernels vs plain versions (C={c}, r={r}, scale={scale})",
           flush=True)
     errs, timings = kernel_phase(torch, kernels, device, cfg, c=c, r=r,
                                  scale=scale)
@@ -6335,7 +7070,7 @@ def main() -> int:
     print(f"  launch path: {json.dumps(cost)}", flush=True)
     torch.cuda.empty_cache()
 
-    print(f"[4/11] main paths: FederatedTrainer at {cfg.name} full width "
+    print(f"[4/12] main paths: FederatedTrainer at {cfg.name} full width "
           f"({cfg.num_layers} layers, d={cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}); {', '.join(GPT2_PATHS)} at "
           f"{gcfg.name} ({gcfg.num_layers} layers, d={gcfg.d_model}, vocab "
@@ -6365,24 +7100,24 @@ def main() -> int:
           flush=True)
     serve_stats = {}
     for scfg in (cfg, gcfg):
-        print(f"[5/11] serving: {scfg.name} at full width, prefill + KV-cache "
+        print(f"[5/12] serving: {scfg.name} at full width, prefill + KV-cache "
               "greedy decode with a LoRA adapter", flush=True)
         serve_stats[scfg.name], serve_launches = serve_phase(
             torch, kernels, device, scfg)
         for k in ("lora_matmul", "flash_swa"):
             launches[k] += serve_launches[k]
-    print(f"[6/11] obs and the HTTP federation service at {cfg.name} full "
+    print(f"[6/12] obs and the HTTP federation service at {cfg.name} full "
           "width: fedex+obs, serve-http, pull-serve, serve-http-hetero",
           flush=True)
     obs_launches, obs_stats = obs_http_phase(torch, kernels, device, cfg)
     for k, v in obs_launches.items():
         launches[k] += v
-    print(f"[7/11] mesh mode at {cfg.name} full width: "
+    print(f"[7/12] mesh mode at {cfg.name} full width: "
           f"{', '.join(MESH_PATHS)}", flush=True)
     mesh_launches, mesh_stats = mesh_phase(torch, kernels, device, cfg)
     for k, v in mesh_launches.items():
         launches[k] += v
-    print(f"[8/11] the rest of the dense zoo at full width: "
+    print(f"[8/12] the rest of the dense zoo at full width: "
           f"{', '.join(ZOO)}, each trained and served", flush=True)
     zoo_errs, zoo_timings, zoo_launches, zoo_stats = zoo_phase(
         torch, kernels, device)
@@ -6390,14 +7125,14 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in zoo_launches.items():
         launches[k] += v
-    print(f"[9/11] serving in bf16, the reference's default dtype: B3 and B8 "
+    print(f"[9/12] serving in bf16, the reference's default dtype: B3 and B8 "
           f"in bf16, then {', '.join(BF16_SERVE)} served at full width and "
           "depth", flush=True)
     bf16_errs, bf16_timings, bf16_main_launches, bf16_launches, bf16_stats = \
         bf16_phase(torch, kernels, device)
     for k, v in bf16_main_launches.items():
         launches[k] += v
-    print(f"[10/11] the MoE family: {MOE} at full width, trained and served "
+    print(f"[10/12] the MoE family: {MOE} at full width, trained and served "
           f"in f32 at depth {MOE_DEPTH['float32']} and served in bf16 at "
           f"depth {MOE_DEPTH['bfloat16']} (cuts of 56)", flush=True)
     (moe_errs, moe_bf16_errs, moe_timings, moe_launches, moe_bf16,
@@ -6405,6 +7140,17 @@ def main() -> int:
     for k, v in moe_errs.items():
         errs[k] = max(errs[k], v)
     for k, v in moe_launches.items():
+        launches[k] += v
+    print(f"[11/12] Multi-head Latent Attention on the MoE stack: {DS} at "
+          f"full width, trained and served in f32 at depth "
+          f"{DS_DEPTH['float32']} and served in bf16 at depth "
+          f"{DS_DEPTH['bfloat16']} (1 dense + MoE layers, cuts of 60)",
+          flush=True)
+    (mla_errs, mla_bf16_errs, mla_timings, mla_launches, mla_bf16,
+     mla_stats) = mla_phase(torch, kernels, device)
+    for k, v in mla_errs.items():
+        errs[k] = max(errs[k], v)
+    for k, v in mla_launches.items():
         launches[k] += v
     main_body = {**timings["weighted-partial"], **lane_timings,
                  "lora_matmul": serve_timings["lora_matmul[prefill]"],
@@ -6508,6 +7254,27 @@ def main() -> int:
             "mixtral_bf16_max_abs_err": moe_bf16_errs[name]})
     out[list(SOURCES).index("lora_matmul")][
         "mixtral_bf16_tc_decode_launches"] = moe_bf16["lora_matmul_decode_tc"]
+    # deepseek-v2-236b's shapes (phase 11): B1 at the up-proj expert leaf,
+    # B2 over a close's 30 stacks, B3 at one layer's six MLA projections
+    # (prefill; decode's four) in f32 and bf16 and at the expert
+    # projections, B8 at the MLA prefill (d 192, v padded) in f32 and bf16;
+    # the bf16 and tensor-core launches of its bf16 serve() run
+    for name, key, t in (
+            ("fedex_fold", "ds", mla_timings["fedex_fold"]),
+            ("factor_mean", "ds", mla_timings["factor_mean"]),
+            *(("lora_matmul", key, mla_timings[key]) for key in (
+                "ds", "ds_decode", "ds_bf16", "ds_bf16_decode", "ds_expert",
+                "ds_expert_bf16", "ds_expert_bf16_decode")),
+            ("flash_swa", "ds", mla_timings["flash_ds"]),
+            ("flash_swa", "ds_bf16", mla_timings["flash_ds_bf16"])):
+        out[list(SOURCES).index(name)].update(timing_fields(key, t))
+    for name in ("lora_matmul", "flash_swa"):
+        out[list(SOURCES).index(name)].update({
+            "ds_bf16_launches": mla_bf16[name],
+            "ds_bf16_tc_launches": mla_bf16[f"{name}_tc"],
+            "ds_bf16_max_abs_err": mla_bf16_errs[name]})
+    out[list(SOURCES).index("lora_matmul")][
+        "ds_bf16_tc_decode_launches"] = mla_bf16["lora_matmul_decode_tc"]
     # B5 beside its old body (product_fold in place), and at the chunk of
     # 64 uplinks at r = 8 that docs/benchmarks.md documents
     ms, _, lib_ms, (bms, by), *_ = lane_timings["product_accum[C64r8]"]
@@ -6516,14 +7283,14 @@ def main() -> int:
         "C64r8_prior_ms": lane_prior["product_accum[C64r8]"],
         "C64r8_library_ms": lib_ms, "C64r8_bound_ms": bms,
         "C64r8_bound_by": by})
-    print(f"[11/11] done in {time.perf_counter() - t_start:.1f} s; identity "
+    print(f"[12/12] done in {time.perf_counter() - t_start:.1f} s; identity "
           "max "
           f"err per path {json.dumps(identities)}; resume "
           f"{json.dumps(resume)}; serving "
           f"{json.dumps(serve_stats)}; obs and http "
           f"{json.dumps(obs_stats)}; mesh {json.dumps(mesh_stats)}; zoo "
           f"{json.dumps(zoo_stats)}; bf16 {json.dumps(bf16_stats)}; moe "
-          f"{json.dumps(moe_stats)}; rounds "
+          f"{json.dumps(moe_stats)}; mla {json.dumps(mla_stats)}; rounds "
           + json.dumps([{k: v for k, v in row.items()
                          if k != "client_losses"} for row in all_rows]),
           flush=True)

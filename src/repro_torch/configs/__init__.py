@@ -1,20 +1,22 @@
 """Config registry of the port: the paper's own models, every dense
-model of the reference's registry and its first MoE model.
+model of the reference's registry and its two MoE models.
 
 ``get_config(name)`` covers ``paper-tiny``, ``paper-gpt2``,
 ``paper-llama3.2-3b``, ``qwen2.5-3b``, ``granite-8b``, ``starcoder2-15b``,
-``gemma3-12b`` and ``mixtral-8x22b`` (``<name>-smoke`` gives the reduced
-variant), with the reference's dataclasses copied in
+``gemma3-12b``, ``mixtral-8x22b`` and ``deepseek-v2-236b`` (``<name>-smoke``
+gives the reduced variant), with the reference's dataclasses copied in
 :mod:`repro_torch.configs.base`.
 """
 
-from repro_torch.configs import (gemma3_12b, granite_8b, mixtral_8x22b,
-                                 paper_models, qwen2_5_3b, starcoder2_15b)
+from repro_torch.configs import (deepseek_v2_236b, gemma3_12b, granite_8b,
+                                 mixtral_8x22b, paper_models, qwen2_5_3b,
+                                 starcoder2_15b)
 from repro_torch.configs.base import (FedConfig, LoRAConfig, ModelConfig,
                                       ServeConfig, TrainConfig, config_dict,
                                       validate_fed_lora)
 
 CONFIGS = {
+    "deepseek-v2-236b": deepseek_v2_236b.CONFIG,
     "gemma3-12b": gemma3_12b.CONFIG,
     "granite-8b": granite_8b.CONFIG,
     "mixtral-8x22b": mixtral_8x22b.CONFIG,

@@ -181,18 +181,17 @@ def cache_write(cache: Params, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
-def _prefill_cache(cache: Params, k: torch.Tensor, v: torch.Tensor,
-                   positions: torch.Tensor) -> Params:
-    """Fill the cache with the prompt's K/V, left-aligned (the last
-    ``length`` positions if the prompt is longer), zeros and pos −1 past
-    it — in place (reference :401–413)."""
-    length = cache["k"].shape[1]
-    kk, vv, ppos = k[:, -length:], v[:, -length:], positions[-length:]
-    n = kk.shape[1]
-    cache["k"][:, :n] = kk.to(cache["k"].dtype)
-    cache["v"][:, :n] = vv.to(cache["v"].dtype)
-    cache["k"][:, n:] = 0
-    cache["v"][:, n:] = 0
+def _prefill_cache(cache: Params, positions: torch.Tensor,
+                   **entries: torch.Tensor) -> Params:
+    """Fill the cache's buffers named by ``entries`` (K and V; MLA's c_kv
+    and k_rope) with the prompt's, left-aligned (the last ``length``
+    positions if the prompt is longer), zeros and pos −1 past them — in
+    place (reference :401–413)."""
+    ppos = positions[-cache["pos"].shape[0]:]
+    n = ppos.shape[0]
+    for name, t in entries.items():
+        cache[name][:, :n] = t[:, -n:].to(cache[name].dtype)
+        cache[name][:, n:] = 0
     cache["pos"][:n] = ppos.to(torch.int32)
     cache["pos"][n:] = -1
     return cache
@@ -271,7 +270,7 @@ def attention_block(cfg, params: Params, x: torch.Tensor, *,
         cache_write(cache, k, v, decode_position)
         out = decode_attention(q, cache, decode_position, window=window)
     elif serving:
-        _prefill_cache(cache, k, v, positions)
+        _prefill_cache(cache, positions, k=k, v=v)
         out = swa_attention(q, k, v, causal=True, window=window)
     else:
         out = flash_attention(q, k, v, window=window)

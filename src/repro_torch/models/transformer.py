@@ -14,8 +14,10 @@ windows every layer of the plain stack. Windowed layers keep ring caches of
 its MoE layers under ``layers`` (each MLP a router and raw expert stacks,
 :mod:`repro_torch.models.moe`) behind ``first_k_dense`` dense layers under
 ``dense_layers`` (MLP width ``dense_d_ff``); its router aux losses sum
-over the layers. Where JAX scans the stacked parameters,
-the port runs a Python loop over the layer (and period) index. The
+over the layers. A config with ``mla`` (deepseek-v2) runs every layer's
+attention as Multi-head Latent Attention (:mod:`repro_torch.models.mla`),
+whose caches hold the compressed latents. Where JAX scans the stacked
+parameters, the port runs a Python loop over the layer (and period) index. The
 reference's ``remat`` has no counterpart: at the batch sizes the port
 trains, activations fit without recomputation.
 """
@@ -30,6 +32,7 @@ from repro_torch.models.attention import attention_block, init_kv_cache
 from repro_torch.models.common import (Params, apply_norm, dtype_of, embed,
                                        make_dense_params, make_norm_params,
                                        normal_init, unembed)
+from repro_torch.models.mla import init_mla_cache, make_mla_params, mla_block
 from repro_torch.models.mlp import make_mlp_params, mlp_block
 from repro_torch.models.moe import make_moe_params, moe_block
 
@@ -44,18 +47,13 @@ def check_supported(cfg) -> None:
     q/k/v (and, under LayerNorm, MLP) biases, tied or untied unembedding,
     global attention, a sliding window on every layer, or periods of local
     (windowed) and global layers — and its MoE counterpart (top-k routed
-    experts, shared experts, leading dense layers). As in the reference,
-    the family decides: a dense config with ``num_experts`` builds dense
-    MLPs."""
-    unsupported = {
-        "family": cfg.family not in FAMILIES,
-        "mla": cfg.mla,
-    }
-    asked = [k for k, v in unsupported.items() if v]
-    if asked:
+    experts, shared experts, leading dense layers), either with Multi-head
+    Latent Attention (``mla``). As in the reference, the family decides: a
+    dense config with ``num_experts`` builds dense MLPs."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"config {cfg.name!r} asks for {asked}: the port runs only the "
-            "dense and MoE decoders so far")
+            f"config {cfg.name!r} asks for family {cfg.family!r}: the port "
+            "runs only the dense and MoE decoders so far")
 
 
 def _periods(cfg):
@@ -66,14 +64,16 @@ def _periods(cfg):
 
 def _layer_params(gen, cfg, lead, dtype, device, *, moe: bool = False,
                   d_ff: int = 0) -> Params:
-    """One decoder layer's leaves, stacked on the ``lead`` axes: a MoE MLP
-    with ``moe``, else a dense one of width ``d_ff`` (0: ``cfg.d_ff``)."""
+    """One decoder layer's leaves, stacked on the ``lead`` axes: MLA's
+    attention with ``cfg.mla``, else q/k/v/o; a MoE MLP with ``moe``, else a
+    dense one of width ``d_ff`` (0: ``cfg.d_ff``)."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv, bias = cfg.num_heads, cfg.num_kv_heads, cfg.qkv_bias
     return {
         "attn_norm": make_norm_params(cfg.norm, (*lead, d), dtype, device),
         "mlp_norm": make_norm_params(cfg.norm, (*lead, d), dtype, device),
-        "attn": {
+        "attn": make_mla_params(gen, cfg, dtype, device, lead) if cfg.mla
+        else {
             "q_proj": make_dense_params(gen, (*lead, d, h * hd), dtype,
                                         device, bias=bias),
             "k_proj": make_dense_params(gen, (*lead, d, kv * hd), dtype,
@@ -145,13 +145,18 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
     layer's ``length`` is ``min(window, cache_len)`` (a ring), a global
     layer's ``cache_len``. A MoE config's cache is ``{"layers": …}`` over
     its MoE layers, with ``{"dense_layers": …}`` over its leading dense
-    ones."""
+    ones. An MLA config's layers hold ``{"c_kv": (L, batch, length,
+    kv_lora_rank), "k_rope": (L, batch, length, qk_rope_head_dim), "pos"}``
+    instead of k and v."""
     check_supported(cfg)
 
     def stacked(lead, window):
         length = min(window, cache_len) if window else cache_len
-        one = init_kv_cache(batch, length, cfg.num_kv_heads,
-                            cfg.resolved_head_dim, dtype, device)
+        if cfg.mla:
+            one = init_mla_cache(batch, length, cfg, dtype, device)
+        else:
+            one = init_kv_cache(batch, length, cfg.num_kv_heads,
+                                cfg.resolved_head_dim, dtype, device)
         return {k: v.expand(*lead, *v.shape).clone() for k, v in one.items()}
 
     if cfg.local_global_ratio:
@@ -188,15 +193,22 @@ def decoder_layer(cfg, p: Params, x: torch.Tensor, *,
     """One pre-norm layer (the reference's ``_attn_mlp_layer``) of its own
     leaves ``p``, adapter ``lora`` and cache → ``(x, aux)``: attention,
     then the dense MLP (aux None) or the MoE block (its router's aux loss).
+    An MLA config's attention is :func:`~repro_torch.models.mla.mla_block`.
     With a cache (serving) the adapted projections run the fused LoRA
     kernel."""
     lora = lora or {}
     fused = cache is not None
     h_in = apply_norm(cfg.norm, p["attn_norm"], x)
-    attn, _ = attention_block(cfg, p["attn"], h_in, lora=lora.get("attn"),
-                              lora_scale=lora_scale, positions=positions,
-                              window=window, cache=cache,
-                              decode_position=position)
+    if cfg.mla:
+        attn, _ = mla_block(cfg, p["attn"], h_in, lora=lora.get("attn"),
+                            lora_scale=lora_scale, positions=positions,
+                            cache=cache, decode_position=position)
+    else:
+        attn, _ = attention_block(cfg, p["attn"], h_in,
+                                  lora=lora.get("attn"),
+                                  lora_scale=lora_scale, positions=positions,
+                                  window=window, cache=cache,
+                                  decode_position=position)
     x = x + attn
     m_in = apply_norm(cfg.norm, p["mlp_norm"], x)
     if "router" in p["mlp"]:

@@ -966,6 +966,9 @@ BF16_FLASH_CASES = [
     (2, 256, 4, 4, 64, True, 1), (2, 333, 4, 2, 256, False, 0),
     (1, 500, 8, 4, 256, False, 300), (2, 200, 4, 4, 32, True, 0),
     (2, 260, 4, 2, 136, True, 0),
+    # deepseek-v2-236b's MLA prefill: q and k of 192 (nope 128 + rope 64),
+    # v zero-padded to 192, MHA
+    (1, 512, 16, 16, 192, True, 0), (2, 300, 4, 4, 192, True, 0),
 ]
 
 
@@ -1111,9 +1114,11 @@ def test_lora_matmul_bf16_rounds_x_at_a_once(cuda, case):
 
 BF16_PROBE_FLASH = [
     # (B, S, H, KVH, d, causal): DP 64 (paper-gpt2's MHA), 128 (Llama's GQA
-    # 24/8), 256 (gemma3's GQA 16/8) at their prefill lengths, non-causal,
-    # and d 66 (the scalar loads)
+    # 24/8), 256 (gemma3's GQA 16/8; deepseek's MLA at d 192, one column
+    # box past d) at their prefill lengths, non-causal, and d 66 (the
+    # scalar loads)
     (2, 512, 12, 12, 64, True), (2, 512, 24, 8, 128, True),
+    (2, 512, 16, 16, 192, True),
     (1, 2048, 16, 8, 256, True), (2, 300, 4, 2, 128, False),
     (2, 130, 4, 4, 66, True),
 ]

@@ -116,18 +116,31 @@ def test_split_plan_is_cached():
 
 
 def _projections(name):
-    """(projection, K, N) of one layer's adapted q/k/v/o of a served model."""
+    """(projection, K, N) of one layer's adapted q/k/v/o of a served model;
+    of an MLA model its six attention projections and its two expert
+    shapes (up/gate, down)."""
     c = get_config(name)
     d, hd = c.d_model, c.resolved_head_dim
+    if c.mla:
+        h, kvr = c.num_heads, c.kv_lora_rank
+        nope, rope, dv = (c.qk_nope_head_dim, c.qk_rope_head_dim,
+                          c.v_head_dim)
+        return [("q_down", d, c.q_lora_rank),
+                ("q_up", c.q_lora_rank, h * (nope + rope)),
+                ("kv_down", d, kvr + rope), ("k_up", kvr, h * nope),
+                ("v_up", kvr, h * dv), ("o", h * dv, d),
+                ("expert_up", d, c.moe_d_ff), ("expert_down", c.moe_d_ff, d)]
     return [("q", d, c.num_heads * hd), ("k", d, c.num_kv_heads * hd),
             ("v", d, c.num_kv_heads * hd), ("o", c.num_heads * hd, d)]
 
 
-# every served q/k/v/o (paper-llama3.2-3b and paper-gpt2 at batch 8 ×
-# prompt 512, gemma3-12b at 2 × 2048: M 4096) at its prefill rows and at
-# the serve launcher's default prompt (M 64)
+# every served q/k/v/o (paper-llama3.2-3b, paper-gpt2 and deepseek-v2-236b
+# at batch 8 × prompt 512, gemma3-12b at 2 × 2048: M 4096; deepseek's MLA
+# and expert projections) at its prefill rows and at the serve launcher's
+# default prompt (M 64)
 SERVED = [(name, proj, m, k, n)
-          for name in ("paper-llama3.2-3b", "paper-gpt2", "gemma3-12b")
+          for name in ("paper-llama3.2-3b", "paper-gpt2", "gemma3-12b",
+                       "deepseek-v2-236b")
           for proj, k, n in _projections(name) for m in (4096, 64)]
 
 
@@ -218,12 +231,15 @@ def test_tensor_core_work_holds_a_transposed(m, k, n, r):
     assert (floats == 0) == (r == 0)
 
 
-# every served q/k/v/o at its decode rows (paper-llama3.2-3b and paper-gpt2
-# at batch 8, gemma3-12b at batch 2) and at the serve launcher's batch 2
+# every served q/k/v/o at its decode rows (paper-llama3.2-3b, paper-gpt2
+# and deepseek-v2-236b at batch 8, gemma3-12b at batch 2) and at the serve
+# launcher's batch 2 (deepseek's k_up and v_up are absorbed in decode, but
+# a prefill's expert group of ≤ 16 rows takes the same body)
 SERVED_DECODE = [(name, proj, m, k, n)
                  for name, rows in (("paper-llama3.2-3b", (8, 2)),
                                     ("paper-gpt2", (8, 2)),
-                                    ("gemma3-12b", (2,)))
+                                    ("gemma3-12b", (2,)),
+                                    ("deepseek-v2-236b", (8, 2)))
                  for proj, k, n in _projections(name) for m in rows]
 
 

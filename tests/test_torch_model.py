@@ -94,10 +94,11 @@ def test_config_dataclass_defaults_match():
 
 
 def test_unsupported_branch_raises():
-    # windowed attention and experts run in the port; MLA does not
-    mla = dataclasses.replace(get_config("paper-tiny"), mla=True)
-    with pytest.raises(NotImplementedError, match="mla"):
-        build_model(mla)
+    # windowed attention, experts and MLA run in the port; xlstm's
+    # recurrent blocks (family "ssm") do not
+    xlstm = _port_cfg(jax_get_config("xlstm-1.3b"))
+    with pytest.raises(NotImplementedError, match="ssm"):
+        build_model(xlstm)
 
 
 def test_param_paths_line_up_with_the_reference():

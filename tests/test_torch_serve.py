@@ -361,9 +361,9 @@ def test_forward_modes_check_their_arguments(state):
     with pytest.raises(ValueError, match="position"):
         transformer.forward(pm.cfg, tp, toks[:, :1], mode="decode",
                             cache=cache)
-    mla = dataclasses.replace(get_config("paper-tiny"), mla=True)
-    with pytest.raises(NotImplementedError, match="mla"):
-        transformer.init_cache(mla, 1, 8, device=CPU)
+    hybrid = _port_cfg(jax_get_config("zamba2-7b"))
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        transformer.init_cache(hybrid, 1, 8, device=CPU)
 
 
 # --------------------------------------------------------------------------

@@ -129,7 +129,8 @@ def _state(arch):
 def test_registry_has_every_dense_config_of_the_reference():
     names = ("granite-8b", "starcoder2-15b", "gemma3-12b")
     assert set(names) <= set(list_configs())
-    assert len(list_configs()) == 8  # and mixtral-8x22b (test_torch_moe)
+    # and mixtral-8x22b (test_torch_moe), deepseek-v2-236b (test_torch_mla)
+    assert len(list_configs()) == 9
     for name in names:
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
             jax_get_config(name))
@@ -140,18 +141,18 @@ def test_registry_has_every_dense_config_of_the_reference():
             g.head_dim) == (2, 1, 64, 64)
 
 
-# mixtral-8x22b with MLA: the MoE family runs in the port, MLA on it does not
-@pytest.mark.parametrize("name,mla", [("mixtral-8x22b", True),
-                                      ("deepseek-v2-236b", False),
-                                      ("zamba2-7b", False),
-                                      ("whisper-medium", False)],
-                         ids=["mixtral-8x22b", "deepseek-v2-236b",
-                              "zamba2-7b", "whisper-medium"])
-def test_other_families_stay_refused(name, mla):
+# the dense and MoE families (MLA included) run in the port; the others
+# are refused by their family's name
+@pytest.mark.parametrize("name,family", [("xlstm-1.3b", "ssm"),
+                                         ("internvl2-76b", "vlm"),
+                                         ("zamba2-7b", "hybrid"),
+                                         ("whisper-medium", "encdec")],
+                         ids=["xlstm-1.3b", "internvl2-76b", "zamba2-7b",
+                              "whisper-medium"])
+def test_other_families_stay_refused(name, family):
     cfg = jax_get_config(name)
-    if mla:
-        cfg = dataclasses.replace(cfg, mla=True)
-    with pytest.raises(NotImplementedError):
+    assert cfg.family == family
+    with pytest.raises(NotImplementedError, match=family):
         check_supported(_port_cfg(cfg))
 
 
