@@ -11,6 +11,8 @@
     python3 chip_smoke.py --zoo               # phase 8 alone
     python3 chip_smoke.py --bf16              # phase 9 alone
     python3 chip_smoke.py --moe               # phase 10 alone
+    python3 chip_smoke.py --mla               # phase 11 alone
+    python3 chip_smoke.py --hybrid            # phase 12 alone
     python3 chip_smoke.py --fold-check        # phase 3's fedex_fold checks
 
 Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
@@ -313,7 +315,25 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    accumulate over the layers) the kernel path's prefill logits, routing
    and teacher-forced decode held against the f32 answer over the same
    weights, widened a layer at a time, as phase 9 holds its serves;
-11. one JSON line with every ported kernel: ``ms`` and ``library_ms``
+11. Multi-head Latent Attention on the MoE stack (``mla_phase``, ``[mla]``
+   lines; ``--mla``): ``deepseek-v2-236b`` at full width, cut in depth
+   (``DS_DEPTH``), trained and served as phase 10 runs mixtral;
+12. the hybrid family (``hybrid_phase``, ``[zb]`` lines; ``--hybrid``):
+   ``zamba2-7b`` at full width and depth (``ZB_DEPTH``: 81 Mamba2 layers,
+   13 applications of the one shared attention + MLP block). B1 at the
+   stacked in_proj leaf (78 × 3584 × 14,464, 4.04·10⁹ elements) in
+   8-matrix chunks against its plain version, B2 over a close's 16 stacks,
+   B3 at in_proj and out_proj (f32 and bf16, M 4096 and 8: every body) and
+   B8 at the shared block's head dim 112 (f32 and bf16), each timed beside
+   its plain version, the bound and the library call, and the d-112 and
+   projection probes bitwise; fedex training (a uniform round, then 50%
+   with example weights: ``factor_mean`` 1, ``fedex_fold`` 8); ``serve()``
+   of the folded tree in f32 and of fresh draws in bf16 (B3 214 a prefill
+   and a decode step, B8 13 a prefill), the kernel path against the plain
+   path, teacher forcing, in bf16 against the f32 answer widened a layer at
+   a time; the Mamba2 state's bytes a sequence and the shared KV cache's
+   bytes a token;
+13. one JSON line with every ported kernel: ``ms`` and ``library_ms``
    host-inclusive, ``device_ms`` and ``library_device_ms`` device time
    (:meth:`Timer.device`), at the main body; B2's row adds one close's launch path
    (``close_wall_us``, ``close_enqueue_us``: :func:`launch_cost`), B3's
@@ -346,8 +366,11 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    ``mixtral_*`` and ``mixtral_bf16_*``, with ``mixtral_bf16_launches``
    and ``mixtral_bf16_tc_launches`` (B3's also
    ``mixtral_bf16_tc_decode_launches``) of its bf16 ``serve()`` run and
-   ``mixtral_bf16_max_abs_err`` (its bf16 kernel checks'); then the
-   result line.
+   ``mixtral_bf16_max_abs_err`` (its bf16 kernel checks'); at
+   deepseek-v2-236b's (phase 11) as ``ds_*`` and at zamba2-7b's (phase
+   12) as ``zb_*`` likewise (B3's ``zb``, ``zb_decode``, ``zb_bf16``,
+   ``zb_bf16_decode``: in_proj and out_proj; B8's ``zb`` and ``zb_bf16``
+   at d 112); then the result line.
 
 ``--launch-cost SRC`` runs :func:`launch_cost` alone on the port found
 under ``SRC`` (another tree's ``src`` too, to compare two trees in one
@@ -4934,11 +4957,12 @@ def _w0(node):
 
 
 def expert_fold_case(torch, kernels, timer, device, tag, n_mat, d, ff, c,
-                     live, r, scale, seed):
-    """B1 at an expert leaf of ``n_mat`` stacked (d, ff) matrices, ``live``
-    lanes of ``c`` weighted, against its plain version in chunks of 8
-    matrices (every chunk, the far end of the leaf included), timed beside
-    ``baddbmm``. Returns (max error, timings, the lane weights)."""
+                     live, r, scale, seed, leaf="up-proj"):
+    """B1 at a ``leaf`` of ``n_mat`` stacked (d, ff) matrices (an expert
+    leaf; zamba2's stacked in_proj), ``live`` lanes of ``c`` weighted,
+    against its plain version in chunks of 8 matrices (every chunk, the
+    far end of the leaf included), timed beside ``baddbmm``. Returns (max
+    error, timings, the lane weights)."""
     w0, a, b, w = make_inputs(torch, device, c, (n_mat,), d, ff, r, live,
                               seed=seed)
     out = torch.empty_like(w0)
@@ -4954,12 +4978,12 @@ def expert_fold_case(torch, kernels, timer, device, tag, n_mat, d, ff, c,
         err = (out[part] - want).abs()
         err_max = max(err_max, float(err.max()))
         if not bool((err <= bound).all()):
-            raise AssertionError(f"fedex_fold at {tag}'s expert leaf, "
+            raise AssertionError(f"fedex_fold at {tag}'s {leaf} leaf, "
                                  f"matrices {i}..{i + chunk - 1}: disagrees "
                                  "with its plain version")
         del want, bound, err
     far = out[-1, -1, -1]
-    print(f"  [{tag}] fedex_fold up-proj leaf ({n_mat}, {d}, {ff}) = "
+    print(f"  [{tag}] fedex_fold {leaf} leaf ({n_mat}, {d}, {ff}) = "
           f"{w0.numel():,} elements, C={c} r={r}, live {list(live)}: every "
           f"chunk of {chunk} within bound of the plain version, max_abs_err "
           f"{err_max:.3e}; the far end out[{n_mat - 1}, {d - 1}, "
@@ -4986,8 +5010,8 @@ def expert_fold_case(torch, kernels, timer, device, tag, n_mat, d, ff, c,
     t = (timer(fold_kernel), timer(fold_plain), timer(fold_library), fb,
          timer.device(fold_kernel, fb[0]), timer.device(fold_library, fb[0]))
     ms, plain, lib, (bms, by), dev, dev_lib = t
-    print(f"  [{tag}] time fedex_fold up-proj leaf: kernel {ms:.4f} ms, plain "
-          f"{plain:.4f} ms ({n_mat // chunk} chunks), library {lib:.4f} "
+    print(f"  [{tag}] time fedex_fold {leaf} leaf: kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms ({-(-n_mat // chunk)} chunks), library {lib:.4f} "
           f"ms (baddbmm), bound {bms:.4f} ms ({by}); device time kernel "
           f"{fmt_ms(dev)}{share(bms, dev)}, library {fmt_ms(dev_lib)}",
           flush=True)
@@ -5175,18 +5199,20 @@ def moe_snapshot(trainer):
     return out
 
 
-def moe_train(torch, kernels, device, cfg, scale, tag="moe"):
+def moe_train(torch, kernels, device, cfg, scale, tag="moe", lcfg=None):
     """Phase 10's training path at the f32 depth cut: 4 clients, 3 local
     steps, batch 8 × seq 64 of a 512-token data vocabulary, fedex with
-    per-expert adapters; round 0 uniform over all clients, round 1 at 50%
-    participation with example weights (the weighted close: ``factor_mean``
-    1, ``fedex_fold`` one an adapted leaf: mixtral's 7, q, k, v, o, up,
-    gate, down; deepseek's 15, six MLA projections in each of its two
-    stacks and the three expert leaves), the counters set to 0 just before
-    the rounds and read just after, the fold checked by
-    :func:`identity_sampled` on :func:`moe_snapshot`'s matrices. Before it,
-    :func:`moe_layer_check` on the drawn layer 0 (an MLA config also
-    :func:`mla_layer_check`). Returns (trainer, stats, launches)."""
+    per-expert adapters (or ``lcfg``'s); round 0 uniform over all clients,
+    round 1 at 50% participation with example weights (the weighted close:
+    ``factor_mean`` 1, ``fedex_fold`` one an adapted leaf: mixtral's 7, q,
+    k, v, o, up, gate, down; deepseek's 15, six MLA projections in each of
+    its two stacks and the three expert leaves; zamba2's 8, in_proj and
+    out_proj of its two Mamba2 stacks and the shared block's q, k, v, o),
+    the counters set to 0 just before the rounds and read just after, the
+    fold checked by :func:`identity_sampled` on :func:`moe_snapshot`'s
+    matrices. Before it, a MoE config's :func:`moe_layer_check` on the
+    drawn layer 0 (an MLA config also :func:`mla_layer_check`). Returns
+    (trainer, stats, launches)."""
     from repro_torch.configs import (FedConfig, LoRAConfig, TrainConfig,
                                      get_config)
     from repro_torch.core import FederatedTrainer
@@ -5202,7 +5228,7 @@ def moe_train(torch, kernels, device, cfg, scale, tag="moe"):
         batch_size=run["batch"], device=device)
     trainer = FederatedTrainer(
         model=build_model(cfg),
-        lora_cfg=LoRAConfig(rank=4, alpha=8.0, lora_experts=True),
+        lora_cfg=lcfg or LoRAConfig(rank=4, alpha=8.0, lora_experts=True),
         fed_cfg=FedConfig(num_clients=run["clients"], rounds=2,
                           local_steps=run["local_steps"]),
         train_cfg=TrainConfig(learning_rate=5e-3, schedule="constant",
@@ -5211,13 +5237,16 @@ def moe_train(torch, kernels, device, cfg, scale, tag="moe"):
     torch.cuda.synchronize()
     eng = trainer.engine
     raw = sum(not s.has_kernel for s in eng.specs)
-    print(f"  [{tag}] {cfg.name} at depth {cfg.num_layers} (a cut of "
-          f"{get_config(cfg.name).num_layers}), "
+    print(f"  [{tag}] {cfg.name} at depth {cfg.num_layers} of "
+          f"{get_config(cfg.name).num_layers}, "
           f"{cfg.dtype}: {count_params(trainer.params) / 1e9:.2f} B params "
           f"on the card, {len(eng.specs)} adapted leaves ({raw} raw expert "
           f"stacks); set-up {time.perf_counter() - t0:.1f} s", flush=True)
-    layer_err = moe_layer_check(torch, kernels, device, cfg, trainer.params,
-                                trainer.global_lora, scale, tag)
+    layer_err = None
+    if cfg.family == "moe":
+        layer_err = moe_layer_check(torch, kernels, device, cfg,
+                                    trainer.params, trainer.global_lora,
+                                    scale, tag)
     if cfg.mla:
         layer_err = max(layer_err, mla_layer_check(
             torch, kernels, device, cfg, trainer.params, trainer.global_lora,
@@ -6312,6 +6341,447 @@ def mla_phase(torch, kernels, device):
           f"{stats['bf16']['peak_gib']:.2f} GiB", flush=True)
     return errs, bf16_errs, timings, launches, bf16, stats
 
+# --------------------------------------------------------------------------
+# phase 12: the hybrid family (zamba2-7b: Mamba2 layers + one shared block)
+# --------------------------------------------------------------------------
+
+ZB = "zamba2-7b"
+# Full depth, no cut: 81 Mamba2 layers (13 periods of 6, each followed by
+# the one parameter-shared attention + MLP block, then 3 trailing) of
+# ≈ 77.6 M parameters each, the shared block ≈ 205 M, embed + lm_head
+# ≈ 229 M: ≈ 6.72·10⁹ parameters, ≈ 26.9 GB in f32 and ≈ 13.4 GB in bf16,
+# so one 80 GB card holds every layer. Training runs at full depth in f32
+# too (reckoned: the weights' 27 GB, batch 8 × 64's activations through
+# 81 Mamba2 layers and 13 shared applications, and the uniform close's
+# temporaries of the 16.2 GB stacked in_proj leaf after them).
+ZB_DEPTH = {"float32": 81, "bfloat16": 81}
+ZB_SERVE = {"batch": 8, "prompt": 512, "steps": 32}  # cache prompt + steps
+
+
+def hybrid_projections(cfg):
+    """(name, K, N) of a Mamba2 layer's two adapted projections: in_proj
+    (d → z, x, B, C, dt) and out_proj (d_inner → d)."""
+    d_inner = cfg.ssm_expand * cfg.d_model
+    nheads = d_inner // cfg.ssm_head_dim
+    return [("in_proj", cfg.d_model, 2 * d_inner + 2 * cfg.ssm_state + nheads),
+            ("out_proj", d_inner, cfg.d_model)]
+
+
+def hybrid_kernel_phase(torch, kernels, device, cfg, *, r, scale):
+    """At zamba2-7b's shapes: B1 at the stacked in_proj leaf (13 × 6
+    matrices of 3584 × 14,464, ≈ 4.04·10⁹ elements), 2 live lanes of 4
+    weighted, against its plain version in 8-matrix chunks and beside
+    ``baddbmm``; B2 over a weighted close's 16 stacks (in_proj and out_proj
+    of both Mamba2 stacks, the shared block's q/k/v/o with no layer axis),
+    bitwise; B3 in f32 and bf16 at in_proj (K 3584 → N 14,464) and
+    out_proj (K 7168 → N 3584) at the prefill rows (M 4096) and the decode
+    rows (M 8) — the tiled, SIMT split-K, tensor-core and tensor-core
+    split-K bodies — each bf16 call through its tensor-core body; B8 at
+    the shared block's prefill (B 8, S 512, 32 heads MHA, head dim 112:
+    the second 64-column box part real, part past d) in f32 and bf16 (the
+    tensor-core body); then the exact-rounding probes at d 112 and at the
+    two projections, bitwise. Returns (max errors of the f32 cases, of the
+    bf16 cases, timings)."""
+    from repro_torch.kernels.lora_matmul import SKINNY_ROWS
+    from repro_torch.models.transformer import hybrid_layout
+    timer = Timer(torch, device)
+    nper, trailing = hybrid_layout(cfg)
+    errs = {"fedex_fold": 0.0, "factor_mean": 0.0, "lora_matmul": 0.0,
+            "flash_swa": 0.0}
+    bf16_errs = {"lora_matmul": 0.0, "flash_swa": 0.0}
+    timings = {}
+    c, live = 4, (0, 1)
+    proj = hybrid_projections(cfg)
+    (_, d, n_in), (_, d_inner, _) = proj
+    errs["fedex_fold"], timings["fedex_fold"], w = expert_fold_case(
+        torch, kernels, timer, device, "zb", nper * cfg.attn_every, d, n_in,
+        c, live, r, scale, seed=310, leaf="in_proj")
+    leaves = [(f"{stack}/{name}", n_l, k, n)
+              for stack, n_l in (("mamba_layers", nper * cfg.attn_every),
+                                 ("mamba_trailing", trailing))
+              for name, k, n in proj]
+    leaves += [(f"shared_attn/{name}", 1, k, n)
+               for name, k, n in serving_projections(cfg)]
+    timings["factor_mean"] = group_mean_case(torch, kernels, timer, device,
+                                             "zb", leaves, c, live, r, w,
+                                             seed=320)
+    low = torch.bfloat16
+    bsz, prompt = ZB_SERVE["batch"], ZB_SERVE["prompt"]
+    for key, dtype, m in (("zb", torch.float32, bsz * prompt),
+                          ("zb_decode", torch.float32, bsz),
+                          ("zb_bf16", low, bsz * prompt),
+                          ("zb_bf16_decode", low, bsz)):
+        bufs = [[t.to(dtype) for t in lora_inputs(torch, device, m, k, n, r,
+                                                  seed=340 + i)]
+                for i, (_, k, n) in enumerate(proj)]
+        if dtype == low:
+            tc_calls(torch, kernels, bufs, scale, f"{key} M={m}", len(bufs),
+                     decode=m <= SKINNY_ROWS)
+        err, timings[key] = lora_case(
+            torch, kernels, timer, bufs, scale,
+            f"{cfg.name} {key}: {'/'.join(s[0] for s in proj)} at M={m}",
+            device_times=True)
+        sink = bf16_errs if dtype == low else errs
+        sink["lora_matmul"] = max(sink["lora_matmul"], err)
+        del bufs
+        torch.cuda.empty_cache()
+    hd = cfg.resolved_head_dim
+    for i, (key, dtype) in enumerate((("flash_zb", None),
+                                      ("flash_zb_bf16", low))):
+        err, timings[key] = flash_case(
+            torch, kernels, timer, device, bsz, prompt, cfg.num_heads,
+            cfg.num_kv_heads, hd, True, 0, seed=350 + i, device_times=True,
+            dtype=dtype, tc=dtype == low)
+        sink = bf16_errs if dtype == low else errs
+        sink["flash_swa"] = max(sink["flash_swa"], err)
+    torch.cuda.empty_cache()
+    lora_probes(torch, kernels, device,
+                [("zamba2-7b", m, k, n, 4) for _, k, n in proj
+                 for m in (bsz, bsz * prompt)])
+    flash_probes(torch, kernels, device,
+                 [("zamba2-7b", bsz, prompt, cfg.num_heads, cfg.num_kv_heads,
+                   hd, True),
+                  ("d 112 non-causal", 2, 300, 4, 4, hd, False)])
+    return errs, bf16_errs, timings
+
+
+def hybrid_state_bytes(cache) -> dict:
+    """The Mamba2 state's bytes a sequence (ssm and conv of every Mamba2
+    layer; the ssm part apart) and the shared block's KV cache's bytes a
+    token (K and V of its one cache a period)."""
+    flat = _flat(cache)
+    kv = [flat[f"shared_attn/{n}"] for n in ("k", "v")]
+    bsz, length = kv[0].shape[1], kv[0].shape[2]
+
+    def nbytes(keys):
+        return sum(flat[k].numel() * flat[k].element_size() for k in keys)
+
+    mamba = [k for k in flat if not k.startswith("shared_attn/")]
+    return {"state_bytes_per_seq": nbytes(mamba) / bsz,
+            "ssm_bytes_per_seq": nbytes([k for k in mamba
+                                         if k.endswith("ssm")]) / bsz,
+            "kv_bytes_per_token": nbytes([f"shared_attn/{n}"
+                                          for n in ("k", "v")])
+            / (bsz * length)}
+
+
+def hybrid_serve(torch, kernels, device, cfg, params, lora, lcfg):
+    """Serve ``cfg`` (f32 or bf16, its dtype) from ``params`` / ``lora`` at
+    ``ZB_SERVE``'s shape, its cache in the model's dtype. With the counters
+    set to 0 just before each: one prefill (``lora_matmul`` two a Mamba2
+    layer and four a shared application, 214 at full depth, ``flash_swa``
+    one a period, 13; bf16: every one through the tensor-core bodies) and one decode step
+    (``lora_matmul`` 214; bf16: the tensor-core split-K body); the kernel
+    path's prefill logits against the plain path's; teacher forcing, the
+    decode step against the port's training forward over prompt + 1, f32
+    within ``D_TOL`` with the argmax agreeing on every row whose top-2
+    margin exceeds twice that (bf16: held by :func:`hybrid_bf16`); the
+    state's bytes (:func:`hybrid_state_bytes`). Then the main path,
+    ``serve()`` (f32: ``dtype`` float32 and an f32 cache; bf16: the
+    config's), the counters set to 0 just before and read just after.
+    Returns (stats, main-path launches, bf16 launches, tensor-core
+    launches, and for :func:`hybrid_bf16` what it compares)."""
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import hybrid_layout
+
+    bsz, prompt, steps = (ZB_SERVE[k] for k in ("batch", "prompt", "steps"))
+    max_len, dt = prompt + steps, cfg.dtype
+    nper, _ = hybrid_layout(cfg)
+    # in_proj and out_proj of every Mamba2 layer, q/k/v/o of every
+    # application of the shared block
+    n_b3 = 2 * cfg.num_layers + 4 * nper
+    low = dt == "bfloat16"
+    mdt = torch.bfloat16 if low else torch.float32
+    model = build_model(cfg)
+    prefill, decode = make_prefill_step(model, lcfg), make_decode_step(model,
+                                                                       lcfg)
+    batch = make_batch_for(cfg, bsz, prompt, seed=0, device=device)
+    full = torch.cat([batch["tokens"], batch["targets"][:, -1:]], dim=1)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        cache = model.init_cache(bsz, max_len, mdt, device=device)
+        pre, cache = prefill(params, lora, batch, cache)
+        torch.cuda.synchronize()
+        _moe_expect(kernels, f"{cfg.name} {dt} one prefill", n_b3, nper, dt,
+                    tc={"lora_matmul": n_b3, "lora_matmul_decode": 0,
+                        "flash_swa": nper})
+        kernels.reset_launch_counts()
+        _, dec, cache = decode(params, lora, full[:, -1:], cache, prompt)
+        torch.cuda.synchronize()
+        _moe_expect(kernels, f"{cfg.name} {dt} one decode step", n_b3, 0, dt,
+                    tc={"lora_matmul": 0, "lora_matmul_decode": n_b3,
+                        "flash_swa": 0})
+        state = hybrid_state_bytes(cache)
+        del cache
+        kernels.reset_launch_counts()
+        with plain_ops(kernels):
+            cache = model.init_cache(bsz, max_len, mdt, device=device)
+            pre_plain, cache = prefill(params, lora, batch, cache)
+            del cache
+        torch.cuda.synchronize()
+        _expect(kernels, f"{cfg.name} {dt} plain path", {})
+        err_kp = float((pre - pre_plain).abs().max())
+        if not low:
+            lscale = float(pre_plain.abs().max())
+            ok = bool(((pre - pre_plain).abs() <= MOE_P_TOL[0]
+                       * pre_plain.abs() + MOE_P_TOL[1] * lscale).all())
+            print(f"  [zb] f32 prefill last-position logits, kernel path vs "
+                  f"plain path: max |diff| {err_kp:.3e} (rtol {MOE_P_TOL[0]}"
+                  f", atol {MOE_P_TOL[1]} x logit scale {lscale:.3f}): "
+                  f"within={ok}", flush=True)
+            if not ok:
+                raise AssertionError("zb f32 serve: the kernel path "
+                                     "disagrees with the plain path")
+        train = model.apply(params, {"tokens": full}, lora=lora,
+                            lora_scale=lcfg.scale)[:, -1].clone()
+        torch.cuda.synchronize()
+        got = dec[:, -1].clone()
+        scale_tf = float(train.abs().max())
+        err_tf = float((got - train).abs().max())
+        if low:
+            print(f"  [zb] {cfg.name} bf16 teacher-forced decode vs the bf16 "
+                  f"training forward: max |diff| {err_tf:.4e} = "
+                  f"{err_tf / scale_tf:.3f} of the logit scale "
+                  f"{scale_tf:.3f}", flush=True)
+        else:
+            ok, _ = _allclose(got, train, *D_TOL)
+            margin_tol = D_TOL[1] + D_TOL[0] * scale_tf
+            top2 = torch.topk(train, 2, dim=-1).values
+            sure = top2[:, 0] - top2[:, 1] > 2 * margin_tol
+            same = got.argmax(-1) == train.argmax(-1)
+            agree = bool(same[sure].all())
+            print(f"  [zb] {cfg.name} f32 teacher-forced decode vs the "
+                  f"training forward: max |diff| {err_tf:.4e} (rtol, atol "
+                  f"{D_TOL}; logit scale {scale_tf:.3f}): within={ok}; "
+                  f"argmax agrees on {int(same.sum())} of {bsz} rows, on the "
+                  f"{int(sure.sum())} rows past 2 x tol: {agree}", flush=True)
+            if not (ok and agree):
+                raise AssertionError("zb f32 serve: prefill + decode "
+                                     "disagree with the training forward")
+        cmp = {"pre": pre[:, -1], "pre_plain": pre_plain[:, -1],
+               "decode": got, "train": train, "full": full}
+        del dec, pre, pre_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kernels.reset_launch_counts()
+    res = serve(cfg, batch_size=bsz, prompt_len=prompt, steps=steps,
+                max_len=max_len, device=device, params=params, lora=lora,
+                **({} if low else {"dtype": torch.float32,
+                                   "cache_dtype": torch.float32}))
+    launches = kernels.launch_counts()
+    bf16 = kernels.bf16_launch_counts()
+    tc = tc_launch_counts(kernels)
+    _moe_expect(kernels, f"{cfg.name} {dt} serve() (1 prefill + {steps} "
+                "decode steps)", n_b3 * (1 + steps), nper, dt,
+                tc={"lora_matmul": n_b3, "lora_matmul_decode": n_b3 * steps,
+                    "flash_swa": nper})
+    toks = res.tokens
+    if toks.shape != (bsz, steps + 1) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"zb serve: bad tokens {toks.shape}")
+    stats = {"prefill_ms": res.prefill_ms,
+             "decode_ms_per_token": res.ms_per_token,
+             "decode_tokens_per_s": bsz * steps / (res.decode_ms / 1e3),
+             "prefill_tokens_per_s": bsz * prompt / (res.prefill_ms / 1e3),
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "err_teacher_forced": err_tf, "err_kernel_vs_plain": err_kp,
+             "state": state, "seconds": time.perf_counter() - t0}
+    print(f"  [zb] {cfg.name} {dt} batch {bsz}, prompt {prompt}, {steps} "
+          f"decode steps, cache of {max_len}: prefill {res.prefill_ms:.1f} ms "
+          f"({stats['prefill_tokens_per_s']:.0f} tokens/s), decode "
+          f"{res.ms_per_token:.2f} ms/token "
+          f"({stats['decode_tokens_per_s']:.1f} tokens/s over the batch), "
+          f"peak {stats['peak_gib']:.2f} GiB; the Mamba2 state "
+          f"{state['state_bytes_per_seq'] / 1e6:.1f} MB a sequence over "
+          f"{cfg.num_layers} layers (ssm {state['ssm_bytes_per_seq'] / 1e6:.1f}"
+          f" MB), the shared block's KV cache "
+          f"{state['kv_bytes_per_token'] / 1024:.1f} KiB a token over {nper} "
+          f"applications; {stats['seconds']:.1f} s; first row "
+          f"{toks[0, :8].tolist()}", flush=True)
+    return stats, launches, bf16, tc, cmp
+
+
+def hybrid_f32_answer(torch, cfg, params, lora, lcfg, tokens):
+    """The f32 training forward of a hybrid config over ``tokens`` (B, S)
+    from bf16 ``params``, widened one Mamba2 layer at a time (the shared
+    block once): the logits at the last two positions (the prompt's last,
+    for the prefill; the next token's, for the decode step)."""
+    from dataclasses import replace
+
+    from repro_torch.models import ssm, transformer
+    from repro_torch.models.common import apply_norm, embed, unembed
+
+    f32 = replace(cfg, dtype="float32")
+    nper, trailing = transformer.hybrid_layout(cfg)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+
+    def wide(tree):
+        return _unflat({k: v.float() for k, v in _flat(tree).items()})
+
+    def mamba(x, key, idx):
+        p = wide(transformer._layer_slice(params[key], *idx))
+        lo = transformer._layer_slice(lora.get(key), *idx)
+        h, _ = ssm.mamba2_block(f32, p["mamba"],
+                                apply_norm(cfg.norm, p["norm"], x),
+                                lora=None if lo is None else lo["mamba"],
+                                lora_scale=lcfg.scale)
+        return x + h
+
+    with torch.inference_mode():
+        x = embed(wide(params["embed"]), tokens)
+        shared = wide(params["shared_attn"])
+        for i in range(nper):
+            for j in range(cfg.attn_every):
+                x = mamba(x, "mamba_layers", (i, j))
+            x, _ = transformer.decoder_layer(
+                f32, shared, x, lora=lora.get("shared_attn"),
+                lora_scale=lcfg.scale, positions=positions, window=0,
+                cache=None, position=None)
+        for i in range(trailing):
+            x = mamba(x, "mamba_trailing", (i,))
+        x = apply_norm(cfg.norm, wide(params["final_norm"]), x[:, -2:])
+        return unembed(wide(params["lm_head"]), x)
+
+
+def hybrid_bf16(torch, kernels, device, scale):
+    """The bf16 serve at the bf16 depth from fresh draws (the port's own
+    bf16 params, a rank-4 f32 adapter with b drawn N(0, 0.05²)) through
+    :func:`hybrid_serve`, then the f32 answer over the same weights and
+    prompt + 1 tokens (:func:`hybrid_f32_answer`). Held as phase 9 holds
+    its bf16 serves: the kernel path's prefill logits no further from the
+    f32 answer than twice the bf16 plain path's plus one bf16 rounding at
+    the logit scale, and from the plain path's no further than three times
+    that distance plus the floor; the decode step no further from its f32
+    answer than twice the bf16 training forward's plus the floor, the
+    argmax agreeing on every row whose f32 top-2 margin exceeds twice that
+    bound. Returns (stats, launches, bf16 launches, tensor-core
+    launches)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import init_lora
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = replace(get_config(ZB), num_layers=ZB_DEPTH["bfloat16"])
+    if cfg.dtype != "bfloat16":
+        raise AssertionError(f"{ZB}: config dtype {cfg.dtype}")
+    lcfg = LoRAConfig(rank=4, alpha=4 * scale)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    with torch.inference_mode():
+        params = build_model(cfg).init(gen, device)
+        lora = init_lora(gen, params, cfg, lcfg)
+        for k, leaf in _flat(lora).items():
+            if k.endswith("/b"):
+                leaf.normal_(0.0, 0.05, generator=gen)
+    torch.cuda.synchronize()
+    print(f"  [zb] {cfg.name} bf16 at depth {cfg.num_layers}: params and "
+          f"adapter on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    stats, launches, bf16, tc, cmp = hybrid_serve(torch, kernels, device, cfg,
+                                                  params, lora, lcfg)
+    f32 = hybrid_f32_answer(torch, cfg, params, lora, lcfg, cmp["full"])
+    torch.cuda.synchronize()
+    pre32, next32 = f32[:, 0], f32[:, 1]
+    bsz = cmp["full"].shape[0]
+    pre, pre_plain = cmp["pre"], cmp["pre_plain"]
+    floor = 2.0 ** -8 * float(pre32.abs().max())
+    err_k = float((pre - pre32).abs().max())
+    err_p = float((pre_plain - pre32).abs().max())
+    err_kp = float((pre - pre_plain).abs().max())
+    ok = err_k <= 2 * err_p + floor and err_kp <= 3 * err_p + floor
+    print(f"  [zb] bf16 prefill last-position logits: kernel path vs f32 "
+          f"{err_k:.4e}, bf16 plain path vs f32 {err_p:.4e} (bound 2 x that "
+          f"+ {floor:.4e} = {2 * err_p + floor:.4e}), kernel vs plain path "
+          f"{err_kp:.4e} (bound {3 * err_p + floor:.4e}); logit scale "
+          f"{float(pre32.abs().max()):.3f}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("zb bf16 serve: the kernel path's logits are "
+                             "further from the f32 answer than allowed")
+    floor = 2.0 ** -8 * float(next32.abs().max())
+    err_d = float((cmp["decode"] - next32).abs().max())
+    err_t = float((cmp["train"] - next32).abs().max())
+    bound = 2 * err_t + floor
+    top2 = torch.topk(next32, 2, dim=-1).values
+    sure = top2[:, 0] - top2[:, 1] > 2 * bound
+    same = cmp["decode"].argmax(-1) == next32.argmax(-1)
+    agree = bool(same[sure].all())
+    ok = err_d <= bound and agree
+    print(f"  [zb] bf16 teacher forcing: the decode step vs the f32 answer "
+          f"{err_d:.4e}, the bf16 training forward vs it {err_t:.4e} (bound "
+          f"2 x that + {floor:.4e} = {bound:.4e}); argmax agrees with f32 on "
+          f"{int(same.sum())} of {bsz} rows, on the {int(sure.sum())} rows "
+          f"past 2 x bound: {agree}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("zb bf16 serve: the decode step is further from "
+                             "the f32 answer than allowed")
+    stats.update(err_vs_f32=err_k, err_plain_vs_f32=err_p,
+                 err_decode_vs_f32=err_d, err_train_vs_f32=err_t,
+                 seconds=time.perf_counter() - t0,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del params, lora, cmp, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, launches, bf16, tc
+
+
+def hybrid_phase(torch, kernels, device):
+    """Phase 12: zamba2-7b at full width and depth. The kernels at its
+    shapes (:func:`hybrid_kernel_phase`); training in f32
+    (:func:`moe_train` with adapters on in_proj, out_proj and the shared
+    block's q/k/v/o: fedex, a uniform round, then a weighted one at 50%)
+    and the f32 serve of its folded W0 and global adapter
+    (:func:`hybrid_serve`); that state freed, the bf16 serve from fresh
+    draws (:func:`hybrid_bf16`). Returns (max errors of the f32 cases, of
+    the bf16 cases, timings, launches, bf16 launches, stats)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import LoRAConfig, get_config
+
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = replace(get_config(ZB), num_layers=ZB_DEPTH["float32"],
+                  dtype="float32")
+    r, scale = 4, 2.0
+    lcfg = LoRAConfig(rank=r, alpha=8.0)
+    errs, bf16_errs, timings = hybrid_kernel_phase(torch, kernels, device,
+                                                   cfg, r=r, scale=scale)
+    stats = {"kernels_s": time.perf_counter() - t,
+             "kernels_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    launches = {name: 0 for name in SOURCES}
+    t1 = time.perf_counter()
+    trainer, stats["train"], got = moe_train(torch, kernels, device, cfg,
+                                             scale, tag="zb", lcfg=lcfg)
+    for k, v in got.items():
+        launches[k] += v
+    served, got = hybrid_serve(torch, kernels, device, cfg, trainer.params,
+                               trainer.global_lora, lcfg)[:2]
+    for k, v in got.items():
+        launches[k] += v
+    stats["f32"] = dict(served, seconds=time.perf_counter() - t1)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["bf16"], got, bf16, tc = hybrid_bf16(torch, kernels, device, scale)
+    for k, v in got.items():
+        launches[k] += v
+    bf16 = dict(bf16, **{f"{k}_tc": v for k, v in tc.items()})
+    stats["seconds"] = time.perf_counter() - t
+    print(f"  [zb] phase 12 in {stats['seconds']:.1f} s; peak memory: "
+          f"kernels {stats['kernels_peak_gib']:.2f} GiB, f32 training "
+          f"{stats['train']['train_peak_gib']:.2f} GiB, f32 serve "
+          f"{stats['f32']['peak_gib']:.2f} GiB, bf16 serve "
+          f"{stats['bf16']['peak_gib']:.2f} GiB", flush=True)
+    return errs, bf16_errs, timings, launches, bf16, stats
+
 
 # --------------------------------------------------------------------------
 
@@ -6987,6 +7457,34 @@ def mla_main() -> int:
     return 0
 
 
+def hybrid_main() -> int:
+    """``--hybrid``: phase 12 alone (:func:`hybrid_phase`) on this
+    checkout's port, after the build, its stats as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch import kernels
+    from repro_torch.kernels import build as kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi_line(), flush=True)
+    build_kernels(kbuild, "[hybrid]")
+    errs, bf16_errs, timings, launches, bf16, stats = hybrid_phase(
+        torch, kernels, torch.device("cuda", 0))
+    fields = {}
+    for key, t in timings.items():
+        fields.update(timing_fields(key, t))
+    print(smi_line(), flush=True)
+    print(json.dumps({"hybrid": stats, "launches": launches,
+                      "bf16_launches": bf16, "max_abs_err": errs,
+                      "bf16_max_abs_err": bf16_errs, "timings": fields}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -7010,6 +7508,8 @@ def main() -> int:
         return moe_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--mla":
         return mla_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--hybrid":
+        return hybrid_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--fold-check":
         return fold_check_main()
     if not torch.cuda.is_available():
@@ -7031,7 +7531,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
-    print(f"[1/12] environment: python {sys.version.split()[0]}, torch "
+    print(f"[1/13] environment: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
@@ -7042,11 +7542,11 @@ def main() -> int:
           flush=True)
     print(smi, flush=True)
 
-    build_kernels(kbuild, "[2/12]")
+    build_kernels(kbuild, "[2/13]")
 
     cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
     c, r, scale = 4, 4, 8.0 / 4
-    print(f"[3/12] kernels vs plain versions (C={c}, r={r}, scale={scale})",
+    print(f"[3/13] kernels vs plain versions (C={c}, r={r}, scale={scale})",
           flush=True)
     errs, timings = kernel_phase(torch, kernels, device, cfg, c=c, r=r,
                                  scale=scale)
@@ -7070,7 +7570,7 @@ def main() -> int:
     print(f"  launch path: {json.dumps(cost)}", flush=True)
     torch.cuda.empty_cache()
 
-    print(f"[4/12] main paths: FederatedTrainer at {cfg.name} full width "
+    print(f"[4/13] main paths: FederatedTrainer at {cfg.name} full width "
           f"({cfg.num_layers} layers, d={cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}); {', '.join(GPT2_PATHS)} at "
           f"{gcfg.name} ({gcfg.num_layers} layers, d={gcfg.d_model}, vocab "
@@ -7100,24 +7600,24 @@ def main() -> int:
           flush=True)
     serve_stats = {}
     for scfg in (cfg, gcfg):
-        print(f"[5/12] serving: {scfg.name} at full width, prefill + KV-cache "
+        print(f"[5/13] serving: {scfg.name} at full width, prefill + KV-cache "
               "greedy decode with a LoRA adapter", flush=True)
         serve_stats[scfg.name], serve_launches = serve_phase(
             torch, kernels, device, scfg)
         for k in ("lora_matmul", "flash_swa"):
             launches[k] += serve_launches[k]
-    print(f"[6/12] obs and the HTTP federation service at {cfg.name} full "
+    print(f"[6/13] obs and the HTTP federation service at {cfg.name} full "
           "width: fedex+obs, serve-http, pull-serve, serve-http-hetero",
           flush=True)
     obs_launches, obs_stats = obs_http_phase(torch, kernels, device, cfg)
     for k, v in obs_launches.items():
         launches[k] += v
-    print(f"[7/12] mesh mode at {cfg.name} full width: "
+    print(f"[7/13] mesh mode at {cfg.name} full width: "
           f"{', '.join(MESH_PATHS)}", flush=True)
     mesh_launches, mesh_stats = mesh_phase(torch, kernels, device, cfg)
     for k, v in mesh_launches.items():
         launches[k] += v
-    print(f"[8/12] the rest of the dense zoo at full width: "
+    print(f"[8/13] the rest of the dense zoo at full width: "
           f"{', '.join(ZOO)}, each trained and served", flush=True)
     zoo_errs, zoo_timings, zoo_launches, zoo_stats = zoo_phase(
         torch, kernels, device)
@@ -7125,14 +7625,14 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in zoo_launches.items():
         launches[k] += v
-    print(f"[9/12] serving in bf16, the reference's default dtype: B3 and B8 "
+    print(f"[9/13] serving in bf16, the reference's default dtype: B3 and B8 "
           f"in bf16, then {', '.join(BF16_SERVE)} served at full width and "
           "depth", flush=True)
     bf16_errs, bf16_timings, bf16_main_launches, bf16_launches, bf16_stats = \
         bf16_phase(torch, kernels, device)
     for k, v in bf16_main_launches.items():
         launches[k] += v
-    print(f"[10/12] the MoE family: {MOE} at full width, trained and served "
+    print(f"[10/13] the MoE family: {MOE} at full width, trained and served "
           f"in f32 at depth {MOE_DEPTH['float32']} and served in bf16 at "
           f"depth {MOE_DEPTH['bfloat16']} (cuts of 56)", flush=True)
     (moe_errs, moe_bf16_errs, moe_timings, moe_launches, moe_bf16,
@@ -7141,7 +7641,7 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in moe_launches.items():
         launches[k] += v
-    print(f"[11/12] Multi-head Latent Attention on the MoE stack: {DS} at "
+    print(f"[11/13] Multi-head Latent Attention on the MoE stack: {DS} at "
           f"full width, trained and served in f32 at depth "
           f"{DS_DEPTH['float32']} and served in bf16 at depth "
           f"{DS_DEPTH['bfloat16']} (1 dense + MoE layers, cuts of 60)",
@@ -7151,6 +7651,15 @@ def main() -> int:
     for k, v in mla_errs.items():
         errs[k] = max(errs[k], v)
     for k, v in mla_launches.items():
+        launches[k] += v
+    print(f"[12/13] the hybrid family: {ZB} at full width and depth "
+          f"({ZB_DEPTH['float32']} Mamba2 layers, the shared block every "
+          "6), trained and served in f32, served in bf16", flush=True)
+    (zb_errs, zb_bf16_errs, zb_timings, zb_launches, zb_bf16,
+     zb_stats) = hybrid_phase(torch, kernels, device)
+    for k, v in zb_errs.items():
+        errs[k] = max(errs[k], v)
+    for k, v in zb_launches.items():
         launches[k] += v
     main_body = {**timings["weighted-partial"], **lane_timings,
                  "lora_matmul": serve_timings["lora_matmul[prefill]"],
@@ -7275,6 +7784,25 @@ def main() -> int:
             "ds_bf16_max_abs_err": mla_bf16_errs[name]})
     out[list(SOURCES).index("lora_matmul")][
         "ds_bf16_tc_decode_launches"] = mla_bf16["lora_matmul_decode_tc"]
+    # zamba2-7b's shapes (phase 12): B1 at the stacked in_proj leaf, B2 over
+    # a close's 16 stacks, B3 at in_proj and out_proj in f32 and bf16
+    # (prefill and decode), B8 at the shared block's prefill (d 112) in f32
+    # and bf16; the bf16 and tensor-core launches of its bf16 serve() run
+    for name, key, t in (
+            ("fedex_fold", "zb", zb_timings["fedex_fold"]),
+            ("factor_mean", "zb", zb_timings["factor_mean"]),
+            *(("lora_matmul", key, zb_timings[key]) for key in (
+                "zb", "zb_decode", "zb_bf16", "zb_bf16_decode")),
+            ("flash_swa", "zb", zb_timings["flash_zb"]),
+            ("flash_swa", "zb_bf16", zb_timings["flash_zb_bf16"])):
+        out[list(SOURCES).index(name)].update(timing_fields(key, t))
+    for name in ("lora_matmul", "flash_swa"):
+        out[list(SOURCES).index(name)].update({
+            "zb_bf16_launches": zb_bf16[name],
+            "zb_bf16_tc_launches": zb_bf16[f"{name}_tc"],
+            "zb_bf16_max_abs_err": zb_bf16_errs[name]})
+    out[list(SOURCES).index("lora_matmul")][
+        "zb_bf16_tc_decode_launches"] = zb_bf16["lora_matmul_decode_tc"]
     # B5 beside its old body (product_fold in place), and at the chunk of
     # 64 uplinks at r = 8 that docs/benchmarks.md documents
     ms, _, lib_ms, (bms, by), *_ = lane_timings["product_accum[C64r8]"]
@@ -7283,14 +7811,15 @@ def main() -> int:
         "C64r8_prior_ms": lane_prior["product_accum[C64r8]"],
         "C64r8_library_ms": lib_ms, "C64r8_bound_ms": bms,
         "C64r8_bound_by": by})
-    print(f"[12/12] done in {time.perf_counter() - t_start:.1f} s; identity "
+    print(f"[13/13] done in {time.perf_counter() - t_start:.1f} s; identity "
           "max "
           f"err per path {json.dumps(identities)}; resume "
           f"{json.dumps(resume)}; serving "
           f"{json.dumps(serve_stats)}; obs and http "
           f"{json.dumps(obs_stats)}; mesh {json.dumps(mesh_stats)}; zoo "
           f"{json.dumps(zoo_stats)}; bf16 {json.dumps(bf16_stats)}; moe "
-          f"{json.dumps(moe_stats)}; mla {json.dumps(mla_stats)}; rounds "
+          f"{json.dumps(moe_stats)}; mla {json.dumps(mla_stats)}; hybrid "
+          f"{json.dumps(zb_stats)}; rounds "
           + json.dumps([{k: v for k, v in row.items()
                          if k != "client_losses"} for row in all_rows]),
           flush=True)

@@ -5,10 +5,11 @@ Replaces the TPU kernel ``repro/kernels/flash_swa.py::flash_swa`` (body
 (``models/attention.py``, and ``models/mla.py`` for Multi-head Latent
 Attention) runs every layer's attention through :func:`swa_attention`,
 causal, with the layer's window (0 for a global layer): one launch a
-layer. The served head dims are 64 (paper-gpt2), 128 (Llama, granite,
-starcoder2, mixtral), 192 (deepseek-v2's MLA: nope 128 + rope 64, v
-zero-padded from 128 to it; padded to DP 256, three column boxes of four
-loaded) and 256 (gemma3).
+layer. The served head dims are 64 (paper-gpt2), 112 (zamba2's shared
+block: padded to DP 128, its second column box part past d, zero-filled
+by TMA), 128 (Llama, granite, starcoder2, mixtral), 192 (deepseek-v2's
+MLA: nope 128 + rope 64, v zero-padded from 128 to it; padded to DP 256,
+three column boxes of four loaded) and 256 (gemma3).
 
 * CUDA kernel: ``csrc/flash_swa.cu``, two bodies; :func:`_body` picks one
   from the dtype, the head dim, the strides and the pointers alone.

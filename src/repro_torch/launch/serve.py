@@ -9,7 +9,8 @@ dtype, as the reference serves it: bfloat16 for every registered config
 (``ModelConfig.dtype``'s default); :func:`serve`'s ``dtype`` keyword picks
 another (float32). The adapted q/k/v/o projections of prefill and decode
 run the fused LoRA kernel (B3) and the prefill attention the flash
-attention kernel (B8), each in that dtype; an f32 adapter (``init_lora``'s,
+attention kernel (B8), each in that dtype (a hybrid config's Mamba2
+``in_proj`` / ``out_proj`` through B3 too); an f32 adapter (``init_lora``'s,
 a trainer's, a pulled one) is cast to it once before the prefill (the
 reference's ``dense`` casts it where it is applied, to the same values).
 Runs on CUDA unless ``--device cpu`` is
@@ -30,6 +31,8 @@ must match the server's).
       --max-len 160
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch mixtral-8x22b-smoke --batch-size 2 --prompt-len 32 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch zamba2-7b-smoke --batch-size 2 --prompt-len 32 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch paper-tiny --pull-from http://127.0.0.1:8077
 """
@@ -161,8 +164,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu must be asked for)")
     ap.add_argument("--arch", default="paper-tiny",
-                    help="a registered config of the port (dense or MoE "
-                         "family)")
+                    help="a registered config of the port (dense, MoE or "
+                         "hybrid family)")
     ap.add_argument("--batch-size", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--steps", type=int, default=8)

@@ -1,4 +1,5 @@
-"""Model API: ``build_model(cfg) → Model`` (dense and MoE families).
+"""Model API: ``build_model(cfg) → Model`` (dense, MoE and hybrid
+families).
 
 Counterpart of ``repro/models/model.py``: a namespace of functions closed
 over the config — ``init(gen, device) → params``, ``apply(params, batch,
@@ -81,11 +82,18 @@ def build_model(cfg, moe_impl: str = "ragged") -> Model:
         ``(C, m, r)`` elsewhere) and lane c owns batch rows
         ``[c·B, (c+1)·B)``. A MoE config is refused: the reference maps
         the loss, its router aux loss included, over the lanes, and one
-        folded forward would pool the aux over all of them."""
+        folded forward would pool the aux over all of them. A hybrid
+        config is refused too: its stacks have no prefix in
+        ``STACKED_AXES``, and its shared block's adapter (no layer axis)
+        no lane split yet."""
         if moe:
             raise NotImplementedError(
                 f"config {cfg.name!r}: mesh mode (lane_loss) does not run "
                 "the MoE family (each lane needs its own router aux loss)")
+        if cfg.family == "hybrid":
+            raise NotImplementedError(
+                f"config {cfg.name!r}: mesh mode (lane_loss) does not run "
+                "the hybrid family yet")
         flat = flatten_with_paths(lora)
         c = next(iter(flat.values())).shape[0]
         # the lane axis goes behind the stacked layer axes, so that a layer

@@ -30,22 +30,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import (Params, activation, make_dense_params,
-                                       normal_init, project)
+                                       project, stacked_normal)
 from repro_torch.models.mlp import make_mlp_params, mlp_block
 
 IMPLS = ("ragged", "dense")
-
-
-def _stacked_normal(gen, shape, lead, dtype, device) -> torch.Tensor:
-    """N(0, 0.02²) draws of ``shape`` (``(*lead, …)``), one layer of the
-    ``lead`` axes at a time, so that a bf16 leaf never has a float32 copy of
-    its whole size (one layer of mixtral's expert stack is 3.2 GB in
-    float32)."""
-    out = torch.empty(shape, dtype=dtype, device=device)
-    per_layer = out.view(-1, *shape[len(lead):])
-    for layer in per_layer:
-        layer.copy_(normal_init(gen, layer.shape, dtype, device))
-    return out
 
 
 def make_moe_params(gen, cfg, dtype, device, lead=()) -> Params:
@@ -58,11 +46,11 @@ def make_moe_params(gen, cfg, dtype, device, lead=()) -> Params:
     p = {
         "router": make_dense_params(gen, (*lead, d, e), dtype, device),
         "experts": {
-            "up_proj": _stacked_normal(gen, (*lead, e, d, ff), lead, dtype,
+            "up_proj": stacked_normal(gen, (*lead, e, d, ff), lead, dtype,
                                        device),
-            "gate_proj": _stacked_normal(gen, (*lead, e, d, ff), lead, dtype,
+            "gate_proj": stacked_normal(gen, (*lead, e, d, ff), lead, dtype,
                                          device),
-            "down_proj": _stacked_normal(gen, (*lead, e, ff, d), lead, dtype,
+            "down_proj": stacked_normal(gen, (*lead, e, ff, d), lead, dtype,
                                          device),
         },
     }

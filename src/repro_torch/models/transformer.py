@@ -1,7 +1,7 @@
-"""Decoder-only stack, dense and MoE families: ``make_params``,
+"""Decoder-only stack, dense, MoE and hybrid families: ``make_params``,
 ``init_cache`` and ``forward`` (train, prefill and decode).
 
-Counterpart of the dense and MoE branches of
+Counterpart of the dense, MoE and hybrid branches of
 ``repro/models/transformer.py``. The parameter layout is the reference's: every per-layer leaf is stacked on a
 leading layer axis (``layers/attn/q_proj/kernel`` is ``(L, d, h·hd)``), so a
 flattened port tree lines up one-to-one with the reference's. A config with
@@ -16,10 +16,15 @@ its MoE layers under ``layers`` (each MLP a router and raw expert stacks,
 ``dense_layers`` (MLP width ``dense_d_ff``); its router aux losses sum
 over the layers. A config with ``mla`` (deepseek-v2) runs every layer's
 attention as Multi-head Latent Attention (:mod:`repro_torch.models.mla`),
-whose caches hold the compressed latents. Where JAX scans the stacked
-parameters, the port runs a Python loop over the layer (and period) index. The
-reference's ``remat`` has no counterpart: at the batch sizes the port
-trains, activations fit without recomputation.
+whose caches hold the compressed latents. A hybrid config (zamba2)
+stacks its Mamba2 layers (:mod:`repro_torch.models.ssm`) by period under
+``mamba_layers`` (``(nper, attn_every, …)``, nper = L // attn_every) and
+the rest under ``mamba_trailing``; each period runs its Mamba2 layers,
+then ONE parameter-shared attention + MLP layer, ``shared_attn`` (no layer
+axis), with its one adapter and that period's KV cache. Where JAX scans
+the stacked parameters, the port runs a Python loop over the layer (and
+period) index. The reference's ``remat`` has no counterpart: at the batch
+sizes the port trains, activations fit without recomputation.
 """
 
 from __future__ import annotations
@@ -35,9 +40,11 @@ from repro_torch.models.common import (Params, apply_norm, dtype_of, embed,
 from repro_torch.models.mla import init_mla_cache, make_mla_params, mla_block
 from repro_torch.models.mlp import make_mlp_params, mlp_block
 from repro_torch.models.moe import make_moe_params, moe_block
+from repro_torch.models.ssm import (init_mamba_cache, make_mamba2_params,
+                                    mamba2_block)
 
 MODES = ("train", "prefill", "decode")
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "hybrid")
 
 
 def check_supported(cfg) -> None:
@@ -48,18 +55,34 @@ def check_supported(cfg) -> None:
     global attention, a sliding window on every layer, or periods of local
     (windowed) and global layers — and its MoE counterpart (top-k routed
     experts, shared experts, leading dense layers), either with Multi-head
-    Latent Attention (``mla``). As in the reference, the family decides: a
-    dense config with ``num_experts`` builds dense MLPs."""
+    Latent Attention (``mla``) — and the hybrid stack (Mamba2 layers with
+    one parameter-shared attention + MLP layer every ``attn_every`` of
+    them). As in the reference, the family decides: a dense config with
+    ``num_experts`` builds dense MLPs."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"config {cfg.name!r} asks for family {cfg.family!r}: the port "
-            "runs only the dense and MoE decoders so far")
+            "runs only the dense, MoE and hybrid decoders so far")
 
 
 def _periods(cfg):
     """(periods, local layers a period) of a local/global config."""
     ratio = cfg.local_global_ratio
     return cfg.num_layers // (ratio + 1), ratio
+
+
+def hybrid_layout(cfg):
+    """(periods, trailing Mamba2 layers) of a hybrid config."""
+    nper = cfg.num_layers // cfg.attn_every
+    return nper, cfg.num_layers - nper * cfg.attn_every
+
+
+def _mamba_layer_params(gen, cfg, lead, dtype, device) -> Params:
+    """One Mamba2 layer's leaves (its pre-norm and block), stacked on the
+    ``lead`` axes."""
+    return {"norm": make_norm_params(cfg.norm, (*lead, cfg.d_model), dtype,
+                                     device),
+            "mamba": make_mamba2_params(gen, cfg, dtype, device, lead)}
 
 
 def _layer_params(gen, cfg, lead, dtype, device, *, moe: bool = False,
@@ -110,6 +133,14 @@ def make_params(gen: torch.Generator, cfg, device) -> Params:
         params["layers"] = _layer_params(
             gen, cfg, (cfg.num_layers - cfg.first_k_dense,), dtype, device,
             moe=True)
+    elif cfg.family == "hybrid":
+        nper, trailing = hybrid_layout(cfg)
+        params["mamba_layers"] = _mamba_layer_params(
+            gen, cfg, (nper, cfg.attn_every), dtype, device)
+        if trailing:
+            params["mamba_trailing"] = _mamba_layer_params(
+                gen, cfg, (trailing,), dtype, device)
+        params["shared_attn"] = _layer_params(gen, cfg, (), dtype, device)
     elif cfg.local_global_ratio:
         nper, ratio = _periods(cfg)
         params["periods"] = {
@@ -147,8 +178,15 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
     its MoE layers, with ``{"dense_layers": …}`` over its leading dense
     ones. An MLA config's layers hold ``{"c_kv": (L, batch, length,
     kv_lora_rank), "k_rope": (L, batch, length, qk_rope_head_dim), "pos"}``
-    instead of k and v."""
+    instead of k and v. A hybrid config's is ``{"mamba": {"ssm": (nper,
+    attn_every, batch, H, P, N) f32, "conv": (nper, attn_every, batch,
+    K − 1, conv_ch)}, "shared_attn": …(nper, …)}`` (one KV cache a period
+    for the shared layer), with ``{"mamba_trailing": …}`` over its
+    trailing Mamba2 layers."""
     check_supported(cfg)
+
+    def expand(one, lead):
+        return {k: v.expand(*lead, *v.shape).clone() for k, v in one.items()}
 
     def stacked(lead, window):
         length = min(window, cache_len) if window else cache_len
@@ -157,7 +195,16 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
         else:
             one = init_kv_cache(batch, length, cfg.num_kv_heads,
                                 cfg.resolved_head_dim, dtype, device)
-        return {k: v.expand(*lead, *v.shape).clone() for k, v in one.items()}
+        return expand(one, lead)
+
+    if cfg.family == "hybrid":
+        nper, trailing = hybrid_layout(cfg)
+        one = init_mamba_cache(batch, cfg, dtype, device)
+        out = {"mamba": expand(one, (nper, cfg.attn_every)),
+               "shared_attn": stacked((nper,), 0)}
+        if trailing:
+            out["mamba_trailing"] = expand(one, (trailing,))
+        return out
 
     if cfg.local_global_ratio:
         nper, ratio = _periods(cfg)
@@ -233,8 +280,10 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
     config). ``"prefill"`` (prompt tokens, a cache from :func:`init_cache`)
     and ``"decode"`` (one token a row, its absolute ``position``) return
     ``(logits, cache)``; they run forward only, through the serving kernels,
-    and update the cache in place. ``moe_impl`` picks the MoE block's path
-    (``"ragged"`` or the ``"dense"`` oracle).
+    and update the cache in place (a hybrid cache's conv buffers first
+    widened to the activations' dtype where that is wider, as the
+    reference's conv state comes back in it). ``moe_impl`` picks the MoE
+    block's path (``"ragged"`` or the ``"dense"`` oracle).
     """
     check_supported(cfg)
     if mode not in MODES:
@@ -274,7 +323,39 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
     def part(tree, key):
         return None if tree is None else tree.get(key)
 
-    if cfg.local_global_ratio:  # the reference's period_body, unrolled
+    def mamba(x, stack, stack_lora, stack_cache, idx):
+        """The Mamba2 layer at ``idx`` of a stacked tree (the reference's
+        ``_mamba_layer``)."""
+        p = _layer_slice(stack, *idx)
+        h, _ = mamba2_block(
+            cfg, p["mamba"], apply_norm(cfg.norm, p["norm"], x),
+            lora=part(_layer_slice(stack_lora, *idx), "mamba"),
+            lora_scale=lora_scale, cache=_layer_slice(stack_cache, *idx),
+            decode=mode == "decode")
+        return x + h
+
+    if cfg.family == "hybrid":  # the reference's hperiod_body, unrolled
+        nper, trailing = hybrid_layout(cfg)
+        if cache is not None:
+            for key in ("mamba", "mamba_trailing"):
+                if key in cache:
+                    conv = cache[key]["conv"]
+                    cache[key]["conv"] = conv.to(
+                        torch.promote_types(conv.dtype, x.dtype))
+        for i in range(nper):
+            for j in range(cfg.attn_every):
+                x = mamba(x, params["mamba_layers"],
+                          lora.get("mamba_layers"), part(cache, "mamba"),
+                          (i, j))
+            x, _ = decoder_layer(
+                cfg, params["shared_attn"], x, lora=lora.get("shared_attn"),
+                lora_scale=lora_scale, positions=positions, window=0,
+                cache=_layer_slice(part(cache, "shared_attn"), i),
+                position=position)
+        for i in range(trailing):
+            x = mamba(x, params["mamba_trailing"], lora.get("mamba_trailing"),
+                      part(cache, "mamba_trailing"), (i,))
+    elif cfg.local_global_ratio:  # the reference's period_body, unrolled
         nper, ratio = _periods(cfg)
         per, per_lora = params["periods"], lora.get("periods")
         for i in range(nper):

@@ -279,7 +279,7 @@ def test_swa_attention_bf16_gqa_matches_the_reference(s, h, kvh, causal,
 @pytest.mark.parametrize("b,s,h,kvh,d,causal", [
     (2, 130, 4, 2, 64, True), (1, 70, 2, 1, 66, False),
     (1, 100, 3, 3, 128, True), (1, 96, 2, 1, 256, True),
-    (1, 80, 2, 2, 192, True)])
+    (1, 80, 2, 2, 192, True), (1, 80, 2, 2, 112, True)])
 def test_swa_probe_pins_where_p_is_rounded(b, s, h, kvh, d, causal):
     """On the probe's inputs only key 0 (p = 1, v = 0) and one key j* of
     each row survive, in the first KV tile, so the plain version equals
@@ -328,7 +328,7 @@ def _scaled_after(q, k, v, causal):
     (2, 512, 12, 12, 64, True), (2, 512, 24, 8, 128, True),
     (1, 256, 16, 8, 256, True), (2, 300, 4, 2, 128, False),
     (2, 130, 4, 4, 66, True), (1, 100, 3, 3, 128, True),
-    (2, 256, 4, 4, 192, True)])
+    (2, 256, 4, 4, 192, True), (2, 256, 4, 4, 112, True)])
 def test_swa_probe_output_holds_under_either_scale_order(b, s, h, kvh, d,
                                                          causal, seed):
     """The probe's premise for B8's tensor-core body: on its inputs the

@@ -969,6 +969,9 @@ BF16_FLASH_CASES = [
     # deepseek-v2-236b's MLA prefill: q and k of 192 (nope 128 + rope 64),
     # v zero-padded to 192, MHA
     (1, 512, 16, 16, 192, True, 0), (2, 300, 4, 4, 192, True, 0),
+    # zamba2-7b's shared block: MHA at head dim 112 (DP 128, the second
+    # column box part past d)
+    (1, 512, 8, 8, 112, True, 0), (2, 300, 4, 4, 112, False, 0),
 ]
 
 
@@ -1118,7 +1121,7 @@ BF16_PROBE_FLASH = [
     # box past d) at their prefill lengths, non-causal, and d 66 (the
     # scalar loads)
     (2, 512, 12, 12, 64, True), (2, 512, 24, 8, 128, True),
-    (2, 512, 16, 16, 192, True),
+    (2, 512, 16, 16, 192, True), (2, 512, 8, 8, 112, True),
     (1, 2048, 16, 8, 256, True), (2, 300, 4, 2, 128, False),
     (2, 130, 4, 4, 66, True),
 ]

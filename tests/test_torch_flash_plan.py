@@ -281,12 +281,14 @@ def _contiguous(b, sq, sk, h, kvh, d):
 # (B, S, H, KVH, d): every served bf16 prefill attention (paper-llama3.2-3b
 # and paper-gpt2 at batch 8 × prompt 512, gemma3-12b at batch 2 × 2048, its
 # windowed layers alike; deepseek-v2-236b's MLA at batch 8 × 512, q and k
-# of nope + rope = 192 and v zero-padded to it) and Llama's serve launcher
-# at batch 2 × prompt 32
+# of nope + rope = 192 and v zero-padded to it; zamba2-7b's shared block at
+# batch 8 × 512, MHA at head dim 112, its second column box part past d)
+# and Llama's serve launcher at batch 2 × prompt 32
 SERVED = {"paper-llama3.2-3b": (8, 512, 24, 8, 128),
           "paper-gpt2": (8, 512, 12, 12, 64),
           "gemma3-12b": (2, 2048, 16, 8, 256),
           "deepseek-v2-236b": (8, 512, 128, 128, 192),
+          "zamba2-7b": (8, 512, 32, 32, 112),
           "launcher": (2, 32, 24, 8, 128)}
 
 
@@ -296,7 +298,7 @@ def test_plan_sends_served_bf16_prefills_to_the_tensor_cores(name):
     strides, sizes = _contiguous(b, s, s, h, kvh, d)
     assert _body(True, d, strides, sizes, True) == "tensor-core"
     dp, _ = _plan("swa_attention", b, h, d)
-    assert dp == {64: 64, 128: 128, 192: 256, 256: 256}[d]
+    assert dp == {64: 64, 112: 128, 128: 128, 192: 256, 256: 256}[d]
 
 
 @pytest.mark.parametrize("why", ["f32", "d 50", "d 66", "view off 16 bytes",

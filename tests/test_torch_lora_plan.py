@@ -118,9 +118,18 @@ def test_split_plan_is_cached():
 def _projections(name):
     """(projection, K, N) of one layer's adapted q/k/v/o of a served model;
     of an MLA model its six attention projections and its two expert
-    shapes (up/gate, down)."""
+    shapes (up/gate, down); of a hybrid model a Mamba2 layer's in_proj and
+    out_proj besides the shared block's q/k/v/o."""
     c = get_config(name)
     d, hd = c.d_model, c.resolved_head_dim
+    if c.family == "hybrid":
+        di = c.ssm_expand * d
+        mamba = [("in_proj", d, 2 * di + 2 * c.ssm_state
+                  + di // c.ssm_head_dim), ("out_proj", di, d)]
+        return mamba + [("q", d, c.num_heads * hd),
+                        ("k", d, c.num_kv_heads * hd),
+                        ("v", d, c.num_kv_heads * hd),
+                        ("o", c.num_heads * hd, d)]
     if c.mla:
         h, kvr = c.num_heads, c.kv_lora_rank
         nope, rope, dv = (c.qk_nope_head_dim, c.qk_rope_head_dim,
@@ -140,7 +149,7 @@ def _projections(name):
 # default prompt (M 64)
 SERVED = [(name, proj, m, k, n)
           for name in ("paper-llama3.2-3b", "paper-gpt2", "gemma3-12b",
-                       "deepseek-v2-236b")
+                       "deepseek-v2-236b", "zamba2-7b")
           for proj, k, n in _projections(name) for m in (4096, 64)]
 
 
@@ -239,7 +248,8 @@ SERVED_DECODE = [(name, proj, m, k, n)
                  for name, rows in (("paper-llama3.2-3b", (8, 2)),
                                     ("paper-gpt2", (8, 2)),
                                     ("gemma3-12b", (2,)),
-                                    ("deepseek-v2-236b", (8, 2)))
+                                    ("deepseek-v2-236b", (8, 2)),
+                                    ("zamba2-7b", (8, 2)))
                  for proj, k, n in _projections(name) for m in rows]
 
 

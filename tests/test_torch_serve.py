@@ -361,9 +361,9 @@ def test_forward_modes_check_their_arguments(state):
     with pytest.raises(ValueError, match="position"):
         transformer.forward(pm.cfg, tp, toks[:, :1], mode="decode",
                             cache=cache)
-    hybrid = _port_cfg(jax_get_config("zamba2-7b"))
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        transformer.init_cache(hybrid, 1, 8, device=CPU)
+    ssm = _port_cfg(jax_get_config("xlstm-1.3b"))
+    with pytest.raises(NotImplementedError, match="ssm"):
+        transformer.init_cache(ssm, 1, 8, device=CPU)
 
 
 # --------------------------------------------------------------------------
