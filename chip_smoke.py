@@ -13,6 +13,7 @@
     python3 chip_smoke.py --moe               # phase 10 alone
     python3 chip_smoke.py --mla               # phase 11 alone
     python3 chip_smoke.py --hybrid            # phase 12 alone
+    python3 chip_smoke.py --xlstm             # phase 13 alone
     python3 chip_smoke.py --fold-check        # phase 3's fedex_fold checks
 
 Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
@@ -321,7 +322,7 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
 12. the hybrid family (``hybrid_phase``, ``[zb]`` lines; ``--hybrid``):
    ``zamba2-7b`` at full width and depth (``ZB_DEPTH``: 81 Mamba2 layers,
    13 applications of the one shared attention + MLP block). B1 at the
-   stacked in_proj leaf (78 × 3584 × 14,464, 4.04·10⁹ elements) in
+   stacked in_proj leaf (78 × 3584 × 14,576, 4.07·10⁹ elements) in
    8-matrix chunks against its plain version, B2 over a close's 16 stacks,
    B3 at in_proj and out_proj (f32 and bf16, M 4096 and 8: every body) and
    B8 at the shared block's head dim 112 (f32 and bf16), each timed beside
@@ -333,7 +334,30 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    path, teacher forcing, in bf16 against the f32 answer widened a layer at
    a time; the Mamba2 state's bytes a sequence and the shared KV cache's
    bytes a token;
-13. one JSON line with every ported kernel: ``ms`` and ``library_ms``
+13. the ssm family (``xlstm_phase``, ``[xl]`` lines; ``--xlstm``):
+   ``xlstm-1.3b`` at full width and depth (``XL_DEPTH``: 48 blocks, 6
+   periods of 7 mLSTM + 1 sLSTM; d 2048, 4 heads, the mLSTM's head dim
+   1024; ≈ 3.50·10⁹ parameters). B1 at the stacked q_proj leaf (42 × 4096
+   × 4096, 7.05·10⁸ elements) in 8-matrix chunks against its plain
+   version, B2 over a close's 16 stacks, B3 at an mLSTM block's five
+   projections and the sLSTM's w_gates (``xl``) and at its FFN's two at K
+   or N 2730 (``xl_ffn``: in bf16 the SIMT bodies) in f32 and bf16 at M
+   4096 and 8, each timed beside its plain version, the bound and the
+   library call, and the projection probes bitwise; fedex training (a
+   uniform round, then 50% with example weights: ``factor_mean`` 1,
+   ``fedex_fold`` 8); ``serve()`` of the folded tree in f32 and of fresh
+   draws in bf16 (B3 228 a prefill and a decode step, 216 of them through
+   the tensor-core bodies in bf16; the prompt of 512 two mLSTM chunks of
+   256), the kernel path against the plain path and teacher forcing in
+   f32 each within its tolerance plus three times the model's own f32
+   spread (the plain path again with every projection summed over K in
+   two halves: a random xLSTM multiplies an f32 rounding difference by
+   ≈ 10⁵ over 48 blocks), in bf16 against the f32 answer widened a block
+   at a time, and period 0 a block at a time against each block's f32
+   answer (at full depth the bf16 logits part from the f32 answer by
+   about the logit scale, the plain path's as much); the recurrent
+   state's bytes a sequence;
+14. one JSON line with every ported kernel: ``ms`` and ``library_ms``
    host-inclusive, ``device_ms`` and ``library_device_ms`` device time
    (:meth:`Timer.device`), at the main body; B2's row adds one close's launch path
    (``close_wall_us``, ``close_enqueue_us``: :func:`launch_cost`), B3's
@@ -370,7 +394,12 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    deepseek-v2-236b's (phase 11) as ``ds_*`` and at zamba2-7b's (phase
    12) as ``zb_*`` likewise (B3's ``zb``, ``zb_decode``, ``zb_bf16``,
    ``zb_bf16_decode``: in_proj and out_proj; B8's ``zb`` and ``zb_bf16``
-   at d 112); then the result line.
+   at d 112) and at xlstm-1.3b's (phase 13) as ``xl_*`` on the rows of
+   B1, B2 and B3 (B3's ``xl``, ``xl_decode``, ``xl_bf16``,
+   ``xl_bf16_decode`` and ``xl_ffn_*`` likewise, with
+   ``xl_bf16_launches``, ``xl_bf16_tc_launches``,
+   ``xl_bf16_tc_decode_launches`` and ``xl_bf16_max_abs_err``); then the
+   result line.
 
 ``--launch-cost SRC`` runs :func:`launch_cost` alone on the port found
 under ``SRC`` (another tree's ``src`` too, to compare two trees in one
@@ -386,7 +415,9 @@ at d 64, 128 and 256, windows included, in TFLOP/s and as a share of the
 bound (:func:`attention_sweep`); ``--obs-http`` runs
 phase 6 alone (:func:`obs_http_phase`), ``--mesh`` phase 7
 (:func:`mesh_phase`), ``--zoo`` phase 8 (:func:`zoo_phase`), ``--bf16``
-phase 9 (:func:`bf16_phase`), ``--moe`` phase 10 (:func:`moe_phase`), and
+phase 9 (:func:`bf16_phase`), ``--moe`` phase 10 (:func:`moe_phase`),
+``--mla`` phase 11 (:func:`mla_phase`), ``--hybrid`` phase 12
+(:func:`hybrid_phase`), ``--xlstm`` phase 13 (:func:`xlstm_phase`), and
 ``--fold-check`` phase 3's main-shape ``fedex_fold`` checks
 (:func:`fold_check_main`).
 
@@ -2905,11 +2936,13 @@ D_TOL = (5e-3, 8e-3)  # teacher-forced decode vs the training forward
 class plain_ops:
     """Within the block the serving path runs the kernels' plain versions
     on the card (``lora_dense_plain``, ``swa_attention_plain``) in place of
-    the kernel wrappers (MLA's prefill attention too)."""
+    the kernel wrappers (MLA's prefill attention too); ``dense`` replaces
+    ``lora_dense_plain`` (:func:`lora_dense_halves`)."""
 
-    def __init__(self, kernels):
+    def __init__(self, kernels, dense=None):
         from repro_torch.models import attention, common, mla
-        self.patches = [(common, "lora_dense", kernels.lora_dense_plain),
+        self.patches = [(common, "lora_dense",
+                         dense or kernels.lora_dense_plain),
                         (attention, "swa_attention",
                          kernels.swa_attention_plain),
                         (mla, "swa_attention", kernels.swa_attention_plain)]
@@ -6369,11 +6402,11 @@ def hybrid_projections(cfg):
 
 def hybrid_kernel_phase(torch, kernels, device, cfg, *, r, scale):
     """At zamba2-7b's shapes: B1 at the stacked in_proj leaf (13 × 6
-    matrices of 3584 × 14,464, ≈ 4.04·10⁹ elements), 2 live lanes of 4
+    matrices of 3584 × 14,576, ≈ 4.07·10⁹ elements), 2 live lanes of 4
     weighted, against its plain version in 8-matrix chunks and beside
     ``baddbmm``; B2 over a weighted close's 16 stacks (in_proj and out_proj
     of both Mamba2 stacks, the shared block's q/k/v/o with no layer axis),
-    bitwise; B3 in f32 and bf16 at in_proj (K 3584 → N 14,464) and
+    bitwise; B3 in f32 and bf16 at in_proj (K 3584 → N 14,576) and
     out_proj (K 7168 → N 3584) at the prefill rows (M 4096) and the decode
     rows (M 8) — the tiled, SIMT split-K, tensor-core and tensor-core
     split-K bodies — each bf16 call through its tensor-core body; B8 at
@@ -6776,6 +6809,550 @@ def hybrid_phase(torch, kernels, device):
     bf16 = dict(bf16, **{f"{k}_tc": v for k, v in tc.items()})
     stats["seconds"] = time.perf_counter() - t
     print(f"  [zb] phase 12 in {stats['seconds']:.1f} s; peak memory: "
+          f"kernels {stats['kernels_peak_gib']:.2f} GiB, f32 training "
+          f"{stats['train']['train_peak_gib']:.2f} GiB, f32 serve "
+          f"{stats['f32']['peak_gib']:.2f} GiB, bf16 serve "
+          f"{stats['bf16']['peak_gib']:.2f} GiB", flush=True)
+    return errs, bf16_errs, timings, launches, bf16, stats
+
+# --------------------------------------------------------------------------
+# phase 13: the ssm family (xlstm-1.3b: mLSTM and sLSTM blocks)
+# --------------------------------------------------------------------------
+
+XL = "xlstm-1.3b"
+# Full depth, no cut: 48 blocks (6 periods of 7 mLSTM + 1 sLSTM). The
+# reference's mLSTM has dense q/k/v (4096 × 4096 each): ≈ 75.5 M weights a
+# block, an sLSTM block ≈ 37.7 M (w_gates, 4 × 4 heads of 512 × 512
+# recurrent weights, the FFN of width 2730), the tied embedding ≈ 103 M:
+# ≈ 3.50·10⁹ parameters, ≈ 14.0 GB in f32 and ≈ 7.0 GB in bf16, so one
+# 80 GB card holds every block in both. Training runs at full depth in f32
+# (reckoned: the weights' 14 GB, batch 8 × 64's activations through 48
+# blocks, ≈ 0.2 GB a block, and the close's temporaries of the 2.8 GB
+# stacked q/k/v leaves after them); serving at batch 8 holds 5.6 GB of
+# f32 matrix memory (C) beside the weights.
+XL_DEPTH = {"float32": 48, "bfloat16": 48}
+XL_SERVE = {"batch": 8, "prompt": 512, "steps": 32}  # cache prompt + steps
+
+
+def xlstm_projections(cfg):
+    """(name, K, N) of the adapted projections: an mLSTM block's up_proj
+    (d → x, z), q/k/v (d_inner → d_inner) and down_proj (d_inner → d), an
+    sLSTM block's w_gates (d → z, i, f, o), then its FFN's up_proj and
+    down_proj (K or N int(4·d / 3) = 2730, not a multiple of 8)."""
+    d = cfg.d_model
+    d_inner, ff = cfg.ssm_expand * d, int(d * 4 / 3)
+    return ([("up_proj", d, 2 * d_inner), ("q_proj", d_inner, d_inner),
+             ("k_proj", d_inner, d_inner), ("v_proj", d_inner, d_inner),
+             ("down_proj", d_inner, d), ("w_gates", d, 4 * d)],
+            [("ffn/up_proj", d, ff), ("ffn/down_proj", ff, d)])
+
+
+def lora_dense_halves(kernels):
+    """``lora_dense_plain`` summed over K in two halves: x₀W₀ +
+    s(x₀a₀)b + x₁W₁ + s(x₁a₁)b, the same function as x W + s(x a) b,
+    rounded in another order. A serving path through it is a second f32
+    evaluation of the model; its distance from the plain path's is the
+    model's own f32 spread."""
+    def dense(x, w, a, b, scale):
+        k = w.shape[0] // 2
+        return (kernels.lora_dense_plain(x[..., :k], w[:k], a[:k], b, scale)
+                + kernels.lora_dense_plain(x[..., k:], w[k:], a[k:], b,
+                                           scale))
+    return dense
+
+
+def xlstm_kernel_phase(torch, kernels, device, cfg, *, r, scale):
+    """At xlstm-1.3b's shapes: B1 at the stacked q_proj leaf (6 × 7
+    matrices of 4096 × 4096, ≈ 7.05·10⁸ elements), 2 live lanes of 4
+    weighted, against its plain version in 8-matrix chunks and beside
+    ``baddbmm``; B2 over a weighted close's 16 stacks (the 8 adapted
+    leaves' a and b), bitwise; B3 in f32 and bf16 at the prefill rows (M
+    4096) and the decode rows (M 8): ``xl``, an mLSTM block's five
+    projections and the sLSTM's w_gates (each bf16 call through a
+    tensor-core body), ``xl_ffn``, the FFN's up_proj and down_proj at K or
+    N 2730 (each bf16 call through a SIMT body); then the exact-rounding
+    probes at these projections, bitwise. Returns (max errors of the f32
+    cases, of the bf16 cases, timings)."""
+    from repro_torch.kernels.lora_matmul import SKINNY_ROWS
+    from repro_torch.models.transformer import xlstm_layout
+    timer = Timer(torch, device)
+    nper, period = xlstm_layout(cfg)
+    errs = {"fedex_fold": 0.0, "factor_mean": 0.0, "lora_matmul": 0.0}
+    bf16_errs = {"lora_matmul": 0.0}
+    timings = {}
+    c, live = 4, (0, 1)
+    main, ffn = xlstm_projections(cfg)
+    n_m = nper * (period - 1)
+    d_inner = cfg.ssm_expand * cfg.d_model
+    errs["fedex_fold"], timings["fedex_fold"], w = expert_fold_case(
+        torch, kernels, timer, device, "xl", n_m, d_inner, d_inner, c, live,
+        r, scale, seed=410, leaf="q_proj")
+    leaves = [(f"periods/mlstm/{name}", n_m, k, n)
+              for name, k, n in main[:5]]
+    leaves += [(f"periods/slstm/{name}", nper, k, n)
+               for name, k, n in main[5:] + ffn]
+    timings["factor_mean"] = group_mean_case(torch, kernels, timer, device,
+                                             "xl", leaves, c, live, r, w,
+                                             seed=420)
+    low = torch.bfloat16
+    bsz, prompt = XL_SERVE["batch"], XL_SERVE["prompt"]
+    for group, proj, tc in (("xl", main, len(main)), ("xl_ffn", ffn, 0)):
+        for suffix, dtype, m in (("", torch.float32, bsz * prompt),
+                                 ("_decode", torch.float32, bsz),
+                                 ("_bf16", low, bsz * prompt),
+                                 ("_bf16_decode", low, bsz)):
+            key = group + suffix
+            bufs = [[t.to(dtype) for t in lora_inputs(
+                torch, device, m, k, n, r, seed=440 + i)]
+                for i, (_, k, n) in enumerate(proj)]
+            if dtype == low:
+                tc_calls(torch, kernels, bufs, scale, f"{key} M={m}", tc,
+                         decode=m <= SKINNY_ROWS)
+            err, timings[key] = lora_case(
+                torch, kernels, timer, bufs, scale,
+                f"{cfg.name} {key}: {'/'.join(s[0] for s in proj)} at M={m}",
+                device_times=True)
+            sink = bf16_errs if dtype == low else errs
+            sink["lora_matmul"] = max(sink["lora_matmul"], err)
+            del bufs
+            torch.cuda.empty_cache()
+    shapes = sorted({(k, n) for _, k, n in main + ffn})
+    lora_probes(torch, kernels, device,
+                [("xlstm-1.3b", m, k, n, 4) for k, n in shapes
+                 for m in (bsz, bsz * prompt)])
+    return errs, bf16_errs, timings
+
+
+def xlstm_state_bytes(cache) -> dict:
+    """The recurrent state's bytes a sequence: the mLSTM's C, n, m and
+    conv (C apart) over its blocks, the sLSTM's c, n, m and h over its."""
+    flat = _flat(cache)
+    bsz = flat["slstm/h"].shape[1]
+
+    def nbytes(keys):
+        return sum(flat[k].numel() * flat[k].element_size()
+                   for k in keys) / bsz
+
+    return {"mlstm_bytes_per_seq": nbytes([k for k in flat
+                                           if k.startswith("mlstm/")]),
+            "mlstm_C_bytes_per_seq": nbytes(["mlstm/C"]),
+            "slstm_bytes_per_seq": nbytes([k for k in flat
+                                           if k.startswith("slstm/")])}
+
+
+def xlstm_serve(torch, kernels, device, cfg, params, lora, lcfg):
+    """Serve ``cfg`` (f32 or bf16, its dtype) from ``params`` / ``lora`` at
+    ``XL_SERVE``'s shape (the prompt two mLSTM chunks of 256), its cache in
+    the model's dtype. With the counters set to 0 just before each: one
+    prefill and one decode step (``lora_matmul`` 228 each at full depth:
+    five an mLSTM block, three an sLSTM block; bf16: all but the FFN's
+    two an sLSTM block, which the SIMT bodies take, through the
+    tensor-core bodies); the kernel path's prefill logits against the
+    plain path's; teacher forcing, the decode step against the port's
+    training forward over prompt + 1 (bf16: held by :func:`xlstm_bf16`).
+    In f32 the model itself is ill-conditioned: a dot product of two
+    random 1024-wide head vectors carries ≈ √1024 times its inputs'
+    relative error, so every mLSTM block multiplies an f32 rounding
+    difference by ≈ 30 (1.2e-7 of noise on the projections parts the
+    logits by 4e-4 after 8 blocks, on the CPU). So f32 is held against
+    the model's own spread, measured here: the plain path again with each
+    projection summed over K in two halves (:func:`lora_dense_halves`);
+    the kernel path within ``MOE_P_TOL`` of the plain path plus 3 times
+    that spread, the decode step within ``D_TOL`` of the training forward
+    plus 3 times the spread at the last position, its argmax agreeing on
+    every row whose top-2 margin exceeds twice that; the state's bytes
+    (:func:`xlstm_state_bytes`). Then the main path, ``serve()`` (f32:
+    ``dtype`` float32 and an f32 cache; bf16: the config's), the counters
+    set to 0 just before and read just after. Returns (stats, main-path
+    launches, bf16 launches, tensor-core launches, and for
+    :func:`xlstm_bf16` what it compares)."""
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import xlstm_layout
+
+    bsz, prompt, steps = (XL_SERVE[k] for k in ("batch", "prompt", "steps"))
+    max_len, dt = prompt + steps, cfg.dtype
+    nper, period = xlstm_layout(cfg)
+    n_b3 = 5 * nper * (period - 1) + 3 * nper
+    n_tc = n_b3 - 2 * nper
+    low = dt == "bfloat16"
+    mdt = torch.bfloat16 if low else torch.float32
+    model = build_model(cfg)
+    prefill, decode = make_prefill_step(model, lcfg), make_decode_step(model,
+                                                                       lcfg)
+    batch = make_batch_for(cfg, bsz, prompt, seed=0, device=device)
+    full = torch.cat([batch["tokens"], batch["targets"][:, -1:]], dim=1)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        cache = model.init_cache(bsz, max_len, mdt, device=device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pre, cache = prefill(params, lora, batch, cache)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t) * 1e3
+        _moe_expect(kernels, f"{cfg.name} {dt} one prefill", n_b3, 0, dt,
+                    tc={"lora_matmul": n_tc, "lora_matmul_decode": 0,
+                        "flash_swa": 0})
+        kernels.reset_launch_counts()
+        _, dec, cache = decode(params, lora, full[:, -1:], cache, prompt)
+        torch.cuda.synchronize()
+        _moe_expect(kernels, f"{cfg.name} {dt} one decode step", n_b3, 0, dt,
+                    tc={"lora_matmul": 0, "lora_matmul_decode": n_tc,
+                        "flash_swa": 0})
+        state = xlstm_state_bytes(cache)
+        del cache
+        kernels.reset_launch_counts()
+        with plain_ops(kernels):
+            cache = model.init_cache(bsz, max_len, mdt, device=device)
+            pre_plain, cache = prefill(params, lora, batch, cache)
+            del cache
+        torch.cuda.synchronize()
+        _expect(kernels, f"{cfg.name} {dt} plain path", {})
+        err_kp = float((pre - pre_plain).abs().max())
+        spread = spread_last = 0.0
+        if not low:
+            with plain_ops(kernels, dense=lora_dense_halves(kernels)):
+                cache = model.init_cache(bsz, max_len, mdt, device=device)
+                pre_alt, cache = prefill(params, lora, batch, cache)
+                del cache
+            torch.cuda.synchronize()
+            diff = (pre_alt - pre_plain).abs()
+            spread, spread_last = float(diff.max()), float(diff[:, -1].max())
+            del pre_alt, diff
+            lscale = float(pre_plain.abs().max())
+            ok = bool(((pre - pre_plain).abs() <= MOE_P_TOL[0]
+                       * pre_plain.abs() + MOE_P_TOL[1] * lscale
+                       + 3 * spread).all())
+            print(f"  [xl] f32 prefill logits, kernel path vs plain path: "
+                  f"max |diff| {err_kp:.3e} (rtol {MOE_P_TOL[0]}, atol "
+                  f"{MOE_P_TOL[1]} x logit scale {lscale:.3f} + 3 x the "
+                  f"model's f32 spread {spread:.3e}, at the last position "
+                  f"{spread_last:.3e}): within={ok}", flush=True)
+            if not ok:
+                raise AssertionError("xl f32 serve: the kernel path "
+                                     "disagrees with the plain path")
+        train = model.apply(params, {"tokens": full}, lora=lora,
+                            lora_scale=lcfg.scale)[:, -1].clone()
+        torch.cuda.synchronize()
+        got = dec[:, -1].clone()
+        scale_tf = float(train.abs().max())
+        err_tf = float((got - train).abs().max())
+        if low:
+            print(f"  [xl] {cfg.name} bf16 teacher-forced decode vs the bf16 "
+                  f"training forward: max |diff| {err_tf:.4e} = "
+                  f"{err_tf / scale_tf:.3f} of the logit scale "
+                  f"{scale_tf:.3f}", flush=True)
+        else:
+            atol = D_TOL[1] + 3 * spread_last
+            ok, _ = _allclose(got, train, D_TOL[0], atol)
+            margin_tol = atol + D_TOL[0] * scale_tf
+            top2 = torch.topk(train, 2, dim=-1).values
+            sure = top2[:, 0] - top2[:, 1] > 2 * margin_tol
+            same = got.argmax(-1) == train.argmax(-1)
+            agree = bool(same[sure].all())
+            print(f"  [xl] {cfg.name} f32 teacher-forced decode vs the "
+                  f"training forward: max |diff| {err_tf:.4e} (rtol "
+                  f"{D_TOL[0]}, atol {D_TOL[1]} + 3 x {spread_last:.3e}; "
+                  f"logit scale {scale_tf:.3f}): within={ok}; argmax agrees "
+                  f"on {int(same.sum())} of {bsz} rows, on the "
+                  f"{int(sure.sum())} rows past 2 x tol: {agree}", flush=True)
+            if not (ok and agree):
+                raise AssertionError("xl f32 serve: prefill + decode "
+                                     "disagree with the training forward")
+        cmp = {"pre": pre[:, -1], "pre_plain": pre_plain[:, -1],
+               "decode": got, "train": train, "full": full}
+        del dec, pre, pre_plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kernels.reset_launch_counts()
+    res = serve(cfg, batch_size=bsz, prompt_len=prompt, steps=steps,
+                max_len=max_len, device=device, params=params, lora=lora,
+                **({} if low else {"dtype": torch.float32,
+                                   "cache_dtype": torch.float32}))
+    launches = kernels.launch_counts()
+    bf16 = kernels.bf16_launch_counts()
+    tc = tc_launch_counts(kernels)
+    _moe_expect(kernels, f"{cfg.name} {dt} serve() (1 prefill + {steps} "
+                "decode steps)", n_b3 * (1 + steps), 0, dt,
+                tc={"lora_matmul": n_tc, "lora_matmul_decode": n_tc * steps,
+                    "flash_swa": 0})
+    if low:
+        simt = bf16["lora_matmul"] - tc["lora_matmul"] - tc[
+            "lora_matmul_decode"]
+        print(f"  [xl] bf16 serve() B3 launches: {bf16['lora_matmul']}, "
+              f"tensor-core {tc['lora_matmul']} (prefill) + "
+              f"{tc['lora_matmul_decode']} (split-K decode), SIMT {simt} "
+              "(the FFN's K or N 2730)", flush=True)
+    toks = res.tokens
+    if toks.shape != (bsz, steps + 1) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"xl serve: bad tokens {toks.shape}")
+    stats = {"prefill_ms": res.prefill_ms, "first_prefill_ms": pre_ms,
+             "decode_ms_per_token": res.ms_per_token,
+             "decode_tokens_per_s": bsz * steps / (res.decode_ms / 1e3),
+             "prefill_tokens_per_s": bsz * prompt / (res.prefill_ms / 1e3),
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "err_teacher_forced": err_tf, "err_kernel_vs_plain": err_kp,
+             "f32_spread": spread, "f32_spread_last": spread_last,
+             "state": state, "seconds": time.perf_counter() - t0}
+    state_mb = (state["mlstm_bytes_per_seq"]
+                + state["slstm_bytes_per_seq"]) / 1e6
+    print(f"  [xl] {cfg.name} {dt} batch {bsz}, prompt {prompt}, {steps} "
+          f"decode steps: prefill {res.prefill_ms:.1f} ms "
+          f"({stats['prefill_tokens_per_s']:.0f} tokens/s; the first, "
+          f"counted, {pre_ms:.1f} ms), decode {res.ms_per_token:.2f} "
+          f"ms/token ({stats['decode_tokens_per_s']:.1f} tokens/s over the "
+          f"batch), peak {stats['peak_gib']:.2f} GiB; the recurrent state "
+          f"{state_mb:.1f} MB a sequence (mLSTM "
+          f"{state['mlstm_bytes_per_seq'] / 1e6:.1f} MB, its C "
+          f"{state['mlstm_C_bytes_per_seq'] / 1e6:.1f} MB; sLSTM "
+          f"{state['slstm_bytes_per_seq'] / 1e3:.1f} kB); "
+          f"{stats['seconds']:.1f} s; first row {toks[0, :8].tolist()}",
+          flush=True)
+    return stats, launches, bf16, tc, cmp
+
+
+def xlstm_f32_answer(torch, cfg, params, lora, lcfg, tokens):
+    """The f32 training forward of an ssm config over ``tokens`` (B, S)
+    from bf16 ``params``, widened one block at a time: the logits at the
+    last two positions (the prompt's last, for the prefill; the next
+    token's, for the decode step)."""
+    from dataclasses import replace
+
+    from repro_torch.models import transformer, xlstm
+    from repro_torch.models.common import apply_norm, embed, unembed
+
+    f32 = replace(cfg, dtype="float32")
+    nper, period = transformer.xlstm_layout(cfg)
+    per, per_lora = params["periods"], lora.get("periods") or {}
+
+    def wide(tree):
+        return _unflat({k: v.float() for k, v in _flat(tree).items()})
+
+    def block(fn, x, kind, *idx):
+        return fn(f32, wide(transformer._layer_slice(per[kind], *idx)), x,
+                  lora=transformer._layer_slice(per_lora.get(kind), *idx),
+                  lora_scale=lcfg.scale)[0]
+
+    with torch.inference_mode():
+        table = params["embed"]["embedding"].float()
+        x = embed({"embedding": table}, tokens)
+        for i in range(nper):
+            for j in range(period - 1):
+                x = block(xlstm.mlstm_block, x, "mlstm", i, j)
+            x = block(xlstm.slstm_block, x, "slstm", i)
+        x = apply_norm(cfg.norm, wide(params["final_norm"]), x[:, -2:])
+        return unembed({}, x, tied_embedding=table)
+
+
+def xlstm_block_check(torch, kernels, device, cfg, params, lora, lcfg,
+                      tokens):
+    """The bf16 serving prefill held a block at a time: over period 0
+    (7 mLSTM blocks, then the sLSTM block), each block's prefill from a
+    fresh bf16 cache through B3 (the kernel path) and through the plain
+    versions, and its f32 answer (the block widened, from the same input,
+    an f32 cache), the input of each block the kernel path's output of
+    the one before (the embedded ``tokens`` for the first). A random
+    xLSTM in bf16 parts from its f32 answer by ≈ 1–3% of the residual's
+    scale a block, which compounds over 48 blocks to the logit scale
+    itself, so the whole-model comparison of :func:`xlstm_bf16` holds
+    little; a block's holds its kernels: each block's output no further
+    from its f32 answer than twice the plain path's plus one bf16 rounding
+    at its scale, and from the plain path's no further than three times
+    that distance plus the floor. Returns the largest kernel-path error
+    as a share of the block's scale."""
+    from dataclasses import replace
+
+    from repro_torch.models import transformer, xlstm
+    from repro_torch.models.common import embed
+
+    f32 = replace(cfg, dtype="float32")
+    per, per_lora = params["periods"], lora.get("periods") or {}
+    bsz = tokens.shape[0]
+    blocks = [("mlstm", (0, j)) for j in range(cfg.slstm_every - 1)]
+    blocks.append(("slstm", (0,)))
+    worst = 0.0
+    with torch.inference_mode():
+        x = embed(params["embed"], tokens)
+        for kind, idx in blocks:
+            fn = xlstm.mlstm_block if kind == "mlstm" else xlstm.slstm_block
+            init = (xlstm.init_mlstm_cache if kind == "mlstm"
+                    else xlstm.init_slstm_cache)
+            p = transformer._layer_slice(per[kind], *idx)
+            lo = transformer._layer_slice(per_lora.get(kind), *idx)
+
+            def run(c, pp, xx, dtype):
+                return fn(c, pp, xx, lora=lo, lora_scale=lcfg.scale,
+                          cache=init(bsz, c, dtype, device))[0]
+
+            y = run(cfg, p, x, torch.bfloat16)
+            with plain_ops(kernels):
+                y_plain = run(cfg, p, x, torch.bfloat16)
+                y32 = run(f32, _unflat({k: v.float() for k, v in
+                                        _flat(p).items()}), x.float(),
+                          torch.float32)
+            torch.cuda.synchronize()
+            scale = float(y32.abs().max())
+            floor = 2.0 ** -8 * scale
+            err_k = float((y.float() - y32).abs().max())
+            err_p = float((y_plain.float() - y32).abs().max())
+            err_kp = float((y.float() - y_plain.float()).abs().max())
+            ok = err_k <= 2 * err_p + floor and err_kp <= 3 * err_p + floor
+            worst = max(worst, err_k / scale)
+            print(f"  [xl] bf16 {kind} block {list(idx)} prefill: kernel "
+                  f"path vs its f32 answer {err_k:.4e} ({err_k / scale:.2%}"
+                  f" of the scale {scale:.3f}), plain path {err_p:.4e} "
+                  f"(bound 2 x that + {floor:.4e}), kernel vs plain "
+                  f"{err_kp:.4e}: ok={ok}", flush=True)
+            if not ok:
+                raise AssertionError(f"xl bf16 {kind} block {list(idx)}: "
+                                     "the kernel path is further from the "
+                                     "f32 answer than allowed")
+            x = y
+            del y_plain, y32
+    return worst
+
+
+def xlstm_bf16(torch, kernels, device, scale):
+    """The bf16 serve at the bf16 depth from fresh draws (the port's own
+    bf16 params, a rank-4 f32 adapter with b drawn N(0, 0.05²)) through
+    :func:`xlstm_serve`, then the f32 answer over the same weights and
+    prompt + 1 tokens (:func:`xlstm_f32_answer`); then period 0 a block
+    at a time (:func:`xlstm_block_check`), where the comparison still
+    holds the kernels (at full depth the bf16 model's logits part from
+    the f32 answer by about the logit scale, the plain path's as much).
+    Held as phase 12 holds its bf16 serve: the kernel path's prefill
+    logits no further from the
+    f32 answer than twice the bf16 plain path's plus one bf16 rounding at
+    the logit scale, and from the plain path's no further than three times
+    that distance plus the floor; the decode step no further from its f32
+    answer than twice the bf16 training forward's plus the floor, the
+    argmax agreeing on every row whose f32 top-2 margin exceeds twice that
+    bound. Returns (stats, launches, bf16 launches, tensor-core
+    launches)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import init_lora
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = replace(get_config(XL), num_layers=XL_DEPTH["bfloat16"])
+    if cfg.dtype != "bfloat16":
+        raise AssertionError(f"{XL}: config dtype {cfg.dtype}")
+    lcfg = LoRAConfig(rank=4, alpha=4 * scale)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    with torch.inference_mode():
+        params = build_model(cfg).init(gen, device)
+        lora = init_lora(gen, params, cfg, lcfg)
+        for k, leaf in _flat(lora).items():
+            if k.endswith("/b"):
+                leaf.normal_(0.0, 0.05, generator=gen)
+    torch.cuda.synchronize()
+    if params["periods"]["slstm"]["b_gates"].dtype != torch.float32:
+        raise AssertionError("xl bf16: b_gates is not f32")
+    print(f"  [xl] {cfg.name} bf16 at depth {cfg.num_layers}: params and "
+          f"adapter on the card in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    stats, launches, bf16, tc, cmp = xlstm_serve(torch, kernels, device, cfg,
+                                                 params, lora, lcfg)
+    f32 = xlstm_f32_answer(torch, cfg, params, lora, lcfg, cmp["full"])
+    torch.cuda.synchronize()
+    pre32, next32 = f32[:, 0], f32[:, 1]
+    bsz = cmp["full"].shape[0]
+    pre, pre_plain = cmp["pre"], cmp["pre_plain"]
+    floor = 2.0 ** -8 * float(pre32.abs().max())
+    err_k = float((pre - pre32).abs().max())
+    err_p = float((pre_plain - pre32).abs().max())
+    err_kp = float((pre - pre_plain).abs().max())
+    ok = err_k <= 2 * err_p + floor and err_kp <= 3 * err_p + floor
+    print(f"  [xl] bf16 prefill last-position logits: kernel path vs f32 "
+          f"{err_k:.4e}, bf16 plain path vs f32 {err_p:.4e} (bound 2 x that "
+          f"+ {floor:.4e} = {2 * err_p + floor:.4e}), kernel vs plain path "
+          f"{err_kp:.4e} (bound {3 * err_p + floor:.4e}); logit scale "
+          f"{float(pre32.abs().max()):.3f}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("xl bf16 serve: the kernel path's logits are "
+                             "further from the f32 answer than allowed")
+    floor = 2.0 ** -8 * float(next32.abs().max())
+    err_d = float((cmp["decode"] - next32).abs().max())
+    err_t = float((cmp["train"] - next32).abs().max())
+    bound = 2 * err_t + floor
+    top2 = torch.topk(next32, 2, dim=-1).values
+    sure = top2[:, 0] - top2[:, 1] > 2 * bound
+    same = cmp["decode"].argmax(-1) == next32.argmax(-1)
+    agree = bool(same[sure].all())
+    ok = err_d <= bound and agree
+    print(f"  [xl] bf16 teacher forcing: the decode step vs the f32 answer "
+          f"{err_d:.4e}, the bf16 training forward vs it {err_t:.4e} (bound "
+          f"2 x that + {floor:.4e} = {bound:.4e}); argmax agrees with f32 on "
+          f"{int(same.sum())} of {bsz} rows, on the {int(sure.sum())} rows "
+          f"past 2 x bound: {agree}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("xl bf16 serve: the decode step is further from "
+                             "the f32 answer than allowed")
+    stats["block_err_share"] = xlstm_block_check(
+        torch, kernels, device, cfg, params, lora, lcfg,
+        cmp["full"][:, :XL_SERVE["prompt"]])
+    stats.update(err_vs_f32=err_k, err_plain_vs_f32=err_p,
+                 err_decode_vs_f32=err_d, err_train_vs_f32=err_t,
+                 seconds=time.perf_counter() - t0,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del params, lora, cmp, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, launches, bf16, tc
+
+
+def xlstm_phase(torch, kernels, device):
+    """Phase 13: xlstm-1.3b at full width and depth. The kernels at its
+    shapes (:func:`xlstm_kernel_phase`); training in f32 (:func:`moe_train`
+    with adapters on the 8 leaves: fedex, a uniform round, then a weighted
+    one at 50%) and the f32 serve of its folded W0 and global adapter
+    (:func:`xlstm_serve`); that state freed, the bf16 serve from fresh
+    draws (:func:`xlstm_bf16`). Returns (max errors of the f32 cases, of
+    the bf16 cases, timings, launches, bf16 launches, stats)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import LoRAConfig, get_config
+
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = replace(get_config(XL), num_layers=XL_DEPTH["float32"],
+                  dtype="float32")
+    r, scale = 4, 2.0
+    lcfg = LoRAConfig(rank=r, alpha=8.0)
+    errs, bf16_errs, timings = xlstm_kernel_phase(torch, kernels, device,
+                                                  cfg, r=r, scale=scale)
+    stats = {"kernels_s": time.perf_counter() - t,
+             "kernels_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    launches = {name: 0 for name in SOURCES}
+    t1 = time.perf_counter()
+    trainer, stats["train"], got = moe_train(torch, kernels, device, cfg,
+                                             scale, tag="xl", lcfg=lcfg)
+    for k, v in got.items():
+        launches[k] += v
+    served, got = xlstm_serve(torch, kernels, device, cfg, trainer.params,
+                              trainer.global_lora, lcfg)[:2]
+    for k, v in got.items():
+        launches[k] += v
+    stats["f32"] = dict(served, seconds=time.perf_counter() - t1)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["bf16"], got, bf16, tc = xlstm_bf16(torch, kernels, device, scale)
+    for k, v in got.items():
+        launches[k] += v
+    bf16 = dict(bf16, **{f"{k}_tc": v for k, v in tc.items()})
+    stats["seconds"] = time.perf_counter() - t
+    print(f"  [xl] phase 13 in {stats['seconds']:.1f} s; peak memory: "
           f"kernels {stats['kernels_peak_gib']:.2f} GiB, f32 training "
           f"{stats['train']['train_peak_gib']:.2f} GiB, f32 serve "
           f"{stats['f32']['peak_gib']:.2f} GiB, bf16 serve "
@@ -7485,6 +8062,34 @@ def hybrid_main() -> int:
     return 0
 
 
+def xlstm_main() -> int:
+    """``--xlstm``: phase 13 alone (:func:`xlstm_phase`) on this
+    checkout's port, after the build, its stats as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch import kernels
+    from repro_torch.kernels import build as kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi_line(), flush=True)
+    build_kernels(kbuild, "[xlstm]")
+    errs, bf16_errs, timings, launches, bf16, stats = xlstm_phase(
+        torch, kernels, torch.device("cuda", 0))
+    fields = {}
+    for key, t in timings.items():
+        fields.update(timing_fields(key, t))
+    print(smi_line(), flush=True)
+    print(json.dumps({"xlstm": stats, "launches": launches,
+                      "bf16_launches": bf16, "max_abs_err": errs,
+                      "bf16_max_abs_err": bf16_errs, "timings": fields}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -7510,6 +8115,8 @@ def main() -> int:
         return mla_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--hybrid":
         return hybrid_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--xlstm":
+        return xlstm_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--fold-check":
         return fold_check_main()
     if not torch.cuda.is_available():
@@ -7531,7 +8138,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
-    print(f"[1/13] environment: python {sys.version.split()[0]}, torch "
+    print(f"[1/14] environment: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
@@ -7542,11 +8149,11 @@ def main() -> int:
           flush=True)
     print(smi, flush=True)
 
-    build_kernels(kbuild, "[2/13]")
+    build_kernels(kbuild, "[2/14]")
 
     cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
     c, r, scale = 4, 4, 8.0 / 4
-    print(f"[3/13] kernels vs plain versions (C={c}, r={r}, scale={scale})",
+    print(f"[3/14] kernels vs plain versions (C={c}, r={r}, scale={scale})",
           flush=True)
     errs, timings = kernel_phase(torch, kernels, device, cfg, c=c, r=r,
                                  scale=scale)
@@ -7570,7 +8177,7 @@ def main() -> int:
     print(f"  launch path: {json.dumps(cost)}", flush=True)
     torch.cuda.empty_cache()
 
-    print(f"[4/13] main paths: FederatedTrainer at {cfg.name} full width "
+    print(f"[4/14] main paths: FederatedTrainer at {cfg.name} full width "
           f"({cfg.num_layers} layers, d={cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}); {', '.join(GPT2_PATHS)} at "
           f"{gcfg.name} ({gcfg.num_layers} layers, d={gcfg.d_model}, vocab "
@@ -7600,24 +8207,24 @@ def main() -> int:
           flush=True)
     serve_stats = {}
     for scfg in (cfg, gcfg):
-        print(f"[5/13] serving: {scfg.name} at full width, prefill + KV-cache "
+        print(f"[5/14] serving: {scfg.name} at full width, prefill + KV-cache "
               "greedy decode with a LoRA adapter", flush=True)
         serve_stats[scfg.name], serve_launches = serve_phase(
             torch, kernels, device, scfg)
         for k in ("lora_matmul", "flash_swa"):
             launches[k] += serve_launches[k]
-    print(f"[6/13] obs and the HTTP federation service at {cfg.name} full "
+    print(f"[6/14] obs and the HTTP federation service at {cfg.name} full "
           "width: fedex+obs, serve-http, pull-serve, serve-http-hetero",
           flush=True)
     obs_launches, obs_stats = obs_http_phase(torch, kernels, device, cfg)
     for k, v in obs_launches.items():
         launches[k] += v
-    print(f"[7/13] mesh mode at {cfg.name} full width: "
+    print(f"[7/14] mesh mode at {cfg.name} full width: "
           f"{', '.join(MESH_PATHS)}", flush=True)
     mesh_launches, mesh_stats = mesh_phase(torch, kernels, device, cfg)
     for k, v in mesh_launches.items():
         launches[k] += v
-    print(f"[8/13] the rest of the dense zoo at full width: "
+    print(f"[8/14] the rest of the dense zoo at full width: "
           f"{', '.join(ZOO)}, each trained and served", flush=True)
     zoo_errs, zoo_timings, zoo_launches, zoo_stats = zoo_phase(
         torch, kernels, device)
@@ -7625,14 +8232,14 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in zoo_launches.items():
         launches[k] += v
-    print(f"[9/13] serving in bf16, the reference's default dtype: B3 and B8 "
+    print(f"[9/14] serving in bf16, the reference's default dtype: B3 and B8 "
           f"in bf16, then {', '.join(BF16_SERVE)} served at full width and "
           "depth", flush=True)
     bf16_errs, bf16_timings, bf16_main_launches, bf16_launches, bf16_stats = \
         bf16_phase(torch, kernels, device)
     for k, v in bf16_main_launches.items():
         launches[k] += v
-    print(f"[10/13] the MoE family: {MOE} at full width, trained and served "
+    print(f"[10/14] the MoE family: {MOE} at full width, trained and served "
           f"in f32 at depth {MOE_DEPTH['float32']} and served in bf16 at "
           f"depth {MOE_DEPTH['bfloat16']} (cuts of 56)", flush=True)
     (moe_errs, moe_bf16_errs, moe_timings, moe_launches, moe_bf16,
@@ -7641,7 +8248,7 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in moe_launches.items():
         launches[k] += v
-    print(f"[11/13] Multi-head Latent Attention on the MoE stack: {DS} at "
+    print(f"[11/14] Multi-head Latent Attention on the MoE stack: {DS} at "
           f"full width, trained and served in f32 at depth "
           f"{DS_DEPTH['float32']} and served in bf16 at depth "
           f"{DS_DEPTH['bfloat16']} (1 dense + MoE layers, cuts of 60)",
@@ -7652,7 +8259,7 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in mla_launches.items():
         launches[k] += v
-    print(f"[12/13] the hybrid family: {ZB} at full width and depth "
+    print(f"[12/14] the hybrid family: {ZB} at full width and depth "
           f"({ZB_DEPTH['float32']} Mamba2 layers, the shared block every "
           "6), trained and served in f32, served in bf16", flush=True)
     (zb_errs, zb_bf16_errs, zb_timings, zb_launches, zb_bf16,
@@ -7660,6 +8267,15 @@ def main() -> int:
     for k, v in zb_errs.items():
         errs[k] = max(errs[k], v)
     for k, v in zb_launches.items():
+        launches[k] += v
+    print(f"[13/14] the ssm family: {XL} at full width and depth "
+          f"({XL_DEPTH['float32']} blocks, 6 periods of 7 mLSTM + 1 sLSTM), "
+          "trained and served in f32, served in bf16", flush=True)
+    (xl_errs, xl_bf16_errs, xl_timings, xl_launches, xl_bf16,
+     xl_stats) = xlstm_phase(torch, kernels, device)
+    for k, v in xl_errs.items():
+        errs[k] = max(errs[k], v)
+    for k, v in xl_launches.items():
         launches[k] += v
     main_body = {**timings["weighted-partial"], **lane_timings,
                  "lora_matmul": serve_timings["lora_matmul[prefill]"],
@@ -7803,6 +8419,23 @@ def main() -> int:
             "zb_bf16_max_abs_err": zb_bf16_errs[name]})
     out[list(SOURCES).index("lora_matmul")][
         "zb_bf16_tc_decode_launches"] = zb_bf16["lora_matmul_decode_tc"]
+    # xlstm-1.3b's shapes (phase 13): B1 at the stacked q_proj leaf, B2
+    # over a close's 16 stacks, B3 in f32 and bf16 (prefill and decode) at
+    # an mLSTM block's five projections and the sLSTM's w_gates (xl) and
+    # at the FFN's two at K or N 2730 (xl_ffn); the bf16 and tensor-core
+    # launches of its bf16 serve() run
+    for name, key, t in (
+            ("fedex_fold", "xl", xl_timings["fedex_fold"]),
+            ("factor_mean", "xl", xl_timings["factor_mean"]),
+            *(("lora_matmul", key, xl_timings[key]) for key in (
+                "xl", "xl_decode", "xl_bf16", "xl_bf16_decode", "xl_ffn",
+                "xl_ffn_decode", "xl_ffn_bf16", "xl_ffn_bf16_decode"))):
+        out[list(SOURCES).index(name)].update(timing_fields(key, t))
+    out[list(SOURCES).index("lora_matmul")].update({
+        "xl_bf16_launches": xl_bf16["lora_matmul"],
+        "xl_bf16_tc_launches": xl_bf16["lora_matmul_tc"],
+        "xl_bf16_tc_decode_launches": xl_bf16["lora_matmul_decode_tc"],
+        "xl_bf16_max_abs_err": xl_bf16_errs["lora_matmul"]})
     # B5 beside its old body (product_fold in place), and at the chunk of
     # 64 uplinks at r = 8 that docs/benchmarks.md documents
     ms, _, lib_ms, (bms, by), *_ = lane_timings["product_accum[C64r8]"]
@@ -7811,7 +8444,7 @@ def main() -> int:
         "C64r8_prior_ms": lane_prior["product_accum[C64r8]"],
         "C64r8_library_ms": lib_ms, "C64r8_bound_ms": bms,
         "C64r8_bound_by": by})
-    print(f"[13/13] done in {time.perf_counter() - t_start:.1f} s; identity "
+    print(f"[14/14] done in {time.perf_counter() - t_start:.1f} s; identity "
           "max "
           f"err per path {json.dumps(identities)}; resume "
           f"{json.dumps(resume)}; serving "
@@ -7819,7 +8452,7 @@ def main() -> int:
           f"{json.dumps(obs_stats)}; mesh {json.dumps(mesh_stats)}; zoo "
           f"{json.dumps(zoo_stats)}; bf16 {json.dumps(bf16_stats)}; moe "
           f"{json.dumps(moe_stats)}; mla {json.dumps(mla_stats)}; hybrid "
-          f"{json.dumps(zb_stats)}; rounds "
+          f"{json.dumps(zb_stats)}; xlstm {json.dumps(xl_stats)}; rounds "
           + json.dumps([{k: v for k, v in row.items()
                          if k != "client_losses"} for row in all_rows]),
           flush=True)

@@ -75,14 +75,15 @@ class SyntheticLM:
 
 def make_batch_for(cfg, batch_size: int, seq_len: int, seed: int = 0,
                    device="cuda") -> Dict[str, torch.Tensor]:
-    """Random batch of the dense, MoE or hybrid family (smoke tests,
+    """Random batch of the dense, MoE, hybrid or ssm family (smoke tests,
     serving prompts): tokens only, the reference's ``make_batch_for``
     draws — ``integers(0, vocab)`` over (batch, seq_len + 1) — so the
     token values are the reference's bit for bit, as int64 tensors on
     ``device``."""
-    if cfg.family not in ("dense", "moe", "hybrid"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         raise NotImplementedError(f"make_batch_for: family {cfg.family!r} is "
-                                  "not ported (dense, moe and hybrid only)")
+                                  "not ported (dense, moe, hybrid and ssm "
+                                  "only)")
     rng = np.random.default_rng(seed)
     toks = rng.integers(0, cfg.vocab_size, size=(batch_size, seq_len + 1))
     return to_batch(toks, resolve_device(device))

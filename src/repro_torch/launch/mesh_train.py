@@ -248,8 +248,9 @@ def check_mesh_supported(fed: FedConfig, cfg=None) -> None:
     """Raise ``NotImplementedError`` for a MoE model config ``cfg``, named:
     the reference maps each lane's loss, router aux loss included, over the
     lanes, where the port's one folded forward would pool the aux; and for
-    a hybrid one, named (its stacks and its shared block's adapter have no
-    lane layout yet; host mode trains it). Raise
+    a hybrid or an ssm (xLSTM) one, named (their stacks, and the hybrid
+    shared block's adapter, have no lane layout yet; host mode trains
+    them). Raise
     ``ValueError`` for a setting mesh mode cannot honour (the
     reference warns and ignores them): the host-orchestrated methods, the
     coordinator's and the transport's settings, DP, client ranks, the
@@ -261,10 +262,10 @@ def check_mesh_supported(fed: FedConfig, cfg=None) -> None:
         raise NotImplementedError(
             f"--mode mesh does not run the MoE config {cfg.name!r} (each "
             "lane's router aux loss; host mode trains it)")
-    if cfg is not None and cfg.family == "hybrid":
+    if cfg is not None and cfg.family in ("hybrid", "ssm"):
         raise NotImplementedError(
-            f"--mode mesh does not run the hybrid config {cfg.name!r} yet "
-            "(host mode trains it)")
+            f"--mode mesh does not run the {cfg.family} config "
+            f"{cfg.name!r} yet (host mode trains it)")
     if fed.method not in MESH_METHODS:
         raise ValueError(f"--mode mesh supports {MESH_METHODS}, "
                          f"got method={fed.method!r}")

@@ -10,7 +10,8 @@ dtype, as the reference serves it: bfloat16 for every registered config
 another (float32). The adapted q/k/v/o projections of prefill and decode
 run the fused LoRA kernel (B3) and the prefill attention the flash
 attention kernel (B8), each in that dtype (a hybrid config's Mamba2
-``in_proj`` / ``out_proj`` through B3 too); an f32 adapter (``init_lora``'s,
+``in_proj`` / ``out_proj`` through B3 too, and an xLSTM config's adapted
+projections, which have no attention); an f32 adapter (``init_lora``'s,
 a trainer's, a pulled one) is cast to it once before the prefill (the
 reference's ``dense`` casts it where it is applied, to the same values).
 Runs on CUDA unless ``--device cpu`` is
@@ -33,6 +34,8 @@ must match the server's).
       --arch mixtral-8x22b-smoke --batch-size 2 --prompt-len 32 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch zamba2-7b-smoke --batch-size 2 --prompt-len 32 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch xlstm-1.3b-smoke --batch-size 2 --prompt-len 32 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch paper-tiny --pull-from http://127.0.0.1:8077
 """
@@ -70,10 +73,20 @@ class ServeResult:
         return self.decode_ms / max(self.steps, 1)
 
 
+# leaves the reference keeps in float32 whatever the model's dtype (Mamba2's
+# A_log, D and dt_bias; the sLSTM's gate bias)
+F32_LEAVES = ("A_log", "D", "dt_bias", "b_gates")
+
+
 def _cast(tree: dict, dtype: torch.dtype) -> dict:
-    """``tree`` with its floating leaves in ``dtype`` (a new tree)."""
+    """``tree`` with its floating leaves in ``dtype`` (a new tree), but
+    for a float32 leaf of ``F32_LEAVES``, which stays float32."""
+    def keep(path, v):
+        return (v.dtype == torch.float32
+                and path.rsplit("/", 1)[-1] in F32_LEAVES)
+
     return unflatten_from_paths({
-        k: v.to(dtype) if v.is_floating_point() else v
+        k: v.to(dtype) if v.is_floating_point() and not keep(k, v) else v
         for k, v in flatten_with_paths(tree).items()})
 
 
@@ -93,9 +106,10 @@ def serve(arch, *, batch_size: int = 2, prompt_len: int = 32,
     ``pull_from`` (a federation server's URL) serves the global adapter
     pulled from it instead. The model runs in ``dtype`` (None: the
     config's own, bf16 as the reference's); ``params`` and the adapter,
-    given, drawn or pulled, are served cast to it. ``arch`` is a
-    registered config's name, or a :class:`ModelConfig` itself (a config
-    cut in depth, say)."""
+    given, drawn or pulled, are served cast to it (the float32 leaves
+    of ``F32_LEAVES`` kept in float32, as the model holds them). ``arch``
+    is a registered config's name, or a :class:`ModelConfig` itself (a
+    config cut in depth, say)."""
     dev = resolve_device(device)
     cfg = arch if isinstance(arch, ModelConfig) else get_config(arch)
     if dtype is not None:
@@ -164,8 +178,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu must be asked for)")
     ap.add_argument("--arch", default="paper-tiny",
-                    help="a registered config of the port (dense, MoE or "
-                         "hybrid family)")
+                    help="a registered config of the port (dense, MoE, "
+                         "hybrid or ssm family)")
     ap.add_argument("--batch-size", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--steps", type=int, default=8)

@@ -72,6 +72,9 @@ Examples (CPU, tiny model):
       --arch zamba2-7b-smoke --method fedex --vocab 64 --rounds 2 \\
       --weighting examples --participation 0.5
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch xlstm-1.3b-smoke --method fedex --vocab 64 --rounds 2 \\
+      --weighting examples --participation 0.5
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --vocab 64 --clients 4 --rounds 3 --deadline 1.0 --min-quorum 2 \\
       --dropout-prob 0.25 --stragglers 0.25 --weighting examples
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\

@@ -1,4 +1,4 @@
-"""Model API: ``build_model(cfg) → Model`` (dense, MoE and hybrid
+"""Model API: ``build_model(cfg) → Model`` (dense, MoE, hybrid and ssm
 families).
 
 Counterpart of ``repro/models/model.py``: a namespace of functions closed
@@ -82,18 +82,20 @@ def build_model(cfg, moe_impl: str = "ragged") -> Model:
         ``(C, m, r)`` elsewhere) and lane c owns batch rows
         ``[c·B, (c+1)·B)``. A MoE config is refused: the reference maps
         the loss, its router aux loss included, over the lanes, and one
-        folded forward would pool the aux over all of them. A hybrid
-        config is refused too: its stacks have no prefix in
-        ``STACKED_AXES``, and its shared block's adapter (no layer axis)
-        no lane split yet."""
+        folded forward would pool the aux over all of them. A hybrid or an
+        ssm config is refused too: their stacks have no prefix in
+        ``STACKED_AXES`` (an ssm config's ``periods/mlstm`` and
+        ``periods/slstm`` are not gemma3's ``periods/local`` and
+        ``periods/global``), and the hybrid shared block's adapter (no
+        layer axis) no lane split yet."""
         if moe:
             raise NotImplementedError(
                 f"config {cfg.name!r}: mesh mode (lane_loss) does not run "
                 "the MoE family (each lane needs its own router aux loss)")
-        if cfg.family == "hybrid":
+        if cfg.family in ("hybrid", "ssm"):
             raise NotImplementedError(
                 f"config {cfg.name!r}: mesh mode (lane_loss) does not run "
-                "the hybrid family yet")
+                f"the {cfg.family} family yet")
         flat = flatten_with_paths(lora)
         c = next(iter(flat.values())).shape[0]
         # the lane axis goes behind the stacked layer axes, so that a layer

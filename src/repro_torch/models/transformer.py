@@ -1,7 +1,8 @@
-"""Decoder-only stack, dense, MoE and hybrid families: ``make_params``,
-``init_cache`` and ``forward`` (train, prefill and decode).
+"""Decoder-only stack, dense, MoE, hybrid and ssm (xLSTM) families:
+``make_params``, ``init_cache`` and ``forward`` (train, prefill and
+decode).
 
-Counterpart of the dense, MoE and hybrid branches of
+Counterpart of the dense, MoE, hybrid and ssm branches of
 ``repro/models/transformer.py``. The parameter layout is the reference's: every per-layer leaf is stacked on a
 leading layer axis (``layers/attn/q_proj/kernel`` is ``(L, d, h·hd)``), so a
 flattened port tree lines up one-to-one with the reference's. A config with
@@ -21,7 +22,11 @@ stacks its Mamba2 layers (:mod:`repro_torch.models.ssm`) by period under
 ``mamba_layers`` (``(nper, attn_every, …)``, nper = L // attn_every) and
 the rest under ``mamba_trailing``; each period runs its Mamba2 layers,
 then ONE parameter-shared attention + MLP layer, ``shared_attn`` (no layer
-axis), with its one adapter and that period's KV cache. Where JAX scans
+axis), with its one adapter and that period's KV cache. An ssm config
+(xlstm) stacks its blocks by period under ``periods``: ``periods/mlstm/…``
+is ``(nper, slstm_every − 1, …)`` and ``periods/slstm/…`` ``(nper, …)``,
+nper = L // slstm_every; each period runs its mLSTM blocks, then its
+sLSTM block (:mod:`repro_torch.models.xlstm`). Where JAX scans
 the stacked parameters, the port runs a Python loop over the layer (and
 period) index. The reference's ``remat`` has no counterpart: at the batch
 sizes the port trains, activations fit without recomputation.
@@ -42,9 +47,12 @@ from repro_torch.models.mlp import make_mlp_params, mlp_block
 from repro_torch.models.moe import make_moe_params, moe_block
 from repro_torch.models.ssm import (init_mamba_cache, make_mamba2_params,
                                     mamba2_block)
+from repro_torch.models.xlstm import (init_mlstm_cache, init_slstm_cache,
+                                      make_mlstm_params, make_slstm_params,
+                                      mlstm_block, slstm_block)
 
 MODES = ("train", "prefill", "decode")
-FAMILIES = ("dense", "moe", "hybrid")
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
 
 
 def check_supported(cfg) -> None:
@@ -55,14 +63,15 @@ def check_supported(cfg) -> None:
     global attention, a sliding window on every layer, or periods of local
     (windowed) and global layers — and its MoE counterpart (top-k routed
     experts, shared experts, leading dense layers), either with Multi-head
-    Latent Attention (``mla``) — and the hybrid stack (Mamba2 layers with
+    Latent Attention (``mla``) — the hybrid stack (Mamba2 layers with
     one parameter-shared attention + MLP layer every ``attn_every`` of
-    them). As in the reference, the family decides: a dense config with
-    ``num_experts`` builds dense MLPs."""
+    them) and the ssm stack (xLSTM: periods of ``slstm_every − 1`` mLSTM
+    blocks and one sLSTM block). As in the reference, the family decides:
+    a dense config with ``num_experts`` builds dense MLPs."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"config {cfg.name!r} asks for family {cfg.family!r}: the port "
-            "runs only the dense, MoE and hybrid decoders so far")
+            "runs only the dense, MoE, hybrid and ssm decoders so far")
 
 
 def _periods(cfg):
@@ -75,6 +84,12 @@ def hybrid_layout(cfg):
     """(periods, trailing Mamba2 layers) of a hybrid config."""
     nper = cfg.num_layers // cfg.attn_every
     return nper, cfg.num_layers - nper * cfg.attn_every
+
+
+def xlstm_layout(cfg):
+    """(periods, blocks a period) of an ssm config: each period is
+    ``slstm_every − 1`` mLSTM blocks and one sLSTM block."""
+    return cfg.num_layers // cfg.slstm_every, cfg.slstm_every
 
 
 def _mamba_layer_params(gen, cfg, lead, dtype, device) -> Params:
@@ -141,6 +156,13 @@ def make_params(gen: torch.Generator, cfg, device) -> Params:
             params["mamba_trailing"] = _mamba_layer_params(
                 gen, cfg, (trailing,), dtype, device)
         params["shared_attn"] = _layer_params(gen, cfg, (), dtype, device)
+    elif cfg.family == "ssm":
+        nper, period = xlstm_layout(cfg)
+        params["periods"] = {
+            "mlstm": make_mlstm_params(gen, cfg, dtype, device,
+                                       (nper, period - 1)),
+            "slstm": make_slstm_params(gen, cfg, dtype, device, (nper,)),
+        }
     elif cfg.local_global_ratio:
         nper, ratio = _periods(cfg)
         params["periods"] = {
@@ -182,7 +204,10 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
     attn_every, batch, H, P, N) f32, "conv": (nper, attn_every, batch,
     K − 1, conv_ch)}, "shared_attn": …(nper, …)}`` (one KV cache a period
     for the shared layer), with ``{"mamba_trailing": …}`` over its
-    trailing Mamba2 layers."""
+    trailing Mamba2 layers. An ssm config's is ``{"mlstm": {"C": (nper,
+    slstm_every − 1, batch, H, Dh, Dh), "n", "m" f32, "conv": (…, batch,
+    3, d_inner)}, "slstm": {"c", "n", "m" f32, "h": (nper, batch, d)}}``
+    (no KV cache: ``cache_len`` plays no part)."""
     check_supported(cfg)
 
     def expand(one, lead):
@@ -197,6 +222,12 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
                                 cfg.resolved_head_dim, dtype, device)
         return expand(one, lead)
 
+    if cfg.family == "ssm":
+        nper, period = xlstm_layout(cfg)
+        return {"mlstm": expand(init_mlstm_cache(batch, cfg, dtype, device),
+                                (nper, period - 1)),
+                "slstm": expand(init_slstm_cache(batch, cfg, dtype, device),
+                                (nper,))}
     if cfg.family == "hybrid":
         nper, trailing = hybrid_layout(cfg)
         one = init_mamba_cache(batch, cfg, dtype, device)
@@ -280,9 +311,10 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
     config). ``"prefill"`` (prompt tokens, a cache from :func:`init_cache`)
     and ``"decode"`` (one token a row, its absolute ``position``) return
     ``(logits, cache)``; they run forward only, through the serving kernels,
-    and update the cache in place (a hybrid cache's conv buffers first
-    widened to the activations' dtype where that is wider, as the
-    reference's conv state comes back in it). ``moe_impl`` picks the MoE
+    and update the cache in place (a hybrid or ssm cache's conv buffers
+    first widened to the activations' dtype where that is wider, as the
+    reference's conv state comes back in it; an sLSTM's ``h`` keeps the
+    cache's dtype). ``moe_impl`` picks the MoE
     block's path (``"ragged"`` or the ``"dense"`` oracle).
     """
     check_supported(cfg)
@@ -334,14 +366,30 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
             decode=mode == "decode")
         return x + h
 
-    if cfg.family == "hybrid":  # the reference's hperiod_body, unrolled
+    if cache is not None:
+        for sub in cache.values():
+            if "conv" in sub:
+                sub["conv"] = sub["conv"].to(
+                    torch.promote_types(sub["conv"].dtype, x.dtype))
+    if cfg.family == "ssm":  # the reference's xperiod_body, unrolled
+        nper, period = xlstm_layout(cfg)
+        per, per_lora = params["periods"], lora.get("periods")
+        for i in range(nper):
+            for j in range(period - 1):
+                x, _ = mlstm_block(
+                    cfg, _layer_slice(per["mlstm"], i, j), x,
+                    lora=_layer_slice(part(per_lora, "mlstm"), i, j),
+                    lora_scale=lora_scale,
+                    cache=_layer_slice(part(cache, "mlstm"), i, j),
+                    decode=mode == "decode")
+            x, _ = slstm_block(
+                cfg, _layer_slice(per["slstm"], i), x,
+                lora=_layer_slice(part(per_lora, "slstm"), i),
+                lora_scale=lora_scale,
+                cache=_layer_slice(part(cache, "slstm"), i),
+                decode=mode == "decode")
+    elif cfg.family == "hybrid":  # the reference's hperiod_body, unrolled
         nper, trailing = hybrid_layout(cfg)
-        if cache is not None:
-            for key in ("mamba", "mamba_trailing"):
-                if key in cache:
-                    conv = cache[key]["conv"]
-                    cache[key]["conv"] = conv.to(
-                        torch.promote_types(conv.dtype, x.dtype))
         for i in range(nper):
             for j in range(cfg.attn_every):
                 x = mamba(x, params["mamba_layers"],

@@ -505,6 +505,8 @@ DECODE_CASES = [
     (8, 3072, 1024, 0), (8, 3072, 1024, 1), (8, 3072, 1024, 16),
     (8, 3072, 1024, 64), (16, 3072, 3072, 64),
     (8, 12000, 256, 4), (16, 9000, 200, 3), (3, 40, 7, 2),
+    # xlstm-1.3b's sLSTM FFN at batch 8 (K or N 2730: W's scalar loads)
+    (8, 2048, 2730, 4), (8, 2730, 2048, 4),
 ]
 
 
@@ -814,6 +816,10 @@ BF16_LORA_CASES = [
     (4095, 3072, 1024, 64), (300, 776, 1000, 4), (129, 8, 1024, 4),
     (200, 3072, 40, 4), (1000, 3072, 1024, 17), (1000, 3072, 3072, 33),
     (4096, 768, 768, 4), (4096, 3840, 4096, 4), (300, 3072, 1024, 12),
+    # xlstm-1.3b's sLSTM FFN (K or N 2730, not a multiple of 8: the tiled
+    # and the SIMT split-K bodies) and its mLSTM q/k/v (4096 x 4096)
+    (4096, 2048, 2730, 4), (4096, 2730, 2048, 4), (8, 2048, 2730, 4),
+    (8, 2730, 2048, 4), (4096, 4096, 4096, 4), (8, 4096, 4096, 4),
 ]
 
 

@@ -119,9 +119,16 @@ def _projections(name):
     """(projection, K, N) of one layer's adapted q/k/v/o of a served model;
     of an MLA model its six attention projections and its two expert
     shapes (up/gate, down); of a hybrid model a Mamba2 layer's in_proj and
-    out_proj besides the shared block's q/k/v/o."""
+    out_proj besides the shared block's q/k/v/o; of an xLSTM model an
+    mLSTM block's up_proj, q/k/v and down_proj and the sLSTM's w_gates
+    (its FFN's up / down at K or N 2730 take the SIMT bodies: see the
+    tests of what TMA cannot describe)."""
     c = get_config(name)
     d, hd = c.d_model, c.resolved_head_dim
+    if c.family == "ssm":
+        di = c.ssm_expand * d
+        return [("up_proj", d, 2 * di), ("q", di, di), ("k", di, di),
+                ("v", di, di), ("down_proj", di, d), ("w_gates", d, 4 * d)]
     if c.family == "hybrid":
         di = c.ssm_expand * d
         mamba = [("in_proj", d, 2 * di + 2 * c.ssm_state
@@ -149,7 +156,7 @@ def _projections(name):
 # default prompt (M 64)
 SERVED = [(name, proj, m, k, n)
           for name in ("paper-llama3.2-3b", "paper-gpt2", "gemma3-12b",
-                       "deepseek-v2-236b", "zamba2-7b")
+                       "deepseek-v2-236b", "zamba2-7b", "xlstm-1.3b")
           for proj, k, n in _projections(name) for m in (4096, 64)]
 
 
@@ -166,10 +173,12 @@ def test_served_bf16_prefill_takes_the_tensor_core_body(case):
 @pytest.mark.parametrize("m,k,n,aligned", [
     (1000, 777, 333, True), (100, 776, 332, True), (4096, 3071, 1024, True),
     (4096, 3072, 1020, True), (4096, 3072, 3072, False),
-    (17, 3072, 1024, False)], ids=str)
+    (17, 3072, 1024, False), (4096, 2048, 2730, True),
+    (4096, 2730, 2048, True)], ids=str)
 def test_what_tma_cannot_describe_takes_the_tiled_body(m, k, n, aligned):
     """K or N not a multiple of 8 (a row stride that is no multiple of 16
-    bytes), or an x or W off 16-byte alignment: the SIMT tiled body."""
+    bytes; xlstm-1.3b's FFN of int(2048·4/3) = 2730), or an x or W off
+    16-byte alignment: the SIMT tiled body."""
     assert _body(m, k, n, True, aligned) == "tiled"
 
 
@@ -249,7 +258,8 @@ SERVED_DECODE = [(name, proj, m, k, n)
                                     ("paper-gpt2", (8, 2)),
                                     ("gemma3-12b", (2,)),
                                     ("deepseek-v2-236b", (8, 2)),
-                                    ("zamba2-7b", (8, 2)))
+                                    ("zamba2-7b", (8, 2)),
+                                    ("xlstm-1.3b", (8, 2)))
                  for proj, k, n in _projections(name) for m in rows]
 
 
@@ -265,7 +275,8 @@ def test_served_bf16_decode_takes_the_tensor_core_split_k_body(case):
 
 @pytest.mark.parametrize("m,k,n,aligned", [
     (8, 777, 333, True), (8, 776, 332, True), (2, 3071, 1024, True),
-    (16, 3072, 1020, True), (8, 3072, 3072, False), (1, 8, 8, False)],
+    (16, 3072, 1020, True), (8, 3072, 3072, False), (1, 8, 8, False),
+    (8, 2048, 2730, True), (8, 2730, 2048, True)],
     ids=str)
 def test_what_tma_cannot_describe_takes_the_simt_split_k_body(m, k, n,
                                                               aligned):

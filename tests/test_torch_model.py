@@ -94,11 +94,11 @@ def test_config_dataclass_defaults_match():
 
 
 def test_unsupported_branch_raises():
-    # windowed attention, experts and MLA run in the port; xlstm's
-    # recurrent blocks (family "ssm") do not
-    xlstm = _port_cfg(jax_get_config("xlstm-1.3b"))
-    with pytest.raises(NotImplementedError, match="ssm"):
-        build_model(xlstm)
+    # windowed attention, experts, MLA and the recurrent blocks run in the
+    # port; whisper's encoder-decoder (family "encdec") does not
+    whisper = _port_cfg(jax_get_config("whisper-medium"))
+    with pytest.raises(NotImplementedError, match="encdec"):
+        build_model(whisper)
 
 
 def test_param_paths_line_up_with_the_reference():

@@ -130,8 +130,8 @@ def test_registry_has_every_dense_config_of_the_reference():
     names = ("granite-8b", "starcoder2-15b", "gemma3-12b")
     assert set(names) <= set(list_configs())
     # and mixtral-8x22b (test_torch_moe), deepseek-v2-236b (test_torch_mla),
-    # zamba2-7b (test_torch_hybrid)
-    assert len(list_configs()) == 10
+    # zamba2-7b (test_torch_hybrid), xlstm-1.3b (test_torch_xlstm)
+    assert len(list_configs()) == 11
     for name in names:
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
             jax_get_config(name))
@@ -142,13 +142,11 @@ def test_registry_has_every_dense_config_of_the_reference():
             g.head_dim) == (2, 1, 64, 64)
 
 
-# the dense, MoE (MLA included) and hybrid families run in the port; the
-# others are refused by their family's name
-@pytest.mark.parametrize("name,family", [("xlstm-1.3b", "ssm"),
-                                         ("internvl2-76b", "vlm"),
+# the dense, MoE (MLA included), hybrid and ssm families run in the port;
+# the others are refused by their family's name
+@pytest.mark.parametrize("name,family", [("internvl2-76b", "vlm"),
                                          ("whisper-medium", "encdec")],
-                         ids=["xlstm-1.3b", "internvl2-76b",
-                              "whisper-medium"])
+                         ids=["internvl2-76b", "whisper-medium"])
 def test_other_families_stay_refused(name, family):
     cfg = jax_get_config(name)
     assert cfg.family == family
@@ -156,7 +154,8 @@ def test_other_families_stay_refused(name, family):
         check_supported(_port_cfg(cfg))
 
 
-@pytest.mark.parametrize("arch", ARCHS + ["zamba2-7b-smoke"])
+@pytest.mark.parametrize("arch", ARCHS + ["zamba2-7b-smoke",
+                                          "xlstm-1.3b-smoke"])
 def test_param_adapter_and_cache_trees_line_up(arch):
     jcfg = _jcfg(arch)
     jm = jax_build_model(jcfg)
