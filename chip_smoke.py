@@ -1435,9 +1435,10 @@ def visible_pairs(torch, device, sq, sk, causal, window):
 
 
 def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
-               seed, device_times=False, dtype=None, tc=False):
+               seed, device_times=False, dtype=None, tc=False, sk=0):
     """swa_attention (B, S, H, D) against swa_attention_plain within the
     reference's f32 tolerance (rtol 2e-5, atol 4e-5) at unit-scale inputs,
+    k and v of ``sk`` rows (0: S; a cross-attention's Sq ≠ Sk),
     and a second run bitwise against the first; timed beside the plain
     version, the bound (4·d flops per visible pair) and
     ``scaled_dot_product_attention`` in f32 (is_causal, enable_gqa; an
@@ -1447,11 +1448,12 @@ def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
     tensor-core peak; ``tc``: both runs must take B8's tensor-core body
     (``bf16_tc_launches``), else neither. Returns (max error, timings)."""
     import torch.nn.functional as F
+    sk = sk or s
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     q = torch.randn(b, s, h, d, device=device, generator=g)
-    k = torch.randn(b, s, kvh, d, device=device, generator=g)
-    v = torch.randn(b, s, kvh, d, device=device, generator=g)
+    k = torch.randn(b, sk, kvh, d, device=device, generator=g)
+    v = torch.randn(b, sk, kvh, d, device=device, generator=g)
     low = dtype == torch.bfloat16
     if low:
         q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
@@ -1473,15 +1475,15 @@ def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
     err = float(e.max())
     tol = (kernels.swa_error_bound(q, k, v, causal, window) if low
            else 4e-5 + 2e-5 * want.abs())
-    mask, pairs = visible_pairs(torch, device, s, s, causal, window)
+    mask, pairs = visible_pairs(torch, device, s, sk, causal, window)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     if window:
         kw = {"attn_mask": mask}
     else:
         kw = {"is_causal": causal}
     lib = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **kw)
-    label = (f"B={b} S={s} H={h}/{kvh} d={d} "
-             f"{'causal' if causal else 'non-causal'} window={window}")
+    label = (f"B={b} S={s}{f' Sk={sk}' if sk != s else ''} H={h}/{kvh} "
+             f"d={d} {'causal' if causal else 'non-causal'} window={window}")
     # the library call is a yardstick only: its difference is printed
     lib_err = float((lib.transpose(1, 2).float() - got.float()).abs().max())
     if not bool((e <= tol).all()):
@@ -1489,7 +1491,7 @@ def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
                              "plain version")
     del got, want, e, lib, tol
     elem = 2 if low else 4
-    nbytes = elem * (2 * b * s * h * d + 2 * b * s * kvh * d)
+    nbytes = elem * (2 * b * s * h * d + 2 * b * sk * kvh * d)
     flops = 4 * d * pairs * b * h
 
     def kernel():
@@ -4577,14 +4579,16 @@ def lora_probes(torch, kernels, device, cases, bodies=False):
 
 def flash_probes(torch, kernels, device, flash):
     """B8 on :func:`~repro_torch.kernels.probes.swa_probe` at each (label,
-    B, S, H, KVH, d, causal) of ``flash``: bitwise the plain version,
-    apart from every faulty variant, through the tensor cores at every
-    head dim that is a multiple of 8."""
+    B, S, H, KVH, d, causal[, Sk]) of ``flash`` (Sk ≠ S: a
+    cross-attention's keys): bitwise the plain version, apart from every
+    faulty variant, through the tensor cores at every head dim that is a
+    multiple of 8."""
     from repro_torch.kernels import probes
 
     seen = {}
-    for label, b, s, h, kvh, d, causal in flash:
+    for label, b, s, h, kvh, d, causal, *sk in flash:
         q, k, v, faults = probes.swa_probe(b, s, h, kvh, d, causal=causal,
+                                           sk=sk[0] if sk else 0,
                                            device=device, seed=s + d)
         tc = kernels.flash_swa.bf16_tc_launches
         got = kernels.swa_attention(q, k, v, causal, 0)
@@ -5232,7 +5236,8 @@ def moe_snapshot(trainer):
     return out
 
 
-def moe_train(torch, kernels, device, cfg, scale, tag="moe", lcfg=None):
+def moe_train(torch, kernels, device, cfg, scale, tag="moe", lcfg=None,
+              run=None, data=None, full_identity=False):
     """Phase 10's training path at the f32 depth cut: 4 clients, 3 local
     steps, batch 8 × seq 64 of a 512-token data vocabulary, fedex with
     per-expert adapters (or ``lcfg``'s); round 0 uniform over all clients,
@@ -5244,8 +5249,11 @@ def moe_train(torch, kernels, device, cfg, scale, tag="moe", lcfg=None):
     the counters set to 0 just before the rounds and read just after, the
     fold checked by :func:`identity_sampled` on :func:`moe_snapshot`'s
     matrices. Before it, a MoE config's :func:`moe_layer_check` on the
-    drawn layer 0 (an MLA config also :func:`mla_layer_check`). Returns
-    (trainer, stats, launches)."""
+    drawn layer 0 (an MLA config also :func:`mla_layer_check`). ``run``
+    replaces ``MOE_TRAIN``; ``data(loaders, evals)`` returns the loaders
+    and eval batches to train on (whisper's add frames to every batch);
+    ``full_identity`` checks the fold on every matrix of every leaf
+    (:func:`identity_fedex`). Returns (trainer, stats, launches)."""
     from repro_torch.configs import (FedConfig, LoRAConfig, TrainConfig,
                                      get_config)
     from repro_torch.core import FederatedTrainer
@@ -5255,10 +5263,12 @@ def moe_train(torch, kernels, device, cfg, scale, tag="moe", lcfg=None):
     from repro_torch.util.tree import count_params
 
     t0 = time.perf_counter()
-    run = MOE_TRAIN
+    run = run or MOE_TRAIN
     loaders, evals = build_federated_data(
         run["data_vocab"], run["clients"], seq_len=run["seq"],
         batch_size=run["batch"], device=device)
+    if data is not None:
+        loaders, evals = data(loaders, evals)
     trainer = FederatedTrainer(
         model=build_model(cfg),
         lora_cfg=lcfg or LoRAConfig(rank=4, alpha=8.0, lora_experts=True),
@@ -5314,7 +5324,9 @@ def moe_train(torch, kernels, device, cfg, scale, tag="moe", lcfg=None):
         if rnd == 1:
             trainer.coordinator.policy = RoundPolicy(participation=0.5,
                                                      weighting="examples")
-            old = [moe_snapshot(trainer)]
+            old = [{s.key: _w0(_node(trainer.params, s.key)).clone()
+                    for s in eng.specs} if full_identity
+                   else moe_snapshot(trainer)]
         t = time.perf_counter()
         step_ms.clear()
         rec = trainer.run(until=rnd + 1)[rnd]
@@ -5350,8 +5362,8 @@ def moe_train(torch, kernels, device, cfg, scale, tag="moe", lcfg=None):
     if not all(math.isfinite(v) for v in values):
         raise AssertionError(f"{tag}-fedex: non-finite values: {rows}")
     keys = [s.key for s in eng.specs]
-    identity = identity_sampled(torch, trainer, trainer.outcomes[-1], old,
-                                keys)
+    identity = (identity_fedex if full_identity else identity_sampled)(
+        torch, trainer, trainer.outcomes[-1], old, keys)
     del old
     stats = {"params_b": count_params(trainer.params) / 1e9,
              "layers": cfg.num_layers, "train_s": train_s,
@@ -7360,6 +7372,462 @@ def xlstm_phase(torch, kernels, device):
     return errs, bf16_errs, timings, launches, bf16, stats
 
 
+WH = "whisper-medium"
+# Full depth, no cut: 24 encoder + 24 decoder layers, d 1024, 16 heads of
+# 64, MLP 4096, 1500 frames, the learned position table 32,768 × 1024, a
+# tied vocabulary of 51,865: ≈ 7.94·10⁸ parameters, 3.17 GB in f32 and
+# 1.59 GB in bf16. Training in f32 keeps the encoder's activations over
+# 8 × 1500 frames for backward (≈ 1 GB a layer, no recomputation).
+WH_TRAIN = {"clients": 4, "local_steps": 2, "batch": 8, "seq": 64,
+            "data_vocab": 512}
+WH_SERVE = {"batch": 8, "prompt": 64, "steps": 16, "max_len": 128}
+# the cross-attention's query rows at which B8 is held with Sk = 1500 keys:
+# the decoder's prompt, a tail of the 64-row tile, one row
+WH_CROSS_ROWS = (64, 333, 1)
+
+
+def whisper_leaves(cfg):
+    """(name, L, m, n) of the 12 adapted q/k/v/o leaves (each 1024 ×
+    1024)."""
+    return [(f"{stack}/{name}", n_l, k, n)
+            for stack, n_l in (("encoder/attn", cfg.enc_layers),
+                               ("decoder/self_attn", cfg.num_layers),
+                               ("decoder/cross_attn", cfg.num_layers))
+            for name, k, n in serving_projections(cfg)]
+
+
+def whisper_kernel_phase(torch, kernels, device, cfg, *, r, scale):
+    """At whisper-medium's shapes: B1 at one stacked q_proj leaf (24 × 1024
+    × 1024), 2 live lanes of 4 weighted, against its plain version and
+    beside ``baddbmm``; B2 over a weighted close's 24 stacks (the 12
+    adapted leaves' a and b), bitwise; B3 in f32 and bf16 at an encoder
+    layer's q/k/v/o over the frames (M 8·1500 = 12,000; the cross k/v's
+    shape too), a decoder layer's at the prompt (M 512) and at a decode
+    step (M 8), every bf16 call through a tensor-core body; B8 in f32 and
+    bf16 at the encoder (non-causal, S 1500: a masked tail tile), the
+    decoder's self-attention (causal, S 64) and its cross-attention
+    (non-causal, Sq 64, 333 and 1 against Sk 1500), every bf16 call
+    through the tensor-core body; then the exact-rounding probes at these
+    projections and attentions, bitwise. Returns (max errors of the f32
+    cases, of the bf16 cases, timings)."""
+    from repro_torch.kernels.lora_matmul import SKINNY_ROWS
+    timer = Timer(torch, device)
+    errs = {"fedex_fold": 0.0, "factor_mean": 0.0, "lora_matmul": 0.0,
+            "flash_swa": 0.0}
+    bf16_errs = {"lora_matmul": 0.0, "flash_swa": 0.0}
+    timings = {}
+    c, live = 4, (0, 1)
+    d, frames = cfg.d_model, cfg.enc_seq_len
+    errs["fedex_fold"], timings["fedex_fold"], w = expert_fold_case(
+        torch, kernels, timer, device, "wh", cfg.num_layers, d, d, c, live,
+        r, scale, seed=510, leaf="q_proj")
+    timings["factor_mean"] = group_mean_case(
+        torch, kernels, timer, device, "wh", whisper_leaves(cfg), c, live, r,
+        w, seed=520)
+    low = torch.bfloat16
+    bsz, prompt = WH_SERVE["batch"], WH_SERVE["prompt"]
+    proj = serving_projections(cfg)
+    for key, m in (("wh", bsz * frames), ("wh_dec", bsz * prompt),
+                   ("wh_decode", bsz)):
+        for dtype in (torch.float32, low):
+            name = key if dtype == torch.float32 else (
+                "wh_bf16_decode" if key == "wh_decode" else key + "_bf16")
+            bufs = [[t.to(dtype) for t in lora_inputs(
+                torch, device, m, k, n, r, seed=540 + i)]
+                for i, (_, k, n) in enumerate(proj)]
+            if dtype == low:
+                tc_calls(torch, kernels, bufs, scale, f"{name} M={m}",
+                         len(proj), decode=m <= SKINNY_ROWS)
+            err, timings[name] = lora_case(
+                torch, kernels, timer, bufs, scale,
+                f"{cfg.name} {name}: q/k/v/o at M={m}", device_times=True)
+            sink = bf16_errs if dtype == low else errs
+            sink["lora_matmul"] = max(sink["lora_matmul"], err)
+            del bufs
+            torch.cuda.empty_cache()
+    h, hd = cfg.num_heads, cfg.resolved_head_dim
+    cases = [("flash_wh_enc", frames, False, 0), ("flash_wh_self", prompt,
+                                                  True, 0)]
+    cases += [(f"flash_wh_cross{'' if sq == prompt else sq}", sq, False,
+               frames) for sq in WH_CROSS_ROWS]
+    for i, (key, s, causal, sk) in enumerate(cases):
+        for dtype in (None, low):
+            err, timings[key + ("_bf16" if dtype else "")] = flash_case(
+                torch, kernels, timer, device, bsz, s, h, cfg.num_kv_heads,
+                hd, causal, 0, seed=560 + i, device_times=True, dtype=dtype,
+                tc=dtype is not None, sk=sk)
+            sink = bf16_errs if dtype else errs
+            sink["flash_swa"] = max(sink["flash_swa"], err)
+            torch.cuda.empty_cache()
+    lora_probes(torch, kernels, device,
+                [(WH, m, d, d, r) for m in (bsz, bsz * prompt,
+                                            bsz * frames)])
+    flash_probes(torch, kernels, device,
+                 [("whisper encoder", 2, frames, h, h, hd, False),
+                  ("whisper self", 2, prompt, h, h, hd, True)]
+                 + [(f"whisper cross Sq {sq}", 2, sq, h, h, hd, False,
+                     frames) for sq in WH_CROSS_ROWS])
+    return errs, bf16_errs, timings
+
+
+def whisper_data(torch, device, cfg, seed=0):
+    """``data`` for :func:`moe_train`: each client loader's batches, and
+    each eval batch, with stub frames added — (B, enc_seq_len, d_model)
+    f32, N(0, 0.02²), drawn on the card from one generator seeded with
+    ``seed`` (the port's launcher refuses whisper for want of them)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+
+    def frames(n):
+        return torch.randn(n, cfg.enc_seq_len, cfg.d_model, device=device,
+                           generator=g) * 0.02
+
+    class FramesLoader:
+        def __init__(self, inner):
+            self.inner, self.sequences = inner, inner.sequences
+
+        def next_batch(self):
+            batch = dict(self.inner.next_batch())
+            batch["frames"] = frames(batch["tokens"].shape[0])
+            return batch
+
+    def data(loaders, evals):
+        return ([FramesLoader(ld) for ld in loaders],
+                [dict(b, frames=frames(b["tokens"].shape[0]))
+                 for b in evals])
+
+    return data
+
+
+def whisper_cache_bytes(cache) -> dict:
+    """The self cache's bytes a token of a sequence (K and V over the
+    layers) and the cross cache's bytes a sequence."""
+    k = cache["self"]["k"]
+    per_token = 2 * k.shape[0] * k[0, 0, 0].numel() * k.element_size()
+    ck = cache["cross"]["k"]
+    per_seq = 2 * ck[:, 0].numel() * ck.element_size()
+    return {"self_bytes_per_token": per_token,
+            "cross_bytes_per_seq": per_seq}
+
+
+def cross_read_ms(torch, timer, cache, cfg, bsz):
+    """Host-inclusive ms of one decode step's cross-attention reads alone:
+    ``decode_attention`` over every layer's cross cache (which widens the
+    whole cache to f32 each call, as the reference's casts do)."""
+    from repro_torch.models.attention import CROSS_POSITION, decode_attention
+    from repro_torch.models.transformer import _layer_slice
+
+    q = torch.randn(bsz, 1, cfg.num_heads, cfg.resolved_head_dim,
+                    device=cache["cross"]["k"].device).to(
+                        cache["cross"]["k"].dtype)
+    layers = [_layer_slice(cache["cross"], i) for i in range(cfg.num_layers)]
+    return timer(lambda: [decode_attention(q, c, CROSS_POSITION)
+                          for c in layers])
+
+
+def whisper_serve(torch, kernels, device, cfg, params, lora, lcfg):
+    """Serve ``cfg`` (f32 or bf16, its dtype) from ``params`` / ``lora`` at
+    ``WH_SERVE``'s shape (batch 8, a prompt of 64 tokens over 1500 frames,
+    16 decode steps, caches of 128 self slots and 1500 cross ones in the
+    model's dtype). With the counters set to 0 just before each: one
+    prefill (``lora_matmul`` 288: 4 an encoder layer, 8 a decoder layer;
+    ``flash_swa`` 72: the encoder's, the self- and the cross-attention's;
+    bf16: all of them through the tensor-core bodies) and one decode step
+    (``lora_matmul`` 144: self q/k/v/o and cross q, o a layer; bf16: the
+    tensor-core split-K body); the kernel path's prefill logits against
+    the plain path's (``MOE_P_TOL`` of the logit scale); in f32, teacher
+    forcing: all 16 decode steps fed the next prompt token, each step's
+    logits against the training forward over prompt + 16 tokens at that
+    position (``D_TOL``); the caches' bytes (:func:`whisper_cache_bytes`)
+    and one step's cross reads alone (:func:`cross_read_ms`). Then the
+    main path, ``serve()`` (f32: ``dtype`` float32 and an f32 cache;
+    bf16: the config's), the counters set to 0 just before and read just
+    after. Returns (stats, main-path launches, bf16 launches, tensor-core
+    launches, and for :func:`whisper_bf16` what it compares)."""
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+
+    bsz, prompt, steps, max_len = (WH_SERVE[k] for k in (
+        "batch", "prompt", "steps", "max_len"))
+    dt = cfg.dtype
+    n_enc, n_dec = cfg.enc_layers, cfg.num_layers
+    n_pre, n_step, n_flash = 4 * n_enc + 8 * n_dec, 6 * n_dec, n_enc + 2 * n_dec
+    low = dt == "bfloat16"
+    mdt = torch.bfloat16 if low else torch.float32
+    model = build_model(cfg)
+    prefill, decode = make_prefill_step(model, lcfg), make_decode_step(model,
+                                                                       lcfg)
+    long = make_batch_for(cfg, bsz, prompt + steps, seed=0, device=device)
+    full = torch.cat([long["tokens"], long["targets"][:, -1:]], dim=1)
+    batch = {"tokens": full[:, :prompt], "frames": long["frames"]}
+    timer = Timer(torch, device)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        cache = model.init_cache(bsz, max_len, mdt, device=device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pre, cache = prefill(params, lora, batch, cache)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t) * 1e3
+        _moe_expect(kernels, f"{cfg.name} {dt} one prefill", n_pre, n_flash,
+                    dt, tc={"lora_matmul": n_pre, "lora_matmul_decode": 0,
+                            "flash_swa": n_flash})
+        rows = []
+        for i in range(steps):
+            kernels.reset_launch_counts()
+            _, dec, cache = decode(params, lora,
+                                   full[:, prompt + i:prompt + i + 1], cache,
+                                   prompt + i)
+            rows.append(dec[:, -1].clone())
+            if i == 0:
+                torch.cuda.synchronize()
+                _moe_expect(kernels, f"{cfg.name} {dt} one decode step",
+                            n_step, 0, dt,
+                            tc={"lora_matmul": 0,
+                                "lora_matmul_decode": n_step,
+                                "flash_swa": 0})
+        torch.cuda.synchronize()
+        sizes = whisper_cache_bytes(cache)
+        sizes["cross_read_ms"] = cross_read_ms(torch, timer, cache, cfg, bsz)
+        del cache
+        kernels.reset_launch_counts()
+        with plain_ops(kernels):
+            cache = model.init_cache(bsz, max_len, mdt, device=device)
+            pre_plain, cache = prefill(params, lora, batch, cache)
+            del cache
+        torch.cuda.synchronize()
+        _expect(kernels, f"{cfg.name} {dt} plain path", {})
+        err_kp = float((pre - pre_plain).abs().max())
+        lscale = float(pre_plain.abs().max())
+        if not low:
+            ok = bool(((pre - pre_plain).abs() <= MOE_P_TOL[0]
+                       * pre_plain.abs() + MOE_P_TOL[1] * lscale).all())
+            print(f"  [wh] f32 prefill logits, kernel path vs plain path: "
+                  f"max |diff| {err_kp:.3e} (rtol {MOE_P_TOL[0]}, atol "
+                  f"{MOE_P_TOL[1]} x logit scale {lscale:.3f}): within={ok}",
+                  flush=True)
+            if not ok:
+                raise AssertionError("wh f32 serve: the kernel path "
+                                     "disagrees with the plain path")
+        train = model.apply(params, {"tokens": full[:, :prompt + steps],
+                                     "frames": long["frames"]}, lora=lora,
+                            lora_scale=lcfg.scale)[:, prompt - 1:]
+        torch.cuda.synchronize()
+        got = torch.stack([pre[:, -1]] + rows, dim=1)
+        want = train
+        scale_tf = float(want.abs().max())
+        err_tf = float((got - want).abs().max())
+        if low:
+            print(f"  [wh] {cfg.name} bf16 teacher-forced prefill + "
+                  f"{steps} decode steps vs the bf16 training forward: "
+                  f"max |diff| {err_tf:.4e} = {err_tf / scale_tf:.3f} of the "
+                  f"logit scale {scale_tf:.3f}", flush=True)
+        else:
+            ok, _ = _allclose(got, want, *D_TOL)
+            same = got.argmax(-1) == want.argmax(-1)
+            print(f"  [wh] {cfg.name} f32 teacher forcing, the prefill's "
+                  f"last logits and {steps} decode steps (f32 caches) vs "
+                  f"the training forward over {prompt + steps} tokens: "
+                  f"max |diff| {err_tf:.4e} (rtol {D_TOL[0]}, atol "
+                  f"{D_TOL[1]}; logit scale {scale_tf:.3f}): within={ok}; "
+                  f"argmax agrees at {int(same.sum())} of {same.numel()}",
+                  flush=True)
+            if not ok:
+                raise AssertionError("wh f32 serve: prefill + decode "
+                                     "disagree with the training forward")
+        cmp = {"pre": pre[:, -1], "pre_plain": pre_plain[:, -1],
+               "decode": rows[0], "train": train[:, 1], "full": full,
+               "frames": long["frames"]}
+        del rows, pre, pre_plain, train, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kernels.reset_launch_counts()
+    res = serve(cfg, batch_size=bsz, prompt_len=prompt, steps=steps,
+                max_len=max_len, device=device, params=params, lora=lora,
+                **({} if low else {"dtype": torch.float32,
+                                   "cache_dtype": torch.float32}))
+    launches = kernels.launch_counts()
+    bf16 = kernels.bf16_launch_counts()
+    tc = tc_launch_counts(kernels)
+    _moe_expect(kernels, f"{cfg.name} {dt} serve() (1 prefill + {steps} "
+                "decode steps)", n_pre + n_step * steps, n_flash, dt,
+                tc={"lora_matmul": n_pre,
+                    "lora_matmul_decode": n_step * steps,
+                    "flash_swa": n_flash})
+    toks = res.tokens
+    if toks.shape != (bsz, steps + 1) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"wh serve: bad tokens {toks.shape}")
+    stats = {"prefill_ms": res.prefill_ms, "first_prefill_ms": pre_ms,
+             "decode_ms_per_token": res.ms_per_token,
+             "decode_tokens_per_s": bsz * steps / (res.decode_ms / 1e3),
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "err_teacher_forced": err_tf, "err_kernel_vs_plain": err_kp,
+             **sizes, "seconds": time.perf_counter() - t0}
+    print(f"  [wh] {cfg.name} {dt} batch {bsz}, prompt {prompt} over "
+          f"{cfg.enc_seq_len} frames, {steps} decode steps: prefill "
+          f"{res.prefill_ms:.1f} ms (the first, counted, {pre_ms:.1f} ms), "
+          f"decode {res.ms_per_token:.2f} ms/token "
+          f"({stats['decode_tokens_per_s']:.1f} tokens/s over the batch), "
+          f"of which the cross reads alone {sizes['cross_read_ms']:.2f} ms; "
+          f"peak {stats['peak_gib']:.2f} GiB; self cache "
+          f"{sizes['self_bytes_per_token']:,} B a token, cross cache "
+          f"{sizes['cross_bytes_per_seq'] / 1e6:.1f} MB a sequence; "
+          f"{stats['seconds']:.1f} s; first row {toks[0, :8].tolist()}",
+          flush=True)
+    return stats, launches, bf16, tc, cmp
+
+
+def whisper_bf16(torch, kernels, device, scale):
+    """The bf16 serve from fresh draws (the port's own bf16 params, a
+    rank-4 f32 adapter with b drawn N(0, 0.05²)) through
+    :func:`whisper_serve`, with bf16 caches; then its f32 answer (the
+    params widened to f32, the training forward over the same frames and
+    prompt + 1 tokens). Held as phase 9 holds its bf16 serve: the kernel
+    path's prefill logits no further from the f32 answer than twice the
+    bf16 plain path's plus one bf16 rounding at the logit scale, and from
+    the plain path's no further than three times that distance plus the
+    floor; the first decode step no further from its f32 answer than twice
+    the bf16 training forward's plus the floor, the argmax agreeing on
+    every row whose f32 top-2 margin exceeds twice that bound. Returns
+    (stats, launches, bf16 launches, tensor-core launches)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import init_lora
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(WH)
+    if cfg.dtype != "bfloat16":
+        raise AssertionError(f"{WH}: config dtype {cfg.dtype}")
+    lcfg = LoRAConfig(rank=4, alpha=4 * scale)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    with torch.inference_mode():
+        params = build_model(cfg).init(gen, device)
+        lora = init_lora(gen, params, cfg, lcfg)
+        for k, leaf in _flat(lora).items():
+            if k.endswith("/b"):
+                leaf.normal_(0.0, 0.05, generator=gen)
+    torch.cuda.synchronize()
+    stats, launches, bf16, tc, cmp = whisper_serve(torch, kernels, device,
+                                                   cfg, params, lora, lcfg)
+    f32 = replace(cfg, dtype="float32")
+    prompt = WH_SERVE["prompt"]
+    with torch.inference_mode():
+        wide = _unflat({k: v.float() for k, v in _flat(params).items()})
+        out = build_model(f32).apply(
+            wide, {"tokens": cmp["full"][:, :prompt + 1],
+                   "frames": cmp["frames"]}, lora=lora,
+            lora_scale=lcfg.scale)[:, -2:]
+        del wide
+    torch.cuda.synchronize()
+    pre32, next32 = out[:, 0], out[:, 1]
+    bsz = cmp["full"].shape[0]
+    pre, pre_plain = cmp["pre"], cmp["pre_plain"]
+    floor = 2.0 ** -8 * float(pre32.abs().max())
+    err_k = float((pre - pre32).abs().max())
+    err_p = float((pre_plain - pre32).abs().max())
+    err_kp = float((pre - pre_plain).abs().max())
+    ok = err_k <= 2 * err_p + floor and err_kp <= 3 * err_p + floor
+    print(f"  [wh] bf16 prefill last-position logits: kernel path vs f32 "
+          f"{err_k:.4e}, bf16 plain path vs f32 {err_p:.4e} (bound 2 x that "
+          f"+ {floor:.4e} = {2 * err_p + floor:.4e}), kernel vs plain path "
+          f"{err_kp:.4e} (bound {3 * err_p + floor:.4e}); logit scale "
+          f"{float(pre32.abs().max()):.3f}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("wh bf16 serve: the kernel path's logits are "
+                             "further from the f32 answer than allowed")
+    floor = 2.0 ** -8 * float(next32.abs().max())
+    err_d = float((cmp["decode"] - next32).abs().max())
+    err_t = float((cmp["train"] - next32).abs().max())
+    bound = 2 * err_t + floor
+    top2 = torch.topk(next32, 2, dim=-1).values
+    sure = top2[:, 0] - top2[:, 1] > 2 * bound
+    same = cmp["decode"].argmax(-1) == next32.argmax(-1)
+    agree = bool(same[sure].all())
+    ok = err_d <= bound and agree
+    print(f"  [wh] bf16 teacher forcing: the first decode step vs the f32 "
+          f"answer {err_d:.4e}, the bf16 training forward vs it {err_t:.4e} "
+          f"(bound 2 x that + {floor:.4e} = {bound:.4e}); argmax agrees "
+          f"with f32 on {int(same.sum())} of {bsz} rows, on the "
+          f"{int(sure.sum())} rows past 2 x bound: {agree}: ok={ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError("wh bf16 serve: the decode step is further from "
+                             "the f32 answer than allowed")
+    stats.update(err_vs_f32=err_k, err_plain_vs_f32=err_p,
+                 err_decode_vs_f32=err_d, err_train_vs_f32=err_t,
+                 seconds=time.perf_counter() - t0,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del params, lora, cmp, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, launches, bf16, tc
+
+
+def whisper_phase(torch, kernels, device):
+    """Phase 14: whisper-medium at full width and depth (24 encoder + 24
+    decoder layers). The kernels at its shapes
+    (:func:`whisper_kernel_phase`); training in f32 (:func:`moe_train`
+    with ``WH_TRAIN``, loaders that add frames (:func:`whisper_data`),
+    adapters on the 12 q/k/v/o leaves: fedex, a uniform round, then a
+    weighted one at 50% with example weights, ``factor_mean`` 1 and
+    ``fedex_fold`` 12, the exact-residual identity on every matrix of the
+    12 leaves) and the f32 serve of its folded W0 and global adapter
+    (:func:`whisper_serve`); that state freed, the bf16 serve from fresh
+    draws (:func:`whisper_bf16`). Returns (max errors of the f32 cases, of
+    the bf16 cases, timings, launches, bf16 launches, stats)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import LoRAConfig, get_config
+
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = replace(get_config(WH), dtype="float32")
+    r, scale = 4, 2.0
+    lcfg = LoRAConfig(rank=r, alpha=8.0)
+    errs, bf16_errs, timings = whisper_kernel_phase(torch, kernels, device,
+                                                    cfg, r=r, scale=scale)
+    stats = {"kernels_s": time.perf_counter() - t,
+             "kernels_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    launches = {name: 0 for name in SOURCES}
+    t1 = time.perf_counter()
+    trainer, stats["train"], got = moe_train(
+        torch, kernels, device, cfg, scale, tag="wh", lcfg=lcfg,
+        run=WH_TRAIN, data=whisper_data(torch, device, cfg),
+        full_identity=True)
+    for k, v in got.items():
+        launches[k] += v
+    served, got = whisper_serve(torch, kernels, device, cfg, trainer.params,
+                                trainer.global_lora, lcfg)[:2]
+    for k, v in got.items():
+        launches[k] += v
+    stats["f32"] = dict(served, seconds=time.perf_counter() - t1)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["bf16"], got, bf16, tc = whisper_bf16(torch, kernels, device,
+                                                scale)
+    for k, v in got.items():
+        launches[k] += v
+    bf16 = dict(bf16, **{f"{k}_tc": v for k, v in tc.items()})
+    stats["seconds"] = time.perf_counter() - t
+    print(f"  [wh] phase 14 in {stats['seconds']:.1f} s; peak memory: "
+          f"kernels {stats['kernels_peak_gib']:.2f} GiB, f32 training "
+          f"{stats['train']['train_peak_gib']:.2f} GiB, f32 serve "
+          f"{stats['f32']['peak_gib']:.2f} GiB, bf16 serve "
+          f"{stats['bf16']['peak_gib']:.2f} GiB", flush=True)
+    return errs, bf16_errs, timings, launches, bf16, stats
+
+
 # --------------------------------------------------------------------------
 
 SOURCES = {  # kernel → (CUDA source, the TPU kernel it replaces)
@@ -8090,6 +8558,34 @@ def xlstm_main() -> int:
     return 0
 
 
+def whisper_main() -> int:
+    """``--encdec``: phase 14 alone (:func:`whisper_phase`) on this
+    checkout's port, after the build, its stats as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch import kernels
+    from repro_torch.kernels import build as kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi_line(), flush=True)
+    build_kernels(kbuild, "[encdec]")
+    errs, bf16_errs, timings, launches, bf16, stats = whisper_phase(
+        torch, kernels, torch.device("cuda", 0))
+    fields = {}
+    for key, t in timings.items():
+        fields.update(timing_fields(key, t))
+    print(smi_line(), flush=True)
+    print(json.dumps({"encdec": stats, "launches": launches,
+                      "bf16_launches": bf16, "max_abs_err": errs,
+                      "bf16_max_abs_err": bf16_errs, "timings": fields}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -8117,6 +8613,8 @@ def main() -> int:
         return hybrid_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--xlstm":
         return xlstm_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--encdec":
+        return whisper_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--fold-check":
         return fold_check_main()
     if not torch.cuda.is_available():
@@ -8138,7 +8636,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
-    print(f"[1/14] environment: python {sys.version.split()[0]}, torch "
+    print(f"[1/15] environment: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
@@ -8149,11 +8647,11 @@ def main() -> int:
           flush=True)
     print(smi, flush=True)
 
-    build_kernels(kbuild, "[2/14]")
+    build_kernels(kbuild, "[2/15]")
 
     cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
     c, r, scale = 4, 4, 8.0 / 4
-    print(f"[3/14] kernels vs plain versions (C={c}, r={r}, scale={scale})",
+    print(f"[3/15] kernels vs plain versions (C={c}, r={r}, scale={scale})",
           flush=True)
     errs, timings = kernel_phase(torch, kernels, device, cfg, c=c, r=r,
                                  scale=scale)
@@ -8177,7 +8675,7 @@ def main() -> int:
     print(f"  launch path: {json.dumps(cost)}", flush=True)
     torch.cuda.empty_cache()
 
-    print(f"[4/14] main paths: FederatedTrainer at {cfg.name} full width "
+    print(f"[4/15] main paths: FederatedTrainer at {cfg.name} full width "
           f"({cfg.num_layers} layers, d={cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}); {', '.join(GPT2_PATHS)} at "
           f"{gcfg.name} ({gcfg.num_layers} layers, d={gcfg.d_model}, vocab "
@@ -8207,24 +8705,24 @@ def main() -> int:
           flush=True)
     serve_stats = {}
     for scfg in (cfg, gcfg):
-        print(f"[5/14] serving: {scfg.name} at full width, prefill + KV-cache "
+        print(f"[5/15] serving: {scfg.name} at full width, prefill + KV-cache "
               "greedy decode with a LoRA adapter", flush=True)
         serve_stats[scfg.name], serve_launches = serve_phase(
             torch, kernels, device, scfg)
         for k in ("lora_matmul", "flash_swa"):
             launches[k] += serve_launches[k]
-    print(f"[6/14] obs and the HTTP federation service at {cfg.name} full "
+    print(f"[6/15] obs and the HTTP federation service at {cfg.name} full "
           "width: fedex+obs, serve-http, pull-serve, serve-http-hetero",
           flush=True)
     obs_launches, obs_stats = obs_http_phase(torch, kernels, device, cfg)
     for k, v in obs_launches.items():
         launches[k] += v
-    print(f"[7/14] mesh mode at {cfg.name} full width: "
+    print(f"[7/15] mesh mode at {cfg.name} full width: "
           f"{', '.join(MESH_PATHS)}", flush=True)
     mesh_launches, mesh_stats = mesh_phase(torch, kernels, device, cfg)
     for k, v in mesh_launches.items():
         launches[k] += v
-    print(f"[8/14] the rest of the dense zoo at full width: "
+    print(f"[8/15] the rest of the dense zoo at full width: "
           f"{', '.join(ZOO)}, each trained and served", flush=True)
     zoo_errs, zoo_timings, zoo_launches, zoo_stats = zoo_phase(
         torch, kernels, device)
@@ -8232,14 +8730,14 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in zoo_launches.items():
         launches[k] += v
-    print(f"[9/14] serving in bf16, the reference's default dtype: B3 and B8 "
+    print(f"[9/15] serving in bf16, the reference's default dtype: B3 and B8 "
           f"in bf16, then {', '.join(BF16_SERVE)} served at full width and "
           "depth", flush=True)
     bf16_errs, bf16_timings, bf16_main_launches, bf16_launches, bf16_stats = \
         bf16_phase(torch, kernels, device)
     for k, v in bf16_main_launches.items():
         launches[k] += v
-    print(f"[10/14] the MoE family: {MOE} at full width, trained and served "
+    print(f"[10/15] the MoE family: {MOE} at full width, trained and served "
           f"in f32 at depth {MOE_DEPTH['float32']} and served in bf16 at "
           f"depth {MOE_DEPTH['bfloat16']} (cuts of 56)", flush=True)
     (moe_errs, moe_bf16_errs, moe_timings, moe_launches, moe_bf16,
@@ -8248,7 +8746,7 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in moe_launches.items():
         launches[k] += v
-    print(f"[11/14] Multi-head Latent Attention on the MoE stack: {DS} at "
+    print(f"[11/15] Multi-head Latent Attention on the MoE stack: {DS} at "
           f"full width, trained and served in f32 at depth "
           f"{DS_DEPTH['float32']} and served in bf16 at depth "
           f"{DS_DEPTH['bfloat16']} (1 dense + MoE layers, cuts of 60)",
@@ -8259,7 +8757,7 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in mla_launches.items():
         launches[k] += v
-    print(f"[12/14] the hybrid family: {ZB} at full width and depth "
+    print(f"[12/15] the hybrid family: {ZB} at full width and depth "
           f"({ZB_DEPTH['float32']} Mamba2 layers, the shared block every "
           "6), trained and served in f32, served in bf16", flush=True)
     (zb_errs, zb_bf16_errs, zb_timings, zb_launches, zb_bf16,
@@ -8268,7 +8766,7 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in zb_launches.items():
         launches[k] += v
-    print(f"[13/14] the ssm family: {XL} at full width and depth "
+    print(f"[13/15] the ssm family: {XL} at full width and depth "
           f"({XL_DEPTH['float32']} blocks, 6 periods of 7 mLSTM + 1 sLSTM), "
           "trained and served in f32, served in bf16", flush=True)
     (xl_errs, xl_bf16_errs, xl_timings, xl_launches, xl_bf16,
@@ -8276,6 +8774,15 @@ def main() -> int:
     for k, v in xl_errs.items():
         errs[k] = max(errs[k], v)
     for k, v in xl_launches.items():
+        launches[k] += v
+    print(f"[14/15] the encdec family: {WH} at full width and depth "
+          "(24 encoder + 24 decoder layers over 1500 frames), trained and "
+          "served in f32, served in bf16", flush=True)
+    (wh_errs, wh_bf16_errs, wh_timings, wh_launches, wh_bf16,
+     wh_stats) = whisper_phase(torch, kernels, device)
+    for k, v in wh_errs.items():
+        errs[k] = max(errs[k], v)
+    for k, v in wh_launches.items():
         launches[k] += v
     main_body = {**timings["weighted-partial"], **lane_timings,
                  "lora_matmul": serve_timings["lora_matmul[prefill]"],
@@ -8436,6 +8943,29 @@ def main() -> int:
         "xl_bf16_tc_launches": xl_bf16["lora_matmul_tc"],
         "xl_bf16_tc_decode_launches": xl_bf16["lora_matmul_decode_tc"],
         "xl_bf16_max_abs_err": xl_bf16_errs["lora_matmul"]})
+    # whisper-medium's shapes (phase 14): B1 at a stacked q_proj leaf, B2
+    # over a close's 24 stacks, B3 at an attention's q/k/v/o in f32 and
+    # bf16 over the frames (M 12,000), the prompt (M 512) and a decode step
+    # (M 8), B8 at the encoder (S 1500, non-causal), the decoder's
+    # self-attention (S 64) and its cross-attention (Sq 64, 333 and 1
+    # against Sk 1500) in f32 and bf16; the bf16 and tensor-core launches
+    # of its bf16 serve() run
+    for name, key, t in (
+            ("fedex_fold", "wh", wh_timings["fedex_fold"]),
+            ("factor_mean", "wh", wh_timings["factor_mean"]),
+            *(("lora_matmul", key, wh_timings[key]) for key in (
+                "wh", "wh_dec", "wh_decode", "wh_bf16", "wh_dec_bf16",
+                "wh_bf16_decode")),
+            *(("flash_swa", key[len("flash_"):], wh_timings[key])
+              for key in wh_timings if key.startswith("flash_wh"))):
+        out[list(SOURCES).index(name)].update(timing_fields(key, t))
+    for name in ("lora_matmul", "flash_swa"):
+        out[list(SOURCES).index(name)].update({
+            "wh_bf16_launches": wh_bf16[name],
+            "wh_bf16_tc_launches": wh_bf16[f"{name}_tc"],
+            "wh_bf16_max_abs_err": wh_bf16_errs[name]})
+    out[list(SOURCES).index("lora_matmul")][
+        "wh_bf16_tc_decode_launches"] = wh_bf16["lora_matmul_decode_tc"]
     # B5 beside its old body (product_fold in place), and at the chunk of
     # 64 uplinks at r = 8 that docs/benchmarks.md documents
     ms, _, lib_ms, (bms, by), *_ = lane_timings["product_accum[C64r8]"]
@@ -8444,7 +8974,7 @@ def main() -> int:
         "C64r8_prior_ms": lane_prior["product_accum[C64r8]"],
         "C64r8_library_ms": lib_ms, "C64r8_bound_ms": bms,
         "C64r8_bound_by": by})
-    print(f"[14/14] done in {time.perf_counter() - t_start:.1f} s; identity "
+    print(f"[15/15] done in {time.perf_counter() - t_start:.1f} s; identity "
           "max "
           f"err per path {json.dumps(identities)}; resume "
           f"{json.dumps(resume)}; serving "
@@ -8452,7 +8982,8 @@ def main() -> int:
           f"{json.dumps(obs_stats)}; mesh {json.dumps(mesh_stats)}; zoo "
           f"{json.dumps(zoo_stats)}; bf16 {json.dumps(bf16_stats)}; moe "
           f"{json.dumps(moe_stats)}; mla {json.dumps(mla_stats)}; hybrid "
-          f"{json.dumps(zb_stats)}; xlstm {json.dumps(xl_stats)}; rounds "
+          f"{json.dumps(zb_stats)}; xlstm {json.dumps(xl_stats)}; encdec "
+          f"{json.dumps(wh_stats)}; rounds "
           + json.dumps([{k: v for k, v in row.items()
                          if k != "client_losses"} for row in all_rows]),
           flush=True)

@@ -1,17 +1,19 @@
 """Config registry of the port: the paper's own models, every dense
-model of the reference's registry, its two MoE models, its hybrid one and
-its xLSTM one.
+model of the reference's registry, its two MoE models, its hybrid one, its
+xLSTM one and its encoder-decoder one.
 
 ``get_config(name)`` covers ``paper-tiny``, ``paper-gpt2``,
 ``paper-llama3.2-3b``, ``qwen2.5-3b``, ``granite-8b``, ``starcoder2-15b``,
-``gemma3-12b``, ``mixtral-8x22b``, ``deepseek-v2-236b``, ``zamba2-7b`` and
-``xlstm-1.3b`` (``<name>-smoke`` gives the reduced variant), with the
-reference's dataclasses copied in :mod:`repro_torch.configs.base`.
+``gemma3-12b``, ``mixtral-8x22b``, ``deepseek-v2-236b``, ``zamba2-7b``,
+``xlstm-1.3b`` and ``whisper-medium`` (``<name>-smoke`` gives the reduced
+variant), with the reference's dataclasses copied in
+:mod:`repro_torch.configs.base`.
 """
 
 from repro_torch.configs import (deepseek_v2_236b, gemma3_12b, granite_8b,
                                  mixtral_8x22b, paper_models, qwen2_5_3b,
-                                 starcoder2_15b, xlstm_1_3b, zamba2_7b)
+                                 starcoder2_15b, whisper_medium, xlstm_1_3b,
+                                 zamba2_7b)
 from repro_torch.configs.base import (FedConfig, LoRAConfig, ModelConfig,
                                       ServeConfig, TrainConfig, config_dict,
                                       validate_fed_lora)
@@ -26,6 +28,7 @@ CONFIGS = {
     "paper-tiny": paper_models.TINY,
     "qwen2.5-3b": qwen2_5_3b.CONFIG,
     "starcoder2-15b": starcoder2_15b.CONFIG,
+    "whisper-medium": whisper_medium.CONFIG,
     "xlstm-1.3b": xlstm_1_3b.CONFIG,
     "zamba2-7b": zamba2_7b.CONFIG,
 }

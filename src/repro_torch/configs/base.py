@@ -3,8 +3,8 @@
 The port's own copy of ``repro/configs/base.py`` (the port imports nothing of
 the JAX package): the same fields, defaults and validation, so a config built
 here reads exactly like the reference's. The port runs the dense, MoE,
-hybrid and ssm (xLSTM) branches of :class:`ModelConfig`; ``build_model``
-raises ``NotImplementedError`` for any other branch. :class:`ServeConfig`
+hybrid, ssm (xLSTM) and encdec (whisper) branches of :class:`ModelConfig`;
+``build_model`` raises ``NotImplementedError`` for any other branch. :class:`ServeConfig`
 holds the HTTP federation service's socket settings
 (:mod:`repro_torch.fedsrv.server`).
 """

@@ -75,15 +75,25 @@ class SyntheticLM:
 
 def make_batch_for(cfg, batch_size: int, seq_len: int, seed: int = 0,
                    device="cuda") -> Dict[str, torch.Tensor]:
-    """Random batch of the dense, MoE, hybrid or ssm family (smoke tests,
-    serving prompts): tokens only, the reference's ``make_batch_for``
-    draws — ``integers(0, vocab)`` over (batch, seq_len + 1) — so the
-    token values are the reference's bit for bit, as int64 tensors on
-    ``device``."""
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
+    """Random batch of the dense, MoE, hybrid, ssm or encdec family (smoke
+    tests, serving prompts), the reference's ``make_batch_for`` draws from
+    one generator: an encdec config's ``frames`` first, ``normal × 0.02``
+    over (batch, enc_seq_len, d_model) as float32, then the tokens,
+    ``integers(0, vocab)`` over (batch, seq_len + 1) — so frames and token
+    values are the reference's bit for bit — as tensors on ``device``."""
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm", "encdec"):
         raise NotImplementedError(f"make_batch_for: family {cfg.family!r} is "
-                                  "not ported (dense, moe, hybrid and ssm "
-                                  "only)")
+                                  "not ported (dense, moe, hybrid, ssm and "
+                                  "encdec only)")
     rng = np.random.default_rng(seed)
+    dev = resolve_device(device)
+    frames = None
+    if cfg.family == "encdec":
+        frames = np.asarray(rng.normal(size=(batch_size, cfg.enc_seq_len,
+                                             cfg.d_model)) * 0.02,
+                            np.float32)
     toks = rng.integers(0, cfg.vocab_size, size=(batch_size, seq_len + 1))
-    return to_batch(toks, resolve_device(device))
+    batch = to_batch(toks, dev)
+    if frames is not None:
+        batch["frames"] = torch.as_tensor(frames, device=dev)
+    return batch

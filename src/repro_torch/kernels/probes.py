@@ -88,23 +88,25 @@ def _bf16_attention(q, k, v, causal, round_p, l_of_rounded):
 
 
 def swa_probe(b: int, s: int, h: int, kvh: int, d: int, *, causal=True,
-              device="cpu", seed: int = 0):
-    """(q, k, v, faults) for ``swa_attention`` in bf16 (no window), S > 1:
-    ``faults``, name → the output if p were not rounded, or if l summed
-    the rounded p. The right output is ``swa_attention_plain``'s."""
+              sk: int = 0, device="cpu", seed: int = 0):
+    """(q, k, v, faults) for ``swa_attention`` in bf16 (no window): q of
+    ``s`` rows, k and v of ``sk`` (0: ``s``; a cross-attention's Sq ≠ Sk),
+    Sk > 1: ``faults``, name → the output if p were not rounded, or if l
+    summed the rounded p. The right output is ``swa_attention_plain``'s."""
+    sk = sk or s
     g = torch.Generator(device="cpu").manual_seed(seed)
     scale = torch.tensor(d ** -0.5, dtype=torch.float32)
-    # key j* of each (batch, KV head) in [1, min(63, S - 1)], its score
+    # key j* of each (batch, KV head) in [1, min(63, Sk - 1)], its score
     # multiplier beta; every other key but 0 scores <= -128
-    top = min(63, s - 1)
+    top = min(63, sk - 1)
     jstar = torch.randint(1, top + 1, (b, kvh), generator=g)
     beta = (-(0.05 + 1.95 * torch.rand(b, kvh, generator=g)) / scale).to(BF16)
-    k = torch.zeros(b, s, kvh, d, dtype=BF16)
+    k = torch.zeros(b, sk, kvh, d, dtype=BF16)
     k[:, 1:, :, 0] = -2048.0
     bi, gi = torch.meshgrid(torch.arange(b), torch.arange(kvh),
                             indexing="ij")
     k[bi, jstar, gi, 0] = beta
-    v = torch.randn(b, s, kvh, d, generator=g).to(BF16)
+    v = torch.randn(b, sk, kvh, d, generator=g).to(BF16)
     v[:, 0] = 0
     # q's multiplier alpha per (batch, head), from 1 + i/128, i < 128 (bf16
     # values): the first in a shuffled order whose p keeps its low 16 bits

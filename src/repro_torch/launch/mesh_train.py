@@ -250,7 +250,9 @@ def check_mesh_supported(fed: FedConfig, cfg=None) -> None:
     lanes, where the port's one folded forward would pool the aux; and for
     a hybrid or an ssm (xLSTM) one, named (their stacks, and the hybrid
     shared block's adapter, have no lane layout yet; host mode trains
-    them). Raise
+    them); and for an encdec (whisper) one, named (no lane layout for its
+    stacks, and mesh mode's loaders yield tokens only where its batches
+    need frames). Raise
     ``ValueError`` for a setting mesh mode cannot honour (the
     reference warns and ignores them): the host-orchestrated methods, the
     coordinator's and the transport's settings, DP, client ranks, the
@@ -266,6 +268,10 @@ def check_mesh_supported(fed: FedConfig, cfg=None) -> None:
         raise NotImplementedError(
             f"--mode mesh does not run the {cfg.family} config "
             f"{cfg.name!r} yet (host mode trains it)")
+    if cfg is not None and cfg.family == "encdec":
+        raise NotImplementedError(
+            f"--mode mesh does not run the encdec config {cfg.name!r}: its "
+            "batches need frames, which the federated loaders do not carry")
     if fed.method not in MESH_METHODS:
         raise ValueError(f"--mode mesh supports {MESH_METHODS}, "
                          f"got method={fed.method!r}")

@@ -11,11 +11,13 @@ another (float32). The adapted q/k/v/o projections of prefill and decode
 run the fused LoRA kernel (B3) and the prefill attention the flash
 attention kernel (B8), each in that dtype (a hybrid config's Mamba2
 ``in_proj`` / ``out_proj`` through B3 too, and an xLSTM config's adapted
-projections, which have no attention); an f32 adapter (``init_lora``'s,
-a trainer's, a pulled one) is cast to it once before the prefill (the
-reference's ``dense`` casts it where it is applied, to the same values).
-Runs on CUDA unless ``--device cpu`` is
-given (the CPU runs the kernels' plain versions).
+projections, which have no attention; an encdec config's encoder pass over
+the prompt's ``frames`` and its decoder's self- and cross-attention, the
+decode steps reading the cross cache filled at prefill); an f32 adapter
+(``init_lora``'s, a trainer's, a pulled one) is cast to it once before the
+prefill (the reference's ``dense`` casts it where it is applied, to the
+same values). Runs on CUDA unless ``--device cpu`` is given (the CPU runs
+the kernels' plain versions).
 
 ``--pull-from URL`` fetches the global adapter a running federation server
 (``repro_torch.launch.train --mode serve``) holds now, through
@@ -36,6 +38,8 @@ must match the server's).
       --arch zamba2-7b-smoke --batch-size 2 --prompt-len 32 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch xlstm-1.3b-smoke --batch-size 2 --prompt-len 32 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch whisper-medium-smoke --batch-size 2 --prompt-len 32 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch paper-tiny --pull-from http://127.0.0.1:8077
 """
@@ -179,7 +183,7 @@ def main(argv=None) -> None:
                     help="torch device (default cuda; cpu must be asked for)")
     ap.add_argument("--arch", default="paper-tiny",
                     help="a registered config of the port (dense, MoE, "
-                         "hybrid or ssm family)")
+                         "hybrid, ssm or encdec family)")
     ap.add_argument("--batch-size", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--steps", type=int, default=8)

@@ -22,6 +22,10 @@ the JSONL stream ``scripts/obs_report.py`` reads and implies ``--obs
 basic``); the measured bytes ledger is printed after the run, with its
 quarantined and dropped buckets and each round's quarantined or dropped
 (client, reason) pairs. Runs on CUDA unless ``--device cpu`` is given.
+An encdec config (whisper-medium) is refused in host and mesh mode by name:
+the federated loaders yield tokens only and its batches need frames (the
+reference fails there with ``KeyError: 'frames'``); a caller that supplies
+frames trains it through ``FederatedTrainer`` directly.
 
 ``--mode serve`` boots the HTTP federation service
 (:mod:`repro_torch.fedsrv.server`) with ``--host``, ``--port`` (0 =
@@ -393,6 +397,13 @@ def main(argv=None) -> None:
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume requires --checkpoint-dir")
     cfg = get_config(args.arch)
+    if args.mode == "host" and cfg.family == "encdec":
+        # the reference's loaders yield tokens only, and its loss then
+        # fails with KeyError: 'frames'; a caller that supplies frames
+        # trains whisper through FederatedTrainer itself
+        raise NotImplementedError(
+            f"--mode host does not run the encdec config {cfg.name!r}: its "
+            "batches need frames, which the federated loaders do not carry")
     if args.vocab:
         cfg = replace(cfg, vocab_size=args.vocab)
     cfg = replace(cfg, dtype=args.dtype)

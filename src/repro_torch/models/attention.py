@@ -1,7 +1,7 @@
 """Attention: GQA with RoPE, blockwise flash attention with its own backward,
-and the KV cache of serving.
+and the KV cache of serving; self- and cross-attention.
 
-Counterpart of ``repro/models/attention.py`` (dense self-attention). The
+Counterpart of ``repro/models/attention.py``. The
 reference's ``flash_attention`` is a jnp ``custom_vjp`` (not a Pallas kernel):
 a scan over KV blocks with an online-softmax carry forward, and a backward
 that recomputes the probabilities per block from (q, k, v, lse) instead of
@@ -16,6 +16,9 @@ B8), each in that dtype; decode attends against the cache with
 :func:`decode_attention`, in plain PyTorch as the reference does in jnp.
 A sliding window (``window`` > 0) masks all three modes alike, and its
 layers' caches are rings of ``min(window, cache_len)`` slots.
+Cross-attention (an encoder-decoder's) takes k and v from the encoder's
+output, never RoPE, attends without a causal mask, and keeps a cross cache
+filled once at prefill that decode only reads.
 The reference's sharding constraints have no counterpart (one device), and
 the port never routes attention to a library kernel.
 """
@@ -28,10 +31,30 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_swa import swa_attention
-from repro_torch.models.common import Params, apply_rope, maybe_lora, project
+from repro_torch.models.common import (Params, apply_rope, make_dense_params,
+                                       maybe_lora, project)
 from repro_torch.util.device import resolve_device
 
 NEG_INF = -1e30
+# the position a cross-attention decode step attends from: past every slot
+# of the cross cache, so that all of them are valid (reference :375–377)
+CROSS_POSITION = 2 ** 30
+
+
+def make_attention_params(gen, cfg, lead, dtype, device) -> Params:
+    """q/k/v/o kernels of one attention (stacked on the ``lead`` axes),
+    q/k/v with zero biases under ``cfg.qkv_bias``."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, kv, bias = cfg.num_heads, cfg.num_kv_heads, cfg.qkv_bias
+    return {
+        "q_proj": make_dense_params(gen, (*lead, d, h * hd), dtype, device,
+                                    bias=bias),
+        "k_proj": make_dense_params(gen, (*lead, d, kv * hd), dtype, device,
+                                    bias=bias),
+        "v_proj": make_dense_params(gen, (*lead, d, kv * hd), dtype, device,
+                                    bias=bias),
+        "o_proj": make_dense_params(gen, (*lead, h * hd, d), dtype, device),
+    }
 
 
 def _block_mask(sq: int, bs: int, blk: int, sk: int, q_offset: int,
@@ -228,51 +251,78 @@ def decode_attention(q: torch.Tensor, cache: Params, position: int,
 def attention_block(cfg, params: Params, x: torch.Tensor, *,
                     lora: Optional[Params] = None, lora_scale: float = 0.0,
                     positions: Optional[torch.Tensor] = None,
-                    window: int = 0,
+                    causal: bool = True, window: int = 0,
+                    kv_x: Optional[torch.Tensor] = None,
+                    cross: Optional[bool] = None,
                     cache: Optional[Params] = None,
-                    decode_position: Optional[Union[int, torch.Tensor]] = None
-                    ):
-    """Causal self-attention over ``x (B, S, d_model)``; returns
-    ``(output, cache)`` as the reference does. ``window`` > 0 limits each
-    query to the ``window`` latest positions (query − key < window) in all
-    three modes.
+                    decode_position: Optional[Union[int, torch.Tensor]] = None,
+                    fused: Optional[bool] = None):
+    """Attention over ``x (B, S, d_model)``; returns ``(output, cache)`` as
+    the reference does. Self-attention by default: causal unless
+    ``causal=False`` (an encoder's), and ``window`` > 0 limits each query
+    to the ``window`` latest positions (query − key < window) in all
+    three modes. Cross-attention (``kv_x`` given, or ``cross=True``) takes
+    k and v from ``kv_x`` (B, Sk, d_model), applies no RoPE and no causal
+    mask.
 
     Training: ``cache=None``. Serving: prefill (``cache`` given) fills the
-    cache in place (a ring cache shorter than the prompt keeps its tail)
-    and runs the flash attention kernel; decode (``decode_position`` given,
-    S = 1) writes the step into the cache at ``position % length`` and
-    attends against it. Serving's adapted projections run the fused LoRA
-    kernel.
+    cache in place (a ring cache shorter than the prompt keeps its tail; a
+    cross cache takes kv_x's k and v at positions 0..Sk − 1) and runs the
+    flash attention kernel; decode
+    (``decode_position`` given, S = 1) writes the step into a self cache
+    at ``position % length`` and attends against it, or reads a cross
+    cache as it is (no k, v projection: the reference's
+    ``k = v = None``). ``fused`` picks the serving kernels — the fused LoRA
+    kernel for the adapted projections and the flash attention kernel —
+    and defaults to whether a cache is given (an encoder's serving pass
+    has none and passes ``fused=True``); without it the projections are
+    :func:`dense` and the attention the autograd :func:`flash_attention`.
     """
     b, sq, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kvh = cfg.num_heads, cfg.num_kv_heads
-    serving = cache is not None
-    if decode_position is not None and not serving:
+    decode = decode_position is not None
+    if decode and cache is None:
         raise ValueError("attention_block: decode needs a cache")
+    if cross is None:
+        cross = kv_x is not None
+    if cross and kv_x is None and not decode:
+        raise ValueError("attention_block: cross-attention needs kv_x "
+                         "outside decode")
+    if fused is None:
+        fused = cache is not None
 
     def proj(inp, name):
         return project(inp, params[name], maybe_lora(lora, name), lora_scale,
-                       serving)
+                       fused)
 
     q = proj(x, "q_proj").reshape(b, sq, h, hd)
-    k = proj(x, "k_proj").reshape(b, sq, kvh, hd)
-    v = proj(x, "v_proj").reshape(b, sq, kvh, hd)
-    if decode_position is not None:
+    if cross and decode:
+        k = v = None  # the cross cache was filled at prefill; only read
+    else:
+        src = kv_x if cross else x
+        sk = src.shape[1]
+        k = proj(src, "k_proj").reshape(b, sk, kvh, hd)
+        v = proj(src, "v_proj").reshape(b, sk, kvh, hd)
+    if decode:
         # torch.full, not torch.tensor: no blocking host-to-device copy
         positions = torch.full((1,), int(decode_position), device=x.device)
     elif positions is None:
         positions = torch.arange(sq, device=x.device)
-    if cfg.rope:
+    if cfg.rope and not cross:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
-    if decode_position is not None:
+    if decode and cross:
+        out = decode_attention(q, cache, CROSS_POSITION)
+    elif decode:
         cache_write(cache, k, v, decode_position)
         out = decode_attention(q, cache, decode_position, window=window)
-    elif serving:
-        _prefill_cache(cache, positions, k=k, v=v)
-        out = swa_attention(q, k, v, causal=True, window=window)
     else:
-        out = flash_attention(q, k, v, window=window)
+        if cache is not None:
+            kpos = (torch.arange(k.shape[1], device=x.device) if cross
+                    else positions)
+            _prefill_cache(cache, kpos, k=k, v=v)
+        attend = swa_attention if fused else flash_attention
+        out = attend(q, k, v, causal=causal and not cross, window=window)
     out = out.reshape(b, sq, h * hd).to(x.dtype)
     return proj(out, "o_proj").to(x.dtype), cache

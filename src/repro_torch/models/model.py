@@ -1,5 +1,5 @@
-"""Model API: ``build_model(cfg) → Model`` (dense, MoE, hybrid and ssm
-families).
+"""Model API: ``build_model(cfg) → Model`` (dense, MoE, hybrid, ssm and
+encdec families).
 
 Counterpart of ``repro/models/model.py``: a namespace of functions closed
 over the config — ``init(gen, device) → params``, ``apply(params, batch,
@@ -11,6 +11,10 @@ config's scalar is CE + the router aux loss, with ``metrics["aux_loss"]``),
 cache``,
 ``prefill(params, batch, cache, lora=…) → (logits, cache)`` and
 ``decode_step(params, tokens, cache, position, lora=…) → (logits, cache)``.
+An encdec config (whisper) reads ``batch["frames"]`` (B, enc_seq_len,
+d_model) beside the tokens in ``apply``, ``loss`` and ``prefill`` (its
+loss is the CE alone; ``with_aux`` gives a zero aux, as the reference's);
+``decode_step`` reads no frames.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ from typing import Any, Callable
 
 import torch
 
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.models.common import cross_entropy
 from repro_torch.util.tree import flatten_with_paths, unflatten_from_paths
 
@@ -50,6 +54,8 @@ def build_model(cfg, moe_impl: str = "ragged") -> Model:
     """``moe_impl``: a MoE config's expert path, ``"ragged"`` (grouped by
     expert) or ``"dense"`` (every expert on every token, the oracle)."""
     transformer.check_supported(cfg)
+    if cfg.family == "encdec":
+        return _build_encdec(cfg)
     moe = cfg.family == "moe"
 
     def init(gen, device):
@@ -129,6 +135,61 @@ def build_model(cfg, moe_impl: str = "ragged") -> Model:
                                    lora_scale=lora_scale, mode="decode",
                                    cache=cache, position=position,
                                    moe_impl=moe_impl)
+
+    return Model(cfg=cfg, init=init, apply=apply, loss=loss,
+                 lane_loss=lane_loss, init_cache=init_cache, prefill=prefill,
+                 decode_step=decode_step)
+
+
+def _build_encdec(cfg) -> Model:
+    """The encdec family's namespace (the reference's ``model.py:45–74``):
+    :mod:`repro_torch.models.encdec`'s encoder over ``batch["frames"]``,
+    then its decoder; ``prefill`` encodes through the serving kernels."""
+
+    def init(gen, device):
+        return encdec.make_params(gen, cfg, device)
+
+    def apply(params, batch, lora=None, lora_scale=0.0, with_aux=False):
+        enc = encdec.encode(cfg, params, batch["frames"], lora=lora,
+                            lora_scale=lora_scale)
+        logits = encdec.decoder_forward(cfg, params, batch["tokens"], enc,
+                                        lora=lora, lora_scale=lora_scale)
+        if not with_aux:
+            return logits
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
+
+    def loss(params, batch, lora=None, lora_scale=0.0):
+        ce, metrics = cross_entropy(
+            apply(params, batch, lora=lora, lora_scale=lora_scale),
+            batch["targets"], batch.get("loss_mask"))
+        return ce, dict(metrics, total_loss=ce)
+
+    def lane_loss(params, batch, lora, lora_scale=0.0):
+        """Refused: the encdec stacks (``encoder/``, ``decoder/``) have no
+        prefix in ``STACKED_AXES``, and mesh mode's loaders carry no
+        frames."""
+        raise NotImplementedError(
+            f"config {cfg.name!r}: mesh mode (lane_loss) does not run the "
+            "encdec family (no lane layout for its stacks; its batches need "
+            "frames)")
+
+    def init_cache(batch_size, cache_len, dtype=torch.bfloat16,
+                   device="cuda"):
+        return encdec.init_cache(cfg, batch_size, cache_len, dtype, device)
+
+    def prefill(params, batch, cache, lora=None, lora_scale=0.0):
+        enc = encdec.encode(cfg, params, batch["frames"], lora=lora,
+                            lora_scale=lora_scale, fused=True)
+        return encdec.decoder_forward(cfg, params, batch["tokens"], enc,
+                                      lora=lora, lora_scale=lora_scale,
+                                      mode="prefill", cache=cache)
+
+    def decode_step(params, tokens, cache, position, lora=None,
+                    lora_scale=0.0):
+        return encdec.decoder_forward(cfg, params, tokens, None, lora=lora,
+                                      lora_scale=lora_scale, mode="decode",
+                                      cache=cache, position=position)
 
     return Model(cfg=cfg, init=init, apply=apply, loss=loss,
                  lane_loss=lane_loss, init_cache=init_cache, prefill=prefill,

@@ -38,7 +38,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.models.attention import attention_block, init_kv_cache
+from repro_torch.models.attention import (attention_block, init_kv_cache,
+                                          make_attention_params)
 from repro_torch.models.common import (Params, apply_norm, dtype_of, embed,
                                        make_dense_params, make_norm_params,
                                        normal_init, unembed)
@@ -52,7 +53,7 @@ from repro_torch.models.xlstm import (init_mlstm_cache, init_slstm_cache,
                                       mlstm_block, slstm_block)
 
 MODES = ("train", "prefill", "decode")
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec")
 
 
 def check_supported(cfg) -> None:
@@ -65,13 +66,26 @@ def check_supported(cfg) -> None:
     experts, shared experts, leading dense layers), either with Multi-head
     Latent Attention (``mla``) — the hybrid stack (Mamba2 layers with
     one parameter-shared attention + MLP layer every ``attn_every`` of
-    them) and the ssm stack (xLSTM: periods of ``slstm_every − 1`` mLSTM
-    blocks and one sLSTM block). As in the reference, the family decides:
-    a dense config with ``num_experts`` builds dense MLPs."""
+    them), the ssm stack (xLSTM: periods of ``slstm_every − 1`` mLSTM
+    blocks and one sLSTM block) and the encoder-decoder (whisper,
+    :mod:`repro_torch.models.encdec`). As in the reference, the family
+    decides: a dense config with ``num_experts`` builds dense MLPs."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"config {cfg.name!r} asks for family {cfg.family!r}: the port "
-            "runs only the dense, MoE, hybrid and ssm decoders so far")
+            "runs only the dense, MoE, hybrid and ssm decoders and the "
+            "encdec stack so far")
+
+
+def _decoder_only(cfg, what: str) -> None:
+    """:func:`check_supported`, and refuse the encdec family by name: its
+    stacks, caches and forward are :mod:`repro_torch.models.encdec`'s (the
+    reference's ``transformer.py`` refuses it alike)."""
+    check_supported(cfg)
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"transformer.{what}: config {cfg.name!r} is of family 'encdec', "
+            "which has its own (repro_torch.models.encdec)")
 
 
 def _periods(cfg):
@@ -105,22 +119,12 @@ def _layer_params(gen, cfg, lead, dtype, device, *, moe: bool = False,
     """One decoder layer's leaves, stacked on the ``lead`` axes: MLA's
     attention with ``cfg.mla``, else q/k/v/o; a MoE MLP with ``moe``, else a
     dense one of width ``d_ff`` (0: ``cfg.d_ff``)."""
-    d, hd = cfg.d_model, cfg.resolved_head_dim
-    h, kv, bias = cfg.num_heads, cfg.num_kv_heads, cfg.qkv_bias
+    d = cfg.d_model
     return {
         "attn_norm": make_norm_params(cfg.norm, (*lead, d), dtype, device),
         "mlp_norm": make_norm_params(cfg.norm, (*lead, d), dtype, device),
         "attn": make_mla_params(gen, cfg, dtype, device, lead) if cfg.mla
-        else {
-            "q_proj": make_dense_params(gen, (*lead, d, h * hd), dtype,
-                                        device, bias=bias),
-            "k_proj": make_dense_params(gen, (*lead, d, kv * hd), dtype,
-                                        device, bias=bias),
-            "v_proj": make_dense_params(gen, (*lead, d, kv * hd), dtype,
-                                        device, bias=bias),
-            "o_proj": make_dense_params(gen, (*lead, h * hd, d), dtype,
-                                        device),
-        },
+        else make_attention_params(gen, cfg, lead, dtype, device),
         "mlp": (make_moe_params(gen, cfg, dtype, device, lead) if moe
                 else make_mlp_params(gen, cfg, dtype, device, lead=lead,
                                      d_ff=d_ff)),
@@ -130,7 +134,7 @@ def _layer_params(gen, cfg, lead, dtype, device, *, moe: bool = False,
 def make_params(gen: torch.Generator, cfg, device) -> Params:
     """The port's own draws (N(0, 0.02) kernels and embeddings, unit norm
     scales, zero biases), in the reference's stacked layout."""
-    check_supported(cfg)
+    _decoder_only(cfg, "make_params")
     dtype = dtype_of(cfg)
     d = cfg.d_model
     params: Params = {
@@ -208,7 +212,7 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
     slstm_every − 1, batch, H, Dh, Dh), "n", "m" f32, "conv": (…, batch,
     3, d_inner)}, "slstm": {"c", "n", "m" f32, "h": (nper, batch, d)}}``
     (no KV cache: ``cache_len`` plays no part)."""
-    check_supported(cfg)
+    _decoder_only(cfg, "init_cache")
 
     def expand(one, lead):
         return {k: v.expand(*lead, *v.shape).clone() for k, v in one.items()}
@@ -317,7 +321,7 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
     cache's dtype). ``moe_impl`` picks the MoE
     block's path (``"ragged"`` or the ``"dense"`` oracle).
     """
-    check_supported(cfg)
+    _decoder_only(cfg, "forward")
     if mode not in MODES:
         raise ValueError(f"forward: mode {mode!r} not in {MODES}")
     if (mode == "train") != (cache is None):

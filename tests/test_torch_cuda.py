@@ -1039,6 +1039,38 @@ def test_flash_swa_bf16_sk_not_sq(cuda, sq, sk, causal, window):
                    flash_swa_plain(q, k, v, causal, window).float(), bound)
 
 
+@pytest.mark.parametrize("sq", [64, 333, 1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_swa_attention_cross_attention_shapes(cuda, sq, dtype):
+    """whisper's cross-attention: Sq decoder rows against Sk 1500 encoder
+    keys, MHA 16/16, d 64, non-causal (1500 keys end in a masked tail
+    tile): within the bound of the plain version, two runs bitwise equal;
+    bf16 through the tensor cores, and bitwise the plain version on the
+    exact-rounding probe at Sq ≠ Sk."""
+    g = torch.Generator(device="cpu").manual_seed(sq)
+    q = torch.randn(2, sq, 16, 64, generator=g).to(cuda, dtype)
+    k, v = (torch.randn(2, 1500, 16, 64, generator=g).to(cuda, dtype)
+            for _ in range(2))
+    before = flash_swa.bf16_tc_launches
+    got = swa_attention(q, k, v, False, 0)
+    again = swa_attention(q, k, v, False, 0)
+    torch.cuda.synchronize()
+    low = dtype == torch.bfloat16
+    assert flash_swa.bf16_tc_launches == before + 2 * low
+    assert torch.equal(_bits(got.float()), _bits(again.float()))
+    assert _within(got.float(), swa_attention_plain(q, k, v, False,
+                                                    0).float(),
+                   swa_error_bound(q, k, v, False, 0))
+    if low:
+        q, k, v, faults = probes.swa_probe(2, sq, 16, 16, 64, causal=False,
+                                           sk=1500, device=cuda, seed=sq)
+        got = swa_attention(q, k, v, False, 0)
+        assert torch.equal(_bits(got.float()), _bits(
+            swa_attention_plain(q, k, v, False, 0).float()))
+        assert min(probes.differing(got, faults).values()) > 0
+
+
 def test_flash_swa_bf16_misaligned_q(cuda):
     """q one element into its storage: the SIMT body's scalar loads (TMA
     cannot describe it); q 8 elements in (16 bytes): the tensor cores."""

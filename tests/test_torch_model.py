@@ -94,11 +94,12 @@ def test_config_dataclass_defaults_match():
 
 
 def test_unsupported_branch_raises():
-    # windowed attention, experts, MLA and the recurrent blocks run in the
-    # port; whisper's encoder-decoder (family "encdec") does not
-    whisper = _port_cfg(jax_get_config("whisper-medium"))
-    with pytest.raises(NotImplementedError, match="encdec"):
-        build_model(whisper)
+    # windowed attention, experts, MLA, the recurrent blocks and whisper's
+    # encoder-decoder run in the port; internvl2's vision-language stack
+    # (family "vlm") does not
+    vlm = _port_cfg(jax_get_config("internvl2-76b"))
+    with pytest.raises(NotImplementedError, match="vlm"):
+        build_model(vlm)
 
 
 def test_param_paths_line_up_with_the_reference():

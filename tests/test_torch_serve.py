@@ -361,9 +361,9 @@ def test_forward_modes_check_their_arguments(state):
     with pytest.raises(ValueError, match="position"):
         transformer.forward(pm.cfg, tp, toks[:, :1], mode="decode",
                             cache=cache)
-    encdec = _port_cfg(jax_get_config("whisper-medium"))
-    with pytest.raises(NotImplementedError, match="encdec"):
-        transformer.init_cache(encdec, 1, 8, device=CPU)
+    vlm = _port_cfg(jax_get_config("internvl2-76b"))
+    with pytest.raises(NotImplementedError, match="vlm"):
+        transformer.init_cache(vlm, 1, 8, device=CPU)
 
 
 # --------------------------------------------------------------------------
