@@ -14,6 +14,8 @@
     python3 chip_smoke.py --mla               # phase 11 alone
     python3 chip_smoke.py --hybrid            # phase 12 alone
     python3 chip_smoke.py --xlstm             # phase 13 alone
+    python3 chip_smoke.py --encdec            # phase 14 alone
+    python3 chip_smoke.py --vlm               # phase 15 alone
     python3 chip_smoke.py --fold-check        # phase 3's fedex_fold checks
 
 Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
@@ -357,7 +359,30 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    answer (at full depth the bf16 logits part from the f32 answer by
    about the logit scale, the plain path's as much); the recurrent
    state's bytes a sequence;
-14. one JSON line with every ported kernel: ``ms`` and ``library_ms``
+14. the encdec family (``whisper_phase``, ``[wh]`` lines; ``--encdec``):
+   ``whisper-medium`` at full width and depth, trained given loaders that
+   add frames and served in f32 and bf16;
+15. the vlm family (``vlm_phase``, ``[vl]`` lines; ``--vlm``):
+   ``internvl2-76b`` at full width (d 8192, GQA 64/8, d_ff 28,672, vocab
+   128,256, 256 vision tokens), cut in depth (``VL_DEPTH``: 12 of its 80
+   layers in f32, 24 in bf16). B1 at the stacked q_proj leaf (12 × 8192 ×
+   8192) in 8-matrix chunks against its plain version, B2 over a close's 8
+   stacks, B3 at a layer's q/k/v/o (K 8192, N 8192 and 1024) at M 4096
+   and 8 in f32 and bf16, B8 at the prefill (B 8, S 512, GQA 64/8, d 128)
+   in f32 and bf16, each timed beside its plain version, the bound and the
+   library call, and the probes at these shapes bitwise; fedex training as
+   the reference's launchers train it, a text-only LM on the launcher's
+   tokens-only loaders (both rounds at 50% with example weights:
+   ``factor_mean`` 1 and ``fedex_fold`` 4 a close, each fold held on the
+   first and the last layer of each leaf); one client step on a batch
+   with vision embeddings, its loss the text positions' CE alone;
+   ``serve()`` of the folded tree in f32 and of fresh draws in bf16 at
+   batch 8 × a prompt of 256 vision + 256 text tokens, 16 decode steps
+   from the prefill's true length (B3 4·L a prefill and a decode step, B8
+   L a prefill), the kernel path against the plain path, teacher forcing
+   over all 16 steps, the first step at the reference's serve position
+   (+256) printed, bf16 against the f32 answer widened a layer at a time;
+16. one JSON line with every ported kernel: ``ms`` and ``library_ms``
    host-inclusive, ``device_ms`` and ``library_device_ms`` device time
    (:meth:`Timer.device`), at the main body; B2's row adds one close's launch path
    (``close_wall_us``, ``close_enqueue_us``: :func:`launch_cost`), B3's
@@ -398,8 +423,15 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    B1, B2 and B3 (B3's ``xl``, ``xl_decode``, ``xl_bf16``,
    ``xl_bf16_decode`` and ``xl_ffn_*`` likewise, with
    ``xl_bf16_launches``, ``xl_bf16_tc_launches``,
-   ``xl_bf16_tc_decode_launches`` and ``xl_bf16_max_abs_err``); then the
-   result line.
+   ``xl_bf16_tc_decode_launches`` and ``xl_bf16_max_abs_err``), at
+   whisper-medium's (phase 14) as ``wh_*`` and at internvl2-76b's (phase
+   15) as ``vl_*`` on the rows of B1, B2, B3 (``vl``, ``vl_decode``,
+   ``vl_bf16``, ``vl_bf16_decode``) and B8 (``vl``, ``vl_bf16``), with
+   ``vl_launches`` (phase 15's main paths: training, the f32 and the bf16
+   ``serve()``) and ``vl_bf16_launches``,
+   ``vl_bf16_tc_launches`` (B3's also ``vl_bf16_tc_decode_launches``) and
+   ``vl_bf16_max_abs_err`` of its bf16 ``serve()`` run; then the result
+   line.
 
 ``--launch-cost SRC`` runs :func:`launch_cost` alone on the port found
 under ``SRC`` (another tree's ``src`` too, to compare two trees in one
@@ -417,9 +449,10 @@ phase 6 alone (:func:`obs_http_phase`), ``--mesh`` phase 7
 (:func:`mesh_phase`), ``--zoo`` phase 8 (:func:`zoo_phase`), ``--bf16``
 phase 9 (:func:`bf16_phase`), ``--moe`` phase 10 (:func:`moe_phase`),
 ``--mla`` phase 11 (:func:`mla_phase`), ``--hybrid`` phase 12
-(:func:`hybrid_phase`), ``--xlstm`` phase 13 (:func:`xlstm_phase`), and
-``--fold-check`` phase 3's main-shape ``fedex_fold`` checks
-(:func:`fold_check_main`).
+(:func:`hybrid_phase`), ``--xlstm`` phase 13 (:func:`xlstm_phase`),
+``--encdec`` phase 14 (:func:`whisper_phase`), ``--vlm`` phase 15
+(:func:`vlm_phase`), and ``--fold-check`` phase 3's main-shape
+``fedex_fold`` checks (:func:`fold_check_main`).
 
 Identities, per adapted leaf, on the last round of each path:
 * fedex: new_W0 + s·ā b̄ = old_W0 + s·Σ_c w_c a_c b_c;
@@ -5237,7 +5270,7 @@ def moe_snapshot(trainer):
 
 
 def moe_train(torch, kernels, device, cfg, scale, tag="moe", lcfg=None,
-              run=None, data=None, full_identity=False):
+              run=None, data=None, full_identity=False, weighted_from=1):
     """Phase 10's training path at the f32 depth cut: 4 clients, 3 local
     steps, batch 8 × seq 64 of a 512-token data vocabulary, fedex with
     per-expert adapters (or ``lcfg``'s); round 0 uniform over all clients,
@@ -5253,7 +5286,9 @@ def moe_train(torch, kernels, device, cfg, scale, tag="moe", lcfg=None,
     replaces ``MOE_TRAIN``; ``data(loaders, evals)`` returns the loaders
     and eval batches to train on (whisper's add frames to every batch);
     ``full_identity`` checks the fold on every matrix of every leaf
-    (:func:`identity_fedex`). Returns (trainer, stats, launches)."""
+    (:func:`identity_fedex`). ``weighted_from`` 0 runs both rounds at 50%
+    with example weights (two weighted closes, each launch count doubled),
+    the fold checked after each. Returns (trainer, stats, launches)."""
     from repro_torch.configs import (FedConfig, LoRAConfig, TrainConfig,
                                      get_config)
     from repro_torch.core import FederatedTrainer
@@ -5320,10 +5355,12 @@ def moe_train(torch, kernels, device, cfg, scale, tag="moe", lcfg=None,
     kernels.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     rows, old, t1 = [], None, time.perf_counter()
+    keys, identity = [s.key for s in eng.specs], 0.0
     for rnd in range(2):
-        if rnd == 1:
+        if rnd == weighted_from:
             trainer.coordinator.policy = RoundPolicy(participation=0.5,
                                                      weighting="examples")
+        if rnd >= weighted_from:
             old = [{s.key: _w0(_node(trainer.params, s.key)).clone()
                     for s in eng.specs} if full_identity
                    else moe_snapshot(trainer)]
@@ -5347,24 +5384,27 @@ def moe_train(torch, kernels, device, cfg, scale, tag="moe", lcfg=None,
               f"{rows[-1]['round_s']:.2f} s, close "
               f"{rows[-1]['close_ms']:.2f} ms, eval_loss {rec.eval_loss:.4f}"
               f", divergence {rows[-1]['divergence']:.3e}", flush=True)
+        if rnd >= weighted_from:
+            identity = max(identity, (
+                identity_fedex if full_identity else identity_sampled)(
+                    torch, trainer, out, old, keys))
+            del old
     train_s = time.perf_counter() - t1
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    closes = 2 - weighted_from
     launches = dict(check_launches(
         kernels, f"{tag}-fedex",
-        {"factor_mean": 1, "fedex_fold": len(eng.specs)},
-        f" for 1 weighted close of {len(eng.specs)} leaves; peak "
-        f"{peak:.1f} GiB"))
-    if rows[0]["weights"] is not None or rows[1]["weights"] is None:
-        raise AssertionError(f"{tag}-fedex: round 0 must be uniform, round "
-                             "1 weighted")
+        {"factor_mean": closes, "fedex_fold": closes * len(eng.specs)},
+        f" for {closes} weighted close{'s' * (closes > 1)} of "
+        f"{len(eng.specs)} leaves; peak {peak:.1f} GiB"))
+    if [row["weights"] is None for row in rows] != [
+            rnd < weighted_from for rnd in range(2)]:
+        raise AssertionError(f"{tag}-fedex: rounds before {weighted_from} "
+                             "must be uniform, the others weighted")
     values = [v for row in rows for v in
               (row["eval_loss"], row["divergence"], *row["client_losses"])]
     if not all(math.isfinite(v) for v in values):
         raise AssertionError(f"{tag}-fedex: non-finite values: {rows}")
-    keys = [s.key for s in eng.specs]
-    identity = (identity_fedex if full_identity else identity_sampled)(
-        torch, trainer, trainer.outcomes[-1], old, keys)
-    del old
     stats = {"params_b": count_params(trainer.params) / 1e9,
              "layers": cfg.num_layers, "train_s": train_s,
              "train_peak_gib": peak, "fold_err": identity,
@@ -7829,6 +7869,502 @@ def whisper_phase(torch, kernels, device):
 
 
 # --------------------------------------------------------------------------
+# phase 15: the vlm family (internvl2-76b)
+# --------------------------------------------------------------------------
+
+VL = "internvl2-76b"
+# Depth cuts, stated as cuts: full depth is 80 layers of 8.56·10⁸
+# parameters (3.42 GB in f32, 1.71 GB in bf16), beside 2.10·10⁹ in the
+# embedding and the untied head and 6.7·10⁷ in vision_proj (8.66 GB in
+# f32): 70.6·10⁹ parameters, 282 GB in f32 and 141 GB in bf16, which one
+# 80 GB card cannot hold in either. At 12 layers in f32 and 24 in bf16
+# the phase peaks at 64.4 GiB (the client step on a batch with vision
+# embeddings: its 8 × 320 × 128,256 logits, their gradient and 12 layers'
+# activations) and 49.8 GiB (the bf16 serve) on an H100 80GB HBM3; 8 and
+# 16 peaked at 46.4 and 37.1 GiB.
+VL_DEPTH = {"float32": 12, "bfloat16": 24}
+VL_TRAIN = {"clients": 4, "local_steps": 2, "batch": 8, "seq": 64,
+            "data_vocab": 512}
+# a prompt of 512: the 256 vision tokens and 256 text tokens; the prefill
+# fills 512 positions and decode runs from there
+VL_SERVE = {"batch": 8, "prompt": 512, "steps": 16}
+
+
+def vlm_kernel_phase(torch, kernels, device, cfg, *, r, scale):
+    """At internvl2-76b's shapes: B1 at the stacked q_proj leaf of the f32
+    depth (L × 8192 × 8192), 2 live lanes of 4 weighted, against its plain
+    version in 8-matrix chunks and beside ``baddbmm``; B2 over a weighted
+    close's 8 stacks (q/k/v/o's a and b), bitwise; B3 in f32 and bf16 at
+    a layer's q/k/v/o (K 8192, N 8192 and 1024) at the prefill rows (M 8 ×
+    512 = 4096: the vision prefix and the text) and the decode rows (M 8),
+    every bf16 call through a tensor-core body; B8 in f32 and bf16 at the
+    prefill (B 8, S 512, GQA 64/8, d 128, causal), every bf16 call through
+    the tensor-core body; then the exact-rounding probes at these
+    projections and the attention, bitwise. Returns (max errors of the f32
+    cases, of the bf16 cases, timings)."""
+    from repro_torch.kernels.lora_matmul import SKINNY_ROWS
+    timer = Timer(torch, device)
+    errs = {"fedex_fold": 0.0, "factor_mean": 0.0, "lora_matmul": 0.0,
+            "flash_swa": 0.0}
+    bf16_errs = {"lora_matmul": 0.0, "flash_swa": 0.0}
+    timings = {}
+    c, live = 4, (0, 1)
+    d = cfg.d_model
+    errs["fedex_fold"], timings["fedex_fold"], w = expert_fold_case(
+        torch, kernels, timer, device, "vl", cfg.num_layers, d, d, c, live,
+        r, scale, seed=610, leaf="q_proj")
+    timings["factor_mean"] = group_mean_case(
+        torch, kernels, timer, device, "vl", main_path_leaves(cfg), c, live,
+        r, w, seed=620)
+    low = torch.bfloat16
+    bsz, prompt = VL_SERVE["batch"], VL_SERVE["prompt"]
+    proj = serving_projections(cfg)
+    for suffix, dtype, m in (("", torch.float32, bsz * prompt),
+                             ("_decode", torch.float32, bsz),
+                             ("_bf16", low, bsz * prompt),
+                             ("_bf16_decode", low, bsz)):
+        key = "vl" + suffix
+        bufs = [[t.to(dtype) for t in lora_inputs(
+            torch, device, m, k, n, r, seed=640 + i)]
+            for i, (_, k, n) in enumerate(proj)]
+        if dtype == low:
+            tc_calls(torch, kernels, bufs, scale, f"{key} M={m}", len(proj),
+                     decode=m <= SKINNY_ROWS)
+        err, timings[key] = lora_case(
+            torch, kernels, timer, bufs, scale,
+            f"{cfg.name} {key}: q/k/v/o at M={m}", device_times=True)
+        sink = bf16_errs if dtype == low else errs
+        sink["lora_matmul"] = max(sink["lora_matmul"], err)
+        del bufs
+        torch.cuda.empty_cache()
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    for dtype in (None, low):
+        key = "flash_vl" + ("_bf16" if dtype else "")
+        err, timings[key] = flash_case(
+            torch, kernels, timer, device, bsz, prompt, h, kvh, hd, True, 0,
+            seed=660, device_times=True, dtype=dtype, tc=dtype is not None)
+        sink = bf16_errs if dtype else errs
+        sink["flash_swa"] = max(sink["flash_swa"], err)
+        torch.cuda.empty_cache()
+    lora_probes(torch, kernels, device,
+                [(VL, m, k, n, r) for _, k, n in proj[:2]
+                 for m in (bsz, bsz * prompt)])
+    flash_probes(torch, kernels, device,
+                 [("internvl2 prefill", 2, prompt, h, kvh, hd, True)])
+    return errs, bf16_errs, timings
+
+
+def vlm_vision_step(torch, device, cfg, trainer, lcfg):
+    """One client step (``make_local_step``: autograd, clipping, AdamW)
+    from the trained W0 and global adapter on a batch that carries
+    ``vision_embeds`` (``make_batch_for``: 256 vision tokens, 64 text
+    tokens): its loss is the CE of the text positions' logits alone (the
+    training forward's ``logits[:, 256:]``, within 1e-6 relative), and its
+    gradient norm and updated adapter are finite. Returns its stats."""
+    from repro_torch.core.federated import make_local_step
+    from repro_torch.data import make_batch_for
+    from repro_torch.models.common import cross_entropy
+    from repro_torch.optim import init_adamw
+
+    vt = cfg.vision_tokens
+    batch = make_batch_for(cfg, VL_TRAIN["batch"], vt + VL_TRAIN["seq"],
+                           seed=7, device=device)
+    step = make_local_step(trainer.model, lcfg.scale,
+                           trainer.train_cfg)
+    lora = _unflat({k: v.clone() for k, v in
+                    _flat(trainer.global_lora).items()})
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    new, _, loss, gnorm = step(trainer.params, lora, init_adamw(lora), batch,
+                               5e-3)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    with torch.inference_mode():
+        logits = trainer.model.apply(trainer.params, batch, lora=lora,
+                                     lora_scale=lcfg.scale)
+        text = float(cross_entropy(logits[:, vt:], batch["targets"],
+                                   batch["loss_mask"])[0])
+        shape = tuple(logits.shape)
+        del logits
+    loss, gnorm = float(loss), float(gnorm)
+    finite = all(bool(torch.isfinite(v).all()) for v in _flat(new).values())
+    ok = (shape == (VL_TRAIN["batch"], vt + VL_TRAIN["seq"], cfg.vocab_size)
+          and abs(loss - text) <= 1e-6 * abs(text) and math.isfinite(gnorm)
+          and finite)
+    print(f"  [vl] one client step on a batch with vision_embeds ({vt} "
+          f"vision + {VL_TRAIN['seq']} text tokens, batch "
+          f"{VL_TRAIN['batch']}): loss {loss:.6f}, the text positions' CE "
+          f"alone {text:.6f} (logits {shape}), grad norm {gnorm:.4e}, "
+          f"adapter finite {finite}; {step_ms:.1f} ms: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("vl vision step: the loss is not the text-only "
+                             "CE, or the step is not finite")
+    del new, lora, batch
+    return {"loss": loss, "text_ce": text, "grad_norm": gnorm,
+            "step_ms": step_ms}
+
+
+def vlm_serve(torch, kernels, device, cfg, params, lora, lcfg):
+    """Serve ``cfg`` (f32 or bf16, its dtype) from ``params`` / ``lora`` at
+    ``VL_SERVE``'s shape (batch 8, a prompt of 256 vision + 256 text
+    tokens, 16 decode steps, a cache of 528 positions in the model's
+    dtype). With the counters set to 0 just before each: one prefill
+    (``lora_matmul`` 4·L at M 8 × 512, ``flash_swa`` L at S 512; bf16: all
+    through the tensor-core bodies) and one decode step (``lora_matmul``
+    4·L; bf16: the tensor-core split-K body); the kernel path's prefill
+    logits against the plain path's (``MOE_P_TOL`` of the logit scale;
+    bf16: held by :func:`vlm_bf16`); teacher forcing from the prefill's
+    true length, 512: all 16 steps fed the next text token at positions
+    512–527, the prefill's last logits and each step's against the
+    training forward over the vision prefix and 256 + 16 text tokens (f32:
+    ``D_TOL``); in f32 also the first step at the reference's launcher's
+    position, 512 + 256 (a cache of 1024), its parting from the training
+    forward printed, not held. Then the main path, ``serve()`` (f32:
+    ``dtype`` float32 and an f32 cache; bf16: the config's), the counters
+    set to 0 just before and read just after; bf16 also
+    :func:`profile_serving`. Returns (stats, main-path launches, bf16
+    launches, tensor-core launches, and for :func:`vlm_bf16` what it
+    compares)."""
+    from repro_torch.data import make_batch_for
+    from repro_torch.launch.serve import prefill_length, serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import build_model
+
+    bsz, prompt, steps = (VL_SERVE[k] for k in ("batch", "prompt", "steps"))
+    vt, L, dt = cfg.vision_tokens, cfg.num_layers, cfg.dtype
+    text = prompt - vt
+    max_len = prefill_length(cfg, prompt) + steps
+    if prefill_length(cfg, prompt) != prompt or text < 1:
+        raise AssertionError(f"vl serve: a prompt of {prompt} must fill "
+                             f"{prompt} positions")
+    low = dt == "bfloat16"
+    mdt = torch.bfloat16 if low else torch.float32
+    model = build_model(cfg)
+    prefill, decode = make_prefill_step(model, lcfg), make_decode_step(model,
+                                                                       lcfg)
+    long = make_batch_for(cfg, bsz, prompt + steps, seed=0, device=device)
+    full = torch.cat([long["tokens"], long["targets"][:, -1:]], dim=1)
+    vision = long["vision_embeds"]
+    batch = {"tokens": full[:, :text], "vision_embeds": vision}
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.inference_mode():
+        kernels.reset_launch_counts()
+        cache = model.init_cache(bsz, max_len, mdt, device=device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pre, cache = prefill(params, lora, batch, cache)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t) * 1e3
+        _moe_expect(kernels, f"{cfg.name} {dt} one prefill", 4 * L, L, dt,
+                    tc={"lora_matmul": 4 * L, "lora_matmul_decode": 0,
+                        "flash_swa": L})
+        rows = []
+        for i in range(steps):
+            kernels.reset_launch_counts()
+            _, dec, cache = decode(params, lora,
+                                   full[:, text + i:text + i + 1], cache,
+                                   prompt + i)
+            rows.append(dec[:, -1].clone())
+            if i == 0:
+                torch.cuda.synchronize()
+                _moe_expect(kernels, f"{cfg.name} {dt} one decode step",
+                            4 * L, 0, dt,
+                            tc={"lora_matmul": 0, "lora_matmul_decode": 4 * L,
+                                "flash_swa": 0})
+        torch.cuda.synchronize()
+        del cache
+        kernels.reset_launch_counts()
+        with plain_ops(kernels):
+            cache = model.init_cache(bsz, max_len, mdt, device=device)
+            pre_plain, cache = prefill(params, lora, batch, cache)
+            del cache
+        torch.cuda.synchronize()
+        _expect(kernels, f"{cfg.name} {dt} plain path", {})
+        err_kp = float((pre - pre_plain).abs().max())
+        lscale = float(pre_plain.abs().max())
+        if not low:
+            ok = bool(((pre - pre_plain).abs() <= MOE_P_TOL[0]
+                       * pre_plain.abs() + MOE_P_TOL[1] * lscale).all())
+            print(f"  [vl] f32 prefill logits, kernel path vs plain path: "
+                  f"max |diff| {err_kp:.3e} (rtol {MOE_P_TOL[0]}, atol "
+                  f"{MOE_P_TOL[1]} x logit scale {lscale:.3f}): within={ok}",
+                  flush=True)
+            if not ok:
+                raise AssertionError("vl f32 serve: the kernel path "
+                                     "disagrees with the plain path")
+        train = model.apply(params, {"tokens": full[:, :text + steps],
+                                     "vision_embeds": vision}, lora=lora,
+                            lora_scale=lcfg.scale)[:, prompt - 1:]
+        torch.cuda.synchronize()
+        got = torch.stack([pre[:, -1]] + rows, dim=1)
+        scale_tf = float(train.abs().max())
+        err_tf = float((got - train).abs().max())
+        parting = None
+        if low:
+            print(f"  [vl] {cfg.name} bf16 teacher-forced prefill + {steps} "
+                  f"decode steps from position {prompt} vs the bf16 training "
+                  f"forward: max |diff| {err_tf:.4e} = "
+                  f"{err_tf / scale_tf:.3f} of the logit scale "
+                  f"{scale_tf:.3f}", flush=True)
+        else:
+            ok, _ = _allclose(got, train, *D_TOL)
+            same = got.argmax(-1) == train.argmax(-1)
+            print(f"  [vl] {cfg.name} f32 teacher forcing from the prefill's "
+                  f"true length {prompt} ({vt} vision + {text} text "
+                  f"positions): the prefill's last logits and {steps} decode "
+                  f"steps (f32 cache) vs the training forward over {vt} + "
+                  f"{text + steps} positions: max |diff| {err_tf:.4e} (rtol "
+                  f"{D_TOL[0]}, atol {D_TOL[1]}; logit scale "
+                  f"{scale_tf:.3f}): within={ok}; argmax agrees at "
+                  f"{int(same.sum())} of {same.numel()}", flush=True)
+            if not ok:
+                raise AssertionError("vl f32 serve: prefill + decode "
+                                     "disagree with the training forward")
+            # the reference's launcher decodes from prompt_len +
+            # vision_tokens: printed, not held
+            cache = model.init_cache(bsz, 2 * prompt, mdt, device=device)
+            _, cache = prefill(params, lora, batch, cache)
+            _, ref_dec, cache = decode(params, lora, full[:, text:text + 1],
+                                       cache, prompt + vt)
+            del cache
+            parting = float((ref_dec[:, -1] - train[:, 1]).abs().max())
+            true = float((got[:, 1] - train[:, 1]).abs().max())
+            print(f"  [vl] the first decode step at the reference's serve "
+                  f"position {prompt + vt} (prompt_len + vision_tokens) vs "
+                  f"the training forward at {prompt}: max |diff| "
+                  f"{parting:.4e} = {parting / scale_tf:.3f} of the logit "
+                  f"scale, against {true:.4e} at the true length (not "
+                  "held)", flush=True)
+            del ref_dec
+        cmp = {"pre": pre[:, -1], "pre_plain": pre_plain[:, -1],
+               "decode": rows[0], "train": train[:, 1], "full": full,
+               "vision": vision}
+        del rows, pre, pre_plain, train, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    kernels.reset_launch_counts()
+    res = serve(cfg, batch_size=bsz, prompt_len=prompt, steps=steps,
+                max_len=max_len, device=device, params=params, lora=lora,
+                **({} if low else {"dtype": torch.float32,
+                                   "cache_dtype": torch.float32}))
+    launches = kernels.launch_counts()
+    bf16 = kernels.bf16_launch_counts()
+    tc = tc_launch_counts(kernels)
+    _moe_expect(kernels, f"{cfg.name} {dt} serve() (1 prefill + {steps} "
+                "decode steps)", 4 * L * (1 + steps), L, dt,
+                tc={"lora_matmul": 4 * L,
+                    "lora_matmul_decode": 4 * L * steps, "flash_swa": L})
+    toks = res.tokens
+    if toks.shape != (bsz, steps + 1) or not (
+            (toks >= 0) & (toks < cfg.vocab_size)).all():
+        raise AssertionError(f"vl serve: bad tokens {toks.shape}")
+    stats = {"prefill_ms": res.prefill_ms, "first_prefill_ms": pre_ms,
+             "decode_ms_per_token": res.ms_per_token,
+             "decode_tokens_per_s": bsz * steps / (res.decode_ms / 1e3),
+             "prefill_tokens_per_s": bsz * prompt / (res.prefill_ms / 1e3),
+             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "err_teacher_forced": err_tf, "err_kernel_vs_plain": err_kp,
+             "parting_at_reference_position": parting,
+             "seconds": time.perf_counter() - t0}
+    if low:
+        stats.update(profile_serving(
+            torch, model, params, lora, prefill, decode,
+            {"tokens": full[:, :text], "vision_embeds": vision}, bsz, prompt,
+            max_len, res))
+    print(f"  [vl] {cfg.name} {dt} at depth {L}, batch {bsz}, prompt {prompt}"
+          f" ({vt} vision + {text} text), {steps} decode steps: prefill "
+          f"{res.prefill_ms:.1f} ms (the first, counted, {pre_ms:.1f} ms; "
+          f"{stats['prefill_tokens_per_s']:.0f} positions/s), decode "
+          f"{res.ms_per_token:.2f} ms/token "
+          f"({stats['decode_tokens_per_s']:.1f} tokens/s over the batch); "
+          f"peak {stats['peak_gib']:.2f} GiB; {stats['seconds']:.1f} s; "
+          f"first row {toks[0, :8].tolist()}", flush=True)
+    return stats, launches, bf16, tc, cmp
+
+
+def vlm_f32_answer(torch, cfg, params, lora, lcfg, tokens, vision):
+    """The f32 training forward over ``vision`` and ``tokens`` with
+    ``params`` (bf16) widened one layer at a time (the whole tree in f32
+    would not fit beside it): the logits at the last two positions (the
+    prompt's last, for the prefill; the next token's, for the decode
+    step)."""
+    from dataclasses import replace
+
+    from repro_torch.models import transformer
+    from repro_torch.models.common import apply_norm, dense, embed, unembed
+
+    f32 = replace(cfg, dtype="float32")
+
+    def wide(tree):
+        return _unflat({k: v.float() for k, v in _flat(tree).items()})
+
+    with torch.inference_mode():
+        x = embed(wide(params["embed"]), tokens)
+        x = torch.cat([dense(vision.float(), wide(params["vision_proj"])), x],
+                      dim=1)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for i in range(cfg.num_layers):
+            p = wide(transformer._layer_slice(params["layers"], i))
+            x, _ = transformer.decoder_layer(
+                f32, p, x, lora=transformer._layer_slice(lora["layers"], i),
+                lora_scale=lcfg.scale, positions=positions, window=0,
+                cache=None, position=None)
+            del p
+        x = apply_norm(cfg.norm, wide(params["final_norm"]), x[:, -2:])
+        return unembed(wide(params["lm_head"]), x)
+
+
+def vlm_bf16(torch, kernels, device, scale):
+    """The bf16 serve at the bf16 depth cut from fresh draws (the port's own
+    bf16 params, a rank-4 f32 adapter with b drawn N(0, 0.05²)) through
+    :func:`vlm_serve`, with a bf16 cache; then its f32 answer over the same
+    weights, vision tokens and prompt + 1 text tokens
+    (:func:`vlm_f32_answer`). Held as phase 9 holds its bf16 serve: the
+    kernel path's prefill logits no further from the f32 answer than twice
+    the bf16 plain path's plus one bf16 rounding at the logit scale, and
+    from the plain path's no further than three times that distance plus
+    the floor; the first decode step no further from its f32 answer than
+    twice the bf16 training forward's plus the floor, the argmax agreeing
+    on every row whose f32 top-2 margin exceeds twice that bound. Returns
+    (stats, launches, bf16 launches, tensor-core launches)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import init_lora
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = replace(get_config(VL), num_layers=VL_DEPTH["bfloat16"])
+    if cfg.dtype != "bfloat16":
+        raise AssertionError(f"{VL}: config dtype {cfg.dtype}")
+    lcfg = LoRAConfig(rank=4, alpha=4 * scale)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    with torch.inference_mode():
+        params = build_model(cfg).init(gen, device)
+        lora = init_lora(gen, params, cfg, lcfg)
+        for k, leaf in _flat(lora).items():
+            if k.endswith("/b"):
+                leaf.normal_(0.0, 0.05, generator=gen)
+    torch.cuda.synchronize()
+    print(f"  [vl] {cfg.name} bf16 at depth {cfg.num_layers} (a cut of 80): "
+          f"params and adapter on the card in {time.perf_counter() - t0:.1f}"
+          " s", flush=True)
+    stats, launches, bf16, tc, cmp = vlm_serve(torch, kernels, device, cfg,
+                                               params, lora, lcfg)
+    text = VL_SERVE["prompt"] - cfg.vision_tokens
+    out = vlm_f32_answer(torch, cfg, params, lora, lcfg,
+                         cmp["full"][:, :text + 1], cmp["vision"])
+    torch.cuda.synchronize()
+    pre32, next32 = out[:, 0], out[:, 1]
+    bsz = cmp["full"].shape[0]
+    pre, pre_plain = cmp["pre"], cmp["pre_plain"]
+    floor = 2.0 ** -8 * float(pre32.abs().max())
+    err_k = float((pre - pre32).abs().max())
+    err_p = float((pre_plain - pre32).abs().max())
+    err_kp = float((pre - pre_plain).abs().max())
+    ok = err_k <= 2 * err_p + floor and err_kp <= 3 * err_p + floor
+    print(f"  [vl] bf16 prefill last-position logits: kernel path vs f32 "
+          f"{err_k:.4e}, bf16 plain path vs f32 {err_p:.4e} (bound 2 x that "
+          f"+ {floor:.4e} = {2 * err_p + floor:.4e}), kernel vs plain path "
+          f"{err_kp:.4e} (bound {3 * err_p + floor:.4e}); logit scale "
+          f"{float(pre32.abs().max()):.3f}: ok={ok}", flush=True)
+    if not ok:
+        raise AssertionError("vl bf16 serve: the kernel path's logits are "
+                             "further from the f32 answer than allowed")
+    floor = 2.0 ** -8 * float(next32.abs().max())
+    err_d = float((cmp["decode"] - next32).abs().max())
+    err_t = float((cmp["train"] - next32).abs().max())
+    bound = 2 * err_t + floor
+    top2 = torch.topk(next32, 2, dim=-1).values
+    sure = top2[:, 0] - top2[:, 1] > 2 * bound
+    same = cmp["decode"].argmax(-1) == next32.argmax(-1)
+    agree = bool(same[sure].all())
+    ok = err_d <= bound and agree
+    print(f"  [vl] bf16 teacher forcing: the first decode step vs the f32 "
+          f"answer {err_d:.4e}, the bf16 training forward vs it {err_t:.4e} "
+          f"(bound 2 x that + {floor:.4e} = {bound:.4e}); argmax agrees "
+          f"with f32 on {int(same.sum())} of {bsz} rows, on the "
+          f"{int(sure.sum())} rows past 2 x bound: {agree}: ok={ok}",
+          flush=True)
+    if not ok:
+        raise AssertionError("vl bf16 serve: the decode step is further from "
+                             "the f32 answer than allowed")
+    stats.update(err_vs_f32=err_k, err_plain_vs_f32=err_p,
+                 err_decode_vs_f32=err_d, err_train_vs_f32=err_t,
+                 seconds=time.perf_counter() - t0,
+                 peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del params, lora, cmp, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats, launches, bf16, tc
+
+
+def vlm_phase(torch, kernels, device):
+    """Phase 15: internvl2-76b at full width, cut in depth (``VL_DEPTH``).
+    The kernels at its shapes (:func:`vlm_kernel_phase`); training in f32
+    at the f32 depth as the reference's launchers train it, a text-only LM
+    on the launcher's tokens-only loaders (:func:`moe_train` with
+    ``VL_TRAIN``, adapters on q/k/v/o: fedex, both rounds at 50% with
+    example weights, ``factor_mean`` 1 and ``fedex_fold`` 4 a close, each
+    fold checked on the first and the last layer of each leaf); one client
+    step on a batch with vision embeddings (:func:`vlm_vision_step`); the
+    f32 serve of the folded W0 and global adapter (:func:`vlm_serve`);
+    that state freed, the bf16 serve at the bf16 depth from fresh draws
+    (:func:`vlm_bf16`). Returns (max errors of the f32 cases, of the bf16
+    cases, timings, launches, bf16 launches, stats)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import LoRAConfig, get_config
+
+    t = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = replace(get_config(VL), num_layers=VL_DEPTH["float32"],
+                  dtype="float32")
+    r, scale = 4, 2.0
+    lcfg = LoRAConfig(rank=r, alpha=8.0)
+    errs, bf16_errs, timings = vlm_kernel_phase(torch, kernels, device, cfg,
+                                                r=r, scale=scale)
+    stats = {"kernels_s": time.perf_counter() - t,
+             "kernels_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "depth": dict(VL_DEPTH)}
+    launches = {name: 0 for name in SOURCES}
+    t1 = time.perf_counter()
+    trainer, stats["train"], got = moe_train(
+        torch, kernels, device, cfg, scale, tag="vl", lcfg=lcfg, run=VL_TRAIN,
+        weighted_from=0)
+    for k, v in got.items():
+        launches[k] += v
+    stats["vision_step"] = vlm_vision_step(torch, device, cfg, trainer, lcfg)
+    stats["train"]["train_peak_gib"] = max(
+        stats["train"]["train_peak_gib"],
+        torch.cuda.max_memory_allocated() / 2 ** 30)
+    served, got = vlm_serve(torch, kernels, device, cfg, trainer.params,
+                            trainer.global_lora, lcfg)[:2]
+    for k, v in got.items():
+        launches[k] += v
+    stats["f32"] = dict(served, seconds=time.perf_counter() - t1)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["bf16"], got, bf16, tc = vlm_bf16(torch, kernels, device, scale)
+    for k, v in got.items():
+        launches[k] += v
+    bf16 = dict(bf16, **{f"{k}_tc": v for k, v in tc.items()})
+    stats["seconds"] = time.perf_counter() - t
+    print(f"  [vl] phase 15 in {stats['seconds']:.1f} s at depth "
+          f"{VL_DEPTH['float32']} (f32) and {VL_DEPTH['bfloat16']} (bf16) of "
+          f"80; peak memory: kernels {stats['kernels_peak_gib']:.2f} GiB, "
+          f"f32 training {stats['train']['train_peak_gib']:.2f} GiB, f32 "
+          f"serve {stats['f32']['peak_gib']:.2f} GiB, bf16 serve "
+          f"{stats['bf16']['peak_gib']:.2f} GiB", flush=True)
+    return errs, bf16_errs, timings, launches, bf16, stats
+
+
+# --------------------------------------------------------------------------
 
 SOURCES = {  # kernel → (CUDA source, the TPU kernel it replaces)
     "fedex_fold": ("src/repro_torch/kernels/csrc/fedex_fold.cu",
@@ -8586,6 +9122,34 @@ def whisper_main() -> int:
     return 0
 
 
+def vlm_main() -> int:
+    """``--vlm``: phase 15 alone (:func:`vlm_phase`) on this checkout's
+    port, after the build, its stats as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch import kernels
+    from repro_torch.kernels import build as kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi_line(), flush=True)
+    build_kernels(kbuild, "[vlm]")
+    errs, bf16_errs, timings, launches, bf16, stats = vlm_phase(
+        torch, kernels, torch.device("cuda", 0))
+    fields = {}
+    for key, t in timings.items():
+        fields.update(timing_fields(key, t))
+    print(smi_line(), flush=True)
+    print(json.dumps({"vlm": stats, "launches": launches,
+                      "bf16_launches": bf16, "max_abs_err": errs,
+                      "bf16_max_abs_err": bf16_errs, "timings": fields}),
+          flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -8615,6 +9179,8 @@ def main() -> int:
         return xlstm_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--encdec":
         return whisper_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--vlm":
+        return vlm_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--fold-check":
         return fold_check_main()
     if not torch.cuda.is_available():
@@ -8636,7 +9202,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
-    print(f"[1/15] environment: python {sys.version.split()[0]}, torch "
+    print(f"[1/16] environment: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
@@ -8647,11 +9213,11 @@ def main() -> int:
           flush=True)
     print(smi, flush=True)
 
-    build_kernels(kbuild, "[2/15]")
+    build_kernels(kbuild, "[2/16]")
 
     cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
     c, r, scale = 4, 4, 8.0 / 4
-    print(f"[3/15] kernels vs plain versions (C={c}, r={r}, scale={scale})",
+    print(f"[3/16] kernels vs plain versions (C={c}, r={r}, scale={scale})",
           flush=True)
     errs, timings = kernel_phase(torch, kernels, device, cfg, c=c, r=r,
                                  scale=scale)
@@ -8675,7 +9241,7 @@ def main() -> int:
     print(f"  launch path: {json.dumps(cost)}", flush=True)
     torch.cuda.empty_cache()
 
-    print(f"[4/15] main paths: FederatedTrainer at {cfg.name} full width "
+    print(f"[4/16] main paths: FederatedTrainer at {cfg.name} full width "
           f"({cfg.num_layers} layers, d={cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}); {', '.join(GPT2_PATHS)} at "
           f"{gcfg.name} ({gcfg.num_layers} layers, d={gcfg.d_model}, vocab "
@@ -8705,24 +9271,24 @@ def main() -> int:
           flush=True)
     serve_stats = {}
     for scfg in (cfg, gcfg):
-        print(f"[5/15] serving: {scfg.name} at full width, prefill + KV-cache "
+        print(f"[5/16] serving: {scfg.name} at full width, prefill + KV-cache "
               "greedy decode with a LoRA adapter", flush=True)
         serve_stats[scfg.name], serve_launches = serve_phase(
             torch, kernels, device, scfg)
         for k in ("lora_matmul", "flash_swa"):
             launches[k] += serve_launches[k]
-    print(f"[6/15] obs and the HTTP federation service at {cfg.name} full "
+    print(f"[6/16] obs and the HTTP federation service at {cfg.name} full "
           "width: fedex+obs, serve-http, pull-serve, serve-http-hetero",
           flush=True)
     obs_launches, obs_stats = obs_http_phase(torch, kernels, device, cfg)
     for k, v in obs_launches.items():
         launches[k] += v
-    print(f"[7/15] mesh mode at {cfg.name} full width: "
+    print(f"[7/16] mesh mode at {cfg.name} full width: "
           f"{', '.join(MESH_PATHS)}", flush=True)
     mesh_launches, mesh_stats = mesh_phase(torch, kernels, device, cfg)
     for k, v in mesh_launches.items():
         launches[k] += v
-    print(f"[8/15] the rest of the dense zoo at full width: "
+    print(f"[8/16] the rest of the dense zoo at full width: "
           f"{', '.join(ZOO)}, each trained and served", flush=True)
     zoo_errs, zoo_timings, zoo_launches, zoo_stats = zoo_phase(
         torch, kernels, device)
@@ -8730,14 +9296,14 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in zoo_launches.items():
         launches[k] += v
-    print(f"[9/15] serving in bf16, the reference's default dtype: B3 and B8 "
+    print(f"[9/16] serving in bf16, the reference's default dtype: B3 and B8 "
           f"in bf16, then {', '.join(BF16_SERVE)} served at full width and "
           "depth", flush=True)
     bf16_errs, bf16_timings, bf16_main_launches, bf16_launches, bf16_stats = \
         bf16_phase(torch, kernels, device)
     for k, v in bf16_main_launches.items():
         launches[k] += v
-    print(f"[10/15] the MoE family: {MOE} at full width, trained and served "
+    print(f"[10/16] the MoE family: {MOE} at full width, trained and served "
           f"in f32 at depth {MOE_DEPTH['float32']} and served in bf16 at "
           f"depth {MOE_DEPTH['bfloat16']} (cuts of 56)", flush=True)
     (moe_errs, moe_bf16_errs, moe_timings, moe_launches, moe_bf16,
@@ -8746,7 +9312,7 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in moe_launches.items():
         launches[k] += v
-    print(f"[11/15] Multi-head Latent Attention on the MoE stack: {DS} at "
+    print(f"[11/16] Multi-head Latent Attention on the MoE stack: {DS} at "
           f"full width, trained and served in f32 at depth "
           f"{DS_DEPTH['float32']} and served in bf16 at depth "
           f"{DS_DEPTH['bfloat16']} (1 dense + MoE layers, cuts of 60)",
@@ -8757,7 +9323,7 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in mla_launches.items():
         launches[k] += v
-    print(f"[12/15] the hybrid family: {ZB} at full width and depth "
+    print(f"[12/16] the hybrid family: {ZB} at full width and depth "
           f"({ZB_DEPTH['float32']} Mamba2 layers, the shared block every "
           "6), trained and served in f32, served in bf16", flush=True)
     (zb_errs, zb_bf16_errs, zb_timings, zb_launches, zb_bf16,
@@ -8766,7 +9332,7 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in zb_launches.items():
         launches[k] += v
-    print(f"[13/15] the ssm family: {XL} at full width and depth "
+    print(f"[13/16] the ssm family: {XL} at full width and depth "
           f"({XL_DEPTH['float32']} blocks, 6 periods of 7 mLSTM + 1 sLSTM), "
           "trained and served in f32, served in bf16", flush=True)
     (xl_errs, xl_bf16_errs, xl_timings, xl_launches, xl_bf16,
@@ -8775,7 +9341,7 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in xl_launches.items():
         launches[k] += v
-    print(f"[14/15] the encdec family: {WH} at full width and depth "
+    print(f"[14/16] the encdec family: {WH} at full width and depth "
           "(24 encoder + 24 decoder layers over 1500 frames), trained and "
           "served in f32, served in bf16", flush=True)
     (wh_errs, wh_bf16_errs, wh_timings, wh_launches, wh_bf16,
@@ -8783,6 +9349,16 @@ def main() -> int:
     for k, v in wh_errs.items():
         errs[k] = max(errs[k], v)
     for k, v in wh_launches.items():
+        launches[k] += v
+    print(f"[15/16] the vlm family: {VL} at full width, trained and served "
+          f"in f32 at depth {VL_DEPTH['float32']} and served in bf16 at "
+          f"depth {VL_DEPTH['bfloat16']} (cuts of 80), prompts of "
+          f"{VL_SERVE['prompt']} = 256 vision + 256 text tokens", flush=True)
+    (vl_errs, vl_bf16_errs, vl_timings, vl_launches, vl_bf16,
+     vl_stats) = vlm_phase(torch, kernels, device)
+    for k, v in vl_errs.items():
+        errs[k] = max(errs[k], v)
+    for k, v in vl_launches.items():
         launches[k] += v
     main_body = {**timings["weighted-partial"], **lane_timings,
                  "lora_matmul": serve_timings["lora_matmul[prefill]"],
@@ -8966,6 +9542,30 @@ def main() -> int:
             "wh_bf16_max_abs_err": wh_bf16_errs[name]})
     out[list(SOURCES).index("lora_matmul")][
         "wh_bf16_tc_decode_launches"] = wh_bf16["lora_matmul_decode_tc"]
+    # internvl2-76b's shapes (phase 15): B1 at the stacked q_proj leaf of
+    # the f32 depth, B2 over a close's 8 stacks, B3 at a layer's q/k/v/o in
+    # f32 and bf16 at the prefill (M 4096: 256 vision + 256 text rows of 8)
+    # and a decode step (M 8), B8 at the prefill (S 512, GQA 64/8) in f32
+    # and bf16; the launches of phase 15's main paths (training, the f32
+    # and the bf16 serve()) and the bf16 and tensor-core launches of its
+    # bf16 serve() run
+    for name, key, t in (
+            ("fedex_fold", "vl", vl_timings["fedex_fold"]),
+            ("factor_mean", "vl", vl_timings["factor_mean"]),
+            *(("lora_matmul", key, vl_timings[key]) for key in (
+                "vl", "vl_decode", "vl_bf16", "vl_bf16_decode")),
+            ("flash_swa", "vl", vl_timings["flash_vl"]),
+            ("flash_swa", "vl_bf16", vl_timings["flash_vl_bf16"])):
+        out[list(SOURCES).index(name)].update(timing_fields(key, t))
+    for name in ("fedex_fold", "factor_mean", "lora_matmul", "flash_swa"):
+        out[list(SOURCES).index(name)]["vl_launches"] = vl_launches[name]
+    for name in ("lora_matmul", "flash_swa"):
+        out[list(SOURCES).index(name)].update({
+            "vl_bf16_launches": vl_bf16[name],
+            "vl_bf16_tc_launches": vl_bf16[f"{name}_tc"],
+            "vl_bf16_max_abs_err": vl_bf16_errs[name]})
+    out[list(SOURCES).index("lora_matmul")][
+        "vl_bf16_tc_decode_launches"] = vl_bf16["lora_matmul_decode_tc"]
     # B5 beside its old body (product_fold in place), and at the chunk of
     # 64 uplinks at r = 8 that docs/benchmarks.md documents
     ms, _, lib_ms, (bms, by), *_ = lane_timings["product_accum[C64r8]"]
@@ -8974,7 +9574,7 @@ def main() -> int:
         "C64r8_prior_ms": lane_prior["product_accum[C64r8]"],
         "C64r8_library_ms": lib_ms, "C64r8_bound_ms": bms,
         "C64r8_bound_by": by})
-    print(f"[15/15] done in {time.perf_counter() - t_start:.1f} s; identity "
+    print(f"[16/16] done in {time.perf_counter() - t_start:.1f} s; identity "
           "max "
           f"err per path {json.dumps(identities)}; resume "
           f"{json.dumps(resume)}; serving "
@@ -8983,7 +9583,7 @@ def main() -> int:
           f"{json.dumps(zoo_stats)}; bf16 {json.dumps(bf16_stats)}; moe "
           f"{json.dumps(moe_stats)}; mla {json.dumps(mla_stats)}; hybrid "
           f"{json.dumps(zb_stats)}; xlstm {json.dumps(xl_stats)}; encdec "
-          f"{json.dumps(wh_stats)}; rounds "
+          f"{json.dumps(wh_stats)}; vlm {json.dumps(vl_stats)}; rounds "
           + json.dumps([{k: v for k, v in row.items()
                          if k != "client_losses"} for row in all_rows]),
           flush=True)

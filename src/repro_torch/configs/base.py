@@ -2,9 +2,10 @@
 
 The port's own copy of ``repro/configs/base.py`` (the port imports nothing of
 the JAX package): the same fields, defaults and validation, so a config built
-here reads exactly like the reference's. The port runs the dense, MoE,
-hybrid, ssm (xLSTM) and encdec (whisper) branches of :class:`ModelConfig`;
-``build_model`` raises ``NotImplementedError`` for any other branch. :class:`ServeConfig`
+here reads exactly like the reference's. The port runs every family of
+:class:`ModelConfig`: dense, MoE, hybrid, ssm (xLSTM), encdec (whisper)
+and vlm (internvl2); ``build_model`` raises ``NotImplementedError`` for any
+other family name. :class:`ServeConfig`
 holds the HTTP federation service's socket settings
 (:mod:`repro_torch.fedsrv.server`).
 """

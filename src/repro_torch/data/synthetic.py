@@ -75,25 +75,27 @@ class SyntheticLM:
 
 def make_batch_for(cfg, batch_size: int, seq_len: int, seed: int = 0,
                    device="cuda") -> Dict[str, torch.Tensor]:
-    """Random batch of the dense, MoE, hybrid, ssm or encdec family (smoke
-    tests, serving prompts), the reference's ``make_batch_for`` draws from
-    one generator: an encdec config's ``frames`` first, ``normal × 0.02``
-    over (batch, enc_seq_len, d_model) as float32, then the tokens,
-    ``integers(0, vocab)`` over (batch, seq_len + 1) — so frames and token
-    values are the reference's bit for bit — as tensors on ``device``."""
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm", "encdec"):
-        raise NotImplementedError(f"make_batch_for: family {cfg.family!r} is "
-                                  "not ported (dense, moe, hybrid, ssm and "
-                                  "encdec only)")
+    """Random batch of any family (smoke tests, serving prompts), the
+    reference's ``make_batch_for`` draws from one generator: a vlm config's
+    ``vision_embeds`` first, ``normal × 0.02`` over (batch, vision_tokens,
+    d_model) as float32, with ``max(1, seq_len − vision_tokens)`` text
+    tokens after them; an encdec config's ``frames`` likewise over (batch,
+    enc_seq_len, d_model); then the tokens, ``integers(0, vocab)`` over
+    (batch, text + 1) — so the extras and the token values are the
+    reference's bit for bit — as tensors on ``device``. ``loss_mask`` is
+    (batch, text)."""
     rng = np.random.default_rng(seed)
     dev = resolve_device(device)
-    frames = None
+    text_len, extras = seq_len, {}
+    if cfg.family == "vlm":
+        text_len = max(1, seq_len - cfg.vision_tokens)
+        extras["vision_embeds"] = rng.normal(
+            size=(batch_size, cfg.vision_tokens, cfg.d_model)) * 0.02
     if cfg.family == "encdec":
-        frames = np.asarray(rng.normal(size=(batch_size, cfg.enc_seq_len,
-                                             cfg.d_model)) * 0.02,
-                            np.float32)
-    toks = rng.integers(0, cfg.vocab_size, size=(batch_size, seq_len + 1))
+        extras["frames"] = rng.normal(
+            size=(batch_size, cfg.enc_seq_len, cfg.d_model)) * 0.02
+    toks = rng.integers(0, cfg.vocab_size, size=(batch_size, text_len + 1))
     batch = to_batch(toks, dev)
-    if frames is not None:
-        batch["frames"] = torch.as_tensor(frames, device=dev)
+    for k, v in extras.items():
+        batch[k] = torch.as_tensor(np.asarray(v, np.float32), device=dev)
     return batch

@@ -252,8 +252,9 @@ def check_mesh_supported(fed: FedConfig, cfg=None) -> None:
     shared block's adapter, have no lane layout yet; host mode trains
     them); and for an encdec (whisper) one, named (no lane layout for its
     stacks, and mesh mode's loaders yield tokens only where its batches
-    need frames). Raise
-    ``ValueError`` for a setting mesh mode cannot honour (the
+    need frames). A dense or vlm config runs (a vlm one as a text-only
+    LM over the lanes' tokens, as the reference's mesh mode trains it).
+    Raise ``ValueError`` for a setting mesh mode cannot honour (the
     reference warns and ignores them): the host-orchestrated methods, the
     coordinator's and the transport's settings, DP, client ranks, the
     engine's tuning, checkpoints, fault kinds outside

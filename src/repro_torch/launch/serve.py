@@ -13,11 +13,22 @@ attention kernel (B8), each in that dtype (a hybrid config's Mamba2
 ``in_proj`` / ``out_proj`` through B3 too, and an xLSTM config's adapted
 projections, which have no attention; an encdec config's encoder pass over
 the prompt's ``frames`` and its decoder's self- and cross-attention, the
-decode steps reading the cross cache filled at prefill); an f32 adapter
+decode steps reading the cross cache filled at prefill; a vlm config's
+prefill over its prompt's projected patch prefix and text); an f32 adapter
 (``init_lora``'s, a trainer's, a pulled one) is cast to it once before the
 prefill (the reference's ``dense`` casts it where it is applied, to the
 same values). Runs on CUDA unless ``--device cpu`` is given (the CPU runs
 the kernels' plain versions).
+
+A vlm config (internvl2) is served at the prefill's true length, the one
+departure from the reference: ``make_batch_for`` gives its prompt
+``vision_tokens`` patch embeddings and ``max(1, prompt_len −
+vision_tokens)`` text tokens, so the prefill fills ``vision_tokens +
+max(1, prompt_len − vision_tokens)`` cache positions and decode starts
+there. The reference decodes from ``prompt_len + vision_tokens``
+(``repro/launch/serve.py``), past the prefill's end, which leaves cache
+slots unwritten and can run past the cache; the port counts the prefill
+plus the steps against ``max_len`` and raises ``ValueError`` beyond it.
 
 ``--pull-from URL`` fetches the global adapter a running federation server
 (``repro_torch.launch.train --mode serve``) holds now, through
@@ -40,6 +51,8 @@ must match the server's).
       --arch xlstm-1.3b-smoke --batch-size 2 --prompt-len 32 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch whisper-medium-smoke --batch-size 2 --prompt-len 32 --steps 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch internvl2-76b-smoke --batch-size 2 --prompt-len 32 --steps 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch paper-tiny --pull-from http://127.0.0.1:8077
 """
@@ -94,6 +107,16 @@ def _cast(tree: dict, dtype: torch.dtype) -> dict:
         for k, v in flatten_with_paths(tree).items()})
 
 
+def prefill_length(cfg, prompt_len: int) -> int:
+    """The positions a ``make_batch_for`` prompt of ``prompt_len`` fills:
+    ``prompt_len``, or for a vlm config its patch prefix and text,
+    ``vision_tokens + max(1, prompt_len − vision_tokens)``; decode starts
+    there."""
+    if cfg.family == "vlm":
+        return cfg.vision_tokens + max(1, prompt_len - cfg.vision_tokens)
+    return prompt_len
+
+
 def serve(arch, *, batch_size: int = 2, prompt_len: int = 32,
           steps: int = 8, max_len: int = 128, rank: int = 4,
           use_lora: bool = True, seed: int = 0, device="cuda",
@@ -113,7 +136,11 @@ def serve(arch, *, batch_size: int = 2, prompt_len: int = 32,
     given, drawn or pulled, are served cast to it (the float32 leaves
     of ``F32_LEAVES`` kept in float32, as the model holds them). ``arch``
     is a registered config's name, or a :class:`ModelConfig` itself (a
-    config cut in depth, say)."""
+    config cut in depth, say). A vlm prompt is ``vision_tokens`` patch
+    embeddings and ``max(1, prompt_len − vision_tokens)`` text tokens,
+    decoded from :func:`prefill_length` (not the reference's
+    ``prompt_len + vision_tokens``); the prefill plus ``steps`` must fit in
+    ``max_len``."""
     dev = resolve_device(device)
     cfg = arch if isinstance(arch, ModelConfig) else get_config(arch)
     if dtype is not None:
@@ -143,9 +170,10 @@ def serve(arch, *, batch_size: int = 2, prompt_len: int = 32,
     if lora is not None:
         # once here, so that the projections' cast to x's dtype is a no-op
         lora = _cast(lora, mdt)
-    if prompt_len + steps > max_len:
-        raise ValueError(f"serve: prompt {prompt_len} + {steps} steps exceed "
-                         f"the cache's {max_len} positions")
+    pos0 = prefill_length(cfg, prompt_len)
+    if pos0 + steps > max_len:
+        raise ValueError(f"serve: a prefill of {pos0} positions + {steps} "
+                         f"steps exceeds the cache's {max_len} positions")
     batch = make_batch_for(cfg, batch_size, prompt_len, seed=seed, device=dev)
     cache = model.init_cache(batch_size, max_len, cache_dtype, device=dev)
     prefill = make_prefill_step(model, lora_cfg)
@@ -166,7 +194,7 @@ def serve(arch, *, batch_size: int = 2, prompt_len: int = 32,
         t0 = time.perf_counter()
         for i in range(steps):
             next_tok, logits, cache = decode(params, lora, next_tok, cache,
-                                             prompt_len + i)
+                                             pos0 + i)
             generated.append(next_tok)
         sync()
         t_decode = time.perf_counter() - t0
@@ -182,8 +210,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu must be asked for)")
     ap.add_argument("--arch", default="paper-tiny",
-                    help="a registered config of the port (dense, MoE, "
-                         "hybrid, ssm or encdec family)")
+                    help="a registered config of the port (dense, vlm, "
+                         "MoE, hybrid, ssm or encdec family; a vlm prompt's "
+                         "length counts its vision tokens)")
     ap.add_argument("--batch-size", type=int, default=2)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--steps", type=int, default=8)

@@ -25,7 +25,10 @@ quarantined and dropped buckets and each round's quarantined or dropped
 An encdec config (whisper-medium) is refused in host and mesh mode by name:
 the federated loaders yield tokens only and its batches need frames (the
 reference fails there with ``KeyError: 'frames'``); a caller that supplies
-frames trains it through ``FederatedTrainer`` directly.
+frames trains it through ``FederatedTrainer`` directly. A vlm config
+(internvl2-76b) trains in host and mesh mode as the reference's launcher
+trains it: a text-only LM over the loaders' tokens (no ``vision_embeds``
+in the batches; its ``vision_proj`` carries no adapter).
 
 ``--mode serve`` boots the HTTP federation service
 (:mod:`repro_torch.fedsrv.server`) with ``--host``, ``--port`` (0 =
@@ -78,6 +81,9 @@ Examples (CPU, tiny model):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --arch xlstm-1.3b-smoke --method fedex --vocab 64 --rounds 2 \\
       --weighting examples --participation 0.5
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
+      --arch internvl2-76b-smoke --method fedex --data-vocab 64 \\
+      --rounds 2 --weighting examples --participation 0.5
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu \\
       --vocab 64 --clients 4 --rounds 3 --deadline 1.0 --min-quorum 2 \\
       --dropout-prob 0.25 --stragglers 0.25 --weighting examples

@@ -1,5 +1,5 @@
-"""Model API: ``build_model(cfg) → Model`` (dense, MoE, hybrid, ssm and
-encdec families).
+"""Model API: ``build_model(cfg) → Model`` (dense, vlm, MoE, hybrid, ssm
+and encdec families).
 
 Counterpart of ``repro/models/model.py``: a namespace of functions closed
 over the config — ``init(gen, device) → params``, ``apply(params, batch,
@@ -14,7 +14,13 @@ cache``,
 An encdec config (whisper) reads ``batch["frames"]`` (B, enc_seq_len,
 d_model) beside the tokens in ``apply``, ``loss`` and ``prefill`` (its
 loss is the CE alone; ``with_aux`` gives a zero aux, as the reference's);
-``decode_step`` reads no frames.
+``decode_step`` reads no frames. A vlm config (internvl2) reads
+``batch.get("vision_embeds")`` (B, Vt, d_model) in ``apply`` and
+``prefill``, the stubbed ViT's patch embeddings, which the model prepends
+to the tokens; when a batch carries them, ``loss`` and ``lane_loss`` score
+the text positions only (``logits[:, Vt:]``), as the reference's. A
+batch without them (the federated loaders' tokens) trains it as a
+text-only LM; ``decode_step`` reads tokens only.
 """
 
 from __future__ import annotations
@@ -64,12 +70,20 @@ def build_model(cfg, moe_impl: str = "ragged") -> Model:
     def apply(params, batch, lora=None, lora_scale=0.0, with_aux=False):
         return transformer.forward(cfg, params, batch["tokens"], lora=lora,
                                    lora_scale=lora_scale, moe_impl=moe_impl,
-                                   with_aux=with_aux)
+                                   with_aux=with_aux,
+                                   extra_embeds=batch.get("vision_embeds"))
+
+    def text_logits(logits, batch):
+        """A vlm batch's logits over its text positions: the vision
+        prefix's are not scored (the reference's ``logits[:, vt:]``)."""
+        if cfg.family == "vlm" and "vision_embeds" in batch:
+            return logits[:, batch["vision_embeds"].shape[1]:]
+        return logits
 
     def loss(params, batch, lora=None, lora_scale=0.0):
         out = apply(params, batch, lora=lora, lora_scale=lora_scale,
                     with_aux=moe)
-        logits = out[0] if moe else out
+        logits = text_logits(out[0] if moe else out, batch)
         ce, metrics = cross_entropy(logits, batch["targets"],
                                     batch.get("loss_mask"))
         metrics = dict(metrics)
@@ -86,9 +100,11 @@ def build_model(cfg, moe_impl: str = "ragged") -> Model:
         (``(C, L, m, r)`` under ``layers``, ``(C, nper, ratio, m, r)`` and
         ``(C, nper, m, r)`` under ``periods/local`` and ``periods/global``,
         ``(C, m, r)`` elsewhere) and lane c owns batch rows
-        ``[c·B, (c+1)·B)``. A MoE config is refused: the reference maps
-        the loss, its router aux loss included, over the lanes, and one
-        folded forward would pool the aux over all of them. A hybrid or an
+        ``[c·B, (c+1)·B)`` (a vlm batch's ``vision_embeds`` rows too;
+        its text positions scored only). A MoE config is refused: the
+        reference maps the loss, its router aux loss included, over the
+        lanes, and one folded forward would pool the aux over all of
+        them. A hybrid or an
         ssm config is refused too: their stacks have no prefix in
         ``STACKED_AXES`` (an ssm config's ``periods/mlstm`` and
         ``periods/slstm`` are not gemma3's ``periods/local`` and
@@ -108,7 +124,8 @@ def build_model(cfg, moe_impl: str = "ragged") -> Model:
         # slices (C, m, r)
         by_layer = unflatten_from_paths({
             p: x.movedim(0, _stacked_axes(p)) for p, x in flat.items()})
-        logits = apply(params, batch, lora=by_layer, lora_scale=lora_scale)
+        logits = text_logits(apply(params, batch, lora=by_layer,
+                                   lora_scale=lora_scale), batch)
         logits = logits.reshape(c, -1, *logits.shape[1:])
         targets = batch["targets"].reshape(c, -1, *batch["targets"].shape[1:])
         mask = batch.get("loss_mask")
@@ -127,7 +144,8 @@ def build_model(cfg, moe_impl: str = "ragged") -> Model:
     def prefill(params, batch, cache, lora=None, lora_scale=0.0):
         return transformer.forward(cfg, params, batch["tokens"], lora=lora,
                                    lora_scale=lora_scale, mode="prefill",
-                                   cache=cache, moe_impl=moe_impl)
+                                   cache=cache, moe_impl=moe_impl,
+                                   extra_embeds=batch.get("vision_embeds"))
 
     def decode_step(params, tokens, cache, position, lora=None,
                     lora_scale=0.0):

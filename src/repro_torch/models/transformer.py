@@ -1,8 +1,8 @@
-"""Decoder-only stack, dense, MoE, hybrid and ssm (xLSTM) families:
+"""Decoder-only stack, dense, vlm, MoE, hybrid and ssm (xLSTM) families:
 ``make_params``, ``init_cache`` and ``forward`` (train, prefill and
 decode).
 
-Counterpart of the dense, MoE, hybrid and ssm branches of
+Counterpart of the dense, vlm, MoE, hybrid and ssm branches of
 ``repro/models/transformer.py``. The parameter layout is the reference's: every per-layer leaf is stacked on a
 leading layer axis (``layers/attn/q_proj/kernel`` is ``(L, d, h·hd)``), so a
 flattened port tree lines up one-to-one with the reference's. A config with
@@ -26,7 +26,12 @@ axis), with its one adapter and that period's KV cache. An ssm config
 (xlstm) stacks its blocks by period under ``periods``: ``periods/mlstm/…``
 is ``(nper, slstm_every − 1, …)`` and ``periods/slstm/…`` ``(nper, …)``,
 nper = L // slstm_every; each period runs its mLSTM blocks, then its
-sLSTM block (:mod:`repro_torch.models.xlstm`). Where JAX scans
+sLSTM block (:mod:`repro_torch.models.xlstm`). A vlm config (internvl2)
+is the dense stack plus ``vision_proj``, a d × d dense without an
+adapter: in train and prefill :func:`forward` projects the given patch
+embeddings (``extra_embeds``, the stubbed ViT's) through it and prepends
+them to the token embeddings, so positions run over the concatenated
+length; decode reads tokens only. Where JAX scans
 the stacked parameters, the port runs a Python loop over the layer (and
 period) index. The reference's ``remat`` has no counterpart: at the batch
 sizes the port trains, activations fit without recomputation.
@@ -40,9 +45,9 @@ import torch
 
 from repro_torch.models.attention import (attention_block, init_kv_cache,
                                           make_attention_params)
-from repro_torch.models.common import (Params, apply_norm, dtype_of, embed,
-                                       make_dense_params, make_norm_params,
-                                       normal_init, unembed)
+from repro_torch.models.common import (Params, apply_norm, dense, dtype_of,
+                                       embed, make_dense_params,
+                                       make_norm_params, normal_init, unembed)
 from repro_torch.models.mla import init_mla_cache, make_mla_params, mla_block
 from repro_torch.models.mlp import make_mlp_params, mlp_block
 from repro_torch.models.moe import make_moe_params, moe_block
@@ -53,7 +58,7 @@ from repro_torch.models.xlstm import (init_mlstm_cache, init_slstm_cache,
                                       mlstm_block, slstm_block)
 
 MODES = ("train", "prefill", "decode")
-FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
 
 
 def check_supported(cfg) -> None:
@@ -67,14 +72,15 @@ def check_supported(cfg) -> None:
     Latent Attention (``mla``) — the hybrid stack (Mamba2 layers with
     one parameter-shared attention + MLP layer every ``attn_every`` of
     them), the ssm stack (xLSTM: periods of ``slstm_every − 1`` mLSTM
-    blocks and one sLSTM block) and the encoder-decoder (whisper,
-    :mod:`repro_torch.models.encdec`). As in the reference, the family
-    decides: a dense config with ``num_experts`` builds dense MLPs."""
+    blocks and one sLSTM block), the encoder-decoder (whisper,
+    :mod:`repro_torch.models.encdec`) and the vision-language decoder
+    (internvl2: the dense stack behind a projected patch prefix). As in
+    the reference, the family decides: a dense config with
+    ``num_experts`` builds dense MLPs."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"config {cfg.name!r} asks for family {cfg.family!r}: the port "
-            "runs only the dense, MoE, hybrid and ssm decoders and the "
-            "encdec stack so far")
+            f"runs the families {', '.join(FAMILIES)}")
 
 
 def _decoder_only(cfg, what: str) -> None:
@@ -180,6 +186,8 @@ def make_params(gen: torch.Generator, cfg, device) -> Params:
     if not cfg.tie_embeddings:
         params["lm_head"] = make_dense_params(gen, (d, cfg.vocab_size), dtype,
                                               device)
+    if cfg.family == "vlm":  # the stubbed ViT's projector, no adapter
+        params["vision_proj"] = make_dense_params(gen, (d, d), dtype, device)
     return params
 
 
@@ -211,7 +219,8 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
     trailing Mamba2 layers. An ssm config's is ``{"mlstm": {"C": (nper,
     slstm_every − 1, batch, H, Dh, Dh), "n", "m" f32, "conv": (…, batch,
     3, d_inner)}, "slstm": {"c", "n", "m" f32, "h": (nper, batch, d)}}``
-    (no KV cache: ``cache_len`` plays no part)."""
+    (no KV cache: ``cache_len`` plays no part). A vlm config's is the
+    dense one; its ``cache_len`` counts the vision prefix too."""
     _decoder_only(cfg, "init_cache")
 
     def expand(one, lead):
@@ -307,8 +316,15 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
             lora: Optional[Params] = None, lora_scale: float = 0.0,
             mode: str = "train", cache: Optional[Params] = None,
             position=None, moe_impl: str = "ragged",
-            with_aux: bool = False):
+            with_aux: bool = False,
+            extra_embeds: Optional[torch.Tensor] = None):
     """tokens (B, S) int → logits (B, S, V) f32.
+
+    A vlm config's ``extra_embeds`` (B, Vt, d), in train and prefill, are
+    cast to the activations' dtype, projected by ``vision_proj`` and
+    prepended to the token embeddings, as the reference's: the logits are
+    then (B, Vt + S, V) and the prefill fills Vt + S cache positions.
+    Decode, and any other family, ignore them.
 
     ``mode="train"`` returns the logits, or with ``with_aux`` ``(logits,
     aux)``: the router aux losses summed over the layers (f32 0 for a dense
@@ -334,11 +350,15 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
     if with_aux and mode != "train":
         raise ValueError("forward: with_aux goes with mode='train' only")
     x = embed(params["embed"], tokens)
+    if (cfg.family == "vlm" and extra_embeds is not None
+            and mode != "decode"):
+        vis = dense(extra_embeds.to(x.dtype), params["vision_proj"])
+        x = torch.cat([vis, x], dim=1)
     positions = (None if mode == "decode"
-                 else torch.arange(tokens.shape[1], device=tokens.device))
+                 else torch.arange(x.shape[1], device=tokens.device))
     if cfg.learned_pos_embeddings:
         x = x + _learned_positions(cfg, params["pos_embed"]["embedding"],
-                                   tokens.shape[1], position)
+                                   x.shape[1], position)
     lora = lora or {}
     aux_total = None
 

@@ -780,6 +780,67 @@ def test_windowed_serving_kernel_path_matches_plain_path(cuda, monkeypatch):
     torch.testing.assert_close(dec, dec_p, rtol=1e-4, atol=1e-4)
 
 
+def test_vlm_serving_kernel_path_matches_plain_path(cuda, monkeypatch):
+    """internvl2-76b-smoke (16 vision tokens, 2 layers, f32): a prefill of
+    the projected vision prefix and 8 text tokens, then 2 decode steps from
+    the prefill's true length (24) through the kernels (8 lora_matmul and 2
+    flash_swa launches a prefill, 8 lora_matmul a step; ``vision_proj``
+    takes neither) against the same run with the plain versions patched
+    in, and the decode steps against the training forward, on an f32
+    cache: rtol / atol 1e-4."""
+    import dataclasses
+
+    from repro_torch import kernels
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import init_lora
+    from repro_torch.data import make_batch_for
+    from repro_torch.models import attention, build_model
+    from repro_torch.models import common as model_common
+
+    cfg = dataclasses.replace(get_config("internvl2-76b-smoke"),
+                              dtype="float32")
+    model = build_model(cfg)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    params = model.init(gen, cuda)
+    lora = init_lora(gen, params, cfg, LoRAConfig())
+    for leaf in lora["layers"]["attn"].values():
+        leaf["b"].normal_(0.0, 0.02, generator=gen)
+    batch = make_batch_for(cfg, 2, 26, seed=0, device=cuda)  # 10 text
+    toks = torch.cat([batch["tokens"], batch["targets"][:, -1:]], dim=1)
+    prompt = {"tokens": toks[:, :8], "vision_embeds": batch["vision_embeds"]}
+
+    def run():
+        cache = model.init_cache(2, 32, torch.float32, device=cuda)
+        with torch.inference_mode():
+            pre, cache = model.prefill(params, prompt, cache, lora=lora,
+                                       lora_scale=2.0)
+            decs = []
+            for i in range(2):
+                dec, cache = model.decode_step(params, toks[:, 8 + i:9 + i],
+                                               cache, 24 + i, lora=lora,
+                                               lora_scale=2.0)
+                decs.append(dec[:, -1])
+        torch.cuda.synchronize()
+        return pre, torch.stack(decs, 1)
+
+    kernels.reset_launch_counts()
+    pre, dec = run()
+    counts = kernels.launch_counts()
+    assert (counts["lora_matmul"], counts["flash_swa"]) == (24, 2)
+    assert pre.shape == (2, 24, cfg.vocab_size)
+    with torch.inference_mode():
+        full = model.apply(params, {"tokens": toks[:, :10],
+                                    "vision_embeds": batch["vision_embeds"]},
+                           lora=lora, lora_scale=2.0)
+    torch.testing.assert_close(dec, full[:, 24:26], rtol=1e-4, atol=1e-4)
+    monkeypatch.setattr(model_common, "lora_dense", kernels.lora_dense_plain)
+    monkeypatch.setattr(attention, "swa_attention",
+                        kernels.swa_attention_plain)
+    pre_p, dec_p = run()
+    torch.testing.assert_close(pre, pre_p, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dec, dec_p, rtol=1e-4, atol=1e-4)
+
+
 # --------------------------------------------------------------------------
 # bf16 (serving's dtype): B3's two bodies and B8 at every DP, each against
 # its bf16 plain version within its bound (``lora_matmul_error_bound`` and

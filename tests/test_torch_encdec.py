@@ -159,7 +159,7 @@ def _batches(toks, frames):
 # --------------------------------------------------------------------------
 
 def test_registry_and_reduced_match_the_reference():
-    assert "whisper-medium" in list_configs() and len(list_configs()) == 12
+    assert "whisper-medium" in list_configs() and len(list_configs()) == 13
     for name in ("whisper-medium", ARCH):
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
             jax_get_config(name))

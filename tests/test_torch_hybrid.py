@@ -143,7 +143,7 @@ def _batches(toks):
 # --------------------------------------------------------------------------
 
 def test_registry_has_zamba2_as_the_reference():
-    assert "zamba2-7b" in list_configs() and len(list_configs()) == 12
+    assert "zamba2-7b" in list_configs() and len(list_configs()) == 13
     for name in ("zamba2-7b", ARCH):
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
             jax_get_config(name))

@@ -140,7 +140,7 @@ def _batches(toks):
 # --------------------------------------------------------------------------
 
 def test_registry_has_deepseek_as_the_reference():
-    assert "deepseek-v2-236b" in list_configs() and len(list_configs()) == 12
+    assert "deepseek-v2-236b" in list_configs() and len(list_configs()) == 13
     for name in ("deepseek-v2-236b", ARCH):
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
             jax_get_config(name))

@@ -94,12 +94,13 @@ def test_config_dataclass_defaults_match():
 
 
 def test_unsupported_branch_raises():
-    # windowed attention, experts, MLA, the recurrent blocks and whisper's
-    # encoder-decoder run in the port; internvl2's vision-language stack
-    # (family "vlm") does not
+    # windowed attention, experts, MLA, the recurrent blocks, whisper's
+    # encoder-decoder and internvl2's vision-language stack run in the
+    # port; a family the reference does not have is refused by its name
     vlm = _port_cfg(jax_get_config("internvl2-76b"))
-    with pytest.raises(NotImplementedError, match="vlm"):
-        build_model(vlm)
+    build_model(vlm)
+    with pytest.raises(NotImplementedError, match="bogus"):
+        build_model(dataclasses.replace(vlm, family="bogus"))
 
 
 def test_param_paths_line_up_with_the_reference():

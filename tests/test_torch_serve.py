@@ -361,9 +361,10 @@ def test_forward_modes_check_their_arguments(state):
     with pytest.raises(ValueError, match="position"):
         transformer.forward(pm.cfg, tp, toks[:, :1], mode="decode",
                             cache=cache)
-    vlm = _port_cfg(jax_get_config("internvl2-76b"))
-    with pytest.raises(NotImplementedError, match="vlm"):
-        transformer.init_cache(vlm, 1, 8, device=CPU)
+    bogus = dataclasses.replace(_port_cfg(jax_get_config("internvl2-76b")),
+                                family="bogus")
+    with pytest.raises(NotImplementedError, match="bogus"):
+        transformer.init_cache(bogus, 1, 8, device=CPU)
 
 
 # --------------------------------------------------------------------------

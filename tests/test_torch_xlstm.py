@@ -145,7 +145,7 @@ def _batches(toks):
 # --------------------------------------------------------------------------
 
 def test_registry_has_xlstm_as_the_reference():
-    assert "xlstm-1.3b" in list_configs() and len(list_configs()) == 12
+    assert "xlstm-1.3b" in list_configs() and len(list_configs()) == 13
     for name in ("xlstm-1.3b", ARCH):
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
             jax_get_config(name))

@@ -131,8 +131,8 @@ def test_registry_has_every_dense_config_of_the_reference():
     assert set(names) <= set(list_configs())
     # and mixtral-8x22b (test_torch_moe), deepseek-v2-236b (test_torch_mla),
     # zamba2-7b (test_torch_hybrid), xlstm-1.3b (test_torch_xlstm),
-    # whisper-medium (test_torch_encdec)
-    assert len(list_configs()) == 12
+    # whisper-medium (test_torch_encdec), internvl2-76b (test_torch_vlm)
+    assert len(list_configs()) == 13
     for name in names:
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
             jax_get_config(name))
@@ -143,15 +143,16 @@ def test_registry_has_every_dense_config_of_the_reference():
             g.head_dim) == (2, 1, 64, 64)
 
 
-# the dense, MoE (MLA included), hybrid, ssm and encdec families run in the
-# port; the other is refused by its family's name
-@pytest.mark.parametrize("name,family", [("internvl2-76b", "vlm")],
+# every family of the reference runs in the port (the vlm one since
+# internvl2-76b's slice); a family the reference does not have is refused by
+# its name
+@pytest.mark.parametrize("name,family", [("internvl2-76b", "bogus")],
                          ids=["internvl2-76b"])
 def test_other_families_stay_refused(name, family):
     cfg = jax_get_config(name)
-    assert cfg.family == family
+    check_supported(_port_cfg(cfg))
     with pytest.raises(NotImplementedError, match=family):
-        check_supported(_port_cfg(cfg))
+        check_supported(_port_cfg(dataclasses.replace(cfg, family=family)))
 
 
 @pytest.mark.parametrize("arch", ARCHS + ["zamba2-7b-smoke",
