@@ -2550,7 +2550,7 @@ def identity_fedex(torch, trainer, outcome, old, keys):
     return worst
 
 
-def identity_sampled(torch, trainer, outcome, old, keys):
+def identity_sampled(torch, trainer, outcome, old, keys, tag="zoo-fold"):
     """The zoo's weighted close on the first and the last stacked layer of
     each adapted leaf (gemma3's local leaves: (0, 0) and (nper − 1, ratio −
     1); phase 10's the matrices of :func:`moe_snapshot`, raw expert leaves
@@ -2564,7 +2564,7 @@ def identity_sampled(torch, trainer, outcome, old, keys):
         for idx, w0_old in old[0][key].items():
             ai, bi = a[(slice(None), *idx)], b[(slice(None), *idx)]
             worst = max(worst, _report(
-                "zoo-fold", f"{key}{list(idx)}", new[idx],
+                tag, f"{key}{list(idx)}", new[idx],
                 fedex_fold_plain(w0_old, ai, bi, s, w),
                 fold_error_bound(w0_old, ai, bi, s, w),
                 float((new[idx] - w0_old).abs().max())))
@@ -4940,8 +4940,8 @@ class route_log:
         torch = self.mod.torch
         self.saved = self.mod.router_topk
 
-        def logged(cfg, rp, x):
-            w, idx, aux = self.saved(cfg, rp, x)
+        def logged(cfg, rp, x, lanes=None):
+            w, idx, aux = self.saved(cfg, rp, x, lanes)
             if not (self.light and self.replay is None):
                 k = cfg.num_experts_per_tok
                 probs = torch.softmax(torch.matmul(x, rp["kernel"]).float(),
@@ -5256,13 +5256,14 @@ def moe_layer_check(torch, kernels, device, cfg, params, lora, scale,
     return worst
 
 
-def moe_snapshot(trainer):
+def moe_snapshot(trainer, specs=None, params=None):
     """W0's copy for the identity check: the first and the last layer of
     each attention leaf; experts 0 and E − 1 of the first and the last
-    layer of each expert leaf."""
+    layer of each expert leaf (of ``specs`` and ``params``, by default the
+    trainer's engine's and its own)."""
     out = {}
-    for s in trainer.engine.specs:
-        w0 = _w0(_node(trainer.params, s.key))
+    for s in specs or trainer.engine.specs:
+        w0 = _w0(_node(trainer.params if params is None else params, s.key))
         lead = w0.shape[:-2]
         idx = list(itertools.product(*[(0, n - 1) for n in lead]))
         out[s.key] = {i: w0[i].clone() for i in idx}
@@ -5412,6 +5413,296 @@ def moe_train(torch, kernels, device, cfg, scale, tag="moe", lcfg=None,
              "rounds": [{k: v for k, v in row.items()
                          if k != "client_losses"} for row in rows]}
     return trainer, stats, launches
+
+
+# The mesh round of phases 10–14 (``mesh-<arch>``): 2 lanes of batch 8 ×
+# seq 64 folded into one batch of 16 rows, 2 local steps, 1 round, example
+# weights, a 512-token data vocabulary
+MESH_FAMILY_RUN = {"clients": 2, "local_steps": 2, "batch": 8, "seq": 64,
+                   "data_vocab": 512}
+
+
+def dense_halves(dense):
+    """``models.common.dense`` summed over K in two halves: x₀W₀ +
+    s(x₀a₀)b + x₁W₁ + s(x₁a₁)b (+ bias), the same function rounded in
+    another order. Training through it is a second f32 evaluation of the
+    model; its distance from the first is the model's own f32 spread."""
+    def halves(x, params, lora=None, lora_scale=0.0):
+        k = x.shape[-1] // 2
+        parts = []
+        for rows in (slice(None, k), slice(k, None)):
+            lo = None if lora is None else {"a": lora["a"][..., rows, :],
+                                            "b": lora["b"]}
+            parts.append(dense(x[..., rows],
+                               {"kernel": params["kernel"][..., rows, :]},
+                               lo, lora_scale))
+        y = parts[0] + parts[1]
+        return y + params["bias"] if "bias" in params else y
+    return halves
+
+
+def family_mesh_run(torch, kernels, device, cfg, trainer, lcfg, tag,
+                    data=None, spread=False):
+    """Phases 10–14's ``mesh-<arch>`` run: the port's
+    MeshFederatedTrainer (``MESH_FAMILY_RUN``) on the phase's trained
+    params and global adapter, no second draw (its close folds into that
+    W0 in place, so the run comes after the phase's f32 serve).
+    ``data(loaders, evals)`` adds what the batches need (whisper's
+    frames). The counters are set to 0 just before ``run()`` and read just
+    after: one close, ``factor_mean`` 1 and ``fedex_fold`` one a leaf.
+
+    The round function is wrapped: timed, then each lane's losses and
+    adapters held against the host trainer's local step
+    (``make_local_step``) on that lane's client alone, from the same
+    global adapter and batches: losses rtol 1e-5, adapters within 1e-2
+    relative Frobenius and phase 7's AdamW separation bound 2·lr·steps·
+    lanes. ``spread`` (xlstm) adds 3 × the model's own f32 spread to each
+    bound: lane 0's host steps again through :func:`dense_halves`. A MoE
+    config's lanes' router aux losses (step 0, one folded forward) are
+    printed beside the host loss's aux on each lane's rows. The close is
+    wrapped: timed (host clock, synchronised), its launches counted, the
+    fold held on :func:`moe_snapshot`'s matrices of every leaf against the
+    plain fold within ``fold_error_bound`` (:func:`identity_sampled`); after
+    the run, B2's and B1's device ms from one replay of the close behind a
+    spin kernel. Returns (stats, launches)."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import FedConfig, TrainConfig
+    from repro_torch.core import engine as core_engine
+    from repro_torch.core.federated import make_local_step
+    from repro_torch.launch.mesh_train import MeshFederatedTrainer
+    from repro_torch.launch.train import build_federated_data
+    from repro_torch.models import build_model, common, transformer
+    from repro_torch.models.model import lanes_by_layer
+    from repro_torch.optim import init_adamw
+
+    run = MESH_FAMILY_RUN
+    c, steps = run["clients"], run["local_steps"]
+    _free(torch, device)
+    loaders, evals = build_federated_data(
+        run["data_vocab"], c, seq_len=run["seq"], batch_size=run["batch"],
+        device=device)
+    if data is not None:
+        loaders, evals = data(loaders, evals)
+    train_cfg = TrainConfig(learning_rate=5e-3, schedule="constant",
+                            total_steps=steps)
+    model = build_model(cfg)
+    mt = MeshFederatedTrainer(
+        model=model, lora_cfg=lcfg,
+        fed_cfg=FedConfig(num_clients=c, rounds=1, local_steps=steps,
+                          weighting="examples"),
+        train_cfg=train_cfg, client_loaders=loaders, eval_batches=evals,
+        seed=0, device=device, params=trainer.params,
+        global_lora=trainer.global_lora)
+    closer, cuda = mt.closer, device.type == "cuda"
+    keys = [s.key for s in closer.specs]
+    per_close = {"factor_mean": 1, "fedex_fold": len(keys)}
+    sep = 2 * train_cfg.learning_rate * steps * c
+    host_step = make_local_step(model, mt.scale, train_cfg)
+    row, closed = {"lanes": c, "leaves": len(keys)}, {}
+    round_fn, close = mt.round_fn, closer.close
+
+    def host_lane(params, start, batches, lrs, lane):
+        lora, opt, losses = start, init_adamw(start), []
+        for t, lr in enumerate(lrs):
+            lora, opt, loss, _ = host_step(
+                params, lora, opt, {k: v[lane, t] for k, v in
+                                    batches.items()}, lr)
+            losses.append(float(loss))
+        return _flat(lora), losses
+
+    def apart(losses, lanes, ref_losses, ref):
+        """(max rel loss gap, max rel Frobenius, max |Δ|) of a lane."""
+        loss = max(abs(x - y) / abs(y) for x, y in zip(losses, ref_losses))
+        fro = dif = 0.0
+        for p, x in ref.items():
+            d = (lanes[p] - x).float()
+            fro = max(fro, float(torch.linalg.norm(d)) / max(
+                float(torch.linalg.norm(x.float())), 1e-30))
+            dif = max(dif, float(d.abs().max()))
+        return loss, fro, dif
+
+    def checked_round(params, lora_stack, batches, lrs):
+        _sync(torch, device)
+        t = time.perf_counter()
+        out = round_fn(params, lora_stack, batches, lrs)
+        _sync(torch, device)
+        row["round_ms"] = (time.perf_counter() - t) * 1e3
+        stack, mesh_losses = _flat(out[0]), out[1].tolist()
+        worst, host_ms = [0.0, 0.0, 0.0], []
+        for lane in range(c):
+            start = _unflat({p: x[lane] for p, x in
+                             _flat(lora_stack).items()})
+            _sync(torch, device)
+            t = time.perf_counter()
+            ref, ref_losses = host_lane(params, start, batches, lrs, lane)
+            _sync(torch, device)
+            host_ms.append((time.perf_counter() - t) * 1e3)
+            gaps = apart(mesh_losses[lane], {p: x[lane] for p, x in
+                                             stack.items()},
+                         ref_losses, ref)
+            worst = [max(w, g) for w, g in zip(worst, gaps)]
+            if lane == 0 and spread:
+                plain = common.dense
+                common.dense = dense_halves(plain)
+                try:
+                    halves = host_lane(params, start, batches, lrs, 0)
+                finally:
+                    common.dense = plain
+                row["spread"] = apart(halves[1], halves[0], ref_losses,
+                                      ref)
+        row.update(host_lane_ms=host_ms, apart=worst)
+        own = row.get("spread", (0.0, 0.0, 0.0))
+        bounds = [1e-5 + 3 * own[0], 1e-2 + 3 * own[1], sep + 3 * own[2]]
+        ok = all(w <= b for w, b in zip(worst, bounds))
+        print(f"  [mesh] {cfg.name} lanes against the host's local steps "
+              f"(each lane's client alone, same start and batches): max "
+              f"rel loss {worst[0]:.3e} (≤ {bounds[0]:.3e}), adapters max "
+              f"rel Frobenius {worst[1]:.3e} (≤ {bounds[1]:.3e}), max |Δ| "
+              f"{worst[2]:.3e} (≤ {bounds[2]:.3e})"
+              + (f"; own f32 spread {own[0]:.3e} / {own[1]:.3e} / "
+                 f"{own[2]:.3e} (bounds + 3 ×)" if spread else "")
+              + f"; within={ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"mesh-{tag}: the lanes part from the "
+                                 f"host steps: {worst} > {bounds}")
+        if cfg.family == "moe":
+            first = {k: v[:, 0].reshape(-1, *v.shape[3:])
+                     for k, v in batches.items()}
+            with torch.no_grad():
+                _, aux = transformer.forward(
+                    cfg, params, first["tokens"], lora=lanes_by_layer(
+                        lora_stack)[1], lora_scale=mt.scale, with_aux=True,
+                    lanes=c)
+                host_aux = [float(model.loss(
+                    params, {k: v[lane, 0] for k, v in batches.items()},
+                    lora=_unflat({p: x[lane] for p, x in
+                                  _flat(lora_stack).items()}),
+                    lora_scale=mt.scale)[1]["aux_loss"]) for lane in range(c)]
+            row["aux"], row["host_aux"] = aux.tolist(), host_aux
+            gap = max(abs(x - y) / abs(y) for x, y in zip(row["aux"],
+                                                          host_aux))
+            print(f"  [mesh] {cfg.name} each lane's router aux (step 0): "
+                  f"{[f'{x:.6e}' for x in row['aux']]}, the host loss's on "
+                  f"its rows {[f'{x:.6e}' for x in host_aux]}; max rel "
+                  f"{gap:.3e} (≤ 1e-5)", flush=True)
+            if gap > 1e-5:
+                raise AssertionError(f"mesh-{tag}: a lane's aux parts from "
+                                     "the host's")
+        return out
+
+    def checked_close(params, stacks, ids, weights=None, *, round_id=None):
+        old = moe_snapshot(None, closer.specs, params)
+        before = kernels.launch_counts()
+        _sync(torch, device)
+        t = time.perf_counter()
+        new_glob, new_params, div = close(params, stacks, ids, weights,
+                                          round_id=round_id)
+        _sync(torch, device)
+        row["close_ms"] = (time.perf_counter() - t) * 1e3
+        after = kernels.launch_counts()
+        row["launches"] = {k: after[k] - before[k] for k in after
+                           if after[k] != before[k]}
+        w, _ = closer.weight_vector(ids, weights)
+        outcome = SimpleNamespace(
+            delivered=[SimpleNamespace(lora=_unflat(
+                {p: x[i] for p, x in stacks.items()})) for i in ids],
+            weights=[float(w[i]) for i in ids])
+        view = SimpleNamespace(scale=mt.scale, global_lora=new_glob,
+                               params=new_params, device=device)
+        row.update(ids=list(ids), weights=outcome.weights,
+                   fold_err=identity_sampled(torch, view, outcome, [old],
+                                             keys, tag=f"mesh-{tag}"))
+        closed.update(stacks=stacks, w=w)
+        return new_glob, new_params, div
+
+    def close_device_ms():
+        """B2's and B1's device ms at the close's shapes: the round's
+        close replayed once more into the W0 it folded (which the phase
+        frees next), queued behind a spin kernel so that no host gap lands
+        inside a pair of CUDA events around each launch (one retry with a
+        longer spin; None where the spin ended first). These launches are
+        not the run's."""
+        from repro_torch.core.engine import collect_w0_leaves
+
+        names = {"factor_mean": "factor_mean_group",
+                 "fedex_fold": "fedex_fold"}
+        plain = {k: getattr(core_engine, v) for k, v in names.items()}
+        w = torch.from_numpy(closed["w"]).to(device)
+        spin_s = min(2 * row["close_ms"] / 1e3 + 2e-3, 0.2)
+        for _ in range(2):
+            events = {k: [] for k in names}
+
+            def evented(name):
+                def launch(*args, **kw):
+                    pair = [torch.cuda.Event(enable_timing=True)
+                            for _ in range(2)]
+                    pair[0].record()
+                    res = plain[name](*args, **kw)
+                    pair[1].record()
+                    events[name].append(pair)
+                    return res
+                return launch
+
+            torch.cuda.synchronize()
+            torch.cuda._sleep(int(spin_s * Timer.CYCLES_PER_S))
+            gate = torch.cuda.Event()
+            gate.record()
+            for k, v in names.items():
+                setattr(core_engine, v, evented(k))
+            try:
+                closer._close(collect_w0_leaves(closer.specs, mt.params),
+                              closed["stacks"], w, (w > 0).float(),
+                              uniform=False)
+            finally:
+                for k, v in names.items():
+                    setattr(core_engine, v, plain[k])
+            queued = not gate.query()
+            torch.cuda.synchronize()
+            if queued:
+                return {k: sum(a.elapsed_time(b) for a, b in v)
+                        for k, v in events.items()}
+            spin_s *= 4
+        return {k: None for k in names}
+
+    mt.round_fn, closer.close = checked_round, checked_close
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    hist = mt.run()
+    _sync(torch, device)
+    row["run_s"] = time.perf_counter() - t
+    counts = check_launches(kernels, f"mesh-{tag}", per_close,
+                            f" for one weighted close of {len(keys)} leaves")
+    if cuda and row["launches"] != per_close:
+        raise AssertionError(f"mesh-{tag}: the close launched "
+                             f"{row['launches']}, not {per_close}")
+    row["device_ms"] = (close_device_ms() if cuda else
+                        {"factor_mean": None, "fedex_fold": None})
+    rec = hist[-1]
+    values = [rec.eval_loss, rec.divergence_scaled, *rec.client_losses]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"mesh-{tag}: non-finite values: {values}")
+    row.update(peak_gib=(torch.cuda.max_memory_allocated() / 2 ** 30
+                         if cuda else 0.0), eval_loss=rec.eval_loss,
+               divergence=rec.divergence_scaled)
+    dev = row["device_ms"]
+    print(f"  [mesh] {cfg.name} (mesh-{tag}): {c} lanes × batch "
+          f"{run['batch']} × seq {run['seq']}, {steps} local steps, lanes "
+          f"{row['ids']} at weights {[f'{x:.4f}' for x in row['weights']]};"
+          f" training round {row['round_ms']:.1f} ms (the host's lanes "
+          f"{[f'{x:.1f}' for x in row['host_lane_ms']]} ms), close "
+          f"{row['close_ms']:.2f} ms; device: B2 factor_mean "
+          f"{fmt_ms(dev['factor_mean'])} × {counts['factor_mean']}, B1 "
+          f"fedex_fold {fmt_ms(dev['fedex_fold'])} × "
+          f"{counts['fedex_fold']}; "
+          f"fold max err {row['fold_err']:.3e}; eval_loss "
+          f"{rec.eval_loss:.4f}, divergence {rec.divergence_scaled:.3e}; "
+          f"peak {row['peak_gib']:.2f} GiB; "
+          f"{smi_line() if cuda else 'no card'}", flush=True)
+    del mt
+    return row, {k: counts[k] for k in per_close}
 
 
 def _moe_expect(kernels, name, b3, flash, dtype, tc=None):
@@ -5730,8 +6021,9 @@ def moe_phase(torch, kernels, device):
     """Phase 10: mixtral-8x22b at full width. The kernels at its shapes
     (:func:`moe_kernel_phase`); training at the f32 depth cut
     (:func:`moe_train`, after one layer against the dense oracle) and the
-    f32 serve of its folded W0 and global adapter (:func:`moe_serve`); that
-    state freed, the bf16 serve at the bf16 depth cut (:func:`moe_bf16`).
+    f32 serve of its folded W0 and global adapter (:func:`moe_serve`), then
+    a 2-lane mesh round on them (:func:`family_mesh_run`); that state
+    freed, the bf16 serve at the bf16 depth cut (:func:`moe_bf16`).
     Returns (max errors of the f32 cases, of the bf16 cases, timings,
     launches, bf16 launches, stats)."""
     from dataclasses import replace
@@ -5753,12 +6045,17 @@ def moe_phase(torch, kernels, device):
                                              scale)
     for k, v in got.items():
         launches[k] += v
+    lcfg = LoRAConfig(rank=r, alpha=8.0, lora_experts=True)
     served, got, *_ = moe_serve(
         torch, kernels, device, cfg, trainer.params, trainer.global_lora,
-        LoRAConfig(rank=r, alpha=8.0, lora_experts=True))
+        lcfg)
     for k, v in got.items():
         launches[k] += v
     stats["f32"] = dict(served, seconds=time.perf_counter() - t1)
+    stats["mesh"], got = family_mesh_run(torch, kernels, device, cfg,
+                                         trainer, lcfg, "moe")
+    for k, v in got.items():
+        launches[k] += v
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -5770,7 +6067,8 @@ def moe_phase(torch, kernels, device):
     print(f"  [moe] phase 10 in {stats['seconds']:.1f} s; peak memory: "
           f"kernels {stats['kernels_peak_gib']:.2f} GiB, f32 training "
           f"{stats['train']['train_peak_gib']:.2f} GiB, f32 serve "
-          f"{stats['f32']['peak_gib']:.2f} GiB, bf16 serve "
+          f"{stats['f32']['peak_gib']:.2f} GiB, mesh round "
+          f"{stats['mesh']['peak_gib']:.2f} GiB, bf16 serve "
           f"{stats['bf16']['peak_gib']:.2f} GiB", flush=True)
     return errs, bf16_errs, timings, launches, bf16, stats
 
@@ -6382,8 +6680,9 @@ def mla_phase(torch, kernels, device):
     (:func:`moe_train`: fedex with per-expert adapters, after one MoE block
     against the dense oracle and one MLA + MoE layer's kernel path against
     its plain path) and the f32 serve of its folded W0 and global adapter
-    (:func:`mla_serve`); that state freed, the bf16 serve at the bf16
-    depth cut (:func:`mla_bf16`). Returns (max errors of the f32 cases, of
+    (:func:`mla_serve`), then a 2-lane mesh round on them
+    (:func:`family_mesh_run`); that state freed, the bf16 serve at the
+    bf16 depth cut (:func:`mla_bf16`). Returns (max errors of the f32 cases, of
     the bf16 cases, timings, launches, bf16 launches, stats)."""
     from dataclasses import replace
 
@@ -6405,12 +6704,17 @@ def mla_phase(torch, kernels, device):
     for k, v in got.items():
         launches[k] += v
     # only the stats and launches: the rest holds the f32 tree
+    lcfg = LoRAConfig(rank=r, alpha=8.0, lora_experts=True)
     served, got = mla_serve(
         torch, kernels, device, cfg, trainer.params, trainer.global_lora,
-        LoRAConfig(rank=r, alpha=8.0, lora_experts=True))[:2]
+        lcfg)[:2]
     for k, v in got.items():
         launches[k] += v
     stats["f32"] = dict(served, seconds=time.perf_counter() - t1)
+    stats["mesh"], got = family_mesh_run(torch, kernels, device, cfg,
+                                         trainer, lcfg, "mla")
+    for k, v in got.items():
+        launches[k] += v
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -6422,7 +6726,8 @@ def mla_phase(torch, kernels, device):
     print(f"  [mla] phase 11 in {stats['seconds']:.1f} s; peak memory: "
           f"kernels {stats['kernels_peak_gib']:.2f} GiB, f32 training "
           f"{stats['train']['train_peak_gib']:.2f} GiB, f32 serve "
-          f"{stats['f32']['peak_gib']:.2f} GiB, bf16 serve "
+          f"{stats['f32']['peak_gib']:.2f} GiB, mesh round "
+          f"{stats['mesh']['peak_gib']:.2f} GiB, bf16 serve "
           f"{stats['bf16']['peak_gib']:.2f} GiB", flush=True)
     return errs, bf16_errs, timings, launches, bf16, stats
 
@@ -6824,7 +7129,8 @@ def hybrid_phase(torch, kernels, device):
     (:func:`moe_train` with adapters on in_proj, out_proj and the shared
     block's q/k/v/o: fedex, a uniform round, then a weighted one at 50%)
     and the f32 serve of its folded W0 and global adapter
-    (:func:`hybrid_serve`); that state freed, the bf16 serve from fresh
+    (:func:`hybrid_serve`), then a 2-lane mesh round on them
+    (:func:`family_mesh_run`); that state freed, the bf16 serve from fresh
     draws (:func:`hybrid_bf16`). Returns (max errors of the f32 cases, of
     the bf16 cases, timings, launches, bf16 launches, stats)."""
     from dataclasses import replace
@@ -6852,6 +7158,10 @@ def hybrid_phase(torch, kernels, device):
     for k, v in got.items():
         launches[k] += v
     stats["f32"] = dict(served, seconds=time.perf_counter() - t1)
+    stats["mesh"], got = family_mesh_run(torch, kernels, device, cfg,
+                                         trainer, lcfg, "zb")
+    for k, v in got.items():
+        launches[k] += v
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -6863,7 +7173,8 @@ def hybrid_phase(torch, kernels, device):
     print(f"  [zb] phase 12 in {stats['seconds']:.1f} s; peak memory: "
           f"kernels {stats['kernels_peak_gib']:.2f} GiB, f32 training "
           f"{stats['train']['train_peak_gib']:.2f} GiB, f32 serve "
-          f"{stats['f32']['peak_gib']:.2f} GiB, bf16 serve "
+          f"{stats['f32']['peak_gib']:.2f} GiB, mesh round "
+          f"{stats['mesh']['peak_gib']:.2f} GiB, bf16 serve "
           f"{stats['bf16']['peak_gib']:.2f} GiB", flush=True)
     return errs, bf16_errs, timings, launches, bf16, stats
 
@@ -7368,8 +7679,10 @@ def xlstm_phase(torch, kernels, device):
     shapes (:func:`xlstm_kernel_phase`); training in f32 (:func:`moe_train`
     with adapters on the 8 leaves: fedex, a uniform round, then a weighted
     one at 50%) and the f32 serve of its folded W0 and global adapter
-    (:func:`xlstm_serve`); that state freed, the bf16 serve from fresh
-    draws (:func:`xlstm_bf16`). Returns (max errors of the f32 cases, of
+    (:func:`xlstm_serve`), then a 2-lane mesh round on them
+    (:func:`family_mesh_run`, its lanes held within 3 × the model's own
+    f32 spread); that state freed, the bf16 serve from fresh draws
+    (:func:`xlstm_bf16`). Returns (max errors of the f32 cases, of
     the bf16 cases, timings, launches, bf16 launches, stats)."""
     from dataclasses import replace
 
@@ -7396,6 +7709,10 @@ def xlstm_phase(torch, kernels, device):
     for k, v in got.items():
         launches[k] += v
     stats["f32"] = dict(served, seconds=time.perf_counter() - t1)
+    stats["mesh"], got = family_mesh_run(torch, kernels, device, cfg,
+                                         trainer, lcfg, "xl", spread=True)
+    for k, v in got.items():
+        launches[k] += v
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -7407,7 +7724,8 @@ def xlstm_phase(torch, kernels, device):
     print(f"  [xl] phase 13 in {stats['seconds']:.1f} s; peak memory: "
           f"kernels {stats['kernels_peak_gib']:.2f} GiB, f32 training "
           f"{stats['train']['train_peak_gib']:.2f} GiB, f32 serve "
-          f"{stats['f32']['peak_gib']:.2f} GiB, bf16 serve "
+          f"{stats['f32']['peak_gib']:.2f} GiB, mesh round "
+          f"{stats['mesh']['peak_gib']:.2f} GiB, bf16 serve "
           f"{stats['bf16']['peak_gib']:.2f} GiB", flush=True)
     return errs, bf16_errs, timings, launches, bf16, stats
 
@@ -7822,8 +8140,9 @@ def whisper_phase(torch, kernels, device):
     weighted one at 50% with example weights, ``factor_mean`` 1 and
     ``fedex_fold`` 12, the exact-residual identity on every matrix of the
     12 leaves) and the f32 serve of its folded W0 and global adapter
-    (:func:`whisper_serve`); that state freed, the bf16 serve from fresh
-    draws (:func:`whisper_bf16`). Returns (max errors of the f32 cases, of
+    (:func:`whisper_serve`), then a 2-lane mesh round on them over loaders
+    that add frames (:func:`family_mesh_run`); that state freed, the bf16
+    serve from fresh draws (:func:`whisper_bf16`). Returns (max errors of the f32 cases, of
     the bf16 cases, timings, launches, bf16 launches, stats)."""
     from dataclasses import replace
 
@@ -7851,6 +8170,11 @@ def whisper_phase(torch, kernels, device):
     for k, v in got.items():
         launches[k] += v
     stats["f32"] = dict(served, seconds=time.perf_counter() - t1)
+    stats["mesh"], got = family_mesh_run(
+        torch, kernels, device, cfg, trainer, lcfg, "wh",
+        data=whisper_data(torch, device, cfg, seed=1))
+    for k, v in got.items():
+        launches[k] += v
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
@@ -7863,7 +8187,8 @@ def whisper_phase(torch, kernels, device):
     print(f"  [wh] phase 14 in {stats['seconds']:.1f} s; peak memory: "
           f"kernels {stats['kernels_peak_gib']:.2f} GiB, f32 training "
           f"{stats['train']['train_peak_gib']:.2f} GiB, f32 serve "
-          f"{stats['f32']['peak_gib']:.2f} GiB, bf16 serve "
+          f"{stats['f32']['peak_gib']:.2f} GiB, mesh round "
+          f"{stats['mesh']['peak_gib']:.2f} GiB, bf16 serve "
           f"{stats['bf16']['peak_gib']:.2f} GiB", flush=True)
     return errs, bf16_errs, timings, launches, bf16, stats
 
@@ -9303,9 +9628,10 @@ def main() -> int:
         bf16_phase(torch, kernels, device)
     for k, v in bf16_main_launches.items():
         launches[k] += v
-    print(f"[10/16] the MoE family: {MOE} at full width, trained and served "
-          f"in f32 at depth {MOE_DEPTH['float32']} and served in bf16 at "
-          f"depth {MOE_DEPTH['bfloat16']} (cuts of 56)", flush=True)
+    print(f"[10/16] the MoE family: {MOE} at full width, trained (host, then "
+          f"a 2-lane mesh round) and served in f32 at depth "
+          f"{MOE_DEPTH['float32']} and served in bf16 at depth "
+          f"{MOE_DEPTH['bfloat16']} (cuts of 56)", flush=True)
     (moe_errs, moe_bf16_errs, moe_timings, moe_launches, moe_bf16,
      moe_stats) = moe_phase(torch, kernels, device)
     for k, v in moe_errs.items():
@@ -9313,8 +9639,9 @@ def main() -> int:
     for k, v in moe_launches.items():
         launches[k] += v
     print(f"[11/16] Multi-head Latent Attention on the MoE stack: {DS} at "
-          f"full width, trained and served in f32 at depth "
-          f"{DS_DEPTH['float32']} and served in bf16 at depth "
+          f"full width, trained (host, then a 2-lane mesh round) and "
+          f"served in f32 at depth {DS_DEPTH['float32']} and served in "
+          f"bf16 at depth "
           f"{DS_DEPTH['bfloat16']} (1 dense + MoE layers, cuts of 60)",
           flush=True)
     (mla_errs, mla_bf16_errs, mla_timings, mla_launches, mla_bf16,
@@ -9325,7 +9652,8 @@ def main() -> int:
         launches[k] += v
     print(f"[12/16] the hybrid family: {ZB} at full width and depth "
           f"({ZB_DEPTH['float32']} Mamba2 layers, the shared block every "
-          "6), trained and served in f32, served in bf16", flush=True)
+          "6), trained (host, then a 2-lane mesh round) and served in f32, "
+          "served in bf16", flush=True)
     (zb_errs, zb_bf16_errs, zb_timings, zb_launches, zb_bf16,
      zb_stats) = hybrid_phase(torch, kernels, device)
     for k, v in zb_errs.items():
@@ -9334,7 +9662,8 @@ def main() -> int:
         launches[k] += v
     print(f"[13/16] the ssm family: {XL} at full width and depth "
           f"({XL_DEPTH['float32']} blocks, 6 periods of 7 mLSTM + 1 sLSTM), "
-          "trained and served in f32, served in bf16", flush=True)
+          "trained (host, then a 2-lane mesh round) and served in f32, "
+          "served in bf16", flush=True)
     (xl_errs, xl_bf16_errs, xl_timings, xl_launches, xl_bf16,
      xl_stats) = xlstm_phase(torch, kernels, device)
     for k, v in xl_errs.items():
@@ -9342,8 +9671,9 @@ def main() -> int:
     for k, v in xl_launches.items():
         launches[k] += v
     print(f"[14/16] the encdec family: {WH} at full width and depth "
-          "(24 encoder + 24 decoder layers over 1500 frames), trained and "
-          "served in f32, served in bf16", flush=True)
+          "(24 encoder + 24 decoder layers over 1500 frames), trained "
+          "(host, then a 2-lane mesh round) and served in f32, served in "
+          "bf16", flush=True)
     (wh_errs, wh_bf16_errs, wh_timings, wh_launches, wh_bf16,
      wh_stats) = whisper_phase(torch, kernels, device)
     for k, v in wh_errs.items():
@@ -9360,6 +9690,16 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in vl_launches.items():
         launches[k] += v
+    mesh_fields = {"factor_mean": {}, "fedex_fold": {}}
+    # the mesh round of phases 10–14: each close's B2 and B1 launches and
+    # device ms (CUDA events around each launch)
+    for key, st in (("mixtral", moe_stats), ("ds", mla_stats),
+                    ("zb", zb_stats), ("xl", xl_stats), ("wh", wh_stats)):
+        mesh_row = st["mesh"]
+        for name in ("factor_mean", "fedex_fold"):
+            mesh_fields[name].update({
+                f"{key}_mesh_launches": mesh_row["launches"].get(name, 0),
+                f"{key}_mesh_device_ms": mesh_row["device_ms"][name]})
     main_body = {**timings["weighted-partial"], **lane_timings,
                  "lora_matmul": serve_timings["lora_matmul[prefill]"],
                  "flash_swa": serve_timings["flash_swa[prefill]"]}
@@ -9371,6 +9711,8 @@ def main() -> int:
                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain,
                     "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
                     "device_ms": dev, "library_device_ms": dev_lib})
+    for name, fields in mesh_fields.items():
+        out[list(SOURCES).index(name)].update(fields)
     # B2's launch path: one close's means (µs, host clock)
     out[list(SOURCES).index("factor_mean")].update({
         "close_wall_us": cost["factor_mean"]["wall_us"],

@@ -11,8 +11,11 @@ every client is a *lane* of one stacked program, and lane c is client c:
   engine's layout (``(C, L, m, r)`` and ``(C, L, r, n)``), one forward and
   backward runs over the tokens ``(C·B, S)`` with lane c owning rows
   ``[c·B, (c+1)·B)``, every adapted projection applies lane c's factors to
-  lane c's rows (:func:`repro_torch.models.common.dense`), and the loss is
-  the sum of the lanes' mean losses. Lanes share no trainable tensor, so
+  lane c's rows (:func:`repro_torch.models.common.dense`; a MoE layer's
+  per-expert factors lane by lane in each expert's group, its router aux
+  loss each lane's own), and the loss is the sum of the lanes' mean
+  losses. Every batch key is folded alike (an encdec config's frames).
+  Lanes share no trainable tensor, so
   the one backward gives every lane exactly its own gradient; the clip is
   by each lane's own norm (:func:`repro_torch.optim.clip_by_lane_norm`) and
   AdamW runs on the stacks as they are.
@@ -244,35 +247,17 @@ RING_DEPTH, RETRIES, EVERY = (
     for k in ("ring_depth", "uplink_retries", "checkpoint_every"))
 
 
-def check_mesh_supported(fed: FedConfig, cfg=None) -> None:
-    """Raise ``NotImplementedError`` for a MoE model config ``cfg``, named:
-    the reference maps each lane's loss, router aux loss included, over the
-    lanes, where the port's one folded forward would pool the aux; and for
-    a hybrid or an ssm (xLSTM) one, named (their stacks, and the hybrid
-    shared block's adapter, have no lane layout yet; host mode trains
-    them); and for an encdec (whisper) one, named (no lane layout for its
-    stacks, and mesh mode's loaders yield tokens only where its batches
-    need frames). A dense or vlm config runs (a vlm one as a text-only
-    LM over the lanes' tokens, as the reference's mesh mode trains it).
-    Raise ``ValueError`` for a setting mesh mode cannot honour (the
+def check_mesh_supported(fed: FedConfig) -> None:
+    """Raise ``ValueError`` for a setting mesh mode cannot honour (the
     reference warns and ignores them): the host-orchestrated methods, the
     coordinator's and the transport's settings, DP, client ranks, the
     engine's tuning, checkpoints, fault kinds outside
     :data:`~repro_torch.fedsrv.faults.MESH_KINDS` (co-scheduled lanes cross
     no wire), and a norm ceiling without a fault plan (the reference screens
-    the lanes only under a plan)."""
-    if cfg is not None and cfg.family == "moe":
-        raise NotImplementedError(
-            f"--mode mesh does not run the MoE config {cfg.name!r} (each "
-            "lane's router aux loss; host mode trains it)")
-    if cfg is not None and cfg.family in ("hybrid", "ssm"):
-        raise NotImplementedError(
-            f"--mode mesh does not run the {cfg.family} config "
-            f"{cfg.name!r} yet (host mode trains it)")
-    if cfg is not None and cfg.family == "encdec":
-        raise NotImplementedError(
-            f"--mode mesh does not run the encdec config {cfg.name!r}: its "
-            "batches need frames, which the federated loaders do not carry")
+    the lanes only under a plan). Every model family runs, as in the
+    reference: a MoE config with each lane's own router aux loss, an encdec
+    one on loaders whose batches carry frames (the trainer stacks every
+    batch key), a vlm one as a text-only LM on tokens-only loaders."""
     if fed.method not in MESH_METHODS:
         raise ValueError(f"--mode mesh supports {MESH_METHODS}, "
                          f"got method={fed.method!r}")
@@ -338,7 +323,7 @@ class MeshFederatedTrainer:
 
     def __post_init__(self):
         fc = self.fed_cfg
-        check_mesh_supported(fc, self.model.cfg)
+        check_mesh_supported(fc)
         validate_fed_lora(fc, self.lora_cfg)
         self.device = resolve_device(self.device)
         if self.recorder is None:

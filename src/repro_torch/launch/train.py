@@ -25,7 +25,8 @@ quarantined and dropped buckets and each round's quarantined or dropped
 An encdec config (whisper-medium) is refused in host and mesh mode by name:
 the federated loaders yield tokens only and its batches need frames (the
 reference fails there with ``KeyError: 'frames'``); a caller that supplies
-frames trains it through ``FederatedTrainer`` directly. A vlm config
+frames trains it through ``FederatedTrainer`` or ``MeshFederatedTrainer``
+directly. A vlm config
 (internvl2-76b) trains in host and mesh mode as the reference's launcher
 trains it: a text-only LM over the loaders' tokens (no ``vision_embeds``
 in the batches; its ``vision_proj`` carries no adapter).
@@ -42,7 +43,8 @@ over HTTP.
 (:mod:`repro_torch.launch.mesh_train`): every client is a lane of one
 stacked training round, and every round closes through the engine's
 weighted close (the kernels on the GPU), for ``--method fedex`` and
-``fedex_svd``, with ``--participation``, ``--weighting``,
+``fedex_svd``, for every family the launcher trains (dense, MoE, hybrid,
+ssm, vlm), with ``--participation``, ``--weighting``,
 ``--client-local-steps`` (lane c freezes after its budget), ``--faults`` of
 the value kinds (nan, inf, scale), ``--uplink-max-norm`` with such a plan,
 and ``--obs``. A setting it cannot honour (the host-only flags: the
@@ -403,13 +405,14 @@ def main(argv=None) -> None:
     if args.resume and not args.checkpoint_dir:
         ap.error("--resume requires --checkpoint-dir")
     cfg = get_config(args.arch)
-    if args.mode == "host" and cfg.family == "encdec":
+    if args.mode in ("host", "mesh") and cfg.family == "encdec":
         # the reference's loaders yield tokens only, and its loss then
         # fails with KeyError: 'frames'; a caller that supplies frames
-        # trains whisper through FederatedTrainer itself
+        # trains whisper through FederatedTrainer or MeshFederatedTrainer
         raise NotImplementedError(
-            f"--mode host does not run the encdec config {cfg.name!r}: its "
-            "batches need frames, which the federated loaders do not carry")
+            f"--mode {args.mode} does not run the encdec config "
+            f"{cfg.name!r}: its batches need frames, which the federated "
+            "loaders do not carry")
     if args.vocab:
         cfg = replace(cfg, vocab_size=args.vocab)
     cfg = replace(cfg, dtype=args.dtype)

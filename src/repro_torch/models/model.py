@@ -7,14 +7,16 @@ lora=…) → logits`` (``with_aux=True``: ``(logits, aux)``, the reference's
 return), ``loss(params, batch, lora=…) → (scalar, metrics)`` (a MoE
 config's scalar is CE + the router aux loss, with ``metrics["aux_loss"]``),
 ``lane_loss(params, batch, lora=…) → (C,)`` for lane-stacked adapters
-(mesh mode), and for serving ``init_cache(batch_size, cache_len, dtype, device) →
+(mesh mode; every family, a MoE config's each lane's CE plus its own
+router aux loss), and for serving ``init_cache(batch_size, cache_len, dtype, device) →
 cache``,
 ``prefill(params, batch, cache, lora=…) → (logits, cache)`` and
 ``decode_step(params, tokens, cache, position, lora=…) → (logits, cache)``.
 An encdec config (whisper) reads ``batch["frames"]`` (B, enc_seq_len,
 d_model) beside the tokens in ``apply``, ``loss`` and ``prefill`` (its
 loss is the CE alone; ``with_aux`` gives a zero aux, as the reference's);
-``decode_step`` reads no frames. A vlm config (internvl2) reads
+``decode_step`` reads no frames; its ``lane_loss`` folds frames and
+tokens lane-major alike. A vlm config (internvl2) reads
 ``batch.get("vision_embeds")`` (B, Vt, d_model) in ``apply`` and
 ``prefill``, the stubbed ViT's patch embeddings, which the model prepends
 to the tokens; when a batch carries them, ``loss`` and ``lane_loss`` score
@@ -26,7 +28,7 @@ text-only LM; ``decode_step`` reads tokens only.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable
+from typing import Any, Callable, Tuple
 
 import torch
 
@@ -47,13 +49,42 @@ class Model:
     decode_step: Callable
 
 
-# leading stacked layer axes of an adapter leaf under each prefix
-STACKED_AXES = {"layers/": 1, "periods/local/": 2, "periods/global/": 1}
+# leading stacked layer axes of an adapter leaf under each prefix (a
+# leaf under none, as zamba2's ``shared_attn/``, has no layer axis)
+STACKED_AXES = {"layers/": 1, "dense_layers/": 1, "periods/local/": 2,
+                "periods/global/": 1, "periods/mlstm/": 2,
+                "periods/slstm/": 1, "mamba_layers/": 2,
+                "mamba_trailing/": 1, "encoder/": 1, "decoder/": 1}
 
 
 def _stacked_axes(path: str) -> int:
     return next((n for prefix, n in STACKED_AXES.items()
                  if path.startswith(prefix)), 0)
+
+
+def lanes_by_layer(lora) -> Tuple[int, Any]:
+    """(C, the tree) of a lane-stacked adapter tree in the engine's layout
+    (``(C, L, m, r)`` under ``layers``, ``(C, nper, ratio, m, r)`` under
+    ``periods/local``, ``(C, m, r)`` under no stacked prefix, …) with each
+    leaf's lane axis moved behind its stacked layer axes, so that a layer
+    slices ``(C, m, r)`` (a per-expert leaf ``(C, E, m, r)``)."""
+    flat = flatten_with_paths(lora)
+    c = next(iter(flat.values())).shape[0]
+    return c, unflatten_from_paths({
+        p: x.movedim(0, _stacked_axes(p)) for p, x in flat.items()})
+
+
+def _lane_ce(logits, batch, c: int) -> torch.Tensor:
+    """Each lane's mean CE, (C,): lane c owns rows ``[c·B, (c+1)·B)``."""
+    logits = logits.reshape(c, -1, *logits.shape[1:])
+    targets = batch["targets"].reshape(c, -1, *batch["targets"].shape[1:])
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        mask = mask.reshape(c, -1, *mask.shape[1:])
+    return torch.stack([
+        cross_entropy(logits[i], targets[i],
+                      None if mask is None else mask[i])[0]
+        for i in range(c)])
 
 
 def build_model(cfg, moe_impl: str = "ragged") -> Model:
@@ -97,44 +128,18 @@ def build_model(cfg, moe_impl: str = "ragged") -> Model:
     def lane_loss(params, batch, lora, lora_scale=0.0):
         """Each lane's mean loss, (C,), from one forward over the folded
         batch: ``lora`` holds lane-stacked factors in the engine's layout
-        (``(C, L, m, r)`` under ``layers``, ``(C, nper, ratio, m, r)`` and
-        ``(C, nper, m, r)`` under ``periods/local`` and ``periods/global``,
-        ``(C, m, r)`` elsewhere) and lane c owns batch rows
-        ``[c·B, (c+1)·B)`` (a vlm batch's ``vision_embeds`` rows too;
-        its text positions scored only). A MoE config is refused: the
-        reference maps the loss, its router aux loss included, over the
-        lanes, and one folded forward would pool the aux over all of
-        them. A hybrid or an
-        ssm config is refused too: their stacks have no prefix in
-        ``STACKED_AXES`` (an ssm config's ``periods/mlstm`` and
-        ``periods/slstm`` are not gemma3's ``periods/local`` and
-        ``periods/global``), and the hybrid shared block's adapter (no
-        layer axis) no lane split yet."""
-        if moe:
-            raise NotImplementedError(
-                f"config {cfg.name!r}: mesh mode (lane_loss) does not run "
-                "the MoE family (each lane needs its own router aux loss)")
-        if cfg.family in ("hybrid", "ssm"):
-            raise NotImplementedError(
-                f"config {cfg.name!r}: mesh mode (lane_loss) does not run "
-                f"the {cfg.family} family yet")
-        flat = flatten_with_paths(lora)
-        c = next(iter(flat.values())).shape[0]
-        # the lane axis goes behind the stacked layer axes, so that a layer
-        # slices (C, m, r)
-        by_layer = unflatten_from_paths({
-            p: x.movedim(0, _stacked_axes(p)) for p, x in flat.items()})
-        logits = text_logits(apply(params, batch, lora=by_layer,
-                                   lora_scale=lora_scale), batch)
-        logits = logits.reshape(c, -1, *logits.shape[1:])
-        targets = batch["targets"].reshape(c, -1, *batch["targets"].shape[1:])
-        mask = batch.get("loss_mask")
-        if mask is not None:
-            mask = mask.reshape(c, -1, *mask.shape[1:])
-        return torch.stack([
-            cross_entropy(logits[i], targets[i],
-                          None if mask is None else mask[i])[0]
-            for i in range(c)])
+        (:func:`lanes_by_layer`) and lane c owns batch rows
+        ``[c·B, (c+1)·B)`` (a vlm batch's ``vision_embeds`` rows too; its
+        text positions scored only). A MoE config's loss is each lane's CE
+        plus that lane's own router aux loss, f and p̄ over its rows
+        alone, as the reference's loss mapped over the lanes."""
+        c, by_layer = lanes_by_layer(lora)
+        out = transformer.forward(
+            cfg, params, batch["tokens"], lora=by_layer,
+            lora_scale=lora_scale, moe_impl=moe_impl, with_aux=moe,
+            extra_embeds=batch.get("vision_embeds"), lanes=c)
+        ce = _lane_ce(text_logits(out[0] if moe else out, batch), batch, c)
+        return ce + out[1] if moe else ce
 
     def init_cache(batch_size, cache_len, dtype=torch.bfloat16,
                    device="cuda"):
@@ -184,13 +189,15 @@ def _build_encdec(cfg) -> Model:
         return ce, dict(metrics, total_loss=ce)
 
     def lane_loss(params, batch, lora, lora_scale=0.0):
-        """Refused: the encdec stacks (``encoder/``, ``decoder/``) have no
-        prefix in ``STACKED_AXES``, and mesh mode's loaders carry no
-        frames."""
-        raise NotImplementedError(
-            f"config {cfg.name!r}: mesh mode (lane_loss) does not run the "
-            "encdec family (no lane layout for its stacks; its batches need "
-            "frames)")
+        """Each lane's mean CE, (C,), from one pass of the encoder over the
+        folded frames and of the decoder over the folded tokens: lane c
+        owns rows ``[c·B, (c+1)·B)`` of both, its factors
+        (:func:`lanes_by_layer`) apply to them in every encoder and
+        decoder layer, its cross-attention reads its own frames'
+        encoding."""
+        c, by_layer = lanes_by_layer(lora)
+        return _lane_ce(apply(params, batch, lora=by_layer,
+                              lora_scale=lora_scale), batch, c)
 
     def init_cache(batch_size, cache_len, dtype=torch.bfloat16,
                    device="cuda"):

@@ -20,6 +20,14 @@ Two paths share one set of parameters:
 The aux loss is Switch/Mixtral's ``E · Σ_e f_e · p̄_e · coef``; it carries
 a gradient through p̄. Per-expert adapters (``LoRAConfig.lora_experts``)
 are ``{a: (E, d_in, r), b: (E, r, d_out)}`` on the raw expert tensors.
+
+Mesh mode's lanes (``lanes`` = C co-scheduled clients, the rows of x
+folded lane-major, T/C rows a lane): f and p̄ are taken over each lane's
+rows alone, so the aux loss is (C,), each lane's own (the reference maps
+the loss over the lanes). Per-expert adapters are then ``(C, E, d_in, r)``
+and ``(C, E, r, d_out)``: the ragged path splits each expert's group into
+its lanes' subgroups, the dense oracle carries a lane axis in its
+einsums.
 """
 
 from __future__ import annotations
@@ -61,13 +69,16 @@ def make_moe_params(gen, cfg, dtype, device, lead=()) -> Params:
     return p
 
 
-def router_topk(cfg, router_params: Params, x: torch.Tensor
+def router_topk(cfg, router_params: Params, x: torch.Tensor,
+                lanes: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (T, d) → (top-k weights (T, k) f32, expert indices (T, k), aux
     loss scalar). The logits are x's dtype cast to f32 (a bf16 model's are
     rounded to bf16 first, as the reference's), the softmax f32. Among equal
     probabilities the lower expert index comes first, as ``lax.top_k``
-    orders them (``torch.topk`` does not): a stable descending sort."""
+    orders them (``torch.topk`` does not): a stable descending sort. With
+    ``lanes`` the aux loss is (lanes,), each over its block of T/lanes
+    rows."""
     logits = torch.matmul(x, router_params["kernel"]).float()
     probs = torch.softmax(logits, dim=-1)
     k, e = cfg.num_experts_per_tok, cfg.num_experts
@@ -76,48 +87,65 @@ def router_topk(cfg, router_params: Params, x: torch.Tensor
     topk_w = topk_w / torch.clamp(topk_w.sum(-1, keepdim=True), min=1e-9)
     # load balance: E · Σ_e (share of the routed slots at e) · (mean prob e)
     one_hot = F.one_hot(topk_idx, e).float().sum(dim=1)  # (T, E)
-    f = one_hot.mean(dim=0) / k
-    pbar = probs.mean(dim=0)
-    aux = e * torch.sum(f * pbar) * cfg.router_aux_loss_coef
+    if lanes:
+        one_hot = one_hot.reshape(lanes, -1, e)
+        probs = probs.reshape(lanes, -1, e)
+    f = one_hot.mean(dim=-2) / k
+    pbar = probs.mean(dim=-2)
+    aux = e * torch.sum(f * pbar, dim=-1) * cfg.router_aux_loss_coef
     return topk_w, topk_idx, aux
 
 
-def _expert_adapter(lora: Optional[Params], name: str, g: int
-                    ) -> Optional[Params]:
+def _expert_adapter(lora: Optional[Params], name: str, g: int,
+                    lane: Optional[int] = None) -> Optional[Params]:
+    """Expert g's factors (lane ``lane``'s, under lanes)."""
     le = (lora or {}).get("experts") or {}
     if name not in le:
         return None
-    return {"a": le[name]["a"][g], "b": le[name]["b"][g]}
+    idx = g if lane is None else (lane, g)
+    return {"a": le[name]["a"][idx], "b": le[name]["b"][idx]}
+
+
+def _with_lanes(spec: str) -> str:
+    """An einsum spec with a leading lane axis on every operand and on the
+    output: ``"td,edr->ter"`` → ``"ctd,cedr->cter"``."""
+    ins, out = spec.split("->")
+    return ",".join("c" + x for x in ins.split(",")) + "->c" + out
 
 
 def _expert_ffn_dense(cfg, experts: Params, x: torch.Tensor,
                       w_full: torch.Tensor, lora: Optional[Params],
-                      lora_scale: float) -> torch.Tensor:
+                      lora_scale: float, lanes: Optional[int] = None
+                      ) -> torch.Tensor:
     """x (T, d), routing weights (T, E) → (T, d): every expert on every
     token, the weights applied to the hidden (T, E, ff) before the down
-    projection, which reduces over the experts."""
+    projection, which reduces over the experts. With ``lanes`` the expert
+    adapters are lane-stacked and lane c's apply to its block of rows."""
     le = (lora or {}).get("experts") or {}
 
-    def factors(name, dtype):
-        return le[name]["a"].to(dtype), le[name]["b"].to(dtype)
+    def term(inp, name, first, second):
+        """s·(inp@a)@b over the experts, ``first`` and ``second`` the two
+        products' einsum specs without a lane axis."""
+        a, b = (le[name][f].to(x.dtype) for f in ("a", "b"))
+        if not lanes:
+            return lora_scale * torch.einsum(
+                second, torch.einsum(first, inp, a), b)
+        lane = inp.reshape(lanes, -1, *inp.shape[1:])
+        out = torch.einsum(_with_lanes(second), torch.einsum(
+            _with_lanes(first), lane, a), b)
+        return lora_scale * out.reshape(-1, *out.shape[2:])
 
     up = torch.einsum("td,edf->tef", x, experts["up_proj"])
     gate = torch.einsum("td,edf->tef", x, experts["gate_proj"])
     if "up_proj" in le:
-        a, b = factors("up_proj", x.dtype)
-        up = up + lora_scale * torch.einsum(
-            "ter,erf->tef", torch.einsum("td,edr->ter", x, a), b)
+        up = up + term(x, "up_proj", "td,edr->ter", "ter,erf->tef")
     if "gate_proj" in le:
-        a, b = factors("gate_proj", x.dtype)
-        gate = gate + lora_scale * torch.einsum(
-            "ter,erf->tef", torch.einsum("td,edr->ter", x, a), b)
+        gate = gate + term(x, "gate_proj", "td,edr->ter", "ter,erf->tef")
     h = activation(cfg.act, gate) * up
     hw = h * w_full[..., None].to(h.dtype)  # routing-weighted (T, E, ff)
     y = torch.einsum("tef,efd->td", hw, experts["down_proj"])
     if "down_proj" in le:
-        a, b = factors("down_proj", x.dtype)
-        y = y + lora_scale * torch.einsum(
-            "ter,erd->td", torch.einsum("tef,efr->ter", hw, a), b)
+        y = y + term(hw, "down_proj", "tef,efr->ter", "ter,erd->td")
     return y
 
 
@@ -125,50 +153,68 @@ def _expert_ffn_ragged(cfg, experts: Params, x_sorted: torch.Tensor,
                        group_sizes: torch.Tensor, lora: Optional[Params],
                        lora_scale: float, fused: bool) -> torch.Tensor:
     """Rows sorted by expert, ``group_sizes`` (E,) → (T·k, d): expert g's
-    FFN on its contiguous rows, an empty group skipped."""
+    FFN on its contiguous rows, an empty group skipped. ``group_sizes``
+    (E, C) (lanes with per-expert adapters): expert g's rows are C
+    lane-major subgroups, lane c's through lane c's factors of expert
+    g."""
     out, start = [], 0
-    for g, n in enumerate(group_sizes.tolist()):  # the host sync
-        if not n:
-            continue
-        xg = x_sorted[start:start + n]
-        start += n
+    for g, sizes in enumerate(group_sizes.tolist()):  # the host sync
+        subgroups = (enumerate(sizes) if isinstance(sizes, list)
+                     else ((None, sizes),))
+        for lane, n in subgroups:
+            if not n:
+                continue
+            xg = x_sorted[start:start + n]
+            start += n
 
-        def proj(inp, name):
-            return project(inp, {"kernel": experts[name][g]},
-                           _expert_adapter(lora, name, g), lora_scale, fused)
+            def proj(inp, name):
+                return project(inp, {"kernel": experts[name][g]},
+                               _expert_adapter(lora, name, g, lane),
+                               lora_scale, fused)
 
-        h = activation(cfg.act, proj(xg, "gate_proj")) * proj(xg, "up_proj")
-        out.append(proj(h, "down_proj"))
+            h = (activation(cfg.act, proj(xg, "gate_proj"))
+                 * proj(xg, "up_proj"))
+            out.append(proj(h, "down_proj"))
     return torch.cat(out)
 
 
 def moe_block(cfg, params: Params, x: torch.Tensor, *,
               lora: Optional[Params] = None, lora_scale: float = 0.0,
-              impl: str = "ragged", fused: bool = False
+              impl: str = "ragged", fused: bool = False,
+              lanes: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) → (y (B, S, d), aux loss). ``fused`` (serving): the
     adapted projections run the fused LoRA kernel, the expert groups' and
-    the shared MLP's alike."""
+    the shared MLP's alike. ``lanes`` (mesh mode): B is lanes blocks of
+    rows, lane-major; the aux loss is (lanes,) and lane-stacked adapters
+    apply lane by lane."""
     if impl not in IMPLS:
         raise ValueError(f"unknown moe impl {impl!r} (expected one of "
                          f"{IMPLS})")
     b, s, d = x.shape
     t, k, e = b * s, cfg.num_experts_per_tok, cfg.num_experts
     xf = x.reshape(t, d)
-    topk_w, topk_idx, aux = router_topk(cfg, params["router"], xf)
+    topk_w, topk_idx, aux = router_topk(cfg, params["router"], xf, lanes)
 
     if impl == "dense":
         w_full = (F.one_hot(topk_idx, e).float()
                   * topk_w[..., None]).sum(dim=1)  # (T, E)
         y = _expert_ffn_dense(cfg, params["experts"], xf, w_full, lora,
-                              lora_scale)
+                              lora_scale, lanes)
     else:
         flat_expert = topk_idx.reshape(t * k)
         sort_idx = torch.argsort(flat_expert, stable=True)
         token_idx = sort_idx // k  # the token each sorted row came from
+        if lanes and (lora or {}).get("experts"):
+            # the stable sort keeps each expert's rows in token order, so
+            # lane-major: one count a (expert, lane) subgroup
+            lane = torch.arange(t * k, device=x.device) // (k * t // lanes)
+            sizes = torch.bincount(flat_expert * lanes + lane,
+                                   minlength=e * lanes).reshape(e, lanes)
+        else:
+            sizes = torch.bincount(flat_expert, minlength=e)
         y_sorted = _expert_ffn_ragged(
-            cfg, params["experts"], xf[token_idx],
-            torch.bincount(flat_expert, minlength=e), lora, lora_scale,
+            cfg, params["experts"], xf[token_idx], sizes, lora, lora_scale,
             fused)
         w_sorted = topk_w.reshape(t * k)[sort_idx]
         y_weighted = y_sorted * w_sorted[:, None].to(y_sorted.dtype)

@@ -280,13 +280,13 @@ def _learned_positions(cfg, table: torch.Tensor, seq: int,
 def decoder_layer(cfg, p: Params, x: torch.Tensor, *,
                   lora: Optional[Params], lora_scale: float, positions,
                   window: int, cache: Optional[Params], position,
-                  moe_impl: str = "ragged"):
+                  moe_impl: str = "ragged", lanes: Optional[int] = None):
     """One pre-norm layer (the reference's ``_attn_mlp_layer``) of its own
     leaves ``p``, adapter ``lora`` and cache → ``(x, aux)``: attention,
-    then the dense MLP (aux None) or the MoE block (its router's aux loss).
-    An MLA config's attention is :func:`~repro_torch.models.mla.mla_block`.
-    With a cache (serving) the adapted projections run the fused LoRA
-    kernel."""
+    then the dense MLP (aux None) or the MoE block (its router's aux loss;
+    with mesh mode's ``lanes``, each lane's, (lanes,)). An MLA config's
+    attention is :func:`~repro_torch.models.mla.mla_block`. With a cache
+    (serving) the adapted projections run the fused LoRA kernel."""
     lora = lora or {}
     fused = cache is not None
     h_in = apply_norm(cfg.norm, p["attn_norm"], x)
@@ -304,7 +304,8 @@ def decoder_layer(cfg, p: Params, x: torch.Tensor, *,
     m_in = apply_norm(cfg.norm, p["mlp_norm"], x)
     if "router" in p["mlp"]:
         m, aux = moe_block(cfg, p["mlp"], m_in, lora=lora.get("mlp"),
-                           lora_scale=lora_scale, impl=moe_impl, fused=fused)
+                           lora_scale=lora_scale, impl=moe_impl, fused=fused,
+                           lanes=lanes)
     else:
         m = mlp_block(cfg, p["mlp"], m_in, lora=lora.get("mlp"),
                       lora_scale=lora_scale, fused=fused)
@@ -317,7 +318,8 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
             mode: str = "train", cache: Optional[Params] = None,
             position=None, moe_impl: str = "ragged",
             with_aux: bool = False,
-            extra_embeds: Optional[torch.Tensor] = None):
+            extra_embeds: Optional[torch.Tensor] = None,
+            lanes: Optional[int] = None):
     """tokens (B, S) int → logits (B, S, V) f32.
 
     A vlm config's ``extra_embeds`` (B, Vt, d), in train and prefill, are
@@ -336,6 +338,10 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
     reference's conv state comes back in it; an sLSTM's ``h`` keeps the
     cache's dtype). ``moe_impl`` picks the MoE
     block's path (``"ragged"`` or the ``"dense"`` oracle).
+
+    ``lanes`` (mesh mode, train): the batch is that many blocks of rows,
+    lane-major, under lane-stacked adapters; a MoE config's aux is then
+    (lanes,), each lane's router aux losses summed over the layers.
     """
     _decoder_only(cfg, "forward")
     if mode not in MODES:
@@ -371,7 +377,7 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
             lora=_layer_slice(stack_lora, *idx), lora_scale=lora_scale,
             positions=positions, window=window,
             cache=_layer_slice(stack_cache, *idx), position=position,
-            moe_impl=moe_impl)
+            moe_impl=moe_impl, lanes=lanes)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
         return x

@@ -17,9 +17,12 @@ against the JAX reference, in f32 unless a test says otherwise, at
   all through the kernels' wrappers; a bf16 prefill and decode;
 * the host trainer round by round (uniform, then weighted at 50%), with
   client loaders that add seeded frames to each batch on both sides; the
-  serve launcher; the refusals of host mode, mesh mode, ``lane_loss`` and
-  the decoder-only stack, and the reference's own failure with a
-  tokens-only loader, which the launcher's refusal stands for.
+  serve launcher; the launcher's refusals (host and mesh mode) and the
+  decoder-only stack's, and the reference's own failure with a
+  tokens-only loader, which the launcher's refusal stands for;
+* mesh mode: ``lane_loss`` over folded frames and tokens against the host
+  loss on each lane's rows, and one weighted round of the mesh trainer
+  against the reference's, both on loaders that add frames.
 
 Tolerances are ``tests/test_torch_xlstm.py``'s: blocks and caches rtol /
 atol 1e-4 (f32 on both sides, the products contracted in another order);
@@ -42,6 +45,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from jax.sharding import AxisType  # noqa: E402
 
 from repro.configs import FedConfig as JFedConfig  # noqa: E402
 from repro.configs import LoRAConfig as JLoRAConfig  # noqa: E402
@@ -51,6 +55,7 @@ from repro.core import FederatedTrainer as JaxTrainer  # noqa: E402
 from repro.core.lora import init_lora as jax_init_lora  # noqa: E402
 from repro.data import make_batch_for as jax_make_batch_for  # noqa: E402
 from repro.fedsrv import RoundPolicy as JPolicy  # noqa: E402
+from repro.launch import mesh_train as jmesh  # noqa: E402
 from repro.kernels.flash_swa import flash_swa as jax_flash_swa  # noqa: E402
 from repro.launch.train import build_federated_data as jax_data  # noqa: E402
 from repro.models import attention as jattn  # noqa: E402
@@ -70,7 +75,7 @@ from repro_torch.kernels.flash_swa import (swa_attention,  # noqa: E402
                                            swa_error_bound)
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import train as port_train  # noqa: E402
-from repro_torch.launch.mesh_train import check_mesh_supported  # noqa: E402
+from repro_torch.launch.mesh_train import MeshFederatedTrainer  # noqa: E402
 from repro_torch.launch.train import build_federated_data  # noqa: E402
 from repro_torch.models import attention as pattn  # noqa: E402
 from repro_torch.models import build_model, transformer  # noqa: E402
@@ -794,13 +799,8 @@ def test_launcher_refuses_encdec_by_name(mode):
                          "--seq-len", "8"])
 
 
-def test_mesh_lane_loss_and_the_decoder_stack_refuse_encdec_by_name():
-    for name in ("whisper-medium", ARCH):
-        with pytest.raises(NotImplementedError, match=name):
-            check_mesh_supported(FedConfig(num_clients=2), get_config(name))
+def test_the_decoder_only_stack_refuses_encdec_by_name():
     cfg = get_config(ARCH)
-    with pytest.raises(NotImplementedError, match="encdec"):
-        build_model(cfg).lane_loss({}, {}, {})
     gen = torch.Generator().manual_seed(0)
     for call in (lambda: transformer.make_params(gen, cfg, CPU),
                  lambda: transformer.init_cache(cfg, 1, 8, device=CPU),
@@ -822,3 +822,97 @@ def test_the_references_tokens_only_loader_has_no_frames():
     params = jax.eval_shape(jm.init, jax.random.key(0))
     with pytest.raises(KeyError, match="frames"):
         jax.eval_shape(lambda p, b: jm.loss(p, b)[0], params, batch)
+
+
+def _lane_stack(tree, lanes, seed):
+    """``lanes`` copies of an adapter tree, each leaf moved by its own
+    N(0, 0.01²) draw, and their lane stack (the engine's layout)."""
+    rng = np.random.default_rng(seed)
+    flat = flatten_with_paths(params_from_numpy(tree, CPU))
+    each = [{k: v + torch.as_tensor(0.01 * rng.standard_normal(v.shape),
+                                    dtype=v.dtype) for k, v in flat.items()}
+            for _ in range(lanes)]
+    return ([unflatten_from_paths(e) for e in each],
+            unflatten_from_paths({k: torch.stack([e[k] for e in each])
+                                  for k in flat}))
+
+
+def test_lane_loss_equals_the_host_loss_on_each_lanes_rows():
+    """Mesh mode's loss over 2 lanes of 2 rows, frames and tokens folded
+    lane-major: lane c's factors apply in every encoder and decoder layer
+    to its rows alone (its cross-attention reading its own frames'
+    encoding); each lane's CE as the host loss on that lane's rows."""
+    jcfg = _jcfg()
+    p, l = _draws()
+    pm = build_model(_port_cfg(jcfg))
+    tp = params_from_numpy(p, CPU)
+    lanes, stacked = _lane_stack(l, 2, seed=11)
+    toks = np.random.default_rng(12).integers(0, jcfg.vocab_size,
+                                              size=(4, 17))
+    _, tb = _batches(toks, _frames(13, bsz=4))
+    with torch.inference_mode():
+        got = pm.lane_loss(tp, tb, stacked, lora_scale=SCALE)
+        want = [pm.loss(tp, {k: v[2 * c:2 * c + 2] for k, v in tb.items()},
+                        lora=lanes[c], lora_scale=SCALE)[0]
+                for c in range(2)]
+    np.testing.assert_allclose(got.numpy(), torch.stack(want).numpy(),
+                               rtol=1e-5)
+
+
+MESH_FED = dict(num_clients=2, rounds=1, local_steps=3, weighting="examples")
+
+
+def _mesh_trainers(jcfg, jlcfg, lcfg, data=None, **model_kw):
+    """The reference's mesh trainer (on a mesh of Auto axes) and the
+    port's from the reference's draws, over 2 lanes of the same loaders
+    (``data(loaders, evals, to_array)`` wraps each side's)."""
+    jl, je = jax_data(VOCAB, 2, seq_len=SEQ, batch_size=2, seed=0)
+    pl, pe = build_federated_data(VOCAB, 2, seq_len=SEQ, batch_size=2,
+                                  seed=0, device=CPU)
+    if data is not None:
+        jl, je = data(jl, je, jnp.asarray)
+        pl, pe = data(pl, pe, torch.as_tensor)
+    mesh = jax.make_mesh((1, 1), ("client", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+    jt = jmesh.MeshFederatedTrainer(
+        model=jax_build_model(jcfg, **model_kw), lora_cfg=jlcfg,
+        fed_cfg=JFedConfig(**MESH_FED),
+        train_cfg=JTrainConfig(learning_rate=LR, schedule="constant"),
+        client_loaders=jl, eval_batches=je, seed=0, mesh=mesh)
+    pt = MeshFederatedTrainer(
+        model=build_model(_port_cfg(jcfg)), lora_cfg=lcfg,
+        fed_cfg=FedConfig(**MESH_FED),
+        train_cfg=TrainConfig(learning_rate=LR, schedule="constant"),
+        client_loaders=pl, eval_batches=pe, seed=0, device=CPU,
+        params=params_from_numpy(_np(jt.params), CPU),
+        global_lora=params_from_numpy(_np(jt.global_lora), CPU))
+    return jt, pt
+
+
+def _assert_rounds_match(jt, pt):
+    """Run both; losses rtol 1e-5, divergence rtol 1e-3 (and above its
+    atol: 3 steps move the factors apart), W0 and the global adapter
+    within 1e-2 relative Frobenius and the AdamW separation bound."""
+    jt.run()
+    pt.run()
+    for jr, pr in zip(jt.history, pt.history, strict=True):
+        np.testing.assert_allclose(pr.client_losses, jr.client_losses,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(pr.eval_loss, jr.eval_loss, rtol=1e-5)
+        np.testing.assert_allclose(pr.divergence_scaled, jr.divergence_scaled,
+                                   rtol=1e-3, atol=1e-7)
+        assert pr.divergence_scaled > 1e-7
+    sep = 2 * LR * MESH_FED["local_steps"] * MESH_FED["num_clients"]
+    _assert_trees_close(jt.params, pt.params, sep)
+    _assert_trees_close(jt.global_lora, pt.global_lora, sep)
+
+
+def test_mesh_trainer_matches_reference_one_weighted_round():
+    """One weighted fedex round of 2 lanes (example weights, 3 local
+    steps) against the reference's mesh trainer, both given loaders that
+    add seeded frames (each trainer stacks every batch key): the encoder's
+    and the decoder's lanes over the 12 leaves."""
+    jt, pt = _mesh_trainers(_jcfg(vocab_size=VOCAB), JLoRAConfig(),
+                            LoRAConfig(), data=_with_frames)
+    assert len(pt.closer.specs) == 12
+    _assert_rounds_match(jt, pt)

@@ -660,7 +660,7 @@ def test_mesh_trainer_matches_reference_one_uniform_round():
         client_loaders=jl, eval_batches=je, seed=0, mesh=mesh)
     pl, pe = build_federated_data(VOCAB, CLIENTS, seq_len=SEQ, batch_size=2,
                                   seed=0, device=CPU)
-    check_mesh_supported(FedConfig(**fed), _port_cfg(jcfg))
+    check_mesh_supported(FedConfig(**fed))
     pt = MeshFederatedTrainer(
         model=build_model(_port_cfg(jcfg)), lora_cfg=LoRAConfig(),
         fed_cfg=FedConfig(**fed), train_cfg=TrainConfig(**train),

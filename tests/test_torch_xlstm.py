@@ -20,7 +20,10 @@ stacked axis has a size above 1 and a swapped index would show.
   dtype, the sLSTM's h in the cache's); serving's projections all through
   the fused LoRA kernel's wrapper; a bf16 prefill and decode;
 * the host trainer round by round (uniform, then weighted at 50%); every
-  engine close; the launchers; mesh mode's refusal.
+  engine close; the launchers;
+* mesh mode: ``lane_loss`` against the host loss on each lane's rows, one
+  weighted round of the mesh trainer against the reference's, and the
+  launcher's ``--mode mesh`` against the class.
 
 Tolerances are ``tests/test_torch_hybrid.py``'s: logits and loss rtol
 1e-5 of their scale, LoRA gradients within 1e-5 of each leaf's largest
@@ -35,6 +38,7 @@ rounding at the logit scale).
 
 import dataclasses
 import functools
+import json
 
 import numpy as np
 import pytest
@@ -43,6 +47,7 @@ torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
+from jax.sharding import AxisType  # noqa: E402
 
 from repro.configs import FedConfig as JFedConfig  # noqa: E402
 from repro.configs import LoRAConfig as JLoRAConfig  # noqa: E402
@@ -51,6 +56,7 @@ from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.core import FederatedTrainer as JaxTrainer  # noqa: E402
 from repro.core.lora import init_lora as jax_init_lora  # noqa: E402
 from repro.fedsrv import RoundPolicy as JPolicy  # noqa: E402
+from repro.launch import mesh_train as jmesh  # noqa: E402
 from repro.launch.train import build_federated_data as jax_data  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.models import xlstm as jxl  # noqa: E402
@@ -63,7 +69,7 @@ from repro_torch.core.lora import init_lora  # noqa: E402
 from repro_torch.fedsrv import RoundPolicy  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import train as port_train  # noqa: E402
-from repro_torch.launch.mesh_train import check_mesh_supported  # noqa: E402
+from repro_torch.launch.mesh_train import MeshFederatedTrainer  # noqa: E402
 from repro_torch.launch.train import build_federated_data  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models import common as pcommon  # noqa: E402
@@ -713,9 +719,124 @@ def test_every_engine_close_runs_on_the_ssm_stack(args, capsys):
     assert np.isfinite(loss)
 
 
-def test_mesh_mode_refuses_xlstm_by_name():
-    for name in ("xlstm-1.3b", ARCH):
-        with pytest.raises(NotImplementedError, match=name):
-            check_mesh_supported(FedConfig(num_clients=2), get_config(name))
-    with pytest.raises(NotImplementedError, match="ssm"):
-        build_model(get_config(ARCH)).lane_loss({}, {}, {})
+def _lane_stack(tree, lanes, seed):
+    """``lanes`` copies of an adapter tree, each leaf moved by its own
+    N(0, 0.01²) draw, and their lane stack (the engine's layout)."""
+    rng = np.random.default_rng(seed)
+    flat = flatten_with_paths(params_from_numpy(tree, CPU))
+    each = [{k: v + torch.as_tensor(0.01 * rng.standard_normal(v.shape),
+                                    dtype=v.dtype) for k, v in flat.items()}
+            for _ in range(lanes)]
+    return ([unflatten_from_paths(e) for e in each],
+            unflatten_from_paths({k: torch.stack([e[k] for e in each])
+                                  for k in flat}))
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_lane_loss_equals_the_host_loss_on_each_lanes_rows(variant):
+    """Mesh mode's loss over 2 lanes of 2 rows: each mLSTM block slices
+    its lanes' factors behind the (nper, slstm_every − 1) axes, each sLSTM
+    block behind nper (its FFN's too; w_gates' rows lane-major at every
+    step of the recurrence); each lane's CE as the host loss on that
+    lane's rows."""
+    jcfg = _jcfg(variant)
+    p, l = _draws(variant)
+    pm = build_model(_port_cfg(jcfg))
+    tp = params_from_numpy(p, CPU)
+    lanes, stacked = _lane_stack(l, 2, seed=11)
+    assert any(k.startswith("periods/slstm/ffn/")
+               for k in flatten_with_paths(stacked))
+    toks = np.random.default_rng(12).integers(0, jcfg.vocab_size,
+                                              size=(4, 33))
+    _, tb = _batches(toks)
+    with torch.inference_mode():
+        got = pm.lane_loss(tp, tb, stacked, lora_scale=SCALE)
+        want = [pm.loss(tp, {k: v[2 * c:2 * c + 2] for k, v in tb.items()},
+                        lora=lanes[c], lora_scale=SCALE)[0]
+                for c in range(2)]
+    np.testing.assert_allclose(got.numpy(), torch.stack(want).numpy(),
+                               rtol=1e-5)
+
+
+MESH_FED = dict(num_clients=2, rounds=1, local_steps=3, weighting="examples")
+
+
+def _mesh_trainers(jcfg, jlcfg, lcfg, data=None, **model_kw):
+    """The reference's mesh trainer (on a mesh of Auto axes) and the
+    port's from the reference's draws, over 2 lanes of the same loaders
+    (``data(loaders, evals, to_array)`` wraps each side's)."""
+    jl, je = jax_data(VOCAB, 2, seq_len=SEQ, batch_size=2, seed=0)
+    pl, pe = build_federated_data(VOCAB, 2, seq_len=SEQ, batch_size=2,
+                                  seed=0, device=CPU)
+    if data is not None:
+        jl, je = data(jl, je, jnp.asarray)
+        pl, pe = data(pl, pe, torch.as_tensor)
+    mesh = jax.make_mesh((1, 1), ("client", "model"),
+                         axis_types=(AxisType.Auto, AxisType.Auto))
+    jt = jmesh.MeshFederatedTrainer(
+        model=jax_build_model(jcfg, **model_kw), lora_cfg=jlcfg,
+        fed_cfg=JFedConfig(**MESH_FED),
+        train_cfg=JTrainConfig(learning_rate=LR, schedule="constant"),
+        client_loaders=jl, eval_batches=je, seed=0, mesh=mesh)
+    pt = MeshFederatedTrainer(
+        model=build_model(_port_cfg(jcfg)), lora_cfg=lcfg,
+        fed_cfg=FedConfig(**MESH_FED),
+        train_cfg=TrainConfig(learning_rate=LR, schedule="constant"),
+        client_loaders=pl, eval_batches=pe, seed=0, device=CPU,
+        params=params_from_numpy(_np(jt.params), CPU),
+        global_lora=params_from_numpy(_np(jt.global_lora), CPU))
+    return jt, pt
+
+
+def _assert_rounds_match(jt, pt):
+    """Run both; losses rtol 1e-5, divergence rtol 1e-3 (and above its
+    atol: 3 steps move the factors apart), W0 and the global adapter
+    within 1e-2 relative Frobenius and the AdamW separation bound."""
+    jt.run()
+    pt.run()
+    for jr, pr in zip(jt.history, pt.history, strict=True):
+        np.testing.assert_allclose(pr.client_losses, jr.client_losses,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(pr.eval_loss, jr.eval_loss, rtol=1e-5)
+        np.testing.assert_allclose(pr.divergence_scaled, jr.divergence_scaled,
+                                   rtol=1e-3, atol=1e-7)
+        assert pr.divergence_scaled > 1e-7
+    sep = 2 * LR * MESH_FED["local_steps"] * MESH_FED["num_clients"]
+    _assert_trees_close(jt.params, pt.params, sep)
+    _assert_trees_close(jt.global_lora, pt.global_lora, sep)
+
+
+def test_mesh_trainer_matches_reference_one_weighted_round():
+    """One weighted fedex round of 2 lanes (example weights, 3 local
+    steps) against the reference's mesh trainer over the mLSTM and sLSTM
+    blocks' 8 adapted leaves."""
+    jt, pt = _mesh_trainers(_jcfg(vocab_size=VOCAB), JLoRAConfig(),
+                            LoRAConfig())
+    assert len(pt.closer.specs) == 8
+    _assert_rounds_match(jt, pt)
+
+
+def test_launcher_mesh_mode_equals_the_class(tmp_path, capsys):
+    """``--mode mesh`` runs the config; its history is the class's."""
+    out = tmp_path / "history.json"
+    port_train.main(["--device", "cpu", "--arch", ARCH, "--mode", "mesh",
+                     "--vocab", str(VOCAB), "--clients", "2", "--rounds",
+                     "1", "--local-steps", "3", "--batch-size", "2",
+                     "--seq-len", str(SEQ), "--weighting", "examples",
+                     "--out", str(out)])
+    assert "mode=mesh" in capsys.readouterr().out
+    cfg = dataclasses.replace(get_config(ARCH), vocab_size=VOCAB,
+                              dtype="float32")
+    loaders, evals = build_federated_data(VOCAB, 2, seq_len=SEQ,
+                                          batch_size=2, device=CPU)
+    hist = MeshFederatedTrainer(
+        model=build_model(cfg), lora_cfg=LoRAConfig(),
+        fed_cfg=FedConfig(**MESH_FED),
+        train_cfg=TrainConfig(learning_rate=LR, schedule="constant",
+                              total_steps=3),
+        client_loaders=loaders, eval_batches=evals, seed=0,
+        device=CPU).run()
+    assert [(h["round"], h["client_losses"], h["eval_loss"],
+             h["divergence_scaled"]) for h in json.loads(out.read_text())
+            ] == [(h.round, h.client_losses, h.eval_loss,
+                   h.divergence_scaled) for h in hist]
