@@ -16,6 +16,7 @@
     python3 chip_smoke.py --xlstm             # phase 13 alone
     python3 chip_smoke.py --encdec            # phase 14 alone
     python3 chip_smoke.py --vlm               # phase 15 alone
+    python3 chip_smoke.py --dryrun            # phase 16 alone
     python3 chip_smoke.py --fold-check        # phase 3's fedex_fold checks
 
 Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
@@ -382,7 +383,31 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    L a prefill), the kernel path against the plain path, teacher forcing
    over all 16 steps, the first step at the reference's serve position
    (+256) printed, bf16 against the f32 answer widened a layer at a time;
-16. one JSON line with every ported kernel: ``ms`` and ``library_ms``
+16. the dry run and the roofline on one H100 (``dryrun_phase``, ``[dry]``
+   lines; ``--dryrun``): (a) ``repro_torch.launch.dryrun``'s record of
+   every assigned architecture × assigned shape, on the meta device in
+   this process, each ``ok`` or skipped where the reference skips; (b)
+   ``paper-llama3.2-3b``'s three steps at full width and depth, each at
+   the largest global batch whose dry-run peak is under 70 GiB (train in
+   f32 at train_4k's 4096 tokens, 2 microbatches; prefill in bf16 at
+   prefill_32k's 32,768 tokens, through B3's and B8's tensor-core bodies;
+   decode in bf16 against a 32,768-slot cache, through B3's split-K body):
+   the dry run's FLOPs, bytes and peak, the same step counted on the card
+   (FLOPs and bytes equal to the meta count), the median step ms of 3
+   after a warm-up (CUDA events), the measured peak
+   (``max_memory_allocated`` over the state's baseline) within 10% of the
+   dry run's, MODEL_FLOPS, the model TFLOP/s and MFU, and the roofline
+   bound with the step's share of it; the last run's outputs finite and of
+   their shapes (train's loss, gnorm and LoRA; the logits; decode's next
+   tokens their argmax); the launches through the tensor-core bodies
+   counted too; then B3 at the serving steps' own shapes (M = B·S for
+   prefill, B for decode; layer 0's q/k/v/o with the steps' weights and b
+   draws, r 16, bf16), each call through the step's body, against the
+   plain version within ``lora_matmul_error_bound``; (c) B8 at S 32,768
+   (batch 1, GQA 24/8, d 128, bf16): its last 512 query rows against the
+   plain version over all 32,768 keys within ``swa_error_bound``, timed
+   beside SDPA;
+17. one JSON line with every ported kernel: ``ms`` and ``library_ms``
    host-inclusive, ``device_ms`` and ``library_device_ms`` device time
    (:meth:`Timer.device`), at the main body; B2's row adds one close's launch path
    (``close_wall_us``, ``close_enqueue_us``: :func:`launch_cost`), B3's
@@ -430,8 +455,12 @@ Needs one CUDA card and ``nvcc``; imports no JAX. It puts ``src`` on
    ``vl_launches`` (phase 15's main paths: training, the f32 and the bf16
    ``serve()``) and ``vl_bf16_launches``,
    ``vl_bf16_tc_launches`` (B3's also ``vl_bf16_tc_decode_launches``) and
-   ``vl_bf16_max_abs_err`` of its bf16 ``serve()`` run; then the result
-   line.
+   ``vl_bf16_max_abs_err`` of its bf16 ``serve()`` run; phase 16's B3 and
+   B8 launches as ``dry_launches``, B3's errors at the prefill and decode
+   steps' shapes as ``dry_prefill_max_abs_err`` and
+   ``dry_decode_max_abs_err``, and B8 at S 32,768 as ``S32768_*``
+   (``plain_ms`` None: the plain version's scores there are 103 GB); then
+   the result line.
 
 ``--launch-cost SRC`` runs :func:`launch_cost` alone on the port found
 under ``SRC`` (another tree's ``src`` too, to compare two trees in one
@@ -451,7 +480,7 @@ phase 9 (:func:`bf16_phase`), ``--moe`` phase 10 (:func:`moe_phase`),
 ``--mla`` phase 11 (:func:`mla_phase`), ``--hybrid`` phase 12
 (:func:`hybrid_phase`), ``--xlstm`` phase 13 (:func:`xlstm_phase`),
 ``--encdec`` phase 14 (:func:`whisper_phase`), ``--vlm`` phase 15
-(:func:`vlm_phase`), and ``--fold-check`` phase 3's main-shape
+(:func:`vlm_phase`), ``--dryrun`` phase 16 (:func:`dryrun_phase`), and ``--fold-check`` phase 3's main-shape
 ``fedex_fold`` checks (:func:`fold_check_main`).
 
 Identities, per adapted leaf, on the last round of each path:
@@ -503,6 +532,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import importlib
+import importlib.util
 import io
 import itertools
 import json
@@ -516,9 +546,31 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-F32_FLOPS_PER_S = 67e12    # H100 SXM data sheet, f32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12  # H100 SXM data sheet, bf16 dense tensor cores
+
+
+def _port_module(rel: str):
+    """A module of this checkout's port that imports only torch and numpy,
+    loaded from its file under ``src/repro_torch`` without importing the
+    package (``--launch-cost SRC`` imports another tree's port)."""
+    path = SRC / "repro_torch" / rel
+    spec = importlib.util.spec_from_file_location(
+        f"chip_smoke_{path.stem}", path)
+    module = sys.modules[spec.name] = importlib.util.module_from_spec(spec)
+    try:
+        spec.loader.exec_module(module)
+    except FileNotFoundError:
+        sys.exit(f"chip_smoke: the port's sources are missing ({path}) — "
+                 "run it from a checkout of the repository")
+    return module
+
+
+# the H100 SXM data sheet's rates and B3's and B8's work, as the port states
+# them
+_roofline = _port_module("launch/roofline.py")
+port_cost = _port_module("util/cost.py")
+HBM_BYTES_PER_S = _roofline.HBM_BYTES_PER_S
+F32_FLOPS_PER_S = _roofline.F32_FLOPS_PER_S
+BF16_FLOPS_PER_S = _roofline.BF16_FLOPS_PER_S
 U = 2.0 ** -24
 REPS, WARMUP = 20, 3
 
@@ -1377,11 +1429,14 @@ def lora_inputs(torch, device, m, k, n, r, seed):
 
 def lora_cost(shapes, r, elem=4):
     """Bytes (each input read once at ``elem`` bytes an element, the f32
-    output written once) and flops of lora_matmul over (M, K, N) shapes."""
+    output written once) and flops of lora_matmul over (M, K, N) shapes:
+    ``port_cost.lora_matmul_work``'s, the flops with the epilogue's scale
+    and add (2·M·N) besides."""
     nbytes = flops = 0
     for m, k, n in shapes:
-        nbytes += elem * (m * k + k * n + k * r + r * n) + 4 * m * n
-        flops += 2 * m * n * k + 2 * m * r * (k + n) + 2 * m * n
+        f, b = port_cost.lora_matmul_work(m, k, n, r, elem)
+        nbytes += b
+        flops += f + 2 * m * n
     return nbytes, flops
 
 
@@ -1456,15 +1511,17 @@ def lora_case(torch, kernels, timer, bufs, scale, label, device_times=False):
     return err, t
 
 
-def visible_pairs(torch, device, sq, sk, causal, window):
-    qpos = torch.arange(sq, device=device)[:, None]
+def visible_mask(torch, device, sq, sk, causal, window, q0=0):
+    """The visible (query, key) pairs as a boolean (Sq, Sk) mask, the query
+    rows at positions q0 … q0 + Sq − 1."""
+    qpos = torch.arange(q0, q0 + sq, device=device)[:, None]
     kpos = torch.arange(sk, device=device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=device)
     if causal:
         mask &= kpos <= qpos
     if window:
         mask &= qpos - kpos < window
-    return mask, int(mask.sum())
+    return mask
 
 
 def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
@@ -1508,7 +1565,7 @@ def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
     err = float(e.max())
     tol = (kernels.swa_error_bound(q, k, v, causal, window) if low
            else 4e-5 + 2e-5 * want.abs())
-    mask, pairs = visible_pairs(torch, device, s, sk, causal, window)
+    mask = visible_mask(torch, device, s, sk, causal, window)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     if window:
         kw = {"attn_mask": mask}
@@ -1523,9 +1580,8 @@ def flash_case(torch, kernels, timer, device, b, s, h, kvh, d, causal, window,
         raise AssertionError(f"flash_swa {label}: max err {err:.3e} vs the "
                              "plain version")
     del got, want, e, lib, tol
-    elem = 2 if low else 4
-    nbytes = elem * (2 * b * s * h * d + 2 * b * sk * kvh * d)
-    flops = 4 * d * pairs * b * h
+    flops, nbytes = port_cost.attention_work(b, s, sk, h, kvh, d, causal,
+                                             window, 2 if low else 4)
 
     def kernel():
         kernels.swa_attention(q, k, v, causal, window)
@@ -6152,7 +6208,7 @@ def mla_flash_case(torch, kernels, timer, device, b, s, h, dk, dv, seed,
     lib_err = float((lib.transpose(1, 2).float()
                      - got[..., :dv].float()).abs().max())
     del got, again, want, e, tol, lib
-    _, pairs = visible_pairs(torch, device, s, s, True, 0)
+    pairs = port_cost.attention_pairs(s, s, True, 0)
     elem = 2 if low else 4
     nbytes = elem * b * s * h * (2 * dk + 2 * dv)
     flops = (2 * dk + 2 * dv) * pairs * b * h
@@ -9029,8 +9085,8 @@ def attention_sweep(torch, kernels, device) -> list:
         _, t = flash_case(torch, kernels, timer, device, b, s, h, kvh, d,
                           True, window, seed=200 + i, device_times=True,
                           dtype=torch.bfloat16, tc=True)
-        _, pairs = visible_pairs(torch, device, s, s, True, window)
-        flops = 4 * d * pairs * b * h
+        flops, _ = port_cost.attention_work(b, s, s, h, kvh, d, True,
+                                            window, 2)
         _, _, _, (bms, by), dev, lib = t
         rows.append({"B": b, "S": s, "H": h, "KVH": kvh, "d": d,
                      "window": window, "device_ms": dev,
@@ -9475,6 +9531,427 @@ def vlm_main() -> int:
     return 0
 
 
+# --------------------------------------------------------------------------
+# phase 16: the dry run and the roofline on one H100
+# --------------------------------------------------------------------------
+
+DRY = "paper-llama3.2-3b"
+DRY_CAP_GIB = 70  # a step's global batch: the largest of its candidates
+# whose dry-run peak is under this; kind → (assigned shape, dtype, the
+# candidate batches: train's split into its 2 microbatches)
+DRY_STEPS = {
+    "train": ("train_4k", "float32", (2, 4, 8)),
+    "prefill": ("prefill_32k", "bfloat16", (1, 2, 4, 8)),
+    "decode": ("decode_32k", "bfloat16", (1, 2, 4, 8)),
+}
+DRY_MICROBATCHES = 2
+DRY_RUNS = 3            # timed runs of a step, after one warm-up
+DRY_PEAK_TOL = 0.10     # the measured peak against the dry run's
+DRY_TAIL = 512          # B8's last query rows held at S 32,768
+DRY_PROJS = ("q_proj", "k_proj", "v_proj", "o_proj")  # B3's four a layer
+DRY_B8 = (1, 32_768, 24, 8, 128)  # B, S, H, KVH, d: a Llama prefill layer
+
+
+def dry_records(dryrun):
+    """(a): the dry run's record of every assigned architecture × shape,
+    a line each; raises on a record that is not ``ok`` or skipped."""
+    from repro_torch.configs import ASSIGNED
+    dryrun.logger.setLevel("WARNING")  # one line a record, ours
+    recs = []
+    for arch in ASSIGNED:
+        for shape in dryrun.SHAPE_NAMES:
+            rec = dryrun.run_one(arch, shape)
+            recs.append(rec)
+            if rec["status"] == "skipped":
+                print(f"  [dry] {arch} × {shape}: skipped ({rec['reason']})",
+                      flush=True)
+                continue
+            if rec["status"] != "ok":
+                raise AssertionError(f"dry run {arch} × {shape}: "
+                                     f"{rec.get('error')}")
+            roof, mem = rec["roofline"], rec["memory"]
+            print(f"  [dry] {arch} × {shape}: ok ({rec['count_s']} s), "
+                  f"{roof['flops']:.4e} FLOPs, {roof['hbm_bytes']:.4e} B, "
+                  f"peak {mem['peak_bytes'] / 2 ** 30:.1f} GiB (fits "
+                  f"{rec['fits']}); compute {roof['compute_s'] * 1e3:.1f} "
+                  f"ms, memory {roof['memory_s'] * 1e3:.1f} ms "
+                  f"({roof['dominant']}); MODEL_FLOPS "
+                  f"{roof['model_flops_global']:.4e}, useful "
+                  f"{roof['useful_flops_ratio']:.3f}", flush=True)
+    return recs
+
+
+def dry_pick(dryrun, cfg, kind):
+    """The step's shape at the largest global batch whose dry-run peak is
+    under ``DRY_CAP_GIB``, with its meta count."""
+    from repro_torch.configs import ShapeConfig, get_shape
+    name, _, batches = DRY_STEPS[kind]
+    seq = get_shape(name).seq_len
+    best = None
+    for gb in batches:
+        shape = ShapeConfig(name, seq, gb, kind)
+        c = dryrun.count_step(cfg, shape, microbatches=DRY_MICROBATCHES)
+        print(f"  [dry] {cfg.name} {kind} {cfg.dtype} batch {gb} × {seq}: "
+              f"dry-run peak {c.peak_bytes / 2 ** 30:.2f} GiB", flush=True)
+        if c.peak_bytes < DRY_CAP_GIB * 2 ** 30:
+            best = (shape, c)
+    if best is None:
+        raise AssertionError(f"dry run {cfg.name} {kind}: no batch of "
+                             f"{batches} under {DRY_CAP_GIB} GiB")
+    return best
+
+
+def dry_state(torch, steps, model, cfg, shape, lcfg, device):
+    """The step's arguments on the card: seeded draws of the weights (the
+    port's ``init`` and ``init_lora``, then b drawn non-zero), inputs from
+    ``random_inputs``; decode's cache full: random K / V, every slot
+    valid (positions 0 … S − 1), the step at position S − 1."""
+    from repro_torch.util.tree import flatten_with_paths
+    params, lora, opt = steps.abstract_state(model, cfg, lcfg, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    for path, leaf in flatten_with_paths(lora).items():
+        if path.endswith("/b"):
+            leaf.normal_(0.0, 0.02, generator=gen)
+    batch = steps.random_inputs(cfg, shape, device, seed=2)
+    if shape.kind == "train":
+        return (params, lora, opt, batch, 0)
+    cache = steps.abstract_cache(model, shape.global_batch, shape.seq_len,
+                                 device=device)
+    if shape.kind == "prefill":
+        return (params, lora, batch, cache)
+    for key in ("k", "v"):
+        cache["layers"][key].normal_(generator=gen)
+    cache["layers"]["pos"].copy_(torch.arange(shape.seq_len, device=device))
+    return (params, lora, batch["tokens"], cache, shape.seq_len - 1)
+
+
+def dry_outputs(torch, kind, out, args, vocab):
+    """What a step gives back is right in kind: finite values of the
+    expected shapes — train's loss, gnorm and every updated LoRA leaf
+    (shaped as the one it replaces); prefill's last-position logits
+    (B, 1, V); decode's logits and next tokens, the tokens the logits'
+    argmax. Raises otherwise."""
+    from repro_torch.util.tree import flatten_with_paths
+    bad = []
+    if kind == "train":
+        lora, _, loss, gnorm = out
+        new, old = flatten_with_paths(lora), flatten_with_paths(args[1])
+        if new.keys() != old.keys() or any(
+                new[p].shape != old[p].shape for p in old):
+            bad.append("the updated LoRA tree is not the one it replaces")
+        bad += [f"LoRA leaf {p} not finite" for p, x in new.items()
+                if not bool(torch.isfinite(x).all())]
+        bad += [f"{name} {float(x)} not finite" for name, x
+                in (("loss", loss), ("gnorm", gnorm))
+                if not bool(torch.isfinite(x))]
+        told = f"loss {float(loss):.4f}, gnorm {float(gnorm):.4e}"
+    else:
+        logits = out[0] if kind == "prefill" else out[1]
+        b = args[2]["tokens"].shape[0] if kind == "prefill" else \
+            args[2].shape[0]
+        if tuple(logits.shape) != (b, 1, vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            bad.append(f"logits {tuple(logits.shape)} not finite (B, 1, "
+                       f"{vocab})")
+        if kind == "decode":
+            want = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+            if not torch.equal(out[0], want[:, None]):
+                bad.append("the next tokens are not the logits' argmax")
+        told = f"logits {tuple(logits.shape)} finite"
+    if bad:
+        raise AssertionError(f"dry {kind}: " + "; ".join(bad))
+    return told
+
+
+def dry_projs(torch, args):
+    """Layer 0's four attention projections as the serving step hands them
+    to B3: (name, W0, a, b), the adapter cast to W0's dtype as
+    ``common.project`` casts it; copies, so that the step's state can go."""
+    params, lora = args[0]["layers"]["attn"], args[1]["layers"]["attn"]
+    return [(name, params[name]["kernel"][0].clone(),
+             lora[name]["a"][0].to(params[name]["kernel"].dtype).clone(),
+             lora[name]["b"][0].to(params[name]["kernel"].dtype).clone())
+            for name in DRY_PROJS]
+
+
+def dry_b3(torch, kernels, device, kind, m, projs, scale):
+    """B3 at a serving step's own shapes: x (M, K) seeded unit normals in
+    bf16 (M = B·S for prefill, B for decode) through layer 0's four
+    projections (:func:`dry_projs`, the step's weights and b draws), each
+    call through the body the step took (the tensor-core body for prefill,
+    the tensor-core split-K body for decode), held against the plain
+    version within ``lora_matmul_error_bound``. Returns the max error."""
+    key = "bf16_tc_launches" if kind == "prefill" else \
+        "bf16_tc_decode_launches"
+    g = torch.Generator(device=device)
+    g.manual_seed(17)
+    xs, err, worst = {}, 0.0, 0.0
+    for name, w, a, b in projs:
+        k = w.shape[0]
+        if k not in xs:
+            xs[k] = torch.randn(m, k, device=device, generator=g).to(w.dtype)
+        x = xs[k]
+        before = getattr(kernels.lora_matmul, key)
+        got = kernels.lora_matmul(x, w, a, b, scale)
+        torch.cuda.synchronize()
+        if getattr(kernels.lora_matmul, key) != before + 1:
+            raise AssertionError(f"dry B3 {kind} {name}: not the body the "
+                                 f"step took ({key})")
+        want = kernels.lora_matmul_plain(x, w, a, b, scale)
+        bound = kernels.lora_matmul_error_bound(x, w, a, b, scale)
+        e = (got - want).abs()
+        err = max(err, float(e.max()))
+        worst = max(worst, float((e / bound.clamp_min(
+            torch.finfo(torch.float32).tiny)).max()))
+        if not bool((e <= bound).all()):
+            raise AssertionError(
+                f"dry B3 {kind} {name} M={m} K={k} N={w.shape[1]} "
+                f"r={a.shape[1]}: off the plain version by {err:.3e} "
+                f"({worst:.3f} of lora_matmul_error_bound)")
+        del got, want, bound, e
+    shapes = ", ".join(f"{name} {w.shape[0]}×{w.shape[1]}"
+                       for name, w, _, _ in projs)
+    print(f"  [dry] lora_matmul[{kind}: M={m}, {shapes}, r="
+          f"{projs[0][2].shape[1]}, bf16] max_abs_err={err:.3e} within "
+          f"lora_matmul_error_bound ({worst:.3f} of it), the step's body",
+          flush=True)
+    del xs
+    _free(torch, device)
+    return err
+
+
+def dry_step(torch, kernels, device, dryrun, cost, roofline, steps, kind):
+    """(b) for one of Llama's steps: pick its batch by the dry run, build
+    its state on the card, count it there (FLOPs and bytes equal to the
+    meta count), measure its peak over the state's baseline and its median
+    ms of ``DRY_RUNS`` after a warm-up, check the last run's outputs
+    (:func:`dry_outputs`); returns its stats and, for the serving steps,
+    (B3's M, layer 0's projections (:func:`dry_projs`), the scale)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import LoRAConfig, TrainConfig, get_config
+    from repro_torch.models.model import build_model
+    name, dtype, _ = DRY_STEPS[kind]
+    cfg = replace(get_config(DRY), dtype=dtype)
+    shape, meta = dry_pick(dryrun, cfg, kind)
+    lcfg = LoRAConfig(rank=16, alpha=32)
+    model = build_model(cfg)
+    if kind == "train":
+        step = steps.make_train_step(model, lcfg, TrainConfig(total_steps=1000),
+                                     num_microbatches=DRY_MICROBATCHES)
+    elif kind == "prefill":
+        step = steps.make_prefill_step(model, lcfg)
+    else:
+        step = steps.make_decode_step(model, lcfg)
+    mode = (contextlib.nullcontext() if kind == "train"
+            else torch.inference_mode())
+    _free(torch, device)
+    base = torch.cuda.memory_allocated(device)
+    args = dry_state(torch, steps, model, cfg, shape, lcfg, device)
+    torch.cuda.synchronize()
+    with mode:
+        card = cost.count(step, *args)
+    if (card.flops, card.bytes_accessed) != (meta.flops, meta.bytes_accessed):
+        raise AssertionError(
+            f"dry {kind}: the card counts {card.flops} FLOPs, "
+            f"{card.bytes_accessed} B; the meta device {meta.flops}, "
+            f"{meta.bytes_accessed}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    with mode:
+        step(*args)  # the warm-up, its peak measured
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device) - base
+        times = []
+        for _ in range(DRY_RUNS):
+            out = None  # the previous run's outputs go before this one
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = step(*args)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        told = dry_outputs(torch, kind, out, args, cfg.vocab_size)
+        del out
+    ms = statistics.median(times)
+    if abs(peak - meta.peak_bytes) > DRY_PEAK_TOL * meta.peak_bytes:
+        raise AssertionError(f"dry {kind}: measured peak {peak} B against "
+                             f"the dry run's {meta.peak_bytes} B")
+    mflops = roofline.model_flops_per_step(cfg, shape)
+    peak_rate = roofline.peak_flops(cfg.dtype)
+    bound_s = max(meta.flops / peak_rate,
+                  meta.bytes_accessed / roofline.HBM_BYTES_PER_S)
+    row = {"step": kind, "dtype": dtype, "batch": shape.global_batch,
+           "seq": shape.seq_len, "flops": meta.flops,
+           "bytes": meta.bytes_accessed, "dry_peak_gib": meta.peak_bytes / 2 ** 30,
+           "card_peak_count_gib": card.peak_bytes / 2 ** 30,
+           "measured_peak_gib": peak / 2 ** 30, "ms": ms, "runs_ms": times,
+           "model_flops": mflops,
+           "model_tflops_per_s": mflops / (ms / 1e3) / 1e12,
+           "mfu": mflops / (ms / 1e3) / peak_rate,
+           "bound_ms": bound_s * 1e3,
+           "bound_by": ("operations" if meta.flops / peak_rate
+                        >= meta.bytes_accessed / roofline.HBM_BYTES_PER_S
+                        else "bytes"),
+           "share_of_bound": bound_s * 1e3 / ms}
+    print(f"  [dry] {DRY} {kind} ({dtype}, batch {shape.global_batch} × "
+          f"{shape.seq_len}): dry run {meta.flops:.4e} FLOPs, "
+          f"{meta.bytes_accessed:.4e} B, peak {row['dry_peak_gib']:.2f} GiB; "
+          f"the card's count equal; step {ms:.2f} ms (median of "
+          f"{DRY_RUNS}: {', '.join(f'{t:.2f}' for t in times)}); measured "
+          f"peak {row['measured_peak_gib']:.2f} GiB "
+          f"({peak / meta.peak_bytes - 1:+.2%}); MODEL_FLOPS {mflops:.4e}, "
+          f"{row['model_tflops_per_s']:.1f} TFLOP/s, MFU {row['mfu']:.2%} of "
+          f"{peak_rate / 1e12:.0f}; bound {row['bound_ms']:.2f} ms "
+          f"({row['bound_by']}), {row['share_of_bound']:.1%} of it; "
+          f"{told}", flush=True)
+    projs = None
+    if kind != "train":
+        projs = (shape.global_batch
+                 * (shape.seq_len if kind == "prefill" else 1),
+                 dry_projs(torch, args), lcfg.scale)
+    del args
+    _free(torch, device)
+    return row, projs
+
+
+def dry_b8(torch, kernels, timer, device):
+    """(c): B8 at S 32,768 over a Llama prefill layer's shape (seeded
+    unit-scale inputs, bf16): the last ``DRY_TAIL`` query rows of one
+    launch against the plain version over all the keys (the plain
+    version's and the bound's mask shifted to those rows' positions),
+    within ``swa_error_bound``; timed beside SDPA bf16 (causal, over K and
+    V repeated to the 24 query heads: its GQA path may take the math
+    backend, whose scores would be 103 GB here). Returns (max error,
+    timing tuple)."""
+    import torch.nn.functional as F
+    fs = importlib.import_module("repro_torch.kernels.flash_swa")
+    b, s, h, kvh, d = DRY_B8
+    g = torch.Generator(device=device)
+    g.manual_seed(16)
+    q = torch.randn(b, s, h, d, device=device, generator=g).bfloat16()
+    k = torch.randn(b, s, kvh, d, device=device, generator=g).bfloat16()
+    v = torch.randn(b, s, kvh, d, device=device, generator=g).bfloat16()
+    before = kernels.flash_swa.bf16_tc_launches
+    got = kernels.swa_attention(q, k, v, True, 0)[:, -DRY_TAIL:]
+    torch.cuda.synchronize()
+    if kernels.flash_swa.bf16_tc_launches != before + 1:
+        raise AssertionError("dry B8 S 32768: not the tensor-core body")
+    q0 = s - DRY_TAIL
+    mask = fs._mask
+    fs._mask = lambda sq, sk, causal, window, dev: visible_mask(
+        torch, dev, sq, sk, causal, window, q0=q0)
+    try:
+        tail = q[:, q0:]
+        want = kernels.swa_attention_plain(tail, k, v, True, 0)
+        bound = kernels.swa_error_bound(tail, k, v, True, 0)
+    finally:
+        fs._mask = mask
+    e = (got.float() - want.float()).abs()
+    err, worst = float(e.max()), float((e / bound).max())
+    if not bool((e <= bound).all()):
+        raise AssertionError(f"dry B8 S 32768: last {DRY_TAIL} rows off the "
+                             f"plain version by {err:.3e} ({worst:.3f} of "
+                             "the bound)")
+    del got, want, bound, e, tail
+    qt = q.transpose(1, 2)
+    kt, vt = (t.repeat_interleave(h // kvh, dim=2).transpose(1, 2)
+              for t in (k, v))
+
+    def kernel():
+        kernels.swa_attention(q, k, v, True, 0)
+
+    def library():
+        F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    flops, nbytes = port_cost.attention_work(b, s, s, h, kvh, d, True, 0, 2)
+    bound = bound_ms(nbytes, flops, BF16_FLOPS_PER_S)
+    t = (timer(kernel), None, timer(library), bound,
+         timer.device(kernel, bound[0]), timer.device(library, bound[0]))
+    ms, _, lib, (bms, by), dev, dev_lib = t
+    print(f"  [dry] flash_swa[B={b} S={s} H={h}/{kvh} d={d} causal bf16] "
+          f"last {DRY_TAIL} rows max_abs_err={err:.3e} within "
+          f"swa_error_bound ({worst:.3f} of it); time kernel {ms:.3f} ms, "
+          f"SDPA {lib:.3f} ms, bound {bms:.3f} ms ({by}); device kernel "
+          f"{fmt_ms(dev)}{share(bms, dev)}, SDPA {fmt_ms(dev_lib)}; "
+          f"{flops / (ms / 1e3) / 1e12:.0f} TFLOP/s", flush=True)
+    del q, k, v, qt, kt, vt
+    _free(torch, device)
+    return err, t
+
+
+def dryrun_phase(torch, kernels, device):
+    """Phase 16: (a) the dry run of every assigned architecture × shape,
+    (b) Llama's three steps measured against it, the launch counters set
+    to 0 before them and read after (B3 4·L a prefill or decode run, B8 L
+    a prefill run, 5 runs a step: the count, the warm-up and 3 timed),
+    (c) B8 at S 32,768. Returns (launches, B8's max error, B8's timing,
+    stats)."""
+    from repro_torch.launch import cost, dryrun, roofline, steps
+    t0 = time.perf_counter()
+    recs = dry_records(dryrun)
+    t_dry = time.perf_counter() - t0
+    ok = sum(r["status"] == "ok" for r in recs)
+    print(f"  [dry] {ok} ok, {len(recs) - ok} skipped of {len(recs)} in "
+          f"{t_dry:.1f} s", flush=True)
+    from repro_torch.configs import get_config
+    layers = get_config(DRY).num_layers
+    kernels.reset_launch_counts()
+    done = {kind: dry_step(torch, kernels, device, dryrun, cost, roofline,
+                           steps, kind) for kind in DRY_STEPS}
+    runs = DRY_RUNS + 2
+    counts = check_launches(kernels, "dry", {
+        "lora_matmul": 2 * runs * 4 * layers, "flash_swa": runs * layers},
+        " (B3 4·L and B8 L a prefill run, B3 4·L a decode run; 5 runs "
+        "each)")
+    tc = {"lora_matmul": runs * 4 * layers,
+          "lora_matmul_decode": runs * 4 * layers, "flash_swa": runs * layers}
+    if tc_launch_counts(kernels) != tc:
+        raise AssertionError(f"dry: tensor-core launches "
+                             f"{tc_launch_counts(kernels)} != {tc}")
+    rows = {kind: row for kind, (row, _) in done.items()}
+    b3_err = {kind: dry_b3(torch, kernels, device, kind, *held)
+              for kind, (_, held) in done.items() if held is not None}
+    del done
+    timer = Timer(torch, device)
+    err, b8 = dry_b8(torch, kernels, timer, device)
+    del timer
+    _free(torch, device)
+    stats = {"records": len(recs), "ok": ok, "dry_run_s": t_dry,
+             "steps": rows, "b3_max_abs_err": b3_err,
+             "phase_s": time.perf_counter() - t0}
+    print(f"  [dry] phase 16 in {stats['phase_s']:.1f} s", flush=True)
+    return ({k: counts[k] for k in ("lora_matmul", "flash_swa")}, err, b8,
+            stats)
+
+
+def dryrun_main() -> int:
+    """``--dryrun``: phase 16 alone (:func:`dryrun_phase`) on this
+    checkout's port, after the build, its stats as one JSON line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    from repro_torch import kernels
+    from repro_torch.kernels import build as kbuild
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(smi_line(), flush=True)
+    build_kernels(kbuild, "[dry]")
+    launches, err, b8, stats = dryrun_phase(torch, kernels,
+                                            torch.device("cuda", 0))
+    print(smi_line(), flush=True)
+    print(json.dumps({"dryrun": stats, "launches": launches,
+                      "b8_max_abs_err": err,
+                      "b8_S32768": timing_fields("S32768", b8)}), flush=True)
+    return 0
+
+
+
 def main() -> int:
     import torch
 
@@ -9506,6 +9983,8 @@ def main() -> int:
         return whisper_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--vlm":
         return vlm_main()
+    if len(sys.argv) == 2 and sys.argv[1] == "--dryrun":
+        return dryrun_main()
     if len(sys.argv) == 2 and sys.argv[1] == "--fold-check":
         return fold_check_main()
     if not torch.cuda.is_available():
@@ -9527,7 +10006,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = smi_line()
-    print(f"[1/16] environment: python {sys.version.split()[0]}, torch "
+    print(f"[1/17] environment: python {sys.version.split()[0]}, torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}, device "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
@@ -9538,11 +10017,11 @@ def main() -> int:
           flush=True)
     print(smi, flush=True)
 
-    build_kernels(kbuild, "[2/16]")
+    build_kernels(kbuild, "[2/17]")
 
     cfg = replace(get_config("paper-llama3.2-3b"), dtype="float32")
     c, r, scale = 4, 4, 8.0 / 4
-    print(f"[3/16] kernels vs plain versions (C={c}, r={r}, scale={scale})",
+    print(f"[3/17] kernels vs plain versions (C={c}, r={r}, scale={scale})",
           flush=True)
     errs, timings = kernel_phase(torch, kernels, device, cfg, c=c, r=r,
                                  scale=scale)
@@ -9566,7 +10045,7 @@ def main() -> int:
     print(f"  launch path: {json.dumps(cost)}", flush=True)
     torch.cuda.empty_cache()
 
-    print(f"[4/16] main paths: FederatedTrainer at {cfg.name} full width "
+    print(f"[4/17] main paths: FederatedTrainer at {cfg.name} full width "
           f"({cfg.num_layers} layers, d={cfg.d_model}, vocab "
           f"{cfg.vocab_size}, {cfg.dtype}); {', '.join(GPT2_PATHS)} at "
           f"{gcfg.name} ({gcfg.num_layers} layers, d={gcfg.d_model}, vocab "
@@ -9596,24 +10075,24 @@ def main() -> int:
           flush=True)
     serve_stats = {}
     for scfg in (cfg, gcfg):
-        print(f"[5/16] serving: {scfg.name} at full width, prefill + KV-cache "
+        print(f"[5/17] serving: {scfg.name} at full width, prefill + KV-cache "
               "greedy decode with a LoRA adapter", flush=True)
         serve_stats[scfg.name], serve_launches = serve_phase(
             torch, kernels, device, scfg)
         for k in ("lora_matmul", "flash_swa"):
             launches[k] += serve_launches[k]
-    print(f"[6/16] obs and the HTTP federation service at {cfg.name} full "
+    print(f"[6/17] obs and the HTTP federation service at {cfg.name} full "
           "width: fedex+obs, serve-http, pull-serve, serve-http-hetero",
           flush=True)
     obs_launches, obs_stats = obs_http_phase(torch, kernels, device, cfg)
     for k, v in obs_launches.items():
         launches[k] += v
-    print(f"[7/16] mesh mode at {cfg.name} full width: "
+    print(f"[7/17] mesh mode at {cfg.name} full width: "
           f"{', '.join(MESH_PATHS)}", flush=True)
     mesh_launches, mesh_stats = mesh_phase(torch, kernels, device, cfg)
     for k, v in mesh_launches.items():
         launches[k] += v
-    print(f"[8/16] the rest of the dense zoo at full width: "
+    print(f"[8/17] the rest of the dense zoo at full width: "
           f"{', '.join(ZOO)}, each trained and served", flush=True)
     zoo_errs, zoo_timings, zoo_launches, zoo_stats = zoo_phase(
         torch, kernels, device)
@@ -9621,14 +10100,14 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in zoo_launches.items():
         launches[k] += v
-    print(f"[9/16] serving in bf16, the reference's default dtype: B3 and B8 "
+    print(f"[9/17] serving in bf16, the reference's default dtype: B3 and B8 "
           f"in bf16, then {', '.join(BF16_SERVE)} served at full width and "
           "depth", flush=True)
     bf16_errs, bf16_timings, bf16_main_launches, bf16_launches, bf16_stats = \
         bf16_phase(torch, kernels, device)
     for k, v in bf16_main_launches.items():
         launches[k] += v
-    print(f"[10/16] the MoE family: {MOE} at full width, trained (host, then "
+    print(f"[10/17] the MoE family: {MOE} at full width, trained (host, then "
           f"a 2-lane mesh round) and served in f32 at depth "
           f"{MOE_DEPTH['float32']} and served in bf16 at depth "
           f"{MOE_DEPTH['bfloat16']} (cuts of 56)", flush=True)
@@ -9638,7 +10117,7 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in moe_launches.items():
         launches[k] += v
-    print(f"[11/16] Multi-head Latent Attention on the MoE stack: {DS} at "
+    print(f"[11/17] Multi-head Latent Attention on the MoE stack: {DS} at "
           f"full width, trained (host, then a 2-lane mesh round) and "
           f"served in f32 at depth {DS_DEPTH['float32']} and served in "
           f"bf16 at depth "
@@ -9650,7 +10129,7 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in mla_launches.items():
         launches[k] += v
-    print(f"[12/16] the hybrid family: {ZB} at full width and depth "
+    print(f"[12/17] the hybrid family: {ZB} at full width and depth "
           f"({ZB_DEPTH['float32']} Mamba2 layers, the shared block every "
           "6), trained (host, then a 2-lane mesh round) and served in f32, "
           "served in bf16", flush=True)
@@ -9660,7 +10139,7 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in zb_launches.items():
         launches[k] += v
-    print(f"[13/16] the ssm family: {XL} at full width and depth "
+    print(f"[13/17] the ssm family: {XL} at full width and depth "
           f"({XL_DEPTH['float32']} blocks, 6 periods of 7 mLSTM + 1 sLSTM), "
           "trained (host, then a 2-lane mesh round) and served in f32, "
           "served in bf16", flush=True)
@@ -9670,7 +10149,7 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in xl_launches.items():
         launches[k] += v
-    print(f"[14/16] the encdec family: {WH} at full width and depth "
+    print(f"[14/17] the encdec family: {WH} at full width and depth "
           "(24 encoder + 24 decoder layers over 1500 frames), trained "
           "(host, then a 2-lane mesh round) and served in f32, served in "
           "bf16", flush=True)
@@ -9680,7 +10159,7 @@ def main() -> int:
         errs[k] = max(errs[k], v)
     for k, v in wh_launches.items():
         launches[k] += v
-    print(f"[15/16] the vlm family: {VL} at full width, trained and served "
+    print(f"[15/17] the vlm family: {VL} at full width, trained and served "
           f"in f32 at depth {VL_DEPTH['float32']} and served in bf16 at "
           f"depth {VL_DEPTH['bfloat16']} (cuts of 80), prompts of "
           f"{VL_SERVE['prompt']} = 256 vision + 256 text tokens", flush=True)
@@ -9689,6 +10168,14 @@ def main() -> int:
     for k, v in vl_errs.items():
         errs[k] = max(errs[k], v)
     for k, v in vl_launches.items():
+        launches[k] += v
+    print(f"[16/17] the dry run and the roofline on one H100: every "
+          f"assigned architecture × shape on the meta device, then {DRY}'s "
+          "train, prefill and decode steps at full width and depth measured "
+          "against it, and B8 at S 32,768", flush=True)
+    dry_launches, dry_err, dry_b8_t, dry_stats = dryrun_phase(
+        torch, kernels, device)
+    for k, v in dry_launches.items():
         launches[k] += v
     mesh_fields = {"factor_mean": {}, "fedex_fold": {}}
     # the mesh round of phases 10–14: each close's B2 and B1 launches and
@@ -9908,6 +10395,15 @@ def main() -> int:
             "vl_bf16_max_abs_err": vl_bf16_errs[name]})
     out[list(SOURCES).index("lora_matmul")][
         "vl_bf16_tc_decode_launches"] = vl_bf16["lora_matmul_decode_tc"]
+    # phase 16: B3's and B8's launches in Llama's measured steps; B8 at
+    # S 32,768 (bf16, batch 1), its last 512 rows held to the plain version
+    for name in ("lora_matmul", "flash_swa"):
+        out[list(SOURCES).index(name)]["dry_launches"] = dry_launches[name]
+    out[list(SOURCES).index("lora_matmul")].update({
+        f"dry_{kind}_max_abs_err": e
+        for kind, e in dry_stats["b3_max_abs_err"].items()})
+    out[list(SOURCES).index("flash_swa")].update({
+        **timing_fields("S32768", dry_b8_t), "S32768_max_abs_err": dry_err})
     # B5 beside its old body (product_fold in place), and at the chunk of
     # 64 uplinks at r = 8 that docs/benchmarks.md documents
     ms, _, lib_ms, (bms, by), *_ = lane_timings["product_accum[C64r8]"]
@@ -9916,7 +10412,7 @@ def main() -> int:
         "C64r8_prior_ms": lane_prior["product_accum[C64r8]"],
         "C64r8_library_ms": lib_ms, "C64r8_bound_ms": bms,
         "C64r8_bound_by": by})
-    print(f"[16/16] done in {time.perf_counter() - t_start:.1f} s; identity "
+    print(f"[17/17] done in {time.perf_counter() - t_start:.1f} s; identity "
           "max "
           f"err per path {json.dumps(identities)}; resume "
           f"{json.dumps(resume)}; serving "
@@ -9925,7 +10421,8 @@ def main() -> int:
           f"{json.dumps(zoo_stats)}; bf16 {json.dumps(bf16_stats)}; moe "
           f"{json.dumps(moe_stats)}; mla {json.dumps(mla_stats)}; hybrid "
           f"{json.dumps(zb_stats)}; xlstm {json.dumps(xl_stats)}; encdec "
-          f"{json.dumps(wh_stats)}; vlm {json.dumps(vl_stats)}; rounds "
+          f"{json.dumps(wh_stats)}; vlm {json.dumps(vl_stats)}; dryrun "
+          f"{json.dumps(dry_stats)}; rounds "
           + json.dumps([{k: v for k, v in row.items()
                          if k != "client_losses"} for row in all_rows]),
           flush=True)

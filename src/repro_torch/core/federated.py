@@ -119,29 +119,45 @@ def _freeze_a(grads):
         lambda f: {"a": torch.zeros_like(f["a"]), "b": f["b"]}, grads)
 
 
+def lora_grads(model, params, lora, batch, lora_scale: float):
+    """(loss, gradients): the model's loss on ``batch`` and its gradients
+    with respect to the adapters only, through autograd, as a tree like
+    ``lora``; the frozen params get no gradient."""
+    flat = {p: x.detach().requires_grad_(True)
+            for p, x in flatten_with_paths(lora).items()}
+    loss, _ = model.loss(params, batch, lora=unflatten_from_paths(flat),
+                         lora_scale=lora_scale)
+    grads = torch.autograd.grad(loss, list(flat.values()))
+    return loss.detach(), unflatten_from_paths(dict(zip(flat, grads)))
+
+
+def clip_and_adamw(grads, opt_state, lora, lr, train_cfg: TrainConfig):
+    """Global-norm clipping, then AdamW at ``lr``: (lora, opt_state,
+    gnorm)."""
+    grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
+    lora, opt_state = adamw_update(
+        grads, opt_state, lora, learning_rate=lr, beta1=train_cfg.beta1,
+        beta2=train_cfg.beta2, eps=train_cfg.eps,
+        weight_decay=train_cfg.weight_decay)
+    return lora, opt_state, gnorm
+
+
 def make_local_step(model, lora_scale: float, train_cfg: TrainConfig,
                     freeze_a: bool = False) -> Callable:
-    """One local step: LoRA-only gradients through autograd, global-norm
-    clipping, AdamW. ``step(params, lora, opt_state, batch, lr) → (lora,
-    opt_state, loss, gnorm)``; the frozen params get no gradient.
-    ``freeze_a`` (FFA-LoRA) zeroes the a-gradients before the clipping."""
+    """One local step: :func:`lora_grads`, then :func:`clip_and_adamw`.
+    ``step(params, lora, opt_state, batch, lr) → (lora, opt_state, loss,
+    gnorm)``. ``freeze_a`` (FFA-LoRA) zeroes the a-gradients before the
+    clipping."""
 
     def step(params, lora, opt_state, batch, lr):
-        flat = {p: x.detach().requires_grad_(True)
-                for p, x in flatten_with_paths(lora).items()}
-        loss, _ = model.loss(params, batch, lora=unflatten_from_paths(flat),
-                             lora_scale=lora_scale)
-        grads = torch.autograd.grad(loss, list(flat.values()))
-        grads = unflatten_from_paths(dict(zip(flat, grads)))
+        loss, grads = lora_grads(model, params, lora, batch, lora_scale)
         if freeze_a:
             grads = _freeze_a(grads)
-        grads, gnorm = clip_by_global_norm(grads, train_cfg.grad_clip)
-        new_lora, opt_state = adamw_update(
+        new_lora, opt_state, gnorm = clip_and_adamw(
             grads, opt_state, unflatten_from_paths(
-                {p: x.detach() for p, x in flat.items()}),
-            learning_rate=lr, beta1=train_cfg.beta1, beta2=train_cfg.beta2,
-            eps=train_cfg.eps, weight_decay=train_cfg.weight_decay)
-        return new_lora, opt_state, loss.detach(), gnorm
+                {p: x.detach() for p, x in flatten_with_paths(lora).items()}),
+            lr, train_cfg)
+        return new_lora, opt_state, loss, gnorm
 
     return step
 

@@ -64,7 +64,10 @@ three column boxes of four loaded) and 256 (gemma3).
   ``flash_swa.launches``, the bf16 ones also in ``bf16_launches`` and
   those through the tensor cores in ``bf16_tc_launches``),
   raises on a failed launch, and takes the plain version only for CPU
-  tensors. :func:`swa_attention` reads query head h's
+  tensors. Meta tensors (the dry run) get the CUDA path's output and no
+  launch; under :mod:`repro_torch.launch.cost`'s counter
+  (``repro_torch.util.cost.LOCAL.mode``) a call counts as
+  ``cost.attention_work`` on every device. :func:`swa_attention` reads query head h's
   K/V head h // (H/KVH) in place through strides — the reference's
   ``jnp.repeat`` map with no copy of K and V.
 
@@ -82,6 +85,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import check_launch, load_library
+from repro_torch.util import cost
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256  # shared memory: one block of 64 query rows an SM
@@ -339,13 +343,16 @@ def _body(low: bool, d: int, strides, sizes, aligned: bool) -> str:
 
 def _launch(name, q, k, v, out, b, h, kvh, strides, causal, window):
     """One kernel launch; ``strides`` are the (batch, position, head)
-    element strides of q, k, v and out."""
-    if q.device.type != "cuda":
+    element strides of q, k, v and out. On the meta device: the checks,
+    then ``out`` with no launch."""
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"{name}: unsupported device {q.device}")
     sq, d, sk = q.shape[1], q.shape[-1], k.shape[1]
     dp, smem = _plan(name, b, h, d)
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError(f"{name}: the head dim must be contiguous")
+    if q.device.type == "meta":
+        return out
     low = q.dtype == torch.bfloat16
     sizes = (b, sq, h, b, sk, kvh, b, sk, kvh)
     tc = _body(low, d, strides, sizes,
@@ -379,6 +386,11 @@ def flash_swa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q, k, v (BH, S, D), all f32 or all bf16 → a new (BH, Sq, D)
     attention output in their dtype."""
     _check("flash_swa", q, k, v, 3)
+    mode = cost.LOCAL.mode
+    if mode is not None and not mode.in_kernel:  # counted, then run as here
+        return mode.kernel(cost.attention_work(
+            q.shape[0], q.shape[1], k.shape[1], 1, 1, q.shape[2], causal,
+            window, q.element_size()), flash_swa, q, k, v, causal, window)
     if q.device.type == "cpu":
         return flash_swa_plain(q, k, v, causal, window)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
@@ -394,10 +406,15 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, Sq, H, D) output in their dtype; query head h attends with K/V head
     h // (H/KVH)."""
     _check("swa_attention", q, k, v, 4)
-    b, _, h, _ = q.shape
+    b, sq, h, d = q.shape
     kvh = k.shape[2]
     if h % kvh:
         raise ValueError(f"swa_attention: {h} query heads over {kvh} KV heads")
+    mode = cost.LOCAL.mode
+    if mode is not None and not mode.in_kernel:  # counted, then run as here
+        return mode.kernel(cost.attention_work(
+            b, sq, k.shape[1], h, kvh, d, causal, window, q.element_size()),
+            swa_attention, q, k, v, causal, window)
     if q.device.type == "cpu":
         return swa_attention_plain(q, k, v, causal, window)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)

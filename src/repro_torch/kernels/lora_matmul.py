@@ -57,7 +57,11 @@ projection through :func:`lora_dense`: 4 launches a layer.
   two grids of the tiled or the tensor-core body are one launch of it),
   raises on a failed launch, and takes the plain version only for CPU
   tensors (``lora_matmul.bf16_launches`` counts the bf16 ones among
-  them). Its launch path is lean, since decode calls it 112 times a step
+  them). Meta tensors (the dry run) get the CUDA path's output and work
+  buffer, and no launch; under :mod:`repro_torch.launch.cost`'s counter
+  (``repro_torch.util.cost.LOCAL.mode``) the call counts as
+  ``cost.lora_matmul_work`` on every device. Its launch path is lean,
+  since decode calls it 112 times a step
   at paper-llama3.2-3b depth: the checks are one combined test, the plan
   and the SM count are cached (x's and W's tensor maps in the library),
   and no work buffer is allocated for decode.
@@ -79,6 +83,7 @@ import math
 import torch
 
 from repro_torch.kernels.build import check_launch, load_library
+from repro_torch.util import cost
 
 MAX_RANK = 64       # shared memory: the tiled body keeps (128, r) x@a
 SKINNY_ROWS = 16    # M at or below → a split-K body
@@ -321,10 +326,16 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     float32 tensor; the operands all float32 or all bfloat16. Any M, N, K;
     r ≤ 64 on the card."""
     _check(x, w, a, b)
+    mode = cost.LOCAL.mode
+    if mode is not None and not mode.in_kernel:  # counted, then run as here
+        return mode.kernel(cost.lora_matmul_work(
+            x.shape[0], x.shape[1], w.shape[1], a.shape[1], x.element_size()),
+            lora_matmul, x, w, a, b, scale)
     dev = x.device
     if dev.type == "cpu":
         return lora_matmul_plain(x, w, a, b, scale)
-    if dev.type != "cuda":
+    meta = dev.type == "meta"
+    if not (meta or dev.type == "cuda"):
         raise ValueError(f"lora_matmul: unsupported device {dev}")
     m, k = x.shape
     n, r = w.shape[1], a.shape[1]
@@ -341,6 +352,8 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     low = x.dtype is torch.bfloat16
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
     if m <= SKINNY_ROWS:
+        if meta:
+            return y  # the split-K bodies take no work buffer
         if _body(m, k, n, low, aligned) == "tensor-core split-K":
             splits, kc, bn = _tc_split_plan(n, k, _sm_count(dev.index))
             vec = 4  # bit 2: the tensor-core split-K body
@@ -359,6 +372,8 @@ def lora_matmul(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         if r:
             work = torch.empty(_work_floats(m, n, r, 0, k if tc else 0),
                                dtype=torch.float32, device=dev)
+    if meta:
+        return y
     lib = load_library()
     switch = dev.index != torch.cuda.current_device()
     with torch.cuda.device(dev) if switch else contextlib.nullcontext():

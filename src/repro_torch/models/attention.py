@@ -195,12 +195,14 @@ def cache_write(cache: Params, k_new: torch.Tensor, v_new: torch.Tensor,
                 position: int) -> Params:
     """Write one step (Sq = 1) at slot ``position % length`` — in place (the
     reference returns a new cache; the port saves the copy) — and return
-    the cache."""
+    the cache. Scalars go in by ``fill_``, one op on every device (an
+    assignment of a Python number builds its scalar on the host for a
+    CUDA tensor and on the device for a meta one)."""
     position = int(position)
     slot = position % cache["k"].shape[1]
     cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
     cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
-    cache["pos"][slot] = position
+    cache["pos"][slot].fill_(position)
     return cache
 
 
@@ -214,9 +216,9 @@ def _prefill_cache(cache: Params, positions: torch.Tensor,
     n = ppos.shape[0]
     for name, t in entries.items():
         cache[name][:, :n] = t[:, -n:].to(cache[name].dtype)
-        cache[name][:, n:] = 0
+        cache[name][:, n:].zero_()
     cache["pos"][:n] = ppos.to(torch.int32)
-    cache["pos"][n:] = -1
+    cache["pos"][n:].fill_(-1)
     return cache
 
 

@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.util.cost import Loop
 from repro_torch.models.attention import (attention_block, init_kv_cache,
                                           make_attention_params)
 from repro_torch.models.common import (Params, apply_norm, dtype_of, embed,
@@ -99,7 +100,7 @@ def encode(cfg, params: Params, frames: torch.Tensor, *,
     x = frames.to(dtype_of(cfg))
     x = x + params["enc_pos_embed"]["embedding"][:x.shape[1]]
     stack, stack_lora = params["encoder"], lora.get("encoder")
-    for i in range(cfg.enc_layers):
+    for i in Loop(cfg.enc_layers, x.device):
         p = _layer_slice(stack, i)
         lo = _layer_slice(stack_lora, i) or {}
         h, _ = attention_block(cfg, p["attn"],
@@ -166,7 +167,7 @@ def decoder_forward(cfg, params: Params, tokens: torch.Tensor,
                  else torch.arange(tokens.shape[1], device=tokens.device))
     fused = cache is not None
     stack, stack_lora = params["decoder"], lora.get("decoder")
-    for i in range(cfg.num_layers):
+    for i in Loop(cfg.num_layers, x.device):
         p = _layer_slice(stack, i)
         lo = _layer_slice(stack_lora, i) or {}
         ca = _layer_slice(cache, i) or {}

@@ -119,7 +119,7 @@ def _absorbed_decode(cfg, params, cache, q_nope, q_rope, c_kv, k_rope,
     ckv, kr, pos = cache["c_kv"], cache["k_rope"], cache["pos"]
     ckv[:, slot] = c_kv[:, 0].to(ckv.dtype)
     kr[:, slot] = k_rope[:, 0].to(kr.dtype)
-    pos[slot] = position
+    pos[slot].fill_(position)  # as cache_write: one op on every device
     w_uk = params["k_up"]["kernel"].reshape(kvr, h, nope)
     w_uv = params["v_up"]["kernel"].reshape(kvr, h, dv)
     q_lat = torch.einsum("bqhd,chd->bqhc", q_nope, w_uk.to(q_nope.dtype))

@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.util.cost import Loop
 from repro_torch.models.common import (Params, maybe_lora, project,
                                        stacked_normal)
 from repro_torch.util.device import resolve_device
@@ -121,7 +122,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                 h0: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Chunked SSD in torch ops (the reference's ``jnp.einsum`` and
-    ``lax.scan``; no kernel).
+    ``lax.scan``, the chunk recurrence a ``cost.Loop``, which the dry run's
+    counter shortens; no kernel).
 
     x:  (B, S, H, P) inputs per head
     dt: (B, S, H)    positive step sizes
@@ -172,10 +174,11 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     hs = (torch.zeros((bsz, h, p, n), dtype=torch.float32, device=x.device)
           if h0 is None else h0)
     enter = []
-    for z in range(nc):
+    chunks = Loop(nc, x.device)
+    for z in chunks:
         enter.append(hs)  # the state ENTERING chunk z
         hs = hs * chunk_decay[:, z, :, None, None] + states[:, z]
-    h_enter = torch.stack(enter, dim=1)  # (B, NC, H, P, N)
+    h_enter = chunks.stack(enter, dim=1)  # (B, NC, H, P, N)
 
     # ---- inter-chunk (off-diagonal) output ------------------------------
     state_decay = torch.exp(da_cs)  # decay from the chunk's start to l

@@ -33,7 +33,9 @@ embeddings (``extra_embeds``, the stubbed ViT's) through it and prepends
 them to the token embeddings, so positions run over the concatenated
 length; decode reads tokens only. Where JAX scans
 the stacked parameters, the port runs a Python loop over the layer (and
-period) index. The reference's ``remat`` has no counterpart: at the batch
+period) index, a :class:`~repro_torch.util.cost.Loop`, which the dry
+run's counter shortens on the meta device as the reference's analyser
+multiplies a scan body. The reference's ``remat`` has no counterpart: at the batch
 sizes the port trains, activations fit without recomputation.
 """
 
@@ -43,6 +45,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.util.cost import Loop
 from repro_torch.models.attention import (attention_block, init_kv_cache,
                                           make_attention_params)
 from repro_torch.models.common import (Params, apply_norm, dense, dtype_of,
@@ -404,7 +407,7 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
     if cfg.family == "ssm":  # the reference's xperiod_body, unrolled
         nper, period = xlstm_layout(cfg)
         per, per_lora = params["periods"], lora.get("periods")
-        for i in range(nper):
+        for i in Loop(nper, x.device):
             for j in range(period - 1):
                 x, _ = mlstm_block(
                     cfg, _layer_slice(per["mlstm"], i, j), x,
@@ -420,7 +423,7 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
                 decode=mode == "decode")
     elif cfg.family == "hybrid":  # the reference's hperiod_body, unrolled
         nper, trailing = hybrid_layout(cfg)
-        for i in range(nper):
+        for i in Loop(nper, x.device):
             for j in range(cfg.attn_every):
                 x = mamba(x, params["mamba_layers"],
                           lora.get("mamba_layers"), part(cache, "mamba"),
@@ -436,7 +439,7 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
     elif cfg.local_global_ratio:  # the reference's period_body, unrolled
         nper, ratio = _periods(cfg)
         per, per_lora = params["periods"], lora.get("periods")
-        for i in range(nper):
+        for i in Loop(nper, x.device):
             for j in range(ratio):
                 x = layer(x, per["local"], part(per_lora, "local"),
                           part(cache, "local"), (i, j), cfg.local_window)
@@ -446,7 +449,8 @@ def forward(cfg, params: Params, tokens: torch.Tensor, *,
         stacks = (["dense_layers"] if "dense_layers" in params else []
                   ) + ["layers"]
         for key in stacks:
-            for i in range(params[key]["attn_norm"]["scale"].shape[0]):
+            for i in Loop(params[key]["attn_norm"]["scale"].shape[0],
+                          x.device):
                 x = layer(x, params[key], lora.get(key), part(cache, key),
                           (i,), cfg.sliding_window)
     x = apply_norm(cfg.norm, params["final_norm"], x)

@@ -34,6 +34,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.util.cost import Loop
 from repro_torch.models.common import (Params, apply_norm, dense,
                                        make_norm_params, maybe_lora, project,
                                        stacked_normal)
@@ -88,7 +89,9 @@ def mlstm_chunked(q, k, v, i_pre, lf, *, chunk: int = 256, state=None,
     state: optional (C, n, m). Returns (h (B,S,H,D) f32, final state, or
     None without ``final_state``).
 
-    The chunks run in a Python loop (the reference's ``lax.scan``). With
+    The chunks run in a Python loop (the reference's ``lax.scan``; a
+    :class:`~repro_torch.util.cost.Loop`, so that the dry run's counter
+    runs one of the middle chunks for all of them). With
     no ``state`` the memory starts empty (C, n zero, m −inf): the state's
     branch then has weight exp(−inf) = 0 and adds exact zeros, so the
     first chunk leaves it out, and no zero (B, H, D, D) product is kept
@@ -111,7 +114,8 @@ def mlstm_chunked(q, k, v, i_pre, lf, *, chunk: int = 256, state=None,
     causal = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                    device=q.device))
     outs = []
-    for z in range(nc):  # the reference's lax.scan over the chunks
+    chunks = Loop(nc, q.device)  # the reference's lax.scan over the chunks
+    for z in chunks:
         qb, kb, vb, ib, lfb = qc[z], kc[z], vc[z], ic[z], lfc[z]
         b_cum = torch.cumsum(lfb, dim=-1)  # (B,H,L) inclusive
         # D_ij = b_i - b_j + i_j (j <= i)
@@ -154,7 +158,7 @@ def mlstm_chunked(q, k, v, i_pre, lf, *, chunk: int = 256, state=None,
             c_st = decay[..., None, None] * c_st + c_in
             n_st = decay[..., None] * n_st + n_in
         m_st = m_next
-    hs = torch.stack(outs, dim=0)  # (NC, B, H, L, D)
+    hs = chunks.stack(outs, dim=0)  # (NC, B, H, L, D)
     hs = hs.permute(1, 0, 3, 2, 4).reshape(bsz, s, h, d)
     return hs, (c_st, n_st, m_st) if final_state else None
 
@@ -391,7 +395,8 @@ def slstm_block(cfg, params: Params, x: torch.Tensor, *,
                 cache: Optional[Params] = None, decode: bool = False
                 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """x: (B, S, d_model) → (block output, cache). The recurrence runs
-    position by position (the reference's ``lax.scan``); with a cache
+    position by position (the reference's ``lax.scan``; a ``cost.Loop``,
+    which the dry run's counter shortens); with a cache
     (serving) it starts from the cache's state, writes the state after the
     last position back in place (``h`` stays in the cache's dtype) and runs
     w_gates and the FFN's adapted projections through the fused LoRA
@@ -410,10 +415,11 @@ def slstm_block(cfg, params: Params, x: torch.Tensor, *,
              else init_slstm_cache(bsz, cfg, x.dtype, x.device))
     r = _recurrent(params["r_gates"])
     hs = []
-    for t in range(s):
+    steps = Loop(s, x.device)
+    for t in steps:
         state, h = slstm_step(r, state, pre[:, t])
         hs.append(h)
-    hs = torch.stack(hs, dim=1)
+    hs = steps.stack(hs, dim=1)
     if serving:
         for key in ("c", "n", "m", "h"):
             _store(cache, key, state[key])
